@@ -1,0 +1,52 @@
+"""Config system: the model config dataclass (the fields the JAX package's
+ModelConfig carries, so a config reads the same in both packages)."""
+
+from __future__ import annotations
+
+import dataclasses
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    name: str
+    family: str  # dense | moe | rwkv6 | zamba2 | encdec | cnn
+    n_layers: int
+    d_model: int
+    vocab: int
+    d_ff: int = 0
+    n_heads: int = 0
+    n_kv_heads: int = 0
+    head_dim: int | None = None  # None -> d_model // n_heads
+    qk_norm: bool = False
+    qkv_bias: bool = False
+    act: str = "silu"
+    norm_eps: float = 1e-6
+    tie_embeddings: bool = True
+    scale_embed: bool = False
+    rope_theta: float = 1e4
+    # gemma3-style local:global attention
+    local_window: int | None = None
+    global_every: int = 0  # every Nth layer is global; 0 = all global
+    rope_theta_global: float | None = None
+    # MoE
+    n_experts: int = 0
+    moe_top_k: int = 0
+    capacity_factor: float = 1.25
+    # SSM / hybrid
+    ssm_state: int = 0
+    ssm_head_dim: int = 64
+    ssm_expand: int = 2
+    conv_width: int = 4
+    shared_attn_every: int = 0  # zamba2: shared attn block cadence
+    # encoder-decoder
+    n_enc_layers: int = 0
+    enc_seq: int = 4096  # stub audio-frontend frame count
+    max_seq: int = 524288
+
+    @property
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or (self.d_model // max(self.n_heads, 1))
+
+    @property
+    def attention_free(self) -> bool:
+        return self.family == "rwkv6"

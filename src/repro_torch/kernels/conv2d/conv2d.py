@@ -1,0 +1,128 @@
+"""The fused direct conv kernel (``csrc/conv2d.cu``): launch wrapper and
+plain version.
+
+Replaces ``repro/kernels/conv2d/conv2d.py::_conv_kernel``: batched,
+strip-tiled stacked direct conv (Algs 1/2) with bias, ReLU, the
+``pool x pool`` max-pool and the optional int8 mask fused into the flush.
+One thread block per (image, strip, output stack); the d_in grid axis is a
+loop inside the block.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.machine import H100
+from repro_torch.plan.registry import CudaKernel
+
+LANE = 8  # output channels of one thread item
+MAX_GRID_YZ = 65535  # strips and images ride the grid's y and z axes
+
+
+def smem_bytes(*, block_h: int, block_do: int, block_di: int, W_O: int,
+               F: int, S: int) -> int:
+    """Shared memory one block allocates: the f32 accumulator strip and two
+    stages of the halo'd input strip and the filter block (== ConvPlanner's
+    H100 budget term)."""
+    h_halo, w_str = (block_h - 1) * S + F, (W_O - 1) * S + F
+    return 4 * (block_h * W_O * block_do
+                + 2 * (h_halo * w_str * block_di + F * F * block_di * block_do))
+
+
+def supported_blocks(*, block_h: int, block_do: int, block_di: int, W_O: int,
+                     F: int, S: int, pool: int = 1) -> bool:
+    """The blocks the kernel takes: a multiple-of-8 output stack, a strip
+    that tiles the pool window, and tiles that fit one block's shared
+    memory."""
+    return (block_do > 0 and block_do % LANE == 0 and block_di > 0
+            and block_h > 0 and pool >= 1 and block_h % pool == 0
+            and W_O % pool == 0
+            and smem_bytes(block_h=block_h, block_do=block_do,
+                           block_di=block_di, W_O=W_O, F=F, S=S)
+            <= H100.local_mem_bytes)
+
+
+def _check(x_pad, f, bias, *, stride, block_h, block_do, block_di, H_O, W_O,
+           relu, pool, emit_mask):
+    if x_pad.ndim != 4 or f.ndim != 4 or f.shape[0] != f.shape[1]:
+        raise ValueError(f"conv2d shapes x={tuple(x_pad.shape)} f={tuple(f.shape)}")
+    B, H_in, W_in, d_in = x_pad.shape
+    Fk, _, d_in2, d_out = f.shape
+    if d_in2 != d_in or tuple(bias.shape) != (d_out,):
+        raise ValueError(f"conv2d channels: x {d_in}, f {tuple(f.shape)}, "
+                         f"bias {tuple(bias.shape)}")
+    if not supported_blocks(block_h=block_h, block_do=block_do, block_di=block_di,
+                            W_O=W_O, F=Fk, S=stride, pool=pool):
+        raise ValueError(f"conv2d kernel does not take blocks (h={block_h}, "
+                         f"do={block_do}, di={block_di}) at W_O={W_O}, F={Fk}, "
+                         f"S={stride}, pool={pool}")
+    n_h = -(-H_O // block_h)
+    if H_in < (n_h * block_h - 1) * stride + Fk or W_in < (W_O - 1) * stride + Fk:
+        raise ValueError(f"conv2d input {H_in}x{W_in} does not cover {n_h} strips "
+                         f"of {block_h} rows x {W_O} cols")
+    if emit_mask and not relu:
+        raise ValueError("the epilogue mask encodes ReLU liveness: needs relu")
+    return B, d_out, Fk, n_h
+
+
+def conv2d_fused_plain(x_pad, f, bias, *, stride: int, block_h: int,
+                       block_do: int, block_di: int, H_O: int, W_O: int,
+                       relu: bool = False, pool: int = 1, emit_mask: bool = False):
+    """The kernel's function in plain PyTorch (same contract, same checks):
+    [B, n_h*block_h // pool, W_O // pool, D_O] (rows past H_O computed from
+    the caller's padding rows), and with ``emit_mask`` also the int8 mask.
+    On the card it needs cuDNN's TF32 off to be an f32 reference."""
+    B, d_out, _, n_h = _check(
+        x_pad, f, bias, stride=stride, block_h=block_h, block_do=block_do,
+        block_di=block_di, H_O=H_O, W_O=W_O, relu=relu, pool=pool,
+        emit_mask=emit_mask)
+    rows = n_h * block_h
+    y = F.conv2d(x_pad.permute(0, 3, 1, 2), f.permute(3, 2, 0, 1), stride=stride)
+    y = y[:, :, :rows, :W_O].permute(0, 2, 3, 1) + bias
+    if relu:
+        y = torch.relu(y)
+    win = (y.reshape(B, rows // pool, pool, W_O // pool, pool, d_out)
+           .permute(0, 1, 3, 5, 2, 4).reshape(B, rows // pool, W_O // pool, d_out,
+                                              pool * pool))
+    out, arg = win.max(dim=-1)  # first window position on ties
+    if not emit_mask:
+        return out.contiguous()
+    dead = pool * pool if pool > 1 else 1
+    live = arg if pool > 1 else torch.zeros_like(arg)
+    mask = torch.where(out > 0, live, torch.full_like(arg, dead)).to(torch.int8)
+    return out.contiguous(), mask
+
+
+def _launch(kernel: CudaKernel, x_pad, f, bias, *, stride: int, block_h: int,
+            block_do: int, block_di: int, H_O: int, W_O: int, relu: bool = False,
+            pool: int = 1, emit_mask: bool = False):
+    B, d_out, Fk, n_h = _check(
+        x_pad, f, bias, stride=stride, block_h=block_h, block_do=block_do,
+        block_di=block_di, H_O=H_O, W_O=W_O, relu=relu, pool=pool,
+        emit_mask=emit_mask)
+    for name, t in (("x", x_pad), ("f", f), ("bias", bias)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"conv2d kernel takes contiguous float32 {name}, got "
+                             f"{t.dtype} (contiguous={t.is_contiguous()})")
+    if n_h > MAX_GRID_YZ or B > MAX_GRID_YZ:
+        raise ValueError(f"conv2d grid ({n_h} strips, {B} images) too large")
+    _, H_in, W_in, d_in = x_pad.shape
+    shape = (B, n_h * block_h // pool, W_O // pool, d_out)
+    out = torch.empty(shape, dtype=torch.float32, device=x_pad.device)
+    mask = torch.empty(shape, dtype=torch.int8, device=x_pad.device) if emit_mask else None
+    kernel.run(ctypes.c_void_p(x_pad.data_ptr()), ctypes.c_void_p(f.data_ptr()),
+               ctypes.c_void_p(bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+               ctypes.c_void_p(mask.data_ptr() if emit_mask else None),
+               B, H_in, W_in, d_in, d_out, Fk, stride, W_O, n_h, block_h,
+               block_di, block_do, int(relu), pool)
+    return (out, mask) if emit_mask else out
+
+
+conv2d_kernel = CudaKernel(
+    "conv2d", source="conv2d", symbol="repro_conv2d_fused_f32",
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    launch=_launch, plain=conv2d_fused_plain,
+)

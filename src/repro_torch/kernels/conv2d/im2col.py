@@ -1,0 +1,121 @@
+"""im2col-GEMM conv2d: the direct strip kernel's rival algorithm family.
+
+Each strip of ``block_h`` output rows expands its receptive fields into a
+patch matrix of ``[batch * rows * W_O, F*F*d_in]`` with plain PyTorch
+slicing — strip at a time, like the XLA code of
+``repro/kernels/conv2d/im2col.py`` — and multiplies it by the reshaped
+``[F*F*d_in, d_out]`` filter matrix on the blocked matmul kernel, whose
+blocking :class:`repro_torch.plan.Im2colConvPlanner` delegates to
+``MatmulPlanner``.  Bias, ReLU and pool stay unfused, as in the reference.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.core.machine import H100, MachineModel
+from repro_torch.kernels.conv2d.ops import _fused_pool, _zero_bias, conv_out_extent
+from repro_torch.kernels.conv2d.ref import maxpool_ref
+from repro_torch.kernels.matmul.matmul import matmul_kernel
+from repro_torch.plan import Im2colConvPlanner, Schedule, cuda_op, pad_dim, round_up
+
+
+def _shape_args(x, f, bias=None, *, stride=1, padding=0, relu=False, pool=1,
+                block_h=None, block_m=None, block_n=None, block_k=None):
+    """Planner shapes from concrete operands (the op registry contract)."""
+    B = x.shape[0] if x.ndim == 4 else 1
+    H, W, d_in = x.shape[-3], x.shape[-2], x.shape[-1]
+    Fk, d_out = f.shape[0], f.shape[3]
+    H_O = conv_out_extent(H, padding, Fk, stride)
+    W_O = conv_out_extent(W, padding, Fk, stride)
+    return dict(
+        H_O=H_O, W_O=W_O, F=Fk, S=stride, d_in=d_in, d_out=d_out,
+        in_bytes=x.element_size(), pool=_fused_pool(H_O, W_O, pool), batch=B,
+        padding=padding, H_I=H, W_I=W,
+        block_h=block_h, block_m=block_m, block_n=block_n, block_k=block_k,
+    )
+
+
+def strip_patches(xp: torch.Tensor, h0: int, rows: int, *, F: int, S: int,
+                  W_O: int) -> torch.Tensor:
+    """The patch matrix of one strip, ``[B * rows * W_O, F*F*d_in]`` with
+    (fy, fx, d_i) column order, from the spatially padded input."""
+    B, d_in = xp.shape[0], xp.shape[3]
+    win = xp[:, h0 * S: h0 * S + (rows - 1) * S + F]
+    cols = [win[:, fy: fy + (rows - 1) * S + 1: S, fx: fx + (W_O - 1) * S + 1: S]
+            for fy in range(F) for fx in range(F)]
+    return torch.stack(cols, dim=3).reshape(B * rows * W_O, F * F * d_in)
+
+
+def _conv2d_im2col_impl(x, f, bias, *, stride, padding, relu, pool, schedule):
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+    B, H, W, d_in = x.shape
+    Fk, d_out = f.shape[0], f.shape[3]
+    S = stride
+    H_O = conv_out_extent(H, padding, Fk, S)
+    W_O = conv_out_extent(W, padding, Fk, S)
+    if H_O <= 0 or W_O <= 0:
+        raise ValueError("receptive field larger than padded input")
+
+    hb = max(1, min(schedule.block("block_h"), H_O))
+    k = Fk * Fk * d_in
+    bm, bn, bk = (schedule.block("block_m"), schedule.block("block_n"),
+                  schedule.block("block_k"))
+    # Pad so every strip's halo'd window and the right-most column exist.
+    n_h = -(-H_O // hb)
+    pad_bottom = padding + max(0, (n_h * hb - 1) * S + Fk - (H + 2 * padding))
+    pad_right = padding + max(0, (W_O - 1) * S + Fk - (W + 2 * padding))
+    xp = F.pad(x, (0, 0, padding, pad_right, padding, pad_bottom))
+
+    kp, np_ = round_up(k, bk), round_up(d_out, bn)
+    wmat = pad_dim(pad_dim(f.reshape(k, d_out), 0, kp), 1, np_).contiguous()
+
+    strips = []
+    for h0 in range(0, H_O, hb):
+        rows = min(hb, H_O - h0)
+        a = strip_patches(xp, h0, rows, F=Fk, S=S, W_O=W_O)
+        m = a.shape[0]
+        ap = pad_dim(pad_dim(a, 0, round_up(m, bm)), 1, kp).contiguous()
+        o = matmul_kernel(ap, wmat, block_m=bm, block_n=bn, block_k=bk)
+        strips.append(o[:m, :d_out].reshape(B, rows, W_O, d_out))
+    out = torch.cat(strips, dim=1) + bias.float()
+    if relu:
+        out = torch.relu(out)
+    if pool > 1:  # unfused epilogue (the direct kernel fuses this)
+        out = maxpool_ref(out, pool)
+    return out if batched else out[0]
+
+
+def _impl(x, f, bias, *, schedule, stride=1, padding=0, relu=False, pool=1,
+          block_h=None, block_m=None, block_n=None, block_k=None):
+    del block_h, block_m, block_n, block_k  # consumed by the planner
+    return _conv2d_im2col_impl(x, f, bias, stride=stride, padding=padding,
+                               relu=relu, pool=int(pool), schedule=schedule)
+
+
+conv2d_im2col_op = cuda_op(
+    "conv2d_im2col", planner=Im2colConvPlanner, shape_args=_shape_args,
+    impl=_impl, kernel=matmul_kernel,
+)
+
+
+def conv2d_im2col(
+    x: torch.Tensor, f: torch.Tensor, *, stride: int = 1, padding: int = 0,
+    bias: torch.Tensor | None = None, relu: bool = False, pool: int | None = None,
+    schedule: Schedule | None = None, block_h: int | None = None,
+    block_m: int | None = None, block_n: int | None = None,
+    block_k: int | None = None, machine: MachineModel = H100,
+) -> torch.Tensor:
+    """im2col-GEMM convolutional forward for arbitrary shapes: the contract
+    of :func:`repro_torch.kernels.conv2d.ops.conv2d` (fused bias/ReLU,
+    unfused pool), executed as per-strip patch-matrix GEMMs."""
+    if bias is None:
+        bias = _zero_bias(f)
+    return conv2d_im2col_op(
+        x, f, bias, schedule=schedule, machine=machine,
+        stride=stride, padding=padding, relu=relu, pool=int(pool or 1),
+        block_h=block_h, block_m=block_m, block_n=block_n, block_k=block_k,
+    )

@@ -1,0 +1,42 @@
+"""Plain PyTorch oracles for the conv2d kernels (NHWC activations,
+``[F, F, D_I, D_O]`` filters, as in the JAX package)."""
+
+import torch
+import torch.nn.functional as F
+
+
+def conv2d_ref(x, f, *, stride: int = 1, padding: int = 0):
+    """Direct 2D convolution (cross-correlation, CNN convention), f32.
+
+    ``x``: [H, W, D_I] or [B, H, W, D_I]; ``f``: [F, F, D_I, D_O].
+    Returns [H_O, W_O, D_O] (or batched), H_O = (H + 2P - F)//S + 1.
+    """
+    squeeze = x.ndim == 3
+    if squeeze:
+        x = x[None]
+    y = F.conv2d(x.float().permute(0, 3, 1, 2), f.float().permute(3, 2, 0, 1),
+                 stride=stride, padding=padding)
+    y = y.permute(0, 2, 3, 1)
+    return y[0] if squeeze else y
+
+
+def maxpool_ref(x, pool: int = 2):
+    """Non-overlapping ``pool x pool`` max-pool (floor semantics) over the
+    spatial dims of [..., H, W, C]."""
+    *lead, H, W, C = x.shape
+    Hc, Wc = H - H % pool, W - W % pool
+    x = x[..., :Hc, :Wc, :]
+    return x.reshape(*lead, Hc // pool, pool, Wc // pool, pool, C).amax((-4, -2))
+
+
+def conv2d_fused_ref(x, f, bias=None, *, stride: int = 1, padding: int = 0,
+                     relu: bool = False, pool: int = 1):
+    """Oracle for the fused conv + bias + ReLU + max-pool epilogue path."""
+    y = conv2d_ref(x, f, stride=stride, padding=padding)
+    if bias is not None:
+        y = y + bias.float()
+    if relu:
+        y = torch.relu(y)
+    if pool > 1:
+        y = maxpool_ref(y, pool)
+    return y

@@ -1,0 +1,78 @@
+"""The blocked f32 matmul kernel (``csrc/matmul.cu``): launch wrapper and
+plain version.
+
+Replaces ``repro/kernels/matmul/matmul.py::_mm_kernel``: one thread block
+per ``block_m x block_n`` output tile, the K grid axis as a loop inside
+the block over ``block_k`` steps staged in shared memory, an f32
+accumulator tile written once.  Operands must already be multiples of the
+blocks (``ops.fc_matmul`` pads and slices).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.machine import H100
+from repro_torch.plan.registry import CudaKernel
+
+LANE = 8  # the kernel's column group (two float4 runs per thread item)
+MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis
+
+
+def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
+    """Shared memory one block allocates: the f32 accumulator tile and two
+    stages of the X and W tiles (== MatmulPlanner's H100 budget term)."""
+    return 4 * (block_m * block_n + 2 * (block_m * block_k + block_k * block_n))
+
+
+def supported_blocks(block_m: int, block_n: int, block_k: int) -> bool:
+    """The blocks the kernel takes: multiples of 8 whose tiles fit one
+    block's shared memory."""
+    return (all(b > 0 and b % LANE == 0 for b in (block_m, block_n, block_k))
+            and smem_bytes(block_m, block_n, block_k) <= H100.local_mem_bytes)
+
+
+def _check(x, w, block_m, block_n, block_k):
+    if not supported_blocks(block_m, block_n, block_k):
+        raise ValueError(f"matmul kernel does not take blocks "
+                         f"(m={block_m}, n={block_n}, k={block_k})")
+    if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
+        raise ValueError(f"matmul shapes {tuple(x.shape)} @ {tuple(w.shape)}")
+    m, k = x.shape
+    n = w.shape[1]
+    if m % block_m or n % block_n or k % block_k:
+        raise ValueError(f"matmul [{m},{k}]@[{k},{n}] is not a multiple of the "
+                         f"blocks ({block_m}, {block_n}, {block_k})")
+    return m, n, k
+
+
+def matmul_plain(x, w, *, block_m: int, block_n: int, block_k: int):
+    """The kernel's function in plain PyTorch (same contract, same checks);
+    on the card it needs TF32 off to be an f32 reference."""
+    _check(x, w, block_m, block_n, block_k)
+    return torch.matmul(x, w)
+
+
+def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: int):
+    m, n, k = _check(x, w, block_m, block_n, block_k)
+    for name, t in (("x", x), ("w", w)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"matmul kernel takes contiguous float32 {name}, got "
+                             f"{t.dtype} (contiguous={t.is_contiguous()})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"matmul kernel needs a 16-byte aligned {name}")
+    if m // block_m > MAX_GRID_Y:
+        raise ValueError(f"matmul M/block_m = {m // block_m} exceeds the grid")
+    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    kernel.run(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
+               ctypes.c_void_p(out.data_ptr()), m, n, k, block_m, block_n, block_k)
+    return out
+
+
+matmul_kernel = CudaKernel(
+    "matmul", source="matmul", symbol="repro_matmul_f32",
+    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    launch=_launch, plain=matmul_plain,
+)

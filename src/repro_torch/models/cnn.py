@@ -1,0 +1,103 @@
+"""The paper's own domain: a CNN built from core.conv_layer and
+core.fc_layer (VGG-style conv/pool stages + two FC layers), forward.
+
+Config reuse: ``n_layers`` = conv stages, ``d_model`` = base channel width
+(doubled per stage), ``d_ff`` = FC hidden width, ``vocab`` = classes.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.conv_layer import conv_block
+from repro_torch.core.fc_layer import fc_layer
+from repro_torch.kernels.conv2d.ref import conv2d_fused_ref
+from repro_torch.models.module import ParamDef
+
+IMG = 32  # input resolution (CIFAR-like)
+IN_CH = 3
+F = 3  # receptive field of every conv filter (the paper's running F)
+
+
+def _stage_channels(cfg: ModelConfig) -> list[tuple[int, int]]:
+    chans, c_in = [], IN_CH
+    for i in range(cfg.n_layers):
+        c_out = cfg.d_model * (2**i)
+        chans.append((c_in, c_out))
+        c_in = c_out
+    return chans
+
+
+def _stage_geometry(cfg: ModelConfig, batch: int):
+    """Every stage's operand shapes: yields ``(name, x_shape, w_shape)`` for
+    each conv stage (halving the plane per 2x2 pool) and each FC stage."""
+    H = IMG
+    for i, (ci, co) in enumerate(_stage_channels(cfg)):
+        yield f"conv{i}", (batch, H, H, ci), (F, F, ci, co)
+        H //= 2
+    flat = H * H * cfg.d_model * (2 ** (cfg.n_layers - 1))
+    yield "fc1", (batch, flat), (flat, cfg.d_ff)
+    yield "fc2", (batch, cfg.d_ff), (cfg.d_ff, cfg.vocab)
+
+
+def param_defs(cfg: ModelConfig) -> dict:
+    defs = {}
+    for name, _x_shape, w_shape in _stage_geometry(cfg, batch=1):
+        if name.startswith("conv"):
+            i = name[len("conv"):]
+            defs[name] = ParamDef(w_shape, fan_in_axis=2)
+            defs[f"bias{i}"] = ParamDef((w_shape[3],), init="zeros")
+        else:
+            defs[name] = ParamDef(w_shape)
+            defs[f"{name}_b"] = ParamDef((w_shape[1],), init="zeros")
+    return defs
+
+
+def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
+            use_kernels: bool = True, schedules: dict | None = None) -> torch.Tensor:
+    """images: [B, IMG, IMG, 3] -> logits [B, classes].
+
+    With ``use_kernels`` every conv stage is one fused conv + bias + ReLU +
+    2x2 max-pool (the direct kernel, or the im2col GEMM where its schedule
+    says so) and fc1/fc2 run the matmul kernel; ``schedules`` maps stage
+    names ("conv0", ..., "fc1", "fc2") to explicit Schedules (e.g. from
+    :func:`plan_forward`).  ``use_kernels=False`` is the plain PyTorch
+    forward.
+    """
+    sched = schedules or {}
+    x = images
+    for i in range(cfg.n_layers):
+        f, b = params[f"conv{i}"], params[f"bias{i}"]
+        if use_kernels:
+            x = conv_block(x, f, b, 1, F // 2, 2, "strip", sched.get(f"conv{i}"))
+        else:
+            x = conv2d_fused_ref(x, f, b, stride=1, padding=F // 2, relu=True,
+                                 pool=2)
+    x = x.reshape(x.shape[0], -1)
+    if use_kernels:
+        x = torch.relu(fc_layer(x, params["fc1"], sched.get("fc1")) + params["fc1_b"])
+        return fc_layer(x, params["fc2"], sched.get("fc2")) + params["fc2_b"]
+    x = torch.relu(x @ params["fc1"] + params["fc1_b"])
+    return x @ params["fc2"] + params["fc2_b"]
+
+
+def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
+                 machine=None, conv_algorithm=None) -> dict:
+    """Plan every kernel launch of :func:`forward` without running it:
+    {stage name: Schedule}.  ``conv_algorithm`` pins one family of the conv
+    stages' two-level argmin ("direct"/"im2col"); the default lets both
+    compete per stage."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.core import fc_layer as fl
+
+    out = {}
+    for name, x_shape, w_shape in _stage_geometry(cfg, batch):
+        if name.startswith("conv"):
+            out[name] = cl.plan(x_shape, w_shape, stride=1, padding=F // 2,
+                                pool=2, in_bytes=in_bytes, machine=machine,
+                                algorithm=conv_algorithm)
+        else:
+            out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes,
+                                machine=machine)
+    return out

@@ -1,0 +1,53 @@
+"""Parameter definitions and their seeded initialization.
+
+A model family provides ``param_defs(cfg) -> dict of ParamDef``; from the
+defs, :func:`init_params` materializes the weights.  Every leaf draws from
+its own numpy generator, seeded by the caller's seed and a hash of the
+leaf's path, so initialization is order- and structure-stable.  (The two
+packages' generators differ, so tests carry the JAX package's weights
+across with ``repro_torch.convert`` instead.)
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+import zlib
+from typing import Any
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class ParamDef:
+    shape: tuple[int, ...]
+    init: str = "normal"  # normal | zeros | ones
+    scale: float | None = None  # stddev; default 1/sqrt(fan_in)
+    dtype: Any = None  # None -> the model's param dtype
+    fan_in_axis: int = -2  # which axis is fan-in for default init scale
+
+
+def init_params(defs: dict, seed: int, *, device=None,
+                dtype: torch.dtype = torch.float32) -> dict:
+    """Materialize parameters on ``device`` (default: the card)."""
+    device = torch.device("cuda" if device is None else device)
+    out = {}
+    for path, d in defs.items():
+        dt = d.dtype or dtype
+        if d.init == "zeros":
+            out[path] = torch.zeros(d.shape, dtype=dt, device=device)
+            continue
+        if d.init == "ones":
+            out[path] = torch.ones(d.shape, dtype=dt, device=device)
+            continue
+        rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+        fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
+        scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+        w = rng.standard_normal(d.shape, dtype=np.float32) * np.float32(scale)
+        out[path] = torch.from_numpy(w).to(device=device, dtype=dt)
+    return out
+
+
+def count_params(defs: dict) -> int:
+    return sum(math.prod(d.shape) for d in defs.values())

@@ -1,0 +1,461 @@
+"""Per-op planners: the paper's capacity argument, written once.
+
+Every planner implements the same contract: given layer shapes and a
+:class:`~repro_torch.core.machine.MachineModel`, emit the
+:class:`~repro_torch.plan.schedule.Schedule` whose working set fits the
+machine's local memory (after the DMA-stream reservation, paper Sec. 2.2.2)
+and whose modeled main-memory words are smallest.  The same code yields the
+paper's Manticore quotes (ConvPlanner: Delta_O = 24 sp / 12 dp on the running
+example; MatmulPlanner: block_n = 768/384), the JAX package's TPU v5e picks,
+and the thread-block tiles of the CUDA kernels on the H100, where the
+machine's ``block_caps`` bound each block to what the kernel takes.
+
+Traffic models are kernel-faithful: the conv model is ``alg2_strip_traffic``
+generalized to rectangular planes, pooling and batch (filters re-stream once
+per strip, zero-padding rows are free); the matmul model degenerates to
+Alg 5's Eqs. (12-13) when block_m covers the batch.  Explicit ``block_*``
+overrides are honored verbatim (clamped to legal ranges).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import ClassVar
+
+from repro_torch.core import ccr
+from repro_torch.core.machine import H100, MachineModel
+from repro_torch.plan.schedule import Schedule
+from repro_torch.plan.sharded import MeshSpec, ShardedSchedule
+
+
+def round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def _align_down(x: int, m: int) -> int:
+    return x // m * m
+
+
+def _strip_ladder(H_O: int, floor: int) -> list[int]:
+    """Strip-height candidates: H_O and its power-of-two fractions, rounded
+    up to ``floor`` granularity, tallest first."""
+    cands, k = [], 1
+    while True:
+        hb = round_up(-(-H_O // k), floor)
+        if not cands or hb < cands[-1]:
+            cands.append(hb)
+        if hb <= floor:
+            break
+        k *= 2
+    return cands
+
+
+@dataclasses.dataclass(frozen=True)
+class ShardablePlanner:
+    """Shared planner base: a machine and an optional mesh.
+
+    With ``mesh=None`` (the default) ``plan`` is the single-device capacity
+    argument.  A mesh whose ``shard_axis`` has one device degenerates to
+    that Schedule inside a :class:`ShardedSchedule`; partitioning over more
+    devices is not ported yet and raises.
+    """
+
+    machine: MachineModel = H100
+    mesh: MeshSpec | None = None
+    shard_axis: str = "model"
+
+    def plan(self, **shape):
+        if self.mesh is None:
+            return self.plan_local(**shape)
+        return self.plan_sharded(**shape)
+
+    def plan_local(self, **shape) -> Schedule:  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    @property
+    def shard_group(self) -> int:
+        """Extent of the partitioned mesh axis (1 when the mesh lacks it)."""
+        if self.mesh is None or self.shard_axis not in self.mesh.axis_names:
+            return 1
+        return self.mesh.axis_size(self.shard_axis)
+
+    def plan_sharded(self, **shape) -> ShardedSchedule:
+        if self.mesh is None:
+            raise ValueError("plan_sharded needs a mesh-bound planner")
+        if self.shard_group != 1:
+            raise NotImplementedError(
+                f"{self.op!r} over {self.shard_group} devices: multi-device "
+                "partitions are not ported yet")
+        local = dataclasses.replace(self, mesh=None).plan(**shape)
+        return ShardedSchedule(
+            schedule=local, mesh=self.mesh, axis=self.shard_axis,
+            strategy="single", partition=(), hbm_loads=local.loads,
+            hbm_stores=local.stores, macs=local.macs)
+
+
+# ---------------------------------------------------------------------------
+# Conv (Algs 1/2 + strip tiling) and its im2col rival
+# ---------------------------------------------------------------------------
+
+
+def conv_strip_words(
+    *, H_O: int, W_O: int, H_I: int, W_I: int, F: int, S: int, P: int,
+    d_in: int, d_out: int, block_h: int, block_do: int,
+    pool: int = 1, batch: int = 1,
+) -> tuple[int, int]:
+    """(loads, stores) of the strip-tiled stacked schedule.
+
+    Each of the ceil(H_O/block_h) strips re-streams its halo'd input rows
+    once per output stack (zero-padding rows cost nothing) and its filter
+    slabs once per (strip, d_i, d_o); pooled outputs store once.
+    """
+    n_stacks = -(-d_out // block_do)
+    n_strips = -(-H_O // block_h)
+    h_in = (block_h - 1) * S + F
+    rows = 0
+    for h0 in range(0, H_O, block_h):
+        lo = h0 * S - P
+        rows += max(0, min(lo + h_in, H_I) - max(lo, 0))
+    loads = n_stacks * d_in * rows * W_I + n_strips * d_out * d_in * F * F
+    stores = (H_O // pool) * (W_O // pool) * d_out
+    return batch * loads, batch * stores
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvPlanner(ShardablePlanner):
+    """The two-level conv argmin: ``algorithm x blocking`` (DESIGN.md Sec. 9).
+
+    * **direct** — the strip-tiled stacked kernel.  Candidate strips are H_O
+      and its power-of-two fractions (rounded up to the pool granularity);
+      for each, the largest lane-aligned output stack whose working set fits
+      is considered — the paper's Delta_O argument, two-dimensional.
+    * **im2col** — the patch-matrix GEMM; its blocking is delegated to
+      :class:`MatmulPlanner` on the per-strip GEMM
+      ``[batch*block_h*W_O, F*F*d_in] @ [F*F*d_in, d_out]``.
+
+    The fitting schedule with the fewest modeled words wins, ties toward
+    direct.  ``algorithm=`` pins one family; a direct-family pin
+    (``block_do``/``block_di``) or a GEMM-family pin (``block_m/n/k``)
+    implies its family.
+    """
+
+    op: ClassVar[str] = "conv2d"
+
+    _BDO_CAP: ClassVar[int] = 2048
+    _BDI_CAP: ClassVar[int] = 512
+
+    def default_block_di(self, d_in: int) -> int:
+        lane = self.machine.lane
+        if lane == 1:
+            return 1  # the paper's per-slice `for d_i` loop
+        return min(round_up(d_in, lane),
+                   self.machine.block_cap("block_di", self._BDI_CAP))
+
+    def _stream_bytes(self, hb: int, bdo: int, bdi: int, W_stream: int,
+                      F: int, S: int, in_bytes: int) -> int:
+        """Double-buffered input-strip + filter streams, when the machine
+        holds streamed blocks in the budget."""
+        if not self.machine.charge_stream_blocks:
+            return 0
+        h_halo = (hb - 1) * S + F
+        return (h_halo * W_stream * bdi + F * F * bdi * bdo) * in_bytes * 2
+
+    def _vmem_bytes(self, hb: int, bdo: int, bdi: int, W_O: int, W_stream: int,
+                    F: int, S: int, in_bytes: int) -> int:
+        acc_word = max(4, in_bytes)  # f32 accumulator (dp on dp machines)
+        return (self._stream_bytes(hb, bdo, bdi, W_stream, F, S, in_bytes)
+                + hb * W_O * bdo * acc_word)
+
+    def _max_stack(self, hb: int, bdi: int, W_O: int, W_stream: int,
+                   F: int, S: int, in_bytes: int, d_out: int) -> int:
+        """Largest lane-aligned block_do fitting the budget at strip hb
+        (0 when not even one lane of output slices fits)."""
+        m = self.machine
+        lane = m.lane
+        budget = m.usable_for_working_set(streams=2)
+        acc_word = max(4, in_bytes)
+        fixed = per_bdo_stream = 0
+        if m.charge_stream_blocks:
+            h_halo = (hb - 1) * S + F
+            fixed = h_halo * W_stream * bdi * in_bytes * 2
+            per_bdo_stream = F * F * bdi * in_bytes * 2
+        per_bdo = per_bdo_stream + hb * W_O * acc_word
+        bdo = _align_down((budget - fixed) // per_bdo, lane) if budget > fixed else 0
+        return min(bdo, m.block_cap("block_do", self._BDO_CAP),
+                   round_up(d_out, lane))
+
+    def plan_local(
+        self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int, d_out: int,
+        in_bytes: int = 2, block_di: int | None = None, pool: int = 1,
+        batch: int = 1, padding: int | None = None,
+        H_I: int | None = None, W_I: int | None = None,
+        block_h: int | None = None, block_do: int | None = None,
+        algorithm: str | None = None, block_m: int | None = None,
+        block_n: int | None = None, block_k: int | None = None,
+    ) -> Schedule:
+        """The two-level argmin: each family's best blocking, then the
+        fitting family with fewer modeled words (ties toward direct)."""
+        if algorithm not in (None, "direct", "im2col"):
+            raise ValueError(f"unknown conv algorithm {algorithm!r}; "
+                             "expected 'direct' or 'im2col'")
+        direct_pins = block_do is not None or block_di is not None
+        gemm_pins = (block_m is not None or block_n is not None
+                     or block_k is not None)
+        if direct_pins and gemm_pins:
+            raise ValueError(
+                "block_do/block_di pin the direct kernel and "
+                "block_m/block_n/block_k pin the im2col GEMM — they cannot "
+                "be combined in one conv plan")
+        if algorithm is None:  # a family-specific pin implies its family
+            if direct_pins:
+                algorithm = "direct"
+            elif gemm_pins:
+                algorithm = "im2col"
+        if algorithm == "direct" and gemm_pins:
+            raise ValueError("direct conv has no block_m/block_n/block_k")
+        if algorithm == "im2col" and direct_pins:
+            raise ValueError("im2col conv has no block_do/block_di")
+        shape = dict(H_O=H_O, W_O=W_O, F=F, S=S, d_in=d_in, d_out=d_out,
+                     in_bytes=in_bytes, pool=pool, batch=batch,
+                     padding=padding, H_I=H_I, W_I=W_I, block_h=block_h)
+        if algorithm == "im2col":
+            return self._plan_im2col(**shape, block_m=block_m,
+                                     block_n=block_n, block_k=block_k)
+        direct = self._plan_direct(**shape, block_di=block_di,
+                                   block_do=block_do)
+        if algorithm == "direct":
+            return direct
+        im2col = self._plan_im2col(**shape, block_m=block_m,
+                                   block_n=block_n, block_k=block_k)
+        if im2col.fits(self.machine) and (
+                im2col.modeled_words < direct.modeled_words
+                or not direct.fits(self.machine)):
+            return im2col
+        return direct
+
+    def _plan_direct(
+        self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int, d_out: int,
+        in_bytes: int = 2, block_di: int | None = None, pool: int = 1,
+        batch: int = 1, padding: int | None = None,
+        H_I: int | None = None, W_I: int | None = None,
+        block_h: int | None = None, block_do: int | None = None,
+    ) -> Schedule:
+        m = self.machine
+        lane = m.lane
+        P = 0 if padding is None else padding
+        H_I = H_I if H_I is not None else (H_O - 1) * S + F - 2 * P
+        W_I = W_I if W_I is not None else (W_O - 1) * S + F - 2 * P
+        W_stream = (W_O - 1) * S + F  # streamed (padded) strip width
+        bdi = block_di or self.default_block_di(d_in)
+
+        def words(hb: int, bdo: int) -> int:
+            loads, stores = conv_strip_words(
+                H_O=H_O, W_O=W_O, H_I=H_I, W_I=W_I, F=F, S=S, P=P,
+                d_in=d_in, d_out=d_out, block_h=hb, block_do=bdo,
+                pool=pool, batch=batch,
+            )
+            return loads + stores
+
+        def clamp_h(hb: int) -> int:
+            return round_up(min(hb, round_up(H_O, pool)), pool)
+
+        if block_h is not None and block_do is not None:
+            hb, bdo = block_h, block_do
+        else:
+            # Candidate strips: H_O and its power-of-two fractions down to
+            # the pool granularity, tallest first — or just the pinned strip.
+            cands = [clamp_h(block_h)] if block_h is not None else _strip_ladder(H_O, pool)
+            budget = m.usable_for_working_set(streams=2)
+            best = None
+            for hb in cands:
+                if block_do is not None:
+                    bdo = min(block_do, round_up(d_out, lane))
+                    if self._vmem_bytes(hb, bdo, bdi, W_O, W_stream, F, S,
+                                        in_bytes) > budget:
+                        continue  # pinned stack doesn't fit at this strip
+                else:
+                    bdo = self._max_stack(hb, bdi, W_O, W_stream, F, S,
+                                          in_bytes, d_out)
+                    if bdo < max(lane, 1):
+                        continue  # nothing fits at this strip height
+                w = words(hb, bdo)
+                if best is None or w < best[0]:
+                    best = (w, hb, bdo)
+            if best is None:  # nothing fits the model; smallest legal tile
+                hb = block_h if block_h is not None else round_up(min(8, H_O), pool)
+                bdo = block_do if block_do is not None else lane
+            else:
+                _, hb, bdo = best
+        hb = clamp_h(hb)
+        bdo = min(bdo, round_up(d_out, lane))
+
+        loads, stores = conv_strip_words(
+            H_O=H_O, W_O=W_O, H_I=H_I, W_I=W_I, F=F, S=S, P=P,
+            d_in=d_in, d_out=d_out, block_h=hb, block_do=bdo,
+            pool=pool, batch=batch,
+        )
+        n_h = -(-H_O // hb)
+        grid = (batch, n_h, round_up(d_out, bdo) // bdo, round_up(d_in, bdi) // bdi)
+        return Schedule(
+            op=self.op,
+            grid=grid,
+            blocks=(("block_di", bdi), ("block_do", bdo), ("block_h", hb)),
+            halo=max(0, F - S),
+            macs=batch * H_O * W_O * F * F * d_in * d_out,
+            loads=loads,
+            stores=stores,
+            vmem_bytes=self._vmem_bytes(hb, bdo, bdi, W_O, W_stream, F, S, in_bytes),
+            machine=m.name,
+            critical_path_steps=ccr.grid_steps(grid),
+        )
+
+    def _plan_im2col(
+        self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int,
+        d_out: int, in_bytes: int = 2, pool: int = 1, batch: int = 1,
+        padding: int | None = None, H_I: int | None = None,
+        W_I: int | None = None, block_h: int | None = None,
+        block_m: int | None = None, block_n: int | None = None,
+        block_k: int | None = None,
+    ) -> Schedule:
+        """The im2col-GEMM family's best blocking: per candidate strip, the
+        GEMM blocking is delegated to :class:`MatmulPlanner` on the strip's
+        patch matmul."""
+        del padding, H_I, W_I
+        mm = MatmulPlanner(self.machine)
+        k = F * F * d_in
+
+        def build(hb: int) -> Schedule:
+            hb = round_up(min(hb, round_up(H_O, pool)), pool)
+            inner = mm.plan_local(
+                m=batch * min(hb, H_O) * W_O, n=d_out, k=k,
+                in_bytes=in_bytes, block_m=block_m, block_n=block_n,
+                block_k=block_k)
+            t = ccr.conv_im2col_traffic(
+                H_O=H_O, W_O=W_O, F=F, S=S, d_in=d_in, d_out=d_out,
+                block_h=hb, block_m=inner.block("block_m"),
+                block_n=inner.block("block_n"),
+                block_k=inner.block("block_k"), pool=pool, batch=batch)
+            grid = (-(-H_O // hb),) + inner.grid
+            return Schedule(
+                op=self.op,
+                grid=grid,
+                blocks=tuple(sorted((("block_h", hb),) + inner.blocks)),
+                halo=0,
+                macs=t.macs,
+                loads=t.main_loads,
+                stores=t.main_stores,
+                vmem_bytes=inner.vmem_bytes,
+                machine=self.machine.name,
+                algorithm="im2col",
+                critical_path_steps=ccr.grid_steps(grid),
+            )
+
+        if block_h is not None:
+            return build(block_h)
+        best = None
+        for hb in _strip_ladder(H_O, pool):
+            s = build(hb)
+            if not s.fits(self.machine):
+                continue
+            if best is None or s.modeled_words < best.modeled_words:
+                best = s
+        return best or build(_strip_ladder(H_O, pool)[-1])
+
+
+@dataclasses.dataclass(frozen=True)
+class Im2colConvPlanner(ConvPlanner):
+    """The im2col-GEMM conv as its own op: the ConvPlanner with the
+    algorithm pinned to "im2col"."""
+
+    op: ClassVar[str] = "conv2d_im2col"
+
+    def plan_local(self, **shape) -> Schedule:
+        return super().plan_local(**{**shape, "algorithm": "im2col"})
+
+
+# ---------------------------------------------------------------------------
+# Matmul (Algs 4/5)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulPlanner(ShardablePlanner):
+    """Picks (block_m, block_n, block_k) for the FC matmul kernel.
+
+    block_m/block_k sit at the machine's preferred sizes; block_n — the
+    Delta_O output stack — grows until the working set (x block + w block
+    streams, f32 accumulator) exhausts the budget: the Alg 5 strategy
+    verbatim.  On MANTICORE (streams uncharged, lane 1) the same rule is
+    exactly ``alg45_max_stack``: block_n <= 768 (sp) / 384 (dp) at batch 32.
+    """
+
+    op: ClassVar[str] = "matmul"
+
+    _BN_CAP: ClassVar[int] = 2048
+    _BMK_CAP: ClassVar[int] = 512
+
+    def _vmem_bytes(self, bm: int, bn: int, bk: int, in_bytes: int) -> int:
+        acc_word = max(4, in_bytes)
+        stream = (bm * bk + bk * bn) * in_bytes * 2 if self.machine.charge_stream_blocks else 0
+        return stream + bm * bn * acc_word
+
+    def plan_local(
+        self, *, m: int, n: int, k: int, in_bytes: int = 2,
+        block_m: int | None = None, block_n: int | None = None,
+        block_k: int | None = None,
+    ) -> Schedule:
+        mm = self.machine
+        lane = mm.lane
+        budget = mm.usable_for_working_set(streams=2)
+        bm = block_m or min(round_up(m, lane), mm.block_cap("block_m", self._BMK_CAP))
+        bk = block_k or min(round_up(k, lane), mm.block_cap("block_k", self._BMK_CAP))
+        if block_n is not None:
+            bn = block_n
+        else:
+            acc_word = max(4, in_bytes)
+            fixed = per_bn = 0
+            if mm.charge_stream_blocks:
+                fixed = bm * bk * in_bytes * 2
+                per_bn = bk * in_bytes * 2
+            per_bn += bm * acc_word
+            bn = _align_down(max(0, budget - fixed) // per_bn, lane)
+            bn = max(lane, min(bn, mm.block_cap("block_n", self._BN_CAP),
+                               round_up(n, lane)))
+
+        mp, np_, kp = round_up(m, bm), round_up(n, bn), round_up(k, bk)
+        # Alg 5 device analogue: x re-streams once per output stack
+        # (n-block), w once per m-block, outputs store once.
+        loads = (np_ // bn) * mp * kp + (mp // bm) * kp * np_
+        stores = mp * np_
+        grid = (mp // bm, np_ // bn, kp // bk)
+        return Schedule(
+            op=self.op,
+            grid=grid,
+            blocks=(("block_k", bk), ("block_m", bm), ("block_n", bn)),
+            halo=0,
+            macs=mp * np_ * kp,
+            loads=loads,
+            stores=stores,
+            vmem_bytes=self._vmem_bytes(bm, bn, bk, in_bytes),
+            machine=mm.name,
+            critical_path_steps=ccr.grid_steps(grid),
+        )
+
+
+PLANNERS: dict[str, type] = {
+    ConvPlanner.op: ConvPlanner,
+    Im2colConvPlanner.op: Im2colConvPlanner,
+    MatmulPlanner.op: MatmulPlanner,
+}
+
+
+def planner_for(op: str, machine: MachineModel = H100,
+                mesh: MeshSpec | None = None, shard_axis: str = "model"):
+    """The registered planner for an op name, bound to a machine (and,
+    when ``mesh`` is given, to a mesh)."""
+    try:
+        cls = PLANNERS[op]
+    except KeyError:
+        raise KeyError(f"no planner registered for op {op!r}; "
+                       f"known: {sorted(PLANNERS)}") from None
+    return cls(machine, mesh, shard_axis)

@@ -1,0 +1,242 @@
+"""The port's kernel modules against the JAX package, on the CPU.
+
+CPU tensors run each kernel's plain version behind the same wrappers
+(padding, strips, slicing) the card runs, so these tests hold everything
+around the kernels against ``repro`` on the same numpy inputs:
+
+* ``fc_matmul`` against ``repro``'s Pallas ``fc_matmul`` in interpret mode;
+* ``conv2d`` / ``conv_block`` against ``repro``'s ``conv2d_fused_ref`` (the
+  Pallas direct conv cannot run interpreted under jax 0.9.0);
+* the int8 epilogue mask against a numpy re-derivation of its encoding;
+* the im2col forward against ``repro``'s ``conv2d_im2col`` in interpret mode.
+
+Tolerance (f32): max |port - repro| <= 1e-5 * max(1, max |repro|) per op —
+the two sum in different orders.  (``test_torch_cuda.py`` holds the kernels
+themselves against their plain versions on the card.)
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.conv2d.im2col import conv2d_im2col as jax_im2col
+from repro.kernels.conv2d.ref import conv2d_fused_ref as jax_fused_ref
+from repro.kernels.conv2d.ref import conv2d_ref as jax_conv_ref
+from repro.kernels.matmul.ops import fc_matmul as jax_fc_matmul
+from repro_torch.core.conv_layer import conv_block, conv_layer
+from repro_torch.kernels.conv2d import conv2d_im2col, conv2d_kernel, conv2d_with_mask
+from repro_torch.kernels.conv2d.ops import conv2d
+from repro_torch.kernels.matmul import fc_matmul, matmul_kernel
+from repro_torch.plan.registry import CudaKernel
+
+TOL = 1e-5
+
+
+def assert_close(got, want, tol=TOL):
+    got = got.detach().cpu().numpy() if isinstance(got, torch.Tensor) else np.asarray(got)
+    want = np.asarray(want)
+    assert got.shape == want.shape
+    err = float(np.max(np.abs(got - want))) if got.size else 0.0
+    assert err <= tol * max(1.0, float(np.max(np.abs(want)))), err
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.standard_normal(shape) * scale).astype(np.float32)
+
+
+# -- matmul ---------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("m,k,n", [(8, 32, 16), (37, 90, 70), (1, 17, 300),
+                                   (130, 257, 129), (5, 3, 2)])
+def test_fc_matmul_matches_repro(m, k, n):
+    rng = np.random.default_rng(m * 1000 + k)
+    x, w = _rand(rng, m, k), _rand(rng, k, n)
+    want = jax_fc_matmul(jnp.asarray(x), jnp.asarray(w))
+    assert_close(fc_matmul(torch.from_numpy(x), torch.from_numpy(w)), want)
+
+
+def test_fc_matmul_flattens_leading_dims():
+    rng = np.random.default_rng(3)
+    x, w = _rand(rng, 2, 3, 40), _rand(rng, 40, 24)
+    got = fc_matmul(torch.from_numpy(x), torch.from_numpy(w))
+    assert tuple(got.shape) == (2, 3, 24)
+    assert_close(got, x @ w)
+
+
+def test_matmul_kernel_rejects_unsupported_blocks():
+    x, w = torch.zeros(16, 16), torch.zeros(16, 16)
+    with pytest.raises(ValueError, match="does not take blocks"):
+        matmul_kernel(x, w, block_m=16, block_n=12, block_k=16)
+    with pytest.raises(ValueError, match="multiple of the blocks"):
+        matmul_kernel(x[:10], w, block_m=16, block_n=16, block_k=16)
+
+
+# -- direct conv ----------------------------------------------------------------
+
+# (B, H, d_in, d_out, F, S, P, pool, block_h): stride 1/2, padding, pool 1/2,
+# odd channels, ragged strips (block_h not dividing H_O) and odd planes
+# (ragged tail pool).
+CONV_CASES = [
+    (2, 8, 3, 8, 3, 1, 1, 2, None),
+    (2, 9, 5, 7, 3, 1, 1, 1, 4),      # odd plane, odd channels, ragged strip
+    (1, 12, 8, 16, 3, 2, 0, 1, None),  # stride 2, no padding
+    (2, 13, 6, 10, 3, 2, 1, 2, None),  # stride 2, odd H_O -> tail pool
+    (3, 10, 4, 9, 3, 1, 1, 2, 4),      # ragged strip at pool 2
+    (1, 8, 3, 5, 5, 1, 2, 2, None),    # large filter, deep padding
+    (2, 7, 17, 3, 1, 1, 0, 1, None),   # 1x1
+]
+
+
+def _conv_operands(case, seed=0):
+    B, H, di, do, Fk, *_ = case
+    rng = np.random.default_rng(seed)
+    return (_rand(rng, B, H, H, di), _rand(rng, Fk, Fk, di, do, scale=1 / Fk),
+            _rand(rng, do))
+
+
+@pytest.mark.parametrize("case", CONV_CASES)
+def test_conv_block_matches_repro_ref(case):
+    B, H, di, do, Fk, S, P, pool, hb = case
+    x, f, b = _conv_operands(case)
+    want = jax_fused_ref(jnp.asarray(x), jnp.asarray(f), jnp.asarray(b),
+                         stride=S, padding=P, relu=True, pool=pool)
+    got = conv2d(torch.from_numpy(x), torch.from_numpy(f), bias=torch.from_numpy(b),
+                 stride=S, padding=P, relu=True, pool=pool, block_h=hb)
+    assert_close(got, want)
+    got = conv_block(torch.from_numpy(x), torch.from_numpy(f), torch.from_numpy(b),
+                     S, P, pool)
+    assert_close(got, want)
+
+
+@pytest.mark.parametrize("strategy", ["alg1", "alg2", "strip"])
+@pytest.mark.parametrize("case", CONV_CASES[1:4])
+def test_conv_layer_matches_repro_ref(case, strategy):
+    B, H, di, do, Fk, S, P, *_ = case
+    x, f, _ = _conv_operands(case, seed=1)
+    want = jax_conv_ref(jnp.asarray(x), jnp.asarray(f), stride=S, padding=P)
+    got = conv_layer(torch.from_numpy(x), torch.from_numpy(f), S, P, strategy)
+    assert_close(got, want)
+
+
+def test_conv_unbatched_input():
+    x, f, b = _conv_operands(CONV_CASES[1])
+    want = jax_fused_ref(jnp.asarray(x[0]), jnp.asarray(f), jnp.asarray(b),
+                         padding=1, relu=True)
+    got = conv2d(torch.from_numpy(x[0]), torch.from_numpy(f),
+                 bias=torch.from_numpy(b), padding=1, relu=True)
+    assert_close(got, want)
+
+
+# -- the epilogue mask ----------------------------------------------------------
+
+
+def _numpy_mask(y: np.ndarray, pool: int) -> np.ndarray:
+    """conv2d.py's flush encoding, re-derived in numpy from the post-ReLU
+    pre-pool activations: the flattened argmax position in [0, pool^2) of
+    the surviving window (first occurrence on ties, by overwriting in
+    descending position order), pool^2 for a dead window; with pool == 1
+    the ReLU liveness bit (0 alive, 1 dead)."""
+    if pool == 1:
+        return np.where(y > 0, 0, 1).astype(np.int8)
+    B, H, W, C = y.shape
+    win = y[:, : H - H % pool, : W - W % pool].reshape(
+        B, H // pool, pool, W // pool, pool, C)
+    out = win.max(axis=(2, 4))
+    idx = np.full(out.shape, pool * pool, np.int32)
+    for pos in reversed(range(pool * pool)):
+        py, px = divmod(pos, pool)
+        v = win[:, :, py, :, px, :]
+        idx = np.where((v == out) & (out > 0), pos, idx)
+    return idx.astype(np.int8)
+
+
+@pytest.mark.parametrize("B,H,di,do,S,pool,hb", [
+    (2, 8, 3, 8, 1, 2, None), (2, 8, 4, 9, 1, 2, 2), (1, 12, 5, 6, 2, 1, None),
+    (2, 9, 3, 7, 1, 1, 4)])
+def test_mask_matches_numpy_encoding(B, H, di, do, S, pool, hb):
+    """Small integer operands make exact ties and dead windows common."""
+    rng = np.random.default_rng(7)
+    x = rng.integers(-2, 3, (B, H, H, di)).astype(np.float32)
+    f = rng.integers(-1, 2, (3, 3, di, do)).astype(np.float32)
+    b = rng.integers(-1, 2, (do,)).astype(np.float32)
+    y = np.asarray(jax_conv_ref(jnp.asarray(x), jnp.asarray(f), stride=S, padding=1))
+    y = np.maximum(y + b, 0.0)
+    want = _numpy_mask(y, pool)
+    sched = None
+    if hb is not None:
+        from repro_torch.kernels.conv2d.ops import conv2d_op
+
+        sched = conv2d_op.plan(torch.from_numpy(x), torch.from_numpy(f),
+                               torch.from_numpy(b), stride=S, padding=1, relu=True,
+                               pool=pool, block_h=hb, algorithm="direct")
+    out, mask = conv2d_with_mask(torch.from_numpy(x), torch.from_numpy(f),
+                                 bias=torch.from_numpy(b), stride=S, padding=1,
+                                 pool=pool, schedule=sched)
+    assert mask is not None and mask.dtype == torch.int8
+    np.testing.assert_array_equal(mask.numpy(), want)
+    ties = (want < pool * pool) if pool > 1 else (want == 0)
+    assert ties.any() and (~ties).any()  # both live and dead entries occur
+    assert_close(out, jax_fused_ref(jnp.asarray(x), jnp.asarray(f), jnp.asarray(b),
+                                    stride=S, padding=1, relu=True, pool=pool))
+
+
+def test_mask_absent_on_ragged_pool_and_im2col():
+    x, f, b = _conv_operands(CONV_CASES[3])
+    xt, ft, bt = map(torch.from_numpy, (x, f, b))
+    assert conv2d_with_mask(xt, ft, bias=bt, stride=2, padding=1, pool=2)[1] is None
+    x, f, b = _conv_operands(CONV_CASES[0])
+    xt, ft, bt = map(torch.from_numpy, (x, f, b))
+    from repro_torch.kernels.conv2d.ops import conv2d_op
+
+    sched = conv2d_op.plan(xt, ft, bt, padding=1, relu=True, pool=2,
+                           algorithm="im2col")
+    out, mask = conv2d_with_mask(xt, ft, bias=bt, padding=1, pool=2, schedule=sched)
+    assert mask is None
+    assert_close(out, jax_fused_ref(jnp.asarray(x), jnp.asarray(f), jnp.asarray(b),
+                                    padding=1, relu=True, pool=2))
+
+
+# -- im2col -----------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("H,di,do,Fk,S,P,pool", [
+    (9, 5, 7, 3, 1, 1, 1), (12, 8, 16, 3, 2, 0, 1), (8, 4, 6, 3, 1, 1, 2)])
+def test_im2col_matches_repro(H, di, do, Fk, S, P, pool):
+    rng = np.random.default_rng(H + di)
+    x, f, b = _rand(rng, 2, H, H, di), _rand(rng, Fk, Fk, di, do, scale=1 / Fk), _rand(rng, do)
+    want = jax_im2col(jnp.asarray(x), jnp.asarray(f), bias=jnp.asarray(b),
+                      stride=S, padding=P, relu=True, pool=pool)
+    got = conv2d_im2col(torch.from_numpy(x), torch.from_numpy(f),
+                        bias=torch.from_numpy(b), stride=S, padding=P, relu=True,
+                        pool=pool)
+    assert_close(got, want)
+    # the conv2d op runs the same GEMM when the im2col family is pinned
+    got = conv2d(torch.from_numpy(x), torch.from_numpy(f), bias=torch.from_numpy(b),
+                 stride=S, padding=P, relu=True, pool=pool, algorithm="im2col")
+    assert_close(got, want)
+
+
+# -- dispatch -------------------------------------------------------------------
+
+
+def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
+    before = (matmul_kernel.launches, conv2d_kernel.launches)
+    x, f, b = _conv_operands(CONV_CASES[0])
+    conv2d(torch.from_numpy(x), torch.from_numpy(f), bias=torch.from_numpy(b),
+           padding=1, relu=True, pool=2)
+    fc_matmul(torch.ones(4, 8), torch.ones(8, 8))
+    assert (matmul_kernel.launches, conv2d_kernel.launches) == before
+
+
+def test_kernel_refuses_other_devices_and_mixed_operands():
+    k = CudaKernel("probe", source="matmul", symbol="none", argtypes=[],
+                   launch=lambda *a, **kw: pytest.fail("launched"),
+                   plain=lambda *a, **kw: "plain")
+    assert k(torch.zeros(1)) == "plain"
+    with pytest.raises(ValueError, match="no kernel for device"):
+        k(torch.zeros(1, device="meta"))
+    with pytest.raises(ValueError, match="more than one device"):
+        k(torch.zeros(1), torch.zeros(1, device="meta"))
+    assert k.launches == 0
