@@ -18,11 +18,35 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              the default algorithm argmin, with every conv stage direct and
              with every conv stage im2col; logits against the plain forward
              at the phase-2 tolerance, launch counts against the plan.
-4. times   — CUDA-event medians of each kernel at every stage's shape,
-             beside its plain version, one library call and the bound; the
-             whole forward's ms per batch and images/s; device time by
-             kernel over a profiled window.  The ``kernels`` line sums each
-             kernel's calls over one default-plan forward.
+4. bwd     — each backward kernel against its plain version at every
+             backward shape of the cnn-vgg11 training step at batch 256
+             (wgrad at conv0-3, the conv kernel as dgrad at conv1-3, the NT
+             and TN matmuls at fc1/fc2) and the fused dX/dW kernel at
+             fc1/fc2 at batch 128, plus a ragged case each; phase-2
+             tolerance.
+5. train   — the main path of this slice: the launcher
+             (``repro_torch.launch.train --arch cnn-vgg11 --batch 256
+             --steps 3 --planned-kernels``) with its launch counts against
+             what plan_training implies, and a batch-128 step that runs the
+             fused dX/dW kernel; then, from one seeded state, the step-1
+             loss and gradients per tensor at the phase-2 tolerance (a)
+             against the same planned step with every backward kernel
+             swapped for its plain version, and (b) against an independent
+             plain step — cuDNN convolutions, cuBLAS matmuls, torch
+             autograd — that takes its ReLU/max-pool decisions from the
+             planned forward (the saved masks; the recompute values where
+             a stage saves none; fc1's ReLU), since two f32 forwards can
+             decide a near-tie differently and one such flip moves a whole
+             gradient term.  Then 3 planned AdamW steps' losses against 3
+             plain steps' (each within 1e-4 * max(1, |loss|)).
+6. times   — CUDA-event medians of each kernel at every forward and
+             backward shape, beside its plain version, one library call and
+             the bound; the forward's and the training step's ms per batch
+             and images/s; device time by kernel over a profiled forward
+             and a profiled training step.  The ``kernels`` line sums each
+             kernel's calls over one planned training step at batch 256
+             (the fused dX/dW kernel: at batch 128) and gives its launches
+             over the forward and training paths.
 
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
@@ -30,7 +54,9 @@ no card, or outside a checkout, it prints no result and exits nonzero.
 
 from __future__ import annotations
 
+import functools
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -45,10 +71,20 @@ NEAR_TIE = 1e-5
 PEAK_F32 = 67e12  # H100 SXM, f32 on the CUDA cores (the kernels' FMAs)
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
 PEAKS = "f32 CUDA cores 67 TFLOP/s, HBM3 3.35 TB/s (H100 SXM data sheet, 700 W)"
+FUSED_BATCH = 128  # fc1/fc2 run the fused dX/dW kernel at batch <= 192
+LOSS_TOL = 1e-4
+STEPS = 3
 REPLACES = {
     "matmul": "src/repro/kernels/matmul/matmul.py:32",
     "conv2d": "src/repro/kernels/conv2d/conv2d.py:49",
+    "conv2d_wgrad": "src/repro/kernels/conv2d/bwd.py:519",
+    "matmul_nt": "src/repro/kernels/matmul/bwd.py:59",
+    "matmul_tn": "src/repro/kernels/matmul/bwd.py:222",
+    "matmul_dx_dw": "src/repro/kernels/matmul/bwd.py:354",
 }
+SOURCES = {"matmul": "matmul", "conv2d": "conv2d", "conv2d_wgrad": "conv2d_wgrad",
+           "matmul_nt": "matmul_bwd", "matmul_tn": "matmul_bwd",
+           "matmul_dx_dw": "matmul_bwd"}
 
 
 def emit(**record) -> None:
@@ -178,10 +214,13 @@ def expected_launches(plans: dict) -> dict:
 
 def main_path_launches(plans: dict, kernel: str, label: str) -> int:
     """How often the default plan's forward makes this call (0: the call
-    belongs to the all-direct or all-im2col forward only)."""
-    stage = label.split(".")[0]
+    belongs to the all-direct or all-im2col forward only, or to the
+    backward)."""
+    stage, _, role = label.partition(".")
     s = plans["default"].get(stage)
-    return stage_launches(stage, s)[kernel] if s is not None else 0
+    if s is None or role not in ("", "strip"):
+        return 0
+    return stage_launches(stage, s).get(kernel, 0)
 
 
 def mask_disagreements(torch, plain_fn, args, kw, k_mask, p_mask):
@@ -201,6 +240,150 @@ def mask_disagreements(torch, plain_fn, args, kw, k_mask, p_mask):
     diff = k_mask != p_mask
     check(bool((diff & ~near).sum() == 0), "mask differs away from near-ties")
     return int(diff.sum()), int(near.sum())
+
+
+# -- the backward cases: every backward shape of the cnn-vgg11 training step -------
+
+
+def train_calls(cnn, cl, cfg, plans, batch) -> dict:
+    """Launches of each kernel that one planned training step makes, by
+    call: {(kernel, label): count}.  conv0's dgrad never runs (the images
+    need no gradient); a stage whose forward runs im2col saves no mask and
+    recomputes its pre-epilogue activation with the planner's pool-free
+    conv."""
+    calls = {}
+
+    def add(kernel, label, n=1):
+        calls[(kernel, label)] = calls.get((kernel, label), 0) + n
+
+    for i, (name, x_shape, w_shape) in enumerate(cnn._stage_geometry(cfg, batch)):
+        s = plans[name]
+        if name.startswith("conv"):
+            convs = [(s, name)]
+            if s.algorithm == "im2col":
+                convs.append((cl.plan(x_shape, w_shape, stride=1, padding=1, pool=1),
+                              f"{name}.recompute"))
+            for c, label in convs:
+                if c.algorithm == "im2col":
+                    add("matmul", f"{name}.strip", c.grid[0])  # one GEMM per strip
+                else:
+                    add("conv2d", label)
+            if i > 0:
+                add("conv2d", f"{name}.dgrad")
+            add("conv2d_wgrad", f"{name}.wgrad")
+        else:
+            add("matmul", name)
+            if plans[f"{name}.dx"].algorithm == "fused_dxdw":
+                add("matmul_dx_dw", f"{name}.dxdw")
+            else:
+                add("matmul_nt", f"{name}.dx")
+                add("matmul_tn", f"{name}.dw")
+    return calls
+
+
+def per_kernel(calls: dict, kernels) -> dict:
+    return {k: sum(n for (kk, _), n in calls.items() if kk == k) for k in kernels}
+
+
+def bwd_cases(torch, cnn, cfg):
+    """(kernel, label, args, kwargs, meta) of every backward call of the
+    planned training step at batch 256 — the fused dX/dW kernel at batch
+    128 — with the training plan's blocks, plus a ragged case per kernel.
+    ``meta`` holds the call's operations and bytes (unpadded) and its
+    library yardstick (None where no one PyTorch call computes it)."""
+    from repro_torch.kernels.conv2d.bwd import dgrad_operands, wgrad_operands
+    from repro_torch.plan import pad_dim, round_up
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 3)
+
+    def rand(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * s
+
+    def padded(t, *sizes):
+        for axis, size in enumerate(sizes):
+            t = pad_dim(t, axis, size)
+        return t.contiguous()
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).contiguous()
+
+    out = []
+    for batch in (BATCH, FUSED_BATCH):
+        plans = cnn.plan_training(cfg, batch)
+        for i, (name, x_shape, w_shape) in enumerate(cnn._stage_geometry(cfg, batch)):
+            if name.startswith("conv") and batch == BATCH:
+                B, H, _, ci = x_shape
+                co = w_shape[3]
+                x, dy = rand(*x_shape), rand(B, H, H, co)
+                f = rand(*w_shape, s=(9 * co) ** -0.5)
+                flops = 2.0 * B * H * H * 9 * ci * co
+                s_wg = plans[f"{name}.wgrad"]
+                b = s_wg.block_dict()
+                xp, gp, geo = wgrad_operands(x, dy, F=3, stride=1, padding=1,
+                                             block_h=b["block_h"])
+                x_n, dy_n = nchw(x), nchw(dy)
+                out.append(("conv2d_wgrad", f"{name}.wgrad", (xp, gp),
+                            dict(geo, block_do=b["block_do"], block_di=b["block_di"]),
+                            dict(flops=flops,
+                                 nbytes=4.0 * (x.numel() + dy.numel() + f.numel()),
+                                 lib=lambda x_n=x_n, dy_n=dy_n, w=(co, ci, 3, 3):
+                                 torch.nn.grad.conv2d_weight(x_n, w, dy_n, padding=1),
+                                 schedule_words={"algorithm": s_wg.algorithm,
+                                                 "loads": s_wg.loads,
+                                                 "stores": s_wg.stores})))
+                if i > 0:
+                    b = plans[f"{name}.dgrad"].block_dict()
+                    xq, ft, bias, geo = dgrad_operands(dy, f, stride=1, padding=1,
+                                                       out_hw=(H, H), block_h=b["block_h"])
+                    f_n = f.permute(3, 2, 0, 1).contiguous()
+                    out.append(("conv2d", f"{name}.dgrad", (xq, ft, bias),
+                                dict(geo, block_do=b["block_do"], block_di=b["block_di"]),
+                                dict(flops=flops,
+                                     nbytes=4.0 * (x.numel() + dy.numel() + f.numel()),
+                                     lib=lambda dy_n=dy_n, f_n=f_n, xs=(B, ci, H, H):
+                                     torch.nn.grad.conv2d_input(xs, f_n, dy_n, padding=1))))
+            elif name.startswith("fc"):
+                m, k = x_shape
+                n = w_shape[1]
+                x, w, gr = rand(m, k), rand(k, n, s=k ** -0.5), rand(m, n)
+                flops, nbytes = 2.0 * m * n * k, 4.0 * (m * n + k * n + m * k)
+                bx, bw = plans[f"{name}.dx"].block_dict(), plans[f"{name}.dw"].block_dict()
+                if batch == FUSED_BATCH:
+                    bm, bn, bk = bx["block_m"], bx["block_n"], bx["block_k"]
+                    mp, np_, kp = round_up(m, bm), round_up(n, bn), round_up(k, bk)
+                    out.append(("matmul_dx_dw", f"{name}.dxdw",
+                                (padded(gr, mp, np_), padded(w, kp, np_), padded(x, mp, kp)),
+                                dict(block_m=bm, block_n=bn, block_k=bk),
+                                dict(flops=2 * flops, nbytes=nbytes + 4.0 * (m * k + k * n),
+                                     lib=None)))
+                    continue
+                for kernel, b in (("matmul_nt", bx), ("matmul_tn", bw)):
+                    bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+                    mp, np_, kp = round_up(m, bm), round_up(n, bn), round_up(k, bk)
+                    nt = kernel == "matmul_nt"
+                    args = ((padded(gr, mp, np_), padded(w, kp, np_)) if nt
+                            else (padded(x, mp, kp), padded(gr, mp, np_)))
+                    lib = ((lambda gr=gr, w=w: torch.matmul(gr, w.t())) if nt
+                           else (lambda x=x, gr=gr: torch.matmul(x.t(), gr)))
+                    out.append((kernel, f"{name}.{'dx' if nt else 'dw'}", args,
+                                dict(block_m=bm, block_n=bn, block_k=bk),
+                                dict(flops=flops, nbytes=nbytes, lib=lib)))
+    # ragged: odd channels (5 -> 13), stride 2, an odd 9x9 gradient plane,
+    # strips of 4 rows (the last one past the plane)
+    x, dy, f = rand(3, 17, 17, 5), rand(3, 9, 9, 13), rand(3, 3, 5, 13)
+    xp, gp, geo = wgrad_operands(x, dy, F=3, stride=2, padding=1, block_h=4)
+    out.append(("conv2d_wgrad", "ragged", (xp, gp), dict(geo, block_do=16, block_di=8), {}))
+    xq, ft, bias, geo = dgrad_operands(dy, f, stride=2, padding=1, out_hw=(17, 17),
+                                       block_h=4)
+    out.append(("conv2d", "ragged.dgrad", (xq, ft, bias), dict(geo, block_do=8, block_di=8),
+                {}))
+    blocks = dict(block_m=8, block_n=16, block_k=16)  # 37 x 90 x 70 padded
+    x, w, gr = rand(40, 96), rand(96, 80), rand(40, 80)
+    x[37:], x[:, 90:], w[90:], w[:, 70:], gr[37:], gr[:, 70:] = 0, 0, 0, 0, 0, 0
+    out.append(("matmul_nt", "ragged", (gr, w), blocks, {}))
+    out.append(("matmul_tn", "ragged", (x, gr), blocks, {}))
+    out.append(("matmul_dx_dw", "ragged", (gr, w, x), blocks, {}))
+    return out
 
 
 # -- phases -------------------------------------------------------------------------
@@ -265,8 +448,7 @@ def phase_kernels(torch, plans, cnn, cfg, results):
 
 
 def run_forward(torch, cnn, cfg, params, images, plans, kernels):
-    for k in kernels.values():
-        k.launches = 0
+    zero_counts(kernels)
     logits = cnn.forward(cfg, params, images, schedules=plans)
     torch.cuda.synchronize()
     return logits, {name: k.launches for name, k in kernels.items()}
@@ -282,11 +464,11 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
             check(bool(torch.isfinite(logits).all()), f"{alg}: non-finite logits")
             err = max_err(logits, plain)
             check(err <= TOL * scale(plain), f"forward {alg}: err {err}")
-            want = expected_launches(plans[alg])
+            want = {name: 0 for name in kernels} | expected_launches(plans[alg])
             check(launches == want, f"forward {alg}: launches {launches} != plan {want}")
             if alg == "default":
                 for name in kernels:
-                    results[name]["launches"] = launches[name]
+                    results[name]["launches_by_path"]["forward"] = launches[name]
             emit(phase="forward", conv_algorithm=alg, batch=BATCH, logits=list(logits.shape),
                  max_abs_err=err, max_abs_plain=float(plain.abs().max()), launches=launches,
                  schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
@@ -294,21 +476,222 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
                             for n, s in plans[alg].items()})
 
 
+def wgrad_split_record(args, kw) -> dict:
+    """The wgrad launch's sweep split and its partial-slab bytes (traffic
+    the planner's modeled words do not count)."""
+    from repro_torch.kernels.conv2d.bwd import wgrad_partial_bytes, wgrad_split
+
+    (B, _, _, d_in), d_out = args[0].shape, args[1].shape[-1]
+    split = wgrad_split(d_in=d_in, d_out=d_out, block_di=kw["block_di"],
+                        block_do=kw["block_do"], batch=B,
+                        n_h=args[1].shape[1] // kw["block_h"])
+    return {"split": split, "partial_bytes": wgrad_partial_bytes(
+        F=kw["F"], d_in=d_in, d_out=d_out, split=split)}
+
+
+def phase_bwd(torch, cnn, cfg, kernels, results):
+    for kernel, label, args, kw, meta in bwd_cases(torch, cnn, cfg):
+        k = kernels[kernel]
+        got, want = k(*args, **kw), k.plain(*args, **kw)
+        torch.cuda.synchronize()
+        pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+        err = max(max_err(a, b) for a, b in pairs)
+        check(all(max_err(a, b) <= TOL * scale(b) for a, b in pairs),
+              f"{kernel} {label}: err {err}")
+        results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        emit(phase="bwd", kernel=kernel, case=label, shape=[list(a.shape) for a in args],
+             blocks={b: v for b, v in kw.items() if b.startswith("block")}, max_abs_err=err,
+             max_abs_plain=max(float(b.abs().max()) for _, b in pairs),
+             **(dict(wgrad_split_record(args, kw), schedule_words=meta.get("schedule_words"))
+                if kernel == "conv2d_wgrad" else {}))
+
+
+def zero_counts(kernels) -> None:
+    for k in kernels.values():
+        k.launches = 0
+
+
+BWD_KERNELS = ("conv2d", "conv2d_wgrad", "matmul_nt", "matmul_tn", "matmul_dx_dw")
+
+
+def planned_grads(torch, cfg, tr, tcfg, params, batch, kernels, *, plain):
+    """Step-1 loss and gradients of the planned loss: the forward on the
+    kernels, the backward with the kernels named in ``plain`` swapped for
+    their plain versions (on the same CUDA tensors) — conv2d's only
+    backward role at batch 256 is dgrad; the recompute GEMM stays on the
+    kernel, so both backwards see the same ReLU/max-pool decisions."""
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    loss = tr.make_loss_fn(cfg, tcfg)(leaves, batch)
+    saved = {n: kernels[n].launch for n in plain}
+    for n in plain:
+        kernels[n].launch = lambda k, *a, **kw: k.plain(*a, **kw)
+    try:
+        got = torch.autograd.grad(loss, list(leaves.values()))
+    finally:
+        for n, fn in saved.items():
+            kernels[n].launch = fn
+    return float(loss.detach()), dict(zip(leaves, got))
+
+
+def pool_windows(torch, y):
+    """[B, R, W, C] -> [B, R/2, W/2, C, 5]: each 2x2 pool window's values
+    in row-major order (the mask's encoding), then ReLU's 0 (index 4, a
+    dead window)."""
+    B, R, W, C = y.shape
+    win = (y.reshape(B, R // 2, 2, W // 2, 2, C).permute(0, 1, 3, 5, 2, 4)
+           .reshape(B, R // 2, W // 2, C, 4))
+    return torch.cat([win, torch.zeros_like(win[..., :1])], dim=-1)
+
+
+def planned_decisions(torch, cfg, params, images, plans) -> dict:
+    """The ReLU/max-pool decisions the planned step's backward takes, read
+    off the planned forward: each conv stage's int8 epilogue mask, or —
+    where a stage saves none (an im2col schedule) — the window argmax of
+    the recompute conv's pre-epilogue values that its backward uses; and
+    the liveness of fc1's ReLU."""
+    from repro_torch.core.fc_layer import fc_layer
+    from repro_torch.kernels.conv2d.ops import conv2d, conv2d_with_mask
+
+    out, x = {}, images
+    with torch.no_grad():
+        for i in range(cfg.n_layers):
+            f, b = params[f"conv{i}"], params[f"bias{i}"]
+            y, mask = conv2d_with_mask(x, f, bias=b, stride=1, padding=1, pool=2,
+                                       schedule=plans[f"conv{i}"])
+            if mask is None:
+                y0 = conv2d(x, f, bias=b, stride=1, padding=1, relu=False, pool=1,
+                            schedule=plans.get(f"conv{i}.recompute"))
+                mask = pool_windows(torch, y0).argmax(-1)
+            out[f"conv{i}"], x = mask.long(), y
+        h = fc_layer(x.reshape(x.shape[0], -1), params["fc1"], plans["fc1"])
+        out["fc1"] = (h + params["fc1_b"]) > 0
+    return out
+
+
+def decided_plain_loss(torch, cfg, params, batch, decisions):
+    """The plain step's loss — cuDNN convolutions, cuBLAS matmuls, torch
+    autograd — with every ReLU/max-pool decision taken from ``decisions``
+    instead of its own forward, so its gradients differ from the planned
+    step's only by the order of their sums."""
+    import torch.nn.functional as F
+
+    x = batch["images"]
+    for i in range(cfg.n_layers):
+        f, b = params[f"conv{i}"], params[f"bias{i}"]
+        y = F.conv2d(x.permute(0, 3, 1, 2), f.permute(3, 2, 0, 1), b, padding=1)
+        win = pool_windows(torch, y.permute(0, 2, 3, 1))
+        x = win.gather(-1, decisions[f"conv{i}"][..., None])[..., 0]
+    x = x.reshape(x.shape[0], -1)
+    h = (x @ params["fc1"] + params["fc1_b"]) * decisions["fc1"]
+    return F.cross_entropy(h @ params["fc2"] + params["fc2_b"], batch["labels"].long())
+
+
+def phase_train(torch, cnn, cfg, kernels, results):
+    """The launcher at full width (the slice's main path) with its launch
+    counts, then planned-vs-plain parity from one seeded state."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    for batch, steps in ((BATCH, STEPS), (FUSED_BATCH, 1)):
+        calls = train_calls(cnn, cl, cfg, cnn.plan_training(cfg, batch), batch)
+        want = {k: steps * n for k, n in per_kernel(calls, kernels).items()}
+        zero_counts(kernels)
+        history = launch.main(["--arch", cfg.name, "--batch", str(batch), "--steps",
+                               str(steps), "--planned-kernels", "--seed", str(SEED),
+                               "--log-every", "1"])
+        torch.cuda.synchronize()
+        got = {name: k.launches for name, k in kernels.items()}
+        check(got == want, f"train batch {batch}: launches {got} != plan {want}")
+        check(all(math.isfinite(h["loss"]) for h in history), f"train batch {batch}: loss")
+        path = f"train_b{batch}"
+        for name in kernels:
+            results[name]["launches_by_path"][path] = got[name]
+        emit(phase="train", path=path, steps=steps, batch=batch, launches=got,
+             launches_per_step={k: n // steps for k, n in got.items()},
+             losses=[h["loss"] for h in history])
+
+    kw = dict(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
+              warmup_steps=1, total_steps=STEPS, seed=SEED)
+    tcfgs = {"planned": TrainConfig(**kw, planned_kernels=True),
+             "plain": TrainConfig(**kw, planned_kernels=False)}
+    params0 = init_params(cnn.param_defs(cfg), SEED)
+    src = cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)
+    batches = [tr.batch_to(src(i), "cuda") for i in range(STEPS)]
+    # (A) the kernels against their plain versions on the same forward: the
+    # planned step's backward once with its kernels and once with each
+    # backward kernel's plain version (same saved masks, same decisions).
+    # (B) against the plain step (cuDNN/cuBLAS autograd, TF32 off) on the
+    # planned forward's decisions.
+    loss, got = planned_grads(torch, cfg, tr, tcfgs["planned"], params0, batches[0],
+                              kernels, plain=())
+    ref_loss, grads = {}, {}
+    ref_loss["plain versions"], grads["plain versions"] = planned_grads(
+        torch, cfg, tr, tcfgs["planned"], params0, batches[0], kernels, plain=BWD_KERNELS)
+    plans = cnn.plan_training(cfg, BATCH)
+    decisions = planned_decisions(torch, cfg, params0, batches[0]["images"], plans)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params0.items()}
+    plain_loss = decided_plain_loss(torch, cfg, leaves, batches[0], decisions)
+    ref_loss["decided plain step"] = float(plain_loss.detach())
+    grads["decided plain step"] = dict(
+        zip(leaves, torch.autograd.grad(plain_loss, list(leaves.values()))))
+    grad_err = {}
+    for k in params0:
+        check(bool(torch.isfinite(got[k]).all()), f"grad {k}: non-finite")
+        grad_err[k] = {ref: {"max_abs_err": max_err(got[k], g[k]), "scale": scale(g[k])}
+                       for ref, g in grads.items()}
+    emit(phase="train", check="step-1 gradients", batch=BATCH, grad_tolerance=TOL,
+         loss_tolerance=LOSS_TOL, loss=loss, reference_losses=ref_loss,
+         dead_windows={k: int((v == 4).sum()) for k, v in decisions.items()
+                       if k.startswith("conv")},
+         step1_grads=grad_err)
+    for ref, e in ref_loss.items():
+        check(abs(loss - e) <= LOSS_TOL * max(1.0, abs(e)), f"step-1 loss vs {ref}: {loss} {e}")
+    for k, e in grad_err.items():
+        for ref, r in e.items():
+            check(r["max_abs_err"] <= TOL * r["scale"], f"step-1 grad {k} vs {ref}: {r}")
+    losses = {}
+    for name, tc in tcfgs.items():
+        step, state = tr.make_train_step(cfg, tc), tr.init_state(cfg, tc, params0)
+        losses[name] = []
+        for b in batches:
+            state, m = step(state, b)
+            losses[name].append(float(m["loss"]))
+    for a, b in zip(losses["planned"], losses["plain"]):
+        check(math.isfinite(a) and abs(a - b) <= LOSS_TOL * max(1.0, abs(b)),
+              f"losses {losses}")
+    emit(phase="train", check="planned vs plain", batch=BATCH, steps=STEPS,
+         loss_tolerance=LOSS_TOL, losses=losses,
+         max_loss_diff=max(abs(a - b) for a, b in zip(losses["planned"], losses["plain"])))
+    return tcfgs, params0, batches
+
+
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     t_ops, t_bytes = flops / PEAK_F32, nbytes / HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def phase_times(torch, plans, cnn, cfg, params, images, card, results):
+def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, train):
     import torch.nn.functional as F
 
+    from repro_torch.core import conv_layer as cl
     from repro_torch.kernels.conv2d.conv2d import conv2d_fused_plain, conv2d_kernel
     from repro_torch.kernels.matmul.matmul import matmul_kernel, matmul_plain
+    from repro_torch.runtime import train as tr
+
+    steps = {b: train_calls(cnn, cl, cfg, cnn.plan_training(cfg, b), b)
+             for b in (BATCH, FUSED_BATCH)}
 
     def record(name, label, fn, plain_fn, lib_fn, flops, nbytes):
-        ms, plain_ms, lib_ms = median_ms(fn), median_ms(plain_fn), median_ms(lib_fn)
+        ms, plain_ms = median_ms(fn), median_ms(plain_fn)
+        lib_ms = median_ms(lib_fn) if lib_fn is not None else None
         b_ms, b_by = bound_ms(flops, nbytes)
-        call = dict(case=label, per_forward=main_path_launches(plans, name, label), ms=ms,
+        batch = FUSED_BATCH if name == "matmul_dx_dw" else BATCH
+        call = dict(case=label, per_forward=main_path_launches(plans, name, label),
+                    per_step=steps[batch].get((name, label), 0), step_batch=batch, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                     flops=flops, bytes=nbytes, peaks=PEAKS)
         results[name]["calls"].append(call)
@@ -336,6 +719,12 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results):
         record("matmul", label, lambda: matmul_kernel(a, w, **kw),
                lambda: matmul_plain(a, w, **kw), lambda: torch.matmul(a, w),
                2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+    for name, label, args, kw, meta in bwd_cases(torch, cnn, cfg):
+        if label.startswith("ragged"):
+            continue
+        k = kernels[name]
+        record(name, label, lambda: k(*args, **kw), lambda: k.plain(*args, **kw),
+               meta["lib"], meta["flops"], meta["nbytes"])
 
     with torch.no_grad():
         fwd = {alg: median_ms(lambda: cnn.forward(cfg, params, images, schedules=plans[alg]),
@@ -345,26 +734,35 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results):
     emit(phase="times", forward_ms=fwd, plain_forward_ms=plain_fwd,
          images_per_s={alg: BATCH / (t / 1e3) for alg, t in fwd.items()}, batch=BATCH,
          card=card)
-    profile_forward(torch, cnn, cfg, params, images, plans["default"], card)
+    profile(torch, "forward", lambda: cnn.forward(cfg, params, images, schedules=plans["default"]),
+            card, grad=False)
+
+    tcfgs, params0, batches = train
+    run = {name: functools.partial(tr.make_train_step(cfg, tc),
+                                   tr.init_state(cfg, tc, params0), batches[0])
+           for name, tc in tcfgs.items()}
+    step_ms = {name: median_ms(fn, reps=10) for name, fn in run.items()}
+    emit(phase="times", train_step_ms=step_ms,
+         train_images_per_s={k: BATCH / (t / 1e3) for k, t in step_ms.items()},
+         batch=BATCH, card=card)
+    profile(torch, "train_step", run["planned"], card, grad=True)
 
 
-def profile_forward(torch, cnn, cfg, params, images, plans, card):
-    """Device time by kernel name over a few default-plan forwards
-    (torch.profiler), and the device's busy share of that window."""
-    from torch.profiler import ProfilerActivity, profile
+def profile(torch, what, fn, card, *, grad: bool, reps: int = 5):
+    """Device time by kernel name over a few calls of ``fn`` (torch.profiler),
+    and the device's busy share of that window."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as torch_profile
 
-    reps = 5
-    with torch.no_grad():
-        cnn.forward(cfg, params, images, schedules=plans)
+    with torch.set_grad_enabled(grad):
+        fn()
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             for _ in range(reps):
-                cnn.forward(cfg, params, images, schedules=plans)
+                fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    from torch.autograd import DeviceType
-
     # Device-side events only (kernels, copies): the aten ops that launched
     # them carry the same device time and would count it twice.
     rows = []
@@ -374,10 +772,10 @@ def profile_forward(torch, cnn, cfg, params, images, plans, card):
             rows.append((dev_us / reps / 1e3, ev.key, ev.count // reps))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit(phase="profile", card=card, wall_ms_per_forward=wall_ms,
-         device_ms_per_forward=device_ms if rows else "not measured",
+    emit(phase="profile", what=what, card=card, batch=BATCH, wall_ms_per_call=wall_ms,
+         device_ms_per_call=device_ms if rows else "not measured",
          device_busy_share=device_ms / wall_ms if rows else "not measured",
-         top=[{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:12]])
+         top=[{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:16]])
 
 
 def main() -> int:
@@ -395,7 +793,11 @@ def main() -> int:
     import numpy as np
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels.conv2d.bwd import conv2d_wgrad_kernel
     from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
+    from repro_torch.kernels.matmul.bwd import (
+        matmul_dxdw_kernel, matmul_nt_kernel, matmul_tn_kernel,
+    )
     from repro_torch.kernels.matmul.matmul import matmul_kernel
     from repro_torch.models import cnn
     from repro_torch.models.module import count_params, init_params
@@ -411,10 +813,14 @@ def main() -> int:
     cfg = get_config("cnn-vgg11")
     plans = {alg: cnn.plan_forward(cfg, BATCH, conv_algorithm=None if alg == "default" else alg)
              for alg in ("default", "direct", "im2col")}
-    kernels = {"conv2d": conv2d_kernel, "matmul": matmul_kernel}
-    results = {name: {"max_abs_err": 0.0, "launches": 0, "calls": []} for name in kernels}
+    kernels = {"conv2d": conv2d_kernel, "matmul": matmul_kernel,
+               "conv2d_wgrad": conv2d_wgrad_kernel, "matmul_nt": matmul_nt_kernel,
+               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
+    results = {name: {"max_abs_err": 0.0, "launches_by_path": {}, "calls": []}
+               for name in kernels}
 
     phase_kernels(torch, plans, cnn, cfg, results)
+    phase_bwd(torch, cnn, cfg, kernels, results)
 
     defs = cnn.param_defs(cfg)
     params = init_params(defs, SEED)
@@ -423,22 +829,32 @@ def main() -> int:
         rng.standard_normal((BATCH, cnn.IMG, cnn.IMG, cnn.IN_CH), dtype=np.float32)).cuda()
     emit(phase="model", config=cfg.name, params=count_params(defs), batch=BATCH, seed=SEED)
     phase_forward(torch, plans, cnn, cfg, params, images, kernels, results)
+    train = phase_train(torch, cnn, cfg, kernels, results)
+    paths = {"conv2d": "forward", "matmul": "forward", "conv2d_wgrad": f"train_b{BATCH}",
+             "matmul_nt": f"train_b{BATCH}", "matmul_tn": f"train_b{BATCH}",
+             "matmul_dx_dw": f"train_b{FUSED_BATCH}"}
     for name, r in results.items():
-        check(r["launches"] > 0, f"{name}: no launch on the main path")
+        check(r["launches_by_path"][paths[name]] > 0,
+              f"{name}: no launch on the {paths[name]} path")
 
-    phase_times(torch, plans, cnn, cfg, params, images, card, results)
+    phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, train)
 
     entries = []
     for name, r in results.items():
-        calls = [c for c in r["calls"] if c["per_forward"]]  # the default forward's calls
-        total = {key: sum(c[key] * c["per_forward"] for c in calls)
-                 for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        calls = [c for c in r["calls"] if c["per_step"]]  # one training step's calls
+        check(bool(calls), f"{name}: no timed call of the training step")
+        total = {key: sum(c[key] * c["per_step"] for c in calls)
+                 for key in ("ms", "plain_ms", "bound_ms")}
+        libs = [c["library_ms"] for c in calls]
         entries.append(dict(
-            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{name}.cu",
-            replaces=REPLACES[name], launches=r["launches"], max_abs_err=r["max_abs_err"],
+            name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{SOURCES[name]}.cu",
+            replaces=REPLACES[name], launches=sum(r["launches_by_path"].values()),
+            launches_by_path=r["launches_by_path"], max_abs_err=r["max_abs_err"],
             ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
             bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"],
-            library_ms=total["library_ms"]))
+            library_ms=(None if any(v is None for v in libs)
+                        else sum(c["library_ms"] * c["per_step"] for c in calls)),
+            per_step_batch=calls[0]["step_batch"]))
     emit(kernels=entries)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

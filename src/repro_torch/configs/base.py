@@ -1,5 +1,6 @@
-"""Config system: the model config dataclass (the fields the JAX package's
-ModelConfig carries, so a config reads the same in both packages)."""
+"""Config system: the model and training config dataclasses (the fields
+the JAX package's ModelConfig and TrainConfig carry, so a config reads the
+same in both packages)."""
 
 from __future__ import annotations
 
@@ -50,3 +51,28 @@ class ModelConfig:
     @property
     def attention_free(self) -> bool:
         return self.family == "rwkv6"
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """The training knobs the port's trainer reads: the JAX package's
+    TrainConfig fields of the same names and defaults, except compute in
+    float32 (the port's kernels are f32).  Accumulation, compression,
+    rematerialization and sharding knobs come with the slices that port
+    them."""
+
+    param_dtype: str = "float32"
+    compute_dtype: str = "float32"
+    learning_rate: float = 3e-4
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    weight_decay: float = 0.1
+    beta1: float = 0.9
+    beta2: float = 0.95
+    eps: float = 1e-8
+    grad_clip: float = 1.0
+    seed: int = 0
+    # Run the family's planned kernels (forward AND planned backward) in the
+    # train step instead of the plain PyTorch path: for the cnn, the fused
+    # conv + dgrad/wgrad + dX/dW matmul kernels.
+    planned_kernels: bool = False

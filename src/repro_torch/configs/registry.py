@@ -11,6 +11,10 @@ from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = ["cnn-vgg11"]
 
+# The reference arch a family trains under ``--family`` (the port has the
+# cnn family so far).
+FAMILY_DEFAULT_ARCH = {"cnn": "cnn-vgg11"}
+
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 
 

@@ -1,5 +1,6 @@
-"""The closed forms of the paper's traffic accounting that the forward
-planners call (the JAX package's ``core/ccr.py`` holds the full Eqs. 1-14).
+"""The closed forms of the paper's traffic accounting that the port's
+planners call, forward and backward (the JAX package's ``core/ccr.py``
+holds the full Eqs. 1-14).
 
 Conventions (paper Sec. 1.2.2): a "word" is one element (4 B single
 precision, 8 B double precision).
@@ -71,3 +72,41 @@ def grid_steps(grid) -> int:
         steps *= g
     return steps + 1
 
+
+
+def conv_dgrad_fused_steps(*, H_I: int, d_in: int, block_h: int,
+                           block_do: int, batch: int = 1) -> int:
+    """Critical-path steps of the fused-epilogue dgrad variant.  The d_out
+    stream is folded inside each grid step (on the H100: the conv kernel's
+    double-buffered d_in loop), so the grid walks only (batch, dX strip,
+    dX channel stack); plus one pipeline-fill step and one step for the
+    mask-scatter prologue that rebuilds the full-rate dY."""
+    n_h = -(-H_I // block_h)
+    n_do = -(-d_in // block_do)
+    return batch * n_h * n_do + 2
+
+
+def conv_wgrad_steps(*, H_O: int, d_in: int, d_out: int, block_h: int,
+                     block_di: int, block_do: int, batch: int = 1,
+                     pipelined: bool = False) -> int:
+    """Critical-path steps of the wgrad kernel.  The direct grid walks
+    (d_i block, d_o stack, batch, strip) + fill; the pipelined variant
+    folds the (batch, strip) accumulation sweep into each (d_i, d_o) step
+    behind double-buffered strip copies, leaving n_di * n_do steps."""
+    n_di = -(-d_in // block_di)
+    n_do = -(-d_out // block_do)
+    n_h = -(-H_O // block_h)
+    inner = 1 if pipelined else batch * n_h
+    return n_di * n_do * inner + 1
+
+
+def epilogue_scatter_traffic(*, H_O: int, W_O: int, d_out: int, pool: int,
+                             batch: int = 1, in_bytes: int = 4) -> Traffic:
+    """The fused epilogue VJP's scatter pass: read the pooled gradient and
+    the int8 pool-argmax/ReLU mask (charged in words: ``in_bytes`` mask
+    bytes pack into one word), store the full-rate dY that the dgrad and
+    wgrad kernels then stream."""
+    pooled = batch * (H_O // pool) * (W_O // pool) * d_out
+    loads = pooled + -(-pooled // in_bytes)  # pooled dY + packed int8 mask
+    stores = batch * H_O * W_O * d_out  # scattered full-rate dY
+    return Traffic(macs=0, main_loads=loads, main_stores=stores)

@@ -1,21 +1,66 @@
-"""The paper's fully-connected layer (Algs 4/5), forward.
+"""The paper's fully-connected layer (Algs 4/5) as a differentiable module.
 
-The blocked matmul kernel with the output stack block_n (Alg 5's Delta_O)
-and the K loop's accumulator (Alg 4's private partial output); blocks from
-the MatmulPlanner unless an explicit ``schedule`` is given.
+Forward: the blocked matmul kernel with the output stack block_n (Alg 5's
+Delta_O) and the K loop's accumulator (Alg 4's private partial output);
+blocks from the MatmulPlanner unless an explicit ``schedule`` is given.
+
+Backward is planned too: autograd runs the ``matmul_dx`` kernel (dX = dY @
+W^T, no W^T in device memory) and the ``matmul_dw`` kernel (dW = X^T @ dY),
+or — when the dX schedule carries the ``fused_dxdw`` tag — the fused kernel
+that computes both from one read of each dY tile.  Pin them with
+``bwd_schedules={"dx": ..., "dw": ...}`` (see :func:`plan_bwd`).  An unfit
+pinned schedule raises on the card; on CPU tensors it warns once and runs
+the kernels' plain versions with its blocks.
 """
 
 from __future__ import annotations
 
+from repro_torch.core.conv_layer import admit_schedule
 from repro_torch.core.machine import H100
+from repro_torch.kernels.matmul.bwd import matmul_dw, matmul_dx, matmul_dx_dw
 from repro_torch.kernels.matmul.ops import fc_matmul
-from repro_torch.plan import Schedule, ShardedSchedule, local_schedule, planner_for
+from repro_torch.plan import (
+    Schedule, ShardedSchedule, get_op, local_schedule, planner_for,
+)
+from repro_torch.plan.registry import with_reference_vjp
+
+# The machine backward schedules are planned (and fit-checked) against.
+_BWD_MACHINE = H100
 
 
-def fc_layer(x, w, schedule: Schedule | ShardedSchedule | None = None):
+def _fc_kernel(x, w, schedule, bwd_schedules):
+    del bwd_schedules  # consumed by the backward pass
+    return fc_matmul(x, w, schedule=schedule)
+
+
+def _fc_bwd(x, w, g, schedule, bwd_schedules, *, needs):
+    del schedule
+    sd = dict(bwd_schedules or ())
+    g = g.float()
+    s_dx = local_schedule(sd.get("dx")) or get_op("matmul_dx").plan(g, w)
+    s_dw = local_schedule(sd.get("dw")) or get_op("matmul_dw").plan(x, g)
+    admit_schedule("dx", s_dx, x.is_cuda)
+    admit_schedule("dw", s_dw, x.is_cuda)
+    if s_dx.algorithm == "fused_dxdw":
+        # One kernel, one dY stream for both gradients: the fused schedule
+        # carries the whole-M dX strip, so the gate above covered it.
+        dx, dw = matmul_dx_dw(g, w, x, schedule=s_dx)
+        return (dx.to(x.dtype) if needs[0] else None), dw.to(w.dtype)
+    dx = matmul_dx(g, w, schedule=s_dx).to(x.dtype) if needs[0] else None
+    dw = matmul_dw(x, g, schedule=s_dw).to(w.dtype)
+    return dx, dw
+
+
+_fc_layer_vjp = with_reference_vjp(_fc_kernel, nondiff_argnums=(2, 3),
+                                   bwd_fn=_fc_bwd)
+
+
+def fc_layer(x, w, schedule: Schedule | ShardedSchedule | None = None,
+             bwd_schedules=None):
     """x: [..., K]; w: [K, D_O].  Forward = the Alg 4/5 kernel (its plain
-    version on CPU tensors)."""
-    return fc_matmul(x, w, schedule=local_schedule(schedule))
+    version on CPU tensors).  ``bwd_schedules`` ({"dx"/"dw": Schedule})
+    pins the planned backward kernels' blocking (see :func:`plan_bwd`)."""
+    return _fc_layer_vjp(x, w, local_schedule(schedule), bwd_schedules)
 
 
 def _fc_m(x_shape) -> int:
@@ -31,3 +76,18 @@ def plan(x_shape, w_shape, *, in_bytes=4, machine=None) -> Schedule:
     k, n = w_shape
     return planner_for("matmul", machine or H100).plan(
         m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes)
+
+
+def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None) -> dict:
+    """Backward-pass Schedules for this layer's shapes: the dX and dW
+    kernels autograd will run.  The "dx" cell prefers the fused dX/dW
+    kernel (``algorithm="fused_dxdw"``: ``_fc_bwd`` dispatches on the tag
+    and the "dw" schedule goes unused) and falls back to the direct pair
+    when the fused whole-M dX strip overflows the machine."""
+    machine = machine or _BWD_MACHINE
+    k, n = w_shape
+    shape = dict(m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes)
+    dx = planner_for("matmul_dx", machine).plan(**shape, algorithm="fused_dxdw")
+    if not dx.fits(machine):
+        dx = planner_for("matmul_dx", machine).plan(**shape)
+    return {"dx": dx, "dw": planner_for("matmul_dw", machine).plan(**shape)}

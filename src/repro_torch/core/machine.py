@@ -99,25 +99,26 @@ TPU_V5E = MachineModel(
 # is one SM; its budget is the dynamic shared memory a single thread block
 # can opt into: 227 KB = 232,448 B.
 #
-# What the budget holds is exactly what the two CUDA kernels allocate per
+# What the budget holds is exactly what each CUDA kernel allocates per
 # thread block (kernels/csrc/*.cu), all of it in SHARED MEMORY:
-#   * the f32 accumulator tile (matmul: block_m x block_n; direct conv:
-#     block_h*W_O x block_do), resident across the whole K / d_in loop;
-#   * two stages of the streamed input tile (matmul: block_m x block_k of X;
-#     conv: the halo'd strip (block_h-1)*S+F rows x W x block_di) and
-#   * two stages of the streamed weight tile (block_k x block_n of W;
-#     F x F x block_di x block_do of the filter), filled by cp.async while
-#     the previous stage is consumed — hence charge_stream_blocks=True and
-#     no separate DMA reservation.
-# REGISTERS hold only each thread's partial sums for one K / d_in step
-# (4x8 matmul outputs, 1 pixel x 8 channels of conv) and are not charged.
+#   * the f32 accumulator tile, resident across the whole contraction loop
+#     (matmul: block_m x block_n; direct conv: block_h*W_O x block_do;
+#     wgrad: F x F x block_di x block_do; the fused dX/dW matmul: the
+#     whole-M dX strip and the dW tile);
+#   * two stages of each streamed tile (the X and W tiles of a matmul, the
+#     halo'd input strip and the filter or gradient block of a conv),
+#     filled by cp.async while the previous stage is consumed — hence
+#     charge_stream_blocks=True and no separate DMA reservation.
+# REGISTERS hold only each thread's partial sums for one step (a 4x8
+# matmul item, 1 pixel x 8 channels of conv, 1 tap x 8 channels of wgrad)
+# and are not charged.
 #
-# lane = 8: both kernels give each thread 8 output channels / columns, so
-# block_n and block_do come in multiples of 8 (and block_m/k/di with them).
-# The caps bound the tiles to what 256 threads cover well; the planner's
-# capacity argument picks below them.  The CUDA wrappers accept exactly the
-# blocks `kernels.matmul.matmul.supported_blocks` and
-# `kernels.conv2d.conv2d.supported_blocks` name.
+# lane = 8: every kernel gives each thread 8 output channels / columns, so
+# blocks come in multiples of 8.  The caps bound the tiles to what 256
+# threads cover well; the planners' capacity argument picks below them.
+# Each kernel's wrapper accepts exactly the blocks its ``supported_blocks``
+# names (kernels/matmul/matmul.py, kernels/matmul/bwd.py,
+# kernels/conv2d/conv2d.py, kernels/conv2d/bwd.py).
 H100 = MachineModel(
     name="h100",
     local_mem_bytes=232_448,
@@ -132,3 +133,11 @@ H100 = MachineModel(
     block_caps=(("block_di", 16), ("block_do", 64), ("block_k", 32),
                 ("block_m", 64), ("block_n", 128)),
 )
+
+MACHINES = {m.name: m for m in (MANTICORE, TPU_V5E, H100)}
+
+
+def machine_named(name: str, default: MachineModel = H100) -> MachineModel:
+    """The MachineModel a Schedule's ``machine`` name refers to (``default``
+    for a name that is not registered)."""
+    return MACHINES.get(name, default)

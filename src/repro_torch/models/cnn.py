@@ -1,5 +1,7 @@
 """The paper's own domain: a CNN built from core.conv_layer and
-core.fc_layer (VGG-style conv/pool stages + two FC layers), forward.
+core.fc_layer (VGG-style conv/pool stages + two FC layers), forward and
+planned backward, with the family-registry hooks a trainer calls
+(``data_source``, ``make_loss_fn``, ``plan_training``).
 
 Config reuse: ``n_layers`` = conv stages, ``d_model`` = base channel width
 (doubled per stage), ``d_ff`` = FC hidden width, ``vocab`` = classes.
@@ -54,6 +56,48 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def data_source(cfg: ModelConfig, batch: int, shard, seed: int = 0):
+    """Family-registry hook: this family trains on image/label batches."""
+    from repro_torch.data.pipeline import SyntheticImageSource
+
+    return SyntheticImageSource(IMG, IN_CH, cfg.vocab, batch, shard, seed=seed)
+
+
+def make_loss_fn(cfg: ModelConfig, tcfg):
+    """Family-registry hook: image-classification cross-entropy over
+    :func:`forward`.  Under ``tcfg.planned_kernels`` the step runs the full
+    planned set — the fused forward kernels plus the planned dgrad/wgrad/
+    dX/dW backward kernels, every Schedule pinned by :func:`plan_training`
+    (cached per batch size).  ``batch`` holds tensors on the compute
+    device."""
+    dt = getattr(torch, tcfg.compute_dtype)
+    plans: dict[int, dict] = {}
+
+    def loss_fn(params, batch):
+        imgs = batch["images"].to(dt)
+        if tcfg.planned_kernels:
+            B = imgs.shape[0]
+            if B not in plans:
+                plans[B] = plan_training(cfg, B, in_bytes=imgs.element_size())
+            out = forward(cfg, params, imgs, use_kernels=True, schedules=plans[B])
+        else:
+            out = forward(cfg, params, imgs, use_kernels=False)
+        out = out.float()
+        lse = torch.logsumexp(out, -1)
+        tgt = out.gather(-1, batch["labels"].long()[:, None])[:, 0]
+        return (lse - tgt).mean()
+
+    return loss_fn
+
+
+def _bwd_for(sched: dict, stage: str) -> dict | None:
+    """The backward-Schedule pins of one stage: ``{"conv0.dgrad": s}``
+    style keys (see :func:`plan_training`) become ``{"dgrad": s}``."""
+    prefix = stage + "."
+    out = {k[len(prefix):]: v for k, v in sched.items() if k.startswith(prefix)}
+    return out or None
+
+
 def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
             use_kernels: bool = True, schedules: dict | None = None) -> torch.Tensor:
     """images: [B, IMG, IMG, 3] -> logits [B, classes].
@@ -62,22 +106,29 @@ def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
     2x2 max-pool (the direct kernel, or the im2col GEMM where its schedule
     says so) and fc1/fc2 run the matmul kernel; ``schedules`` maps stage
     names ("conv0", ..., "fc1", "fc2") to explicit Schedules (e.g. from
-    :func:`plan_forward`).  ``use_kernels=False`` is the plain PyTorch
-    forward.
+    :func:`plan_forward`).  Backward pins ride in the same dict under
+    "<stage>.dgrad"/"<stage>.wgrad" (conv; plus "<stage>.recompute" on
+    ragged geometries) and "<stage>.dx"/"<stage>.dw" (FC) keys —
+    :func:`plan_training` emits the full set, so autograd through this
+    forward runs pinned planned backward kernels.  ``use_kernels=False`` is
+    the plain PyTorch forward.
     """
     sched = schedules or {}
     x = images
     for i in range(cfg.n_layers):
         f, b = params[f"conv{i}"], params[f"bias{i}"]
         if use_kernels:
-            x = conv_block(x, f, b, 1, F // 2, 2, "strip", sched.get(f"conv{i}"))
+            x = conv_block(x, f, b, 1, F // 2, 2, "strip", sched.get(f"conv{i}"),
+                           _bwd_for(sched, f"conv{i}"))
         else:
             x = conv2d_fused_ref(x, f, b, stride=1, padding=F // 2, relu=True,
                                  pool=2)
     x = x.reshape(x.shape[0], -1)
     if use_kernels:
-        x = torch.relu(fc_layer(x, params["fc1"], sched.get("fc1")) + params["fc1_b"])
-        return fc_layer(x, params["fc2"], sched.get("fc2")) + params["fc2_b"]
+        x = torch.relu(fc_layer(x, params["fc1"], sched.get("fc1"),
+                                _bwd_for(sched, "fc1")) + params["fc1_b"])
+        return fc_layer(x, params["fc2"], sched.get("fc2"),
+                        _bwd_for(sched, "fc2")) + params["fc2_b"]
     x = torch.relu(x @ params["fc1"] + params["fc1_b"])
     return x @ params["fc2"] + params["fc2_b"]
 
@@ -100,4 +151,29 @@ def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
         else:
             out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes,
                                 machine=machine)
+    return out
+
+
+def plan_training(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
+                  machine=None, conv_algorithm=None) -> dict:
+    """:func:`plan_forward` plus every backward kernel autograd runs:
+    "<stage>.dgrad"/"<stage>.wgrad" for conv stages (the fused-epilogue
+    backward; a "<stage>.recompute" entry appears only on ragged
+    geometries), "<stage>.dx"/"<stage>.dw" for FC stages.  Pass the result
+    via ``schedules=`` so the whole training step runs pinned planned
+    kernels."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.core import fc_layer as fl
+
+    out = plan_forward(cfg, batch, in_bytes=in_bytes, machine=machine,
+                       conv_algorithm=conv_algorithm)
+    for name, x_shape, w_shape in _stage_geometry(cfg, batch):
+        if name.startswith("conv"):
+            # pool=2 matches forward()'s fused conv_block epilogue.
+            bwd = cl.plan_bwd(x_shape, w_shape, stride=1, padding=F // 2, pool=2,
+                              in_bytes=in_bytes, machine=machine)
+        else:
+            bwd = fl.plan_bwd(x_shape, w_shape, in_bytes=in_bytes, machine=machine)
+        for k, s in bwd.items():
+            out[f"{name}.{k}"] = s
     return out

@@ -1,14 +1,18 @@
 """The plan layer: Schedules, planners and the ``cuda_op`` registry."""
 
 from repro_torch.plan.planners import (
-    ConvPlanner, Im2colConvPlanner, MatmulPlanner, planner_for, round_up,
+    ConvDgradPlanner, ConvPlanner, ConvWgradPlanner, Im2colConvPlanner,
+    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, planner_for, round_up,
 )
-from repro_torch.plan.registry import CudaKernel, CudaOp, cuda_op, get_op, pad_dim
+from repro_torch.plan.registry import (
+    CudaKernel, CudaOp, cuda_op, get_op, pad_dim, with_reference_vjp,
+)
 from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule
 
 __all__ = [
-    "ConvPlanner", "CudaKernel", "CudaOp", "Im2colConvPlanner", "MatmulPlanner",
+    "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner", "CudaKernel", "CudaOp",
+    "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner", "MatmulPlanner",
     "MeshSpec", "Schedule", "ShardedSchedule", "cuda_op", "get_op",
-    "local_schedule", "pad_dim", "planner_for", "round_up",
+    "local_schedule", "pad_dim", "planner_for", "round_up", "with_reference_vjp",
 ]

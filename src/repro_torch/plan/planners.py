@@ -8,7 +8,9 @@ and whose modeled main-memory words are smallest.  The same code yields the
 paper's Manticore quotes (ConvPlanner: Delta_O = 24 sp / 12 dp on the running
 example; MatmulPlanner: block_n = 768/384), the JAX package's TPU v5e picks,
 and the thread-block tiles of the CUDA kernels on the H100, where the
-machine's ``block_caps`` bound each block to what the kernel takes.
+machine's ``block_caps`` bound each block to what the kernel takes.  The
+backward planners (dgrad, wgrad, dX, dW) reuse the forward capacity rule on
+the transposed roles.
 
 Traffic models are kernel-faithful: the conv model is ``alg2_strip_traffic``
 generalized to rectangular planes, pooling and batch (filters re-stream once
@@ -374,6 +376,245 @@ class Im2colConvPlanner(ConvPlanner):
 
 
 # ---------------------------------------------------------------------------
+# Conv backward: dgrad (input gradient) and wgrad (filter gradient)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvDgradPlanner(ShardablePlanner):
+    """Plans the conv backward-data (dgrad) kernel.
+
+    dX is a stride-1 strip conv over the S-dilated gradient with spatially
+    flipped, channel-swapped filters — exactly the forward kernel on a
+    transposed geometry — so the planner delegates to :class:`ConvPlanner`
+    (direct family) on that geometry and relabels the schedule.  Kwargs
+    are the *forward* layer's shapes: ``(H_O, W_O)`` is the gradient
+    extent, ``d_in/d_out`` the forward channel counts.
+
+    With ``pool=`` (the forward layer saved its pool-argmax/ReLU mask) the
+    default variant is **fused_epilogue**: the mask-scatter prologue
+    (``ccr.epilogue_scatter_traffic``, charged here once) rebuilds the
+    full-rate dY, and the d_out stream is folded inside each grid step, so
+    the grid drops its stream dimension and the critical path shortens to
+    ``ccr.conv_dgrad_fused_steps``.  Both variants run the same kernel with
+    the same numerics; ``algorithm="direct"`` pins the plain schedule.
+    """
+
+    op: ClassVar[str] = "conv2d_dgrad"
+
+    def plan_local(
+        self, *, H_O: int, W_O: int, F: int, S: int = 1, P: int = 0,
+        d_in: int, d_out: int, in_bytes: int = 2, batch: int = 1,
+        H_I: int | None = None, W_I: int | None = None,
+        block_h: int | None = None, block_do: int | None = None,
+        block_di: int | None = None, pool: int | None = None,
+        algorithm: str | None = None,
+    ) -> Schedule:
+        if P > F - 1:
+            raise ValueError(f"dgrad needs padding <= F-1, got P={P} for F={F}")
+        if algorithm not in (None, "direct", "fused_epilogue"):
+            raise ValueError(f"unknown dgrad algorithm {algorithm!r}; "
+                             "expected 'direct' or 'fused_epilogue'")
+        if algorithm == "fused_epilogue" and not pool:
+            raise ValueError("fused_epilogue dgrad needs the forward pool "
+                             "factor (pool=)")
+        if algorithm is None:
+            algorithm = "fused_epilogue" if pool else "direct"
+        H_dil, W_dil = (H_O - 1) * S + 1, (W_O - 1) * S + 1  # dilated grad
+        pt = F - 1 - P  # transposed padding
+        H_I = H_I if H_I is not None else H_dil + 2 * pt - F + 1
+        W_I = W_I if W_I is not None else W_dil + 2 * pt - F + 1
+        inner = ConvPlanner(self.machine).plan(
+            H_O=H_I, W_O=W_I, F=F, S=1, d_in=d_out, d_out=d_in,
+            in_bytes=in_bytes, batch=batch, padding=pt, H_I=H_dil, W_I=W_dil,
+            block_h=block_h, block_do=block_do, block_di=block_di,
+            algorithm="direct",
+        )
+        if algorithm == "direct":
+            return dataclasses.replace(inner, op=self.op)
+        sc = ccr.epilogue_scatter_traffic(
+            H_O=H_O, W_O=W_O, d_out=d_out, pool=pool, batch=batch,
+            in_bytes=in_bytes)
+        return dataclasses.replace(
+            inner, op=self.op, algorithm="fused_epilogue",
+            grid=inner.grid[:3],
+            loads=inner.loads + sc.main_loads,
+            stores=inner.stores + sc.main_stores,
+            critical_path_steps=ccr.conv_dgrad_fused_steps(
+                H_I=H_I, d_in=d_in, block_h=inner.block("block_h"),
+                block_do=inner.block("block_do"), batch=batch),
+        )
+
+
+def conv_wgrad_words(
+    *, H_O: int, W_O: int, H_I: int, W_I: int, F: int, S: int, P: int,
+    d_in: int, d_out: int, block_h: int, block_di: int, block_do: int,
+    batch: int = 1,
+) -> tuple[int, int]:
+    """(loads, stores) of the wgrad accumulation schedule: the F^2 x
+    Delta_I x Delta_O filter-gradient accumulator is the resident stack;
+    each of the ceil(d_out/block_do) gradient stacks re-streams every
+    halo'd input strip (zero-padding rows free) and each of the
+    ceil(d_in/block_di) input blocks re-streams the whole gradient; dW
+    stores exactly once."""
+    n_do = -(-d_out // block_do)
+    n_di = -(-d_in // block_di)
+    h_in = (block_h - 1) * S + F
+    rows = 0
+    for h0 in range(0, H_O, block_h):
+        lo = h0 * S - P
+        rows += max(0, min(lo + h_in, H_I) - max(lo, 0))
+    loads = n_do * d_in * rows * W_I + n_di * d_out * H_O * W_O
+    stores = F * F * d_in * d_out
+    return batch * loads, stores
+
+
+@dataclasses.dataclass(frozen=True)
+class ConvWgradPlanner(ShardablePlanner):
+    """Picks (block_h, block_do, block_di) for the wgrad accumulation
+    kernel: dW[ky, kx] += X_strip^T @ dY_strip over the (batch, strip)
+    sweep.  The resident output stack is the F^2 * block_di * block_do f32
+    accumulator; the input and gradient strips stream through.  Strip
+    candidates are H_O and its power-of-two fractions, the largest fitting
+    lane-aligned gradient stack per strip, fewest modeled words wins.
+
+    Two execution variants share that blocking and its words: **direct**
+    walks the whole (d_i, d_o, batch, strip) grid, **pipelined** folds the
+    (batch, strip) sweep inside each (d_i, d_o) step behind double-buffered
+    strip copies.  The words tie, so the argmin over (words, critical-path
+    steps) picks pipelined whenever the folded sweep is longer than one
+    step; ``algorithm=`` pins a variant.
+    """
+
+    op: ClassVar[str] = "conv2d_wgrad"
+
+    _BDO_CAP: ClassVar[int] = 2048
+    _BDI_CAP: ClassVar[int] = 512
+
+    def default_block_di(self, d_in: int) -> int:
+        lane = self.machine.lane
+        if lane == 1:
+            return 1  # the paper's per-slice loop granularity
+        return min(round_up(d_in, lane),
+                   self.machine.block_cap("block_di", self._BDI_CAP))
+
+    def _vmem_bytes(self, hb: int, bdo: int, bdi: int, F: int, S: int,
+                    W_O: int, W_stream: int, in_bytes: int) -> int:
+        acc_word = max(4, in_bytes)
+        stream = 0
+        if self.machine.charge_stream_blocks:
+            h_halo = (hb - 1) * S + F
+            stream = (h_halo * W_stream * bdi + hb * W_O * bdo) * in_bytes * 2
+        return F * F * bdi * bdo * acc_word + stream
+
+    def _max_stack(self, hb: int, bdi: int, F: int, S: int, W_O: int,
+                   W_stream: int, in_bytes: int, d_out: int) -> int:
+        m = self.machine
+        lane = m.lane
+        budget = m.usable_for_working_set(streams=2)
+        acc_word = max(4, in_bytes)
+        fixed = 0
+        per_bdo = F * F * bdi * acc_word
+        if m.charge_stream_blocks:
+            h_halo = (hb - 1) * S + F
+            fixed = h_halo * W_stream * bdi * in_bytes * 2
+            per_bdo += hb * W_O * in_bytes * 2
+        bdo = _align_down((budget - fixed) // per_bdo, lane) if budget > fixed else 0
+        return min(bdo, m.block_cap("block_do", self._BDO_CAP),
+                   round_up(d_out, lane))
+
+    def plan_local(
+        self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int,
+        d_out: int, in_bytes: int = 2, batch: int = 1,
+        padding: int | None = None, H_I: int | None = None,
+        W_I: int | None = None, block_h: int | None = None,
+        block_do: int | None = None, block_di: int | None = None,
+        algorithm: str | None = None,
+    ) -> Schedule:
+        if algorithm not in (None, "direct", "pipelined"):
+            raise ValueError(f"unknown wgrad algorithm {algorithm!r}; "
+                             "expected 'direct' or 'pipelined'")
+        m = self.machine
+        lane = m.lane
+        P = 0 if padding is None else padding
+        H_I = H_I if H_I is not None else (H_O - 1) * S + F - 2 * P
+        W_I = W_I if W_I is not None else (W_O - 1) * S + F - 2 * P
+        W_stream = (W_O - 1) * S + F
+        bdi = block_di or self.default_block_di(d_in)
+
+        def words(hb: int, bdo: int) -> int:
+            loads, stores = conv_wgrad_words(
+                H_O=H_O, W_O=W_O, H_I=H_I, W_I=W_I, F=F, S=S, P=P,
+                d_in=d_in, d_out=d_out, block_h=hb, block_di=bdi,
+                block_do=bdo, batch=batch,
+            )
+            return loads + stores
+
+        if block_h is not None and block_do is not None:
+            hb, bdo = block_h, block_do
+        else:
+            cands = ([block_h] if block_h is not None
+                     else _strip_ladder(H_O, 1))
+            budget = m.usable_for_working_set(streams=2)
+            best = None
+            for hb in cands:
+                if block_do is not None:
+                    bdo = min(block_do, round_up(d_out, lane))
+                    if self._vmem_bytes(hb, bdo, bdi, F, S, W_O, W_stream,
+                                        in_bytes) > budget:
+                        continue
+                else:
+                    bdo = self._max_stack(hb, bdi, F, S, W_O, W_stream,
+                                          in_bytes, d_out)
+                    if bdo < max(lane, 1):
+                        continue
+                w = words(hb, bdo)
+                if best is None or w < best[0]:
+                    best = (w, hb, bdo)
+            if best is None:
+                hb = block_h if block_h is not None else min(8, H_O)
+                bdo = block_do if block_do is not None else lane
+            else:
+                _, hb, bdo = best
+        hb = max(1, min(hb, H_O))
+        bdo = min(bdo, round_up(d_out, lane))
+
+        loads, stores = conv_wgrad_words(
+            H_O=H_O, W_O=W_O, H_I=H_I, W_I=W_I, F=F, S=S, P=P,
+            d_in=d_in, d_out=d_out, block_h=hb, block_di=bdi,
+            block_do=bdo, batch=batch,
+        )
+        step_kw = dict(H_O=H_O, d_in=d_in, d_out=d_out, block_h=hb,
+                       block_di=bdi, block_do=bdo, batch=batch)
+        if algorithm is None:
+            # The words tie, so the argmin reduces to the step term.
+            pipelined = (ccr.conv_wgrad_steps(**step_kw, pipelined=True)
+                         < ccr.conv_wgrad_steps(**step_kw, pipelined=False))
+            algorithm = "pipelined" if pipelined else "direct"
+        n_di = round_up(d_in, bdi) // bdi
+        n_do = round_up(d_out, bdo) // bdo
+        if algorithm == "pipelined":
+            grid = (n_di, n_do)
+        else:
+            grid = (n_di, n_do, batch, -(-H_O // hb))
+        return Schedule(
+            op=self.op,
+            grid=grid,
+            blocks=(("block_di", bdi), ("block_do", bdo), ("block_h", hb)),
+            halo=max(0, F - S),
+            macs=batch * H_O * W_O * F * F * d_in * d_out,
+            loads=loads,
+            stores=stores,
+            vmem_bytes=self._vmem_bytes(hb, bdo, bdi, F, S, W_O, W_stream,
+                                        in_bytes),
+            machine=m.name,
+            algorithm=algorithm,
+            critical_path_steps=ccr.conv_wgrad_steps(
+                **step_kw, pipelined=(algorithm == "pipelined")),
+        )
+
+
+# ---------------------------------------------------------------------------
 # Matmul (Algs 4/5)
 # ---------------------------------------------------------------------------
 
@@ -442,10 +683,119 @@ class MatmulPlanner(ShardablePlanner):
         )
 
 
+# ---------------------------------------------------------------------------
+# Matmul backward: dX = G @ W^T and dW = X^T @ G
+# ---------------------------------------------------------------------------
+
+
+def _relabel_matmul(inner: Schedule, op: str, names: dict[str, str]) -> Schedule:
+    """Rename an inner MatmulPlanner schedule's blocks into the backward
+    kernel's own (forward-role) names; grid and model fields carry over."""
+    blocks = tuple(sorted((names[k], v) for k, v in inner.blocks))
+    return dataclasses.replace(inner, op=op, blocks=blocks)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulDxPlanner(ShardablePlanner):
+    """Plans dX = dY @ W^T for the FC layer.
+
+    A matmul whose resident output stack is the K (input-feature)
+    dimension while N streams through as the contraction — Alg 5's
+    capacity rule with the roles transposed — so the planner delegates to
+    :class:`MatmulPlanner` on ``(m, k, n)`` and relabels the blocks back
+    into forward names: ``block_k`` is the output stack, ``block_n`` the
+    streamed contraction step.  Kwargs are the *forward* shapes (x: [m, k],
+    w: [k, n], dY: [m, n]).
+
+    ``algorithm="fused_dxdw"`` models the fused dX/dW kernel instead: one
+    sweep over (k-blocks, n-blocks, m-blocks) reads each dY tile once and
+    feeds both contractions, saving dW's dY stream but holding a whole-M
+    dX strip in local memory.  The schedule carries the combined cost of
+    both gradients; the FC layer opts in by pinning the algorithm in
+    ``plan_bwd`` and falls back to the pair when it does not fit.
+    """
+
+    op: ClassVar[str] = "matmul_dx"
+
+    def _fuse_dxdw(self, sched: Schedule, *, m: int, n: int, k: int,
+                   in_bytes: int) -> Schedule:
+        """Re-model a direct dX schedule as the fused dX/dW kernel: the dY
+        tile is charged once per step (n_k * M * N), W re-streams per
+        m-block, X per n-block; both gradients store once.  Local memory
+        holds two stages of the three streamed tiles, the whole-M f32 dX
+        strip of the current k-block and the dW tile."""
+        blocks = dict(sched.blocks)
+        bm, bk, bn = blocks["block_m"], blocks["block_k"], blocks["block_n"]
+        mp, kp, np_ = round_up(m, bm), round_up(k, bk), round_up(n, bn)
+        n_k, n_n, n_m = kp // bk, np_ // bn, mp // bm
+        grid = (n_k, n_n, n_m)
+        stream = 0
+        if self.machine.charge_stream_blocks:
+            stream = (bm * bn + bk * bn + bm * bk) * in_bytes * 2
+        return dataclasses.replace(
+            sched,
+            algorithm="fused_dxdw",
+            grid=grid,
+            macs=2 * mp * np_ * kp,
+            loads=n_k * mp * np_ + n_m * kp * np_ + n_n * mp * kp,
+            stores=mp * kp + kp * np_,
+            vmem_bytes=stream + (mp * bk + bk * bn) * 4,
+            critical_path_steps=ccr.grid_steps(grid),
+        )
+
+    def plan_local(
+        self, *, m: int, n: int, k: int, in_bytes: int = 2,
+        block_m: int | None = None, block_n: int | None = None,
+        block_k: int | None = None, algorithm: str | None = None,
+    ) -> Schedule:
+        if algorithm not in (None, "direct", "fused_dxdw"):
+            raise ValueError(
+                f"matmul_dx algorithm must be 'direct' or 'fused_dxdw', "
+                f"got {algorithm!r}")
+        inner = MatmulPlanner(self.machine).plan(
+            m=m, n=k, k=n, in_bytes=in_bytes,
+            block_m=block_m, block_n=block_k, block_k=block_n,
+        )
+        sched = _relabel_matmul(inner, self.op, {
+            "block_m": "block_m", "block_n": "block_k", "block_k": "block_n",
+        })
+        if (algorithm or "direct") == "direct":
+            return sched
+        return self._fuse_dxdw(sched, m=m, n=n, k=k, in_bytes=in_bytes)
+
+
+@dataclasses.dataclass(frozen=True)
+class MatmulDwPlanner(ShardablePlanner):
+    """Plans dW = X^T @ dY for the FC layer: output [k, n] tiles resident
+    while the M (batch) dimension streams as the contraction.  Delegates
+    to :class:`MatmulPlanner` on ``(k, n, m)``; ``block_m`` is the streamed
+    contraction step in the relabeled schedule.  Kwargs are the *forward*
+    shapes."""
+
+    op: ClassVar[str] = "matmul_dw"
+
+    def plan_local(
+        self, *, m: int, n: int, k: int, in_bytes: int = 2,
+        block_m: int | None = None, block_n: int | None = None,
+        block_k: int | None = None,
+    ) -> Schedule:
+        inner = MatmulPlanner(self.machine).plan(
+            m=k, n=n, k=m, in_bytes=in_bytes,
+            block_m=block_k, block_n=block_n, block_k=block_m,
+        )
+        return _relabel_matmul(inner, self.op, {
+            "block_m": "block_k", "block_n": "block_n", "block_k": "block_m",
+        })
+
+
 PLANNERS: dict[str, type] = {
     ConvPlanner.op: ConvPlanner,
     Im2colConvPlanner.op: Im2colConvPlanner,
+    ConvDgradPlanner.op: ConvDgradPlanner,
+    ConvWgradPlanner.op: ConvWgradPlanner,
     MatmulPlanner.op: MatmulPlanner,
+    MatmulDxPlanner.op: MatmulDxPlanner,
+    MatmulDwPlanner.op: MatmulDwPlanner,
 }
 
 

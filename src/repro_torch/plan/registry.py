@@ -13,8 +13,10 @@ Two objects:
   layout code around the kernel (``impl``: padding, strips, slicing), with
   plans cached per (planner, shapes).
 
-Ops resolve lazily by name (:func:`get_op`), so ``repro_torch.plan`` never
-imports kernel code at module load.
+:func:`with_reference_vjp` wires a layer's forward and planned backward
+into one ``torch.autograd.Function``.  Ops resolve lazily by name
+(:func:`get_op`), so ``repro_torch.plan`` never imports kernel code at
+module load.
 """
 
 from __future__ import annotations
@@ -32,9 +34,10 @@ from repro_torch.core.machine import H100, MachineModel
 from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.sharded import ShardedSchedule, local_schedule
 
-TRAINING_SLICE = ("the port's kernels are forward only: gradients through "
-                  "them arrive with the training slice (planned dgrad/wgrad "
-                  "and dX/dW kernels)")
+NOT_DIFFERENTIABLE = ("a kernel is not differentiable by itself: train through "
+                  "the layer functions (core.conv_layer.conv_block/conv_layer, "
+                  "core.fc_layer.fc_layer), whose backward runs the planned "
+                  "dgrad/wgrad and dX/dW kernels")
 
 
 def pad_dim(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -77,7 +80,7 @@ class CudaKernel:
             raise ValueError(f"{self.name}: no kernel for device {device}")
         if torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in tensors):
-            raise NotImplementedError(f"{self.name}: {TRAINING_SLICE}")
+            raise NotImplementedError(f"{self.name}: {NOT_DIFFERENTIABLE}")
         return self.launch(self, *tensors, **params)
 
     def run(self, *c_args) -> None:
@@ -138,7 +141,11 @@ _OPS: dict[str, CudaOp] = {}
 _PROVIDERS = {
     "conv2d": "repro_torch.kernels.conv2d.ops",
     "conv2d_im2col": "repro_torch.kernels.conv2d.im2col",
+    "conv2d_dgrad": "repro_torch.kernels.conv2d.bwd",
+    "conv2d_wgrad": "repro_torch.kernels.conv2d.bwd",
     "matmul": "repro_torch.kernels.matmul.ops",
+    "matmul_dx": "repro_torch.kernels.matmul.bwd",
+    "matmul_dw": "repro_torch.kernels.matmul.bwd",
 }
 
 
@@ -160,3 +167,71 @@ def get_op(name: str) -> CudaOp:
     except KeyError:
         raise KeyError(f"unknown cuda op {name!r}; known: "
                        f"{sorted(set(_OPS) | set(_PROVIDERS))}") from None
+
+
+# ---------------------------------------------------------------------------
+# Differentiable layers: forward kernel + planned backward
+# ---------------------------------------------------------------------------
+
+
+def with_reference_vjp(kernel_fn: Callable, *, bwd_fn: Callable,
+                       nondiff_argnums: tuple[int, ...] = (),
+                       fwd_fn: Callable | None = None) -> Callable:
+    """One ``torch.autograd.Function`` around a layer: forward runs the
+    kernel, backward runs ``bwd_fn`` (the planned backward kernels).
+
+    ``nondiff_argnums`` are the trailing positional arguments (strides,
+    strategies, Schedules): they ride as plain values and get ``None``
+    gradients.  The others are tensors (or ``None``).  ``bwd_fn`` is called
+    as ``bwd_fn(*diff_args, g, *nondiff_args, needs=...)`` — with
+    ``fwd_fn`` as ``bwd_fn(*diff_args, aux, g, *nondiff_args, needs=...)``
+    — where ``needs`` says which differentiable arguments want a gradient
+    (``ctx.needs_input_grad``), and returns one gradient (or ``None``) per
+    differentiable argument.
+
+    ``fwd_fn`` (same signature as ``kernel_fn``) is the differentiated
+    forward: it returns ``(out, aux)`` with a cheap auxiliary residual
+    (the fused kernel's int8 epilogue mask) or ``None``.  A call is
+    primal-only when grad mode is off or no differentiable argument
+    requires grad; it runs ``kernel_fn`` directly and never pays for the
+    aux output.
+    """
+    nondiff = tuple(nondiff_argnums)
+    for i, j in zip(nondiff, nondiff[1:]):
+        assert j == i + 1, "nondiff_argnums must be contiguous and trailing"
+
+    def split(args):
+        n_diff = len(args) - len(nondiff)
+        assert not nondiff or nondiff[0] == n_diff, (
+            f"nondiff_argnums {nondiff} are not the trailing arguments of "
+            f"{len(args)}")
+        return args[:n_diff], args[n_diff:]
+
+    class _Op(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, *args):
+            diff, rest = split(args)
+            if fwd_fn is not None:
+                out, ctx.aux = fwd_fn(*args)
+            else:
+                out, ctx.aux = kernel_fn(*args), None
+            ctx.save_for_backward(*diff)
+            ctx.rest = rest
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            diff = ctx.saved_tensors
+            needs = tuple(ctx.needs_input_grad[:len(diff)])
+            aux = (ctx.aux,) if fwd_fn is not None else ()
+            grads = tuple(bwd_fn(*diff, *aux, g, *ctx.rest, needs=needs))
+            return grads + (None,) * len(ctx.rest)
+
+    def op(*args):
+        diff, _ = split(args)
+        if not torch.is_grad_enabled() or not any(
+                isinstance(t, torch.Tensor) and t.requires_grad for t in diff):
+            return kernel_fn(*args)
+        return _Op.apply(*args)
+
+    return op

@@ -1,4 +1,5 @@
-"""The port's CUDA kernels against their plain versions, on the card.
+"""The port's CUDA kernels against their plain versions, on the card —
+forward and planned backward.
 
 Every test here is marked ``cuda`` and skips where there is no GPU; the
 file imports neither JAX nor ``repro``, so it runs on a machine with a card
@@ -14,8 +15,17 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core.conv_layer import conv_block
+from repro_torch.core.fc_layer import fc_layer, plan_bwd as fc_plan_bwd
+from repro_torch.kernels.conv2d.bwd import (
+    conv2d_dgrad, conv2d_wgrad, conv2d_wgrad_kernel,
+)
 from repro_torch.kernels.conv2d.ops import conv2d, conv2d_with_mask
 from repro_torch.kernels.matmul import fc_matmul, matmul_kernel
+from repro_torch.kernels.matmul.bwd import (
+    matmul_dw, matmul_dx, matmul_dx_dw, matmul_dxdw_kernel, matmul_nt_kernel,
+    matmul_tn_kernel,
+)
 
 TOL = 1e-4
 
@@ -82,7 +92,7 @@ def test_conv_kernel_matches_plain_on_card(cuda, case):
 @pytest.mark.cuda
 def test_kernel_refuses_tensors_requiring_grad(cuda):
     x = torch.ones(8, 8, device=cuda, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(NotImplementedError, match="not differentiable by itself"):
         fc_matmul(x, torch.ones(8, 8, device=cuda))
 
 
@@ -100,3 +110,108 @@ def test_mask_matches_plain_on_card(cuda, pool):
     want_out, want_mask = conv2d_with_mask(x, f, bias=b, padding=1, pool=pool)
     assert torch.equal(out.cpu(), want_out)
     assert torch.equal(mask.cpu(), want_mask)
+
+
+# -- planned backward ---------------------------------------------------------------
+
+# (B, H, d_in, d_out, F, S, P, block_h): odd channels, strides, ragged strips
+BWD_CASES = [
+    (2, 8, 3, 8, 3, 1, 1, None),
+    (2, 9, 5, 7, 3, 1, 1, 4),
+    (1, 12, 8, 16, 3, 2, 0, None),
+    (2, 13, 6, 10, 3, 2, 1, 3),
+    (3, 10, 17, 9, 3, 1, 1, 4),
+    (2, 16, 64, 128, 3, 1, 1, None),
+]
+
+
+def _launched(kernel, fn):
+    before = kernel.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert kernel.launches > before
+    return out
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_wgrad_kernel_matches_plain_on_card(cuda, case):
+    B, H, di, do, Fk, S, P, hb = case
+    rng = np.random.default_rng(1)
+    x = _rand(rng, B, H, H, di)
+    H_O = (H + 2 * P - Fk) // S + 1
+    dy = _rand(rng, B, H_O, H_O, do)
+    got = _launched(conv2d_wgrad_kernel, lambda: conv2d_wgrad(
+        x.to(cuda), dy.to(cuda), F=Fk, stride=S, padding=P, block_h=hb))
+    want = conv2d_wgrad(x, dy, F=Fk, stride=S, padding=P, block_h=hb)
+    assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BWD_CASES)
+def test_dgrad_matches_plain_on_card(cuda, case):
+    from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
+
+    B, H, di, do, Fk, S, P, hb = case
+    rng = np.random.default_rng(2)
+    H_O = (H + 2 * P - Fk) // S + 1
+    dy = _rand(rng, B, H_O, H_O, do)
+    f = _rand(rng, Fk, Fk, di, do, scale=1 / Fk)
+    got = _launched(conv2d_kernel, lambda: conv2d_dgrad(
+        dy.to(cuda), f.to(cuda), stride=S, padding=P, out_hw=(H, H), block_h=hb))
+    want = conv2d_dgrad(dy, f, stride=S, padding=P, out_hw=(H, H), block_h=hb)
+    assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(37, 90, 70), (256, 4096, 1000), (256, 2048, 4096)])
+def test_matmul_bwd_kernels_match_plain_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(3)
+    x, w, g = _rand(rng, m, k), _rand(rng, k, n), _rand(rng, m, n)
+    dx = _launched(matmul_nt_kernel, lambda: matmul_dx(g.to(cuda), w.to(cuda)))
+    dw = _launched(matmul_tn_kernel, lambda: matmul_dw(x.to(cuda), g.to(cuda)))
+    assert_close(dx, g.double() @ w.double().t())
+    assert_close(dw, x.double().t() @ g.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [(37, 90, 70), (128, 4096, 1000), (128, 2048, 4096)])
+def test_fused_dxdw_kernel_matches_plain_on_card(cuda, m, k, n):
+    rng = np.random.default_rng(4)
+    x, w, g = _rand(rng, m, k), _rand(rng, k, n), _rand(rng, m, n)
+    dx, dw = _launched(matmul_dxdw_kernel,
+                       lambda: matmul_dx_dw(g.to(cuda), w.to(cuda), x.to(cuda)))
+    assert_close(dx, g.double() @ w.double().t())
+    assert_close(dw, x.double().t() @ g.double())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [1, 2])
+def test_conv_block_grads_on_card(cuda, pool):
+    """conv_block's planned backward (mask scatter + dgrad + wgrad) on the
+    card against the same layer's backward on the CPU."""
+    rng = np.random.default_rng(5)
+    x, f, b = _rand(rng, 2, 10, 10, 6), _rand(rng, 3, 3, 6, 16, scale=1 / 3), _rand(rng, 16)
+    g = _rand(rng, 2, 10 // pool, 10 // pool, 16)
+    grads = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = [t.to(dev).requires_grad_(True) for t in (x, f, b)]
+        out = conv_block(*leaves, 1, 1, pool, "strip")
+        grads.append(torch.autograd.grad(out, leaves, g.to(dev)))
+    for got, want in zip(*grads):
+        assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [96, 256])
+def test_fc_layer_grads_on_card(cuda, m):
+    """fc_layer's planned backward on the card (fused at m=96, the dX/dW
+    pair at m=256) against autograd of the plain product."""
+    rng = np.random.default_rng(6)
+    x, w, g = _rand(rng, m, 512), _rand(rng, 512, 300), _rand(rng, m, 300)
+    sd = fc_plan_bwd((m, 512), (512, 300))
+    assert (sd["dx"].algorithm == "fused_dxdw") == (m == 96)
+    xc, wc = x.to(cuda).requires_grad_(True), w.to(cuda).requires_grad_(True)
+    dx, dw = torch.autograd.grad(fc_layer(xc, wc, None, sd), (xc, wc), g.to(cuda))
+    assert_close(dx, g.double() @ w.double().t())
+    assert_close(dw, x.double().t() @ g.double())

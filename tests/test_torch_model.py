@@ -130,16 +130,25 @@ def test_port_imports_neither_jax_nor_repro(path):
 def _state():
     from repro.core import conv_layer as jcl
     from repro.plan import autotune as at
+    from repro_torch.core import conv_layer as tcl
 
     return (dict(os.environ), torch.get_default_dtype(), jax.config.jax_enable_x64,
             at.get_policy(), len(jcl._WARNED_SCHEDULES), len(at._WARNED_CELLS),
+            len(tcl._WARNED_SCHEDULES), torch.is_grad_enabled(),
             torch.backends.cuda.matmul.allow_tf32, torch.backends.cudnn.allow_tf32)
 
 
 def test_port_leaves_process_state_alone():
     """Running the port (and the repro oracle the tests use) changes no
     environment variable, default dtype, jax flag, autotune policy, warning
-    registry or TF32 switch."""
+    registry, grad mode or TF32 switch — forward or planned backward."""
     before = _state()
     test_smoke_logits_match_repro(None)
+    cfg = smoke_config("cnn-vgg11")
+    params = {k: v.requires_grad_(True)
+              for k, v in params_from_repro(_repro_weights(jax_smoke_config("cnn-vgg11")),
+                                            device="cpu").items()}
+    logits = cnn.forward(cfg, params, torch.from_numpy(_images(2)),
+                         schedules=cnn.plan_training(cfg, 2))
+    logits.sum().backward()
     assert _state() == before
