@@ -39,14 +39,36 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              decide a near-tie differently and one such flip moves a whole
              gradient term.  Then 3 planned AdamW steps' losses against 3
              plain steps' (each within 1e-4 * max(1, |loss|)).
-6. times   — CUDA-event medians of each kernel at every forward and
+6. flash   — the flash-attention kernel against its plain version at the
+             transformer's shape ([64, 2048, 64], causal, the planner's
+             blocks), GQA 16/8 at D = 128, a 512 window, ragged lengths
+             (1000) and a case whose late rows see no key (q_len 1000,
+             kv_len 500, window 256): those rows must be exactly 0 in both.
+             Phase-2 tolerance.
+7. transformer — the main path of the third slice: the launcher
+             (``--arch qwen1.5-0.5b --batch 4 --seq 2048 --steps 3
+             --planned-kernels``, full width and depth, f32) with its launch
+             counts against what plan_training implies; then, from the same
+             seeded state, the step-1 loss and every gradient at the
+             phase-2 tolerance (a) against the same planned step with every
+             kernel swapped for its plain version and (b) against an
+             independent plain step (cuBLAS matmuls with TF32 off,
+             attention_ref, torch autograd), and the launcher's 3 losses
+             against 3 plain steps' (the port's plain path) at 1e-4
+             relative.  Peak device memory of each step, one at a time.
+8. times   — CUDA-event medians of each kernel at every forward and
              backward shape, beside its plain version, one library call and
              the bound; the forward's and the training step's ms per batch
              and images/s; device time by kernel over a profiled forward
-             and a profiled training step.  The ``kernels`` line sums each
-             kernel's calls over one planned training step at batch 256
-             (the fused dX/dW kernel: at batch 128) and gives its launches
-             over the forward and training paths.
+             and a profiled training step.  For the transformer: the flash
+             kernel beside its plain version, scaled_dot_product_attention
+             and its bound; matmul, NT and TN at the five GEMM shapes of the
+             step beside torch.matmul; the step's ms and tokens/s, planned
+             and plain; a profiled step.  The ``kernels`` line sums each
+             kernel's calls over one planned training step — cnn-vgg11 at
+             batch 256 (the fused dX/dW kernel: at batch 128), and for
+             flash attention the qwen1.5-0.5b step — and gives its launches
+             over every path.
 
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
@@ -81,10 +103,25 @@ REPLACES = {
     "matmul_nt": "src/repro/kernels/matmul/bwd.py:59",
     "matmul_tn": "src/repro/kernels/matmul/bwd.py:222",
     "matmul_dx_dw": "src/repro/kernels/matmul/bwd.py:354",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:31",
 }
 SOURCES = {"matmul": "matmul", "conv2d": "conv2d", "conv2d_wgrad": "conv2d_wgrad",
            "matmul_nt": "matmul_bwd", "matmul_tn": "matmul_bwd",
-           "matmul_dx_dw": "matmul_bwd"}
+           "matmul_dx_dw": "matmul_bwd", "flash_attention": "flash_attention"}
+# The transformer path: qwen1.5-0.5b at full width and depth; batch and
+# sequence cut from the train_4k cell's 256 x 4096 to what one card holds in
+# f32 beside the independent plain step it is checked against.
+TFM_ARCH = "qwen1.5-0.5b"
+TFM_BATCH, TFM_SEQ = 4, 2048
+TFM_PATH = f"train_{TFM_ARCH}"
+TFM_CELLS = ("qkv", "wo", "mlp_up", "mlp_down", "logits")
+
+
+def tfm_chunks() -> int:
+    """The launcher's chunked cross-entropy chunks, which the checks plan with."""
+    from repro_torch.launch.train import LOSS_CHUNKS
+
+    return LOSS_CHUNKS
 
 
 def emit(**record) -> None:
@@ -748,7 +785,7 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
     profile(torch, "train_step", run["planned"], card, grad=True)
 
 
-def profile(torch, what, fn, card, *, grad: bool, reps: int = 5):
+def profile(torch, what, fn, card, *, grad: bool, reps: int = 5, batch=BATCH):
     """Device time by kernel name over a few calls of ``fn`` (torch.profiler),
     and the device's busy share of that window."""
     from torch.autograd import DeviceType
@@ -772,10 +809,365 @@ def profile(torch, what, fn, card, *, grad: bool, reps: int = 5):
             rows.append((dev_us / reps / 1e3, ev.key, ev.count // reps))
     rows.sort(reverse=True)
     device_ms = sum(r[0] for r in rows)
-    emit(phase="profile", what=what, card=card, batch=BATCH, wall_ms_per_call=wall_ms,
+    emit(phase="profile", what=what, card=card, batch=batch, wall_ms_per_call=wall_ms,
          device_ms_per_call=device_ms if rows else "not measured",
          device_busy_share=device_ms / wall_ms if rows else "not measured",
          top=[{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:16]])
+
+
+# -- the transformer slice: flash attention and the qwen1.5-0.5b training step ------
+
+
+def no_key_rows(torch, q_len, kv_len, causal, window):
+    """[q_len] bool: the rows whose mask admits no key."""
+    q = torch.arange(q_len, device="cuda")
+    hi = torch.clamp(q, max=kv_len - 1) if causal else torch.full_like(q, kv_len - 1)
+    lo = torch.clamp(q - window + 1, min=0) if window is not None else torch.zeros_like(q)
+    return hi < lo
+
+
+def visible_pairs(q_len: int, kv_len: int, window) -> int:
+    """The (q, k) pairs a causal mask admits, with ``window`` if given."""
+    reach = kv_len if window is None else window
+    return sum(max(0, min(q, kv_len - 1) - max(0, q - reach + 1) + 1) for q in range(q_len))
+
+
+def flash_cases(torch, s_attn):
+    """(label, (q, k, v), kwargs, meta): the transformer's attention call with
+    the planner's blocks, then GQA at D = 128, a window, ragged lengths and a
+    case with rows that see no key; blocks from AttentionPlanner.  Padding
+    rows are zero, as the op pads them."""
+    from repro_torch.plan import AttentionPlanner, round_up
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    B, S, H, D = TFM_BATCH, TFM_SEQ, 16, 64
+    # label, B, Hq, Hkv, q_len, kv_len, D, window
+    specs = [("main", B, H, H, S, S, D, None), ("gqa16/8-d128", B, 16, 8, S, S, 128, None),
+             ("window512", B, H, H, S, S, D, 512), ("ragged1000", 1, 16, 16, 1000, 1000, D, None),
+             ("zero-rows", 1, 16, 8, 1000, 500, D, 256)]
+    out = []
+    for label, b, hq, hkv, ql, kl, d, window in specs:
+        s = s_attn if label == "main" else AttentionPlanner().plan(
+            seq_q=ql, seq_kv=kl, head_dim=d, n_q_heads=hq, n_kv_heads=hkv, batch=b,
+            in_bytes=4, causal=True, window=window)
+        bq, bkv = s.block("block_q"), s.block("block_kv")
+        sq, skv = round_up(ql, bq), round_up(kl, bkv)
+        q = torch.zeros(b * hq, sq, d, device="cuda")
+        k = torch.zeros(b * hkv, skv, d, device="cuda")
+        v = torch.zeros(b * hkv, skv, d, device="cuda")
+        q[:, :ql] = torch.randn(b * hq, ql, d, device="cuda", generator=g)
+        k[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
+        v[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
+        kw = dict(block_q=bq, block_kv=bkv, scale=d ** -0.5, causal=True, window=window,
+                  q_len=ql, kv_len=kl)
+        # FLOP the call needs: QK^T and PV over the (q, k) pairs the causal
+        # and window masks admit, each operand read once and the output
+        # written once.
+        flops = 4.0 * b * hq * visible_pairs(ql, kl, window) * d
+        nbytes = 4.0 * d * (2 * b * hq * ql + 2 * b * hkv * kl)
+        out.append((label, (q, k, v), kw, dict(flops=flops, nbytes=nbytes, b=b, hq=hq, hkv=hkv)))
+    return out
+
+
+def phase_flash(torch, s_attn, results):
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    for label, (q, k, v), kw, _ in flash_cases(torch, s_attn):
+        got = flash_attention_kernel(q, k, v, **kw)
+        want = flash_attention_kernel.plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        err = max_err(got, want)
+        check(err <= TOL * scale(want), f"flash_attention {label}: err {err}")
+        none = no_key_rows(torch, kw["q_len"], kw["kv_len"], kw["causal"], kw["window"])
+        n_zero = int(none.sum()) * q.shape[0]
+        if n_zero:
+            rows = torch.nonzero(none)[:, 0]
+            check(float(got[:, rows].abs().max()) == 0.0
+                  and float(want[:, rows].abs().max()) == 0.0,
+                  f"flash_attention {label}: rows with no visible key are not 0")
+        results["flash_attention"]["max_abs_err"] = max(
+            results["flash_attention"]["max_abs_err"], err)
+        emit(phase="flash", kernel="flash_attention", case=label,
+             shape=[list(t.shape) for t in (q, k, v)],
+             blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
+             causal=kw["causal"], window=kw["window"], q_len=kw["q_len"],
+             kv_len=kw["kv_len"], max_abs_err=err, max_abs_plain=float(want.abs().max()),
+             rows_without_key=n_zero)
+
+
+def tfm_calls(tf, cfg, plans) -> dict:
+    """Launches of each kernel that one planned transformer training step
+    makes, by call: {(kernel, label): count}."""
+    L = cfg.n_layers
+    n_chunks = TFM_BATCH * TFM_SEQ // tf._chunk_m(TFM_BATCH, TFM_SEQ, tfm_chunks())
+    calls = {("flash_attention", "attn"): L}
+    for cell in TFM_CELLS:
+        n = n_chunks if cell == "logits" else L
+        calls[("matmul", cell)] = n
+        if plans[f"{cell}.dx"].algorithm == "fused_dxdw":
+            calls[("matmul_dx_dw", f"{cell}.dxdw")] = n
+        else:
+            calls[("matmul_nt", f"{cell}.dx")] = n
+            calls[("matmul_tn", f"{cell}.dw")] = n
+    return calls
+
+
+def plain_transformer_loss(torch, cfg, params, batch):
+    """The independent plain step's loss: cuBLAS matmuls (TF32 off), RMSNorm
+    and RoPE written out here, the port's attention_ref, chunked
+    cross-entropy with F.cross_entropy; no kernel or layer of the port."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+
+    tokens, labels = batch["tokens"].long(), batch["labels"].long()
+    B, S = tokens.shape
+    d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    layer = {k[len("layers/"):]: v.unbind(0) for k, v in params.items()
+             if k.startswith("layers/")}
+    half = Dh // 2
+    inv_freq = cfg.rope_theta ** (-torch.arange(half, device=tokens.device) / half)
+    ang = torch.arange(S, device=tokens.device)[:, None] * inv_freq[None, :]
+    cos, sin = ang.cos()[:, None, :], ang.sin()[:, None, :]  # [S, 1, half]
+
+    def norm(x, w):
+        return x * torch.rsqrt(x.pow(2).mean(-1, keepdim=True) + cfg.norm_eps) * (1.0 + w)
+
+    def rotate(x):  # [B, S, H, Dh]: the two halves turned by the position's angle
+        x1, x2 = x[..., :half], x[..., half:]
+        return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
+
+    x = params["embed"][tokens]
+    for i in range(cfg.n_layers):
+        p = {k: v[i] for k, v in layer.items()}
+        h = norm(x, p["ln1"])
+
+        def proj(w, b, heads):
+            return (torch.matmul(h, w.reshape(d, heads * Dh)).reshape(B, S, heads, Dh) + b)
+
+        q = rotate(proj(p["attn/wq"], p["attn/bq"], Hq))
+        k = rotate(proj(p["attn/wk"], p["attn/bk"], Hkv))
+        v = proj(p["attn/wv"], p["attn/bv"], Hkv)
+        o = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+        x = x + torch.matmul(o.transpose(1, 2).reshape(B, S, Hq * Dh),
+                             p["attn/wo"].reshape(Hq * Dh, d))
+        h = norm(x, p["ln2"])
+        x = x + torch.matmul(F.silu(h @ p["mlp/w_gate"]) * (h @ p["mlp/w_up"]), p["mlp/w_down"])
+    x = norm(x, params["final_norm"]).reshape(B * S, d)
+    total = 0.0
+    for xc, lc in zip(x.chunk(tfm_chunks()), labels.reshape(-1).chunk(tfm_chunks())):
+        total = total + F.cross_entropy(xc @ params["embed"].t(), lc, reduction="sum")
+    return total / labels.numel()
+
+
+def step1(torch, loss_fn, params0, batch, swap=()):
+    """Step-1 loss, gradients and peak device memory of ``loss_fn`` from
+    ``params0``, with the kernels in ``swap`` running their plain versions
+    (forward and backward, on the same CUDA tensors)."""
+    saved = {k: k.launch for k in swap}
+    for k in swap:
+        k.launch = lambda kern, *a, **kw: kern.plain(*a, **kw)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        leaves = {k: v.detach().requires_grad_(True) for k, v in params0.items()}
+        loss = loss_fn(leaves, batch)
+        grads = dict(zip(leaves, torch.autograd.grad(loss, list(leaves.values()))))
+        torch.cuda.synchronize()
+    finally:
+        for k, fn in saved.items():
+            k.launch = fn
+    return float(loss.detach()), grads, torch.cuda.max_memory_allocated()
+
+
+def phase_transformer(torch, kernels, results):
+    """The launcher at full width and depth (the slice's main path) with its
+    launch counts, then planned-vs-plain parity from the same seeded state."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import count_params, init_params
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    cfg = get_config(TFM_ARCH)
+    plans = tf.plan_training(cfg, TFM_BATCH, TFM_SEQ, loss_chunks=tfm_chunks())
+    per_step = per_kernel(tfm_calls(tf, cfg, plans), kernels)
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    history = launch.main(["--arch", TFM_ARCH, "--batch", str(TFM_BATCH), "--seq",
+                           str(TFM_SEQ), "--steps", str(STEPS), "--planned-kernels",
+                           "--seed", str(SEED), "--log-every", "1"])
+    torch.cuda.synchronize()
+    launcher_peak = torch.cuda.max_memory_allocated()
+    got = {name: k.launches for name, k in kernels.items()}
+    want = {k: STEPS * n for k, n in per_step.items()}
+    check(got == want, f"transformer: launches {got} != plan {want}")
+    losses = [h["loss"] for h in history]
+    check(all(math.isfinite(x) for x in losses), f"transformer: losses {losses}")
+    for name in kernels:
+        results[name]["launches_by_path"][TFM_PATH] = got[name]
+    emit(phase="transformer", path=TFM_PATH, arch=TFM_ARCH,
+         params=count_params(tf.param_defs(cfg)), n_layers=cfg.n_layers,
+         d_model=cfg.d_model, batch=TFM_BATCH, seq=TFM_SEQ, steps=STEPS, launches=got,
+         launches_per_step={k: n // STEPS for k, n in got.items()}, losses=losses,
+         step_seconds=[h["seconds"] for h in history], peak_memory_bytes=launcher_peak,
+         schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
+                        "grid": list(s.grid), "smem_bytes": s.vmem_bytes}
+                    for n, s in plans.items()})
+
+    kw = dict(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
+              warmup_steps=min(100, STEPS // 10 + 1), total_steps=STEPS,
+              loss_chunks=tfm_chunks(), seed=SEED)
+    tcfgs = {"planned": TrainConfig(**kw, planned_kernels=True),
+             "plain": TrainConfig(**kw, planned_kernels=False)}
+    params0 = init_params(tf.param_defs(cfg), SEED)
+    src = make_data_source(cfg, TFM_BATCH, TFM_SEQ, ShardInfo(0, 1), seed=SEED)
+    batches = [tr.batch_to(src(i), "cuda") for i in range(STEPS)]
+    planned_loss = tr.make_loss_fn(cfg, tcfgs["planned"])
+    loss, got, peak = step1(torch, planned_loss, params0, batches[0])
+    ref_loss, peaks, grad_err = {}, {"planned": peak}, {k: {} for k in got}
+    refs = (("plain versions", planned_loss, tuple(kernels.values())),
+            ("plain step", lambda p, b: plain_transformer_loss(torch, cfg, p, b), ()))
+    for ref, fn, swap in refs:
+        ref_loss[ref], grads, peaks[ref] = step1(torch, fn, params0, batches[0], swap)
+        for k, g in grads.items():
+            check(bool(torch.isfinite(got[k]).all()), f"grad {k}: non-finite")
+            grad_err[k][ref] = {"max_abs_err": max_err(got[k], g), "scale": scale(g)}
+        del grads
+        torch.cuda.empty_cache()
+    del got
+    torch.cuda.empty_cache()
+    emit(phase="transformer", check="step-1 gradients", grad_tolerance=TOL,
+         loss_tolerance=LOSS_TOL, loss=loss, reference_losses=ref_loss,
+         peak_memory_bytes=peaks, tf32=torch.backends.cuda.matmul.allow_tf32,
+         step1_grads=grad_err)
+    for ref, e in ref_loss.items():
+        check(abs(loss - e) <= LOSS_TOL * max(1.0, abs(e)), f"step-1 loss vs {ref}: {loss} {e}")
+    for k, e in grad_err.items():
+        for ref, r in e.items():
+            check(r["max_abs_err"] <= TOL * r["scale"], f"step-1 grad {k} vs {ref}: {r}")
+    step, state = tr.make_train_step(cfg, tcfgs["plain"]), tr.init_state(
+        cfg, tcfgs["plain"], params0)
+    plain = []
+    for b in batches:
+        state, m = step(state, b)
+        plain.append(float(m["loss"]))
+    del state
+    torch.cuda.empty_cache()
+    for a, b in zip(losses, plain):
+        check(math.isfinite(b) and abs(a - b) <= LOSS_TOL * max(1.0, abs(b)),
+              f"transformer losses: launcher {losses} plain {plain}")
+    emit(phase="transformer", check="planned vs plain", steps=STEPS, loss_tolerance=LOSS_TOL,
+         losses={"planned (launcher)": losses, "plain": plain},
+         max_loss_diff=max(abs(a - b) for a, b in zip(losses, plain)))
+    return cfg, tcfgs, params0, batches, plans
+
+
+def phase_times_transformer(torch, card, results, kernels, tfm):
+    """The flash kernel and the step's GEMMs per call, beside their plain
+    versions, one library call and the bound; the training step's ms and
+    tokens/s, planned and plain; a profiled planned step."""
+    import torch.nn.functional as F
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.plan import pad_dim, round_up
+    from repro_torch.runtime import train as tr
+
+    cfg, tcfgs, params0, batches, plans = tfm
+
+    def padded(t, *sizes):
+        for axis, size in enumerate(sizes):
+            t = pad_dim(t, axis, size)
+        return t.contiguous()
+    calls = tfm_calls(tf, cfg, plans)
+    step_batch = f"{TFM_BATCH}x{TFM_SEQ}"
+
+    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, reps=10):
+        # Each call is first held against its plain version on the same
+        # operands: these are the step's own shapes, not the cnn's.
+        outs, refs = fn(), plain_fn()
+        torch.cuda.synchronize()
+        pairs = list(zip(outs, refs)) if isinstance(outs, tuple) else [(outs, refs)]
+        err = max(max_err(o, r) for o, r in pairs)
+        tol = TOL * max(scale(r) for _, r in pairs)
+        check(err <= tol, f"{name} {label} at {step_batch}: err {err} > {tol}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        del outs, refs, pairs
+        ms, plain_ms = median_ms(fn, reps=reps), median_ms(plain_fn, reps=reps)
+        lib_ms = median_ms(lib_fn, reps=reps) if lib_fn is not None else None
+        b_ms, b_by = bound_ms(flops, nbytes)
+        call = dict(case=label, per_step=calls.get((name, label), 0), step_batch=step_batch,
+                    max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
+                    bytes=nbytes, peaks=PEAKS)
+        results[name]["tfm_calls"].append(call)
+        emit(phase="times", kernel=name, card=card, **call)
+
+    fk = kernels["flash_attention"]
+    for label, (q, k, v), kw, meta in flash_cases(torch, plans["attn"]):
+        if label not in ("main", "window512", "gqa16/8-d128"):
+            continue
+        b, hq, hkv = meta["b"], meta["hq"], meta["hkv"]
+        q4 = q.reshape(b, hq, *q.shape[1:])
+        k4 = k.reshape(b, hkv, *k.shape[1:]).repeat_interleave(hq // hkv, 1)
+        v4 = v.reshape(b, hkv, *v.shape[1:]).repeat_interleave(hq // hkv, 1)
+        lib = None
+        if kw["window"] is None:
+            lib = lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(
+                q4, k4, v4, is_causal=True)
+        record("flash_attention", "attn" if label == "main" else label,
+               lambda q=q, k=k, v=v, kw=kw: fk(q, k, v, **kw),
+               lambda q=q, k=k, v=v, kw=kw: fk.plain(q, k, v, **kw), lib,
+               meta["flops"], meta["nbytes"])
+        del q4, k4, v4
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    M = TFM_BATCH * TFM_SEQ
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    shapes = {"qkv": (M, d, (Hq + 2 * Hkv) * Dh), "wo": (M, Hq * Dh, d),
+              "mlp_up": (M, d, 2 * ff), "mlp_down": (M, ff, d),
+              "logits": (tf._chunk_m(TFM_BATCH, TFM_SEQ, tfm_chunks()), d, vocab)}
+    for cell, (m, k, n) in shapes.items():
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
+        dy = torch.randn(m, n, device="cuda", generator=g)
+        flops, nbytes = 2.0 * m * n * k, 4.0 * (m * k + k * n + m * n)
+        s_dx = plans[f"{cell}.dx"]
+        runs = [("matmul", cell, plans[cell], lambda: torch.matmul(x, w))]
+        if s_dx.algorithm == "fused_dxdw":
+            runs.append(("matmul_dx_dw", f"{cell}.dxdw", s_dx, None))
+        else:
+            runs += [("matmul_nt", f"{cell}.dx", s_dx, lambda: torch.matmul(dy, w.t())),
+                     ("matmul_tn", f"{cell}.dw", plans[f"{cell}.dw"],
+                      lambda: torch.matmul(x.t(), dy))]
+        for name, label, sched, lib in runs:
+            b = {key: sched.block(key) for key in ("block_m", "block_n", "block_k")}
+            mp, np_, kp = (round_up(m, b["block_m"]), round_up(n, b["block_n"]),
+                           round_up(k, b["block_k"]))
+            xp, wp, gp = padded(x, mp, kp), padded(w, kp, np_), padded(dy, mp, np_)
+            args = {"matmul": (xp, wp), "matmul_nt": (gp, wp), "matmul_tn": (xp, gp),
+                    "matmul_dx_dw": (gp, wp, xp)}[name]
+            kern = kernels[name]
+            record(name, label, lambda kern=kern, args=args, b=b: kern(*args, **b),
+                   lambda kern=kern, args=args, b=b: kern.plain(*args, **b), lib,
+                   2 * flops if name == "matmul_dx_dw" else flops, nbytes,
+                   reps=3 if cell == "logits" else 5)
+            del xp, wp, gp, args
+        del x, w, dy, runs
+        torch.cuda.empty_cache()
+
+    run = {name: functools.partial(tr.make_train_step(cfg, tc),
+                                   tr.init_state(cfg, tc, params0), batches[0])
+           for name, tc in tcfgs.items()}
+    step_ms = {name: median_ms(fn, reps=3, warmup=1) for name, fn in run.items()}
+    tokens = TFM_BATCH * TFM_SEQ
+    emit(phase="times", arch=TFM_ARCH, train_step_ms=step_ms,
+         train_tokens_per_s={k: tokens / (t / 1e3) for k, t in step_ms.items()},
+         batch=TFM_BATCH, seq=TFM_SEQ, card=card)
+    profile(torch, "transformer_train_step", run["planned"], card, grad=True, reps=2,
+            batch=step_batch)
 
 
 def main() -> int:
@@ -795,6 +1187,7 @@ def main() -> int:
     from repro_torch.configs import get_config
     from repro_torch.kernels.conv2d.bwd import conv2d_wgrad_kernel
     from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
     from repro_torch.kernels.matmul.bwd import (
         matmul_dxdw_kernel, matmul_nt_kernel, matmul_tn_kernel,
     )
@@ -815,8 +1208,10 @@ def main() -> int:
              for alg in ("default", "direct", "im2col")}
     kernels = {"conv2d": conv2d_kernel, "matmul": matmul_kernel,
                "conv2d_wgrad": conv2d_wgrad_kernel, "matmul_nt": matmul_nt_kernel,
-               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
-    results = {name: {"max_abs_err": 0.0, "launches_by_path": {}, "calls": []}
+               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel,
+               "flash_attention": flash_attention_kernel}
+    results = {name: {"max_abs_err": 0.0, "launches_by_path": {}, "calls": [],
+                      "tfm_calls": []}
                for name in kernels}
 
     phase_kernels(torch, plans, cnn, cfg, results)
@@ -830,31 +1225,52 @@ def main() -> int:
     emit(phase="model", config=cfg.name, params=count_params(defs), batch=BATCH, seed=SEED)
     phase_forward(torch, plans, cnn, cfg, params, images, kernels, results)
     train = phase_train(torch, cnn, cfg, kernels, results)
+
+    from repro_torch.models import transformer as tf
+
+    tcfg = get_config(TFM_ARCH)
+    s_attn = tf.plan_forward(tcfg, TFM_BATCH, TFM_SEQ, loss_chunks=tfm_chunks())["attn"]
+    phase_flash(torch, s_attn, results)
+    tfm = phase_transformer(torch, kernels, results)
     paths = {"conv2d": "forward", "matmul": "forward", "conv2d_wgrad": f"train_b{BATCH}",
              "matmul_nt": f"train_b{BATCH}", "matmul_tn": f"train_b{BATCH}",
-             "matmul_dx_dw": f"train_b{FUSED_BATCH}"}
+             "matmul_dx_dw": f"train_b{FUSED_BATCH}", "flash_attention": TFM_PATH}
     for name, r in results.items():
         check(r["launches_by_path"][paths[name]] > 0,
               f"{name}: no launch on the {paths[name]} path")
 
     phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, train)
+    del train
+    torch.cuda.empty_cache()
+    phase_times_transformer(torch, card, results, kernels, tfm)
 
-    entries = []
-    for name, r in results.items():
-        calls = [c for c in r["calls"] if c["per_step"]]  # one training step's calls
-        check(bool(calls), f"{name}: no timed call of the training step")
+    def step_sums(calls):
         total = {key: sum(c[key] * c["per_step"] for c in calls)
                  for key in ("ms", "plain_ms", "bound_ms")}
         libs = [c["library_ms"] for c in calls]
-        entries.append(dict(
+        total["library_ms"] = (None if any(v is None for v in libs)
+                               else sum(c["library_ms"] * c["per_step"] for c in calls))
+        total["bound_by"] = max(calls, key=lambda c: c["bound_ms"])["bound_by"]
+        return total
+
+    entries = []
+    for name, r in results.items():
+        # One training step's calls: cnn-vgg11's, or the transformer's for a
+        # kernel only that step runs.
+        cnn_calls = [c for c in r["calls"] if c["per_step"]]
+        tfm_step = [c for c in r["tfm_calls"] if c["per_step"]]
+        calls = cnn_calls or tfm_step
+        check(bool(calls), f"{name}: no timed call of a training step")
+        entry = dict(
             name=name, route="cuda", source=f"src/repro_torch/kernels/csrc/{SOURCES[name]}.cu",
             replaces=REPLACES[name], launches=sum(r["launches_by_path"].values()),
             launches_by_path=r["launches_by_path"], max_abs_err=r["max_abs_err"],
-            ms=total["ms"], plain_ms=total["plain_ms"], bound_ms=total["bound_ms"],
-            bound_by=max(calls, key=lambda c: c["bound_ms"])["bound_by"],
-            library_ms=(None if any(v is None for v in libs)
-                        else sum(c["library_ms"] * c["per_step"] for c in calls)),
-            per_step_batch=calls[0]["step_batch"]))
+            **step_sums(calls), per_step_of=cfg.name if cnn_calls else TFM_ARCH,
+            per_step_batch=calls[0]["step_batch"])
+        if cnn_calls and tfm_step:
+            entry[f"{TFM_ARCH}_step"] = dict(step_sums(tfm_step),
+                                             per_step_batch=tfm_step[0]["step_batch"])
+        entries.append(entry)
     emit(kernels=entries)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

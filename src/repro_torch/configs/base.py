@@ -72,7 +72,9 @@ class TrainConfig:
     eps: float = 1e-8
     grad_clip: float = 1.0
     seed: int = 0
+    loss_chunks: int = 8  # chunked cross-entropy over tokens
     # Run the family's planned kernels (forward AND planned backward) in the
     # train step instead of the plain PyTorch path: for the cnn, the fused
-    # conv + dgrad/wgrad + dX/dW matmul kernels.
+    # conv + dgrad/wgrad + dX/dW matmul kernels; for the transformer, every
+    # block GEMM + flash attention + dX/dW.
     planned_kernels: bool = False

@@ -1,6 +1,6 @@
 """Architecture registry: ``get_config(arch)`` -> ModelConfig, plus the
 reduced smoke config (same family features, tiny dims).  The port runs the
-CNN family so far."""
+CNN family and the dense transformer so far."""
 
 from __future__ import annotations
 
@@ -9,11 +9,18 @@ import importlib
 
 from repro_torch.configs.base import ModelConfig
 
-ARCH_IDS = ["cnn-vgg11"]
+ARCH_IDS = [
+    "qwen1.5-0.5b",
+    "cnn-vgg11",  # the paper's own domain
+]
 
-# The reference arch a family trains under ``--family`` (the port has the
-# cnn family so far).
-FAMILY_DEFAULT_ARCH = {"cnn": "cnn-vgg11"}
+# The reference arch a family trains under ``--family`` (always as the
+# reduced smoke config).
+FAMILY_DEFAULT_ARCH = {
+    "dense": "qwen1.5-0.5b",
+    "transformer": "qwen1.5-0.5b",  # the planned wing's family name
+    "cnn": "cnn-vgg11",
+}
 
 _MODULE_FOR = {a: a.replace("-", "_").replace(".", "p") for a in ARCH_IDS}
 
@@ -26,8 +33,9 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def smoke_config(arch: str) -> ModelConfig:
-    """Reduced config of the same family, runnable on CPU in one forward:
-    for the CNN, 2 stages of width 8, d_ff 64 and 10 classes."""
+    """Reduced config of the same family, runnable on CPU in one train step:
+    4 layers of width 128 with 4 heads of 32 for a transformer; for the
+    CNN, 2 stages of width 8, d_ff 64 and 10 classes."""
     cfg = get_config(arch)
     changes: dict = dict(
         n_layers=min(cfg.n_layers, 4),
@@ -36,6 +44,9 @@ def smoke_config(arch: str) -> ModelConfig:
         d_ff=256,
         max_seq=512,
     )
+    if cfg.n_heads:
+        changes.update(n_heads=4, n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads),
+                       head_dim=32)
     if cfg.family == "cnn":
         changes.update(n_layers=2, d_model=8, d_ff=64, vocab=10)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **changes)

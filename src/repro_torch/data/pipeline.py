@@ -1,10 +1,16 @@
 """Deterministic, shard-aware synthetic data for the port's trainer.
 
-``SyntheticImageSource`` makes CIFAR-shaped image/label batches for the cnn
-family from (seed, step, shard) with numpy, exactly as the JAX package's
-source does, so both packages train on bit-identical batches.  It yields
-{"images": [B_local, IMG, IMG, C] float32, "labels": [B_local] int32} as
-numpy arrays; the trainer moves them to its device.
+Both sources draw from (seed, step, shard) with numpy, exactly as the JAX
+package's do, so both packages train on bit-identical batches:
+
+* ``SyntheticSource`` — structured pseudo-text (Zipfian unigrams with a
+  Markov flavour) for the token families: {"tokens": [B_local, S] int32,
+  "labels": [B_local, S] int32}, labels the next token;
+* ``SyntheticImageSource`` — CIFAR-shaped image/label batches for the cnn
+  family: {"images": [B_local, IMG, IMG, C] float32, "labels": [B_local]
+  int32}.
+
+Batches are numpy arrays; the trainer moves them to its device.
 """
 
 from __future__ import annotations
@@ -18,6 +24,29 @@ import numpy as np
 class ShardInfo:
     index: int  # this host's shard index
     count: int  # number of data shards
+
+
+class SyntheticSource:
+    def __init__(self, vocab: int, seq_len: int, global_batch: int,
+                 shard: ShardInfo = ShardInfo(0, 1), seed: int = 0):
+        assert global_batch % shard.count == 0
+        self.vocab, self.seq, self.batch = vocab, seq_len, global_batch // shard.count
+        self.shard, self.seed = shard, seed
+        # Zipf-ish unigram table (clipped to vocab).
+        probs = 1.0 / np.arange(1, min(vocab, 50000) + 1) ** 1.1
+        self._probs = probs / probs.sum()
+
+    def __call__(self, step: int) -> dict:
+        rng = np.random.default_rng(
+            np.random.SeedSequence([self.seed, step, self.shard.index])
+        )
+        base = rng.choice(len(self._probs), size=(self.batch, self.seq + 1),
+                          p=self._probs).astype(np.int64)
+        # Markov flavour: each token mixes in the previous one.
+        mixed = (base + np.roll(base, 1, axis=1) // 2) % self.vocab
+        tokens = mixed[:, :-1].astype(np.int32)
+        labels = mixed[:, 1:].astype(np.int32)
+        return {"tokens": tokens, "labels": labels}
 
 
 class SyntheticImageSource:

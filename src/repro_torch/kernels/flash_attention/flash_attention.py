@@ -1,0 +1,124 @@
+"""The flash-attention forward kernel (``csrc/flash_attention.cu``): launch
+wrapper and plain version.
+
+Replaces ``repro/kernels/flash_attention/flash_attention.py::_fa_kernel``:
+one thread block per (batch x query head, q block), the KV sequence a loop
+inside the block over the blocks the causal/window skips admit, online
+softmax with f32 (m, l) and accumulator, GQA by ``kv head = head // group``,
+``q_len``/``kv_len`` padding masks, and rows with no visible key written as
+0.  Operands are ``[B*H, S, D]`` with the heads flattened into the batch and
+the sequences padded to the blocks (``ops.flash_attention`` does both).
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.core.machine import H100
+from repro_torch.plan.registry import CudaKernel
+
+# Head dims the kernel is built for, and each one's largest (block_q, block_kv).
+MAX_BLOCKS = {64: (128, 128), 128: (64, 64)}
+MAX_GRID_Y = 65535  # Sq / block_q rides the grid's y axis
+_NEG = -1e30
+
+
+def smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
+    """Shared memory one block allocates: the q tile, two stages of the K
+    and V tiles, the probability tile in 2*block_q*D floats and each row's
+    (m, l) (== AttentionPlanner's H100 budget term for f32)."""
+    return 4 * (3 * block_q * head_dim + 4 * block_kv * head_dim + 2 * block_q)
+
+
+def supported_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
+    """The blocks the kernel takes: D in {64, 128}, blocks multiples of 8 up
+    to the instantiation's maxima, within one block's shared memory."""
+    if head_dim not in MAX_BLOCKS:
+        return False
+    mq, mkv = MAX_BLOCKS[head_dim]
+    return (8 <= block_q <= mq and block_q % 8 == 0
+            and 8 <= block_kv <= mkv and block_kv % 8 == 0
+            and smem_bytes(block_q, block_kv, head_dim) <= H100.local_mem_bytes)
+
+
+def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len):
+    """The function's contract: flattened heads, whole blocks, lengths
+    within the padded sequences.  (The head dims and block maxima the
+    kernel is built for are checked at launch.)"""
+    if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape or q.shape[2] != k.shape[2]:
+        raise ValueError(f"flash_attention shapes q={tuple(q.shape)} "
+                         f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    bhq, sq, d = q.shape
+    bhkv, skv, _ = k.shape
+    if bhq % bhkv:
+        raise ValueError(f"flash_attention: {bhkv} kv heads do not divide {bhq}")
+    if block_q <= 0 or block_kv <= 0 or sq % block_q or skv % block_kv:
+        raise ValueError(f"flash_attention: sequences ({sq}, {skv}) are not "
+                         f"multiples of the blocks ({block_q}, {block_kv})")
+    if not (0 <= q_len <= sq and 0 <= kv_len <= skv):
+        raise ValueError(f"flash_attention: lengths ({q_len}, {kv_len}) exceed "
+                         f"the padded sequences ({sq}, {skv})")
+    if window is not None and window < 0:
+        raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    return bhq, bhkv, sq, skv, d
+
+
+def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
+                          causal: bool, window: int | None, q_len: int, kv_len: int):
+    """The kernel's function in plain PyTorch (same contract, same checks):
+    dense f32 attention with the padding, causal and window masks; a row
+    with no visible key is 0.  On the card it needs TF32 off to be an f32
+    reference."""
+    bhq, bhkv, sq, skv, _ = _check(q, k, v, block_q=block_q, block_kv=block_kv,
+                                   window=window, q_len=q_len, kv_len=kv_len)
+    group = bhq // bhkv
+    kk = k.float().repeat_interleave(group, dim=0)
+    vv = v.float().repeat_interleave(group, dim=0)
+    s = torch.matmul(q.float(), kk.transpose(1, 2)) * scale
+    q_ids = torch.arange(sq, device=q.device)[:, None]
+    k_ids = torch.arange(skv, device=q.device)[None, :]
+    mask = (q_ids < q_len) & (k_ids < kv_len)
+    if causal:
+        mask &= k_ids <= q_ids
+    if window is not None:
+        mask &= q_ids - k_ids < window
+    s = s.masked_fill(~mask, _NEG)
+    p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
+    l = p.sum(-1, keepdim=True)
+    return torch.matmul(p, vv) / torch.where(l == 0, torch.ones_like(l), l)
+
+
+def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: float,
+            causal: bool, window: int | None, q_len: int, kv_len: int):
+    bhq, bhkv, sq, skv, d = _check(q, k, v, block_q=block_q, block_kv=block_kv,
+                                   window=window, q_len=q_len, kv_len=kv_len)
+    if d not in MAX_BLOCKS:
+        raise ValueError(f"flash_attention kernel takes head_dim in "
+                         f"{sorted(MAX_BLOCKS)}, got {d}")
+    if not supported_blocks(block_q, block_kv, d):
+        raise ValueError(f"flash_attention kernel does not take blocks "
+                         f"(q={block_q}, kv={block_kv}) at head_dim {d}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"flash_attention kernel takes contiguous float32 {name}, "
+                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
+        if t.data_ptr() % 16:
+            raise ValueError(f"flash_attention kernel needs a 16-byte aligned {name}")
+    if sq // block_q > MAX_GRID_Y:
+        raise ValueError(f"flash_attention Sq/block_q = {sq // block_q} exceeds the grid")
+    out = torch.empty_like(q)
+    kernel.run(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
+               ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
+               bhq, bhkv, sq, skv, d, block_q, block_kv, q_len, kv_len, int(causal),
+               -1 if window is None else window, ctypes.c_float(scale))
+    return out
+
+
+flash_attention_kernel = CudaKernel(
+    "flash_attention", source="flash_attention", symbol="repro_flash_attention_f32",
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
+                                                            ctypes.c_void_p],
+    launch=_launch, plain=flash_attention_plain,
+)

@@ -5,11 +5,19 @@ steps through the family's loss.
         --batch 256 --steps 3 --planned-kernels
     PYTHONPATH=src python -m repro_torch.launch.train --family cnn \
         --device cpu --steps 2 --planned-kernels
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --batch 4 --seq 2048 --steps 3 --planned-kernels
+    PYTHONPATH=src python -m repro_torch.launch.train --family transformer \
+        --device cpu --steps 2 --planned-kernels
 
 ``--planned-kernels`` runs the family's planned kernels forward and
-backward (for the cnn: the fused conv + dgrad/wgrad + dX/dW matmul
-kernels, every Schedule from ``plan_training``); without it the step runs
-the plain PyTorch forward under autograd.  ``--device`` defaults to the
+backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
+dgrad/wgrad + dX/dW matmul kernels; the transformer: every block GEMM and
+the logits head on the matmul + dX/dW kernels, attention on the
+flash-attention kernel); without it the step runs the plain PyTorch
+forward under autograd.  Token families train on ``--seq``-token
+sequences with the cross-entropy in ``LOSS_CHUNKS`` token chunks, as the
+JAX launcher does.  ``--device`` defaults to the
 card; CPU runs every kernel's plain version.  Compute is float32 at every
 size: the port's kernels are f32 (the JAX launcher computes non-smoke
 configs in bf16).  Mesh, checkpoint, chaos and autotune flags are not
@@ -30,6 +38,9 @@ from repro_torch.models.module import count_params, init_params
 from repro_torch.models.registry import FAMILIES, get_family, make_data_source
 from repro_torch.runtime import train as tr
 
+# Chunks per sequence of the token families' chunked cross-entropy.
+LOSS_CHUNKS = 4
+
 
 def main(argv=None) -> list[dict]:
     ap = argparse.ArgumentParser()
@@ -40,13 +51,15 @@ def main(argv=None) -> list[dict]:
     ap.add_argument("--smoke", action="store_true", help="reduced config")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
+    ap.add_argument("--seq", type=int, default=256)
     ap.add_argument("--lr", type=float, default=3e-4)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--log-every", type=int, default=10)
     ap.add_argument("--planned-kernels", action="store_true",
                     help="run the family's planned kernels forward AND "
                          "backward in the train step (cnn: fused conv + "
-                         "dgrad/wgrad + dX/dW matmul)")
+                         "dgrad/wgrad + dX/dW matmul; transformer: GEMMs + "
+                         "flash attention + dX/dW)")
     ap.add_argument("--device", default="cuda",
                     help="the device to train on (default: the card)")
     args = ap.parse_args(argv)
@@ -65,7 +78,7 @@ def main(argv=None) -> list[dict]:
     tcfg = TrainConfig(
         param_dtype="float32", compute_dtype="float32", learning_rate=args.lr,
         warmup_steps=min(100, args.steps // 10 + 1), total_steps=args.steps,
-        seed=args.seed,
+        loss_chunks=LOSS_CHUNKS, seed=args.seed,
         planned_kernels=args.planned_kernels,
     )
     device = torch.device(args.device)
@@ -79,7 +92,8 @@ def main(argv=None) -> list[dict]:
                          dtype=getattr(torch, tcfg.param_dtype))
     state = tr.init_state(cfg, tcfg, params)
     step_fn = tr.make_train_step(cfg, tcfg)
-    source = make_data_source(cfg, args.batch, ShardInfo(0, 1), seed=tcfg.seed)
+    source = make_data_source(cfg, args.batch, args.seq, ShardInfo(0, 1),
+                              seed=tcfg.seed)
 
     history = []
     for step in range(args.steps):

@@ -1,0 +1,106 @@
+"""Attention inside models (GQA, causal, sliding window): the JAX package's
+``models/attention.py`` without its sequence-parallel branch.  It serves
+the plain forward; the planned forward runs the flash-attention kernel.
+
+Two execution paths, one math:
+
+* ``direct`` — one materialized logits tensor, for decode (Sq == 1) and
+  problems of up to 4M logits per head;
+* ``blockwise`` — flash-style loop over query/KV chunks with running
+  (m, l) statistics, O(chunk^2) live logits.
+
+``window`` may be None, an int, or < 0 for "no window".
+"""
+
+from __future__ import annotations
+
+import torch
+
+NEG = -1e30
+
+
+def _mask(q_pos, k_pos, causal, window):
+    """[Sq, Skv] boolean visibility mask from position vectors."""
+    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
+                   device=q_pos.device)
+    if causal:
+        m &= k_pos[None, :] <= q_pos[:, None]
+    if window is not None and int(window) >= 0:
+        m &= q_pos[:, None] - k_pos[None, :] < int(window)
+    return m
+
+
+def _bias(q_pos, k_pos, causal, window):
+    """0 where visible, NEG where masked (f32)."""
+    zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
+    return torch.where(_mask(q_pos, k_pos, causal, window), zero, zero + NEG)
+
+
+def _direct(q, k, v, q_pos, k_pos, scale, causal, window):
+    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = s * scale + _bias(q_pos, k_pos, causal, window)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
+
+
+def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv):
+    B, H, Sq, D = q.shape
+    Skv = k.shape[2]
+    cq, ckv = min(chunk_q, Sq), min(chunk_kv, Skv)
+    if Sq % cq or Skv % ckv:
+        raise ValueError(f"blockwise attention: ({Sq}, {Skv}) are not multiples "
+                         f"of the chunks ({cq}, {ckv})")
+    outs = []
+    for q0 in range(0, Sq, cq):
+        qc, qpc = q[:, :, q0:q0 + cq], q_pos[q0:q0 + cq]
+        acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=q.device)
+        m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        for k0 in range(0, Skv, ckv):
+            kc, vc = k[:, :, k0:k0 + ckv], v[:, :, k0:k0 + ckv]
+            s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kc.float())
+            s = s * scale + _bias(qpc, k_pos[k0:k0 + ckv], causal, window)
+            m_new = torch.maximum(m, s.amax(-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vc.dtype), vc).float()
+            m = m_new
+        l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully-masked rows stay finite
+        outs.append((acc / l[..., None]).to(q.dtype))
+    return torch.cat(outs, dim=2)
+
+
+def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk_kv):
+    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D]."""
+    B, Sq, Hq, D = q.shape
+    Hkv, Skv = k.shape[2], k.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"{Hkv} kv heads do not divide {Hq} query heads")
+    g = Hq // Hkv
+    # Fold the GQA group into the query-sequence axis so KV is never
+    # repeated in memory: [B, Hkv, g*Sq, D] queries vs [B, Hkv, Skv, D] KV.
+    qh = q.transpose(1, 2).reshape(B, Hkv, g * Sq, D)
+    kh = k.transpose(1, 2)
+    vh = v.transpose(1, 2)
+    qpos_g = q_pos.repeat(g)
+    big = ((g * Sq) * Skv > 4 * 1024 * 1024 and (g * Sq) % chunk_q == 0
+           and Skv % chunk_kv == 0)
+    if Sq == 1 or not big:
+        out = _direct(qh, kh, vh, qpos_g, k_pos, scale, causal, window)
+    else:
+        out = _blockwise(qh, kh, vh, qpos_g, k_pos, scale, causal, window,
+                         chunk_q, chunk_kv)
+    out = out.reshape(B, Hkv, g, Sq, D).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def attention(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
+              scale: float | None = None, chunk_q: int = 512,
+              chunk_kv: int = 1024) -> torch.Tensor:
+    """GQA attention; q: [B, Sq, Hq, D], k/v: [B, Skv, Hkv, D] with position
+    vectors q_pos [Sq], k_pos [Skv]; returns [B, Sq, Hq, D]."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    return _attention_core(q, k, v, q_pos, k_pos, causal, window, scale,
+                           chunk_q, chunk_kv)

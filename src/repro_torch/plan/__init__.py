@@ -1,8 +1,9 @@
 """The plan layer: Schedules, planners and the ``cuda_op`` registry."""
 
 from repro_torch.plan.planners import (
-    ConvDgradPlanner, ConvPlanner, ConvWgradPlanner, Im2colConvPlanner,
-    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, planner_for, round_up,
+    AttentionPlanner, ConvDgradPlanner, ConvPlanner, ConvWgradPlanner, Im2colConvPlanner,
+    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, TransformerBlockPlanner,
+    planner_for, round_up,
 )
 from repro_torch.plan.registry import (
     CudaKernel, CudaOp, cuda_op, get_op, pad_dim, with_reference_vjp,
@@ -11,8 +12,9 @@ from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule
 
 __all__ = [
-    "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner", "CudaKernel", "CudaOp",
-    "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner", "MatmulPlanner",
-    "MeshSpec", "Schedule", "ShardedSchedule", "cuda_op", "get_op",
-    "local_schedule", "pad_dim", "planner_for", "round_up", "with_reference_vjp",
+    "AttentionPlanner", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
+    "CudaKernel", "CudaOp", "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner",
+    "MatmulPlanner", "MeshSpec", "Schedule", "ShardedSchedule", "TransformerBlockPlanner",
+    "cuda_op", "get_op", "local_schedule", "pad_dim", "planner_for", "round_up",
+    "with_reference_vjp",
 ]

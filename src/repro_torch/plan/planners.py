@@ -788,6 +788,156 @@ class MatmulDwPlanner(ShardablePlanner):
         })
 
 
+# ---------------------------------------------------------------------------
+# Flash attention (beyond-paper, same methodology)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class AttentionPlanner(ShardablePlanner):
+    """Picks (block_q, block_kv) for the flash-attention kernel.
+
+    The q block with its f32 accumulator and (m, l) statistics is the
+    resident output stack; K/V stream through like the paper's input depth
+    slices.  Blocks start at 128 (clamped to the sequence rounded up to 8
+    rows) and halve until the working set fits — the capacity rule,
+    downward.  Explicit blocks are honored (clamped to the rounded
+    sequence).  On the H100 the working set is exactly the kernel's shared
+    memory (``kernels/flash_attention/flash_attention.py::smem_bytes``).
+    """
+
+    op: ClassVar[str] = "flash_attention"
+
+    _SUBLANE: ClassVar[int] = 8
+    _CAP: ClassVar[int] = 128
+
+    def _vmem_bytes(self, bq: int, bkv: int, head_dim: int, in_bytes: int) -> int:
+        stream = 0
+        if self.machine.charge_stream_blocks:
+            # q block + double-buffered k and v blocks.
+            stream = (bq * head_dim + 2 * bkv * head_dim) * in_bytes * 2
+        return stream + bq * head_dim * 4 + 2 * bq * 4  # acc + (m, l)
+
+    @staticmethod
+    def kv_blocks_run(q0: int, bq: int, bkv: int, n_kvb: int,
+                      causal: bool, window: int | None) -> int:
+        """KV blocks the kernel runs for the q block starting at row ``q0``:
+        the closed form of its block-level causal/window skips (the CUDA
+        kernel's KV loop runs exactly these)."""
+        hi = n_kvb - 1
+        if causal:  # kernel: k_start <= q_start + bq - 1
+            hi = min(hi, (q0 + bq - 1) // bkv)
+        lo = 0
+        if window is not None:  # kernel: k_start + bkv - 1 > q_start - window
+            lo = max(0, -(-(q0 - window + 2 - bkv) // bkv))
+        return max(0, hi - lo + 1)
+
+    def plan_local(
+        self, *, seq_q: int, seq_kv: int, head_dim: int,
+        n_q_heads: int = 1, n_kv_heads: int = 1, batch: int = 1,
+        in_bytes: int = 4, block_q: int | None = None,
+        block_kv: int | None = None, causal: bool = False,
+        window: int | None = None,
+    ) -> Schedule:
+        sub = self._SUBLANE
+        auto = block_q is None and block_kv is None
+        bq = min(block_q or self._CAP, round_up(seq_q, sub))
+        bkv = min(block_kv or self._CAP, round_up(seq_kv, sub))
+        if auto:
+            budget = self.machine.usable_for_working_set(streams=2)
+            while (self._vmem_bytes(bq, bkv, head_dim, in_bytes) > budget
+                   and max(bq, bkv) > sub):
+                if bkv >= bq:
+                    bkv = max(sub, round_up(bkv // 2, sub))
+                else:
+                    bq = max(sub, round_up(bq // 2, sub))
+
+        sqp, skvp = round_up(seq_q, bq), round_up(seq_kv, bkv)
+        bhq = batch * n_q_heads
+        n_qb = sqp // bq
+        n_kvb = skvp // bkv
+        # q loads once per row block; every q block of every query head
+        # streams its KV head's K and V blocks that survive the causal/window
+        # skips (GQA sharing saves no device-memory traffic: each query head
+        # fetches again).  With no mask this is the dense n_qb * skvp bound.
+        run_blocks = sum(
+            self.kv_blocks_run(qi * bq, bq, bkv, n_kvb, causal, window)
+            for qi in range(n_qb)
+        )
+        loads = bhq * (sqp * head_dim + run_blocks * bkv * head_dim * 2)
+        stores = bhq * sqp * head_dim
+        return Schedule(
+            op=self.op,
+            critical_path_steps=ccr.grid_steps((bhq, n_qb, n_kvb)),
+            grid=(bhq, n_qb, n_kvb),
+            blocks=(("block_kv", bkv), ("block_q", bq)),
+            halo=0,
+            macs=bhq * run_blocks * bq * bkv * head_dim * 2,
+            loads=loads,
+            stores=stores,
+            vmem_bytes=self._vmem_bytes(bq, bkv, head_dim, in_bytes),
+            machine=self.machine.name,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Transformer block (compound planner: the whole wing through delegation)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class TransformerBlockPlanner:
+    """Plans a transformer block as a dict of delegated cells — the
+    compound-planner pattern of :class:`Im2colConvPlanner`, one level up.
+    It plans no op of its own: ``cell_planners`` hands each cell to its
+    planner, bound to this machine and mesh.
+
+    Every matmul cell (the fused qkv projection, the attention output
+    projection, the fused gate+up and the down MLP GEMMs, the logits head)
+    delegates to :class:`MatmulPlanner` on its ``[tokens, k] @ [k, n]``
+    shape; the attention cell delegates to :class:`AttentionPlanner`.  The
+    MoE expert cell waits for ``MoeFfnPlanner`` and raises.
+
+    The head dim is ``d_model // n_heads``, as the JAX package plans it;
+    a config whose ``head_dim`` differs plans other shapes than it runs.
+    """
+
+    machine: MachineModel = H100
+    mesh: MeshSpec | None = None
+    shard_axis: str = "model"
+
+    def cell_planners(self, *, batch: int, seq: int, d_model: int,
+                      n_heads: int, d_ff: int, n_kv_heads: int | None = None,
+                      vocab: int = 0, n_experts: int = 0, in_bytes: int = 4,
+                      causal: bool = True) -> dict[str, tuple]:
+        """(planner, shape-kwargs) per cell — the delegation table."""
+        if n_experts:
+            raise NotImplementedError(
+                "the MoE expert cell needs MoeFfnPlanner, which is not ported yet")
+        hq = n_heads
+        hkv = n_kv_heads or n_heads
+        dh = d_model // hq
+        m = batch * seq
+        bind = dict(machine=self.machine, mesh=self.mesh, shard_axis=self.shard_axis)
+        mm = MatmulPlanner(**bind)
+        cells: dict[str, tuple] = {
+            "qkv": (mm, dict(m=m, n=(hq + 2 * hkv) * dh, k=d_model,
+                             in_bytes=in_bytes)),
+            "attn": (AttentionPlanner(**bind),
+                     dict(seq_q=seq, seq_kv=seq, head_dim=dh,
+                          n_q_heads=hq, n_kv_heads=hkv, batch=batch,
+                          in_bytes=in_bytes, causal=causal)),
+            "wo": (mm, dict(m=m, n=d_model, k=hq * dh, in_bytes=in_bytes)),
+            # gate and up share one fused GEMM (one x stream for both).
+            "mlp_up": (mm, dict(m=m, n=2 * d_ff, k=d_model, in_bytes=in_bytes)),
+            "mlp_down": (mm, dict(m=m, n=d_model, k=d_ff, in_bytes=in_bytes)),
+        }
+        if vocab:
+            cells["logits"] = (mm, dict(m=m, n=vocab, k=d_model,
+                                        in_bytes=in_bytes))
+        return cells
+
+
 PLANNERS: dict[str, type] = {
     ConvPlanner.op: ConvPlanner,
     Im2colConvPlanner.op: Im2colConvPlanner,
@@ -796,6 +946,7 @@ PLANNERS: dict[str, type] = {
     MatmulPlanner.op: MatmulPlanner,
     MatmulDxPlanner.op: MatmulDxPlanner,
     MatmulDwPlanner.op: MatmulDwPlanner,
+    AttentionPlanner.op: AttentionPlanner,
 }
 
 

@@ -35,9 +35,10 @@ from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.sharded import ShardedSchedule, local_schedule
 
 NOT_DIFFERENTIABLE = ("a kernel is not differentiable by itself: train through "
-                  "the layer functions (core.conv_layer.conv_block/conv_layer, "
-                  "core.fc_layer.fc_layer), whose backward runs the planned "
-                  "dgrad/wgrad and dX/dW kernels")
+                      "the layer functions (core.conv_layer.conv_block/conv_layer, "
+                      "core.fc_layer.fc_layer, the transformer's attention cell), "
+                      "whose backward runs the planned dgrad/wgrad and dX/dW "
+                      "kernels or the attention reference")
 
 
 def pad_dim(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
@@ -146,6 +147,7 @@ _PROVIDERS = {
     "matmul": "repro_torch.kernels.matmul.ops",
     "matmul_dx": "repro_torch.kernels.matmul.bwd",
     "matmul_dw": "repro_torch.kernels.matmul.bwd",
+    "flash_attention": "repro_torch.kernels.flash_attention.ops",
 }
 
 

@@ -1,7 +1,7 @@
 """The train step: the family's loss, autograd through the planned
-kernels, AdamW.  (Microbatch accumulation, gradient compression, chunked
-cross-entropy and the elastic loop of the JAX package wait for later
-slices.)
+kernels, AdamW; and the chunked cross-entropy of the token families.
+(Microbatch accumulation, gradient compression and the elastic loop of the
+JAX package wait for later slices.)
 """
 
 from __future__ import annotations
@@ -12,6 +12,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.models.layers import ce_chunks
 from repro_torch.models.registry import get_family
 from repro_torch.optim import adamw
 
@@ -22,8 +23,35 @@ class TrainState:
     opt: adamw.AdamWState
 
 
+def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
+               schedules: dict | None = None, head: torch.Tensor | None = None):
+    """Cross-entropy without materializing [B, S, vocab]: a loop over token
+    chunks; labels < 0 are masked.  ``schedules`` (a planned schedule set
+    with a "logits" entry, e.g. ``transformer.plan_training``) routes each
+    chunk's logits GEMM through the family's planned head, on ``head``
+    (its [d, vocab] weight, made once per step) when given."""
+    B, S, d = hidden.shape
+    n = ce_chunks(S, n_chunks)
+    hs = hidden.reshape(B, n, S // n, d).transpose(0, 1)
+    ls = labels.reshape(B, n, S // n).transpose(0, 1)
+    lkw = {"schedules": schedules, "head": head} if schedules else {}
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for h, lab in zip(hs, ls):
+        logits = fam.logits(cfg, params, h, **lkw).float()
+        lse = torch.logsumexp(logits, -1)
+        tgt = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+        mask = (lab >= 0).float()
+        tot = tot + ((lse - tgt) * mask).sum()
+        cnt = cnt + mask.sum()
+    return tot / cnt.clamp(min=1.0)
+
+
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
-    """The family registry owns the loss (its ``make_loss_fn`` hook)."""
+    """The family registry owns the loss: the family's ``make_loss_fn``
+    hook (the cnn's image cross-entropy, the dense transformer's planned
+    chunked CE) builds it.  Every family of the port has one; the JAX
+    package's generic forward + chunked-CE fallback waits for a family
+    without it."""
     return get_family(cfg.family).make_loss_fn(cfg, tcfg)
 
 

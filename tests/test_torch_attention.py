@@ -1,0 +1,249 @@
+"""The port's attention against the JAX package's, on the CPU: the flash
+op (CPU tensors run the kernel's plain version) against ``repro``'s Pallas
+flash kernel run interpreted, the reference, the planners and the
+attention cell's autograd.
+
+Tolerance (f32): 1e-4 * max(1, max |ref|) — the same function with the
+sums in another order (dense softmax against blockwise online softmax).
+Planners are held field for field.
+"""
+
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import machine as jm
+from repro.kernels.flash_attention import flash_attention as jax_flash
+from repro.kernels.flash_attention.ref import attention_ref as jax_attention_ref
+from repro.models.attention import attention as jax_model_attention
+from repro.plan import planners as jp
+from repro_torch.core import machine as tm
+from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
+from repro_torch.kernels.flash_attention.flash_attention import smem_bytes, supported_blocks
+from repro_torch.kernels.flash_attention.ref import attention_ref
+from repro_torch.models import transformer as tf
+from repro_torch.models.attention import attention as model_attention
+from repro_torch.plan import planners as tp
+
+TOL = 1e-4
+MACHINES = [(jm.MANTICORE, tm.MANTICORE), (jm.TPU_V5E, tm.TPU_V5E)]
+
+
+def assert_close(got, want, tol=TOL):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    assert got.shape == want.shape
+    err = float(np.max(np.abs(got - want)))
+    assert err <= tol * max(1.0, float(np.max(np.abs(want)))), err
+
+
+def _qkv(B, Hq, Hkv, Sq, Skv, D, seed=0):
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((B, Hq, Sq, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32),
+            rng.standard_normal((B, Hkv, Skv, D)).astype(np.float32))
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window, block_q, block_kv)
+FLASH_CASES = [
+    (1, 4, 4, 48, 48, 16, True, None, 16, 16),     # causal, three q blocks
+    (1, 4, 4, 40, 56, 16, False, None, 16, 16),    # non-causal, ragged kv
+    (1, 4, 2, 64, 64, 32, True, 24, 16, 16),       # GQA 4/2 with a window
+    (2, 8, 1, 37, 37, 16, True, None, 16, 16),     # GQA 8/1, ragged lengths
+    (1, 4, 4, 45, 45, 16, True, 12, 8, 16),        # window narrower than a block
+    (1, 4, 2, 48, 20, 16, True, 8, 16, 16),        # rows past kv_len + 7 see no key
+]
+
+
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_op_matches_interpreted_pallas(case):
+    """The port's flash op (the kernel's plain version on the CPU) against
+    repro's Pallas kernel in interpret mode at the same blocks, rows with
+    no visible key included (both write 0)."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, bq, bkv = case
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Skv, D)
+    want = jax_flash(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal=causal,
+                     window=window, block_q=bq, block_kv=bkv, interpret=True)
+    got = flash_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          causal=causal, window=window, block_q=bq, block_kv=bkv,
+                          machine=tm.TPU_V5E)
+    assert_close(got.numpy(), np.asarray(want))
+    if case == FLASH_CASES[-1]:
+        assert np.all(got.numpy()[:, :, 27:] == 0) and np.all(np.asarray(want)[:, :, 27:] == 0)
+
+
+@pytest.mark.parametrize("case", FLASH_CASES[:5])
+def test_attention_ref_matches_repro(case):
+    B, Hq, Hkv, Sq, Skv, D, causal, window, _, _ = case
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Skv, D, seed=1)
+    want = jax_attention_ref(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                             causal=causal, window=window)
+    got = attention_ref(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                        causal=causal, window=window)
+    assert_close(got.numpy(), np.asarray(want))
+
+
+def test_flash_plain_version_writes_zero_rows_and_checks_its_contract():
+    """The kernel's plain version: padding rows and rows with no visible
+    key are 0; operands that are not whole blocks are refused."""
+    q, k, v = (torch.from_numpy(t[0]) for t in _qkv(1, 4, 2, 32, 16, 16))
+    out = flash_attention_kernel(q, k, v, block_q=16, block_kv=16, scale=0.25, causal=True,
+                                 window=4, q_len=30, kv_len=10)
+    # rows 13.. see no key (q - k < 4 with k <= 9); rows 30, 31 are padding
+    assert torch.all(out[:, 13:] == 0) and torch.all(out[:, :13].abs().amax(-1) > 0)
+    with pytest.raises(ValueError, match="multiples of the blocks"):
+        flash_attention_kernel(q[:, :30], k, v, block_q=16, block_kv=16, scale=0.25,
+                               causal=True, window=None, q_len=30, kv_len=10)
+
+
+def test_flash_kernel_takes_d64_and_d128_only():
+    assert supported_blocks(128, 128, 64) and supported_blocks(64, 64, 128)
+    assert not supported_blocks(128, 128, 128)  # over the D = 128 maxima
+    assert not supported_blocks(64, 64, 32) and not supported_blocks(12, 16, 64)
+
+
+# (B, Sq, Hq, Hkv, D, causal, window): the plain forward's attention, direct
+# (up to 4M scores per head) and blockwise (above, chunked 512 x 1024).
+MODEL_CASES = [
+    (2, 40, 4, 2, 16, True, None),
+    (1, 48, 4, 1, 16, True, 7),
+    (1, 3072, 1, 1, 8, True, None),
+    (1, 3072, 1, 1, 8, True, 700),
+]
+
+
+@pytest.mark.parametrize("case", MODEL_CASES)
+def test_model_attention_matches_repro(case):
+    """models/attention.attention (the plain path: GQA folded into the
+    query axis, direct or blockwise) against repro's on [B, S, H, D]."""
+    B, S, Hq, Hkv, D, causal, window = case
+    rng = np.random.default_rng(6)
+    q = rng.standard_normal((B, S, Hq, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, Hkv, D)).astype(np.float32) for _ in range(2))
+    pos = np.arange(S, dtype=np.int32)
+    want = jax_model_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                               q_pos=jnp.asarray(pos), k_pos=jnp.asarray(pos),
+                               causal=causal, window=window)
+    got = model_attention(torch.from_numpy(q), torch.from_numpy(k), torch.from_numpy(v),
+                          q_pos=torch.from_numpy(pos), k_pos=torch.from_numpy(pos),
+                          causal=causal, window=window)
+    assert_close(got.numpy(), np.asarray(want))
+
+
+# -- planners ----------------------------------------------------------------------
+
+ATTN_SHAPES = [
+    dict(seq_q=2048, seq_kv=2048, head_dim=64, n_q_heads=16, n_kv_heads=16, batch=4,
+         causal=True),
+    dict(seq_q=2048, seq_kv=2048, head_dim=128, n_q_heads=16, n_kv_heads=8, batch=4,
+         causal=True),
+    dict(seq_q=1000, seq_kv=500, head_dim=64, n_q_heads=16, n_kv_heads=8, causal=True,
+         window=256),
+    dict(seq_q=300, seq_kv=300, head_dim=32, causal=False),
+    dict(seq_q=4096, seq_kv=4096, head_dim=256, n_q_heads=8, n_kv_heads=4, causal=True,
+         window=1024),
+    dict(seq_q=64, seq_kv=64, head_dim=64, block_q=16, block_kv=32, causal=True),
+]
+
+
+def _same(jax_sched, torch_sched):
+    assert dataclasses.asdict(torch_sched) == dataclasses.asdict(jax_sched)
+
+
+@pytest.mark.parametrize("machines", MACHINES, ids=["manticore", "tpu_v5e"])
+@pytest.mark.parametrize("shape", ATTN_SHAPES)
+@pytest.mark.parametrize("in_bytes", [2, 4])
+def test_attention_planner_matches_repro(machines, shape, in_bytes):
+    jmach, tmach = machines
+    _same(jp.AttentionPlanner(jmach).plan(**shape, in_bytes=in_bytes),
+          tp.AttentionPlanner(tmach).plan(**shape, in_bytes=in_bytes))
+
+
+@pytest.mark.parametrize("q0", [0, 128, 640, 1920])
+@pytest.mark.parametrize("window", [None, 1, 127, 128, 512])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("bq,bkv", [(128, 128), (64, 128), (128, 32)])
+def test_kv_blocks_run_matches_repro(q0, window, causal, bq, bkv):
+    args = (q0, bq, bkv, 2048 // bkv, causal, window)
+    assert tp.AttentionPlanner.kv_blocks_run(*args) == jp.AttentionPlanner.kv_blocks_run(*args)
+
+
+@pytest.mark.parametrize("shape,blocks", [
+    (ATTN_SHAPES[0], (128, 128)), (ATTN_SHAPES[1], (64, 64)), (ATTN_SHAPES[2], (128, 128)),
+])
+def test_attention_planner_h100_picks(shape, blocks):
+    """On the H100 the planner's working set is exactly the kernel's shared
+    memory, and its picks are blocks the kernel takes (230,400 B at the
+    transformer's shape)."""
+    s = tp.AttentionPlanner(tm.H100).plan(**shape, in_bytes=4)
+    bq, bkv = s.block("block_q"), s.block("block_kv")
+    assert (bq, bkv) == blocks
+    assert s.vmem_bytes == smem_bytes(bq, bkv, shape["head_dim"]) <= tm.H100.local_mem_bytes
+    assert supported_blocks(bq, bkv, shape["head_dim"])
+    if shape is ATTN_SHAPES[0]:
+        assert s.vmem_bytes == 230_400
+
+
+@pytest.mark.parametrize("bq,bkv,d", [(128, 128, 64), (64, 64, 128), (64, 128, 64),
+                                      (16, 8, 64), (40, 48, 128)])
+def test_kernel_smem_is_the_planner_budget(bq, bkv, d):
+    assert smem_bytes(bq, bkv, d) == tp.AttentionPlanner(tm.H100)._vmem_bytes(bq, bkv, d, 4)
+
+
+TB_SHAPES = [
+    dict(batch=4, seq=2048, d_model=1024, n_heads=16, d_ff=2816, n_kv_heads=16,
+         vocab=151936),
+    dict(batch=2, seq=64, d_model=128, n_heads=4, d_ff=256, n_kv_heads=2),
+]
+
+
+@pytest.mark.parametrize("machines", MACHINES, ids=["manticore", "tpu_v5e"])
+@pytest.mark.parametrize("shape", TB_SHAPES)
+def test_transformer_block_planner_matches_repro(machines, shape):
+    jmach, tmach = machines
+    want = {n: p.plan(**kw) for n, (p, kw) in
+            jp.TransformerBlockPlanner(jmach).cell_planners(**shape).items()}
+    got = {n: p.plan(**kw) for n, (p, kw) in
+           tp.TransformerBlockPlanner(tmach).cell_planners(**shape).items()}
+    assert set(got) == set(want)
+    for cell in want:
+        _same(want[cell], got[cell])
+
+
+def test_attention_planner_registry_and_moe_cell():
+    assert isinstance(tp.planner_for("flash_attention"), tp.AttentionPlanner)
+    with pytest.raises(NotImplementedError, match="MoeFfnPlanner"):
+        tp.TransformerBlockPlanner().cell_planners(**TB_SHAPES[1], n_experts=4)
+
+
+# -- the attention cell's autograd -------------------------------------------------
+
+
+@pytest.mark.parametrize("case", [FLASH_CASES[0], FLASH_CASES[2], FLASH_CASES[3]])
+def test_attention_cell_grads_match_jax(case):
+    """The planned attention cell (flash forward, backward through autograd
+    of attention_ref) against jax.grad of repro's attention_ref."""
+    B, Hq, Hkv, Sq, Skv, D, causal, window, _, _ = case
+    q, k, v = _qkv(B, Hq, Hkv, Sq, Skv, D, seed=2)
+    g = np.random.default_rng(3).standard_normal(q.shape).astype(np.float32)
+
+    def jloss(q, k, v):
+        return jnp.sum(jax_attention_ref(q, k, v, causal=causal, window=window) * g)
+
+    want = jax.grad(jloss, argnums=(0, 1, 2))(*map(jnp.asarray, (q, k, v)))
+    leaves = [torch.from_numpy(t).requires_grad_(True) for t in (q, k, v)]
+    out = tf._attn_vjp(*leaves, causal, window, None)
+    got = torch.autograd.grad(out, leaves, torch.from_numpy(g))
+    for a, b in zip(got, want):
+        assert_close(a.numpy(), np.asarray(b))
+
+
+def test_attention_cell_skips_unneeded_grads():
+    q, k, v = (torch.from_numpy(t) for t in _qkv(1, 2, 2, 16, 16, 16, seed=4))
+    q.requires_grad_(True)
+    out = tf._attn_vjp(q, k, v, True, None, None)
+    (gq,) = torch.autograd.grad(out.sum(), [q])
+    assert gq.shape == q.shape and torch.isfinite(gq).all()

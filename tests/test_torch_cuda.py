@@ -1,5 +1,5 @@
 """The port's CUDA kernels against their plain versions, on the card —
-forward and planned backward.
+forward, planned backward and the transformer's flash attention.
 
 Every test here is marked ``cuda`` and skips where there is no GPU; the
 file imports neither JAX nor ``repro``, so it runs on a machine with a card
@@ -215,3 +215,59 @@ def test_fc_layer_grads_on_card(cuda, m):
     dx, dw = torch.autograd.grad(fc_layer(xc, wc, None, sd), (xc, wc), g.to(cuda))
     assert_close(dx, g.double() @ w.double().t())
     assert_close(dw, x.double().t() @ g.double())
+
+
+# (B, Hq, Hkv, Sq, Skv, D, causal, window) — blocks from the H100 planner
+FLASH_CASES = [
+    (2, 4, 4, 256, 256, 64, True, None),
+    (1, 4, 2, 200, 200, 128, True, None),
+    (1, 4, 4, 300, 300, 64, True, 64),
+    (2, 2, 1, 100, 180, 64, False, None),
+    (1, 4, 2, 300, 150, 64, True, 32),  # rows 181.. see no key
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", FLASH_CASES)
+def test_flash_kernel_matches_plain_on_card(cuda, case):
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
+
+    B, Hq, Hkv, Sq, Skv, D, causal, window = case
+    rng = np.random.default_rng(7)
+    q, k, v = _rand(rng, B, Hq, Sq, D), _rand(rng, B, Hkv, Skv, D), _rand(rng, B, Hkv, Skv, D)
+    got = _launched(flash_attention_kernel, lambda: flash_attention(
+        q.to(cuda), k.to(cuda), v.to(cuda), causal=causal, window=window))
+    want = flash_attention(q, k, v, causal=causal, window=window)
+    assert_close(got, want)
+    if window == 32:
+        assert torch.all(got[:, :, 181:].cpu() == 0) and torch.all(want[:, :, 181:] == 0)
+
+
+@pytest.mark.cuda
+def test_planned_transformer_grads_on_card(cuda):
+    """The planned smoke-transformer loss and every gradient on the card
+    (matmul, NT/TN and flash kernels; head_dim 64) against the same step on
+    the CPU."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    cfg = dataclasses.replace(smoke_config("qwen1.5-0.5b"), n_layers=2, n_heads=2,
+                              n_kv_heads=2, head_dim=64)
+    params = init_params(tf.param_defs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(8)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss_fn = tr.make_loss_fn(cfg, TrainConfig(planned_kernels=True, loss_chunks=4))
+    out = []
+    for dev in (cuda, torch.device("cpu")):
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, {k: v.to(dev) for k, v in batch.items()})
+        out.append((loss, torch.autograd.grad(loss, list(leaves.values()))))
+    (loss_c, grads_c), (loss_p, grads_p) = out
+    assert_close(loss_c, loss_p)
+    for got, want in zip(grads_c, grads_p):
+        assert_close(got, want)

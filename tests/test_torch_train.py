@@ -57,7 +57,7 @@ def test_image_source_is_bit_identical(step, shard):
     for k in ours:
         assert ours[k].dtype == theirs[k].dtype
         np.testing.assert_array_equal(ours[k], theirs[k])
-    src = make_data_source(smoke_config("cnn-vgg11"), 4, ShardInfo(0, 1), seed=1)
+    src = make_data_source(smoke_config("cnn-vgg11"), 4, 32, ShardInfo(0, 1), seed=1)
     assert src(0)["images"].shape == (4, cnn.IMG, cnn.IMG, cnn.IN_CH)
 
 
@@ -136,8 +136,7 @@ def test_three_step_trajectory_matches_repro(planned):
         assert np.max(np.abs(v.numpy() - np.asarray(jstate.params[k]))) <= 1e-3, k
 
 
-@pytest.mark.parametrize("knob", ["microbatch", "remat", "zero1", "loss_chunks",
-                                  "grad_compression"])
+@pytest.mark.parametrize("knob", ["microbatch", "remat", "zero1", "grad_compression"])
 def test_unported_knobs_are_absent(knob):
     """A knob the trainer does not read is not offered: setting one fails
     loudly instead of doing nothing."""
