@@ -23,7 +23,10 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              (wgrad at conv0-3, the conv kernel as dgrad at conv1-3, the NT
              and TN matmuls at fc1/fc2) and the fused dX/dW kernel at
              fc1/fc2 at batch 128, plus a ragged case each; phase-2
-             tolerance.
+             tolerance.  Each wgrad and NT record names its split of the
+             contraction; wgrad at conv0 (split) and conv3 and NT at fc1 dX
+             (split) are launched twice and must give the same bits
+             (phase ``determinism``).
 5. train   — the main path of this slice: the launcher
              (``repro_torch.launch.train --arch cnn-vgg11 --batch 256
              --steps 3 --planned-kernels``) with its launch counts against
@@ -58,12 +61,15 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              relative.  Peak device memory of each step, one at a time.
 8. times   — CUDA-event medians of each kernel at every forward and
              backward shape, beside its plain version, one library call and
-             the bound; the forward's and the training step's ms per batch
+             the bound, with bound_share = bound_ms / ms (each wgrad record
+             also names the device kernels conv2d_weight runs, read with
+             torch.profiler); the forward's and the training step's ms per batch
              and images/s; device time by kernel over a profiled forward
              and a profiled training step.  For the transformer: the flash
              kernel beside its plain version, scaled_dot_product_attention
              and its bound; matmul, NT and TN at the five GEMM shapes of the
-             step beside torch.matmul; the step's ms and tokens/s, planned
+             step beside torch.matmul (NT at qkv launched twice first: the
+             same bits); the step's ms and tokens/s, planned
              and plain; a profiled step.  The ``kernels`` line sums each
              kernel's calls over one planned training step — cnn-vgg11 at
              batch 256 (the fused dX/dW kernel: at batch 128), and for
@@ -513,17 +519,50 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
                             for n, s in plans[alg].items()})
 
 
-def wgrad_split_record(args, kw) -> dict:
-    """The wgrad launch's sweep split and its partial-slab bytes (traffic
-    the planner's modeled words do not count)."""
-    from repro_torch.kernels.conv2d.bwd import wgrad_partial_bytes, wgrad_split
+def split_record(kernel, args, kw) -> dict:
+    """The launch's split of its contraction (wgrad: the (batch, strip)
+    sweep; NT: the N loop) and its partial-slab bytes (traffic the
+    planner's modeled words do not count)."""
+    from repro_torch.core.machine import h100_resident_blocks
+    from repro_torch.kernels.conv2d import bwd as cb
+    from repro_torch.kernels.matmul import bwd as mb
 
-    (B, _, _, d_in), d_out = args[0].shape, args[1].shape[-1]
-    split = wgrad_split(d_in=d_in, d_out=d_out, block_di=kw["block_di"],
-                        block_do=kw["block_do"], batch=B,
-                        n_h=args[1].shape[1] // kw["block_h"])
-    return {"split": split, "partial_bytes": wgrad_partial_bytes(
-        F=kw["F"], d_in=d_in, d_out=d_out, split=split)}
+    if kernel == "matmul_nt":
+        (m, n), k = args[0].shape, args[1].shape[0]
+        blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
+        split = mb.nt_split(m=m, n=n, k=k, **blocks)
+        return {"split": split, "partial_bytes": mb.nt_partial_bytes(m=m, k=k, split=split)}
+    B = args[0].shape[0]
+    d_in, d_out = (cb.wgrad_channels(t.shape[-1]) for t in args)
+    smem = cb.wgrad_smem_bytes(block_h=kw["block_h"], block_do=kw["block_do"],
+                               block_di=kw["block_di"], W_O=kw["W_O"], F=kw["F"],
+                               S=kw["stride"])
+    split = cb.wgrad_split(d_in=d_in, d_out=d_out, block_di=kw["block_di"],
+                           block_do=kw["block_do"], batch=B,
+                           n_h=args[1].shape[1] // kw["block_h"], smem_bytes=smem)
+    return {"split": split, "channels": [d_in, d_out],
+            "resident_blocks": h100_resident_blocks(smem),
+            "partial_bytes": cb.wgrad_partial_bytes(F=kw["F"], d_in=d_in, d_out=d_out,
+                                                    split=split)}
+
+
+# The calls whose two launches must give the same bits: a split and an
+# unsplit call of each kernel this PR redesigned.
+DETERMINISM = {("conv2d_wgrad", "conv0.wgrad"), ("conv2d_wgrad", "conv3.wgrad"),
+               ("matmul_nt", "fc1.dx"), ("matmul_nt", "qkv.dx")}
+DETERMINED: set = set()
+
+
+def check_bit_identical(torch, kernel, label, fn, card=None) -> None:
+    """Two launches on the same inputs give the same bits (fixed-order sums,
+    no atomics)."""
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    same = bool(torch.equal(a, b))
+    emit(phase="determinism", kernel=kernel, case=label, bit_identical=same,
+         **({"card": card} if card else {}))
+    check(same, f"{kernel} {label}: two launches differ")
+    DETERMINED.add((kernel, label))
 
 
 def phase_bwd(torch, cnn, cfg, kernels, results):
@@ -536,11 +575,17 @@ def phase_bwd(torch, cnn, cfg, kernels, results):
         check(all(max_err(a, b) <= TOL * scale(b) for a, b in pairs),
               f"{kernel} {label}: err {err}")
         results[kernel]["max_abs_err"] = max(results[kernel]["max_abs_err"], err)
+        extra = {}
+        if kernel == "conv2d_wgrad":
+            extra = dict(split_record(kernel, args, kw),
+                         schedule_words=meta.get("schedule_words"))
+        elif kernel == "matmul_nt":
+            extra = split_record(kernel, args, kw)
         emit(phase="bwd", kernel=kernel, case=label, shape=[list(a.shape) for a in args],
              blocks={b: v for b, v in kw.items() if b.startswith("block")}, max_abs_err=err,
-             max_abs_plain=max(float(b.abs().max()) for _, b in pairs),
-             **(dict(wgrad_split_record(args, kw), schedule_words=meta.get("schedule_words"))
-                if kernel == "conv2d_wgrad" else {}))
+             max_abs_plain=max(float(b.abs().max()) for _, b in pairs), **extra)
+        if (kernel, label) in DETERMINISM:
+            check_bit_identical(torch, kernel, label, lambda: k(*args, **kw))
 
 
 def zero_counts(kernels) -> None:
@@ -730,7 +775,9 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         call = dict(case=label, per_forward=main_path_launches(plans, name, label),
                     per_step=steps[batch].get((name, label), 0), step_batch=batch, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    flops=flops, bytes=nbytes, peaks=PEAKS)
+                    bound_share=b_ms / ms, flops=flops, bytes=nbytes, peaks=PEAKS)
+        if name == "conv2d_wgrad":  # what algorithm the yardstick runs
+            call["library_kernels"] = library_kernels(torch, lib_fn)
         results[name]["calls"].append(call)
         emit(phase="times", kernel=name, card=card, **call)
 
@@ -785,10 +832,39 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
     profile(torch, "train_step", run["planned"], card, grad=True)
 
 
+def device_kernels(torch, prof, reps: int = 1):
+    """[(ms per call, kernel name, launches per call)] of the device-side
+    events of a profile, largest first.  Device events only (kernels,
+    copies): the aten ops that launched them carry the same device time and
+    would count it twice."""
+    from torch.autograd import DeviceType
+
+    rows = []
+    for ev in prof.key_averages():
+        dev_us = getattr(ev, "self_device_time_total", 0) or 0
+        if dev_us > 0 and ev.device_type == DeviceType.CUDA:
+            rows.append((dev_us / reps / 1e3, ev.key, ev.count // reps))
+    return sorted(rows, reverse=True)
+
+
+def library_kernels(torch, fn, top: int = 3) -> list:
+    """The device kernels one call of a library function runs (by
+    torch.profiler), so a record can say which algorithm the yardstick
+    picked."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [{"kernel": k[:120], "ms": ms, "calls": c}
+            for ms, k, c in device_kernels(torch, prof)[:top]]
+
+
 def profile(torch, what, fn, card, *, grad: bool, reps: int = 5, batch=BATCH):
     """Device time by kernel name over a few calls of ``fn`` (torch.profiler),
     and the device's busy share of that window."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as torch_profile
 
     with torch.set_grad_enabled(grad):
@@ -800,14 +876,7 @@ def profile(torch, what, fn, card, *, grad: bool, reps: int = 5, batch=BATCH):
                 fn()
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
-    # Device-side events only (kernels, copies): the aten ops that launched
-    # them carry the same device time and would count it twice.
-    rows = []
-    for ev in prof.key_averages():
-        dev_us = getattr(ev, "self_device_time_total", 0) or 0
-        if dev_us > 0 and ev.device_type == DeviceType.CUDA:
-            rows.append((dev_us / reps / 1e3, ev.key, ev.count // reps))
-    rows.sort(reverse=True)
+    rows = device_kernels(torch, prof, reps)
     device_ms = sum(r[0] for r in rows)
     emit(phase="profile", what=what, card=card, batch=batch, wall_ms_per_call=wall_ms,
          device_ms_per_call=device_ms if rows else "not measured",
@@ -1099,8 +1168,8 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
         b_ms, b_by = bound_ms(flops, nbytes)
         call = dict(case=label, per_step=calls.get((name, label), 0), step_batch=step_batch,
                     max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, flops=flops,
-                    bytes=nbytes, peaks=PEAKS)
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                    bound_share=b_ms / ms, flops=flops, bytes=nbytes, peaks=PEAKS)
         results[name]["tfm_calls"].append(call)
         emit(phase="times", kernel=name, card=card, **call)
 
@@ -1150,6 +1219,9 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
             args = {"matmul": (xp, wp), "matmul_nt": (gp, wp), "matmul_tn": (xp, gp),
                     "matmul_dx_dw": (gp, wp, xp)}[name]
             kern = kernels[name]
+            if (name, label) in DETERMINISM:
+                check_bit_identical(torch, name, label,
+                                    lambda kern=kern, args=args, b=b: kern(*args, **b), card)
             record(name, label, lambda kern=kern, args=args, b=b: kern(*args, **b),
                    lambda kern=kern, args=args, b=b: kern.plain(*args, **b), lib,
                    2 * flops if name == "matmul_dx_dw" else flops, nbytes,
@@ -1253,6 +1325,7 @@ def main() -> int:
         total["bound_by"] = max(calls, key=lambda c: c["bound_ms"])["bound_by"]
         return total
 
+    check(DETERMINED == DETERMINISM, f"determinism checks run: {sorted(DETERMINED)}")
     entries = []
     for name, r in results.items():
         # One training step's calls: cnn-vgg11's, or the transformer's for a

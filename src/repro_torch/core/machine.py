@@ -101,17 +101,22 @@ TPU_V5E = MachineModel(
 #
 # What the budget holds is exactly what each CUDA kernel allocates per
 # thread block (kernels/csrc/*.cu), all of it in SHARED MEMORY:
-#   * the f32 accumulator tile, resident across the whole contraction loop
-#     (matmul: block_m x block_n; direct conv: block_h*W_O x block_do;
-#     wgrad: F x F x block_di x block_do; the fused dX/dW matmul: the
-#     whole-M dX strip and the dW tile);
+#   * the f32 accumulator tile (matmul: block_m x block_n; direct conv:
+#     block_h*W_O x block_do; wgrad: F x F x block_di x block_do; NT:
+#     block_m x block_k; the fused dX/dW matmul: the whole-M dX strip and
+#     the dW tile), resident across the whole contraction loop -- except in
+#     the wgrad and NT kernels at their main blocks, which keep the
+#     accumulators in registers and use the region for the stages during
+#     the loop (wgrad) and for the epilogue's fixed-order sum and 16-byte
+#     stores;
 #   * two stages of each streamed tile (the X and W tiles of a matmul, the
 #     halo'd input strip and the filter or gradient block of a conv),
-#     filled by cp.async while the previous stage is consumed — hence
+#     filled by cp.async (or, for NT's transposed tiles, through registers)
+#     while the previous stage is consumed — hence
 #     charge_stream_blocks=True and no separate DMA reservation.
-# REGISTERS hold only each thread's partial sums for one step (a 4x8
-# matmul item, 1 pixel x 8 channels of conv, 1 tap x 8 channels of wgrad)
-# and are not charged.
+# REGISTERS (not charged) hold each thread's partial sums: for one step in
+# the other kernels (a 4x8 matmul item, 1 pixel x 8 channels of conv), for
+# the whole loop in wgrad (9 taps x 8 channels) and NT (a 4x8 tile).
 #
 # lane = 8: every kernel gives each thread 8 output channels / columns, so
 # blocks come in multiples of 8.  The caps bound the tiles to what 256
@@ -135,6 +140,21 @@ H100 = MachineModel(
 )
 
 MACHINES = {m.name: m for m in (MANTICORE, TPU_V5E, H100)}
+
+# How many blocks one H100 SM holds at once, for the kernels that split a
+# contraction over blocks to fill the card (wgrad, NT): an SM has 228 KB
+# of shared memory, less 1 KB the system keeps for each resident block,
+# and the kernels' 256 threads and register tiles leave room for two.
+H100_SM_SMEM_BYTES = 233_472
+H100_SMEM_RESERVED = 1_024
+H100_RESIDENT_TARGET = 2
+
+
+def h100_resident_blocks(smem_bytes: int) -> int:
+    """Blocks of ``smem_bytes`` shared memory that one H100 SM holds at
+    once, from 1 up to H100_RESIDENT_TARGET."""
+    fit = H100_SM_SMEM_BYTES // (smem_bytes + H100_SMEM_RESERVED)
+    return max(1, min(H100_RESIDENT_TARGET, fit))
 
 
 def machine_named(name: str, default: MachineModel = H100) -> MachineModel:

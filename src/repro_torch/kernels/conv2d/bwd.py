@@ -16,8 +16,10 @@
   (batch, strip) sweep in ``csrc/conv2d_wgrad.cu``, which replaces
   ``_wgrad_dma_kernel`` and ``_wgrad_kernel`` (one function, two TPU
   schedules).  The sweep is split over a number of thread blocks fixed by
-  the shapes (:func:`wgrad_split`) so the grid covers the card; partial
-  f32 slabs are summed in a fixed order.
+  the shapes (:func:`wgrad_split`) so the grid fills the card's resident
+  block slots; partial f32 slabs are summed in a fixed order.  The
+  launch pads both channel axes to multiples of 4
+  (:func:`wgrad_channels`) for the kernel's 16-byte copies.
 
 Both ops take an optional ``mask``/``pool`` pair — the int8
 pool-argmax/ReLU mask the forward kernel emitted.  Then ``dy`` is the
@@ -32,10 +34,12 @@ import ctypes
 import torch
 import torch.nn.functional as nnf
 
-from repro_torch.core.machine import H100, MachineModel
+from repro_torch.core.machine import H100, MachineModel, h100_resident_blocks
 from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
 from repro_torch.kernels.conv2d.ref import conv2d_ref
-from repro_torch.plan import ConvDgradPlanner, ConvWgradPlanner, Schedule, cuda_op
+from repro_torch.plan import (
+    ConvDgradPlanner, ConvWgradPlanner, Schedule, cuda_op, pad_dim,
+)
 from repro_torch.plan.registry import CudaKernel
 
 LANE = 8  # output channels of one thread item
@@ -221,13 +225,30 @@ def wgrad_supported_blocks(*, block_h: int, block_do: int, block_di: int,
 
 
 def wgrad_split(*, d_in: int, d_out: int, block_di: int, block_do: int,
-                batch: int, n_h: int, units: int = H100.units) -> int:
+                batch: int, n_h: int, smem_bytes: int, units: int = H100.units) -> int:
     """Thread blocks that share each (d_i block, d_o stack)'s (batch, strip)
-    sweep: as many as keep the grid within one wave of the card's SMs,
-    never more than the sweep has steps.  A function of the shapes alone,
-    so the order of the partial sums (and the result) never changes."""
+    sweep: as many as fill the resident block slots of the card's SMs
+    (two a SM where two blocks' shared memory fits, else one), never more
+    than the sweep has steps.  A function of the shapes alone, so the
+    order of the partial sums (and the result) never changes."""
     pairs = -(-d_in // block_di) * -(-d_out // block_do)
-    return max(1, min(batch * n_h, units // pairs, MAX_GRID_YZ))
+    slots = h100_resident_blocks(smem_bytes) * units
+    return max(1, min(batch * n_h, slots // pairs, MAX_GRID_YZ))
+
+
+def wgrad_channels(d: int) -> int:
+    """Channels the wgrad kernel takes for ``d``: rounded up to a multiple
+    of 4, so every pixel's channel run is whole 16-byte copies (conv0's 3
+    input channels run as 4; the zero channel adds nothing and its dW
+    rows are sliced off)."""
+    return -(-d // 4) * 4
+
+
+def wgrad_pad_channels(x_pad, dy):
+    """The kernel's operands with both channel axes zero-padded to
+    :func:`wgrad_channels` (no copy when they already are)."""
+    return (pad_dim(x_pad, -1, wgrad_channels(x_pad.shape[-1])).contiguous(),
+            pad_dim(dy, -1, wgrad_channels(dy.shape[-1])).contiguous())
 
 
 def wgrad_partial_bytes(*, F: int, d_in: int, d_out: int, split: int) -> int:
@@ -281,21 +302,28 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"conv2d_wgrad kernel takes contiguous float32 {name}, "
                              f"got {t.dtype} (contiguous={t.is_contiguous()})")
-    _, H_in, W_in, d_in = x_pad.shape
-    d_out = dy.shape[-1]
+    d_in, d_out = x_pad.shape[-1], dy.shape[-1]
     if -(-d_out // block_do) > MAX_GRID_YZ:
         raise ValueError(f"conv2d_wgrad: {d_out} channels over stacks of {block_do} "
                          "exceed the grid")
-    split = wgrad_split(d_in=d_in, d_out=d_out, block_di=block_di,
-                        block_do=block_do, batch=B, n_h=n_h)
-    out = torch.empty((F, F, d_in, d_out), dtype=torch.float32, device=x_pad.device)
-    part = (torch.empty((split, F, F, d_in, d_out), dtype=torch.float32,
+    xk, gk = wgrad_pad_channels(x_pad, dy)
+    _, H_in, W_in, d_ik = xk.shape
+    d_ok = gk.shape[-1]
+    split = wgrad_split(d_in=d_ik, d_out=d_ok, block_di=block_di, block_do=block_do,
+                        batch=B, n_h=n_h,
+                        smem_bytes=wgrad_smem_bytes(block_h=block_h, block_do=block_do,
+                                                    block_di=block_di, W_O=W_O, F=F,
+                                                    S=stride))
+    out = torch.empty((F, F, d_ik, d_ok), dtype=torch.float32, device=x_pad.device)
+    part = (torch.empty((split, F, F, d_ik, d_ok), dtype=torch.float32,
                         device=x_pad.device) if split > 1 else None)
-    kernel.run(ctypes.c_void_p(x_pad.data_ptr()), ctypes.c_void_p(dy.data_ptr()),
+    kernel.run(ctypes.c_void_p(xk.data_ptr()), ctypes.c_void_p(gk.data_ptr()),
                ctypes.c_void_p(out.data_ptr()),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
-               B, H_in, W_in, d_in, d_out, F, stride, W_O, n_h, block_h,
+               B, H_in, W_in, d_ik, d_ok, F, stride, W_O, n_h, block_h,
                block_di, block_do, split)
+    if (d_ik, d_ok) != (d_in, d_out):
+        out = out[:, :, :d_in, :d_out].contiguous()
     return out
 
 

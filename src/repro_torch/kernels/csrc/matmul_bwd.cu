@@ -8,20 +8,40 @@
 // ::_mm_dxdw_kernel (matmul_dx_dw_pallas).
 //
 // What bounds them here: at the CNN's FC shapes (fc1 256x2048x4096, fc2
-// 256x4096x1000) the arithmetic intensity is far above the card's f32
+// 256x4096x1000) and the transformer's (M = 8192 or 2048, K and N from
+// 1024 to 151936) the arithmetic intensity is far above the card's f32
 // balance point (about 20 flop/B), so the bound is f32 operations on the
-// CUDA cores (67 TFLOP/s; no tensor cores in these first kernels).  What
-// keeps them below it is shared-memory bandwidth and small grids: the
-// schedules' tiles give 64 to 256 blocks for the pair and one block per
-// k-block (16 or 32) for the fused kernel.
+// CUDA cores (67 TFLOP/s; no tensor cores). What keeps a kernel below it is
+// shared-memory traffic per FMA, bank conflicts, and grids under one wave.
 //
-// Design: the microkernel of matmul.cu (256 threads, a 4 x 8 register item
-// per thread per step, the f32 accumulator in shared memory), applied to
-// operands staged in shared memory with cp.async, two stages deep.
-//   * NT: one block per dX tile [bm][bk]; the N axis (the contraction) is
-//     the loop.  Each step stages the dY tile [bm][bn] and the W tile
-//     W[k0:k0+bk, n0:n0+bn], which lands transposed in shared memory
-//     ([bn][bk], 4-byte copies), so no W^T ever exists in device memory.
+// NT at the planner's tile (bm 64, bk 128, bn 32; every shape of both
+// steps), mm_nt_reg_kernel:
+//   * Registers. 256 threads, each a 4 x 8 tile of dX (rows mi*4..+3,
+//     columns kj*4..+3 and 64+kj*4..+3) in registers for the block's
+//     whole N loop. Per contraction index it reads three float4s from
+//     shared memory for 32 FMAs; a warp's reads are four A chunks and two
+//     runs of eight B chunks, each within one 128-byte line.
+//   * Staging. Both operands have N, the contraction, as their row, so
+//     both tiles are transposed on the way in: each thread loads float4s
+//     of dY and W rows from device memory (eight threads cover one
+//     128-byte run of a row) into registers during the current step's
+//     FMAs and writes them contraction-major, gs[bn][bm] and ws[bn][bk],
+//     with the column XOR-swizzled by ((n >> 2) & 7) << 2: the 32 scalar
+//     stores of a warp land in 32 distinct banks and the float4 reads stay
+//     whole. Two shared-memory stages and the register stage keep one step
+//     in flight, with one barrier a step.
+//   * Epilogue. The [bm][bk] accumulator region the planner charges is
+//     free until the end: the register tiles go there and leave as
+//     coalesced 16-byte stores.
+//   * Small grids. Where the (k, m) grid is under one wave of SMs (fc1 and
+//     fc2 dX), the N loop is split over a number of blocks fixed by the
+//     shapes (bwd.py::nt_split); each writes a partial f32 slab and a
+//     second kernel sums the slabs in order, so the result is the same on
+//     every run.
+// Other NT blocks run mm_nt_kernel, the simple kernel that TN and the
+// fused kernel share: 256 threads, a 4 x 8 register item a step, the f32
+// accumulator in shared memory, operands staged with cp.async two stages
+// deep (the W tile transposed by 4-byte copies).
 //   * TN: one block per dW tile [bk][bn]; the M axis is the loop.  Each
 //     step stages X[m0:m0+bm, k0:k0+bk] and dY[m0:m0+bm, n0:n0+bn] as they
 //     lie and contracts over their shared row axis.
@@ -140,22 +160,33 @@ __device__ __forceinline__ void flush(float* __restrict__ dst, int ld, int r0, i
   }
 }
 
+// The N steps [t0, t1) of split part blockIdx.z.
+__device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int* t1) {
+  *t0 = (int)((long long)blockIdx.z * n_steps / split);
+  *t1 = (int)((long long)(blockIdx.z + 1) * n_steps / split);
+}
+
 __global__ void __launch_bounds__(kThreads)
     mm_nt_kernel(const float* __restrict__ G, const float* __restrict__ W,
-                 float* __restrict__ DX, int N, int K, int bm, int bn, int bk) {
+                 float* __restrict__ DX, int M, int N, int K, int bm, int bn, int bk,
+                 int split) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;             // [bm][bk]
   float* gs = acc + bm * bk;     // 2 stages of [bm][bn]
   float* ws = gs + 2 * bm * bn;  // 2 stages of [bn][bk] (W tile transposed)
-  const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm, n_n = N / bn;
+  const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
+  int t0, t1;
+  split_share(N / bn, split, &t0, &t1);
 
   zero(acc, bm * bk);
-  stage(gs, G, N, m0, 0, bm, bn);
-  stage_t(ws, W, N, k0, 0, bk, bn);
+  if (t0 < t1) {
+    stage(gs, G, N, m0, t0 * bn, bm, bn);
+    stage_t(ws, W, N, k0, t0 * bn, bk, bn);
+  }
   cp_async_commit();
-  for (int t = 0; t < n_n; ++t) {
-    const int s = t & 1;
-    if (t + 1 < n_n) {
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) {
       stage(gs + (s ^ 1) * bm * bn, G, N, m0, (t + 1) * bn, bm, bn);
       stage_t(ws + (s ^ 1) * bn * bk, W, N, k0, (t + 1) * bn, bk, bn);
       cp_async_commit();
@@ -167,7 +198,129 @@ __global__ void __launch_bounds__(kThreads)
     mma_tile(acc, bk, gs + s * bm * bn, bn, 1, ws + s * bn * bk, bk, bm, bk, bn);
     __syncthreads();
   }
-  flush(DX, K, m0, k0, acc, bm, bk);
+  flush(DX + (size_t)blockIdx.z * M * K, K, m0, k0, acc, bm, bk);
+}
+
+// NT at the planner's tile: see the header.
+constexpr int kNtBM = 64, kNtBN = 32, kNtBK = 128;
+
+__device__ __forceinline__ int nt_swz(int n) { return ((n >> 2) & 7) << 2; }
+
+__global__ void __launch_bounds__(kThreads, 2)
+    mm_nt_reg_kernel(const float* __restrict__ G, const float* __restrict__ W,
+                     float* __restrict__ DX, int M, int N, int K, int split) {
+  extern __shared__ __align__(16) float smem[];
+  float* acc_s = smem;                       // [bm][bk], the epilogue's
+  float* gs = acc_s + kNtBM * kNtBK;         // 2 stages of [bn][bm], swizzled
+  float* ws = gs + 2 * kNtBN * kNtBM;        // 2 stages of [bn][bk], swizzled
+  const int k0 = blockIdx.x * kNtBK, m0 = blockIdx.y * kNtBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: rows mi*4..+3
+  const int kj = (warp & 1) * 8 + (lane & 7);    // 0..15: cols kj*4.., 64+kj*4..
+  int t0, t1;
+  split_share(N / kNtBN, split, &t0, &t1);
+
+  // Loader roles: row tid/8 (+32 per round) of a tile, float4 column tid%8.
+  const int lr = tid >> 3, lc = tid & 7;
+  const float* gsrc = G + (size_t)(m0 + lr) * N + lc * 4;
+  const float* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  float4 rg[2], rw[4];
+  auto load = [&](int t) {
+    const int n0 = t * kNtBN;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rg[i] = __ldg(reinterpret_cast<const float4*>(gsrc + (size_t)i * 32 * N + n0));
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rw[i] = __ldg(reinterpret_cast<const float4*>(wsrc + (size_t)i * 32 * N + n0));
+  };
+  auto store = [&](int s) {
+    float* g = gs + s * kNtBN * kNtBM;
+    float* w = ws + s * kNtBN * kNtBK;
+    const int sw = lc << 2;  // nt_swz(n) for n = lc*4 + j
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = (lr + 32 * i) ^ sw;
+      g[(lc * 4 + 0) * kNtBM + c] = rg[i].x;
+      g[(lc * 4 + 1) * kNtBM + c] = rg[i].y;
+      g[(lc * 4 + 2) * kNtBM + c] = rg[i].z;
+      g[(lc * 4 + 3) * kNtBM + c] = rg[i].w;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int c = (lr + 32 * i) ^ sw;
+      w[(lc * 4 + 0) * kNtBK + c] = rw[i].x;
+      w[(lc * 4 + 1) * kNtBK + c] = rw[i].y;
+      w[(lc * 4 + 2) * kNtBK + c] = rw[i].z;
+      w[(lc * 4 + 3) * kNtBK + c] = rw[i].w;
+    }
+  };
+
+  float r[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[i][j] = 0.f;
+
+  if (t0 < t1) {
+    load(t0);
+    store(0);
+  }
+  __syncthreads();
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) load(t + 1);  // in flight during this step's FMAs
+    const float* g = gs + s * kNtBN * kNtBM;
+    const float* w = ws + s * kNtBN * kNtBK;
+#pragma unroll
+    for (int kk = 0; kk < kNtBN; ++kk) {
+      const int sw = nt_swz(kk);
+      const float4 a = *reinterpret_cast<const float4*>(g + kk * kNtBM + ((mi * 4) ^ sw));
+      const float4 b0 = *reinterpret_cast<const float4*>(w + kk * kNtBK + ((kj * 4) ^ sw));
+      const float4 b1 =
+          *reinterpret_cast<const float4*>(w + kk * kNtBK + 64 + ((kj * 4) ^ sw));
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
+    }
+    if (t + 1 < t1) store(s ^ 1);
+    __syncthreads();
+  }
+
+  // Registers -> the accumulator region -> 16-byte stores of the dX tile
+  // (or of this part's slab).
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = acc_s + (mi * 4 + i) * kNtBK;
+    *reinterpret_cast<float4*>(row + kj * 4) = make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + kj * 4) =
+        make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
+  }
+  __syncthreads();
+  float* out = DX + (size_t)blockIdx.z * M * K;
+  for (int e = tid; e < kNtBM * kNtBK / 4; e += kThreads) {
+    const int row = e / (kNtBK / 4), c4 = e % (kNtBK / 4);
+    *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * K + k0 + c4 * 4) =
+        *reinterpret_cast<const float4*>(acc_s + row * kNtBK + c4 * 4);
+  }
+}
+
+// out[i] = sum over s of part[s][i], s in order, four floats a thread.
+__global__ void __launch_bounds__(kThreads)
+    reduce_slabs_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                        size_t n4, int split) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * kThreads) {
+    float4 v = part[i];
+    for (int s = 1; s < split; ++s) {
+      const float4 p = part[(size_t)s * n4 + i];
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    out[i] = v;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -267,14 +420,30 @@ const char* repro_error_string(int err) {
 // Each entry point launches on `stream` and returns cudaGetLastError()
 // (0 on success).
 
-int repro_matmul_nt_f32(const float* G, const float* W, float* DX, int M, int N,
-                        int K, int bm, int bn, int bk, void* stream) {
+// NT: grid (K/bk, M/bm, split); with split > 1 `part` holds split slabs of
+// M*K floats and a second kernel sums them into DX in order.
+int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, int M,
+                        int N, int K, int bm, int bn, int bk, int split, void* stream) {
   const size_t smem = sizeof(float) * ((size_t)bm * bk + 2 * ((size_t)bm * bn + (size_t)bn * bk));
-  cudaError_t err = set_smem((const void*)mm_nt_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(K / bk, M / bm);
-  mm_nt_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, W, DX, N, K, bm, bn, bk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(K / bk, M / bm, split);
+  float* dst = split > 1 ? part : DX;
+  cudaError_t err;
+  if (bm == kNtBM && bn == kNtBN && bk == kNtBK) {
+    err = set_smem((const void*)mm_nt_reg_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_nt_reg_kernel<<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
+  } else {
+    err = set_smem((const void*)mm_nt_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_nt_kernel<<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, bm, bn, bk, split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t n4 = (size_t)M * K / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(DX), n4, split);
   return (int)cudaGetLastError();
 }
 

@@ -3,9 +3,12 @@
 Three hand-written kernels in ``csrc/matmul_bwd.cu``, each with its launch
 wrapper and plain PyTorch version:
 
-* ``matmul_nt`` — dX[M, K] = dY[M, N] @ W[K, N]^T; the W tile is staged
-  transposed in shared memory, so no W^T ever exists in device memory.
-  Replaces ``repro/kernels/matmul/bwd.py::_mm_nt_kernel``.
+* ``matmul_nt`` — dX[M, K] = dY[M, N] @ W[K, N]^T; both tiles are staged
+  contraction-major (transposed on the way in), so no W^T ever exists in
+  device memory, and the dX tile stays in registers.  Where the grid is
+  under one wave of SMs the N loop is split over a number of blocks fixed
+  by the shapes (:func:`nt_split`) and the partial slabs are summed in a
+  fixed order.  Replaces ``repro/kernels/matmul/bwd.py::_mm_nt_kernel``.
 * ``matmul_tn`` — dW[K, N] = X[M, K]^T @ dY[M, N]; M streams as the
   contraction.  Replaces ``::_mm_tn_kernel``.
 * ``matmul_dx_dw`` — both from one read of each dY tile, with the whole-M
@@ -26,7 +29,7 @@ import ctypes
 
 import torch
 
-from repro_torch.core.machine import H100, MachineModel
+from repro_torch.core.machine import H100, MachineModel, h100_resident_blocks
 from repro_torch.plan import (
     CudaKernel, MatmulDwPlanner, MatmulDxPlanner, Schedule, cuda_op, pad_dim, round_up,
 )
@@ -86,6 +89,25 @@ def supported_blocks(kernel: str, *, block_m: int, block_n: int, block_k: int,
             "matmul_dx_dw": lambda: smem_bytes_dxdw(m, block_m, block_n, block_k)}
     return (_lane_blocks(block_m, block_n, block_k)
             and smem[kernel]() <= H100.local_mem_bytes)
+
+
+def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+             units: int = H100.units) -> int:
+    """Thread blocks that share each dX tile's N loop: 1 where the (k, m)
+    grid fills one wave of the card's SMs, else as many as fill the
+    resident block slots (two a SM where two blocks' shared memory fits),
+    never more than the loop has steps.  A function of the shapes alone, so
+    the order of the partial sums (and the result) never changes."""
+    grid = (m // block_m) * (k // block_k)
+    if grid >= units:
+        return 1
+    slots = h100_resident_blocks(smem_bytes_nt(block_m, block_n, block_k)) * units
+    return max(1, min(n // block_n, slots // grid, MAX_GRID_Y))
+
+
+def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
+    """Device memory of NT's partial f32 dX slabs (0 without a split)."""
+    return 4 * split * m * k if split > 1 else 0
 
 
 def _check_multiple(name, dims, blocks):
@@ -174,8 +196,13 @@ def _launch_nt(kernel: CudaKernel, g, w, *, block_m: int, block_n: int, block_k:
     _check_operands("matmul_nt", g=g, w=w)
     if m // block_m > MAX_GRID_Y:
         raise ValueError(f"matmul_nt M/block_m = {m // block_m} exceeds the grid")
+    split = nt_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
     out = torch.empty((m, k), dtype=torch.float32, device=g.device)
-    kernel.run(_ptr(g), _ptr(w), _ptr(out), m, n, k, block_m, block_n, block_k)
+    part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
+            if split > 1 else None)
+    kernel.run(_ptr(g), _ptr(w), _ptr(out),
+               ctypes.c_void_p(part.data_ptr() if part is not None else None),
+               m, n, k, block_m, block_n, block_k, split)
     return out
 
 
@@ -202,7 +229,7 @@ def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
 
 matmul_nt_kernel = CudaKernel(
     "matmul_nt", source="matmul_bwd", symbol="repro_matmul_nt_f32",
-    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     launch=_launch_nt, plain=matmul_nt_plain,
 )
 matmul_tn_kernel = CudaKernel(

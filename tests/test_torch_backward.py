@@ -239,19 +239,92 @@ def test_h100_backward_schedules_run_on_their_kernels(batch):
             assert smem(b["block_m"], b["block_n"], b["block_k"]) == s.vmem_bytes, key
 
 
-def test_wgrad_split_covers_the_card_and_is_fixed_by_shapes():
-    # conv0..conv3 at batch 256 on the H100 picks: (d_i, d_o) pairs x split
-    cases = [(3, 64, 8, 64, 4, 132), (64, 128, 16, 64, 1, 16),
-             (128, 256, 16, 64, 1, 4), (256, 512, 16, 64, 1, 1)]
-    for d_in, d_out, bdi, bdo, n_h, want in cases:
-        split = cb.wgrad_split(d_in=d_in, d_out=d_out, block_di=bdi, block_do=bdo,
-                               batch=256, n_h=n_h)
-        assert split == want
-        pairs = -(-d_in // bdi) * -(-d_out // bdo)
-        assert pairs * split <= tm.H100.units
-    assert cb.wgrad_split(d_in=3, d_out=8, block_di=8, block_do=8, batch=2, n_h=3) == 6
+# conv0..conv3 at batch 256 on the H100 picks: (d_in, d_out, bdi, bdo, hb,
+# W_O, n_h), the resident blocks a SM their shared memory allows, and the
+# split: (d_i, d_o) pairs x split fills resident x 132 block slots, never
+# more than the sweep's 256 * n_h steps.
+WGRAD_SPLITS = [
+    ((3, 64, 8, 64, 8, 32, 4), 1, 132),
+    ((64, 128, 16, 64, 16, 16, 1), 1, 16),
+    ((128, 256, 16, 64, 8, 8, 1), 2, 8),
+    ((256, 512, 16, 64, 4, 4, 1), 2, 2),
+]
+
+
+@pytest.mark.parametrize("shape,resident,want", WGRAD_SPLITS)
+def test_wgrad_split_covers_the_card_and_is_fixed_by_shapes(shape, resident, want):
+    d_in, d_out, bdi, bdo, hb, W_O, n_h = shape
+    smem = cb.wgrad_smem_bytes(block_h=hb, block_do=bdo, block_di=bdi, W_O=W_O, F=3, S=1)
+    assert tm.h100_resident_blocks(smem) == resident
+    kw = dict(d_in=cb.wgrad_channels(d_in), d_out=d_out, block_di=bdi, block_do=bdo,
+              batch=256, n_h=n_h, smem_bytes=smem)
+    split = cb.wgrad_split(**kw)
+    assert split == want == cb.wgrad_split(**kw)
+    pairs = -(-d_in // bdi) * -(-d_out // bdo)
+    assert pairs * split <= resident * tm.H100.units
+    assert split <= 256 * n_h
+
+
+def test_wgrad_split_never_exceeds_the_sweep():
+    assert cb.wgrad_split(d_in=3, d_out=8, block_di=8, block_do=8, batch=2, n_h=3,
+                          smem_bytes=4096) == 6
+    assert tm.h100_resident_blocks(232_448) == 1 and tm.h100_resident_blocks(1024) == 2
     assert cb.wgrad_partial_bytes(F=3, d_in=3, d_out=64, split=132) == 4 * 132 * 9 * 3 * 64
     assert cb.wgrad_partial_bytes(F=3, d_in=256, d_out=512, split=1) == 0
+
+
+@pytest.mark.parametrize("d,want", [(3, 4), (4, 4), (5, 8), (13, 16), (64, 64)])
+def test_wgrad_channels_pad_to_whole_16_byte_copies(d, want):
+    assert cb.wgrad_channels(d) == want
+    x, dy = torch.ones(1, 4, 4, d), torch.ones(1, 2, 2, d)
+    xk, gk = cb.wgrad_pad_channels(x, dy)
+    assert xk.shape[-1] == gk.shape[-1] == want
+    assert xk.is_contiguous() and gk.is_contiguous()
+    assert float(xk[..., d:].abs().sum()) == 0 and torch.equal(xk[..., :d], x)
+    if d == want:  # no copy when the channels already are whole copies
+        assert xk.data_ptr() == x.data_ptr()
+
+
+# (m, n, k) of NT calls at the H100 dX pick (64, 32, 128): the split of the
+# N loop.  cnn-vgg11's fc1/fc2 dX at batch 256 run 64 and 128 blocks, under
+# one wave of 132 SMs; the transformer's shapes fill several waves.
+NT_SPLITS = [
+    ((256, 4096, 2048), 4),   # fc1 dX
+    ((256, 1024, 4096), 2),   # fc2 dX (N = 1000 padded to 1024)
+    ((8192, 3072, 1024), 1),  # qkv
+    ((8192, 1024, 1024), 1),  # wo
+    ((8192, 5632, 1024), 1),  # mlp_up
+    ((8192, 1024, 2816), 1),  # mlp_down (K padded to 2816 = 22 x 128)
+    ((2048, 151936, 1024), 1),  # logits chunk
+    ((64, 64, 128), 2),       # one block, two N steps
+]
+
+
+@pytest.mark.parametrize("mnk,want", NT_SPLITS)
+def test_nt_split_fills_one_wave_and_is_fixed_by_shapes(mnk, want):
+    m, n, k = mnk
+    kw = dict(m=m, n=n, k=k, block_m=64, block_n=32, block_k=128)
+    assert mb.nt_split(**kw) == want == mb.nt_split(**kw)
+    grid = (m // 64) * (k // 128)
+    assert tm.h100_resident_blocks(mb.smem_bytes_nt(64, 32, 128)) == 2
+    assert want == 1 or grid * want <= 2 * tm.H100.units
+    assert want <= n // 32
+    assert mb.nt_partial_bytes(m=m, k=k, split=want) == (4 * want * m * k if want > 1 else 0)
+
+
+def test_h100_nt_pick_is_the_register_kernels_tile():
+    """Every NT schedule of both training steps is the (64, 32, 128) tile the
+    register kernel is built for."""
+    from repro_torch.models import transformer as tf
+
+    plans = dict(cnn.plan_training(get_config("cnn-vgg11"), 256))
+    plans.update(tf.plan_training(get_config("qwen1.5-0.5b"), 4, 2048, loss_chunks=4))
+    dx = [s for key, s in plans.items() if key.endswith(".dx")]
+    assert len(dx) == 7
+    for s in dx:
+        assert s.algorithm == "direct"
+        assert s.block_dict() == dict(block_m=64, block_n=32, block_k=128)
+        assert s.vmem_bytes == mb.smem_bytes_nt(64, 32, 128) == 81_920
 
 
 # -- op parity -------------------------------------------------------------------

@@ -147,6 +147,61 @@ def test_wgrad_kernel_matches_plain_on_card(cuda, case):
     assert_close(got, want)
 
 
+# (B, H, d_in, d_out, S, block_h, block_do, block_di): pinned blocks that
+# reach each wgrad template -- the register kernel (F = 3, block_di a
+# multiple of 4, at most 256 thread items): conv0's 3 channels padded to 4,
+# a ragged stride-2 case (5 -> 13 channels, padded to 8 and 16), the
+# CNN's 16/64 blocks; the simple kernel: block_di 3, and 16 x 256/8 = 512
+# items.  Each runs a split sweep (one (d_i, d_o) pair, many steps).
+WGRAD_DISPATCH = [
+    (4, 16, 3, 64, 1, 8, 64, 8),
+    (3, 17, 5, 13, 2, 4, 16, 8),
+    (2, 16, 64, 128, 1, 4, 64, 16),
+    (2, 9, 5, 7, 1, 4, 8, 3),
+    (2, 8, 16, 256, 1, 4, 256, 16),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WGRAD_DISPATCH)
+def test_wgrad_templates_match_plain_and_repeat_bit_for_bit(cuda, case):
+    from repro_torch.kernels.conv2d.bwd import wgrad_operands
+
+    B, H, di, do, S, hb, bdo, bdi = case
+    rng = np.random.default_rng(9)
+    x, dy = _rand(rng, B, H, H, di), _rand(rng, B, (H - 1) // S + 1, (H - 1) // S + 1, do)
+    xp, gp, geo = wgrad_operands(x, dy, F=3, stride=S, padding=1, block_h=hb)
+    kw = dict(geo, block_do=bdo, block_di=bdi)
+    got = _launched(conv2d_wgrad_kernel,
+                    lambda: conv2d_wgrad_kernel(xp.to(cuda), gp.to(cuda), **kw))
+    again = conv2d_wgrad_kernel(xp.to(cuda), gp.to(cuda), **kw)
+    assert got.shape == (3, 3, di, do)
+    assert torch.equal(got, again)
+    assert_close(got, conv2d_wgrad_kernel(xp, gp, **kw))
+
+
+# (m, n, k, blocks): the register NT tile with a split N loop (one block,
+# eight steps), without one (a 132-block grid), and the simple kernel's
+# 8/16/16 blocks with a split.
+NT_DISPATCH = [
+    (64, 256, 128, (64, 32, 128)),
+    (768, 96, 1408, (64, 32, 128)),
+    (40, 80, 96, (8, 16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,blocks", NT_DISPATCH)
+def test_nt_templates_match_plain_and_repeat_bit_for_bit(cuda, m, n, k, blocks):
+    bm, bn, bk = blocks
+    rng = np.random.default_rng(10)
+    g, w = _rand(rng, m, n), _rand(rng, k, n, scale=n ** -0.5)
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    got = _launched(matmul_nt_kernel, lambda: matmul_nt_kernel(g.to(cuda), w.to(cuda), **kw))
+    assert torch.equal(got, matmul_nt_kernel(g.to(cuda), w.to(cuda), **kw))
+    assert_close(got, g.double() @ w.double().t())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_dgrad_matches_plain_on_card(cuda, case):
