@@ -13,7 +13,12 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              conv with and without the mask; the im2col strip GEMMs, fc1 and
              fc2 on the matmul) plus a ragged case each.  Tolerance: max |kernel - plain| <=
              1e-4 * max(1, max |plain|) in f32 (sums in another order); the
-             int8 mask must agree except at near-ties.
+             int8 mask must agree except at near-ties.  Each record names
+             the kernel template the launch took (conv: the register kernel's
+             pixel run and channel groups, or the simple kernel; matmul: the
+             register or simple kernel and the split of its K loop); the
+             conv1 forward (with its mask) and fc2 (split) are launched
+             twice and must give the same bits.
 3. forward — the planned cnn-vgg11 forward at full width, batch 256, with
              the default algorithm argmin, with every conv stage direct and
              with every conv stage im2col; logits against the plain forward
@@ -24,9 +29,10 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              and TN matmuls at fc1/fc2) and the fused dX/dW kernel at
              fc1/fc2 at batch 128, plus a ragged case each; phase-2
              tolerance.  Each wgrad and NT record names its split of the
-             contraction; wgrad at conv0 (split) and conv3 and NT at fc1 dX
-             (split) are launched twice and must give the same bits
-             (phase ``determinism``).
+             contraction, each dgrad record its template; wgrad at conv0
+             (split) and conv3, NT at fc1 dX (split) and the conv3 dgrad are
+             launched twice and must give the same bits (phase
+             ``determinism``).
 5. train   — the main path of this slice: the launcher
              (``repro_torch.launch.train --arch cnn-vgg11 --batch 256
              --steps 3 --planned-kernels``) with its launch counts against
@@ -61,15 +67,18 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              relative.  Peak device memory of each step, one at a time.
 8. times   — CUDA-event medians of each kernel at every forward and
              backward shape, beside its plain version, one library call and
-             the bound, with bound_share = bound_ms / ms (each wgrad record
+             the bound, with bound_share = bound_ms / ms and, for the conv
+             and matmul, the template (every main-path call must take the
+             register kernel) (each wgrad record
              also names the device kernels conv2d_weight runs, read with
              torch.profiler); the forward's and the training step's ms per batch
              and images/s; device time by kernel over a profiled forward
              and a profiled training step.  For the transformer: the flash
              kernel beside its plain version, scaled_dot_product_attention
              and its bound; matmul, NT and TN at the five GEMM shapes of the
-             step beside torch.matmul (NT at qkv launched twice first: the
-             same bits); the step's ms and tokens/s, planned
+             step beside torch.matmul (NT at qkv and the qkv forward
+             launched twice first: the same bits); the step's ms and
+             tokens/s, planned
              and plain; a profiled step.  The ``kernels`` line sums each
              kernel's calls over one planned training step — cnn-vgg11 at
              batch 256 (the fused dX/dW kernel: at batch 128), and for
@@ -463,7 +472,10 @@ def phase_kernels(torch, plans, cnn, cfg, results):
             emit(phase="kernels", kernel="conv2d", case=label, emit_mask=emit_mask,
                  shape=list(args[0].shape), out=list(got.shape), max_abs_err=err,
                  max_abs_plain=float(want.abs().max()), mask_differs=n_diff,
-                 near_ties=n_near)
+                 near_ties=n_near, **template_record("conv2d", args, kw))
+            if emit_mask and ("conv2d", label) in DETERMINISM:
+                check_bit_identical(torch, "conv2d", label,
+                                    lambda: conv2d_kernel(*args, **kw, emit_mask=True))
     for label, args, kw in matmul_cases(torch, plans, cnn, cfg):
         got = matmul_kernel(*args, **kw)
         want = matmul_plain(*args, **kw)
@@ -472,7 +484,10 @@ def phase_kernels(torch, plans, cnn, cfg, results):
         check(err <= TOL * scale(want), f"matmul {label}: err {err}")
         results["matmul"]["max_abs_err"] = max(results["matmul"]["max_abs_err"], err)
         emit(phase="kernels", kernel="matmul", case=label, shape=[list(a.shape) for a in args],
-             blocks=kw, max_abs_err=err, max_abs_plain=float(want.abs().max()))
+             blocks=kw, max_abs_err=err, max_abs_plain=float(want.abs().max()),
+             **template_record("matmul", args, kw))
+        if ("matmul", label) in DETERMINISM:
+            check_bit_identical(torch, "matmul", label, lambda: matmul_kernel(*args, **kw))
     # the odd plane's tail pool runs after the kernel, at the op level
     from repro_torch.kernels.conv2d.ops import conv2d
     from repro_torch.kernels.conv2d.ref import conv2d_fused_ref
@@ -521,12 +536,19 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
 
 def split_record(kernel, args, kw) -> dict:
     """The launch's split of its contraction (wgrad: the (batch, strip)
-    sweep; NT: the N loop) and its partial-slab bytes (traffic the
-    planner's modeled words do not count)."""
+    sweep; NT and the forward matmul: the N or K loop) and its
+    partial-slab bytes (traffic the planner's modeled words do not
+    count)."""
     from repro_torch.core.machine import h100_resident_blocks
     from repro_torch.kernels.conv2d import bwd as cb
     from repro_torch.kernels.matmul import bwd as mb
+    from repro_torch.kernels.matmul.matmul import mm_partial_bytes, mm_split
 
+    if kernel == "matmul":
+        (m, k), n = args[0].shape, args[1].shape[1]
+        blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
+        split = mm_split(m=m, n=n, k=k, **blocks)
+        return {"split": split, "partial_bytes": mm_partial_bytes(m=m, n=n, split=split)}
     if kernel == "matmul_nt":
         (m, n), k = args[0].shape, args[1].shape[0]
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
@@ -546,10 +568,31 @@ def split_record(kernel, args, kw) -> dict:
                                                     split=split)}
 
 
+def template_record(kernel, args, kw) -> dict:
+    """Which kernel template a conv2d or matmul launch takes: the conv's
+    register kernel with its pixel run and channel groups, or the simple
+    kernel; the matmul's register or simple kernel and its K split.  Both
+    are the choices the wrappers pass to the C entry points, which dispatch
+    on them."""
+    from repro_torch.kernels.conv2d.conv2d import register_layout
+    from repro_torch.kernels.matmul.matmul import template
+
+    if kernel == "matmul":
+        return dict(template=template(kw["block_m"], kw["block_n"], kw["block_k"]),
+                    **split_record(kernel, args, kw))
+    layout = register_layout(block_h=kw["block_h"], block_do=kw["block_do"],
+                                block_di=kw["block_di"], W_O=kw["W_O"],
+                                F=args[1].shape[0], S=kw["stride"])
+    return dict(template="register" if layout else "simple", layout=layout)
+
+
 # The calls whose two launches must give the same bits: a split and an
-# unsplit call of each kernel this PR redesigned.
+# unsplit call of each register kernel (wgrad, NT, the forward matmul) and
+# the direct conv's forward (with its mask) and dgrad.
 DETERMINISM = {("conv2d_wgrad", "conv0.wgrad"), ("conv2d_wgrad", "conv3.wgrad"),
-               ("matmul_nt", "fc1.dx"), ("matmul_nt", "qkv.dx")}
+               ("matmul_nt", "fc1.dx"), ("matmul_nt", "qkv.dx"),
+               ("matmul", "fc2"), ("matmul", "qkv"),
+               ("conv2d", "conv1"), ("conv2d", "conv3.dgrad")}
 DETERMINED: set = set()
 
 
@@ -558,7 +601,8 @@ def check_bit_identical(torch, kernel, label, fn, card=None) -> None:
     no atomics)."""
     a, b = fn(), fn()
     torch.cuda.synchronize()
-    same = bool(torch.equal(a, b))
+    pairs = zip(a, b) if isinstance(a, tuple) else [(a, b)]
+    same = all(bool(torch.equal(x, y)) for x, y in pairs)
     emit(phase="determinism", kernel=kernel, case=label, bit_identical=same,
          **({"card": card} if card else {}))
     check(same, f"{kernel} {label}: two launches differ")
@@ -581,6 +625,8 @@ def phase_bwd(torch, cnn, cfg, kernels, results):
                          schedule_words=meta.get("schedule_words"))
         elif kernel == "matmul_nt":
             extra = split_record(kernel, args, kw)
+        elif kernel == "conv2d":
+            extra = template_record(kernel, args, kw)
         emit(phase="bwd", kernel=kernel, case=label, shape=[list(a.shape) for a in args],
              blocks={b: v for b, v in kw.items() if b.startswith("block")}, max_abs_err=err,
              max_abs_plain=max(float(b.abs().max()) for _, b in pairs), **extra)
@@ -767,7 +813,7 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
     steps = {b: train_calls(cnn, cl, cfg, cnn.plan_training(cfg, b), b)
              for b in (BATCH, FUSED_BATCH)}
 
-    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes):
+    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, template=None):
         ms, plain_ms = median_ms(fn), median_ms(plain_fn)
         lib_ms = median_ms(lib_fn) if lib_fn is not None else None
         b_ms, b_by = bound_ms(flops, nbytes)
@@ -775,7 +821,11 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         call = dict(case=label, per_forward=main_path_launches(plans, name, label),
                     per_step=steps[batch].get((name, label), 0), step_batch=batch, ms=ms,
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    bound_share=b_ms / ms, flops=flops, bytes=nbytes, peaks=PEAKS)
+                    bound_share=b_ms / ms, **(template or {}), flops=flops, bytes=nbytes,
+                    peaks=PEAKS)
+        if template and (call["per_forward"] or call["per_step"]):
+            check(template["template"] == "register",
+                  f"{name} {label}: a main-path call runs the {template['template']} kernel")
         if name == "conv2d_wgrad":  # what algorithm the yardstick runs
             call["library_kernels"] = library_kernels(torch, lib_fn)
         results[name]["calls"].append(call)
@@ -794,7 +844,7 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         record("conv2d", label, lambda: conv2d_kernel(x, f, bias, **kw),
                lambda: conv2d_fused_plain(x, f, bias, **kw),
                lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, bias, padding=1)), 2),
-               flops, nbytes)
+               flops, nbytes, template_record("conv2d", (x, f, bias), kw))
     for label, (a, w), kw in matmul_cases(torch, plans, cnn, cfg):
         if label == "ragged":
             continue
@@ -802,13 +852,15 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         n = w.shape[1]
         record("matmul", label, lambda: matmul_kernel(a, w, **kw),
                lambda: matmul_plain(a, w, **kw), lambda: torch.matmul(a, w),
-               2.0 * m * n * k, 4.0 * (m * k + k * n + m * n))
+               2.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
+               template_record("matmul", (a, w), kw))
     for name, label, args, kw, meta in bwd_cases(torch, cnn, cfg):
         if label.startswith("ragged"):
             continue
         k = kernels[name]
         record(name, label, lambda: k(*args, **kw), lambda: k.plain(*args, **kw),
-               meta["lib"], meta["flops"], meta["nbytes"])
+               meta["lib"], meta["flops"], meta["nbytes"],
+               template_record(name, args, kw) if name == "conv2d" else None)
 
     with torch.no_grad():
         fwd = {alg: median_ms(lambda: cnn.forward(cfg, params, images, schedules=plans[alg]),
@@ -1152,7 +1204,7 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
     calls = tfm_calls(tf, cfg, plans)
     step_batch = f"{TFM_BATCH}x{TFM_SEQ}"
 
-    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, reps=10):
+    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, reps=10, template=None):
         # Each call is first held against its plain version on the same
         # operands: these are the step's own shapes, not the cnn's.
         outs, refs = fn(), plain_fn()
@@ -1169,7 +1221,11 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
         call = dict(case=label, per_step=calls.get((name, label), 0), step_batch=step_batch,
                     max_abs_err=err, tolerance=tol, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                    bound_share=b_ms / ms, flops=flops, bytes=nbytes, peaks=PEAKS)
+                    bound_share=b_ms / ms, **(template or {}), flops=flops, bytes=nbytes,
+                    peaks=PEAKS)
+        if template and call["per_step"]:
+            check(template["template"] == "register",
+                  f"{name} {label}: a main-path call runs the {template['template']} kernel")
         results[name]["tfm_calls"].append(call)
         emit(phase="times", kernel=name, card=card, **call)
 
@@ -1225,7 +1281,8 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
             record(name, label, lambda kern=kern, args=args, b=b: kern(*args, **b),
                    lambda kern=kern, args=args, b=b: kern.plain(*args, **b), lib,
                    2 * flops if name == "matmul_dx_dw" else flops, nbytes,
-                   reps=3 if cell == "logits" else 5)
+                   reps=3 if cell == "logits" else 5,
+                   template=template_record(name, args, b) if name == "matmul" else None)
             del xp, wp, gp, args
         del x, w, dy, runs
         torch.cuda.empty_cache()

@@ -5,7 +5,9 @@ Replaces ``repro/kernels/conv2d/conv2d.py::_conv_kernel``: batched,
 strip-tiled stacked direct conv (Algs 1/2) with bias, ReLU, the
 ``pool x pool`` max-pool and the optional int8 mask fused into the flush.
 One thread block per (image, strip, output stack); the d_in grid axis is a
-loop inside the block.
+loop inside the block.  At F = 3, stride 1 (every main-path conv and
+dgrad) the output tile lives in registers (:func:`register_layout`); other
+geometries run the simple kernel.
 """
 
 from __future__ import annotations
@@ -20,6 +22,8 @@ from repro_torch.plan.registry import CudaKernel
 
 LANE = 8  # output channels of one thread item
 MAX_GRID_YZ = 65535  # strips and images ride the grid's y and z axes
+THREADS = 256  # one thread block
+REGISTER_RUNS = (4, 8, 16)  # pixels along a row of one register-kernel item
 
 
 def smem_bytes(*, block_h: int, block_do: int, block_di: int, W_O: int,
@@ -30,6 +34,26 @@ def smem_bytes(*, block_h: int, block_do: int, block_di: int, W_O: int,
     h_halo, w_str = (block_h - 1) * S + F, (W_O - 1) * S + F
     return 4 * (block_h * W_O * block_do
                 + 2 * (h_halo * w_str * block_di + F * F * block_di * block_do))
+
+
+def register_layout(*, block_h: int, block_do: int, block_di: int, W_O: int,
+                    F: int, S: int) -> dict | None:
+    """How the register kernel lays a block's tile over its 256 threads, or
+    None where the simple kernel runs it.  The register kernel takes F = 3,
+    stride 1, a multiple-of-8 output stack and ``block_di`` = 4 * 2^j; a
+    thread item is ``run`` output pixels along a row x 8 channels, ``run``
+    the shortest of :data:`REGISTER_RUNS` that divides W_O and brings the
+    items to at most 256; ``groups`` = 256 // items channel groups share
+    each d_in step's channels."""
+    q = block_di // 4
+    if (F != 3 or S != 1 or block_do % LANE or block_di % 4 or q < 1
+            or q & (q - 1)):
+        return None
+    for run in REGISTER_RUNS:
+        items = (block_h * W_O // run) * (block_do // LANE)
+        if W_O % run == 0 and items <= THREADS:
+            return dict(run=run, items=items, groups=THREADS // items)
+    return None
 
 
 def supported_blocks(*, block_h: int, block_do: int, block_di: int, W_O: int,
@@ -113,16 +137,18 @@ def _launch(kernel: CudaKernel, x_pad, f, bias, *, stride: int, block_h: int,
     shape = (B, n_h * block_h // pool, W_O // pool, d_out)
     out = torch.empty(shape, dtype=torch.float32, device=x_pad.device)
     mask = torch.empty(shape, dtype=torch.int8, device=x_pad.device) if emit_mask else None
+    layout = register_layout(block_h=block_h, block_do=block_do, block_di=block_di,
+                             W_O=W_O, F=Fk, S=stride)
     kernel.run(ctypes.c_void_p(x_pad.data_ptr()), ctypes.c_void_p(f.data_ptr()),
                ctypes.c_void_p(bias.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                ctypes.c_void_p(mask.data_ptr() if emit_mask else None),
                B, H_in, W_in, d_in, d_out, Fk, stride, W_O, n_h, block_h,
-               block_di, block_do, int(relu), pool)
+               block_di, block_do, int(relu), pool, layout["run"] if layout else 0)
     return (out, mask) if emit_mask else out
 
 
 conv2d_kernel = CudaKernel(
     "conv2d", source="conv2d", symbol="repro_conv2d_fused_f32",
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 14 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
     launch=_launch, plain=conv2d_fused_plain,
 )

@@ -1,28 +1,48 @@
 // Blocked f32 matmul O[M,N] = X[M,K] . W[K,N] for the H100 (sm_90a).
 //
 // Replaces: src/repro/kernels/matmul/matmul.py::_mm_kernel (matmul_pallas),
-// the FC forward of the CNN and the GEMM core of the im2col conv.
+// the FC forward of the CNN, the GEMM core of the im2col conv and every
+// forward GEMM of the transformer step.
 //
 // What bounds it here: at the main path's shapes (fc1 256x2048x4096, fc2
-// 256x4096x1000, im2col strips with K = 9*d_in) the arithmetic intensity
-// is well above the card's f32 balance point (67 TFLOP/s over 3.35 TB/s,
-// about 20 flop/B), so the bound is f32 operations.  This first kernel
-// issues plain FMAs on the CUDA cores (no tensor cores), so 67 TFLOP/s is
-// its ceiling; what keeps it below that is shared-memory bandwidth and
-// too few thread blocks on small grids.
+// 256x4096x1000, im2col strips with K = 9*d_in, the transformer's M = 8192
+// and logits 2048x1024x151936) the arithmetic intensity is well above the
+// card's f32 balance point (67 TFLOP/s over 3.35 TB/s, about 20 flop/B),
+// so the bound is f32 operations on the CUDA cores (no tensor cores). What
+// keeps a kernel below it is shared-memory traffic per FMA, bank conflicts,
+// and grids under one wave of SMs.
 //
-// Design: one thread block (256 threads) owns one bm x bn output tile —
-// the Pallas kernel's (i, j) grid point.  The sequential K grid axis of the
-// TPU kernel becomes a loop inside the block: each bk-deep step stages an
-// X tile [bm][bk] and a W tile [bk][bn] in shared memory with cp.async,
-// two stages deep, so the next step's copy overlaps this step's FMAs.  The
-// f32 accumulator tile [bm][bn] also lives in shared memory for the whole
-// loop (the Pallas acc_ref) and is written to O once.  Registers hold one
-// 4 x 8 item of partial sums per thread for one step: each step reads X and
-// W from shared memory once per item and adds its 32 sums into the
-// accumulator once, so the accumulator costs one read-modify-write per bk
-// FMAs.  The planner's H100 budget (core/machine.py) is exactly these
-// shared-memory bytes: 4 * (bm*bn + 2*(bm*bk + bk*bn)).
+// At the planner's tile (bm 64, bn 128, bk 32; every forward GEMM of both
+// training steps), mm_reg_kernel:
+//   * Registers. 256 threads, each a 4 x 8 tile of O (rows mi*4..+3,
+//     columns kj*4..+3 and 64+kj*4..+3) in registers for the block's whole
+//     K loop. Per contraction index it reads three float4s from shared
+//     memory for 32 FMAs; a warp's reads are four X chunks and two runs of
+//     eight W chunks, each within one 128-byte line.
+//   * Staging. X has K, the contraction, along its row, so its tile is
+//     transposed on the way in: each thread loads two float4s of X rows
+//     from device memory (eight threads cover one 128-byte run of a row)
+//     into registers during the current step's FMAs and writes them
+//     contraction-major, xs[bk][bm], with the row XOR-swizzled by
+//     ((k >> 2) & 7) << 2: the 32 scalar stores of a warp land in 32
+//     distinct banks and the float4 reads stay whole. W's tile [bk][bn] is
+//     contraction-major already and goes in as it lies, with 16-byte
+//     cp.async. The charged [bm][bn] accumulator region is free until the
+//     epilogue, so the whole allocation holds a ring of three stages: W's
+//     copies run two steps ahead, X's one, with one barrier a step.
+//   * Epilogue. The register tiles go to the first bm*bn floats of the
+//     allocation and leave as coalesced 16-byte stores.
+//   * Small grids. Where the (n, m) grid is under one wave of SMs (fc1,
+//     fc2), the K loop is split over a number of blocks fixed by the shapes
+//     (matmul.py::mm_split); each writes a partial f32 slab and a second
+//     kernel sums the slabs in order, so the result is the same on every
+//     run.
+// The wrapper picks the kernel (matmul.py::template) and passes it in `reg`;
+// other tiles run mm_simple_kernel (the first port's kernel, with the same
+// split): a 4 x 8 register item a step, the f32 accumulator tile [bm][bn]
+// in shared memory, X and W staged as they lie with cp.async, two stages
+// deep. Shared memory per block is exactly the planner's H100 budget term:
+// 4 * (bm*bn + 2*(bm*bk + bk*bn)).
 //
 // Contract (checked by the Python wrapper): M, N, K multiples of bm, bn, bk;
 // bm, bn, bk multiples of 8; 16-byte aligned, contiguous row-major operands.
@@ -47,6 +67,132 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The K steps [t0, t1) of split part blockIdx.z.
+__device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int* t1) {
+  *t0 = (int)((long long)blockIdx.z * n_steps / split);
+  *t1 = (int)((long long)(blockIdx.z + 1) * n_steps / split);
+}
+
+// ---------------------------------------------------------------------------
+// The register kernel: see the header.
+// ---------------------------------------------------------------------------
+
+constexpr int kBM = 64, kBN = 128, kBK = 32, kStages = 3;
+constexpr int kXs = kBK * kBM, kWs = kBK * kBN, kStage = kXs + kWs;
+
+__device__ __forceinline__ int k_swz(int k) { return ((k >> 2) & 7) << 2; }
+
+__global__ void __launch_bounds__(kThreads, 2)
+    mm_reg_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                  float* __restrict__ O, int M, int N, int K, int split) {
+  extern __shared__ __align__(16) float smem[];
+  // Stage s: xs[bk][bm] (swizzled) at smem + s*kStage, ws[bk][bn] after it.
+  const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: rows mi*4..+3
+  const int kj = (warp & 1) * 8 + (lane & 7);    // 0..15: cols kj*4.., 64+kj*4..
+  int t0, t1;
+  split_share(K / kBK, split, &t0, &t1);
+  const int n_t = t1 - t0;
+
+  // X loader roles: rows lr and lr+32 of the tile, float4 column lc.
+  const int lr = tid >> 3, lc = tid & 7;
+  const float* xsrc = X + (size_t)(m0 + lr) * K + lc * 4;
+  float4 rx[2];
+  auto load_x = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rx[i] = __ldg(reinterpret_cast<const float4*>(xsrc + (size_t)i * 32 * K + t * kBK));
+  };
+  auto store_x = [&](int s) {
+    float* xs = smem + s * kStage;
+    const int sw = lc << 2;  // k_swz(k) for k = lc*4 + j
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const int c = (lr + 32 * i) ^ sw;
+      xs[(lc * 4 + 0) * kBM + c] = rx[i].x;
+      xs[(lc * 4 + 1) * kBM + c] = rx[i].y;
+      xs[(lc * 4 + 2) * kBM + c] = rx[i].z;
+      xs[(lc * 4 + 3) * kBM + c] = rx[i].w;
+    }
+  };
+  auto stage_w = [&](int t, int s) {
+    float* ws = smem + s * kStage + kXs;
+    const float* src = W + (size_t)t * kBK * N + n0;
+#pragma unroll
+    for (int i = 0; i < kWs / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads, r = e >> 5, c4 = e & 31;
+      cp_async16(ws + r * kBN + c4 * 4, src + (size_t)r * N + c4 * 4);
+    }
+  };
+
+  float r[kTM][kTN];
+#pragma unroll
+  for (int i = 0; i < kTM; ++i)
+#pragma unroll
+    for (int j = 0; j < kTN; ++j) r[i][j] = 0.f;
+
+  if (n_t > 0) stage_w(t0, 0);
+  cp_async_commit();
+  if (n_t > 1) stage_w(t0 + 1, 1);
+  cp_async_commit();
+  if (n_t > 0) {
+    load_x(t0);
+    store_x(0);
+  }
+  cp_async_wait<1>();
+  __syncthreads();
+  int s = 0;  // the stage of step i; the ring is kStages deep
+  for (int i = 0; i < n_t; ++i) {
+    const int s1 = s + 1 == kStages ? 0 : s + 1, s2 = s1 + 1 == kStages ? 0 : s1 + 1;
+    if (i + 2 < n_t) stage_w(t0 + i + 2, s2);
+    cp_async_commit();
+    if (i + 1 < n_t) load_x(t0 + i + 1);  // in flight during this step's FMAs
+    const float* xs = smem + s * kStage;
+    const float* ws = xs + kXs;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      const int sw = k_swz(kk);
+      const float4 a = *reinterpret_cast<const float4*>(xs + kk * kBM + ((mi * 4) ^ sw));
+      const float4 b0 = *reinterpret_cast<const float4*>(ws + kk * kBN + kj * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(ws + kk * kBN + 64 + kj * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int ii = 0; ii < kTM; ++ii)
+#pragma unroll
+        for (int j = 0; j < kTN; ++j) r[ii][j] = fmaf(av[ii], bv[j], r[ii][j]);
+    }
+    if (i + 1 < n_t) store_x(s1);
+    cp_async_wait<1>();  // step i+1's W has landed; step i+2's may be in flight
+    __syncthreads();
+    s = s1;
+  }
+  cp_async_wait<0>();
+
+  // Registers -> the first bm*bn floats -> 16-byte stores of the O tile (or
+  // of this part's slab).
+  float* acc = smem;
+#pragma unroll
+  for (int i = 0; i < kTM; ++i) {
+    float* row = acc + (mi * kTM + i) * kBN;
+    *reinterpret_cast<float4*>(row + kj * 4) = make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + kj * 4) =
+        make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
+  }
+  __syncthreads();
+  float* out = O + (size_t)blockIdx.z * M * N;
+  for (int e = tid; e < kBM * kBN / 4; e += kThreads) {
+    const int row = e / (kBN / 4), c4 = e % (kBN / 4);
+    *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * N + n0 + c4 * 4) =
+        *reinterpret_cast<const float4*>(acc + row * kBN + c4 * 4);
+  }
+}
+
+// ---------------------------------------------------------------------------
+// The simple kernel: any blocks (shared-memory accumulator)
+// ---------------------------------------------------------------------------
+
 // Stage one K step: X[m0:m0+bm, k0:k0+bk] -> xs[bm][bk] and
 // W[k0:k0+bk, n0:n0+bn] -> ws[bk][bn], 16 bytes per copy.
 __device__ __forceinline__ void load_step(const float* __restrict__ X,
@@ -67,23 +213,25 @@ __device__ __forceinline__ void load_step(const float* __restrict__ X,
 }
 
 __global__ void __launch_bounds__(kThreads)
-    mm_f32_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                  float* __restrict__ O, int N, int K, int bm, int bn, int bk) {
+    mm_simple_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                     float* __restrict__ O, int M, int N, int K, int bm, int bn,
+                     int bk, int split) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;               // [bm][bn] f32 accumulator
   float* xs = acc + bm * bn;       // 2 stages of [bm][bk]
   float* ws = xs + 2 * bm * bk;    // 2 stages of [bk][bn]
   const int m0 = blockIdx.y * bm, n0 = blockIdx.x * bn;
   const int half = bn / 2, groups = bn / kTN, items = (bm / kTM) * groups;
-  const int n_k = K / bk;
+  int t0, t1;
+  split_share(K / bk, split, &t0, &t1);
 
   for (int e = threadIdx.x; e < bm * bn; e += kThreads) acc[e] = 0.f;
-  load_step(X, W, xs, ws, K, N, m0, n0, 0, bm, bn, bk);
+  if (t0 < t1) load_step(X, W, xs, ws, K, N, m0, n0, t0 * bk, bm, bn, bk);
   cp_async_commit();
 
-  for (int t = 0; t < n_k; ++t) {
-    const int s = t & 1;
-    if (t + 1 < n_k) {
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) {
       load_step(X, W, xs + (s ^ 1) * bm * bk, ws + (s ^ 1) * bk * bn, K, N,
                 m0, n0, (t + 1) * bk, bm, bn, bk);
       cp_async_commit();
@@ -134,10 +282,31 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
+  float* out = O + (size_t)blockIdx.z * M * N;
   for (int e = threadIdx.x; e < bm * bn; e += kThreads) {
     const int r = e / bn, c = e % bn;
-    O[(size_t)(m0 + r) * N + n0 + c] = acc[e];
+    out[(size_t)(m0 + r) * N + n0 + c] = acc[e];
   }
+}
+
+// out[i] = sum over s of part[s][i], s in order, four floats a thread.
+__global__ void __launch_bounds__(kThreads)
+    reduce_slabs_kernel(const float4* __restrict__ part, float4* __restrict__ out,
+                        size_t n4, int split) {
+  for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
+       i += (size_t)gridDim.x * kThreads) {
+    float4 v = part[i];
+    for (int s = 1; s < split; ++s) {
+      const float4 p = part[(size_t)s * n4 + i];
+      v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
+    }
+    out[i] = v;
+  }
+}
+
+cudaError_t set_smem(const void* fn, size_t bytes) {
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)bytes);
 }
 
 }  // namespace
@@ -148,17 +317,38 @@ const char* repro_error_string(int err) {
   return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
-// Launch on `stream`; returns cudaGetLastError() (0 on success).
-int repro_matmul_f32(const float* X, const float* W, float* O, int M, int N,
-                     int K, int bm, int bn, int bk, void* stream) {
+// Launch on `stream` over a grid of (N/bn, M/bm, split); with split > 1
+// `part` holds split slabs of M*N floats and a second kernel sums them into
+// O in order. `reg` (from matmul.py::template) selects mm_reg_kernel, which
+// takes only its own tile, 0 the simple kernel. Returns cudaGetLastError()
+// (0 on success).
+int repro_matmul_f32(const float* X, const float* W, float* O, float* part, int M,
+                     int N, int K, int bm, int bn, int bk, int split, int reg,
+                     void* stream) {
   const size_t smem =
       sizeof(float) * ((size_t)bm * bn + 2 * ((size_t)bm * bk + (size_t)bk * bn));
-  cudaError_t err = cudaFuncSetAttribute(
-      mm_f32_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / bn, M / bm);
-  mm_f32_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, W, O, N, K, bm, bn, bk);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N / bn, M / bm, split);
+  float* dst = split > 1 ? part : O;
+  cudaError_t err;
+  if (reg) {
+    if (bm != kBM || bn != kBN || bk != kBK) return (int)cudaErrorInvalidValue;
+    static_assert(kStages * kStage <= kBM * kBN + 2 * kStage,
+                  "the ring must fit the charged allocation");
+    err = set_smem((const void*)mm_reg_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_reg_kernel<<<grid, kThreads, smem, st>>>(X, W, dst, M, N, K, split);
+  } else {
+    err = set_smem((const void*)mm_simple_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_simple_kernel<<<grid, kThreads, smem, st>>>(X, W, dst, M, N, K, bm, bn, bk, split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t n4 = (size_t)M * N / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(O), n4, split);
   return (int)cudaGetLastError();
 }
 

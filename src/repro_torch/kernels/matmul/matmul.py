@@ -3,9 +3,13 @@ plain version.
 
 Replaces ``repro/kernels/matmul/matmul.py::_mm_kernel``: one thread block
 per ``block_m x block_n`` output tile, the K grid axis as a loop inside
-the block over ``block_k`` steps staged in shared memory, an f32
-accumulator tile written once.  Operands must already be multiples of the
-blocks (``ops.fc_matmul`` pads and slices).
+the block over ``block_k`` steps staged in shared memory, the output tile
+written once.  At the planner's tile (:data:`REGISTER_TILE`) the tile lives
+in registers; other tiles run the simple kernel.  Where the (n, m) grid is
+under one wave of SMs the K loop is split over a number of blocks fixed by
+the shapes (:func:`mm_split`) and the partial slabs are summed in a fixed
+order.  Operands must already be multiples of the blocks
+(``ops.fc_matmul`` pads and slices).
 """
 
 from __future__ import annotations
@@ -14,17 +18,43 @@ import ctypes
 
 import torch
 
-from repro_torch.core.machine import H100
+from repro_torch.core.machine import H100, h100_resident_blocks
 from repro_torch.plan.registry import CudaKernel
 
 LANE = 8  # the kernel's column group (two float4 runs per thread item)
-MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis
+MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis, the split its z axis
+REGISTER_TILE = (64, 128, 32)  # (block_m, block_n, block_k) of mm_reg_kernel
 
 
 def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
     """Shared memory one block allocates: the f32 accumulator tile and two
     stages of the X and W tiles (== MatmulPlanner's H100 budget term)."""
     return 4 * (block_m * block_n + 2 * (block_m * block_k + block_k * block_n))
+
+
+def template(block_m: int, block_n: int, block_k: int) -> str:
+    """Which kernel a launch with these blocks runs: "register" at
+    :data:`REGISTER_TILE`, else "simple".  The launch passes this choice
+    to the C entry point, which dispatches on it."""
+    return "register" if (block_m, block_n, block_k) == REGISTER_TILE else "simple"
+
+
+def mm_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+    """Thread blocks that share each output tile's K loop: 1 where the
+    (n, m) grid fills one wave of the card's SMs, else as many as fill the
+    resident block slots (two a SM where two blocks' shared memory fits),
+    never more than the loop has steps.  A function of the shapes alone, so
+    the order of the partial sums (and the result) never changes."""
+    grid = (m // block_m) * (n // block_n)
+    if grid >= H100.units:
+        return 1
+    slots = h100_resident_blocks(smem_bytes(block_m, block_n, block_k)) * H100.units
+    return max(1, min(k // block_k, slots // grid, MAX_GRID_Y))
+
+
+def mm_partial_bytes(*, m: int, n: int, split: int) -> int:
+    """Device memory of the partial f32 slabs (0 without a split)."""
+    return 4 * split * m * n if split > 1 else 0
 
 
 def supported_blocks(block_m: int, block_n: int, block_k: int) -> bool:
@@ -65,14 +95,20 @@ def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: in
             raise ValueError(f"matmul kernel needs a 16-byte aligned {name}")
     if m // block_m > MAX_GRID_Y:
         raise ValueError(f"matmul M/block_m = {m // block_m} exceeds the grid")
+    split = mm_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
     out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    part = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
+            if split > 1 else None)
     kernel.run(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
-               ctypes.c_void_p(out.data_ptr()), m, n, k, block_m, block_n, block_k)
+               ctypes.c_void_p(out.data_ptr()),
+               ctypes.c_void_p(part.data_ptr() if part is not None else None),
+               m, n, k, block_m, block_n, block_k, split,
+               int(template(block_m, block_n, block_k) == "register"))
     return out
 
 
 matmul_kernel = CudaKernel(
     "matmul", source="matmul", symbol="repro_matmul_f32",
-    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch, plain=matmul_plain,
 )

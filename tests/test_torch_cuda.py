@@ -112,6 +112,98 @@ def test_mask_matches_plain_on_card(cuda, pool):
     assert torch.equal(mask.cpu(), want_mask)
 
 
+# (m, k, n, blocks): the register tile at fc1 (K split 2), fc2 (split 8),
+# conv3's im2col strip and two transformer shapes (unsplit); the simple
+# kernel at conv0's im2col tile and a ragged 8/16/16 one.
+MM_DISPATCH = [
+    (256, 2048, 4096, (64, 128, 32)),
+    (256, 4096, 1024, (64, 128, 32)),
+    (4096, 2304, 512, (64, 128, 32)),
+    (8192, 1024, 3072, (64, 128, 32)),
+    (8192, 2816, 1024, (64, 128, 32)),
+    (4096, 32, 64, (64, 64, 32)),
+    (40, 96, 80, (8, 16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,blocks", MM_DISPATCH)
+def test_matmul_templates_match_plain_and_repeat_bit_for_bit(cuda, m, k, n, blocks):
+    from repro_torch.kernels.matmul.matmul import matmul_plain
+
+    bm, bn, bk = blocks
+    rng = np.random.default_rng(11)
+    x, w = _rand(rng, m, k).to(cuda), _rand(rng, k, n, scale=k ** -0.5).to(cuda)
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    got = _launched(matmul_kernel, lambda: matmul_kernel(x, w, **kw))
+    assert torch.equal(got, matmul_kernel(x, w, **kw))
+    want = matmul_plain(x, w, **kw)
+    err = float((got - want).abs().max())
+    assert err <= TOL * max(1.0, float(want.abs().max())), err
+
+
+# (B, H, d_in, d_out, block_h, block_do, block_di, stride, pool, dgrad,
+# template): the main-path geometries at batch 2 with the planner's blocks —
+# conv0-2 forward (runs of 16, 8 and 4 pixels; conv0's 3 channels by 4-byte
+# copies), the all-direct plan's conv3, the dgrad of conv1-3 (conv3's 4 x 4
+# plane: 8 channel groups) — then ragged channels on the register kernel
+# (12 -> 20 over stacks of 16: 16-byte copies; 5 -> 7: 4-byte copies) and
+# two shapes that take the simple kernel (stride 2; an odd 9-wide plane).
+CONV_DISPATCH = [
+    (2, 32, 3, 64, 16, 64, 8, 1, 2, False, "register"),
+    (2, 16, 64, 128, 16, 64, 16, 1, 2, False, "register"),
+    (2, 8, 128, 256, 8, 64, 16, 1, 2, False, "register"),
+    (2, 4, 256, 512, 4, 64, 16, 1, 2, False, "register"),
+    (2, 16, 64, 128, 16, 64, 16, 1, 1, True, "register"),
+    (2, 8, 128, 256, 8, 64, 16, 1, 1, True, "register"),
+    (2, 4, 256, 512, 4, 64, 16, 1, 1, True, "register"),
+    (3, 8, 12, 20, 4, 16, 8, 1, 2, False, "register"),
+    (2, 8, 5, 7, 8, 8, 4, 1, 1, False, "register"),
+    (3, 17, 5, 13, 4, 16, 8, 2, 1, False, "simple"),
+    (2, 9, 5, 7, 4, 8, 8, 1, 1, False, "simple"),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CONV_DISPATCH)
+def test_conv_templates_match_plain_bit_for_bit(cuda, case):
+    """Small-integer operands sum exactly in f32, so the kernel's output and
+    mask (ties and dead windows included) must equal the plain version's on
+    the CPU bit for bit, and two launches must agree too."""
+    from repro_torch.kernels.conv2d.bwd import dgrad_operands
+    from repro_torch.kernels.conv2d.conv2d import conv2d_kernel, register_layout
+
+    B, H, di, do, hb, bdo, bdi, S, pool, dgrad, want_template = case
+    rng = np.random.default_rng(12)
+
+    def ints(lo, hi, *shape):
+        return torch.from_numpy(rng.integers(lo, hi + 1, shape).astype(np.float32))
+
+    if dgrad:
+        dy, f = ints(-2, 2, B, H, H, do), ints(-1, 1, 3, 3, di, do)
+        *args, kw = dgrad_operands(dy, f, stride=1, padding=1, out_hw=(H, H), block_h=hb)
+        kw = dict(kw, block_do=bdo, block_di=bdi)
+    else:
+        H_O = (H - 1) // S + 1
+        n_h = -(-H_O // hb)
+        pad_b = 1 + max(0, (n_h * hb - 1) * S + 3 - (H + 2))
+        x = torch.nn.functional.pad(ints(-2, 2, B, H, H, di), (0, 0, 1, 1, 1, pad_b))
+        args = [x.contiguous(), ints(-1, 1, 3, 3, di, do), ints(-1, 1, do)]
+        kw = dict(stride=S, block_h=hb, block_do=bdo, block_di=bdi, H_O=H_O, W_O=H_O,
+                  relu=True, pool=pool, emit_mask=True)
+    layout = register_layout(block_h=kw["block_h"], block_do=bdo, block_di=bdi,
+                             W_O=kw["W_O"], F=3, S=kw["stride"])
+    assert ("register" if layout else "simple") == want_template
+    on_card = [a.to(cuda) for a in args]
+    got = _launched(conv2d_kernel, lambda: conv2d_kernel(*on_card, **kw))
+    again = conv2d_kernel(*on_card, **kw)
+    want = conv2d_kernel.plain(*args, **kw)
+    got, again, want = ((t,) if isinstance(t, torch.Tensor) else t for t in (got, again, want))
+    for g, a, w in zip(got, again, want):
+        assert torch.equal(g, a)
+        assert torch.equal(g.cpu(), w)
+
+
 # -- planned backward ---------------------------------------------------------------
 
 # (B, H, d_in, d_out, F, S, P, block_h): odd channels, strides, ragged strips

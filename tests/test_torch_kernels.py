@@ -15,6 +15,8 @@ the two sum in different orders.  (``test_torch_cuda.py`` holds the kernels
 themselves against their plain versions on the card.)
 """
 
+import importlib
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -31,6 +33,8 @@ from repro_torch.kernels.matmul import fc_matmul, matmul_kernel
 from repro_torch.plan.registry import CudaKernel
 
 TOL = 1e-5
+ck = importlib.import_module("repro_torch.kernels.conv2d.conv2d")
+mm = importlib.import_module("repro_torch.kernels.matmul.matmul")
 
 
 def assert_close(got, want, tol=TOL):
@@ -240,3 +244,153 @@ def test_kernel_refuses_other_devices_and_mixed_operands():
     with pytest.raises(ValueError, match="more than one device"):
         k(torch.zeros(1), torch.zeros(1, device="meta"))
     assert k.launches == 0
+
+
+# -- the register kernels: layouts, the forward split, the launch arguments ------
+
+# (m, n, k) of forward matmul calls at the H100 pick (64, 128, 32): the split
+# of the K loop.  cnn-vgg11's fc1 and fc2 at batch 256 run 128 and 32 blocks,
+# under one wave of 132 SMs; conv3's im2col strip (batch 256 x 4 x 4 rows,
+# K = 9 x 256) and the transformer's shapes fill one wave or more.
+MM_SPLITS = [
+    ((256, 4096, 2048), 2),     # fc1
+    ((256, 1024, 4096), 8),     # fc2 (N = 1000 padded to 1024)
+    ((4096, 512, 2304), 1),     # conv3 im2col strip
+    ((8192, 3072, 1024), 1),    # qkv
+    ((8192, 1024, 1024), 1),    # wo
+    ((8192, 5632, 1024), 1),    # mlp_up
+    ((8192, 1024, 2816), 1),    # mlp_down
+    ((2048, 151936, 1024), 1),  # logits chunk
+    ((64, 128, 64), 2),         # one block, two K steps
+]
+
+
+@pytest.mark.parametrize("mnk,want", MM_SPLITS)
+def test_mm_split_fills_one_wave_and_is_fixed_by_shapes(mnk, want):
+    from repro_torch.core import machine as tm
+
+    m, n, k = mnk
+    kw = dict(m=m, n=n, k=k, block_m=64, block_n=128, block_k=32)
+    assert mm.mm_split(**kw) == want == mm.mm_split(**kw)
+    grid = (m // 64) * (n // 128)
+    assert tm.h100_resident_blocks(mm.smem_bytes(64, 128, 32)) == 2
+    assert want == 1 or (grid < tm.H100.units and grid * want <= 2 * tm.H100.units)
+    assert want <= k // 32
+    assert mm.mm_partial_bytes(m=m, n=n, split=want) == (4 * want * m * n if want > 1 else 0)
+
+
+def _main_path_forward_picks():
+    """(label, schedule, x_shape) of every forward matmul and direct conv
+    and every dgrad schedule of both training steps and the CNN's forward
+    plans (default and all-direct)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import cnn
+    from repro_torch.models import transformer as tf
+
+    cfg = get_config("cnn-vgg11")
+    geo = {n: x for n, x, _ in cnn._stage_geometry(cfg, 256)}
+    picks = []
+    for tag, plans in (("train", cnn.plan_training(cfg, 256)),
+                       ("default", cnn.plan_forward(cfg, 256)),
+                       ("direct", cnn.plan_forward(cfg, 256, conv_algorithm="direct"))):
+        for key, s in plans.items():
+            stage, _, role = key.partition(".")
+            if role in ("", "dgrad"):
+                picks.append((f"{tag}:{key}", s, geo[stage]))
+    for key, s in tf.plan_training(get_config("qwen1.5-0.5b"), 4, 2048,
+                                   loss_chunks=4).items():
+        if "." not in key and key != "attn":
+            picks.append((f"qwen:{key}", s, None))
+    return picks
+
+
+def test_main_path_picks_take_the_register_kernels_at_the_charged_bytes():
+    """Every forward matmul, direct conv and dgrad pick of the main paths runs
+    a register kernel whose shared memory is exactly the planner's
+    vmem_bytes; the conv layouts fill all 256 threads."""
+
+    picks = _main_path_forward_picks()
+    assert len(picks) == 27
+    for label, s, x_shape in picks:
+        b = s.block_dict()
+        if "block_m" in b:
+            blocks = (b["block_m"], b["block_n"], b["block_k"])
+            assert mm.smem_bytes(*blocks) == s.vmem_bytes, label
+            assert mm.template(*blocks) == "register", label
+            continue
+        geo = dict(block_h=b["block_h"], block_do=b["block_do"], block_di=b["block_di"],
+                   W_O=x_shape[2], F=3, S=1)
+        assert ck.smem_bytes(**geo) == s.vmem_bytes, label
+        layout = ck.register_layout(**geo)
+        assert layout is not None, label
+        assert layout["items"] * layout["groups"] == 256, label
+
+
+@pytest.mark.parametrize("geo,want", [
+    (dict(block_h=4, block_do=64, block_di=16, W_O=4), dict(run=4, items=32, groups=8)),
+    (dict(block_h=8, block_do=64, block_di=16, W_O=8), dict(run=4, items=128, groups=2)),
+    (dict(block_h=16, block_do=64, block_di=16, W_O=16), dict(run=8, items=256, groups=1)),
+    (dict(block_h=16, block_do=64, block_di=8, W_O=32), dict(run=16, items=256, groups=1)),
+])
+def test_register_layout_at_the_cnn_geometries(geo, want):
+    """conv3 dgrad's 4 x 4 plane: 32 items x 8 channel groups fill the block;
+    conv2 2 groups; conv1 and conv0 one item a thread."""
+
+    assert ck.register_layout(**geo, F=3, S=1) == want
+
+
+@pytest.mark.parametrize("geo", [
+    dict(block_h=4, block_do=64, block_di=16, W_O=4, F=3, S=2),    # stride 2
+    dict(block_h=4, block_do=64, block_di=16, W_O=4, F=5, S=1),    # F = 5
+    dict(block_h=4, block_do=8, block_di=8, W_O=9, F=3, S=1),      # odd width
+    dict(block_h=4, block_do=64, block_di=12, W_O=4, F=3, S=1),    # bdi not 4 * 2^j
+    dict(block_h=4, block_do=12, block_di=16, W_O=4, F=3, S=1),    # stack not 8k
+    dict(block_h=64, block_do=64, block_di=16, W_O=64, F=3, S=1),  # 2048 items
+])
+def test_other_geometries_take_the_simple_conv_kernel(geo):
+
+    assert ck.register_layout(**geo) is None
+
+
+class _ArgSink:
+    """Stands in for a CudaKernel: records the C arguments a launch wrapper
+    passes to ``run`` (the stream is appended by ``run`` itself)."""
+
+    def __init__(self, kernel):
+        self.argtypes, self.args = kernel.argtypes, None
+
+    def run(self, *args):
+        self.args = args
+
+
+@pytest.mark.parametrize("m,k,n,blocks,split,reg", [
+    (256, 4096, 1024, (64, 128, 32), 8, 1),
+    (768, 64, 1408, (64, 128, 32), 1, 1),
+    (64, 64, 128, (32, 64, 32), 2, 0),  # the simple kernel's tile
+])
+def test_matmul_launch_passes_its_split_and_slabs(m, k, n, blocks, split, reg):
+    """The wrapper alone picks the kernel: the C entry point gets the
+    template's choice (1 register, 0 simple) and mm_split's split."""
+
+    sink = _ArgSink(matmul_kernel)
+    bm, bn, bk = blocks
+    out = mm._launch(sink, torch.zeros(m, k), torch.zeros(k, n), block_m=bm, block_n=bn,
+                     block_k=bk)
+    assert tuple(out.shape) == (m, n)
+    assert len(sink.args) == len(sink.argtypes) - 1
+    assert sink.args[4:] == (m, n, k, bm, bn, bk, split, reg)
+    assert reg == (mm.template(*blocks) == "register")
+    assert (sink.args[3].value is not None) == (split > 1)
+
+
+@pytest.mark.parametrize("W_O,stride,run", [(8, 1, 4), (16, 1, 8), (9, 1, 0), (8, 2, 0)])
+def test_conv_launch_passes_the_register_run(W_O, stride, run):
+
+    extent = (W_O - 1) * stride + 3
+    x = torch.zeros(1, extent, extent, 16)
+    sink = _ArgSink(conv2d_kernel)
+    out = ck._launch(sink, x, torch.zeros(3, 3, 16, 64), torch.zeros(64), stride=stride,
+                     block_h=W_O, block_do=64, block_di=16, H_O=W_O, W_O=W_O, relu=True)
+    assert tuple(out.shape) == (1, W_O, W_O, 64)
+    assert len(sink.args) == len(sink.argtypes) - 1
+    assert sink.args[-1] == run
