@@ -29,10 +29,11 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              and TN matmuls at fc1/fc2) and the fused dX/dW kernel at
              fc1/fc2 at batch 128, plus a ragged case each; phase-2
              tolerance.  Each wgrad and NT record names its split of the
-             contraction, each dgrad record its template; wgrad at conv0
-             (split) and conv3, NT at fc1 dX (split) and the conv3 dgrad are
-             launched twice and must give the same bits (phase
-             ``determinism``).
+             contraction, each dgrad and TN record its template (TN: the
+             register or simple kernel and the split of its M loop); wgrad
+             at conv0 (split) and conv3, NT at fc1 dX (split), TN at fc1 dW
+             and the conv3 dgrad are launched twice and must give the same
+             bits (phase ``determinism``).
 5. train   — the main path of this slice: the launcher
              (``repro_torch.launch.train --arch cnn-vgg11 --batch 256
              --steps 3 --planned-kernels``) with its launch counts against
@@ -50,10 +51,12 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              plain steps' (each within 1e-4 * max(1, |loss|)).
 6. flash   — the flash-attention kernel against its plain version at the
              transformer's shape ([64, 2048, 64], causal, the planner's
-             blocks), GQA 16/8 at D = 128, a 512 window, ragged lengths
-             (1000) and a case whose late rows see no key (q_len 1000,
-             kv_len 500, window 256): those rows must be exactly 0 in both.
-             Phase-2 tolerance.
+             blocks), GQA 16/8 at D = 128, D = 32 (GQA 16/8) and D = 256
+             (gemma3-4b's 8/4 heads, 32/32 blocks), a 512 window, ragged
+             lengths (1000) and a case whose late rows see no key (q_len
+             1000, kv_len 500, window 256): those rows must be exactly 0 in
+             both.  Phase-2 tolerance.  The transformer's call is launched
+             twice and must give the same bits.
 7. transformer — the main path of the third slice: the launcher
              (``--arch qwen1.5-0.5b --batch 4 --seq 2048 --steps 3
              --planned-kernels``, full width and depth, f32) with its launch
@@ -67,17 +70,19 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              relative.  Peak device memory of each step, one at a time.
 8. times   — CUDA-event medians of each kernel at every forward and
              backward shape, beside its plain version, one library call and
-             the bound, with bound_share = bound_ms / ms and, for the conv
-             and matmul, the template (every main-path call must take the
-             register kernel) (each wgrad record
+             the bound, with bound_share = bound_ms / ms and, for the conv,
+             the matmul and TN, the template (every main-path call must take
+             the register kernel) (each wgrad record
              also names the device kernels conv2d_weight runs, read with
              torch.profiler); the forward's and the training step's ms per batch
              and images/s; device time by kernel over a profiled forward
              and a profiled training step.  For the transformer: the flash
-             kernel beside its plain version, scaled_dot_product_attention
+             kernel (the main call, GQA at D = 128, D = 32, D = 256 and the
+             window) beside its plain version, scaled_dot_product_attention
              and its bound; matmul, NT and TN at the five GEMM shapes of the
-             step beside torch.matmul (NT at qkv and the qkv forward
-             launched twice first: the same bits); the step's ms and
+             step beside torch.matmul (NT and TN at qkv, TN at wo (split)
+             and the qkv forward launched twice first: the same bits); the
+             step's ms and
              tokens/s, planned
              and plain; a profiled step.  The ``kernels`` line sums each
              kernel's calls over one planned training step — cnn-vgg11 at
@@ -536,7 +541,7 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
 
 def split_record(kernel, args, kw) -> dict:
     """The launch's split of its contraction (wgrad: the (batch, strip)
-    sweep; NT and the forward matmul: the N or K loop) and its
+    sweep; NT, TN and the forward matmul: the N, M or K loop) and its
     partial-slab bytes (traffic the planner's modeled words do not
     count)."""
     from repro_torch.core.machine import h100_resident_blocks
@@ -554,6 +559,11 @@ def split_record(kernel, args, kw) -> dict:
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
         split = mb.nt_split(m=m, n=n, k=k, **blocks)
         return {"split": split, "partial_bytes": mb.nt_partial_bytes(m=m, k=k, split=split)}
+    if kernel == "matmul_tn":
+        (m, k), n = args[0].shape, args[1].shape[1]
+        blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
+        split = mb.tn_split(m=m, n=n, k=k, **blocks)
+        return {"split": split, "partial_bytes": mb.tn_partial_bytes(k=k, n=n, split=split)}
     B = args[0].shape[0]
     d_in, d_out = (cb.wgrad_channels(t.shape[-1]) for t in args)
     smem = cb.wgrad_smem_bytes(block_h=kw["block_h"], block_do=kw["block_do"],
@@ -569,16 +579,18 @@ def split_record(kernel, args, kw) -> dict:
 
 
 def template_record(kernel, args, kw) -> dict:
-    """Which kernel template a conv2d or matmul launch takes: the conv's
+    """Which kernel template a conv2d, matmul or TN launch takes: the conv's
     register kernel with its pixel run and channel groups, or the simple
-    kernel; the matmul's register or simple kernel and its K split.  Both
-    are the choices the wrappers pass to the C entry points, which dispatch
-    on them."""
+    kernel; the matmul's and TN's register or simple kernel and their K or
+    M split.  All are the choices the wrappers pass to the C entry points,
+    which dispatch on them."""
     from repro_torch.kernels.conv2d.conv2d import register_layout
+    from repro_torch.kernels.matmul.bwd import tn_template
     from repro_torch.kernels.matmul.matmul import template
 
-    if kernel == "matmul":
-        return dict(template=template(kw["block_m"], kw["block_n"], kw["block_k"]),
+    if kernel in ("matmul", "matmul_tn"):
+        pick = template if kernel == "matmul" else tn_template
+        return dict(template=pick(kw["block_m"], kw["block_n"], kw["block_k"]),
                     **split_record(kernel, args, kw))
     layout = register_layout(block_h=kw["block_h"], block_do=kw["block_do"],
                                 block_di=kw["block_di"], W_O=kw["W_O"],
@@ -587,12 +599,14 @@ def template_record(kernel, args, kw) -> dict:
 
 
 # The calls whose two launches must give the same bits: a split and an
-# unsplit call of each register kernel (wgrad, NT, the forward matmul) and
-# the direct conv's forward (with its mask) and dgrad.
+# unsplit call of each register kernel (wgrad, NT, TN, the forward matmul),
+# the direct conv's forward (with its mask) and dgrad, and flash attention.
 DETERMINISM = {("conv2d_wgrad", "conv0.wgrad"), ("conv2d_wgrad", "conv3.wgrad"),
                ("matmul_nt", "fc1.dx"), ("matmul_nt", "qkv.dx"),
+               ("matmul_tn", "wo.dw"), ("matmul_tn", "qkv.dw"), ("matmul_tn", "fc1.dw"),
                ("matmul", "fc2"), ("matmul", "qkv"),
-               ("conv2d", "conv1"), ("conv2d", "conv3.dgrad")}
+               ("conv2d", "conv1"), ("conv2d", "conv3.dgrad"),
+               ("flash_attention", "attn")}
 DETERMINED: set = set()
 
 
@@ -625,7 +639,7 @@ def phase_bwd(torch, cnn, cfg, kernels, results):
                          schedule_words=meta.get("schedule_words"))
         elif kernel == "matmul_nt":
             extra = split_record(kernel, args, kw)
-        elif kernel == "conv2d":
+        elif kernel in ("conv2d", "matmul_tn"):
             extra = template_record(kernel, args, kw)
         emit(phase="bwd", kernel=kernel, case=label, shape=[list(a.shape) for a in args],
              blocks={b: v for b, v in kw.items() if b.startswith("block")}, max_abs_err=err,
@@ -860,7 +874,7 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         k = kernels[name]
         record(name, label, lambda: k(*args, **kw), lambda: k.plain(*args, **kw),
                meta["lib"], meta["flops"], meta["nbytes"],
-               template_record(name, args, kw) if name == "conv2d" else None)
+               template_record(name, args, kw) if name in ("conv2d", "matmul_tn") else None)
 
     with torch.no_grad():
         fwd = {alg: median_ms(lambda: cnn.forward(cfg, params, images, schedules=plans[alg]),
@@ -955,15 +969,17 @@ def visible_pairs(q_len: int, kv_len: int, window) -> int:
 
 def flash_cases(torch, s_attn):
     """(label, (q, k, v), kwargs, meta): the transformer's attention call with
-    the planner's blocks, then GQA at D = 128, a window, ragged lengths and a
-    case with rows that see no key; blocks from AttentionPlanner.  Padding
-    rows are zero, as the op pads them."""
+    the planner's blocks, then GQA at D = 128, D = 32 and D = 256 (gemma3-4b's
+    8/4 heads), a window, ragged lengths and a case with rows that see no
+    key; blocks from AttentionPlanner.  Padding rows are zero, as the op
+    pads them."""
     from repro_torch.plan import AttentionPlanner, round_up
 
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     B, S, H, D = TFM_BATCH, TFM_SEQ, 16, 64
     # label, B, Hq, Hkv, q_len, kv_len, D, window
     specs = [("main", B, H, H, S, S, D, None), ("gqa16/8-d128", B, 16, 8, S, S, 128, None),
+             ("gqa16/8-d32", B, 16, 8, S, S, 32, None), ("gqa8/4-d256", B, 8, 4, S, S, 256, None),
              ("window512", B, H, H, S, S, D, 512), ("ragged1000", 1, 16, 16, 1000, 1000, D, None),
              ("zero-rows", 1, 16, 8, 1000, 500, D, 256)]
     out = []
@@ -1014,6 +1030,9 @@ def phase_flash(torch, s_attn, results):
              causal=kw["causal"], window=kw["window"], q_len=kw["q_len"],
              kv_len=kw["kv_len"], max_abs_err=err, max_abs_plain=float(want.abs().max()),
              rows_without_key=n_zero)
+        if label == "main":
+            check_bit_identical(torch, "flash_attention", "attn",
+                                lambda: flash_attention_kernel(q, k, v, **kw))
 
 
 def tfm_calls(tf, cfg, plans) -> dict:
@@ -1231,7 +1250,7 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
 
     fk = kernels["flash_attention"]
     for label, (q, k, v), kw, meta in flash_cases(torch, plans["attn"]):
-        if label not in ("main", "window512", "gqa16/8-d128"):
+        if label not in ("main", "window512", "gqa16/8-d128", "gqa16/8-d32", "gqa8/4-d256"):
             continue
         b, hq, hkv = meta["b"], meta["hq"], meta["hkv"]
         q4 = q.reshape(b, hq, *q.shape[1:])
@@ -1282,7 +1301,8 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
                    lambda kern=kern, args=args, b=b: kern.plain(*args, **b), lib,
                    2 * flops if name == "matmul_dx_dw" else flops, nbytes,
                    reps=3 if cell == "logits" else 5,
-                   template=template_record(name, args, b) if name == "matmul" else None)
+                   template=(template_record(name, args, b)
+                             if name in ("matmul", "matmul_tn") else None))
             del xp, wp, gp, args
         del x, w, dy, runs
         torch.cuda.empty_cache()

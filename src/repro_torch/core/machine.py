@@ -142,12 +142,13 @@ H100 = MachineModel(
 MACHINES = {m.name: m for m in (MANTICORE, TPU_V5E, H100)}
 
 # How many blocks one H100 SM holds at once, for the kernels that split a
-# contraction over blocks to fill the card (wgrad, NT): an SM has 228 KB
+# contraction over blocks to fill the card (wgrad and the matmuls): an SM has 228 KB
 # of shared memory, less 1 KB the system keeps for each resident block,
 # and the kernels' 256 threads and register tiles leave room for two.
 H100_SM_SMEM_BYTES = 233_472
 H100_SMEM_RESERVED = 1_024
 H100_RESIDENT_TARGET = 2
+H100_MAX_GRID_Z = 65535  # the split rides the grid's z axis
 
 
 def h100_resident_blocks(smem_bytes: int) -> int:
@@ -155,6 +156,19 @@ def h100_resident_blocks(smem_bytes: int) -> int:
     once, from 1 up to H100_RESIDENT_TARGET."""
     fit = H100_SM_SMEM_BYTES // (smem_bytes + H100_SMEM_RESERVED)
     return max(1, min(H100_RESIDENT_TARGET, fit))
+
+
+def h100_split(*, grid: int, steps: int, smem_bytes: int) -> int:
+    """Thread blocks that share each output tile's contraction loop of
+    ``steps`` steps, for a matmul kernel whose grid has ``grid`` output
+    tiles: 1 where the grid fills one wave of the card's SMs, else as many
+    as fill the resident block slots, never more than the loop has steps
+    or the grid's z axis holds.  A function of the shapes alone, so the
+    order of the partial sums (and the result) never changes."""
+    if grid >= H100.units:
+        return 1
+    slots = h100_resident_blocks(smem_bytes) * H100.units
+    return max(1, min(steps, slots // grid, H100_MAX_GRID_Z))
 
 
 def machine_named(name: str, default: MachineModel = H100) -> MachineModel:

@@ -9,44 +9,69 @@
 // 64], causal) each K/V tile is reused by a whole q block, so the kernel
 // does about 4*S/2*D = 262k flop per 2*D*4 B of K/V it streams; the bound
 // is f32 operations (67 TFLOP/s on the CUDA cores), not the 3.35 TB/s of
-// device memory.  This first kernel issues plain FMAs (no tensor cores, no
-// TF32: the gates are f32 at 1e-4); what keeps it below 67 TFLOP/s is
-// shared-memory bandwidth and one 256-thread block per SM.
+// device memory.  It issues plain FMAs (no tensor cores, no TF32: the gates
+// are f32 at 1e-4).  The planner's budget leaves one 8-warp block an SM, so
+// what keeps it below 67 TFLOP/s is shared-memory traffic per FMA and
+// barriers that stall all eight warps.
 //
-// Design: one thread block per (b*Hq + h, q block) — the Pallas kernel's
-// two parallel grid axes.  Its sequential kv grid axis becomes a loop inside
-// the block, and the loop runs only over the KV blocks that the kernel's
-// `run` predicate admits (AttentionPlanner.kv_blocks_run): blocks wholly in
-// the causal future or wholly before the window are never fetched, which
-// is what the TPU kernel's clamped kv index map saves there.  q blocks run
-// heaviest first (the last causal block sees the most keys).
+// Grid and loop: one thread block per (b*Hq + h, q block) — the Pallas
+// kernel's two parallel grid axes.  Its sequential kv grid axis becomes a
+// loop inside the block over exactly the KV blocks that the kernel's `run`
+// predicate admits (AttentionPlanner.kv_blocks_run): blocks wholly in the
+// causal future or wholly before the window are never fetched.  q blocks
+// run heaviest first (the last causal block sees the most keys).
 //
-// Shared memory (dynamic, all of it; == AttentionPlanner._vmem_bytes on
-// the H100 machine, 230,400 B at D = 64 with 128/128 blocks):
+// Shared memory (dynamic, all of it; == AttentionPlanner._vmem_bytes on the
+// H100 machine):
 //   Q   [bq][D]          the q block, loaded once;
-//   K,V [2][bkv][D] each two stages filled by cp.async, so the next KV
-//                        block's copy overlaps this block's FMAs;
-//   P   [2*bq*D] floats  the probability tile [bq][bkv] (bkv <= 2*D) that
-//                        the P.V product reads across threads — it sits in
-//                        the planner's second q stage and f32 accumulator
-//                        terms, since the accumulator itself is in registers;
-//   m,l [2][bq]          each row's running max and sum at the flush.
-// Q, K and V rows are stored with their 16-byte chunks XOR-swizzled by
-// (row & 7), so the float4 reads of eight neighbouring rows hit distinct
-// banks.
+//   K,V [2][bkv][D] each two stages filled by cp.async, the next KV block's
+//                        copy overlapping this block's FMAs;
+//   P   2*bq*D floats    each warp's probability rows, [bq/8][PS] a warp with
+//                        PS = min(BKV, 2*D) — the planner's second q stage
+//                        and f32 accumulator terms, since the accumulator
+//                        itself is in registers;
+//   m,l [2][bq]          charged by the planner; each row's (m, l) stays in
+//                        registers.
+// K and V rows keep their 16-byte chunks XOR-swizzled by (row & 7), Q rows
+// by (row % RG).
 //
-// Threads: 256 = 16 row groups (ty) x 16 lanes (tx).  A thread owns rows
-// ty + 16*i of the q block, score columns tx + 16*j of the KV block and
-// output chunks tx + 16*h (float4) of D; the 16 lanes of a row group hold
-// the same rows, so each row's max and sum reduce with four xor shuffles
-// and every lane ends with the same value.  Masked scores are -inf, the
-// running max starts at -1e30, so a masked entry's probability is exactly
-// 0 and a row with no visible key keeps l == 0 and is written as 0.
+// Warps own rows.  Warp w owns rows w*bq/8.. of the q block; its lanes are
+// RG row groups g x CL = 32/RG column lanes cl.  A lane holds rows
+// g + RG*i of the warp's rows, score columns cl + CL*j of the KV block and
+// output chunks cl + CL*h (float4) of D.  A warp's 16-byte shared load
+// delivers 512 bytes, four cycles of the 128 bytes a cycle an SM's shared
+// memory serves, in which the SM issues 16 warp FMAs; so what sets the
+// speed is FMAs per load: 4*RI*CJ per RI + CJ loads in S, 16*RI*OC per
+// RI + 4*OC loads per 4 kv rows in P.V, at a register count that leaves
+// the compiler room to run loads ahead.  RG is the fastest of 1, 2 and 4
+// timed on the H100: 4 at D = 32 and 64, 2 at D = 128, 1 at D = 256.
+//   * S = Q K^T: per 16-byte chunk of D, RI Q reads (quarters uniform, row
+//     groups on distinct bank quads) and CJ K reads (rows cl + CL*j at
+//     chunk c ^ (cl & 7): a quarter's eight rows on eight bank quads).
+//   * Row max and row sum reduce over the CL column lanes (xor shuffles), so
+//     every lane of a row group ends with its rows' (m, l).
+//   * P goes to the warp's own slice, its columns XOR-swizzled by g*CL so a
+//     store of the warp hits 32 banks, and comes back as float4 (4 kv
+//     columns of one row) for P.V after a __syncwarp only.  Where bkv > PS
+//     (D = 32 at 128/128) P goes through the slice in column chunks of PS.
+//   * P.V, 8 kv rows a step: 2*RI P reads and 8*OC V reads (eight chunks a
+//     quarter), from per-lane offsets fixed for the whole kernel.
+// So the block needs one barrier per KV block, for the K/V double buffer.
+// The softmax works in base 2: log2(e) is folded into the scale on the
+// host and ex2.approx replaces expf; a KV block that no mask reaches skips
+// the masks.  Masked scores are -inf and the running max starts at -1e30,
+// so a masked entry's probability is exactly 0 and a row with no visible
+// key keeps l == 0 and is written as 0.
 //
-// Contract (checked by the Python wrapper): D in {64, 128}; bq, bkv
-// multiples of 8 up to the instantiation's maxima (128/128 at D = 64,
-// 64/64 at D = 128); sequences padded to the blocks; q [BHq, Sq, D],
-// k/v [BHkv, Skv, D] contiguous and 16-byte aligned; BHkv divides BHq.
+// Instantiations, at the planner's H100 blocks: D = 32 at 128/128 (115,712
+// B), 64 at 128/128 (230,400 B), 128 at 64/64 (229,888 B), 256 at 32/32
+// (229,632 B); each twice, for exactly those blocks (FULL: every bound a
+// constant) and for any smaller multiples of 8.
+//
+// Contract (checked by the Python wrapper): D in {32, 64, 128, 256}; bq,
+// bkv multiples of 8 up to the instantiation's maxima; sequences padded to
+// the blocks; q [BHq, Sq, D], k/v [BHkv, Skv, D] contiguous and 16-byte
+// aligned; BHkv divides BHq.
 
 #include <cuda_runtime.h>
 
@@ -64,50 +89,72 @@ __device__ __forceinline__ void cp_async16(float* dst, const float* src) {
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::);
 }
 
-// Element offset of chunk c (4 floats) of row r in a swizzled [rows][D] tile.
-template <int D>
-__device__ __forceinline__ int swz(int r, int c) {
-  return r * D + ((c ^ (r & 7)) << 2);
+// 2^x, flushing results below the normal range to 0 (and -inf to 0).
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
 }
 
-// rows x D floats from contiguous global rows into a swizzled tile.
-template <int D>
+// rows x D floats from contiguous global rows into a [rows][D] tile whose
+// row r keeps its 16-byte chunk c at c ^ (r % SW).
+template <int D, int SW>
 __device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
                                           int rows) {
   constexpr int nq = D / 4;
   for (int e = threadIdx.x; e < rows * nq; e += kThreads) {
     const int r = e / nq, c = e % nq;
-    cp_async16(dst + swz<D>(r, c), src + (size_t)r * D + c * 4);
+    cp_async16(dst + r * D + ((c ^ (r & (SW - 1))) << 2), src + (size_t)r * D + c * 4);
   }
 }
 
-template <int D, int BQ, int BKV>
-__global__ void __launch_bounds__(kThreads)
+// A float4 at byte offset `off` of shared memory.
+__device__ __forceinline__ float4 lds4(const char* base, unsigned off) {
+  return *reinterpret_cast<const float4*>(base + off);
+}
+
+// FULL: the launch's blocks are the instantiation's (bq == BQ, bkv == BKV,
+// the planner's pick), so every bound below is a constant and every shared
+// address a per-lane base plus an immediate; otherwise a lane's rows past
+// the warp's and score columns past bkv read a valid row and are masked.
+template <int D, int BQ, int BKV, int RG, bool FULL>
+__global__ void __launch_bounds__(kThreads, 1)
     fa_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                   const float* __restrict__ V, float* __restrict__ O, int group,
-                  int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-                  int causal, int window, float scale) {
-  constexpr int RI = BQ / 16;   // rows per thread
-  constexpr int CJ = BKV / 16;  // score columns per thread
-  constexpr int OC = D / 64;    // float4 output chunks per thread
-  constexpr int NC = D / 4;     // chunks of one row
+                  int sq, int skv, int bq_arg, int bkv_arg, int q_len, int kv_len,
+                  int causal, int window, float scale_log2) {
+  constexpr int CL = 32 / RG;                   // column lanes of a row group
+  constexpr int RI = BQ / 8 / RG;               // rows a lane holds
+  constexpr int CJ = BKV / CL;                  // score columns a lane holds
+  constexpr int PS = BKV < 2 * D ? BKV : 2 * D;  // P slice row (one column chunk)
+  constexpr int JC = PS / CL;                   // a lane's score columns per chunk
+  constexpr int NCH = BKV / PS;                 // column chunks at bkv == BKV
+  constexpr int OC = D / 4 / CL;                // output float4 chunks a lane holds
+  constexpr int NC = D / 4;                     // chunks of one row
+  static_assert(RI >= 1 && OC >= 1 && JC >= 1 && CL % 8 == 0 && NC % 8 == 0 &&
+                    BKV % PS == 0 && PS % 32 == 0,
+                "an instantiation's blocks and lane layout");
+  const int bq = FULL ? BQ : bq_arg;
+  const int bkv = FULL ? BKV : bkv_arg;
 
   extern __shared__ __align__(16) float smem[];
+  const char* sb = reinterpret_cast<const char*>(smem);
   float* qs = smem;                    // [bq][D]
   float* ks = qs + bq * D;             // [2][bkv][D]
   float* vs = ks + 2 * bkv * D;        // [2][bkv][D]
-  float* ps = vs + 2 * bkv * D;        // [bq][bkv] in 2*bq*D floats
-  float* stats = ps + 2 * bq * D;      // m [bq], l [bq]
+  float* ps = vs + 2 * bkv * D;        // 8 warp slices of [bq/8][PS] in 2*bq*D floats
 
   const int bh = blockIdx.x;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest q blocks first
   const int q_start = qb * bq;
-  const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane / CL, cl = lane % CL;
+  const int wrows = bq / 8, wr0 = warp * wrows;
+  float* pw = ps + wr0 * PS;  // this warp's P slice
 
   // The KV blocks the TPU kernel's `run` predicate admits.
   const int n_kvb = skv / bkv;
@@ -121,28 +168,42 @@ __global__ void __launch_bounds__(kThreads)
 
   const float* qg = Q + ((size_t)bh * sq + q_start) * D;
   const size_t kv_row = (size_t)(bh / group) * skv;
-  load_tile<D>(qs, qg, bq);
+  load_tile<D, RG>(qs, qg, bq);
   if (n_run > 0) {
-    load_tile<D>(ks, K + (kv_row + (size_t)lo * bkv) * D, bkv);
-    load_tile<D>(vs, V + (kv_row + (size_t)lo * bkv) * D, bkv);
+    load_tile<D, 8>(ks, K + (kv_row + (size_t)lo * bkv) * D, bkv);
+    load_tile<D, 8>(vs, V + (kv_row + (size_t)lo * bkv) * D, bkv);
   }
   cp_async_commit();
 
-  // Rows past bq (and score columns past bkv) read a valid row with the same
-  // swizzle and are masked.
-  int qoff[RI], koff[CJ];
+  // Per-lane byte offsets, fixed for the kernel.  Row i of the lane is warp
+  // row g + RG*i: Q row wr0 + g + RG*i, P slice row g + RG*i.
+  const int row_lim = min(bq, q_len - q_start);
+  const int gq = (wr0 + g) & (RG - 1);  // the Q swizzle of this lane's rows
+  const int cl7 = cl & 7;               // the K/V swizzle of this lane's K rows
+  const int sp = g * CL;                // the P column swizzle of this row group
+  unsigned q_at[8], k_at[8];            // chunk c8 of the lane's first Q row / K row
+#pragma unroll
+  for (int c8 = 0; c8 < 8; ++c8) {
+    q_at[c8] = 4u * ((wr0 + g) * D + ((c8 ^ gq) << 2));
+    k_at[c8] = 4u * (cl * D + ((c8 ^ cl7) << 2));
+  }
+  unsigned v_at[8];  // V row c + u (c a multiple of 8), the lane's chunk cl
+#pragma unroll
+  for (int u = 0; u < 8; ++u) v_at[u] = 4u * (u * D + ((cl ^ u) << 2));
+  const unsigned p_at = 4u * (unsigned)(pw - smem + g * PS);
+  // A row of the lane past the warp's reads (and never writes) the warp's
+  // first row; a score column past bkv is masked (its K row is bkv's first
+  // row in a partly valid column block, and a wholly invalid one is skipped).
+  unsigned q_row[RI], p_row[RI];
+  bool row_ok[RI];
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i;
-    qoff[i] = (r < bq ? r : (ty & 7)) * D;
+    const int lr = g + RG * i;
+    const bool in = FULL || lr < wrows;
+    q_row[i] = in ? 4u * RG * i * D : 4u * (unsigned)(-g * D);
+    p_row[i] = in ? 4u * RG * i * PS : 4u * (unsigned)(-g * PS);
+    row_ok[i] = in && wr0 + lr < row_lim;
   }
-#pragma unroll
-  for (int j = 0; j < CJ; ++j) {
-    const int c = tx + 16 * j;
-    koff[j] = (c < bkv ? c : (tx & 7)) * D;
-  }
-  const int qsw = ty & 7, ksw = tx & 7;
-  const int row_lim = min(bq, q_len - q_start);
 
   float acc[RI][OC][4];
   float m_run[RI], l_run[RI];
@@ -159,77 +220,90 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = 0; t < n_run; ++t) {
     const int st = t & 1;
     const int k_start = (lo + t) * bkv;
+    // The one barrier of a KV block: stage st has landed for every thread,
+    // and every warp is done with stage st ^ 1, which the next copy fills.
+    cp_async_wait_all();
+    __syncthreads();
     if (t + 1 < n_run) {
       const size_t nxt = (kv_row + (size_t)(k_start + bkv)) * D;
-      load_tile<D>(ks + (st ^ 1) * bkv * D, K + nxt, bkv);
-      load_tile<D>(vs + (st ^ 1) * bkv * D, V + nxt, bkv);
+      load_tile<D, 8>(ks + (st ^ 1) * bkv * D, K + nxt, bkv);
+      load_tile<D, 8>(vs + (st ^ 1) * bkv * D, V + nxt, bkv);
       cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
     }
-    __syncthreads();
-    const float* kt = ks + st * bkv * D;
-    const float* vt = vs + st * bkv * D;
+    const unsigned kt = 4u * (unsigned)(ks - smem + st * bkv * D);
+    const unsigned vt = 4u * (unsigned)(vs - smem + st * bkv * D);
+    const int cj_run = FULL ? CJ : (bkv + CL - 1) / CL;  // column blocks with a valid column
 
-    // S = Q K^T for this thread's RI x CJ scores.
+    // S = Q K^T for this lane's RI x CJ scores, eight chunks of D a step.
     float s[RI][CJ];
 #pragma unroll
     for (int i = 0; i < RI; ++i)
 #pragma unroll
       for (int j = 0; j < CJ; ++j) s[i][j] = 0.f;
-#pragma unroll 2
-    for (int c = 0; c < NC; ++c) {
-      float4 b[CJ];
+#pragma unroll 1
+    for (int m = 0; m < NC / 8; ++m) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j)
-        b[j] = *reinterpret_cast<const float4*>(kt + koff[j] + ((c ^ ksw) << 2));
+      for (int c8 = 0; c8 < 8; ++c8) {
+        const unsigned qa = q_at[c8] + 128u * m, ka = kt + k_at[c8] + 128u * m;
+        float4 a[RI];
 #pragma unroll
-      for (int i = 0; i < RI; ++i) {
-        const float4 a =
-            *reinterpret_cast<const float4*>(qs + qoff[i] + ((c ^ qsw) << 2));
+        for (int i = 0; i < RI; ++i) a[i] = lds4(sb, qa + q_row[i]);
 #pragma unroll
         for (int j = 0; j < CJ; ++j) {
-          s[i][j] = fmaf(a.x, b[j].x, s[i][j]);
-          s[i][j] = fmaf(a.y, b[j].y, s[i][j]);
-          s[i][j] = fmaf(a.z, b[j].z, s[i][j]);
-          s[i][j] = fmaf(a.w, b[j].w, s[i][j]);
+          if (!FULL && j >= cj_run) break;
+          const float4 b = lds4(sb, ka + 4u * CL * j * D);
+#pragma unroll
+          for (int i = 0; i < RI; ++i) {
+            s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
+            s[i][j] = fmaf(a[i].y, b.y, s[i][j]);
+            s[i][j] = fmaf(a[i].z, b.z, s[i][j]);
+            s[i][j] = fmaf(a[i].w, b.w, s[i][j]);
+          }
         }
       }
     }
 
-    // Masks, online softmax, P to shared memory.
+    // Masks (where one reaches this block) and the online softmax in base 2;
+    // s becomes P.
     const int col_lim = min(bkv, kv_len - k_start);
+    const bool open = col_lim == BKV && row_lim == bq &&
+                      (!causal || k_start + bkv - 1 <= q_start) &&
+                      (window < 0 || q_start + bq - 1 - k_start < window);
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      const int r = ty + 16 * i;
-      const int qid = q_start + r;
+      const int qid = q_start + wr0 + g + RG * i;
       float mx = kNeg;
+      if (open) {
 #pragma unroll
-      for (int j = 0; j < CJ; ++j) {
-        const int c = tx + 16 * j;
-        const int kid = k_start + c;
-        bool ok = r < row_lim && c < col_lim;
-        if (causal) ok = ok && kid <= qid;
-        if (window >= 0) ok = ok && qid - kid < window;
-        s[i][j] = ok ? s[i][j] * scale : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
+        for (int j = 0; j < CJ; ++j) {
+          s[i][j] *= scale_log2;
+          mx = fmaxf(mx, s[i][j]);
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < CJ; ++j) {
+          const int c = cl + CL * j;
+          const int kid = k_start + c;
+          bool ok = row_ok[i] && c < col_lim;
+          if (causal) ok = ok && kid <= qid;
+          if (window >= 0) ok = ok && qid - kid < window;
+          s[i][j] = ok ? s[i][j] * scale_log2 : -INFINITY;
+          mx = fmaxf(mx, s[i][j]);
+        }
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1)
+      for (int o = CL / 2; o > 0; o >>= 1)
         mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
       const float m_new = fmaxf(m_run[i], mx);
-      const float alpha = expf(m_run[i] - m_new);
+      const float alpha = exp2_approx(m_run[i] - m_new);
       float sum = 0.f;
 #pragma unroll
       for (int j = 0; j < CJ; ++j) {
-        const float p = expf(s[i][j] - m_new);  // exactly 0 where masked
-        sum += p;
-        const int c = tx + 16 * j;
-        if (r < bq && c < bkv) ps[r * bkv + c] = p;
+        s[i][j] = exp2_approx(s[i][j] - m_new);  // exactly 0 where masked
+        sum += s[i][j];
       }
 #pragma unroll
-      for (int o = 8; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+      for (int o = CL / 2; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
       l_run[i] = l_run[i] * alpha + sum;
       m_run[i] = m_new;
 #pragma unroll
@@ -237,52 +311,63 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
         for (int e = 0; e < 4; ++e) acc[i][h][e] *= alpha;
     }
-    __syncthreads();
 
-    // acc += P V.
-    for (int c = 0; c < bkv; c += 4) {
-      float4 v[4][OC];
+    // acc += P V, one column chunk of P at a time through the warp's slice.
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
-#pragma unroll
-        for (int h = 0; h < OC; ++h)
-          v[u][h] = *reinterpret_cast<const float4*>(vt + swz<D>(c + u, tx + 16 * h));
+    for (int ch = 0; ch < NCH; ++ch) {
+      if (ch * PS >= bkv) break;
+      __syncwarp();  // the slice's last reads are done
 #pragma unroll
       for (int i = 0; i < RI; ++i) {
-        const int r = ty + 16 * i;
-        const float4 p = *reinterpret_cast<const float4*>(
-            ps + (r < bq ? r : (ty & 7)) * bkv + c);
+        const int lr = g + RG * i;
+        if (FULL || lr < wrows) {
 #pragma unroll
-        for (int h = 0; h < OC; ++h) {
-          acc[i][h][0] += p.x * v[0][h].x + p.y * v[1][h].x + p.z * v[2][h].x + p.w * v[3][h].x;
-          acc[i][h][1] += p.x * v[0][h].y + p.y * v[1][h].y + p.z * v[2][h].y + p.w * v[3][h].y;
-          acc[i][h][2] += p.x * v[0][h].z + p.y * v[1][h].z + p.z * v[2][h].z + p.w * v[3][h].z;
-          acc[i][h][3] += p.x * v[0][h].w + p.y * v[1][h].w + p.z * v[2][h].w + p.w * v[3][h].w;
+          for (int jj = 0; jj < JC; ++jj)
+            pw[lr * PS + ((cl + CL * jj) ^ sp)] = s[i][ch * JC + jj];
+        }
+      }
+      __syncwarp();
+      const int n_rows = min(PS, bkv - ch * PS);
+#pragma unroll 1
+      for (int c = 0; c < n_rows; c += 8) {
+        const unsigned pa = p_at + 4u * (c ^ sp);  // columns c.. of P sit at (c ^ sp)..
+        const unsigned vb = vt + 4u * (ch * PS + c) * D;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          float4 p[RI];
+#pragma unroll
+          for (int i = 0; i < RI; ++i) p[i] = lds4(sb, pa + p_row[i] + 16u * half);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            float4 v[OC];
+#pragma unroll
+            for (int h = 0; h < OC; ++h) v[h] = lds4(sb, vb + v_at[4 * half + u] + 16u * CL * h);
+#pragma unroll
+            for (int i = 0; i < RI; ++i) {
+              const float pu = u == 0 ? p[i].x : u == 1 ? p[i].y : u == 2 ? p[i].z : p[i].w;
+#pragma unroll
+              for (int h = 0; h < OC; ++h) {
+                acc[i][h][0] = fmaf(pu, v[h].x, acc[i][h][0]);
+                acc[i][h][1] = fmaf(pu, v[h].y, acc[i][h][1]);
+                acc[i][h][2] = fmaf(pu, v[h].z, acc[i][h][2]);
+                acc[i][h][3] = fmaf(pu, v[h].w, acc[i][h][3]);
+              }
+            }
+          }
         }
       }
     }
-    __syncthreads();
   }
-  if (n_run <= 0) cp_async_wait<0>();
+  cp_async_wait_all();
 
-  // Flush: each row's (m, l) through shared memory; l == 0 (no visible key,
-  // or a padding row) writes 0.
+  // Flush: every lane of a row group holds its rows' l; l == 0 (no visible
+  // key, or a padding row) writes 0.
+  float* og = O + ((size_t)bh * sq + q_start + wr0) * D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i;
-    if (tx == 0 && r < bq) {
-      stats[r] = m_run[i];
-      stats[bq + r] = l_run[i];
-    }
-  }
-  __syncthreads();
-  float* og = O + ((size_t)bh * sq + q_start) * D;
-#pragma unroll
-  for (int i = 0; i < RI; ++i) {
-    const int r = ty + 16 * i;
-    if (r >= bq) continue;
-    const float l = stats[bq + r];
-    const float inv = l == 0.f ? 0.f : 1.f / l;
+    const int lr = g + RG * i;
+    if (!FULL && lr >= wrows) continue;
+    const float inv = l_run[i] == 0.f ? 0.f : 1.f / l_run[i];
 #pragma unroll
     for (int h = 0; h < OC; ++h) {
       float4 out;
@@ -290,27 +375,41 @@ __global__ void __launch_bounds__(kThreads)
       out.y = acc[i][h][1] * inv;
       out.z = acc[i][h][2] * inv;
       out.w = acc[i][h][3] * inv;
-      *reinterpret_cast<float4*>(og + (size_t)r * D + (tx + 16 * h) * 4) = out;
+      *reinterpret_cast<float4*>(og + (size_t)lr * D + (cl + CL * h) * 4) = out;
     }
   }
 }
 
-template <int D, int BQ, int BKV>
+template <int D, int BQ, int BKV, int RG, bool FULL>
+int launch_as(const float* q, const float* k, const float* v, float* o, int bhq,
+              int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
+              int causal, int window, float scale_log2, size_t smem,
+              cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, BQ, BKV, RG, FULL>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bhq, sq / bq);
+  fa_fwd_kernel<D, BQ, BKV, RG, FULL><<<grid, kThreads, smem, stream>>>(
+      q, k, v, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+template <int D, int BQ, int BKV, int RG>
 int launch(const float* q, const float* k, const float* v, float* o, int bhq,
            int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-           int causal, int window, float scale, cudaStream_t stream) {
-  if (bq < 8 || bq > BQ || bq % 8 || bkv < 8 || bkv > BKV || bkv % 8 ||
-      bkv > 2 * D || sq % bq || skv % bkv || bhkv <= 0 || bhq % bhkv)
+           int causal, int window, float scale_log2, cudaStream_t stream) {
+  if (bq < 8 || bq > BQ || bq % 8 || bkv < 8 || bkv > BKV || bkv % 8 || sq % bq ||
+      skv % bkv || bhkv <= 0 || bhq % bhkv)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (3 * (size_t)bq * D + 4 * (size_t)bkv * D + 2 * (size_t)bq);
-  cudaError_t err = cudaFuncSetAttribute(
-      fa_fwd_kernel<D, BQ, BKV>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(bhq, sq / bq);
-  fa_fwd_kernel<D, BQ, BKV><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window, scale);
-  return (int)cudaGetLastError();
+  if (bq == BQ && bkv == BKV)
+    return launch_as<D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, scale_log2, smem, stream);
+  return launch_as<D, BQ, BKV, RG, false>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                          kv_len, causal, window, scale_log2, smem, stream);
 }
 
 }  // namespace
@@ -322,19 +421,30 @@ const char* repro_error_string(int err) {
 }
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  sq/skv are
-// the padded lengths, q_len/kv_len the real ones; window < 0 means none.
+// the padded lengths, q_len/kv_len the real ones; window < 0 means none;
+// `scale` is the softmax scale (the kernel folds log2(e) into it).
 int repro_flash_attention_f32(const float* q, const float* k, const float* v,
                               float* o, int bhq, int bhkv, int sq, int skv, int d,
                               int bq, int bkv, int q_len, int kv_len, int causal,
                               int window, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d == 64)
-    return launch<64, 128, 128>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                kv_len, causal, window, scale, s);
-  if (d == 128)
-    return launch<128, 64, 64>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                               kv_len, causal, window, scale, s);
-  return (int)cudaErrorInvalidValue;
+  const float sl2 = scale * 1.4426950408889634f;  // log2(e)
+  switch (d) {
+    case 32:
+      return launch<32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                  kv_len, causal, window, sl2, s);
+    case 64:
+      return launch<64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                  kv_len, causal, window, sl2, s);
+    case 128:
+      return launch<128, 64, 64, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                 kv_len, causal, window, sl2, s);
+    case 256:
+      return launch<256, 32, 32, 1>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                 kv_len, causal, window, sl2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // extern "C"

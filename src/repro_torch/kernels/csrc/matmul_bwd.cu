@@ -38,13 +38,35 @@
 //     shapes (bwd.py::nt_split); each writes a partial f32 slab and a
 //     second kernel sums the slabs in order, so the result is the same on
 //     every run.
-// Other NT blocks run mm_nt_kernel, the simple kernel that TN and the
-// fused kernel share: 256 threads, a 4 x 8 register item a step, the f32
-// accumulator in shared memory, operands staged with cp.async two stages
-// deep (the W tile transposed by 4-byte copies).
-//   * TN: one block per dW tile [bk][bn]; the M axis is the loop.  Each
-//     step stages X[m0:m0+bm, k0:k0+bk] and dY[m0:m0+bm, n0:n0+bn] as they
-//     lie and contracts over their shared row axis.
+// TN at the planner's tile (bm 32, bk 64, bn 128; every shape of both
+// steps), mm_tn_reg_kernel, is the forward matmul's register kernel
+// (matmul.cu::mm_reg_kernel) with both operands contraction-major as they
+// lie:
+//   * Registers. 256 threads, each a 4 x 8 tile of dW (rows mi*4..+3,
+//     columns kj*4..+3 and 64+kj*4..+3) in registers for the block's
+//     whole M loop; per contraction index three float4 reads for 32 FMAs,
+//     a warp's reads four X chunks and two runs of eight dY chunks.
+//   * Staging. The X tile [bm][bk] is the forward kernel's transposed
+//     xs[bk][bm] and the dY tile [bm][bn] its W tile, so both go in with
+//     16-byte cp.async and no transpose: a ring of three stages of both
+//     (73,728 B) in the charged 81,920 B, copies two steps ahead, one
+//     barrier a step.
+//   * Epilogue. The register tiles go to the first bk*bn floats and leave
+//     as coalesced 16-byte stores.
+//   * Small grids. Where the (n, k) grid is under one wave of SMs (the
+//     transformer's wo), the M loop is split over a number of blocks fixed
+//     by the shapes (bwd.py::tn_split), summed in order as NT's slabs are.
+// The wrappers pick the register kernels (bwd.py::tn_template for TN; NT
+// dispatches on its tile here).  Other blocks run the simple kernels that
+// the fused kernel shares: 256 threads, a 4 x 8 register item a step, the
+// f32 accumulator in shared memory, operands staged with cp.async two
+// stages deep (the W tile transposed by 4-byte copies).
+//   * NT, mm_nt_kernel: one block per dX tile [bm][bk]; the N axis is the
+//     loop, split as the register kernel's.
+//   * TN, mm_tn_kernel: one block per dW tile [bk][bn]; the M axis is the
+//     loop, split as the register kernel's.  Each step stages
+//     X[m0:m0+bm, k0:k0+bk] and dY[m0:m0+bm, n0:n0+bn] as they lie and
+//     contracts over their shared row axis.
 //   * fused: one block per k-block.  It loops n-blocks and, inside them,
 //     m-blocks; each step stages one dY tile, the W tile (transposed) and
 //     the X tile, and feeds the dY tile to both contractions.  The whole-M
@@ -160,7 +182,7 @@ __device__ __forceinline__ void flush(float* __restrict__ dst, int ld, int r0, i
   }
 }
 
-// The N steps [t0, t1) of split part blockIdx.z.
+// The contraction steps [t0, t1) of split part blockIdx.z.
 __device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int* t1) {
   *t0 = (int)((long long)blockIdx.z * n_steps / split);
   *t1 = (int)((long long)(blockIdx.z + 1) * n_steps / split);
@@ -326,20 +348,24 @@ __global__ void __launch_bounds__(kThreads)
 __global__ void __launch_bounds__(kThreads)
     mm_tn_kernel(const float* __restrict__ X, const float* __restrict__ G,
                  float* __restrict__ DW, int M, int N, int K, int bm, int bn,
-                 int bk) {
+                 int bk, int split) {
   extern __shared__ __align__(16) float smem[];
   float* acc = smem;             // [bk][bn]
   float* xs = acc + bk * bn;     // 2 stages of [bm][bk]
   float* gs = xs + 2 * bm * bk;  // 2 stages of [bm][bn]
-  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk, n_m = M / bm;
+  const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
+  int t0, t1;
+  split_share(M / bm, split, &t0, &t1);
 
   zero(acc, bk * bn);
-  stage(xs, X, K, 0, k0, bm, bk);
-  stage(gs, G, N, 0, n0, bm, bn);
+  if (t0 < t1) {
+    stage(xs, X, K, t0 * bm, k0, bm, bk);
+    stage(gs, G, N, t0 * bm, n0, bm, bn);
+  }
   cp_async_commit();
-  for (int t = 0; t < n_m; ++t) {
-    const int s = t & 1;
-    if (t + 1 < n_m) {
+  for (int t = t0; t < t1; ++t) {
+    const int s = (t - t0) & 1;
+    if (t + 1 < t1) {
       stage(xs + (s ^ 1) * bm * bk, X, K, (t + 1) * bm, k0, bm, bk);
       stage(gs + (s ^ 1) * bm * bn, G, N, (t + 1) * bm, n0, bm, bn);
       cp_async_commit();
@@ -351,7 +377,96 @@ __global__ void __launch_bounds__(kThreads)
     mma_tile(acc, bn, xs + s * bm * bk, 1, bk, gs + s * bm * bn, bn, bk, bn, bm);
     __syncthreads();
   }
-  flush(DW, N, k0, n0, acc, bk, bn);
+  flush(DW + (size_t)blockIdx.z * K * N, N, k0, n0, acc, bk, bn);
+}
+
+// TN at the planner's tile: see the header.
+constexpr int kTnBM = 32, kTnBK = 64, kTnBN = 128, kTnStages = 3;
+constexpr int kTnXs = kTnBM * kTnBK, kTnStage = kTnXs + kTnBM * kTnBN;
+
+__global__ void __launch_bounds__(kThreads, 2)
+    mm_tn_reg_kernel(const float* __restrict__ X, const float* __restrict__ G,
+                     float* __restrict__ DW, int M, int N, int K, int split) {
+  extern __shared__ __align__(16) float smem[];
+  // Stage s: xs[bm][bk] at smem + s*kTnStage, gs[bm][bn] after it.
+  const int n0 = blockIdx.x * kTnBN, k0 = blockIdx.y * kTnBK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: dW rows mi*4..+3
+  const int kj = (warp & 1) * 8 + (lane & 7);    // 0..15: cols kj*4.., 64+kj*4..
+  int t0, t1;
+  split_share(M / kTnBM, split, &t0, &t1);
+  const int n_t = t1 - t0;
+
+  auto stage_tn = [&](int t, int s) {
+    float* xs = smem + s * kTnStage;
+    float* gs = xs + kTnXs;
+    const size_t m0 = (size_t)t * kTnBM;
+#pragma unroll
+    for (int i = 0; i < kTnXs / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads, r = e >> 4, c4 = e & 15;
+      cp_async16(xs + r * kTnBK + c4 * 4, X + (m0 + r) * K + k0 + c4 * 4);
+    }
+#pragma unroll
+    for (int i = 0; i < kTnBM * kTnBN / 4 / kThreads; ++i) {
+      const int e = tid + i * kThreads, r = e >> 5, c4 = e & 31;
+      cp_async16(gs + r * kTnBN + c4 * 4, G + (m0 + r) * N + n0 + c4 * 4);
+    }
+  };
+
+  float r[4][8];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) r[i][j] = 0.f;
+
+  if (n_t > 0) stage_tn(t0, 0);
+  cp_async_commit();
+  if (n_t > 1) stage_tn(t0 + 1, 1);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  int s = 0;  // the stage of step i; the ring is kTnStages deep
+  for (int i = 0; i < n_t; ++i) {
+    const int s1 = s + 1 == kTnStages ? 0 : s + 1, s2 = s1 + 1 == kTnStages ? 0 : s1 + 1;
+    if (i + 2 < n_t) stage_tn(t0 + i + 2, s2);
+    cp_async_commit();
+    const float* xs = smem + s * kTnStage;
+    const float* gs = xs + kTnXs;
+#pragma unroll
+    for (int mm = 0; mm < kTnBM; ++mm) {
+      const float4 a = *reinterpret_cast<const float4*>(xs + mm * kTnBK + mi * 4);
+      const float4 b0 = *reinterpret_cast<const float4*>(gs + mm * kTnBN + kj * 4);
+      const float4 b1 = *reinterpret_cast<const float4*>(gs + mm * kTnBN + 64 + kj * 4);
+      const float av[4] = {a.x, a.y, a.z, a.w};
+      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) r[ii][j] = fmaf(av[ii], bv[j], r[ii][j]);
+    }
+    cp_async_wait<1>();  // step i+1 has landed; step i+2 may be in flight
+    __syncthreads();
+    s = s1;
+  }
+  cp_async_wait<0>();
+
+  // Registers -> the first bk*bn floats -> 16-byte stores of the dW tile
+  // (or of this part's slab).
+  float* acc = smem;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = acc + (mi * 4 + i) * kTnBN;
+    *reinterpret_cast<float4*>(row + kj * 4) = make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + kj * 4) =
+        make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
+  }
+  __syncthreads();
+  float* out = DW + (size_t)blockIdx.z * K * N;
+  for (int e = tid; e < kTnBK * kTnBN / 4; e += kThreads) {
+    const int row = e / (kTnBN / 4), c4 = e % (kTnBN / 4);
+    *reinterpret_cast<float4*>(out + (size_t)(k0 + row) * N + n0 + c4 * 4) =
+        *reinterpret_cast<const float4*>(acc + row * kTnBN + c4 * 4);
+  }
 }
 
 __global__ void __launch_bounds__(kThreads)
@@ -409,6 +524,16 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+// Sum `split` slabs of n floats in `part` into `out`, in order.
+cudaError_t reduce_slabs(const float* part, float* out, size_t n, int split,
+                         cudaStream_t st) {
+  const size_t n4 = n / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), n4, split);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -440,22 +565,36 @@ int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, 
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
-  const size_t n4 = (size_t)M * K / 4;
-  const size_t want = (n4 + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(DX), n4, split);
-  return (int)cudaGetLastError();
+  return (int)reduce_slabs(part, DX, (size_t)M * K, split, st);
 }
 
-int repro_matmul_tn_f32(const float* X, const float* G, float* DW, int M, int N,
-                        int K, int bm, int bn, int bk, void* stream) {
+// TN: grid (N/bn, K/bk, split); with split > 1 `part` holds split slabs of
+// K*N floats and a second kernel sums them into DW in order.  `reg` (from
+// bwd.py::tn_template) selects mm_tn_reg_kernel, which takes only its own
+// tile, 0 the simple kernel.
+int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, int M,
+                        int N, int K, int bm, int bn, int bk, int split, int reg,
+                        void* stream) {
   const size_t smem = sizeof(float) * ((size_t)bk * bn + 2 * ((size_t)bm * bk + (size_t)bm * bn));
-  cudaError_t err = set_smem((const void*)mm_tn_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(N / bn, K / bk);
-  mm_tn_kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      X, G, DW, M, N, K, bm, bn, bk);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N / bn, K / bk, split);
+  float* dst = split > 1 ? part : DW;
+  cudaError_t err;
+  if (reg) {
+    if (bm != kTnBM || bn != kTnBN || bk != kTnBK) return (int)cudaErrorInvalidValue;
+    static_assert(kTnStages * kTnStage <= kTnBK * kTnBN + 2 * kTnStage,
+                  "the ring must fit the charged allocation");
+    err = set_smem((const void*)mm_tn_reg_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_tn_reg_kernel<<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, split);
+  } else {
+    err = set_smem((const void*)mm_tn_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_tn_kernel<<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, bm, bn, bk, split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return (int)reduce_slabs(part, DW, (size_t)K * N, split, st);
 }
 
 int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,

@@ -3,8 +3,9 @@ wrapper and plain version.
 
 Replaces ``repro/kernels/flash_attention/flash_attention.py::_fa_kernel``:
 one thread block per (batch x query head, q block), the KV sequence a loop
-inside the block over the blocks the causal/window skips admit, online
-softmax with f32 (m, l) and accumulator, GQA by ``kv head = head // group``,
+inside the block over the blocks the causal/window skips admit, each warp
+owning whole rows of the q block, online softmax with f32 (m, l) and
+accumulator, GQA by ``kv head = head // group``,
 ``q_len``/``kv_len`` padding masks, and rows with no visible key written as
 0.  Operands are ``[B*H, S, D]`` with the heads flattened into the batch and
 the sequences padded to the blocks (``ops.flash_attention`` does both).
@@ -19,8 +20,9 @@ import torch
 from repro_torch.core.machine import H100
 from repro_torch.plan.registry import CudaKernel
 
-# Head dims the kernel is built for, and each one's largest (block_q, block_kv).
-MAX_BLOCKS = {64: (128, 128), 128: (64, 64)}
+# Head dims the kernel is built for, and each one's largest (block_q, block_kv):
+# the blocks AttentionPlanner picks on the H100 at each.
+MAX_BLOCKS = {32: (128, 128), 64: (128, 128), 128: (64, 64), 256: (32, 32)}
 MAX_GRID_Y = 65535  # Sq / block_q rides the grid's y axis
 _NEG = -1e30
 
@@ -33,8 +35,9 @@ def smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
 
 
 def supported_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
-    """The blocks the kernel takes: D in {64, 128}, blocks multiples of 8 up
-    to the instantiation's maxima, within one block's shared memory."""
+    """The blocks the kernel takes: D in :data:`MAX_BLOCKS`, blocks
+    multiples of 8 up to the instantiation's maxima, within one block's
+    shared memory."""
     if head_dim not in MAX_BLOCKS:
         return False
     mq, mkv = MAX_BLOCKS[head_dim]

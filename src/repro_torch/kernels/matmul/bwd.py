@@ -10,7 +10,10 @@ wrapper and plain PyTorch version:
   by the shapes (:func:`nt_split`) and the partial slabs are summed in a
   fixed order.  Replaces ``repro/kernels/matmul/bwd.py::_mm_nt_kernel``.
 * ``matmul_tn`` — dW[K, N] = X[M, K]^T @ dY[M, N]; M streams as the
-  contraction.  Replaces ``::_mm_tn_kernel``.
+  contraction, both tiles staged as they lie.  At the planner's tile
+  (:data:`TN_REGISTER_TILE`, :func:`tn_template`) the dW tile stays in
+  registers; small grids split the M loop (:func:`tn_split`) as NT's
+  does.  Replaces ``::_mm_tn_kernel``.
 * ``matmul_dx_dw`` — both from one read of each dY tile, with the whole-M
   dX strip resident in shared memory.  Replaces ``::_mm_dxdw_kernel``.
 
@@ -29,13 +32,14 @@ import ctypes
 
 import torch
 
-from repro_torch.core.machine import H100, MachineModel, h100_resident_blocks
+from repro_torch.core.machine import H100, MachineModel, h100_split
 from repro_torch.plan import (
     CudaKernel, MatmulDwPlanner, MatmulDxPlanner, Schedule, cuda_op, pad_dim, round_up,
 )
 
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
+TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
 
 
 # -- oracles ---------------------------------------------------------------------
@@ -91,23 +95,35 @@ def supported_blocks(kernel: str, *, block_m: int, block_n: int, block_k: int,
             and smem[kernel]() <= H100.local_mem_bytes)
 
 
-def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
-             units: int = H100.units) -> int:
-    """Thread blocks that share each dX tile's N loop: 1 where the (k, m)
-    grid fills one wave of the card's SMs, else as many as fill the
-    resident block slots (two a SM where two blocks' shared memory fits),
-    never more than the loop has steps.  A function of the shapes alone, so
-    the order of the partial sums (and the result) never changes."""
-    grid = (m // block_m) * (k // block_k)
-    if grid >= units:
-        return 1
-    slots = h100_resident_blocks(smem_bytes_nt(block_m, block_n, block_k)) * units
-    return max(1, min(n // block_n, slots // grid, MAX_GRID_Y))
+def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+    """Thread blocks that share each dX tile's N loop over the (k, m) grid
+    (:func:`repro_torch.core.machine.h100_split`)."""
+    return h100_split(grid=(m // block_m) * (k // block_k), steps=n // block_n,
+                      smem_bytes=smem_bytes_nt(block_m, block_n, block_k))
 
 
 def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
     """Device memory of NT's partial f32 dX slabs (0 without a split)."""
     return 4 * split * m * k if split > 1 else 0
+
+
+def tn_template(block_m: int, block_n: int, block_k: int) -> str:
+    """Which kernel a TN launch with these blocks runs: "register" at
+    :data:`TN_REGISTER_TILE`, else "simple".  The launch passes this
+    choice to the C entry point, which dispatches on it."""
+    return "register" if (block_m, block_n, block_k) == TN_REGISTER_TILE else "simple"
+
+
+def tn_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+    """Thread blocks that share each dW tile's M loop over the (n, k) grid
+    (:func:`repro_torch.core.machine.h100_split`)."""
+    return h100_split(grid=(n // block_n) * (k // block_k), steps=m // block_m,
+                      smem_bytes=smem_bytes_tn(block_m, block_n, block_k))
+
+
+def tn_partial_bytes(*, k: int, n: int, split: int) -> int:
+    """Device memory of TN's partial f32 dW slabs (0 without a split)."""
+    return 4 * split * k * n if split > 1 else 0
 
 
 def _check_multiple(name, dims, blocks):
@@ -211,8 +227,14 @@ def _launch_tn(kernel: CudaKernel, x, g, *, block_m: int, block_n: int, block_k:
     _check_operands("matmul_tn", x=x, g=g)
     if k // block_k > MAX_GRID_Y:
         raise ValueError(f"matmul_tn K/block_k = {k // block_k} exceeds the grid")
+    split = tn_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
     out = torch.empty((k, n), dtype=torch.float32, device=x.device)
-    kernel.run(_ptr(x), _ptr(g), _ptr(out), m, n, k, block_m, block_n, block_k)
+    part = (torch.empty((split, k, n), dtype=torch.float32, device=x.device)
+            if split > 1 else None)
+    kernel.run(_ptr(x), _ptr(g), _ptr(out),
+               ctypes.c_void_p(part.data_ptr() if part is not None else None),
+               m, n, k, block_m, block_n, block_k, split,
+               int(tn_template(block_m, block_n, block_k) == "register"))
     return out
 
 
@@ -234,7 +256,7 @@ matmul_nt_kernel = CudaKernel(
 )
 matmul_tn_kernel = CudaKernel(
     "matmul_tn", source="matmul_bwd", symbol="repro_matmul_tn_f32",
-    argtypes=[ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch_tn, plain=matmul_tn_plain,
 )
 matmul_dxdw_kernel = CudaKernel(

@@ -18,11 +18,11 @@ import ctypes
 
 import torch
 
-from repro_torch.core.machine import H100, h100_resident_blocks
+from repro_torch.core.machine import H100, h100_split
 from repro_torch.plan.registry import CudaKernel
 
 LANE = 8  # the kernel's column group (two float4 runs per thread item)
-MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis, the split its z axis
+MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis
 REGISTER_TILE = (64, 128, 32)  # (block_m, block_n, block_k) of mm_reg_kernel
 
 
@@ -40,16 +40,10 @@ def template(block_m: int, block_n: int, block_k: int) -> str:
 
 
 def mm_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
-    """Thread blocks that share each output tile's K loop: 1 where the
-    (n, m) grid fills one wave of the card's SMs, else as many as fill the
-    resident block slots (two a SM where two blocks' shared memory fits),
-    never more than the loop has steps.  A function of the shapes alone, so
-    the order of the partial sums (and the result) never changes."""
-    grid = (m // block_m) * (n // block_n)
-    if grid >= H100.units:
-        return 1
-    slots = h100_resident_blocks(smem_bytes(block_m, block_n, block_k)) * H100.units
-    return max(1, min(k // block_k, slots // grid, MAX_GRID_Y))
+    """Thread blocks that share each output tile's K loop over the (n, m)
+    grid (:func:`repro_torch.core.machine.h100_split`)."""
+    return h100_split(grid=(m // block_m) * (n // block_n), steps=k // block_k,
+                      smem_bytes=smem_bytes(block_m, block_n, block_k))
 
 
 def mm_partial_bytes(*, m: int, n: int, split: int) -> int:

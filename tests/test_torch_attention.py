@@ -9,6 +9,7 @@ Planners are held field for field.
 """
 
 import dataclasses
+import importlib
 
 import jax
 import jax.numpy as jnp
@@ -28,8 +29,10 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import transformer as tf
 from repro_torch.models.attention import attention as model_attention
 from repro_torch.plan import planners as tp
+from test_torch_kernels import _ArgSink
 
 TOL = 1e-4
+fa_mod = importlib.import_module("repro_torch.kernels.flash_attention.flash_attention")
 MACHINES = [(jm.MANTICORE, tm.MANTICORE), (jm.TPU_V5E, tm.TPU_V5E)]
 
 
@@ -54,6 +57,8 @@ FLASH_CASES = [
     (1, 4, 2, 64, 64, 32, True, 24, 16, 16),       # GQA 4/2 with a window
     (2, 8, 1, 37, 37, 16, True, None, 16, 16),     # GQA 8/1, ragged lengths
     (1, 4, 4, 45, 45, 16, True, 12, 8, 16),        # window narrower than a block
+    (1, 4, 2, 40, 40, 32, True, None, 16, 16),     # D = 32 (the smoke configs'), GQA 4/2
+    (1, 2, 1, 40, 40, 256, True, None, 8, 8),      # D = 256 (gemma3-4b's), GQA 2/1
     (1, 4, 2, 48, 20, 16, True, 8, 16, 16),        # rows past kv_len + 7 see no key
 ]
 
@@ -99,10 +104,45 @@ def test_flash_plain_version_writes_zero_rows_and_checks_its_contract():
                                causal=True, window=None, q_len=30, kv_len=10)
 
 
-def test_flash_kernel_takes_d64_and_d128_only():
-    assert supported_blocks(128, 128, 64) and supported_blocks(64, 64, 128)
-    assert not supported_blocks(128, 128, 128)  # over the D = 128 maxima
-    assert not supported_blocks(64, 64, 32) and not supported_blocks(12, 16, 64)
+# (D, the H100 planner's blocks at S = 2048): the kernel's head dims, each
+# at its instantiation's maxima; the blocks one step past them are refused.
+FLASH_HEAD_DIMS = [(32, (128, 128)), (64, (128, 128)), (128, (64, 64)), (256, (32, 32))]
+
+
+@pytest.mark.parametrize("d,blocks", FLASH_HEAD_DIMS)
+def test_flash_kernel_takes_the_planners_blocks_at_its_head_dims(d, blocks):
+    bq, bkv = blocks
+    s = tp.AttentionPlanner(tm.H100).plan(seq_q=2048, seq_kv=2048, head_dim=d, n_q_heads=8,
+                                          n_kv_heads=4, in_bytes=4, causal=True)
+    assert (s.block("block_q"), s.block("block_kv")) == blocks
+    assert s.vmem_bytes == smem_bytes(bq, bkv, d) <= tm.H100.local_mem_bytes
+    assert supported_blocks(bq, bkv, d) and supported_blocks(8, 8, d)
+    assert supported_blocks(bq - 8, bkv - 8, d)
+    assert not supported_blocks(bq + 8, bkv, d) and not supported_blocks(bq, bkv + 8, d)
+    assert not supported_blocks(bq - 4, bkv, d)  # not a multiple of 8
+    # the launch wrapper hands these to the kernel ...
+    q = torch.zeros(2, bq, d)
+    kv = torch.zeros(1, bkv, d)
+    sink = _ArgSink(flash_attention_kernel)
+    out = fa_mod._launch(sink, q, kv, kv, block_q=bq, block_kv=bkv, scale=d ** -0.5,
+                         causal=True, window=None, q_len=bq, kv_len=bkv)
+    assert out.shape == q.shape and len(sink.args) == len(sink.argtypes) - 1
+    assert sink.args[4:11] == (2, 1, bq, bkv, d, bq, bkv)
+
+
+@pytest.mark.parametrize("d", [16, 48, 96, 512])
+def test_flash_kernel_refuses_other_head_dims(d):
+    """Any other head dim raises before a launch; the plain version, which
+    CPU tensors run, takes it."""
+    assert not supported_blocks(8, 8, d)
+    q = torch.zeros(1, 16, d)
+    sink = _ArgSink(flash_attention_kernel)
+    kw = dict(block_q=8, block_kv=8, scale=0.5, causal=True, window=None, q_len=16,
+              kv_len=16)
+    with pytest.raises(ValueError, match="head_dim"):
+        fa_mod._launch(sink, q, q, q, **kw)
+    assert sink.args is None
+    assert flash_attention_kernel(q, q, q, **kw).shape == q.shape
 
 
 # (B, Sq, Hq, Hkv, D, causal, window): the plain forward's attention, direct
@@ -188,7 +228,8 @@ def test_attention_planner_h100_picks(shape, blocks):
 
 
 @pytest.mark.parametrize("bq,bkv,d", [(128, 128, 64), (64, 64, 128), (64, 128, 64),
-                                      (16, 8, 64), (40, 48, 128)])
+                                      (16, 8, 64), (40, 48, 128), (128, 128, 32),
+                                      (32, 32, 256), (24, 16, 256)])
 def test_kernel_smem_is_the_planner_budget(bq, bkv, d):
     assert smem_bytes(bq, bkv, d) == tp.AttentionPlanner(tm.H100)._vmem_bytes(bq, bkv, d, 4)
 

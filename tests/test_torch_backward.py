@@ -327,6 +327,55 @@ def test_h100_nt_pick_is_the_register_kernels_tile():
         assert s.vmem_bytes == mb.smem_bytes_nt(64, 32, 128) == 81_920
 
 
+# (m, n, k) of TN calls at the H100 dW pick (32, 128, 64): the split of the
+# M loop.  Of the seven TN shapes of both steps only the transformer's wo
+# (an 8 x 16 = 128-block grid) is under one wave of 132 SMs.
+TN_SPLITS = [
+    ((256, 4096, 2048), 1),   # fc1 dW
+    ((256, 1024, 4096), 1),   # fc2 dW (N = 1000 padded to 1024)
+    ((8192, 3072, 1024), 1),  # qkv
+    ((8192, 1024, 1024), 2),  # wo
+    ((8192, 5632, 1024), 1),  # mlp_up
+    ((8192, 1024, 2816), 1),  # mlp_down (K = 2816 = 44 x 64)
+    ((2048, 151936, 1024), 1),  # logits chunk
+    ((64, 128, 64), 2),       # one block, two M steps
+]
+
+
+@pytest.mark.parametrize("mnk,want", TN_SPLITS)
+def test_tn_split_fills_one_wave_and_is_fixed_by_shapes(mnk, want):
+    m, n, k = mnk
+    kw = dict(m=m, n=n, k=k, block_m=32, block_n=128, block_k=64)
+    assert mb.tn_split(**kw) == want == mb.tn_split(**kw)
+    grid = (n // 128) * (k // 64)
+    assert tm.h100_resident_blocks(mb.smem_bytes_tn(32, 128, 64)) == 2
+    assert want == 1 or grid * want <= 2 * tm.H100.units
+    assert want <= m // 32
+    assert mb.tn_partial_bytes(k=k, n=n, split=want) == (4 * want * k * n if want > 1 else 0)
+    if mnk == (8192, 1024, 1024):
+        assert mb.tn_partial_bytes(k=k, n=n, split=want) == 8 * 2 ** 20
+
+
+def test_h100_tn_pick_is_the_register_kernels_tile():
+    """Every TN schedule of both training steps is the (32, 128, 64) tile the
+    register kernel is built for, and the kernel's shared memory is the
+    schedule's vmem_bytes."""
+    from repro_torch.models import transformer as tf
+
+    plans = dict(cnn.plan_training(get_config("cnn-vgg11"), 256))
+    plans.update(tf.plan_training(get_config("qwen1.5-0.5b"), 4, 2048, loss_chunks=4))
+    dw = [s for key, s in plans.items() if key.endswith(".dw")]
+    assert len(dw) == 7
+    for s in dw:
+        b = s.block_dict()
+        assert s.algorithm == "direct"
+        assert (b["block_m"], b["block_n"], b["block_k"]) == mb.TN_REGISTER_TILE
+        assert mb.tn_template(**b) == "register"
+        assert s.vmem_bytes == mb.smem_bytes_tn(**b) == 81_920
+    assert mb.tn_template(block_m=8, block_n=16, block_k=16) == "simple"
+    assert mb.tn_template(block_m=32, block_n=64, block_k=128) == "simple"
+
+
 # -- op parity -------------------------------------------------------------------
 
 

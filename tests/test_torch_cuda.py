@@ -294,6 +294,31 @@ def test_nt_templates_match_plain_and_repeat_bit_for_bit(cuda, m, n, k, blocks):
     assert_close(got, g.double() @ w.double().t())
 
 
+# (m, n, k, blocks): the register TN tile with a split M loop (a 2 x 2
+# grid, eight M steps), without one (a 12 x 12 = 144-block grid), and the
+# simple kernel's 8/16/16 blocks with a split.
+TN_DISPATCH = [
+    (256, 256, 128, (32, 128, 64)),
+    (96, 1536, 768, (32, 128, 64)),
+    (40, 80, 96, (8, 16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,blocks", TN_DISPATCH)
+def test_tn_templates_match_plain_and_repeat_bit_for_bit(cuda, m, n, k, blocks):
+    from repro_torch.kernels.matmul.bwd import tn_split
+
+    bm, bn, bk = blocks
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    assert (tn_split(m=m, n=n, k=k, **kw) > 1) == (m != 96)
+    rng = np.random.default_rng(11)
+    x, g = _rand(rng, m, k), _rand(rng, m, n, scale=m ** -0.5)
+    got = _launched(matmul_tn_kernel, lambda: matmul_tn_kernel(x.to(cuda), g.to(cuda), **kw))
+    assert torch.equal(got, matmul_tn_kernel(x.to(cuda), g.to(cuda), **kw))
+    assert_close(got, x.double().t() @ g.double())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", BWD_CASES)
 def test_dgrad_matches_plain_on_card(cuda, case):
@@ -371,6 +396,10 @@ FLASH_CASES = [
     (1, 4, 4, 300, 300, 64, True, 64),
     (2, 2, 1, 100, 180, 64, False, None),
     (1, 4, 2, 300, 150, 64, True, 32),  # rows 181.. see no key
+    (2, 4, 2, 256, 256, 32, True, None),  # D = 32, the smoke configs' 4/2 heads
+    (1, 4, 2, 100, 100, 32, True, 40),  # 104/104 blocks: P in chunks of 64 and 40
+    (1, 8, 4, 300, 300, 256, True, None),  # D = 256, gemma3-4b's 8/4 heads: 32/32 blocks
+    (1, 8, 4, 200, 200, 256, False, None),
 ]
 
 
@@ -388,6 +417,22 @@ def test_flash_kernel_matches_plain_on_card(cuda, case):
     assert_close(got, want)
     if window == 32:
         assert torch.all(got[:, :, 181:].cpu() == 0) and torch.all(want[:, :, 181:] == 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [32, 64, 128, 256])
+def test_flash_kernel_repeats_bit_for_bit(cuda, d):
+    """Two launches on the same inputs give the same bits, at each head dim's
+    instantiation and the planner's blocks."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    rng = np.random.default_rng(12)
+    q, k, v = _rand(rng, 1, 4, 256, d), _rand(rng, 1, 2, 256, d), _rand(rng, 1, 2, 256, d)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    a = flash_attention(q, k, v, causal=True, window=None)
+    b = flash_attention(q, k, v, causal=True, window=None)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

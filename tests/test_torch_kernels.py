@@ -383,6 +383,28 @@ def test_matmul_launch_passes_its_split_and_slabs(m, k, n, blocks, split, reg):
     assert (sink.args[3].value is not None) == (split > 1)
 
 
+@pytest.mark.parametrize("m,k,n,blocks,split,reg", [
+    (8192, 1024, 1024, (32, 128, 64), 2, 1),  # wo: the register tile, split
+    (256, 2048, 4096, (32, 128, 64), 1, 1),   # fc1
+    (64, 32, 64, (32, 64, 32), 2, 0),         # the simple kernel's tile
+])
+def test_tn_launch_passes_its_template_split_and_slabs(m, k, n, blocks, split, reg):
+    """The TN wrapper alone picks the kernel: the C entry point gets
+    tn_template's choice (1 register, 0 simple), tn_split's split and a
+    slab buffer exactly when it splits."""
+    from repro_torch.kernels.matmul import bwd as mb
+
+    sink = _ArgSink(mb.matmul_tn_kernel)
+    bm, bn, bk = blocks
+    out = mb._launch_tn(sink, torch.zeros(m, k), torch.zeros(m, n), block_m=bm,
+                        block_n=bn, block_k=bk)
+    assert tuple(out.shape) == (k, n)
+    assert len(sink.args) == len(sink.argtypes) - 1
+    assert sink.args[4:] == (m, n, k, bm, bn, bk, split, reg)
+    assert reg == (mb.tn_template(*blocks) == "register")
+    assert (sink.args[3].value is not None) == (split > 1)
+
+
 @pytest.mark.parametrize("W_O,stride,run", [(8, 1, 4), (16, 1, 8), (9, 1, 0), (8, 2, 0)])
 def test_conv_launch_passes_the_register_run(W_O, stride, run):
 
