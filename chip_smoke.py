@@ -29,16 +29,19 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              and TN matmuls at fc1/fc2) and the fused dX/dW kernel at
              fc1/fc2 at batch 128, plus a ragged case each; phase-2
              tolerance.  Each wgrad and NT record names its split of the
-             contraction, each dgrad and TN record its template (TN: the
-             register or simple kernel and the split of its M loop); wgrad
-             at conv0 (split) and conv3, NT at fc1 dX (split), TN at fc1 dW
-             and the conv3 dgrad are launched twice and must give the same
-             bits (phase ``determinism``).
+             contraction, each dgrad, TN and fused record its template (TN
+             and fused: the register or simple kernel and the split of its
+             M or N loop); wgrad at conv0 (split) and conv3, NT at fc1 dX
+             (split), TN at fc1 dW, the fused fc1 and fc2 calls and the
+             conv3 dgrad are launched twice and must give the same bits
+             (phase ``determinism``).
 5. train   — the main path of this slice: the launcher
              (``repro_torch.launch.train --arch cnn-vgg11 --batch 256
              --steps 3 --planned-kernels``) with its launch counts against
              what plan_training implies, and a batch-128 step that runs the
-             fused dX/dW kernel; then, from one seeded state, the step-1
+             fused dX/dW kernel (its step-1 gradients against the same step
+             with the fused kernel's plain version); then, from one seeded
+             state, the step-1
              loss and gradients per tensor at the phase-2 tolerance (a)
              against the same planned step with every backward kernel
              swapped for its plain version, and (b) against an independent
@@ -71,8 +74,12 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
 8. times   — CUDA-event medians of each kernel at every forward and
              backward shape, beside its plain version, one library call and
              the bound, with bound_share = bound_ms / ms and, for the conv,
-             the matmul and TN, the template (every main-path call must take
-             the register kernel) (each wgrad record
+             the matmul, TN and the fused dX/dW kernel, the template (every
+             main-path call must take the register kernel); each fused
+             record also times two yardsticks, pair_library_ms (the two
+             torch.matmul calls) and pair_port_ms (the port's NT + TN at
+             the layer's direct blocks), and the device time of the call
+             and of each yardstick by torch.profiler (each wgrad record
              also names the device kernels conv2d_weight runs, read with
              torch.profiler); the forward's and the training step's ms per batch
              and images/s; device time by kernel over a profiled forward
@@ -412,7 +419,7 @@ def bwd_cases(torch, cnn, cfg):
                                 (padded(gr, mp, np_), padded(w, kp, np_), padded(x, mp, kp)),
                                 dict(block_m=bm, block_n=bn, block_k=bk),
                                 dict(flops=2 * flops, nbytes=nbytes + 4.0 * (m * k + k * n),
-                                     lib=None)))
+                                     lib=None, pairs=fused_pairs(torch, x, w, gr, bw, padded))))
                     continue
                 for kernel, b in (("matmul_nt", bx), ("matmul_tn", bw)):
                     bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
@@ -441,6 +448,27 @@ def bwd_cases(torch, cnn, cfg):
     out.append(("matmul_tn", "ragged", (x, gr), blocks, {}))
     out.append(("matmul_dx_dw", "ragged", (gr, w, x), blocks, {}))
     return out
+
+
+def fused_pairs(torch, x, w, gr, b_dw, padded) -> dict:
+    """The two yardsticks of a fused dX/dW call: the two torch.matmul calls
+    for the same pair of products, and the port's own NT + TN at the
+    layer's direct blocks (what plan_bwd runs where the fused schedule does
+    not fit)."""
+    from repro_torch.core.machine import H100
+    from repro_torch.kernels.matmul.bwd import matmul_nt_kernel, matmul_tn_kernel
+    from repro_torch.plan import planner_for, round_up
+
+    (m, k), n = x.shape, w.shape[1]
+    b_dx = planner_for("matmul_dx", H100).plan(m=m, n=n, k=k, in_bytes=4).block_dict()
+    nt, tn = ({key: b[key] for key in ("block_m", "block_n", "block_k")} for b in (b_dx, b_dw))
+    g_nt = padded(gr, round_up(m, nt["block_m"]), round_up(n, nt["block_n"]))
+    w_nt = padded(w, round_up(k, nt["block_k"]), round_up(n, nt["block_n"]))
+    x_tn = padded(x, round_up(m, tn["block_m"]), round_up(k, tn["block_k"]))
+    g_tn = padded(gr, round_up(m, tn["block_m"]), round_up(n, tn["block_n"]))
+    return {"pair_library_ms": lambda: (torch.matmul(gr, w.t()), torch.matmul(x.t(), gr)),
+            "pair_port_ms": lambda: (matmul_nt_kernel(g_nt, w_nt, **nt),
+                                     matmul_tn_kernel(x_tn, g_tn, **tn))}
 
 
 # -- phases -------------------------------------------------------------------------
@@ -541,9 +569,9 @@ def phase_forward(torch, plans, cnn, cfg, params, images, kernels, results):
 
 def split_record(kernel, args, kw) -> dict:
     """The launch's split of its contraction (wgrad: the (batch, strip)
-    sweep; NT, TN and the forward matmul: the N, M or K loop) and its
-    partial-slab bytes (traffic the planner's modeled words do not
-    count)."""
+    sweep; NT, TN and the forward matmul: the N, M or K loop; the fused
+    dX/dW kernel: each k-block's n-blocks) and its partial-slab bytes
+    (traffic the planner's modeled words do not count)."""
     from repro_torch.core.machine import h100_resident_blocks
     from repro_torch.kernels.conv2d import bwd as cb
     from repro_torch.kernels.matmul import bwd as mb
@@ -564,6 +592,11 @@ def split_record(kernel, args, kw) -> dict:
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
         split = mb.tn_split(m=m, n=n, k=k, **blocks)
         return {"split": split, "partial_bytes": mb.tn_partial_bytes(k=k, n=n, split=split)}
+    if kernel == "matmul_dx_dw":
+        (m, n), k = args[0].shape, args[1].shape[0]
+        blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
+        split = mb.dxdw_split(m=m, n=n, k=k, **blocks)
+        return {"split": split, "partial_bytes": mb.nt_partial_bytes(m=m, k=k, split=split)}
     B = args[0].shape[0]
     d_in, d_out = (cb.wgrad_channels(t.shape[-1]) for t in args)
     smem = cb.wgrad_smem_bytes(block_h=kw["block_h"], block_do=kw["block_do"],
@@ -579,15 +612,20 @@ def split_record(kernel, args, kw) -> dict:
 
 
 def template_record(kernel, args, kw) -> dict:
-    """Which kernel template a conv2d, matmul or TN launch takes: the conv's
-    register kernel with its pixel run and channel groups, or the simple
-    kernel; the matmul's and TN's register or simple kernel and their K or
-    M split.  All are the choices the wrappers pass to the C entry points,
-    which dispatch on them."""
+    """Which kernel template a conv2d, matmul, TN or fused dX/dW launch
+    takes: the conv's register kernel with its pixel run and channel
+    groups, or the simple kernel; the matmul's, TN's and the fused kernel's
+    register or simple kernel and their K, M or N split.  All are the
+    choices the wrappers pass to the C entry points, which dispatch on
+    them."""
     from repro_torch.kernels.conv2d.conv2d import register_layout
-    from repro_torch.kernels.matmul.bwd import tn_template
+    from repro_torch.kernels.matmul.bwd import dxdw_template, tn_template
     from repro_torch.kernels.matmul.matmul import template
 
+    if kernel == "matmul_dx_dw":
+        return dict(template=dxdw_template(kw["block_m"], kw["block_n"], kw["block_k"],
+                                           args[0].shape[0]),
+                    **split_record(kernel, args, kw))
     if kernel in ("matmul", "matmul_tn"):
         pick = template if kernel == "matmul" else tn_template
         return dict(template=pick(kw["block_m"], kw["block_n"], kw["block_k"]),
@@ -600,10 +638,12 @@ def template_record(kernel, args, kw) -> dict:
 
 # The calls whose two launches must give the same bits: a split and an
 # unsplit call of each register kernel (wgrad, NT, TN, the forward matmul),
-# the direct conv's forward (with its mask) and dgrad, and flash attention.
+# both fused dX/dW calls (split 8 and 4), the direct conv's forward (with
+# its mask) and dgrad, and flash attention.
 DETERMINISM = {("conv2d_wgrad", "conv0.wgrad"), ("conv2d_wgrad", "conv3.wgrad"),
                ("matmul_nt", "fc1.dx"), ("matmul_nt", "qkv.dx"),
                ("matmul_tn", "wo.dw"), ("matmul_tn", "qkv.dw"), ("matmul_tn", "fc1.dw"),
+               ("matmul_dx_dw", "fc1.dxdw"), ("matmul_dx_dw", "fc2.dxdw"),
                ("matmul", "fc2"), ("matmul", "qkv"),
                ("conv2d", "conv1"), ("conv2d", "conv3.dgrad"),
                ("flash_attention", "attn")}
@@ -639,7 +679,7 @@ def phase_bwd(torch, cnn, cfg, kernels, results):
                          schedule_words=meta.get("schedule_words"))
         elif kernel == "matmul_nt":
             extra = split_record(kernel, args, kw)
-        elif kernel in ("conv2d", "matmul_tn"):
+        elif kernel in ("conv2d", "matmul_tn", "matmul_dx_dw"):
             extra = template_record(kernel, args, kw)
         emit(phase="bwd", kernel=kernel, case=label, shape=[list(a.shape) for a in args],
              blocks={b: v for b, v in kw.items() if b.startswith("block")}, max_abs_err=err,
@@ -795,6 +835,7 @@ def phase_train(torch, cnn, cfg, kernels, results):
     for k, e in grad_err.items():
         for ref, r in e.items():
             check(r["max_abs_err"] <= TOL * r["scale"], f"step-1 grad {k} vs {ref}: {r}")
+    fused_step_grads(torch, cnn, cfg, tr, tcfgs["planned"], params0, kernels)
     losses = {}
     for name, tc in tcfgs.items():
         step, state = tr.make_train_step(cfg, tc), tr.init_state(cfg, tc, params0)
@@ -809,6 +850,33 @@ def phase_train(torch, cnn, cfg, kernels, results):
          loss_tolerance=LOSS_TOL, losses=losses,
          max_loss_diff=max(abs(a - b) for a, b in zip(losses["planned"], losses["plain"])))
     return tcfgs, params0, batches
+
+
+def fused_step_grads(torch, cnn, cfg, tr, tcfg, params0, kernels) -> None:
+    """The batch-128 step, where fc1 and fc2 take the fused dX/dW kernel:
+    its step-1 loss and gradients against the same step with the fused
+    kernel swapped for its plain version (every other kernel and the
+    forward's decisions the same), at the phase-2 tolerance."""
+    from repro_torch.data.pipeline import ShardInfo
+
+    batch = tr.batch_to(cnn.data_source(cfg, FUSED_BATCH, ShardInfo(0, 1), seed=SEED)(0),
+                        "cuda")
+    fused = kernels["matmul_dx_dw"]
+    before = fused.launches
+    loss, got = planned_grads(torch, cfg, tr, tcfg, params0, batch, kernels, plain=())
+    launched = fused.launches - before
+    ref_loss, want = planned_grads(torch, cfg, tr, tcfg, params0, batch, kernels,
+                                   plain=("matmul_dx_dw",))
+    errs = {k: {"max_abs_err": max_err(got[k], want[k]), "scale": scale(want[k])} for k in got}
+    emit(phase="train", check="step-1 gradients, fused dX/dW vs its plain version",
+         batch=FUSED_BATCH, fused_launches=launched, grad_tolerance=TOL, loss=loss,
+         reference_loss=ref_loss, step1_grads=errs)
+    check(launched == 2, f"batch {FUSED_BATCH} step: {launched} fused launches, not 2")
+    check(abs(loss - ref_loss) <= LOSS_TOL * max(1.0, abs(ref_loss)),
+          f"batch {FUSED_BATCH} step-1 loss: {loss} {ref_loss}")
+    for k, r in errs.items():
+        check(bool(torch.isfinite(got[k]).all()), f"batch {FUSED_BATCH} grad {k}: non-finite")
+        check(r["max_abs_err"] <= TOL * r["scale"], f"batch {FUSED_BATCH} grad {k}: {r}")
 
 
 def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
@@ -827,7 +895,7 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
     steps = {b: train_calls(cnn, cl, cfg, cnn.plan_training(cfg, b), b)
              for b in (BATCH, FUSED_BATCH)}
 
-    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, template=None):
+    def record(name, label, fn, plain_fn, lib_fn, flops, nbytes, template=None, pairs=None):
         ms, plain_ms = median_ms(fn), median_ms(plain_fn)
         lib_ms = median_ms(lib_fn) if lib_fn is not None else None
         b_ms, b_by = bound_ms(flops, nbytes)
@@ -837,6 +905,11 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
                     plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                     bound_share=b_ms / ms, **(template or {}), flops=flops, bytes=nbytes,
                     peaks=PEAKS)
+        if pairs:  # the yardsticks, and each one's device time beside the call's
+            call["device_ms"] = device_time_ms(torch, fn)
+            for key, f in pairs.items():
+                call[key] = median_ms(f)
+                call[key.replace("_ms", "_device_ms")] = device_time_ms(torch, f)
         if template and (call["per_forward"] or call["per_step"]):
             check(template["template"] == "register",
                   f"{name} {label}: a main-path call runs the {template['template']} kernel")
@@ -874,7 +947,9 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         k = kernels[name]
         record(name, label, lambda: k(*args, **kw), lambda: k.plain(*args, **kw),
                meta["lib"], meta["flops"], meta["nbytes"],
-               template_record(name, args, kw) if name in ("conv2d", "matmul_tn") else None)
+               template_record(name, args, kw)
+               if name in ("conv2d", "matmul_tn", "matmul_dx_dw") else None,
+               meta.get("pairs"))
 
     with torch.no_grad():
         fwd = {alg: median_ms(lambda: cnn.forward(cfg, params, images, schedules=plans[alg]),
@@ -911,6 +986,21 @@ def device_kernels(torch, prof, reps: int = 1):
         if dev_us > 0 and ev.device_type == DeviceType.CUDA:
             rows.append((dev_us / reps / 1e3, ev.key, ev.count // reps))
     return sorted(rows, reverse=True)
+
+
+def device_time_ms(torch, fn, reps: int = 5) -> float:
+    """Device time of one call of ``fn``: its kernels' time by torch.profiler
+    over ``reps`` calls, without the host time before each launch that a
+    CUDA-event median of a single call includes."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(ms for ms, _, _ in device_kernels(torch, prof, reps))
 
 
 def library_kernels(torch, fn, top: int = 3) -> list:
@@ -1302,7 +1392,7 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
                    2 * flops if name == "matmul_dx_dw" else flops, nbytes,
                    reps=3 if cell == "logits" else 5,
                    template=(template_record(name, args, b)
-                             if name in ("matmul", "matmul_tn") else None))
+                             if name in ("matmul", "matmul_tn", "matmul_dx_dw") else None))
             del xp, wp, gp, args
         del x, w, dy, runs
         torch.cuda.empty_cache()
@@ -1400,6 +1490,10 @@ def main() -> int:
         total["library_ms"] = (None if any(v is None for v in libs)
                                else sum(c["library_ms"] * c["per_step"] for c in calls))
         total["bound_by"] = max(calls, key=lambda c: c["bound_ms"])["bound_by"]
+        for key in ("device_ms", "pair_library_ms", "pair_library_device_ms", "pair_port_ms",
+                    "pair_port_device_ms"):
+            if all(key in c for c in calls):
+                total[key] = sum(c[key] * c["per_step"] for c in calls)
         return total
 
     check(DETERMINED == DETERMINISM, f"determinism checks run: {sorted(DETERMINED)}")

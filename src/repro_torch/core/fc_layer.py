@@ -7,7 +7,9 @@ blocks from the MatmulPlanner unless an explicit ``schedule`` is given.
 Backward is planned too: autograd runs the ``matmul_dx`` kernel (dX = dY @
 W^T, no W^T in device memory) and the ``matmul_dw`` kernel (dW = X^T @ dY),
 or — when the dX schedule carries the ``fused_dxdw`` tag — the fused kernel
-that computes both from one read of each dY tile.  Pin them with
+that computes both from one read of each dY tile (at the H100 pick, up to a
+batch of 192, with both accumulators in registers and each k-block's
+n-blocks split over enough thread blocks to fill the card).  Pin them with
 ``bwd_schedules={"dx": ..., "dw": ...}`` (see :func:`plan_bwd`).  An unfit
 pinned schedule raises on the card; on CPU tensors it warns once and runs
 the kernels' plain versions with its blocks.

@@ -8,11 +8,12 @@
 // ::_mm_dxdw_kernel (matmul_dx_dw_pallas).
 //
 // What bounds them here: at the CNN's FC shapes (fc1 256x2048x4096, fc2
-// 256x4096x1000) and the transformer's (M = 8192 or 2048, K and N from
-// 1024 to 151936) the arithmetic intensity is far above the card's f32
-// balance point (about 20 flop/B), so the bound is f32 operations on the
-// CUDA cores (67 TFLOP/s; no tensor cores). What keeps a kernel below it is
-// shared-memory traffic per FMA, bank conflicts, and grids under one wave.
+// 256x4096x1000; the fused kernel's at 128 rows) and the transformer's
+// (M = 8192 or 2048, K and N from 1024 to 151936) the arithmetic intensity
+// is far above the card's f32 balance point (about 20 flop/B), so the
+// bound is f32 operations on the CUDA cores (67 TFLOP/s; no tensor cores).
+// What keeps a kernel below it is shared-memory traffic per FMA, bank
+// conflicts, and grids under one wave.
 //
 // NT at the planner's tile (bm 64, bk 128, bn 32; every shape of both
 // steps), mm_nt_reg_kernel:
@@ -56,22 +57,50 @@
 //   * Small grids. Where the (n, k) grid is under one wave of SMs (the
 //     transformer's wo), the M loop is split over a number of blocks fixed
 //     by the shapes (bwd.py::tn_split), summed in order as NT's slabs are.
-// The wrappers pick the register kernels (bwd.py::tn_template for TN; NT
-// dispatches on its tile here).  Other blocks run the simple kernels that
-// the fused kernel shares: 256 threads, a 4 x 8 register item a step, the
-// f32 accumulator in shared memory, operands staged with cp.async two
-// stages deep (the W tile transposed by 4-byte copies).
+// The fused kernel at the planner's tile (bm 64, bn 32, bk 128) and an
+// M of one to three m-blocks (every batch the fused schedule fits, up to
+// 192), mm_dxdw_reg_kernel<NM>: a block owns one k-block and a share of
+// the n-blocks; for each n-block it walks the NM m-blocks, and each step
+// feeds one dY tile [bm][bn] to both contractions.
+//   * Registers. Each thread holds NM 4 x 8 dX tiles (NT's mapping: rows
+//     mi*4..+3 of each m-block, columns kj*4.. and 64+kj*4..) for the whole
+//     loop, and one 4 x 4 tile of the n-block's dW [bk][bn] (rows ki*4..+3,
+//     columns nj*4..+3), zeroed at each n-block and stored with 16-byte
+//     stores after its last m-block.  The m loop is unrolled, so every
+//     register index is a constant.
+//   * Staging. The X strip [M][bk] is the same for every n-block, so it
+//     goes in once, by 16-byte cp.async, into the charged whole-M strip
+//     region.  Each dY tile is loaded once from device memory (float4s into
+//     registers during the current step's FMAs) and written twice: as it
+//     lies, gs[bm][bn], for dW (contract M), and transposed and swizzled,
+//     gts[bn][bm], for dX (contract N), as NT stages it.  The W tile of an
+//     n-block goes through registers into a swizzled ws[bn][bk] during the
+//     n-block's last step.  Two stages of each, one barrier a step.
+//   * Epilogue. The register dX tiles go through the X strip's region and
+//     out as coalesced 16-byte stores.
+//   * Small grids. The K/bk grid alone is under one wave of SMs (fc1 16
+//     blocks, fc2 32), so the n-blocks are split over a number of blocks
+//     fixed by the shapes (bwd.py::dxdw_split): each dW tile still has one
+//     owner and is written once; each block writes a partial dX strip to
+//     its slab and the slabs are summed in order as NT's are.
+// The wrappers pick the register kernels (bwd.py::tn_template for TN,
+// bwd.py::dxdw_template for the fused kernel; NT dispatches on its tile
+// here).  Other blocks run the simple kernels: 256 threads, a 4 x 8
+// register item a step, the f32 accumulator in shared memory, operands
+// staged with cp.async two stages deep (the W tile transposed by 4-byte
+// copies).
 //   * NT, mm_nt_kernel: one block per dX tile [bm][bk]; the N axis is the
 //     loop, split as the register kernel's.
 //   * TN, mm_tn_kernel: one block per dW tile [bk][bn]; the M axis is the
 //     loop, split as the register kernel's.  Each step stages
 //     X[m0:m0+bm, k0:k0+bk] and dY[m0:m0+bm, n0:n0+bn] as they lie and
 //     contracts over their shared row axis.
-//   * fused: one block per k-block.  It loops n-blocks and, inside them,
-//     m-blocks; each step stages one dY tile, the W tile (transposed) and
-//     the X tile, and feeds the dY tile to both contractions.  The whole-M
-//     dX strip [M][bk] and the dW tile [bk][bn] stay in shared memory: the
-//     dW tile flushes after each n-block, the dX strip once at the end.
+//   * fused, mm_dxdw_kernel: one block per k-block and split part.  It
+//     loops its n-blocks and, inside them, m-blocks; each step stages one
+//     dY tile, the W tile (transposed) and the X tile, and feeds the dY
+//     tile to both contractions.  The whole-M dX strip [M][bk] and the dW
+//     tile [bk][bn] stay in shared memory: the dW tile flushes after each
+//     n-block, the dX strip (or slab) once at the end.
 // Shared memory per block is exactly what the planners charge:
 //   NT 4*(bm*bk + 2*(bm*bn + bn*bk)), TN 4*(bk*bn + 2*(bm*bk + bm*bn)),
 //   fused 4*(2*(bm*bn + bk*bn + bm*bk) + M*bk + bk*bn).
@@ -228,6 +257,66 @@ constexpr int kNtBM = 64, kNtBN = 32, kNtBK = 128;
 
 __device__ __forceinline__ int nt_swz(int n) { return ((n >> 2) & 7) << 2; }
 
+// Loader rows lr, lr+32, ... (R of them) of a tile, float4 column lc (n =
+// lc*4..+3), transposed into dst[n][row ^ nt_swz(n)] (row length ld): the
+// 32 scalar stores of a warp land in 32 distinct banks.
+template <int R>
+__device__ __forceinline__ void store_swz(float* dst, int ld, const float4 (&v)[R], int lr,
+                                          int lc) {
+  const int sw = lc << 2;  // nt_swz(n) for n = lc*4 + j
+#pragma unroll
+  for (int i = 0; i < R; ++i) {
+    const int c = (lr + 32 * i) ^ sw;
+    dst[(lc * 4 + 0) * ld + c] = v[i].x;
+    dst[(lc * 4 + 1) * ld + c] = v[i].y;
+    dst[(lc * 4 + 2) * ld + c] = v[i].z;
+    dst[(lc * 4 + 3) * ld + c] = v[i].w;
+  }
+}
+
+// r += dY tile . W tile^T over one bn step, for the 4 x 8 dX item (rows
+// mi*4..+3, cols kj*4.., 64+kj*4..): g the swizzled [bn][bm] dY tile, w the
+// swizzled [bn][bk] W tile.
+__device__ __forceinline__ void nt_tile_fma(float (&r)[4][8], const float* g, const float* w,
+                                            int mi, int kj) {
+#pragma unroll
+  for (int kk = 0; kk < kNtBN; ++kk) {
+    const int sw = nt_swz(kk);
+    const float4 a = *reinterpret_cast<const float4*>(g + kk * kNtBM + ((mi * 4) ^ sw));
+    const float4 b0 = *reinterpret_cast<const float4*>(w + kk * kNtBK + ((kj * 4) ^ sw));
+    const float4 b1 = *reinterpret_cast<const float4*>(w + kk * kNtBK + 64 + ((kj * 4) ^ sw));
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
+  }
+}
+
+// The 4 x 8 dX item -> rows (mi*4..+3) of acc[..][kNtBK] in shared memory.
+__device__ __forceinline__ void nt_item_out(float* acc, const float (&r)[4][8], int mi,
+                                            int kj) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    float* row = acc + (mi * 4 + i) * kNtBK;
+    *reinterpret_cast<float4*>(row + kj * 4) = make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
+    *reinterpret_cast<float4*>(row + 64 + kj * 4) =
+        make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
+  }
+}
+
+// src[rows][kNtBK] -> out[r0:r0+rows, k0:k0+kNtBK] (row length K), 16 bytes
+// per store.
+__device__ __forceinline__ void nt_rows_out(float* __restrict__ out, int K, int r0, int k0,
+                                            const float* src, int rows) {
+  for (int e = threadIdx.x; e < rows * kNtBK / 4; e += kThreads) {
+    const int row = e / (kNtBK / 4), c4 = e % (kNtBK / 4);
+    *reinterpret_cast<float4*>(out + (size_t)(r0 + row) * K + k0 + c4 * 4) =
+        *reinterpret_cast<const float4*>(src + row * kNtBK + c4 * 4);
+  }
+}
+
 __global__ void __launch_bounds__(kThreads, 2)
     mm_nt_reg_kernel(const float* __restrict__ G, const float* __restrict__ W,
                      float* __restrict__ DX, int M, int N, int K, int split) {
@@ -257,25 +346,8 @@ __global__ void __launch_bounds__(kThreads, 2)
       rw[i] = __ldg(reinterpret_cast<const float4*>(wsrc + (size_t)i * 32 * N + n0));
   };
   auto store = [&](int s) {
-    float* g = gs + s * kNtBN * kNtBM;
-    float* w = ws + s * kNtBN * kNtBK;
-    const int sw = lc << 2;  // nt_swz(n) for n = lc*4 + j
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const int c = (lr + 32 * i) ^ sw;
-      g[(lc * 4 + 0) * kNtBM + c] = rg[i].x;
-      g[(lc * 4 + 1) * kNtBM + c] = rg[i].y;
-      g[(lc * 4 + 2) * kNtBM + c] = rg[i].z;
-      g[(lc * 4 + 3) * kNtBM + c] = rg[i].w;
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int c = (lr + 32 * i) ^ sw;
-      w[(lc * 4 + 0) * kNtBK + c] = rw[i].x;
-      w[(lc * 4 + 1) * kNtBK + c] = rw[i].y;
-      w[(lc * 4 + 2) * kNtBK + c] = rw[i].z;
-      w[(lc * 4 + 3) * kNtBK + c] = rw[i].w;
-    }
+    store_swz(gs + s * kNtBN * kNtBM, kNtBM, rg, lr, lc);
+    store_swz(ws + s * kNtBN * kNtBK, kNtBK, rw, lr, lc);
   };
 
   float r[4][8];
@@ -292,42 +364,16 @@ __global__ void __launch_bounds__(kThreads, 2)
   for (int t = t0; t < t1; ++t) {
     const int s = (t - t0) & 1;
     if (t + 1 < t1) load(t + 1);  // in flight during this step's FMAs
-    const float* g = gs + s * kNtBN * kNtBM;
-    const float* w = ws + s * kNtBN * kNtBK;
-#pragma unroll
-    for (int kk = 0; kk < kNtBN; ++kk) {
-      const int sw = nt_swz(kk);
-      const float4 a = *reinterpret_cast<const float4*>(g + kk * kNtBM + ((mi * 4) ^ sw));
-      const float4 b0 = *reinterpret_cast<const float4*>(w + kk * kNtBK + ((kj * 4) ^ sw));
-      const float4 b1 =
-          *reinterpret_cast<const float4*>(w + kk * kNtBK + 64 + ((kj * 4) ^ sw));
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
-    }
+    nt_tile_fma(r, gs + s * kNtBN * kNtBM, ws + s * kNtBN * kNtBK, mi, kj);
     if (t + 1 < t1) store(s ^ 1);
     __syncthreads();
   }
 
   // Registers -> the accumulator region -> 16-byte stores of the dX tile
   // (or of this part's slab).
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float* row = acc_s + (mi * 4 + i) * kNtBK;
-    *reinterpret_cast<float4*>(row + kj * 4) = make_float4(r[i][0], r[i][1], r[i][2], r[i][3]);
-    *reinterpret_cast<float4*>(row + 64 + kj * 4) =
-        make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
-  }
+  nt_item_out(acc_s, r, mi, kj);
   __syncthreads();
-  float* out = DX + (size_t)blockIdx.z * M * K;
-  for (int e = tid; e < kNtBM * kNtBK / 4; e += kThreads) {
-    const int row = e / (kNtBK / 4), c4 = e % (kNtBK / 4);
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * K + k0 + c4 * 4) =
-        *reinterpret_cast<const float4*>(acc_s + row * kNtBK + c4 * 4);
-  }
+  nt_rows_out(DX + (size_t)blockIdx.z * M * K, K, m0, k0, acc_s, kNtBM);
 }
 
 // out[i] = sum over s of part[s][i], s in order, four floats a thread.
@@ -473,23 +519,28 @@ __global__ void __launch_bounds__(kThreads)
     mm_dxdw_kernel(const float* __restrict__ G, const float* __restrict__ W,
                    const float* __restrict__ X, float* __restrict__ DX,
                    float* __restrict__ DW, int M, int N, int K, int bm, int bn,
-                   int bk) {
+                   int bk, int split) {
   extern __shared__ __align__(16) float smem[];
   float* dxs = smem;                     // [M][bk] whole-M dX strip
   float* dws = dxs + M * bk;             // [bk][bn] dW tile
   float* gs = dws + bk * bn;             // 2 stages of [bm][bn]
   float* ws = gs + 2 * bm * bn;          // 2 stages of [bn][bk] (W transposed)
   float* xs = ws + 2 * bn * bk;          // 2 stages of [bm][bk]
-  const int k0 = blockIdx.x * bk, n_m = M / bm, steps = (N / bn) * n_m;
+  const int k0 = blockIdx.x * bk, n_m = M / bm;
+  int t0, t1;  // this part's n-blocks; its steps run [t0*n_m, t1*n_m)
+  split_share(N / bn, split, &t0, &t1);
+  const int first = t0 * n_m, steps = t1 * n_m;
 
   zero(dxs, M * bk);
   zero(dws, bk * bn);
-  stage(gs, G, N, 0, 0, bm, bn);
-  stage_t(ws, W, N, k0, 0, bk, bn);
-  stage(xs, X, K, 0, k0, bm, bk);
+  if (first < steps) {
+    stage(gs, G, N, 0, t0 * bn, bm, bn);
+    stage_t(ws, W, N, k0, t0 * bn, bk, bn);
+    stage(xs, X, K, 0, k0, bm, bk);
+  }
   cp_async_commit();
-  for (int t = 0; t < steps; ++t) {
-    const int s = t & 1, nb = t / n_m, mb = t % n_m;
+  for (int t = first; t < steps; ++t) {
+    const int s = (t - first) & 1, nb = t / n_m, mb = t % n_m;
     if (t + 1 < steps) {
       const int n1 = ((t + 1) / n_m) * bn, m1 = ((t + 1) % n_m) * bm;
       stage(gs + (s ^ 1) * bm * bn, G, N, m1, n1, bm, bn);
@@ -516,8 +567,129 @@ __global__ void __launch_bounds__(kThreads)
     }
   }
   __syncthreads();
-  flush(DX, K, 0, k0, dxs, M, bk);
+  flush(DX + (size_t)blockIdx.z * M * K, K, 0, k0, dxs, M, bk);
 }
+
+// r += the X strip's m-block x[bm][bk]^T . the dY tile g[bm][bn] for the
+// 4 x 4 dW item (rows ki*4..+3, cols nj*4..+3).
+__device__ __forceinline__ void tn_tile_fma(float (&r)[4][4], const float* x, const float* g,
+                                            int ki, int nj) {
+#pragma unroll
+  for (int mm = 0; mm < kNtBM; ++mm) {
+    const float4 a = *reinterpret_cast<const float4*>(x + mm * kNtBK + ki * 4);
+    const float4 b = *reinterpret_cast<const float4*>(g + mm * kNtBN + nj * 4);
+    const float av[4] = {a.x, a.y, a.z, a.w};
+    const float bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) r[i][j] = fmaf(av[i], bv[j], r[i][j]);
+  }
+}
+
+// The fused kernel at the planner's tile (NT's) with NM m-blocks: see the
+// header.
+template <int NM>
+__global__ void __launch_bounds__(kThreads, 1)
+    mm_dxdw_reg_kernel(const float* __restrict__ G, const float* __restrict__ W,
+                       const float* __restrict__ X, float* __restrict__ DX,
+                       float* __restrict__ DW, int N, int K, int split) {
+  constexpr int M = NM * kNtBM;
+  constexpr int kG = kNtBM * kNtBN, kW = kNtBN * kNtBK;  // floats of a dY, W tile
+  extern __shared__ __align__(16) float smem[];
+  float* xs = smem;                 // [M][bk]: the X strip, then the dX epilogue
+  float* gts = xs + M * kNtBK;      // 2 stages of [bn][bm], swizzled (for dX)
+  float* gs = gts + 2 * kG;         // 2 stages of [bm][bn] as it lies (for dW)
+  float* ws = gs + 2 * kG;          // 2 stages of [bn][bk], swizzled
+  const int k0 = blockIdx.x * kNtBK;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int mi = (warp >> 1) * 4 + (lane >> 3);  // dX rows mi*4..+3 of each m-block
+  const int kj = (warp & 1) * 8 + (lane & 7);    // dX cols kj*4.., 64+kj*4..
+  const int ki = warp * 4 + (lane >> 3);         // dW rows ki*4..+3
+  const int nj = lane & 7;                       // dW cols nj*4..+3
+  int t0, t1;  // this part's n-blocks
+  split_share(N / kNtBN, split, &t0, &t1);
+
+  for (int e = tid; e < M * kNtBK / 4; e += kThreads) {
+    const int r = e / (kNtBK / 4), c4 = e % (kNtBK / 4);
+    cp_async16(xs + r * kNtBK + c4 * 4, X + (size_t)r * K + k0 + c4 * 4);
+  }
+  cp_async_commit();
+
+  // Loader roles: row tid/8 (+32 per round) of a tile, float4 column tid%8.
+  const int lr = tid >> 3, lc = tid & 7;
+  const float* gsrc = G + (size_t)lr * N + lc * 4;
+  const float* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  float4 rg[2], rw[4];
+  auto load_g = [&](int nb, int mb) {
+    const float* p = gsrc + (size_t)mb * kNtBM * N + nb * kNtBN;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      rg[i] = __ldg(reinterpret_cast<const float4*>(p + (size_t)i * 32 * N));
+  };
+  auto load_w = [&](int nb) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      rw[i] = __ldg(reinterpret_cast<const float4*>(wsrc + (size_t)i * 32 * N + nb * kNtBN));
+  };
+  auto store_g = [&](int s) {  // the dY tile both ways
+    store_swz(gts + s * kG, kNtBM, rg, lr, lc);
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+      *reinterpret_cast<float4*>(gs + s * kG + (lr + 32 * i) * kNtBN + lc * 4) = rg[i];
+  };
+
+  float acc[NM][4][8];
+#pragma unroll
+  for (int b = 0; b < NM; ++b)
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) acc[b][i][j] = 0.f;
+
+  if (t0 < t1) {
+    load_w(t0);
+    load_g(t0, 0);
+    store_swz(ws, kNtBK, rw, lr, lc);
+    store_g(0);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+  for (int nb = t0; nb < t1; ++nb) {
+    const float* w = ws + ((nb - t0) & 1) * kW;
+    float dw[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) dw[i][j] = 0.f;
+#pragma unroll
+    for (int mb = 0; mb < NM; ++mb) {
+      const int s = ((nb - t0) * NM + mb) & 1;  // this step's dY stage
+      const bool next_w = mb == NM - 1 && nb + 1 < t1;
+      const bool next_g = mb < NM - 1 || nb + 1 < t1;
+      if (next_g) load_g(mb < NM - 1 ? nb : nb + 1, mb < NM - 1 ? mb + 1 : 0);
+      if (next_w) load_w(nb + 1);  // both in flight during this step's FMAs
+      nt_tile_fma(acc[mb], gts + s * kG, w, mi, kj);
+      tn_tile_fma(dw, xs + mb * kNtBM * kNtBK, gs + s * kG, ki, nj);
+      if (next_g) store_g(s ^ 1);
+      if (next_w) store_swz(ws + (((nb - t0) & 1) ^ 1) * kW, kNtBK, rw, lr, lc);
+      __syncthreads();
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      *reinterpret_cast<float4*>(DW + (size_t)(k0 + ki * 4 + i) * N + nb * kNtBN + nj * 4) =
+          make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
+  }
+
+  // Registers -> the X strip's region -> 16-byte stores of the dX strip
+  // (or of this part's slab).  The last step's barrier ended every read of
+  // the X strip.
+#pragma unroll
+  for (int b = 0; b < NM; ++b) nt_item_out(xs + b * kNtBM * kNtBK, acc[b], mi, kj);
+  __syncthreads();
+  nt_rows_out(DX + (size_t)blockIdx.z * M * K, K, 0, k0, xs, M);
+}
+
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -531,6 +703,16 @@ cudaError_t reduce_slabs(const float* part, float* out, size_t n, int split,
   const size_t want = (n4 + kThreads - 1) / kThreads;
   reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
       reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), n4, split);
+  return cudaGetLastError();
+}
+
+template <int NM>
+cudaError_t launch_dxdw_reg(dim3 grid, size_t smem, cudaStream_t st, const float* G,
+                            const float* W, const float* X, float* DX, float* DW, int N,
+                            int K, int split) {
+  cudaError_t err = set_smem((const void*)mm_dxdw_reg_kernel<NM>, smem);
+  if (err != cudaSuccess) return err;
+  mm_dxdw_reg_kernel<NM><<<grid, kThreads, smem, st>>>(G, W, X, DX, DW, N, K, split);
   return cudaGetLastError();
 }
 
@@ -597,16 +779,39 @@ int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, 
   return (int)reduce_slabs(part, DW, (size_t)K * N, split, st);
 }
 
+// fused: grid (K/bk, 1, split); each part owns its n-blocks' dW tiles and,
+// with split > 1, writes a partial dX strip to its slab of `part` (split
+// slabs of M*K floats), which a second kernel sums into DX in order.
+// `reg` (from bwd.py::dxdw_template) selects mm_dxdw_reg_kernel, which
+// takes only its own tile and one to three m-blocks, 0 the simple kernel.
 int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,
-                          float* DW, int M, int N, int K, int bm, int bn, int bk,
-                          void* stream) {
+                          float* DW, float* part, int M, int N, int K, int bm, int bn,
+                          int bk, int split, int reg, void* stream) {
   const size_t smem = sizeof(float) * (2 * ((size_t)bm * bn + (size_t)bk * bn + (size_t)bm * bk) +
                                        (size_t)M * bk + (size_t)bk * bn);
-  cudaError_t err = set_smem((const void*)mm_dxdw_kernel, smem);
-  if (err != cudaSuccess) return (int)err;
-  mm_dxdw_kernel<<<K / bk, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      G, W, X, DX, DW, M, N, K, bm, bn, bk);
-  return (int)cudaGetLastError();
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(K / bk, 1, split);
+  float* dst = split > 1 ? part : DX;
+  cudaError_t err;
+  if (reg) {
+    if (bm != kNtBM || bn != kNtBN || bk != kNtBK || M % kNtBM) return (int)cudaErrorInvalidValue;
+    static_assert(4 * kNtBM * kNtBN + 2 * kNtBN * kNtBK <=
+                      2 * (kNtBM * kNtBN + kNtBK * kNtBN + kNtBM * kNtBK) + kNtBK * kNtBN,
+                  "the dY and W stages must fit the charged allocation beside the X strip");
+    switch (M / kNtBM) {
+      case 1: err = launch_dxdw_reg<1>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      case 2: err = launch_dxdw_reg<2>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      case 3: err = launch_dxdw_reg<3>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      default: return (int)cudaErrorInvalidValue;
+    }
+  } else {
+    err = set_smem((const void*)mm_dxdw_kernel, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_dxdw_kernel<<<grid, kThreads, smem, st>>>(G, W, X, dst, DW, M, N, K, bm, bn, bk, split);
+    err = cudaGetLastError();
+  }
+  if (err != cudaSuccess || split == 1) return (int)err;
+  return (int)reduce_slabs(part, DX, (size_t)M * K, split, st);
 }
 
 }  // extern "C"

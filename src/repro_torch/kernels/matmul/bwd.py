@@ -14,8 +14,13 @@ wrapper and plain PyTorch version:
   (:data:`TN_REGISTER_TILE`, :func:`tn_template`) the dW tile stays in
   registers; small grids split the M loop (:func:`tn_split`) as NT's
   does.  Replaces ``::_mm_tn_kernel``.
-* ``matmul_dx_dw`` — both from one read of each dY tile, with the whole-M
-  dX strip resident in shared memory.  Replaces ``::_mm_dxdw_kernel``.
+* ``matmul_dx_dw`` — both from one read of each dY tile.  At the
+  planner's tile (:data:`DXDW_REGISTER_TILE`) and one to three m-blocks
+  (:func:`dxdw_template`) the whole-M dX strip and the dW tile stay in
+  registers and the X strip in shared memory; the n-blocks are split over
+  a number of blocks fixed by the shapes (:func:`dxdw_split`), each dW
+  tile written by one block and the partial dX strips summed in a fixed
+  order.  Replaces ``::_mm_dxdw_kernel``.
 
 Two ops sit on the plan layer: ``matmul_dx`` (:class:`MatmulDxPlanner`)
 and ``matmul_dw`` (:class:`MatmulDwPlanner`).  :func:`matmul_dx_dw` is not
@@ -40,6 +45,8 @@ from repro_torch.plan import (
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
 TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
+DXDW_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of mm_dxdw_reg_kernel
+DXDW_REGISTER_M_BLOCKS = 3  # the most m-blocks of dX its threads hold
 
 
 # -- oracles ---------------------------------------------------------------------
@@ -73,7 +80,10 @@ def smem_bytes_tn(block_m: int, block_n: int, block_k: int) -> int:
 
 def smem_bytes_dxdw(m: int, block_m: int, block_n: int, block_k: int) -> int:
     """Two stages of the dY, W and X tiles + the whole-M dX strip [m][bk]
-    + the dW tile [bk][bn] (== the fused_dxdw schedule's H100 budget)."""
+    + the dW tile [bk][bn] (== the fused_dxdw schedule's H100 budget).
+    Both kernels take exactly this; the register kernel keeps the X strip
+    in the strip's room and the dY tile (both ways) and the W tile in the
+    rest."""
     return 4 * (2 * (block_m * block_n + block_k * block_n + block_m * block_k)
                 + m * block_k + block_k * block_n)
 
@@ -103,7 +113,8 @@ def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int
 
 
 def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
-    """Device memory of NT's partial f32 dX slabs (0 without a split)."""
+    """Device memory of NT's (or the fused kernel's) partial f32 dX slabs
+    (0 without a split)."""
     return 4 * split * m * k if split > 1 else 0
 
 
@@ -124,6 +135,24 @@ def tn_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int
 def tn_partial_bytes(*, k: int, n: int, split: int) -> int:
     """Device memory of TN's partial f32 dW slabs (0 without a split)."""
     return 4 * split * k * n if split > 1 else 0
+
+
+def dxdw_template(block_m: int, block_n: int, block_k: int, m: int) -> str:
+    """Which kernel a fused launch with these blocks and ``m`` rows runs:
+    "register" at :data:`DXDW_REGISTER_TILE` with one to
+    :data:`DXDW_REGISTER_M_BLOCKS` whole m-blocks, else "simple".  The
+    launch passes this choice to the C entry point, which dispatches on
+    it."""
+    fits = m % block_m == 0 and 1 <= m // block_m <= DXDW_REGISTER_M_BLOCKS
+    return ("register" if (block_m, block_n, block_k) == DXDW_REGISTER_TILE and fits
+            else "simple")
+
+
+def dxdw_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+    """Thread blocks that share each k-block's n-blocks in the fused kernel
+    (:func:`repro_torch.core.machine.h100_split` over the K/block_k grid)."""
+    return h100_split(grid=k // block_k, steps=n // block_n,
+                      smem_bytes=smem_bytes_dxdw(m, block_m, block_n, block_k))
 
 
 def _check_multiple(name, dims, blocks):
@@ -242,10 +271,15 @@ def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
                  block_k: int):
     m, n, k = _check_dxdw(g, w, x, block_m=block_m, block_n=block_n, block_k=block_k)
     _check_operands("matmul_dx_dw", g=g, w=w, x=x)
+    split = dxdw_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
     dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
     dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
-    kernel.run(_ptr(g), _ptr(w), _ptr(x), _ptr(dx), _ptr(dw), m, n, k,
-               block_m, block_n, block_k)
+    part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
+            if split > 1 else None)
+    kernel.run(_ptr(g), _ptr(w), _ptr(x), _ptr(dx), _ptr(dw),
+               ctypes.c_void_p(part.data_ptr() if part is not None else None),
+               m, n, k, block_m, block_n, block_k, split,
+               int(dxdw_template(block_m, block_n, block_k, m) == "register"))
     return dx, dw
 
 
@@ -261,7 +295,7 @@ matmul_tn_kernel = CudaKernel(
 )
 matmul_dxdw_kernel = CudaKernel(
     "matmul_dx_dw", source="matmul_bwd", symbol="repro_matmul_dxdw_f32",
-    argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
+    argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch_dxdw, plain=matmul_dxdw_plain,
 )
 

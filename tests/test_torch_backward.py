@@ -373,6 +373,68 @@ def test_h100_tn_pick_is_the_register_kernels_tile():
         assert mb.tn_template(**b) == "register"
         assert s.vmem_bytes == mb.smem_bytes_tn(**b) == 81_920
     assert mb.tn_template(block_m=8, block_n=16, block_k=16) == "simple"
+
+
+# (m, n, k) of fused calls at the H100 fused_dxdw pick (64, 32, 128): the
+# split of each k-block's n-blocks.  One block a SM (163,840 to 229,376 B),
+# so the K/128 grid (fc1 16, fc2 32) takes 132 // grid parts; a K of 132
+# k-blocks fills one wave alone.
+DXDW_SPLITS = [
+    ((128, 4096, 2048), 8),   # fc1 at batch 128
+    ((128, 1024, 4096), 4),   # fc2 at batch 128 (N = 1000 padded to 1024)
+    ((192, 4096, 2048), 8),   # fc1 at batch 192
+    ((192, 1024, 4096), 4),   # fc2 at batch 192
+    ((64, 4096, 2048), 8),    # fc1 at batch 64
+    ((128, 256, 16896), 1),   # 132 k-blocks: one wave
+    ((64, 64, 128), 2),       # one k-block, two n-blocks
+]
+
+
+@pytest.mark.parametrize("mnk,want", DXDW_SPLITS)
+def test_dxdw_split_fills_one_wave_and_is_fixed_by_shapes(mnk, want):
+    m, n, k = mnk
+    kw = dict(m=m, n=n, k=k, block_m=64, block_n=32, block_k=128)
+    assert mb.dxdw_split(**kw) == want == mb.dxdw_split(**kw)
+    grid = k // 128
+    assert tm.h100_resident_blocks(mb.smem_bytes_dxdw(m, 64, 32, 128)) == 1
+    assert want == 1 or grid * want <= tm.H100.units
+    assert want <= n // 32
+    slabs = mb.nt_partial_bytes(m=m, k=k, split=want)
+    assert slabs == (4 * want * m * k if want > 1 else 0)
+    if m == 128 and k in (2048, 4096):
+        assert slabs == 8_388_608
+
+
+@pytest.mark.parametrize("blocks,m,want", [
+    ((64, 32, 128), 64, "register"),
+    ((64, 32, 128), 128, "register"),
+    ((64, 32, 128), 192, "register"),
+    ((64, 32, 128), 256, "simple"),   # four m-blocks: more than a thread holds
+    ((64, 32, 128), 100, "simple"),   # not whole m-blocks
+    ((32, 32, 128), 32, "simple"),    # the pick at batch 32
+    ((8, 32, 128), 8, "simple"),      # the pick at batch 1-8
+    ((8, 16, 16), 40, "simple"),      # the ragged case's blocks
+])
+def test_dxdw_template_takes_the_register_tile_up_to_three_m_blocks(blocks, m, want):
+    assert mb.dxdw_template(*blocks, m) == want
+
+
+@pytest.mark.parametrize("batch", [64, 96, 128, 192])
+def test_h100_fused_pick_is_the_register_kernels_tile(batch):
+    """Every fused schedule of cnn-vgg11 from batch 33 to 192 is the
+    (64, 32, 128) tile the register kernel is built for, at one to three
+    m-blocks, and the kernel's shared memory is the schedule's
+    vmem_bytes."""
+    cfg = get_config("cnn-vgg11")
+    plans = cnn.plan_training(cfg, batch)
+    for fc in ("fc1", "fc2"):
+        s = plans[f"{fc}.dx"]
+        b = s.block_dict()
+        m = -(-batch // b["block_m"]) * b["block_m"]
+        assert s.algorithm == "fused_dxdw"
+        assert (b["block_m"], b["block_n"], b["block_k"]) == mb.DXDW_REGISTER_TILE
+        assert mb.dxdw_template(b["block_m"], b["block_n"], b["block_k"], m) == "register"
+        assert s.vmem_bytes == mb.smem_bytes_dxdw(m, **{k: b[k] for k in b})
     assert mb.tn_template(block_m=32, block_n=64, block_k=128) == "simple"
 
 

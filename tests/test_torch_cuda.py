@@ -357,6 +357,39 @@ def test_fused_dxdw_kernel_matches_plain_on_card(cuda, m, k, n):
     assert_close(dw, x.double().t() @ g.double())
 
 
+# (m, n, k, blocks): the register fused kernel at one, two and three
+# m-blocks (fc1 at batch 64 and 192, split 8), fc1 and fc2 at batch 128
+# (splits 8 and 4), a 132-k-block grid without a split, and the simple
+# kernel's 8/16/16 blocks with a split.
+DXDW_DISPATCH = [
+    (64, 4096, 2048, (64, 32, 128)),
+    (128, 4096, 2048, (64, 32, 128)),
+    (128, 1024, 4096, (64, 32, 128)),
+    (192, 4096, 2048, (64, 32, 128)),
+    (128, 256, 16896, (64, 32, 128)),
+    (40, 80, 96, (8, 16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,n,k,blocks", DXDW_DISPATCH)
+def test_dxdw_templates_match_plain_and_repeat_bit_for_bit(cuda, m, n, k, blocks):
+    from repro_torch.kernels.matmul.bwd import dxdw_split, dxdw_template
+
+    bm, bn, bk = blocks
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    assert (dxdw_template(bm, bn, bk, m) == "register") == (bm == 64)
+    assert (dxdw_split(m=m, n=n, k=k, **kw) > 1) == (k != 16896)
+    rng = np.random.default_rng(12)
+    x, w, g = _rand(rng, m, k), _rand(rng, k, n, scale=k ** -0.5), _rand(rng, m, n)
+    args = (g.to(cuda), w.to(cuda), x.to(cuda))
+    dx, dw = _launched(matmul_dxdw_kernel, lambda: matmul_dxdw_kernel(*args, **kw))
+    dx2, dw2 = matmul_dxdw_kernel(*args, **kw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2)
+    assert_close(dx, g.double() @ w.double().t())
+    assert_close(dw, x.double().t() @ g.double())
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("pool", [1, 2])
 def test_conv_block_grads_on_card(cuda, pool):

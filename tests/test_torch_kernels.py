@@ -405,6 +405,30 @@ def test_tn_launch_passes_its_template_split_and_slabs(m, k, n, blocks, split, r
     assert (sink.args[3].value is not None) == (split > 1)
 
 
+@pytest.mark.parametrize("m,k,n,blocks,split,reg", [
+    (128, 2048, 4096, (64, 32, 128), 8, 1),   # fc1 at batch 128
+    (128, 4096, 1024, (64, 32, 128), 4, 1),   # fc2 at batch 128
+    (192, 2048, 4096, (64, 32, 128), 8, 1),   # three m-blocks
+    (128, 16896, 256, (64, 32, 128), 1, 1),   # a grid of one wave: no split
+    (40, 96, 80, (8, 16, 16), 5, 0),          # the simple kernel's blocks
+])
+def test_dxdw_launch_passes_its_template_split_and_slabs(m, k, n, blocks, split, reg):
+    """The fused wrapper alone picks the kernel: the C entry point gets
+    dxdw_template's choice (1 register, 0 simple), dxdw_split's split and
+    a slab buffer exactly when it splits."""
+    from repro_torch.kernels.matmul import bwd as mb
+
+    sink = _ArgSink(mb.matmul_dxdw_kernel)
+    bm, bn, bk = blocks
+    dx, dw = mb._launch_dxdw(sink, torch.zeros(m, n), torch.zeros(k, n), torch.zeros(m, k),
+                             block_m=bm, block_n=bn, block_k=bk)
+    assert tuple(dx.shape) == (m, k) and tuple(dw.shape) == (k, n)
+    assert len(sink.args) == len(sink.argtypes) - 1
+    assert sink.args[6:] == (m, n, k, bm, bn, bk, split, reg)
+    assert reg == (mb.dxdw_template(bm, bn, bk, m) == "register")
+    assert (sink.args[5].value is not None) == (split > 1)
+
+
 @pytest.mark.parametrize("W_O,stride,run", [(8, 1, 4), (16, 1, 8), (9, 1, 0), (8, 2, 0)])
 def test_conv_launch_passes_the_register_run(W_O, stride, run):
 
