@@ -97,19 +97,62 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              flash attention the qwen1.5-0.5b step — and gives its launches
              over every path.
 
+The train-step knobs, each phase at full width (run between ``train`` and
+``flash``, ``remat`` after ``transformer``, ``autotune`` last):
+
+9.  accum    — cnn-vgg11 at batch 256 as [2, 128, 32, 32, 3] (the launcher
+               passes --microbatch on without splitting a batch, as the JAX
+               launcher does, so the script builds the accumulated batch):
+               launches a step = 2 x plan_training(128), 4 of them the
+               fused dX/dW kernel on its register template; step-1 loss
+               and every gradient within TOL of the same accumulation with
+               the backward kernels' plain versions; the largest relative
+               difference from the batch-256 step (reported, not gated:
+               near-tie pool flips); step ms of both.
+10. int8_ef  — 3 AdamW steps at batch 256 with int8 error-feedback
+               compression, planned against plain (same compression),
+               losses within LOSS_TOL; every error buffer nonzero after
+               step 1.
+11. ckpt     — the launcher at batch 256: run A, 4 steps with --ckpt; run
+               B, the same command with --ckpt-every 1 stopped before step
+               2 (its data source raises, as a killed process stops), then
+               run again, which resumes from step 1.  B's final params,
+               moments and step equal A's bit for bit, and A's equal the
+               same 4 steps run in process; a torn chunk fails verify_step
+               and rolls restore_latest back a step; bytes a step, save and
+               restore seconds.
+12. remat    — qwen1.5-0.5b at 4 x 2048 through the launcher with --remat
+               none, block and dots: launches a step (block adds each
+               layer's 4 GEMMs and its flash call, dots its flash call),
+               peak memory ordered none >= dots >= block with block below
+               REMAT_PEAK_CUT of none, step ms; step-1 gradients of block
+               and dots equal none's bit for bit.
+13. autotune — policy tune over every cell of cnn-vgg11's plan_training(256)
+               (top AUTOTUNE_TOPK candidates a cell): per cell the modeled
+               argmin's and the winner's blocks, template and ms; then one
+               step under cache-only with the stopwatch replaced by one
+               that raises: launch counts of the tuned plan, every kernel
+               handed its cached winner's blocks (a spy on the launches),
+               loss within LOSS_TOL of the policy-off step.  (The check
+               that a main-path call takes the register kernel belongs to
+               the policy-off timings of phase 8.)
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import json
 import math
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -142,6 +185,13 @@ TFM_ARCH = "qwen1.5-0.5b"
 TFM_BATCH, TFM_SEQ = 4, 2048
 TFM_PATH = f"train_{TFM_ARCH}"
 TFM_CELLS = ("qkv", "wo", "mlp_up", "mlp_down", "logits")
+# The train-step knobs of the eighth slice.
+ACCUM = (2, 128)  # phase accum: batch 256 as 2 micro-batches of 128
+CKPT_STEPS, CKPT_KILL = 4, 2  # phase ckpt: 4 steps; run B is stopped before step 2
+REMATS = ("none", "block", "dots")
+REMAT_PEAK_CUT = 0.9  # block's peak must be below this share of none's
+AUTOTUNE_TOPK = 4  # candidates timed a cell (autotune.tune's default)
+SCRATCH = ROOT / "build" / "chip_smoke"  # checkpoints and the winner cache
 
 
 def tfm_chunks() -> int:
@@ -1248,7 +1298,7 @@ def phase_transformer(torch, kernels, results):
 
     kw = dict(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
               warmup_steps=min(100, STEPS // 10 + 1), total_steps=STEPS,
-              loss_chunks=tfm_chunks(), seed=SEED)
+              loss_chunks=tfm_chunks(), seed=SEED, remat="none")
     tcfgs = {"planned": TrainConfig(**kw, planned_kernels=True),
              "plain": TrainConfig(**kw, planned_kernels=False)}
     params0 = init_params(tf.param_defs(cfg), SEED)
@@ -1409,6 +1459,530 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
             batch=step_batch)
 
 
+# -- the eighth slice: accumulation, int8 error feedback, checkpoints, remat, autotune -
+
+
+def launcher_tcfg(steps: int, **knobs):
+    """The TrainConfig ``launch.train`` builds for ``--steps steps`` (the
+    learning-rate schedule spans the run)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.launch.train import LOSS_CHUNKS
+
+    return TrainConfig(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
+                       warmup_steps=min(100, steps // 10 + 1), total_steps=steps,
+                       loss_chunks=LOSS_CHUNKS, seed=SEED, **knobs)
+
+
+def accumulated_grads(torch, cfg, tr, tcfg, params0, acc, kernels, plain):
+    """The reference for an accumulated step: each micro-batch's forward on
+    the kernels and its backward with the kernels in ``plain`` on their
+    plain versions (``planned_grads``), summed in f32 from zeros in order
+    and divided by the count."""
+    n = acc["images"].shape[0]
+    gsum = {k: torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+            for k, v in params0.items()}
+    total = 0.0
+    for i in range(n):
+        loss, g = planned_grads(torch, cfg, tr, tcfg, params0, {k: v[i] for k, v in acc.items()},
+                                kernels, plain=plain)
+        gsum = {k: gsum[k] + g[k].float() for k in gsum}
+        total += loss
+    return total / n, {k: g / n for k, g in gsum.items()}
+
+
+def phase_accum(torch, cnn, cfg, kernels, results, card):
+    """Gradient accumulation over a leading dim: cnn-vgg11 at batch 256 as
+    [2, 128, 32, 32, 3], the planned kernels.  The launcher passes
+    --microbatch on and never splits a batch (as the JAX launcher), so the
+    script builds the accumulated batch itself."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    n, micro = ACCUM
+    tcfg = launcher_tcfg(STEPS, planned_kernels=True)
+    params0 = init_params(cnn.param_defs(cfg), SEED)
+    src = cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)
+    full = [tr.batch_to(src(i), "cuda") for i in range(STEPS)]
+    acc = [{k: v.reshape(n, micro, *v.shape[1:]) for k, v in b.items()} for b in full]
+    micro_calls = train_calls(cnn, cl, cfg, cnn.plan_training(cfg, micro), micro)
+    per_step = {k: n * c for k, c in per_kernel(micro_calls, kernels).items()}
+    check(per_step["matmul_dx_dw"] == 4, f"accum: {per_step['matmul_dx_dw']} fused launches a "
+          "step in the plan, not 4")
+    step, state0 = tr.make_train_step(cfg, tcfg), tr.init_state(cfg, tcfg, params0)
+    zero_counts(kernels)
+    state, losses = state0, []
+    for b in acc:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    got = {name: k.launches for name, k in kernels.items()}
+    want = {k: STEPS * c for k, c in per_step.items()}
+    check(got == want, f"accum: launches {got} != 2 x plan_training({micro}) x {STEPS} {want}")
+    check(all(math.isfinite(x) for x in losses), f"accum: losses {losses}")
+    for name in kernels:
+        results[name]["launches_by_path"][f"accum_b{n}x{micro}"] = got[name]
+    templates = {label: template_record("matmul_dx_dw", *fused_args(torch, cnn, cfg, micro,
+                                                                    label))
+                 for label in ("fc1", "fc2")}
+    check(all(t["template"] == "register" for t in templates.values()),
+          f"accum: a fused call runs the simple kernel: {templates}")
+    loss_fn = tr.make_loss_fn(cfg, tcfg)
+    loss, grads = tr.loss_and_grads(loss_fn, params0, acc[0])
+    loss = float(loss)
+    ref_loss, ref = accumulated_grads(torch, cfg, tr, tcfg, params0, acc[0], kernels,
+                                      BWD_KERNELS)
+    errs = {k: {"max_abs_err": max_err(grads[k], ref[k]), "scale": scale(ref[k])} for k in ref}
+    loss256, g256 = tr.loss_and_grads(loss_fn, params0, full[0])
+    rel256 = {k: max_err(grads[k], g256[k]) / scale(g256[k]) for k in g256}
+    step_ms = {f"{n}x{micro}": median_ms(lambda: step(state0, acc[0]), reps=10),
+               f"{BATCH}": median_ms(lambda: step(state0, full[0]), reps=10)}
+    emit(phase="accum", arch=cfg.name, batch=[n, micro], steps=STEPS, launches=got,
+         launches_per_step=per_step, fused_templates=templates, losses=losses,
+         grad_tolerance=TOL, loss=loss, reference_loss=ref_loss, step1_grads=errs,
+         loss_unaccumulated=float(loss256), max_rel_diff_unaccumulated=max(rel256.values()),
+         rel_diff_unaccumulated=rel256, step_ms=step_ms, card=card)
+    check(abs(loss - ref_loss) <= LOSS_TOL * max(1.0, abs(ref_loss)),
+          f"accum step-1 loss: {loss} vs {ref_loss}")
+    for k, r in errs.items():
+        check(bool(torch.isfinite(grads[k]).all()), f"accum grad {k}: non-finite")
+        check(r["max_abs_err"] <= TOL * r["scale"], f"accum grad {k}: {r}")
+
+
+def fused_args(torch, cnn, cfg, batch, stage):
+    """(args, blocks) of the fused dX/dW launch a stage's plan makes at
+    ``batch``, on meta tensors (the template reads shapes only)."""
+    from repro_torch.plan import round_up
+
+    s = cnn.plan_training(cfg, batch)[f"{stage}.dx"]
+    (m, k), (_, n) = next((x, w) for nm, x, w in cnn._stage_geometry(cfg, batch) if nm == stage)
+    b = {key: s.block(key) for key in ("block_m", "block_n", "block_k")}
+    mp, np_, kp = (round_up(m, b["block_m"]), round_up(n, b["block_n"]),
+                   round_up(k, b["block_k"]))
+
+    def meta(*shape):
+        return torch.empty(shape, device="meta")
+    return (meta(mp, np_), meta(kp, np_), meta(mp, kp)), b
+
+
+def phase_int8_ef(torch, cnn, cfg, kernels, results):
+    """3 AdamW steps of cnn-vgg11 at batch 256 with error-feedback int8
+    gradient compression, planned against plain (the same compression)."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    params0 = init_params(cnn.param_defs(cfg), SEED)
+    src = cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)
+    batches = [tr.batch_to(src(i), "cuda") for i in range(STEPS)]
+    per_step = per_kernel(train_calls(cnn, cl, cfg, cnn.plan_training(cfg, BATCH), BATCH),
+                          kernels)
+    losses, nonzero, states = {}, {}, {}
+    for name in ("planned", "plain"):
+        tcfg = launcher_tcfg(STEPS, planned_kernels=name == "planned",
+                             grad_compression="int8_ef")
+        step, state = tr.make_train_step(cfg, tcfg), tr.init_state(cfg, tcfg, params0)
+        zero_counts(kernels)
+        losses[name] = []
+        for i, b in enumerate(batches):
+            state, m = step(state, b)
+            losses[name].append(float(m["loss"]))
+            if i == 0:
+                nonzero[name] = {k: int((e != 0).sum()) for k, e in state.err.items()}
+        torch.cuda.synchronize()
+        if name == "planned":
+            got = {k: kk.launches for k, kk in kernels.items()}
+            want = {k: STEPS * c for k, c in per_step.items()}
+            check(got == want, f"int8_ef: launches {got} != plan {want}")
+            for k in kernels:
+                results[k]["launches_by_path"][f"int8_ef_b{BATCH}"] = got[k]
+        states[name] = state
+    emit(phase="int8_ef", arch=cfg.name, batch=BATCH, steps=STEPS, loss_tolerance=LOSS_TOL,
+         losses=losses,
+         max_loss_diff=max(abs(a - b) for a, b in zip(losses["planned"], losses["plain"])),
+         error_buffer_nonzero_after_step1=nonzero["planned"],
+         error_buffer_norm={k: float(e.norm()) for k, e in states["planned"].err.items()})
+    for a, b in zip(losses["planned"], losses["plain"]):
+        check(math.isfinite(a) and abs(a - b) <= LOSS_TOL * max(1.0, abs(b)),
+              f"int8_ef losses {losses}")
+    for k, c in nonzero["planned"].items():
+        check(c > 0, f"int8_ef: error buffer {k} is zero after step 1")
+    return states["planned"]
+
+
+class Killed(Exception):
+    """The launcher stopped between two steps, as a killed process stops."""
+
+
+@contextlib.contextmanager
+def killed_at(launch, step: int):
+    """Make ``launch.main`` stop before ``step``: its data source raises."""
+    real = launch.make_data_source
+
+    def source(*args, **kwargs):
+        src = real(*args, **kwargs)
+
+        def at(i):
+            if i == step:
+                raise Killed(step)
+            return src(i)
+        return at
+
+    launch.make_data_source = source
+    try:
+        yield
+    finally:
+        launch.make_data_source = real
+
+
+def tear_chunk(step_dir: Path, name: str) -> Path:
+    """Tear one chunk as a host dying mid-flush would: cut it to half its
+    length and scribble on the tail."""
+    victim = step_dir / name
+    size = victim.stat().st_size
+    with open(victim, "r+b") as f:
+        f.truncate(size // 2)
+        f.seek(size // 2 - 8)
+        f.write(b"\xde\xad\xbe\xef" * 2)
+    return victim
+
+
+def dir_bytes(path: Path) -> int:
+    return sum(f.stat().st_size for f in path.iterdir())
+
+
+def same_state(torch, a, b) -> bool:
+    """Bit for bit: every parameter, both moments, the error buffers and
+    the step."""
+    trees = [(a.params, b.params), (a.opt.m, b.opt.m), (a.opt.v, b.opt.v)]
+    if a.err is not None or b.err is not None:
+        trees.append((a.err, b.err))
+    return a.opt.step == b.opt.step and all(
+        x.keys() == y.keys() and all(torch.equal(x[k], y[k]) for k in x) for x, y in trees)
+
+
+def phase_ckpt(torch, cnn, cfg, kernels, results, ef_state, card):
+    """Checkpoints through the launcher: run A trains 4 steps in one go;
+    run B is stopped before step 2 (after its step-1 checkpoint) and run
+    again, which resumes.  B's final state must equal A's bit for bit; a
+    torn chunk must fail verification and roll restore back a step."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    base = SCRATCH / "ckpt"
+    shutil.rmtree(base, ignore_errors=True)
+    dir_a, dir_b = base / "A", base / "B"
+    argv = ["--arch", cfg.name, "--batch", str(BATCH), "--steps", str(CKPT_STEPS),
+            "--planned-kernels", "--seed", str(SEED), "--log-every", "1"]
+    per_step = per_kernel(train_calls(cnn, cl, cfg, cnn.plan_training(cfg, BATCH), BATCH),
+                          kernels)
+    zero_counts(kernels)
+    hist_a = launch.main(argv + ["--ckpt", str(dir_a)])
+    with killed_at(launch, CKPT_KILL):
+        try:
+            launch.main(argv + ["--ckpt", str(dir_b), "--ckpt-every", "1"])
+            check(False, "ckpt: run B was not stopped")
+        except Killed:
+            pass
+    check(ckpt.committed_steps(str(dir_b)) == [CKPT_KILL - 1],
+          f"ckpt: run B committed {ckpt.committed_steps(str(dir_b))} before it stopped")
+    hist_b = launch.main(argv + ["--ckpt", str(dir_b), "--ckpt-every", "1"])
+    torch.cuda.synchronize()
+    got = {k: kk.launches for k, kk in kernels.items()}
+    want = {k: 2 * CKPT_STEPS * c for k, c in per_step.items()}
+    check(got == want, f"ckpt: launches {got} != plan {want}")
+    for k in kernels:
+        results[k]["launches_by_path"][f"ckpt_b{BATCH}"] = got[k]
+    check([h["step"] for h in hist_b] == list(range(CKPT_KILL, CKPT_STEPS)),
+          f"ckpt: the resumed run ran steps {[h['step'] for h in hist_b]}")
+    check([h["loss"] for h in hist_b] == [h["loss"] for h in hist_a[CKPT_KILL:]],
+          f"ckpt: losses after the resume {hist_b} differ from run A's {hist_a}")
+
+    tcfg = launcher_tcfg(CKPT_STEPS, planned_kernels=True)
+    template = tr.init_state(cfg, tcfg, init_params(cnn.param_defs(cfg), SEED))
+    final = CKPT_STEPS - 1
+    t0 = time.perf_counter()
+    state_a = ckpt.restore(str(dir_a), final, template, device="cuda")
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    state_b = ckpt.restore(str(dir_b), final, template, device="cuda")
+    # An independent run of the same steps in this process, no checkpoint.
+    step = tr.make_train_step(cfg, tcfg)
+    src = cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)
+    state = template
+    for i in range(CKPT_STEPS):
+        state, _ = step(state, tr.batch_to(src(i), "cuda"))
+    resumed_equal, direct_equal = same_state(torch, state_b, state_a), same_state(
+        torch, state_a, state)
+
+    step_dir = dir_b / f"step_{final:07d}"
+    victim = tear_chunk(step_dir, "params_conv0.c00.npy")
+    try:
+        ckpt.verify_step(str(dir_b), final)
+        torn_raises = False
+    except ckpt.CheckpointCorruptError:
+        torn_raises = True
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        rolled, rolled_step = ckpt.restore_latest(str(dir_b), template, device="cuda")
+    t0 = time.perf_counter()
+    ckpt.save(str(base / "timing"), final, state_a)
+    save_s = time.perf_counter() - t0
+    ef_dir = Path(ckpt.save(str(base / "int8_ef"), 0, ef_state))
+    emit(phase="ckpt", arch=cfg.name, batch=BATCH, steps=CKPT_STEPS, stopped_before=CKPT_KILL,
+         launches=got, losses_a=[h["loss"] for h in hist_a],
+         losses_b_resumed=[h["loss"] for h in hist_b],
+         resumed_equals_uninterrupted=resumed_equal, uninterrupted_equals_in_process=direct_equal,
+         torn_chunk=victim.name, torn_verify_raises=torn_raises,
+         torn_restore_latest_step=rolled_step,
+         torn_warnings=[str(w.message)[:160] for w in caught],
+         bytes_per_step=dir_bytes(dir_a / f"step_{final:07d}"),
+         bytes_per_step_int8_ef=dir_bytes(ef_dir), save_seconds=save_s,
+         restore_seconds=restore_s, card=card)
+    check(resumed_equal, "ckpt: the resumed run's final state differs from run A's")
+    check(direct_equal, "ckpt: run A's final checkpoint differs from the same steps in process")
+    check(torn_raises, "ckpt: verify_step passed a torn chunk")
+    check(rolled_step == final - 1 and rolled.opt.step == final,
+          f"ckpt: restore_latest after the tear gave step {rolled_step}")
+    shutil.rmtree(base, ignore_errors=True)
+
+
+def remat_extra(remat: str, cfg) -> dict:
+    """Launches a step that ``remat`` adds to the planned qwen step: block
+    runs each layer's four GEMMs and its flash call again in the backward
+    pass, dots its flash call (the segments between GEMMs recompute)."""
+    L = cfg.n_layers
+    return {"none": {}, "block": {"matmul": 4 * L, "flash_attention": L},
+            "dots": {"flash_attention": L}}[remat]
+
+
+def phase_remat(torch, kernels, results, tfm, card):
+    """qwen1.5-0.5b at full width and depth, 4 x 2048, through the launcher
+    with --remat none, block and dots: launches a step, peak memory and
+    step ms of each; then the step-1 gradients of block and dots against
+    none's, bit for bit."""
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import train as tr
+
+    cfg, _, params0, batches, plans = tfm
+    base = per_kernel(tfm_calls(tf, cfg, plans), kernels)
+    runs = {}
+    for remat in REMATS:
+        per_step = {k: n + remat_extra(remat, cfg).get(k, 0) for k, n in base.items()}
+        zero_counts(kernels)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        history = launch.main(["--arch", TFM_ARCH, "--batch", str(TFM_BATCH), "--seq",
+                               str(TFM_SEQ), "--steps", str(STEPS), "--planned-kernels",
+                               "--seed", str(SEED), "--log-every", "1", "--remat", remat])
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        got = {k: kk.launches for k, kk in kernels.items()}
+        want = {k: STEPS * n for k, n in per_step.items()}
+        check(got == want, f"remat {remat}: launches {got} != plan {want}")
+        for k in kernels:
+            results[k]["launches_by_path"][f"remat_{remat}"] = got[k]
+        ms = [h["seconds"] * 1e3 for h in history]
+        runs[remat] = dict(launches_per_step=per_step, peak_memory_bytes=peak,
+                           step_ms=ms, step_ms_after_first=statistics.median(ms[1:]),
+                           losses=[h["loss"] for h in history])
+    grads = {}
+    same = {}
+    for remat in REMATS:
+        tcfg = launcher_tcfg(STEPS, planned_kernels=True, remat=remat)
+        loss, g, peak = step1(torch, tr.make_loss_fn(cfg, tcfg), params0, batches[0])
+        runs[remat].update(step1_loss=loss, step1_peak_memory_bytes=peak)
+        if remat == "none":
+            grads = {k: v.cpu() for k, v in g.items()}
+        else:
+            same[remat] = (loss == runs["none"]["step1_loss"]
+                           and all(torch.equal(g[k].cpu(), grads[k]) for k in grads))
+        del g
+        torch.cuda.empty_cache()
+    emit(phase="remat", arch=TFM_ARCH, batch=TFM_BATCH, seq=TFM_SEQ, steps=STEPS, runs=runs,
+         step1_grads_bit_identical_to_none=same, card=card)
+    peaks = {r: runs[r]["peak_memory_bytes"] for r in REMATS}
+    check(all(same.values()), f"remat: step-1 gradients differ from none's: {same}")
+    check(peaks["none"] >= peaks["dots"] >= peaks["block"], f"remat: peaks {peaks}")
+    check(peaks["block"] < REMAT_PEAK_CUT * peaks["none"], f"remat: block saves little {peaks}")
+
+
+def cell_template(op: str, s, shape: dict) -> str:
+    """The kernel template one cell's schedule launches (as the wrappers
+    choose it)."""
+    from repro_torch.kernels.conv2d.conv2d import register_layout
+    from repro_torch.kernels.matmul.bwd import dxdw_template, tn_template
+    from repro_torch.kernels.matmul.matmul import template
+
+    b = s.block_dict()
+    if s.algorithm == "im2col":
+        return "im2col/" + template(b["block_m"], b["block_n"], b["block_k"])
+    if op in ("conv2d", "conv2d_dgrad"):
+        W_O = shape["W_I"] if op == "conv2d_dgrad" else shape["W_O"]
+        H = shape["H_I"] if op == "conv2d_dgrad" else shape["H_O"]
+        S = 1 if op == "conv2d_dgrad" else shape.get("S", 1)
+        layout = register_layout(block_h=max(1, min(b["block_h"], H)), block_do=b["block_do"],
+                                 block_di=b["block_di"], W_O=W_O, F=shape["F"], S=S)
+        return "register" if layout else "simple"
+    if op == "conv2d_wgrad":  # the C entry point's own test
+        reg = (shape["F"] == 3 and b["block_di"] % 4 == 0
+               and b["block_di"] * -(-b["block_do"] // 8) <= 256)
+        return "register" if reg else "simple"
+    mnk = (b["block_m"], b["block_n"], b["block_k"])
+    if op == "matmul":
+        return template(*mnk)
+    if op == "matmul_dw":
+        return tn_template(*mnk)
+    if s.algorithm == "fused_dxdw":
+        return "fused/" + dxdw_template(*mnk, shape["m"])
+    return "register" if mnk == (64, 32, 128) else "simple"  # NT's register tile
+
+
+def launched_blocks(cnn, cfg, plans, batch) -> set:
+    """(kernel, blocks) of every launch a planned step makes under
+    ``plans``, as the wrappers pass the blocks on."""
+    def mnk(s):
+        return (s.block("block_m"), s.block("block_n"), s.block("block_k"))
+
+    def hdi(s, extent):
+        return (max(1, min(s.block("block_h"), extent)), s.block("block_do"),
+                s.block("block_di"))
+
+    out = set()
+    for i, (name, x_shape, _) in enumerate(cnn._stage_geometry(cfg, batch)):
+        s = plans[name]
+        if name.startswith("conv"):
+            H = x_shape[1]
+            out.add(("matmul", mnk(s)) if s.algorithm == "im2col" else ("conv2d", hdi(s, H)))
+            if i > 0:
+                out.add(("conv2d", hdi(plans[f"{name}.dgrad"], H)))
+            out.add(("conv2d_wgrad", hdi(plans[f"{name}.wgrad"], H)))
+            continue
+        out.add(("matmul", mnk(s)))
+        dx = plans[f"{name}.dx"]
+        if dx.algorithm == "fused_dxdw":
+            out.add(("matmul_dx_dw", mnk(dx)))
+        else:
+            out |= {("matmul_nt", mnk(dx)), ("matmul_tn", mnk(plans[f"{name}.dw"]))}
+    return out
+
+
+@contextlib.contextmanager
+def spy_blocks(kernels, seen: set):
+    """Record (kernel, blocks) of every launch while the block runs."""
+    saved = {name: k.launch for name, k in kernels.items()}
+
+    def wrap(name, fn):
+        def spy(kern, *args, **kw):
+            keys = (("block_h", "block_do", "block_di") if "block_do" in kw
+                    else ("block_m", "block_n", "block_k"))
+            seen.add((name, tuple(kw[b] for b in keys)))
+            return fn(kern, *args, **kw)
+        return spy
+
+    for name, k in kernels.items():
+        k.launch = wrap(name, saved[name])
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            kernels[name].launch = fn
+
+
+def phase_autotune(torch, cnn, cfg, kernels, results, card):
+    """Measured-time autotune over every cell of cnn-vgg11's
+    plan_training(256), forward and backward (policy tune, the top
+    AUTOTUNE_TOPK candidates a cell), beside each cell's modeled argmin;
+    then one planned step under cache-only with the stopwatch replaced by
+    one that raises: its launch counts, the blocks each kernel received
+    and its loss against the policy-off step."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.core.machine import H100
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.module import init_params
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan import planner_for
+    from repro_torch.runtime import train as tr
+
+    path = SCRATCH / "autotune_h100.json"
+    path.unlink(missing_ok=True)
+    at.set_policy("tune", str(path), device="cuda")
+    try:
+        zero_counts(kernels)
+        t0 = time.perf_counter()
+        tuned = cnn.plan_training(cfg, BATCH)
+        torch.cuda.synchronize()
+        tune_s = time.perf_counter() - t0
+        tune_launches = {k: kk.launches for k, kk in kernels.items()}
+        cells = []
+        for rec in at.get_cache().load().values():
+            key = json.loads(rec["key"])
+            op, shape = key[1], dict(key[2])
+            planner = planner_for(op, H100)
+            argmin = planner.plan(**shape)
+            winner = at.lookup(op, shape)
+            timed = {label: us for label, us, _ in rec["measured"]}
+            a_ms = timed.get(at._label(argmin))
+            cells.append(dict(
+                op=op, shape=shape, candidates=len(planner.candidates(**shape)),
+                timed=len(timed),
+                argmin={"algorithm": argmin.algorithm, "blocks": argmin.block_dict(),
+                        "template": cell_template(op, argmin, shape),
+                        "ms": a_ms / 1e3 if a_ms is not None else "not measured"},
+                winner={"algorithm": winner.algorithm, "blocks": winner.block_dict(),
+                        "template": cell_template(op, winner, shape), "ms": rec["us"] / 1e3},
+                winner_is_argmin=(winner.algorithm, winner.blocks) == (argmin.algorithm,
+                                                                       argmin.blocks)))
+        emit(phase="autotune", policy="tune", arch=cfg.name, batch=BATCH, topk=AUTOTUNE_TOPK,
+             seconds=tune_s, cells_tuned=len(cells), launches_while_tuning=tune_launches,
+             cells=cells, card=card)
+
+        tcfg = launcher_tcfg(1, planned_kernels=True)
+        params0 = init_params(cnn.param_defs(cfg), SEED)
+        batch = tr.batch_to(cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)(0), "cuda")
+        at.set_policy("off")
+        _, m_off = tr.make_train_step(cfg, tcfg)(tr.init_state(cfg, tcfg, params0), batch)
+        loss_off = float(m_off["loss"])
+
+        def stopwatch(*args, **kwargs):
+            raise AssertionError("the cache-only policy timed a candidate")
+
+        measure, at._measure = at._measure, stopwatch
+        at.set_policy("cache-only")
+        try:
+            seen: set = set()
+            zero_counts(kernels)
+            with spy_blocks(kernels, seen):
+                _, m = tr.make_train_step(cfg, tcfg)(tr.init_state(cfg, tcfg, params0), batch)
+                loss = float(m["loss"])
+            got = {k: kk.launches for k, kk in kernels.items()}
+        finally:
+            at._measure = measure
+        want = per_kernel(train_calls(cnn, cl, cfg, tuned, BATCH), kernels)
+        expected = launched_blocks(cnn, cfg, tuned, BATCH)
+        for k in kernels:
+            results[k]["launches_by_path"]["autotune_tune"] = tune_launches[k]
+            results[k]["launches_by_path"][f"autotune_cache_only_b{BATCH}"] = got[k]
+        emit(phase="autotune", policy="cache-only", launches=got, launches_planned=want,
+             loss=loss, loss_policy_off=loss_off, loss_tolerance=LOSS_TOL,
+             winners_received=sorted(map(list, expected & seen)),
+             winners_missing=sorted(map(list, expected - seen)),
+             other_launches=sorted(map(list, seen - expected)))
+        check(got == want, f"autotune cache-only: launches {got} != plan {want}")
+        check(expected <= seen, f"autotune: winners not launched {sorted(expected - seen)}")
+        check(abs(loss - loss_off) <= LOSS_TOL * max(1.0, abs(loss_off)),
+              f"autotune: cache-only loss {loss} vs off {loss_off}")
+    finally:
+        at.set_policy("off")
+
+
 def main() -> int:
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
@@ -1464,6 +2038,10 @@ def main() -> int:
     emit(phase="model", config=cfg.name, params=count_params(defs), batch=BATCH, seed=SEED)
     phase_forward(torch, plans, cnn, cfg, params, images, kernels, results)
     train = phase_train(torch, cnn, cfg, kernels, results)
+    phase_accum(torch, cnn, cfg, kernels, results, card)
+    ef_state = phase_int8_ef(torch, cnn, cfg, kernels, results)
+    phase_ckpt(torch, cnn, cfg, kernels, results, ef_state, card)
+    del ef_state
 
     from repro_torch.models import transformer as tf
 
@@ -1471,6 +2049,7 @@ def main() -> int:
     s_attn = tf.plan_forward(tcfg, TFM_BATCH, TFM_SEQ, loss_chunks=tfm_chunks())["attn"]
     phase_flash(torch, s_attn, results)
     tfm = phase_transformer(torch, kernels, results)
+    phase_remat(torch, kernels, results, tfm, card)
     paths = {"conv2d": "forward", "matmul": "forward", "conv2d_wgrad": f"train_b{BATCH}",
              "matmul_nt": f"train_b{BATCH}", "matmul_tn": f"train_b{BATCH}",
              "matmul_dx_dw": f"train_b{FUSED_BATCH}", "flash_attention": TFM_PATH}
@@ -1482,6 +2061,9 @@ def main() -> int:
     del train
     torch.cuda.empty_cache()
     phase_times_transformer(torch, card, results, kernels, tfm)
+    del tfm
+    torch.cuda.empty_cache()
+    phase_autotune(torch, cnn, cfg, kernels, results, card)
 
     def step_sums(calls):
         total = {key: sum(c[key] * c["per_step"] for c in calls)

@@ -57,9 +57,8 @@ class ModelConfig:
 class TrainConfig:
     """The training knobs the port's trainer reads: the JAX package's
     TrainConfig fields of the same names and defaults, except compute in
-    float32 (the port's kernels are f32).  Accumulation, compression,
-    rematerialization and sharding knobs come with the slices that port
-    them."""
+    float32 (the port's kernels are f32).  The sharding knob (``zero1``)
+    comes with the slice that ports the sharded trainer."""
 
     param_dtype: str = "float32"
     compute_dtype: str = "float32"
@@ -71,8 +70,11 @@ class TrainConfig:
     beta2: float = 0.95
     eps: float = 1e-8
     grad_clip: float = 1.0
+    microbatch: int = 0  # 0 = no gradient accumulation
+    remat: str = "block"  # none | dots | block
     seed: int = 0
     loss_chunks: int = 8  # chunked cross-entropy over tokens
+    grad_compression: str = "none"  # none | int8_ef
     # Run the family's planned kernels (forward AND planned backward) in the
     # train step instead of the plain PyTorch path: for the cnn, the fused
     # conv + dgrad/wgrad + dX/dW matmul kernels; for the transformer, every

@@ -37,9 +37,7 @@ from repro_torch.kernels.conv2d.ops import (
     _fused_pool, _zero_bias, conv2d, conv2d_with_mask, conv_out_extent,
 )
 from repro_torch.kernels.conv2d.ref import maxpool_ref
-from repro_torch.plan import (
-    Schedule, ShardedSchedule, get_op, local_schedule, planner_for,
-)
+from repro_torch.plan import Schedule, ShardedSchedule, get_op, local_schedule
 from repro_torch.plan.registry import with_reference_vjp
 
 # The machine backward schedules are planned (and fit-checked) against.
@@ -249,11 +247,15 @@ def conv_block(x, f, b, stride=1, padding=0, pool=1, strategy="strip",
 
 
 def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
-         machine=None, strategy="strip", algorithm=None) -> Schedule:
+         machine=None, strategy="strip", algorithm=None, autotune=None) -> Schedule:
     """Plan this layer without running it: the Schedule the kernel would
     use for operands of these shapes.  ``algorithm`` pins one family of the
     two-level argmin ("direct" / "im2col"); the default lets both compete
-    (the paper strategies "alg1"/"alg2" pin direct-kernel blocks)."""
+    (the paper strategies "alg1"/"alg2" pin direct-kernel blocks).
+    ``autotune`` ("off" | "cache-only" | "tune", default the process
+    policy) lets a measured winner for this cell override the argmin."""
+    from repro_torch.plan import autotune as at
+
     machine = machine or H100
     B = x_shape[0] if len(x_shape) == 4 else 1
     H, W, d_in = x_shape[-3], x_shape[-2], x_shape[-1]
@@ -262,15 +264,15 @@ def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
     W_O = conv_out_extent(W, padding, F, stride)
     block_do = machine.lane if strategy == "alg1" else None
     block_h = H_O if strategy == "alg2" else None
-    return planner_for("conv2d", machine).plan(
+    return at.resolve("conv2d", dict(
         H_O=H_O, W_O=W_O, F=F, S=stride, d_in=d_in, d_out=d_out,
         in_bytes=in_bytes, pool=_fused_pool(H_O, W_O, pool), batch=B,
         padding=padding, H_I=H, W_I=W, block_do=block_do, block_h=block_h,
-        algorithm=algorithm)
+        algorithm=algorithm), machine=machine, policy=autotune)
 
 
 def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
-             machine=None) -> dict:
+             machine=None, autotune=None) -> dict:
     """Backward-pass Schedules for this layer's shapes: the dgrad and
     wgrad kernels autograd will run, plus — on the recompute path only —
     the pre-epilogue recompute conv of :func:`conv_block`.  Pass (a subset
@@ -280,8 +282,11 @@ def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
     output plane tiles evenly, the dgrad cell is planned as its
     ``fused_epilogue`` variant and the "recompute" entry is dropped.
     Geometries outside the dgrad contract (padding > F-1) return no
-    "dgrad" key.
+    "dgrad" key.  The backward cells autotune through the same
+    ``autotune=`` policy as the forward (each op is its own cache cell).
     """
+    from repro_torch.plan import autotune as at
+
     machine = machine or _BWD_MACHINE
     B = x_shape[0] if len(x_shape) == 4 else 1
     H, W, d_in = x_shape[-3], x_shape[-2], x_shape[-1]
@@ -291,7 +296,7 @@ def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
     fused = pool is not None and _fused_pool(H_O, W_O, pool) == pool
 
     def res(op, **shape):
-        return planner_for(op, machine).plan(**shape)
+        return at.resolve(op, shape, machine=machine, policy=autotune)
 
     out = {
         "wgrad": res(

@@ -21,9 +21,7 @@ from repro_torch.core.conv_layer import admit_schedule
 from repro_torch.core.machine import H100
 from repro_torch.kernels.matmul.bwd import matmul_dw, matmul_dx, matmul_dx_dw
 from repro_torch.kernels.matmul.ops import fc_matmul
-from repro_torch.plan import (
-    Schedule, ShardedSchedule, get_op, local_schedule, planner_for,
-)
+from repro_torch.plan import Schedule, ShardedSchedule, get_op, local_schedule
 from repro_torch.plan.registry import with_reference_vjp
 
 # The machine backward schedules are planned (and fit-checked) against.
@@ -72,24 +70,35 @@ def _fc_m(x_shape) -> int:
     return m
 
 
-def plan(x_shape, w_shape, *, in_bytes=4, machine=None) -> Schedule:
+def plan(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> Schedule:
     """Plan this layer without running it: the Schedule the kernel would
-    use for operands of these shapes."""
+    use for operands of these shapes.  ``autotune`` ("off" | "cache-only"
+    | "tune", default the process policy) lets a measured winner for this
+    cell override the modeled argmin."""
+    from repro_torch.plan import autotune as at
+
     k, n = w_shape
-    return planner_for("matmul", machine or H100).plan(
-        m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes)
+    return at.resolve("matmul", dict(m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes),
+                      machine=machine or H100, policy=autotune)
 
 
-def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None) -> dict:
+def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> dict:
     """Backward-pass Schedules for this layer's shapes: the dX and dW
     kernels autograd will run.  The "dx" cell prefers the fused dX/dW
     kernel (``algorithm="fused_dxdw"``: ``_fc_bwd`` dispatches on the tag
     and the "dw" schedule goes unused) and falls back to the direct pair
-    when the fused whole-M dX strip overflows the machine."""
+    when the fused whole-M dX strip overflows the machine.  Both cells
+    honor the ``autotune=`` policy like the forward."""
+    from repro_torch.plan import autotune as at
+
     machine = machine or _BWD_MACHINE
     k, n = w_shape
     shape = dict(m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes)
-    dx = planner_for("matmul_dx", machine).plan(**shape, algorithm="fused_dxdw")
+
+    def res(op, **extra):
+        return at.resolve(op, dict(shape, **extra), machine=machine, policy=autotune)
+
+    dx = res("matmul_dx", algorithm="fused_dxdw")
     if not dx.fits(machine):
-        dx = planner_for("matmul_dx", machine).plan(**shape)
-    return {"dx": dx, "dw": planner_for("matmul_dw", machine).plan(**shape)}
+        dx = res("matmul_dx")
+    return {"dx": dx, "dw": res("matmul_dw")}

@@ -326,8 +326,13 @@ def _dx_impl(g, w, *, schedule, block_m=None, block_n=None, block_k=None,
              algorithm=None):
     del block_m, block_n, block_k, algorithm  # consumed by the planner
     if schedule.algorithm == "fused_dxdw":
-        raise ValueError("a fused_dxdw schedule runs through matmul_dx_dw "
-                         "(the FC layer dispatches on the tag)")
+        # A fused schedule reaching the dx-only op (the autotuner timing a
+        # fused candidate on the matmul_dx cell's (dY, W) signature): run
+        # the fused kernel on a zero X so the measurement pays the kernel's
+        # whole cost; the dW half is discarded.  The FC layer dispatches to
+        # matmul_dx_dw itself and never lands here.
+        x0 = g.new_zeros((*g.shape[:-1], w.shape[0]))
+        return matmul_dx_dw(g, w, x0, schedule=schedule)[0]
     lead = g.shape[:-1]
     k, n = w.shape
     g2 = g.reshape(-1, n)

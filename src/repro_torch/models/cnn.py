@@ -68,8 +68,10 @@ def make_loss_fn(cfg: ModelConfig, tcfg):
     :func:`forward`.  Under ``tcfg.planned_kernels`` the step runs the full
     planned set — the fused forward kernels plus the planned dgrad/wgrad/
     dX/dW backward kernels, every Schedule pinned by :func:`plan_training`
-    (cached per batch size).  ``batch`` holds tensors on the compute
-    device."""
+    (cached per batch size; an accumulated step plans at the micro-batch's
+    size, under the process's autotune policy).  ``batch`` holds tensors on
+    the compute device.  The CNN has no rematerialization, as in the JAX
+    package: ``tcfg.remat`` does not apply."""
     dt = getattr(torch, tcfg.compute_dtype)
     plans: dict[int, dict] = {}
 
@@ -134,11 +136,13 @@ def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
 
 
 def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
-                 machine=None, conv_algorithm=None) -> dict:
+                 machine=None, conv_algorithm=None, autotune=None) -> dict:
     """Plan every kernel launch of :func:`forward` without running it:
     {stage name: Schedule}.  ``conv_algorithm`` pins one family of the conv
     stages' two-level argmin ("direct"/"im2col"); the default lets both
-    compete per stage."""
+    compete per stage.  ``autotune=`` ("cache-only"/"tune") resolves every
+    stage through the measured-winner cache (repro_torch.plan.autotune)
+    before the argmin."""
     from repro_torch.core import conv_layer as cl
     from repro_torch.core import fc_layer as fl
 
@@ -147,33 +151,35 @@ def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
         if name.startswith("conv"):
             out[name] = cl.plan(x_shape, w_shape, stride=1, padding=F // 2,
                                 pool=2, in_bytes=in_bytes, machine=machine,
-                                algorithm=conv_algorithm)
+                                algorithm=conv_algorithm, autotune=autotune)
         else:
             out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes,
-                                machine=machine)
+                                machine=machine, autotune=autotune)
     return out
 
 
 def plan_training(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
-                  machine=None, conv_algorithm=None) -> dict:
+                  machine=None, conv_algorithm=None, autotune=None) -> dict:
     """:func:`plan_forward` plus every backward kernel autograd runs:
     "<stage>.dgrad"/"<stage>.wgrad" for conv stages (the fused-epilogue
     backward; a "<stage>.recompute" entry appears only on ragged
     geometries), "<stage>.dx"/"<stage>.dw" for FC stages.  Pass the result
     via ``schedules=`` so the whole training step runs pinned planned
-    kernels."""
+    kernels.  The backward stages resolve through the same ``autotune=``
+    policy."""
     from repro_torch.core import conv_layer as cl
     from repro_torch.core import fc_layer as fl
 
     out = plan_forward(cfg, batch, in_bytes=in_bytes, machine=machine,
-                       conv_algorithm=conv_algorithm)
+                       conv_algorithm=conv_algorithm, autotune=autotune)
     for name, x_shape, w_shape in _stage_geometry(cfg, batch):
         if name.startswith("conv"):
             # pool=2 matches forward()'s fused conv_block epilogue.
             bwd = cl.plan_bwd(x_shape, w_shape, stride=1, padding=F // 2, pool=2,
-                              in_bytes=in_bytes, machine=machine)
+                              in_bytes=in_bytes, machine=machine, autotune=autotune)
         else:
-            bwd = fl.plan_bwd(x_shape, w_shape, in_bytes=in_bytes, machine=machine)
+            bwd = fl.plan_bwd(x_shape, w_shape, in_bytes=in_bytes, machine=machine,
+                              autotune=autotune)
         for k, s in bwd.items():
             out[f"{name}.{k}"] = s
     return out

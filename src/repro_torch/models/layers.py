@@ -65,16 +65,25 @@ def attn_defs(cfg: ModelConfig, L: int) -> dict:
     return defs
 
 
-def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0: int = 0,
-                    window=None, theta=None, causal: bool = True) -> torch.Tensor:
-    """One layer's attention block (no cache): x [B, S, d] -> [B, S, d]."""
-    S = x.shape[1]
+def project_qkv(p: dict, x: torch.Tensor):
+    """The block's three input projections: x [B, S, d] -> q, k, v [B, S, H, Dh]."""
+    cd = x.dtype
+    return tuple(torch.einsum("bsd,dhk->bshk", x, p[w].to(cd)) for w in ("wq", "wk", "wv"))
+
+
+def project_out(p: dict, out: torch.Tensor) -> torch.Tensor:
+    """The output projection: [B, S, Hq, Dh] -> [B, S, d]."""
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
+
+
+def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0: int = 0, window=None,
+                   theta=None, causal: bool = True) -> torch.Tensor:
+    """Everything between the projections: biases, qk-norm, RoPE and
+    attention; returns [B, S, Hq, Dh]."""
+    S = q.shape[1]
     Dh = cfg.resolved_head_dim
     theta = cfg.rope_theta if theta is None else theta
-    cd = x.dtype
-    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(cd))
-    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(cd))
-    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(cd))
+    cd = q.dtype
     if cfg.qkv_bias:
         q = q + p["bq"].to(cd)
         k = k + p["bk"].to(cd)
@@ -82,12 +91,11 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0: int = 0
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=x.device)
+    q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=q.device)
     q = rope(q, q_pos, theta)
     k = rope(k, q_pos, theta)
-    out = attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
-                    scale=Dh**-0.5)
-    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(cd))
+    return attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
+                     scale=Dh**-0.5)
 
 
 # --- MLP -------------------------------------------------------------------
@@ -103,12 +111,6 @@ def mlp_defs(cfg: ModelConfig, L: int, d_ff: int | None = None) -> dict:
         "w_up": ParamDef((L, d, ff), fan_in_axis=1),
         "w_down": ParamDef((L, ff, d), fan_in_axis=1),
     }
-
-
-def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    cd = x.dtype
-    h = _ACT[act](x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
-    return h @ p["w_down"].to(cd)
 
 
 # --- embeddings ------------------------------------------------------------

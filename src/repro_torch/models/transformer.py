@@ -1,6 +1,6 @@
 """Dense decoder-only transformer (qwen1.5 / qwen3 / gemma3 / chameleon),
 training path: the JAX package's ``models/transformer.py`` without its KV
-cache, rematerialization and sharding branches.
+cache and sharding branches.
 
 Parameters are one flat ``{path: tensor}`` dict keyed like the JAX
 package's nested tree (``"layers/attn/wq"``), with its stacked leading L
@@ -13,13 +13,33 @@ backward) and the attention cell through the flash-attention kernel, whose
 backward differentiates :func:`attention_ref` as the JAX package's does.
 :class:`repro_torch.plan.TransformerBlockPlanner` owns the delegation
 table (qkv/wo/mlp GEMMs -> MatmulPlanner, attn -> AttentionPlanner).
+
+Rematerialization (``remat=``, both paths; ``torch.utils.checkpoint``,
+non-reentrant, so the autograd graph and every gradient are the same bits
+as without it):
+
+* ``"none"`` keeps every activation autograd saves;
+* ``"block"`` checkpoints each layer: only the layer's input is kept, and
+  the backward pass runs the layer's forward again (on the planned path:
+  its four GEMM launches and its flash launch);
+* ``"dots"`` keeps the GEMMs' operands and results and recomputes the
+  segments between GEMM calls — the norms, the residual adds, the biases,
+  qk-norm, RoPE, attention (on the planned path a flash launch again) and
+  the gated activation.  A layer keeps its input x, ``rms_norm(x)``, the
+  q/k/v projections, the attention output, the output projection,
+  ``rms_norm`` of the residual, the gate/up projections and the gated
+  product, not the segments' internals (``repro``'s
+  ``checkpoint_dots_with_no_batch_dims`` keeps the GEMM results alone;
+  the port's GEMMs save their inputs for their own backward).
 """
 
 from __future__ import annotations
 
+import functools
 import sys
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.fc_layer import fc_layer
@@ -71,9 +91,33 @@ def _layers(params: dict, n_layers: int) -> list[dict]:
     return out
 
 
+REMAT = ("none", "dots", "block")
+
+
+def _check_remat(remat: str) -> None:
+    if remat not in REMAT:
+        raise ValueError(f"remat must be one of {REMAT}, got {remat!r}")
+
+
+def _segment(fn, remat: str):
+    """A stretch of a layer between GEMM calls: under ``remat="dots"`` it
+    keeps only its inputs and runs again in the backward pass."""
+    if remat != "dots":
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def _layer(fn, remat: str):
+    """A whole layer: under ``remat="block"`` it keeps only its input and
+    runs again in the backward pass."""
+    if remat != "block":
+        return fn
+    return lambda x: checkpoint(fn, x, use_reentrant=False)
+
+
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
             compute_dtype=torch.float32, use_kernels: bool = False,
-            schedules: dict | None = None):
+            schedules: dict | None = None, remat: str = "none"):
     """Returns (hidden [B, S, d], None) — no KV cache on the training path.
 
     ``use_kernels=True`` runs the planned wing: every projection GEMM
@@ -82,22 +126,41 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
     "wo", "mlp_up", "mlp_down") to explicit Schedules (from
     :func:`plan_forward`); backward pins ride in the same dict under
     "<cell>.dx"/"<cell>.dw" keys, which :func:`plan_training` emits — so
-    autograd through this forward runs pinned planned backward kernels."""
+    autograd through this forward runs pinned planned backward kernels.
+    ``remat`` ("none" | "dots" | "block") trades memory for recompute (see
+    the module docstring)."""
+    _check_remat(remat)
     if use_kernels:
-        return _forward_planned(cfg, params, tokens, compute_dtype, schedules), None
+        return _forward_planned(cfg, params, tokens, compute_dtype, schedules,
+                                remat), None
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype)
     meta = layer_meta(cfg)
     for lp, window, theta in zip(_layers(params, cfg.n_layers),
                                  meta["window"].tolist(), meta["theta"].tolist()):
-        x = _block(x, lp, cfg, window, theta)
+        x = _layer(lambda x, lp=lp, w=window, t=theta: _block(x, lp, cfg, w, t, remat),
+                   remat)(x)
     return x, None
 
 
-def _block(x, lp, cfg, window, theta):
-    h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
-    x = x + ll.apply_attention(lp["attn"], h, cfg, window=window, theta=theta)
-    h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-    return x + ll.apply_mlp(lp["mlp"], h, cfg.act)
+def _block(x, lp, cfg, window, theta, remat="none"):
+    """One plain layer, in segments between its GEMM calls."""
+    seg = functools.partial(_segment, remat=remat)
+    ap, mp = lp["attn"], lp["mlp"]
+    h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps))(x)
+    q, k, v = ll.project_qkv(ap, h)
+    o = seg(lambda q, k, v: ll.attention_core(ap, q, k, v, cfg, window=window,
+                                              theta=theta))(q, k, v)
+    a = ll.project_out(ap, o)
+
+    def residual_norm(x, a):
+        x = x + a
+        return x, ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+
+    x, h = seg(residual_norm)(x, a)
+    cd = h.dtype
+    g, u = h @ mp["w_gate"].to(cd), h @ mp["w_up"].to(cd)
+    gated = seg(lambda g, u: ll._ACT[cfg.act](g) * u)(g, u)
+    return x + gated @ mp["w_down"].to(cd)
 
 
 def _bwd_for(sched: dict, cell: str) -> dict | None:
@@ -135,7 +198,8 @@ _attn_vjp = with_reference_vjp(_attn_kernel, bwd_fn=_attn_bwd, nondiff_argnums=(
 
 
 def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
-                     compute_dtype, schedules: dict | None) -> torch.Tensor:
+                     compute_dtype, schedules: dict | None,
+                     remat: str = "none") -> torch.Tensor:
     """The planned training forward: hidden [B, S, d].
 
     Cell decomposition mirrors ``TransformerBlockPlanner.cell_planners``:
@@ -158,40 +222,55 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     window = cfg.local_window or None
     s_attn = local_schedule(sched.get("attn"))
+    seg = functools.partial(_segment, remat=remat)
 
-    for lp in _layers(params, cfg.n_layers):
+    def layer(x, lp):
         ap, mp = lp["attn"], lp["mlp"]
-        h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
+        h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps).reshape(B * S, d))(x)
         w_qkv = torch.cat([ap["wq"].reshape(d, Hq * Dh), ap["wk"].reshape(d, Hkv * Dh),
                            ap["wv"].reshape(d, Hkv * Dh)], dim=1).to(cd)
-        qkv = fc_layer(h.reshape(B * S, d), w_qkv, sched.get("qkv"),
-                       _bwd_for(sched, "qkv"))
-        q, k, v = torch.split(qkv, [Hq * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
-        q = q.reshape(B, S, Hq, Dh)
-        k = k.reshape(B, S, Hkv, Dh)
-        v = v.reshape(B, S, Hkv, Dh)
-        if cfg.qkv_bias:
-            q = q + ap["bq"].to(cd)
-            k = k + ap["bk"].to(cd)
-            v = v + ap["bv"].to(cd)
-        if cfg.qk_norm:
-            q = ll.rms_norm(q, ap["q_norm"], cfg.norm_eps)
-            k = ll.rms_norm(k, ap["k_norm"], cfg.norm_eps)
-        q = ll.rope(q, pos, cfg.rope_theta)
-        k = ll.rope(k, pos, cfg.rope_theta)
-        o = _attn_vjp(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                      True, window, s_attn)
-        o = o.transpose(1, 2).reshape(B * S, Hq * Dh)
+        qkv = fc_layer(h, w_qkv, sched.get("qkv"), _bwd_for(sched, "qkv"))
+
+        def attend(qkv):
+            q, k, v = torch.split(qkv, [Hq * Dh, Hkv * Dh, Hkv * Dh], dim=-1)
+            q = q.reshape(B, S, Hq, Dh)
+            k = k.reshape(B, S, Hkv, Dh)
+            v = v.reshape(B, S, Hkv, Dh)
+            if cfg.qkv_bias:
+                q = q + ap["bq"].to(cd)
+                k = k + ap["bk"].to(cd)
+                v = v + ap["bv"].to(cd)
+            if cfg.qk_norm:
+                q = ll.rms_norm(q, ap["q_norm"], cfg.norm_eps)
+                k = ll.rms_norm(k, ap["k_norm"], cfg.norm_eps)
+            q = ll.rope(q, pos, cfg.rope_theta)
+            k = ll.rope(k, pos, cfg.rope_theta)
+            o = _attn_vjp(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                          True, window, s_attn)
+            return o.transpose(1, 2).reshape(B * S, Hq * Dh)
+
+        o = seg(attend)(qkv)
         wo = ap["wo"].reshape(Hq * Dh, d).to(cd)
-        x = x + fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo")).reshape(B, S, d)
-        h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
+        a = fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo"))
+
+        def residual_norm(x, a):
+            x = x + a.reshape(B, S, d)
+            return x, ll.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(B * S, d)
+
+        x, h = seg(residual_norm)(x, a)
         w_gu = torch.cat([mp["w_gate"], mp["w_up"]], dim=1).to(cd)
-        gu = fc_layer(h.reshape(B * S, d), w_gu, sched.get("mlp_up"),
-                      _bwd_for(sched, "mlp_up"))
-        g, u = torch.chunk(gu, 2, dim=-1)
-        down = fc_layer(ll._ACT[cfg.act](g) * u, mp["w_down"].to(cd),
-                        sched.get("mlp_down"), _bwd_for(sched, "mlp_down"))
-        x = x + down.reshape(B, S, d)
+        gu = fc_layer(h, w_gu, sched.get("mlp_up"), _bwd_for(sched, "mlp_up"))
+
+        def gate(gu):
+            g, u = torch.chunk(gu, 2, dim=-1)
+            return ll._ACT[cfg.act](g) * u
+
+        down = fc_layer(seg(gate)(gu), mp["w_down"].to(cd), sched.get("mlp_down"),
+                        _bwd_for(sched, "mlp_down"))
+        return x + down.reshape(B, S, d)
+
+    for lp in _layers(params, cfg.n_layers):
+        x = _layer(functools.partial(layer, lp=lp), remat)(x)
     return x
 
 
@@ -228,27 +307,32 @@ def _chunk_m(batch: int, seq: int, loss_chunks: int) -> int:
 
 
 def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
-                 in_bytes: int = 4, machine=None) -> dict:
+                 in_bytes: int = 4, machine=None, autotune=None) -> dict:
     """Plan every kernel launch of the planned :func:`forward` plus the
     :func:`logits` head, without running them: {cell: Schedule} keyed
-    qkv/attn/wo/mlp_up/mlp_down/logits.  The logits cell is planned at the
-    chunk M that ``runtime.train.chunked_ce`` calls (``loss_chunks``)."""
+    qkv/attn/wo/mlp_up/mlp_down/logits, each cell resolved through the
+    autotune cache under ``autotune=`` like every other op.  The logits
+    cell is planned at the chunk M that ``runtime.train.chunked_ce`` calls
+    (``loss_chunks``)."""
     from repro_torch.core.machine import H100
-    from repro_torch.plan.planners import MatmulPlanner, TransformerBlockPlanner
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan.planners import TransformerBlockPlanner
 
     machine = machine or H100
     cells = TransformerBlockPlanner(machine).cell_planners(
         batch=batch, seq=seq, d_model=cfg.d_model, n_heads=cfg.n_heads,
         d_ff=cfg.d_ff, n_kv_heads=cfg.n_kv_heads, in_bytes=in_bytes, causal=True)
-    out = {name: planner.plan(**kw) for name, (planner, kw) in cells.items()}
-    out["logits"] = MatmulPlanner(machine).plan(
-        m=_chunk_m(batch, seq, loss_chunks), n=cfg.vocab, k=cfg.d_model,
-        in_bytes=in_bytes)
+    out = {name: at.resolve(planner.op, kw, machine=machine, policy=autotune)
+           for name, (planner, kw) in cells.items()}
+    out["logits"] = at.resolve(
+        "matmul", dict(m=_chunk_m(batch, seq, loss_chunks), n=cfg.vocab,
+                       k=cfg.d_model, in_bytes=in_bytes),
+        machine=machine, policy=autotune)
     return out
 
 
 def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
-                  in_bytes: int = 4, machine=None) -> dict:
+                  in_bytes: int = 4, machine=None, autotune=None) -> dict:
     """:func:`plan_forward` plus every planned backward kernel autograd runs:
     "<cell>.dx"/"<cell>.dw" for each GEMM cell (the fused dX/dW kernel
     where it fits; the attention cell differentiates its reference and has
@@ -256,7 +340,7 @@ def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 
     from repro_torch.core import fc_layer as fl
 
     out = plan_forward(cfg, batch, seq, loss_chunks=loss_chunks, in_bytes=in_bytes,
-                       machine=machine)
+                       machine=machine, autotune=autotune)
     d, ff = cfg.d_model, cfg.d_ff
     Hq = cfg.n_heads
     Hkv = cfg.n_kv_heads or Hq
@@ -271,14 +355,15 @@ def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 
     }
     for name, (mm, k, n) in gemms.items():
         for kk, s in fl.plan_bwd((mm, k), (k, n), in_bytes=in_bytes,
-                                 machine=machine).items():
+                                 machine=machine, autotune=autotune).items():
             out[f"{name}.{kk}"] = s
     return out
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg):
     """Family-registry hook: the dense-transformer training loss, chunked
-    cross-entropy over :func:`forward`.  Under ``tcfg.planned_kernels`` the
+    cross-entropy over :func:`forward` under ``tcfg.remat``.  Under
+    ``tcfg.planned_kernels`` the
     whole step runs planned kernels — :func:`plan_training` pins every
     cell's Schedule (cached per (batch, seq)), the planned forward runs
     them, and ``chunked_ce`` routes its logits GEMM through the planned
@@ -297,10 +382,10 @@ def make_loss_fn(cfg: ModelConfig, tcfg):
                 plans[key] = plan_training(cfg, *key, loss_chunks=tcfg.loss_chunks,
                                            in_bytes=dt.itemsize)
             h, _ = forward(cfg, params, tokens, compute_dtype=dt, use_kernels=True,
-                           schedules=plans[key])
+                           schedules=plans[key], remat=tcfg.remat)
             return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks,
                               schedules=plans[key], head=head_weight(cfg, params))
-        h, _ = forward(cfg, params, tokens, compute_dtype=dt)
+        h, _ = forward(cfg, params, tokens, compute_dtype=dt, remat=tcfg.remat)
         return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks)
 
     return loss_fn

@@ -30,6 +30,13 @@ from repro_torch.plan.schedule import Schedule
 from repro_torch.plan.sharded import MeshSpec, ShardedSchedule
 
 
+class PlanRejected(ValueError):
+    """A planner refuses the shapes or pins it was given (an unknown
+    algorithm, pins of two families, a geometry outside the kernel's
+    contract).  The autotuner degrades to the modeled argmin on this error
+    alone; an error a kernel raises propagates."""
+
+
 def round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
@@ -74,6 +81,68 @@ class ShardablePlanner:
     def plan_local(self, **shape) -> Schedule:  # pragma: no cover - abstract
         raise NotImplementedError
 
+    # -- candidate enumeration (the argmin's search space, exposed) -------
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """The single-device Schedules the argmin chooses between, one per
+        point of the op's tunable ladder (each completed to its best
+        remaining blocking).  The base planner has a one-point space; ops
+        with a real search override this.  Used by ``candidates()`` and
+        the measured-time autotuner (repro_torch.plan.autotune)."""
+        return [self.plan_local(**shape)]
+
+    def _ladder_candidates(self, name: str, floor: int, **shape) -> list[Schedule]:
+        """Halving ladder over one block kwarg: the argmin's pick, then
+        ``floor``-aligned halvings down to ``floor`` — each re-planned so
+        the remaining blocks adapt.  An explicit pin collapses the ladder."""
+        base = self.plan_local(**shape)
+        if shape.get(name) is not None:
+            return [base]
+        out, seen = [], set()
+        v = base.block(name)
+        while True:
+            s = self.plan_local(**{**shape, name: v})
+            if s.blocks not in seen and s.fits(self.machine):
+                out.append(s)
+                seen.add(s.blocks)
+            if v <= floor:
+                break
+            v = max(floor, _align_down(v // 2, floor) or floor)
+        return out or [base]
+
+    def candidates(self, **shape) -> list:
+        """Every (Sharded)Schedule the planner's argmin considers, sorted
+        by modeled words (the plan() winner first): the local blocking
+        ladder, or, with a one-device mesh, its argmin in a ShardedSchedule
+        — the search space the measured-time autotuner benchmarks.  On the
+        H100 the list holds only what the port's kernels launch: a
+        candidate that overflows a block's shared memory is dropped (the
+        JAX package's ladders fall back to an unfit argmin, which the
+        interpreter runs), and a list left empty is a rejection."""
+        if self.mesh is None:
+            cands = self.local_candidates(**shape)
+        else:
+            cands = [self.plan_sharded(**shape)]
+        if self.machine.name == H100.name:
+            cands = [s for s in cands if s.fits(self.machine)]
+            if not cands:
+                raise PlanRejected(f"{self.op}: no candidate fits one block's shared "
+                                   f"memory at {shape}")
+
+        def _rank(s):
+            loc = s if isinstance(s, Schedule) else s.schedule
+            return (s.modeled_words, loc.critical_path_steps)
+
+        out, seen = [], set()
+        for s in sorted(cands, key=_rank):
+            loc = s if isinstance(s, Schedule) else s.schedule
+            key = (getattr(s, "strategy", None),
+                   getattr(loc, "algorithm", None), loc.grid, loc.blocks)
+            if key not in seen:
+                seen.add(key)
+                out.append(s)
+        return out
+
     @property
     def shard_group(self) -> int:
         """Extent of the partitioned mesh axis (1 when the mesh lacks it)."""
@@ -83,7 +152,7 @@ class ShardablePlanner:
 
     def plan_sharded(self, **shape) -> ShardedSchedule:
         if self.mesh is None:
-            raise ValueError("plan_sharded needs a mesh-bound planner")
+            raise PlanRejected("plan_sharded needs a mesh-bound planner")
         if self.shard_group != 1:
             raise NotImplementedError(
                 f"{self.op!r} over {self.shard_group} devices: multi-device "
@@ -198,13 +267,13 @@ class ConvPlanner(ShardablePlanner):
         """The two-level argmin: each family's best blocking, then the
         fitting family with fewer modeled words (ties toward direct)."""
         if algorithm not in (None, "direct", "im2col"):
-            raise ValueError(f"unknown conv algorithm {algorithm!r}; "
+            raise PlanRejected(f"unknown conv algorithm {algorithm!r}; "
                              "expected 'direct' or 'im2col'")
         direct_pins = block_do is not None or block_di is not None
         gemm_pins = (block_m is not None or block_n is not None
                      or block_k is not None)
         if direct_pins and gemm_pins:
-            raise ValueError(
+            raise PlanRejected(
                 "block_do/block_di pin the direct kernel and "
                 "block_m/block_n/block_k pin the im2col GEMM — they cannot "
                 "be combined in one conv plan")
@@ -214,9 +283,9 @@ class ConvPlanner(ShardablePlanner):
             elif gemm_pins:
                 algorithm = "im2col"
         if algorithm == "direct" and gemm_pins:
-            raise ValueError("direct conv has no block_m/block_n/block_k")
+            raise PlanRejected("direct conv has no block_m/block_n/block_k")
         if algorithm == "im2col" and direct_pins:
-            raise ValueError("im2col conv has no block_do/block_di")
+            raise PlanRejected("im2col conv has no block_do/block_di")
         shape = dict(H_O=H_O, W_O=W_O, F=F, S=S, d_in=d_in, d_out=d_out,
                      in_bytes=in_bytes, pool=pool, batch=batch,
                      padding=padding, H_I=H_I, W_I=W_I, block_h=block_h)
@@ -363,6 +432,34 @@ class ConvPlanner(ShardablePlanner):
                 best = s
         return best or build(_strip_ladder(H_O, pool)[-1])
 
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Both families' ladders: one candidate per (algorithm, strip
+        height) of the two-level search, each completed to its family's
+        best remaining blocking, fits-filtered — the crossover autotune
+        measures for real.  An ``algorithm=`` pin (explicit or implied by
+        a family-specific block pin) collapses to one family."""
+        if shape.get("block_h") is not None:
+            return [self.plan_local(**shape)]
+        alg = shape.get("algorithm")
+        if alg is None:
+            if shape.get("block_do") is not None or shape.get("block_di") is not None:
+                alg = "direct"
+            elif any(shape.get(b) is not None
+                     for b in ("block_m", "block_n", "block_k")):
+                alg = "im2col"
+        algs = ("direct", "im2col") if alg is None else (alg,)
+        pool = shape.get("pool") or 1
+        out, seen = [], set()
+        for hb in _strip_ladder(shape["H_O"], pool):
+            for a in algs:
+                s = self.plan_local(**{**shape, "block_h": hb,
+                                       "algorithm": a})
+                key = (s.algorithm, s.blocks)
+                if key not in seen and s.fits(self.machine):
+                    out.append(s)
+                    seen.add(key)
+        return out or [self.plan_local(**shape)]
+
 
 @dataclasses.dataclass(frozen=True)
 class Im2colConvPlanner(ConvPlanner):
@@ -373,6 +470,9 @@ class Im2colConvPlanner(ConvPlanner):
 
     def plan_local(self, **shape) -> Schedule:
         return super().plan_local(**{**shape, "algorithm": "im2col"})
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        return super().local_candidates(**{**shape, "algorithm": "im2col"})
 
 
 # ---------------------------------------------------------------------------
@@ -411,12 +511,12 @@ class ConvDgradPlanner(ShardablePlanner):
         algorithm: str | None = None,
     ) -> Schedule:
         if P > F - 1:
-            raise ValueError(f"dgrad needs padding <= F-1, got P={P} for F={F}")
+            raise PlanRejected(f"dgrad needs padding <= F-1, got P={P} for F={F}")
         if algorithm not in (None, "direct", "fused_epilogue"):
-            raise ValueError(f"unknown dgrad algorithm {algorithm!r}; "
+            raise PlanRejected(f"unknown dgrad algorithm {algorithm!r}; "
                              "expected 'direct' or 'fused_epilogue'")
         if algorithm == "fused_epilogue" and not pool:
-            raise ValueError("fused_epilogue dgrad needs the forward pool "
+            raise PlanRejected("fused_epilogue dgrad needs the forward pool "
                              "factor (pool=)")
         if algorithm is None:
             algorithm = "fused_epilogue" if pool else "direct"
@@ -444,6 +544,35 @@ class ConvDgradPlanner(ShardablePlanner):
                 H_I=H_I, d_in=d_in, block_h=inner.block("block_h"),
                 block_do=inner.block("block_do"), batch=batch),
         )
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Strip ladder over the dX extent (the transposed geometry's
+        output plane), each delegated through the forward search — and,
+        when the forward saved a mask residual (``pool=``), both the
+        fused_epilogue and direct variants per strip."""
+        if shape.get("block_h") is not None:
+            return [self.plan_local(**shape)]
+        F, S, P = shape["F"], shape.get("S", 1), shape.get("P", 0)
+        H_I = shape.get("H_I")
+        if H_I is None:
+            H_I = (shape["H_O"] - 1) * S + 1 + 2 * (F - 1 - P) - F + 1
+        alg = shape.get("algorithm")
+        if alg is not None:
+            algs = (alg,)
+        elif shape.get("pool"):
+            algs = ("fused_epilogue", "direct")
+        else:
+            algs = ("direct",)
+        out, seen = [], set()
+        for hb in _strip_ladder(H_I, 1):
+            for a in algs:
+                s = self.plan_local(**{**shape, "block_h": hb,
+                                       "algorithm": a})
+                key = (s.algorithm, s.blocks)
+                if key not in seen and s.fits(self.machine):
+                    out.append(s)
+                    seen.add(key)
+        return out or [self.plan_local(**shape)]
 
 
 def conv_wgrad_words(
@@ -532,7 +661,7 @@ class ConvWgradPlanner(ShardablePlanner):
         algorithm: str | None = None,
     ) -> Schedule:
         if algorithm not in (None, "direct", "pipelined"):
-            raise ValueError(f"unknown wgrad algorithm {algorithm!r}; "
+            raise PlanRejected(f"unknown wgrad algorithm {algorithm!r}; "
                              "expected 'direct' or 'pipelined'")
         m = self.machine
         lane = m.lane
@@ -613,6 +742,25 @@ class ConvWgradPlanner(ShardablePlanner):
                 **step_kw, pipelined=(algorithm == "pipelined")),
         )
 
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """One candidate per (gradient-strip height, variant): each strip
+        with its best fitting gradient stack, in both the pipelined and
+        direct execution variants — the wgrad argmin's search space."""
+        if shape.get("block_h") is not None:
+            return [self.plan_local(**shape)]
+        alg = shape.get("algorithm")
+        algs = ("pipelined", "direct") if alg is None else (alg,)
+        out, seen = [], set()
+        for hb in _strip_ladder(shape["H_O"], 1):
+            for a in algs:
+                s = self.plan_local(**{**shape, "block_h": hb,
+                                       "algorithm": a})
+                key = (s.algorithm, s.blocks)
+                if key not in seen and s.fits(self.machine):
+                    out.append(s)
+                    seen.add(key)
+        return out or [self.plan_local(**shape)]
+
 
 # ---------------------------------------------------------------------------
 # Matmul (Algs 4/5)
@@ -682,6 +830,11 @@ class MatmulPlanner(ShardablePlanner):
             critical_path_steps=ccr.grid_steps(grid),
         )
 
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Halving ladder over block_n — the Delta_O output stack the
+        capacity argument maximizes (the budget max, then halves)."""
+        return self._ladder_candidates("block_n", self.machine.lane, **shape)
+
 
 # ---------------------------------------------------------------------------
 # Matmul backward: dX = G @ W^T and dW = X^T @ G
@@ -749,7 +902,7 @@ class MatmulDxPlanner(ShardablePlanner):
         block_k: int | None = None, algorithm: str | None = None,
     ) -> Schedule:
         if algorithm not in (None, "direct", "fused_dxdw"):
-            raise ValueError(
+            raise PlanRejected(
                 f"matmul_dx algorithm must be 'direct' or 'fused_dxdw', "
                 f"got {algorithm!r}")
         inner = MatmulPlanner(self.machine).plan(
@@ -762,6 +915,22 @@ class MatmulDxPlanner(ShardablePlanner):
         if (algorithm or "direct") == "direct":
             return sched
         return self._fuse_dxdw(sched, m=m, n=n, k=k, in_bytes=in_bytes)
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Halving ladder over block_k — dX's resident output stack — for
+        the direct kernel and the fused dX/dW variant (a pinned
+        ``algorithm`` collapses to that variant's ladder)."""
+        pin = shape.pop("algorithm", None)
+        algs = ("direct", "fused_dxdw") if pin is None else (pin,)
+        out, seen = [], set()
+        for alg in algs:
+            for s in self._ladder_candidates(
+                    "block_k", self.machine.lane, algorithm=alg, **shape):
+                key = (s.algorithm, s.blocks)
+                if key not in seen:
+                    seen.add(key)
+                    out.append(s)
+        return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -786,6 +955,11 @@ class MatmulDwPlanner(ShardablePlanner):
         return _relabel_matmul(inner, self.op, {
             "block_m": "block_k", "block_n": "block_n", "block_k": "block_m",
         })
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Halving ladder over block_n — the streamed half of dW's
+        resident [block_k, block_n] accumulator tile."""
+        return self._ladder_candidates("block_n", self.machine.lane, **shape)
 
 
 # ---------------------------------------------------------------------------
@@ -878,6 +1052,39 @@ class AttentionPlanner(ShardablePlanner):
             vmem_bytes=self._vmem_bytes(bq, bkv, head_dim, in_bytes),
             machine=self.machine.name,
         )
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """The argmin's (block_q, block_kv) pick plus the sublane-aligned
+        halvings of each — the small 2-D neighbourhood the downward
+        capacity rule walks.  On the H100 only the blocks the flash kernel
+        is built for at this head_dim stay (a stated divergence: ``repro``'s
+        kernel takes any); a head_dim it is not built for has none."""
+        if (shape.get("block_q") is not None
+                or shape.get("block_kv") is not None):
+            out = [self.plan_local(**shape)]
+        else:
+            base = self.plan_local(**shape)
+            bq, bkv = base.block("block_q"), base.block("block_kv")
+            sub = self._SUBLANE
+            out, seen = [base], {base.blocks}
+            for q2, kv2 in ((bq, bkv // 2), (bq // 2, bkv), (bq // 2, bkv // 2)):
+                if q2 < sub or kv2 < sub:
+                    continue
+                s = self.plan_local(**{**shape, "block_q": round_up(q2, sub),
+                                       "block_kv": round_up(kv2, sub)})
+                if s.blocks not in seen and s.fits(self.machine):
+                    out.append(s)
+                    seen.add(s.blocks)
+        if self.machine.name != H100.name:
+            return out
+        from repro_torch.kernels.flash_attention.flash_attention import supported_blocks
+
+        D = shape["head_dim"]
+        out = [s for s in out if supported_blocks(s.block("block_q"), s.block("block_kv"), D)]
+        if not out:
+            raise PlanRejected(f"the flash kernel is not built for head_dim {D} "
+                               "(or not at the pinned blocks)")
+        return out
 
 
 # ---------------------------------------------------------------------------

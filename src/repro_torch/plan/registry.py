@@ -115,17 +115,25 @@ class CudaOp:
     impl: Callable[..., Any]
     kernel: CudaKernel
 
-    def plan(self, *tensors, machine: MachineModel = H100, **params) -> Schedule:
+    def plan(self, *tensors, machine: MachineModel = H100, autotune: str | None = None,
+             **params) -> Schedule:
         """Plan from concrete operands (shapes/dtypes only are read), cached
-        per (planner, shapes)."""
+        per (planner, shapes).  ``autotune`` overrides the process policy
+        for this resolution — under "cache-only"/"tune" a measured winner
+        beats the argmin (measured on the operands' device)."""
         shape = self.shape_args(*tensors, **params)
+        tuned = _tuned(self.name, shape, machine, autotune, tensors[0].dtype,
+                       tensors[0].device)
+        if tuned is not None:
+            return tuned
         return _cached_plan(self.planner(machine), tuple(sorted(shape.items())))
 
     def __call__(self, *tensors, schedule: Schedule | ShardedSchedule | None = None,
-                 machine: MachineModel = H100, **params):
+                 machine: MachineModel = H100, autotune: str | None = None, **params):
         schedule = local_schedule(schedule)
         if schedule is None:
-            schedule = local_schedule(self.plan(*tensors, machine=machine, **params))
+            schedule = local_schedule(self.plan(*tensors, machine=machine,
+                                                autotune=autotune, **params))
         return self.impl(*tensors, schedule=schedule, **params)
 
 
@@ -134,6 +142,18 @@ def _cached_plan(planner, shape_items: tuple) -> Schedule:
     """Planners are frozen dataclasses and shape kwargs are hashable ints,
     so identical (planner, shapes) pairs return the memoized Schedule."""
     return planner.plan(**dict(shape_items))
+
+
+def _tuned(name, shape, machine, policy, dtype, device):
+    """The measured-time override for one schedule resolution (see
+    repro_torch.plan.autotune), or ``None`` when the modeled argmin stands
+    — policy "off" short-circuits before the autotuner is even imported."""
+    from repro_torch.plan import autotune as _at
+
+    if (policy or _at.get_policy()) == "off":
+        return None
+    return _at.tuned_schedule(name, shape, machine=machine, policy=policy,
+                              dtype=dtype, device=device)
 
 
 _OPS: dict[str, CudaOp] = {}

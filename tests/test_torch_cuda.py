@@ -496,3 +496,73 @@ def test_planned_transformer_grads_on_card(cuda):
     assert_close(loss_c, loss_p)
     for got, want in zip(grads_c, grads_p):
         assert_close(got, want)
+
+
+@pytest.mark.cuda
+def test_autotune_measures_with_cuda_events_on_card(cuda, tmp_path, monkeypatch):
+    """The stopwatch times a launch with CUDA events on the card, and a
+    tuned matmul cell's winner replays from the cache and runs."""
+    from repro_torch.plan import autotune as at
+
+    monkeypatch.setattr(at, "_POLICY", "off")
+    rng = np.random.default_rng(13)
+    x, w = _rand(rng, 64, 64).to(cuda), _rand(rng, 64, 128).to(cuda)
+    us = at._measure(lambda: matmul_kernel(x, w, block_m=64, block_n=128, block_k=32),
+                     iters=3, warmup=1, device=x.device)
+    assert 0.0 < us < 1e6
+    cache = at.AutotuneCache(str(tmp_path / "autotune.json"))
+    shape = dict(m=64, n=256, k=128, in_bytes=4)
+    rep = at.tune("matmul", cache=cache, topk=3, device=cuda, **shape)
+    assert not rep.cached and all(t > 0 for _, t, _ in rep.measurements)
+    replay = at.tune("matmul", cache=cache, topk=3, device=cuda, **shape)
+    assert replay.cached and replay.schedule.blocks == rep.schedule.blocks
+    xs, ws = _rand(rng, 64, 128).to(cuda), _rand(rng, 128, 256).to(cuda)
+    assert_close(fc_matmul(xs, ws, schedule=replay.schedule), xs @ ws)
+
+
+@pytest.mark.cuda
+def test_checkpoint_of_card_tensors_restores_onto_the_card(cuda, tmp_path):
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train import TrainState
+
+    rng = np.random.default_rng(14)
+    params = {"w": _rand(rng, 9, 4).to(cuda), "b": _rand(rng, 4).to(cuda),
+              "h": _rand(rng, 5, 3).to(cuda).to(torch.bfloat16)}
+    state = TrainState(params, adamw.AdamWState(3, {k: v.float() * 2 for k, v in params.items()},
+                                                {k: v.float() ** 2 for k, v in params.items()}))
+    ckpt.save_async(str(tmp_path), 3, state, n_chunks=2).join()
+    out = ckpt.restore(str(tmp_path), 3, state, device=cuda)
+    assert out.opt.step == 3
+    for a, b in ((out.params, state.params), (out.opt.m, state.opt.m), (out.opt.v, state.opt.v)):
+        for k in b:
+            assert a[k].device.type == "cuda" and a[k].dtype == b[k].dtype
+            assert torch.equal(a[k], b[k])
+
+
+@pytest.mark.cuda
+def test_remat_gradients_are_bit_identical_on_card(cuda):
+    """The planned smoke transformer (head_dim 64) on the card: the
+    gradients under remat "block" and "dots" are the bits of "none"."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    cfg = dataclasses.replace(smoke_config("qwen1.5-0.5b"), n_layers=2, n_heads=2,
+                              n_kv_heads=2, head_dim=64)
+    params = init_params(tf.param_defs(cfg), 0, device=cuda)
+    rng = np.random.default_rng(15)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32)).to(cuda)
+             for k in ("tokens", "labels")}
+    out = {}
+    for remat in ("none", "block", "dots"):
+        loss_fn = tr.make_loss_fn(cfg, TrainConfig(planned_kernels=True, loss_chunks=4,
+                                                   remat=remat))
+        out[remat] = tr.loss_and_grads(loss_fn, params, batch)
+    for remat in ("block", "dots"):
+        assert torch.equal(out[remat][0], out["none"][0])
+        for k in params:
+            assert torch.equal(out[remat][1][k], out["none"][1][k]), (remat, k)

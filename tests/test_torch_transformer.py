@@ -268,7 +268,7 @@ def test_planned_shapes_are_the_launched_shapes(monkeypatch):
         return real(x, w, schedule, bwd)
 
     monkeypatch.setattr(tf, "fc_layer", spy)
-    tcfg = TrainConfig(planned_kernels=True, loss_chunks=4)
+    tcfg = TrainConfig(planned_kernels=True, loss_chunks=4, remat="none")
     tf.make_loss_fn(cfg, tcfg)(params_from_repro(_weights(_cfgs()[0]), device="cpu"),
                                tr.batch_to(_batch(cfg), "cpu"))
     cells = TransformerBlockPlanner(tm.H100).cell_planners(
