@@ -137,6 +137,37 @@ The train-step knobs, each phase at full width (run between ``train`` and
                that a main-path call takes the register kernel belongs to
                the policy-off timings of phase 8.)
 
+The serving slice (after ``remat``, before ``times``):
+
+14. serve    — qwen1.5-0.5b at full width and depth, f32, served through the
+               continuous-batching engine on the ladder (4, 256), (8, 512),
+               (8, 1024) with max_seq 2048 and 8 KV slots, on the seed's
+               weights plus seeded numpy noise scaled to each leaf's init
+               std (the seed's alone repeat one token a stream; the CPU
+               serving tests perturb theirs too).  Boot 1 warms
+               under policy tune (the bucket cells timed on the matmul and
+               flash-attention kernels: path ``serve_warmup``), boot 2
+               under cache-only with the autotuner's timing path rigged to
+               raise; each serves the same 24 seeded requests (prompts
+               16-1000 tokens, 8-64 new tokens), all DONE, boot 2's streams
+               equal to boot 1's, every tuned cell replayed, and no kernel
+               launched at request time (serving runs plain PyTorch, as the
+               JAX package's serving runs XLA).  Each tuned cell's winner
+               runs on the tuner's synthesized operands, every launch held
+               against its kernel's plain version within TOL x scale.
+               Four requests' streams
+               (longest, shortest, the first past each lower rung) against
+               greedy_generate of the prompt alone: equal, or a divergence
+               at a near-tie (the reference's top-2 gap below TOL x
+               max(1, max |logit|)).  A 960-token prompt's 32 cached logits
+               against no-cache forwards within TOL x max(1, max |ref|), on
+               the served weights, beside the spread of two no-cache
+               forwards one token apart (f32 rounding alone).
+               Times: warmup seconds, prefill ms per bucket, slot-decode ms
+               (CUDA events and profiled device time), a WallClock and a
+               VirtualClock (the H100 model) load run, pool bytes and peak
+               memory.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -144,6 +175,7 @@ no card, or outside a checkout, it prints no result and exits nonzero.
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import functools
 import json
 import math
@@ -191,7 +223,25 @@ CKPT_STEPS, CKPT_KILL = 4, 2  # phase ckpt: 4 steps; run B is stopped before ste
 REMATS = ("none", "block", "dots")
 REMAT_PEAK_CUT = 0.9  # block's peak must be below this share of none's
 AUTOTUNE_TOPK = 4  # candidates timed a cell (autotune.tune's default)
-SCRATCH = ROOT / "build" / "chip_smoke"  # checkpoints and the winner cache
+SCRATCH = ROOT / "build" / "chip_smoke"  # checkpoints and the winner caches
+# The serving slice: qwen1.5-0.5b at full width and depth (the transformer
+# phase's seed-0 weights), max_seq cut from the config's 32768 to 2048.
+SERVE_LADDER = [(4, 256), (8, 512), (8, 1024)]
+SERVE_MAX_SEQ = 2048
+SERVE_SLOTS = 8
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, (16, 1000), (8, 64)  # a boot's requests
+SERVE_CACHE_CHECK = (960, 32)  # prompt tokens, new tokens
+SERVE_LOAD = dict(qps=50.0, n_requests=32, prompt_len=(16, 1000), new_tokens=(8, 64),
+                  seed=SEED)
+# The served weights: the seed's plus seeded numpy noise, as the CPU
+# serving tests perturb theirs (greedy decoding on the seed's alone repeats
+# a stream's first token), but scaled to each leaf: SERVE_PERTURB times the
+# init std (1/sqrt(fan_in)) of every weight matrix but the embedding, and
+# SERVE_PERTURB_ZEROS for the zero-init norm gains and biases: enough
+# that no stream repeats one token, little enough that f32 rounding
+# through the 24 layers stays well inside TOL (the cache check records
+# that spread beside its error).
+SERVE_PERTURB, SERVE_PERTURB_ZEROS = 1.75, 0.3
 
 
 def tfm_chunks() -> int:
@@ -1083,11 +1133,12 @@ def profile(torch, what, fn, card, *, grad: bool, reps: int = 5, batch=BATCH):
             torch.cuda.synchronize()
             wall_ms = (time.perf_counter() - t0) * 1e3 / reps
     rows = device_kernels(torch, prof, reps)
-    device_ms = sum(r[0] for r in rows)
+    device_ms = sum(r[0] for r in rows) if rows else "not measured"
     emit(phase="profile", what=what, card=card, batch=batch, wall_ms_per_call=wall_ms,
-         device_ms_per_call=device_ms if rows else "not measured",
+         device_ms_per_call=device_ms,
          device_busy_share=device_ms / wall_ms if rows else "not measured",
          top=[{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:16]])
+    return device_ms
 
 
 # -- the transformer slice: flash attention and the qwen1.5-0.5b training step ------
@@ -1875,16 +1926,16 @@ def launched_blocks(cnn, cfg, plans, batch) -> set:
 
 
 @contextlib.contextmanager
-def spy_blocks(kernels, seen: set):
-    """Record (kernel, blocks) of every launch while the block runs."""
+def on_launch(kernels, record):
+    """Call ``record(kernel, args, kwargs, output)`` after every launch
+    while the block runs."""
     saved = {name: k.launch for name, k in kernels.items()}
 
     def wrap(name, fn):
         def spy(kern, *args, **kw):
-            keys = (("block_h", "block_do", "block_di") if "block_do" in kw
-                    else ("block_m", "block_n", "block_k"))
-            seen.add((name, tuple(kw[b] for b in keys)))
-            return fn(kern, *args, **kw)
+            out = fn(kern, *args, **kw)
+            record(name, args, kw, out)
+            return out
         return spy
 
     for name, k in kernels.items():
@@ -1894,6 +1945,15 @@ def spy_blocks(kernels, seen: set):
     finally:
         for name, fn in saved.items():
             kernels[name].launch = fn
+
+
+def spy_blocks(kernels, seen: set):
+    """Record (kernel, blocks) of every launch while the block runs."""
+    def record(name, args, kw, out):
+        keys = (("block_h", "block_do", "block_di") if "block_do" in kw
+                else ("block_m", "block_n", "block_k"))
+        seen.add((name, tuple(kw[b] for b in keys)))
+    return on_launch(kernels, record)
 
 
 def phase_autotune(torch, cnn, cfg, kernels, results, card):
@@ -1983,7 +2043,323 @@ def phase_autotune(torch, cnn, cfg, kernels, results, card):
         at.set_policy("off")
 
 
+# -- the ninth slice: serving qwen1.5-0.5b through the continuous-batching engine ---
+
+
+def serve_params(torch, cfg, params0):
+    """The served weights: the seed's plus seeded numpy noise, its std
+    SERVE_PERTURB times each weight matrix's init std (the embedding
+    kept) and SERVE_PERTURB_ZEROS on the zero-init leaves."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+
+    defs = tf.param_defs(cfg)
+    rng = np.random.default_rng(SEED + 7)
+    out = {}
+    for k, v in sorted(params0.items()):
+        d = defs[k]
+        if d.init == "normal":
+            fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
+            std = 0.0 if k == "embed" else SERVE_PERTURB * (d.scale or fan_in ** -0.5)
+        else:
+            std = SERVE_PERTURB_ZEROS
+        out[k] = v + torch.from_numpy(rng.standard_normal(
+            tuple(v.shape), dtype=np.float32) * np.float32(std)).cuda()
+    return out
+
+
+def top2_gap(torch, logits) -> tuple[float, float]:
+    """(top-1 minus top-2 logit, max |logit|) of one [vocab] row."""
+    top = torch.topk(logits.double(), 2).values
+    return float(top[0] - top[1]), float(logits.abs().max())
+
+
+def serve_boot(torch, cfg, params, policy: str, cache_path: Path, **engine_kw):
+    """An engine on the SERVE_LADDER, warmed under ``policy`` against the
+    winner cache file; returns it, the cell sources and the warmup seconds."""
+    from repro_torch.plan import autotune as at
+    from repro_torch.serve import BucketLadder, Engine
+
+    engine = Engine(cfg, params, BucketLadder(SERVE_LADDER, max_seq=SERVE_MAX_SEQ),
+                    n_slots=SERVE_SLOTS, **engine_kw)
+    t0 = time.perf_counter()
+    sources = engine.warmup(policy=policy, cache=at.AutotuneCache(str(cache_path)))
+    torch.cuda.synchronize()
+    return engine, sources, time.perf_counter() - t0
+
+
+def serve_requests(torch, engine, spec):
+    """Submit the spec's requests at once and run the engine until idle:
+    (requests, seconds)."""
+    from repro_torch.serve import make_requests
+
+    reqs = [r for _, r in make_requests(spec, engine.cfg.vocab)]
+    t0 = time.perf_counter()
+    for r in reqs:
+        engine.submit(r)
+    engine.run_until_idle()
+    torch.cuda.synchronize()
+    return reqs, time.perf_counter() - t0
+
+
+def straddlers(reqs) -> dict:
+    """The requests the bucketed-vs-unbucketed check takes: the longest
+    and the shortest prompt, and the shortest prompt past each of the two
+    lower rungs (they pad up to the next rung)."""
+    by_len = sorted(reqs, key=lambda r: len(r.prompt))
+    out = {"longest": by_len[-1], "shortest": by_len[0]}
+    for b in sorted({s for _, s in SERVE_LADDER})[:-1]:
+        past = [r for r in by_len if len(r.prompt) > b]
+        if past:
+            out[f"past_{b}"] = past[0]
+    return out
+
+
+def cache_vs_no_cache(torch, cfg, params) -> dict:
+    """A SERVE_CACHE_CHECK[0]-token prompt through the engine's step
+    builders at batch 1 (the bucket prefill, then slot decodes): the
+    logits of each of SERVE_CACHE_CHECK[1] new tokens against a no-cache
+    forward over the prompt and the tokens so far, read at the last
+    position.  Beside it, the spread between two no-cache forwards whose
+    sequences differ by one trailing token, read at the same position
+    (the same function at another GEMM shape): what f32 rounding alone
+    gives through the 24 layers."""
+    import numpy as np
+
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import serve as sv
+
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
+        0, cfg.vocab, SERVE_CACHE_CHECK[0]).astype(np.int32)).cuda()
+    prefill = sv.make_bucket_prefill_step(cfg, SERVE_MAX_SEQ)
+    decode = sv.make_slot_decode_step(cfg)
+    padded = torch.zeros((1, max(s for _, s in SERVE_LADDER)), dtype=torch.int32,
+                         device="cuda")
+    padded[0, :len(prompt)] = prompt
+    pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
+    cache, logits = prefill(params, padded, pos)
+    seq, errs, spread, prev = prompt, [], [], None
+    for step in range(SERVE_CACHE_CHECK[1]):
+        with torch.no_grad():
+            h, _ = tf.forward(cfg, params, seq[None, :])
+            last2 = tf.logits(cfg, params, h[:, -2:])[0]
+        ref = last2[1]
+        if prev is not None:
+            spread.append(max_err(last2[0], prev) / scale(prev))
+        prev = ref
+        errs.append((max_err(logits[0], ref), scale(ref)))
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        seq = torch.cat([seq, nxt])
+        if step + 1 < SERVE_CACHE_CHECK[1]:
+            cache, logits = decode(params, cache, nxt, pos)
+            pos = pos + 1
+    return dict(worst_err_over_scale=max(e / s for e, s in errs),
+                no_cache_spread_over_scale=max(spread),
+                max_abs_err=[e for e, _ in errs], scale=[s for _, s in errs],
+                generated=seq[len(prompt):].tolist())
+
+
+def serve_winner_checks(torch, kernels, results, cfg, ladder, tuned) -> dict:
+    """Each (bucket, cell) boot 1 tuned, run through its op with the
+    ladder's winner on autotune.synthesize operands at the cell's shape,
+    as the tuner ran it: every kernel launch held against the kernel's
+    plain version on the same (padded) inputs at TOL x scale.  Returns
+    the worst error of each cell."""
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan import get_op, local_schedule
+    from repro_torch.serve.bucket import bucket_cells
+
+    out = {}
+    for b, cell in tuned:
+        op, shape = bucket_cells(cfg, b, ladder.max_seq, ladder.in_bytes)[cell]
+        sched = local_schedule(ladder.plans[b][cell])
+        arrays, params = at.synthesize(op, shape, torch.float32, "cuda")
+        calls: list = []
+        with on_launch(kernels, lambda *call: calls.append(call)):
+            get_op(op)(*arrays, schedule=sched, **params)
+        check(bool(calls), f"serve: cell {b}:{cell} launched no kernel")
+        worst = None
+        for name, args, kw, got in calls:
+            want = kernels[name].plain(*args, **kw)
+            err, sc = max_err(got, want), scale(want)
+            check(err <= TOL * sc, f"serve: {name} at cell {b.batch}x{b.seq}:{cell} "
+                                   f"blocks {dict(sched.blocks)}: err {err} > {TOL} x {sc}")
+            results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            if worst is None or err / sc > worst["max_abs_err"] / worst["scale"]:
+                worst = dict(kernel=name, max_abs_err=err, scale=sc,
+                             shapes=[list(a.shape) for a in args])
+        out[f"{b.batch}x{b.seq}:{cell}"] = dict(worst, blocks=dict(sched.blocks),
+                                                launches=len(calls))
+        del arrays, calls
+    return out
+
+
+def phase_serve(torch, kernels, results, tfm, card):
+    """qwen1.5-0.5b at full width and depth served through the engine on
+    the SERVE_LADDER: boot 1 tunes the bucket cells (the matmul and
+    flash-attention kernels), boot 2 replays them cache-only with the
+    timing path rigged to raise; the request path launches no kernel.
+    The served weights are the seed's perturbed (SERVE_PERTURB).  Checks:
+    every request DONE and boot 2's streams equal boot 1's, and no stream
+    of one repeated token; each tuned winner against the kernels' plain
+    versions at its cell's shape; four requests' engine streams against
+    greedy_generate alone (near-ties reported); a long request's cached
+    logits against no-cache forwards.  Times:
+    warmup, prefill per bucket, slot decode (events and profiled), a
+    WallClock and a VirtualClock load run, pool bytes and peak memory."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.plan import autotune as at
+    from repro_torch.runtime import serve as sv
+    from repro_torch.serve import DONE, LoadSpec, VirtualClock, run_load
+    from repro_torch.serve.loadgen import no_timing
+
+    t_phase = time.perf_counter()
+    cfg, seed_params = tfm[0], tfm[2]
+    params = serve_params(torch, cfg, seed_params)
+    path = SCRATCH / "serve_autotune_h100.json"
+    path.unlink(missing_ok=True)
+    spec = LoadSpec(qps=1.0, n_requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                    new_tokens=SERVE_NEW, seed=SEED)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+
+    # Boot 1: tune every bucket cell on the kernels, then serve.
+    zero_counts(kernels)
+    engine, src1, warm_tune = serve_boot(torch, cfg, params, "tune", path)
+    tune_launches = {k: kk.launches for k, kk in kernels.items()}
+    for k in kernels:
+        results[k]["launches_by_path"]["serve_warmup"] = tune_launches[k]
+    zero_counts(kernels)
+    reqs1, serve1_s = serve_requests(torch, engine, spec)
+    request_launches = {k: kk.launches for k, kk in kernels.items()}
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    stats1 = dict(engine.stats, padding_waste=engine.padding_waste())
+    del engine
+    torch.cuda.empty_cache()
+
+    # Boot 2: cache-only, the timing path rigged to raise.
+    with no_timing(at):
+        engine, src2, warm_cached = serve_boot(torch, cfg, params, "cache-only", path)
+        reqs2, serve2_s = serve_requests(torch, engine, spec)
+    flat1 = {(b, c): s for b, cells in src1.items() for c, s in cells.items()}
+    flat2 = {(b, c): s for b, cells in src2.items() for c, s in cells.items()}
+    tuned = sorted(f"{b.batch}x{b.seq}:{c}" for (b, c), s in flat1.items() if s == "tuned")
+    not_replayed = sorted(f"{b.batch}x{b.seq}:{c}" for (b, c), s in flat1.items()
+                          if s == "tuned" and flat2[(b, c)] != "cached")
+    streams1 = [list(r.tokens) for r in reqs1]
+    streams2 = [list(r.tokens) for r in reqs2]
+    distinct = len({tuple(t) for t in streams1})
+    one_token = sum(len(set(t)) == 1 for t in streams1)
+    emit(phase="serve", arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+         ladder=SERVE_LADDER, max_seq=SERVE_MAX_SEQ, slots=SERVE_SLOTS,
+         weights=f"seed + N(0, {SERVE_PERTURB} x init std) on the matrices but the embedding, "
+                 f"N(0, {SERVE_PERTURB_ZEROS}) on the norm gains and biases (numpy, seed {SEED + 7})",
+         requests=len(reqs1),
+         prompt_lens=[len(r.prompt) for r in reqs1],
+         new_tokens=[r.max_new_tokens for r in reqs1],
+         warmup_seconds={"tune": warm_tune, "cache-only": warm_cached},
+         serve_seconds={"boot1": serve1_s, "boot2": serve2_s},
+         cells=len(flat1), tuned=tuned, cached_boot2=sum(s == "cached" for s in flat2.values()),
+         not_replayed=not_replayed, warmup_launches=tune_launches,
+         request_launches=request_launches, stats_boot1=stats1,
+         distinct_streams=distinct, single_token_streams=one_token,
+         streams_equal=streams1 == streams2, card=card)
+    check(all(r.state == DONE for r in reqs1 + reqs2),
+          f"serve: unfinished {[(r.rid, r.state) for r in reqs1 + reqs2 if r.state != DONE]}")
+    check(streams1 == streams2, "serve: boot 2's token streams differ from boot 1's")
+    check(bool(tuned) and not not_replayed, f"serve: tuned {tuned}, not replayed {not_replayed}")
+    check("tuned" not in flat2.values(), "serve: the cache-only boot tuned a cell")
+    check(tune_launches["matmul"] > 0 and tune_launches["flash_attention"] > 0,
+          f"serve: warmup tuning launched {tune_launches}")
+    check(not any(request_launches.values()),
+          f"serve: the request path launched kernels {request_launches}")
+    check(distinct > 1 and not one_token,
+          f"serve: vacuous streams ({distinct} distinct, {one_token} of one token)")
+
+    # The tuned winners against the kernels' plain versions at the cells'
+    # shapes.
+    winners = serve_winner_checks(
+        torch, kernels, results, cfg, engine.ladder,
+        sorted((b, c) for (b, c), s in flat1.items() if s == "tuned"))
+    emit(phase="serve", check="tuned winners vs plain", tolerance=TOL, cells=winners)
+
+    # Bucketed against unbucketed: the engine's streams against
+    # greedy_generate of each prompt alone.
+    bucketed = {}
+    for label, r in straddlers(reqs2).items():
+        prompt = torch.from_numpy(r.prompt).cuda()[None, :]
+        ref = sv.greedy_generate(cfg, params, prompt, steps=r.max_new_tokens,
+                                 max_seq=SERVE_MAX_SEQ)[0].tolist()
+        rec = dict(prompt_len=len(r.prompt), new_tokens=r.max_new_tokens,
+                   bucket=str(engine.ladder.route(1, len(r.prompt))), equal=r.tokens == ref)
+        if r.tokens != ref:
+            t = next(i for i, (a, b) in enumerate(zip(r.tokens, ref)) if a != b)
+            seq = torch.cat([prompt[0], torch.tensor(ref[:t], device="cuda",
+                                                     dtype=prompt.dtype)])[None, :]
+            with torch.no_grad():
+                h, _ = tf.forward(cfg, params, seq)
+                gap, top = top2_gap(torch, tf.logits(cfg, params, h[:, -1:])[0, 0])
+            rec.update(first_divergence=t, engine_token=r.tokens[t], reference_token=ref[t],
+                       reference_top2_gap=gap, gap_limit=TOL * max(1.0, top),
+                       near_tie=gap < TOL * max(1.0, top))
+        bucketed[label] = rec
+    emit(phase="serve", check="bucketed vs greedy_generate", cases=bucketed,
+         gap_from="a no-cache forward over the prompt and the reference's tokens")
+    for label, rec in bucketed.items():
+        check(rec["equal"] or rec["near_tie"], f"serve: {label} diverges: {rec}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # The cache against no cache, on the served weights.
+    cache_check = cache_vs_no_cache(torch, cfg, params)
+    emit(phase="serve", check="cached decode vs no-cache forward",
+         prompt_len=SERVE_CACHE_CHECK[0], new_tokens=SERVE_CACHE_CHECK[1], tolerance=TOL,
+         **cache_check)
+    worst = cache_check["worst_err_over_scale"]
+    check(worst <= TOL, f"serve: cached logits vs no-cache forward {worst} > {TOL}")
+    check(len(set(cache_check["generated"])) > 1,
+          "serve: the cache check's tokens repeat one token")
+
+    # Times: prefill per bucket and the slot decode (a cache-only engine).
+    engine, _, _ = serve_boot(torch, cfg, params, "cache-only", path)
+    prefill_ms = {}
+    for b in engine.ladder.buckets:
+        zt = torch.zeros((b.batch, b.seq), dtype=torch.int32, device="cuda")
+        zl = torch.full((b.batch,), b.seq, dtype=torch.int32, device="cuda")
+        prefill_ms[f"{b.batch}x{b.seq}"] = median_ms(
+            lambda b=b, zt=zt, zl=zl: engine._prefill[b](params, zt, zl), reps=5, warmup=1)
+    tok = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    at_pos = torch.full((SERVE_SLOTS,), SERVE_MAX_SEQ // 2, dtype=torch.int32, device="cuda")
+    decode_fn = lambda: engine._decode(params, engine.cache, tok, at_pos)  # noqa: E731
+    decode_ms = median_ms(decode_fn, reps=20)
+    decode_device_ms = profile(torch, "serve_slot_decode", decode_fn, card, grad=False,
+                               batch=f"{SERVE_SLOTS} slots at position {SERVE_MAX_SEQ // 2}")
+    del engine
+    torch.cuda.empty_cache()
+
+    # One load run on each clock.
+    load = LoadSpec(**SERVE_LOAD)
+    reports = {}
+    for name, clock in (("wall", None), ("virtual_h100", VirtualClock())):
+        engine, _, _ = serve_boot(torch, cfg, params, "cache-only", path, clock=clock)
+        rep = run_load(engine, load)
+        torch.cuda.synchronize()
+        reports[name] = dataclasses.asdict(rep)
+        check(rep.completed == load.n_requests, f"serve: {name} load run {rep}")
+        del engine
+        torch.cuda.empty_cache()
+    emit(phase="serve", check="times", card=card, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, decode_device_ms_per_step=decode_device_ms,
+         decode_slots=SERVE_SLOTS, decode_position=SERVE_MAX_SEQ // 2,
+         load_spec=SERVE_LOAD, load=reports, pool_bytes=pool_bytes,
+         kv_bytes_per_token=pool_bytes // (SERVE_SLOTS * SERVE_MAX_SEQ),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         phase_seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
+    t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -2050,6 +2426,7 @@ def main() -> int:
     phase_flash(torch, s_attn, results)
     tfm = phase_transformer(torch, kernels, results)
     phase_remat(torch, kernels, results, tfm, card)
+    phase_serve(torch, kernels, results, tfm, card)
     paths = {"conv2d": "forward", "matmul": "forward", "conv2d_wgrad": f"train_b{BATCH}",
              "matmul_nt": f"train_b{BATCH}", "matmul_tn": f"train_b{BATCH}",
              "matmul_dx_dw": f"train_b{FUSED_BATCH}", "flash_attention": TFM_PATH}
@@ -2097,6 +2474,7 @@ def main() -> int:
             entry[f"{TFM_ARCH}_step"] = dict(step_sums(tfm_step),
                                              per_step_batch=tfm_step[0]["step_batch"])
         entries.append(entry)
+    emit(script_seconds=time.perf_counter() - t_script)
     emit(kernels=entries)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 """Architecture registry: ``get_config(arch)`` -> ModelConfig, plus the
 reduced smoke config (same family features, tiny dims).  The port runs the
-CNN family and the dense transformer so far."""
+CNN family and the dense transformer so far (qwen3-1.7b is the dense config
+with qk-norm and GQA that the serving tests run at smoke size)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ import importlib
 from repro_torch.configs.base import ModelConfig
 
 ARCH_IDS = [
+    "qwen3-1.7b",
     "qwen1.5-0.5b",
     "cnn-vgg11",  # the paper's own domain
 ]

@@ -10,6 +10,10 @@ Two execution paths, one math:
   (m, l) statistics, O(chunk^2) live logits.
 
 ``window`` may be None, an int, or < 0 for "no window".
+
+Positions are one vector ``[S]`` shared by every row, or ``[B, S]``, one
+per row (the serving engine's slots decode at positions of their own; the
+JAX package gets the same by ``vmap``-ing a batch-1 forward over them).
 """
 
 from __future__ import annotations
@@ -20,20 +24,23 @@ NEG = -1e30
 
 
 def _mask(q_pos, k_pos, causal, window):
-    """[Sq, Skv] boolean visibility mask from position vectors."""
-    m = torch.ones((q_pos.shape[0], k_pos.shape[0]), dtype=torch.bool,
-                   device=q_pos.device)
+    """Boolean visibility mask from positions: [Sq, Skv] for q_pos [Sq],
+    [B, Sq, Skv] for q_pos [B, Sq]."""
+    qp, kp = q_pos[..., :, None], k_pos[None, :]
+    m = torch.ones(q_pos.shape + k_pos.shape, dtype=torch.bool, device=q_pos.device)
     if causal:
-        m &= k_pos[None, :] <= q_pos[:, None]
+        m &= kp <= qp
     if window is not None and int(window) >= 0:
-        m &= q_pos[:, None] - k_pos[None, :] < int(window)
+        m &= qp - kp < int(window)
     return m
 
 
 def _bias(q_pos, k_pos, causal, window):
-    """0 where visible, NEG where masked (f32)."""
+    """0 where visible, NEG where masked (f32): [Sq, Skv], or [B, 1, Sq, Skv]
+    for positions per row (broadcast over the heads)."""
     zero = torch.zeros((), dtype=torch.float32, device=q_pos.device)
-    return torch.where(_mask(q_pos, k_pos, causal, window), zero, zero + NEG)
+    bias = torch.where(_mask(q_pos, k_pos, causal, window), zero, zero + NEG)
+    return bias[:, None] if q_pos.dim() == 2 else bias
 
 
 def _direct(q, k, v, q_pos, k_pos, scale, causal, window):
@@ -52,7 +59,7 @@ def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv):
                          f"of the chunks ({cq}, {ckv})")
     outs = []
     for q0 in range(0, Sq, cq):
-        qc, qpc = q[:, :, q0:q0 + cq], q_pos[q0:q0 + cq]
+        qc, qpc = q[:, :, q0:q0 + cq], q_pos[..., q0:q0 + cq]
         acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=q.device)
         m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=q.device)
         l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
@@ -84,7 +91,7 @@ def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk
     qh = q.transpose(1, 2).reshape(B, Hkv, g * Sq, D)
     kh = k.transpose(1, 2)
     vh = v.transpose(1, 2)
-    qpos_g = q_pos.repeat(g)
+    qpos_g = q_pos.repeat(g) if q_pos.dim() == 1 else q_pos.repeat(1, g)
     big = ((g * Sq) * Skv > 4 * 1024 * 1024 and (g * Sq) % chunk_q == 0
            and Skv % chunk_kv == 0)
     if Sq == 1 or not big:
@@ -99,8 +106,9 @@ def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk
 def attention(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
               scale: float | None = None, chunk_q: int = 512,
               chunk_kv: int = 1024) -> torch.Tensor:
-    """GQA attention; q: [B, Sq, Hq, D], k/v: [B, Skv, Hkv, D] with position
-    vectors q_pos [Sq], k_pos [Skv]; returns [B, Sq, Hq, D]."""
+    """GQA attention; q: [B, Sq, Hq, D], k/v: [B, Skv, Hkv, D] with
+    positions q_pos [Sq] (or [B, Sq], one vector per row) and k_pos [Skv];
+    returns [B, Sq, Hq, D]."""
     scale = scale if scale is not None else q.shape[-1] ** -0.5
     return _attention_core(q, k, v, q_pos, k_pos, causal, window, scale,
                            chunk_q, chunk_kv)

@@ -1,6 +1,6 @@
-"""Shared layer library: norms, RoPE, the GQA attention block, MLPs,
-embeddings — the JAX package's ``models/layers.py`` without its KV cache
-and sharding branches.
+"""Shared layer library: norms, RoPE, the GQA attention block with its KV
+cache, MLPs, embeddings — the JAX package's ``models/layers.py`` without
+its sharding branches.
 
 Parameter layouts are the JAX package's: stacked-layer parameters carry a
 leading L dim, and the attention projections stay 4D (``[d, H, Dh]`` and
@@ -31,14 +31,15 @@ def rms_norm(x, w, eps=1e-6):
 
 
 def rope(x, pos, theta):
-    """x: [B, S, H, D]; pos: [S] integer positions; theta: the base."""
+    """x: [B, S, H, D]; pos: [S] integer positions, or [B, S] (one vector
+    per row); theta: the base."""
     D = x.shape[-1]
     half = D // 2
     log_theta = torch.log(torch.tensor(float(theta), dtype=torch.float32))
     freq = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32) / half)
-    ang = pos.float()[:, None] * freq.to(pos.device)[None, :]  # [S, half]
-    cos = torch.cos(ang)[None, :, None, :]
-    sin = torch.sin(ang)[None, :, None, :]
+    ang = pos.float()[..., None] * freq.to(pos.device)  # [(B,) S, half]
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
     x1, x2 = x[..., :half].float(), x[..., half:].float()
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
 
@@ -76,11 +77,44 @@ def project_out(p: dict, out: torch.Tensor) -> torch.Tensor:
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(out.dtype))
 
 
-def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0: int = 0, window=None,
-                   theta=None, causal: bool = True) -> torch.Tensor:
+def positions(pos0, batch: int, seq: int, device) -> torch.Tensor:
+    """The absolute positions of a block of ``seq`` tokens that starts at
+    ``pos0``: [seq] for an int, [batch, seq] for a tensor (one start per
+    row; a 0-d tensor is one start for every row)."""
+    offs = torch.arange(seq, dtype=torch.int32, device=device)
+    if not isinstance(pos0, torch.Tensor):
+        return pos0 + offs
+    start = pos0.to(device=device, dtype=torch.int32).reshape(-1).expand(batch)
+    return start[:, None] + offs
+
+
+def write_cache(cache: tuple, k: torch.Tensor, v: torch.Tensor, pos0) -> None:
+    """Write the block's K/V [B, S, Hkv, Dh] into the cache tensors (k, v)
+    [B, Smax, Hkv, Dh] in place from ``pos0`` on (an int or 0-d tensor for
+    every row, or a tensor with one start per row): the JAX package's
+    ``dynamic_update_slice``, whose start is clamped to ``[0, Smax - S]``."""
+    B, S = k.shape[:2]
+    smax = cache[0].shape[1]
+    start = torch.as_tensor(pos0, device=k.device).to(torch.int64).reshape(-1).expand(B)
+    rows = torch.arange(B, device=k.device)[:, None]
+    cols = start.clamp(0, smax - S)[:, None] + torch.arange(S, device=k.device)
+    for c, new in zip(cache, (k, v)):
+        c[rows, cols] = new.to(c.dtype)
+
+
+def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
+                   theta=None, causal: bool = True, cache: tuple | None = None
+                   ) -> torch.Tensor:
     """Everything between the projections: biases, qk-norm, RoPE and
-    attention; returns [B, S, Hq, Dh]."""
-    S = q.shape[1]
+    attention; returns [B, S, Hq, Dh].
+
+    ``pos0`` is the absolute position of the block's first token: an int,
+    or a tensor [B] with one start per row.  With ``cache`` = (k, v)
+    [B, Smax, Hkv, Dh] the roped K/V are written into it in place (see
+    :func:`write_cache`) and the block attends over the whole cache with
+    key positions ``arange(Smax)``: the causal mask hides what lies past
+    each row's position."""
+    B, S = q.shape[:2]
     Dh = cfg.resolved_head_dim
     theta = cfg.rope_theta if theta is None else theta
     cd = q.dtype
@@ -91,11 +125,17 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0: int = 0, window=
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
-    q_pos = pos0 + torch.arange(S, dtype=torch.int32, device=q.device)
+    q_pos = positions(pos0, B, S, q.device)
     q = rope(q, q_pos, theta)
     k = rope(k, q_pos, theta)
-    return attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
-                     scale=Dh**-0.5)
+    if cache is None:
+        return attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
+                         scale=Dh**-0.5)
+    write_cache(cache, k, v, pos0)
+    ck, cv = cache
+    k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)
+    return attention(q, ck.to(cd), cv.to(cd), q_pos=q_pos, k_pos=k_pos, causal=causal,
+                     window=window, scale=Dh**-0.5)
 
 
 # --- MLP -------------------------------------------------------------------

@@ -2,7 +2,8 @@
 protocol (``param_defs`` / ``forward``) and the hooks a trainer dispatches
 on (``data_source``, ``make_loss_fn``, ``plan_training``) — no family
 branching at the call sites.  The port has the cnn family and the dense
-transformer (also registered as ``transformer``, the planned wing's name)."""
+transformer (also registered as ``transformer``, the planned wing's name);
+a family with an ``init_cache`` hook (the dense transformer) can be served."""
 
 from __future__ import annotations
 
@@ -20,6 +21,20 @@ def get_family(name: str):
         return FAMILIES[name]
     except KeyError:
         raise ValueError(f"unknown model family {name!r}; have {list(FAMILIES)}") from None
+
+
+def init_cache_slots(cfg, n_slots: int, max_seq: int, dtype, *, device=None):
+    """Allocate the serving engine's decode-state slot pool: the family's
+    ``init_cache`` with one batch row per slot, on ``device`` (default: the
+    card).  Every cache leaf has the slot axis at axis 1 (``[L, B, ...]``),
+    which the engine's slot scatter relies on.  A family without the hook
+    (cnn) cannot be served and raises."""
+    hook = getattr(FAMILIES.get(cfg.family), "init_cache", None)
+    if hook is None:
+        raise ValueError(
+            f"model family {cfg.family!r} has no init_cache hook; it cannot "
+            "be served through repro_torch.serve (no decode state to slot)")
+    return hook(cfg, n_slots, max_seq, dtype, device=device)
 
 
 def make_data_source(cfg, batch: int, seq: int, shard, seed: int = 0):

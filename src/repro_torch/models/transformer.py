@@ -1,6 +1,5 @@
-"""Dense decoder-only transformer (qwen1.5 / qwen3 / gemma3 / chameleon),
-training path: the JAX package's ``models/transformer.py`` without its KV
-cache and sharding branches.
+"""Dense decoder-only transformer (qwen1.5 / qwen3 / gemma3 / chameleon):
+the JAX package's ``models/transformer.py`` without its sharding branches.
 
 Parameters are one flat ``{path: tensor}`` dict keyed like the JAX
 package's nested tree (``"layers/attn/wq"``), with its stacked leading L
@@ -13,6 +12,13 @@ backward) and the attention cell through the flash-attention kernel, whose
 backward differentiates :func:`attention_ref` as the JAX package's does.
 :class:`repro_torch.plan.TransformerBlockPlanner` owns the delegation
 table (qkv/wo/mlp GEMMs -> MatmulPlanner, attn -> AttentionPlanner).
+
+The KV cache (serving): :func:`init_cache` allocates ``{"k", "v"}`` of
+``[L, B, Smax, Hkv, Dh]``, and ``forward(..., pos0=, cache=)`` writes each
+layer's roped K/V into it *in place* at ``pos0`` and attends over it —
+plain PyTorch, as the JAX package's cache path runs XLA and no kernel.
+The cache passed in is the cache returned: a caller that needs the old
+contents keeps a copy.
 
 Rematerialization (``remat=``, both paths; ``torch.utils.checkpoint``,
 non-reentrant, so the autograd graph and every gradient are the same bits
@@ -77,6 +83,15 @@ def layer_meta(cfg: ModelConfig) -> dict:
     return {"window": window.to(torch.int32), "theta": theta.to(torch.float32)}
 
 
+def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,
+               device=None) -> dict:
+    """KV cache [L, B, Smax, Hkv, Dh] per tensor, zeros, on ``device``
+    (default: the card)."""
+    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    device = torch.device("cuda" if device is None else device)
+    return {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
+
+
 def _layers(params: dict, n_layers: int) -> list[dict]:
     """Per-layer nested parameter dicts ({"ln1", "attn": {...}, "mlp":
     {...}}) from the stacked leaves, each stack unbound once (so autograd
@@ -115,41 +130,54 @@ def _layer(fn, remat: str):
     return lambda x: checkpoint(fn, x, use_reentrant=False)
 
 
-def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *,
-            compute_dtype=torch.float32, use_kernels: bool = False,
-            schedules: dict | None = None, remat: str = "none"):
-    """Returns (hidden [B, S, d], None) — no KV cache on the training path.
+def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
+            cache: dict | None = None, compute_dtype=torch.float32,
+            use_kernels: bool = False, schedules: dict | None = None,
+            remat: str = "none"):
+    """Returns (hidden [B, S, d], new_cache).
 
-    ``use_kernels=True`` runs the planned wing: every projection GEMM
-    through the planned ``fc_layer`` and the attention cell through the
-    flash-attention kernel.  ``schedules`` maps cell names ("qkv", "attn",
-    "wo", "mlp_up", "mlp_down") to explicit Schedules (from
-    :func:`plan_forward`); backward pins ride in the same dict under
-    "<cell>.dx"/"<cell>.dw" keys, which :func:`plan_training` emits — so
-    autograd through this forward runs pinned planned backward kernels.
-    ``remat`` ("none" | "dots" | "block") trades memory for recompute (see
-    the module docstring)."""
+    ``pos0`` is the absolute position of ``tokens[:, 0]``: an int, or
+    (with a cache) a tensor [B] with one position per row (the serving
+    engine's slots).
+    With ``cache`` (from :func:`init_cache`) each layer writes its K/V into
+    it in place and attends over the whole cache; the same dict comes back
+    as ``new_cache`` (``None`` without a cache).
+
+    ``use_kernels=True`` (training only: no cache, as in the JAX package)
+    runs the planned wing: every projection GEMM through the planned
+    ``fc_layer`` and the attention cell through the flash-attention
+    kernel.  ``schedules`` maps cell names ("qkv", "attn", "wo", "mlp_up",
+    "mlp_down") to explicit Schedules (from :func:`plan_forward`); backward
+    pins ride in the same dict under "<cell>.dx"/"<cell>.dw" keys, which
+    :func:`plan_training` emits — so autograd through this forward runs
+    pinned planned backward kernels.  ``remat`` ("none" | "dots" |
+    "block") trades memory for recompute (see the module docstring); with
+    a cache it wraps the same segments, as the JAX package checkpoints its
+    cached scan body."""
     _check_remat(remat)
-    if use_kernels:
+    if use_kernels and cache is None:
         return _forward_planned(cfg, params, tokens, compute_dtype, schedules,
                                 remat), None
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype)
     meta = layer_meta(cfg)
-    for lp, window, theta in zip(_layers(params, cfg.n_layers),
-                                 meta["window"].tolist(), meta["theta"].tolist()):
-        x = _layer(lambda x, lp=lp, w=window, t=theta: _block(x, lp, cfg, w, t, remat),
-                   remat)(x)
-    return x, None
+    caches = (zip(cache["k"].unbind(0), cache["v"].unbind(0)) if cache is not None
+              else [None] * cfg.n_layers)
+    for lp, window, theta, kv in zip(_layers(params, cfg.n_layers), meta["window"].tolist(),
+                                     meta["theta"].tolist(), caches):
+        x = _layer(lambda x, lp=lp, w=window, t=theta, kv=kv:
+                   _block(x, lp, cfg, w, t, remat, pos0=pos0, cache=kv), remat)(x)
+    return x, cache
 
 
-def _block(x, lp, cfg, window, theta, remat="none"):
-    """One plain layer, in segments between its GEMM calls."""
+def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None):
+    """One plain layer, in segments between its GEMM calls; ``cache`` is
+    the layer's (k, v) cache views, written in place."""
     seg = functools.partial(_segment, remat=remat)
     ap, mp = lp["attn"], lp["mlp"]
     h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps))(x)
     q, k, v = ll.project_qkv(ap, h)
-    o = seg(lambda q, k, v: ll.attention_core(ap, q, k, v, cfg, window=window,
-                                              theta=theta))(q, k, v)
+    o = seg(lambda q, k, v: ll.attention_core(ap, q, k, v, cfg, pos0=pos0, window=window,
+                                              theta=theta, cache=cache))(q, k, v)
     a = ll.project_out(ap, o)
 
     def residual_norm(x, a):

@@ -1,5 +1,6 @@
 """The port's CUDA kernels against their plain versions, on the card —
-forward, planned backward and the transformer's flash attention.
+forward, planned backward and the transformer's flash attention — and the
+serving engine on the card (its tokens, and the kernels its warmup tunes).
 
 Every test here is marked ``cuda`` and skips where there is no GPU; the
 file imports neither JAX nor ``repro``, so it runs on a machine with a card
@@ -433,6 +434,8 @@ FLASH_CASES = [
     (1, 4, 2, 100, 100, 32, True, 40),  # 104/104 blocks: P in chunks of 64 and 40
     (1, 8, 4, 300, 300, 256, True, None),  # D = 256, gemma3-4b's 8/4 heads: 32/32 blocks
     (1, 8, 4, 200, 200, 256, False, None),
+    (2, 4, 4, 1, 512, 64, True, None),  # a slot decode's cell: one query, block_q 8
+    (2, 4, 2, 64, 512, 64, True, None),  # a bucket prefill's: queries short of the cache
 ]
 
 
@@ -566,3 +569,68 @@ def test_remat_gradients_are_bit_identical_on_card(cuda):
         assert torch.equal(out[remat][0], out["none"][0])
         for k in params:
             assert torch.equal(out[remat][1][k], out["none"][1][k]), (remat, k)
+
+
+@pytest.mark.cuda
+def test_serving_engine_matches_greedy_generate_on_card(cuda):
+    """The smoke qwen3-1.7b served on the card through the bucketed engine
+    gives each request the tokens of the port's greedy_generate on the
+    card (ragged prompts across both rungs of the ladder)."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime.serve import greedy_generate
+    from repro_torch.serve import DONE, BucketLadder, Engine
+
+    cfg = smoke_config("qwen3-1.7b")
+    params = init_params(tf.param_defs(cfg), 0, device=cuda)
+    rng = np.random.default_rng(16)
+    # Perturbed so the greedy streams vary (as the CPU serving tests do).
+    params = {k: v + torch.from_numpy(
+        rng.standard_normal(tuple(v.shape)).astype(np.float32) * 0.5).to(cuda)
+        for k, v in params.items()}
+    engine = Engine(cfg, params, BucketLadder([(2, 8), (4, 24)], max_seq=32))
+    engine.warmup(policy="off")
+    prompts = [rng.integers(0, cfg.vocab, n).astype(np.int32) for n in (3, 8, 11, 17, 5, 24)]
+    reqs = [engine.submit(prompt=p, max_new_tokens=6) for p in prompts]
+    engine.run_until_idle()
+    assert all(r.state == DONE for r in reqs)
+    assert engine.cache["k"].device.type == "cuda"
+    for r, p in zip(reqs, prompts):
+        ref = greedy_generate(cfg, params, torch.from_numpy(p)[None, :].to(cuda), steps=6,
+                              max_seq=32)[0]
+        assert r.tokens == ref.tolist(), (len(p), r.tokens, ref.tolist())
+    assert len({tuple(r.tokens) for r in reqs}) > 1
+
+
+@pytest.mark.cuda
+def test_serving_warmup_tunes_on_the_kernels_and_replays(cuda, tmp_path, monkeypatch):
+    """A policy-tune warmup of a small ladder times the bucket cells on the
+    matmul and flash-attention kernels (their launch counts move); a second
+    ladder on the same cache file replays every cell cache-only, with the
+    autotuner's timing path rigged to raise."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+    from repro_torch.plan import autotune as at
+    from repro_torch.serve import BucketLadder
+
+    cfg = smoke_config("qwen3-1.7b")
+    kernels = {"matmul": matmul_kernel, "flash_attention": flash_attention_kernel}
+    for k in kernels.values():
+        monkeypatch.setattr(k, "launches", 0)
+    path = str(tmp_path / "serve.json")
+    tuned = BucketLadder([(2, 8), (4, 16)], max_seq=24).warmup(
+        cfg, policy="tune", cache=at.AutotuneCache(path), device=cuda)
+    assert {s for cells in tuned.values() for s in cells.values()} <= {"tuned", "cached"}
+    assert all(k.launches > 0 for k in kernels.values()), {
+        n: k.launches for n, k in kernels.items()}
+
+    def _no_timing(*a, **kw):
+        raise AssertionError("the cache-only warmup timed a candidate")
+
+    monkeypatch.setattr(at, "_measure", _no_timing)
+    monkeypatch.setattr(at, "tune", _no_timing)
+    ladder = BucketLadder([(2, 8), (4, 16)], max_seq=24)
+    replayed = ladder.warmup(cfg, policy="cache-only", cache=at.AutotuneCache(path),
+                             device=cuda)
+    assert {s for cells in replayed.values() for s in cells.values()} == {"cached"}
