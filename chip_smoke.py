@@ -168,6 +168,41 @@ The serving slice (after ``remat``, before ``times``):
                VirtualClock (the H100 model) load run, pool bytes and peak
                memory.
 
+The tenth slice (after ``autotune``, once every earlier phase has freed
+what it held):
+
+15. moe_serve — qwen3-moe-235b-a22b at full width (d_model 4096, 64/4
+               heads of 128 with qk-norm, 128 experts top-8 of d_ff 1536,
+               capacity factor 1.25, vocab 151936, untied head), its depth
+               cut from 94 layers to 4 (44.78 GB of f32 weights, drawn on
+               the card from the seed and perturbed as phase serve's are),
+               served through the engine exactly as phase serve serves
+               qwen1.5-0.5b: boot 1 tunes (path ``moe_serve_warmup``),
+               boot 2 replays cache-only with the timing path rigged to
+               raise, 24 requests each, equal streams, no launch at request
+               time; every tuned winner against its kernel's plain version
+               (GQA 64/4 flash at D = 128, the qkv n 9216 and expert
+               d_ff 1536 matmul cells), each distinct cell timed beside
+               its plain version, one library call and its bound; 16
+               cached logits of a 240-token prompt against no-cache
+               forwards at capacity factor n_experts / top_k (no row
+               dropped), beside the spread of two no-cache forwards.  The
+               slot decode dispatches each slot alone.  Times: prefill ms
+               per bucket, slot-decode ms (events and profiled device time
+               by kernel) beside the bytes a step must read, the load runs,
+               peak memory.
+16. families — rwkv6-1.6b, zamba2-1.2b and seamless-m4t-medium at full
+               width and depth (f32, weights drawn on the card): a seeded
+               2 x 256 prompt (and 2 x 4096 x 1024 frames for the
+               encoder-decoder), prefill, 16 cached greedy decode steps,
+               each step's logits against one no-cache forward over the
+               prompt and the generated tokens within TOL x
+               max(1, max |logit|) (Zamba2's no-cache forward runs SSD
+               chunks of 128, its decode the per-step recurrence: gated at
+               max(TOL, SPREAD_GATE x the spread)), the spread of that
+               forward against a longer one beside it;
+               decode ms a step and peak memory.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -242,6 +277,19 @@ SERVE_LOAD = dict(qps=50.0, n_requests=32, prompt_len=(16, 1000), new_tokens=(8,
 # through the 24 layers stays well inside TOL (the cache check records
 # that spread beside its error).
 SERVE_PERTURB, SERVE_PERTURB_ZEROS = 1.75, 0.3
+# The tenth slice.  Phase moe_serve: qwen3-moe-235b-a22b at full width, its
+# depth cut from 94 layers to MOE_LAYERS (44.78 GB of f32 weights), served
+# as phase serve serves qwen1.5-0.5b; its cache check: a prompt padded to
+# the lowest rung, then decodes.  Phase families: rwkv6-1.6b, zamba2-1.2b and
+# seamless-m4t-medium at full width and depth.
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_CACHE_CHECK = (240, 16)  # prompt tokens, new tokens
+FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium")
+FAMILY_BATCH, FAMILY_PROMPT, FAMILY_DECODE = 2, 256, 16
+# Zamba2's gap is gated at max(TOL, SPREAD_GATE x the spread of its no-cache
+# forward against a longer one): 38 layers on the perturbed weights put
+# that spread itself at 1.02e-4 of scale on the card.
+SPREAD_GATE = 2.0
 
 
 def tfm_chunks() -> int:
@@ -2358,6 +2406,409 @@ def phase_serve(torch, kernels, results, tfm, card):
          phase_seconds=time.perf_counter() - t_phase)
 
 
+# -- the tenth slice: the MoE served at full width, the other families on the card ---
+
+
+def device_params(torch, defs, seed: int) -> dict:
+    """Weights of the shape ``defs`` give, drawn on the card: each leaf from
+    its own generator seeded by (seed, crc32 of its path), the seed's init
+    (N(0, init std) for a matrix, zeros or ones for a gain) plus the noise
+    serve_params adds (SERVE_PERTURB x init std on every matrix but the
+    embedding, SERVE_PERTURB_ZEROS on the gains and biases).  numpy, which
+    draws the CPU init, takes minutes for the MoE's 11.2 B values; the
+    card's Philox generator takes milliseconds."""
+    import zlib
+
+    out = {}
+    for path, d in sorted(defs.items()):
+        g = torch.Generator(device="cuda").manual_seed((seed << 32) + zlib.crc32(path.encode()))
+        fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
+        if d.init == "normal":
+            std = d.scale if d.scale is not None else fan_in ** -0.5
+            w = torch.randn(d.shape, generator=g, device="cuda").mul_(std)
+            noise = 0.0 if path == "embed" else SERVE_PERTURB * std
+        else:
+            w = torch.full(d.shape, 0.0 if d.init == "zeros" else 1.0, device="cuda")
+            noise = SERVE_PERTURB_ZEROS
+        if noise:
+            rows = max(1, (1 << 28) // max(1, w[0].numel())) if w.dim() > 1 else w.shape[0]
+            for part in w.split(rows):  # at most 1 GiB of noise at a time
+                part.add_(torch.randn(part.shape, generator=g, device="cuda"), alpha=noise)
+        out[path] = w
+    torch.cuda.synchronize()
+    return out
+
+
+def moe_config():
+    """qwen3-moe-235b-a22b at full width: depth 94 -> MOE_LAYERS, max_seq
+    32768 -> SERVE_MAX_SEQ."""
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_LAYERS,
+                               max_seq=SERVE_MAX_SEQ)
+
+
+def cell_times(torch, kernels, cfg, ladder, cells) -> dict:
+    """Each distinct tuned cell of a boot, run through its op with the
+    ladder's winner on autotune.synthesize operands: CUDA-event medians of
+    the op call, of its launches' plain versions and of one library call
+    (torch.matmul; scaled_dot_product_attention on the KV heads repeated
+    to the query heads), beside the bound of the call's work: each operand
+    read once and the output written once; the matmul's 2mnk FLOP, the
+    attention's 4 D FLOP per (q, k) pair its causal mask admits."""
+    import torch.nn.functional as F
+
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan import get_op, local_schedule
+    from repro_torch.serve.bucket import bucket_cells
+
+    out, seen = {}, set()
+    for b, cell in cells:
+        op, shape = bucket_cells(cfg, b, ladder.max_seq, ladder.in_bytes)[cell]
+        key = (op, tuple(sorted(shape.items())))
+        if key in seen:
+            continue
+        seen.add(key)
+        sched = local_schedule(ladder.plans[b][cell])
+        arrays, kw = at.synthesize(op, shape, torch.float32, "cuda")
+        calls: list = []
+        with on_launch(kernels, lambda *call: calls.append(call)):
+            get_op(op)(*arrays, schedule=sched, **kw)
+        call = lambda: get_op(op)(*arrays, schedule=sched, **kw)  # noqa: E731
+        plain = lambda: [kernels[n].plain(*a, **k) for n, a, k, _ in calls]  # noqa: E731
+        if op == "matmul":
+            lib = lambda: torch.matmul(*arrays)  # noqa: E731
+            flops = 2.0 * shape["m"] * shape["n"] * shape["k"]
+            nbytes = 4.0 * (shape["m"] * shape["k"] + shape["k"] * shape["n"]
+                            + shape["m"] * shape["n"])
+        else:
+            q, k, v = arrays
+            g = q.shape[1] // k.shape[1]
+            k4, v4 = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
+            lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
+                q, k4, v4, is_causal=kw["causal"])
+            pairs = (visible_pairs(shape["seq_q"], shape["seq_kv"], kw["window"])
+                     if kw["causal"] else shape["seq_q"] * shape["seq_kv"])
+            flops = 4.0 * q.shape[0] * q.shape[1] * pairs * q.shape[-1]
+            nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
+        reps = 3 if max(t.numel() for t in arrays) > (1 << 28) else 10
+        ms, plain_ms, lib_ms = (median_ms(f, reps=reps, warmup=1) for f in (call, plain, lib))
+        b_ms, b_by = bound_ms(flops, nbytes)
+        out[f"{b.batch}x{b.seq}:{cell}"] = dict(
+            op=op, kernels=sorted({n for n, _, _, _ in calls}), launches=len(calls),
+            blocks=dict(sched.blocks), shape=shape, ms=ms, plain_ms=plain_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+            flops=flops, bytes=nbytes, peaks=PEAKS)
+        del arrays, calls
+        torch.cuda.empty_cache()
+    return out
+
+
+def decode_bytes(cfg) -> int:
+    """The weight bytes one MoE decode step must read (f32): every layer's
+    attention projections, router and all E experts' three matrices (the
+    dispatch runs every expert on its capacity rows), and the untied head;
+    the embedding rows, norms and the KV cache are small beside them."""
+    d, ff, E = cfg.d_model, cfg.d_ff, cfg.n_experts
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    per_layer = d * (Hq + 2 * Hkv) * Dh + Hq * Dh * d + d * E + 3 * E * d * ff
+    return 4 * (cfg.n_layers * per_layer + d * cfg.vocab)
+
+
+def moe_cache_vs_no_cache(torch, cfg, params) -> dict:
+    """A MOE_CACHE_CHECK[0]-token prompt through the engine's step builders
+    at batch 1 (the bucket prefill padded to the lowest rung, then slot
+    decodes) against a no-cache forward over the prompt and the tokens so
+    far, read at the last position — under capacity factor n_experts /
+    top_k, where cap = T and no row is dropped, so both paths compute one
+    function (at 1.25 the drops depend on the tokens dispatched together,
+    in both packages).  Beside it, the spread of two no-cache forwards one
+    token apart, read at the same position."""
+    import numpy as np
+
+    from repro_torch.models import moe
+    from repro_torch.runtime import serve as sv
+
+    nodrop = dataclasses.replace(cfg, capacity_factor=cfg.n_experts / cfg.moe_top_k)
+    n_prompt, n_new = MOE_CACHE_CHECK
+    prompt = torch.from_numpy(np.random.default_rng(SEED + 9).integers(
+        0, cfg.vocab, n_prompt).astype(np.int32)).cuda()
+    rung = min(s for _, s in SERVE_LADDER)
+    padded = torch.zeros((1, rung), dtype=torch.int32, device="cuda")
+    padded[0, :n_prompt] = prompt
+    pos = torch.tensor([n_prompt], dtype=torch.int32, device="cuda")
+    cache, logits = sv.make_bucket_prefill_step(nodrop, SERVE_MAX_SEQ)(params, padded, pos)
+    decode = sv.make_slot_decode_step(nodrop)
+    seq, errs, spread, prev = prompt, [], [], None
+    for step in range(n_new):
+        with torch.no_grad():
+            h, _ = moe.forward(nodrop, params, seq[None, :])
+            last2 = moe.logits(nodrop, params, h[:, -2:])[0]
+        ref = last2[1]
+        if prev is not None:
+            spread.append(max_err(last2[0], prev) / scale(prev))
+        prev = ref
+        errs.append((max_err(logits[0], ref), scale(ref)))
+        nxt = torch.argmax(logits, -1).to(torch.int32)
+        seq = torch.cat([seq, nxt])
+        if step + 1 < n_new:
+            cache, logits = decode(params, cache, nxt, pos)
+            pos = pos + 1
+    return dict(capacity_factor=nodrop.capacity_factor,
+                worst_err_over_scale=max(e / s for e, s in errs),
+                no_cache_spread_over_scale=max(spread),
+                max_abs_err=[e for e, _ in errs], scale=[s for _, s in errs],
+                generated=seq[n_prompt:].tolist())
+
+
+def phase_moe_serve(torch, kernels, results, card):
+    """qwen3-moe-235b-a22b at full width (MOE_LAYERS of its 94 layers, f32)
+    served through the engine on the SERVE_LADDER, as phase serve serves
+    qwen1.5-0.5b: boot 1 tunes the bucket cells on the matmul and
+    flash-attention kernels (path ``moe_serve_warmup``), boot 2 replays
+    them cache-only with the timing path rigged to raise; the request path
+    launches no kernel.  The slot decode dispatches each slot alone, as the
+    JAX package's vmap of a batch-1 forward does.  Checks: every request
+    DONE and boot 2's streams equal boot 1's; each tuned winner against the
+    kernels' plain versions at its cell's shape (GQA 64/4 flash at D = 128;
+    qkv n 9216 and the experts' d_ff 1536); cached logits against no-cache
+    forwards under a capacity factor that cannot bind (n_experts / top_k:
+    every expert takes every token).  Times: weight draw, warmup, prefill
+    per bucket, slot decode (events and profiled device time by kernel),
+    the tuned cells beside their plain versions, library calls and bounds,
+    a WallClock and a VirtualClock load run, peak memory."""
+    from repro_torch.models import moe
+    from repro_torch.models.module import count_params
+    from repro_torch.plan import autotune as at
+    from repro_torch.serve import DONE, LoadSpec, VirtualClock, run_load
+    from repro_torch.serve.loadgen import no_timing
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_config()
+    defs = moe.param_defs(cfg)
+    t0 = time.perf_counter()
+    params = device_params(torch, defs, SEED)
+    draw_s = time.perf_counter() - t0
+    weight_bytes = sum(t.numel() * t.element_size() for t in params.values())
+    path = SCRATCH / "moe_serve_autotune_h100.json"
+    path.unlink(missing_ok=True)
+    spec = LoadSpec(qps=1.0, n_requests=SERVE_REQUESTS, prompt_len=SERVE_PROMPT,
+                    new_tokens=SERVE_NEW, seed=SEED)
+
+    zero_counts(kernels)
+    engine, src1, warm_tune = serve_boot(torch, cfg, params, "tune", path)
+    tune_launches = {k: kk.launches for k, kk in kernels.items()}
+    for k in kernels:
+        results[k]["launches_by_path"]["moe_serve_warmup"] = tune_launches[k]
+    zero_counts(kernels)
+    reqs1, serve1_s = serve_requests(torch, engine, spec)
+    request_launches = {k: kk.launches for k, kk in kernels.items()}
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    stats1 = dict(engine.stats, padding_waste=engine.padding_waste())
+    ladder = engine.ladder
+    del engine
+    torch.cuda.empty_cache()
+    with no_timing(at):
+        engine, src2, warm_cached = serve_boot(torch, cfg, params, "cache-only", path)
+        reqs2, serve2_s = serve_requests(torch, engine, spec)
+    del engine
+    torch.cuda.empty_cache()
+    flat1 = {(b, c): s for b, cells in src1.items() for c, s in cells.items()}
+    flat2 = {(b, c): s for b, cells in src2.items() for c, s in cells.items()}
+    tuned = sorted((b, c) for (b, c), s in flat1.items() if s == "tuned")
+    not_replayed = sorted(f"{b.batch}x{b.seq}:{c}" for b, c in tuned if flat2[(b, c)] != "cached")
+    streams1 = [list(r.tokens) for r in reqs1]
+    streams2 = [list(r.tokens) for r in reqs2]
+    emit(phase="moe_serve", arch=cfg.name, n_layers=cfg.n_layers, of_layers=94,
+         d_model=cfg.d_model, heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         experts=[cfg.n_experts, cfg.moe_top_k, cfg.d_ff], capacity_factor=cfg.capacity_factor,
+         vocab=cfg.vocab, params=count_params(defs), weight_bytes=weight_bytes,
+         weight_draw_seconds=draw_s, ladder=SERVE_LADDER, max_seq=SERVE_MAX_SEQ,
+         slots=SERVE_SLOTS, weights=f"drawn on the card from seed {SEED}: init + N(0, "
+         f"{SERVE_PERTURB} x init std) on the matrices but the embedding, N(0, "
+         f"{SERVE_PERTURB_ZEROS}) on the gains",
+         requests=len(reqs1), prompt_lens=[len(r.prompt) for r in reqs1],
+         new_tokens=[r.max_new_tokens for r in reqs1],
+         warmup_seconds={"tune": warm_tune, "cache-only": warm_cached},
+         serve_seconds={"boot1": serve1_s, "boot2": serve2_s}, cells=len(flat1),
+         tuned=[f"{b.batch}x{b.seq}:{c}" for b, c in tuned],
+         cached_boot2=sum(s == "cached" for s in flat2.values()), not_replayed=not_replayed,
+         warmup_launches=tune_launches, request_launches=request_launches,
+         stats_boot1=stats1, distinct_streams=len({tuple(t) for t in streams1}),
+         single_token_streams=sum(len(set(t)) == 1 for t in streams1),
+         streams_equal=streams1 == streams2, card=card)
+    check(all(r.state == DONE for r in reqs1 + reqs2),
+          f"moe_serve: unfinished {[(r.rid, r.state) for r in reqs1 + reqs2 if r.state != DONE]}")
+    check(streams1 == streams2, "moe_serve: boot 2's token streams differ from boot 1's")
+    check(bool(tuned) and not not_replayed, f"moe_serve: tuned {tuned}, not replayed "
+                                            f"{not_replayed}")
+    check("tuned" not in flat2.values(), "moe_serve: the cache-only boot tuned a cell")
+    check(tune_launches["matmul"] > 0 and tune_launches["flash_attention"] > 0,
+          f"moe_serve: warmup tuning launched {tune_launches}")
+    check(not any(request_launches.values()),
+          f"moe_serve: the request path launched kernels {request_launches}")
+
+    winners = serve_winner_checks(torch, kernels, results, cfg, ladder, tuned)
+    emit(phase="moe_serve", check="tuned winners vs plain", tolerance=TOL, cells=winners)
+    emit(phase="moe_serve", check="cell times", card=card,
+         cells=cell_times(torch, kernels, cfg, ladder, tuned))
+
+    cache_check = moe_cache_vs_no_cache(torch, cfg, params)
+    emit(phase="moe_serve", check="cached decode vs no-cache forward", tolerance=TOL,
+         prompt_len=MOE_CACHE_CHECK[0], new_tokens=MOE_CACHE_CHECK[1], **cache_check)
+    worst = cache_check["worst_err_over_scale"]
+    check(worst <= TOL, f"moe_serve: cached logits vs no-cache forward {worst} > {TOL}")
+
+    engine, _, _ = serve_boot(torch, cfg, params, "cache-only", path)
+    prefill_ms = {}
+    for b in engine.ladder.buckets:
+        zt = torch.zeros((b.batch, b.seq), dtype=torch.int32, device="cuda")
+        zl = torch.full((b.batch,), b.seq, dtype=torch.int32, device="cuda")
+        prefill_ms[f"{b.batch}x{b.seq}"] = median_ms(
+            lambda b=b, zt=zt, zl=zl: engine._prefill[b](params, zt, zl), reps=3, warmup=1)
+    tok = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    at_pos = torch.full((SERVE_SLOTS,), SERVE_MAX_SEQ // 2, dtype=torch.int32, device="cuda")
+    decode_fn = lambda: engine._decode(params, engine.cache, tok, at_pos)  # noqa: E731
+    decode_ms = median_ms(decode_fn, reps=20)
+    decode_device_ms = profile(torch, "moe_slot_decode", decode_fn, card, grad=False,
+                               batch=f"{SERVE_SLOTS} slots at position {SERVE_MAX_SEQ // 2}")
+    del engine
+    torch.cuda.empty_cache()
+
+    load = LoadSpec(**SERVE_LOAD)
+    reports = {}
+    for name, clock in (("wall", None), ("virtual_h100", VirtualClock())):
+        engine, _, _ = serve_boot(torch, cfg, params, "cache-only", path, clock=clock)
+        rep = run_load(engine, load)
+        torch.cuda.synchronize()
+        reports[name] = dataclasses.asdict(rep)
+        check(rep.completed == load.n_requests, f"moe_serve: {name} load run {rep}")
+        del engine
+        torch.cuda.empty_cache()
+    emit(phase="moe_serve", check="times", card=card, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, decode_device_ms_per_step=decode_device_ms,
+         decode_slots=SERVE_SLOTS, decode_position=SERVE_MAX_SEQ // 2,
+         decode_bytes_per_step=decode_bytes(cfg), decode_bound_ms=decode_bytes(cfg) / HBM_BW * 1e3,
+         load_spec=SERVE_LOAD, load=reports, pool_bytes=pool_bytes,
+         kv_bytes_per_token=pool_bytes // (SERVE_SLOTS * SERVE_MAX_SEQ),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         phase_seconds=time.perf_counter() - t_phase)
+    del params
+    torch.cuda.empty_cache()
+
+
+def family_logits(torch, fam, cfg, params, seq, frames, positions) -> "torch.Tensor":
+    """A no-cache forward over ``seq`` [B, S] (right-padded with token 0 to
+    a multiple of the SSD chunk where the family has one: causal, so a
+    position's logits see no pad), read at ``positions``: [B, P, vocab]."""
+    from repro_torch.models import mamba2
+
+    S = seq.shape[1]
+    if cfg.family == "zamba2":
+        S = -(-S // mamba2.CHUNK) * mamba2.CHUNK
+        seq = torch.nn.functional.pad(seq, (0, S - seq.shape[1]))
+    kw = {"frames": frames} if frames is not None else {}
+    with torch.no_grad():
+        h, _ = fam.forward(cfg, params, seq, **kw)
+        return fam.logits(cfg, params, h[:, positions])
+
+
+def phase_families(torch, card):
+    """rwkv6-1.6b, zamba2-1.2b and seamless-m4t-medium at full width and
+    depth, f32, each on weights drawn on the card (device_params): a
+    seeded FAMILY_BATCH x FAMILY_PROMPT prompt (the encoder-decoder also
+    takes FAMILY_BATCH x enc_seq x d_model seeded frames) through the
+    prefill step, then FAMILY_DECODE cached greedy decode steps; each
+    step's logits against one no-cache forward over the prompt and the
+    generated tokens, read at the step's position, within TOL x
+    max(1, max |logit|).  Beside the gap, the spread of that forward
+    against one a chunk longer (Zamba2: one SSD chunk more of padding; the
+    others: one more pad token), read at the same positions: f32 rounding
+    of the same function at another shape.  Zamba2's decode (the per-step
+    SSD recurrence) is other algebra than its chunked forward, so its gate
+    is max(TOL, SPREAD_GATE x that spread).  Times: decode ms a step
+    (events), peak memory, weight bytes."""
+    import numpy as np
+
+    from repro_torch.models import mamba2
+    from repro_torch.models.module import count_params
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import serve as sv
+
+    out = {}
+    for arch in FAMILY_ARCHS:
+        t_arch = time.perf_counter()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        cfg = family_config(arch)
+        fam = get_family(cfg.family)
+        defs = fam.param_defs(cfg)
+        params = device_params(torch, defs, SEED)
+        rng = np.random.default_rng(SEED + 10)
+        prompt = torch.from_numpy(rng.integers(0, cfg.vocab, (FAMILY_BATCH, FAMILY_PROMPT))
+                                  .astype(np.int32)).cuda()
+        frames = None
+        batch = {"tokens": prompt}
+        if cfg.family == "encdec":
+            frames = torch.from_numpy(rng.standard_normal(
+                (FAMILY_BATCH, cfg.enc_seq, cfg.d_model), dtype=np.float32)).cuda()
+            batch["frames"] = frames
+        max_seq = FAMILY_PROMPT + FAMILY_DECODE
+        cache, logits = sv.make_prefill_step(cfg, max_seq, "float32", "float32")(params, batch)
+        decode = sv.make_decode_step(cfg, "float32")
+        toks, got = [], []
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)
+        for step in range(FAMILY_DECODE):
+            toks.append(nxt)
+            cache, logits = decode(params, cache, nxt[:, None], FAMILY_PROMPT + step)
+            got.append(logits[:, 0])
+            nxt = torch.argmax(logits[:, 0], -1).to(torch.int32)
+        seq = torch.cat([prompt, torch.stack(toks, 1)], 1)
+        where = torch.arange(FAMILY_PROMPT, max_seq, device="cuda")
+        want = family_logits(torch, fam, cfg, params, seq, frames, where)
+        pad = mamba2.CHUNK if cfg.family == "zamba2" else 1
+        longer = family_logits(torch, fam, cfg, params, torch.nn.functional.pad(seq, (0, pad)),
+                               frames, where)
+        got = torch.stack(got, 1)
+        errs = [max_err(got[:, i], want[:, i]) / scale(want[:, i]) for i in range(FAMILY_DECODE)]
+        spread = max(max_err(longer[:, i], want[:, i]) / scale(want[:, i])
+                     for i in range(FAMILY_DECODE))
+        # Zamba2's decode runs the per-step SSD recurrence and its no-cache
+        # forward chunks of 128: other algebra for one function, gated on
+        # the no-cache forward's own spread where that passes TOL.
+        gate = max(TOL, SPREAD_GATE * spread) if cfg.family == "zamba2" else TOL
+        tok = nxt[:, None]
+        decode_ms = median_ms(lambda: decode(params, cache, tok, max_seq - 1), reps=10)
+        rec = dict(arch=arch, family=cfg.family, n_layers=cfg.n_layers, d_model=cfg.d_model,
+                   params=count_params(defs),
+                   weight_bytes=sum(t.numel() * t.element_size() for t in params.values()),
+                   batch=FAMILY_BATCH, prompt=FAMILY_PROMPT, decode_steps=FAMILY_DECODE,
+                   frames=list(frames.shape) if frames is not None else None,
+                   tolerance=gate, worst_err_over_scale=max(errs), err_over_scale=errs,
+                   no_cache_spread_over_scale=spread,
+                   generated_distinct=len(set(seq[:, FAMILY_PROMPT:].flatten().tolist())),
+                   decode_ms_per_step=decode_ms,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   seconds=time.perf_counter() - t_arch, card=card)
+        emit(phase="families", **rec)
+        check(all(bool(torch.isfinite(t).all()) for t in (got, want)),
+              f"families: {arch} non-finite logits")
+        check(max(errs) <= gate, f"families: {arch} cached decode vs no-cache forward "
+                                 f"{max(errs)} > {gate} (spread {spread})")
+        out[arch] = rec
+        del params, cache, logits, got, want, longer
+        torch.cuda.empty_cache()
+    return out
+
+
+def family_config(arch: str):
+    from repro_torch.configs import get_config
+
+    return get_config(arch)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2441,6 +2892,12 @@ def main() -> int:
     del tfm
     torch.cuda.empty_cache()
     phase_autotune(torch, cnn, cfg, kernels, results, card)
+    del params, images, plans
+    phase_moe_serve(torch, kernels, results, card)
+    for name in ("matmul", "flash_attention"):
+        check(results[name]["launches_by_path"]["moe_serve_warmup"] > 0,
+              f"{name}: no launch on the moe_serve_warmup path")
+    phase_families(torch, card)
 
     def step_sums(calls):
         total = {key: sum(c[key] * c["per_step"] for c in calls)

@@ -1,7 +1,9 @@
 """Architecture registry: ``get_config(arch)`` -> ModelConfig, plus the
-reduced smoke config (same family features, tiny dims).  The port runs the
-CNN family and the dense transformer so far (qwen3-1.7b is the dense config
-with qk-norm and GQA that the serving tests run at smoke size)."""
+reduced smoke config (same family features, tiny dims).  The port holds
+every arch of the JAX package's registry but gemma3-4b, qwen3-32b and
+chameleon-34b: the CNN, the dense transformer (qwen1.5-0.5b, and
+qwen3-1.7b with qk-norm and GQA), the MoE (qwen3-moe-235b-a22b,
+grok-1-314b), RWKV-6, the Mamba-2 hybrid Zamba2 and the encoder-decoder."""
 
 from __future__ import annotations
 
@@ -13,6 +15,11 @@ from repro_torch.configs.base import ModelConfig
 ARCH_IDS = [
     "qwen3-1.7b",
     "qwen1.5-0.5b",
+    "grok-1-314b",
+    "qwen3-moe-235b-a22b",
+    "rwkv6-1.6b",
+    "seamless-m4t-medium",
+    "zamba2-1.2b",
     "cnn-vgg11",  # the paper's own domain
 ]
 
@@ -21,6 +28,10 @@ ARCH_IDS = [
 FAMILY_DEFAULT_ARCH = {
     "dense": "qwen1.5-0.5b",
     "transformer": "qwen1.5-0.5b",  # the planned wing's family name
+    "moe": "qwen3-moe-235b-a22b",
+    "rwkv6": "rwkv6-1.6b",
+    "zamba2": "zamba2-1.2b",
+    "encdec": "seamless-m4t-medium",
     "cnn": "cnn-vgg11",
 }
 
@@ -36,11 +47,13 @@ def get_config(arch: str) -> ModelConfig:
 
 def smoke_config(arch: str) -> ModelConfig:
     """Reduced config of the same family, runnable on CPU in one train step:
-    4 layers of width 128 with 4 heads of 32 for a transformer; for the
-    CNN, 2 stages of width 8, d_ff 64 and 10 classes."""
+    4 layers (Zamba2: 5) of width 128 with 4 heads of 32; 4 experts with
+    top-k at most 2; 2 encoder layers over 64 frames; SSM heads of 32
+    (Zamba2 also state 16, shared attention every 2 layers); for the CNN,
+    2 stages of width 8, d_ff 64 and 10 classes."""
     cfg = get_config(arch)
     changes: dict = dict(
-        n_layers=min(cfg.n_layers, 4),
+        n_layers=min(cfg.n_layers, 4 if cfg.family != "zamba2" else 5),
         d_model=128,
         vocab=256,
         d_ff=256,
@@ -49,6 +62,14 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.n_heads:
         changes.update(n_heads=4, n_kv_heads=max(1, 4 * cfg.n_kv_heads // cfg.n_heads),
                        head_dim=32)
+    if cfg.n_experts:
+        changes.update(n_experts=4, moe_top_k=min(cfg.moe_top_k, 2))
+    if cfg.n_enc_layers:
+        changes.update(n_enc_layers=2, enc_seq=64)
+    if cfg.family == "zamba2":
+        changes.update(ssm_state=16, ssm_head_dim=32, shared_attn_every=2)
+    if cfg.family == "rwkv6":
+        changes.update(ssm_head_dim=32)
     if cfg.family == "cnn":
         changes.update(n_layers=2, d_model=8, d_ff=64, vocab=10)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **changes)

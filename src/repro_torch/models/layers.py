@@ -47,22 +47,25 @@ def rope(x, pos, theta):
 # --- attention block -------------------------------------------------------
 
 
-def attn_defs(cfg: ModelConfig, L: int) -> dict:
-    """Parameter defs for one stacked GQA attention block."""
+def attn_defs(cfg: ModelConfig, L: int, layers_prefix: bool = True) -> dict:
+    """Parameter defs for one GQA attention block, stacked over ``L``
+    layers (or one unstacked block with ``layers_prefix=False``)."""
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    lead = (L,) if layers_prefix else ()
+    fan = len(lead)
     defs = {
-        "wq": ParamDef((L, d, Hq, Dh), fan_in_axis=1),
-        "wk": ParamDef((L, d, Hkv, Dh), fan_in_axis=1),
-        "wv": ParamDef((L, d, Hkv, Dh), fan_in_axis=1),
-        "wo": ParamDef((L, Hq, Dh, d), fan_in_axis=1),
+        "wq": ParamDef(lead + (d, Hq, Dh), fan_in_axis=fan),
+        "wk": ParamDef(lead + (d, Hkv, Dh), fan_in_axis=fan),
+        "wv": ParamDef(lead + (d, Hkv, Dh), fan_in_axis=fan),
+        "wo": ParamDef(lead + (Hq, Dh, d), fan_in_axis=fan),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef((L, Hq, Dh), init="zeros")
-        defs["bk"] = ParamDef((L, Hkv, Dh), init="zeros")
-        defs["bv"] = ParamDef((L, Hkv, Dh), init="zeros")
+        defs["bq"] = ParamDef(lead + (Hq, Dh), init="zeros")
+        defs["bk"] = ParamDef(lead + (Hkv, Dh), init="zeros")
+        defs["bv"] = ParamDef(lead + (Hkv, Dh), init="zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef((L, Dh), init="zeros")
-        defs["k_norm"] = ParamDef((L, Dh), init="zeros")
+        defs["q_norm"] = ParamDef(lead + (Dh,), init="zeros")
+        defs["k_norm"] = ParamDef(lead + (Dh,), init="zeros")
     return defs
 
 
@@ -138,6 +141,18 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
                      window=window, scale=Dh**-0.5)
 
 
+def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0=0, window=None,
+                    theta=None, cache: tuple | None = None, causal: bool = True):
+    """The attention block: x [B, S, d] -> (out [B, S, d], cache).  The
+    projections, :func:`attention_core` and the output projection; with
+    ``cache`` = (k, v) [B, Smax, Hkv, Dh] the block's K/V are written into
+    it in place and the same tuple comes back (``None`` without one)."""
+    q, k, v = project_qkv(p, x)
+    o = attention_core(p, q, k, v, cfg, pos0=pos0, window=window, theta=theta,
+                       causal=causal, cache=cache)
+    return project_out(p, o), cache
+
+
 # --- MLP -------------------------------------------------------------------
 
 _ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
@@ -151,6 +166,13 @@ def mlp_defs(cfg: ModelConfig, L: int, d_ff: int | None = None) -> dict:
         "w_up": ParamDef((L, d, ff), fan_in_axis=1),
         "w_down": ParamDef((L, ff, d), fan_in_axis=1),
     }
+
+
+def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
+    """The gated MLP: act(x W_gate) * (x W_up), then W_down."""
+    cd = x.dtype
+    h = _ACT[act](x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
+    return h @ p["w_down"].to(cd)
 
 
 # --- embeddings ------------------------------------------------------------

@@ -1,0 +1,155 @@
+"""Mamba-2 (SSD) block: the JAX package's ``models/mamba2.py`` on one
+device.
+
+The selective scan runs the SSD chunked algorithm: quadratic matmuls inside
+each chunk of ``CHUNK`` tokens and a recurrence over the per-chunk states
+(the paper's Alg 2 insight — keep a block resident, stream the sequence —
+applied to SSMs).  One B/C group; a causal depthwise conv of width
+``cfg.conv_width`` over the x/B/C streams, whose last ``W - 1`` inputs
+carry across calls.  Plain PyTorch, as the JAX package computes it with
+XLA and no Pallas kernel.  A decode step (S = 1) is one chunk of one
+token: the per-step recurrence, other algebra than a long sequence's
+chunks for the same function.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.module import ParamDef
+
+CHUNK = 128
+
+
+def dims(cfg: ModelConfig):
+    """(d_inner, heads, head dim, state size)."""
+    d_in = cfg.ssm_expand * cfg.d_model
+    H = d_in // cfg.ssm_head_dim
+    return d_in, H, cfg.ssm_head_dim, cfg.ssm_state
+
+
+def block_defs(cfg: ModelConfig, L: int) -> dict:
+    d = cfg.d_model
+    d_in, H, _, N = dims(cfg)
+    conv_ch = d_in + 2 * N
+    return {
+        "ln": ParamDef((L, d), init="zeros"),
+        # in_proj -> [z, x, B, C, dt]
+        "w_in": ParamDef((L, d, 2 * d_in + 2 * N + H), fan_in_axis=1),
+        "conv_w": ParamDef((L, cfg.conv_width, conv_ch), scale=0.5, fan_in_axis=1),
+        "conv_b": ParamDef((L, conv_ch), init="zeros"),
+        "A_log": ParamDef((L, H), init="zeros"),
+        "D": ParamDef((L, H), init="ones"),
+        "dt_bias": ParamDef((L, H), init="zeros"),
+        "gn": ParamDef((L, d_in), init="zeros"),
+        "w_out": ParamDef((L, d_in, d), fan_in_axis=1),
+    }
+
+
+def _depthwise_conv(x, w, b, state):
+    """Causal depthwise conv1d.  x: [B, S, C]; w: [W, C]; state: [B, W-1, C]
+    (the previous call's trailing inputs).  Returns (y, new_state)."""
+    W = w.shape[0]
+    xp = torch.cat([state.to(x.dtype), x], dim=1)  # [B, S+W-1, C]
+    y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(W))
+    new_state = xp[:, -(W - 1):, :] if W > 1 else state
+    return F.silu(y + b), new_state
+
+
+def _segsum(a):
+    """a: [..., Q] -> L[i, j] = sum_{j<t<=i} a_t on and below the diagonal,
+    -inf above it (so its exp is 0 there)."""
+    Q = a.shape[-1]
+    cs = torch.cumsum(a, -1)
+    diff = cs[..., :, None] - cs[..., None, :]
+    mask = torch.tril(torch.ones((Q, Q), dtype=torch.bool, device=a.device))
+    return torch.where(mask, diff, torch.tensor(-torch.inf, dtype=diff.dtype, device=a.device))
+
+
+def ssd_chunked(x, dt, A_log, B, C, D, state):
+    """The SSD forward.
+
+    x: [B, S, H, P]; dt: [B, S, H] (after softplus); A_log: [H];
+    B, C: [B, S, N]; D: [H]; state: [B, H, P, N], carried across calls.
+    Returns (y [B, S, H, P] in f32, new_state).  S must be a multiple of
+    ``min(CHUNK, S)``.
+    """
+    Bb, S, H, P = x.shape
+    N = B.shape[-1]
+    Q = min(CHUNK, S)
+    if S % Q:
+        raise ValueError(f"ssd_chunked: sequence {S} is not a multiple of the chunk {Q}")
+    nc = S // Q
+
+    a = -torch.exp(A_log.float())[None, None, :] * dt  # [B, S, H] (< 0)
+    xr = (x * dt[..., None]).reshape(Bb, nc, Q, H, P).float()
+    ar = a.reshape(Bb, nc, Q, H)
+    Br = B.reshape(Bb, nc, Q, N).float()
+    Cr = C.reshape(Bb, nc, Q, N).float()
+
+    # Inside each chunk (quadratic): Y_diag = (C B^T * L) @ x.
+    Lmat = torch.exp(_segsum(ar.permute(0, 1, 3, 2)))  # [B, nc, H, Q, Q]
+    G = torch.einsum("bcqn,bckn->bcqk", Cr, Br)  # [B, nc, Q, Q]
+    Y = torch.einsum("bchqk,bckhp->bcqhp", G[:, :, None] * Lmat, xr)
+
+    # Each chunk's input state and decays.
+    a_cum = torch.cumsum(ar, 2)  # [B, nc, Q, H]
+    a_tail = a_cum[:, :, -1:, :] - a_cum  # the decay from t to the chunk's end
+    states = torch.einsum("bckn,bckh,bckhp->bchpn", Br, torch.exp(a_tail), xr)
+
+    # The recurrence over the chunk states.
+    a_tot = a_cum[:, :, -1, :]  # [B, nc, H]
+    s = state.float()
+    s_in = []
+    for c in range(nc):
+        s_in.append(s)  # the state entering chunk c
+        s = s * torch.exp(a_tot[:, c])[..., None, None] + states[:, c]
+    s_in = torch.stack(s_in, 1)  # [B, nc, H, P, N]
+
+    # The entering state's contribution at each position.
+    Y = Y + torch.einsum("bcqn,bcqh,bchpn->bcqhp", Cr, torch.exp(a_cum), s_in)
+    Y = Y.reshape(Bb, S, H, P) + D[None, None, :, None] * x.float()
+    return Y, s
+
+
+def apply_block(p, x, cfg: ModelConfig, state):
+    """One Mamba-2 block.  x: [B, S, d]; state: {"conv", "ssd"}.  Returns
+    (out [B, S, d], new state)."""
+    Bb, S, _ = x.shape
+    d_in, H, hd, N = dims(cfg)
+    cd = x.dtype
+
+    proj = x @ p["w_in"].to(cd)  # [B, S, 2*d_in + 2N + H]
+    z, xc, Bc, Cc, dt = torch.split(proj, [d_in, d_in, N, N, H], -1)
+
+    conv_in = torch.cat([xc, Bc, Cc], -1)
+    conv_out, conv_state = _depthwise_conv(conv_in, p["conv_w"].to(cd), p["conv_b"].to(cd),
+                                           state["conv"])
+    xc, Bc, Cc = torch.split(conv_out, [d_in, N, N], -1)
+
+    dt = F.softplus(dt.float() + p["dt_bias"].float())
+    y, ssd_state = ssd_chunked(xc.reshape(Bb, S, H, hd), dt, p["A_log"], Bc, Cc, p["D"],
+                               state["ssd"])
+    y = y.reshape(Bb, S, d_in).to(cd)
+    y = y * F.silu(z)
+    # Gated RMS norm (f32).
+    yf = y.float()
+    yf = yf * torch.rsqrt(torch.mean(yf * yf, -1, keepdim=True) + cfg.norm_eps)
+    y = (yf * (1.0 + p["gn"].float())).to(cd)
+    return y @ p["w_out"].to(cd), {"conv": conv_state, "ssd": ssd_state}
+
+
+def init_block_state(cfg: ModelConfig, L: int, batch: int, dtype=torch.bfloat16, *,
+                     device=None) -> dict:
+    """Zero states of L blocks on ``device`` (default: the card): the conv's
+    trailing inputs [L, B, W-1, C] in ``dtype``, the SSD state
+    [L, B, H, P, N] in f32."""
+    d_in, H, hd, N = dims(cfg)
+    device = torch.device("cuda" if device is None else device)
+    return {
+        "conv": torch.zeros((L, batch, cfg.conv_width - 1, d_in + 2 * N), dtype=dtype,
+                            device=device),
+        "ssd": torch.zeros((L, batch, H, hd, N), dtype=torch.float32, device=device),
+    }

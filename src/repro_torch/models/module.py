@@ -51,3 +51,36 @@ def init_params(defs: dict, seed: int, *, device=None,
 
 def count_params(defs: dict) -> int:
     return sum(math.prod(d.shape) for d in defs.values())
+
+
+def prefixed(prefix: str, defs: dict) -> dict:
+    """``{"wq": d}`` -> ``{"<prefix>/wq": d}``: a sub-tree's flat paths
+    under a parent key."""
+    return {f"{prefix}/{k}": v for k, v in defs.items()}
+
+
+def nest(flat: dict) -> dict:
+    """``{"attn/wq": x}`` -> ``{"attn": {"wq": x}}``."""
+    out: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = out
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = value
+    return out
+
+
+def subtree(params: dict, prefix: str) -> dict:
+    """The nested tree of the flat paths under ``prefix``."""
+    head = prefix + "/"
+    return nest({k[len(head):]: v for k, v in params.items() if k.startswith(head)})
+
+
+def unstack(params: dict, prefix: str, n: int) -> list[dict]:
+    """Per-layer nested trees of the stacked ``[n, ...]`` leaves under
+    ``prefix``, each stack unbound once (so autograd stacks each gradient
+    once)."""
+    head = prefix + "/"
+    rows = {k[len(head):]: v.unbind(0) for k, v in params.items() if k.startswith(head)}
+    return [nest({k: r[i] for k, r in rows.items()}) for i in range(n)]

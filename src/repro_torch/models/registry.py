@@ -1,17 +1,25 @@
 """Model-family registry: family name -> module implementing the family
-protocol (``param_defs`` / ``forward``) and the hooks a trainer dispatches
-on (``data_source``, ``make_loss_fn``, ``plan_training``) — no family
-branching at the call sites.  The port has the cnn family and the dense
-transformer (also registered as ``transformer``, the planned wing's name);
-a family with an ``init_cache`` hook (the dense transformer) can be served."""
+protocol (``param_defs`` / ``forward`` / ``logits``) and the hooks the
+trainer and the server dispatch on (``data_source``, ``make_loss_fn``,
+``plan_training``, ``init_cache``, ``slot_decode_kwargs``) — no family
+branching at the call sites.  The port has every family of the JAX
+package's registry: the cnn, the dense transformer (also registered as
+``transformer``, the planned wing's name), the MoE, RWKV-6, Zamba2 and
+the encoder-decoder.  A family without ``make_loss_fn`` trains on the
+generic chunked-CE loss (``runtime.train.make_loss_fn``); one with
+``init_cache`` (every token family) can be served."""
 
 from __future__ import annotations
 
-from repro_torch.models import cnn, transformer
+from repro_torch.models import cnn, encdec, moe, rwkv6, transformer, zamba2
 
 FAMILIES = {
     "dense": transformer,
     "transformer": transformer,  # the planned wing's first-class name
+    "moe": moe,
+    "rwkv6": rwkv6,
+    "zamba2": zamba2,
+    "encdec": encdec,
     "cnn": cnn,
 }
 

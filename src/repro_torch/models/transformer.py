@@ -52,7 +52,7 @@ from repro_torch.core.fc_layer import fc_layer
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as ll
-from repro_torch.models.module import ParamDef
+from repro_torch.models.module import ParamDef, unstack
 from repro_torch.plan import local_schedule, with_reference_vjp
 
 
@@ -92,20 +92,6 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
     return {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
 
 
-def _layers(params: dict, n_layers: int) -> list[dict]:
-    """Per-layer nested parameter dicts ({"ln1", "attn": {...}, "mlp":
-    {...}}) from the stacked leaves, each stack unbound once (so autograd
-    stacks each gradient once)."""
-    out = [{"attn": {}, "mlp": {}} for _ in range(n_layers)]
-    for path, t in params.items():
-        parts = path.split("/")
-        if parts[0] != "layers":
-            continue
-        for lp, s in zip(out, t.unbind(0)):
-            (lp[parts[1]] if len(parts) == 3 else lp)[parts[-1]] = s
-    return out
-
-
 REMAT = ("none", "dots", "block")
 
 
@@ -123,11 +109,11 @@ def _segment(fn, remat: str):
 
 
 def _layer(fn, remat: str):
-    """A whole layer: under ``remat="block"`` it keeps only its input and
+    """A whole layer: under ``remat="block"`` it keeps only its inputs and
     runs again in the backward pass."""
     if remat != "block":
         return fn
-    return lambda x: checkpoint(fn, x, use_reentrant=False)
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
@@ -162,8 +148,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     meta = layer_meta(cfg)
     caches = (zip(cache["k"].unbind(0), cache["v"].unbind(0)) if cache is not None
               else [None] * cfg.n_layers)
-    for lp, window, theta, kv in zip(_layers(params, cfg.n_layers), meta["window"].tolist(),
-                                     meta["theta"].tolist(), caches):
+    for lp, window, theta, kv in zip(unstack(params, "layers", cfg.n_layers),
+                                     meta["window"].tolist(), meta["theta"].tolist(), caches):
         x = _layer(lambda x, lp=lp, w=window, t=theta, kv=kv:
                    _block(x, lp, cfg, w, t, remat, pos0=pos0, cache=kv), remat)(x)
     return x, cache
@@ -297,7 +283,7 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                         _bwd_for(sched, "mlp_down"))
         return x + down.reshape(B, S, d)
 
-    for lp in _layers(params, cfg.n_layers):
+    for lp in unstack(params, "layers", cfg.n_layers):
         x = _layer(functools.partial(layer, lp=lp), remat)(x)
     return x
 

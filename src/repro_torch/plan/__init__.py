@@ -2,7 +2,7 @@
 
 from repro_torch.plan.planners import (
     AttentionPlanner, ConvDgradPlanner, ConvPlanner, ConvWgradPlanner, Im2colConvPlanner,
-    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, TransformerBlockPlanner,
+    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, MoeFfnPlanner, TransformerBlockPlanner,
     planner_for, round_up,
 )
 from repro_torch.plan.registry import (
@@ -14,7 +14,7 @@ from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule
 __all__ = [
     "AttentionPlanner", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
     "CudaKernel", "CudaOp", "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner",
-    "MatmulPlanner", "MeshSpec", "Schedule", "ShardedSchedule", "TransformerBlockPlanner",
+    "MatmulPlanner", "MeshSpec", "MoeFfnPlanner", "Schedule", "ShardedSchedule", "TransformerBlockPlanner",
     "cuda_op", "get_op", "local_schedule", "pad_dim", "planner_for", "round_up",
     "with_reference_vjp",
 ]

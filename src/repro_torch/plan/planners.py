@@ -22,6 +22,7 @@ overrides are honored verbatim (clamped to legal ranges).
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import ClassVar
 
 from repro_torch.core import ccr
@@ -1088,6 +1089,73 @@ class AttentionPlanner(ShardablePlanner):
 
 
 # ---------------------------------------------------------------------------
+# MoE expert FFN
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class MoeFfnPlanner(ShardablePlanner):
+    """Plans the MoE expert-FFN block: E experts, each a two-GEMM FFN on
+    its capacity rows.
+
+    The capacity-factor dispatch of ``models/moe.py`` fixes each expert's
+    row count at ``cap = ceil(top_k * tokens / n_experts *
+    capacity_factor)``, so the local schedule is E repetitions of two
+    delegated :class:`MatmulPlanner` GEMMs — up ``[cap, d_model] @
+    [d_model, d_ff]`` and down ``[cap, d_ff] @ [d_ff, d_model]`` — the
+    compound-planner pattern again.  The mesh partitions ("batch": tokens
+    sharded, every device streams every expert; "ep": experts sharded, the
+    routed rows crossing the interconnect as an all-to-all) come with the
+    sharded planner paths.
+    """
+
+    op: ClassVar[str] = "moe_ffn"
+
+    @staticmethod
+    def expert_capacity(tokens: int, n_experts: int, top_k: int,
+                        capacity_factor: float) -> int:
+        """Rows per expert under the capacity dispatch — the
+        ``models/moe.py`` formula."""
+        return max(1, math.ceil(top_k * tokens / n_experts * capacity_factor))
+
+    def plan_local(
+        self, *, tokens: int, d_model: int, d_ff: int, n_experts: int,
+        top_k: int = 2, capacity_factor: float = 1.0, in_bytes: int = 4,
+        block_m: int | None = None, block_n: int | None = None,
+        block_k: int | None = None,
+    ) -> Schedule:
+        cap = self.expert_capacity(tokens, n_experts, top_k, capacity_factor)
+        mm = MatmulPlanner(self.machine)
+        up = mm.plan_local(m=cap, n=d_ff, k=d_model, in_bytes=in_bytes,
+                           block_m=block_m, block_n=block_n, block_k=block_k)
+        down = mm.plan_local(m=cap, n=d_model, k=d_ff, in_bytes=in_bytes,
+                             block_m=block_m, block_n=block_n, block_k=block_k)
+        # The expert loop runs both GEMMs back to back with one shared
+        # pipeline fill; the grid records the up GEMM's walk under the
+        # expert dimension (the down GEMM's steps ride the critical path).
+        grid = (n_experts,) + up.grid
+        steps = 1 + n_experts * ((ccr.grid_steps(up.grid) - 1)
+                                 + (ccr.grid_steps(down.grid) - 1))
+        return Schedule(
+            op=self.op,
+            grid=grid,
+            blocks=up.blocks,
+            halo=0,
+            macs=n_experts * (up.macs + down.macs),
+            loads=n_experts * (up.loads + down.loads),
+            stores=n_experts * (up.stores + down.stores),
+            vmem_bytes=max(up.vmem_bytes, down.vmem_bytes),
+            machine=self.machine.name,
+            critical_path_steps=steps,
+        )
+
+    def local_candidates(self, **shape) -> list[Schedule]:
+        """Halving ladder over block_n — the delegated GEMMs' Delta_O
+        output stack."""
+        return self._ladder_candidates("block_n", self.machine.lane, **shape)
+
+
+# ---------------------------------------------------------------------------
 # Transformer block (compound planner: the whole wing through delegation)
 # ---------------------------------------------------------------------------
 
@@ -1102,8 +1170,9 @@ class TransformerBlockPlanner:
     Every matmul cell (the fused qkv projection, the attention output
     projection, the fused gate+up and the down MLP GEMMs, the logits head)
     delegates to :class:`MatmulPlanner` on its ``[tokens, k] @ [k, n]``
-    shape; the attention cell delegates to :class:`AttentionPlanner`.  The
-    MoE expert cell waits for ``MoeFfnPlanner`` and raises.
+    shape; the attention cell delegates to :class:`AttentionPlanner`; with
+    ``n_experts > 0`` the MLP cells are replaced by one
+    :class:`MoeFfnPlanner` cell, "moe".
 
     The head dim is ``d_model // n_heads``, as the JAX package plans it;
     a config whose ``head_dim`` differs plans other shapes than it runs.
@@ -1115,12 +1184,10 @@ class TransformerBlockPlanner:
 
     def cell_planners(self, *, batch: int, seq: int, d_model: int,
                       n_heads: int, d_ff: int, n_kv_heads: int | None = None,
-                      vocab: int = 0, n_experts: int = 0, in_bytes: int = 4,
+                      vocab: int = 0, n_experts: int = 0, top_k: int = 2,
+                      capacity_factor: float = 1.0, in_bytes: int = 4,
                       causal: bool = True) -> dict[str, tuple]:
         """(planner, shape-kwargs) per cell — the delegation table."""
-        if n_experts:
-            raise NotImplementedError(
-                "the MoE expert cell needs MoeFfnPlanner, which is not ported yet")
         hq = n_heads
         hkv = n_kv_heads or n_heads
         dh = d_model // hq
@@ -1135,10 +1202,16 @@ class TransformerBlockPlanner:
                           n_q_heads=hq, n_kv_heads=hkv, batch=batch,
                           in_bytes=in_bytes, causal=causal)),
             "wo": (mm, dict(m=m, n=d_model, k=hq * dh, in_bytes=in_bytes)),
-            # gate and up share one fused GEMM (one x stream for both).
-            "mlp_up": (mm, dict(m=m, n=2 * d_ff, k=d_model, in_bytes=in_bytes)),
-            "mlp_down": (mm, dict(m=m, n=d_model, k=d_ff, in_bytes=in_bytes)),
         }
+        if n_experts:
+            cells["moe"] = (MoeFfnPlanner(**bind),
+                            dict(tokens=m, d_model=d_model, d_ff=d_ff,
+                                 n_experts=n_experts, top_k=top_k,
+                                 capacity_factor=capacity_factor, in_bytes=in_bytes))
+        else:
+            # gate and up share one fused GEMM (one x stream for both).
+            cells["mlp_up"] = (mm, dict(m=m, n=2 * d_ff, k=d_model, in_bytes=in_bytes))
+            cells["mlp_down"] = (mm, dict(m=m, n=d_model, k=d_ff, in_bytes=in_bytes))
         if vocab:
             cells["logits"] = (mm, dict(m=m, n=vocab, k=d_model,
                                         in_bytes=in_bytes))
@@ -1154,6 +1227,7 @@ PLANNERS: dict[str, type] = {
     MatmulDxPlanner.op: MatmulDxPlanner,
     MatmulDwPlanner.op: MatmulDwPlanner,
     AttentionPlanner.op: AttentionPlanner,
+    MoeFfnPlanner.op: MoeFfnPlanner,
 }
 
 

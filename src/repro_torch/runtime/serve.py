@@ -76,7 +76,8 @@ def _on(params: dict, x) -> torch.Tensor:
 
 def make_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="bfloat16",
                       cache_dtype="bfloat16"):
-    """prefill(params, {"tokens": [B, S]}) -> (cache, logits [B, 1, vocab])."""
+    """prefill(params, {"tokens": [B, S]}) -> (cache, logits [B, 1, vocab]);
+    the encoder-decoder also takes ``"frames"`` [B, T_enc, d]."""
     fam = get_family(cfg.family)
     dt, cdt = torch_dtype(compute_dtype), torch_dtype(cache_dtype)
 
@@ -84,7 +85,9 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="bfloat16",
     def prefill(params, batch):
         tokens = _on(params, batch["tokens"])
         cache = fam.init_cache(cfg, tokens.shape[0], max_seq, cdt, device=tokens.device)
-        h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt)
+        extra = {"frames": _on(params, batch["frames"]).to(dt)} if "frames" in batch else {}
+        h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt,
+                               **extra)
         return cache, fam.logits(cfg, params, h[:, -1:, :])
 
     return prefill
@@ -142,16 +145,21 @@ def make_slot_decode_step(cfg: ModelConfig, compute_dtype="float32", schedules=N
     position per row (axis 1 of every cache leaf is the slot axis, see
     ``models.registry.init_cache_slots``): each slot ropes at, writes its
     cache row at and masks from its own position — what the JAX package
-    gets by ``vmap``-ing a batch-1 forward over the slots."""
+    gets by ``vmap``-ing a batch-1 forward over the slots.  Where rows of
+    one forward are coupled (the MoE's expert capacity), the family's
+    ``slot_decode_kwargs`` hook names the forward's keywords that cut the
+    coupling, so each slot computes what a batch-1 call would."""
     fam = get_family(cfg.family)
     dt = torch_dtype(compute_dtype)
+    per_slot = getattr(fam, "slot_decode_kwargs", {})
     _check_schedules(schedules, machine)
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
         tokens = _on(params, tokens).to(torch.int32)[:, None]
         pos = _on(params, pos).to(torch.int32)
-        h, cache = fam.forward(cfg, params, tokens, pos0=pos, cache=cache, compute_dtype=dt)
+        h, cache = fam.forward(cfg, params, tokens, pos0=pos, cache=cache, compute_dtype=dt,
+                               **per_slot)
         return cache, fam.logits(cfg, params, h)[:, 0]
 
     return decode

@@ -49,12 +49,25 @@ def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
-    """The family registry owns the loss: the family's ``make_loss_fn``
-    hook (the cnn's image cross-entropy, the dense transformer's planned
-    chunked CE) builds it.  Every family of the port has one; the JAX
-    package's generic forward + chunked-CE fallback waits for a family
-    without it."""
-    return get_family(cfg.family).make_loss_fn(cfg, tcfg)
+    """The family registry owns the loss: a family's ``make_loss_fn`` hook
+    (the cnn's image cross-entropy, the dense transformer's planned chunked
+    CE) builds it; every other token family (MoE, RWKV-6, Zamba2, the
+    encoder-decoder) trains on the generic composition below, the
+    family's plain forward (``frames`` passed on where the batch has them)
+    and the chunked cross-entropy, as in the JAX package."""
+    fam = get_family(cfg.family)
+    hook = getattr(fam, "make_loss_fn", None)
+    if hook is not None:
+        return hook(cfg, tcfg)
+    dt = getattr(torch, tcfg.compute_dtype)
+
+    def loss_fn(params, batch):
+        extra = {"frames": batch["frames"].to(dt)} if "frames" in batch else {}
+        h, _ = fam.forward(cfg, params, batch["tokens"], remat=tcfg.remat,
+                           compute_dtype=dt, **extra)
+        return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks)
+
+    return loss_fn
 
 
 def batch_to(batch: dict, device) -> dict:

@@ -255,9 +255,13 @@ def test_transformer_block_planner_matches_repro(machines, shape):
 
 
 def test_attention_planner_registry_and_moe_cell():
+    """The MoE cell replaces the MLP cells with one MoeFfnPlanner cell, as
+    in repro (tests/test_torch_families.py holds it field for field)."""
     assert isinstance(tp.planner_for("flash_attention"), tp.AttentionPlanner)
-    with pytest.raises(NotImplementedError, match="MoeFfnPlanner"):
-        tp.TransformerBlockPlanner().cell_planners(**TB_SHAPES[1], n_experts=4)
+    cells = tp.TransformerBlockPlanner().cell_planners(**TB_SHAPES[1], n_experts=4)
+    jcells = jp.TransformerBlockPlanner().cell_planners(**TB_SHAPES[1], n_experts=4)
+    assert set(cells) == set(jcells) == {"qkv", "attn", "wo", "moe"}
+    assert isinstance(cells["moe"][0], tp.MoeFfnPlanner) and cells["moe"][1] == jcells["moe"][1]
 
 
 # -- the attention cell's autograd -------------------------------------------------

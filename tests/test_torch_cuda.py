@@ -634,3 +634,81 @@ def test_serving_warmup_tunes_on_the_kernels_and_replays(cuda, tmp_path, monkeyp
     replayed = ladder.warmup(cfg, policy="cache-only", cache=at.AutotuneCache(path),
                              device=cuda)
     assert {s for cells in replayed.values() for s in cells.values()} == {"cached"}
+
+
+@pytest.mark.cuda
+def test_moe_slot_decode_dispatches_per_row_on_card(cuda):
+    """The smoke MoE on the card, its router zeroed so that every slot
+    picks experts 0 and 1: the batched slot decode gives each slot the
+    logits of a batch-1 call at its position (each slot dispatches
+    alone), and the card's logits equal the CPU's."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import serve as sv
+
+    cfg = smoke_config("qwen3-moe-235b-a22b")
+    cpu = init_params(moe.param_defs(cfg), 0, device="cpu")
+    cpu["layers/moe/router"].zero_()
+    params = {k: v.to(cuda) for k, v in cpu.items()}
+    lens = torch.tensor([4, 11, 7], dtype=torch.int32)
+    tok = torch.from_numpy(np.random.default_rng(2).integers(
+        0, cfg.vocab, (3, 12)).astype(np.int32))
+    pre, dec = sv.make_bucket_prefill_step(cfg, 24), sv.make_slot_decode_step(cfg)
+    cache, logits = pre(params, tok.to(cuda), lens.to(cuda))
+    ccache, clogits = pre(cpu, tok, lens)
+    assert_close(logits, clogits)
+    nxt = torch.argmax(clogits, -1)
+    rows = [{k: v[:, i:i + 1].clone() for k, v in cache.items()} for i in range(3)]
+    cache, logits = dec(params, cache, nxt.to(cuda), lens.to(cuda))
+    _, clogits = dec(cpu, ccache, nxt, lens)
+    assert_close(logits, clogits)
+    for i in range(3):
+        _, li = dec(params, rows[i], nxt[i:i + 1].to(cuda), lens[i:i + 1].to(cuda))
+        assert_close(logits[i], li[0])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-235b-a22b", "grok-1-314b", "rwkv6-1.6b",
+                                  "zamba2-1.2b", "seamless-m4t-medium"])
+def test_family_cached_decode_matches_forward_on_card(cuda, arch):
+    """Each new family's smoke config on the card: a prefill and 4 cached
+    decode steps against a no-cache forward over the same tokens (Zamba2's
+    right-padded to its SSD chunk), and the card's logits against the
+    CPU's; capacity factor 16 for the MoE (no row dropped)."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import mamba2
+    from repro_torch.models.module import init_params
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import serve as sv
+
+    cfg = dataclasses.replace(smoke_config(arch), capacity_factor=16.0)
+    fam = get_family(cfg.family)
+    cpu = init_params(fam.param_defs(cfg), 0, device="cpu")
+    params = {k: v.to(cuda) for k, v in cpu.items()}
+    rng = np.random.default_rng(3)
+    batch = {"tokens": torch.from_numpy(rng.integers(0, cfg.vocab, (2, 16)).astype(np.int32))}
+    if cfg.family == "encdec":
+        batch["frames"] = _rand(rng, 2, cfg.enc_seq, cfg.d_model)
+    cache, logits = sv.make_prefill_step(cfg, 24, "float32", "float32")(
+        params, {k: v.to(cuda) for k, v in batch.items()})
+    _, clogits = sv.make_prefill_step(cfg, 24, "float32", "float32")(cpu, batch)
+    assert_close(logits, clogits)
+    dec = sv.make_decode_step(cfg, "float32")
+    seq, got = batch["tokens"].to(cuda), []
+    for step in range(4):
+        nxt = torch.argmax(logits[:, -1], -1).to(torch.int32)[:, None]
+        seq = torch.cat([seq, nxt], 1)
+        cache, logits = dec(params, cache, nxt, 16 + step)
+        got.append(logits[:, 0])
+    full = seq
+    if cfg.family == "zamba2":
+        full = torch.nn.functional.pad(seq, (0, mamba2.CHUNK - seq.shape[1]))
+    kw = {"frames": batch["frames"].to(cuda)} if "frames" in batch else {}
+    with torch.no_grad():
+        h, _ = fam.forward(cfg, params, full, **kw)
+        want = fam.logits(cfg, params, h[:, 16:20])
+    for i in range(4):
+        assert_close(got[i], want[:, i])

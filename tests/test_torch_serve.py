@@ -9,11 +9,19 @@ virtual-clock report, and the serve smoke CLI.
 The smoke qwen3-1.7b (qk-norm, GQA 4/2) and qwen1.5-0.5b (qkv bias, MHA)
 run from the same weights in both packages: ``repro``'s seeded init
 perturbed as ``tests/test_serve.py`` does (so greedy streams vary), carried
-across with ``convert``.  The mesh case of ``tests/test_serve.py`` has no
-counterpart: the port serves on one device, and a mesh raises.
+across with ``convert``.  The smoke qwen3-moe-235b-a22b (4 experts, top-2,
+capacity factor 1.25) runs the same step-builder, greedy and engine
+checks, with rows dropped in its bucket prefills; its slot decode
+dispatches each slot alone, as ``repro``'s vmap of a batch-1 forward does
+(a bucketed engine's MoE tokens need not equal ``greedy_generate``'s:
+which rows an expert drops depends on the tokens dispatched with them).
+The mesh case of ``tests/test_serve.py`` has no counterpart: the port
+serves on one device, and a mesh raises.
 
 Tolerances (f32): logits and caches within 1e-5 * max(1, max |ref|) (the
-same function with the sums in another order); a batched call against
+same function with the sums in another order; the MoE's within 1e-4, as
+its expert FFN amplifies rounding on the perturbed weights: each package
+lies up to 8e-6 of scale from an f64 run); a batched call against
 batch-1 calls within 1e-4 * max(1, max |ref|) (GEMMs of another row count
 take other BLAS kernels, and the perturbed weights amplify their rounding
 through the layers); tokens, routing, cells and the virtual-clock report
@@ -40,9 +48,10 @@ from repro.models.registry import get_family as jax_get_family
 from repro.runtime import serve as jsv
 from repro import serve as jserve
 from repro_torch.configs import ARCH_IDS, get_config, smoke_config
-from repro_torch.convert import params_from_repro
+from repro_torch.convert import flatten_tree, params_from_repro
 from repro_torch.core.machine import H100, TPU_V5E
 from repro_torch.models import layers as ll
+from repro_torch.models import moe
 from repro_torch.models import transformer as tf
 from repro_torch.models.module import init_params
 from repro_torch.models.registry import init_cache_slots
@@ -57,7 +66,9 @@ from repro_torch.serve import (
 ROOT = Path(__file__).resolve().parents[1]
 TOL = 1e-5
 TOL_SHAPES = 1e-4  # a batched call against batch-1 calls
+TOL_MOE = 1e-4  # the MoE's step builders against repro's
 ARCHS = ("qwen3-1.7b", "qwen1.5-0.5b")
+MOE = "qwen3-moe-235b-a22b"
 # The engine parity run: ragged lengths that straddle both seq rungs and
 # both batch rungs (as tests/test_serve.py's bit-identity case).
 LADDER, MAX_SEQ = [(2, 8), (4, 24)], 32
@@ -100,6 +111,22 @@ def model(request):
 
 
 @pytest.fixture(scope="module")
+def moe_model():
+    return _model(MOE)
+
+
+@pytest.fixture(scope="module", params=ARCHS + (MOE,))
+def slot_model(request):
+    """The dense models, and the MoE with its router zeroed: every
+    token's expert probabilities tie, so every slot picks experts 0 and 1
+    (ties go to the lower index) and the slots collide in one dispatch."""
+    m = _model(request.param)
+    if request.param == MOE:
+        m.params["layers/moe/router"].zero_()
+    return m
+
+
+@pytest.fixture(scope="module")
 def qwen3():
     """The config ``tests/test_serve.py`` runs, for the cases it has once."""
     return _model("qwen3-1.7b")
@@ -137,6 +164,31 @@ def repro_engine_run(model):
     report, reqs = _drive(engine, _prompts(model.cfg.vocab))
     assert all(r.state == jserve.DONE for r in reqs)
     return report, [list(r.tokens) for r in reqs]
+
+
+@pytest.fixture(scope="module")
+def moe_engine_runs(moe_model):
+    """repro's engine and the port's on the smoke MoE (capacity factor
+    1.25): their load reports, their tokens for the ragged prompts, and
+    the rows the port's dispatches dropped."""
+    engine = jserve.Engine(moe_model.jcfg, moe_model.jparams,
+                           jserve.BucketLadder(LADDER, max_seq=MAX_SEQ, machine=JAX_TPU_V5E),
+                           machine=JAX_TPU_V5E, clock=jserve.VirtualClock(), queue_depth=32)
+    engine.warmup(policy="off")
+    want = _drive(engine, _prompts(moe_model.cfg.vocab))
+    dropped, route = [], moe._route
+
+    def spy(*args):
+        out = route(*args)
+        dropped.append(int((~out[1]).sum()))
+        return out
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(moe, "_route", spy)
+        engine = _boot(moe_model.cfg, moe_model.params, LADDER, MAX_SEQ, machine=TPU_V5E,
+                       clock=VirtualClock())
+        got = _drive(engine, _prompts(moe_model.cfg.vocab))
+    return want, got, dropped
 
 
 @pytest.fixture(scope="module")
@@ -274,6 +326,20 @@ class TestInitCacheSlots:
             assert leaf.shape[1] == 3  # slots on axis 1 of every leaf
             assert tuple(leaf.shape) == want[name].shape and not leaf.any()
 
+    @pytest.mark.parametrize("arch", [MOE, "rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium"])
+    def test_every_family_slot_axis_contract(self, arch):
+        """Every token family's cache: repro's leaves (flattened), zeros,
+        the slot on axis 1."""
+        cache = init_cache_slots(smoke_config(arch), n_slots=3, max_seq=16,
+                                 dtype=torch.float32, device="cpu")
+        jcfg = jax_smoke_config(arch)
+        want = flatten_tree(jax_get_family(jcfg.family).init_cache(jcfg, 3, 16, jnp.float32))
+        assert set(cache) == set(want)
+        for name, leaf in cache.items():
+            assert leaf.shape[1] == 3 and not leaf.any()
+            assert tuple(leaf.shape) == want[name].shape and leaf.dtype == torch.float32 or (
+                name in ("wkv", "mamba/ssd"))
+
     def test_family_without_cache_raises(self):
         with pytest.raises(ValueError, match="cnn"):
             init_cache_slots(smoke_config("cnn-vgg11"), n_slots=2, max_seq=16,
@@ -289,29 +355,33 @@ def _np_cache(cache):
     return {k: np.asarray(v) for k, v in cache.items()}
 
 
-def test_prefill_and_decode_match_repro(model):
+def _prefill_and_decode_match(model, tol=TOL):
     rng = np.random.default_rng(11)
     tok = rng.integers(0, model.cfg.vocab, (2, 7)).astype(np.int32)
     jcache, jlogits = jsv.make_prefill_step(model.jcfg, 16, "float32", "float32")(
         model.jparams, {"tokens": jnp.asarray(tok)})
     cache, logits = sv.make_prefill_step(model.cfg, 16, "float32", "float32")(
         model.params, {"tokens": torch.from_numpy(tok)})
-    assert_close(logits, jlogits)
+    assert_close(logits, jlogits, tol)
     for k, v in _np_cache(jcache).items():
-        assert_close(cache[k], v)
+        assert_close(cache[k], v, tol)
     jdec, dec = jsv.make_decode_step(model.jcfg, "float32"), sv.make_decode_step(
         model.cfg, "float32")
     nxt = np.argmax(np.asarray(jlogits)[:, -1], -1).astype(np.int32)[:, None]
     for pos in (7, 8):
         jcache, jlogits = jdec(model.jparams, jcache, jnp.asarray(nxt), pos)
         cache, logits = dec(model.params, cache, torch.from_numpy(nxt), pos)
-        assert_close(logits, jlogits)
+        assert_close(logits, jlogits, tol)
         for k, v in _np_cache(jcache).items():
-            assert_close(cache[k], v)
+            assert_close(cache[k], v, tol)
         nxt = np.argmax(np.asarray(jlogits)[:, -1], -1).astype(np.int32)[:, None]
 
 
-def test_bucket_prefill_and_slot_decode_match_repro(model):
+def test_prefill_and_decode_match_repro(model):
+    _prefill_and_decode_match(model)
+
+
+def _bucket_prefill_and_slot_decode_match(model, tol=TOL):
     rng = np.random.default_rng(12)
     lens = np.array([5, 12, 1], np.int32)
     tok = np.zeros((3, 12), np.int32)
@@ -322,29 +392,52 @@ def test_bucket_prefill_and_slot_decode_match_repro(model):
     cache, logits = sv.make_bucket_prefill_step(model.cfg, 20)(
         model.params, torch.from_numpy(tok), torch.from_numpy(lens))
     assert logits.shape == (3, model.cfg.vocab)
-    assert_close(logits, jlogits)
+    assert_close(logits, jlogits, tol)
     for k, v in _np_cache(jcache).items():
-        assert_close(cache[k], v)
+        assert_close(cache[k], v, tol)
     jdec, dec = jsv.make_slot_decode_step(model.jcfg), sv.make_slot_decode_step(model.cfg)
     pos = lens.copy()
     nxt = np.argmax(np.asarray(jlogits), -1).astype(np.int32)
     for _ in range(3):  # each slot at its own position
         jcache, jlogits = jdec(model.jparams, jcache, jnp.asarray(nxt), jnp.asarray(pos))
         cache, logits = dec(model.params, cache, torch.from_numpy(nxt), torch.from_numpy(pos))
-        assert_close(logits, jlogits)
+        assert_close(logits, jlogits, tol)
         for k, v in _np_cache(jcache).items():
-            assert_close(cache[k], v)
+            assert_close(cache[k], v, tol)
         nxt = np.argmax(np.asarray(jlogits), -1).astype(np.int32)
         pos += 1
 
 
-def test_greedy_generate_equals_repro(model):
+def test_bucket_prefill_and_slot_decode_match_repro(model):
+    _bucket_prefill_and_slot_decode_match(model)
+
+
+def test_moe_step_builders_match_repro(moe_model):
+    """The MoE through the four step builders: the whole-batch prefill and
+    decode dispatch every row together, the slot decode each slot alone
+    (repro's vmap), the bucket prefill every padded token together.  At
+    TOL_MOE: on the perturbed weights the expert FFN amplifies f32
+    rounding, and both packages' caches lie up to 8e-6 of scale from an
+    f64 run of the same prefill."""
+    _prefill_and_decode_match(moe_model, TOL_MOE)
+    _bucket_prefill_and_slot_decode_match(moe_model, TOL_MOE)
+
+
+def _greedy_generate_equal(model):
     prompt = _prompts(model.cfg.vocab, lens=[9], seed=13)[0][None, :]
     want = np.asarray(jsv.greedy_generate(model.jcfg, model.jparams, jnp.asarray(prompt),
                                           steps=GEN, max_seq=MAX_SEQ))
     got = sv.greedy_generate(model.cfg, model.params, torch.from_numpy(prompt), steps=GEN,
                              max_seq=MAX_SEQ)
     assert got.dtype == torch.int32 and np.array_equal(got.numpy(), want)
+
+
+def test_greedy_generate_equals_repro(model):
+    _greedy_generate_equal(model)
+
+
+def test_moe_greedy_generate_equals_repro(moe_model):
+    _greedy_generate_equal(moe_model)
 
 
 def test_cache_write_clamps_like_dynamic_update_slice(qwen3):
@@ -428,6 +521,18 @@ def test_virtual_clock_load_report_equals_repro_on_tpu_v5e(repro_engine_run,
     assert got.completed == LOAD.n_requests
 
 
+def test_moe_engine_tokens_equal_repro_engine(moe_engine_runs):
+    """At capacity factor 1.25, where the bucket prefills drop rows, the
+    port's engine gives repro's tokens and its virtual-clock report."""
+    (jreport, jreqs), (report, reqs), dropped = moe_engine_runs
+    assert all(r.state == DONE for r in reqs) and all(r.state == jserve.DONE for r in jreqs)
+    got, want = [list(r.tokens) for r in reqs], [list(r.tokens) for r in jreqs]
+    assert got == want
+    assert len({tuple(t) for t in got}) > 1
+    assert sum(dropped) > 0
+    assert dataclasses.asdict(report) == dataclasses.asdict(jreport)
+
+
 class TestBitIdentity:
     def test_bucketed_engine_matches_greedy_generate(self, model, port_engine_run):
         for p, toks in zip(_prompts(model.cfg.vocab), port_engine_run[1]):
@@ -451,9 +556,13 @@ class TestBitIdentity:
                                      steps=r.max_new_tokens, max_seq=24)[0]
             assert r.tokens == ref.tolist()
 
-    def test_batched_slot_decode_equals_batch1_per_slot(self, model):
+    def test_batched_slot_decode_equals_batch1_per_slot(self, slot_model):
         """One batched decode at a position per slot gives each slot the
-        logits, tokens and cache row of a batch-1 call at its position."""
+        logits, tokens and cache row of a batch-1 call at its position.
+        For the MoE (router zeroed: every slot picks experts 0 and 1) this
+        holds because each slot dispatches alone; one dispatch over the
+        slots would drop the third slot's rows (cap 2), and does here."""
+        model = slot_model
         n_slots, max_seq = 3, 24
         pre = sv.make_bucket_prefill_step(model.cfg, max_seq)
         dec = sv.make_slot_decode_step(model.cfg)
@@ -464,8 +573,16 @@ class TestBitIdentity:
         cache, logits = pre(model.params, torch.from_numpy(tok), torch.from_numpy(lens))
         rows = [{k: v[:, i:i + 1].clone() for k, v in cache.items()} for i in range(n_slots)]
         nxt, pos = torch.argmax(logits, -1), torch.from_numpy(lens)
-        for _ in range(4):
+        if model.cfg.family == "moe":
+            with torch.no_grad():
+                h, _ = moe.forward(model.cfg, model.params, nxt[:, None].to(torch.int32),
+                                   pos0=pos, cache={k: v.clone() for k, v in cache.items()})
+                coupled = moe.logits(model.cfg, model.params, h)[:, 0]
+        for step in range(4):
             cache, logits = dec(model.params, cache, nxt, pos)
+            if step == 0 and model.cfg.family == "moe":
+                assert_close(coupled[:2], logits[:2].numpy())
+                assert not torch.allclose(coupled[2], logits[2])
             for i in range(n_slots):
                 rows[i], li = dec(model.params, rows[i], nxt[i:i + 1], pos[i:i + 1])
                 assert torch.argmax(li, -1).item() == torch.argmax(logits[i]).item()

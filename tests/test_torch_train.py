@@ -64,7 +64,7 @@ def test_image_source_is_bit_identical(step, shard):
 def test_family_registry():
     assert get_family("cnn") is cnn
     with pytest.raises(ValueError, match="unknown model family"):
-        get_family("rwkv6")
+        get_family("mamba3")
 
 
 @pytest.mark.parametrize("step", [0, 1, 7, 50, 99, 100, 5000, 20000])
