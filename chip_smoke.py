@@ -203,6 +203,29 @@ what it held):
                forward against a longer one beside it;
                decode ms a step and peak memory.
 
+The eleventh slice (last):
+
+17. paper    — the paper's analysis on the card.  One line of the paper's
+               quoted numbers through the port's closed forms (Alg 1's CCR
+               8.9, Delta_O 24/12, Alg 3's 541.4/540.6 as quoted beside Eq.
+               10's 460.8/400.7, D_O <= 768/384, Alg 4/5's CCRs), each within
+               0.05 of print.  Then ``conv_layer`` under alg1, alg2, alg3
+               and strip at the running example (W_I 32, D_I = D_O = 128,
+               F 3) at batch 1 and 256 and at every cnn-vgg11 conv at 256,
+               and ``fc_layer`` at the paper's fc6 (B 32, 7 x 7 x 512 ->
+               4096) and cnn-vgg11's fc1 and fc2 at 256: each output
+               against its plain version (TF32 off) within TOL x scale, the
+               blocks launched against the planned H100 schedule, launches
+               counted on path ``paper`` (conv2d and matmul must both
+               launch there), event ms and profiled device ms beside the
+               schedule's modeled words, its H100 bound kind and roofline
+               bound, and the Manticore closed form of the same layer
+               (``conv_layer.traffic`` / ``fc_layer.traffic``: MACs,
+               words, CCR, off-chip CCR, bound kind).  Alg 3 runs Alg 2's
+               schedule on one device (checked); fc6's schedule words must
+               equal Eqs. 12-13 at its block_n; a planner rejection is
+               reported as one.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -290,6 +313,16 @@ FAMILY_BATCH, FAMILY_PROMPT, FAMILY_DECODE = 2, 256, 16
 # forward against a longer one): 38 layers on the perturbed weights put
 # that spread itself at 1.02e-4 of scale on the card.
 SPREAD_GATE = 2.0
+# The eleventh slice.  Phase paper: the direct conv under the paper's
+# strategies and the FC layer, each measured beside the closed forms of
+# core/ccr.py.  The running example (Sec. 2) at batch 1 (the paper's layer)
+# and PAPER_BATCH, then every cnn-vgg11 conv at BATCH; the paper's FC
+# (VGG fc6, Sec. 3; benchmarks/run.py quotes it) and cnn-vgg11's fc1 and fc2.
+PAPER_STRATEGIES = ("alg1", "alg2", "alg3", "strip")
+PAPER_EXAMPLE = dict(W_I=32, D_I=128, D_O=128, F=3, S=1, P=1)
+PAPER_BATCHES = (1, 256)
+PAPER_FC = dict(W_I=7, D_I=512, D_O=4096, B=32)
+PAPER_REPS = 10
 
 
 def tfm_chunks() -> int:
@@ -2809,6 +2842,266 @@ def family_config(arch: str):
     return get_config(arch)
 
 
+def paper_conv_cases(cnn, cfg):
+    """(label, batch, ConvShape fields) of phase paper's conv cases."""
+    out = [(f"example_b{b}", b, dict(PAPER_EXAMPLE)) for b in PAPER_BATCHES]
+    for name, x_shape, w_shape in cnn._stage_geometry(cfg, BATCH):
+        if name.startswith("conv"):
+            out.append((name, BATCH, dict(W_I=x_shape[1], D_I=w_shape[2], D_O=w_shape[3],
+                                          F=w_shape[0], S=1, P=w_shape[0] // 2)))
+    return out
+
+
+def paper_fc_cases(cnn, cfg):
+    """(label, FCShape fields) of phase paper's FC cases: the paper's fc6,
+    then cnn-vgg11's fc1 (its input the last conv stage's pooled plane)
+    and fc2."""
+    out = [("fc6", dict(PAPER_FC))]
+    stages = list(cnn._stage_geometry(cfg, BATCH))
+    _, last_x, last_w = [st for st in stages if st[0].startswith("conv")][-1]
+    plane = last_x[1] // 2
+    for name, x_shape, w_shape in stages:
+        if name == "fc1":
+            out.append((name, dict(W_I=plane, D_I=last_w[3], D_O=w_shape[1], B=x_shape[0])))
+        elif name == "fc2":
+            out.append((name, dict(W_I=1, D_I=w_shape[0], D_O=w_shape[1], B=x_shape[0])))
+    return out
+
+
+def paper_x_shape(d: dict, batch: int) -> tuple:
+    hw = (d["W_I"], d["W_I"], d["D_I"])
+    return hw if batch == 1 else (batch, *hw)
+
+
+def paper_plan(cl, x_shape, f_shape, strategy: str, padding: int):
+    """(the H100 schedule conv_layer runs under ``strategy``, None) or
+    (None, the planner's rejection): the one error this phase reports
+    instead of failing."""
+    from repro_torch.plan.planners import PlanRejected
+
+    try:
+        return cl.plan(x_shape, f_shape, stride=1, padding=padding, strategy=strategy,
+                       autotune="off"), None
+    except PlanRejected as e:
+        return None, str(e)
+
+
+def paper_quotes(ccr, MANTICORE) -> dict:
+    """The paper's quoted numbers through the port's closed forms (Secs.
+    2.1.4, 2.2.2, 2.2.4, 2.3.2, 2.3.4, 3.1.2, 3.1.4, 3.2.4), each beside the
+    number the paper prints."""
+    s, fc = ccr.ConvShape(**PAPER_EXAMPLE), ccr.FCShape(**PAPER_FC)
+    fc_at = lambda d_o: ccr.FCShape(W_I=7, D_I=512, D_O=d_o, B=32)
+    got = {
+        "alg1_ccr": (ccr.alg1_traffic(s).ccr, 8.9),
+        "alg1_spflop_per_B": (ccr.alg1_traffic(s).flops_per_byte("sp"), 4.4),
+        "alg2_delta_o_sp": (ccr.alg2_max_stack(s, MANTICORE, "sp"), 24),
+        "alg2_delta_o_dp": (ccr.alg2_max_stack(s, MANTICORE, "dp"), 12),
+        "alg2_ccr_sp": (ccr.alg2_traffic(s, 24).ccr, 141.8),
+        "alg2_ccr_dp": (ccr.alg2_traffic(s, 12).ccr, 87.8),
+        "alg3_delta_o_sp": (ccr.alg3_max_stack(s, MANTICORE, "sp"), 23),
+        "alg3_delta_o_dp": (ccr.alg3_max_stack(s, MANTICORE, "dp"), 11),
+        "alg3_ccr_offchip_as_quoted_sp": (ccr.alg3_ccr_offchip_as_quoted(s, 23), 541.4),
+        "alg3_ccr_offchip_as_quoted_dp": (ccr.alg3_ccr_offchip_as_quoted(s, 11), 540.6),
+        "alg3_ccr_offchip_eq10_sp": (ccr.alg3_traffic(s, 23).ccr_offchip, 460.8),
+        "alg3_ccr_offchip_eq10_dp": (ccr.alg3_traffic(s, 11).ccr_offchip, 400.7),
+        "alg45_max_d_o_sp": (ccr.alg45_max_stack(fc, MANTICORE, "sp"), 768),
+        "alg45_max_d_o_dp": (ccr.alg45_max_stack(fc, MANTICORE, "dp"), 384),
+        "alg4_ccr_sp": (ccr.alg4_ccr(fc_at(768)), 30.7),
+        "alg4_ccr_dp": (ccr.alg4_ccr(fc_at(384)), 29.5),
+        "alg5_ccr_sp": (ccr.alg5_ccr(fc, 768), 30.6),
+        "alg5_ccr_dp": (ccr.alg5_ccr(fc, 384), 29.5),
+    }
+    return {k: {"port": v, "paper": q} for k, (v, q) in got.items()}
+
+
+# The main kernel of each launch of the conv and matmul wrappers (a split
+# matmul adds its slab sum, which the device time includes).
+LAUNCH_MARKERS = ("conv_reg_kernel", "conv_simple_kernel", "mm_reg_kernel",
+                  "mm_simple_kernel")
+
+
+def paper_device_ms(torch, fn, launches: int, reps: int = 5):
+    """(device ms per call, calls the profile captured) of ``fn``, which
+    makes ``launches`` kernel launches a call: the device time of every
+    kernel in the profile over the calls whose launches it holds.  A long
+    process's profile can lose whole calls' events (after the earlier
+    phases, one case's profile held none and the others' device times
+    read 0.58 of a fresh process's), so the calls are counted from the
+    launches seen, not assumed; (None, 0) when it holds none."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    fn()
+    torch.cuda.synchronize()
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    rows = device_kernels(torch, prof)
+    calls = sum(c for _, k, c in rows if any(m in k for m in LAUNCH_MARKERS)) / launches
+    if not calls:
+        return None, 0
+    return sum(ms for ms, _, _ in rows) / calls, calls
+
+
+def manticore_record(ccr, t, machine) -> dict:
+    return dict(macs=t.macs, words=t.main_words, intercluster=t.intercluster, ccr=t.ccr,
+                ccr_offchip=t.ccr_offchip, bound_kind=ccr.bound_kind(t, machine, "sp"))
+
+
+def phase_paper(torch, kernels, results, card):
+    """The direct conv under Algs 1-3 and the strip, and the FC layer
+    (Algs 4-5), through ``conv_layer`` / ``fc_layer`` on their planned H100
+    schedules: each case's output against its plain version (TF32 off)
+    within TOL x scale, its launches (path ``paper``: counts zeroed just
+    before the one driven call of each case, read just after) and the
+    blocks launched against the plan; event ms (median) and profiled
+    device ms (per captured call) beside the schedule's modeled words, H100 bound kind and
+    roofline bound; and the paper's closed form on Manticore for the same
+    layer (one image; the FC with its batch).  Alg 3 runs Alg 2's kernel on
+    one device (its ring needs a mesh): the two schedules must be equal.
+    A planner rejection is reported as one; any other error fails."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import ccr
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.core import fc_layer as fl
+    from repro_torch.core.machine import H100, MANTICORE
+    from repro_torch.kernels.conv2d.ref import conv2d_ref
+    from repro_torch.models import cnn
+    from repro_torch.plan import to_roofline
+
+    t_phase = time.perf_counter()
+    cfg = get_config("cnn-vgg11")
+    quotes = paper_quotes(ccr, MANTICORE)
+    emit(phase="paper", what="quoted", quotes=quotes, card=card)
+    for key, q in quotes.items():
+        check(abs(q["port"] - q["paper"]) <= 0.05, f"paper quote {key}: {q}")
+    path = {name: 0 for name in kernels}
+    g = torch.Generator(device="cuda").manual_seed(SEED + 20)
+
+    def drive(fn, expected_blocks):
+        """One counted call, its launched blocks held against the plan:
+        (output, launches by kernel)."""
+        seen = set()
+        zero_counts(kernels)
+        with spy_blocks(kernels, seen):
+            out = fn()
+        torch.cuda.synchronize()
+        launches = {name: k.launches for name, k in kernels.items()}
+        for name, n in launches.items():
+            path[name] += n
+        check(seen == expected_blocks, f"paper: launched {seen}, planned {expected_blocks}")
+        return out, {k: n for k, n in launches.items() if n}
+
+    def timed(fn, plain_fn, s, err, want, launches):
+        check(err <= TOL * scale(want), f"paper: err {err} > {TOL} x {scale(want)}")
+        with torch.no_grad():
+            ms = median_ms(fn, reps=PAPER_REPS)
+            dev, calls = paper_device_ms(torch, fn, sum(launches.values()))
+            plain_ms = median_ms(plain_fn, reps=PAPER_REPS)
+        rf = to_roofline(s, machine=H100)
+        b_ms = rf.t_bound * 1e3
+        return dict(max_abs_err=err, scale=scale(want), ms=ms,
+                    device_ms=dev if dev is not None else "not measured",
+                    profiled_calls=calls, plain_ms=plain_ms,
+                    schedule=dict(algorithm=s.algorithm,
+                                                     blocks=s.block_dict(), grid=list(s.grid),
+                                                     smem_bytes=s.vmem_bytes),
+                    modeled_words=s.modeled_words, macs=s.macs,
+                    arithmetic_intensity=s.arithmetic_intensity("sp"),
+                    h100_bound_kind=s.bound_kind(H100, "sp"), roofline_bound_ms=b_ms,
+                    roofline_bottleneck=rf.bottleneck, bound_share=b_ms / ms,
+                    device_bound_share=b_ms / dev if dev is not None else "not measured")
+
+    n_conv = 0
+    for label, batch, d in paper_conv_cases(cnn, cfg):
+        shape = ccr.ConvShape(**d)
+        x_shape = paper_x_shape(d, batch)
+        x = torch.randn(x_shape, device="cuda", generator=g)
+        f = torch.randn((d["F"], d["F"], d["D_I"], d["D_O"]), device="cuda",
+                        generator=g) / (d["F"] ** 2 * d["D_I"]) ** 0.5
+        with torch.no_grad():
+            want = conv2d_ref(x, f, stride=1, padding=d["P"])
+        H_O = shape.W_O
+        plans = {}
+        for strategy in PAPER_STRATEGIES:
+            rec = dict(phase="paper", kernel_path="conv_layer", case=label, batch=batch,
+                       strategy=strategy, shape=d,
+                       manticore=manticore_record(ccr, cl.traffic(shape, strategy), MANTICORE),
+                       card=card)
+            s, rejected = paper_plan(cl, x_shape, tuple(f.shape), strategy, d["P"])
+            if rejected is not None:
+                emit(**rec, rejected_by_planner=rejected)
+                continue
+            plans[strategy] = s
+            b = s.block_dict()
+            if s.algorithm == "im2col":
+                blocks = {("matmul", (b["block_m"], b["block_n"], b["block_k"]))}
+            else:
+                blocks = {("conv2d", (min(b["block_h"], H_O), b["block_do"], b["block_di"]))}
+            run = lambda: cl.conv_layer(x, f, 1, d["P"], strategy)
+            with torch.no_grad():
+                got, launches = drive(run, blocks)
+            err = max_err(got, want)
+            for name in launches:
+                results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+            rec.update(launches=launches, **timed(
+                run, lambda: conv2d_ref(x, f, stride=1, padding=d["P"]), s, err, want,
+                launches))
+            if strategy == "alg1":
+                check(b["block_do"] == H100.lane, f"paper {label}: alg1 block_do {b}")
+            if strategy == "alg3":
+                same = plans.get("alg2") == s
+                check(same, f"paper {label}: alg3 schedule differs from alg2's")
+                rec["same_schedule_as_alg2"] = same
+            emit(**rec)
+            n_conv += 1
+        del x, f, want
+
+    n_fc = 0
+    for label, d in paper_fc_cases(cnn, cfg):
+        shape = ccr.FCShape(**d)
+        m, k, n = d["B"], d["W_I"] ** 2 * d["D_I"], d["D_O"]
+        x = torch.randn(m, k, device="cuda", generator=g)
+        w = torch.randn(k, n, device="cuda", generator=g) / k ** 0.5
+        with torch.no_grad():
+            want = torch.matmul(x, w)
+        s = fl.plan((m, k), (k, n), autotune="off")
+        check(s.fits(H100), f"paper {label}: fc schedule does not fit")
+        bm, bn, bk = s.block("block_m"), s.block("block_n"), s.block("block_k")
+        run = lambda: fl.fc_layer(x, w)
+        with torch.no_grad():
+            got, launches = drive(run, {("matmul", (bm, bn, bk))})
+        err = max_err(got, want)
+        results["matmul"]["max_abs_err"] = max(results["matmul"]["max_abs_err"], err)
+        rec = dict(phase="paper", kernel_path="fc_layer", case=label, shape=d, m=m, k=k, n=n,
+                   launches=launches,
+                   **timed(run, lambda: torch.matmul(x, w), s, err, want, launches),
+                   manticore={alg: manticore_record(ccr, fl.traffic(shape, alg), MANTICORE)
+                              for alg in ("alg4", "alg5")},
+                   eq11_alg4_ccr=ccr.alg4_ccr(shape),
+                   eq14_alg5_ccr=ccr.alg5_ccr(
+                       shape, max(1, min(ccr.alg45_max_stack(shape, MANTICORE, "sp"), n))),
+                   card=card)
+        # With one m-block over the whole batch (and no padding) the
+        # blocked matmul's words are Alg 5's Eqs. (12)-(13) at stack block_n.
+        covers = bm == m and n % bn == 0 and k % bk == 0
+        rec["block_m_covers_batch"] = bm >= m
+        if covers:
+            eq = ccr.alg5_traffic(shape, bn)
+            check((s.loads, s.stores) == (eq.main_loads, eq.main_stores),
+                  f"paper {label}: schedule words {s.loads}+{s.stores} != Eqs. 12-13 "
+                  f"{eq.main_loads}+{eq.main_stores}")
+            rec["eq12_13_words_at_block_n"] = eq.main_words
+        emit(**rec)
+        n_fc += 1
+        del x, w, want
+    for name in kernels:
+        results[name]["launches_by_path"]["paper"] = path[name]
+    emit(phase="paper", conv_lines=n_conv, fc_lines=n_fc, launches=path,
+         seconds=time.perf_counter() - t_phase, card=card)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -2898,6 +3191,10 @@ def main() -> int:
         check(results[name]["launches_by_path"]["moe_serve_warmup"] > 0,
               f"{name}: no launch on the moe_serve_warmup path")
     phase_families(torch, card)
+    phase_paper(torch, kernels, results, card)
+    for name in ("conv2d", "matmul"):
+        check(results[name]["launches_by_path"]["paper"] > 0,
+              f"{name}: no launch on the paper path")
 
     def step_sums(calls):
         total = {key: sum(c[key] * c["per_step"] for c in calls)

@@ -7,7 +7,9 @@
               item) on the H100;
   * "alg2"  - Delta_O output stacking at the full-plane strip;
   * "strip" - Alg 2 + spatial strip tiling: the planner trades strip height
-              against Delta_O (and, unpinned, direct against im2col).
+              against Delta_O (and, unpinned, direct against im2col);
+  * "alg3"  - Alg 2's blocking; its ring reuse of input slices across
+              devices needs a mesh, so on one device it runs Alg 2's kernel.
 An explicit :class:`repro_torch.plan.Schedule` (``schedule=``) overrides the
 planner.  :func:`conv_block` fuses bias + ReLU + optional max-pool into the
 kernel's flush.
@@ -20,7 +22,8 @@ kernel for dF, each scheduled by its own planner — pin them with
 epilogue mask and scatters dY through it (no recompute conv); where the
 forward cannot emit one (im2col schedules, ragged pool tails) the backward
 recomputes the pre-epilogue activation.  dX is skipped when the input
-needs no gradient (a model's images).  A backward schedule that does not
+needs no gradient (a model's images).  :func:`traffic` gives the paper's
+closed-form traffic of each strategy on a machine (Manticore by default).  A backward schedule that does not
 fit its machine raises on the card; on CPU tensors it warns once and runs
 the kernels' plain versions with its blocks.
 """
@@ -31,13 +34,15 @@ import warnings
 
 import torch
 
-from repro_torch.core.machine import H100, machine_named
+from repro_torch.core import ccr
+from repro_torch.core.machine import H100, MANTICORE, machine_named
 from repro_torch.kernels.conv2d.bwd import conv2d_dgrad, conv2d_wgrad, epilogue_scatter
 from repro_torch.kernels.conv2d.ops import (
     _fused_pool, _zero_bias, conv2d, conv2d_with_mask, conv_out_extent,
 )
 from repro_torch.kernels.conv2d.ref import maxpool_ref
 from repro_torch.plan import Schedule, ShardedSchedule, get_op, local_schedule
+from repro_torch.plan.planners import PlanRejected
 from repro_torch.plan.registry import with_reference_vjp
 
 # The machine backward schedules are planned (and fit-checked) against.
@@ -78,13 +83,17 @@ def admit_schedule(role: str, sched: Schedule, on_card: bool) -> None:
     warn_unfit_schedule(role, sched, m)
 
 
-def _strategy_blocks(strategy, x, f, stride, padding, machine=H100):
-    """Map a paper strategy onto planner constraints (block_do, block_h)."""
-    block_do = machine.lane if strategy == "alg1" else None  # None -> planner
-    block_h = None
-    if strategy not in ("strip", "alg1"):  # full plane
-        block_h = max(1, conv_out_extent(x.shape[-3], padding, f.shape[0], stride))
+def strategy_pins(strategy: str, H_O: int, machine=H100) -> tuple:
+    """Map a paper strategy onto planner constraints (block_do, block_h):
+    Alg 1 pins the narrowest stack the machine's kernel runs, Algs 2 and 3
+    the full output plane; None leaves a block to the planner."""
+    block_do = machine.lane if strategy == "alg1" else None
+    block_h = None if strategy in ("strip", "alg1") else max(1, H_O)
     return block_do, block_h
+
+
+def _strategy_blocks(strategy, x, f, stride, padding):
+    return strategy_pins(strategy, conv_out_extent(x.shape[-3], padding, f.shape[0], stride))
 
 
 def _planned_conv_backward(x, f, dy, stride, padding, sd, *, needs_dx=True,
@@ -251,9 +260,12 @@ def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
     """Plan this layer without running it: the Schedule the kernel would
     use for operands of these shapes.  ``algorithm`` pins one family of the
     two-level argmin ("direct" / "im2col"); the default lets both compete
-    (the paper strategies "alg1"/"alg2" pin direct-kernel blocks).
-    ``autotune`` ("off" | "cache-only" | "tune", default the process
-    policy) lets a measured winner for this cell override the argmin."""
+    (the paper strategies pin blocks as :func:`strategy_pins` maps them,
+    the same pins the layer's forward plans with).  ``autotune`` ("off" |
+    "cache-only" | "tune", default the process policy) lets a measured
+    winner for this cell override the argmin.  On the H100 a schedule that
+    does not fit one block's shared memory raises ``PlanRejected``: no
+    kernel launches it."""
     from repro_torch.plan import autotune as at
 
     machine = machine or H100
@@ -262,13 +274,20 @@ def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
     F, d_out = f_shape[0], f_shape[3]
     H_O = conv_out_extent(H, padding, F, stride)
     W_O = conv_out_extent(W, padding, F, stride)
-    block_do = machine.lane if strategy == "alg1" else None
-    block_h = H_O if strategy == "alg2" else None
-    return at.resolve("conv2d", dict(
+    block_do, block_h = strategy_pins(strategy, H_O, machine)
+    s = at.resolve("conv2d", dict(
         H_O=H_O, W_O=W_O, F=F, S=stride, d_in=d_in, d_out=d_out,
         in_bytes=in_bytes, pool=_fused_pool(H_O, W_O, pool), batch=B,
         padding=padding, H_I=H, W_I=W, block_do=block_do, block_h=block_h,
         algorithm=algorithm), machine=machine, policy=autotune)
+    if machine.name == H100.name and not s.fits(machine):
+        # The CUDA kernels take only blocks that fit one block's shared
+        # memory (as ``candidates()`` keeps on the H100).
+        raise PlanRejected(
+            f"conv2d: strategy {strategy!r} at {tuple(x_shape)} x {tuple(f_shape)} "
+            f"needs {s.vmem_bytes} B of shared memory, more than the "
+            f"{machine.usable_for_working_set(2)} B one block holds")
+    return s
 
 
 def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
@@ -316,3 +335,26 @@ def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
             d_out=d_out, in_bytes=in_bytes, batch=B, H_I=H, W_I=W,
             pool=pool if fused else None)
     return out
+
+
+# -- the paper's analysis ------------------------------------------------------------
+
+
+def traffic(
+    shape: ccr.ConvShape, strategy: str = "alg2", precision: str = "sp",
+    machine=MANTICORE, h_block: int | None = None,
+) -> ccr.Traffic:
+    """Predicted word traffic of this layer (one image) under the chosen
+    algorithm: the paper's closed forms with the stack its capacity rule
+    allows on ``machine``, whichever card runs the kernel."""
+    if strategy == "alg1":
+        return ccr.alg1_traffic(shape)
+    if strategy == "alg2":
+        return ccr.alg2_traffic(shape, max(1, ccr.alg2_max_stack(shape, machine, precision)))
+    if strategy == "strip":
+        hb = h_block or max(1, shape.W_O // 2)
+        stack = max(1, ccr.alg2_strip_max_stack(shape, machine, precision, hb))
+        return ccr.alg2_strip_traffic(shape, stack, hb)
+    if strategy == "alg3":
+        return ccr.alg3_traffic(shape, max(1, ccr.alg3_max_stack(shape, machine, precision)))
+    raise ValueError(strategy)

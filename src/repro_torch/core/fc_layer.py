@@ -12,13 +12,16 @@ batch of 192, with both accumulators in registers and each k-block's
 n-blocks split over enough thread blocks to fill the card).  Pin them with
 ``bwd_schedules={"dx": ..., "dw": ...}`` (see :func:`plan_bwd`).  An unfit
 pinned schedule raises on the card; on CPU tensors it warns once and runs
-the kernels' plain versions with its blocks.
+the kernels' plain versions with its blocks.  :func:`traffic` gives the
+paper's closed-form traffic of Alg 4 or 5 on a machine (Manticore by
+default).
 """
 
 from __future__ import annotations
 
+from repro_torch.core import ccr
 from repro_torch.core.conv_layer import admit_schedule
-from repro_torch.core.machine import H100
+from repro_torch.core.machine import H100, MANTICORE
 from repro_torch.kernels.matmul.bwd import matmul_dw, matmul_dx, matmul_dx_dw
 from repro_torch.kernels.matmul.ops import fc_matmul
 from repro_torch.plan import Schedule, ShardedSchedule, get_op, local_schedule
@@ -102,3 +105,18 @@ def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> di
     if not dx.fits(machine):
         dx = res("matmul_dx")
     return {"dx": dx, "dw": res("matmul_dw")}
+
+
+def traffic(
+    shape: ccr.FCShape, strategy: str = "alg5", precision: str = "sp",
+    machine=MANTICORE, clusters: int = 128,
+) -> ccr.Traffic:
+    """Predicted word traffic of this layer under Alg 4 or Alg 5 (the
+    stack its capacity rule allows on ``machine``), whichever card runs
+    the kernel."""
+    if strategy == "alg4":
+        return ccr.alg4_traffic(shape, clusters)
+    if strategy == "alg5":
+        stack = max(1, ccr.alg45_max_stack(shape, machine, precision))
+        return ccr.alg5_traffic(shape, min(stack, shape.D_O), clusters)
+    raise ValueError(strategy)

@@ -175,3 +175,15 @@ def machine_named(name: str, default: MachineModel = H100) -> MachineModel:
     """The MachineModel a Schedule's ``machine`` name refers to (``default``
     for a name that is not registered)."""
     return MACHINES.get(name, default)
+
+
+WORD_BYTES = {"sp": 4, "dp": 8, "bf16": 2, "f32": 4, "f64": 8}
+
+
+def word_bytes(precision: str) -> int:
+    """Bytes of one word (one element) at ``precision`` (paper Sec. 1.2.2:
+    4 B single, 8 B double precision)."""
+    try:
+        return WORD_BYTES[precision]
+    except KeyError:
+        raise ValueError(f"unknown precision {precision!r}") from None

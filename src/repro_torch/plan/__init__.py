@@ -8,13 +8,13 @@ from repro_torch.plan.planners import (
 from repro_torch.plan.registry import (
     CudaKernel, CudaOp, cuda_op, get_op, pad_dim, with_reference_vjp,
 )
-from repro_torch.plan.schedule import Schedule
+from repro_torch.plan.schedule import Blocks, Schedule, to_roofline
 from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule
 
 __all__ = [
-    "AttentionPlanner", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
+    "AttentionPlanner", "Blocks", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
     "CudaKernel", "CudaOp", "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner",
     "MatmulPlanner", "MeshSpec", "MoeFfnPlanner", "Schedule", "ShardedSchedule", "TransformerBlockPlanner",
     "cuda_op", "get_op", "local_schedule", "pad_dim", "planner_for", "round_up",
-    "with_reference_vjp",
+    "to_roofline", "with_reference_vjp",
 ]

@@ -16,11 +16,12 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.core.conv_layer import conv_block
+from repro_torch.core.conv_layer import conv_block, conv_layer
 from repro_torch.core.fc_layer import fc_layer, plan_bwd as fc_plan_bwd
 from repro_torch.kernels.conv2d.bwd import (
     conv2d_dgrad, conv2d_wgrad, conv2d_wgrad_kernel,
 )
+from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
 from repro_torch.kernels.conv2d.ops import conv2d, conv2d_with_mask
 from repro_torch.kernels.matmul import fc_matmul, matmul_kernel
 from repro_torch.kernels.matmul.bwd import (
@@ -406,6 +407,21 @@ def test_conv_block_grads_on_card(cuda, pool):
         grads.append(torch.autograd.grad(out, leaves, g.to(dev)))
     for got, want in zip(*grads):
         assert_close(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strategy", ["alg1", "alg2", "alg3", "strip"])
+def test_conv_layer_strategies_at_the_running_example_on_card(cuda, strategy):
+    """conv_layer under each paper strategy at the running example (W_I 32,
+    D_I = D_O = 128, F 3, P 1): one direct conv launch, within TOL of the
+    same layer on the CPU (the kernel's plain version, the same blocks)."""
+    rng = np.random.default_rng(11)
+    x, f = _rand(rng, 32, 32, 128), _rand(rng, 3, 3, 128, 128, scale=1 / 34)
+    before = conv2d_kernel.launches
+    got = conv_layer(x.to(cuda), f.to(cuda), 1, 1, strategy)
+    torch.cuda.synchronize()
+    assert conv2d_kernel.launches == before + 1
+    assert_close(got, conv_layer(x, f, 1, 1, strategy))
 
 
 @pytest.mark.cuda
