@@ -203,6 +203,42 @@ what it held):
                forward against a longer one beside it;
                decode ms a step and peak memory.
 
+The twelfth slice (after ``moe_serve``, once it has freed its weights):
+
+18. dense    — the last dense configs at full width.  The flash kernel in
+               two new cases against its plain version (GQA 64/8 at
+               D = 128, 1 x 2048, qwen3-32b's and chameleon-34b's heads;
+               gemma3-4b's 8/4 heads at D = 256 with its 1024 window over
+               2048), timed beside SDPA where there is no window.  Then
+               three planned training runs, each with its launches against
+               plan_training's (remat included) and the attention cell
+               planned and launched at the config's head dim of 128:
+               qwen3-1.7b through the launcher at full width and depth
+               (28 layers, 4 x 2048, 3 steps, cut to --remat block: at
+               none the activations do not fit), and qwen3-32b and
+               chameleon-34b at full width with the depth cut to 2 layers
+               (1 x 2048, 2 steps through runtime.train.make_train_step,
+               weights drawn on the card as phase moe_serve's, without
+               its noise).  From the seed's weights, step 1 of each (for
+               qwen3-1.7b the launcher's own weights): every distinct
+               kernel call (kernel, shapes, blocks) held against its plain
+               version on its own operands within TOL x scale and timed
+               beside it, one library call and the bound; the loss and
+               every gradient against the independent plain step (its
+               layers checkpointed under remat) within LOSS_TOL and TOL x
+               scale, leaf by leaf; one planned step's event and device
+               ms; peak memory.  Then gemma3-4b at full width and depth
+               (34 layers, 5 local layers of window 1024 to 1 global, D =
+               256, vocab 262144; weights drawn on the card as phase
+               moe_serve's), served as phase serve serves qwen1.5-0.5b on
+               the ladder (4, 256), (2, 1024), (1, 2048) with max_seq 2048
+               and 8 slots, prompts 16-1400 tokens: tune then cache-only
+               boots (path ``dense_serve_warmup``), equal streams, no launch
+               at request time, every tuned winner against its plain
+               version, an 1100-token prompt's 8 cached logits against
+               no-cache forwards (the window masks keys there); prefill and
+               slot-decode times.
+
 The eleventh slice (last):
 
 17. paper    — the paper's analysis on the card.  One line of the paper's
@@ -323,6 +359,26 @@ PAPER_EXAMPLE = dict(W_I=32, D_I=128, D_O=128, F=3, S=1, P=1)
 PAPER_BATCHES = (1, 256)
 PAPER_FC = dict(W_I=7, D_I=512, D_O=4096, B=32)
 PAPER_REPS = 10
+# The twelfth slice.  Phase dense: the last dense configs, at full width.
+# qwen3-1.7b trains through the launcher at full depth (28 layers), its
+# batch x seq as the transformer phase's, cut to --remat block (at remat
+# none its 28 layers keep about 130 GB of activations); qwen3-32b and
+# chameleon-34b take DENSE_CUT_STEPS planned steps at full width with the
+# depth cut to DENSE_CUT_LAYERS (2.53 B and 2.46 B parameters: weights,
+# gradients, AdamW's moments and the update's new copies fill the card),
+# batch 1 x 2048; gemma3-4b is served at full width and depth (34 layers),
+# max_seq cut from 524288 to DENSE_SERVE_MAX_SEQ, with prompts past its
+# 1024-token window.
+DENSE_ARCH, DENSE_REMAT = "qwen3-1.7b", "block"
+DENSE_CUT = ("qwen3-32b", "chameleon-34b")
+DENSE_CUT_LAYERS, DENSE_CUT_BATCH, DENSE_CUT_STEPS = 2, 1, 2
+DENSE_FLASH = [("gqa64/8-d128", 1, 64, 8, 2048, 2048, 128, None),
+               ("gemma3-local", 1, 8, 4, 2048, 2048, 256, 1024)]
+DENSE_SERVE_ARCH = "gemma3-4b"
+DENSE_SERVE_LADDER = [(4, 256), (2, 1024), (1, 2048)]
+DENSE_SERVE_MAX_SEQ = 2048
+DENSE_SERVE_PROMPT = (16, 1400)
+DENSE_CACHE_CHECK = (1100, 8)  # prompt tokens (past the window), new tokens
 
 
 def tfm_chunks() -> int:
@@ -1245,8 +1301,6 @@ def flash_cases(torch, s_attn):
     8/4 heads), a window, ragged lengths and a case with rows that see no
     key; blocks from AttentionPlanner.  Padding rows are zero, as the op
     pads them."""
-    from repro_torch.plan import AttentionPlanner, round_up
-
     g = torch.Generator(device="cuda").manual_seed(SEED + 4)
     B, S, H, D = TFM_BATCH, TFM_SEQ, 16, 64
     # label, B, Hq, Hkv, q_len, kv_len, D, window
@@ -1254,64 +1308,81 @@ def flash_cases(torch, s_attn):
              ("gqa16/8-d32", B, 16, 8, S, S, 32, None), ("gqa8/4-d256", B, 8, 4, S, S, 256, None),
              ("window512", B, H, H, S, S, D, 512), ("ragged1000", 1, 16, 16, 1000, 1000, D, None),
              ("zero-rows", 1, 16, 8, 1000, 500, D, 256)]
-    out = []
-    for label, b, hq, hkv, ql, kl, d, window in specs:
-        s = s_attn if label == "main" else AttentionPlanner().plan(
-            seq_q=ql, seq_kv=kl, head_dim=d, n_q_heads=hq, n_kv_heads=hkv, batch=b,
-            in_bytes=4, causal=True, window=window)
-        bq, bkv = s.block("block_q"), s.block("block_kv")
-        sq, skv = round_up(ql, bq), round_up(kl, bkv)
-        q = torch.zeros(b * hq, sq, d, device="cuda")
-        k = torch.zeros(b * hkv, skv, d, device="cuda")
-        v = torch.zeros(b * hkv, skv, d, device="cuda")
-        q[:, :ql] = torch.randn(b * hq, ql, d, device="cuda", generator=g)
-        k[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
-        v[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
-        kw = dict(block_q=bq, block_kv=bkv, scale=d ** -0.5, causal=True, window=window,
-                  q_len=ql, kv_len=kl)
-        # FLOP the call needs: QK^T and PV over the (q, k) pairs the causal
-        # and window masks admit, each operand read once and the output
-        # written once.
-        flops = 4.0 * b * hq * visible_pairs(ql, kl, window) * d
-        nbytes = 4.0 * d * (2 * b * hq * ql + 2 * b * hkv * kl)
-        out.append((label, (q, k, v), kw, dict(flops=flops, nbytes=nbytes, b=b, hq=hq, hkv=hkv)))
-    return out
+    return [flash_case(torch, g, spec, s_attn if spec[0] == "main" else None)
+            for spec in specs]
+
+
+def flash_case(torch, g, spec, s=None):
+    """(label, (q, k, v), kwargs, meta) of one flash spec (label, B, Hq, Hkv,
+    q_len, kv_len, D, window) at the blocks of ``s``, else AttentionPlanner's."""
+    from repro_torch.plan import AttentionPlanner, round_up
+
+    label, b, hq, hkv, ql, kl, d, window = spec
+    s = s or AttentionPlanner().plan(
+        seq_q=ql, seq_kv=kl, head_dim=d, n_q_heads=hq, n_kv_heads=hkv, batch=b,
+        in_bytes=4, causal=True, window=window)
+    bq, bkv = s.block("block_q"), s.block("block_kv")
+    sq, skv = round_up(ql, bq), round_up(kl, bkv)
+    q = torch.zeros(b * hq, sq, d, device="cuda")
+    k = torch.zeros(b * hkv, skv, d, device="cuda")
+    v = torch.zeros(b * hkv, skv, d, device="cuda")
+    q[:, :ql] = torch.randn(b * hq, ql, d, device="cuda", generator=g)
+    k[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
+    v[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g)
+    kw = dict(block_q=bq, block_kv=bkv, scale=d ** -0.5, causal=True, window=window,
+              q_len=ql, kv_len=kl)
+    # FLOP the call needs: QK^T and PV over the (q, k) pairs the causal
+    # and window masks admit, each operand read once and the output
+    # written once.
+    flops = 4.0 * b * hq * visible_pairs(ql, kl, window) * d
+    nbytes = 4.0 * d * (2 * b * hq * ql + 2 * b * hkv * kl)
+    return label, (q, k, v), kw, dict(flops=flops, nbytes=nbytes, b=b, hq=hq, hkv=hkv)
+
+
+def check_flash_case(torch, case, results, phase: str) -> None:
+    """One flash case against the plain version (rows with no visible key
+    must be 0 in both); prints its record."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    label, (q, k, v), kw, _ = case
+    got = flash_attention_kernel(q, k, v, **kw)
+    want = flash_attention_kernel.plain(q, k, v, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, want)
+    check(err <= TOL * scale(want), f"flash_attention {label}: err {err}")
+    none = no_key_rows(torch, kw["q_len"], kw["kv_len"], kw["causal"], kw["window"])
+    n_zero = int(none.sum()) * q.shape[0]
+    if n_zero:
+        rows = torch.nonzero(none)[:, 0]
+        check(float(got[:, rows].abs().max()) == 0.0
+              and float(want[:, rows].abs().max()) == 0.0,
+              f"flash_attention {label}: rows with no visible key are not 0")
+    results["flash_attention"]["max_abs_err"] = max(
+        results["flash_attention"]["max_abs_err"], err)
+    emit(phase=phase, kernel="flash_attention", case=label,
+         shape=[list(t.shape) for t in (q, k, v)],
+         blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
+         causal=kw["causal"], window=kw["window"], q_len=kw["q_len"],
+         kv_len=kw["kv_len"], max_abs_err=err, max_abs_plain=float(want.abs().max()),
+         rows_without_key=n_zero)
 
 
 def phase_flash(torch, s_attn, results):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
 
-    for label, (q, k, v), kw, _ in flash_cases(torch, s_attn):
-        got = flash_attention_kernel(q, k, v, **kw)
-        want = flash_attention_kernel.plain(q, k, v, **kw)
-        torch.cuda.synchronize()
-        err = max_err(got, want)
-        check(err <= TOL * scale(want), f"flash_attention {label}: err {err}")
-        none = no_key_rows(torch, kw["q_len"], kw["kv_len"], kw["causal"], kw["window"])
-        n_zero = int(none.sum()) * q.shape[0]
-        if n_zero:
-            rows = torch.nonzero(none)[:, 0]
-            check(float(got[:, rows].abs().max()) == 0.0
-                  and float(want[:, rows].abs().max()) == 0.0,
-                  f"flash_attention {label}: rows with no visible key are not 0")
-        results["flash_attention"]["max_abs_err"] = max(
-            results["flash_attention"]["max_abs_err"], err)
-        emit(phase="flash", kernel="flash_attention", case=label,
-             shape=[list(t.shape) for t in (q, k, v)],
-             blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
-             causal=kw["causal"], window=kw["window"], q_len=kw["q_len"],
-             kv_len=kw["kv_len"], max_abs_err=err, max_abs_plain=float(want.abs().max()),
-             rows_without_key=n_zero)
+    for case in flash_cases(torch, s_attn):
+        check_flash_case(torch, case, results, "flash")
+        label, (q, k, v), kw, _ = case
         if label == "main":
             check_bit_identical(torch, "flash_attention", "attn",
                                 lambda: flash_attention_kernel(q, k, v, **kw))
 
 
-def tfm_calls(tf, cfg, plans) -> dict:
+def tfm_calls(tf, cfg, plans, batch: int = TFM_BATCH, seq: int = TFM_SEQ) -> dict:
     """Launches of each kernel that one planned transformer training step
-    makes, by call: {(kernel, label): count}."""
+    of ``cfg`` at ``batch`` x ``seq`` makes, by call: {(kernel, label): count}."""
     L = cfg.n_layers
-    n_chunks = TFM_BATCH * TFM_SEQ // tf._chunk_m(TFM_BATCH, TFM_SEQ, tfm_chunks())
+    n_chunks = batch * seq // tf._chunk_m(batch, seq, tfm_chunks())
     calls = {("flash_attention", "attn"): L}
     for cell in TFM_CELLS:
         n = n_chunks if cell == "logits" else L
@@ -1324,17 +1395,25 @@ def tfm_calls(tf, cfg, plans) -> dict:
     return calls
 
 
-def plain_transformer_loss(torch, cfg, params, batch):
+def plain_transformer_loss(torch, cfg, params, batch, *, remat: bool = False):
     """The independent plain step's loss: cuBLAS matmuls (TF32 off), RMSNorm
     and RoPE written out here, the port's attention_ref, chunked
-    cross-entropy with F.cross_entropy; no kernel or layer of the port."""
+    cross-entropy with F.cross_entropy; no kernel or layer of the port.
+    It takes the dense configs' features: qkv biases or qk-norm, GQA
+    (attention_ref repeats the KV heads), the tied or untied head, SiLU or
+    tanh-GELU, the scaled embedding and one window for every layer.  With
+    ``remat`` each layer runs under torch.utils.checkpoint, which keeps
+    only its input and recomputes the same operations backward."""
     import torch.nn.functional as F
+    from torch.utils.checkpoint import checkpoint
 
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
+    check(not cfg.global_every, "the plain step takes one window for every layer")
     tokens, labels = batch["tokens"].long(), batch["labels"].long()
     B, S = tokens.shape
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    act = {"silu": F.silu, "gelu": lambda t: F.gelu(t, approximate="tanh")}[cfg.act]
     layer = {k[len("layers/"):]: v.unbind(0) for k, v in params.items()
              if k.startswith("layers/")}
     half = Dh // 2
@@ -1349,26 +1428,37 @@ def plain_transformer_loss(torch, cfg, params, batch):
         x1, x2 = x[..., :half], x[..., half:]
         return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1)
 
-    x = params["embed"][tokens]
-    for i in range(cfg.n_layers):
-        p = {k: v[i] for k, v in layer.items()}
+    def block(x, p):
         h = norm(x, p["ln1"])
 
-        def proj(w, b, heads):
-            return (torch.matmul(h, w.reshape(d, heads * Dh)).reshape(B, S, heads, Dh) + b)
+        def proj(name, heads):
+            y = torch.matmul(h, p[f"attn/w{name}"].reshape(d, heads * Dh)).reshape(
+                B, S, heads, Dh)
+            return y + p[f"attn/b{name}"] if cfg.qkv_bias else y
 
-        q = rotate(proj(p["attn/wq"], p["attn/bq"], Hq))
-        k = rotate(proj(p["attn/wk"], p["attn/bk"], Hkv))
-        v = proj(p["attn/wv"], p["attn/bv"], Hkv)
-        o = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True)
+        q, k, v = proj("q", Hq), proj("k", Hkv), proj("v", Hkv)
+        if cfg.qk_norm:
+            q, k = norm(q, p["attn/q_norm"]), norm(k, p["attn/k_norm"])
+        q, k = rotate(q), rotate(k)
+        o = attention_ref(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), causal=True,
+                          window=cfg.local_window)
         x = x + torch.matmul(o.transpose(1, 2).reshape(B, S, Hq * Dh),
                              p["attn/wo"].reshape(Hq * Dh, d))
         h = norm(x, p["ln2"])
-        x = x + torch.matmul(F.silu(h @ p["mlp/w_gate"]) * (h @ p["mlp/w_up"]), p["mlp/w_down"])
+        return x + torch.matmul(act(h @ p["mlp/w_gate"]) * (h @ p["mlp/w_up"]),
+                                p["mlp/w_down"])
+
+    x = params["embed"][tokens]
+    if cfg.scale_embed:
+        x = x * math.sqrt(d)
+    for i in range(cfg.n_layers):
+        p = {k: v[i] for k, v in layer.items()}
+        x = checkpoint(block, x, p, use_reentrant=False) if remat else block(x, p)
     x = norm(x, params["final_norm"]).reshape(B * S, d)
+    head = params["embed"].t() if cfg.tie_embeddings else params["w_out"]
     total = 0.0
     for xc, lc in zip(x.chunk(tfm_chunks()), labels.reshape(-1).chunk(tfm_chunks())):
-        total = total + F.cross_entropy(xc @ params["embed"].t(), lc, reduction="sum")
+        total = total + F.cross_entropy(xc @ head, lc, reduction="sum")
     return total / labels.numel()
 
 
@@ -2156,13 +2246,15 @@ def top2_gap(torch, logits) -> tuple[float, float]:
     return float(top[0] - top[1]), float(logits.abs().max())
 
 
-def serve_boot(torch, cfg, params, policy: str, cache_path: Path, **engine_kw):
-    """An engine on the SERVE_LADDER, warmed under ``policy`` against the
-    winner cache file; returns it, the cell sources and the warmup seconds."""
+def serve_boot(torch, cfg, params, policy: str, cache_path: Path, *, ladder=SERVE_LADDER,
+               max_seq: int = SERVE_MAX_SEQ, **engine_kw):
+    """An engine on ``ladder`` (default SERVE_LADDER), warmed under ``policy``
+    against the winner cache file; returns it, the cell sources and the
+    warmup seconds."""
     from repro_torch.plan import autotune as at
     from repro_torch.serve import BucketLadder, Engine
 
-    engine = Engine(cfg, params, BucketLadder(SERVE_LADDER, max_seq=SERVE_MAX_SEQ),
+    engine = Engine(cfg, params, BucketLadder(ladder, max_seq=max_seq),
                     n_slots=SERVE_SLOTS, **engine_kw)
     t0 = time.perf_counter()
     sources = engine.warmup(policy=policy, cache=at.AutotuneCache(str(cache_path)))
@@ -2197,31 +2289,32 @@ def straddlers(reqs) -> dict:
     return out
 
 
-def cache_vs_no_cache(torch, cfg, params) -> dict:
-    """A SERVE_CACHE_CHECK[0]-token prompt through the engine's step
-    builders at batch 1 (the bucket prefill, then slot decodes): the
-    logits of each of SERVE_CACHE_CHECK[1] new tokens against a no-cache
-    forward over the prompt and the tokens so far, read at the last
-    position.  Beside it, the spread between two no-cache forwards whose
-    sequences differ by one trailing token, read at the same position
-    (the same function at another GEMM shape): what f32 rounding alone
-    gives through the 24 layers."""
+def cache_vs_no_cache(torch, cfg, params, check_shape=SERVE_CACHE_CHECK,
+                      ladder=SERVE_LADDER, max_seq: int = SERVE_MAX_SEQ) -> dict:
+    """A ``check_shape[0]``-token prompt through the engine's step builders
+    at batch 1 (the bucket prefill at the ladder's longest rung, then slot
+    decodes): the logits of each of ``check_shape[1]`` new tokens against
+    a no-cache forward over the prompt and the tokens so far, read at the
+    last position.  Beside it, the spread between two no-cache forwards
+    whose sequences differ by one trailing token, read at the same
+    position (the same function at another GEMM shape): what f32 rounding
+    alone gives through the layers."""
     import numpy as np
 
     from repro_torch.models import transformer as tf
     from repro_torch.runtime import serve as sv
 
+    n_prompt, n_new = check_shape
     prompt = torch.from_numpy(np.random.default_rng(SEED + 8).integers(
-        0, cfg.vocab, SERVE_CACHE_CHECK[0]).astype(np.int32)).cuda()
-    prefill = sv.make_bucket_prefill_step(cfg, SERVE_MAX_SEQ)
+        0, cfg.vocab, n_prompt).astype(np.int32)).cuda()
+    prefill = sv.make_bucket_prefill_step(cfg, max_seq)
     decode = sv.make_slot_decode_step(cfg)
-    padded = torch.zeros((1, max(s for _, s in SERVE_LADDER)), dtype=torch.int32,
-                         device="cuda")
+    padded = torch.zeros((1, max(s for _, s in ladder)), dtype=torch.int32, device="cuda")
     padded[0, :len(prompt)] = prompt
     pos = torch.tensor([len(prompt)], dtype=torch.int32, device="cuda")
     cache, logits = prefill(params, padded, pos)
     seq, errs, spread, prev = prompt, [], [], None
-    for step in range(SERVE_CACHE_CHECK[1]):
+    for step in range(n_new):
         with torch.no_grad():
             h, _ = tf.forward(cfg, params, seq[None, :])
             last2 = tf.logits(cfg, params, h[:, -2:])[0]
@@ -2232,7 +2325,7 @@ def cache_vs_no_cache(torch, cfg, params) -> dict:
         errs.append((max_err(logits[0], ref), scale(ref)))
         nxt = torch.argmax(logits, -1).to(torch.int32)
         seq = torch.cat([seq, nxt])
-        if step + 1 < SERVE_CACHE_CHECK[1]:
+        if step + 1 < n_new:
             cache, logits = decode(params, cache, nxt, pos)
             pos = pos + 1
     return dict(worst_err_over_scale=max(e / s for e, s in errs),
@@ -2442,31 +2535,33 @@ def phase_serve(torch, kernels, results, tfm, card):
 # -- the tenth slice: the MoE served at full width, the other families on the card ---
 
 
-def device_params(torch, defs, seed: int) -> dict:
+def device_params(torch, defs, seed: int, *, noise: bool = True) -> dict:
     """Weights of the shape ``defs`` give, drawn on the card: each leaf from
     its own generator seeded by (seed, crc32 of its path), the seed's init
-    (N(0, init std) for a matrix, zeros or ones for a gain) plus the noise
-    serve_params adds (SERVE_PERTURB x init std on every matrix but the
-    embedding, SERVE_PERTURB_ZEROS on the gains and biases).  numpy, which
-    draws the CPU init, takes minutes for the MoE's 11.2 B values; the
-    card's Philox generator takes milliseconds."""
+    (N(0, init std) for a matrix, zeros or ones for a gain) plus, with
+    ``noise``, the noise serve_params adds (SERVE_PERTURB x init std on
+    every matrix but the embedding, SERVE_PERTURB_ZEROS on the gains and
+    biases).  numpy, which draws the CPU init, takes minutes for the MoE's
+    11.2 B values; the card's Philox generator takes milliseconds.  The
+    leaves come in the order of ``defs`` (the order AdamW updates them in:
+    a large leaf updated last meets every new copy already made)."""
     import zlib
 
     out = {}
-    for path, d in sorted(defs.items()):
+    for path, d in defs.items():
         g = torch.Generator(device="cuda").manual_seed((seed << 32) + zlib.crc32(path.encode()))
         fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
         if d.init == "normal":
             std = d.scale if d.scale is not None else fan_in ** -0.5
             w = torch.randn(d.shape, generator=g, device="cuda").mul_(std)
-            noise = 0.0 if path == "embed" else SERVE_PERTURB * std
+            sigma = 0.0 if path == "embed" else SERVE_PERTURB * std
         else:
             w = torch.full(d.shape, 0.0 if d.init == "zeros" else 1.0, device="cuda")
-            noise = SERVE_PERTURB_ZEROS
-        if noise:
+            sigma = SERVE_PERTURB_ZEROS
+        if noise and sigma:
             rows = max(1, (1 << 28) // max(1, w[0].numel())) if w.dim() > 1 else w.shape[0]
             for part in w.split(rows):  # at most 1 GiB of noise at a time
-                part.add_(torch.randn(part.shape, generator=g, device="cuda"), alpha=noise)
+                part.add_(torch.randn(part.shape, generator=g, device="cuda"), alpha=sigma)
         out[path] = w
     torch.cuda.synchronize()
     return out
@@ -3102,6 +3197,419 @@ def phase_paper(torch, kernels, results, card):
          seconds=time.perf_counter() - t_phase, card=card)
 
 
+# -- the twelfth slice: the last dense configs trained and served at full width ------
+
+
+def hold_launches(torch, kernels, results, calls: dict):
+    """While the block runs, hold the first launch of each distinct call
+    (kernel, operand shapes, keywords) against the kernel's plain version
+    on the same operands at TOL x scale, keep a copy of its operands for
+    dense_call_times, and count the launches of each call in ``calls``."""
+    def record(name, args, kw, out):
+        key = (name, tuple(tuple(a.shape) for a in args), tuple(sorted(kw.items())))
+        if key in calls:
+            calls[key]["launches"] += 1
+            return
+        want = kernels[name].plain(*args, **kw)
+        pairs = list(zip(out, want)) if isinstance(out, tuple) else [(out, want)]
+        err = max(max_err(o, w) for o, w in pairs)
+        sc = max(scale(w) for _, w in pairs)
+        check(err <= TOL * sc, f"{name} at {key[1]} {kw}: err {err} > {TOL} x {sc}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+        calls[key] = dict(kernel=name, shapes=[list(a.shape) for a in args], kw=dict(kw),
+                          max_abs_err=err, scale=sc, launches=1,
+                          args=[a.detach().clone() for a in args])
+    return on_launch(kernels, record)
+
+
+def dense_call_times(torch, kernels, calls: dict, hq: int, hkv: int) -> list:
+    """Each distinct call kept by hold_launches: CUDA-event medians of the
+    kernel, its plain version and one library call (torch.matmul;
+    scaled_dot_product_attention on the KV heads repeated, where there is
+    no window) on the same operands, beside the bound of the call's work
+    (each operand read once, each output written once; 2mnk FLOP a GEMM,
+    4 D FLOP a (q, k) pair the masks admit)."""
+    import torch.nn.functional as F
+
+    out = []
+    for c in calls.values():
+        name, args, kw = c["kernel"], c.pop("args"), c["kw"]
+        kern, lib = kernels[name], None
+        if name == "flash_attention":
+            q, k, v = args
+            b, d = q.shape[0] // hq, q.shape[-1]
+            flops = 4.0 * b * hq * visible_pairs(kw["q_len"], kw["kv_len"], kw["window"]) * d
+            nbytes = 4.0 * d * (2 * b * hq * kw["q_len"] + 2 * b * hkv * kw["kv_len"])
+            if kw["window"] is None and (kw["q_len"], kw["kv_len"]) == (q.shape[1], k.shape[1]):
+                q4 = q.reshape(b, hq, *q.shape[1:])
+                k4, v4 = (t.reshape(b, hkv, *t.shape[1:]).repeat_interleave(hq // hkv, 1)
+                          for t in (k, v))
+                lib = lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(  # noqa: E731
+                    q4, k4, v4, is_causal=kw["causal"])
+        else:
+            a, bb = args[0], args[1]
+            m, k_, n = {"matmul": (a.shape[0], a.shape[1], bb.shape[1]),
+                        "matmul_nt": (a.shape[0], bb.shape[0], a.shape[1]),
+                        "matmul_tn": (a.shape[0], a.shape[1], bb.shape[1]),
+                        "matmul_dx_dw": (a.shape[0], bb.shape[0], a.shape[1])}[name]
+            flops = 2.0 * m * n * k_ * (2 if name == "matmul_dx_dw" else 1)
+            words = m * k_ + k_ * n + m * n + (m * k_ + k_ * n if name == "matmul_dx_dw" else 0)
+            nbytes = 4.0 * words
+            lib = {"matmul": lambda a=a, bb=bb: torch.matmul(a, bb),
+                   "matmul_nt": lambda a=a, bb=bb: torch.matmul(a, bb.t()),
+                   "matmul_tn": lambda a=a, bb=bb: torch.matmul(a.t(), bb),
+                   "matmul_dx_dw": lambda a=a, bb=bb, x=args[-1]: (
+                       torch.matmul(a, bb.t()), torch.matmul(x.t(), a))}[name]
+        ms = median_ms(lambda: kern(*args, **kw), reps=3, warmup=1)
+        plain_ms = median_ms(lambda: kern.plain(*args, **kw), reps=3, warmup=1)
+        lib_ms = median_ms(lib, reps=3, warmup=1) if lib is not None else None
+        b_ms, b_by = bound_ms(flops, nbytes)
+        out.append(dict({k: v for k, v in c.items() if k != "kw"},
+                        blocks={k: v for k, v in kw.items() if k.startswith("block")},
+                        ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
+                        bound_by=b_by, bound_share=b_ms / ms, flops=flops, bytes=nbytes))
+        del args, lib
+    torch.cuda.empty_cache()
+    return out
+
+
+def dense_step_times(torch, fn) -> dict:
+    """One call of ``fn`` under torch.profiler, timed by CUDA events around
+    it: (event ms, device ms, the largest device kernels)."""
+    from torch.profiler import ProfilerActivity, profile as torch_profile
+
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    with torch_profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+    rows = device_kernels(torch, prof)
+    return dict(event_ms=start.elapsed_time(end),
+                device_ms=sum(r[0] for r in rows) if rows else "not measured",
+                top=[{"kernel": k[:80], "ms": ms, "calls": c} for ms, k, c in rows[:8]])
+
+
+def dense_parity(torch, kernels, results, cfg, tcfg, plans, params0, batch0) -> dict:
+    """Step 1 of the planned step from ``params0``: each distinct kernel call
+    against its plain version (hold_launches), the attention launched at
+    the config's head dim and the planned blocks, the loss and every
+    gradient against the independent plain step (compared leaf by leaf),
+    then the calls' and the step's times."""
+    from repro_torch.runtime import train as tr
+
+    planned_loss = tr.make_loss_fn(cfg, tcfg)
+    calls: dict = {}
+    with hold_launches(torch, kernels, results, calls):
+        loss, got, planned_peak = step1(torch, planned_loss, params0, batch0)
+    flash = [c for c in calls.values() if c["kernel"] == "flash_attention"]
+    s_attn = plans["attn"]
+    check(bool(flash) and all(
+        c["shapes"][0][-1] == cfg.resolved_head_dim
+        and (c["kw"]["block_q"], c["kw"]["block_kv"]) == (s_attn.block("block_q"),
+                                                          s_attn.block("block_kv"))
+        for c in flash), f"{cfg.name}: flash launched off its plan: "
+                         f"{[(c['shapes'], c['kw']) for c in flash]}")
+    plain = functools.partial(plain_transformer_loss, torch, cfg, remat=tcfg.remat != "none")
+    ref_loss, ref, plain_peak = step1(torch, plain, params0, batch0)
+    grad_err = {}
+    for k in list(ref):
+        g = ref.pop(k)
+        check(bool(torch.isfinite(got[k]).all()), f"{cfg.name}: grad {k} is not finite")
+        grad_err[k] = {"max_abs_err": max_err(got[k], g), "scale": scale(g)}
+        del g
+    del got, ref
+    torch.cuda.empty_cache()
+    check(abs(loss - ref_loss) <= LOSS_TOL * max(1.0, abs(ref_loss)),
+          f"{cfg.name}: step-1 loss {loss} vs plain step {ref_loss}")
+    for k, r in grad_err.items():
+        check(r["max_abs_err"] <= TOL * r["scale"], f"{cfg.name}: step-1 grad {k}: {r}")
+    times = dense_call_times(torch, kernels, calls, cfg.n_heads, cfg.n_kv_heads)
+    step = dense_step_times(torch, lambda: step1(torch, planned_loss, params0, batch0))
+    return dict(loss=loss, plain_loss=ref_loss, peak_memory_bytes={
+        "planned": planned_peak, "plain step": plain_peak},
+        worst_grad_err_over_scale=max(r["max_abs_err"] / r["scale"]
+                                      for r in grad_err.values()),
+        step1_grads=grad_err, calls=times, step=step)
+
+
+def dense_train(torch, kernels, results, card, arch: str, *, layers, batch: int, seq: int,
+                steps: int, remat: str, launcher: bool) -> dict:
+    """One dense config's planned training at full width: the launcher
+    (``launcher``) or the train step driven here (a config cut to
+    ``layers``), with its launches against plan_training's, finite losses,
+    and dense_parity from the seed's weights."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import count_params, init_params
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.plan import AttentionPlanner
+    from repro_torch.runtime import train as tr
+
+    t_arch = time.perf_counter()
+    full = get_config(arch)
+    cfg = full if layers is None else dataclasses.replace(full, n_layers=layers)
+    path = f"train_{arch}"
+    plans = tf.plan_training(cfg, batch, seq, loss_chunks=tfm_chunks())
+    Dh = cfg.resolved_head_dim
+    check(plans["attn"] == AttentionPlanner().plan(
+        seq_q=seq, seq_kv=seq, head_dim=Dh, n_q_heads=cfg.n_heads,
+        n_kv_heads=cfg.n_kv_heads, batch=batch, in_bytes=4, causal=True),
+        f"{arch}: the attention cell is not planned at head dim {Dh}")
+    per_step = {k: n + remat_extra(remat, cfg).get(k, 0) for k, n in
+                per_kernel(tfm_calls(tf, cfg, plans, batch, seq), kernels).items()}
+    tcfg = launcher_tcfg(steps, planned_kernels=True, remat=remat)
+    defs = tf.param_defs(cfg)
+    batch0 = tr.batch_to(make_data_source(cfg, batch, seq, ShardInfo(0, 1), seed=SEED)(0),
+                         "cuda")
+    torch.cuda.empty_cache()
+    memory_at_start = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if launcher:
+        zero_counts(kernels)
+        history = launch.main(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+                               "--steps", str(steps), "--planned-kernels", "--seed", str(SEED),
+                               "--log-every", "1", "--remat", remat])
+        torch.cuda.synchronize()
+        got = {k: kk.launches for k, kk in kernels.items()}
+        train_peak = torch.cuda.max_memory_allocated()
+        losses, step_ms = [h["loss"] for h in history], [h["seconds"] * 1e3 for h in history]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        params0 = init_params(defs, SEED)  # the launcher's weights
+    else:
+        # Drawn on the card: numpy takes about 10 s for one 778 M-value
+        # embedding.
+        params0 = device_params(torch, defs, SEED, noise=False)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    parity = dense_parity(torch, kernels, results, cfg, tcfg, plans, params0, batch0)
+    if not launcher:
+        state = tr.init_state(cfg, tcfg, params0)
+        step_fn = tr.make_train_step(cfg, tcfg)
+        src = make_data_source(cfg, batch, seq, ShardInfo(0, 1), seed=SEED)
+        del params0
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(kernels)
+        losses, step_ms = [], []
+        for i in range(steps):
+            b = tr.batch_to(src(i), "cuda")
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            state, m = step_fn(state, b)
+            end.record()
+            losses.append(float(m["loss"]))
+            step_ms.append(start.elapsed_time(end))
+        torch.cuda.synchronize()
+        got = {k: kk.launches for k, kk in kernels.items()}
+        train_peak = torch.cuda.max_memory_allocated()
+        del state
+    else:
+        del params0
+    torch.cuda.empty_cache()
+    want = {k: steps * n for k, n in per_step.items()}
+    for k in kernels:
+        results[k]["launches_by_path"][path] = got[k]
+    rec = dict(phase="dense", path=path, arch=arch, trainer="launcher" if launcher else
+               "runtime.train.make_train_step", params=count_params(defs),
+               n_layers=cfg.n_layers, of_layers=full.n_layers, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads, Dh], d_ff=cfg.d_ff, vocab=cfg.vocab,
+               batch=batch, seq=seq, steps=steps, remat=remat, launches=got,
+               launches_per_step=per_step, losses=losses, step_ms=step_ms,
+               train_peak_memory_bytes=train_peak, allocated_at_start=memory_at_start,
+               init_params_seconds=init_s,
+               attn_schedule={"head_dim": Dh, "blocks": plans["attn"].block_dict()},
+               schedules={n: {"algorithm": sc.algorithm, "blocks": sc.block_dict(),
+                              "smem_bytes": sc.vmem_bytes} for n, sc in plans.items()},
+               card=card, grad_tolerance=TOL, loss_tolerance=LOSS_TOL,
+               **{k: v for k, v in parity.items() if k != "step1_grads"})
+    rec["arch_seconds"] = time.perf_counter() - t_arch
+    emit(**rec)
+    check(got == want, f"{arch}: launches {got} != plan {want}")
+    check(all(math.isfinite(x) for x in losses), f"{arch}: losses {losses}")
+    check(abs(losses[0] - parity["loss"]) <= LOSS_TOL * max(1.0, abs(parity["loss"])),
+          f"{arch}: the run's step-1 loss {losses[0]} vs the parity step's {parity['loss']}")
+    return rec
+
+
+def phase_dense_serve(torch, kernels, results, card) -> None:
+    """gemma3-4b at full width and depth served through the engine on the
+    DENSE_SERVE_LADDER, as phase serve serves qwen1.5-0.5b (weights drawn
+    on the card by device_params, as phase moe_serve's): boot 1 tunes the
+    bucket cells on the matmul and flash-attention kernels (path
+    ``dense_serve_warmup``: flash at D = 256, the logits at vocab 262144),
+    boot 2 replays them cache-only with the timing path rigged to raise;
+    the request path launches no kernel; the slot decode runs each layer's
+    window (5 local layers of 1024 to 1 global).  Checks: every request
+    DONE, boot 2's streams equal boot 1's, each tuned winner against the
+    kernels' plain versions at its cell's shape, a prompt past the window
+    decoded against no-cache forwards.  Times: prefill per bucket and the
+    slot decode (events and profiled)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import count_params
+    from repro_torch.plan import autotune as at
+    from repro_torch.serve import DONE, LoadSpec
+    from repro_torch.serve.loadgen import no_timing
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    cfg = dataclasses.replace(get_config(DENSE_SERVE_ARCH), max_seq=DENSE_SERVE_MAX_SEQ)
+    defs = tf.param_defs(cfg)
+    t0 = time.perf_counter()
+    params = device_params(torch, defs, SEED)
+    draw_s = time.perf_counter() - t0
+    path = SCRATCH / "dense_serve_autotune_h100.json"
+    path.unlink(missing_ok=True)
+    spec = LoadSpec(qps=1.0, n_requests=SERVE_REQUESTS, prompt_len=DENSE_SERVE_PROMPT,
+                    new_tokens=SERVE_NEW, seed=SEED)
+    boot = functools.partial(serve_boot, torch, cfg, params, ladder=DENSE_SERVE_LADDER,
+                             max_seq=DENSE_SERVE_MAX_SEQ)
+
+    zero_counts(kernels)
+    engine, src1, warm_tune = boot("tune", path)
+    tune_launches = {k: kk.launches for k, kk in kernels.items()}
+    for k in kernels:
+        results[k]["launches_by_path"]["dense_serve_warmup"] = tune_launches[k]
+    zero_counts(kernels)
+    reqs1, serve1_s = serve_requests(torch, engine, spec)
+    request_launches = {k: kk.launches for k, kk in kernels.items()}
+    pool_bytes = sum(t.numel() * t.element_size() for t in engine.cache.values())
+    stats1 = dict(engine.stats, padding_waste=engine.padding_waste())
+    ladder = engine.ladder
+    del engine
+    torch.cuda.empty_cache()
+    with no_timing(at):
+        engine, src2, warm_cached = boot("cache-only", path)
+        reqs2, serve2_s = serve_requests(torch, engine, spec)
+    flat1 = {(b, c): s for b, cells in src1.items() for c, s in cells.items()}
+    flat2 = {(b, c): s for b, cells in src2.items() for c, s in cells.items()}
+    tuned = sorted((b, c) for (b, c), s in flat1.items() if s == "tuned")
+    not_replayed = sorted(f"{b.batch}x{b.seq}:{c}" for b, c in tuned if flat2[(b, c)] != "cached")
+    streams1 = [list(r.tokens) for r in reqs1]
+    streams2 = [list(r.tokens) for r in reqs2]
+    lens = [len(r.prompt) for r in reqs1]
+    emit(phase="dense", path="serve_" + DENSE_SERVE_ARCH, arch=cfg.name,
+         n_layers=cfg.n_layers, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         window=[cfg.local_window, cfg.global_every], vocab=cfg.vocab,
+         params=count_params(defs), weight_draw_seconds=draw_s, ladder=DENSE_SERVE_LADDER,
+         max_seq=DENSE_SERVE_MAX_SEQ, slots=SERVE_SLOTS, requests=len(reqs1),
+         prompt_lens=lens, past_window=sum(n > cfg.local_window for n in lens),
+         new_tokens=[r.max_new_tokens for r in reqs1],
+         warmup_seconds={"tune": warm_tune, "cache-only": warm_cached},
+         serve_seconds={"boot1": serve1_s, "boot2": serve2_s}, cells=len(flat1),
+         tuned=[f"{b.batch}x{b.seq}:{c}" for b, c in tuned],
+         cached_boot2=sum(s == "cached" for s in flat2.values()), not_replayed=not_replayed,
+         warmup_launches=tune_launches, request_launches=request_launches,
+         stats_boot1=stats1, distinct_streams=len({tuple(t) for t in streams1}),
+         single_token_streams=sum(len(set(t)) == 1 for t in streams1),
+         streams_equal=streams1 == streams2, card=card)
+    check(all(r.state == DONE for r in reqs1 + reqs2),
+          f"dense serve: unfinished {[(r.rid, r.state) for r in reqs1 + reqs2 if r.state != DONE]}")
+    check(streams1 == streams2, "dense serve: boot 2's token streams differ from boot 1's")
+    check(bool(tuned) and not not_replayed,
+          f"dense serve: tuned {tuned}, not replayed {not_replayed}")
+    check("tuned" not in flat2.values(), "dense serve: the cache-only boot tuned a cell")
+    check(tune_launches["matmul"] > 0 and tune_launches["flash_attention"] > 0,
+          f"dense serve: warmup tuning launched {tune_launches}")
+    check(not any(request_launches.values()),
+          f"dense serve: the request path launched kernels {request_launches}")
+    check(any(n > cfg.local_window for n in lens), "dense serve: no prompt passes the window")
+
+    winners = serve_winner_checks(torch, kernels, results, cfg, ladder, tuned)
+    emit(phase="dense", check="tuned winners vs plain", tolerance=TOL, cells=winners)
+
+    prefill_ms = {}
+    for b in engine.ladder.buckets:
+        zt = torch.zeros((b.batch, b.seq), dtype=torch.int32, device="cuda")
+        zl = torch.full((b.batch,), b.seq, dtype=torch.int32, device="cuda")
+        prefill_ms[f"{b.batch}x{b.seq}"] = median_ms(
+            lambda b=b, zt=zt, zl=zl: engine._prefill[b](params, zt, zl), reps=2, warmup=0)
+    tok = torch.zeros(SERVE_SLOTS, dtype=torch.int32, device="cuda")
+    at_pos = torch.full((SERVE_SLOTS,), DENSE_SERVE_MAX_SEQ // 2, dtype=torch.int32,
+                        device="cuda")
+    decode_fn = lambda: engine._decode(params, engine.cache, tok, at_pos)  # noqa: E731
+    decode_ms = median_ms(decode_fn, reps=10)
+    # Greedy streams on random weights may repeat one token (gemma's scaled,
+    # tied embedding dominates the residual): the checks above compare
+    # whole streams and every logit, so they stand; the counts are reported.
+    decode_device_ms = profile(torch, "dense_slot_decode", decode_fn, card, grad=False,
+                               reps=3, batch=f"{SERVE_SLOTS} slots at position "
+                                             f"{DENSE_SERVE_MAX_SEQ // 2}")
+    del engine
+    torch.cuda.empty_cache()
+
+    cache_check = cache_vs_no_cache(torch, cfg, params, DENSE_CACHE_CHECK, DENSE_SERVE_LADDER,
+                                    DENSE_SERVE_MAX_SEQ)
+    weight_bytes = 4 * count_params(defs)
+    emit(phase="dense", check="cached decode vs no-cache forward", arch=cfg.name,
+         prompt_len=DENSE_CACHE_CHECK[0], new_tokens=DENSE_CACHE_CHECK[1], tolerance=TOL,
+         **cache_check)
+    emit(phase="dense", check="serve times", arch=cfg.name, card=card, prefill_ms=prefill_ms,
+         decode_ms_per_step=decode_ms, decode_device_ms_per_step=decode_device_ms,
+         decode_slots=SERVE_SLOTS, decode_position=DENSE_SERVE_MAX_SEQ // 2,
+         weight_bytes=weight_bytes, decode_bound_ms=weight_bytes / HBM_BW * 1e3,
+         pool_bytes=pool_bytes, kv_bytes_per_token=pool_bytes // (SERVE_SLOTS
+                                                                  * DENSE_SERVE_MAX_SEQ),
+         peak_memory_bytes=torch.cuda.max_memory_allocated(),
+         phase_seconds=time.perf_counter() - t_phase)
+    worst = cache_check["worst_err_over_scale"]
+    check(worst <= TOL, f"dense serve: cached logits vs no-cache forward {worst} > {TOL}")
+    del params
+    torch.cuda.empty_cache()
+
+
+def phase_dense(torch, kernels, results, card) -> None:
+    """The twelfth slice: the flash kernel in the two new configs' cases
+    against its plain version (timed beside SDPA where there is no window);
+    qwen3-1.7b through the launcher at full width and depth, qwen3-32b and
+    chameleon-34b at full width cut to DENSE_CUT_LAYERS, each with its
+    launches against plan_training's and its step-1 loss and gradients
+    against the independent plain step; gemma3-4b served."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    t_phase = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    for spec in DENSE_FLASH:
+        case = flash_case(torch, g, spec)
+        check_flash_case(torch, case, results, "dense")
+        label, (q, k, v), kw, meta = case
+        b, hq, hkv = meta["b"], meta["hq"], meta["hkv"]
+        lib = None
+        if kw["window"] is None:
+            q4 = q.reshape(b, hq, *q.shape[1:])
+            k4, v4 = (t.reshape(b, hkv, *t.shape[1:]).repeat_interleave(hq // hkv, 1)
+                      for t in (k, v))
+            lib = lambda q4=q4, k4=k4, v4=v4: F.scaled_dot_product_attention(  # noqa: E731
+                q4, k4, v4, is_causal=True)
+        ms = median_ms(lambda: flash_attention_kernel(q, k, v, **kw), reps=10)
+        plain_ms = median_ms(lambda: flash_attention_kernel.plain(q, k, v, **kw), reps=5)
+        lib_ms = median_ms(lib, reps=10) if lib is not None else None
+        b_ms, b_by = bound_ms(meta["flops"], meta["nbytes"])
+        emit(phase="dense", kernel="flash_attention", case=label, card=card, ms=ms,
+             plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+             bound_share=b_ms / ms, flops=meta["flops"], bytes=meta["nbytes"], peaks=PEAKS)
+        del case, q, k, v, lib
+    torch.cuda.empty_cache()
+    dense_train(torch, kernels, results, card, DENSE_ARCH, layers=None, batch=TFM_BATCH,
+                seq=TFM_SEQ, steps=STEPS, remat=DENSE_REMAT, launcher=True)
+    for arch in DENSE_CUT:
+        dense_train(torch, kernels, results, card, arch, layers=DENSE_CUT_LAYERS,
+                    batch=DENSE_CUT_BATCH, seq=TFM_SEQ, steps=DENSE_CUT_STEPS, remat="none",
+                    launcher=False)
+    phase_dense_serve(torch, kernels, results, card)
+    emit(phase="dense", phase_seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if not (ROOT / "src" / "repro_torch").is_dir():
@@ -3190,6 +3698,11 @@ def main() -> int:
     for name in ("matmul", "flash_attention"):
         check(results[name]["launches_by_path"]["moe_serve_warmup"] > 0,
               f"{name}: no launch on the moe_serve_warmup path")
+    phase_dense(torch, kernels, results, card)
+    for dense_path in [f"train_{a}" for a in (DENSE_ARCH, *DENSE_CUT)] + ["dense_serve_warmup"]:
+        for name in ("matmul", "flash_attention"):
+            check(results[name]["launches_by_path"][dense_path] > 0,
+                  f"{name}: no launch on the {dense_path} path")
     phase_families(torch, card)
     phase_paper(torch, kernels, results, card)
     for name in ("conv2d", "matmul"):

@@ -1,7 +1,9 @@
-from repro_torch.configs.base import ModelConfig, TrainConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, RunConfig, ShapeConfig, TrainConfig
 from repro_torch.configs.registry import (
-    ARCH_IDS, FAMILY_DEFAULT_ARCH, get_config, smoke_config,
+    ARCH_IDS, CNN_ARCHS, FAMILY_DEFAULT_ARCH, LONG_CONTEXT_OK, cells, get_config, get_shape,
+    smoke_config,
 )
 
-__all__ = ["ARCH_IDS", "FAMILY_DEFAULT_ARCH", "ModelConfig", "TrainConfig",
-           "get_config", "smoke_config"]
+__all__ = ["ARCH_IDS", "CNN_ARCHS", "FAMILY_DEFAULT_ARCH", "LONG_CONTEXT_OK", "ModelConfig",
+           "RunConfig", "SHAPES", "ShapeConfig", "TrainConfig", "cells", "get_config",
+           "get_shape", "smoke_config"]

@@ -1,5 +1,5 @@
-"""Config system: the model and training config dataclasses (the fields
-the JAX package's ModelConfig and TrainConfig carry, so a config reads the
+"""Config system: the model, training and run config dataclasses and the
+4 shape presets (the fields the JAX package's carry, so a config reads the
 same in both packages)."""
 
 from __future__ import annotations
@@ -54,6 +54,25 @@ class ModelConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ShapeConfig:
+    """One assigned input-shape cell."""
+
+    name: str
+    kind: str  # train | prefill | decode
+    seq_len: int
+    global_batch: int
+
+
+# The assigned shape set (applies to every architecture).
+SHAPES: dict[str, ShapeConfig] = {
+    "train_4k": ShapeConfig("train_4k", "train", 4096, 256),
+    "prefill_32k": ShapeConfig("prefill_32k", "prefill", 32768, 32),
+    "decode_32k": ShapeConfig("decode_32k", "decode", 32768, 128),
+    "long_500k": ShapeConfig("long_500k", "decode", 524288, 1),
+}
+
+
+@dataclasses.dataclass(frozen=True)
 class TrainConfig:
     """The training knobs the port's trainer reads: the JAX package's
     TrainConfig fields of the same names and defaults, except compute in
@@ -80,3 +99,10 @@ class TrainConfig:
     # conv + dgrad/wgrad + dX/dW matmul kernels; for the transformer, every
     # block GEMM + flash attention + dX/dW.
     planned_kernels: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class RunConfig:
+    model: ModelConfig
+    train: TrainConfig
+    shape: ShapeConfig

@@ -1,0 +1,11 @@
+"""qwen3-32b [dense]: 64L d_model=5120 64H (GQA kv=8) d_ff=25600
+vocab=151936; qk_norm. [hf:Qwen/Qwen3-8B; hf]"""
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="qwen3-32b", family="dense",
+    n_layers=64, d_model=5120, n_heads=64, n_kv_heads=8, head_dim=128,
+    d_ff=25600, vocab=151936,
+    qk_norm=True, act="silu", tie_embeddings=False,
+    rope_theta=1e6, max_seq=32768,
+)

@@ -1,22 +1,26 @@
 """Architecture registry: ``get_config(arch)`` -> ModelConfig, plus the
-reduced smoke config (same family features, tiny dims).  The port holds
-every arch of the JAX package's registry but gemma3-4b, qwen3-32b and
-chameleon-34b: the CNN, the dense transformer (qwen1.5-0.5b, and
-qwen3-1.7b with qk-norm and GQA), the MoE (qwen3-moe-235b-a22b,
-grok-1-314b), RWKV-6, the Mamba-2 hybrid Zamba2 and the encoder-decoder."""
+reduced smoke config (same family features, tiny dims) and the assigned
+shape cells of each arch.  The port holds every arch of the JAX package's
+registry, in its order: the dense transformers (gemma3-4b with its 5:1
+local:global attention, qwen3-1.7b and qwen3-32b with qk-norm and GQA,
+qwen1.5-0.5b, chameleon-34b), the MoE (grok-1-314b, qwen3-moe-235b-a22b),
+RWKV-6, the encoder-decoder, the Mamba-2 hybrid Zamba2 and the CNN."""
 
 from __future__ import annotations
 
 import dataclasses
 import importlib
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import SHAPES, ModelConfig, ShapeConfig
 
 ARCH_IDS = [
+    "gemma3-4b",
     "qwen3-1.7b",
+    "qwen3-32b",
     "qwen1.5-0.5b",
     "grok-1-314b",
     "qwen3-moe-235b-a22b",
+    "chameleon-34b",
     "rwkv6-1.6b",
     "seamless-m4t-medium",
     "zamba2-1.2b",
@@ -50,7 +54,8 @@ def smoke_config(arch: str) -> ModelConfig:
     4 layers (Zamba2: 5) of width 128 with 4 heads of 32; 4 experts with
     top-k at most 2; 2 encoder layers over 64 frames; SSM heads of 32
     (Zamba2 also state 16, shared attention every 2 layers); for the CNN,
-    2 stages of width 8, d_ff 64 and 10 classes."""
+    2 stages of width 8, d_ff 64 and 10 classes; a local:global config
+    keeps its cadence with a window of 64."""
     cfg = get_config(arch)
     changes: dict = dict(
         n_layers=min(cfg.n_layers, 4 if cfg.family != "zamba2" else 5),
@@ -72,4 +77,29 @@ def smoke_config(arch: str) -> ModelConfig:
         changes.update(ssm_head_dim=32)
     if cfg.family == "cnn":
         changes.update(n_layers=2, d_model=8, d_ff=64, vocab=10)
+    if cfg.local_window:
+        changes.update(local_window=64, global_every=cfg.global_every)
     return dataclasses.replace(cfg, name=cfg.name + "-smoke", **changes)
+
+
+def get_shape(name: str) -> ShapeConfig:
+    return SHAPES[name]
+
+
+# long_500k needs sub-quadratic attention over the context: runnable for
+# the recurrent, hybrid and local-attention archs, skipped for the pure
+# full-attention ones.
+LONG_CONTEXT_OK = {"rwkv6-1.6b", "zamba2-1.2b", "gemma3-4b"}
+# Every arch but the CNN has a decoder, so the decode shapes apply to it;
+# the CNN trains on images.
+CNN_ARCHS = {"cnn-vgg11"}
+
+
+def cells(arch: str) -> list[str]:
+    """The assigned shape cells of an arch, with the skips above."""
+    if arch in CNN_ARCHS:
+        return ["train_4k"]  # batch-256 image training; seq axes n/a
+    shapes = ["train_4k", "prefill_32k", "decode_32k"]
+    if arch in LONG_CONTEXT_OK:
+        shapes.append("long_500k")
+    return shapes

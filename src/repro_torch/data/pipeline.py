@@ -1,7 +1,7 @@
-"""Deterministic, shard-aware synthetic data for the port's trainer.
+"""Deterministic, shard-aware data for the port's trainer.
 
-Both sources draw from (seed, step, shard) with numpy, exactly as the JAX
-package's do, so both packages train on bit-identical batches:
+The synthetic sources draw from (seed, step, shard) with numpy, exactly as
+the JAX package's do, so both packages train on bit-identical batches:
 
 * ``SyntheticSource`` — structured pseudo-text (Zipfian unigrams with a
   Markov flavour) for the token families: {"tokens": [B_local, S] int32,
@@ -9,6 +9,10 @@ package's do, so both packages train on bit-identical batches:
 * ``SyntheticImageSource`` — CIFAR-shaped image/label batches for the cnn
   family: {"images": [B_local, IMG, IMG, C] float32, "labels": [B_local]
   int32}.
+
+``MemmapSource`` reads packed uint16/uint32 token files (``np.memmap``,
+written by :func:`write_token_file`), strided by (shard, step) for
+disjoint coverage: the format a real run would use.
 
 Batches are numpy arrays; the trainer moves them to its device.
 """
@@ -71,3 +75,28 @@ class SyntheticImageSource:
         # A learnable class signal: shift each image's mean by its label.
         images += (labels / max(1, self.classes - 1) - 0.5)[:, None, None, None]
         return {"images": images, "labels": labels}
+
+
+class MemmapSource:
+    def __init__(self, path: str, vocab: int, seq_len: int, global_batch: int,
+                 shard: ShardInfo = ShardInfo(0, 1), dtype=np.uint16):
+        self.data = np.memmap(path, dtype=dtype, mode="r")
+        assert global_batch % shard.count == 0
+        self.vocab, self.seq = vocab, seq_len
+        self.batch = global_batch // shard.count
+        self.shard = shard
+        self.n_windows = (len(self.data) - 1) // seq_len
+        if self.n_windows < global_batch:
+            raise ValueError("dataset too small for one global batch")
+
+    def __call__(self, step: int) -> dict:
+        g = self.batch * self.shard.count
+        start = (step * g + self.shard.index * self.batch) % self.n_windows
+        idx = (np.arange(self.batch) + start) % self.n_windows
+        rows = np.stack([self.data[i * self.seq:i * self.seq + self.seq + 1] for i in idx])
+        rows = rows.astype(np.int32) % self.vocab
+        return {"tokens": rows[:, :-1], "labels": rows[:, 1:]}
+
+
+def write_token_file(path: str, tokens: np.ndarray, dtype=np.uint16) -> None:
+    np.asarray(tokens, dtype).tofile(path)

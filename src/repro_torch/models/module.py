@@ -5,14 +5,18 @@ defs, :func:`init_params` materializes the weights.  Every leaf draws from
 its own numpy generator, seeded by the caller's seed and a hash of the
 leaf's path, so initialization is order- and structure-stable.  (The two
 packages' generators differ, so tests carry the JAX package's weights
-across with ``repro_torch.convert`` instead.)
+across with ``repro_torch.convert`` instead.)  The leaves draw on a pool of
+threads (numpy's generators release the GIL), each from its own generator,
+so the values do not depend on the thread count.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
+import os
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any
 
 import numpy as np
@@ -28,24 +32,32 @@ class ParamDef:
     fan_in_axis: int = -2  # which axis is fan-in for default init scale
 
 
+def _draw(path: str, d: ParamDef, seed: int) -> np.ndarray:
+    """One normal leaf: N(0, scale) from the leaf's own generator."""
+    rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
+    fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
+    scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
+    w = rng.standard_normal(d.shape, dtype=np.float32)
+    w *= np.float32(scale)
+    return w
+
+
 def init_params(defs: dict, seed: int, *, device=None,
                 dtype: torch.dtype = torch.float32) -> dict:
     """Materialize parameters on ``device`` (default: the card)."""
     device = torch.device("cuda" if device is None else device)
+    normal = [p for p, d in defs.items() if d.init not in ("zeros", "ones")]
+    workers = max(1, min(len(normal), os.cpu_count() or 1))
     out = {}
-    for path, d in defs.items():
-        dt = d.dtype or dtype
-        if d.init == "zeros":
-            out[path] = torch.zeros(d.shape, dtype=dt, device=device)
-            continue
-        if d.init == "ones":
-            out[path] = torch.ones(d.shape, dtype=dt, device=device)
-            continue
-        rng = np.random.default_rng([seed, zlib.crc32(path.encode())])
-        fan_in = d.shape[d.fan_in_axis] if len(d.shape) >= 2 else d.shape[-1]
-        scale = d.scale if d.scale is not None else 1.0 / math.sqrt(max(fan_in, 1))
-        w = rng.standard_normal(d.shape, dtype=np.float32) * np.float32(scale)
-        out[path] = torch.from_numpy(w).to(device=device, dtype=dt)
+    with ThreadPoolExecutor(workers) as pool:
+        drawn = dict(zip(normal, pool.map(lambda p: _draw(p, defs[p], seed), normal)))
+        for path, d in defs.items():
+            dt = d.dtype or dtype
+            if d.init in ("zeros", "ones"):
+                fill = torch.zeros if d.init == "zeros" else torch.ones
+                out[path] = fill(d.shape, dtype=dt, device=device)
+            else:
+                out[path] = torch.from_numpy(drawn.pop(path)).to(device=device, dtype=dt)
     return out
 
 

@@ -325,7 +325,10 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
     """Plan every kernel launch of the planned :func:`forward` plus the
     :func:`logits` head, without running them: {cell: Schedule} keyed
     qkv/attn/wo/mlp_up/mlp_down/logits, each cell resolved through the
-    autotune cache under ``autotune=`` like every other op.  The logits
+    autotune cache under ``autotune=`` like every other op.  Every cell is
+    planned at the head dim the forward launches, ``resolved_head_dim``
+    (the JAX package plans ``d_model // n_heads``; see
+    ``TransformerBlockPlanner``).  The logits
     cell is planned at the chunk M that ``runtime.train.chunked_ce`` calls
     (``loss_chunks``)."""
     from repro_torch.core.machine import H100
@@ -335,7 +338,8 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
     machine = machine or H100
     cells = TransformerBlockPlanner(machine).cell_planners(
         batch=batch, seq=seq, d_model=cfg.d_model, n_heads=cfg.n_heads,
-        d_ff=cfg.d_ff, n_kv_heads=cfg.n_kv_heads, in_bytes=in_bytes, causal=True)
+        d_ff=cfg.d_ff, n_kv_heads=cfg.n_kv_heads, in_bytes=in_bytes, causal=True,
+        head_dim=cfg.resolved_head_dim)
     out = {name: at.resolve(planner.op, kw, machine=machine, policy=autotune)
            for name, (planner, kw) in cells.items()}
     out["logits"] = at.resolve(

@@ -1174,8 +1174,14 @@ class TransformerBlockPlanner:
     ``n_experts > 0`` the MLP cells are replaced by one
     :class:`MoeFfnPlanner` cell, "moe".
 
-    The head dim is ``d_model // n_heads``, as the JAX package plans it;
-    a config whose ``head_dim`` differs plans other shapes than it runs.
+    The head dim is ``head_dim`` where the caller names one, else
+    ``d_model // n_heads``.  A stated divergence: the JAX package always
+    plans ``d_model // n_heads``, so a config whose ``head_dim`` differs
+    (qwen3-32b: 128 run, 80 planned; gemma3-4b: 256 run, 320 planned)
+    plans other shapes there than its forward launches.  The port's
+    ``models.transformer.plan_forward`` passes the config's
+    ``resolved_head_dim``; a call that names no head dim equals the JAX
+    package's field for field.
     """
 
     machine: MachineModel = H100
@@ -1186,11 +1192,12 @@ class TransformerBlockPlanner:
                       n_heads: int, d_ff: int, n_kv_heads: int | None = None,
                       vocab: int = 0, n_experts: int = 0, top_k: int = 2,
                       capacity_factor: float = 1.0, in_bytes: int = 4,
-                      causal: bool = True) -> dict[str, tuple]:
+                      causal: bool = True, head_dim: int | None = None
+                      ) -> dict[str, tuple]:
         """(planner, shape-kwargs) per cell — the delegation table."""
         hq = n_heads
         hkv = n_kv_heads or n_heads
-        dh = d_model // hq
+        dh = head_dim or d_model // hq
         m = batch * seq
         bind = dict(machine=self.machine, mesh=self.mesh, shard_axis=self.shard_axis)
         mm = MatmulPlanner(**bind)

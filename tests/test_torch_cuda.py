@@ -452,6 +452,8 @@ FLASH_CASES = [
     (1, 8, 4, 200, 200, 256, False, None),
     (2, 4, 4, 1, 512, 64, True, None),  # a slot decode's cell: one query, block_q 8
     (2, 4, 2, 64, 512, 64, True, None),  # a bucket prefill's: queries short of the cache
+    (1, 64, 8, 256, 256, 128, True, None),  # qwen3-32b's and chameleon-34b's GQA 64/8
+    (1, 8, 4, 2048, 2048, 256, True, 1024),  # gemma3-4b's local layers: window 1024
 ]
 
 

@@ -252,33 +252,51 @@ def test_plan_training_h100_picks_for_qwen():
 
 
 def test_planned_shapes_are_the_launched_shapes(monkeypatch):
-    """The block planner plans head_dim = d_model // n_heads, as repro
-    does; the forward launches resolved_head_dim.  They agree for
-    qwen1.5-0.5b (64) and the smoke config (32), and every fc_layer call of
-    a planned step runs the shape its schedule was planned for."""
+    """The block planner plans the head dim the forward launches,
+    resolved_head_dim (repro plans d_model // n_heads: the two agree for
+    qwen1.5-0.5b (64) and the smoke config (32), not for the smoke width
+    at head_dim 64): every fc_layer call of a planned step runs the shape
+    its schedule was planned for, and every flash call the attention
+    cell's schedule at the launched head dim."""
+    from repro_torch.plan import AttentionPlanner, MatmulPlanner, local_schedule
+
     for cfg in (get_config("qwen1.5-0.5b"), _cfgs()[1]):
         assert cfg.d_model // cfg.n_heads == cfg.resolved_head_dim
-    _, cfg = _cfgs()
-    sched = tf.plan_training(cfg, B, S, loss_chunks=4)
-    seen = []
-    real = tf.fc_layer
+    wide = tuple(dataclasses.replace(c, head_dim=64) for c in _cfgs())
+    for jcfg, cfg in (wide, _cfgs()):
+        sched = tf.plan_training(cfg, B, S, loss_chunks=4)
+        seen, attn = [], []
+        real, real_flash = tf.fc_layer, tf.flash_attention
 
-    def spy(x, w, schedule, bwd):
-        seen.append((x.shape[0], x.shape[1], w.shape[1], schedule))
-        return real(x, w, schedule, bwd)
+        def spy(x, w, schedule, bwd, real=real):
+            seen.append((x.shape[0], x.shape[1], w.shape[1], schedule))
+            return real(x, w, schedule, bwd)
 
-    monkeypatch.setattr(tf, "fc_layer", spy)
-    tcfg = TrainConfig(planned_kernels=True, loss_chunks=4, remat="none")
-    tf.make_loss_fn(cfg, tcfg)(params_from_repro(_weights(_cfgs()[0]), device="cpu"),
-                               tr.batch_to(_batch(cfg), "cpu"))
-    cells = TransformerBlockPlanner(tm.H100).cell_planners(
-        batch=B, seq=S, d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
-        n_kv_heads=cfg.n_kv_heads)
-    planned = {(kw["m"], kw["k"], kw["n"]) for name, (_, kw) in cells.items() if name != "attn"}
-    planned.add((tf._chunk_m(B, S, 4), cfg.d_model, cfg.vocab))
-    assert {(m, k, n) for m, k, n, _ in seen} == planned
-    assert all(s is not None for *_, s in seen)
-    assert len(seen) == 4 * cfg.n_layers + 4
+        def spy_flash(q, k, v, schedule, real_flash=real_flash, **kw):
+            attn.append((q.shape[-1], schedule))
+            return real_flash(q, k, v, schedule=schedule, **kw)
+
+        monkeypatch.setattr(tf, "fc_layer", spy)
+        monkeypatch.setattr(tf, "flash_attention", spy_flash)
+        tcfg = TrainConfig(planned_kernels=True, loss_chunks=4, remat="none")
+        tf.make_loss_fn(cfg, tcfg)(params_from_repro(_weights(jcfg), device="cpu"),
+                                   tr.batch_to(_batch(cfg), "cpu"))
+        monkeypatch.undo()
+        dh = cfg.resolved_head_dim
+        for m, k, n, s in seen:
+            assert s == MatmulPlanner(tm.H100).plan(m=m, n=n, k=k, in_bytes=4), (m, k, n)
+        assert len(seen) == 4 * cfg.n_layers + 4
+        cells = TransformerBlockPlanner(tm.H100).cell_planners(
+            batch=B, seq=S, d_model=cfg.d_model, n_heads=cfg.n_heads, d_ff=cfg.d_ff,
+            n_kv_heads=cfg.n_kv_heads, head_dim=dh)
+        planned = {(kw["m"], kw["k"], kw["n"]) for name, (_, kw) in cells.items()
+                   if name != "attn"}
+        planned.add((tf._chunk_m(B, S, 4), cfg.d_model, cfg.vocab))
+        assert {(m, k, n) for m, k, n, _ in seen} == planned
+        assert (B * S, cfg.d_model, (cfg.n_heads + 2 * cfg.n_kv_heads) * dh) in planned
+        want = AttentionPlanner(tm.H100).plan(**cells["attn"][1])
+        assert cells["attn"][1]["head_dim"] == dh and sched["attn"] == want
+        assert attn == [(dh, local_schedule(want))] * cfg.n_layers
 
 
 def test_planned_forward_refuses_mixed_windows():
