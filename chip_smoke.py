@@ -262,6 +262,33 @@ The eleventh slice (last):
                equal Eqs. 12-13 at its block_n; a planner rejection is
                reported as one.
 
+The thirteenth slice (after ``ckpt``):
+
+19. mesh     — the multi-device half on R ranks (R = 2, then 4): processes
+               that share the one card over ``gloo`` (a ``file://`` store
+               under build/chip_smoke/mesh; gloo stages the CUDA tensors
+               through host memory itself), each running the port on
+               cuda:0.  These are not multi-chip or scaling numbers.  Against
+               the 1-rank result on the card (planned, computed first by this
+               process): (a) fc_layer_sharded at cnn-vgg11's fc1 ([256, 2048]
+               x [2048, 4096]) and fc2 ([256, 4096] x [4096, 1000]) over a
+               ``model`` axis of R under psum, ring and the planner's pick,
+               forward and both gradients within TOL x scale, the ring's
+               permutes a pass equal to ``schedule_sim.simulate_ring``'s
+               hops; (b) the conv2d op's batch and stack partitions at
+               conv1-conv3 of batch 256 within TOL x scale; (c) the
+               cnn-vgg11 data-parallel step on a ``data`` axis of R at
+               global batch 256, 3 planned AdamW steps through
+               ``runtime.train`` (path ``mesh``): each rank's launches equal
+               to the sharded plan's local schedules, losses within
+               LOSS_TOL and parameters within TOL x scale of the 1-rank
+               step, step-1 gradients (averaged over the ranks) within TOL
+               x scale of the plain step that takes the ranks' planned
+               forward decisions (gathered); each rank's step time by CUDA
+               events and the collectives' host time apart (a step with
+               every collective synchronized).  At R = 2 a probe records
+               which ``gloo`` collectives take CUDA tensors.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -379,6 +406,14 @@ DENSE_SERVE_LADDER = [(4, 256), (2, 1024), (1, 2048)]
 DENSE_SERVE_MAX_SEQ = 2048
 DENSE_SERVE_PROMPT = (16, 1400)
 DENSE_CACHE_CHECK = (1100, 8)  # prompt tokens (past the window), new tokens
+
+# Phase mesh: ranks sharing the one card over gloo.
+MESH_RANKS = (2, 4)
+MESH_TIMEOUT = 300  # seconds a rank process (and a gloo collective) may take
+MESH_FC = {"fc1": (256, 2048, 4096), "fc2": (256, 4096, 1000)}  # m, k, n
+MESH_CONVS = ("conv1", "conv2", "conv3")
+MESH_STRATEGIES = ("psum", "ring", None)  # None: the planner's pick
+MESH_NEAR_TIE_SHARE = 1e-3  # of a leaf's elements that a near-tie sign may move
 
 
 def tfm_chunks() -> int:
@@ -3610,8 +3645,365 @@ def phase_dense(torch, kernels, results, card) -> None:
     emit(phase="dense", phase_seconds=time.perf_counter() - t_phase)
 
 
+# -- phase mesh: R ranks sharing the one card over gloo -------------------------------
+
+
+def mesh_inputs(torch, cnn, cfg) -> dict:
+    """The seeded operands of cases (a) and (b), drawn on the card: every
+    rank and the 1-rank reference draw the same values."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 7)
+
+    def rand(*shape, s=1.0):
+        return torch.randn(shape, device="cuda", generator=g) * s
+
+    out = {}
+    for name, (m, k, n) in MESH_FC.items():
+        out[name] = (rand(m, k), rand(k, n, s=k ** -0.5), rand(m, n))
+    for name, x_shape, w_shape in cnn._stage_geometry(cfg, BATCH):
+        if name in MESH_CONVS:
+            ci, co = w_shape[2], w_shape[3]
+            out[name] = (rand(*x_shape), rand(*w_shape, s=(9 * ci) ** -0.5), rand(co, s=0.1))
+    return out
+
+
+def mesh_batches(torch, cnn, cfg) -> list:
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.runtime import train as tr
+
+    src = cnn.data_source(cfg, BATCH, ShardInfo(0, 1), seed=SEED)
+    return [tr.batch_to(src(i), "cuda") for i in range(STEPS)]
+
+
+def mesh_tcfg():
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
+                       warmup_steps=1, total_steps=STEPS, seed=SEED, planned_kernels=True)
+
+
+def mesh_reference(torch, cnn, cfg) -> dict:
+    """The 1-rank results on the card: the planned fc_layer's output and
+    gradients, the planned conv2d op's output, and 3 planned AdamW steps of
+    cnn-vgg11 at batch 256 (losses and final parameters), all on the CPU."""
+    from repro_torch.core.fc_layer import fc_layer
+    from repro_torch.kernels.conv2d.ops import conv2d
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    ref, inputs = {}, mesh_inputs(torch, cnn, cfg)
+    for name in MESH_FC:
+        x, w, gy = inputs[name]
+        x, w = x.requires_grad_(True), w.requires_grad_(True)
+        y = fc_layer(x, w)
+        gx, gw = torch.autograd.grad((y * gy).sum(), (x, w))
+        ref[name] = {"y": y.detach().cpu(), "gx": gx.cpu(), "gw": gw.cpu()}
+    for name in MESH_CONVS:
+        x, f, b = inputs[name]
+        ref[name] = conv2d(x, f, bias=b, stride=1, padding=1, relu=True, pool=2).cpu()
+    tcfg = mesh_tcfg()
+    step = tr.make_train_step(cfg, tcfg)
+    params0 = init_params(cnn.param_defs(cfg), SEED)
+    batches = mesh_batches(torch, cnn, cfg)
+    _, grads = tr.loss_and_grads(tr.make_loss_fn(cfg, tcfg), params0, batches[0])
+    state = tr.init_state(cfg, tcfg, params0)
+    losses = []
+    for b in batches:
+        state, m = step(state, b)
+        losses.append(float(m["loss"]))
+    ref["dp"] = {"losses": losses, "params": {k: v.cpu() for k, v in state.params.items()},
+                 "step1_grads": {k: g.cpu() for k, g in grads.items()}}
+    torch.cuda.synchronize()
+    return ref
+
+
+def gloo_cuda_probe(torch) -> dict:
+    """Which gloo collectives take CUDA tensors (a record, not a path; the
+    transport uses these four).  Point-to-point is left out: gloo's send of
+    a CUDA tensor aborts the process (gloo::IoException from writev)."""
+    import datetime
+
+    import torch.distributed as dist
+
+    group = dist.new_group(backend="gloo", timeout=datetime.timedelta(seconds=30))
+    n = dist.get_world_size()
+    t = torch.ones(4, device="cuda")
+    probes = {
+        "all_reduce": lambda: dist.all_reduce(t.clone(), group=group),
+        "broadcast": lambda: dist.broadcast(t.clone(), 0, group=group),
+        "all_gather": lambda: dist.all_gather([torch.empty_like(t) for _ in range(n)], t,
+                                              group=group),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(4 * n, device="cuda"), torch.ones(4 * n, device="cuda"),
+            group=group),
+    }
+    out = {}
+    for name, fn in probes.items():
+        try:
+            fn()
+            torch.cuda.synchronize()
+            out[name] = "takes CUDA tensors"
+        except Exception as e:  # noqa: BLE001 - the probe records the refusal
+            out[name] = f"refused: {type(e).__name__}: {str(e).splitlines()[0][:160]}"
+    return out
+
+
+def mesh_cases(torch, rank: int, world: int, work: Path) -> dict:
+    """One rank's cases (a)-(c) (see the module docstring), checked against
+    the reference the parent saved; returns this rank's record."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.core.fc_layer import fc_layer_sharded
+    from repro_torch.core.schedule_sim import simulate_ring
+    from repro_torch.kernels.conv2d.bwd import conv2d_wgrad_kernel
+    from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
+    from repro_torch.kernels.matmul.bwd import (
+        matmul_dxdw_kernel, matmul_nt_kernel, matmul_tn_kernel,
+    )
+    from repro_torch.kernels.matmul.matmul import matmul_kernel
+    from repro_torch.models import cnn
+    from repro_torch.models.module import init_params
+    from repro_torch.plan import get_op
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import train as tr
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    kernels = {"conv2d": conv2d_kernel, "matmul": matmul_kernel,
+               "conv2d_wgrad": conv2d_wgrad_kernel, "matmul_nt": matmul_nt_kernel,
+               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
+    cfg = get_config("cnn-vgg11")
+    ref = torch.load(work.parent / "ref.pt")
+    inputs = mesh_inputs(torch, cnn, cfg)
+    rec = {"rank": rank, "fc": {}, "conv": {}}
+    failed = []
+
+    def err(got, want, what: str) -> dict:
+        if tuple(got.shape) != tuple(want.shape):
+            failed.append(f"{what}: shape {tuple(got.shape)} != {tuple(want.shape)}")
+            return {"shape": list(got.shape), "want_shape": list(want.shape)}
+        e, sc = max_err(got.cpu(), want), scale(want)
+        if not e <= TOL * sc:
+            failed.append(f"{what}: err {e} > {TOL} x {sc}")
+        return {"max_abs_err": e, "scale": sc}
+
+    # (a) fc_layer_sharded over a model axis of R, and (b) the conv partitions.
+    zero_counts(kernels)
+    model = coll.Mesh((world,), ("model",))
+    mm = get_op("matmul")
+    for name, (m, k, n) in MESH_FC.items():
+        x0, w0, gy = inputs[name]
+        hops = simulate_ring(m=m, n=n, k=k, devices=world).intercluster // (m * k // world)
+        for st in MESH_STRATEGIES:
+            picked = mm.plan_sharded(x0, w0, mesh=model, axis="model", strategy=st).strategy
+            x, w = x0.clone().requires_grad_(True), w0.clone().requires_grad_(True)
+            coll.STATS.reset()
+            y = fc_layer_sharded(x, w, model, axis="model", strategy=st)
+            fwd = dict(coll.STATS.calls)
+            gx, gw = torch.autograd.grad((y * gy).sum(), (x, w))
+            tag = f"{name}.{st or 'auto'}"
+            r = {"strategy": picked, "y": err(y.detach(), ref[name]["y"], f"{tag} y"),
+                 "gx": err(gx, ref[name]["gx"], f"{tag} gx"),
+                 "gw": err(gw, ref[name]["gw"], f"{tag} gw"),
+                 "collectives": dict(coll.STATS.calls)}
+            if picked == "ring":
+                r["ppermutes_fwd"] = fwd.get("ppermute", 0)
+                r["simulate_ring_hops"] = hops // world
+                check(r["ppermutes_fwd"] == hops // world == world - 1,
+                      f"rank {rank} {name}: ring permutes {fwd} vs simulate_ring {hops}")
+            rec["fc"][tag] = r
+    conv = get_op("conv2d")
+    for name in MESH_CONVS:
+        x, f, b = inputs[name]
+        for st in ("batch", "stack"):
+            ss = conv.plan_sharded(x, f, b, mesh=model, axis="model", strategy=st,
+                                   padding=1, pool=2)
+            out = conv.sharded(x, f, b, schedule=ss, mesh=model, padding=1, relu=True, pool=2)
+            rec["conv"][f"{name}.{st}"] = dict(err(out, ref[name], f"{name}.{st}"),
+                                               algorithm=ss.algorithm,
+                                               local_blocks=dict(ss.schedule.blocks),
+                                               shapes=[list(t.shape) for t in (x, f, b)])
+    torch.cuda.synchronize()
+    rec["case_launches"] = {n: k.launches for n, k in kernels.items()}
+
+    # (c) the data-parallel cnn-vgg11 step on a data axis of R.
+    ctx = ParallelCtx(mesh=coll.Mesh((world,), ("data",)), dp_axes=("data",))
+    tcfg = mesh_tcfg()
+    plan = cnn.plan_training(cfg, BATCH, mesh=ctx.plan_mesh(), shard_axis="data",
+                             shard_strategy="batch")
+    local = {k: s.schedule for k, s in plan.items()}
+    calls = train_calls(cnn, cl, cfg, local, BATCH // world)
+    want = {k: STEPS * n for k, n in per_kernel(calls, kernels).items()}
+    params0 = init_params(cnn.param_defs(cfg), SEED)
+    batches = mesh_batches(torch, cnn, cfg)
+    step = tr.make_train_step(cfg, tcfg, parallel=ctx)
+    state = tr.init_state(cfg, tcfg, params0)
+    zero_counts(kernels)
+    coll.STATS.reset()
+    losses, ms = [], []
+    for b in batches:
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, b)
+        end.record()
+        end.synchronize()
+        losses.append(float(m["loss"]))
+        ms.append(start.elapsed_time(end))
+    got = {n: k.launches for n, k in kernels.items()}
+    check(got == want, f"rank {rank}: mesh launches {got} != sharded plan {want}")
+    stats = coll.STATS.as_dict()
+    for a, b in zip(losses, ref["dp"]["losses"]):
+        if not abs(a - b) <= LOSS_TOL * max(1.0, abs(b)):
+            failed.append(f"losses {losses} vs {ref['dp']['losses']}")
+
+    # One more step with every collective synchronized: its host time apart.
+    coll.STATS.reset(sync=True)
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    step(state, batches[0])
+    end.record()
+    end.synchronize()
+    synced = dict(coll.STATS.as_dict(), step_ms=start.elapsed_time(end))
+    coll.STATS.reset()
+
+    # Step-1 gradients against the plain step on the ranks' own decisions.
+    shard = tr.shard_batch(cfg, ctx, batches[0])
+    loss1, grads = tr.loss_and_grads(tr.make_loss_fn(cfg, tcfg, ctx), params0, shard)
+    loss1, grads = tr.all_reduce_mean(ctx, loss1, grads)
+    mine = planned_decisions(torch, cfg, params0, shard["images"], local)
+    decisions = {k: coll.all_gather(v.to(torch.uint8) if v.dtype == torch.bool else v,
+                                    ctx.mesh, "data", 0) for k, v in mine.items()}
+    decisions["fc1"] = decisions["fc1"].bool()
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params0.items()}
+    plain = decided_plain_loss(torch, cfg, leaves, batches[0], decisions)
+    pgrads = dict(zip(leaves, torch.autograd.grad(plain, list(leaves.values()))))
+    plain_loss = float(plain.detach())
+    if not abs(float(loss1) - plain_loss) <= LOSS_TOL * max(1.0, abs(plain_loss)):
+        failed.append(f"step-1 loss {float(loss1)} vs {plain_loss}")
+    step1 = {k: err(g, pgrads[k].cpu(), f"step-1 grad {k}") for k, g in grads.items()}
+    # The parameters after 3 steps against the 1-rank planned step's.  Its
+    # forward decides near-tie pools apart from the ranks' (each of the two
+    # steps' gradients is held against a plain step on its own decisions),
+    # so step-1 gradients differ by up to D a leaf, and AdamW's first update
+    # is about lr x sign(g): an element whose step-1 gradient lies within D
+    # of zero may take the other sign.  Such elements may differ past
+    # TOL x scale, and no more than MESH_NEAR_TIE_SHARE of a leaf; every
+    # other element must agree within it.
+    params = {}
+    for k, v in state.params.items():
+        want, got_p = ref["dp"]["params"][k].double(), v.cpu().double()
+        g1 = ref["dp"]["step1_grads"][k].double()
+        d = float((grads[k].cpu().double() - g1).abs().max())
+        off = (got_p - want).abs() > TOL * scale(want)
+        away = off & (g1.abs() > d)
+        params[k] = {"max_abs_err": max_err(got_p, want), "scale": scale(want),
+                     "step1_grad_diff": d, "n_past_tol": int(off.sum()),
+                     "n_past_tol_away_from_ties": int(away.sum()), "numel": want.numel()}
+        if away.any() or off.sum() > max(2, MESH_NEAR_TIE_SHARE * want.numel()):
+            failed.append(f"params {k}: {params[k]}")
+    rec["dp"] = {"losses": losses, "reference_losses": ref["dp"]["losses"], "step_ms": ms,
+                 "params_after_3": params, "step1_grads": step1, "launches": got,
+                 "launches_per_step": {k: n // STEPS for k, n in got.items()},
+                 "collectives": stats, "synced_step": synced,
+                 "local_batch": BATCH // world,
+                 "plan_words": {"hbm": sum(s.hbm_words for s in plan.values()),
+                                "ici": sum(s.ici_words for s in plan.values())}}
+    if world == 2:
+        rec["gloo_cuda_probe"] = gloo_cuda_probe(torch)
+    rec["failed"] = failed
+    return rec
+
+
+def mesh_rank(rank: int, world: int, work: Path) -> int:
+    """The entry of one rank process (``chip_smoke.py --mesh-rank``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        rec = mesh_cases(torch, rank, world, work)
+    finally:
+        dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    check(not rec["failed"], f"rank {rank}: {rec['failed']}")
+    return 0
+
+
+def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
+    """Cases (a)-(c) on R ranks sharing the card; the 1-rank reference
+    first, in this process.  Returns the kernels the data-parallel plan
+    launches."""
+    from repro_torch.core import conv_layer as cl
+
+    t0 = time.perf_counter()
+    base = SCRATCH / "mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    torch.save(mesh_reference(torch, cnn, cfg), base / "ref.pt")
+    zero_counts(kernels)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("mesh", 0)
+        results[name]["launches_by_path"].setdefault("mesh_cases", 0)
+    for world in MESH_RANKS:
+        work = base / f"r{world}"
+        work.mkdir()
+        t_ranks = time.perf_counter()
+        logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
+                                   str(r), str(world), str(work)],
+                                  stdout=logs[r], stderr=subprocess.STDOUT)
+                 for r in range(world)]
+        deadline = time.monotonic() + MESH_TIMEOUT
+        try:
+            # A rank that fails leaves the others waiting in a collective:
+            # stop them all at the first failure (or at the deadline).
+            while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+                if any(p.poll() not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                p.wait()
+            for f in logs:
+                f.close()
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(world) if (work / f"rank{r}.json").exists()]
+        bad = [(r, p.returncode, (work / f"rank{r}.log").read_text()[-3000:])
+               for r, p in enumerate(procs) if p.returncode]
+        if bad:
+            emit(phase="mesh", ranks=world, failed=True, ranks_records=recs)
+        check(not bad, f"mesh ranks failed (or outlived {MESH_TIMEOUT} s): {bad}")
+        for name in kernels:
+            results[name]["launches_by_path"]["mesh"] += sum(
+                r["dp"]["launches"].get(name, 0) for r in recs)
+            results[name]["launches_by_path"]["mesh_cases"] += sum(
+                r["case_launches"].get(name, 0) for r in recs)
+        emit(phase="mesh", ranks=world, card=card,
+             setup=f"{world} processes sharing one H100 over gloo (which stages CUDA "
+                   "tensors through host memory); not multi-chip or scaling numbers",
+             seconds=time.perf_counter() - t_ranks, tolerance=TOL, loss_tolerance=LOSS_TOL,
+             ranks_records=recs)
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="mesh", seconds=time.perf_counter() - t0)
+    # The kernels the data-parallel plan launches (the same set at every R).
+    local = {k: v.schedule for k, v in cnn.plan_training(
+        cfg, BATCH, mesh={"data": MESH_RANKS[0]}, shard_axis="data",
+        shard_strategy="batch").items()}
+    calls = train_calls(cnn, cl, cfg, local, BATCH // MESH_RANKS[0])
+    return {k for k, n in per_kernel(calls, kernels).items() if n}
+
+
 def main() -> int:
     t_script = time.perf_counter()
+    if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
+        return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -3670,6 +4062,9 @@ def main() -> int:
     ef_state = phase_int8_ef(torch, cnn, cfg, kernels, results)
     phase_ckpt(torch, cnn, cfg, kernels, results, ef_state, card)
     del ef_state
+    for name in phase_mesh(torch, cnn, cfg, kernels, results, card):
+        check(results[name]["launches_by_path"]["mesh"] > 0,
+              f"{name}: no launch on the mesh path")
 
     from repro_torch.models import transformer as tf
 

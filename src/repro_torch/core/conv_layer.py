@@ -8,8 +8,10 @@
   * "alg2"  - Delta_O output stacking at the full-plane strip;
   * "strip" - Alg 2 + spatial strip tiling: the planner trades strip height
               against Delta_O (and, unpinned, direct against im2col);
-  * "alg3"  - Alg 2's blocking; its ring reuse of input slices across
-              devices needs a mesh, so on one device it runs Alg 2's kernel.
+  * "alg3"  - Alg 2's blocking within each device; its ring reuse of input
+              slices across devices is core/ring.py's, which a mesh runs
+              (``plan(..., mesh=)``, ``fc_layer_sharded(strategy="ring")``);
+              on one device it runs Alg 2's kernel.
 An explicit :class:`repro_torch.plan.Schedule` (``schedule=``) overrides the
 planner.  :func:`conv_block` fuses bias + ReLU + optional max-pool into the
 kernel's flush.
@@ -256,9 +258,14 @@ def conv_block(x, f, b, stride=1, padding=0, pool=1, strategy="strip",
 
 
 def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
-         machine=None, strategy="strip", algorithm=None, autotune=None) -> Schedule:
+         machine=None, strategy="strip", mesh=None, shard_axis="data",
+         shard_strategy=None, algorithm=None, autotune=None):
     """Plan this layer without running it: the Schedule the kernel would
-    use for operands of these shapes.  ``algorithm`` pins one family of the
+    use for operands of these shapes.  With ``mesh=`` the mesh-aware
+    planner returns a ShardedSchedule: the device partitioning ("batch" or
+    "stack" data parallelism over ``shard_axis``, pinnable with
+    ``shard_strategy=``) plus the HBM/ICI word split; a single-device mesh
+    degenerates to the meshless Schedule.  ``algorithm`` pins one family of the
     two-level argmin ("direct" / "im2col"); the default lets both compete
     (the paper strategies pin blocks as :func:`strategy_pins` maps them,
     the same pins the layer's forward plans with).  ``autotune`` ("off" |
@@ -279,19 +286,20 @@ def plan(x_shape, f_shape, *, stride=1, padding=0, pool=1, in_bytes=4,
         H_O=H_O, W_O=W_O, F=F, S=stride, d_in=d_in, d_out=d_out,
         in_bytes=in_bytes, pool=_fused_pool(H_O, W_O, pool), batch=B,
         padding=padding, H_I=H, W_I=W, block_do=block_do, block_h=block_h,
-        algorithm=algorithm), machine=machine, policy=autotune)
+        algorithm=algorithm), machine=machine, mesh=mesh, axis=shard_axis,
+        strategy=shard_strategy, policy=autotune)
     if machine.name == H100.name and not s.fits(machine):
         # The CUDA kernels take only blocks that fit one block's shared
         # memory (as ``candidates()`` keeps on the H100).
         raise PlanRejected(
             f"conv2d: strategy {strategy!r} at {tuple(x_shape)} x {tuple(f_shape)} "
-            f"needs {s.vmem_bytes} B of shared memory, more than the "
+            f"needs {local_schedule(s).vmem_bytes} B of shared memory, more than the "
             f"{machine.usable_for_working_set(2)} B one block holds")
     return s
 
 
 def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
-             machine=None, autotune=None) -> dict:
+             machine=None, mesh=None, shard_axis="data", autotune=None) -> dict:
     """Backward-pass Schedules for this layer's shapes: the dgrad and
     wgrad kernels autograd will run, plus — on the recompute path only —
     the pre-epilogue recompute conv of :func:`conv_block`.  Pass (a subset
@@ -301,8 +309,11 @@ def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
     output plane tiles evenly, the dgrad cell is planned as its
     ``fused_epilogue`` variant and the "recompute" entry is dropped.
     Geometries outside the dgrad contract (padding > F-1) return no
-    "dgrad" key.  The backward cells autotune through the same
-    ``autotune=`` policy as the forward (each op is its own cache cell).
+    "dgrad" key.  With ``mesh=`` every entry is a ShardedSchedule: dgrad
+    and the recompute shard with the batch (no collective), the wgrad
+    charges the Alg-4 tree reduction of dF as ici_words.  The backward
+    cells autotune through the same ``autotune=`` policy as the forward
+    (each op is its own cache cell).
     """
     from repro_torch.plan import autotune as at
 
@@ -315,7 +326,8 @@ def plan_bwd(x_shape, f_shape, *, stride=1, padding=0, pool=None, in_bytes=4,
     fused = pool is not None and _fused_pool(H_O, W_O, pool) == pool
 
     def res(op, **shape):
-        return at.resolve(op, shape, machine=machine, policy=autotune)
+        return at.resolve(op, shape, machine=machine, mesh=mesh, axis=shard_axis,
+                          policy=autotune)
 
     out = {
         "wgrad": res(

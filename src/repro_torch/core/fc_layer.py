@@ -3,6 +3,13 @@
 Forward: the blocked matmul kernel with the output stack block_n (Alg 5's
 Delta_O) and the K loop's accumulator (Alg 4's private partial output);
 blocks from the MatmulPlanner unless an explicit ``schedule`` is given.
+Across ranks the partitioning is a planner output: :func:`fc_layer_sharded`
+resolves a :class:`~repro_torch.plan.ShardedSchedule` through the
+``matmul`` op and the registry's sharded dispatch executes it ("psum":
+input depth sharded, the private partial outputs combined by Alg 4's tree
+reduction as one psum; "ring": Alg 3's neighbour-permute reuse,
+core/ring.py; "batch" and "tp"; the planner picks by modeled HBM + ICI
+words unless ``strategy=`` pins one).
 
 Backward is planned too: autograd runs the ``matmul_dx`` kernel (dX = dY @
 W^T, no W^T in device memory) and the ``matmul_dw`` kernel (dW = X^T @ dY),
@@ -73,25 +80,34 @@ def _fc_m(x_shape) -> int:
     return m
 
 
-def plan(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> Schedule:
+def plan(x_shape, w_shape, *, in_bytes=4, machine=None, mesh=None, shard_axis="model",
+         strategy=None, autotune=None):
     """Plan this layer without running it: the Schedule the kernel would
-    use for operands of these shapes.  ``autotune`` ("off" | "cache-only"
-    | "tune", default the process policy) lets a measured winner for this
-    cell override the modeled argmin."""
+    use for operands of these shapes.  With ``mesh=`` the returned
+    ShardedSchedule also carries the device partitioning over
+    ``shard_axis`` (pinned by ``strategy=``) and the HBM/ICI word split.
+    ``autotune`` ("off" | "cache-only" | "tune", default the process
+    policy) lets a measured winner for this cell override the modeled
+    argmin."""
     from repro_torch.plan import autotune as at
 
     k, n = w_shape
     return at.resolve("matmul", dict(m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes),
-                      machine=machine or H100, policy=autotune)
+                      machine=machine or H100, mesh=mesh, axis=shard_axis,
+                      strategy=strategy, policy=autotune)
 
 
-def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> dict:
+def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None, mesh=None, shard_axis="data",
+             autotune=None) -> dict:
     """Backward-pass Schedules for this layer's shapes: the dX and dW
     kernels autograd will run.  The "dx" cell prefers the fused dX/dW
     kernel (``algorithm="fused_dxdw"``: ``_fc_bwd`` dispatches on the tag
     and the "dw" schedule goes unused) and falls back to the direct pair
-    when the fused whole-M dX strip overflows the machine.  Both cells
-    honor the ``autotune=`` policy like the forward."""
+    when the fused whole-M dX strip overflows the machine.  With ``mesh=``
+    both come back as ShardedSchedules (dX shards with the batch; dW also
+    charges the Alg-4 tree reduction of the weight gradient as
+    ici_words).  Both cells honor the ``autotune=`` policy like the
+    forward."""
     from repro_torch.plan import autotune as at
 
     machine = machine or _BWD_MACHINE
@@ -99,12 +115,33 @@ def plan_bwd(x_shape, w_shape, *, in_bytes=4, machine=None, autotune=None) -> di
     shape = dict(m=_fc_m(x_shape), n=n, k=k, in_bytes=in_bytes)
 
     def res(op, **extra):
-        return at.resolve(op, dict(shape, **extra), machine=machine, policy=autotune)
+        return at.resolve(op, dict(shape, **extra), machine=machine, mesh=mesh,
+                          axis=shard_axis, policy=autotune)
 
     dx = res("matmul_dx", algorithm="fused_dxdw")
     if not dx.fits(machine):
         dx = res("matmul_dx")
     return {"dx": dx, "dw": res("matmul_dw")}
+
+
+def fc_layer_sharded(x, w, mesh, axis: str = "model",
+                     schedule: ShardedSchedule | None = None,
+                     strategy: str | None = "psum", machine=None, autotune=None):
+    """The FC layer across a mesh axis, partitioned by the planner.
+
+    Every rank passes the global x [M, K] and w [K, N] and gets the global
+    [M, N] (and, under autograd, the global gradients).  The default pins
+    the paper's Alg 4 ("psum": K sharded, one psum of private partial
+    outputs); ``strategy=None`` lets the mesh-aware MatmulPlanner choose
+    by modeled HBM + ICI words; an explicit ``schedule`` (from :func:`plan`
+    with ``mesh=``) overrides planning.  Execution goes through the
+    ``matmul`` op's sharded impl, which reads the specs off
+    ``schedule.partition``."""
+    op = get_op("matmul")
+    if schedule is None:
+        schedule = op.plan_sharded(x, w, mesh=mesh, axis=axis, strategy=strategy,
+                                   machine=machine or H100, autotune=autotune)
+    return op.sharded(x, w, schedule=schedule, mesh=mesh)
 
 
 def traffic(

@@ -19,6 +19,8 @@ from repro_torch.core.machine import H100, MachineModel
 from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
 from repro_torch.kernels.conv2d.ref import maxpool_ref
 from repro_torch.plan import ConvPlanner, Schedule, cuda_op, round_up
+from repro_torch.plan.sharded import partition_specs
+from repro_torch.runtime import collectives as coll
 
 
 def conv_out_extent(extent: int, padding: int, F: int, stride: int) -> int:
@@ -116,9 +118,37 @@ def _impl(
                        pool=int(pool), schedule=schedule)
 
 
+def _sharded_impl(
+    x, f, bias, *, schedule, mesh, stride=1, padding=0, relu=False, pool=1,
+    block_do=None, block_di=None, block_h=None,
+    algorithm=None, block_m=None, block_n=None, block_k=None,
+):
+    """Data-parallel conv from a ShardedSchedule: "batch" shards images,
+    "stack" shards output channels, each rank running the planned local
+    kernel on its shard; no interconnect words either way.  The specs come
+    from ``schedule.partition``, the blocking (and the algorithm tag) from
+    the per-device local Schedule, so both partitions apply to both
+    algorithm families."""
+    del block_do, block_di, block_h, algorithm, block_m, block_n, block_k
+    if schedule.strategy not in ("batch", "stack"):
+        raise NotImplementedError(f"conv2d sharded strategy {schedule.strategy!r}")
+    *in_specs, out_spec = partition_specs(schedule)
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+
+    def fn(xl, fl, bl):
+        return _local_impl(xl, fl, bl, stride=stride, padding=padding, relu=relu,
+                           pool=int(pool), schedule=schedule.schedule)
+
+    out = coll.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
+                         axis=schedule.axis)(x, f, bias)
+    return out if batched else out[0]
+
+
 conv2d_op = cuda_op(
     "conv2d", planner=ConvPlanner, shape_args=_shape_args, impl=_impl,
-    kernel=conv2d_kernel,
+    kernel=conv2d_kernel, sharded_impl=_sharded_impl,
 )
 
 

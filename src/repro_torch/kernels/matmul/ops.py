@@ -4,7 +4,11 @@ plan layer.
 Blocks come from :class:`repro_torch.plan.MatmulPlanner` (the paper's
 capacity argument, Sec. 3.1.2: grow the output stack block_n while the
 working set fits).  Operands are zero-padded to the blocks and the result
-sliced back, as ``repro/kernels/matmul/ops.py`` does.
+sliced back, as ``repro/kernels/matmul/ops.py`` does.  The registered
+``sharded_impl`` executes the planner's multi-device strategies (Alg 4's
+psum tree, Alg 3's ring, the batch and tp partitions) from a
+:class:`repro_torch.plan.ShardedSchedule`: the specs come from the
+schedule's partition, never from the call site.
 """
 
 from __future__ import annotations
@@ -14,6 +18,8 @@ import torch
 from repro_torch.core.machine import H100, MachineModel
 from repro_torch.kernels.matmul.matmul import matmul_kernel
 from repro_torch.plan import MatmulPlanner, Schedule, cuda_op, pad_dim, round_up
+from repro_torch.plan.sharded import partition_specs
+from repro_torch.runtime import collectives as coll
 
 
 def _shape_args(x, w, *, block_m=None, block_n=None, block_k=None):
@@ -40,9 +46,44 @@ def _impl(x, w, *, schedule, block_m=None, block_n=None, block_k=None):
     return out[:m, :n].reshape(*lead, n)
 
 
+def _sharded_impl(x, w, *, schedule, mesh, block_m=None, block_n=None, block_k=None):
+    """Run a ShardedSchedule's strategy; every spec is read off
+    ``schedule.partition``:
+
+      * "psum": K sharded, each rank runs the planned local layer on its
+        shard (the kernel forward, the planned dX/dW backward), the private
+        partial outputs merged by one psum (Alg 4's tree reduction);
+      * "ring": Alg 3's ring reuse (core/ring.py) — the resident X shard
+        permutes around the axis while each rank's full-K weight columns
+        stay put;
+      * "batch" / "tp": the planned local layer per rank — batch shards M
+        (X rows) with W replicated, tp shards N (W columns) with X
+        replicated; the output shards are gathered.
+    """
+    del block_m, block_n, block_k  # consumed by the planner
+    from repro_torch.core.fc_layer import fc_layer
+    from repro_torch.core.ring import ring_matmul_local
+
+    *in_specs, out_spec = partition_specs(schedule)
+    axis, local = schedule.axis, schedule.schedule
+    if schedule.strategy == "psum":
+        def fn(xl, wl):
+            return coll.psum(fc_layer(xl, wl, local).float(), mesh, axis).to(x.dtype)
+    elif schedule.strategy == "ring":
+        def fn(xl, wl):
+            return ring_matmul_local(xl, wl, mesh, axis, local)
+    elif schedule.strategy in ("batch", "tp"):
+        def fn(xl, wl):
+            return fc_layer(xl, wl, local)
+    else:
+        raise NotImplementedError(f"matmul sharded strategy {schedule.strategy!r}")
+    return coll.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
+                          axis=axis)(x, w)
+
+
 matmul_op = cuda_op(
     "matmul", planner=MatmulPlanner, shape_args=_shape_args, impl=_impl,
-    kernel=matmul_kernel,
+    kernel=matmul_kernel, sharded_impl=_sharded_impl,
 )
 
 

@@ -1,5 +1,5 @@
-"""Training launcher, single device: config -> params -> data -> AdamW
-steps through the family's loss, with checkpoints and resume.
+"""Training launcher: config -> mesh -> params -> data -> AdamW steps
+through the family's loss, with checkpoints and resume.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch cnn-vgg11 \
         --batch 256 --steps 3 --planned-kernels
@@ -13,6 +13,8 @@ steps through the family's loss, with checkpoints and resume.
         --device cpu --steps 4 --ckpt /tmp/run1 --ckpt-every 1
     # run the same command again after killing it: it resumes from the
     # last intact committed checkpoint.
+    PYTHONPATH=src python -m repro_torch.launch.train --family cnn \
+        --mesh 2x1 --device cpu --dist-backend gloo --steps 2 --planned-kernels
 
 ``--planned-kernels`` runs the family's planned kernels forward and
 backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
@@ -35,17 +37,41 @@ resumes from the newest intact committed checkpoint under ``--ckpt``;
 every ``--ckpt-every`` steps and at the end it saves one in the
 background (keeping the newest 3).  The learning-rate schedule spans
 ``--steps``, so a resumed run matches an uninterrupted one only under the
-same ``--steps``.  Mesh, chaos and heartbeat flags wait for the sharded
-and elastic trainer.
+same ``--steps``.
+
+``--mesh DxM`` (or ``PxDxM``) trains the cnn data-parallel on a mesh of
+``torch.distributed`` ranks, one rank a device, axes ``(data, model)``
+(``(pod, data, model)``): every rank draws the same global batch, runs the
+planned step on its shard of the data axis, and the gradients are averaged
+with one psum (``runtime.train``); parameters stay replicated, so the model
+axis replicates the step.  The process group comes from the environment
+``torchrun`` sets, or the launcher starts the ranks itself (one process a
+rank, a ``file://`` store in a temporary directory: loopback only).
+``--dist-backend`` names the group's backend (``nccl`` by default on the
+card, ``gloo`` with ``--device cpu``); on the card each rank takes device
+``rank mod device count``.  The launcher prints the JAX launcher's
+``sharded plan`` line for the plan the step runs (every stage's "batch"
+partition over the data axis), after ``validate_sharded_plan``.  A token
+family on more than one device raises: its FSDP specs, sequence-parallel
+attention and expert parallelism wait for ROADMAP queue 1 #5b, and
+``zero1`` with them; the chaos and heartbeat flags wait for the elastic
+runtime (#6).
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import importlib
+import json
+import math
+import os
+import sys
+import tempfile
 import time
 
 import torch
+import torch.distributed as dist
 
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, get_config, smoke_config
@@ -53,9 +79,53 @@ from repro_torch.data.pipeline import ShardInfo
 from repro_torch.models.module import count_params, init_params
 from repro_torch.models.registry import FAMILIES, get_family, make_data_source
 from repro_torch.runtime import train as tr
+from repro_torch.runtime.collectives import BACKENDS, Mesh
+from repro_torch.runtime.parallel import ParallelCtx, data_axis
 
 # Chunks per sequence of the token families' chunked cross-entropy.
 LOSS_CHUNKS = 4
+
+
+def parse_mesh(spec: str):
+    dims = tuple(int(x) for x in spec.split("x"))
+    if len(dims) == 3:
+        return dims, ("pod", "data", "model")
+    if len(dims) == 2:
+        return dims, ("data", "model")
+    raise ValueError(f"--mesh must be DxM or PxDxM, got {spec!r}")
+
+
+def _rank_entry(rank: int, argv: list, world: int, backend: str, init_method: str,
+                out_path: str) -> None:
+    """One rank of a mesh the launcher started itself: join the group,
+    train, and (rank 0) write the history for the parent."""
+    dist.init_process_group(backend, init_method=init_method, rank=rank,
+                            world_size=world)
+    try:
+        history = main(argv)
+        if rank == 0:
+            with open(out_path, "w") as f:
+                json.dump(history, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def _spawn_ranks(argv: list, world: int, backend: str) -> list[dict]:
+    """Start ``world`` ranks of this launcher as processes over a
+    ``file://`` store and return rank 0's history; a rank that fails
+    raises here."""
+    import torch.multiprocessing as mp
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "history.json")
+        # By module name: under ``python -m`` this module is ``__main__``,
+        # which the spawned ranks cannot import by that name.
+        entry = importlib.import_module("repro_torch.launch.train")._rank_entry
+        mp.start_processes(entry, args=(argv, world, backend,
+                                        f"file://{os.path.join(tmp, 'store')}", out),
+                           nprocs=world, start_method="spawn", join=True)
+        with open(out) as f:
+            return json.load(f)
 
 
 def main(argv=None) -> list[dict]:
@@ -65,6 +135,11 @@ def main(argv=None) -> list[dict]:
                     help="train a model family's reference arch (reduced "
                          "smoke config) instead of naming an --arch")
     ap.add_argument("--smoke", action="store_true", help="reduced config")
+    ap.add_argument("--mesh", default="1x1",
+                    help="DxM or PxDxM ranks, one a device (see the module docstring)")
+    ap.add_argument("--dist-backend", default=None, choices=BACKENDS,
+                    help="the process group's backend (default: nccl on the card, "
+                         "gloo with --device cpu)")
     ap.add_argument("--steps", type=int, default=100)
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--seq", type=int, default=256)
@@ -93,13 +168,9 @@ def main(argv=None) -> list[dict]:
                          "$REPRO_AUTOTUNE_CACHE or ~/.cache/repro_torch/"
                          "autotune.json)")
     args = ap.parse_args(argv)
-
-    if args.autotune != "off" or args.autotune_cache:
-        from repro_torch.plan import autotune as at
-
-        at.set_policy(args.autotune, args.autotune_cache, device=args.device)
-        print(f"autotune: policy={args.autotune} "
-              f"cache={at.get_cache().path} ({len(at.get_cache())} cells)", flush=True)
+    dims, axes = parse_mesh(args.mesh)
+    world = math.prod(dims)
+    backend = args.dist_backend or ("gloo" if args.device == "cpu" else "nccl")
 
     if args.arch is None:
         if args.family is None:
@@ -112,6 +183,30 @@ def main(argv=None) -> list[dict]:
             ap.error(f"--family {args.family} does not match arch {args.arch} "
                      f"(family {cfg.family!r})")
         cfg = dataclasses.replace(cfg, family=args.family)
+    fam = get_family(cfg.family)
+    if world > 1 and not hasattr(fam, "batch_shard_specs"):
+        raise NotImplementedError(
+            f"--mesh {args.mesh} for the {cfg.family!r} family: the token families on "
+            "a mesh (FSDP specs, sequence-parallel attention, expert parallelism, "
+            "zero1) wait for ROADMAP queue 1 #5b")
+    if world > 1 and not dist.is_initialized():
+        if "RANK" not in os.environ:  # start the ranks here
+            return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],
+                                world, backend)
+        dist.init_process_group(backend, init_method="env://")
+    rank = dist.get_rank() if world > 1 else 0
+
+    def say(*a) -> None:
+        if rank == 0:
+            print(*a, flush=True)
+
+    if args.autotune != "off" or args.autotune_cache:
+        from repro_torch.plan import autotune as at
+
+        at.set_policy(args.autotune, args.autotune_cache, device=args.device)
+        say(f"autotune: policy={args.autotune} "
+            f"cache={at.get_cache().path} ({len(at.get_cache())} cells)")
+
     tcfg = TrainConfig(
         param_dtype="float32", compute_dtype="float32", learning_rate=args.lr,
         warmup_steps=min(100, args.steps // 10 + 1), total_steps=args.steps,
@@ -120,11 +215,32 @@ def main(argv=None) -> list[dict]:
         planned_kernels=args.planned_kernels,
     )
     device = torch.device(args.device)
-    fam = get_family(cfg.family)
+    if world > 1 and device.type == "cuda":
+        device = torch.device("cuda", rank % torch.cuda.device_count())
+        torch.cuda.set_device(device)
     defs = fam.param_defs(cfg)
-    print(f"params: {count_params(defs) / 1e6:.1f}M | arch {cfg.name} "
-          f"| {tcfg.compute_dtype} compute | device {device} "
-          f"| planned kernels {tcfg.planned_kernels}", flush=True)
+    say(f"params: {count_params(defs) / 1e6:.1f}M | arch {cfg.name} "
+        f"| {tcfg.compute_dtype} compute | device {device} "
+        f"| planned kernels {tcfg.planned_kernels}")
+
+    ctx = None
+    if world > 1:
+        mesh = Mesh(dims, axes)
+        ctx = ParallelCtx(mesh=mesh, dp_axes=tuple(a for a in axes if a != "model"),
+                          tp_axis="model")
+        say(f"mesh {mesh.shape} ({world} ranks, {backend})")
+        # The plan the data-parallel step runs, against this mesh: every
+        # stage's "batch" partition over the data axis, its ici_words the
+        # gradient all-reduce.
+        from repro_torch.plan.sharded import validate_sharded_plan
+
+        splan = fam.plan_training(cfg, args.batch, mesh=ctx.plan_mesh(),
+                                  shard_axis=data_axis(ctx), shard_strategy="batch",
+                                  autotune=args.autotune)
+        validate_sharded_plan(splan, ctx.plan_mesh())
+        hbm = sum(s.hbm_words for s in splan.values())
+        ici = sum(s.ici_words for s in splan.values())
+        say(f"sharded plan: {len(splan)} kernels | modeled step words hbm={hbm} ici={ici}")
 
     params = init_params(defs, tcfg.seed, device=device,
                          dtype=getattr(torch, tcfg.param_dtype))
@@ -136,8 +252,10 @@ def main(argv=None) -> list[dict]:
         restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
         if restored is not None:
             state, start = restored, last + 1
-            print(f"resumed from step {last} ({args.ckpt})", flush=True)
-    step_fn = tr.make_train_step(cfg, tcfg)
+            say(f"resumed from step {last} ({args.ckpt})")
+    step_fn = (tr.make_train_step(cfg, tcfg) if ctx is None
+               else tr.make_train_step(cfg, tcfg, parallel=ctx))
+    # Every rank draws the same global batch; the step takes its shard.
     source = make_data_source(cfg, args.batch, args.seq, ShardInfo(0, 1),
                               seed=tcfg.seed)
 
@@ -165,19 +283,21 @@ def main(argv=None) -> list[dict]:
                    "seconds": time.perf_counter() - t0}
             history.append(rec)
             if step % args.log_every == 0 or step == args.steps - 1:
-                print(f"step {step}: loss {loss:.4f} | grad_norm "
-                      f"{rec['grad_norm']:.4f} | lr {rec['lr']:.3e} | "
-                      f"{rec['seconds'] * 1e3:.1f} ms", flush=True)
-            if args.ckpt and args.ckpt_every and step and step % args.ckpt_every == 0:
+                say(f"step {step}: loss {loss:.4f} | grad_norm "
+                    f"{rec['grad_norm']:.4f} | lr {rec['lr']:.3e} | "
+                    f"{rec['seconds'] * 1e3:.1f} ms")
+            # Ranks hold the same state: rank 0 alone writes checkpoints.
+            if (args.ckpt and rank == 0 and args.ckpt_every and step
+                    and step % args.ckpt_every == 0):
                 commit(step)
-        if args.ckpt:
+        if args.ckpt and rank == 0:
             commit(args.steps - 1)
-            print(f"final checkpoint: step {args.steps - 1}", flush=True)
+            say(f"final checkpoint: step {args.steps - 1}")
     finally:
         if pending is not None:
             pending.join()
-    print(f"done: {len(history)} steps executed, final loss "
-          f"{history[-1]['loss']:.4f}" if history else "done", flush=True)
+    say(f"done: {len(history)} steps executed, final loss "
+        f"{history[-1]['loss']:.4f}" if history else "done")
     return history
 
 

@@ -1,7 +1,7 @@
 """The paper's own domain: a CNN built from core.conv_layer and
 core.fc_layer (VGG-style conv/pool stages + two FC layers), forward and
 planned backward, with the family-registry hooks a trainer calls
-(``data_source``, ``make_loss_fn``, ``plan_training``).
+(``data_source``, ``make_loss_fn``, ``plan_training``, ``batch_shard_specs``).
 
 Config reuse: ``n_layers`` = conv stages, ``d_model`` = base channel width
 (doubled per stage), ``d_ff`` = FC hidden width, ``vocab`` = classes.
@@ -16,6 +16,7 @@ from repro_torch.core.conv_layer import conv_block
 from repro_torch.core.fc_layer import fc_layer
 from repro_torch.kernels.conv2d.ref import conv2d_fused_ref
 from repro_torch.models.module import ParamDef
+from repro_torch.plan.sharded import P
 
 IMG = 32  # input resolution (CIFAR-like)
 IN_CH = 3
@@ -56,6 +57,14 @@ def param_defs(cfg: ModelConfig) -> dict:
     return defs
 
 
+def batch_shard_specs(dp) -> dict:
+    """Family-registry hook: how this family's batch shards over the data
+    axes (``dp`` is an axis name or tuple).  Images shard their batch
+    dimension — the "batch" partition the mesh-aware ConvPlanner emits for
+    every conv stage — so the trainer needs no family special-casing."""
+    return {"images": P(dp, None, None, None), "labels": P(dp)}
+
+
 def data_source(cfg: ModelConfig, batch: int, shard, seed: int = 0):
     """Family-registry hook: this family trains on image/label batches."""
     from repro_torch.data.pipeline import SyntheticImageSource
@@ -63,7 +72,7 @@ def data_source(cfg: ModelConfig, batch: int, shard, seed: int = 0):
     return SyntheticImageSource(IMG, IN_CH, cfg.vocab, batch, shard, seed=seed)
 
 
-def make_loss_fn(cfg: ModelConfig, tcfg):
+def make_loss_fn(cfg: ModelConfig, tcfg, parallel=None):
     """Family-registry hook: image-classification cross-entropy over
     :func:`forward`.  Under ``tcfg.planned_kernels`` the step runs the full
     planned set — the fused forward kernels plus the planned dgrad/wgrad/
@@ -71,16 +80,32 @@ def make_loss_fn(cfg: ModelConfig, tcfg):
     (cached per batch size; an accumulated step plans at the micro-batch's
     size, under the process's autotune policy).  ``batch`` holds tensors on
     the compute device.  The CNN has no rematerialization, as in the JAX
-    package: ``tcfg.remat`` does not apply."""
+    package: ``tcfg.remat`` does not apply.
+
+    With ``parallel`` (a ``runtime.parallel.ParallelCtx``) ``batch`` is this
+    rank's shard of the data axis (``runtime.parallel.data_axis``) and the
+    schedules are the data-parallel plan: ``plan_training`` of the global
+    batch over that axis with every stage's "batch" partition pinned, whose
+    local schedules are planned at the shard's shapes."""
     dt = getattr(torch, tcfg.compute_dtype)
     plans: dict[int, dict] = {}
+
+    def plan(B: int, in_bytes: int) -> dict:
+        if parallel is None:
+            return plan_training(cfg, B, in_bytes=in_bytes)
+        from repro_torch.runtime.parallel import data_axis
+
+        axis = data_axis(parallel)
+        return plan_training(cfg, B * parallel.mesh.shape[axis], in_bytes=in_bytes,
+                             mesh=parallel.plan_mesh(), shard_axis=axis,
+                             shard_strategy="batch")
 
     def loss_fn(params, batch):
         imgs = batch["images"].to(dt)
         if tcfg.planned_kernels:
             B = imgs.shape[0]
             if B not in plans:
-                plans[B] = plan_training(cfg, B, in_bytes=imgs.element_size())
+                plans[B] = plan(B, imgs.element_size())
             out = forward(cfg, params, imgs, use_kernels=True, schedules=plans[B])
         else:
             out = forward(cfg, params, imgs, use_kernels=False)
@@ -136,13 +161,20 @@ def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
 
 
 def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
-                 machine=None, conv_algorithm=None, autotune=None) -> dict:
+                 machine=None, mesh=None, shard_axis: str = "data",
+                 shard_strategy: str | None = None, conv_algorithm=None,
+                 autotune=None) -> dict:
     """Plan every kernel launch of :func:`forward` without running it:
-    {stage name: Schedule}.  ``conv_algorithm`` pins one family of the conv
-    stages' two-level argmin ("direct"/"im2col"); the default lets both
-    compete per stage.  ``autotune=`` ("cache-only"/"tune") resolves every
-    stage through the measured-winner cache (repro_torch.plan.autotune)
-    before the argmin."""
+    {stage name: Schedule}.  With ``mesh=`` every stage comes back as a
+    ShardedSchedule (the conv stages shard the batch or the output stack
+    over ``shard_axis``, the FC stages pick their batch/psum/ring/tp
+    dataflow by modeled words; ``shard_strategy`` pins one partition for
+    every stage) — :func:`forward` consumes either flavor, a 1-device mesh
+    reproducing the meshless plans exactly.  ``conv_algorithm`` pins one
+    family of the conv stages' two-level argmin ("direct"/"im2col"); the
+    default lets both compete per stage.  ``autotune=``
+    ("cache-only"/"tune") resolves every stage through the measured-winner
+    cache (repro_torch.plan.autotune) before the argmin."""
     from repro_torch.core import conv_layer as cl
     from repro_torch.core import fc_layer as fl
 
@@ -150,36 +182,44 @@ def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
     for name, x_shape, w_shape in _stage_geometry(cfg, batch):
         if name.startswith("conv"):
             out[name] = cl.plan(x_shape, w_shape, stride=1, padding=F // 2,
-                                pool=2, in_bytes=in_bytes, machine=machine,
+                                pool=2, in_bytes=in_bytes, machine=machine, mesh=mesh,
+                                shard_axis=shard_axis, shard_strategy=shard_strategy,
                                 algorithm=conv_algorithm, autotune=autotune)
         else:
-            out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes,
-                                machine=machine, autotune=autotune)
+            out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes, machine=machine,
+                                mesh=mesh, shard_axis=shard_axis,
+                                strategy=shard_strategy, autotune=autotune)
     return out
 
 
 def plan_training(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
-                  machine=None, conv_algorithm=None, autotune=None) -> dict:
+                  machine=None, mesh=None, shard_axis: str = "data",
+                  shard_strategy: str | None = None, conv_algorithm=None,
+                  autotune=None) -> dict:
     """:func:`plan_forward` plus every backward kernel autograd runs:
     "<stage>.dgrad"/"<stage>.wgrad" for conv stages (the fused-epilogue
     backward; a "<stage>.recompute" entry appears only on ragged
     geometries), "<stage>.dx"/"<stage>.dw" for FC stages.  Pass the result
     via ``schedules=`` so the whole training step runs pinned planned
-    kernels.  The backward stages resolve through the same ``autotune=``
-    policy."""
+    kernels.  With ``mesh=`` the wgrad/dw entries also charge the gradient
+    all-reduce (Alg 4's tree reduction) as ``ici_words`` — the modeled cost
+    of data-parallel training, split HBM vs interconnect.  The backward
+    stages resolve through the same ``autotune=`` policy."""
     from repro_torch.core import conv_layer as cl
     from repro_torch.core import fc_layer as fl
 
-    out = plan_forward(cfg, batch, in_bytes=in_bytes, machine=machine,
+    out = plan_forward(cfg, batch, in_bytes=in_bytes, machine=machine, mesh=mesh,
+                       shard_axis=shard_axis, shard_strategy=shard_strategy,
                        conv_algorithm=conv_algorithm, autotune=autotune)
     for name, x_shape, w_shape in _stage_geometry(cfg, batch):
         if name.startswith("conv"):
             # pool=2 matches forward()'s fused conv_block epilogue.
             bwd = cl.plan_bwd(x_shape, w_shape, stride=1, padding=F // 2, pool=2,
-                              in_bytes=in_bytes, machine=machine, autotune=autotune)
+                              in_bytes=in_bytes, machine=machine, mesh=mesh,
+                              shard_axis=shard_axis, autotune=autotune)
         else:
             bwd = fl.plan_bwd(x_shape, w_shape, in_bytes=in_bytes, machine=machine,
-                              autotune=autotune)
+                              mesh=mesh, shard_axis=shard_axis, autotune=autotune)
         for k, s in bwd.items():
             out[f"{name}.{k}"] = s
     return out

@@ -1,7 +1,8 @@
 """Model-family registry: family name -> module implementing the family
 protocol (``param_defs`` / ``forward`` / ``logits``) and the hooks the
 trainer and the server dispatch on (``data_source``, ``make_loss_fn``,
-``plan_training``, ``init_cache``, ``slot_decode_kwargs``) — no family
+``plan_training``, ``batch_shard_specs``, ``init_cache``,
+``slot_decode_kwargs``) — no family
 branching at the call sites.  The port has every family of the JAX
 package's registry: the cnn, the dense transformer (also registered as
 ``transformer``, the planned wing's name), the MoE, RWKV-6, Zamba2 and
@@ -12,6 +13,7 @@ generic chunked-CE loss (``runtime.train.make_loss_fn``); one with
 from __future__ import annotations
 
 from repro_torch.models import cnn, encdec, moe, rwkv6, transformer, zamba2
+from repro_torch.plan.sharded import P
 
 FAMILIES = {
     "dense": transformer,
@@ -43,6 +45,17 @@ def init_cache_slots(cfg, n_slots: int, max_seq: int, dtype, *, device=None):
             f"model family {cfg.family!r} has no init_cache hook; it cannot "
             "be served through repro_torch.serve (no decode state to slot)")
     return hook(cfg, n_slots, max_seq, dtype, device=device)
+
+
+def batch_shard_specs(cfg, dp) -> dict:
+    """The family's batch sharding specs over the data axes ``dp`` (an axis
+    name or tuple): its ``batch_shard_specs(dp)`` hook (the cnn's images
+    shard their batch dim, matching the sharded ConvPlanner's "batch"
+    partition), else the token families' default."""
+    hook = getattr(FAMILIES.get(cfg.family), "batch_shard_specs", None)
+    if hook is not None:
+        return hook(dp)
+    return {k: P(dp, None) for k in ("tokens", "labels")}
 
 
 def make_data_source(cfg, batch: int, seq: int, shard, seed: int = 0):

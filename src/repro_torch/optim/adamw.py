@@ -2,8 +2,10 @@
 update rule: f32 moments whatever the parameter dtype, global-norm
 clipping, linear warmup then cosine decay to 10 %, decoupled weight decay
 on matrices only.  The update is functional — it returns new tensors and
-leaves its inputs alone, as the JAX version does.  (ZeRO-1 sharding of the
-moments waits for the sharded trainer.)
+leaves its inputs alone, as the JAX version does.  On a mesh the
+data-parallel step runs it alike on every rank over replicated moments
+(``runtime.train``); ZeRO-1 sharding of the moments (``zero1``) waits for
+ROADMAP queue 1 #5b.
 """
 
 from __future__ import annotations

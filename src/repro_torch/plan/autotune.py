@@ -28,8 +28,11 @@ different point of the same enumeration.
 
 Only a planner's rejection (:class:`~repro_torch.plan.planners.PlanRejected`)
 degrades a cell to the modeled argmin; a kernel that fails to build or
-launch while a candidate is timed raises.  (The JAX package's mesh proxies
-and ``run_mesh`` wait for the sharded trainer.)
+launch while a candidate is timed raises.  A mesh-bound cell resolves
+through the sharded planners (its key carries the mesh, the axis and a
+strategy pin) and replays from the cache; timing a multi-device candidate
+(the JAX package's per-device proxies and ``run_mesh``) waits for ROADMAP
+queue 1 #5b and raises.
 
 CLI: ``python -m repro_torch.plan.autotune --smoke [--device cpu]`` or
 ``--op matmul --shape m=256,n=4096,k=2048``.
@@ -50,7 +53,7 @@ import torch
 from repro_torch.core.machine import H100, MachineModel
 from repro_torch.plan.planners import PlanRejected, planner_for
 from repro_torch.plan.schedule import Schedule
-from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule
+from repro_torch.plan.sharded import MeshSpec, ShardedSchedule, local_schedule, mesh_spec
 
 # Bump to invalidate every cached winner (key derivation, record layout,
 # or timing-protocol changes all warrant it).
@@ -370,7 +373,8 @@ def _rebuild(op: str, shape: dict, rec: dict, machine: MachineModel, mesh,
     package's replay does."""
     blocks = {str(k): int(v) for k, v in rec.get("blocks", {}).items()}
     kwargs = {**shape, **blocks}
-    planner = planner_for(op, machine, mesh, axis)
+    planner = planner_for(op, machine, mesh, axis,
+                          rec.get("strategy") if mesh is not None else None)
     alg = rec.get("algorithm")
     if alg and (alg != "direct"
                 or "algorithm" in inspect.signature(planner.plan_local).parameters):
@@ -380,7 +384,7 @@ def _rebuild(op: str, shape: dict, rec: dict, machine: MachineModel, mesh,
 
 def tune(
     op, *, machine: MachineModel = H100, mesh=None, axis: str = "model",
-    topk: int = 4, iters: int = 3, warmup: int = 1, dtype=None,
+    strategy: str | None = None, topk: int = 4, iters: int = 3, warmup: int = 1, dtype=None,
     cache: AutotuneCache | None = None, force: bool = False, device=None,
     **shape,
 ) -> TuneReport:
@@ -401,7 +405,8 @@ def tune(
     if cache is None:  # NB: an empty cache is falsy (len 0) but valid
         cache = get_cache()
     dt = _dtype_for(dtype, shape.get("in_bytes"))
-    readable, digest = cache_key(opo.name, shape, dt, machine, mesh, axis)
+    mesh = mesh_spec(mesh) if mesh is not None else None
+    readable, digest = cache_key(opo.name, shape, dt, machine, mesh, axis, strategy)
     if not force:
         rec = cache.get(digest)
         if rec is not None:
@@ -411,8 +416,13 @@ def tune(
                 measurements=tuple(tuple(m) for m in rec.get("measured", ())),
                 cached=True)
 
-    planner = planner_for(opo.name, machine, mesh, axis)
+    planner = planner_for(opo.name, machine, mesh, axis, strategy)
     cands = planner.candidates(**shape)[: max(1, topk)]
+    if any(isinstance(c, ShardedSchedule) and c.devices > 1 for c in cands):
+        raise NotImplementedError(
+            f"timing {opo.name!r} candidates over {mesh.axes} (the per-device "
+            "proxies) waits for ROADMAP queue 1 #5b; resolve mesh cells with "
+            "policy 'off' or 'cache-only'")
     arrays, params = synthesize(opo.name, shape, dt, device)
     measured, timed = [], []
     _TUNING = True
@@ -442,14 +452,16 @@ def tune(
 
 def lookup(
     op: str, shape: dict, *, machine: MachineModel = H100, mesh=None,
-    axis: str = "model", cache: AutotuneCache | None = None, dtype=None,
+    axis: str = "model", strategy: str | None = None,
+    cache: AutotuneCache | None = None, dtype=None,
 ) -> Schedule | ShardedSchedule | None:
     """The cached winner of one cell, rebuilt through the planner — or
     ``None`` on a miss.  Never times anything (``cache-only`` safe)."""
     if cache is None:  # NB: an empty cache is falsy (len 0) but valid
         cache = get_cache()
     dt = _dtype_for(dtype, shape.get("in_bytes"))
-    readable, digest = cache_key(op, shape, dt, machine, mesh, axis)
+    mesh = mesh_spec(mesh) if mesh is not None else None
+    readable, digest = cache_key(op, shape, dt, machine, mesh, axis, strategy)
     memo = cache._memo
     if digest in memo:
         return memo[digest]
@@ -471,7 +483,7 @@ def lookup(
 
 def tuned_schedule(
     op: str, shape: dict, *, machine: MachineModel = H100, mesh=None,
-    axis: str = "model", policy: str | None = None,
+    axis: str = "model", strategy: str | None = None, policy: str | None = None,
     cache: AutotuneCache | None = None, dtype=None, device=None,
 ) -> Schedule | ShardedSchedule | None:
     """The autotune override for one resolution, or ``None`` when the
@@ -486,16 +498,17 @@ def tuned_schedule(
     if pol not in POLICIES:
         raise ValueError(f"autotune policy must be one of {POLICIES}, "
                          f"got {pol!r}")
-    got = lookup(op, shape, machine=machine, mesh=mesh, axis=axis, cache=cache,
-                 dtype=dtype)
+    got = lookup(op, shape, machine=machine, mesh=mesh, axis=axis, strategy=strategy,
+                 cache=cache, dtype=dtype)
     if got is not None or pol == "cache-only":
         return got
     try:
-        return tune(op, machine=machine, mesh=mesh, axis=axis, cache=cache,
-                    dtype=dtype, device=device, **shape).schedule
+        return tune(op, machine=machine, mesh=mesh, axis=axis, strategy=strategy,
+                    cache=cache, dtype=dtype, device=device, **shape).schedule
     except PlanRejected as e:
         dt = _dtype_for(dtype, shape.get("in_bytes"))
-        readable, digest = cache_key(op, shape, dt, machine, mesh, axis)
+        ms = mesh_spec(mesh) if mesh is not None else None
+        readable, digest = cache_key(op, shape, dt, machine, ms, axis, strategy)
         _warn_once(digest,
                    f"autotuning {op!r} failed ({e}); cell {readable}; "
                    "falling back to the modeled argmin")
@@ -504,17 +517,18 @@ def tuned_schedule(
 
 def resolve(
     op: str, shape: dict, *, machine: MachineModel = H100, mesh=None,
-    axis: str = "model", policy: str | None = None,
+    axis: str = "model", strategy: str | None = None, policy: str | None = None,
     cache: AutotuneCache | None = None, dtype=None, device=None,
 ) -> Schedule | ShardedSchedule:
     """Policy-aware schedule resolution (what every ``plan`` helper and
     the op registry route through): a cached/measured winner when the
     policy provides one, else the planner's modeled argmin."""
     got = tuned_schedule(op, shape, machine=machine, mesh=mesh, axis=axis,
-                         policy=policy, cache=cache, dtype=dtype, device=device)
+                         strategy=strategy, policy=policy, cache=cache, dtype=dtype,
+                         device=device)
     if got is not None:
         return got
-    return planner_for(op, machine, mesh, axis).plan(**shape)
+    return planner_for(op, machine, mesh, axis, strategy).plan(**shape)
 
 
 def warm(

@@ -28,7 +28,7 @@ from typing import ClassVar
 from repro_torch.core import ccr
 from repro_torch.core.machine import H100, MachineModel
 from repro_torch.plan.schedule import Schedule
-from repro_torch.plan.sharded import MeshSpec, ShardedSchedule
+from repro_torch.plan.sharded import MeshSpec, ShardCandidate, ShardedSchedule, mesh_spec
 
 
 class PlanRejected(ValueError):
@@ -62,17 +62,25 @@ def _strip_ladder(H_O: int, floor: int) -> list[int]:
 
 @dataclasses.dataclass(frozen=True)
 class ShardablePlanner:
-    """Shared planner base: a machine and an optional mesh.
+    """Shared planner base: a machine, an optional mesh, and the sharded
+    argmin.
 
     With ``mesh=None`` (the default) ``plan`` is the single-device capacity
-    argument.  A mesh whose ``shard_axis`` has one device degenerates to
-    that Schedule inside a :class:`ShardedSchedule`; partitioning over more
-    devices is not ported yet and raises.
+    argument.  With a mesh, ``plan`` returns a :class:`ShardedSchedule`:
+    the op's partition candidates (:meth:`_shard_candidates`: batch/stack
+    for the conv, psum/ring/batch/tp for the matmul) are each planned
+    locally on their per-device shapes, their mesh-total words split into
+    HBM and interconnect, and the candidate with the fewest total modeled
+    words wins — the paper's capacity argument, extended with a mesh axis.
+    ``strategy=`` pins one candidate the way ``block_*`` pins pin a block.
+    A single-device shard group degenerates to the meshless Schedule
+    inside a trivial wrapper.
     """
 
     machine: MachineModel = H100
     mesh: MeshSpec | None = None
     shard_axis: str = "model"
+    strategy: str | None = None
 
     def plan(self, **shape):
         if self.mesh is None:
@@ -114,16 +122,28 @@ class ShardablePlanner:
     def candidates(self, **shape) -> list:
         """Every (Sharded)Schedule the planner's argmin considers, sorted
         by modeled words (the plan() winner first): the local blocking
-        ladder, or, with a one-device mesh, its argmin in a ShardedSchedule
-        — the search space the measured-time autotuner benchmarks.  On the
-        H100 the list holds only what the port's kernels launch: a
-        candidate that overflows a block's shared memory is dropped (the
-        JAX package's ladders fall back to an unfit argmin, which the
-        interpreter runs), and a list left empty is a rejection."""
+        ladder; or, with a mesh, one locally-argmin'd ShardedSchedule per
+        partition strategy (psum vs ring vs batch/stack..., honoring a
+        ``strategy=`` pin) — the search space the measured-time autotuner
+        benchmarks.  On the H100 the list holds only what the port's
+        kernels launch: a candidate whose local schedule overflows a
+        block's shared memory is dropped (the JAX package's ladders fall
+        back to an unfit argmin, which the interpreter runs), and a list
+        left empty is a rejection."""
         if self.mesh is None:
             cands = self.local_candidates(**shape)
-        else:
+        elif self.shard_group == 1:
             cands = [self.plan_sharded(**shape)]
+        else:
+            pin = self.strategy
+            strategies = []
+            for c in self._shard_candidates(self.shard_group, **shape):
+                if c.strategy not in strategies and pin in (None, c.strategy):
+                    strategies.append(c.strategy)
+            if not strategies:
+                self.plan_sharded(**shape)  # raises the argmin's error
+            cands = [dataclasses.replace(self, strategy=st).plan_sharded(**shape)
+                     for st in strategies]
         if self.machine.name == H100.name:
             cands = [s for s in cands if s.fits(self.machine)]
             if not cands:
@@ -146,23 +166,49 @@ class ShardablePlanner:
 
     @property
     def shard_group(self) -> int:
-        """Extent of the partitioned mesh axis (1 when the mesh lacks it)."""
+        """Extent of the partitioned mesh axis (1 when the mesh lacks it —
+        the degenerate replicated case)."""
         if self.mesh is None or self.shard_axis not in self.mesh.axis_names:
             return 1
         return self.mesh.axis_size(self.shard_axis)
 
+    def _shard_candidates(self, group: int, **shape) -> list[ShardCandidate]:
+        """Partitionings this op can run; overridden per planner.  The
+        base offers only full replication, so any op degenerates safely."""
+        del group, shape
+        return [ShardCandidate(strategy="single", local_shape={}, partition=())]
+
     def plan_sharded(self, **shape) -> ShardedSchedule:
         if self.mesh is None:
             raise PlanRejected("plan_sharded needs a mesh-bound planner")
-        if self.shard_group != 1:
-            raise NotImplementedError(
-                f"{self.op!r} over {self.shard_group} devices: multi-device "
-                "partitions are not ported yet")
-        local = dataclasses.replace(self, mesh=None).plan(**shape)
-        return ShardedSchedule(
-            schedule=local, mesh=self.mesh, axis=self.shard_axis,
-            strategy="single", partition=(), hbm_loads=local.loads,
-            hbm_stores=local.stores, macs=local.macs)
+        group = self.shard_group
+        local_planner = dataclasses.replace(self, mesh=None, strategy=None)
+        # A 1-wide shard group has nothing to partition: every strategy
+        # degenerates to "single", so a pin is satisfied vacuously.
+        pin = self.strategy if group > 1 else None
+        best = None
+        for cand in self._shard_candidates(group, **shape):
+            if pin is not None and cand.strategy != pin:
+                continue
+            local = local_planner.plan(**{**shape, **cand.local_shape})
+            if cand.hbm_override is not None:
+                loads, stores = cand.hbm_override
+            else:
+                loads, stores = group * local.loads, group * local.stores
+            macs = (cand.macs_override if cand.macs_override is not None
+                    else group * local.macs)
+            ss = ShardedSchedule(
+                schedule=local, mesh=self.mesh, axis=self.shard_axis,
+                strategy=cand.strategy, partition=cand.partition,
+                hbm_loads=loads, hbm_stores=stores, ici_words=cand.ici_words,
+                macs=macs)
+            if best is None or ss.modeled_words < best.modeled_words:
+                best = ss
+        if best is None:
+            raise PlanRejected(
+                f"no {self.strategy!r} partitioning of {self.op!r} over mesh "
+                f"axis {self.shard_axis!r} (group={group}) fits shapes {shape}")
+        return best
 
 
 # ---------------------------------------------------------------------------
@@ -255,6 +301,27 @@ class ConvPlanner(ShardablePlanner):
         bdo = _align_down((budget - fixed) // per_bdo, lane) if budget > fixed else 0
         return min(bdo, m.block_cap("block_do", self._BDO_CAP),
                    round_up(d_out, lane))
+
+    def _shard_candidates(self, group: int, *, d_out: int, batch: int = 1,
+                          **shape) -> list[ShardCandidate]:
+        # On a mesh the forward conv shards as pure data parallelism:
+        # "batch" (each device convolves batch/P images) or "stack" (each
+        # device owns D_O/P output slices), no interconnect words either
+        # way; both apply to both algorithm families.  "single" is only the
+        # fallback when nothing divides.
+        del shape
+        ax = self.shard_axis
+        rep4 = (None, None, None, None)
+        cands = []
+        if group > 1 and batch % group == 0:
+            cands.append(ShardCandidate(
+                "batch", {"batch": batch // group},
+                ((ax, None, None, None), rep4, (None,), (ax, None, None, None))))
+        if group > 1 and d_out % group == 0:
+            cands.append(ShardCandidate(
+                "stack", {"d_out": d_out // group},
+                (rep4, (None, None, None, ax), (ax,), (None, None, None, ax))))
+        return cands or [ShardCandidate("single", {}, (rep4, rep4, (None,), rep4))]
 
     def plan_local(
         self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int, d_out: int,
@@ -503,6 +570,18 @@ class ConvDgradPlanner(ShardablePlanner):
 
     op: ClassVar[str] = "conv2d_dgrad"
 
+    def _shard_candidates(self, group: int, *, batch: int = 1,
+                          **shape) -> list[ShardCandidate]:
+        del shape
+        ax = self.shard_axis
+        rep4 = (None, None, None, None)
+        cands = []
+        if group > 1 and batch % group == 0:  # dX shards with the batch
+            cands.append(ShardCandidate(
+                "batch", {"batch": batch // group},
+                ((ax, None, None, None), rep4, (ax, None, None, None))))
+        return cands or [ShardCandidate("single", {}, (rep4, rep4, rep4))]
+
     def plan_local(
         self, *, H_O: int, W_O: int, F: int, S: int = 1, P: int = 0,
         d_in: int, d_out: int, in_bytes: int = 2, batch: int = 1,
@@ -653,6 +732,21 @@ class ConvWgradPlanner(ShardablePlanner):
         return min(bdo, m.block_cap("block_do", self._BDO_CAP),
                    round_up(d_out, lane))
 
+    def _shard_candidates(self, group: int, *, F: int, d_in: int, d_out: int,
+                          batch: int = 1, **shape) -> list[ShardCandidate]:
+        # Each device accumulates a private dF over its images; Alg 4's
+        # tree reduction of the private dFs is the interconnect bill.
+        del shape
+        ax = self.shard_axis
+        rep4 = (None, None, None, None)
+        cands = []
+        if group > 1 and batch % group == 0:
+            cands.append(ShardCandidate(
+                "batch", {"batch": batch // group},
+                ((ax, None, None, None), (ax, None, None, None), rep4),
+                ici_words=ccr.tree_reduce_words(group, F * F * d_in * d_out)))
+        return cands or [ShardCandidate("single", {}, (rep4, rep4, rep4))]
+
     def plan_local(
         self, *, H_O: int, W_O: int, F: int, S: int = 1, d_in: int,
         d_out: int, in_bytes: int = 2, batch: int = 1,
@@ -789,6 +883,38 @@ class MatmulPlanner(ShardablePlanner):
         stream = (bm * bk + bk * bn) * in_bytes * 2 if self.machine.charge_stream_blocks else 0
         return stream + bm * bn * acc_word
 
+    def _shard_candidates(self, group: int, *, m: int, n: int, k: int,
+                          **shape) -> list[ShardCandidate]:
+        # "batch" (rows sharded, no collective), "psum" (Alg 4: K sharded,
+        # private partial outputs tree-reduced), "ring" (Alg 3: K-sharded X
+        # permuted around the ring while each device keeps its full-K
+        # weight columns; every X word loaded from main memory once) and
+        # "tp" (W columns sharded, X replicated, the output shards
+        # gathered).
+        del shape
+        ax = self.shard_axis
+        rep2 = (None, None)
+        cands = []
+        if group > 1 and m % group == 0:
+            cands.append(ShardCandidate("batch", {"m": m // group},
+                                        ((ax, None), rep2, (ax, None))))
+        if group > 1 and k % group == 0:
+            cands.append(ShardCandidate(
+                "psum", {"k": k // group}, ((None, ax), (ax, None), rep2),
+                ici_words=ccr.tree_reduce_words(group, m * n)))
+        if group > 1 and k % group == 0 and n % group == 0:
+            ring = ccr.ring_traffic(m=m, n=n, k=k, devices=group)
+            cands.append(ShardCandidate(
+                "ring", {"n": n // group}, ((None, ax), (None, ax), (None, ax)),
+                ici_words=ring.intercluster,
+                hbm_override=(ring.main_loads, ring.main_stores),
+                macs_override=ring.macs))
+        if group > 1 and n % group == 0:
+            cands.append(ShardCandidate(
+                "tp", {"n": n // group}, ((None, None), (None, ax), (None, ax)),
+                ici_words=ccr.tree_reduce_words(group, m * n)))
+        return cands or [ShardCandidate("single", {}, (rep2, rep2, rep2))]
+
     def plan_local(
         self, *, m: int, n: int, k: int, in_bytes: int = 2,
         block_m: int | None = None, block_n: int | None = None,
@@ -897,6 +1023,16 @@ class MatmulDxPlanner(ShardablePlanner):
             critical_path_steps=ccr.grid_steps(grid),
         )
 
+    def _shard_candidates(self, group: int, *, m: int, **shape) -> list[ShardCandidate]:
+        del shape  # dX shards with the batch: each device its own rows
+        ax = self.shard_axis
+        rep2 = (None, None)
+        cands = []
+        if group > 1 and m % group == 0:
+            cands.append(ShardCandidate("batch", {"m": m // group},
+                                        ((ax, None), rep2, (ax, None))))
+        return cands or [ShardCandidate("single", {}, (rep2, rep2, rep2))]
+
     def plan_local(
         self, *, m: int, n: int, k: int, in_bytes: int = 2,
         block_m: int | None = None, block_n: int | None = None,
@@ -943,6 +1079,20 @@ class MatmulDwPlanner(ShardablePlanner):
     shapes."""
 
     op: ClassVar[str] = "matmul_dw"
+
+    def _shard_candidates(self, group: int, *, m: int, n: int, k: int,
+                          **shape) -> list[ShardCandidate]:
+        # "batch" shards the contraction: each device a private dW over its
+        # rows, tree-reduced as ici_words.
+        del shape
+        ax = self.shard_axis
+        rep2 = (None, None)
+        cands = []
+        if group > 1 and m % group == 0:
+            cands.append(ShardCandidate(
+                "batch", {"m": m // group}, ((ax, None), (ax, None), rep2),
+                ici_words=ccr.tree_reduce_words(group, k * n)))
+        return cands or [ShardCandidate("single", {}, (rep2, rep2, rep2))]
 
     def plan_local(
         self, *, m: int, n: int, k: int, in_bytes: int = 2,
@@ -1105,8 +1255,9 @@ class MoeFfnPlanner(ShardablePlanner):
     [d_model, d_ff]`` and down ``[cap, d_ff] @ [d_ff, d_model]`` — the
     compound-planner pattern again.  The mesh partitions ("batch": tokens
     sharded, every device streams every expert; "ep": experts sharded, the
-    routed rows crossing the interconnect as an all-to-all) come with the
-    sharded planner paths.
+    routed rows crossing the interconnect as an all-to-all) wait for the
+    token families' sharding (ROADMAP queue 1 #5b): over more than one
+    device the planner raises.
     """
 
     op: ClassVar[str] = "moe_ffn"
@@ -1117,6 +1268,13 @@ class MoeFfnPlanner(ShardablePlanner):
         """Rows per expert under the capacity dispatch — the
         ``models/moe.py`` formula."""
         return max(1, math.ceil(top_k * tokens / n_experts * capacity_factor))
+
+    def _shard_candidates(self, group: int, **shape) -> list[ShardCandidate]:
+        if group > 1:
+            raise NotImplementedError(
+                "moe_ffn over a mesh (the batch/ep partitions) waits for the "
+                "token families' sharding (ROADMAP queue 1 #5b)")
+        return super()._shard_candidates(group, **shape)
 
     def plan_local(
         self, *, tokens: int, d_model: int, d_ff: int, n_experts: int,
@@ -1238,13 +1396,16 @@ PLANNERS: dict[str, type] = {
 }
 
 
-def planner_for(op: str, machine: MachineModel = H100,
-                mesh: MeshSpec | None = None, shard_axis: str = "model"):
-    """The registered planner for an op name, bound to a machine (and,
-    when ``mesh`` is given, to a mesh)."""
+def planner_for(op: str, machine: MachineModel = H100, mesh=None,
+                shard_axis: str = "model", strategy: str | None = None):
+    """The registered planner for an op name, bound to a machine — and,
+    when ``mesh`` is given (a MeshSpec, a live mesh, a dict or (name, size)
+    pairs), to a mesh: its ``plan`` then emits a ShardedSchedule whose
+    partitioning over ``shard_axis`` is chosen by modeled words (or pinned
+    with ``strategy=``)."""
     try:
         cls = PLANNERS[op]
     except KeyError:
         raise KeyError(f"no planner registered for op {op!r}; "
                        f"known: {sorted(PLANNERS)}") from None
-    return cls(machine, mesh, shard_axis)
+    return cls(machine, None if mesh is None else mesh_spec(mesh), shard_axis, strategy)

@@ -11,7 +11,10 @@ Two objects:
   which raises on anything it does not take.  There is no fallback.
 * :class:`CudaOp` — one op: planner + ``shape_args`` + the schedule-driven
   layout code around the kernel (``impl``: padding, strips, slicing), with
-  plans cached per (planner, shapes).
+  plans cached per (planner, shapes); and, where the op has one, the
+  multi-device execution of a :class:`ShardedSchedule` (``sharded_impl``:
+  the psum tree, the ring, data parallelism over a
+  :class:`~repro_torch.runtime.collectives.Mesh`).
 
 :func:`with_reference_vjp` wires a layer's forward and planned backward
 into one ``torch.autograd.Function``.  Ops resolve lazily by name
@@ -32,7 +35,7 @@ import torch.nn.functional as F
 
 from repro_torch.core.machine import H100, MachineModel
 from repro_torch.plan.schedule import Schedule
-from repro_torch.plan.sharded import ShardedSchedule, local_schedule
+from repro_torch.plan.sharded import ShardedSchedule, local_schedule, mesh_spec
 
 NOT_DIFFERENTIABLE = ("a kernel is not differentiable by itself: train through "
                       "the layer functions (core.conv_layer.conv_block/conv_layer, "
@@ -106,7 +109,8 @@ class CudaOp:
 
     ``shape_args(*tensors, **params)`` maps operands to the planner's
     keyword shapes; ``impl(*tensors, schedule=, **params)`` runs the op from
-    a Schedule through ``kernel``.
+    a Schedule through ``kernel``; ``sharded_impl(*tensors, schedule=,
+    mesh=, **params)`` runs a ShardedSchedule's strategy across a mesh.
     """
 
     name: str
@@ -114,6 +118,13 @@ class CudaOp:
     shape_args: Callable[..., dict[str, Any]]
     impl: Callable[..., Any]
     kernel: CudaKernel
+    sharded_impl: Callable[..., Any] | None = None
+
+    def planner_for(self, machine: MachineModel = H100, mesh=None,
+                    shard_axis: str = "model", strategy: str | None = None):
+        if mesh is None:
+            return self.planner(machine)
+        return self.planner(machine, mesh_spec(mesh), shard_axis, strategy)
 
     def plan(self, *tensors, machine: MachineModel = H100, autotune: str | None = None,
              **params) -> Schedule:
@@ -128,6 +139,23 @@ class CudaOp:
             return tuned
         return _cached_plan(self.planner(machine), tuple(sorted(shape.items())))
 
+    def plan_sharded(self, *tensors, mesh, machine: MachineModel = H100,
+                     axis: str = "model", strategy: str | None = None,
+                     autotune: str | None = None, **params) -> ShardedSchedule:
+        """Plan from concrete operands against a ``(machine, mesh)`` pair:
+        the ShardedSchedule carries the device partitioning and the HBM/ICI
+        word split (cached like :meth:`plan`; a cached winner for the
+        ``(op, shapes, machine, mesh, axis, strategy)`` cell overrides the
+        modeled psum-vs-ring-vs-batch pick)."""
+        shape = self.shape_args(*tensors, **params)
+        tuned = _tuned(self.name, shape, machine, autotune, tensors[0].dtype,
+                       tensors[0].device, mesh=mesh_spec(mesh), axis=axis,
+                       strategy=strategy)
+        if tuned is not None:
+            return tuned
+        return _cached_plan(self.planner_for(machine, mesh, axis, strategy),
+                            tuple(sorted(shape.items())))
+
     def __call__(self, *tensors, schedule: Schedule | ShardedSchedule | None = None,
                  machine: MachineModel = H100, autotune: str | None = None, **params):
         schedule = local_schedule(schedule)
@@ -135,6 +163,21 @@ class CudaOp:
             schedule = local_schedule(self.plan(*tensors, machine=machine,
                                                 autotune=autotune, **params))
         return self.impl(*tensors, schedule=schedule, **params)
+
+    def sharded(self, *tensors, schedule: ShardedSchedule, mesh, **params):
+        """Run a ShardedSchedule's strategy on a live mesh: every rank holds
+        the global operands, the registered ``sharded_impl`` reads the
+        partition off the schedule (psum tree, ring permutes, data
+        parallelism) and returns the global output on every rank.  The
+        "single" strategy (and any 1-wide shard group) runs the per-device
+        impl on the local schedule."""
+        if schedule.strategy == "single" or schedule.devices == 1:
+            return self(*tensors, schedule=schedule.schedule, **params)
+        if self.sharded_impl is None:
+            raise NotImplementedError(
+                f"op {self.name!r} registered no sharded_impl; strategy "
+                f"{schedule.strategy!r} cannot execute through the registry")
+        return self.sharded_impl(*tensors, schedule=schedule, mesh=mesh, **params)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -144,7 +187,8 @@ def _cached_plan(planner, shape_items: tuple) -> Schedule:
     return planner.plan(**dict(shape_items))
 
 
-def _tuned(name, shape, machine, policy, dtype, device):
+def _tuned(name, shape, machine, policy, dtype, device, mesh=None, axis="model",
+           strategy=None):
     """The measured-time override for one schedule resolution (see
     repro_torch.plan.autotune), or ``None`` when the modeled argmin stands
     — policy "off" short-circuits before the autotuner is even imported."""
@@ -152,8 +196,9 @@ def _tuned(name, shape, machine, policy, dtype, device):
 
     if (policy or _at.get_policy()) == "off":
         return None
-    return _at.tuned_schedule(name, shape, machine=machine, policy=policy,
-                              dtype=dtype, device=device)
+    return _at.tuned_schedule(name, shape, machine=machine, mesh=mesh, axis=axis,
+                              strategy=strategy, policy=policy, dtype=dtype,
+                              device=device)
 
 
 _OPS: dict[str, CudaOp] = {}
@@ -172,10 +217,11 @@ _PROVIDERS = {
 
 
 def cuda_op(name: str, *, planner: type, shape_args: Callable,
-            impl: Callable, kernel: CudaKernel) -> CudaOp:
+            impl: Callable, kernel: CudaKernel,
+            sharded_impl: Callable | None = None) -> CudaOp:
     """Register a kernel behind the plan layer (returns the op handle)."""
     op = CudaOp(name=name, planner=planner, shape_args=shape_args, impl=impl,
-                kernel=kernel)
+                kernel=kernel, sharded_impl=sharded_impl)
     _OPS[name] = op
     return op
 

@@ -1,7 +1,12 @@
 """The train step: the family's loss, autograd through the planned
 kernels, microbatch gradient accumulation, optional error-feedback int8
 gradient compression, AdamW; and the chunked cross-entropy of the token
-families.  (The elastic loop of the JAX package waits for a later slice.)
+families.  On a mesh (``parallel=``) the step is data parallel: each rank
+runs the planned step on its shard of the batch, the gradients are averaged
+with one psum over the data axis (Alg 4's private-output reduction at the
+scale of ranks), and AdamW runs alike on every rank, so the parameters stay
+replicated (the JAX package shards them FSDP-style; the result is the same
+function).  (The elastic loop of the JAX package waits for a later slice.)
 """
 
 from __future__ import annotations
@@ -13,9 +18,12 @@ import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
 from repro_torch.models.layers import ce_chunks
+from repro_torch.models import registry
 from repro_torch.models.registry import get_family
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_tree, init_error_buffers
+from repro_torch.runtime import collectives as coll
+from repro_torch.runtime.parallel import data_axis
 
 
 @dataclasses.dataclass(frozen=True)
@@ -48,17 +56,18 @@ def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
     return tot / cnt.clamp(min=1.0)
 
 
-def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig):
+def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
     """The family registry owns the loss: a family's ``make_loss_fn`` hook
     (the cnn's image cross-entropy, the dense transformer's planned chunked
     CE) builds it; every other token family (MoE, RWKV-6, Zamba2, the
     encoder-decoder) trains on the generic composition below, the
     family's plain forward (``frames`` passed on where the batch has them)
-    and the chunked cross-entropy, as in the JAX package."""
+    and the chunked cross-entropy, as in the JAX package.  ``parallel``
+    reaches the hook of a family that trains on a mesh (the cnn)."""
     fam = get_family(cfg.family)
     hook = getattr(fam, "make_loss_fn", None)
     if hook is not None:
-        return hook(cfg, tcfg)
+        return hook(cfg, tcfg) if parallel is None else hook(cfg, tcfg, parallel)
     dt = getattr(torch, tcfg.compute_dtype)
 
     def loss_fn(params, batch):
@@ -108,18 +117,61 @@ def loss_and_grads(loss_fn, params: dict, batch: dict):
     return lsum / n, {k: g / n for k, g in gsum.items()}
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig):
+def shard_batch(cfg: ModelConfig, parallel, batch: dict) -> dict:
+    """This rank's shard of a global batch over the data axis, by the
+    family's ``batch_shard_specs`` (a batch with a leading accumulation dim
+    shards its micro-batch dim)."""
+    axis = data_axis(parallel)
+    specs = registry.batch_shard_specs(cfg, axis)
+    lead = (None,) if is_accumulated(batch) else ()
+    return {k: coll.shard(v, (*lead, *specs[k]), parallel.mesh, axis)
+            for k, v in batch.items()}
+
+
+def all_reduce_mean(parallel, loss, grads: dict):
+    """The mean over the data axis's ranks of the loss and every gradient,
+    in one psum of one flat f32 buffer (the plan's wgrad/dW ``ici_words``;
+    replicas along the other axes hold the same values and take no part)."""
+    axis = data_axis(parallel)
+    n = parallel.mesh.shape[axis]
+    names = list(grads)
+    flat = torch.cat([loss.reshape(1).float()] + [grads[k].reshape(-1) for k in names])
+    flat = coll.psum(flat, parallel.mesh, axis) / n
+    out, i = {}, 1
+    for k in names:
+        out[k] = flat[i:i + grads[k].numel()].view_as(grads[k])
+        i += grads[k].numel()
+    return flat[0], out
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
     """Returns train_step(state, batch) -> (state, metrics): the loss and
     its gradients with respect to every parameter (autograd; under
     ``tcfg.planned_kernels`` through the planned backward kernels; summed
     over the micro-batches of a batch with a leading accumulation dim),
     ``int8_ef`` compression of the gradients where ``tcfg`` asks for it,
     then one AdamW update.  ``batch`` holds tensors on the parameters'
-    device."""
-    loss_fn = make_loss_fn(cfg, tcfg)
+    device.
+
+    With ``parallel`` (a ``runtime.parallel.ParallelCtx`` on a live mesh)
+    every rank passes the same global batch and holds the same parameters:
+    the step takes this rank's shard of the batch, runs the (data-parallel
+    planned) loss and its gradients on it, averages loss and gradients over
+    the data axis with one psum, and then compresses and updates exactly
+    as on one device — the same function of the global batch."""
+    if parallel is not None and not hasattr(get_family(cfg.family), "batch_shard_specs"):
+        raise NotImplementedError(
+            f"the {cfg.family!r} family on a mesh (FSDP specs, sequence-parallel "
+            "attention, expert parallelism) waits for ROADMAP queue 1 #5b")
+    loss_fn = make_loss_fn(cfg, tcfg, parallel)
 
     def train_step(state: TrainState, batch: dict):
-        loss, grads = loss_and_grads(loss_fn, state.params, batch)
+        if parallel is None:
+            loss, grads = loss_and_grads(loss_fn, state.params, batch)
+        else:
+            loss, grads = loss_and_grads(loss_fn, state.params,
+                                         shard_batch(cfg, parallel, batch))
+            loss, grads = all_reduce_mean(parallel, loss, grads)
         err = state.err
         if tcfg.grad_compression == "int8_ef" and err is not None:
             grads, err = compress_tree(grads, err)

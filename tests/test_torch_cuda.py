@@ -730,3 +730,92 @@ def test_family_cached_decode_matches_forward_on_card(cuda, arch):
         want = fam.logits(cfg, params, h[:, 16:20])
     for i in range(4):
         assert_close(got[i], want[:, i])
+
+
+# ---------------------------------------------------------------------------
+# The multi-device half: gloo ranks sharing the one card
+# ---------------------------------------------------------------------------
+
+
+def _ranks_helper():
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent))
+    import _torch_ranks
+
+    return _torch_ranks
+
+
+@pytest.mark.cuda
+def test_sharded_layers_on_card_ranks_sharing_one_device(cuda, tmp_path):
+    """2 gloo ranks on one card (CUDA tensors staged through the host):
+    fc_layer_sharded under psum, ring, tp, batch and the planner's pick
+    (forward and both gradients), ring_matmul, the conv2d op's batch and
+    stack partitions and int8_psum, against plain references on the CPU."""
+    from repro_torch.kernels.conv2d.ref import conv2d_fused_ref
+
+    _ranks_helper().run_ranks("fc", 2, tmp_path, {"device": "cuda"}, timeout=300)
+    ranks = [dict(np.load(tmp_path / f"fc_rank{r}.npz")) for r in range(2)]
+    rng = np.random.default_rng(3)
+    x, w = rng.standard_normal((8, 64)), rng.standard_normal((64, 40))
+    y = x @ w
+    want = {"y": y, "gx": 2 * y @ w.T, "gw": x.T @ (2 * y)}
+    rng = np.random.default_rng(2)
+    x2, w2 = rng.standard_normal((16, 32)), rng.standard_normal((32, 24))
+    rng = np.random.default_rng(4)
+    xc, fc, bc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  for s in ((8, 8, 8, 3), (3, 3, 3, 8), (8,)))
+    conv = conv2d_fused_ref(xc, fc, bc, padding=1, relu=True, pool=2)
+    for r in ranks:
+        for st in ("psum", "ring", "tp", "batch", "auto"):
+            for part, v in want.items():
+                assert_close(torch.from_numpy(r[f"{st}.{part}"]), torch.from_numpy(v))
+        assert int(r["ring.fwd_ppermutes"]) == 1
+        assert_close(torch.from_numpy(r["ring_matmul.y"]), torch.from_numpy(x2 @ w2))
+        for st in ("batch", "stack"):
+            assert_close(torch.from_numpy(r[f"conv.{st}"]), conv, tol=2e-4)
+
+
+@pytest.mark.cuda
+def test_data_parallel_cnn_step_on_card_ranks_sharing_one_device(cuda, tmp_path):
+    """3 planned data-parallel AdamW steps of the smoke CNN on 2 gloo ranks
+    sharing the card (plain, accumulated, int8_ef) against the plain
+    single-device step on the CPU from the same weights and batches."""
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models import cnn
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    cfg = smoke_config("cnn-vgg11")
+    params = init_params(cnn.param_defs(cfg), 0, device="cpu")
+    src = cnn.data_source(cfg, 8, ShardInfo(0, 1), seed=0)
+    batches = [src(i) for i in range(3)]
+    np.savez(tmp_path / "init.npz", **{k: v.numpy() for k, v in params.items()})
+    np.savez(tmp_path / "batches.npz",
+             **{f"{k}{i}": v for i, b in enumerate(batches) for k, v in b.items()})
+    _ranks_helper().run_ranks("dp", 2, tmp_path, {"mesh": [2], "steps": 3,
+                                                  "device": "cuda"}, timeout=300)
+    ranks = [dict(np.load(tmp_path / f"dp_rank{r}.npz")) for r in range(2)]
+    for variant in ("planned", "accum", "int8_ef"):
+        tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                           learning_rate=3e-4, warmup_steps=1, total_steps=3,
+                           grad_compression="int8_ef" if variant == "int8_ef" else "none")
+        step, state = tr.make_train_step(cfg, tcfg), tr.init_state(cfg, tcfg, params)
+        losses = []
+        for b in batches:
+            b = tr.batch_to(b, "cpu")
+            if variant == "accum":
+                b = {k: v.reshape(2, v.shape[0] // 2, *v.shape[1:]) for k, v in b.items()}
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+        for r in ranks:
+            assert_close(torch.from_numpy(r[f"{variant}.losses"]), torch.tensor(losses))
+            for k, v in state.params.items():
+                got = torch.from_numpy(r[f"{variant}.{k}"])
+                if variant == "int8_ef":  # rounding ties: one quantum apart
+                    off = (got - v).abs() > TOL * max(1.0, float(v.abs().max()))
+                    assert int(off.sum()) <= max(2, int(1e-3 * v.numel())), k
+                else:
+                    assert_close(got, v)
