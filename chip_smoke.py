@@ -289,6 +289,35 @@ The thirteenth slice (after ``ckpt``):
                every collective synchronized).  At R = 2 a probe records
                which ``gloo`` collectives take CUDA tensors.
 
+The fourteenth slice (after ``mesh``):
+
+20. elastic  — the elastic runtime through the launcher (path
+               ``elastic``).  (a) ``--arch cnn-vgg11 --batch 256
+               --planned-kernels --mesh 2x2 --dist-backend gloo --ckpt D
+               --ckpt-every 2 --chaos kill@5`` over 8 steps on 4 rank
+               processes sharing cuda:0 (``chip_smoke.py --elastic-rank``, a
+               ``file://`` store under build/chip_smoke/elastic): host1's
+               ranks leave at step 5, the survivors re-form a (data 1,
+               model 2) group, re-plan and restore committed step 4.  The
+               incarnations must be (4, {data 2, model 2}, start 0) and (2,
+               {data 1, model 2}, start 5), the executed steps 0-7, each
+               step's launches a rank those of its incarnation's sharded
+               plan, and the 3 losses after the recovery and every leaf of
+               the final state (the step-7 checkpoints' bytes) equal to a
+               clean 2-rank launcher run from a copy of step 4.  (b) In
+               this process, one device: ``--chaos corrupt@3,nan@4x2
+               --nonfinite-patience 2 --ckpt-every 1`` over 6 steps: starts
+               [0, 3] with a warning that the fallback went past the torn
+               step 3, steps 4 and 5 skipped, the replayed tail and final
+               state bit for bit a clean run from step 2.  (c) What a user
+               of a stopped run feels: the time from the raised
+               HostFailure to the end of the new incarnation's first step,
+               split into the group re-forming, re-planning, drawing the
+               template state, restoring (bytes and seconds) and that
+               step; step ms before and after the shrink; each save's
+               seconds.  Ranks sharing one card over gloo: not multi-chip
+               numbers.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -414,6 +443,11 @@ MESH_FC = {"fc1": (256, 2048, 4096), "fc2": (256, 4096, 1000)}  # m, k, n
 MESH_CONVS = ("conv1", "conv2", "conv3")
 MESH_STRATEGIES = ("psum", "ring", None)  # None: the planner's pick
 MESH_NEAR_TIE_SHARE = 1e-3  # of a leaf's elements that a near-tie sign may move
+# Phase elastic: kill@5 on a 2x2 mesh over 8 steps, a checkpoint every 2.
+ELASTIC_MESH, ELASTIC_SHRUNK, ELASTIC_RANKS = "2x2", "1x2", 4
+ELASTIC_STEPS, ELASTIC_KILL, ELASTIC_EVERY = 8, 5, 2
+# (b): a torn chunk under a NaN burst, one device, a checkpoint every step.
+ELASTIC_NAN = ("corrupt@3,nan@4x2", 2, 6)  # chaos, non-finite patience, steps
 
 
 def tfm_chunks() -> int:
@@ -1548,7 +1582,7 @@ def phase_transformer(torch, kernels, results):
          params=count_params(tf.param_defs(cfg)), n_layers=cfg.n_layers,
          d_model=cfg.d_model, batch=TFM_BATCH, seq=TFM_SEQ, steps=STEPS, launches=got,
          launches_per_step={k: n // STEPS for k, n in got.items()}, losses=losses,
-         step_seconds=[h["seconds"] for h in history], peak_memory_bytes=launcher_peak,
+         step_seconds=[h["time"] for h in history], peak_memory_bytes=launcher_peak,
          schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
                         "grid": list(s.grid), "smem_bytes": s.vmem_bytes}
                     for n, s in plans.items()})
@@ -2046,7 +2080,7 @@ def phase_remat(torch, kernels, results, tfm, card):
         check(got == want, f"remat {remat}: launches {got} != plan {want}")
         for k in kernels:
             results[k]["launches_by_path"][f"remat_{remat}"] = got[k]
-        ms = [h["seconds"] * 1e3 for h in history]
+        ms = [h["time"] * 1e3 for h in history]
         runs[remat] = dict(launches_per_step=per_step, peak_memory_bytes=peak,
                            step_ms=ms, step_ms_after_first=statistics.median(ms[1:]),
                            losses=[h["loss"] for h in history])
@@ -3411,7 +3445,7 @@ def dense_train(torch, kernels, results, card, arch: str, *, layers, batch: int,
         torch.cuda.synchronize()
         got = {k: kk.launches for k, kk in kernels.items()}
         train_peak = torch.cuda.max_memory_allocated()
-        losses, step_ms = [h["loss"] for h in history], [h["seconds"] * 1e3 for h in history]
+        losses, step_ms = [h["loss"] for h in history], [h["time"] * 1e3 for h in history]
         torch.cuda.empty_cache()
         t0 = time.perf_counter()
         params0 = init_params(defs, SEED)  # the launcher's weights
@@ -3747,6 +3781,20 @@ def gloo_cuda_probe(torch) -> dict:
     return out
 
 
+def cnn_kernels() -> dict:
+    """The kernels of the cnn-vgg11 training step, by name."""
+    from repro_torch.kernels.conv2d.bwd import conv2d_wgrad_kernel
+    from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
+    from repro_torch.kernels.matmul.bwd import (
+        matmul_dxdw_kernel, matmul_nt_kernel, matmul_tn_kernel,
+    )
+    from repro_torch.kernels.matmul.matmul import matmul_kernel
+
+    return {"conv2d": conv2d_kernel, "matmul": matmul_kernel,
+            "conv2d_wgrad": conv2d_wgrad_kernel, "matmul_nt": matmul_nt_kernel,
+            "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
+
+
 def mesh_cases(torch, rank: int, world: int, work: Path) -> dict:
     """One rank's cases (a)-(c) (see the module docstring), checked against
     the reference the parent saved; returns this rank's record."""
@@ -3754,12 +3802,6 @@ def mesh_cases(torch, rank: int, world: int, work: Path) -> dict:
     from repro_torch.core import conv_layer as cl
     from repro_torch.core.fc_layer import fc_layer_sharded
     from repro_torch.core.schedule_sim import simulate_ring
-    from repro_torch.kernels.conv2d.bwd import conv2d_wgrad_kernel
-    from repro_torch.kernels.conv2d.conv2d import conv2d_kernel
-    from repro_torch.kernels.matmul.bwd import (
-        matmul_dxdw_kernel, matmul_nt_kernel, matmul_tn_kernel,
-    )
-    from repro_torch.kernels.matmul.matmul import matmul_kernel
     from repro_torch.models import cnn
     from repro_torch.models.module import init_params
     from repro_torch.plan import get_op
@@ -3767,9 +3809,7 @@ def mesh_cases(torch, rank: int, world: int, work: Path) -> dict:
     from repro_torch.runtime import train as tr
     from repro_torch.runtime.parallel import ParallelCtx
 
-    kernels = {"conv2d": conv2d_kernel, "matmul": matmul_kernel,
-               "conv2d_wgrad": conv2d_wgrad_kernel, "matmul_nt": matmul_nt_kernel,
-               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
+    kernels = cnn_kernels()
     cfg = get_config("cnn-vgg11")
     ref = torch.load(work.parent / "ref.pt")
     inputs = mesh_inputs(torch, cnn, cfg)
@@ -3934,6 +3974,32 @@ def mesh_rank(rank: int, world: int, work: Path) -> int:
     return 0
 
 
+def run_rank_processes(flag: str, world: int, work: Path) -> list:
+    """Start ``chip_smoke.py FLAG R WORLD WORK`` for every rank (logs under
+    WORK), stop them all at the first failure or at MESH_TIMEOUT, and
+    return (rank, exit code, log tail) of each that failed."""
+    logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
+    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
+                               str(world), str(work)], stdout=logs[r], stderr=subprocess.STDOUT)
+             for r in range(world)]
+    deadline = time.monotonic() + MESH_TIMEOUT
+    try:
+        # A rank that fails leaves the others waiting in a collective.
+        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
+            if any(p.poll() not in (None, 0) for p in procs):
+                break
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for f in logs:
+            f.close()
+    return [(r, p.returncode, (work / f"rank{r}.log").read_text()[-3000:])
+            for r, p in enumerate(procs) if p.returncode]
+
+
 def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
     """Cases (a)-(c) on R ranks sharing the card; the 1-rank reference
     first, in this process.  Returns the kernels the data-parallel plan
@@ -3953,30 +4019,9 @@ def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
         work = base / f"r{world}"
         work.mkdir()
         t_ranks = time.perf_counter()
-        logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
-        procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--mesh-rank",
-                                   str(r), str(world), str(work)],
-                                  stdout=logs[r], stderr=subprocess.STDOUT)
-                 for r in range(world)]
-        deadline = time.monotonic() + MESH_TIMEOUT
-        try:
-            # A rank that fails leaves the others waiting in a collective:
-            # stop them all at the first failure (or at the deadline).
-            while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
-                if any(p.poll() not in (None, 0) for p in procs):
-                    break
-                time.sleep(0.2)
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                p.wait()
-            for f in logs:
-                f.close()
+        bad = run_rank_processes("--mesh-rank", world, work)
         recs = [json.loads((work / f"rank{r}.json").read_text())
                 for r in range(world) if (work / f"rank{r}.json").exists()]
-        bad = [(r, p.returncode, (work / f"rank{r}.log").read_text()[-3000:])
-               for r, p in enumerate(procs) if p.returncode]
         if bad:
             emit(phase="mesh", ranks=world, failed=True, ranks_records=recs)
         check(not bad, f"mesh ranks failed (or outlived {MESH_TIMEOUT} s): {bad}")
@@ -4000,10 +4045,290 @@ def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
     return {k for k, n in per_kernel(calls, kernels).items() if n}
 
 
+# -- phase elastic: the elastic runtime through the launcher -----------------------
+
+
+def elastic_argv(ckpt_dir: Path, mesh: str, steps: int, every: int, chaos=None,
+                 patience: int | None = None) -> list:
+    argv = ["--arch", "cnn-vgg11", "--batch", str(BATCH), "--steps", str(steps),
+            "--planned-kernels", "--ckpt", str(ckpt_dir), "--ckpt-every", str(every),
+            "--log-every", "1", "--max-recoveries", "2"]
+    if mesh != "1x1":
+        argv += ["--mesh", mesh, "--dist-backend", "gloo"]
+    if chaos:
+        argv += ["--chaos", chaos]
+    if patience is not None:
+        argv += ["--nonfinite-patience", str(patience)]
+    return argv
+
+
+@contextlib.contextmanager
+def elastic_spy(torch, kernels, incarnations: list, saves: list, keep: Path | None = None):
+    """Record what the launcher's elastic loop does without changing it:
+    each incarnation's build (its own ``info`` and seconds), each step's
+    event ms and launches, the instant a host failure is raised, each
+    save's host copy and its background write.  With ``keep``, a copy of
+    each checkpoint step a build restored goes there (retain may prune it
+    later)."""
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.runtime import train as tr
+
+    real_run, real_write = tr.run_elastic, ckpt.save
+
+    def write(*args, **kw):
+        t0 = time.perf_counter()
+        out = real_write(*args, **kw)
+        saves.append({"step": args[1], "write_s": time.perf_counter() - t0})
+        return out
+
+    def run_elastic(build, *args, **kw):
+        def timed_build(n):
+            t0 = time.perf_counter()
+            run = build(n)
+            rec = dict(run.info, build_s=time.perf_counter() - t0, t_build=t0, steps=[])
+            incarnations.append(rec)
+            if keep is not None and "restored_step" in rec:
+                name = f"step_{rec['restored_step']:07d}"
+                shutil.copytree(Path(run.ckpt_dir) / name, keep / name)
+            step_fn, on_failure, save = run.step_fn, run.on_failure, run.save
+
+            def timed_step(state, batch):
+                before = {k: v.launches for k, v in kernels.items()}
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = step_fn(state, batch)
+                end.record()
+                end.synchronize()
+                rec["steps"].append({"ms": start.elapsed_time(end), "t_end": time.perf_counter(),
+                                     "launches": {k: v.launches - before[k]
+                                                  for k, v in kernels.items()}})
+                return out
+
+            def failed(step, e):
+                rec["t_failure"], rec["failed_at"] = time.perf_counter(), step
+                return on_failure(step, e)
+
+            def timed_save(step, st):
+                t1 = time.perf_counter()
+                handle = save(step, st)
+                saves.append({"step": step, "host_copy_s": time.perf_counter() - t1})
+                return handle
+
+            run.step_fn = timed_step
+            if on_failure is not None:
+                run.on_failure = failed
+            if save is not None:
+                run.save = timed_save
+            return run
+
+        return real_run(timed_build, *args, **kw)
+
+    tr.run_elastic, ckpt.save = run_elastic, write
+    try:
+        yield
+    finally:
+        tr.run_elastic, ckpt.save = real_run, real_write
+
+
+def elastic_plan_launches(cnn, cl, cfg, kernels, mesh: dict) -> dict:
+    """Each kernel's launches a rank makes in one step of the data-parallel
+    plan on ``mesh``."""
+    plan = cnn.plan_training(cfg, BATCH, mesh=mesh, shard_axis="data", shard_strategy="batch")
+    local = {k: s.schedule for k, s in plan.items()}
+    return per_kernel(train_calls(cnn, cl, cfg, local, BATCH // mesh["data"]), kernels)
+
+
+def elastic_cases(torch, rank: int, world: int, work: Path) -> dict:
+    """One rank of case (a): the launcher's chaos run, then (survivors) the
+    clean run from a copy of committed step 4."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+
+    kernels = cnn_kernels()
+    incarnations, saves = [], []
+    argv = elastic_argv(work / "ckpt", ELASTIC_MESH, ELASTIC_STEPS, ELASTIC_EVERY,
+                        chaos=f"kill@{ELASTIC_KILL}")
+    zero_counts(kernels)
+    t0 = time.perf_counter()
+    with elastic_spy(torch, kernels, incarnations, saves):
+        history = launch.main(argv)
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "launches": {n: k.launches for n, k in kernels.items()},
+           "incarnations": incarnations, "saves": saves, "t0": t0,
+           "run_s": time.perf_counter() - t0}
+    if not dist.is_initialized():  # this rank's host failed: it left the run
+        return dict(rec, left=True)
+    rec.update(left=False, new_rank=dist.get_rank(), steps=[h["step"] for h in history],
+               losses=[h["loss"] for h in history], step_s=[h["time"] for h in history])
+    clean = work / "clean"
+    if dist.get_rank() == 0:
+        clean.mkdir()
+        shutil.copytree(work / "ckpt" / f"step_{ELASTIC_KILL - 1:07d}",
+                        clean / f"step_{ELASTIC_KILL - 1:07d}")
+    dist.barrier()
+    ref = launch.main(elastic_argv(clean, ELASTIC_SHRUNK, ELASTIC_STEPS, ELASTIC_EVERY))
+    rec.update(ref_steps=[h["step"] for h in ref], ref_losses=[h["loss"] for h in ref])
+    return rec
+
+
+def elastic_rank(rank: int, world: int, work: Path) -> int:
+    """The entry of one rank process (``chip_smoke.py --elastic-rank``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    try:
+        rec = elastic_cases(torch, rank, world, work)
+    finally:
+        if dist.is_initialized():  # a rank that left the run has torn its group down
+            dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def same_files(a: Path, b: Path) -> bool:
+    return (sorted(f.name for f in a.iterdir()) == sorted(f.name for f in b.iterdir())
+            and all((a / f.name).read_bytes() == (b / f.name).read_bytes() for f in a.iterdir()))
+
+
+def elastic_recovery(rank0: dict) -> dict:
+    """Case (c) from the surviving rank 0's record."""
+    first, second = rank0["incarnations"]
+    t_fail = first["t_failure"]
+    step1 = second["steps"][0]
+    parts = {k: second.get(k) for k in ("group_s", "plan_s", "init_s", "restore_s")}
+    return {
+        "recover_s": step1["t_end"] - t_fail,
+        "failure_to_build_s": second["t_build"] - t_fail,
+        **parts, "restore_bytes": second.get("restore_bytes"),
+        "build_s": second["build_s"],
+        "first_step_s": step1["t_end"] - (second["t_build"] + second["build_s"]),
+        "first_step_ms": step1["ms"],
+        "step_ms_before": [st["ms"] for st in first["steps"]],
+        "step_ms_after": [st["ms"] for st in second["steps"]],
+        "step_s_history": rank0["step_s"],
+        "saves": rank0["saves"],
+    }
+
+
+def phase_elastic(torch, cnn, cfg, kernels, results, card) -> None:
+    """Cases (a)-(c) (see the module docstring)."""
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.launch import train as launch
+
+    t_phase = time.perf_counter()
+    base = SCRATCH / "elastic"
+    shutil.rmtree(base, ignore_errors=True)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("elastic", 0)
+
+    # (a) kill@5 on 4 ranks.
+    work = base / "kill"
+    work.mkdir(parents=True)
+    t0 = time.perf_counter()
+    bad = run_rank_processes("--elastic-rank", ELASTIC_RANKS, work)
+    recs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(ELASTIC_RANKS) if (work / f"rank{r}.json").exists()]
+    if bad:
+        emit(phase="elastic", case="kill", failed=True, ranks_records=recs)
+    check(not bad, f"elastic ranks failed (or outlived {MESH_TIMEOUT} s): {bad}")
+    ranks_s = time.perf_counter() - t0
+    check([r["left"] for r in recs] == [False, False, True, True],
+          f"elastic: left {[r['left'] for r in recs]}")
+    step_kernels = cnn_kernels()  # what a rank counts
+    plan_launches = {
+        4: elastic_plan_launches(cnn, cl, cfg, step_kernels, {"data": 2, "model": 2}),
+        2: elastic_plan_launches(cnn, cl, cfg, step_kernels, {"data": 1, "model": 2})}
+    for r in recs:
+        inc = r["incarnations"]
+        if r["left"]:
+            check(len(inc) == 1 and inc[0].get("failed_at") == ELASTIC_KILL,
+                  f"rank {r['rank']}: left at {inc[0].get('failed_at')}")
+        else:
+            got = [(i["n_devices"], i["mesh"], i["start"]) for i in inc]
+            check(got == [(4, {"data": 2, "model": 2}, 0),
+                          (2, {"data": 1, "model": 2}, ELASTIC_KILL)],
+                  f"rank {r['rank']}: incarnations {got}")
+            check(r["steps"] == list(range(ELASTIC_STEPS)), f"elastic steps {r['steps']}")
+            check(r["ref_steps"] == list(range(ELASTIC_KILL, ELASTIC_STEPS)),
+                  f"clean steps {r['ref_steps']}")
+            check(r["losses"][ELASTIC_KILL:] == r["ref_losses"],
+                  f"elastic tail {r['losses'][ELASTIC_KILL:]} vs clean {r['ref_losses']}")
+        for i in inc:
+            want = plan_launches[i["n_devices"]]
+            for st in i["steps"]:
+                check(st["launches"] == want,
+                      f"rank {r['rank']}: step launches {st['launches']} != plan {want}")
+        for name in kernels:
+            results[name]["launches_by_path"]["elastic"] += r["launches"].get(name, 0)
+    final = f"step_{ELASTIC_STEPS - 1:07d}"
+    check(same_files(work / "ckpt" / final, work / "clean" / final),
+          "elastic: the final state differs from the clean run's")
+    rank0 = next(r for r in recs if not r["left"] and r["new_rank"] == 0)
+    recovery = elastic_recovery(rank0)
+    emit(phase="elastic", case="kill", card=card,
+         setup=f"{ELASTIC_RANKS} processes sharing one H100 over gloo, mesh {ELASTIC_MESH} "
+               f"-> {ELASTIC_SHRUNK}; not multi-chip numbers",
+         incarnations=[[(i["n_devices"], i["mesh"], i["start"]) for i in r["incarnations"]]
+                       for r in recs],
+         losses=rank0["losses"], clean_losses=rank0["ref_losses"],
+         launches_per_step={n: plan_launches[n] for n in plan_launches},
+         launches={r["rank"]: r["launches"] for r in recs}, ranks_seconds=ranks_s,
+         recovery=recovery)
+
+    # (b) a torn chunk under a NaN burst, in this process.
+    spec, patience, steps = ELASTIC_NAN
+    d, clean = base / "nan", base / "nan_clean"
+    incarnations, saves = [], []
+    clean.mkdir(parents=True)
+    zero_counts(kernels)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        with elastic_spy(torch, kernels, incarnations, saves, keep=clean):
+            hist = launch.main(elastic_argv(d, "1x1", steps, 1, chaos=spec,
+                                            patience=patience))
+    for name, k in kernels.items():
+        results[name]["launches_by_path"]["elastic"] += k.launches
+    starts = [i["start"] for i in incarnations]
+    skipped = [h["step"] for h in hist if h["skipped"]]
+    warned = [str(w.message) for w in caught if "corrupt" in str(w.message)]
+    check(starts == [0, 3], f"elastic nan: starts {starts}")
+    check(skipped == [4, 5], f"elastic nan: skipped {skipped}")
+    check(any("step 3" in m for m in warned), f"elastic nan: no fallback warning {warned}")
+    check([i.get("restored_step") for i in incarnations] == [None, 2],
+          f"elastic nan: restored {[i.get('restored_step') for i in incarnations]}")
+    ref = launch.main(elastic_argv(clean, "1x1", steps, 1))
+    tail = [h["loss"] for h in hist if not h["skipped"]][-len(ref):]
+    check([h["step"] for h in ref] == [3, 4, 5], f"clean from step 2: {ref}")
+    check(tail == [h["loss"] for h in ref], f"elastic nan tail {tail} vs clean {ref}")
+    final = f"step_{steps - 1:07d}"
+    check(same_files(d / final, clean / final), "elastic nan: final state differs")
+    emit(phase="elastic", case="nan", card=card, chaos=spec, nonfinite_patience=patience,
+         starts=starts, skipped=skipped, warnings=warned,
+         history=[{k: h[k] for k in ("step", "loss", "skipped")} for h in hist],
+         clean_losses=[h["loss"] for h in ref],
+         step_ms=[st["ms"] for i in incarnations for st in i["steps"]], saves=saves,
+         restore_s=[i.get("restore_s") for i in incarnations],
+         restore_bytes=[i.get("restore_bytes") for i in incarnations])
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="elastic", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--elastic-rank"]:  # one rank of phase elastic
+        return elastic_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4065,6 +4390,10 @@ def main() -> int:
     for name in phase_mesh(torch, cnn, cfg, kernels, results, card):
         check(results[name]["launches_by_path"]["mesh"] > 0,
               f"{name}: no launch on the mesh path")
+    phase_elastic(torch, cnn, cfg, kernels, results, card)
+    for name in BWD_KERNELS + ("matmul",):
+        check(results[name]["launches_by_path"]["elastic"] > 0,
+              f"{name}: no launch on the elastic path")
 
     from repro_torch.models import transformer as tf
 

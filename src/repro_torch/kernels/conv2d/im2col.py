@@ -6,7 +6,8 @@ slicing — strip at a time, like the XLA code of
 ``repro/kernels/conv2d/im2col.py`` — and multiplies it by the reshaped
 ``[F*F*d_in, d_out]`` filter matrix on the blocked matmul kernel, whose
 blocking :class:`repro_torch.plan.Im2colConvPlanner` delegates to
-``MatmulPlanner``.  Bias, ReLU and pool stay unfused, as in the reference.
+``MatmulPlanner``.  Bias, ReLU and pool stay unfused, as in the reference.  On a mesh the op's ``sharded_impl`` runs
+the "batch" and "stack" partitions, each rank its shard's GEMMs.
 """
 
 from __future__ import annotations
@@ -19,6 +20,8 @@ from repro_torch.kernels.conv2d.ops import _fused_pool, _zero_bias, conv_out_ext
 from repro_torch.kernels.conv2d.ref import maxpool_ref
 from repro_torch.kernels.matmul.matmul import matmul_kernel
 from repro_torch.plan import Im2colConvPlanner, Schedule, cuda_op, pad_dim, round_up
+from repro_torch.plan.sharded import partition_specs
+from repro_torch.runtime import collectives as coll
 
 
 def _shape_args(x, f, bias=None, *, stride=1, padding=0, relu=False, pool=1,
@@ -96,9 +99,33 @@ def _impl(x, f, bias, *, schedule, stride=1, padding=0, relu=False, pool=1,
                                relu=relu, pool=int(pool), schedule=schedule)
 
 
+def _sharded_impl(x, f, bias, *, schedule, mesh, stride=1, padding=0, relu=False,
+                  pool=1, block_h=None, block_m=None, block_n=None, block_k=None):
+    """Data-parallel im2col conv from a ShardedSchedule: the same
+    "batch"/"stack" partitions as the direct op (each rank runs the
+    planned per-shard GEMM schedule on its shard), specs from
+    ``schedule.partition``."""
+    del block_h, block_m, block_n, block_k  # consumed by the planner
+    if schedule.strategy not in ("batch", "stack"):
+        raise NotImplementedError(
+            f"conv2d_im2col sharded strategy {schedule.strategy!r}")
+    *in_specs, out_spec = partition_specs(schedule)
+    batched = x.ndim == 4
+    if not batched:
+        x = x[None]
+
+    def fn(xl, fl, bl):
+        return _conv2d_im2col_impl(xl, fl, bl, stride=stride, padding=padding, relu=relu,
+                                   pool=int(pool), schedule=schedule.schedule)
+
+    out = coll.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
+                         axis=schedule.axis)(x, f, bias)
+    return out if batched else out[0]
+
+
 conv2d_im2col_op = cuda_op(
     "conv2d_im2col", planner=Im2colConvPlanner, shape_args=_shape_args,
-    impl=_impl, kernel=matmul_kernel,
+    impl=_impl, kernel=matmul_kernel, sharded_impl=_sharded_impl,
 )
 
 

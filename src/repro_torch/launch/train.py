@@ -1,5 +1,6 @@
 """Training launcher: config -> mesh -> params -> data -> AdamW steps
-through the family's loss, with checkpoints and resume.
+through the family's loss, in the elastic loop, with checkpoints,
+heartbeats, a straggler watchdog and resume.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch cnn-vgg11 \
         --batch 256 --steps 3 --planned-kernels
@@ -15,6 +16,11 @@ through the family's loss, with checkpoints and resume.
     # last intact committed checkpoint.
     PYTHONPATH=src python -m repro_torch.launch.train --family cnn \
         --mesh 2x1 --device cpu --dist-backend gloo --steps 2 --planned-kernels
+    PYTHONPATH=src python -m repro_torch.launch.train --family cnn \
+        --mesh 2x2 --device cpu --dist-backend gloo --steps 8 --batch 8 \
+        --ckpt /tmp/run2 --ckpt-every 2 --chaos kill@5
+    # host1's two ranks leave at step 5; the survivors re-form a 1x2 mesh,
+    # re-plan, restore step 4 and finish.
 
 ``--planned-kernels`` runs the family's planned kernels forward and
 backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
@@ -46,7 +52,7 @@ planned step on its shard of the data axis, and the gradients are averaged
 with one psum (``runtime.train``); parameters stay replicated, so the model
 axis replicates the step.  The process group comes from the environment
 ``torchrun`` sets, or the launcher starts the ranks itself (one process a
-rank, a ``file://`` store in a temporary directory: loopback only).
+rank over a file store in a temporary directory: loopback only).
 ``--dist-backend`` names the group's backend (``nccl`` by default on the
 card, ``gloo`` with ``--device cpu``); on the card each rank takes device
 ``rank mod device count``.  The launcher prints the JAX launcher's
@@ -54,14 +60,35 @@ card, ``gloo`` with ``--device cpu``); on the card each rank takes device
 partition over the data axis), after ``validate_sharded_plan``.  A token
 family on more than one device raises: its FSDP specs, sequence-parallel
 attention and expert parallelism wait for ROADMAP queue 1 #5b, and
-``zero1`` with them; the chaos and heartbeat flags wait for the elastic
-runtime (#6).
+``zero1`` with them.
+
+Elastic restart (DESIGN.md Sec. 7): the steps run through
+``runtime.train.run_elastic``.  On a detected host failure the loop
+aborts the step, shrinks the mesh to the survivors
+(``fault_tolerance.shrink_mesh_shape`` — the model/TP extent is
+preserved), re-plans every ShardedSchedule against the new MeshSpec
+(autotune cache-only on the degraded cell, modeled argmin on miss),
+restores the last *intact* committed checkpoint, and resumes — bounded by
+``--max-recoveries``.  ``--chaos "kill@5,corrupt@4,nan@7"`` injects
+deterministic seeded faults to exercise exactly that path
+(``runtime/chaos.py``).  Each rank runs the loop: the ranks of a failed
+host leave the run (a line says so, and the process exits 0), the
+survivors tear the process group down and form a new one of the survivors
+over a prefix of the first group's store (``launch.mesh.ElasticGroup``),
+and every verdict a rank reaches alone (a stale heartbeat, its own step
+time) is agreed across the ranks before any rank acts on it.  Rank 0 alone
+writes checkpoints; every rank restores after a barrier that follows its
+pending write.  Every group the launcher forms times out after
+``DIST_TIMEOUT`` seconds, so a rank that misses a collective fails the
+others instead of hanging them.
 """
 
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
+import datetime
 import importlib
 import json
 import math
@@ -78,12 +105,29 @@ from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, get_config, sm
 from repro_torch.data.pipeline import ShardInfo
 from repro_torch.models.module import count_params, init_params
 from repro_torch.models.registry import FAMILIES, get_family, make_data_source
+from repro_torch.launch.mesh import ElasticGroup
+from repro_torch.plan import autotune as at
 from repro_torch.runtime import train as tr
+from repro_torch.runtime.chaos import ChaosConfig, ChaosMonkey
 from repro_torch.runtime.collectives import BACKENDS, Mesh
+from repro_torch.runtime.fault_tolerance import (
+    Heartbeat, Monitor, StragglerWatchdog, shrink_mesh_shape,
+)
 from repro_torch.runtime.parallel import ParallelCtx, data_axis
 
 # Chunks per sequence of the token families' chunked cross-entropy.
 LOSS_CHUNKS = 4
+# Seconds a collective of a group the launcher forms may wait (the first
+# step waits for every rank's kernel builds).
+DIST_TIMEOUT = 300.0
+
+
+class _LeftRun(Exception):
+    """This rank's host failed: it leaves the run (its group torn down)."""
+
+    def __init__(self, group):
+        super().__init__(group.dead)
+        self.rank, self.step, self.dead = group.rank, group.failed_at, group.dead
 
 
 def parse_mesh(spec: str):
@@ -95,25 +139,29 @@ def parse_mesh(spec: str):
     raise ValueError(f"--mesh must be DxM or PxDxM, got {spec!r}")
 
 
-def _rank_entry(rank: int, argv: list, world: int, backend: str, init_method: str,
+def _rank_entry(rank: int, argv: list, world: int, backend: str, store_path: str,
                 out_path: str) -> None:
     """One rank of a mesh the launcher started itself: join the group,
-    train, and (rank 0) write the history for the parent."""
-    dist.init_process_group(backend, init_method=init_method, rank=rank,
-                            world_size=world)
+    train, and (rank 0 of the last group) write the history for the
+    parent.  A rank whose host failed leaves the run and exits 0."""
+    # The store outlives every group the run forms (each keyed by a prefix).
+    store = dist.FileStore(store_path, -1)
+    dist.init_process_group(backend, store=store, rank=rank, world_size=world,
+                            timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
     try:
         history = main(argv)
-        if rank == 0:
+        if dist.is_initialized() and dist.get_rank() == 0:
             with open(out_path, "w") as f:
                 json.dump(history, f)
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():
+            dist.destroy_process_group()
 
 
 def _spawn_ranks(argv: list, world: int, backend: str) -> list[dict]:
     """Start ``world`` ranks of this launcher as processes over a
-    ``file://`` store and return rank 0's history; a rank that fails
-    raises here."""
+    file store and return the history of the last group's rank 0; a rank
+    that fails raises here (a rank that left the run exits 0)."""
     import torch.multiprocessing as mp
 
     with tempfile.TemporaryDirectory() as tmp:
@@ -121,8 +169,8 @@ def _spawn_ranks(argv: list, world: int, backend: str) -> list[dict]:
         # By module name: under ``python -m`` this module is ``__main__``,
         # which the spawned ranks cannot import by that name.
         entry = importlib.import_module("repro_torch.launch.train")._rank_entry
-        mp.start_processes(entry, args=(argv, world, backend,
-                                        f"file://{os.path.join(tmp, 'store')}", out),
+        mp.start_processes(entry, args=(argv, world, backend, os.path.join(tmp, "store"),
+                                        out),
                            nprocs=world, start_method="spawn", join=True)
         with open(out) as f:
             return json.load(f)
@@ -167,6 +215,18 @@ def main(argv=None) -> list[dict]:
                     help="autotune winner-cache file (default: "
                          "$REPRO_AUTOTUNE_CACHE or ~/.cache/repro_torch/"
                          "autotune.json)")
+    ap.add_argument("--chaos", default=None,
+                    help="seeded fault injection, e.g. "
+                         "'kill@5,straggle@3x0.2,corrupt@4,nan@7x3' "
+                         "(runtime/chaos.py)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--max-recoveries", type=int, default=3,
+                    help="consecutive elastic recoveries before giving up")
+    ap.add_argument("--recovery-backoff", type=float, default=0.0,
+                    help="base seconds between recoveries (doubles each)")
+    ap.add_argument("--nonfinite-patience", type=int, default=3,
+                    help="consecutive non-finite losses skipped before "
+                         "rolling back to the last good checkpoint")
     args = ap.parse_args(argv)
     dims, axes = parse_mesh(args.mesh)
     world = math.prod(dims)
@@ -193,16 +253,17 @@ def main(argv=None) -> list[dict]:
         if "RANK" not in os.environ:  # start the ranks here
             return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],
                                 world, backend)
-        dist.init_process_group(backend, init_method="env://")
-    rank = dist.get_rank() if world > 1 else 0
+        dist.init_process_group(backend, init_method="env://",
+                                timeout=datetime.timedelta(seconds=DIST_TIMEOUT))
+    # The ranks, and the group the elastic run re-forms over survivors.
+    group = (ElasticGroup(devices_per_host=dims[-1], timeout=DIST_TIMEOUT)
+             if world > 1 else None)
 
     def say(*a) -> None:
-        if rank == 0:
+        if group is None or group.rank == 0:
             print(*a, flush=True)
 
     if args.autotune != "off" or args.autotune_cache:
-        from repro_torch.plan import autotune as at
-
         at.set_policy(args.autotune, args.autotune_cache, device=args.device)
         say(f"autotune: policy={args.autotune} "
             f"cache={at.get_cache().path} ({len(at.get_cache())} cells)")
@@ -216,90 +277,146 @@ def main(argv=None) -> list[dict]:
     )
     device = torch.device(args.device)
     if world > 1 and device.type == "cuda":
-        device = torch.device("cuda", rank % torch.cuda.device_count())
+        device = torch.device("cuda", group.rank % torch.cuda.device_count())
         torch.cuda.set_device(device)
     defs = fam.param_defs(cfg)
     say(f"params: {count_params(defs) / 1e6:.1f}M | arch {cfg.name} "
         f"| {tcfg.compute_dtype} compute | device {device} "
         f"| planned kernels {tcfg.planned_kernels}")
 
-    ctx = None
-    if world > 1:
-        mesh = Mesh(dims, axes)
-        ctx = ParallelCtx(mesh=mesh, dp_axes=tuple(a for a in axes if a != "model"),
-                          tp_axis="model")
-        say(f"mesh {mesh.shape} ({world} ranks, {backend})")
-        # The plan the data-parallel step runs, against this mesh: every
-        # stage's "batch" partition over the data axis, its ici_words the
-        # gradient all-reduce.
-        from repro_torch.plan.sharded import validate_sharded_plan
-
-        splan = fam.plan_training(cfg, args.batch, mesh=ctx.plan_mesh(),
-                                  shard_axis=data_axis(ctx), shard_strategy="batch",
-                                  autotune=args.autotune)
-        validate_sharded_plan(splan, ctx.plan_mesh())
-        hbm = sum(s.hbm_words for s in splan.values())
-        ici = sum(s.ici_words for s in splan.values())
-        say(f"sharded plan: {len(splan)} kernels | modeled step words hbm={hbm} ici={ici}")
-
-    params = init_params(defs, tcfg.seed, device=device,
-                         dtype=getattr(torch, tcfg.param_dtype))
-    state = tr.init_state(cfg, tcfg, params)
-    start = 0
-    if args.ckpt:
-        # Resume from the newest *intact* committed step (a corrupt step
-        # falls back to the one before, with a logged warning).
-        restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
-        if restored is not None:
-            state, start = restored, last + 1
-            say(f"resumed from step {last} ({args.ckpt})")
-    step_fn = (tr.make_train_step(cfg, tcfg) if ctx is None
-               else tr.make_train_step(cfg, tcfg, parallel=ctx))
     # Every rank draws the same global batch; the step takes its shard.
     source = make_data_source(cfg, args.batch, args.seq, ShardInfo(0, 1),
                               seed=tcfg.seed)
 
-    pending = None  # the in-flight background save
+    def build(n_devices: int | None) -> tr.ElasticRun:
+        """One incarnation of the run for a device count: the process group
+        (re-formed over the survivors), the mesh, the re-planned sharded
+        step, and the state restored from the last intact committed
+        checkpoint.  ``None`` is the initial full mesh; an explicit count
+        is an elastic recovery onto the survivors."""
+        degraded = n_devices is not None
+        n_dev = world if n_devices is None else n_devices
+        info = {"n_devices": n_dev, "degraded": degraded}
+        t0 = time.perf_counter()
+        if world > 1:
+            if not group.shrink(n_dev):
+                raise _LeftRun(group)
+            info["group_s"] = time.perf_counter() - t0
+        shape = dims if n_dev == world else shrink_mesh_shape(
+            n_dev, model=dims[-1], pod=dims[0] if len(dims) == 3 else None)
+        ctx = None
+        if n_dev > 1:
+            ctx = ParallelCtx(mesh=Mesh(shape, axes, timeout=group.timeout),
+                              dp_axes=tuple(a for a in axes if a != "model"),
+                              tp_axis="model")
+        if world > 1:
+            say(f"mesh {dict(zip(axes, shape))} ({n_dev} devices"
+                f"{', degraded' if degraded else ''})")
+        if degraded and args.autotune != "off":
+            # Never measure while recovering: a cache miss takes the
+            # modeled argmin.
+            at.set_policy(at.recovery_policy(args.autotune), device=device)
+        t1 = time.perf_counter()
+        if ctx is not None:
+            # Re-plan the step against THIS mesh: every stage's "batch"
+            # partition over the data axis, its ici_words the gradient
+            # all-reduce (the ring/psum argmin can flip at the new count).
+            from repro_torch.plan.sharded import validate_sharded_plan
 
-    def commit(at_step: int) -> None:
-        # Join the previous write first, so a writer failure surfaces here;
-        # retain only touches committed step dirs (the in-flight write
-        # lives under a .tmp name), so pruning now is safe.
-        nonlocal pending
-        if pending is not None:
-            pending.join()
-        pending = ckpt.save_async(args.ckpt, at_step, state)
-        ckpt.retain(args.ckpt, keep=3)
+            tune = at.recovery_policy(args.autotune) if degraded else args.autotune
+            splan = fam.plan_training(cfg, args.batch, mesh=ctx.plan_mesh(),
+                                      shard_axis=data_axis(ctx), shard_strategy="batch",
+                                      autotune=tune)
+            validate_sharded_plan(splan, ctx.plan_mesh())
+            hbm = sum(s.hbm_words for s in splan.values())
+            ici = sum(s.ici_words for s in splan.values())
+            say(f"sharded plan: {len(splan)} kernels | modeled step words "
+                f"hbm={hbm} ici={ici}")
+        step_fn = (tr.make_train_step(cfg, tcfg) if ctx is None
+                   else tr.make_train_step(cfg, tcfg, parallel=ctx))
+        info["plan_s"] = time.perf_counter() - t1
 
-    history = []
+        t2 = time.perf_counter()
+        params = init_params(defs, tcfg.seed, device=device,
+                             dtype=getattr(torch, tcfg.param_dtype))
+        state = tr.init_state(cfg, tcfg, params)
+        info["init_s"] = time.perf_counter() - t2
+        hb_dir = os.path.join(args.ckpt, "hb") if args.ckpt else None
+        if world > 1:
+            if hb_dir and group.rank == 0:
+                # The failed hosts are evicted: the monitor no longer
+                # counts their heartbeats.
+                for host in group.dead:
+                    with contextlib.suppress(FileNotFoundError):
+                        os.remove(os.path.join(hb_dir, f"hb_{host}.json"))
+            # Rank 0 alone writes; run_elastic joined its pending write
+            # before this build, so after the barrier every rank restores
+            # the same newest intact step.
+            group.barrier()
+        t3 = time.perf_counter()
+        start = 0
+        if args.ckpt:
+            # Resume from the newest *intact* committed step (a corrupt step
+            # falls back to the one before, with a logged warning).  The
+            # parameters are replicated: no reshard on a changed mesh.
+            restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
+            if restored is not None:
+                state, start = restored, last + 1
+                info["restored_step"] = last
+                step_dir = os.path.join(args.ckpt, f"step_{last:07d}")
+                info["restore_bytes"] = sum(
+                    os.path.getsize(os.path.join(step_dir, f)) for f in os.listdir(step_dir))
+                say(f"resumed from step {last} ({args.ckpt})")
+        info["restore_s"] = time.perf_counter() - t3
+        info.update(start=start, mesh=dict(zip(axes, shape)))
+
+        hb = mon = save = None
+        if args.ckpt:
+            os.makedirs(hb_dir, exist_ok=True)
+            rank = group.rank if world > 1 else 0
+            hb = Heartbeat(f"host{rank // dims[-1]}", hb_dir)
+            mon = Monitor(hb_dir, timeout=600)
+            if rank == 0:  # ranks hold the same state: rank 0 alone writes
+
+                def save(step, st):
+                    # Async commit: run_elastic joins this handle before the
+                    # next save / a restore / the end, so writer failures
+                    # surface there; retain only touches committed step dirs
+                    # (the in-flight write lives under a .tmp name).
+                    handle = ckpt.save_async(args.ckpt, step, st,
+                                             n_chunks=max(1, min(8, n_dev)))
+                    ckpt.retain(args.ckpt, keep=3)
+                    return handle
+
+        return tr.ElasticRun(
+            step_fn=step_fn, state=state, start=start, n_devices=n_dev, save=save,
+            ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every if args.ckpt else 0,
+            devices_per_host=dims[-1], heartbeat=hb, monitor=mon,
+            watchdog=StragglerWatchdog(factor=3.0), log_every=args.log_every,
+            agree=tr.agree_verdict if world > 1 else None,
+            on_failure=group.on_failure if world > 1 else None, device=device, info=info)
+
+    chaos = None
+    if args.chaos:
+        ccfg = ChaosConfig.parse(args.chaos, seed=args.chaos_seed)
+        chaos = ChaosMonkey(ccfg, devices_per_host=dims[-1])
+        say(f"chaos: {ccfg} (seed {ccfg.seed})")
+
+    policy = tr.RecoveryPolicy(max_recoveries=args.max_recoveries,
+                               backoff_seconds=args.recovery_backoff,
+                               nonfinite_patience=args.nonfinite_patience)
     try:
-        for step in range(start, args.steps):
-            batch = tr.batch_to(source(step), device)
-            t0 = time.perf_counter()
-            state, metrics = step_fn(state, batch)
-            loss = float(metrics["loss"])  # synchronizes with the device
-            rec = {"step": step, "loss": loss, "lr": metrics["lr"],
-                   "grad_norm": float(metrics["grad_norm"]),
-                   "seconds": time.perf_counter() - t0}
-            history.append(rec)
-            if step % args.log_every == 0 or step == args.steps - 1:
-                say(f"step {step}: loss {loss:.4f} | grad_norm "
-                    f"{rec['grad_norm']:.4f} | lr {rec['lr']:.3e} | "
-                    f"{rec['seconds'] * 1e3:.1f} ms")
-            # Ranks hold the same state: rank 0 alone writes checkpoints.
-            if (args.ckpt and rank == 0 and args.ckpt_every and step
-                    and step % args.ckpt_every == 0):
-                commit(step)
-        if args.ckpt and rank == 0:
-            commit(args.steps - 1)
-            say(f"final checkpoint: step {args.steps - 1}")
-    finally:
-        if pending is not None:
-            pending.join()
+        state, history = tr.run_elastic(build, source, args.steps, policy=policy,
+                                        chaos=chaos, log=say)
+    except _LeftRun as left:
+        print(f"rank {left.rank}: killed at step {left.step} (dead hosts {left.dead}); "
+              "left the run", flush=True)
+        return []
+    if args.ckpt:
+        say(f"final checkpoint: step {args.steps - 1}")
     say(f"done: {len(history)} steps executed, final loss "
         f"{history[-1]['loss']:.4f}" if history else "done")
     return history
-
 
 if __name__ == "__main__":
     main()

@@ -1,9 +1,9 @@
 """The plan layer: Schedules, planners and the ``cuda_op`` registry."""
 
 from repro_torch.plan.planners import (
-    AttentionPlanner, ConvDgradPlanner, ConvPlanner, ConvWgradPlanner, Im2colConvPlanner,
-    MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, MoeFfnPlanner, TransformerBlockPlanner,
-    planner_for, round_up,
+    PLANNERS, AttentionPlanner, ConvDgradPlanner, ConvPlanner, ConvWgradPlanner,
+    Im2colConvPlanner, MatmulDwPlanner, MatmulDxPlanner, MatmulPlanner, MoeFfnPlanner,
+    Planner, ShardablePlanner, TransformerBlockPlanner, planner_for, round_up,
 )
 from repro_torch.plan.registry import (
     CudaKernel, CudaOp, cuda_op, get_op, pad_dim, with_reference_vjp,
@@ -15,7 +15,7 @@ from repro_torch.plan.sharded import (
 )
 
 __all__ = [
-    "AttentionPlanner", "Blocks", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
+    "PLANNERS", "Planner", "ShardablePlanner", "AttentionPlanner", "Blocks", "ConvDgradPlanner", "ConvPlanner", "ConvWgradPlanner",
     "CudaKernel", "CudaOp", "Im2colConvPlanner", "MatmulDwPlanner", "MatmulDxPlanner",
     "MatmulPlanner", "MeshSpec", "MoeFfnPlanner", "P", "Schedule", "ShardCandidate",
     "ShardedSchedule", "TransformerBlockPlanner", "cuda_op", "get_op", "local_schedule",

@@ -23,7 +23,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import ClassVar
+from typing import ClassVar, Protocol, runtime_checkable
 
 from repro_torch.core import ccr
 from repro_torch.core.machine import H100, MachineModel
@@ -58,6 +58,18 @@ def _strip_ladder(H_O: int, floor: int) -> list[int]:
             break
         k *= 2
     return cands
+
+
+@runtime_checkable
+class Planner(Protocol):
+    """The planner contract: shapes in, one best Schedule out (a
+    ShardedSchedule when the planner was constructed with a mesh)."""
+
+    op: ClassVar[str]
+    machine: MachineModel
+
+    def plan(self, **shape) -> Schedule:  # pragma: no cover - protocol
+        ...
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1319,11 +1331,15 @@ class MoeFfnPlanner(ShardablePlanner):
 
 
 @dataclasses.dataclass(frozen=True)
-class TransformerBlockPlanner:
+class TransformerBlockPlanner(ShardablePlanner):
     """Plans a transformer block as a dict of delegated cells — the
     compound-planner pattern of :class:`Im2colConvPlanner`, one level up.
     It plans no op of its own: ``cell_planners`` hands each cell to its
-    planner, bound to this machine and mesh.
+    planner, bound to this machine and mesh, with the shard axis and a
+    ``strategy=`` pin passed straight through, so on a mesh every cell is
+    its own ShardedSchedule argmin.  ``plan()`` returns ``{cell_name:
+    (Sharded)Schedule}`` keyed the way ``models/transformer.py`` consumes
+    them, and ``candidates()`` each cell's ranked list.
 
     Every matmul cell (the fused qkv projection, the attention output
     projection, the fused gate+up and the down MLP GEMMs, the logits head)
@@ -1339,12 +1355,11 @@ class TransformerBlockPlanner:
     plans other shapes there than its forward launches.  The port's
     ``models.transformer.plan_forward`` passes the config's
     ``resolved_head_dim``; a call that names no head dim equals the JAX
-    package's field for field.
+    package's field for field.  A MoE cell over a mesh of more than one
+    device raises (ROADMAP queue 1 #5b).
     """
 
-    machine: MachineModel = H100
-    mesh: MeshSpec | None = None
-    shard_axis: str = "model"
+    op: ClassVar[str] = "transformer_block"
 
     def cell_planners(self, *, batch: int, seq: int, d_model: int,
                       n_heads: int, d_ff: int, n_kv_heads: int | None = None,
@@ -1357,7 +1372,8 @@ class TransformerBlockPlanner:
         hkv = n_kv_heads or n_heads
         dh = head_dim or d_model // hq
         m = batch * seq
-        bind = dict(machine=self.machine, mesh=self.mesh, shard_axis=self.shard_axis)
+        bind = dict(machine=self.machine, mesh=self.mesh, shard_axis=self.shard_axis,
+                    strategy=self.strategy)
         mm = MatmulPlanner(**bind)
         cells: dict[str, tuple] = {
             "qkv": (mm, dict(m=m, n=(hq + 2 * hkv) * dh, k=d_model,
@@ -1382,6 +1398,17 @@ class TransformerBlockPlanner:
                                         in_bytes=in_bytes))
         return cells
 
+    def plan(self, **shape) -> dict:
+        return {name: planner.plan(**kw)
+                for name, (planner, kw) in self.cell_planners(**shape).items()}
+
+    def candidates(self, **shape) -> dict:
+        """Per-cell candidate enumeration: ``{cell: [ranked candidates]}``
+        — each cell's own argmin search space (the autotuner tunes cells
+        independently, as it does conv stages)."""
+        return {name: planner.candidates(**kw)
+                for name, (planner, kw) in self.cell_planners(**shape).items()}
+
 
 PLANNERS: dict[str, type] = {
     ConvPlanner.op: ConvPlanner,
@@ -1393,11 +1420,12 @@ PLANNERS: dict[str, type] = {
     MatmulDwPlanner.op: MatmulDwPlanner,
     AttentionPlanner.op: AttentionPlanner,
     MoeFfnPlanner.op: MoeFfnPlanner,
+    TransformerBlockPlanner.op: TransformerBlockPlanner,
 }
 
 
 def planner_for(op: str, machine: MachineModel = H100, mesh=None,
-                shard_axis: str = "model", strategy: str | None = None):
+                shard_axis: str = "model", strategy: str | None = None) -> Planner:
     """The registered planner for an op name, bound to a machine — and,
     when ``mesh`` is given (a MeshSpec, a live mesh, a dict or (name, size)
     pairs), to a mesh: its ``plan`` then emits a ShardedSchedule whose

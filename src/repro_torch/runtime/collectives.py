@@ -76,10 +76,11 @@ class Mesh:
     names, as on a jax mesh.  A mesh of one device needs no process group;
     a larger one needs an initialized group of exactly its size, and raises
     otherwise.  Every rank must build the same mesh at the same point
-    (forming the axis groups is collective).
+    (forming the axis groups is collective).  ``timeout`` bounds each axis
+    group's collectives (default: the backend's own).
     """
 
-    def __init__(self, shape, axis_names):
+    def __init__(self, shape, axis_names, timeout=None):
         shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
         if len(shape) != len(axis_names) or len(set(axis_names)) != len(axis_names):
             raise ValueError(f"mesh shape {shape} does not match axes {axis_names}")
@@ -98,6 +99,7 @@ class Mesh:
         else:
             self.rank, self.backend = 0, None
         self.coords = self._coords(self.rank)
+        self.timeout = timeout
         self._groups: dict[tuple[str, ...], object] = {}
         for a in axis_names:
             self.group((a,))
@@ -156,7 +158,8 @@ class Mesh:
                 lines.append([self._rank_of({**base, **dict(zip(axes, pos))})
                               for pos in itertools.product(
                                   *(range(self.shape[a]) for a in axes))])
-            group, _ = dist.new_subgroups_by_enumeration(lines, backend=self.backend)
+            group, _ = dist.new_subgroups_by_enumeration(lines, backend=self.backend,
+                                                         timeout=self.timeout)
         self._groups[axes] = group
         return group
 

@@ -6,12 +6,16 @@ runs the planned step on its shard of the batch, the gradients are averaged
 with one psum over the data axis (Alg 4's private-output reduction at the
 scale of ranks), and AdamW runs alike on every rank, so the parameters stay
 replicated (the JAX package shards them FSDP-style; the result is the same
-function).  (The elastic loop of the JAX package waits for a later slice.)
+function).  ``run_elastic`` drives the steps through failures, the JAX
+package's recovery state machine run once in each rank.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
+import time
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -186,3 +190,261 @@ def init_state(cfg: ModelConfig, tcfg: TrainConfig, params: dict) -> TrainState:
     del cfg
     err = init_error_buffers(params) if tcfg.grad_compression == "int8_ef" else None
     return TrainState(params=params, opt=adamw.init(params), err=err)
+
+
+# ---------------------------------------------------------------------------
+# The elastic fault-tolerant loop (DESIGN.md Sec. 7)
+#
+# A host WILL die mid-run, and since partitioning is a planner output,
+# surviving is a plan-layer operation: a shrunk mesh is a new MeshSpec, so
+# every ShardedSchedule is re-planned before the checkpoint restores.
+# run_elastic() owns the generic state machine, the JAX package's step for
+# step; the launcher owns build() (process group, mesh, step_fn, plans and
+# restore for a device count).  Each rank runs the loop: every decision a
+# rank takes alone (a stale heartbeat read at its own instant, its own
+# step time) is first agreed across the ranks (``ElasticRun.agree``), so
+# that no rank leaves a collective the others wait in.
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class RecoveryPolicy:
+    """Bounds on the recovery state machine: how many re-meshes before
+    giving up, how long to back off between them (doubled per retry), how
+    many consecutive non-finite losses are skipped before rolling back
+    to the last committed checkpoint, and how many consecutive straggler
+    watchdog trips escalate to a :class:`HostFailure` eviction
+    (``straggler_patience=0``, the default, keeps the report-only
+    behavior: trips are logged but never acted on)."""
+
+    max_recoveries: int = 3
+    backoff_seconds: float = 0.0
+    nonfinite_patience: int = 3
+    straggler_patience: int = 0
+
+
+@dataclasses.dataclass
+class ElasticRun:
+    """Everything run_elastic needs for one incarnation of the run — the
+    launcher's ``build(n_devices)`` returns a fresh one after every
+    re-mesh (new group and mesh, re-planned step_fn, restored state).
+
+    The JAX package's fields, less ``mesh`` (the port's ops take their
+    mesh explicitly), plus what a loop run once in each rank needs:
+    ``agree`` and ``on_failure`` (both ``None`` on one process, where the
+    loop is the JAX package's), and ``info``, the build's own record."""
+
+    step_fn: Callable  # (state, batch) -> (state, metrics); leaves state as it was
+    state: Any
+    start: int  # first step this incarnation executes
+    n_devices: int = 1
+    # save(step, state): commit a checkpoint.  May return an async handle
+    # (anything with .join(), e.g. checkpoint.AsyncSave) — run_elastic then
+    # overlaps the write with training and joins it before the *next*
+    # commit, at recovery, and at the end, surfacing writer failures at
+    # the join point.  A None return means the save was synchronous.
+    save: Callable | None = None
+    ckpt_dir: str | None = None
+    ckpt_every: int = 0
+    devices_per_host: int = 1  # devices lost per dead host (TP extent)
+    heartbeat: Any = None  # fault_tolerance.Heartbeat
+    monitor: Any = None  # fault_tolerance.Monitor
+    watchdog: Any = None  # fault_tolerance.StragglerWatchdog
+    log_every: int = 10
+    # agree(stale, survivors, trips) -> (stale, survivors, trips): this
+    # rank's verdict of a step (the stale hosts it read and the devices it
+    # counts alive; the hosts whose watchdog tripped) combined with every
+    # rank's, the same on all of them (:func:`agree_verdict`).
+    agree: Callable | None = None
+    # on_failure(step, HostFailure): told as soon as a host failure is
+    # raised, before the recovery joins the pending write and rebuilds.
+    on_failure: Callable | None = None
+    device: Any = "cpu"  # where the batch goes (batch_to)
+    info: dict = dataclasses.field(default_factory=dict)
+
+
+def agree_verdict(stale: list, survivors: int, trips: list):
+    """Every rank's verdict of one step, combined alike on every rank by
+    one small exchange over the process group: the stale hosts any rank
+    read, the most live devices a rank that read them counts (a heartbeat
+    one rank read live is proof of life; another rank may have read the
+    directory before that host's first beat), and every host whose
+    watchdog tripped, each sorted."""
+    import torch.distributed as dist
+
+    views = [None] * dist.get_world_size()
+    dist.all_gather_object(views, (sorted(stale), int(survivors), sorted(trips)))
+    stale_all = sorted({h for v in views for h in v[0]})
+    counts = [v[1] for v in views if v[0]]
+    trips_all = sorted({h for v in views for h in v[2]})
+    return stale_all, (max(counts) if counts else 0), trips_all
+
+
+def run_elastic(build: Callable, source: Callable, steps: int, *,
+                policy: RecoveryPolicy | None = None, chaos=None,
+                log: Callable = print):
+    """Drive training to ``steps`` through failures.
+
+    ``build(n_devices | None)`` -> :class:`ElasticRun`; ``None`` means the
+    initial (full) device set.  Per step: heartbeat, monitor poll,
+    straggler watchdog; a detected host failure (stale heartbeats, or
+    injected via ``chaos``) aborts the step and recovers — shrink to the
+    survivors, ``build`` re-meshes + re-plans + restores the last
+    committed checkpoint — with bounded retries/backoff.  A non-finite
+    loss skips the update (the poisoned state is never committed) and
+    after ``nonfinite_patience`` consecutive bad steps rolls back to the
+    last good checkpoint.  Returns ``(final_state, history)`` where
+    history is one record per *executed* step.
+
+    The JAX package's loop, step for step, with three differences: the
+    batch goes through :func:`batch_to` onto ``run.device``; the loss is
+    read by ``float`` (which waits for the device); and a run that stops
+    on an error still joins its in-flight write, so what it committed is
+    on disk."""
+    from repro_torch.runtime.fault_tolerance import HostFailure
+
+    policy = policy or RecoveryPolicy()
+    run: ElasticRun = build(None)
+    recoveries = 0
+    bad = 0  # consecutive non-finite losses
+    slow = 0  # consecutive straggler watchdog trips
+    history: list[dict] = []
+    step = run.start
+    pending = None  # in-flight async checkpoint write (ElasticRun.save)
+
+    def _join_pending() -> None:
+        """Wait for the in-flight checkpoint write.  This is THE join
+        point: a writer-thread failure surfaces here (before the next
+        commit / before a restore reads the directory / at the end) —
+        never silently."""
+        nonlocal pending
+        if pending is not None:
+            handle, pending = pending, None
+            handle.join()
+
+    def _commit(at_step: int, state) -> None:
+        nonlocal pending
+        _join_pending()
+        handle = run.save(at_step, state)
+        if handle is not None and hasattr(handle, "join"):
+            pending = handle
+
+    def _recover(survivors: int, why: str) -> None:
+        nonlocal run, recoveries, bad, slow, step
+        # The last committed write must be on disk before build() restores
+        # from it (and a broken writer must not be papered over by
+        # restoring something older).
+        _join_pending()
+        recoveries += 1
+        if recoveries > policy.max_recoveries:
+            raise RuntimeError(
+                f"giving up after {policy.max_recoveries} recoveries ({why})")
+        if policy.backoff_seconds:
+            time.sleep(policy.backoff_seconds * 2 ** (recoveries - 1))
+        log(f"[recover #{recoveries}] {why} -> rebuilding on "
+            f"{survivors} device(s)")
+        run = build(survivors)
+        bad = 0
+        slow = 0
+        step = run.start
+
+    try:
+        while step < steps:
+            try:
+                t0 = time.time()
+                if chaos is not None:
+                    death = chaos.host_death(step, run.n_devices)
+                    if death is not None:
+                        raise HostFailure(dead=death[0], survivors=death[1])
+                    chaos.on_step_start(step)  # straggle: counts into dt
+                batch = batch_to(source(step), run.device)
+                new_state, metrics = run.step_fn(run.state, batch)
+                loss = float(metrics["loss"])
+                dt = time.time() - t0
+                if chaos is not None:
+                    loss = chaos.poison_loss(step, loss)
+
+                if run.heartbeat is not None:
+                    run.heartbeat.beat(step)
+                stale, survivors = [], 0
+                if run.monitor is not None:
+                    stale = run.monitor.stale_hosts()
+                    if stale:
+                        survivors = len(run.monitor.live_hosts()) * run.devices_per_host
+                # A stale host aborts the step before the watchdog reads it.
+                tripped = (not stale and run.watchdog is not None
+                           and run.watchdog.observe(dt))
+                host = run.heartbeat.host if run.heartbeat is not None else "straggler"
+                trips = [host] if tripped else []
+                if run.agree is not None:
+                    stale, survivors, trips = run.agree(stale, survivors, trips)
+                if stale:
+                    raise HostFailure(dead=stale, survivors=survivors)
+                if trips:
+                    slow += 1
+                    log(f"  [watchdog] step {step} straggled ({dt:.2f}s; "
+                        f"trip {slow})")
+                    # A log line nobody reads is not mitigation: after
+                    # straggler_patience consecutive trips the slow host is
+                    # treated as failed, so run_elastic actually evicts it
+                    # (shrink + re-plan + restore) instead of limping forever.
+                    if (policy.straggler_patience
+                            and slow >= policy.straggler_patience):
+                        # Evicting the only host degenerates to a same-size
+                        # rebuild (a restart is the sole mitigation left).
+                        survivors = max(run.devices_per_host,
+                                        run.n_devices - run.devices_per_host * len(trips))
+                        raise HostFailure(dead=trips, survivors=survivors)
+                else:
+                    slow = 0
+
+                if not math.isfinite(loss):
+                    bad += 1
+                    log(f"  [guard] step {step}: non-finite loss — update "
+                        f"skipped ({bad}/{policy.nonfinite_patience})")
+                    history.append({"step": step, "loss": loss, "time": dt,
+                                    "skipped": True})
+                    if bad >= policy.nonfinite_patience:
+                        _recover(run.n_devices,
+                                 f"{bad} consecutive non-finite losses; rolling "
+                                 "back to the last committed checkpoint")
+                    else:
+                        step += 1
+                    continue
+
+                bad = 0
+                recoveries = 0  # the cap is on CONSECUTIVE recoveries:
+                # a committed step in between proves real progress
+                run.state = new_state  # committed only on a finite loss
+                history.append({"step": step, "loss": loss, "time": dt,
+                                "skipped": False})
+                if step % run.log_every == 0 or step == steps - 1:
+                    extra = "".join(
+                        f"  {k} {float(metrics[k]):.3g}"
+                        for k in ("grad_norm", "lr") if k in metrics)
+                    log(f"step {step:5d}  loss {loss:.4f}{extra}  {dt:.2f}s")
+                if (run.save is not None and run.ckpt_every
+                        and step and step % run.ckpt_every == 0):
+                    _commit(step, run.state)
+                    if chaos is not None and run.ckpt_dir:
+                        # Chaos corrupts the checkpoint just written — it must
+                        # be on disk first (no overlap under chaos).
+                        _join_pending()
+                        torn = chaos.after_save(run.ckpt_dir, step)
+                        if torn:
+                            log(f"  [chaos] tore checkpoint chunk {torn}")
+                step += 1
+            except HostFailure as e:
+                if run.on_failure is not None:
+                    run.on_failure(step, e)
+                _recover(e.survivors, f"host failure: dead={e.dead}")
+
+        if run.save is not None:
+            _commit(steps - 1, run.state)
+            _join_pending()
+    finally:
+        # A run stopped by an error keeps what it committed.
+        if pending is not None:
+            handle, pending = pending, None
+            handle.join()
+    return run.state, history

@@ -1,4 +1,5 @@
-"""Rank processes for the port's multi-process tests (``test_torch_sharded.py``).
+"""Rank processes for the port's multi-process tests (``test_torch_sharded.py``,
+``test_torch_elastic.py``).
 
 Run as ``python tests/_torch_ranks.py CASE RANK WORLD OUT ARGS_JSON``: the
 process joins a ``gloo`` group through a ``file://`` store under ``OUT``
@@ -7,7 +8,8 @@ process joins a ``gloo`` group through a ``file://`` store under ``OUT``
 under ``OUT`` as ``.npz``/``.json``.  It imports ``torch`` and the port
 only; the JAX references run in the test process or in their own
 subprocess.  :func:`run_ranks` starts the ranks and fails on any non-zero
-exit or on the timeout.
+exit or on the timeout.  A rank that leaves an elastic run (its host
+failed) tears its group down and exits 0.
 """
 
 from __future__ import annotations
@@ -76,6 +78,7 @@ def case_fc(rank: int, world: int, out: Path, args: dict) -> None:
 
     from repro_torch.core.fc_layer import fc_layer_sharded
     from repro_torch.core.ring import ring_matmul
+    from repro_torch.kernels.matmul.matmul import matmul_kernel
     from repro_torch.optim.compression import int8_psum
     from repro_torch.plan import get_op
     from repro_torch.runtime import collectives as coll
@@ -112,6 +115,20 @@ def case_fc(rank: int, world: int, out: Path, args: dict) -> None:
         assert ss.strategy == st and ss.ici_words == 0, ss
         res[f"conv.{st}"] = _np(op.sharded(xc, fc, bc, schedule=ss, mesh=mesh,
                                            padding=1, relu=True, pool=2))
+    im2col = get_op("conv2d_im2col")
+    for st in ("batch", "stack"):
+        ss = im2col.plan_sharded(xc, fc, bc, mesh=mesh, axis="model", strategy=st,
+                                 padding=1, pool=2)
+        assert ss.strategy == st and ss.ici_words == 0, ss
+        calls = _count_plain(matmul_kernel)
+        res[f"im2col.{st}"] = _np(im2col.sharded(xc, fc, bc, schedule=ss, mesh=mesh,
+                                                 padding=1, relu=True, pool=2))
+        matmul_kernel.plain = calls.real
+        local = ss.schedule
+        res[f"im2col.{st}.calls"] = np.array(calls.blocks)
+        res[f"im2col.{st}.local"] = np.array(
+            [-(-8 // local.block("block_h")), local.block("block_m"), local.block("block_n"),
+             local.block("block_k")])
     # ppermute one hop up the ring; each rank's loss weighs what it got by
     # its own c, so the gradient of what it sent is its destination's c.
     t = torch.full((3,), rank + 1.0, device=dev, requires_grad=True)
@@ -125,6 +142,20 @@ def case_fc(rank: int, world: int, out: Path, args: dict) -> None:
     mine = base * (1.0 + 0.25 * rank)
     res["int8.mine"] = _np(int8_psum(torch.from_numpy(mine).to(dev), mesh, "model"))
     np.savez(out / f"fc_rank{rank}.npz", **res)
+
+
+class _count_plain:
+    """Record each call of ``kernel``'s plain version (what a CPU tensor
+    runs where the card launches the kernel) with its blocks."""
+
+    def __init__(self, kernel):
+        self.real, self.blocks = kernel.plain, []
+
+        def plain(*tensors, **kw):
+            self.blocks.append([kw["block_m"], kw["block_n"], kw["block_k"]])
+            return self.real(*tensors, **kw)
+
+        kernel.plain = plain
 
 
 def _ctx(world: int, shape: list):
@@ -191,7 +222,233 @@ def case_launcher(rank: int, world: int, out: Path, args: dict) -> None:
     (out / f"launcher_rank{rank}.json").write_text(json.dumps([h["loss"] for h in history]))
 
 
-CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher}
+# -- the elastic runtime ------------------------------------------------------------
+
+
+class _Left(Exception):
+    """This rank's host failed and it left the run."""
+
+
+def _save_state(path: Path, state, **extra) -> None:
+    import numpy as np
+
+    leaves = {f"params/{k}": _np(v) for k, v in state.params.items()}
+    leaves.update({f"m/{k}": _np(v) for k, v in state.opt.m.items()})
+    leaves.update({f"v/{k}": _np(v) for k, v in state.opt.v.items()})
+    np.savez(path, step=np.array(state.opt.step), **leaves, **extra)
+
+
+def case_elastic(rank: int, world: int, out: Path, args: dict) -> None:
+    """``tests/test_chaos.py``'s ELASTIC_SCRIPT on 4 ranks: ``kill@5`` on a
+    (data 2, model 2) mesh of the smoke CNN, the group re-formed over the
+    2 survivors, a checkpoint every 2 steps; the survivors then run a clean
+    2-rank run from committed step 4 on the shrunk mesh."""
+    import numpy as np
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.data.pipeline import ShardInfo, SyntheticImageSource
+    from repro_torch.launch.mesh import ElasticGroup
+    from repro_torch.models import cnn
+    from repro_torch.plan.sharded import validate_sharded_plan
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import train as tr
+    from repro_torch.runtime.chaos import ChaosConfig, ChaosMonkey
+    from repro_torch.runtime.fault_tolerance import shrink_mesh_shape
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    cfg = smoke_config("cnn-vgg11")
+    batch, steps, model = 8, 8, 2
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", learning_rate=1e-3,
+                       warmup_steps=1, total_steps=steps, loss_chunks=2, seed=0,
+                       planned_kernels=True)
+    init = dict(np.load(out / "init.npz"))
+    source = SyntheticImageSource(32, 3, cfg.vocab, batch, ShardInfo(0, 1), seed=0)
+    group = ElasticGroup(devices_per_host=model, timeout=float(args["timeout"]))
+    d = str(out / "ckpt")
+    built, logs = [], []
+
+    def ctx_of(n):
+        shape = shrink_mesh_shape(n, model=model)
+        return shape, ParallelCtx(mesh=coll.Mesh(shape, ("data", "model"),
+                                                 timeout=group.timeout),
+                                  dp_axes=("data",), tp_axis="model")
+
+    def build(n_devices):
+        n = 4 if n_devices is None else n_devices
+        if not group.shrink(n):
+            raise _Left
+        shape, ctx = ctx_of(n)
+        ms = ctx.plan_mesh()
+        splan = cnn.plan_training(cfg, batch, mesh=ms, shard_axis="data",
+                                  shard_strategy="batch")
+        assert validate_sharded_plan(splan, ms) == len(splan) > 0
+        assert all(s.mesh.axis_size("data") == shape[0] for s in splan.values())
+        state = tr.init_state(cfg, tcfg, params_from_repro(init, device="cpu"))
+        group.barrier()
+        start = 0
+        restored, last = ckpt.restore_latest(d, state, device="cpu")
+        if restored is not None:
+            state, start = restored, last + 1
+        built.append([n, dict(ctx.mesh.shape), start])
+        save = None
+        if group.rank == 0:
+            def save(step, st):
+                ckpt.save(d, step, st, n_chunks=4)
+        return tr.ElasticRun(step_fn=tr.make_train_step(cfg, tcfg, parallel=ctx),
+                             state=state, start=start, n_devices=n, save=save, ckpt_dir=d,
+                             ckpt_every=2, devices_per_host=model, log_every=100,
+                             agree=tr.agree_verdict, on_failure=group.on_failure)
+
+    chaos = ChaosMonkey(ChaosConfig(kill_at_step=5, kill_hosts=1, seed=0),
+                        devices_per_host=model)
+    try:
+        state, hist = tr.run_elastic(build, source, steps, chaos=chaos, log=logs.append)
+    except _Left:
+        (out / f"elastic_rank{rank}.json").write_text(json.dumps(
+            {"left": True, "failed_at": group.failed_at, "dead": group.dead}))
+        return
+    # The clean run from the same committed step on the same shrunk mesh.
+    _, ctx = ctx_of(group.world)
+    ref = ckpt.restore(d, 4, tr.init_state(cfg, tcfg, params_from_repro(init, device="cpu")),
+                       device="cpu")
+    step_fn, ref_losses = tr.make_train_step(cfg, tcfg, parallel=ctx), []
+    for i in range(5, steps):
+        ref, m = step_fn(ref, tr.batch_to(source(i), "cpu"))
+        ref_losses.append(float(m["loss"]))
+    same = all(torch_equal(a, b) for a, b in _leaves(state, ref))
+    (out / f"elastic_rank{rank}.json").write_text(json.dumps({
+        "left": False, "new_rank": group.rank, "built": built,
+        "steps": [h["step"] for h in hist], "losses": [h["loss"] for h in hist],
+        "ref_losses": ref_losses, "same_state": same, "logs": logs}))
+    _save_state(out / f"elastic_rank{rank}.npz", state)
+
+
+def torch_equal(a, b) -> bool:
+    import torch
+
+    return torch.equal(a, b)
+
+
+def _leaves(a, b):
+    assert a.opt.step == b.opt.step
+    for x, y in ((a.params, b.params), (a.opt.m, b.opt.m), (a.opt.v, b.opt.v)):
+        assert x.keys() == y.keys()
+        for k in x:
+            yield x[k], y[k]
+
+
+def case_launcher_elastic(rank: int, world: int, out: Path, args: dict) -> None:
+    """The launcher's chaos run in this rank's group, from the carried
+    initial parameters; the survivors then run the launcher again from a
+    copy of committed step 4 alone (a clean run on the shrunk mesh)."""
+    import shutil
+
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.convert import params_from_repro
+    from repro_torch.launch import train as launch
+
+    init = dict(np.load(out / "init.npz"))
+    launch.init_params = lambda defs, seed, *, device=None, dtype=None: (
+        params_from_repro(init, device=device))
+    history = launch.main(args["argv"])
+    if not dist.is_initialized():  # this rank's host failed
+        (out / f"launcher_rank{rank}.json").write_text(json.dumps({"left": True}))
+        return
+    clean = out / "clean"
+    if dist.get_rank() == 0:
+        os.makedirs(clean)
+        shutil.copytree(out / "ckpt" / "step_0000004", clean / "step_0000004")
+    dist.barrier()
+    argv = list(args["argv"])
+    argv[argv.index("--ckpt") + 1] = str(clean)
+    argv[argv.index("--mesh") + 1] = args["shrunk"]
+    argv = argv[:argv.index("--chaos")] + argv[argv.index("--chaos") + 2:]
+    ref = launch.main(argv)
+    (out / f"launcher_rank{rank}.json").write_text(json.dumps({
+        "left": False, "new_rank": dist.get_rank(), "steps": [h["step"] for h in history],
+        "losses": [h["loss"] for h in history], "ref_steps": [h["step"] for h in ref],
+        "ref_losses": [h["loss"] for h in ref]}))
+
+
+def case_verdicts(rank: int, world: int, out: Path, args: dict) -> None:
+    """Two verdicts that one rank reaches alone, on 2 ranks of a data
+    axis (a host a rank): (a) rank 1's monitor reads a stale heartbeat of
+    a host2 that rank 0's does not see; (b) rank 1's watchdog trips twice
+    at straggler patience 2.  Each is agreed, so both ranks act on it at
+    the same step: (a) a same-size rebuild that evicts host2's beat, (b)
+    host1 evicted, rank 0 going on alone."""
+    import time
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.launch.mesh import ElasticGroup
+    from repro_torch.runtime import train as tr
+    from repro_torch.runtime.fault_tolerance import Heartbeat, Monitor
+
+    group = ElasticGroup(devices_per_host=1, timeout=float(args["timeout"]))
+    rec = {}
+
+    class Scripted:
+        def __init__(self, verdicts):
+            self.verdicts = list(verdicts)
+
+        def observe(self, dt):
+            return self.verdicts.pop(0) if self.verdicts else False
+
+    def step_fn(state, batch):
+        # A collective every step: a rank that left it would hang the other.
+        t = torch.ones(1)
+        if group.world > 1:
+            dist.all_reduce(t)
+        return {"v": state["v"] + 1}, {"loss": float(t)}
+
+    for case in ("stale", "straggle"):
+        hb_dir, view = out / case / "hb", out / case / f"view{rank}"
+        hb_dir.mkdir(parents=True, exist_ok=True)
+        view.mkdir()
+        if case == "stale" and rank == 1:  # what rank 1 alone reads
+            for h, t in (("host0", time.time()), ("host1", time.time()), ("host2", 0.0)):
+                (view / f"hb_{h}.json").write_text(json.dumps({"step": 0, "time": t}))
+        record, logs = [], []
+
+        def build(n_devices, case=case, hb_dir=hb_dir, view=view, record=record):
+            n = 2 if n_devices is None else n_devices
+            if not group.shrink(n):
+                raise _Left
+            record.append(n)
+            for host in group.dead:  # the failed hosts' beats are evicted
+                (view / f"hb_{host}.json").unlink(missing_ok=True)
+            watchdog = Scripted([False, True, True] if case == "straggle" and rank == 1
+                                else [])
+            return tr.ElasticRun(
+                step_fn=step_fn, state={"v": 0}, start=0, n_devices=n, devices_per_host=1,
+                heartbeat=Heartbeat(group.host(), str(hb_dir)),
+                monitor=Monitor(str(view if case == "stale" and rank == 1 else hb_dir),
+                                timeout=600),
+                watchdog=watchdog, agree=tr.agree_verdict, on_failure=group.on_failure,
+                log_every=1)
+
+        try:
+            state, hist = tr.run_elastic(
+                build, lambda step: {}, 4, log=logs.append,
+                policy=tr.RecoveryPolicy(straggler_patience=2, max_recoveries=2))
+            rec[case] = {"record": record, "v": state["v"], "logs": logs,
+                         "steps": [h["step"] for h in hist], "world": group.world}
+        except _Left:
+            rec[case] = {"record": record, "left_at": group.failed_at, "dead": group.dead,
+                         "logs": logs}
+            break
+        group.dead = []
+    (out / f"verdicts_rank{rank}.json").write_text(json.dumps(rec))
+
+
+CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": case_elastic,
+         "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts}
 
 
 def main() -> int:
@@ -205,7 +462,8 @@ def main() -> int:
     try:
         CASES[case](rank, world, out, json.loads(args))
     finally:
-        dist.destroy_process_group()
+        if dist.is_initialized():  # a rank that left an elastic run has none
+            dist.destroy_process_group()
     return 0
 
 

@@ -7,7 +7,8 @@ devices, as ``tests/test_distributed.py`` runs them, and hand their results
 over as ``.npz`` files.  Gates: fc_layer_sharded under psum, ring, tp, batch
 and the planner's pick and ring_matmul (forward and gradients against
 ``jax.grad`` through ``repro``'s fc_layer_sharded, 1e-4); the conv
-partitions against ``conv2d_fused_ref``; ``int8_psum`` against ``repro``'s;
+partitions against ``conv2d_fused_ref``; the im2col op's partitions against
+``repro``'s im2col op; ``int8_psum`` against ``repro``'s;
 the data-parallel CNN step (3 AdamW steps on (2,) and (2, 2), also
 accumulated and under int8_ef) against ``repro``'s single-device step; the
 launcher's ``--mesh 1x2`` losses against ``repro``'s launcher.
@@ -90,6 +91,18 @@ with mesh:
 base = np.random.default_rng(6).standard_normal((5, 7)).astype(np.float32)
 with mesh:
     out["int8.same"] = np.asarray(int8_psum(jnp.asarray(base), mesh, "model"))
+from repro.kernels.conv2d.im2col import conv2d_im2col_op
+rng = np.random.default_rng(4)
+xc = jnp.asarray(rng.standard_normal((8, 8, 8, 3)).astype(np.float32))
+fc = jnp.asarray(rng.standard_normal((3, 3, 3, 8)).astype(np.float32))
+bc = jnp.asarray(rng.standard_normal((8,)).astype(np.float32))
+for st in ("batch", "stack"):
+    ss = conv2d_im2col_op.plan_sharded(xc, fc, bc, mesh=mesh, axis="model", strategy=st,
+                                       padding=1, pool=2)
+    with mesh:
+        out["im2col." + st] = np.asarray(conv2d_im2col_op.sharded(
+            xc, fc, bc, schedule=ss, mesh=mesh, padding=1, relu=True, pool=2,
+            interpret=True))
 np.savez(OUT, **out)
 """
 
@@ -166,6 +179,24 @@ def test_conv_partitions_equal_the_xla_oracle(fc_results, strategy):
                                        padding=1, relu=True, pool=2))
     for r in ranks:
         close(r[f"conv.{strategy}"], want, tol=2e-4)
+
+
+@pytest.mark.parametrize("strategy", ["batch", "stack"])
+def test_im2col_partitions_equal_repro(fc_results, strategy):
+    """``conv2d_im2col_op.sharded`` under "batch" (images) and "stack"
+    (output channels) on 4 ranks: the global output on every rank, within
+    1e-4 of ``repro``'s op on 4 forced host devices (its Pallas matmul
+    interpreted); each rank multiplies one strip GEMM a strip of its local
+    schedule, at that schedule's blocks (counted at the kernel's plain
+    version, which CPU tensors run)."""
+    ranks, want = fc_results
+    for r in ranks:
+        close(r[f"im2col.{strategy}"], want[f"im2col.{strategy}"])
+        strips, bm, bn, bk = r[f"im2col.{strategy}.local"]
+        calls = r[f"im2col.{strategy}.calls"]
+        assert len(calls) == strips > 0
+        assert (calls == [bm, bn, bk]).all()
+    assert want[f"im2col.{strategy}"].shape == (8, 4, 4, 8)
 
 
 def test_int8_psum_equals_repro(fc_results):
