@@ -318,6 +318,34 @@ The fourteenth slice (after ``mesh``):
                seconds.  Ranks sharing one card over gloo: not multi-chip
                numbers.
 
+The fifteenth slice (after ``transformer``'s timings, once the card is
+free of its state):
+
+21. tokens_mesh — the dense token family trained on a mesh (path
+               ``tokens_mesh``).  (a) ``--arch qwen1.5-0.5b --mesh 2x2
+               --dist-backend gloo --planned-kernels --batch 4 --seq 2048
+               --steps 3`` at full width and depth on 4 rank processes
+               sharing cuda:0 (``chip_smoke.py --tokens-rank``): each rank
+               holds its FSDP shard of the parameters and moments, gathers
+               them over the data axis, runs 8 heads and half of d_ff and
+               of the vocab (tensor-parallel over the model axis) on the
+               planned kernels and reduce-scatters the gradients.  The 3
+               losses must lie within 1e-4 relative of phase
+               ``transformer``'s one-device launcher run from the same
+               seed, each rank's launches per step equal its local plan's
+               (``plan_training`` of ``local_config`` at batch 2), and rank
+               0 holds the first launch of each distinct call against the
+               kernel's plain version at the phase-2 tolerance (then times
+               it beside its plain version, one library call and its
+               bound).  Per rank: step ms (events), collective calls,
+               bytes and host seconds by kind, peak memory.  (b) The same
+               at full width cut to 4 layers, ``--chaos kill@3`` over 6
+               steps with a checkpoint every 2: the survivors shrink to
+               1x2, restore step 2 onto it, and their tail and final
+               checkpoint equal bit for bit a clean 1x2 run restored from
+               the same checkpoint; the time to recover and the restore's
+               bytes and seconds.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -448,6 +476,13 @@ ELASTIC_MESH, ELASTIC_SHRUNK, ELASTIC_RANKS = "2x2", "1x2", 4
 ELASTIC_STEPS, ELASTIC_KILL, ELASTIC_EVERY = 8, 5, 2
 # (b): a torn chunk under a NaN burst, one device, a checkpoint every step.
 ELASTIC_NAN = ("corrupt@3,nan@4x2", 2, 6)  # chaos, non-finite patience, steps
+# Phase tokens_mesh: the dense family on a 2x2 mesh of ranks sharing the card.
+TOKENS_MESH, TOKENS_RANKS, TOKENS_SHRUNK = "2x2", 4, "1x2"
+TOKENS_TIMEOUT = 900  # seconds a rank process may take (init, builds, 3 steps)
+# (b): full width cut to 4 layers, kill@3 over 6 steps, a checkpoint every 2.
+TOKENS_ELASTIC_LAYERS, TOKENS_ELASTIC_STEPS = 4, 6
+TOKENS_ELASTIC_KILL, TOKENS_ELASTIC_EVERY = 3, 2
+RUNS: dict = {}  # what a later phase compares with (phase transformer's losses)
 
 
 def tfm_chunks() -> int:
@@ -1576,6 +1611,7 @@ def phase_transformer(torch, kernels, results):
     check(got == want, f"transformer: launches {got} != plan {want}")
     losses = [h["loss"] for h in history]
     check(all(math.isfinite(x) for x in losses), f"transformer: losses {losses}")
+    RUNS["transformer_losses"] = losses
     for name in kernels:
         results[name]["launches_by_path"][TFM_PATH] = got[name]
     emit(phase="transformer", path=TFM_PATH, arch=TFM_ARCH,
@@ -3974,15 +4010,18 @@ def mesh_rank(rank: int, world: int, work: Path) -> int:
     return 0
 
 
-def run_rank_processes(flag: str, world: int, work: Path) -> list:
-    """Start ``chip_smoke.py FLAG R WORLD WORK`` for every rank (logs under
-    WORK), stop them all at the first failure or at MESH_TIMEOUT, and
-    return (rank, exit code, log tail) of each that failed."""
+def run_rank_processes(flag: str, world: int, work: Path, extra: tuple = (),
+                       timeout: float = MESH_TIMEOUT) -> list:
+    """Start ``chip_smoke.py FLAG R WORLD WORK [EXTRA]`` for every rank
+    (logs under WORK), stop them all at the first failure or at
+    ``timeout``, and return (rank, exit code, log tail) of each that
+    failed."""
     logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
     procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
-                               str(world), str(work)], stdout=logs[r], stderr=subprocess.STDOUT)
+                               str(world), str(work), *extra], stdout=logs[r],
+                              stderr=subprocess.STDOUT)
              for r in range(world)]
-    deadline = time.monotonic() + MESH_TIMEOUT
+    deadline = time.monotonic() + timeout
     try:
         # A rank that fails leaves the others waiting in a collective.
         while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
@@ -4093,7 +4132,10 @@ def elastic_spy(torch, kernels, incarnations: list, saves: list, keep: Path | No
             step_fn, on_failure, save = run.step_fn, run.on_failure, run.save
 
             def timed_step(state, batch):
+                from repro_torch.runtime import collectives as coll
+
                 before = {k: v.launches for k, v in kernels.items()}
+                coll_before = coll.STATS.as_dict()
                 start = torch.cuda.Event(enable_timing=True)
                 end = torch.cuda.Event(enable_timing=True)
                 start.record()
@@ -4102,7 +4144,8 @@ def elastic_spy(torch, kernels, incarnations: list, saves: list, keep: Path | No
                 end.synchronize()
                 rec["steps"].append({"ms": start.elapsed_time(end), "t_end": time.perf_counter(),
                                      "launches": {k: v.launches - before[k]
-                                                  for k, v in kernels.items()}})
+                                                  for k, v in kernels.items()},
+                                     "collectives": stats_since(coll_before)})
                 return out
 
             def failed(step, e):
@@ -4129,6 +4172,17 @@ def elastic_spy(torch, kernels, incarnations: list, saves: list, keep: Path | No
         yield
     finally:
         tr.run_elastic, ckpt.save = real_run, real_write
+
+
+def stats_since(before: dict) -> dict:
+    """The collectives (calls, bytes, host seconds by kind) since
+    ``before`` (a ``collectives.STATS.as_dict()``)."""
+    from repro_torch.runtime import collectives as coll
+
+    now = coll.STATS.as_dict()
+    return {key: {k: v - before[key].get(k, 0) for k, v in now[key].items()
+                  if v != before[key].get(k, 0)}
+            for key in ("calls", "bytes_by", "seconds_by")}
 
 
 def elastic_plan_launches(cnn, cl, cfg, kernels, mesh: dict) -> dict:
@@ -4323,12 +4377,239 @@ def phase_elastic(torch, cnn, cfg, kernels, results, card) -> None:
     emit(phase="elastic", seconds=time.perf_counter() - t_phase)
 
 
+# -- phase tokens_mesh: the dense token family on a mesh ---------------------------
+
+
+def tfm_kernels() -> dict:
+    """The kernels of the planned transformer training step, by name."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    kernels = cnn_kernels()
+    del kernels["conv2d"], kernels["conv2d_wgrad"]
+    return dict(kernels, flash_attention=flash_attention_kernel)
+
+
+def tokens_argv(mesh: str, steps: int, ckpt: Path | None = None, chaos: str | None = None):
+    argv = ["--arch", TFM_ARCH, "--mesh", mesh, "--dist-backend", "gloo", "--planned-kernels",
+            "--batch", str(TFM_BATCH), "--seq", str(TFM_SEQ), "--steps", str(steps),
+            "--seed", str(SEED), "--log-every", "1"]
+    if ckpt is not None:
+        argv += ["--ckpt", str(ckpt), "--ckpt-every", str(TOKENS_ELASTIC_EVERY),
+                 "--max-recoveries", "2"]
+    if chaos:
+        argv += ["--chaos", chaos]
+    return argv
+
+
+def tokens_local_launches(tf, kernels, mesh: str) -> dict:
+    """Each kernel's launches one rank makes in a step on ``mesh``: the
+    local plan (``plan_training`` of ``local_config`` at the rank's batch)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    dims, axes = parse_mesh(mesh)
+
+    class Shape:  # a mesh's shape: what local_config reads (rank 0's view)
+        shape = dict(zip(axes, dims))
+        axis_names = axes
+
+        def axis_index(self, names):
+            return 0
+
+    ctx = ParallelCtx(mesh=Shape(), dp_axes=axes[:-1])
+    lcfg = tf.local_config(get_config(TFM_ARCH), ctx)
+    batch = TFM_BATCH // ctx.dp_size
+    plans = tf.plan_training(lcfg, batch, TFM_SEQ, loss_chunks=tfm_chunks())
+    return per_kernel(tfm_calls(tf, lcfg, plans, batch=batch), kernels), lcfg
+
+
+def tokens_cases(torch, rank: int, world: int, work: Path, case: str) -> dict:
+    """One rank of case (a) ("main") or (b) ("elastic")."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+
+    kernels = tfm_kernels()
+    incarnations, saves, calls = [], [], {}
+    held = {name: {"max_abs_err": 0.0} for name in kernels}
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if case == "main":
+        hold = (hold_launches(torch, kernels, held, calls) if rank == 0
+                else contextlib.nullcontext())
+        with elastic_spy(torch, kernels, incarnations, saves), hold:
+            history = launch.main(tokens_argv(TOKENS_MESH, STEPS))
+    else:  # full width cut in depth, for this run and its clean reference
+        real = launch.get_config
+        launch.get_config = lambda arch: dataclasses.replace(
+            real(arch), n_layers=TOKENS_ELASTIC_LAYERS)
+        with elastic_spy(torch, kernels, incarnations, saves):
+            history = launch.main(tokens_argv(
+                TOKENS_MESH, TOKENS_ELASTIC_STEPS, work / "ckpt",
+                chaos=f"kill@{TOKENS_ELASTIC_KILL}"))
+    torch.cuda.synchronize()
+    rec = {"rank": rank, "launches": {n: k.launches for n, k in kernels.items()},
+           "incarnations": incarnations, "saves": saves, "t0": t0,
+           "run_s": time.perf_counter() - t0,
+           "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    if not dist.is_initialized():  # this rank's host failed: it left the run
+        return dict(rec, left=True)
+    rec.update(left=False, new_rank=dist.get_rank(), steps=[h["step"] for h in history],
+               losses=[h["loss"] for h in history], step_s=[h["time"] for h in history])
+    if case == "main":
+        if rank == 0:
+            rec["held"] = {n: h["max_abs_err"] for n, h in held.items()}
+            from repro_torch.models import transformer as tf
+
+            _, lcfg = tokens_local_launches(tf, kernels, TOKENS_MESH)
+            rec["calls"] = dense_call_times(torch, kernels, calls, hq=lcfg.n_heads,
+                                            hkv=lcfg.n_kv_heads)
+        return rec
+    clean, kept = work / "clean", f"step_{TOKENS_ELASTIC_KILL - 1:07d}"
+    if dist.get_rank() == 0:
+        clean.mkdir()
+        shutil.copytree(work / "ckpt" / kept, clean / kept)
+    dist.barrier()
+    ref = launch.main(tokens_argv(TOKENS_SHRUNK, TOKENS_ELASTIC_STEPS, clean))
+    rec.update(ref_steps=[h["step"] for h in ref], ref_losses=[h["loss"] for h in ref])
+    return rec
+
+
+def tokens_rank(rank: int, world: int, work: Path, case: str) -> int:
+    """The entry of one rank process (``chip_smoke.py --tokens-rank``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=TOKENS_TIMEOUT))
+    try:
+        rec = tokens_cases(torch, rank, world, work, case)
+    finally:
+        if dist.is_initialized():  # a rank that left the run has torn its group down
+            dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def tokens_ranks(work: Path, case: str) -> list:
+    """Run the ranks of one case and return their records; a failure fails
+    the phase (with the records that were written)."""
+    work.mkdir(parents=True)
+    bad = run_rank_processes("--tokens-rank", TOKENS_RANKS, work, extra=(case,),
+                             timeout=TOKENS_TIMEOUT)
+    recs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(TOKENS_RANKS) if (work / f"rank{r}.json").exists()]
+    if bad:
+        emit(phase="tokens_mesh", case=case, failed=True, ranks_records=recs)
+    check(not bad, f"tokens_mesh {case} ranks failed (or outlived {TOKENS_TIMEOUT} s): {bad}")
+    return recs
+
+
+def phase_tokens_mesh(torch, kernels, results, card) -> None:
+    """Cases (a) and (b) (see the module docstring)."""
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    base = SCRATCH / "tokens_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("tokens_mesh", 0)
+    step_kernels = tfm_kernels()
+    want, lcfg = tokens_local_launches(tf, step_kernels, TOKENS_MESH)
+
+    # (a) the full model on 2x2.
+    t0 = time.perf_counter()
+    recs = tokens_ranks(base / "main", "main")
+    ranks_s = time.perf_counter() - t0
+    check(len(recs) == TOKENS_RANKS, f"tokens_mesh: {len(recs)} rank records")
+    one = RUNS["transformer_losses"]
+    for r in recs:
+        check(r["losses"] == recs[0]["losses"], f"rank {r['rank']}: losses {r['losses']}")
+        for st in r["incarnations"][0]["steps"]:
+            check(st["launches"] == want,
+                  f"rank {r['rank']}: step launches {st['launches']} != local plan {want}")
+        for name in kernels:
+            results[name]["launches_by_path"]["tokens_mesh"] += r["launches"].get(name, 0)
+    losses = recs[0]["losses"]
+    check(len(losses) == STEPS and all(
+        abs(a - b) <= LOSS_TOL * abs(b) for a, b in zip(losses, one)),
+        f"tokens_mesh losses {losses} vs one device {one}")
+    rank0 = recs[0]
+    for name, err in rank0["held"].items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    held = {c["kernel"] for c in rank0["calls"]}
+    check(held == {k for k, n in want.items() if n},
+          f"tokens_mesh: held calls of {sorted(held)}, the plan launches {want}")
+    emit(phase="tokens_mesh", case="main", card=card, arch=TFM_ARCH, mesh=TOKENS_MESH,
+         setup=f"{TOKENS_RANKS} processes sharing one H100 over gloo (which stages CUDA "
+               "tensors through host memory); not multi-chip numbers",
+         local_config={k: getattr(lcfg, k) for k in ("n_heads", "n_kv_heads", "d_ff",
+                                                    "vocab", "head_dim")},
+         batch=TFM_BATCH, seq=TFM_SEQ, steps=STEPS, losses=losses, one_device_losses=one,
+         max_loss_rel_diff=max(abs(a - b) / abs(b) for a, b in zip(losses, one)),
+         loss_tolerance=LOSS_TOL, launches_per_step=want, ranks_seconds=ranks_s,
+         ranks=[{"rank": r["rank"], "run_s": r["run_s"],
+                 "peak_memory_bytes": r["peak_memory_bytes"],
+                 "build": {k: v for k, v in r["incarnations"][0].items() if k != "steps"},
+                 "step_ms": [st["ms"] for st in r["incarnations"][0]["steps"]],
+                 "step_s": r["step_s"],
+                 "collectives": [st["collectives"] for st in r["incarnations"][0]["steps"]]}
+                for r in recs],
+         calls=rank0["calls"], tolerance=TOL)
+
+    # (b) the elastic shrink at 4 layers.
+    t0 = time.perf_counter()
+    work = base / "elastic"
+    recs = tokens_ranks(work, "elastic")
+    ranks_s = time.perf_counter() - t0
+    check([r["left"] for r in recs] == [False, False, True, True],
+          f"tokens_mesh elastic: left {[r['left'] for r in recs]}")
+    kill = TOKENS_ELASTIC_KILL
+    for r in recs:
+        for name in kernels:
+            results[name]["launches_by_path"]["tokens_mesh"] += r["launches"].get(name, 0)
+        if r["left"]:
+            continue
+        got = [(i["n_devices"], i["mesh"], i["start"]) for i in r["incarnations"]]
+        check(got == [(4, {"data": 2, "model": 2}, 0), (2, {"data": 1, "model": 2}, kill)],
+              f"rank {r['rank']}: incarnations {got}")
+        check(r["steps"] == list(range(TOKENS_ELASTIC_STEPS)), f"steps {r['steps']}")
+        check(r["ref_steps"] == list(range(kill, TOKENS_ELASTIC_STEPS)),
+              f"clean steps {r['ref_steps']}")
+        check(r["losses"][kill:] == r["ref_losses"],
+              f"tokens_mesh elastic tail {r['losses'][kill:]} vs clean {r['ref_losses']}")
+    final = f"step_{TOKENS_ELASTIC_STEPS - 1:07d}"
+    check(same_files(work / "ckpt" / final, work / "clean" / final),
+          "tokens_mesh elastic: the final state differs from the clean run's")
+    rank0 = next(r for r in recs if not r["left"] and r["new_rank"] == 0)
+    emit(phase="tokens_mesh", case="elastic", card=card, layers=TOKENS_ELASTIC_LAYERS,
+         setup=f"{TOKENS_RANKS} processes sharing one H100 over gloo, mesh {TOKENS_MESH} "
+               f"-> {TOKENS_SHRUNK}; not multi-chip numbers",
+         incarnations=[[(i["n_devices"], i["mesh"], i["start"]) for i in r["incarnations"]]
+                       for r in recs],
+         losses=rank0["losses"], clean_losses=rank0["ref_losses"], ranks_seconds=ranks_s,
+         recovery=elastic_recovery(rank0),
+         peak_memory_bytes={r["rank"]: r["peak_memory_bytes"] for r in recs})
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="tokens_mesh", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if sys.argv[1:2] == ["--elastic-rank"]:  # one rank of phase elastic
         return elastic_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
+    if sys.argv[1:2] == ["--tokens-rank"]:  # one rank of phase tokens_mesh
+        return tokens_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4416,6 +4697,10 @@ def main() -> int:
     phase_times_transformer(torch, card, results, kernels, tfm)
     del tfm
     torch.cuda.empty_cache()
+    phase_tokens_mesh(torch, kernels, results, card)
+    for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
+        check(results[name]["launches_by_path"]["tokens_mesh"] > 0,
+              f"{name}: no launch on the tokens_mesh path")
     phase_autotune(torch, cnn, cfg, kernels, results, card)
     del params, images, plans
     phase_moe_serve(torch, kernels, results, card)

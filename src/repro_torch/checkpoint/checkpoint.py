@@ -11,9 +11,13 @@ The layout is ``repro.checkpoint``'s byte for byte: the same leaf names
 (``params/<path>``, ``opt/step``, ``opt/m/<path>``, ``opt/v/<path>``,
 ``err/<path>`` for a ``TrainState``), the same file names, the same
 ``index.json`` and the same ``.npy`` bytes (bf16 stored as ``u2`` bits), so a
-checkpoint written by either package restores into the other.  The port runs
-on one device: ``restore`` takes a ``device`` where ``repro`` takes
-shardings, and reassembles each leaf from its chunks whole.
+checkpoint written by either package restores into the other.  ``restore``
+takes a ``device`` where ``repro`` takes shardings, and ``specs`` and a
+``mesh`` for a sharded state: each rank then reads only its piece of each
+leaf, from the chunks along axis 0 that overlap it (reshard-on-restore: a
+checkpoint written on one mesh restores onto any other).  A sharded state
+is saved whole: :func:`gather_state` puts its leaves together on every
+rank, and one rank writes the layout above.
 
 Integrity: every chunk's sha256 (of the on-disk ``.npy`` bytes) is recorded
 in ``index.json`` and re-checked on restore, so a torn write surfaces as
@@ -247,14 +251,23 @@ def latest_step(ckpt_dir: str) -> int | None:
     return steps[-1] if steps else None
 
 
-def _read_leaf(step_dir: str, meta: dict) -> np.ndarray:
+def _read_leaf(step_dir: str, meta: dict, index: tuple | None = None) -> np.ndarray:
     """One leaf reassembled from its row chunks, as stored (bits views
-    stay unsigned)."""
-    parts = [np.load(os.path.join(step_dir, ch["file"]), mmap_mode="r")
-             for ch in sorted(meta["chunks"], key=lambda ch: ch["offset"])]
+    stay unsigned); with ``index`` (a slice per dimension) only that piece,
+    read from the chunks whose rows overlap it."""
+    chunks = sorted(meta["chunks"], key=lambda ch: ch["offset"])
     if not meta["shape"]:  # scalar
-        return np.array(parts[0])
-    return np.concatenate(parts, 0) if len(parts) != 1 else np.array(parts[0])
+        return np.array(np.load(os.path.join(step_dir, chunks[0]["file"])))
+    index = index or (slice(None),) * len(meta["shape"])
+    start, stop, _ = index[0].indices(meta["shape"][0])
+    parts = []
+    for ch in chunks:
+        off, rows = ch["offset"], ch["rows"]
+        lo, hi = max(start, off), min(stop, off + rows)
+        if lo < hi:
+            mm = np.load(os.path.join(step_dir, ch["file"]), mmap_mode="r")
+            parts.append(np.array(mm[lo - off:hi - off][(slice(None),) + tuple(index[1:])]))
+    return np.concatenate(parts, 0) if len(parts) != 1 else parts[0]
 
 
 def _as_leaf(arr: np.ndarray, meta: dict, like, device):
@@ -297,14 +310,35 @@ def verify_step(ckpt_dir: str, step: int) -> None:
                     f"recorded {want[:12]}…, found {got[:12]}…")
 
 
-def restore(ckpt_dir: str, step: int, template, device=None, verify: bool = True):
+def gather_state(tree, specs, mesh):
+    """A sharded tree put together: each tensor leaf gathered whole over
+    the axes its spec in ``specs`` (a tree of the same structure, ``P``
+    leaves) names, on every rank of ``mesh`` (a collective: every rank
+    calls it)."""
+    from repro_torch.runtime.parallel import gather_tensor
+
+    spec_of = dict(_leaf_paths(specs))
+    return _rebuild(tree, {
+        path: gather_tensor(leaf, spec_of[path], mesh)
+        if isinstance(leaf, torch.Tensor) and spec_of.get(path) else leaf
+        for path, leaf in _leaf_paths(tree)})
+
+
+def restore(ckpt_dir: str, step: int, template, device=None, verify: bool = True, *,
+            specs=None, mesh=None):
     """Restore onto ``template``'s structure: a tree of tensors (only their
     shapes and dtypes are read; ``meta`` tensors do) and Python ints.  Each
     tensor leaf comes back on ``device`` (default: the card) in its
-    template's dtype; an int leaf comes back as an int.  ``verify``
-    (default) checks every chunk's sha256 first, so a torn write raises
-    :class:`CheckpointCorruptError` up front."""
+    template's dtype; an int leaf comes back as an int.  With ``specs``
+    (a tree of ``P`` of the template's structure) and ``mesh``, each tensor
+    leaf comes back as this rank's piece under its spec, read from the
+    chunks that overlap it.  ``verify`` (default) checks every chunk's
+    sha256 first, so a torn write raises :class:`CheckpointCorruptError`
+    up front."""
+    from repro_torch.runtime.parallel import local_index
+
     device = torch.device("cuda" if device is None else device)
+    spec_of = dict(_leaf_paths(specs)) if specs is not None else {}
     step_dir = os.path.join(ckpt_dir, f"step_{step:07d}")
     if verify:
         verify_step(ckpt_dir, step)
@@ -325,11 +359,14 @@ def restore(ckpt_dir: str, step: int, template, device=None, verify: bool = True
                 f"step {step}: leaf {path!r} shape mismatch — checkpoint "
                 f"holds {tuple(meta['shape'])}, restore target expects "
                 f"{shape}")
-        out[path] = _as_leaf(_read_leaf(step_dir, meta), meta, like, device)
+        spec = spec_of.get(path)
+        index = local_index(shape, spec, mesh) if spec and shape else None
+        out[path] = _as_leaf(_read_leaf(step_dir, meta, index), meta, like, device)
     return _rebuild(template, out)
 
 
-def restore_latest(ckpt_dir: str, template, device=None, verify: bool = True):
+def restore_latest(ckpt_dir: str, template, device=None, verify: bool = True, *,
+                   specs=None, mesh=None):
     """Restore the newest *intact* committed step: integrity failures on
     the latest step fall back to the previous committed one (and so on),
     each fallback logged via ``warnings.warn``.  Returns ``(tree, step)``
@@ -338,7 +375,8 @@ def restore_latest(ckpt_dir: str, template, device=None, verify: bool = True):
     identically, and masking them would hide a real caller bug."""
     for step in reversed(committed_steps(ckpt_dir)):
         try:
-            return restore(ckpt_dir, step, template, device, verify=verify), step
+            return restore(ckpt_dir, step, template, device, verify=verify, specs=specs,
+                           mesh=mesh), step
         except (CheckpointCorruptError, OSError, json.JSONDecodeError) as e:
             warnings.warn(
                 f"checkpoint step {step} in {ckpt_dir} is corrupt "

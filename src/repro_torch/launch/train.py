@@ -21,6 +21,11 @@ heartbeats, a straggler watchdog and resume.
         --ckpt /tmp/run2 --ckpt-every 2 --chaos kill@5
     # host1's two ranks leave at step 5; the survivors re-form a 1x2 mesh,
     # re-plan, restore step 4 and finish.
+    PYTHONPATH=src python -m repro_torch.launch.train --family transformer \
+        --mesh 2x2 --device cpu --dist-backend gloo --steps 3 --batch 4 --seq 32 \
+        --planned-kernels
+    PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
+        --mesh 2x2 --dist-backend gloo --planned-kernels --batch 4 --seq 2048 --steps 3
 
 ``--planned-kernels`` runs the family's planned kernels forward and
 backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
@@ -45,22 +50,29 @@ background (keeping the newest 3).  The learning-rate schedule spans
 ``--steps``, so a resumed run matches an uninterrupted one only under the
 same ``--steps``.
 
-``--mesh DxM`` (or ``PxDxM``) trains the cnn data-parallel on a mesh of
-``torch.distributed`` ranks, one rank a device, axes ``(data, model)``
-(``(pod, data, model)``): every rank draws the same global batch, runs the
-planned step on its shard of the data axis, and the gradients are averaged
-with one psum (``runtime.train``); parameters stay replicated, so the model
-axis replicates the step.  The process group comes from the environment
+``--mesh DxM`` (or ``PxDxM``) trains on a mesh of ``torch.distributed``
+ranks, one rank a device, axes ``(data, model)`` (``(pod, data, model)``);
+every rank draws the same global batch and runs the step on its shard of
+the data axes (``runtime.train``).  The cnn trains data-parallel: the
+gradients are averaged with one psum, the parameters stay replicated and
+the model axis replicates the step.  The token families train FSDP-style,
+as the JAX launcher shards them: each rank holds its shard of the
+parameters and of AdamW's moments under ``launch.specs.fsdp_specs``, the
+step gathers them over the data axes and reduce-scatters the gradients;
+the dense family runs its heads, d_ff and vocab tensor-parallel over the
+model axis (the other families on a model axis above 1 raise, ROADMAP
+queue 1 #5c).  A checkpoint of a sharded state is gathered whole and
+written by rank 0; a restore reads each rank's piece onto whatever mesh
+the run has now.  The process group comes from the environment
 ``torchrun`` sets, or the launcher starts the ranks itself (one process a
 rank over a file store in a temporary directory: loopback only).
 ``--dist-backend`` names the group's backend (``nccl`` by default on the
 card, ``gloo`` with ``--device cpu``); on the card each rank takes device
 ``rank mod device count``.  The launcher prints the JAX launcher's
-``sharded plan`` line for the plan the step runs (every stage's "batch"
-partition over the data axis), after ``validate_sharded_plan``.  A token
-family on more than one device raises: its FSDP specs, sequence-parallel
-attention and expert parallelism wait for ROADMAP queue 1 #5b, and
-``zero1`` with them.
+``sharded plan`` line after ``validate_sharded_plan``: for the cnn the plan
+its step runs (every stage's "batch" partition over the data axis), for
+the dense family the unpinned plan over the data axis, as the JAX launcher
+prints it (its step runs the "batch" partition at each rank's shapes).
 
 Elastic restart (DESIGN.md Sec. 7): the steps run through
 ``runtime.train.run_elastic``.  On a detected host failure the loop
@@ -103,7 +115,10 @@ import torch.distributed as dist
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, get_config, smoke_config
 from repro_torch.data.pipeline import ShardInfo
-from repro_torch.models.module import count_params, init_params
+from repro_torch.launch.specs import fsdp_specs
+from repro_torch.models.module import abstract_params, count_params, init_params, param_specs
+from repro_torch.optim import adamw
+from repro_torch.plan.sharded import P
 from repro_torch.models.registry import FAMILIES, get_family, make_data_source
 from repro_torch.launch.mesh import ElasticGroup
 from repro_torch.plan import autotune as at
@@ -113,7 +128,7 @@ from repro_torch.runtime.collectives import BACKENDS, Mesh
 from repro_torch.runtime.fault_tolerance import (
     Heartbeat, Monitor, StragglerWatchdog, shrink_mesh_shape,
 )
-from repro_torch.runtime.parallel import ParallelCtx, data_axis
+from repro_torch.runtime.parallel import ParallelCtx, data_axis, shard_tensor
 
 # Chunks per sequence of the token families' chunked cross-entropy.
 LOSS_CHUNKS = 4
@@ -244,11 +259,14 @@ def main(argv=None) -> list[dict]:
                      f"(family {cfg.family!r})")
         cfg = dataclasses.replace(cfg, family=args.family)
     fam = get_family(cfg.family)
-    if world > 1 and not hasattr(fam, "batch_shard_specs"):
+    # The token families hold an FSDP-sharded state on a mesh; the cnn a
+    # replicated one.
+    fsdp = not hasattr(fam, "batch_shard_specs")
+    if dims[-1] > 1 and cfg.family not in tr.MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
-            f"--mesh {args.mesh} for the {cfg.family!r} family: the token families on "
-            "a mesh (FSDP specs, sequence-parallel attention, expert parallelism, "
-            "zero1) wait for ROADMAP queue 1 #5b")
+            f"--mesh {args.mesh}: the {cfg.family!r} family over a model axis above 1 "
+            "(expert parallelism, tensor-parallel recurrent and encoder-decoder blocks) "
+            "waits for ROADMAP queue 1 #5c")
     if world > 1 and not dist.is_initialized():
         if "RANK" not in os.environ:  # start the ranks here
             return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],
@@ -317,28 +335,46 @@ def main(argv=None) -> list[dict]:
             # modeled argmin.
             at.set_policy(at.recovery_policy(args.autotune), device=device)
         t1 = time.perf_counter()
-        if ctx is not None:
-            # Re-plan the step against THIS mesh: every stage's "batch"
+        if ctx is not None and hasattr(fam, "plan_training"):
+            # Re-plan the step against THIS mesh (the ring/psum argmin can
+            # flip at the new count).  The cnn: every stage's "batch"
             # partition over the data axis, its ici_words the gradient
-            # all-reduce (the ring/psum argmin can flip at the new count).
+            # all-reduce; the dense family: the unpinned plan.
             from repro_torch.plan.sharded import validate_sharded_plan
 
             tune = at.recovery_policy(args.autotune) if degraded else args.autotune
-            splan = fam.plan_training(cfg, args.batch, mesh=ctx.plan_mesh(),
-                                      shard_axis=data_axis(ctx), shard_strategy="batch",
-                                      autotune=tune)
+            if fsdp:
+                splan = fam.plan_training(cfg, args.batch, args.seq,
+                                          loss_chunks=tcfg.loss_chunks,
+                                          mesh=ctx.plan_mesh(),
+                                          shard_axis=ctx.dp_axes[-1], autotune=tune)
+            else:
+                splan = fam.plan_training(cfg, args.batch, mesh=ctx.plan_mesh(),
+                                          shard_axis=data_axis(ctx), shard_strategy="batch",
+                                          autotune=tune)
             validate_sharded_plan(splan, ctx.plan_mesh())
             hbm = sum(s.hbm_words for s in splan.values())
             ici = sum(s.ici_words for s in splan.values())
             say(f"sharded plan: {len(splan)} kernels | modeled step words "
                 f"hbm={hbm} ici={ici}")
-        step_fn = (tr.make_train_step(cfg, tcfg) if ctx is None
-                   else tr.make_train_step(cfg, tcfg, parallel=ctx))
+        pdt = getattr(torch, tcfg.param_dtype)
+        specs = None  # the state's specs, where it is sharded
+        if ctx is not None and fsdp:
+            pspecs = fsdp_specs(param_specs(defs), abstract_params(defs, pdt), ctx)
+            specs = tr.TrainState(params=pspecs,
+                                  opt=adamw.AdamWState(step=P(), m=pspecs, v=pspecs))
+        if ctx is None:
+            step_fn = tr.make_train_step(cfg, tcfg)
+        else:
+            step_fn = tr.make_train_step(cfg, tcfg, parallel=ctx,
+                                         grad_specs=specs.params if specs else None)
         info["plan_s"] = time.perf_counter() - t1
 
         t2 = time.perf_counter()
-        params = init_params(defs, tcfg.seed, device=device,
-                             dtype=getattr(torch, tcfg.param_dtype))
+        params = init_params(defs, tcfg.seed, device=device, dtype=pdt)
+        if specs is not None:  # this rank's shards
+            params = {k: shard_tensor(v, specs.params[k], ctx.mesh)
+                      for k, v in params.items()}
         state = tr.init_state(cfg, tcfg, params)
         info["init_s"] = time.perf_counter() - t2
         hb_dir = os.path.join(args.ckpt, "hb") if args.ckpt else None
@@ -357,9 +393,15 @@ def main(argv=None) -> list[dict]:
         start = 0
         if args.ckpt:
             # Resume from the newest *intact* committed step (a corrupt step
-            # falls back to the one before, with a logged warning).  The
-            # parameters are replicated: no reshard on a changed mesh.
-            restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
+            # falls back to the one before, with a logged warning).  A
+            # sharded state reads this rank's pieces on the mesh it has now.
+            if specs is None:
+                restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
+            else:
+                aparams = abstract_params(defs, pdt)
+                template = tr.TrainState(params=aparams, opt=adamw.abstract_state(aparams))
+                restored, last = ckpt.restore_latest(args.ckpt, template, device=device,
+                                                     specs=specs, mesh=ctx.mesh)
             if restored is not None:
                 state, start = restored, last + 1
                 info["restored_step"] = last
@@ -376,21 +418,29 @@ def main(argv=None) -> list[dict]:
             rank = group.rank if world > 1 else 0
             hb = Heartbeat(f"host{rank // dims[-1]}", hb_dir)
             mon = Monitor(hb_dir, timeout=600)
-            if rank == 0:  # ranks hold the same state: rank 0 alone writes
+            if rank == 0 or specs is not None:
+                # Rank 0 alone writes; a sharded state is first gathered
+                # whole, by every rank.
 
                 def save(step, st):
                     # Async commit: run_elastic joins this handle before the
                     # next save / a restore / the end, so writer failures
                     # surface there; retain only touches committed step dirs
                     # (the in-flight write lives under a .tmp name).
+                    if specs is not None:
+                        st = ckpt.gather_state(st, specs, ctx.mesh)
+                        if rank:
+                            return None
                     handle = ckpt.save_async(args.ckpt, step, st,
                                              n_chunks=max(1, min(8, n_dev)))
                     ckpt.retain(args.ckpt, keep=3)
                     return handle
 
+        writer = world == 1 or group.rank == 0  # the rank that tears a chunk under chaos
         return tr.ElasticRun(
             step_fn=step_fn, state=state, start=start, n_devices=n_dev, save=save,
-            ckpt_dir=args.ckpt, ckpt_every=args.ckpt_every if args.ckpt else 0,
+            ckpt_dir=args.ckpt if writer else None,
+            ckpt_every=args.ckpt_every if args.ckpt else 0,
             devices_per_host=dims[-1], heartbeat=hb, monitor=mon,
             watchdog=StragglerWatchdog(factor=3.0), log_every=args.log_every,
             agree=tr.agree_verdict if world > 1 else None,

@@ -1,6 +1,11 @@
 """Attention inside models (GQA, causal, sliding window): the JAX package's
-``models/attention.py`` without its sequence-parallel branch.  It serves
-the plain forward; the planned forward runs the flash-attention kernel.
+``models/attention.py``.  It serves the plain forward; the planned forward
+runs the flash-attention kernel.
+
+When the query heads do not split over the model axis, the attention runs
+*sequence-parallel* where the JAX package's does (:func:`seq_parallel`):
+each model rank takes its slice of the query sequence against the whole
+K/V, with no collective inside the softmax; the slices are gathered after.
 
 Two execution paths, one math:
 
@@ -103,12 +108,38 @@ def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
 
 
+def seq_parallel(seq: int, n_heads: int, n_kv_heads: int, tp: int) -> bool:
+    """The JAX package's condition for sequence-parallel attention: query
+    heads that do not split over ``tp`` model ranks, a query sequence that
+    does, and a local GQA-folded query block of a multiple of 8 rows."""
+    return (seq > 1 and n_heads % tp != 0 and seq % tp == 0
+            and (seq // tp) * (n_heads // n_kv_heads) % 8 == 0)
+
+
 def attention(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
               scale: float | None = None, chunk_q: int = 512,
-              chunk_kv: int = 1024) -> torch.Tensor:
+              chunk_kv: int = 1024, parallel=None) -> torch.Tensor:
     """GQA attention; q: [B, Sq, Hq, D], k/v: [B, Skv, Hkv, D] with
     positions q_pos [Sq] (or [B, Sq], one vector per row) and k_pos [Skv];
-    returns [B, Sq, Hq, D]."""
+    returns [B, Sq, Hq, D].  With ``parallel`` (a ParallelCtx, every model
+    rank holding the same q/k/v) and :func:`seq_parallel`, each model rank
+    attends its query slice to the whole K/V and the slices are gathered:
+    the same value, and the same gradients, on every rank."""
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import parallel as par
+
     scale = scale if scale is not None else q.shape[-1] ** -0.5
-    return _attention_core(q, k, v, q_pos, k_pos, causal, window, scale,
-                           chunk_q, chunk_kv)
+    B, Sq, Hq, _ = q.shape
+    tp = par.tp_size(parallel)
+    if not (tp > 1 and q_pos.dim() == 1 and seq_parallel(Sq, Hq, k.shape[2], tp)):
+        return _attention_core(q, k, v, q_pos, k_pos, causal, window, scale,
+                               chunk_q, chunk_kv)
+    mesh, axis = parallel.mesh, parallel.tp_axis
+    n = Sq // tp
+    r = par.tp_rank(parallel)
+    q_l = coll.shard(q, (None, axis, None, None), mesh, axis)
+    # Each rank's queries read all of K/V: their gradients are summed.
+    k, v = par.tp_enter(k, parallel), par.tp_enter(v, parallel)
+    out = _attention_core(q_l, k, v, q_pos[r * n:(r + 1) * n], k_pos, causal, window,
+                          scale, chunk_q, chunk_kv)
+    return coll.all_gather(out, mesh, axis, dim=1)

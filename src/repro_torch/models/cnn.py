@@ -52,7 +52,8 @@ def param_defs(cfg: ModelConfig) -> dict:
             defs[name] = ParamDef(w_shape, fan_in_axis=2)
             defs[f"bias{i}"] = ParamDef((w_shape[3],), init="zeros")
         else:
-            defs[name] = ParamDef(w_shape)
+            spec = (None, "model") if name == "fc1" else ("model", None)
+            defs[name] = ParamDef(w_shape, spec)
             defs[f"{name}_b"] = ParamDef((w_shape[1],), init="zeros")
     return defs
 

@@ -29,11 +29,13 @@ def param_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
     Le, Ld = cfg.n_enc_layers, cfg.n_layers
     Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hs = ll.head_axis_spec(Hq, Dh)
+    khs = ll.head_axis_spec(Hkv, Dh)
     cross = {
-        "wq": ParamDef((Ld, d, Hq, Dh), fan_in_axis=1),
-        "wk": ParamDef((Ld, d, Hkv, Dh), fan_in_axis=1),
-        "wv": ParamDef((Ld, d, Hkv, Dh), fan_in_axis=1),
-        "wo": ParamDef((Ld, Hq, Dh, d), fan_in_axis=1),
+        "wq": ParamDef((Ld, d, Hq, Dh), (None, None) + hs, fan_in_axis=1),
+        "wk": ParamDef((Ld, d, Hkv, Dh), (None, None) + khs, fan_in_axis=1),
+        "wv": ParamDef((Ld, d, Hkv, Dh), (None, None) + khs, fan_in_axis=1),
+        "wo": ParamDef((Ld, Hq, Dh, d), (None,) + hs + (None,), fan_in_axis=1),
     }
     return {
         **ll.embed_defs(cfg),

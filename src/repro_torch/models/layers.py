@@ -1,10 +1,23 @@
 """Shared layer library: norms, RoPE, the GQA attention block with its KV
-cache, MLPs, embeddings — the JAX package's ``models/layers.py`` without
-its sharding branches.
+cache, MLPs, embeddings — the JAX package's ``models/layers.py``.
 
 Parameter layouts are the JAX package's: stacked-layer parameters carry a
 leading L dim, and the attention projections stay 4D (``[d, H, Dh]`` and
-``[H, Dh, d]``), so weights carry across unchanged.
+``[H, Dh, d]``), so weights carry across unchanged, and so do their
+partition specs (``head_axis_spec``/``ff_spec`` pick the model axis by
+divisibility at the production tp of 16, whatever the mesh).
+
+Where the JAX package hints GSPMD, the port runs the blocks
+tensor-parallel over the model axis itself (``parallel=`` a ParallelCtx
+whose model axis is above 1), Megatron-style: the attention heads and the
+MLP's d_ff split over the model ranks (column-parallel in, row-parallel
+out, one psum), the vocab of the embedding and the logits head too.  Each
+block takes its parameters as this rank holds them — the model axis's
+share where the spec names it, else whole, in which case the block takes
+its share by :func:`~repro_torch.runtime.parallel.tp_local`.  Query heads
+that do not split over the model axis run sequence-parallel attention
+(``models/attention.py``) under the JAX package's condition, else whole on
+every rank.
 """
 
 from __future__ import annotations
@@ -15,8 +28,26 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attention
+from repro_torch.models.attention import attention, seq_parallel
 from repro_torch.models.module import ParamDef
+from repro_torch.runtime import parallel as par
+
+MODEL_AXIS = "model"
+
+
+def head_axis_spec(n_heads: int, head_dim: int, tp: int = 16):
+    """(head_axis, dh_axis): shard heads if divisible, else replicate.
+    Never head_dim (a Dh-sharded QK^T contraction psums every logits
+    block); undividable query heads run sequence-parallel attention."""
+    del head_dim
+    if n_heads % tp == 0:
+        return (MODEL_AXIS, None)
+    return (None, None)
+
+
+def ff_spec(d_ff: int, tp: int = 16):
+    return MODEL_AXIS if d_ff % tp == 0 else None
+
 
 # --- norms -----------------------------------------------------------------
 
@@ -25,6 +56,14 @@ def rms_norm(x, w, eps=1e-6):
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
     return (xf * (1.0 + w.float())).to(x.dtype)
+
+
+def layer_norm(x, w, b, eps=1e-6):
+    xf = x.float()
+    mu = xf.mean(-1, keepdim=True)
+    var = ((xf - mu) ** 2).mean(-1, keepdim=True)
+    xf = (xf - mu) * torch.rsqrt(var + eps)
+    return (xf * w.float() + b.float()).to(x.dtype)
 
 
 # --- RoPE ------------------------------------------------------------------
@@ -51,22 +90,71 @@ def attn_defs(cfg: ModelConfig, L: int, layers_prefix: bool = True) -> dict:
     """Parameter defs for one GQA attention block, stacked over ``L``
     layers (or one unstacked block with ``layers_prefix=False``)."""
     d, Hq, Hkv, Dh = cfg.d_model, cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    hs = head_axis_spec(Hq, Dh)
+    khs = head_axis_spec(Hkv, Dh)
     lead = (L,) if layers_prefix else ()
+    ls = (None,) if layers_prefix else ()
     fan = len(lead)
     defs = {
-        "wq": ParamDef(lead + (d, Hq, Dh), fan_in_axis=fan),
-        "wk": ParamDef(lead + (d, Hkv, Dh), fan_in_axis=fan),
-        "wv": ParamDef(lead + (d, Hkv, Dh), fan_in_axis=fan),
-        "wo": ParamDef(lead + (Hq, Dh, d), fan_in_axis=fan),
+        "wq": ParamDef(lead + (d, Hq, Dh), ls + (None,) + hs, fan_in_axis=fan),
+        "wk": ParamDef(lead + (d, Hkv, Dh), ls + (None,) + khs, fan_in_axis=fan),
+        "wv": ParamDef(lead + (d, Hkv, Dh), ls + (None,) + khs, fan_in_axis=fan),
+        "wo": ParamDef(lead + (Hq, Dh, d), ls + hs + (None,), fan_in_axis=fan),
     }
     if cfg.qkv_bias:
-        defs["bq"] = ParamDef(lead + (Hq, Dh), init="zeros")
-        defs["bk"] = ParamDef(lead + (Hkv, Dh), init="zeros")
-        defs["bv"] = ParamDef(lead + (Hkv, Dh), init="zeros")
+        defs["bq"] = ParamDef(lead + (Hq, Dh), ls + hs, init="zeros")
+        defs["bk"] = ParamDef(lead + (Hkv, Dh), ls + khs, init="zeros")
+        defs["bv"] = ParamDef(lead + (Hkv, Dh), ls + khs, init="zeros")
     if cfg.qk_norm:
-        defs["q_norm"] = ParamDef(lead + (Dh,), init="zeros")
-        defs["k_norm"] = ParamDef(lead + (Dh,), init="zeros")
+        defs["q_norm"] = ParamDef(lead + (Dh,), ls + (None,), init="zeros")
+        defs["k_norm"] = ParamDef(lead + (Dh,), ls + (None,), init="zeros")
     return defs
+
+
+def attention_split(cfg: ModelConfig, seq: int, parallel) -> str:
+    """How an attention block without a cache runs over the model axis:
+    ``"heads"`` (each rank its share of the query heads and the KV heads
+    they read), ``"seq"`` (the JAX package's sequence-parallel condition:
+    query heads that do not split), or ``"whole"`` (every rank all of it)."""
+    tp = par.tp_size(parallel)
+    if tp == 1:
+        return "whole"
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if Hq % tp == 0:
+        hl, g = Hq // tp, Hq // Hkv
+        return "heads" if hl % g == 0 or g % hl == 0 else "whole"
+    return "seq" if seq_parallel(seq, Hq, Hkv, tp) else "whole"
+
+
+def kv_heads_of(cfg: ModelConfig, parallel) -> tuple[int, int]:
+    """(first, count) of the KV heads this model rank's query heads read."""
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    hl, g = Hq // par.tp_size(parallel), Hq // Hkv
+    r = par.tp_rank(parallel)
+    first = r * hl // g
+    return first, ((r + 1) * hl - 1) // g + 1 - first
+
+
+def local_attn_params(p: dict, cfg: ModelConfig, parallel) -> dict:
+    """The attention block's parameters for this model rank's heads (under
+    ``attention_split == "heads"``): its query heads of ``wq``/``bq``/``wo``
+    and the KV heads they read of ``wk``/``wv``/``bk``/``bv``."""
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    k0, kn = kv_heads_of(cfg, parallel)
+    out = {}
+    for name, w in p.items():
+        if name in ("wq", "bq"):
+            out[name] = par.tp_local(w, w.ndim - 2, Hq, parallel)
+        elif name == "wo":
+            out[name] = par.tp_local(w, w.ndim - 3, Hq, parallel)
+        elif name in ("wk", "wv", "bk", "bv"):
+            dim = w.ndim - 2
+            if w.shape[dim] == Hkv:
+                w = par.tp_slice(w, dim, k0, kn, parallel)
+            out[name] = w
+        else:  # qk-norm weights span the head dim: each rank's heads add to them
+            out[name] = par.tp_enter(w, parallel)
+    return out
 
 
 def project_qkv(p: dict, x: torch.Tensor):
@@ -106,8 +194,8 @@ def write_cache(cache: tuple, k: torch.Tensor, v: torch.Tensor, pos0) -> None:
 
 
 def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
-                   theta=None, causal: bool = True, cache: tuple | None = None
-                   ) -> torch.Tensor:
+                   theta=None, causal: bool = True, cache: tuple | None = None,
+                   parallel=None) -> torch.Tensor:
     """Everything between the projections: biases, qk-norm, RoPE and
     attention; returns [B, S, Hq, Dh].
 
@@ -116,7 +204,8 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     [B, Smax, Hkv, Dh] the roped K/V are written into it in place (see
     :func:`write_cache`) and the block attends over the whole cache with
     key positions ``arange(Smax)``: the causal mask hides what lies past
-    each row's position."""
+    each row's position.  ``parallel`` (no cache) runs the attention
+    sequence-parallel where the JAX package does."""
     B, S = q.shape[:2]
     Dh = cfg.resolved_head_dim
     theta = cfg.rope_theta if theta is None else theta
@@ -133,7 +222,7 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     k = rope(k, q_pos, theta)
     if cache is None:
         return attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
-                         scale=Dh**-0.5)
+                         scale=Dh**-0.5, parallel=parallel)
     write_cache(cache, k, v, pos0)
     ck, cv = cache
     k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)
@@ -142,15 +231,23 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
 
 
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0=0, window=None,
-                    theta=None, cache: tuple | None = None, causal: bool = True):
+                    theta=None, cache: tuple | None = None, causal: bool = True,
+                    parallel=None):
     """The attention block: x [B, S, d] -> (out [B, S, d], cache).  The
     projections, :func:`attention_core` and the output projection; with
     ``cache`` = (k, v) [B, Smax, Hkv, Dh] the block's K/V are written into
-    it in place and the same tuple comes back (``None`` without one)."""
+    it in place and the same tuple comes back (``None`` without one).
+    With ``parallel`` (no cache) the block runs over the model axis as
+    :func:`attention_split` says."""
+    mode = "whole" if cache is not None else attention_split(cfg, x.shape[1], parallel)
+    if mode == "heads":
+        p, x = local_attn_params(p, cfg, parallel), par.tp_enter(x, parallel)
     q, k, v = project_qkv(p, x)
     o = attention_core(p, q, k, v, cfg, pos0=pos0, window=window, theta=theta,
-                       causal=causal, cache=cache)
-    return project_out(p, o), cache
+                       causal=causal, cache=cache,
+                       parallel=parallel if mode == "seq" else None)
+    out = project_out(p, o)
+    return (par.tp_exit(out, parallel) if mode == "heads" else out), cache
 
 
 # --- MLP -------------------------------------------------------------------
@@ -161,35 +258,96 @@ _ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
 
 def mlp_defs(cfg: ModelConfig, L: int, d_ff: int | None = None) -> dict:
     d, ff = cfg.d_model, d_ff or cfg.d_ff
+    s = ff_spec(ff)
     return {
-        "w_gate": ParamDef((L, d, ff), fan_in_axis=1),
-        "w_up": ParamDef((L, d, ff), fan_in_axis=1),
-        "w_down": ParamDef((L, ff, d), fan_in_axis=1),
+        "w_gate": ParamDef((L, d, ff), (None, None, s), fan_in_axis=1),
+        "w_up": ParamDef((L, d, ff), (None, None, s), fan_in_axis=1),
+        "w_down": ParamDef((L, ff, d), (None, s, None), fan_in_axis=1),
     }
 
 
-def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu") -> torch.Tensor:
-    """The gated MLP: act(x W_gate) * (x W_up), then W_down."""
+def mlp_split(d_ff: int, parallel) -> bool:
+    """Whether the MLP's d_ff splits over the model axis."""
+    tp = par.tp_size(parallel)
+    return tp > 1 and d_ff % tp == 0
+
+
+def local_mlp_params(p: dict, d_ff: int, parallel) -> dict:
+    """This model rank's share of d_ff: ``w_gate``/``w_up`` columns and
+    ``w_down`` rows."""
+    return {k: par.tp_local(w, w.ndim - (2 if k == "w_down" else 1), d_ff, parallel)
+            for k, w in p.items()}
+
+
+def apply_mlp(p: dict, x: torch.Tensor, act: str = "silu", parallel=None, *,
+              d_ff: int | None = None) -> torch.Tensor:
+    """The gated MLP: act(x W_gate) * (x W_up), then W_down.  With
+    ``parallel`` and ``d_ff`` (the global width) splitting over the model
+    axis: column-parallel in, row-parallel out, one psum."""
+    split = d_ff is not None and mlp_split(d_ff, parallel)
+    if split:
+        p, x = local_mlp_params(p, d_ff, parallel), par.tp_enter(x, parallel)
     cd = x.dtype
     h = _ACT[act](x @ p["w_gate"].to(cd)) * (x @ p["w_up"].to(cd))
-    return h @ p["w_down"].to(cd)
+    out = h @ p["w_down"].to(cd)
+    return par.tp_exit(out, parallel) if split else out
 
 
 # --- embeddings ------------------------------------------------------------
 
 
-def embed_defs(cfg: ModelConfig) -> dict:
+def embed_defs(cfg: ModelConfig, tp: int = 16) -> dict:
+    # Vocab-shard when divisible (most archs); else shard d_model
+    # (seamless-m4t's 256206 vocab is not 16-divisible).
+    if cfg.vocab % tp == 0:
+        espec, ospec = (MODEL_AXIS, None), (None, MODEL_AXIS)
+    elif cfg.d_model % tp == 0:
+        espec, ospec = (None, MODEL_AXIS), (MODEL_AXIS, None)
+    else:
+        espec, ospec = (None, None), (None, None)
     defs = {
-        "embed": ParamDef((cfg.vocab, cfg.d_model), scale=1.0),
-        "final_norm": ParamDef((cfg.d_model,), init="zeros"),
+        "embed": ParamDef((cfg.vocab, cfg.d_model), espec, scale=1.0),
+        "final_norm": ParamDef((cfg.d_model,), (None,), init="zeros"),
     }
     if not cfg.tie_embeddings:
-        defs["w_out"] = ParamDef((cfg.d_model, cfg.vocab))
+        defs["w_out"] = ParamDef((cfg.d_model, cfg.vocab), ospec)
     return defs
 
 
-def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype) -> torch.Tensor:
-    x = p["embed"].to(dtype)[tokens.long()]
+def _whole_over_model(w: torch.Tensor, dim: int, n: int, parallel) -> torch.Tensor:
+    """``w`` with its ``dim`` put back whole where the model axis splits it."""
+    from repro_torch.runtime import collectives as coll
+
+    if w.shape[dim] == n:
+        return w
+    return coll.all_gather(w, parallel.mesh, parallel.tp_axis, dim)
+
+
+def vocab_split(cfg: ModelConfig, parallel) -> bool:
+    """Whether the embedding and the logits head split the vocab over the
+    model axis (Megatron's vocab-parallel embedding and cross-entropy)."""
+    tp = par.tp_size(parallel)
+    return tp > 1 and cfg.vocab % tp == 0
+
+
+def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype,
+                 parallel=None) -> torch.Tensor:
+    """Token embeddings [B, S, d].  Under a vocab split each model rank
+    looks up the tokens of its rows and one psum puts them together."""
+    e = p["embed"]
+    ids = tokens.long()
+    if par.tp_size(parallel) > 1:
+        e = _whole_over_model(e, 1, cfg.d_model, parallel)
+    if vocab_split(cfg, parallel):
+        e = par.tp_local(e, 0, cfg.vocab, parallel)
+        rows = e.shape[0]
+        local = ids - par.tp_rank(parallel) * rows
+        mine = (local >= 0) & (local < rows)
+        x = e.to(dtype)[local.clamp(0, rows - 1)]
+        zero = torch.zeros((), dtype=dtype, device=x.device)
+        x = par.tp_exit(torch.where(mine[..., None], x, zero), parallel)
+    else:
+        x = e.to(dtype)[ids]
     if cfg.scale_embed:
         x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=dtype)  # gemma-style scale
     return x
@@ -204,8 +362,26 @@ def ce_chunks(seq: int, loss_chunks: int) -> int:
     return n
 
 
-def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def head_of(p: dict, cfg: ModelConfig, parallel=None) -> torch.Tensor:
+    """The logits head as this rank uses it: ``embed`` [V, d] (tied) or
+    ``w_out`` [d, V], whole over d_model, its vocab share under a vocab
+    split, else whole."""
+    w = p["embed"] if cfg.tie_embeddings else p["w_out"]
+    if par.tp_size(parallel) == 1:
+        return w
+    d_dim, v_dim = (1, 0) if cfg.tie_embeddings else (0, 1)
+    w = _whole_over_model(w, d_dim, cfg.d_model, parallel)
+    return par.tp_local(w, v_dim, cfg.vocab, parallel) if vocab_split(cfg, parallel) else w
+
+
+def logits_from_hidden(p: dict, x: torch.Tensor, cfg: ModelConfig,
+                       parallel=None) -> torch.Tensor:
+    """Hidden -> logits [B, S, V]; under a vocab split, this rank's
+    [B, S, V / tp] columns."""
     x = rms_norm(x, p["final_norm"], cfg.norm_eps)
+    if vocab_split(cfg, parallel):
+        x = par.tp_enter(x, parallel)
+    w = head_of(p, cfg, parallel)
     if cfg.tie_embeddings:
-        return torch.einsum("bsd,vd->bsv", x, p["embed"].to(x.dtype))
-    return x @ p["w_out"].to(x.dtype)
+        return torch.einsum("bsd,vd->bsv", x, w.to(x.dtype))
+    return x @ w.to(x.dtype)

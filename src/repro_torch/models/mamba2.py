@@ -33,18 +33,20 @@ def dims(cfg: ModelConfig):
 def block_defs(cfg: ModelConfig, L: int) -> dict:
     d = cfg.d_model
     d_in, H, _, N = dims(cfg)
+    ds = "model" if d_in % 16 == 0 else None
     conv_ch = d_in + 2 * N
     return {
         "ln": ParamDef((L, d), init="zeros"),
         # in_proj -> [z, x, B, C, dt]
-        "w_in": ParamDef((L, d, 2 * d_in + 2 * N + H), fan_in_axis=1),
-        "conv_w": ParamDef((L, cfg.conv_width, conv_ch), scale=0.5, fan_in_axis=1),
-        "conv_b": ParamDef((L, conv_ch), init="zeros"),
+        "w_in": ParamDef((L, d, 2 * d_in + 2 * N + H), (None, None, ds), fan_in_axis=1),
+        "conv_w": ParamDef((L, cfg.conv_width, conv_ch), (None, None, ds), scale=0.5,
+                           fan_in_axis=1),
+        "conv_b": ParamDef((L, conv_ch), (None, ds), init="zeros"),
         "A_log": ParamDef((L, H), init="zeros"),
         "D": ParamDef((L, H), init="ones"),
         "dt_bias": ParamDef((L, H), init="zeros"),
-        "gn": ParamDef((L, d_in), init="zeros"),
-        "w_out": ParamDef((L, d_in, d), fan_in_axis=1),
+        "gn": ParamDef((L, d_in), (None, ds), init="zeros"),
+        "w_out": ParamDef((L, d_in, d), (None, ds, None), fan_in_axis=1),
     }
 
 

@@ -22,14 +22,24 @@ from typing import Any
 import numpy as np
 import torch
 
+from repro_torch.plan.sharded import P
+
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple[int, ...]
+    # Partition-spec entries: None | axis name | tuple of axis names.
+    spec: tuple = ()
     init: str = "normal"  # normal | zeros | ones
     scale: float | None = None  # stddev; default 1/sqrt(fan_in)
     dtype: Any = None  # None -> the model's param dtype
     fan_in_axis: int = -2  # which axis is fan-in for default init scale
+
+    def partition_spec(self) -> P:
+        spec = self.spec or (None,) * len(self.shape)
+        if len(spec) != len(self.shape):
+            raise ValueError(f"spec {spec} does not match shape {self.shape}")
+        return P(*spec)
 
 
 def _draw(path: str, d: ParamDef, seed: int) -> np.ndarray:
@@ -63,6 +73,23 @@ def init_params(defs: dict, seed: int, *, device=None,
 
 def count_params(defs: dict) -> int:
     return sum(math.prod(d.shape) for d in defs.values())
+
+
+def abstract_params(defs: dict, dtype: torch.dtype = torch.float32) -> dict:
+    """``{path: tensor}`` of each leaf's shape and dtype on the ``meta``
+    device: nothing is allocated."""
+    return {path: torch.empty(d.shape, dtype=d.dtype or dtype, device="meta")
+            for path, d in defs.items()}
+
+
+def param_specs(defs: dict) -> dict:
+    """``{path: P}``: each leaf's partition spec."""
+    return {path: d.partition_spec() for path, d in defs.items()}
+
+
+def flatten_defs(defs: dict):
+    """Yield (path, ParamDef) pairs (the defs are flat already)."""
+    yield from defs.items()
 
 
 def prefixed(prefix: str, defs: dict) -> dict:

@@ -44,15 +44,18 @@ slot_decode_kwargs = {"per_row_dispatch": True}
 
 def param_defs(cfg: ModelConfig) -> dict:
     L, d, ff, E = cfg.n_layers, cfg.d_model, cfg.d_ff, cfg.n_experts
+    ep = E % 16 == 0  # expert-parallel vs TP-within-expert
+    es = ll.MODEL_AXIS if ep else None
+    espec = (None, es, None, None if ep else ll.ff_spec(ff))
     return {
         **ll.embed_defs(cfg),
         "layers/ln1": ParamDef((L, d), init="zeros"),
         "layers/ln2": ParamDef((L, d), init="zeros"),
         **prefixed("layers/attn", ll.attn_defs(cfg, L)),
         "layers/moe/router": ParamDef((L, d, E), fan_in_axis=1),
-        "layers/moe/w_gate": ParamDef((L, E, d, ff), fan_in_axis=2),
-        "layers/moe/w_up": ParamDef((L, E, d, ff), fan_in_axis=2),
-        "layers/moe/w_down": ParamDef((L, E, d, ff), fan_in_axis=3),
+        "layers/moe/w_gate": ParamDef((L, E, d, ff), espec, fan_in_axis=2),
+        "layers/moe/w_up": ParamDef((L, E, d, ff), espec, fan_in_axis=2),
+        "layers/moe/w_down": ParamDef((L, E, d, ff), espec, fan_in_axis=3),
     }
 
 

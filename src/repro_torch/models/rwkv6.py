@@ -36,22 +36,27 @@ def _heads(cfg: ModelConfig) -> tuple[int, int]:
 def param_defs(cfg: ModelConfig) -> dict:
     L, d, ff = cfg.n_layers, cfg.d_model, cfg.d_ff
     H, hd = _heads(cfg)
+    hs = ll.head_axis_spec(H, hd)
+    ds = ll.MODEL_AXIS if d % 16 == 0 else None
+    ffs = ll.ff_spec(ff)
     vec = lambda: ParamDef((L, d), init="zeros")  # noqa: E731
     tm = {
         **{f"maa_{c}": vec() for c in "rkvwg"},
         "w0": vec(),
         "w_lora_a": ParamDef((L, d, _LORA), fan_in_axis=1),
-        "w_lora_b": ParamDef((L, _LORA, d), scale=0.01, fan_in_axis=1),
-        "u": ParamDef((L, H, hd), init="zeros"),
-        **{w: ParamDef((L, d, d), fan_in_axis=1) for w in ("wr", "wk", "wv", "wg", "wo")},
+        "w_lora_b": ParamDef((L, _LORA, d), (None, None, ds), scale=0.01, fan_in_axis=1),
+        "u": ParamDef((L, H, hd), (None,) + hs, init="zeros"),
+        **{w: ParamDef((L, d, d), (None, None, ds), fan_in_axis=1)
+           for w in ("wr", "wk", "wv", "wg")},
+        "wo": ParamDef((L, d, d), (None, ds, None), fan_in_axis=1),
         "gn": vec(),
     }
     cm = {
         "maa_k": vec(),
         "maa_r": vec(),
-        "wk": ParamDef((L, d, ff), fan_in_axis=1),
-        "wv": ParamDef((L, ff, d), fan_in_axis=1),
-        "wr": ParamDef((L, d, d), fan_in_axis=1),
+        "wk": ParamDef((L, d, ff), (None, None, ffs), fan_in_axis=1),
+        "wv": ParamDef((L, ff, d), (None, ffs, None), fan_in_axis=1),
+        "wr": ParamDef((L, d, d), (None, None, ds), fan_in_axis=1),
     }
     return {
         **ll.embed_defs(cfg),

@@ -1,5 +1,5 @@
 """Dense decoder-only transformer (qwen1.5 / qwen3 / gemma3 / chameleon):
-the JAX package's ``models/transformer.py`` without its sharding branches.
+the JAX package's ``models/transformer.py``.
 
 Parameters are one flat ``{path: tensor}`` dict keyed like the JAX
 package's nested tree (``"layers/attn/wq"``), with its stacked leading L
@@ -37,6 +37,15 @@ as without it):
   product, not the segments' internals (``repro``'s
   ``checkpoint_dots_with_no_batch_dims`` keeps the GEMM results alone;
   the port's GEMMs save their inputs for their own backward).
+
+On a mesh (``parallel=``, a ParallelCtx whose model axis is above 1) both
+paths run tensor-parallel over the model axis (``models/layers.py``):
+each rank its share of the heads, of d_ff and of the vocab, at the local
+shapes :func:`local_config` describes, which is also what the planned
+path plans its kernels at (:func:`make_loss_fn`).  Query heads that do not
+split over the model axis run sequence-parallel attention on the plain
+path and raise on the planned one (the flash kernel takes no query
+offset; ROADMAP queue 1 #5c).
 """
 
 from __future__ import annotations
@@ -54,14 +63,15 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as ll
 from repro_torch.models.module import ParamDef, unstack
 from repro_torch.plan import local_schedule, with_reference_vjp
+from repro_torch.runtime import parallel as par
 
 
 def param_defs(cfg: ModelConfig) -> dict:
     L, d = cfg.n_layers, cfg.d_model
     defs = {
         **ll.embed_defs(cfg),
-        "layers/ln1": ParamDef((L, d), init="zeros"),
-        "layers/ln2": ParamDef((L, d), init="zeros"),
+        "layers/ln1": ParamDef((L, d), (None, None), init="zeros"),
+        "layers/ln2": ParamDef((L, d), (None, None), init="zeros"),
     }
     defs.update({f"layers/attn/{k}": v for k, v in ll.attn_defs(cfg, L).items()})
     defs.update({f"layers/mlp/{k}": v for k, v in ll.mlp_defs(cfg, L).items()})
@@ -119,7 +129,7 @@ def _layer(fn, remat: str):
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32,
             use_kernels: bool = False, schedules: dict | None = None,
-            remat: str = "none"):
+            remat: str = "none", parallel=None):
     """Returns (hidden [B, S, d], new_cache).
 
     ``pos0`` is the absolute position of ``tokens[:, 0]``: an int, or
@@ -139,42 +149,59 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     pinned planned backward kernels.  ``remat`` ("none" | "dots" |
     "block") trades memory for recompute (see the module docstring); with
     a cache it wraps the same segments, as the JAX package checkpoints its
-    cached scan body."""
+    cached scan body.  ``parallel`` (training, no cache) runs the layers
+    tensor-parallel over its model axis on this rank's parameters."""
     _check_remat(remat)
     if use_kernels and cache is None:
         return _forward_planned(cfg, params, tokens, compute_dtype, schedules,
-                                remat), None
-    x = ll.embed_tokens(params, tokens, cfg, compute_dtype)
+                                remat, parallel), None
+    parallel = parallel if cache is None else None
+    x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
     meta = layer_meta(cfg)
     caches = (zip(cache["k"].unbind(0), cache["v"].unbind(0)) if cache is not None
               else [None] * cfg.n_layers)
     for lp, window, theta, kv in zip(unstack(params, "layers", cfg.n_layers),
                                      meta["window"].tolist(), meta["theta"].tolist(), caches):
         x = _layer(lambda x, lp=lp, w=window, t=theta, kv=kv:
-                   _block(x, lp, cfg, w, t, remat, pos0=pos0, cache=kv), remat)(x)
+                   _block(x, lp, cfg, w, t, remat, pos0=pos0, cache=kv,
+                          parallel=parallel), remat)(x)
     return x, cache
 
 
-def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None):
+def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None,
+           parallel=None):
     """One plain layer, in segments between its GEMM calls; ``cache`` is
-    the layer's (k, v) cache views, written in place."""
+    the layer's (k, v) cache views, written in place.  With ``parallel``
+    the attention and the MLP run over the model axis as
+    ``layers.attention_split``/``layers.mlp_split`` say."""
     seg = functools.partial(_segment, remat=remat)
     ap, mp = lp["attn"], lp["mlp"]
+    mode = ll.attention_split(cfg, x.shape[1], parallel)
     h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps))(x)
+    if mode == "heads":
+        ap, h = ll.local_attn_params(ap, cfg, parallel), par.tp_enter(h, parallel)
     q, k, v = ll.project_qkv(ap, h)
+    seqp = parallel if mode == "seq" else None
     o = seg(lambda q, k, v: ll.attention_core(ap, q, k, v, cfg, pos0=pos0, window=window,
-                                              theta=theta, cache=cache))(q, k, v)
+                                              theta=theta, cache=cache,
+                                              parallel=seqp))(q, k, v)
     a = ll.project_out(ap, o)
+    if mode == "heads":
+        a = par.tp_exit(a, parallel)
 
     def residual_norm(x, a):
         x = x + a
         return x, ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
 
     x, h = seg(residual_norm)(x, a)
+    split = ll.mlp_split(cfg.d_ff, parallel)
+    if split:
+        mp, h = ll.local_mlp_params(mp, cfg.d_ff, parallel), par.tp_enter(h, parallel)
     cd = h.dtype
     g, u = h @ mp["w_gate"].to(cd), h @ mp["w_up"].to(cd)
     gated = seg(lambda g, u: ll._ACT[cfg.act](g) * u)(g, u)
-    return x + gated @ mp["w_down"].to(cd)
+    down = gated @ mp["w_down"].to(cd)
+    return x + (par.tp_exit(down, parallel) if split else down)
 
 
 def _bwd_for(sched: dict, cell: str) -> dict | None:
@@ -213,7 +240,7 @@ _attn_vjp = with_reference_vjp(_attn_kernel, bwd_fn=_attn_bwd, nondiff_argnums=(
 
 def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                      compute_dtype, schedules: dict | None,
-                     remat: str = "none") -> torch.Tensor:
+                     remat: str = "none", parallel=None) -> torch.Tensor:
     """The planned training forward: hidden [B, S, d].
 
     Cell decomposition mirrors ``TransformerBlockPlanner.cell_planners``:
@@ -221,7 +248,9 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     stream for the three projections), gate+up into one ``[B*S, d] @
     [d, 2*ff]`` GEMM, and attention runs on the [B, H, S, D] layout the
     flash kernel takes.  Per-layer windows (``global_every``) would need a
-    schedule per layer and are refused.
+    schedule per layer and are refused.  With ``parallel`` every cell runs
+    at this rank's share of the heads and d_ff (the schedules planned at
+    :func:`local_config`'s shapes), the attention head-parallel only.
     """
     if cfg.global_every:
         raise ValueError(
@@ -230,9 +259,17 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             "plain path)")
     sched = schedules or {}
     cd = compute_dtype
-    x = ll.embed_tokens(params, tokens, cfg, cd)
+    tp = par.tp_size(parallel)
+    if tp > 1 and ll.attention_split(cfg, tokens.shape[1], parallel) != "heads":
+        raise NotImplementedError(
+            f"the planned forward over a model axis of {tp}: {cfg.n_heads} query heads "
+            "do not split, and sequence-parallel flash attention (a query-position "
+            "offset the flash kernel does not take) waits for ROADMAP queue 1 #5c")
+    x = ll.embed_tokens(params, tokens, cfg, cd, parallel)
     B, S, d = x.shape
-    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    lc = local_config(cfg, parallel)
+    Hq, Hkv, Dh = lc.n_heads, lc.n_kv_heads, cfg.resolved_head_dim
+    split = ll.mlp_split(cfg.d_ff, parallel)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
     window = cfg.local_window or None
     s_attn = local_schedule(sched.get("attn"))
@@ -240,7 +277,12 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     def layer(x, lp):
         ap, mp = lp["attn"], lp["mlp"]
+        if tp > 1:
+            ap = ll.local_attn_params(ap, cfg, parallel)
+        if split:
+            mp = ll.local_mlp_params(mp, cfg.d_ff, parallel)
         h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps).reshape(B * S, d))(x)
+        h = par.tp_enter(h, parallel)
         w_qkv = torch.cat([ap["wq"].reshape(d, Hq * Dh), ap["wk"].reshape(d, Hkv * Dh),
                            ap["wv"].reshape(d, Hkv * Dh)], dim=1).to(cd)
         qkv = fc_layer(h, w_qkv, sched.get("qkv"), _bwd_for(sched, "qkv"))
@@ -265,13 +307,15 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
         o = seg(attend)(qkv)
         wo = ap["wo"].reshape(Hq * Dh, d).to(cd)
-        a = fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo"))
+        a = par.tp_exit(fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo")), parallel)
 
         def residual_norm(x, a):
             x = x + a.reshape(B, S, d)
             return x, ll.rms_norm(x, lp["ln2"], cfg.norm_eps).reshape(B * S, d)
 
         x, h = seg(residual_norm)(x, a)
+        if split:
+            h = par.tp_enter(h, parallel)
         w_gu = torch.cat([mp["w_gate"], mp["w_up"]], dim=1).to(cd)
         gu = fc_layer(h, w_gu, sched.get("mlp_up"), _bwd_for(sched, "mlp_up"))
 
@@ -281,6 +325,8 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
         down = fc_layer(seg(gate)(gu), mp["w_down"].to(cd), sched.get("mlp_down"),
                         _bwd_for(sched, "mlp_down"))
+        if split:
+            down = par.tp_exit(down, parallel)
         return x + down.reshape(B, S, d)
 
     for lp in unstack(params, "layers", cfg.n_layers):
@@ -288,29 +334,33 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     return x
 
 
-def head_weight(cfg: ModelConfig, params: dict) -> torch.Tensor:
-    """The logits head's [d, vocab] weight as the matmul kernels take it:
-    the tied embedding transposed into one contiguous copy (its gradient
-    reaches ``embed`` through the copy).  Make it once per step and pass
-    it to every :func:`logits` chunk."""
-    if cfg.tie_embeddings:
-        return params["embed"].t().contiguous()
-    return params["w_out"].contiguous()
+def head_weight(cfg: ModelConfig, params: dict, parallel=None) -> torch.Tensor:
+    """The logits head's [d, vocab] weight as the matmul kernels take it
+    (this rank's vocab columns under a vocab split): the tied embedding
+    transposed into one contiguous copy (its gradient reaches ``embed``
+    through the copy).  Make it once per step and pass it to every
+    :func:`logits` chunk."""
+    w = ll.head_of(params, cfg, parallel)
+    return w.t().contiguous() if cfg.tie_embeddings else w.contiguous()
 
 
 def logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor, *,
-           schedules: dict | None = None, head: torch.Tensor | None = None):
-    """Hidden -> [B, S, vocab].  With a "logits" entry in ``schedules``
+           schedules: dict | None = None, head: torch.Tensor | None = None,
+           parallel=None):
+    """Hidden -> [B, S, vocab] (this rank's vocab columns under a vocab
+    split, ``layers.vocab_split``).  With a "logits" entry in ``schedules``
     (planned at the chunked-CE token-chunk size) the head runs the planned
     ``fc_layer`` GEMM on ``head`` (default :func:`head_weight`); backward
     pins ride under "logits.dx"/"logits.dw"."""
     sched = schedules or {}
     s = sched.get("logits")
     if s is None:
-        return ll.logits_from_hidden(params, hidden, cfg)
+        return ll.logits_from_hidden(params, hidden, cfg, parallel)
     x = ll.rms_norm(hidden, params["final_norm"], cfg.norm_eps)
+    if ll.vocab_split(cfg, parallel):
+        x = par.tp_enter(x, parallel)
     B, S, d = x.shape
-    w = head_weight(cfg, params) if head is None else head
+    w = head_weight(cfg, params, parallel) if head is None else head
     out = fc_layer(x.reshape(B * S, d), w.to(x.dtype), s, _bwd_for(sched, "logits"))
     return out.reshape(B, S, -1)
 
@@ -320,8 +370,30 @@ def _chunk_m(batch: int, seq: int, loss_chunks: int) -> int:
     return batch * (seq // ll.ce_chunks(seq, loss_chunks))
 
 
+def local_config(cfg: ModelConfig, parallel=None) -> ModelConfig:
+    """The config whose shapes one model rank computes under ``parallel``:
+    its share of the query heads and the KV heads they read (head-parallel
+    attention), of d_ff (a split MLP) and of the vocab (``vocab % tp``);
+    the head dim stays the launched one.  The config itself on one device."""
+    import dataclasses
+
+    tp = par.tp_size(parallel)
+    if tp == 1:
+        return cfg
+    changes = dict(head_dim=cfg.resolved_head_dim)
+    if cfg.n_heads % tp == 0:
+        changes.update(n_heads=cfg.n_heads // tp,
+                       n_kv_heads=ll.kv_heads_of(cfg, parallel)[1])
+    if ll.mlp_split(cfg.d_ff, parallel):
+        changes.update(d_ff=cfg.d_ff // tp)
+    if ll.vocab_split(cfg, parallel):
+        changes.update(vocab=cfg.vocab // tp)
+    return dataclasses.replace(cfg, **changes)
+
+
 def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
-                 in_bytes: int = 4, machine=None, autotune=None) -> dict:
+                 in_bytes: int = 4, machine=None, mesh=None, shard_axis: str = "data",
+                 autotune=None) -> dict:
     """Plan every kernel launch of the planned :func:`forward` plus the
     :func:`logits` head, without running them: {cell: Schedule} keyed
     qkv/attn/wo/mlp_up/mlp_down/logits, each cell resolved through the
@@ -330,7 +402,9 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
     (the JAX package plans ``d_model // n_heads``; see
     ``TransformerBlockPlanner``).  The logits
     cell is planned at the chunk M that ``runtime.train.chunked_ce`` calls
-    (``loss_chunks``)."""
+    (``loss_chunks``).  With ``mesh=`` (a MeshSpec) every cell comes back
+    as a ShardedSchedule over ``shard_axis``, the JAX package's
+    ``plan_forward(mesh=)``."""
     from repro_torch.core.machine import H100
     from repro_torch.plan import autotune as at
     from repro_torch.plan.planners import TransformerBlockPlanner
@@ -340,17 +414,19 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
         batch=batch, seq=seq, d_model=cfg.d_model, n_heads=cfg.n_heads,
         d_ff=cfg.d_ff, n_kv_heads=cfg.n_kv_heads, in_bytes=in_bytes, causal=True,
         head_dim=cfg.resolved_head_dim)
-    out = {name: at.resolve(planner.op, kw, machine=machine, policy=autotune)
+    out = {name: at.resolve(planner.op, kw, machine=machine, mesh=mesh, axis=shard_axis,
+                            policy=autotune)
            for name, (planner, kw) in cells.items()}
     out["logits"] = at.resolve(
         "matmul", dict(m=_chunk_m(batch, seq, loss_chunks), n=cfg.vocab,
                        k=cfg.d_model, in_bytes=in_bytes),
-        machine=machine, policy=autotune)
+        machine=machine, mesh=mesh, axis=shard_axis, policy=autotune)
     return out
 
 
 def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
-                  in_bytes: int = 4, machine=None, autotune=None) -> dict:
+                  in_bytes: int = 4, machine=None, mesh=None, shard_axis: str = "data",
+                  autotune=None) -> dict:
     """:func:`plan_forward` plus every planned backward kernel autograd runs:
     "<cell>.dx"/"<cell>.dw" for each GEMM cell (the fused dX/dW kernel
     where it fits; the attention cell differentiates its reference and has
@@ -358,7 +434,8 @@ def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 
     from repro_torch.core import fc_layer as fl
 
     out = plan_forward(cfg, batch, seq, loss_chunks=loss_chunks, in_bytes=in_bytes,
-                       machine=machine, autotune=autotune)
+                       machine=machine, mesh=mesh, shard_axis=shard_axis,
+                       autotune=autotune)
     d, ff = cfg.d_model, cfg.d_ff
     Hq = cfg.n_heads
     Hkv = cfg.n_kv_heads or Hq
@@ -372,38 +449,47 @@ def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 
         "logits": (_chunk_m(batch, seq, loss_chunks), d, cfg.vocab),
     }
     for name, (mm, k, n) in gemms.items():
-        for kk, s in fl.plan_bwd((mm, k), (k, n), in_bytes=in_bytes,
-                                 machine=machine, autotune=autotune).items():
+        for kk, s in fl.plan_bwd((mm, k), (k, n), in_bytes=in_bytes, machine=machine,
+                                 mesh=mesh, shard_axis=shard_axis,
+                                 autotune=autotune).items():
             out[f"{name}.{kk}"] = s
     return out
 
 
-def make_loss_fn(cfg: ModelConfig, tcfg):
+def make_loss_fn(cfg: ModelConfig, tcfg, parallel=None):
     """Family-registry hook: the dense-transformer training loss, chunked
     cross-entropy over :func:`forward` under ``tcfg.remat``.  Under
     ``tcfg.planned_kernels`` the
     whole step runs planned kernels — :func:`plan_training` pins every
     cell's Schedule (cached per (batch, seq)), the planned forward runs
     them, and ``chunked_ce`` routes its logits GEMM through the planned
-    head on one contiguous head weight per step."""
+    head on one contiguous head weight per step.  With ``parallel`` the
+    batch is this rank's shard and the layers run tensor-parallel over the
+    model axis; the plan is the data axis's "batch" partition at this
+    rank's shapes: :func:`plan_training` of :func:`local_config` at the
+    local batch."""
     from repro_torch.runtime.train import chunked_ce
 
     dt = getattr(torch, tcfg.compute_dtype)
     fam = sys.modules[__name__]
     plans: dict[tuple[int, int], dict] = {}
+    lcfg = local_config(cfg, parallel)
 
     def loss_fn(params, batch):
         tokens = batch["tokens"]
         if tcfg.planned_kernels:
             key = tuple(tokens.shape)
             if key not in plans:
-                plans[key] = plan_training(cfg, *key, loss_chunks=tcfg.loss_chunks,
+                plans[key] = plan_training(lcfg, *key, loss_chunks=tcfg.loss_chunks,
                                            in_bytes=dt.itemsize)
             h, _ = forward(cfg, params, tokens, compute_dtype=dt, use_kernels=True,
-                           schedules=plans[key], remat=tcfg.remat)
+                           schedules=plans[key], remat=tcfg.remat, parallel=parallel)
             return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks,
-                              schedules=plans[key], head=head_weight(cfg, params))
-        h, _ = forward(cfg, params, tokens, compute_dtype=dt, remat=tcfg.remat)
-        return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks)
+                              schedules=plans[key],
+                              head=head_weight(cfg, params, parallel), parallel=parallel)
+        h, _ = forward(cfg, params, tokens, compute_dtype=dt, remat=tcfg.remat,
+                       parallel=parallel)
+        return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks,
+                          parallel=parallel)
 
     return loss_fn

@@ -35,7 +35,8 @@ def n_shared_applications(cfg: ModelConfig) -> int:
 
 def param_defs(cfg: ModelConfig) -> dict:
     d = cfg.d_model
-    mlp = {k: ParamDef(v.shape[1:], fan_in_axis=0) for k, v in ll.mlp_defs(cfg, 1).items()}
+    mlp = {k: ParamDef(v.shape[1:], v.spec[1:], fan_in_axis=0)
+           for k, v in ll.mlp_defs(cfg, 1).items()}
     return {
         **ll.embed_defs(cfg),
         **prefixed("mamba", mamba2.block_defs(cfg, cfg.n_layers)),

@@ -32,7 +32,7 @@ launch while a candidate is timed raises.  A mesh-bound cell resolves
 through the sharded planners (its key carries the mesh, the axis and a
 strategy pin) and replays from the cache; timing a multi-device candidate
 (the JAX package's per-device proxies and ``run_mesh``) waits for ROADMAP
-queue 1 #5b and raises.
+queue 1 #5c and raises.
 
 CLI: ``python -m repro_torch.plan.autotune --smoke [--device cpu]`` or
 ``--op matmul --shape m=256,n=4096,k=2048``.
@@ -421,7 +421,7 @@ def tune(
     if any(isinstance(c, ShardedSchedule) and c.devices > 1 for c in cands):
         raise NotImplementedError(
             f"timing {opo.name!r} candidates over {mesh.axes} (the per-device "
-            "proxies) waits for ROADMAP queue 1 #5b; resolve mesh cells with "
+            "proxies) waits for ROADMAP queue 1 #5c; resolve mesh cells with "
             "policy 'off' or 'cache-only'")
     arrays, params = synthesize(opo.name, shape, dt, device)
     measured, timed = [], []

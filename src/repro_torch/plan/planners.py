@@ -1268,7 +1268,7 @@ class MoeFfnPlanner(ShardablePlanner):
     compound-planner pattern again.  The mesh partitions ("batch": tokens
     sharded, every device streams every expert; "ep": experts sharded, the
     routed rows crossing the interconnect as an all-to-all) wait for the
-    token families' sharding (ROADMAP queue 1 #5b): over more than one
+    token families' sharding (ROADMAP queue 1 #5c): over more than one
     device the planner raises.
     """
 
@@ -1285,7 +1285,7 @@ class MoeFfnPlanner(ShardablePlanner):
         if group > 1:
             raise NotImplementedError(
                 "moe_ffn over a mesh (the batch/ep partitions) waits for the "
-                "token families' sharding (ROADMAP queue 1 #5b)")
+                "token families' sharding (ROADMAP queue 1 #5c)")
         return super()._shard_candidates(group, **shape)
 
     def plan_local(
@@ -1356,7 +1356,7 @@ class TransformerBlockPlanner(ShardablePlanner):
     ``models.transformer.plan_forward`` passes the config's
     ``resolved_head_dim``; a call that names no head dim equals the JAX
     package's field for field.  A MoE cell over a mesh of more than one
-    device raises (ROADMAP queue 1 #5b).
+    device raises (ROADMAP queue 1 #5c).
     """
 
     op: ClassVar[str] = "transformer_block"

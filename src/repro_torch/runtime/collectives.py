@@ -48,22 +48,32 @@ BACKENDS = ("nccl", "gloo")
 
 @dataclasses.dataclass
 class Stats:
-    """Counters of this process's collectives: calls by kind, bytes each
-    rank put on the wire, and the wall seconds spent in them.  With
-    ``sync`` set (a measurement run), each collective first waits for the
-    device's queued work, so its seconds hold the collective alone."""
+    """Counters of this process's collectives: calls, bytes each rank put
+    on the wire and wall seconds, by kind (``all_reduce_sum`` is a psum)
+    and in total.  With ``sync`` set (a measurement run), each collective
+    first waits for the device's queued work, so its seconds hold the
+    collective alone."""
 
     calls: dict = dataclasses.field(default_factory=dict)
-    wire_bytes: int = 0
-    seconds: float = 0.0
+    bytes_by: dict = dataclasses.field(default_factory=dict)
+    seconds_by: dict = dataclasses.field(default_factory=dict)
     sync: bool = False
 
     def reset(self, sync: bool = False) -> None:
-        self.calls, self.wire_bytes, self.seconds, self.sync = {}, 0, 0.0, sync
+        self.calls, self.bytes_by, self.seconds_by, self.sync = {}, {}, {}, sync
+
+    @property
+    def wire_bytes(self) -> int:
+        return sum(self.bytes_by.values())
+
+    @property
+    def seconds(self) -> float:
+        return sum(self.seconds_by.values())
 
     def as_dict(self) -> dict:
         return dict(calls=dict(self.calls), wire_bytes=self.wire_bytes,
-                    seconds=self.seconds)
+                    seconds=self.seconds, bytes_by=dict(self.bytes_by),
+                    seconds_by=dict(self.seconds_by))
 
 
 STATS = Stats()
@@ -167,10 +177,14 @@ class Mesh:
 # -- the transport ------------------------------------------------------------------
 
 
-def _to_wire(t: torch.Tensor) -> torch.Tensor:
+def _to_wire(t: torch.Tensor, kind: str) -> torch.Tensor:
     t = t.contiguous()
-    STATS.wire_bytes += t.numel() * t.element_size()
+    STATS.bytes_by[kind] = STATS.bytes_by.get(kind, 0) + t.numel() * t.element_size()
     return t
+
+
+def _add_seconds(kind: str, seconds: float) -> None:
+    STATS.seconds_by[kind] = STATS.seconds_by.get(kind, 0.0) + seconds
 
 
 @contextlib.contextmanager
@@ -184,7 +198,7 @@ def _timed(kind: str, t: torch.Tensor):
     finally:
         if STATS.sync and t.is_cuda:
             torch.cuda.synchronize(t.device)
-        STATS.seconds += time.perf_counter() - t0
+        _add_seconds(kind, time.perf_counter() - t0)
 
 
 def _all_reduce(x: torch.Tensor, mesh: Mesh, axis, op) -> torch.Tensor:
@@ -192,7 +206,7 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axis, op) -> torch.Tensor:
     if group is None:
         return x.clone()
     with _timed(f"all_reduce_{op}", x):
-        buf = _to_wire(x).clone()
+        buf = _to_wire(x, f"all_reduce_{op}").clone()
         dist.all_reduce(buf, op=getattr(dist.ReduceOp, op.upper()), group=group)
         return buf
 
@@ -202,10 +216,35 @@ def _all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
     if group is None:
         return x.clone()
     with _timed("all_gather", x):
-        wire = _to_wire(x)
+        wire = _to_wire(x, "all_gather")
         parts = [torch.empty_like(wire) for _ in range(mesh.axis_size(axis))]
         dist.all_gather(parts, wire, group=group)
         return torch.cat(parts, dim=dim)
+
+
+def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
+    """The sum over the ranks of ``axis`` of ``x``, of which each rank keeps
+    its chunk along ``dim`` (chunk ``i`` for the rank at position ``i``).
+    One ``all_to_all_single`` hands every rank the ranks' chunks of its
+    piece; the rank sums them in rank order, so two runs give the same bits
+    (gloo has no reduce-scatter of its own)."""
+    group = mesh.group(axis)
+    if group is None:
+        return x.clone()
+    n = mesh.axis_size(axis)
+    if x.shape[dim] % n:
+        raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+                         f"{n} ranks of {axis!r}")
+    with _timed("reduce_scatter", x):
+        moved = x.movedim(dim, 0)
+        piece = (moved.shape[0] // n,) + tuple(moved.shape[1:])
+        wire = _to_wire(moved.reshape(n, -1), "reduce_scatter")
+        got = torch.empty_like(wire)
+        dist.all_to_all_single(got, wire, group=group)
+        out = got[0].clone()
+        for j in range(1, n):
+            out += got[j]
+        return out.reshape(piece).movedim(0, dim)
 
 
 class Pending:
@@ -220,7 +259,7 @@ class Pending:
             self.work.wait()
             if STATS.sync and self.out.is_cuda:
                 torch.cuda.synchronize(self.out.device)
-            STATS.seconds += time.perf_counter() - self.t0
+            _add_seconds("ppermute", time.perf_counter() - self.t0)
         return self.out
 
 
@@ -241,7 +280,7 @@ def ppermute_start(x: torch.Tensor, mesh: Mesh, axis, perm) -> Pending:
     if STATS.sync and x.is_cuda:
         torch.cuda.synchronize(x.device)
     t0 = time.perf_counter()
-    wire = _to_wire(x).reshape(-1)
+    wire = _to_wire(x, "ppermute").reshape(-1)
     numel = wire.numel()
     send = [numel if j in dst else 0 for j in range(n)]
     recv = [numel if j in src else 0 for j in range(n)]
@@ -307,6 +346,44 @@ def all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0) -> torch.Tensor:
     """Concatenate the ranks' ``x`` along ``dim`` in axis order (``jax.lax
     .all_gather(..., tiled=True)``)."""
     return _AllGather.apply(x, mesh, axis, dim % x.ndim)
+
+
+class _GatherShards(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _all_gather(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, mesh, axis, dim):
+        ctx.mesh, ctx.axis, ctx.dim = mesh, axis, dim
+        return _reduce_scatter(x, mesh, axis, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_gather(g, ctx.mesh, ctx.axis, ctx.dim), None, None, None
+
+
+def gather_shards(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0) -> torch.Tensor:
+    """The FSDP gather: the ranks' shards of ``axis`` (a name or a tuple of
+    names, outermost first) concatenated along ``dim``.  Its backward is
+    :func:`reduce_scatter`: each rank used the whole tensor on its own
+    data, so the gradient of its shard is the sum of every rank's gradient
+    of that piece."""
+    return _GatherShards.apply(x, mesh, axis, dim % x.ndim)
+
+
+def reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int = 0) -> torch.Tensor:
+    """Sum ``x`` over the ranks of ``axis`` and keep this rank's chunk along
+    ``dim`` (the summation in rank order); backward: :func:`gather_shards`'
+    forward, the all-gather."""
+    return _ReduceScatter.apply(x, mesh, axis, dim % x.ndim)
 
 
 class _Ppermute(torch.autograd.Function):
@@ -396,5 +473,6 @@ def shard_map(fn, *, mesh: Mesh, in_specs, out_specs, axis: str):
 
 __all__ = [
     "BACKENDS", "Mesh", "P", "STATS", "Stats", "all_gather", "axis_index", "axis_size",
-    "pmax", "ppermute", "ppermute_start", "psum", "shard", "shard_map", "unshard",
+    "gather_shards", "pmax", "ppermute", "ppermute_start", "psum", "reduce_scatter",
+    "shard", "shard_map", "unshard",
 ]

@@ -15,11 +15,26 @@ The spec functions are pure functions of the mesh's shape and return
 GSPMD sharding hint) and ``ParallelCtx.sharded_shardings`` (``NamedSharding``
 objects) have no counterpart here: rank-local tensors carry no sharding to
 hint, and the sharded impls read their specs off the ShardedSchedule.
+
+What GSPMD does for the JAX package from those hints, the port does by
+hand: :func:`shard_tensor`/:func:`gather_tensor` cut a global tensor to
+this rank's piece under a ``P`` and put it back together, and the
+tensor-parallel ops (Megatron's two conjugate operators and a slice) let a
+model run its heads and d_ff split over the model axis:
+
+* :func:`tp_enter` — identity forward, psum over ``model`` backward: where
+  a replicated activation enters a column-parallel region;
+* :func:`tp_exit` — psum over ``model`` forward, identity backward: where
+  a row-parallel region's partial sums leave it;
+* :func:`tp_slice` — a slice of a tensor every model rank holds whole,
+  whose gradient is put back in place and summed over ``model``.
 """
 
 from __future__ import annotations
 
 import dataclasses
+
+import torch
 
 from repro_torch.plan.sharded import P, mesh_spec
 
@@ -64,16 +79,161 @@ class ParallelCtx:
 
 
 def data_axis(ctx: ParallelCtx) -> str:
-    """The one data axis a data-parallel step shards its batch over: the
-    dp axis with more than one device (the last dp axis when none has).
-    A batch over two dp axes at once (a multi-pod mesh) waits for ROADMAP
-    queue 1 #5b and raises."""
+    """The data axis a plan shards its batch over (the planners take one
+    axis): the innermost dp axis with more than one device, else the last
+    dp axis.  On a mesh whose batch spans two dp axes the plan of the
+    global batch over this axis, at the batch times its extent, has the
+    local shapes of the batch over both."""
     used = [a for a in ctx.dp_axes if ctx.mesh.shape[a] > 1]
-    if len(used) > 1:
-        raise NotImplementedError(
-            f"a batch sharded over the dp axes {tuple(used)} at once waits for "
-            "ROADMAP queue 1 #5b; the data-parallel step takes one data axis")
-    return used[0] if used else ctx.dp_axes[-1]
+    return used[-1] if used else ctx.dp_axes[-1]
+
+
+def spec_axes(entry) -> tuple[str, ...]:
+    """The mesh axes one spec entry names (outermost first)."""
+    if entry is None:
+        return ()
+    return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def _entries(spec, ndim: int) -> list:
+    return list(spec) + [None] * (ndim - len(spec))
+
+
+def local_index(shape, spec, mesh) -> tuple[slice, ...]:
+    """This rank's piece of a ``shape`` tensor under ``spec`` as one slice
+    per dimension."""
+    out = []
+    for n, e in zip(shape, _entries(spec, len(shape))):
+        names = spec_axes(e)
+        k = mesh.axis_size(names) if names else 1
+        i = mesh.axis_index(names) if names else 0
+        out.append(slice(i * (n // k), (i + 1) * (n // k)))
+    return tuple(out)
+
+
+def shard_tensor(x: torch.Tensor, spec, mesh, axes=None) -> torch.Tensor:
+    """This rank's piece of the global ``x`` under ``spec``: each dimension
+    cut by the axes its entry names (those in ``axes`` only, when given),
+    as a contiguous copy."""
+    for dim, e in enumerate(_entries(spec, x.ndim)):
+        names = tuple(a for a in spec_axes(e) if axes is None or a in axes)
+        if not names:
+            continue
+        n = mesh.axis_size(names)
+        if x.shape[dim] % n:
+            raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
+                             f"{n} ranks of {names}")
+        step = x.shape[dim] // n
+        x = x.narrow(dim, mesh.axis_index(names) * step, step)
+    return x.contiguous()
+
+
+def gather_tensor(x: torch.Tensor, spec, mesh, axes=None, *,
+                  grad: bool = False) -> torch.Tensor:
+    """The global tensor of this rank's piece ``x`` under ``spec`` (only
+    the dimensions whose entries name ``axes``, when given, are put back).
+    With ``grad`` the gather is differentiable, its backward the
+    reduce-scatter (:func:`~repro_torch.runtime.collectives.gather_shards`)."""
+    from repro_torch.runtime import collectives as coll
+
+    for dim, e in enumerate(_entries(spec, x.ndim)):
+        names = tuple(a for a in spec_axes(e) if axes is None or a in axes)
+        if not names or mesh.axis_size(names) == 1:
+            continue
+        if grad:
+            x = coll.gather_shards(x, mesh, names, dim)
+        else:
+            x = coll._all_gather(x, mesh, names, dim)
+    return x
+
+
+def replication(spec, mesh) -> int:
+    """How many ranks hold each piece of a tensor under ``spec``: the
+    extent of the mesh axes the spec does not name."""
+    named = {a for e in spec for a in spec_axes(e)}
+    n = 1
+    for a, k in mesh.shape.items():
+        if a not in named:
+            n *= k
+    return n
+
+
+# -- tensor parallelism over the model axis ----------------------------------------
+
+
+def tp_size(ctx: ParallelCtx | None) -> int:
+    """The model axis's extent (1 without a context or a model axis)."""
+    if ctx is None or ctx.tp_axis not in ctx.mesh.shape:
+        return 1
+    return ctx.tp_size
+
+
+def tp_rank(ctx: ParallelCtx) -> int:
+    return ctx.mesh.axis_index(ctx.tp_axis)
+
+
+class _Enter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, pctx):
+        ctx.pctx = pctx
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.runtime import collectives as coll
+
+        p = ctx.pctx
+        return coll._all_reduce(g, p.mesh, p.tp_axis, "sum"), None
+
+
+def tp_enter(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """Identity forward; the gradient is summed over the model axis (each
+    model rank's column-parallel GEMMs gave a part of it)."""
+    return x if tp_size(ctx) == 1 else _Enter.apply(x, ctx)
+
+
+def tp_exit(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """The psum over the model axis of a row-parallel GEMM's partial sums;
+    the gradient passes through to every rank's term."""
+    from repro_torch.runtime import collectives as coll
+
+    return x if tp_size(ctx) == 1 else coll.psum(x, ctx.mesh, ctx.tp_axis)
+
+
+class _Slice(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, dim, start, length, pctx):
+        ctx.meta = (x.shape, dim, start, length, pctx)
+        return x.narrow(dim, start, length)
+
+    @staticmethod
+    def backward(ctx, g):
+        from repro_torch.runtime import collectives as coll
+
+        shape, dim, start, length, p = ctx.meta
+        full = g.new_zeros(shape)
+        full.narrow(dim, start, length).copy_(g)
+        return coll._all_reduce(full, p.mesh, p.tp_axis, "sum"), None, None, None, None
+
+
+def tp_slice(x: torch.Tensor, dim: int, start: int, length: int,
+             ctx: ParallelCtx) -> torch.Tensor:
+    """``x.narrow(dim, start, length)`` of a tensor every model rank holds
+    whole; each rank's gradient is put in place and summed over the model
+    axis, so every rank gets the whole tensor's gradient."""
+    if start == 0 and length == x.shape[dim]:
+        return x
+    return _Slice.apply(x, dim, start, length, ctx)
+
+
+def tp_local(x: torch.Tensor, dim: int, n: int, ctx: ParallelCtx) -> torch.Tensor:
+    """This model rank's even share of a dimension of global size ``n``:
+    ``x`` itself where its storage already holds the share (the spec
+    names the model axis), else :func:`tp_slice` of the whole."""
+    tp = tp_size(ctx)
+    if x.shape[dim] == n // tp:
+        return x
+    return tp_slice(x, dim, tp_rank(ctx) * (n // tp), n // tp, ctx)
 
 
 def first_divisible(size_by_candidate: list[tuple[int, int]], axis_size: int) -> int:

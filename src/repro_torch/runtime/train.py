@@ -1,13 +1,23 @@
 """The train step: the family's loss, autograd through the planned
 kernels, microbatch gradient accumulation, optional error-feedback int8
 gradient compression, AdamW; and the chunked cross-entropy of the token
-families.  On a mesh (``parallel=``) the step is data parallel: each rank
-runs the planned step on its shard of the batch, the gradients are averaged
-with one psum over the data axis (Alg 4's private-output reduction at the
-scale of ranks), and AdamW runs alike on every rank, so the parameters stay
-replicated (the JAX package shards them FSDP-style; the result is the same
-function).  ``run_elastic`` drives the steps through failures, the JAX
-package's recovery state machine run once in each rank.
+families.  On a mesh (``parallel=``) each rank runs the step on its shard
+of the batch over the data axes, in one of two ways:
+
+* replicated (no ``grad_specs``, the cnn): every rank holds all the
+  parameters and moments, the gradients are averaged with one psum over
+  the data axes (Alg 4's private-output reduction at the scale of ranks),
+  and AdamW runs alike on every rank;
+* FSDP (``grad_specs``, the token families, as the JAX package's launcher
+  shards them): each rank holds its shard of the parameters and of AdamW's
+  moments under the specs; the step gathers each parameter over the data
+  axes only, runs the loss (the dense family tensor-parallel over the
+  model axis), reduce-scatters the gradients back to the specs and runs
+  AdamW on the shards.
+
+Both are the same function of the global batch as one device.
+``run_elastic`` drives the steps through failures, the JAX package's
+recovery state machine run once in each rank.
 """
 
 from __future__ import annotations
@@ -27,7 +37,12 @@ from repro_torch.models.registry import get_family
 from repro_torch.optim import adamw
 from repro_torch.optim.compression import compress_tree, init_error_buffers
 from repro_torch.runtime import collectives as coll
-from repro_torch.runtime.parallel import data_axis
+from repro_torch.runtime import parallel as par
+
+
+# The families that run over a model axis above 1: the dense family
+# tensor-parallel, the cnn replicating its step over it.
+MODEL_AXIS_FAMILIES = ("dense", "transformer", "cnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,26 +53,52 @@ class TrainState:
 
 
 def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
-               schedules: dict | None = None, head: torch.Tensor | None = None):
+               schedules: dict | None = None, head: torch.Tensor | None = None,
+               parallel=None):
     """Cross-entropy without materializing [B, S, vocab]: a loop over token
     chunks; labels < 0 are masked.  ``schedules`` (a planned schedule set
     with a "logits" entry, e.g. ``transformer.plan_training``) routes each
     chunk's logits GEMM through the family's planned head, on ``head``
-    (its [d, vocab] weight, made once per step) when given."""
+    (its [d, vocab] weight, made once per step) when given.  Under a vocab
+    split over ``parallel``'s model axis (``layers.vocab_split``) each rank
+    computes its vocab columns of the logits: a pmax and two psums over the
+    model axis give the log-sum-exp and the target logit."""
+    from repro_torch.models.layers import vocab_split
+
     B, S, d = hidden.shape
     n = ce_chunks(S, n_chunks)
     hs = hidden.reshape(B, n, S // n, d).transpose(0, 1)
     ls = labels.reshape(B, n, S // n).transpose(0, 1)
     lkw = {"schedules": schedules, "head": head} if schedules else {}
+    split = vocab_split(cfg, parallel)
+    if par.tp_size(parallel) > 1:
+        lkw["parallel"] = parallel
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for h, lab in zip(hs, ls):
         logits = fam.logits(cfg, params, h, **lkw).float()
-        lse = torch.logsumexp(logits, -1)
-        tgt = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
+        if split:
+            lse, tgt = _vocab_parallel_terms(logits, lab, parallel)
+        else:
+            lse = torch.logsumexp(logits, -1)
+            tgt = logits.gather(-1, lab.clamp(min=0).long()[..., None])[..., 0]
         mask = (lab >= 0).float()
         tot = tot + ((lse - tgt) * mask).sum()
         cnt = cnt + mask.sum()
     return tot / cnt.clamp(min=1.0)
+
+
+def _vocab_parallel_terms(logits, labels, parallel):
+    """(log-sum-exp, target logit) of rows whose vocab columns lie split
+    over the model axis, this rank holding ``logits`` [..., V / tp]."""
+    mesh, axis = parallel.mesh, parallel.tp_axis
+    rows = logits.shape[-1]
+    top = coll.pmax(logits.detach().amax(-1), mesh, axis)
+    lse = torch.log(coll.psum(torch.exp(logits - top[..., None]).sum(-1), mesh, axis)) + top
+    local = labels.long() - par.tp_rank(parallel) * rows
+    mine = (local >= 0) & (local < rows)
+    got = logits.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    tgt = coll.psum(torch.where(mine, got, torch.zeros_like(got)), mesh, axis)
+    return lse, tgt
 
 
 def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
@@ -67,7 +108,10 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
     encoder-decoder) trains on the generic composition below, the
     family's plain forward (``frames`` passed on where the batch has them)
     and the chunked cross-entropy, as in the JAX package.  ``parallel``
-    reaches the hook of a family that trains on a mesh (the cnn)."""
+    reaches a family's hook (the cnn, the dense transformer); the generic
+    loss runs on this rank's data shard alone (a model axis of 1: each
+    data rank's MoE dispatches its own tokens, as the JAX package's
+    ``shard_map`` does)."""
     fam = get_family(cfg.family)
     hook = getattr(fam, "make_loss_fn", None)
     if hook is not None:
@@ -121,26 +165,34 @@ def loss_and_grads(loss_fn, params: dict, batch: dict):
     return lsum / n, {k: g / n for k, g in gsum.items()}
 
 
+def batch_axes(parallel, batch: dict) -> tuple[str, ...]:
+    """The dp axes a global batch shards over: the largest prefix of the
+    data axes (outermost first) whose extent divides the batch; the dp
+    axes past it hold replicas of the same shard."""
+    lead = next(iter(batch.values()))
+    rows = lead.shape[1] if is_accumulated(batch) else lead.shape[0]
+    return parallel.batch_axes(rows)
+
+
 def shard_batch(cfg: ModelConfig, parallel, batch: dict) -> dict:
-    """This rank's shard of a global batch over the data axis, by the
-    family's ``batch_shard_specs`` (a batch with a leading accumulation dim
-    shards its micro-batch dim)."""
-    axis = data_axis(parallel)
-    specs = registry.batch_shard_specs(cfg, axis)
+    """This rank's shard of a global batch over the data axes (a PxDxM
+    mesh: over (pod, data) at once), by the family's ``batch_shard_specs``
+    (a batch with a leading accumulation dim shards its micro-batch dim)."""
+    axes = batch_axes(parallel, batch)
+    entry = axes if len(axes) > 1 else (axes[0] if axes else None)
+    specs = registry.batch_shard_specs(cfg, entry)
     lead = (None,) if is_accumulated(batch) else ()
-    return {k: coll.shard(v, (*lead, *specs[k]), parallel.mesh, axis)
+    return {k: par.shard_tensor(v, (*lead, *specs[k]), parallel.mesh)
             for k, v in batch.items()}
 
 
 def all_reduce_mean(parallel, loss, grads: dict):
-    """The mean over the data axis's ranks of the loss and every gradient,
+    """The mean over the data axes' ranks of the loss and every gradient,
     in one psum of one flat f32 buffer (the plan's wgrad/dW ``ici_words``;
-    replicas along the other axes hold the same values and take no part)."""
-    axis = data_axis(parallel)
-    n = parallel.mesh.shape[axis]
+    replicas along the model axis hold the same values and take no part)."""
     names = list(grads)
     flat = torch.cat([loss.reshape(1).float()] + [grads[k].reshape(-1) for k in names])
-    flat = coll.psum(flat, parallel.mesh, axis) / n
+    flat = coll.psum(flat, parallel.mesh, parallel.dp_axes) / parallel.dp_size
     out, i = {}, 1
     for k in names:
         out[k] = flat[i:i + grads[k].numel()].view_as(grads[k])
@@ -148,7 +200,38 @@ def all_reduce_mean(parallel, loss, grads: dict):
     return flat[0], out
 
 
-def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
+def fsdp_loss_and_grads(loss_fn, parallel, grad_specs: dict, shards: dict, batch: dict):
+    """(loss, gradients of the shards) of the FSDP step: the loss of the
+    parameters gathered over the data axes (each rank runs ``loss_fn`` on
+    its ``batch`` shard), the gradients reduce-scattered back to
+    ``grad_specs`` by the gather's backward — a shard whose spec names no
+    data axis is summed over them by one psum — and both averaged over the
+    data axes' ranks."""
+    mesh, dp = parallel.mesh, parallel.dp_axes
+
+    def sharded_loss(leaves, b):
+        full = {k: par.gather_tensor(v, grad_specs[k], mesh, dp, grad=True)
+                for k, v in leaves.items()}
+        return loss_fn(full, b)
+
+    loss, grads = loss_and_grads(sharded_loss, shards, batch)
+    whole = [k for k in grads
+             if not any(a in dp for e in grad_specs[k] for a in par.spec_axes(e))]
+    flat = torch.cat([loss.reshape(1)] + [grads[k].reshape(-1) for k in whole])
+    flat = coll.psum(flat, mesh, dp)
+    n = parallel.dp_size
+    out, i = {}, 1
+    for k in whole:
+        out[k] = flat[i:i + grads[k].numel()].view_as(grads[k]) / n
+        i += grads[k].numel()
+    for k, g in grads.items():
+        if k not in out:
+            out[k] = g / n
+    return flat[0] / n, {k: out[k] for k in grads}
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None,
+                    grad_specs: dict | None = None):
     """Returns train_step(state, batch) -> (state, metrics): the loss and
     its gradients with respect to every parameter (autograd; under
     ``tcfg.planned_kernels`` through the planned backward kernels; summed
@@ -158,29 +241,44 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
     device.
 
     With ``parallel`` (a ``runtime.parallel.ParallelCtx`` on a live mesh)
-    every rank passes the same global batch and holds the same parameters:
-    the step takes this rank's shard of the batch, runs the (data-parallel
-    planned) loss and its gradients on it, averages loss and gradients over
-    the data axis with one psum, and then compresses and updates exactly
-    as on one device — the same function of the global batch."""
-    if parallel is not None and not hasattr(get_family(cfg.family), "batch_shard_specs"):
+    every rank passes the same global batch and the step takes this rank's
+    shard of it.  Without ``grad_specs`` every rank holds the same
+    parameters: the step averages loss and gradients over the data axes
+    with one psum, then compresses and updates exactly as on one device.
+    With ``grad_specs`` (``{name: P}``, the JAX package's ``fsdp_specs``)
+    the state's parameters and moments are this rank's shards under them:
+    the FSDP step (:func:`fsdp_loss_and_grads`), then AdamW on the shards
+    with the whole tree's clip.  Either way the same function of the
+    global batch.  Over a model axis above 1 only the dense family runs
+    (tensor-parallel); the others, and ``int8_ef`` on shards, wait for
+    ROADMAP queue 1 #5c."""
+    if par.tp_size(parallel) > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family on a mesh (FSDP specs, sequence-parallel "
-            "attention, expert parallelism) waits for ROADMAP queue 1 #5b")
+            f"the {cfg.family!r} family over a model axis of {parallel.tp_size} (expert "
+            "parallelism, tensor-parallel recurrent and encoder-decoder blocks) waits "
+            "for ROADMAP queue 1 #5c")
+    if grad_specs is not None and tcfg.grad_compression == "int8_ef":
+        raise NotImplementedError("int8_ef compression of sharded gradients waits for "
+                                  "ROADMAP queue 1 #5c")
     loss_fn = make_loss_fn(cfg, tcfg, parallel)
 
     def train_step(state: TrainState, batch: dict):
+        upd = {}
         if parallel is None:
             loss, grads = loss_and_grads(loss_fn, state.params, batch)
-        else:
+        elif grad_specs is None:
             loss, grads = loss_and_grads(loss_fn, state.params,
                                          shard_batch(cfg, parallel, batch))
             loss, grads = all_reduce_mean(parallel, loss, grads)
+        else:
+            loss, grads = fsdp_loss_and_grads(loss_fn, parallel, grad_specs, state.params,
+                                              shard_batch(cfg, parallel, batch))
+            upd = dict(specs=grad_specs, mesh=parallel.mesh)
         err = state.err
         if tcfg.grad_compression == "int8_ef" and err is not None:
             grads, err = compress_tree(grads, err)
         params, opt, metrics = adamw.apply_updates(
-            {k: p.detach() for k, p in state.params.items()}, grads, state.opt, tcfg)
+            {k: p.detach() for k, p in state.params.items()}, grads, state.opt, tcfg, **upd)
         return TrainState(params, opt, err), dict(metrics, loss=loss)
 
     return train_step

@@ -1,5 +1,5 @@
 """Rank processes for the port's multi-process tests (``test_torch_sharded.py``,
-``test_torch_elastic.py``).
+``test_torch_elastic.py``, ``test_torch_token_mesh*.py``).
 
 Run as ``python tests/_torch_ranks.py CASE RANK WORLD OUT ARGS_JSON``: the
 process joins a ``gloo`` group through a ``file://`` store under ``OUT``
@@ -447,8 +447,259 @@ def case_verdicts(rank: int, world: int, out: Path, args: dict) -> None:
     (out / f"verdicts_rank{rank}.json").write_text(json.dumps(rec))
 
 
+# -- the token families on a mesh ----------------------------------------------------
+
+TOKEN_ARGV = ["--device", "cpu", "--dist-backend", "gloo", "--steps", "3", "--batch", "4",
+              "--seq", "32", "--log-every", "1"]
+
+
+def _carry_init(launch, out: Path) -> None:
+    """The launcher's ``init_params`` replaced by the JAX package's seeded
+    weights (``init.npz`` under ``out``)."""
+    import numpy as np
+
+    from repro_torch.convert import params_from_repro
+
+    init = dict(np.load(out / "init.npz"))
+    launch.init_params = lambda defs, seed, *, device=None, dtype=None: (
+        params_from_repro(init, device=device))
+
+
+def _mesh_ctx(mesh: str):
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    dims, axes = parse_mesh(mesh)
+    return ParallelCtx(mesh=coll.Mesh(dims, axes), dp_axes=axes[:-1], tp_axis="model")
+
+
+def _step1(cfg, tcfg, ctx, params: dict, batch: dict) -> tuple:
+    """The FSDP step's loss and gradients at ``params`` on ``batch``,
+    each gradient gathered whole."""
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import train as tr
+
+    defs = get_family(cfg.family).param_defs(cfg)
+    specs = fsdp_specs(param_specs(defs), abstract_params(defs), ctx)
+    shards = {k: par.shard_tensor(v, specs[k], ctx.mesh) for k, v in params.items()}
+    loss, grads = tr.fsdp_loss_and_grads(tr.make_loss_fn(cfg, tcfg, ctx), ctx, specs, shards,
+                                         tr.shard_batch(cfg, ctx, batch))
+    return float(loss), {k: _np(par.gather_tensor(g, specs[k], ctx.mesh))
+                         for k, g in grads.items()}
+
+
+def case_tokens(rank: int, world: int, out: Path, args: dict) -> None:
+    """The launcher on ``args["mesh"]`` for ``args["family"]`` from the
+    carried weights, plain and (the dense family) planned: 3 losses each;
+    and the FSDP step's step-1 loss and gradients."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    _carry_init(launch, out)
+    family, mesh = args["family"], args["mesh"]
+    res = {}
+    for variant in args["variants"]:
+        argv = ["--family", family, "--mesh", mesh, *TOKEN_ARGV]
+        if variant == "planned":
+            argv.append("--planned-kernels")
+        res[f"{variant}.losses"] = np.array([h["loss"] for h in launch.main(argv)])
+        cfg = smoke_config(args["arch"])
+        tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                           remat="none", planned_kernels=variant == "planned")
+        source = make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)
+        params = params_from_repro(dict(np.load(out / "init.npz")), device="cpu")
+        loss, grads = _step1(cfg, tcfg, _mesh_ctx(mesh), params,
+                             tr.batch_to(source(0), torch.device("cpu")))
+        res[f"{variant}.loss1"] = np.array(loss)
+        res.update({f"{variant}.grad.{k}": g for k, g in grads.items()})
+    if rank == 0:
+        np.savez(out / f"tokens_{mesh}.npz", **res)
+
+
+def case_seqp(rank: int, world: int, out: Path, args: dict) -> None:
+    """Sequence-parallel attention on a (data 1, model 2) mesh: the
+    attention op, forward and gradients, on the carried inputs; and the
+    plain dense forward of a config whose query heads do not split (loss
+    and every gradient of the FSDP step)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models import attention as att
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import train as tr
+
+    ctx = _mesh_ctx("1x2")
+    data = np.load(out / "attn.npz")
+    q, k, v = (torch.from_numpy(data[n]).requires_grad_(True) for n in "qkv")
+    S = q.shape[1]
+    pos = torch.arange(S, dtype=torch.int32)
+    coll.STATS.reset()
+    y = att.attention(q, k, v, q_pos=pos, k_pos=pos, causal=True, window=args["window"],
+                      parallel=ctx)
+    calls = dict(coll.STATS.calls)
+    gq, gk, gv = torch.autograd.grad((y * torch.from_numpy(data["c"])).sum(), (q, k, v))
+    res = {"y": _np(y), "gq": _np(gq), "gk": _np(gk), "gv": _np(gv),
+           "fwd_gathers": np.array(calls.get("all_gather", 0)),
+           "fwd_psums": np.array(calls.get("all_reduce_sum", 0))}
+    res.update(_tp_blocks(ctx, args["heads"]))
+    cfg = dataclasses.replace(smoke_config("qwen1.5-0.5b"), **args["heads"])
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                       remat="none")
+    source = make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)
+    params = params_from_repro(dict(np.load(out / "init_seqp.npz")), device="cpu")
+    loss, grads = _step1(cfg, tcfg, ctx, params, tr.batch_to(source(0), torch.device("cpu")))
+    res["loss1"] = np.array(loss)
+    res.update({f"grad.{k}": g for k, g in grads.items()})
+    np.savez(out / f"seqp_rank{rank}.npz", **res)
+
+
+def _tp_blocks(ctx, seqp_heads: dict) -> dict:
+    """``layers.apply_attention`` (head-parallel with GQA, and
+    sequence-parallel) and ``layers.apply_mlp`` over the model axis against
+    the same blocks whole on this rank: the largest difference of the
+    output and of each gradient, over its scale."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.models import layers as ll
+    from repro_torch.models.module import init_params
+
+    base = smoke_config("qwen1.5-0.5b")
+    rng = np.random.default_rng(5)
+    x0 = torch.from_numpy(rng.standard_normal((2, 16, base.d_model)).astype(np.float32))
+    c = torch.from_numpy(rng.standard_normal((2, 16, base.d_model)).astype(np.float32))
+    res = {}
+
+    def rel(a, b):
+        return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
+
+    blocks = {"attn_heads": {"n_heads": 4, "n_kv_heads": 2}, "attn_seq": seqp_heads,
+              "mlp": {}}
+    for tag, heads in blocks.items():
+        cfg = dataclasses.replace(base, **heads)
+        if tag == "mlp":
+            defs = {k: dataclasses.replace(d, shape=d.shape[1:], spec=d.spec[1:],
+                                           fan_in_axis=0)
+                    for k, d in ll.mlp_defs(cfg, 1).items()}
+        else:
+            defs = ll.attn_defs(cfg, 0, layers_prefix=False)
+        params = init_params(defs, 3, device="cpu")
+        outs = []
+        for par in (None, ctx):
+            p = {k: v.clone().requires_grad_(True) for k, v in params.items()}
+            x = x0.clone().requires_grad_(True)
+            if tag == "mlp":
+                y = ll.apply_mlp(p, x, cfg.act, par, d_ff=cfg.d_ff)
+            else:
+                y, _ = ll.apply_attention(p, x, cfg, parallel=par)
+            grads = torch.autograd.grad((y * c).sum(), [x, *p.values()])
+            outs.append([y.detach(), *grads])
+        res[f"{tag}.err"] = np.array(max(rel(a, b) for a, b in zip(outs[1], outs[0])))
+        res[f"{tag}.split"] = np.array(
+            ll.attention_split(cfg, 16, ctx) if tag != "mlp" else str(ll.mlp_split(cfg.d_ff,
+                                                                                ctx)))
+    return res
+
+
+def case_token_ckpt(rank: int, world: int, out: Path, args: dict) -> None:
+    """One FSDP step of the smoke dense model on a 2x2 mesh, then the
+    sharded state saved (gathered whole, rank 0 writing); rank 0 also dumps
+    the gathered state for the test to hold restores against."""
+    import numpy as np
+    import torch
+
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.optim import adamw
+    from repro_torch.plan.sharded import P
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import train as tr
+
+    cfg = smoke_config("qwen1.5-0.5b")
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                       remat="none", warmup_steps=1, total_steps=3)
+    ctx = _mesh_ctx("2x2")
+    defs = tf.param_defs(cfg)
+    pspecs = fsdp_specs(param_specs(defs), abstract_params(defs), ctx)
+    specs = tr.TrainState(params=pspecs, opt=adamw.AdamWState(step=P(), m=pspecs, v=pspecs))
+    params = params_from_repro(dict(np.load(out / "init.npz")), device="cpu")
+    state = tr.init_state(cfg, tcfg, {k: par.shard_tensor(v, pspecs[k], ctx.mesh)
+                                      for k, v in params.items()})
+    source = make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)
+    step = tr.make_train_step(cfg, tcfg, parallel=ctx, grad_specs=pspecs)
+    state, _ = step(state, tr.batch_to(source(0), torch.device("cpu")))
+    whole = ckpt.gather_state(state, specs, ctx.mesh)
+    if rank == 0:
+        ckpt.save(str(out / "ckpt"), 0, whole, n_chunks=3)
+        _save_state(out / "whole.npz", whole)
+    shapes = {k: list(v.shape) for k, v in state.params.items()}
+    (out / f"ckpt_rank{rank}.json").write_text(json.dumps(
+        {"shapes": shapes, "specs": {k: [list(e) if isinstance(e, tuple) else e for e in s]
+                                     for k, s in pspecs.items()}}))
+
+
+def case_token_elastic(rank: int, world: int, out: Path, args: dict) -> None:
+    """The launcher's chaos run of the smoke dense model on 2x2 (kill@3,
+    6 steps, a checkpoint every 2); the survivors then run the launcher
+    again on 1x2 from a copy of committed step 2 alone."""
+    import shutil
+
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+
+    _carry_init(launch, out)
+    argv = ["--family", "transformer", "--mesh", "2x2", "--device", "cpu", "--dist-backend",
+            "gloo", "--steps", "6", "--batch", "4", "--seq", "32", "--log-every", "1",
+            "--ckpt", str(out / "ckpt"), "--ckpt-every", "2", "--max-recoveries", "2"]
+    history = launch.main(argv + ["--chaos", "kill@3"])
+    if not dist.is_initialized():  # this rank's host failed
+        (out / f"token_elastic_rank{rank}.json").write_text(json.dumps({"left": True}))
+        return
+    clean = out / "clean"
+    if dist.get_rank() == 0:
+        os.makedirs(clean)
+        shutil.copytree(out / "ckpt" / "step_0000002", clean / "step_0000002")
+    dist.barrier()
+    argv[argv.index("--ckpt") + 1] = str(clean)
+    argv[argv.index("--mesh") + 1] = "1x2"
+    ref = launch.main(argv)
+    (out / f"token_elastic_rank{rank}.json").write_text(json.dumps({
+        "left": False, "new_rank": dist.get_rank(), "steps": [h["step"] for h in history],
+        "losses": [h["loss"] for h in history], "ref_steps": [h["step"] for h in ref],
+        "ref_losses": [h["loss"] for h in ref]}))
+
+
 CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": case_elastic,
-         "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts}
+         "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts,
+         "tokens": case_tokens, "seqp": case_seqp, "token_ckpt": case_token_ckpt,
+         "token_elastic": case_token_elastic}
 
 
 def main() -> int:

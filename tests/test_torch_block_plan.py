@@ -9,7 +9,7 @@ and ``test_block_planner_quadrant_picks`` and holds each result against
 ``repro``'s field for field (words exact) on MANTICORE and TPU_V5E, on one
 device and on the paper's 16-cluster quadrant ``MeshSpec((("cluster",
 16),))``.  A MoE cell over a mesh of more than one device raises (ROADMAP
-queue 1 #5b); the launched head dim (``head_dim=``) stays.
+queue 1 #5c); the launched head dim (``head_dim=``) stays.
 """
 
 from __future__ import annotations
@@ -133,7 +133,7 @@ class TestBlockPlannerDelegation:
 
     def test_moe_cell_on_a_mesh_raises(self):
         tb = tp.TransformerBlockPlanner(tm.MANTICORE, ts.MeshSpec(QUAD), "cluster")
-        with pytest.raises(NotImplementedError, match="#5b"):
+        with pytest.raises(NotImplementedError, match="#5c"):
             tb.plan(**SHAPE, n_experts=8, top_k=2)
 
 
