@@ -346,6 +346,34 @@ free of its state):
                the same checkpoint; the time to recover and the restore's
                bytes and seconds.
 
+The sixteenth slice (after ``moe_serve``):
+
+22. moe_mesh — the MoE family served and trained on meshes (path
+               ``moe_mesh``), each case's one-device reference first in
+               this process, then rank processes sharing cuda:0 over gloo
+               (``chip_smoke.py --moe-rank``), each drawing its share of the
+               weights on the card in turn.  (a) qwen3-moe-235b-a22b at full
+               width cut to 2 layers on 2x2 (expert-parallel: a rank holds
+               64 experts, 32 query heads and half the vocab): the ladder
+               (4, 256), (8, 512) tuned on the mesh (policy tune, every
+               multi-device candidate's ``op.sharded`` on the live mesh;
+               rank 0 holds each distinct kernel call against its plain
+               version), then the (8, 512) bucket prefill and 16 slot
+               decodes; the streams must equal, and every step's logits lie
+               within 1e-4 of scale of, the one-device run of each data
+               shard's rows (a shard dispatches alone), and every rank must
+               take the same tuned winners.  (b) grok-1-314b at full width,
+               1 layer, on 1x2 (TP-within-expert): a prefill of 2 x 128
+               tokens and 8 decodes against the one-device run.  (c)
+               ``--arch qwen3-moe-235b-a22b --mesh 2x2`` through the
+               launcher, 1 layer and 16 experts (reduced from 94 and 128),
+               4 x 512, 3 AdamW steps: the losses within 1e-4 relative of a
+               one-device run whose step averages each data shard's
+               gradients, the FSDP step's step-1 loss within 1e-5 relative
+               and every gradient shard within 1e-4 x max(1, max|g|).  Per
+               rank: call and step ms (events), collective calls, bytes and
+               host seconds by kind, peak memory, launches by kernel.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -357,6 +385,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import shutil
 import statistics
 import subprocess
@@ -483,6 +512,15 @@ TOKENS_TIMEOUT = 900  # seconds a rank process may take (init, builds, 3 steps)
 TOKENS_ELASTIC_LAYERS, TOKENS_ELASTIC_STEPS = 4, 6
 TOKENS_ELASTIC_KILL, TOKENS_ELASTIC_EVERY = 3, 2
 RUNS: dict = {}  # what a later phase compares with (phase transformer's losses)
+# Phase moe_mesh: the MoE family served and trained on meshes of ranks sharing the card.
+MOE_MESH, MOE_MESH_RANKS = "2x2", 4  # (a) and (c)
+MOE_MESH_LAYERS = 2  # (a): qwen3-moe-235b-a22b at full width, depth 94 -> 2
+MOE_MESH_LADDER = [(4, 256), (8, 512)]  # (a): tuned on the mesh; the prefill runs the last
+MOE_MESH_DECODES = 16
+MOE_TPE_ARCH, MOE_TPE_MESH, MOE_TPE_LAYERS = "grok-1-314b", "1x2", 1  # (b)
+MOE_TPE_PROMPT, MOE_TPE_DECODES = (2, 128), 8  # (b): rows x prompt tokens, decodes
+MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=512, steps=3)  # (c)
+MOE_MESH_TIMEOUT = 900  # seconds a rank process may take
 
 
 def tfm_chunks() -> int:
@@ -2640,7 +2678,7 @@ def phase_serve(torch, kernels, results, tfm, card):
 # -- the tenth slice: the MoE served at full width, the other families on the card ---
 
 
-def device_params(torch, defs, seed: int, *, noise: bool = True) -> dict:
+def device_params(torch, defs, seed: int, *, noise: bool = True, place=None) -> dict:
     """Weights of the shape ``defs`` give, drawn on the card: each leaf from
     its own generator seeded by (seed, crc32 of its path), the seed's init
     (N(0, init std) for a matrix, zeros or ones for a gain) plus, with
@@ -2649,7 +2687,9 @@ def device_params(torch, defs, seed: int, *, noise: bool = True) -> dict:
     biases).  numpy, which draws the CPU init, takes minutes for the MoE's
     11.2 B values; the card's Philox generator takes milliseconds.  The
     leaves come in the order of ``defs`` (the order AdamW updates them in:
-    a large leaf updated last meets every new copy already made)."""
+    a large leaf updated last meets every new copy already made).  With
+    ``place``, each leaf is ``place(path, leaf)`` as soon as it is drawn
+    (a rank's share of it: the whole leaf is freed before the next)."""
     import zlib
 
     out = {}
@@ -2667,7 +2707,8 @@ def device_params(torch, defs, seed: int, *, noise: bool = True) -> dict:
             rows = max(1, (1 << 28) // max(1, w[0].numel())) if w.dim() > 1 else w.shape[0]
             for part in w.split(rows):  # at most 1 GiB of noise at a time
                 part.add_(torch.randn(part.shape, generator=g, device="cuda"), alpha=sigma)
-        out[path] = w
+        out[path] = w if place is None else place(path, w)
+        del w
     torch.cuda.synchronize()
     return out
 
@@ -3305,11 +3346,12 @@ def phase_paper(torch, kernels, results, card):
 # -- the twelfth slice: the last dense configs trained and served at full width ------
 
 
-def hold_launches(torch, kernels, results, calls: dict):
+def hold_launches(torch, kernels, results, calls: dict, keep_args: bool = True):
     """While the block runs, hold the first launch of each distinct call
     (kernel, operand shapes, keywords) against the kernel's plain version
     on the same operands at TOL x scale, keep a copy of its operands for
-    dense_call_times, and count the launches of each call in ``calls``."""
+    dense_call_times (with ``keep_args``), and count the launches of each
+    call in ``calls``."""
     def record(name, args, kw, out):
         key = (name, tuple(tuple(a.shape) for a in args), tuple(sorted(kw.items())))
         if key in calls:
@@ -3322,8 +3364,9 @@ def hold_launches(torch, kernels, results, calls: dict):
         check(err <= TOL * sc, f"{name} at {key[1]} {kw}: err {err} > {TOL} x {sc}")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
         calls[key] = dict(kernel=name, shapes=[list(a.shape) for a in args], kw=dict(kw),
-                          max_abs_err=err, scale=sc, launches=1,
-                          args=[a.detach().clone() for a in args])
+                          max_abs_err=err, scale=sc, launches=1)
+        if keep_args:
+            calls[key]["args"] = [a.detach().clone() for a in args]
     return on_launch(kernels, record)
 
 
@@ -4601,6 +4644,495 @@ def phase_tokens_mesh(torch, kernels, results, card) -> None:
     shutil.rmtree(base, ignore_errors=True)
     emit(phase="tokens_mesh", seconds=time.perf_counter() - t_phase)
 
+# -- phase moe_mesh: the MoE family served and trained on meshes -------------------
+
+
+def moe_mesh_config(case: str):
+    """The configuration of a case: (a) "serve" qwen3-moe-235b-a22b at full
+    width cut to MOE_MESH_LAYERS layers, (b) "tpe" grok-1-314b at full
+    width cut to MOE_TPE_LAYERS, both at max_seq SERVE_MAX_SEQ; (c)
+    "train" qwen3-moe-235b-a22b at full width cut to MOE_TRAIN's layers
+    and experts."""
+    from repro_torch.configs import get_config
+
+    if case == "serve":
+        return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_MESH_LAYERS,
+                                   max_seq=SERVE_MAX_SEQ)
+    if case == "tpe":
+        return dataclasses.replace(get_config(MOE_TPE_ARCH), n_layers=MOE_TPE_LAYERS,
+                                   max_seq=SERVE_MAX_SEQ)
+    return dataclasses.replace(get_config(MOE_ARCH), n_layers=MOE_TRAIN["layers"],
+                               n_experts=MOE_TRAIN["experts"])
+
+
+def moe_mesh_prompts(cfg, case: str):
+    """(tokens, lengths) of a case's prompts, seeded: (a) the ladder's
+    widest rung, ragged lengths padded with zeros; (b) MOE_TPE_PROMPT."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 11)
+    rows, seq = MOE_MESH_LADDER[-1] if case == "serve" else MOE_TPE_PROMPT
+    tokens = rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32)
+    lengths = (rng.integers(seq // 8, seq + 1, rows) if case == "serve"
+               else np.full(rows, seq)).astype(np.int32)
+    for r, n in enumerate(lengths):
+        tokens[r, n:] = 0
+    return tokens, lengths
+
+
+def moe_mesh_ctx(mesh: str):
+    import datetime
+
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    dims, axes = parse_mesh(mesh)
+    timeout = datetime.timedelta(seconds=MOE_MESH_TIMEOUT)
+    return ParallelCtx(mesh=coll.Mesh(dims, axes, timeout=timeout), dp_axes=axes[:-1],
+                       tp_axis="model")
+
+
+def staggered(torch, fn):
+    """``fn()`` on each rank in turn (a barrier between): the ranks draw
+    their weights one at a time, so the card holds one whole leaf at most,
+    and each rank hands the whole leaves' blocks back to the card before
+    the next draws."""
+    import torch.distributed as dist
+
+    out = None
+    for r in range(dist.get_world_size()):
+        if dist.get_rank() == r:
+            out = fn()
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+        dist.barrier()
+    return out
+
+
+def greedy_serve(torch, cfg, params, tokens, lengths, decodes: int, *, parallel=None,
+                 bucket: bool):
+    """A prefill (the bucket prefill of ragged rows, or the whole-batch one)
+    and ``decodes`` greedy decodes (slot decodes at each row's position, or
+    whole-batch decodes at one position): (tokens [rows, decodes + 1], the
+    logits of every step on the host, event ms of each call, the
+    collectives of each call)."""
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import serve as sv
+
+    tokens = torch.from_numpy(tokens).cuda()
+    pos = torch.from_numpy(lengths).cuda()
+    if bucket:
+        prefill = sv.make_bucket_prefill_step(cfg, SERVE_MAX_SEQ, parallel=parallel)
+        decode = sv.make_slot_decode_step(cfg, parallel=parallel)
+    else:
+        prefill = sv.make_prefill_step(cfg, SERVE_MAX_SEQ, "float32", "float32",
+                                       parallel=parallel)
+        decode = sv.make_decode_step(cfg, "float32", parallel=parallel)
+    ms, colls, logits = [], [], []
+
+    def timed(fn):
+        before = coll.STATS.as_dict()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        colls.append(stats_since(before))
+        return out
+
+    if bucket:
+        cache, lg = timed(lambda: prefill(params, tokens, pos))
+    else:
+        cache, lg = timed(lambda: prefill(params, {"tokens": tokens}))
+        lg = lg[:, -1]
+    logits.append(lg.cpu())
+    out = [torch.argmax(lg, -1).to(torch.int32)]
+    for i in range(decodes):
+        if bucket:
+            cache, lg = timed(lambda: decode(params, cache, out[-1], pos + i))
+        else:
+            step_pos = int(lengths[0]) + i
+            cache, lg = timed(lambda: decode(params, cache, out[-1][:, None], step_pos))
+            lg = lg[:, -1]
+        logits.append(lg.cpu())
+        out.append(torch.argmax(lg, -1).to(torch.int32))
+    return torch.stack(out, 1).cpu(), torch.stack(logits), ms, colls
+
+
+def moe_reference(torch, work: Path, case: str) -> dict:
+    """The one-device references of a case, in this process, saved under
+    ``work``: (a) each data shard's rows through the bucket prefill alone
+    (a shard dispatches alone), then slot decodes of every row (each slot
+    dispatches alone); (b) the whole-batch prefill and decodes (one data
+    shard); (c) the mean over the data shards of the plain step on each
+    shard's rows: the step-1 loss and gradients, and 3 AdamW steps."""
+    from repro_torch.models import moe
+
+    cfg = moe_mesh_config(case)
+    defs = moe.param_defs(cfg)
+    t0 = time.perf_counter()
+    params = device_params(torch, defs, SEED, noise=case != "train")
+    rec = {"draw_s": time.perf_counter() - t0, "params": sum(v.numel() for v in params.values())}
+    if case == "train":
+        rec.update(moe_train_reference(torch, cfg, params, work))
+    else:
+        tokens, lengths = moe_mesh_prompts(cfg, case)
+        if case == "serve":
+            from repro_torch.runtime import serve as sv
+
+            rows = len(lengths) // int(MOE_MESH.split("x")[0])  # a data shard's rows
+
+            prefill = sv.make_bucket_prefill_step(cfg, SERVE_MAX_SEQ)
+            parts = [prefill(params, torch.from_numpy(tokens[i:i + rows]).cuda(),
+                             torch.from_numpy(lengths[i:i + rows]).cuda())
+                     for i in range(0, len(lengths), rows)]
+            cache = {k: torch.cat([c[k] for c, _ in parts], 1) for k in parts[0][0]}
+            first = torch.cat([lg for _, lg in parts])
+            decode = sv.make_slot_decode_step(cfg)
+            pos = torch.from_numpy(lengths).cuda()
+            logits, out = [first.cpu()], [torch.argmax(first, -1).to(torch.int32)]
+            for i in range(MOE_MESH_DECODES):
+                cache, lg = decode(params, cache, out[-1], pos + i)
+                logits.append(lg.cpu())
+                out.append(torch.argmax(lg, -1).to(torch.int32))
+            streams, logits = torch.stack(out, 1).cpu(), torch.stack(logits)
+            del cache
+        else:
+            streams, logits, _, _ = greedy_serve(torch, cfg, params, tokens, lengths,
+                                                 MOE_TPE_DECODES, bucket=False)
+        gaps = [[top2_gap(torch, row)[0] for row in step] for step in logits]
+        torch.save({"streams": streams, "logits": logits}, work / "ref.pt")
+        rec.update(streams=streams.tolist(), min_top2_gap=min(min(g) for g in gaps))
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def moe_train_reference(torch, cfg, params, work: Path) -> dict:
+    """(c)'s reference on one device: each step the plain loss and
+    gradients of each data shard's rows alone, averaged, then AdamW; the
+    step-1 gradients saved to ``work`` for the ranks, with each leaf's
+    scale."""
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import train as tr
+
+    tcfg = launcher_tcfg(MOE_TRAIN["steps"])
+    dp = int(MOE_MESH.split("x")[0])
+    source = make_data_source(cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq"], ShardInfo(0, 1),
+                              seed=SEED)
+    loss_fn = tr.make_loss_fn(cfg, tcfg)
+    opt = adamw.init(params)
+    losses, rows = [], MOE_TRAIN["batch"] // dp
+    for step in range(MOE_TRAIN["steps"]):
+        batch = tr.batch_to(source(step), "cuda")
+        loss, grads = 0.0, None
+        for i in range(0, MOE_TRAIN["batch"], rows):
+            li, gi = tr.loss_and_grads(loss_fn, params, {k: v[i:i + rows]
+                                                          for k, v in batch.items()})
+            loss = loss + float(li) / dp
+            grads = ({k: g / dp for k, g in gi.items()} if grads is None
+                     else {k: grads[k] + g / dp for k, g in gi.items()})
+            del gi
+        losses.append(loss)
+        if step == 0:
+            torch.save({k: g.cpu() for k, g in grads.items()}, work / "ref_grads.pt")
+            (work / "ref_scales.json").write_text(json.dumps(
+                {k: float(g.abs().max()) for k, g in grads.items()}))
+        params, opt, _ = adamw.apply_updates(params, grads, opt, tcfg)
+        del grads
+    return {"losses": losses, "loss1": losses[0]}
+
+
+def moe_cases(torch, rank: int, world: int, work: Path, case: str) -> dict:
+    """One rank of case (a) "serve", (b) "tpe" or (c) "train"."""
+    import torch.distributed as dist
+
+    from repro_torch.models import moe
+    from repro_torch.models.module import param_specs
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan.sharded import local_schedule
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import parallel as par
+    from repro_torch.serve import BucketLadder
+
+    kernels = tfm_kernels()  # the mesh tuning launches the matmul and flash kernels
+    zero_counts(kernels)
+    torch.cuda.reset_peak_memory_stats()
+    cfg = moe_mesh_config(case)
+    ctx = moe_mesh_ctx(MOE_TPE_MESH if case == "tpe" else MOE_MESH)
+    rec = {"rank": rank, "case": case}
+    if case == "train":
+        return dict(rec, **moe_train_rank(torch, cfg, ctx, kernels, work))
+    held, calls = {name: {"max_abs_err": 0.0} for name in kernels}, {}
+    if case == "serve":
+        ladder = BucketLadder(MOE_MESH_LADDER, max_seq=SERVE_MAX_SEQ, mesh=ctx.plan_mesh(),
+                              axis=ctx.tp_axis)
+        hold = (hold_launches(torch, kernels, held, calls, keep_args=False) if rank == 0
+                else contextlib.nullcontext())
+        before = coll.STATS.as_dict()
+        t0 = time.perf_counter()
+        with hold:
+            sources = ladder.warmup(cfg, policy="tune", device="cuda", run_mesh=ctx.mesh,
+                                    cache=at.AutotuneCache(str(work / "autotune.json")))
+        torch.cuda.synchronize()
+        rec.update(warmup_s=time.perf_counter() - t0, warmup_collectives=stats_since(before),
+                   warmup_peak_memory_bytes=torch.cuda.max_memory_allocated(),
+                   warmup_launches={n: k.launches for n, k in kernels.items()},
+                   winners={f"{b.batch}x{b.seq}:{c}": [
+                       getattr(s, "strategy", None), dict(local_schedule(s).blocks),
+                       sources[b][c]] for b in ladder.buckets for c, s in ladder.plans[b].items()},
+                   modeled_words={f"{b.batch}x{b.seq}": [ladder.modeled_words(b, "prefill"),
+                                                         ladder.modeled_words(b, "decode")]
+                                  for b in ladder.buckets})
+        if rank == 0:
+            rec["held"] = {n: h["max_abs_err"] for n, h in held.items()}
+            rec["held_calls"] = list(calls.values())
+        zero_counts(kernels)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+    defs = moe.param_defs(cfg)
+    specs = param_specs(defs)
+    t0 = time.perf_counter()
+    params = staggered(torch, lambda: device_params(
+        torch, defs, SEED, place=lambda path, w: par.shard_tensor(
+            w, specs[path], ctx.mesh, axes=(ctx.tp_axis,))))
+    rec.update(draw_s=time.perf_counter() - t0,
+               param_bytes=sum(t.numel() * t.element_size() for t in params.values()))
+    tokens, lengths = moe_mesh_prompts(cfg, case)
+    decodes = MOE_MESH_DECODES if case == "serve" else MOE_TPE_DECODES
+    streams, logits, ms, colls = greedy_serve(torch, cfg, params, tokens, lengths, decodes,
+                                             parallel=ctx, bucket=case == "serve")
+    rec.update(streams=streams.tolist(), call_ms=ms, call_collectives=colls,
+               request_launches={n: k.launches for n, k in kernels.items()},
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    if rank == 0:
+        ref = torch.load(work / "ref.pt")
+        errs = [(max_err(g, w), scale(w)) for g, w in zip(logits, ref["logits"])]
+        rec.update(logits_err_over_scale=[e / s for e, s in errs],
+                   ref_streams=ref["streams"].tolist())
+    dist.barrier()
+    return rec
+
+
+def moe_train_rank(torch, cfg, ctx, kernels, work: Path) -> dict:
+    """(c) on one rank: the launcher on the mesh (its weights drawn on the
+    card as the reference's), then the FSDP step's step-1 loss and each
+    gradient shard against the reference's."""
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models import moe
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import train as tr
+
+    launch.get_config = lambda arch: cfg
+    launch.init_params = lambda defs, seed, *, device=None, dtype=None: device_params(
+        torch, defs, seed, noise=False)
+    argv = ["--arch", MOE_ARCH, "--mesh", MOE_MESH, "--dist-backend", "gloo",
+            "--batch", str(MOE_TRAIN["batch"]), "--seq", str(MOE_TRAIN["seq"]),
+            "--steps", str(MOE_TRAIN["steps"]), "--seed", str(SEED), "--log-every", "1"]
+    incarnations, saves = [], []
+    t0 = time.perf_counter()
+    with elastic_spy(torch, kernels, incarnations, saves):
+        history = launch.main(argv)
+    rec = {"run_s": time.perf_counter() - t0, "losses": [h["loss"] for h in history],
+           "step_s": [h["time"] for h in history],
+           "build": {k: v for k, v in incarnations[0].items() if k != "steps"},
+           "steps": incarnations[0]["steps"],
+           "launch_peak_memory_bytes": torch.cuda.max_memory_allocated()}
+    torch.cuda.empty_cache()
+    defs = moe.param_defs(cfg)
+    specs = fsdp_specs(param_specs(defs), abstract_params(defs), ctx)
+    shards = staggered(torch, lambda: device_params(
+        torch, defs, SEED, noise=False,
+        place=lambda path, w: par.shard_tensor(w, specs[path], ctx.mesh)))
+    tcfg = launcher_tcfg(MOE_TRAIN["steps"])
+    batch = tr.batch_to(make_data_source(cfg, MOE_TRAIN["batch"], MOE_TRAIN["seq"],
+                                         ShardInfo(0, 1), seed=SEED)(0), "cuda")
+    loss, grads = tr.fsdp_loss_and_grads(tr.make_loss_fn(cfg, tcfg, ctx), ctx, specs, shards,
+                                         tr.shard_batch(cfg, ctx, batch))
+    del shards
+    ref = torch.load(work / "ref_grads.pt", mmap=True)
+    scales = json.loads((work / "ref_scales.json").read_text())
+    errs = {}
+    for k, g in grads.items():
+        want = par.shard_tensor(ref[k], specs[k], ctx.mesh).cuda()
+        errs[k] = [max_err(g, want), max(1.0, scales[k])]
+        del want
+    rec.update(loss1=float(loss), grad_errs=errs,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    dist.barrier()
+    return rec
+
+
+def moe_rank(rank: int, world: int, work: Path, case: str) -> int:
+    """The entry of one rank process (``chip_smoke.py --moe-rank``)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    # Four ranks share the card: blocks a rank frees must be reusable by
+    # any size it asks for next (set before its first allocation).
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world,
+                            timeout=datetime.timedelta(seconds=MOE_MESH_TIMEOUT))
+    try:
+        rec = moe_cases(torch, rank, world, work, case)
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def moe_ranks(work: Path, case: str, world: int) -> list:
+    """Run the ranks of one case and return their records; a failure fails
+    the phase."""
+    bad = run_rank_processes("--moe-rank", world, work, extra=(case,), timeout=MOE_MESH_TIMEOUT)
+    recs = [json.loads((work / f"rank{r}.json").read_text())
+            for r in range(world) if (work / f"rank{r}.json").exists()]
+    if bad:
+        emit(phase="moe_mesh", case=case, failed=True, ranks_records=recs)
+    check(not bad, f"moe_mesh {case} ranks failed (or outlived {MOE_MESH_TIMEOUT} s): {bad}")
+    return recs
+
+
+def moe_streams_check(case: str, rec0: dict) -> None:
+    """The mesh's greedy streams equal the one-device run's, and every
+    step's logits lie within TOL of scale of it."""
+    worst = max(rec0["logits_err_over_scale"])
+    check(rec0["streams"] == rec0["ref_streams"],
+          f"moe_mesh {case}: streams {rec0['streams']} != one device {rec0['ref_streams']}")
+    check(worst <= TOL, f"moe_mesh {case}: logits {worst} of scale from one device > {TOL}")
+
+
+def phase_moe_mesh(torch, kernels, results, card) -> None:
+    """Cases (a)-(c) (see the module docstring)."""
+    t_phase = time.perf_counter()
+    base = SCRATCH / "moe_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("moe_mesh", 0)
+    out = {}
+    for case, world in (("serve", MOE_MESH_RANKS), ("tpe", 2), ("train", MOE_MESH_RANKS)):
+        work = base / case
+        work.mkdir(parents=True)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        ref = moe_reference(torch, work, case)
+        ref_s = time.perf_counter() - t0
+        torch.cuda.empty_cache()  # the ranks need the card
+        ref["parent_reserved_bytes"] = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        recs = moe_ranks(work, case, world)
+        ranks_s = time.perf_counter() - t0
+        check(len(recs) == world, f"moe_mesh {case}: {len(recs)} rank records")
+        for r in recs:
+            for name in kernels:
+                results[name]["launches_by_path"]["moe_mesh"] += (
+                    r.get("warmup_launches", {}).get(name, 0)
+                    + r.get("request_launches", {}).get(name, 0))
+        out[case] = (ref, recs, ref_s, ranks_s)
+    cfg = moe_mesh_config("serve")
+
+    # (a) serving at full width on 2x2.
+    ref, recs, ref_s, ranks_s = out["serve"]
+    rank0 = recs[0]
+    moe_streams_check("serve", rank0)
+    for r in recs:
+        check(r["streams"] == rank0["streams"], f"moe_mesh serve: rank {r['rank']} streams")
+        check(r["winners"] == rank0["winners"], f"moe_mesh serve: rank {r['rank']} winners "
+                                                f"{r['winners']} != rank 0's")
+        check(not any(r["request_launches"].values()),
+              f"moe_mesh serve: the request path launched {r['request_launches']}")
+    tuned = sorted(c for c, w in rank0["winners"].items() if w[2] == "tuned")
+    check(bool(tuned), f"moe_mesh serve: no tuned cell {rank0['winners']}")
+    check(rank0["warmup_launches"]["matmul"] > 0 and rank0["warmup_launches"]["flash_attention"]
+          > 0, f"moe_mesh serve: the mesh tuning launched {rank0['warmup_launches']}")
+    for name, err in rank0["held"].items():
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], err)
+    held = {c["kernel"] for c in rank0["held_calls"]}
+    check(held == {"matmul", "flash_attention"}, f"moe_mesh serve: held calls of {held}")
+    emit(phase="moe_mesh", case="serve", card=card, arch=cfg.name, mesh=MOE_MESH,
+         setup=f"{MOE_MESH_RANKS} processes sharing one H100 over gloo; not multi-chip numbers",
+         n_layers=cfg.n_layers, of_layers=94, d_model=cfg.d_model,
+         heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
+         experts=[cfg.n_experts, cfg.moe_top_k, cfg.d_ff], branch="expert-parallel",
+         capacity_factor=cfg.capacity_factor, vocab=cfg.vocab, params=ref["params"],
+         ladder=MOE_MESH_LADDER, max_seq=SERVE_MAX_SEQ, decodes=MOE_MESH_DECODES,
+         reference=ref, reference_seconds=ref_s, ranks_seconds=ranks_s,
+         winners=rank0["winners"], modeled_words=rank0["modeled_words"],
+         held_calls=rank0["held_calls"], tolerance=TOL,
+         logits_err_over_scale=rank0["logits_err_over_scale"],
+         ranks=[{k: r[k] for k in ("rank", "draw_s", "param_bytes", "warmup_s",
+                                   "warmup_collectives", "warmup_launches",
+                                   "warmup_peak_memory_bytes", "call_ms", "call_collectives",
+                                   "peak_memory_bytes")} for r in recs])
+
+    # (b) TP-within-expert at full width on 1x2.
+    ref, recs, ref_s, ranks_s = out["tpe"]
+    moe_streams_check("tpe", recs[0])
+    tcfg = moe_mesh_config("tpe")
+    emit(phase="moe_mesh", case="tpe", card=card, arch=tcfg.name, mesh=MOE_TPE_MESH,
+         n_layers=tcfg.n_layers, of_layers=64, d_model=tcfg.d_model,
+         heads=[tcfg.n_heads, tcfg.n_kv_heads, tcfg.resolved_head_dim],
+         experts=[tcfg.n_experts, tcfg.moe_top_k, tcfg.d_ff], branch="TP-within-expert",
+         vocab=tcfg.vocab, params=ref["params"], prompt=MOE_TPE_PROMPT,
+         decodes=MOE_TPE_DECODES, reference=ref, reference_seconds=ref_s,
+         ranks_seconds=ranks_s, tolerance=TOL,
+         logits_err_over_scale=recs[0]["logits_err_over_scale"],
+         ranks=[{k: r[k] for k in ("rank", "draw_s", "param_bytes", "call_ms",
+                                   "call_collectives", "peak_memory_bytes")} for r in recs])
+
+    # (c) training on 2x2.
+    ref, recs, ref_s, ranks_s = out["train"]
+    ccfg = moe_mesh_config("train")
+    for r in recs:
+        check(r["losses"] == recs[0]["losses"], f"moe_mesh train: rank {r['rank']} losses")
+        rel = abs(r["loss1"] - ref["loss1"]) / abs(ref["loss1"])
+        check(rel <= 1e-5, f"moe_mesh train: step-1 loss {r['loss1']} vs {ref['loss1']}")
+        for k, (err, sc) in r["grad_errs"].items():
+            check(err <= TOL * sc, f"moe_mesh train: rank {r['rank']} grad {k} {err} > "
+                                   f"{TOL} x {sc}")
+    losses = recs[0]["losses"]
+    check(len(losses) == MOE_TRAIN["steps"] and all(
+        abs(a - b) <= LOSS_TOL * abs(b) for a, b in zip(losses, ref["losses"])),
+        f"moe_mesh train losses {losses} vs one device {ref['losses']}")
+    emit(phase="moe_mesh", case="train", card=card, arch=ccfg.name, mesh=MOE_MESH,
+         reduced={"n_layers": [94, ccfg.n_layers], "n_experts": [128, ccfg.n_experts],
+                  "batch_x_seq": [MOE_TRAIN["batch"], MOE_TRAIN["seq"]]},
+         d_model=ccfg.d_model, heads=[ccfg.n_heads, ccfg.n_kv_heads, ccfg.resolved_head_dim],
+         experts=[ccfg.n_experts, ccfg.moe_top_k, ccfg.d_ff], vocab=ccfg.vocab,
+         params=ref["params"], losses=losses, reference_losses=ref["losses"],
+         loss_tolerance=LOSS_TOL, loss1=[r["loss1"] for r in recs],
+         reference_loss1=ref["loss1"], reference=ref, reference_seconds=ref_s,
+         ranks_seconds=ranks_s, tolerance=TOL,
+         worst_grad_err_over_scale=max(e / s for r in recs for e, s in r["grad_errs"].values()),
+         ranks=[{"rank": r["rank"], "run_s": r["run_s"], "build": r["build"],
+                 "step_ms": [st["ms"] for st in r["steps"]], "step_s": r["step_s"],
+                 "collectives": [st["collectives"] for st in r["steps"]],
+                 "launches": [st["launches"] for st in r["steps"]],
+                 "launch_peak_memory_bytes": r["launch_peak_memory_bytes"],
+                 "peak_memory_bytes": r["peak_memory_bytes"]} for r in recs])
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="moe_mesh", seconds=time.perf_counter() - t_phase)
+
 
 def main() -> int:
     t_script = time.perf_counter()
@@ -4610,6 +5142,8 @@ def main() -> int:
         return elastic_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if sys.argv[1:2] == ["--tokens-rank"]:  # one rank of phase tokens_mesh
         return tokens_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--moe-rank"]:  # one rank of phase moe_mesh
+        return moe_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -4707,6 +5241,10 @@ def main() -> int:
     for name in ("matmul", "flash_attention"):
         check(results[name]["launches_by_path"]["moe_serve_warmup"] > 0,
               f"{name}: no launch on the moe_serve_warmup path")
+    phase_moe_mesh(torch, kernels, results, card)
+    for name in ("matmul", "flash_attention"):
+        check(results[name]["launches_by_path"]["moe_mesh"] > 0,
+              f"{name}: no launch on the moe_mesh path")
     phase_dense(torch, kernels, results, card)
     for dense_path in [f"train_{a}" for a in (DENSE_ARCH, *DENSE_CUT)] + ["dense_serve_warmup"]:
         for name in ("matmul", "flash_attention"):

@@ -26,6 +26,8 @@ heartbeats, a straggler watchdog and resume.
         --planned-kernels
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen1.5-0.5b \
         --mesh 2x2 --dist-backend gloo --planned-kernels --batch 4 --seq 2048 --steps 3
+    PYTHONPATH=src python -m repro_torch.launch.train --family moe \
+        --mesh 2x2 --device cpu --dist-backend gloo --steps 3 --batch 4 --seq 32
 
 ``--planned-kernels`` runs the family's planned kernels forward and
 backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
@@ -60,10 +62,12 @@ as the JAX launcher shards them: each rank holds its shard of the
 parameters and of AdamW's moments under ``launch.specs.fsdp_specs``, the
 step gathers them over the data axes and reduce-scatters the gradients;
 the dense family runs its heads, d_ff and vocab tensor-parallel over the
-model axis (the other families on a model axis above 1 raise, ROADMAP
-queue 1 #5c).  A checkpoint of a sharded state is gathered whole and
-written by rank 0; a restore reads each rank's piece onto whatever mesh
-the run has now.  The process group comes from the environment
+model axis, and the MoE its experts too (expert-parallel, or each expert's
+d_ff split: ``models/moe.py``); the recurrent and encoder-decoder families
+on a model axis above 1 raise (ROADMAP queue 1 #5c).  A checkpoint of a
+sharded state is gathered whole and written by rank 0; a restore reads
+each rank's piece onto whatever mesh the run has now.  The process group
+comes from the environment
 ``torchrun`` sets, or the launcher starts the ranks itself (one process a
 rank over a file store in a temporary directory: loopback only).
 ``--dist-backend`` names the group's backend (``nccl`` by default on the
@@ -265,8 +269,8 @@ def main(argv=None) -> list[dict]:
     if dims[-1] > 1 and cfg.family not in tr.MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
             f"--mesh {args.mesh}: the {cfg.family!r} family over a model axis above 1 "
-            "(expert parallelism, tensor-parallel recurrent and encoder-decoder blocks) "
-            "waits for ROADMAP queue 1 #5c")
+            "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
+            "queue 1 #5c")
     if world > 1 and not dist.is_initialized():
         if "RANK" not in os.environ:  # start the ranks here
             return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],

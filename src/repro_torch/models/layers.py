@@ -111,11 +111,12 @@ def attn_defs(cfg: ModelConfig, L: int, layers_prefix: bool = True) -> dict:
     return defs
 
 
-def attention_split(cfg: ModelConfig, seq: int, parallel) -> str:
-    """How an attention block without a cache runs over the model axis:
-    ``"heads"`` (each rank its share of the query heads and the KV heads
-    they read), ``"seq"`` (the JAX package's sequence-parallel condition:
-    query heads that do not split), or ``"whole"`` (every rank all of it)."""
+def attention_split(cfg: ModelConfig, seq: int, parallel, cached: bool = False) -> str:
+    """How an attention block runs over the model axis: ``"heads"`` (each
+    rank its share of the query heads and the KV heads they read),
+    ``"seq"`` (no cache, the JAX package's sequence-parallel condition:
+    query heads that do not split), or ``"whole"`` (every rank all of
+    it)."""
     tp = par.tp_size(parallel)
     if tp == 1:
         return "whole"
@@ -123,7 +124,7 @@ def attention_split(cfg: ModelConfig, seq: int, parallel) -> str:
     if Hq % tp == 0:
         hl, g = Hq // tp, Hq // Hkv
         return "heads" if hl % g == 0 or g % hl == 0 else "whole"
-    return "seq" if seq_parallel(seq, Hq, Hkv, tp) else "whole"
+    return "seq" if not cached and seq_parallel(seq, Hq, Hkv, tp) else "whole"
 
 
 def kv_heads_of(cfg: ModelConfig, parallel) -> tuple[int, int]:
@@ -133,6 +134,16 @@ def kv_heads_of(cfg: ModelConfig, parallel) -> tuple[int, int]:
     r = par.tp_rank(parallel)
     first = r * hl // g
     return first, ((r + 1) * hl - 1) // g + 1 - first
+
+
+def cache_heads(cfg: ModelConfig, parallel) -> tuple[int, int]:
+    """(first, count) of the KV heads a model rank's cache holds: the KV
+    heads its query heads read where the heads split (an even share of
+    them where ``parallel.kv_cache_spec`` splits the heads, else the
+    shared heads, replicated), every KV head otherwise."""
+    if attention_split(cfg, 1, parallel, cached=True) == "heads":
+        return kv_heads_of(cfg, parallel)
+    return 0, cfg.n_kv_heads
 
 
 def local_attn_params(p: dict, cfg: ModelConfig, parallel) -> dict:
@@ -204,8 +215,9 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     [B, Smax, Hkv, Dh] the roped K/V are written into it in place (see
     :func:`write_cache`) and the block attends over the whole cache with
     key positions ``arange(Smax)``: the causal mask hides what lies past
-    each row's position.  ``parallel`` (no cache) runs the attention
-    sequence-parallel where the JAX package does."""
+    each row's position; the cache holds the KV heads of ``k``/``v``.
+    ``parallel`` (no cache) runs the attention sequence-parallel where the
+    JAX package does."""
     B, S = q.shape[:2]
     Dh = cfg.resolved_head_dim
     theta = cfg.rope_theta if theta is None else theta
@@ -223,6 +235,9 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     if cache is None:
         return attention(q, k, v, q_pos=q_pos, k_pos=q_pos, causal=causal, window=window,
                          scale=Dh**-0.5, parallel=parallel)
+    if cache[0].shape[2] != k.shape[2]:
+        raise ValueError(f"a cache of {cache[0].shape[2]} KV heads for a block of "
+                         f"{k.shape[2]} (a model rank's cache holds layers.cache_heads)")
     write_cache(cache, k, v, pos0)
     ck, cv = cache
     k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)
@@ -237,9 +252,10 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0=0, windo
     projections, :func:`attention_core` and the output projection; with
     ``cache`` = (k, v) [B, Smax, Hkv, Dh] the block's K/V are written into
     it in place and the same tuple comes back (``None`` without one).
-    With ``parallel`` (no cache) the block runs over the model axis as
-    :func:`attention_split` says."""
-    mode = "whole" if cache is not None else attention_split(cfg, x.shape[1], parallel)
+    With ``parallel`` the block runs over the model axis as
+    :func:`attention_split` says; a cache is then this rank's
+    (:func:`cache_heads`)."""
+    mode = attention_split(cfg, x.shape[1], parallel, cached=cache is not None)
     if mode == "heads":
         p, x = local_attn_params(p, cfg, parallel), par.tp_enter(x, parallel)
     q, k, v = project_qkv(p, x)

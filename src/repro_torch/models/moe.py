@@ -1,6 +1,5 @@
 """Mixture-of-Experts transformer (grok-1, qwen3-moe): the JAX package's
-``models/moe.py`` on one device (its expert-parallel and
-TP-within-expert branches wait for the sharded trainer).
+``models/moe.py``, on one device and over a mesh's model axis.
 
 Parameters keep the JAX package's names and layouts, ``w_down`` stored
 ``[L, E, d, ff]`` like ``w_gate``/``w_up``, so weights carry across with
@@ -26,6 +25,26 @@ The serving step builders read :data:`slot_decode_kwargs`.
 
 The KV cache is the dense transformer's (:func:`init_cache`), written in
 place.
+
+On a mesh (``parallel=``, a ParallelCtx) the expert FFN is the JAX
+package's ``shard_map`` of Alg 4 written as rank-local code: every rank
+routes its data shard's tokens (``T_loc = B / dp * S``, and the capacity
+of a ``T_loc``-token dispatch) redundantly from the replicated router and
+keeps a private partial output ``[T_loc, d]``; one psum over the model
+axis sums the partials.  The branch is the JAX package's, by ``E % 16``
+(not ``E % tp``, which its docstring says):
+
+* expert-parallel (``E % 16 == 0``, qwen3-moe): the rank owns experts
+  ``[r * E / tp, (r + 1) * E / tp)`` and dispatches only the rows routed
+  to them; a row bound for another rank's expert goes to the overflow row;
+* TP-within-expert (grok-1, and the 4-expert smoke configs): every expert
+  on every rank, on the rank's share of d_ff.
+
+The router, and the hidden state entering the block, are replicated over
+the model axis while each rank's gradient of them is partial, so both
+enter through ``parallel.tp_enter`` (their backward sums over ``model``).
+Attention, the embedding and the logits head run tensor-parallel as the
+dense family's do (``models/layers.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +56,7 @@ from repro_torch.models import layers as ll
 from repro_torch.models import transformer as tf
 from repro_torch.models.module import ParamDef, prefixed, unstack
 from repro_torch.plan.planners import MoeFfnPlanner
+from repro_torch.runtime import parallel as par
 
 # What the slot decode passes to forward: each slot dispatches alone.
 slot_decode_kwargs = {"per_row_dispatch": True}
@@ -66,12 +86,15 @@ def _top_k(probs: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
-def _route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
+def _route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig,
+           e_offset: int = 0, n_local: int | None = None):
     """The capacity dispatch of groups that route alone: ``xg`` [G, T, d]
-    against the router [d, E].  Returns (slot, valid, gate_f, tok_f, cap):
-    the slot-major rows' buffer row ``slot`` [G, kT] (``E * cap``, the
-    overflow row, where ``valid`` is false: the row was dropped), their
-    gates ``gate_f`` [G, kT], their tokens ``tok_f`` [kT], and the rows an
+    against the router [d, E], into the buffer of the ``n_local`` experts
+    from ``e_offset`` on (default: all E).  Returns (slot, valid, gate_f,
+    tok_f, cap): the slot-major rows' buffer row ``slot`` [G, kT]
+    (``n_local * cap``, the overflow row, where ``valid`` is false: the
+    row was dropped, or its expert is another rank's), their gates
+    ``gate_f`` [G, kT], their tokens ``tok_f`` [kT], and the rows an
     expert takes, ``cap``."""
     G, T, _ = xg.shape
     E, k = cfg.n_experts, cfg.moe_top_k
@@ -95,22 +118,27 @@ def _route(xg: torch.Tensor, router: torch.Tensor, cfg: ModelConfig):
     rank_sorted = torch.arange(k * T, device=dev) - torch.gather(starts, 1, sorted_e)
     pos_f = torch.zeros_like(idx_f).scatter_(1, order, rank_sorted)
 
-    valid = pos_f < cap
-    slot = torch.where(valid, idx_f * cap + pos_f, E * cap)
+    n_local = E if n_local is None else n_local
+    e_loc = idx_f - e_offset
+    valid = (pos_f < cap) & (e_loc >= 0) & (e_loc < n_local)
+    slot = torch.where(valid, e_loc * cap + pos_f, n_local * cap)
     return slot, valid, gate_f, tok_f, cap
 
 
-def _moe_groups(xg: torch.Tensor, mp: dict, cfg: ModelConfig) -> torch.Tensor:
+def _moe_groups(xg: torch.Tensor, mp: dict, cfg: ModelConfig,
+                e_offset: int = 0) -> torch.Tensor:
     """Token dispatch and the expert FFN for groups that dispatch alone.
 
     ``xg``: [G, T, d], each group's T tokens routed with the capacity of a
     T-token dispatch (:func:`_route`); ``mp``: the layer's router [d, E]
-    and expert weights [E, d, ff].  Returns [G, T, d].  With G = 1 this is
-    the JAX package's ``_moe_local`` on one device."""
+    and the expert weights [E_loc, d, ff] of experts ``e_offset`` on.
+    Returns [G, T, d], the partial output of those experts.  With G = 1
+    this is the JAX package's ``_moe_local``."""
     G, T, d = xg.shape
-    E, k = cfg.n_experts, cfg.moe_top_k
+    k = cfg.moe_top_k
+    E = mp["w_gate"].shape[0]  # the experts held here
     dev = xg.device
-    slot, valid, gate_f, tok_f, cap = _route(xg, mp["router"], cfg)
+    slot, valid, gate_f, tok_f, cap = _route(xg, mp["router"], cfg, e_offset, E)
 
     rows = E * cap + 1
     # Every valid slot is unique; the overflow row's value is thrown away,
@@ -132,13 +160,43 @@ def _moe_groups(xg: torch.Tensor, mp: dict, cfg: ModelConfig) -> torch.Tensor:
     return (gate_f[..., None].to(cd) * y_rows).reshape(G, k, T, d).sum(1)
 
 
+def expert_parallel(cfg: ModelConfig) -> bool:
+    """The JAX package's branch rule: experts split over the model axis
+    where ``E % 16 == 0``, else TP-within-expert."""
+    return cfg.n_experts % 16 == 0
+
+
+def local_moe_params(mp: dict, cfg: ModelConfig, parallel) -> tuple[dict, int]:
+    """(this model rank's expert-FFN parameters, the first expert they
+    hold): the router through ``tp_enter``; expert-parallel, its E / tp
+    experts of each stack; TP-within-expert, every expert on its share of
+    d_ff (``w_down`` is stored ``[E, d, ff]`` like the others)."""
+    E, ff, tp = cfg.n_experts, cfg.d_ff, par.tp_size(parallel)
+    ep = expert_parallel(cfg)
+    n, dim = (E, 0) if ep else (ff, 2)
+    if n % tp:
+        raise ValueError(f"{'n_experts' if ep else 'd_ff'}={n} does not split over a model "
+                         f"axis of {tp}")
+    out = {"router": par.tp_enter(mp["router"], parallel)}
+    for name in ("w_gate", "w_up", "w_down"):
+        out[name] = par.tp_local(mp[name], dim, n, parallel)
+    return out, (par.tp_rank(parallel) * (E // tp) if ep else 0)
+
+
 def apply_moe_ffn(mp: dict, x: torch.Tensor, cfg: ModelConfig, *,
-                  per_row_dispatch: bool = False) -> torch.Tensor:
+                  per_row_dispatch: bool = False, parallel=None) -> torch.Tensor:
     """x: [B, S, d] -> [B, S, d]: all B x S tokens in one dispatch, or each
-    row in its own (``per_row_dispatch``)."""
+    row in its own (``per_row_dispatch``).  With ``parallel`` (a model
+    axis above 1) ``x`` is this rank's data shard, replicated over the
+    model axis: each rank computes its experts' (or its d_ff share's)
+    partial output and one psum over the model axis sums them."""
     B, S, d = x.shape
     xg = x if per_row_dispatch else x.reshape(1, B * S, d)
-    return _moe_groups(xg, mp, cfg).reshape(B, S, d)
+    if par.tp_size(parallel) == 1:
+        return _moe_groups(xg, mp, cfg).reshape(B, S, d)
+    mp, e_offset = local_moe_params(mp, cfg, parallel)
+    y = _moe_groups(par.tp_enter(xg, parallel), mp, cfg, e_offset)
+    return par.tp_exit(y, parallel).reshape(B, S, d)
 
 
 def layer_meta(cfg: ModelConfig) -> dict:
@@ -152,14 +210,17 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32, remat: str = "none",
-            per_row_dispatch: bool = False):
+            per_row_dispatch: bool = False, parallel=None):
     """Returns (hidden [B, S, d], cache).  ``pos0`` and ``cache`` as the
     dense transformer's (the cache written in place); ``remat="block"``
     recomputes each layer in the backward pass (the JAX package
     checkpoints its scan body under "block" alone); ``per_row_dispatch``
-    as the module docstring says."""
+    as the module docstring says.  With ``parallel`` the tokens are this
+    rank's data shard, the parameters this rank's (or whole), a cache this
+    rank's piece (``layers.cache_heads``), and every block runs over the
+    model axis."""
     tf._check_remat(remat)
-    x = ll.embed_tokens(params, tokens, cfg, compute_dtype)
+    x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
     meta = layer_meta(cfg)
     caches = (zip(cache["k"].unbind(0), cache["v"].unbind(0)) if cache is not None
               else [None] * cfg.n_layers)
@@ -167,10 +228,11 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     def block(x, lp, window, theta, kv):
         h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, _ = ll.apply_attention(lp["attn"], h, cfg, pos0=pos0, window=window, theta=theta,
-                                  cache=kv)
+                                  cache=kv, parallel=parallel)
         x = x + h
         h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
-        return x + apply_moe_ffn(lp["moe"], h, cfg, per_row_dispatch=per_row_dispatch)
+        return x + apply_moe_ffn(lp["moe"], h, cfg, per_row_dispatch=per_row_dispatch,
+                                 parallel=parallel)
 
     for lp, window, theta, kv in zip(unstack(params, "layers", cfg.n_layers),
                                      meta["window"].tolist(), meta["theta"].tolist(), caches):
@@ -178,5 +240,8 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     return x, cache
 
 
-def logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor) -> torch.Tensor:
-    return ll.logits_from_hidden(params, hidden, cfg)
+def logits(cfg: ModelConfig, params: dict, hidden: torch.Tensor,
+           parallel=None) -> torch.Tensor:
+    """Hidden -> logits [B, S, V] (this rank's vocab columns under a vocab
+    split over ``parallel``'s model axis)."""
+    return ll.logits_from_hidden(params, hidden, cfg, parallel)

@@ -45,7 +45,9 @@ shapes :func:`local_config` describes, which is also what the planned
 path plans its kernels at (:func:`make_loss_fn`).  Query heads that do not
 split over the model axis run sequence-parallel attention on the plain
 path and raise on the planned one (the flash kernel takes no query
-offset; ROADMAP queue 1 #5c).
+offset; ROADMAP queue 1 #5c).  The plain path also serves on a mesh: with
+a KV cache each rank holds and attends over its piece of it
+(``layers.cache_heads``; the serving step builders place it).
 """
 
 from __future__ import annotations
@@ -149,13 +151,13 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     pinned planned backward kernels.  ``remat`` ("none" | "dots" |
     "block") trades memory for recompute (see the module docstring); with
     a cache it wraps the same segments, as the JAX package checkpoints its
-    cached scan body.  ``parallel`` (training, no cache) runs the layers
-    tensor-parallel over its model axis on this rank's parameters."""
+    cached scan body.  ``parallel`` runs the layers
+    tensor-parallel over its model axis on this rank's parameters (with a
+    cache, this rank's piece of it: ``layers.cache_heads``)."""
     _check_remat(remat)
     if use_kernels and cache is None:
         return _forward_planned(cfg, params, tokens, compute_dtype, schedules,
                                 remat, parallel), None
-    parallel = parallel if cache is None else None
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
     meta = layer_meta(cfg)
     caches = (zip(cache["k"].unbind(0), cache["v"].unbind(0)) if cache is not None
@@ -176,7 +178,7 @@ def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None,
     ``layers.attention_split``/``layers.mlp_split`` say."""
     seg = functools.partial(_segment, remat=remat)
     ap, mp = lp["attn"], lp["mlp"]
-    mode = ll.attention_split(cfg, x.shape[1], parallel)
+    mode = ll.attention_split(cfg, x.shape[1], parallel, cached=cache is not None)
     h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps))(x)
     if mode == "heads":
         ap, h = ll.local_attn_params(ap, cfg, parallel), par.tp_enter(h, parallel)

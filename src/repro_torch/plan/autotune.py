@@ -1,6 +1,5 @@
 """Measured-time Schedule autotuning with a persistent per-cell cache: the
-JAX package's ``plan/autotune.py`` for one device, timing the port's CUDA
-kernels.
+JAX package's ``plan/autotune.py``, timing the port's CUDA kernels.
 
 The planners' argmin is a *model*: modeled main-memory words under the
 paper's capacity argument.  This module adds the measured-time mode on top
@@ -30,9 +29,19 @@ Only a planner's rejection (:class:`~repro_torch.plan.planners.PlanRejected`)
 degrades a cell to the modeled argmin; a kernel that fails to build or
 launch while a candidate is timed raises.  A mesh-bound cell resolves
 through the sharded planners (its key carries the mesh, the axis and a
-strategy pin) and replays from the cache; timing a multi-device candidate
-(the JAX package's per-device proxies and ``run_mesh``) waits for ROADMAP
-queue 1 #5c and raises.
+strategy pin).  A multi-device candidate is timed as the JAX package times
+it: with a live ``run_mesh`` (a ``runtime.collectives.Mesh``) its
+``op.sharded`` runs for real; without one, a per-device proxy launches the
+kernel on one device's shard (:func:`_proxy_operands`; the ring as ``P``
+chunk steps) and adds the interconnect term ``ici_words x word /
+machine.link_bw``.
+
+Ranks agree (a stated divergence: the JAX package times in one process).
+In a process group of more than one rank every rank resolves the same
+cells in the same order; under "tune" each takes rank 0's verdict of a
+cell's cache hit, times the same candidates in the same order (a
+``run_mesh`` candidate is a collective) and takes the argmin of rank 0's
+times, so no two ranks launch different schedules.
 
 CLI: ``python -m repro_torch.plan.autotune --smoke [--device cpu]`` or
 ``--op matmul --shape m=256,n=4096,k=2048``.
@@ -339,10 +348,86 @@ def _measure(fn, iters: int = 3, warmup: int = 1, *, device=None) -> float:
     return ts[len(ts) // 2]
 
 
+def _proxy_operands(op: str, ss: ShardedSchedule, arrays: tuple, lane: int = 1):
+    """``(operands, seq, schedule)`` of a sharded candidate's per-device
+    proxy (no live mesh), the JAX package's protocol: slice every operand
+    dim partitioned on the schedule's axis (one device's shard — psum,
+    batch, tp and stack run their whole local work in one call) under the
+    local schedule.  The ring is special: its resident X shard permutes P
+    times, so the proxy is one (K/P, N/P) chunk step repeated ``devices``
+    times, with ``block_k`` clamped to the chunk (the ring's local
+    schedule is planned against the full K, and an unclamped block would
+    pad the chunk back up) and aligned down to ``lane``, a multiple the
+    port's kernels take."""
+    P = ss.devices
+    local = ss.schedule
+    if ss.strategy == "ring" and op == "matmul":
+        x, w = arrays
+        k_step = max(1, x.shape[1] // P)
+        bk = min(local.block("block_k"), k_step)
+        local = local.evolve(block_k=max(lane, bk - bk % lane))
+        return (x[:, :k_step], w[:k_step, : max(1, w.shape[1] // P)]), P, local
+    out = []
+    for a, part in zip(arrays, ss.partition):
+        idx = [slice(None)] * a.ndim
+        for d, ax in enumerate(part[: a.ndim]):
+            if ax == ss.axis:
+                idx[d] = slice(0, max(1, a.shape[d] // P))
+        out.append(a[tuple(idx)])
+    return tuple(out), 1, local
+
+
+def ici_us(cand: ShardedSchedule, word: int, machine: MachineModel) -> float:
+    """The per-device proxy's interconnect term: the candidate's
+    ``ici_words`` over the machine's link rate, in microseconds."""
+    return cand.ici_words * word / machine.link_bw * 1e6
+
+
+def _time_candidate(op, arrays, params, cand, machine: MachineModel, run_mesh,
+                    iters: int, warmup: int) -> float:
+    """Microseconds of one candidate: its ``op.sharded`` on ``run_mesh``,
+    else the per-device proxy plus the interconnect term, for a
+    multi-device strategy; the op on the whole operands otherwise."""
+    dev = arrays[0].device
+    if (isinstance(cand, ShardedSchedule) and cand.devices > 1
+            and cand.strategy != "single"):
+        if run_mesh is not None and op.sharded_impl is not None:
+            return _measure(lambda: op.sharded(*arrays, schedule=cand, mesh=run_mesh,
+                                               **params), iters, warmup, device=dev)
+        proxy, seq, sched = _proxy_operands(op.name, cand, arrays, machine.lane)
+        us = _measure(lambda: op(*proxy, schedule=sched, **params), iters, warmup,
+                      device=dev)
+        return us * seq + ici_us(cand, arrays[0].element_size(), machine)
+    local = local_schedule(cand)
+    return _measure(lambda: op(*arrays, schedule=local, **params), iters, warmup,
+                    device=dev)
+
+
+def _ranks() -> int:
+    """The ranks of the live process group (1 without one)."""
+    import torch.distributed as dist
+
+    return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
+
+
+def _rank0(value):
+    """Rank 0's ``value`` on every rank of the live process group (the
+    value itself without one)."""
+    if _ranks() == 1:
+        return value
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def _label(cand) -> str:
     loc = local_schedule(cand)
     alg = getattr(loc, "algorithm", "direct")
     tag = f"{alg}:" if alg != "direct" else ""
+    if isinstance(cand, ShardedSchedule):
+        return f"{cand.strategy}:{tag}{dict(loc.blocks)}"
     return f"{tag}{dict(loc.blocks)}"
 
 
@@ -385,7 +470,7 @@ def _rebuild(op: str, shape: dict, rec: dict, machine: MachineModel, mesh,
 def tune(
     op, *, machine: MachineModel = H100, mesh=None, axis: str = "model",
     strategy: str | None = None, topk: int = 4, iters: int = 3, warmup: int = 1, dtype=None,
-    cache: AutotuneCache | None = None, force: bool = False, device=None,
+    cache: AutotuneCache | None = None, run_mesh=None, force: bool = False, device=None,
     **shape,
 ) -> TuneReport:
     """Measure the top-``topk`` candidate Schedules of one cell and cache
@@ -396,7 +481,11 @@ def tune(
     Candidates come from ``planner.candidates()`` ranked by modeled words;
     a cached winner short-circuits unless ``force=``.  Operands are
     synthesized on ``device`` (default: the process's tuning device, the
-    card unless set).  Returns a :class:`TuneReport`.
+    card unless set).  ``run_mesh`` (a live ``runtime.collectives.Mesh``)
+    runs multi-device strategies for real; without one they time through
+    the per-device proxies.  In a process group every rank calls this
+    alike and takes rank 0's hit and times (the module docstring).
+    Returns a :class:`TuneReport`.
     """
     global _TUNING
     from repro_torch.plan.registry import get_op
@@ -409,7 +498,14 @@ def tune(
     readable, digest = cache_key(opo.name, shape, dt, machine, mesh, axis, strategy)
     if not force:
         rec = cache.get(digest)
-        if rec is not None:
+        if _rank0(rec is not None):
+            if rec is None:  # rank 0's hit, written since this rank read the file
+                cache.reload()
+                rec = cache.get(digest)
+            if rec is None:
+                raise RuntimeError(f"autotune cell {readable}: rank 0 holds a winner this "
+                                   f"rank's cache {cache.path!r} lacks (the ranks must "
+                                   "share one cache file)")
             return TuneReport(
                 key=digest,
                 schedule=_rebuild(opo.name, shape, rec, machine, mesh, axis),
@@ -418,24 +514,18 @@ def tune(
 
     planner = planner_for(opo.name, machine, mesh, axis, strategy)
     cands = planner.candidates(**shape)[: max(1, topk)]
-    if any(isinstance(c, ShardedSchedule) and c.devices > 1 for c in cands):
-        raise NotImplementedError(
-            f"timing {opo.name!r} candidates over {mesh.axes} (the per-device "
-            "proxies) waits for ROADMAP queue 1 #5c; resolve mesh cells with "
-            "policy 'off' or 'cache-only'")
     arrays, params = synthesize(opo.name, shape, dt, device)
-    measured, timed = [], []
+    times = []
     _TUNING = True
     try:
         for c in cands:
-            local = local_schedule(c)
-            us = _measure(lambda: opo(*arrays, schedule=local, **params),
-                          iters, warmup, device=arrays[0].device)
-            measured.append((_label(c), us, c.modeled_words))
-            timed.append((us, c))
+            times.append(_time_candidate(opo, arrays, params, c, machine, run_mesh,
+                                         iters, warmup))
     finally:
         _TUNING = False
-    us, winner = min(timed, key=lambda t: t[0])
+    times = _rank0(times)
+    measured = [(_label(c), us, c.modeled_words) for c, us in zip(cands, times)]
+    us, winner = min(zip(times, cands), key=lambda t: t[0])
     record = {
         "op": opo.name,
         "strategy": winner.strategy if isinstance(winner, ShardedSchedule) else None,
@@ -484,27 +574,30 @@ def lookup(
 def tuned_schedule(
     op: str, shape: dict, *, machine: MachineModel = H100, mesh=None,
     axis: str = "model", strategy: str | None = None, policy: str | None = None,
-    cache: AutotuneCache | None = None, dtype=None, device=None,
+    cache: AutotuneCache | None = None, dtype=None, device=None, run_mesh=None,
 ) -> Schedule | ShardedSchedule | None:
     """The autotune override for one resolution, or ``None`` when the
     modeled argmin should stand: policy "off" (or reentrant tuning) is
     always ``None``; "cache-only" is lookup-only; "tune" measures on a
-    miss.  Only the planner's rejection of the cell degrades (once per
-    cell, with the cell key); a kernel error while timing, a missing
-    synthesizer or a broken cache write re-raise."""
+    miss (in a process group, :func:`tune` itself decides the miss, by
+    rank 0's cache).  Only the planner's rejection of the cell degrades
+    (once per cell, with the cell key); a kernel error while timing, a
+    missing synthesizer or a broken cache write re-raise."""
     pol = policy or _POLICY
     if pol == "off" or _TUNING:
         return None
     if pol not in POLICIES:
         raise ValueError(f"autotune policy must be one of {POLICIES}, "
                          f"got {pol!r}")
-    got = lookup(op, shape, machine=machine, mesh=mesh, axis=axis, strategy=strategy,
-                 cache=cache, dtype=dtype)
-    if got is not None or pol == "cache-only":
-        return got
+    if pol == "cache-only" or _ranks() == 1:
+        got = lookup(op, shape, machine=machine, mesh=mesh, axis=axis, strategy=strategy,
+                     cache=cache, dtype=dtype)
+        if got is not None or pol == "cache-only":
+            return got
     try:
         return tune(op, machine=machine, mesh=mesh, axis=axis, strategy=strategy,
-                    cache=cache, dtype=dtype, device=device, **shape).schedule
+                    cache=cache, dtype=dtype, device=device, run_mesh=run_mesh,
+                    **shape).schedule
     except PlanRejected as e:
         dt = _dtype_for(dtype, shape.get("in_bytes"))
         ms = mesh_spec(mesh) if mesh is not None else None
@@ -518,14 +611,14 @@ def tuned_schedule(
 def resolve(
     op: str, shape: dict, *, machine: MachineModel = H100, mesh=None,
     axis: str = "model", strategy: str | None = None, policy: str | None = None,
-    cache: AutotuneCache | None = None, dtype=None, device=None,
+    cache: AutotuneCache | None = None, dtype=None, device=None, run_mesh=None,
 ) -> Schedule | ShardedSchedule:
     """Policy-aware schedule resolution (what every ``plan`` helper and
     the op registry route through): a cached/measured winner when the
     policy provides one, else the planner's modeled argmin."""
     got = tuned_schedule(op, shape, machine=machine, mesh=mesh, axis=axis,
                          strategy=strategy, policy=policy, cache=cache, dtype=dtype,
-                         device=device)
+                         device=device, run_mesh=run_mesh)
     if got is not None:
         return got
     return planner_for(op, machine, mesh, axis, strategy).plan(**shape)
@@ -534,11 +627,13 @@ def resolve(
 def warm(
     cells: dict, *, machine: MachineModel = H100, mesh=None, axis: str = "model",
     policy: str | None = None, cache: AutotuneCache | None = None, dtype=None,
-    device=None,
+    device=None, run_mesh=None,
 ) -> tuple[dict, dict]:
     """Boot-time resolution of a *named set* of cells (the serving path
     resolves every bucket's cells here once, so the request path never
-    plans or times a new shape).
+    plans or times a new shape); on a mesh every cell is a
+    ShardedSchedule, timed on ``run_mesh`` or through the per-device
+    proxies.
 
     ``cells`` maps ``name -> (op_name, planner_shape)``.  Returns
     ``(plans, sources)``: the resolved Schedule per name, and each cell's
@@ -559,7 +654,8 @@ def warm(
 
         pre = pol != "off" and _hit()
         plans[name] = resolve(op, shape, machine=machine, mesh=mesh, axis=axis,
-                              policy=pol, cache=cache, dtype=dtype, device=device)
+                              policy=pol, cache=cache, dtype=dtype, device=device,
+                              run_mesh=run_mesh)
         if pre:
             sources[name] = "cached"
         elif pol == "tune" and _hit():

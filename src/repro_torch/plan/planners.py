@@ -1265,11 +1265,17 @@ class MoeFfnPlanner(ShardablePlanner):
     capacity_factor)``, so the local schedule is E repetitions of two
     delegated :class:`MatmulPlanner` GEMMs — up ``[cap, d_model] @
     [d_model, d_ff]`` and down ``[cap, d_ff] @ [d_ff, d_model]`` — the
-    compound-planner pattern again.  The mesh partitions ("batch": tokens
-    sharded, every device streams every expert; "ep": experts sharded, the
-    routed rows crossing the interconnect as an all-to-all) wait for the
-    token families' sharding (ROADMAP queue 1 #5c): over more than one
-    device the planner raises.
+    compound-planner pattern again.
+
+    On a mesh two partitionings compete, as in the JAX package: "batch"
+    (tokens sharded, experts replicated — every device streams all E
+    experts' weights on its token shard, no interconnect words) and "ep"
+    (experts sharded E/P a device, weights streamed once, the routed rows
+    crossing the interconnect twice as an all-to-all;
+    ``ccr.moe_all_to_all_words``).  What ``models/moe.py`` executes on a
+    mesh is another route (ROADMAP queue 3, a mirrored fault): it picks
+    its branch by ``E % 16``, routes redundantly on every model rank and
+    sums the partial outputs with one psum, moving no routed row.
     """
 
     op: ClassVar[str] = "moe_ffn"
@@ -1281,12 +1287,25 @@ class MoeFfnPlanner(ShardablePlanner):
         ``models/moe.py`` formula."""
         return max(1, math.ceil(top_k * tokens / n_experts * capacity_factor))
 
-    def _shard_candidates(self, group: int, **shape) -> list[ShardCandidate]:
-        if group > 1:
-            raise NotImplementedError(
-                "moe_ffn over a mesh (the batch/ep partitions) waits for the "
-                "token families' sharding (ROADMAP queue 1 #5c)")
-        return super()._shard_candidates(group, **shape)
+    def _shard_candidates(self, group: int, *, tokens: int, n_experts: int,
+                          d_model: int, top_k: int = 2,
+                          **shape) -> list[ShardCandidate]:
+        del shape
+        ax = self.shard_axis
+        rep2, rep3 = (None, None), (None, None, None)
+        cands = []
+        if group > 1 and tokens % group == 0:
+            cands.append(ShardCandidate(
+                "batch", {"tokens": tokens // group}, ((ax, None), rep3, (ax, None))))
+        if (group > 1 and tokens % group == 0 and n_experts % group == 0
+                and (tokens // group * top_k) % n_experts == 0):
+            cands.append(ShardCandidate(
+                "ep", {"tokens": tokens // group, "n_experts": n_experts // group},
+                ((ax, None), (ax, None, None), (ax, None)),
+                ici_words=ccr.moe_all_to_all_words(
+                    tokens=tokens, d_model=d_model, top_k=top_k, n_experts=n_experts,
+                    devices=group)))
+        return cands or [ShardCandidate("single", {}, (rep2, rep3, rep2))]
 
     def plan_local(
         self, *, tokens: int, d_model: int, d_ff: int, n_experts: int,
@@ -1355,8 +1374,7 @@ class TransformerBlockPlanner(ShardablePlanner):
     plans other shapes there than its forward launches.  The port's
     ``models.transformer.plan_forward`` passes the config's
     ``resolved_head_dim``; a call that names no head dim equals the JAX
-    package's field for field.  A MoE cell over a mesh of more than one
-    device raises (ROADMAP queue 1 #5c).
+    package's field for field.
     """
 
     op: ClassVar[str] = "transformer_block"

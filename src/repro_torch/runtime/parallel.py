@@ -220,9 +220,11 @@ def tp_slice(x: torch.Tensor, dim: int, start: int, length: int,
              ctx: ParallelCtx) -> torch.Tensor:
     """``x.narrow(dim, start, length)`` of a tensor every model rank holds
     whole; each rank's gradient is put in place and summed over the model
-    axis, so every rank gets the whole tensor's gradient."""
+    axis, so every rank gets the whole tensor's gradient (a slice that is
+    the whole tensor, such as a KV head every rank reads, is
+    :func:`tp_enter`)."""
     if start == 0 and length == x.shape[dim]:
-        return x
+        return tp_enter(x, ctx)
     return _Slice.apply(x, dim, start, length, ctx)
 
 

@@ -1,6 +1,6 @@
 """Serving step builders: prefill (KV-cache fill + last-token logits) and
 decode (one token against a long cache) — the JAX package's
-``runtime/serve.py`` on one device.
+``runtime/serve.py``.
 
 Two tiers:
 
@@ -33,15 +33,33 @@ positions exactly zero softmax weight (the -1e30 mask underflows), rows of
 every matmul are independent, and decode overwrites cache positions >= the
 true prompt length as it generates.  (On the card, GEMMs of another shape
 may round differently, so two paths can part at a near-tie.)
+
+On a mesh (``parallel=``, a ParallelCtx, as the JAX package's builders
+take it) every rank gets the same global tokens and takes its shard of the
+rows over the data axes (``ParallelCtx.batch_axes``); over a model axis
+above 1 the dense family and the MoE run tensor-parallel (the MoE's
+experts expert-parallel or TP-within-expert).  The cache a builder makes
+or takes is this rank's piece: its rows, and where the heads split its KV
+heads (``layers.cache_heads``) — the placement ``parallel.kv_cache_spec``
+gives, except that KV heads the model axis cannot split stay whole on each
+rank where the spec would split the head dim; a spec that splits the
+sequence (too few rows for the data axes) raises.  The logits come back
+whole: gathered over the vocab shards and the rows.
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import get_family
+from repro_torch.runtime import parallel as par
+
+# The families that serve over a model axis above 1.
+MODEL_AXIS_FAMILIES = ("dense", "transformer", "moe")
 
 
 def _check_schedules(schedules, machine) -> None:
@@ -74,41 +92,115 @@ def _on(params: dict, x) -> torch.Tensor:
     return torch.as_tensor(x, device=params_device(params))
 
 
+def _leaves(tree, specs):
+    """(leaf, spec) of a cache tree and the tree of its specs."""
+    if not isinstance(tree, dict):
+        yield tree, specs
+        return
+    for k in tree:
+        yield from _leaves(tree[k], specs[k])
+
+
+class _Mesh:
+    """What a builder does on ``parallel``'s mesh (nothing without one):
+    the forward's mesh keywords, this rank's rows of a global batch, its
+    piece of a fresh cache, and the whole logits."""
+
+    def __init__(self, cfg: ModelConfig, parallel):
+        self.cfg, self.parallel = cfg, parallel
+        tp = par.tp_size(parallel)
+        if tp > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
+            raise NotImplementedError(
+                f"serving the {cfg.family!r} family over a model axis of {tp} "
+                "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
+                "queue 1 #5c")
+        self.kw = {"parallel": parallel} if tp > 1 else {}
+
+    def _entry(self, batch: int):
+        axes = self.parallel.batch_axes(batch)
+        return axes if len(axes) > 1 else (axes[0] if axes else None)
+
+    def rows(self, x: torch.Tensor) -> torch.Tensor:
+        """This rank's rows of a global ``x`` [B, ...]."""
+        if self.parallel is None:
+            return x
+        spec = (self._entry(x.shape[0]),) + (None,) * (x.ndim - 1)
+        return par.shard_tensor(x, spec, self.parallel.mesh)
+
+    def init_cache(self, fam, batch: int, max_seq: int, dtype, device) -> dict:
+        """A fresh cache of ``batch`` rows, this rank's piece of it."""
+        cfg, ctx = self.cfg, self.parallel
+        if ctx is None:
+            return fam.init_cache(cfg, batch, max_seq, dtype, device=device)
+        whole = fam.init_cache(cfg, batch, max_seq, dtype, device="meta")
+        for leaf, spec in _leaves(whole, par.cache_specs(ctx, whole)):
+            if leaf.ndim == 5 and leaf.shape[2] >= leaf.shape[3] and spec[2] is not None:
+                raise NotImplementedError(
+                    f"a KV cache of {batch} rows on mesh {dict(ctx.mesh.shape)} would "
+                    f"split its sequence ({spec}); the sequence-split cache waits for "
+                    "ROADMAP queue 1 #5c")
+        local = cfg
+        if self.kw:
+            from repro_torch.models.layers import cache_heads
+
+            local = dataclasses.replace(cfg, n_kv_heads=cache_heads(cfg, ctx)[1])
+        n = ctx.mesh.axis_size(par.spec_axes(self._entry(batch)))
+        return fam.init_cache(local, batch // n, max_seq, dtype, device=device)
+
+    def logits(self, fam, params, h, batch: int) -> torch.Tensor:
+        """The logits of this rank's rows, put back whole: every vocab
+        column and every row of the global batch."""
+        out = fam.logits(self.cfg, params, h, **self.kw)
+        if self.parallel is None:
+            return out
+        from repro_torch.models.layers import vocab_split
+
+        vocab = self.parallel.tp_axis if vocab_split(self.cfg, self.parallel) else None
+        spec = (self._entry(batch),) + (None,) * (out.ndim - 2) + (vocab,)
+        return par.gather_tensor(out, spec, self.parallel.mesh)
+
+
 def make_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="bfloat16",
-                      cache_dtype="bfloat16"):
+                      cache_dtype="bfloat16", parallel=None):
     """prefill(params, {"tokens": [B, S]}) -> (cache, logits [B, 1, vocab]);
     the encoder-decoder also takes ``"frames"`` [B, T_enc, d]."""
     fam = get_family(cfg.family)
     dt, cdt = torch_dtype(compute_dtype), torch_dtype(cache_dtype)
+    mesh = _Mesh(cfg, parallel)
 
     @torch.no_grad()
     def prefill(params, batch):
         tokens = _on(params, batch["tokens"])
-        cache = fam.init_cache(cfg, tokens.shape[0], max_seq, cdt, device=tokens.device)
-        extra = {"frames": _on(params, batch["frames"]).to(dt)} if "frames" in batch else {}
-        h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt,
-                               **extra)
-        return cache, fam.logits(cfg, params, h[:, -1:, :])
+        B = tokens.shape[0]
+        cache = mesh.init_cache(fam, B, max_seq, cdt, tokens.device)
+        extra = ({"frames": mesh.rows(_on(params, batch["frames"]).to(dt))}
+                 if "frames" in batch else {})
+        h, cache = fam.forward(cfg, params, mesh.rows(tokens), pos0=0, cache=cache,
+                               compute_dtype=dt, **extra, **mesh.kw)
+        return cache, mesh.logits(fam, params, h[:, -1:, :], B)
 
     return prefill
 
 
-def make_decode_step(cfg: ModelConfig, compute_dtype="bfloat16"):
+def make_decode_step(cfg: ModelConfig, compute_dtype="bfloat16", parallel=None):
     """decode(params, cache, tokens [B, 1], pos scalar) -> (cache, logits)."""
     fam = get_family(cfg.family)
     dt = torch_dtype(compute_dtype)
+    mesh = _Mesh(cfg, parallel)
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
-        h, cache = fam.forward(cfg, params, _on(params, tokens), pos0=pos, cache=cache,
-                               compute_dtype=dt)
-        return cache, fam.logits(cfg, params, h)
+        tokens = _on(params, tokens)
+        h, cache = fam.forward(cfg, params, mesh.rows(tokens), pos0=pos, cache=cache,
+                               compute_dtype=dt, **mesh.kw)
+        return cache, mesh.logits(fam, params, h, tokens.shape[0])
 
     return decode
 
 
 def make_bucket_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="float32",
-                             cache_dtype="float32", schedules=None, machine=None):
+                             cache_dtype="float32", parallel=None, schedules=None,
+                             machine=None):
     """``prefill(params, tokens [B, S_bucket], lengths [B]) ->
     (cache, logits [B, vocab])`` for ragged prompts padded to a bucket.
 
@@ -119,23 +211,26 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="floa
     can scatter rows straight into its slot pool."""
     fam = get_family(cfg.family)
     dt, cdt = torch_dtype(compute_dtype), torch_dtype(cache_dtype)
+    mesh = _Mesh(cfg, parallel)
     _check_schedules(schedules, machine)
 
     @torch.no_grad()
     def prefill(params, tokens, lengths):
         tokens, lengths = _on(params, tokens), _on(params, lengths)
         B, S = tokens.shape
-        cache = fam.init_cache(cfg, B, max_seq, cdt, device=tokens.device)
-        h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt)
+        cache = mesh.init_cache(fam, B, max_seq, cdt, tokens.device)
+        tokens, lengths = mesh.rows(tokens), mesh.rows(lengths)
+        h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt,
+                               **mesh.kw)
         last = (lengths.long() - 1).clamp(0, S - 1)
-        h_last = h[torch.arange(B, device=h.device), last]  # [B, d]
-        return cache, fam.logits(cfg, params, h_last[:, None, :])[:, 0]
+        h_last = h[torch.arange(h.shape[0], device=h.device), last]  # [B_loc, d]
+        return cache, mesh.logits(fam, params, h_last[:, None, :], B)[:, 0]
 
     return prefill
 
 
-def make_slot_decode_step(cfg: ModelConfig, compute_dtype="float32", schedules=None,
-                          machine=None):
+def make_slot_decode_step(cfg: ModelConfig, compute_dtype="float32", parallel=None,
+                          schedules=None, machine=None):
     """``decode(params, cache, tokens [B], pos [B]) ->
     (cache, logits [B, vocab])`` with a *per-slot* position.
 
@@ -152,15 +247,17 @@ def make_slot_decode_step(cfg: ModelConfig, compute_dtype="float32", schedules=N
     fam = get_family(cfg.family)
     dt = torch_dtype(compute_dtype)
     per_slot = getattr(fam, "slot_decode_kwargs", {})
+    mesh = _Mesh(cfg, parallel)
     _check_schedules(schedules, machine)
 
     @torch.no_grad()
     def decode(params, cache, tokens, pos):
-        tokens = _on(params, tokens).to(torch.int32)[:, None]
-        pos = _on(params, pos).to(torch.int32)
-        h, cache = fam.forward(cfg, params, tokens, pos0=pos, cache=cache, compute_dtype=dt,
-                               **per_slot)
-        return cache, fam.logits(cfg, params, h)[:, 0]
+        tokens = _on(params, tokens).to(torch.int32)
+        B = tokens.shape[0]
+        pos = mesh.rows(_on(params, pos).to(torch.int32))
+        h, cache = fam.forward(cfg, params, mesh.rows(tokens)[:, None], pos0=pos, cache=cache,
+                               compute_dtype=dt, **per_slot, **mesh.kw)
+        return cache, mesh.logits(fam, params, h, B)[:, 0]
 
     return decode
 

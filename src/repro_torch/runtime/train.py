@@ -11,8 +11,8 @@ of the batch over the data axes, in one of two ways:
 * FSDP (``grad_specs``, the token families, as the JAX package's launcher
   shards them): each rank holds its shard of the parameters and of AdamW's
   moments under the specs; the step gathers each parameter over the data
-  axes only, runs the loss (the dense family tensor-parallel over the
-  model axis), reduce-scatters the gradients back to the specs and runs
+  axes only, runs the loss (the dense family and the MoE tensor-parallel
+  over the model axis), reduce-scatters the gradients back to the specs and runs
   AdamW on the shards.
 
 Both are the same function of the global batch as one device.
@@ -41,8 +41,9 @@ from repro_torch.runtime import parallel as par
 
 
 # The families that run over a model axis above 1: the dense family
-# tensor-parallel, the cnn replicating its step over it.
-MODEL_AXIS_FAMILIES = ("dense", "transformer", "cnn")
+# tensor-parallel, the MoE expert-parallel or TP-within-expert, the cnn
+# replicating its step over it.
+MODEL_AXIS_FAMILIES = ("dense", "transformer", "moe", "cnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,20 +110,23 @@ def make_loss_fn(cfg: ModelConfig, tcfg: TrainConfig, parallel=None):
     family's plain forward (``frames`` passed on where the batch has them)
     and the chunked cross-entropy, as in the JAX package.  ``parallel``
     reaches a family's hook (the cnn, the dense transformer); the generic
-    loss runs on this rank's data shard alone (a model axis of 1: each
-    data rank's MoE dispatches its own tokens, as the JAX package's
-    ``shard_map`` does)."""
+    loss runs on this rank's data shard (each data rank's MoE dispatches
+    its own tokens, as the JAX package's ``shard_map`` does) and, over a
+    model axis above 1, passes ``parallel`` to the forward and the
+    vocab-parallel cross-entropy."""
     fam = get_family(cfg.family)
     hook = getattr(fam, "make_loss_fn", None)
     if hook is not None:
         return hook(cfg, tcfg) if parallel is None else hook(cfg, tcfg, parallel)
     dt = getattr(torch, tcfg.compute_dtype)
+    mesh_kw = {"parallel": parallel} if par.tp_size(parallel) > 1 else {}
 
     def loss_fn(params, batch):
         extra = {"frames": batch["frames"].to(dt)} if "frames" in batch else {}
         h, _ = fam.forward(cfg, params, batch["tokens"], remat=tcfg.remat,
-                           compute_dtype=dt, **extra)
-        return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks)
+                           compute_dtype=dt, **extra, **mesh_kw)
+        return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks,
+                          **mesh_kw)
 
     return loss_fn
 
@@ -249,14 +253,14 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None,
     the state's parameters and moments are this rank's shards under them:
     the FSDP step (:func:`fsdp_loss_and_grads`), then AdamW on the shards
     with the whole tree's clip.  Either way the same function of the
-    global batch.  Over a model axis above 1 only the dense family runs
-    (tensor-parallel); the others, and ``int8_ef`` on shards, wait for
-    ROADMAP queue 1 #5c."""
+    global batch.  Over a model axis above 1 the dense family and the MoE
+    run (:data:`MODEL_AXIS_FAMILIES`); the recurrent and encoder-decoder
+    families, and ``int8_ef`` on shards, wait for ROADMAP queue 1 #5c."""
     if par.tp_size(parallel) > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
         raise NotImplementedError(
-            f"the {cfg.family!r} family over a model axis of {parallel.tp_size} (expert "
-            "parallelism, tensor-parallel recurrent and encoder-decoder blocks) waits "
-            "for ROADMAP queue 1 #5c")
+            f"the {cfg.family!r} family over a model axis of {parallel.tp_size} "
+            "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
+            "queue 1 #5c")
     if grad_specs is not None and tcfg.grad_compression == "int8_ef":
         raise NotImplementedError("int8_ef compression of sharded gradients waits for "
                                   "ROADMAP queue 1 #5c")

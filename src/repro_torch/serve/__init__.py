@@ -1,9 +1,11 @@
-"""repro_torch.serve — planned inference serving on one device.
+"""repro_torch.serve — planned inference serving.
 
 The autotune cache as a serving artifact: a :class:`BucketLadder` of
-pre-planned (batch, seq) shapes resolved once at warmup, a continuous-
-batching :class:`Engine` over a KV slot pool, and a load generator with a
-deterministic modeled-time mode.
+pre-planned (batch, seq) shapes resolved once at warmup (on a mesh, to
+ShardedSchedules), a continuous-batching :class:`Engine` over a KV slot
+pool on one device, and a load generator with a deterministic
+modeled-time mode.  The step builders of ``runtime/serve.py`` serve on a
+mesh; the engine does not yet.
 """
 
 from repro_torch.serve.bucket import Bucket, BucketLadder, bucket_cells

@@ -1,5 +1,5 @@
 """Bucket ladder: the serving plan artifact — the JAX package's
-``serve/bucket.py`` on one device.
+``serve/bucket.py``.
 
 A server sees arbitrary (batch, prompt-length) request shapes, but the
 paper's whole argument is that the winning blocking schedule is
@@ -20,8 +20,10 @@ small ladder of pre-planned (batch, seq) buckets:
     service-time model (:meth:`modeled_seconds`) — what the virtual-clock
     load generator advances by.
 
-A mesh of more than one device raises: sharded serving comes with the
-sharded planner paths.
+On a mesh (``mesh=``, a MeshSpec), cells resolve to ``ShardedSchedule``s
+(the planner's partition argmin per bucket shape) the same way; under
+"tune" a multi-device candidate is timed on a live ``run_mesh`` or through
+its per-device proxy (``plan.autotune``), every rank alike.
 """
 
 from __future__ import annotations
@@ -86,10 +88,6 @@ class BucketLadder:
     def __init__(self, buckets, *, max_seq: int,
                  machine: MachineModel = H100, mesh=None,
                  axis: str = "model", in_bytes: int = 4):
-        if mesh is not None and mesh.devices != 1:
-            raise ValueError(
-                f"BucketLadder serves on one device; mesh {mesh.axes} has "
-                f"{mesh.devices} (sharded serving is not ported yet)")
         rungs = sorted({b if isinstance(b, Bucket) else Bucket(*b)
                         for b in buckets}, key=lambda b: (b.seq, b.batch))
         if not rungs:
@@ -134,19 +132,22 @@ class BucketLadder:
     # -- warmup resolution -------------------------------------------------
 
     def warmup(self, cfg: ModelConfig, *, policy: str | None = None,
-               cache=None, dtype=torch.float32, device=None) -> dict[Bucket, dict]:
+               cache=None, dtype=torch.float32, device=None,
+               run_mesh=None) -> dict[Bucket, dict]:
         """Resolve every bucket's cells once through the autotune cache
         (``plan.autotune.warm``; under policy "tune" a miss is timed on
-        ``device``, the card unless set).  Returns ``sources``: per bucket,
-        each cell's resolution provenance ("cached" / "tuned" /
-        "modeled").  The policy defaults to the process-wide one
-        (``autotune.set_policy``), so callers name it."""
+        ``device``, the card unless set, and a multi-device candidate on
+        ``run_mesh`` or through its per-device proxy).  Returns
+        ``sources``: per bucket, each cell's resolution provenance
+        ("cached" / "tuned" / "modeled").  The policy defaults to the
+        process-wide one (``autotune.set_policy``), so callers name it."""
         self._n_layers = cfg.n_layers
         for b in self.buckets:
             cells = bucket_cells(cfg, b, self.max_seq, self.in_bytes)
             plans, sources = autotune.warm(
                 cells, machine=self.machine, mesh=self.mesh, axis=self.axis,
-                policy=policy, cache=cache, dtype=dtype, device=device)
+                policy=policy, cache=cache, dtype=dtype, device=device,
+                run_mesh=run_mesh)
             self.plans[b] = plans
             self.sources[b] = sources
         return self.sources

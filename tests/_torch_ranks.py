@@ -696,10 +696,156 @@ def case_token_elastic(rank: int, world: int, out: Path, args: dict) -> None:
         "ref_losses": [h["loss"] for h in ref]}))
 
 
+# -- the MoE on a mesh ---------------------------------------------------------------
+
+SERVE_LENGTHS = [16, 9, 3, 12]  # the bucket prefill's true prompt lengths (of 16)
+SERVE_MAX_SEQ = 32
+
+
+def serve_inputs(cfg) -> dict:
+    """The serving builders' inputs: step 0's tokens of the seeded source."""
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.registry import make_data_source
+
+    return make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)(0)
+
+
+def serve_builders(sv, cfg, params, toks, parallel, lift=lambda x: x) -> dict:
+    """The four step builders on ``toks`` [4, 17+]: prefill of 16 tokens,
+    a decode at 16, a bucket prefill of SERVE_LENGTHS, a slot decode at
+    those lengths; each one's logits and cache, copied to numpy as it
+    came back (the port writes a cache in place; ``lift`` puts an input
+    where the builders take it)."""
+    import numpy as np
+
+    out = {}
+
+    def keep(tag, cache, logits):
+        out[f"{tag}.logits"] = np.array(logits)
+        out.update({f"{tag}.cache.{k}": np.array(v) for k, v in cache.items()})
+        return cache
+
+    cache = keep("prefill", *sv.make_prefill_step(
+        cfg, SERVE_MAX_SEQ, "float32", "float32", parallel=parallel)(
+        params, {"tokens": lift(toks[:, :16])}))
+    keep("decode", *sv.make_decode_step(cfg, "float32", parallel=parallel)(
+        params, cache, lift(toks[:, 16:17]), 16))
+    lengths = lift(SERVE_LENGTHS)
+    cache = keep("bucket", *sv.make_bucket_prefill_step(cfg, SERVE_MAX_SEQ, parallel=parallel)(
+        params, lift(toks[:, :16]), lengths))
+    keep("slot", *sv.make_slot_decode_step(cfg, parallel=parallel)(
+        params, cache, lift(toks[:, 16]), lengths))
+    return out
+
+
+def case_moe_mesh(rank: int, world: int, out: Path, args: dict) -> None:
+    """A MoE config (``args["arch"]``'s smoke config with ``args["changes"]``)
+    on ``args["mesh"]`` from the carried weights: the launcher's 3 losses,
+    the FSDP step's step-1 loss and gradients, and the four serving step
+    builders on parameters placed by their specs' model axis (each rank's
+    logits whole, its cache piece with the rows and KV heads it holds)."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.launch import train as launch
+    from repro_torch.models import layers as ll
+    from repro_torch.models.module import param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import serve as sv
+    from repro_torch.runtime import train as tr
+
+    _carry_init(launch, out)
+    changes, mesh = args["changes"], args["mesh"]
+    real = launch.smoke_config
+    launch.smoke_config = lambda arch: dataclasses.replace(real(arch), **changes)
+    argv = ["--arch", args["arch"], "--smoke", "--mesh", mesh, *TOKEN_ARGV]
+    res = {"losses": np.array([h["loss"] for h in launch.main(argv)])}
+    cfg = dataclasses.replace(smoke_config(args["arch"]), **changes)
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                       remat="none")
+    ctx = _mesh_ctx(mesh)
+    params = params_from_repro(dict(np.load(out / "init.npz")), device="cpu")
+    toks = serve_inputs(cfg)
+    loss, grads = _step1(cfg, tcfg, ctx, params, tr.batch_to(toks, torch.device("cpu")))
+    res["loss1"] = np.array(loss)
+    res.update({f"grad.{k}": g for k, g in grads.items()})
+    specs = param_specs(get_family(cfg.family).param_defs(cfg))
+    placed = {k: par.shard_tensor(v, specs[k], ctx.mesh, axes=(ctx.tp_axis,))
+              for k, v in params.items()}
+    res.update(serve_builders(sv, cfg, placed, torch.from_numpy(toks["tokens"]), ctx))
+    rows = ctx.batch_axes(4)
+    n = ctx.mesh.axis_size(rows) if rows else 1
+    i = ctx.mesh.axis_index(rows) if rows else 0
+    res["rows"] = np.array([i * (4 // n), 4 // n])
+    res["heads"] = np.array(ll.cache_heads(cfg, ctx))
+    np.savez(out / f"moe_rank{rank}.npz", **res)
+
+
+def case_tune_agree(rank: int, world: int, out: Path, args: dict) -> None:
+    """``autotune.tune`` of multi-device matmul cells on a ("model",) mesh
+    with stopwatches that disagree (rank 0's times fall candidate by
+    candidate, the others' rise), through the per-device proxies and on
+    the live mesh (every candidate's ``op.sharded`` run once: a
+    collective); the same cell again (a cache hit), and a BucketLadder of
+    the smoke MoE warmed under "tune" on the mesh.  Every rank shares one
+    cache file and writes what it took."""
+    import dataclasses
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.core.machine import H100
+    from repro_torch.plan import autotune as at
+    from repro_torch.plan.sharded import MeshSpec, local_schedule
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.serve.bucket import BucketLadder
+
+    mesh = coll.Mesh((world,), ("model",))
+    ms = MeshSpec((("model", world),))
+    cache = at.AutotuneCache(str(out / "cache.json"))
+    seen = []
+
+    def stopwatch(fn, iters=3, warmup=1, device=None):
+        del iters, warmup, device
+        fn()
+        seen.append(len(seen))
+        return float(100 - len(seen)) if rank == 0 else float(len(seen))
+
+    at._measure = stopwatch
+
+    def pick(s):
+        return [s.strategy, dict(local_schedule(s).blocks)]
+
+    rec = {}
+    for tag, run_mesh, shape in (("proxy", None, dict(m=16, n=64, k=32, in_bytes=4)),
+                                 ("live", mesh, dict(m=32, n=64, k=32, in_bytes=4))):
+        rep = at.tune("matmul", machine=H100, mesh=ms, axis="model", cache=cache,
+                      run_mesh=run_mesh, device="cpu", **shape)
+        again = at.tune("matmul", machine=H100, mesh=ms, axis="model", cache=cache,
+                        run_mesh=run_mesh, device="cpu", **shape)
+        rec[tag] = {"winner": pick(rep.schedule), "cached": [rep.cached, again.cached],
+                    "again": pick(again.schedule),
+                    "measured": [list(m) for m in rep.measurements]}
+    cfg = dataclasses.replace(smoke_config("qwen3-moe-235b-a22b"), n_layers=1)
+    ladder = BucketLadder([(2, 8)], max_seq=16, mesh=ms)
+    sources = ladder.warmup(cfg, policy="tune", cache=cache, device="cpu", run_mesh=mesh)
+    b = ladder.buckets[0]
+    rec["ladder"] = {"plans": {k: pick(v) for k, v in sorted(ladder.plans[b].items())},
+                     "sources": dict(sorted(sources[b].items())),
+                     "words": [ladder.modeled_words(b, "prefill"),
+                               ladder.modeled_words(b, "decode")]}
+    rec["timed"] = len(seen)
+    (out / f"tune_rank{rank}.json").write_text(json.dumps(rec))
+
+
 CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": case_elastic,
          "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts,
          "tokens": case_tokens, "seqp": case_seqp, "token_ckpt": case_token_ckpt,
-         "token_elastic": case_token_elastic}
+         "token_elastic": case_token_elastic, "moe_mesh": case_moe_mesh,
+         "tune_agree": case_tune_agree}
 
 
 def main() -> int:

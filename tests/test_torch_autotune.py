@@ -498,3 +498,108 @@ def test_smoke_cli_on_the_cpu(capsys):
     labels = [ln.split(",")[0] for ln in out.splitlines() if ln.startswith("conv2d:")]
     assert any(lbl.startswith("conv2d:im2col:") for lbl in labels)
     assert any(lbl.startswith("conv2d:{") for lbl in labels)
+
+
+# -- multi-device candidates: the per-device proxies, the live mesh, rank agreement ----
+
+PROXY_CELLS = [("matmul", dict(m=64, n=256, k=512, in_bytes=4), ("batch", "psum", "ring", "tp")),
+               ("conv2d", dict(TINY_CONV, batch=8), ("batch", "stack"))]
+
+
+def _mesh_pair(op, shape, strategy, machine, jmachine, devices=4):
+    from repro.plan import MeshSpec as JMeshSpec
+    from repro_torch.plan import MeshSpec
+
+    got = planner_for(op, machine, MeshSpec((("model", devices),)), "model",
+                      strategy).plan(**shape)
+    want = j_planner_for(op, jmachine, JMeshSpec((("model", devices),)), "model",
+                         strategy).plan(**shape)
+    return got, want
+
+
+@pytest.mark.parametrize("machine,jmachine", [(MANTICORE, J_MANTICORE),
+                                              (TPU_V5E, J_TPU_V5E)], ids=["manticore", "v5e"])
+@pytest.mark.parametrize("op,shape,strategies", PROXY_CELLS, ids=["matmul", "conv2d"])
+def test_proxy_operands_equal_repros(op, shape, strategies, machine, jmachine):
+    """Each partition's proxy slices what ``repro``'s does (one device's
+    shard), and the ring's is one (K/P, N/P) chunk step run P times with
+    its block_k clamped to the chunk."""
+    arrays, _ = at.synthesize(op, shape, torch.float32, "cpu")
+    for st in strategies:
+        ss, jss = _mesh_pair(op, shape, st, machine, jmachine)
+        assert ss.strategy == jss.strategy == st
+        got, seq, sched = at._proxy_operands(op, ss, arrays)
+        want, jseq, jsched = jat._proxy_operands(op, jss, tuple(a.numpy() for a in arrays))
+        assert seq == jseq == (4 if st == "ring" else 1)
+        assert [tuple(a.shape) for a in got] == [tuple(a.shape) for a in want]
+        for a, b in zip(got, want):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert dataclasses.asdict(sched) == dataclasses.asdict(jsched)
+
+
+def test_ring_proxy_aligns_its_clamped_block_to_the_lane():
+    from repro_torch.plan import MeshSpec
+
+    shape = dict(m=16, n=64, k=96, in_bytes=4)
+    ss = planner_for("matmul", H100, MeshSpec((("model", 4),)), "model", "ring").plan(**shape)
+    arrays, _ = at.synthesize("matmul", shape, torch.float32, "cpu")
+    (x, w), seq, sched = at._proxy_operands("matmul", ss, arrays, H100.lane)
+    assert (tuple(x.shape), tuple(w.shape), seq) == ((16, 24), (24, 16), 4)
+    assert sched.block("block_k") == 24 and sched.block("block_k") % H100.lane == 0
+
+
+def test_the_ici_term_rides_on_the_proxy_time(cache, monkeypatch):
+    """A multi-device candidate without a live mesh costs its proxy's
+    time (times P for the ring) plus ``ici_words x word / link_bw``."""
+    from repro_torch.plan import MeshSpec
+
+    shape = dict(m=64, n=256, k=512, in_bytes=4)
+    arrays, params = at.synthesize("matmul", shape, torch.float32, "cpu")
+    monkeypatch.setattr(at, "_measure", lambda fn, *a, **kw: 10.0)
+    for st in ("batch", "psum", "ring", "tp"):
+        ss = planner_for("matmul", H100, MeshSpec((("model", 4),)), "model", st).plan(**shape)
+        ici = ss.ici_words * 4 / H100.link_bw * 1e6
+        assert at.ici_us(ss, 4, H100) == ici
+        assert H100.link_bw == 450e9 and (ici > 0) == (st != "batch")
+        got = at._time_candidate(get_op("matmul"), arrays, params, ss, H100, None, 3, 1)
+        assert got == 10.0 * (4 if st == "ring" else 1) + ici
+
+
+def test_tune_of_a_mesh_cell_times_every_partition(cache, monkeypatch):
+    from repro_torch.plan import MeshSpec
+
+    shape = dict(m=64, n=256, k=512, in_bytes=4)
+    ms = MeshSpec((("model", 4),))
+    n = len(planner_for("matmul", H100, ms, "model").candidates(**shape)[:4])
+    monkeypatch.setattr(at, "_measure", _fake_measure([float(n - i) for i in range(n)]))
+    rep = at.tune("matmul", machine=H100, mesh=ms, axis="model", cache=cache, device="cpu",
+                  **shape)
+    labels = [m[0] for m in rep.measurements]
+    assert len(labels) == n and rep.schedule.strategy == labels[-1].split(":")[0]
+    assert at.lookup("matmul", shape, machine=H100, mesh=ms, axis="model", cache=cache,
+                     dtype=torch.float32).strategy == rep.schedule.strategy
+
+
+def test_ranks_agree_on_one_winner(tmp_path):
+    """Two gloo ranks whose stopwatches disagree take rank 0's winner
+    through the proxies and on the live mesh (each candidate's
+    ``op.sharded`` a collective both run), replay it from the shared
+    cache, and warm one BucketLadder of the smoke MoE alike."""
+    sys.path.insert(0, os.path.join(ROOT, "tests"))
+    from _torch_ranks import run_ranks
+
+    run_ranks("tune_agree", 2, tmp_path, timeout=120)
+    recs = [json.loads((tmp_path / f"tune_rank{r}.json").read_text()) for r in range(2)]
+    assert recs[0] == recs[1]
+    for tag in ("proxy", "live"):
+        r = recs[0][tag]
+        times = [m[1] for m in r["measured"]]
+        assert len(times) > 1 and times == sorted(times, reverse=True)  # rank 0's script
+        assert r["winner"][0] == r["measured"][-1][0].split(":")[0]
+        assert r["cached"] == [False, True] and r["again"] == r["winner"]
+    lad = recs[0]["ladder"]
+    # prefill.logits and decode.logits are one cell (m = the bucket's rows)
+    assert "tuned" in lad["sources"].values() and set(lad["sources"].values()) <= {
+        "tuned", "cached"}
+    assert {p[0] for p in lad["plans"].values()} <= {"single", "batch", "psum", "ring", "tp"}
+    assert all(w > 0 for w in lad["words"])

@@ -8,8 +8,9 @@ Ports ``tests/test_transformer_plan.py``'s ``TestBlockPlannerDelegation``
 and ``test_block_planner_quadrant_picks`` and holds each result against
 ``repro``'s field for field (words exact) on MANTICORE and TPU_V5E, on one
 device and on the paper's 16-cluster quadrant ``MeshSpec((("cluster",
-16),))``.  A MoE cell over a mesh of more than one device raises (ROADMAP
-queue 1 #5c); the launched head dim (``head_dim=``) stays.
+16),))``, the MoE cell on a mesh included (its "batch"/"ep" partitions;
+on the H100 a cell with no fitting candidate is a ``PlanRejected``); the
+launched head dim (``head_dim=``) stays.
 """
 
 from __future__ import annotations
@@ -132,9 +133,20 @@ class TestBlockPlannerDelegation:
         assert {"tp", "batch"} <= strategies
 
     def test_moe_cell_on_a_mesh_raises(self):
-        tb = tp.TransformerBlockPlanner(tm.MANTICORE, ts.MeshSpec(QUAD), "cluster")
-        with pytest.raises(NotImplementedError, match="#5c"):
-            tb.plan(**SHAPE, n_experts=8, top_k=2)
+        """The MoE cell on a mesh plans its partitions, equal to the JAX
+        package's; on the H100 only an unfit cell raises, and then
+        ``PlanRejected``, never ``NotImplementedError``."""
+        got = tp.TransformerBlockPlanner(tm.MANTICORE, ts.MeshSpec(QUAD), "cluster").plan(
+            **SHAPE, n_experts=8, top_k=2)
+        want = jp.TransformerBlockPlanner(jm.MANTICORE, js.MeshSpec(QUAD), "cluster").plan(
+            **SHAPE, n_experts=8, top_k=2)
+        assert got["moe"].strategy == want["moe"].strategy
+        assert got["moe"].modeled_words == want["moe"].modeled_words
+        h100 = tp.TransformerBlockPlanner(tm.H100, ts.MeshSpec(QUAD), "cluster")
+        assert h100.plan(**SHAPE, n_experts=8, top_k=2)["moe"].devices == 16
+        with pytest.raises(tp.PlanRejected):
+            tp.MoeFfnPlanner(tm.H100, ts.MeshSpec(QUAD), "cluster").candidates(
+                tokens=64, d_model=8192, d_ff=8192, n_experts=16, top_k=2, block_n=8192)
 
 
 @pytest.mark.parametrize("machines", MACHINES, ids=MACHINE_IDS)

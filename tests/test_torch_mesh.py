@@ -274,18 +274,19 @@ def test_parse_mesh_equals_repro(spec):
 
 
 def test_launcher_mesh_for_a_token_family_raises():
-    """The token families train on a mesh now; a family other than the
-    dense one over a model axis above 1 still raises, before any rank
-    starts."""
+    """The token families train on a mesh now; a recurrent family over a
+    model axis above 1 still raises, before any rank starts (the dense
+    family and the MoE run there)."""
     with pytest.raises(NotImplementedError, match="5c"):
-        tlaunch.main(["--family", "moe", "--device", "cpu", "--steps", "1",
+        tlaunch.main(["--family", "rwkv6", "--device", "cpu", "--steps", "1",
                       "--mesh", "1x2"])
 
 
 def test_op_plan_sharded_keys_autotune_by_strategy(tmp_path):
     """``CudaOp.plan_sharded`` plans through the mesh-bound planner; the
     autotune key carries mesh, axis and strategy (a cached winner replays
-    its strategy), and timing a multi-device candidate raises."""
+    its strategy), and a multi-device cell is timed through its per-device
+    proxies (no live mesh) into a cached sharded winner."""
     import torch
 
     from repro_torch.plan import autotune as at
@@ -309,9 +310,13 @@ def test_op_plan_sharded_keys_autotune_by_strategy(tmp_path):
     hit = at.lookup("matmul", shape, machine=tm.H100, mesh=ms, axis="model",
                     strategy="psum", cache=cache, dtype=torch.float32)
     assert hit.strategy == "psum"
-    with pytest.raises(NotImplementedError, match="5c"):
-        at.tune("matmul", machine=tm.H100, mesh=ms, axis="model", cache=cache,
-                device="cpu", **shape)
+    small = dict(m=16, n=64, k=32, in_bytes=4)
+    rep = at.tune("matmul", machine=tm.H100, mesh=ms, axis="model", cache=cache,
+                  device="cpu", iters=1, warmup=0, **small)
+    assert not rep.cached and rep.schedule.devices == 2
+    assert {m[0].split(":")[0] for m in rep.measurements} <= {"batch", "psum", "ring", "tp"}
+    assert at.lookup("matmul", small, machine=tm.H100, mesh=ms, axis="model", cache=cache,
+                     dtype=torch.float32).strategy == rep.schedule.strategy
 
 
 def test_port_imports_no_jax_for_the_mesh_modules():

@@ -215,10 +215,10 @@ def test_one_device_mesh_degenerates_and_more_devices_raise():
     ss = tp.MatmulPlanner(tm.H100, MeshSpec((("model", 1),))).plan(**shape)
     assert ss.schedule == local and ss.strategy == "single"
     assert ss.modeled_words == local.modeled_words
-    # Four devices plan the matmul's partitions (tests/test_torch_mesh.py);
-    # the MoE's wait for its expert parallelism and raise.
+    # Four devices plan the matmul's partitions (tests/test_torch_mesh.py)
+    # and the MoE's ("batch" and "ep"; tests/test_torch_moe_plan.py).
     ss4 = tp.MatmulPlanner(tm.H100, MeshSpec((("model", 4),))).plan(**shape)
     assert ss4.devices == 4 and ss4.strategy in ("batch", "psum", "ring", "tp")
-    with pytest.raises(NotImplementedError, match="5c"):
-        tp.MoeFfnPlanner(tm.H100, MeshSpec((("model", 4),))).plan(
-            tokens=64, d_model=32, d_ff=64, n_experts=4)
+    moe4 = tp.MoeFfnPlanner(tm.H100, MeshSpec((("model", 4),))).plan(
+        tokens=64, d_model=32, d_ff=64, n_experts=4)
+    assert moe4.devices == 4 and moe4.strategy in ("batch", "ep")

@@ -15,8 +15,9 @@ checks, with rows dropped in its bucket prefills; its slot decode
 dispatches each slot alone, as ``repro``'s vmap of a batch-1 forward does
 (a bucketed engine's MoE tokens need not equal ``greedy_generate``'s:
 which rows an expert drops depends on the tokens dispatched with them).
-The mesh case of ``tests/test_serve.py`` has no counterpart: the port
-serves on one device, and a mesh raises.
+The mesh case of ``tests/test_serve.py`` is ported: a ladder on a mesh
+resolves ShardedSchedules, with ``repro``'s strategies and modeled words
+(serving on gloo ranks is ``tests/test_torch_moe_mesh.py``).
 
 Tolerances (f32): logits and caches within 1e-5 * max(1, max |ref|) (the
 same function with the sums in another order; the MoE's within 1e-4, as
@@ -306,8 +307,29 @@ class TestBucketLadder:
                 assert lad.modeled_seconds(b, phase) == jlad.modeled_seconds(jb, phase)
 
     def test_mesh_of_more_than_one_device_raises(self):
-        with pytest.raises(ValueError, match="one device"):
-            BucketLadder([(2, 8)], max_seq=16, mesh=MeshSpec((("model", 4),)))
+        """A mesh of more than one device no longer raises: its cells
+        resolve to ShardedSchedules, and on TPU_V5E each strategy and the
+        modeled words equal ``repro``'s (``test_warmup_on_mesh_resolves_
+        sharded_schedules`` of ``tests/test_serve.py``)."""
+        from repro.plan import MeshSpec as JMeshSpec
+        from repro.plan import ShardedSchedule as JSharded
+        from repro_torch.plan import ShardedSchedule
+
+        cfg, jcfg = smoke_config("qwen3-1.7b"), jax_smoke_config("qwen3-1.7b")
+        lad = BucketLadder([(2, 8)], max_seq=16, mesh=MeshSpec((("model", 4),)),
+                           machine=TPU_V5E)
+        jlad = jserve.BucketLadder([(2, 8)], max_seq=16, mesh=JMeshSpec((("model", 4),)),
+                                   machine=JAX_TPU_V5E)
+        lad.warmup(cfg, policy="off")
+        jlad.warmup(jcfg, policy="off")
+        plans, jplans = lad.plans[Bucket(2, 8)], jlad.plans[jlad.buckets[0]]
+        assert all(isinstance(p, ShardedSchedule) for p in plans.values())
+        assert all(isinstance(p, JSharded) for p in jplans.values())
+        assert {k: (p.strategy, p.modeled_words) for k, p in plans.items()} == {
+            k: (p.strategy, p.modeled_words) for k, p in jplans.items()}
+        for phase in ("prefill", "decode"):
+            assert lad.modeled_words(Bucket(2, 8), phase) == jlad.modeled_words(
+                jlad.buckets[0], phase)
 
 
 # ---------------------------------------------------------------------------

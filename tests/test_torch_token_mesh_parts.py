@@ -10,8 +10,10 @@ against the JAX package, on CPU ranks (as ``test_torch_token_mesh.py``).
   ``repro``'s launcher on 2 devices (capacity couples the tokens of one
   dispatch, so the MoE's reference is ``repro`` on the same mesh), and
   RWKV-6's step-1 gradients against ``jax.grad``.
-* The MoE over a model axis of 2, and the planned forward with query heads
-  that do not split, raise and name ROADMAP queue 1 #5c.
+* The recurrent and encoder-decoder families over a model axis of 2, and
+  the planned forward with query heads that do not split, raise and name
+  ROADMAP queue 1 #5c (the MoE over a model axis is
+  ``tests/test_torch_moe_mesh.py``).
 """
 
 from __future__ import annotations
@@ -156,7 +158,7 @@ def _ctx(data: int, model: int):
     return ParallelCtx(mesh=_Stub({"data": data, "model": model}))
 
 
-@pytest.mark.parametrize("family", ["moe", "rwkv6", "zamba2", "encdec"])
+@pytest.mark.parametrize("family", ["rwkv6", "zamba2", "encdec"])
 def test_other_families_over_a_model_axis_raise_5c(family):
     from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, smoke_config
     from repro_torch.runtime import train as tr
