@@ -374,6 +374,44 @@ The sixteenth slice (after ``moe_serve``):
                rank: call and step ms (events), collective calls, bytes and
                host seconds by kind, peak memory, launches by kernel.
 
+The seventeenth slice (after ``families``):
+
+23. families_mesh — the recurrent and encoder-decoder families on a model
+               axis, and int8_ef on FSDP shards (path ``families_mesh``).
+               Each case's one-device reference first in this process (f32,
+               TF32 off, weights drawn on the card from the seed), then rank
+               processes sharing cuda:0 over gloo (``chip_smoke.py
+               --families-rank``): 4 ranks on 2x2 run the training cases in
+               turn, then 2 ranks on 1x2 the serving cases.  (a) rwkv6-1.6b
+               at full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab
+               65536), its depth of 24 cut to 4 for training: the launcher at
+               4 x 512, 3 AdamW steps; served at full depth, a prefill of
+               2 x 256 and 16 decodes.  (b) zamba2-1.2b likewise, its depth
+               of 38 cut to 7 for training (the shared block runs once); its
+               SSD state [L, B, 64, 64, 64] is what ``cache_specs`` takes for
+               a KV cache, and each rank holds its heads.  (c)
+               seamless-m4t-medium at full width and depth: the FSDP train
+               step on seeded frames batches (4 x 512 tokens, 4 x 512 x 1024
+               frames; its launcher has no frames), served with 2 x 4096 x
+               1024 frames.  (d) qwen1.5-0.5b cut to 4 layers through the
+               launcher with ``--planned-kernels --grad-compression int8_ef``
+               at 4 x 2048.  Checks: the 3 losses within LOSS_TOL relative
+               of the one-device run; the FSDP step-1 loss within 1e-5
+               relative; (d) every f32 gradient shard within TOL x max(1,
+               max|g|), the shards int8_ef compresses them to at most 0.1 %
+               of a tensor's elements (or 2) one quantum from the whole
+               tensor's compression, and each rank's launches a step those
+               of its local plan; (a)-(c) the same step in f64 on the mesh,
+               its loss and every gradient shard within FM_F64_TOL of one
+               device's f64 step (the f32 shards are reported); the plain
+               families launch no kernel; the served streams equal, every
+               step's f32 logits within max(TOL, SPREAD_GATE x the
+               one-device f32 run's distance from f64) of scale (Zamba2's
+               also phase families' spread), and the same steps in f64 on
+               the mesh within FM_F64_TOL of scale of one device's f64
+               logits.  Per rank: step, prefill and decode ms, collectives
+               by kind, peak memory.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
@@ -521,6 +559,18 @@ MOE_TPE_ARCH, MOE_TPE_MESH, MOE_TPE_LAYERS = "grok-1-314b", "1x2", 1  # (b)
 MOE_TPE_PROMPT, MOE_TPE_DECODES = (2, 128), 8  # (b): rows x prompt tokens, decodes
 MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=512, steps=3)  # (c)
 MOE_MESH_TIMEOUT = 900  # seconds a rank process may take
+# Phase families_mesh: RWKV-6, Zamba2, the encoder-decoder and int8_ef on FSDP
+# shards, on meshes of ranks sharing the card.
+FM_TRAIN_MESH, FM_SERVE_MESH = "2x2", "1x2"
+FM_TRAIN = dict(batch=4, seq=512, steps=3, frames=512)  # frames: T_enc of a training batch
+FM_TRAIN_LAYERS = {"rwkv6-1.6b": 4, "zamba2-1.2b": 7}  # depth cuts (seamless: full depth)
+FM_SERVE = dict(rows=2, prompt=256, decodes=16)  # full width and depth
+FM_EF_LAYERS = 4  # (d): qwen1.5-0.5b, 24 layers -> 4, 4 x 2048, planned, int8_ef
+FM_TRAIN_CASES = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium", "ef")
+FM_TIMEOUT = 900  # seconds a rank process may take
+# Of scale: a mesh's f64 step-1 gradients and served logits against one
+# device's f64 ones ((a)-(c); the same sums in another order).
+FM_F64_TOL = 1e-9
 
 
 def tfm_chunks() -> int:
@@ -4444,9 +4494,10 @@ def tokens_argv(mesh: str, steps: int, ckpt: Path | None = None, chaos: str | No
     return argv
 
 
-def tokens_local_launches(tf, kernels, mesh: str) -> dict:
-    """Each kernel's launches one rank makes in a step on ``mesh``: the
-    local plan (``plan_training`` of ``local_config`` at the rank's batch)."""
+def tokens_local_launches(tf, kernels, mesh: str, cfg=None) -> dict:
+    """Each kernel's launches one rank makes in a step of ``cfg`` (default:
+    TFM_ARCH's) on ``mesh``: the local plan (``plan_training`` of
+    ``local_config`` at the rank's batch)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.train import parse_mesh
     from repro_torch.runtime.parallel import ParallelCtx
@@ -4461,7 +4512,7 @@ def tokens_local_launches(tf, kernels, mesh: str) -> dict:
             return 0
 
     ctx = ParallelCtx(mesh=Shape(), dp_axes=axes[:-1])
-    lcfg = tf.local_config(get_config(TFM_ARCH), ctx)
+    lcfg = tf.local_config(cfg or get_config(TFM_ARCH), ctx)
     batch = TFM_BATCH // ctx.dp_size
     plans = tf.plan_training(lcfg, batch, TFM_SEQ, loss_chunks=tfm_chunks())
     return per_kernel(tfm_calls(tf, lcfg, plans, batch=batch), kernels), lcfg
@@ -4711,12 +4762,12 @@ def staggered(torch, fn):
 
 
 def greedy_serve(torch, cfg, params, tokens, lengths, decodes: int, *, parallel=None,
-                 bucket: bool):
-    """A prefill (the bucket prefill of ragged rows, or the whole-batch one)
-    and ``decodes`` greedy decodes (slot decodes at each row's position, or
-    whole-batch decodes at one position): (tokens [rows, decodes + 1], the
-    logits of every step on the host, event ms of each call, the
-    collectives of each call)."""
+                 bucket: bool, frames=None):
+    """A prefill (the bucket prefill of ragged rows, or the whole-batch one,
+    given ``frames`` where the family takes them) and ``decodes`` greedy
+    decodes (slot decodes at each row's position, or whole-batch decodes at
+    one position): (tokens [rows, decodes + 1], the logits of every step on
+    the host, event ms of each call, the collectives of each call)."""
     from repro_torch.runtime import collectives as coll
     from repro_torch.runtime import serve as sv
 
@@ -4745,7 +4796,10 @@ def greedy_serve(torch, cfg, params, tokens, lengths, decodes: int, *, parallel=
     if bucket:
         cache, lg = timed(lambda: prefill(params, tokens, pos))
     else:
-        cache, lg = timed(lambda: prefill(params, {"tokens": tokens}))
+        batch = {"tokens": tokens}
+        if frames is not None:
+            batch["frames"] = torch.from_numpy(frames).cuda()
+        cache, lg = timed(lambda: prefill(params, batch))
         lg = lg[:, -1]
     logits.append(lg.cpu())
     out = [torch.argmax(lg, -1).to(torch.int32)]
@@ -5134,6 +5188,522 @@ def phase_moe_mesh(torch, kernels, results, card) -> None:
     emit(phase="moe_mesh", seconds=time.perf_counter() - t_phase)
 
 
+# -- phase families_mesh: the recurrent and encoder-decoder families on a model axis --
+
+
+def fm_config(case: str):
+    """A case's configuration: (a)-(c) at full width, the training cases
+    cut in depth as FM_TRAIN_LAYERS says ("<arch>" trains, "serve:<arch>"
+    serves at full depth); (d) "ef" qwen1.5-0.5b cut to FM_EF_LAYERS."""
+    from repro_torch.configs import get_config
+
+    if case == "ef":
+        return dataclasses.replace(get_config(TFM_ARCH), n_layers=FM_EF_LAYERS)
+    if case.startswith("serve:"):
+        return get_config(case[len("serve:"):])
+    cfg = get_config(case)
+    return dataclasses.replace(cfg, n_layers=FM_TRAIN_LAYERS.get(case, cfg.n_layers))
+
+
+def fm_tcfg(case: str):
+    ef = case == "ef"
+    return launcher_tcfg(FM_TRAIN["steps"], remat="none", planned_kernels=ef,
+                         grad_compression="int8_ef" if ef else "none")
+
+
+def fm_batch(torch, cfg, step: int) -> dict:
+    """A training case's batch of ``step`` on the card: the launcher's
+    seeded source (4 x 512; (d) 4 x 2048), and for the encoder-decoder
+    seeded frames [4, FM_TRAIN["frames"], d] (its launcher has none)."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    seq = TFM_SEQ if cfg.family == "dense" else FM_TRAIN["seq"]
+    batch = make_data_source(cfg, FM_TRAIN["batch"], seq, ShardInfo(0, 1), seed=SEED)(step)
+    if cfg.family == "encdec":
+        rng = np.random.default_rng(SEED + 20 + step)
+        batch["frames"] = rng.standard_normal(
+            (FM_TRAIN["batch"], FM_TRAIN["frames"], cfg.d_model), dtype=np.float32)
+    return tr.batch_to(batch, "cuda")
+
+
+def fm_prompts(cfg):
+    """(tokens, lengths, frames) of a serving case, seeded: FM_SERVE's rows
+    of whole prompts; the encoder-decoder's frames [rows, enc_seq, d]."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 30)
+    rows, seq = FM_SERVE["rows"], FM_SERVE["prompt"]
+    tokens = rng.integers(0, cfg.vocab, (rows, seq)).astype(np.int32)
+    frames = None
+    if cfg.family == "encdec":
+        frames = rng.standard_normal((rows, cfg.enc_seq, cfg.d_model), dtype=np.float32)
+    return tokens, np.full(rows, seq, np.int32), frames
+
+
+def fm_reference(torch, work: Path, case: str) -> dict:
+    """A case's one-device reference in this process, saved under
+    ``work``: serving, the prefill and decodes' streams and logits, and the
+    same steps' logits in f64 (fed the f32 streams); training, the step-1
+    loss and gradients (each leaf's scale beside them; (a)-(c) also the
+    step-1 gradients in f64, (d) the gradients int8_ef compresses them to)
+    and the 3 steps' losses, all from device_params without noise."""
+    from repro_torch.models.registry import get_family
+    from repro_torch.optim.compression import compress_tree, init_error_buffers
+    from repro_torch.runtime import train as tr
+
+    cfg = fm_config(case)
+    defs = get_family(cfg.family).param_defs(cfg)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = device_params(torch, defs, SEED, noise=case.startswith("serve:"))
+    rec = {"case": case, "draw_s": time.perf_counter() - t0,
+           "params": sum(v.numel() for v in params.values())}
+    if case.startswith("serve:"):
+        tokens, lengths, frames = fm_prompts(cfg)
+        streams, logits, ms, _ = greedy_serve(torch, cfg, params, tokens, lengths,
+                                              FM_SERVE["decodes"], bucket=False, frames=frames)
+        wide = {k: v.double() for k, v in params.items()}
+        logits64 = fm_f64_logits(torch, cfg, wide, tokens, frames, streams)
+        del wide
+        torch.save({"streams": streams, "logits": logits, "logits64": logits64}, work / "ref.pt")
+        rec.update(streams=streams.tolist(), call_ms=ms,
+                   f64_spread=max(max_err(g, w) / scale(w) for g, w in zip(logits, logits64)))
+    else:
+        tcfg = fm_tcfg(case)
+        batch = fm_batch(torch, cfg, 0)
+        loss, grads = tr.loss_and_grads(tr.make_loss_fn(cfg, tcfg), params, batch)
+        torch.save({k: g.cpu() for k, g in grads.items()}, work / "ref_grads.pt")
+        # leaf: [max|g|, the f32 run's distance from the f64 gradient, max|g64|]
+        scales = {k: [float(g.abs().max()), None, None] for k, g in grads.items()}
+        if case != "ef":
+            # The same step-1 gradients in f64: what the mesh's f64 run is
+            # held to, and the yardstick of the f32 runs' own distances.
+            wide = {k: v.double() for k, v in params.items()}
+            tcfg64 = dataclasses.replace(tcfg, compute_dtype="float64")
+            loss64, g64 = tr.loss_and_grads(tr.make_loss_fn(cfg, tcfg64), wide,
+                                            {k: v.double() if v.is_floating_point() else v
+                                             for k, v in batch.items()})
+            rec["loss1_f64"] = float(loss64)
+            del wide
+            torch.save({k: g.cpu() for k, g in g64.items()}, work / "ref64_grads.pt")
+            for k, g in g64.items():
+                scales[k][1:] = [max_err(grads[k], g), float(g.abs().max())]
+            del g64
+        (work / "ref_scales.json").write_text(json.dumps(scales))
+        if case == "ef":
+            deq, _ = compress_tree(grads, init_error_buffers(grads))
+            torch.save({k: g.cpu() for k, g in deq.items()}, work / "ref_deq.pt")
+            del deq
+        del grads
+        step = tr.make_train_step(cfg, tcfg)
+        state, losses = tr.init_state(cfg, tcfg, params), []
+        for i in range(FM_TRAIN["steps"]):
+            state, metrics = step(state, fm_batch(torch, cfg, i))
+            losses.append(float(metrics["loss"]))
+        del state
+        rec.update(loss1=float(loss), losses=losses)
+    rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del params
+    torch.cuda.empty_cache()
+    return rec
+
+
+def fm_f64_logits(torch, cfg, wide, tokens, frames, streams, parallel=None):
+    """The serving steps in f64 on f64 weights ``wide`` (this rank's pieces
+    under ``parallel``): the whole-batch prefill of ``tokens`` (and
+    ``frames``), then decodes fed ``streams``' tokens (the one-device f32
+    run's), each step's last-token logits, whole, on the host
+    [steps, rows, V].  One device's is the yardstick of the f32 runs
+    (their own distance from it, the spread) and what the mesh's f64 run
+    is held to."""
+    from repro_torch.runtime import serve as sv
+
+    batch = {"tokens": torch.from_numpy(tokens).cuda()}
+    if frames is not None:
+        batch["frames"] = torch.from_numpy(frames).cuda().double()
+    cache, lg = sv.make_prefill_step(cfg, SERVE_MAX_SEQ, "float64", "float64",
+                                     parallel=parallel)(wide, batch)
+    decode = sv.make_decode_step(cfg, "float64", parallel=parallel)
+    out = [lg[:, -1].cpu()]
+    for i in range(streams.shape[1] - 1):
+        cache, lg = decode(wide, cache, streams[:, i:i + 1].cuda(), tokens.shape[1] + i)
+        out.append(lg[:, -1].cpu())
+    del cache
+    torch.cuda.empty_cache()
+    return torch.stack(out)
+
+
+def fm_train_rank(torch, case: str, kernels, ctx, work: Path) -> dict:
+    """One rank of a training case on FM_TRAIN_MESH: 3 AdamW steps (the
+    launcher for RWKV-6, Zamba2 and (d); the FSDP train step on frames
+    batches for the encoder-decoder, whose launcher has no frames), then
+    the FSDP step's step-1 loss and each gradient shard against the
+    reference's; (a)-(c) also the f64 step-1 gradient shards against the
+    reference's f64 ones, (d) each shard int8_ef compresses them to."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.optim.compression import compress_sharded_tree, init_error_buffers
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import train as tr
+
+    cfg, tcfg = fm_config(case), fm_tcfg(case)
+    defs = get_family(cfg.family).param_defs(cfg)
+    specs = fsdp_specs(param_specs(defs), abstract_params(defs), ctx)
+
+    def draw_shards(dtype=torch.float32):
+        return staggered(torch, lambda: device_params(
+            torch, defs, SEED, noise=False,
+            place=lambda path, w: par.shard_tensor(w, specs[path], ctx.mesh).to(dtype)))
+
+    zero_counts(kernels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    if cfg.family == "encdec":
+        state = tr.init_state(cfg, tcfg, draw_shards())
+        step_fn = tr.make_train_step(cfg, tcfg, parallel=ctx, grad_specs=specs)
+        steps, losses, step_s = [], [], []
+        for i in range(FM_TRAIN["steps"]):
+            batch = fm_batch(torch, cfg, i)
+            before = coll.STATS.as_dict()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t1 = time.perf_counter()
+            start.record()
+            state, metrics = step_fn(state, batch)
+            end.record()
+            losses.append(float(metrics["loss"]))
+            step_s.append(time.perf_counter() - t1)
+            steps.append({"ms": start.elapsed_time(end), "collectives": stats_since(before),
+                          "launches": {n: k.launches for n, k in kernels.items()}})
+        del state
+        build = {}
+    else:
+        launch.get_config = lambda arch: cfg
+        launch.init_params = lambda defs, seed, *, device=None, dtype=None: device_params(
+            torch, defs, seed, noise=False)
+        seq = TFM_SEQ if case == "ef" else FM_TRAIN["seq"]
+        argv = ["--arch", cfg.name, "--mesh", FM_TRAIN_MESH, "--dist-backend", "gloo",
+                "--batch", str(FM_TRAIN["batch"]), "--seq", str(seq),
+                "--steps", str(FM_TRAIN["steps"]), "--seed", str(SEED), "--log-every", "1"]
+        if case == "ef":
+            argv += ["--planned-kernels", "--grad-compression", "int8_ef"]
+        incarnations, saves = [], []
+        with elastic_spy(torch, kernels, incarnations, saves):
+            history = launch.main(argv)
+        losses, step_s = [h["loss"] for h in history], [h["time"] for h in history]
+        steps = incarnations[0]["steps"]
+        build = {k: v for k, v in incarnations[0].items() if k != "steps"}
+    rec = {"case": case, "run_s": time.perf_counter() - t0, "losses": losses, "step_s": step_s,
+           "steps": steps, "build": build,
+           "launch_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {n: k.launches for n, k in kernels.items()}}
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    shards = draw_shards()
+    loss, grads = tr.fsdp_loss_and_grads(tr.make_loss_fn(cfg, tcfg, ctx), ctx, specs, shards,
+                                         tr.shard_batch(cfg, ctx, fm_batch(torch, cfg, 0)))
+    del shards
+    ref = torch.load(work / "ref_grads.pt", mmap=True)
+    ref64 = (torch.load(work / "ref64_grads.pt", mmap=True)
+             if (work / "ref64_grads.pt").exists() else None)
+    scales = json.loads((work / "ref_scales.json").read_text())
+    # leaf: {"f32": the f32 shard against one device's f32, "scale":
+    # max(1, max|g|); (a)-(c) also "f32_vs_f64": against one device's f64,
+    # "spread": one device's f32 against its f64}
+    errs = {}
+    for k, g in grads.items():
+        want = par.shard_tensor(ref[k], specs[k], ctx.mesh).cuda()
+        errs[k] = {"f32": max_err(g, want), "scale": max(1.0, scales[k][0])}
+        if ref64 is not None:
+            errs[k].update(f32_vs_f64=max_err(g, par.shard_tensor(ref64[k], specs[k],
+                                                                   ctx.mesh).cuda()),
+                           spread=scales[k][1])
+        del want
+    rec.update(loss1=float(loss), grad_errs=errs)
+    if ref64 is not None:
+        # The same step in f64 on the mesh: every shard against one
+        # device's f64 gradient ("f64", "scale64": max(1, max|g64|)).
+        del grads
+        torch.cuda.empty_cache()
+        tcfg64 = dataclasses.replace(tcfg, compute_dtype="float64")
+        batch = {k: v.double() if v.is_floating_point() else v
+                 for k, v in fm_batch(torch, cfg, 0).items()}
+        shards = draw_shards(torch.float64)
+        loss64, grads = tr.fsdp_loss_and_grads(tr.make_loss_fn(cfg, tcfg64, ctx), ctx, specs,
+                                               shards, tr.shard_batch(cfg, ctx, batch))
+        del shards, batch
+        for k, g in grads.items():
+            check(g.dtype == torch.float64, f"families_mesh {case}: {k}'s f64 gradient {g.dtype}")
+            want = par.shard_tensor(ref64[k], specs[k], ctx.mesh).cuda()
+            errs[k].update(f64=max_err(g, want), scale64=max(1.0, scales[k][2]))
+            del want
+        rec["loss1_f64"] = float(loss64)
+    if case == "ef":
+        deq, _ = compress_sharded_tree(grads, init_error_buffers(grads), specs, ctx.mesh)
+        ref = torch.load(work / "ref_deq.pt", mmap=True)
+        flips = {}
+        for k, g in deq.items():
+            want = par.shard_tensor(ref[k], specs[k], ctx.mesh).cuda()
+            diff = (g - want).abs()
+            quantum = max(scales[k][0], 1e-12) / 127.0
+            flips[k] = [int((diff > TOL * max(1.0, scales[k][0])).sum()), g.numel(),
+                        float(diff.max()) / quantum]
+            del want, diff
+        rec["deq_flips"] = flips
+        del deq
+    del grads
+    rec.update(step1_s=time.perf_counter() - t1,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    dist.barrier()
+    return rec
+
+
+def fm_serve_rank(torch, case: str, ctx, work: Path) -> dict:
+    """One rank of a serving case on FM_SERVE_MESH: weights placed by
+    ``serving_param_specs``' model axis (drawn in turn), the prefill and
+    FM_SERVE's decodes timed in f32, then the same steps in f64 fed the
+    reference's streams; (rank 0) every step's logits of both against the
+    reference's."""
+    import torch.distributed as dist
+
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import serve as sv
+
+    cfg = fm_config(case)
+    defs = get_family(cfg.family).param_defs(cfg)
+    specs = sv.serving_param_specs(cfg)
+
+    def draw(dtype=torch.float32):
+        return staggered(torch, lambda: device_params(
+            torch, defs, SEED, place=lambda path, w: par.shard_tensor(
+                w, specs[path], ctx.mesh, axes=(ctx.tp_axis,)).to(dtype)))
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = draw()
+    rec = {"case": case, "draw_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size() for t in params.values())}
+    tokens, lengths, frames = fm_prompts(cfg)
+    streams, logits, ms, colls = greedy_serve(torch, cfg, params, tokens, lengths,
+                                             FM_SERVE["decodes"], parallel=ctx, bucket=False,
+                                             frames=frames)
+    rec.update(streams=streams.tolist(), call_ms=ms, call_collectives=colls,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    del params
+    torch.cuda.empty_cache()
+    ref = torch.load(work / "ref.pt")
+    wide = draw(torch.float64)
+    logits64 = fm_f64_logits(torch, cfg, wide, tokens, frames, ref["streams"], parallel=ctx)
+    del wide
+    if dist.get_rank() == 0:
+        rec.update(logits_err_over_scale=[max_err(g, w) / scale(w)
+                                          for g, w in zip(logits, ref["logits"])],
+                   f64_logits_err_over_scale=[max_err(g, w) / scale(w)
+                                              for g, w in zip(logits64, ref["logits64"])],
+                   ref_streams=ref["streams"].tolist())
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def fm_rank(rank: int, world: int, work: Path, group: str) -> int:
+    """The entry of one rank process (``chip_smoke.py --families-rank``):
+    every case of ``group`` ("train" or "serve") in turn."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=FM_TIMEOUT))
+    recs = []
+    try:
+        ctx = moe_mesh_ctx(FM_TRAIN_MESH if group == "train" else FM_SERVE_MESH)
+        kernels = tfm_kernels()
+        for case in (FM_TRAIN_CASES if group == "train"
+                     else tuple(f"serve:{a}" for a in FAMILY_ARCHS)):
+            cwork = work / case.replace(":", "_")
+            recs.append(fm_train_rank(torch, case, kernels, ctx, cwork) if group == "train"
+                        else fm_serve_rank(torch, case, ctx, cwork))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(recs))
+    return 0
+
+
+def fm_check_train(case: str, ref: dict, recs: list, want_launches: dict | None) -> None:
+    """(d)'s f32 gradient shards within TOL x scale of one device's; (a)-(c)'s
+    f64 shards within FM_F64_TOL x scale of one device's f64 gradients
+    (their f32 shards are reported: two f32 runs of RWKV-6's ``u`` at its
+    zero init or of seamless's ReLU near-ties do not agree to TOL, and
+    neither run is nearer the f64 gradient than the other)."""
+    for r in recs:
+        check(r["losses"] == recs[0]["losses"], f"families_mesh {case}: rank losses differ")
+        rel = abs(r["loss1"] - ref["loss1"]) / abs(ref["loss1"])
+        check(rel <= 1e-5, f"families_mesh {case}: step-1 loss {r['loss1']} vs {ref['loss1']}")
+        if case != "ef":
+            rel = abs(r["loss1_f64"] - ref["loss1_f64"]) / abs(ref["loss1_f64"])
+            check(rel <= FM_F64_TOL, f"families_mesh {case}: f64 step-1 loss "
+                  f"{r['loss1_f64']} vs {ref['loss1_f64']}")
+        for k, e in r["grad_errs"].items():
+            if case == "ef":
+                check(e["f32"] <= TOL * e["scale"],
+                      f"families_mesh {case}: grad {k} {e['f32']} > {TOL} x {e['scale']}")
+            else:
+                check(e["f64"] <= FM_F64_TOL * e["scale64"],
+                      f"families_mesh {case}: f64 grad {k} {e['f64']} > {FM_F64_TOL} x "
+                      f"{e['scale64']}")
+        for k, (n, size, quanta) in r.get("deq_flips", {}).items():
+            # A rounding tie quantizes one quantum apart (the allowance of
+            # tests/test_torch_train_knobs.py: 0.1 % of a tensor, or 2).
+            check(n <= max(2, size // 1000) and quanta <= 1.0 + 1e-3,
+                  f"families_mesh {case}: int8_ef {k} {n} of {size} elements apart, "
+                  f"{quanta} quanta")
+        if want_launches is not None:
+            for st in r["steps"]:
+                check(st["launches"] == want_launches,
+                      f"families_mesh {case}: step launches {st['launches']} != plan "
+                      f"{want_launches}")
+    losses = recs[0]["losses"]
+    check(len(losses) == FM_TRAIN["steps"] and all(
+        abs(a - b) <= LOSS_TOL * abs(b) for a, b in zip(losses, ref["losses"])),
+        f"families_mesh {case}: losses {losses} vs one device {ref['losses']}")
+
+
+def phase_families_mesh(torch, kernels, results, card, families) -> None:
+    """Cases (a)-(d) (see the module docstring); ``families`` is phase
+    families' records (Zamba2's spread gates its logits)."""
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    base = SCRATCH / "families_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("families_mesh", 0)
+    refs = {}
+    t0 = time.perf_counter()
+    for group, cases in (("train", FM_TRAIN_CASES),
+                         ("serve", tuple(f"serve:{a}" for a in FAMILY_ARCHS))):
+        for case in cases:
+            refs[case] = fm_reference(torch, base / group / case.replace(":", "_"), case)
+    ref_s = time.perf_counter() - t0
+    emit(phase="families_mesh", part="references", seconds=ref_s,
+         references={c: {k: r[k] for k in ("draw_s", "params", "peak_memory_bytes")}
+                     for c, r in refs.items()})
+    torch.cuda.empty_cache()
+    out = {}
+    for group, mesh in (("train", FM_TRAIN_MESH), ("serve", FM_SERVE_MESH)):
+        world = math.prod(int(x) for x in mesh.split("x"))
+        work = base / group
+        t0 = time.perf_counter()
+        bad = run_rank_processes("--families-rank", world, work, extra=(group,),
+                                 timeout=FM_TIMEOUT)
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(world) if (work / f"rank{r}.json").exists()]
+        if bad:
+            emit(phase="families_mesh", group=group, failed=True, ranks_records=recs)
+        check(not bad, f"families_mesh {group} ranks failed (or outlived {FM_TIMEOUT} s): {bad}")
+        check(len(recs) == world, f"families_mesh {group}: {len(recs)} rank records")
+        out[group] = (recs, time.perf_counter() - t0)
+        emit(phase="families_mesh", part=group, ranks_seconds=out[group][1],
+             rank0_seconds={r["case"]: r.get("run_s", r.get("draw_s")) for r in recs[0]})
+
+    step_kernels = tfm_kernels()
+    ecfg = fm_config("ef")
+    want, lcfg = tokens_local_launches(tf, step_kernels, FM_TRAIN_MESH, ecfg)
+    recs = out["train"][0]
+    for i, case in enumerate(FM_TRAIN_CASES):
+        crecs = [r[i] for r in recs]
+        fm_check_train(case, refs[case], crecs, want if case == "ef" else None)
+        for r in crecs:
+            if case != "ef":
+                check(not any(r["launches"].values()),
+                      f"families_mesh {case}: plain path launched {r['launches']}")
+            for name in kernels:
+                results[name]["launches_by_path"]["families_mesh"] += r["launches"].get(name, 0)
+        cfg = fm_config(case)
+        emit(phase="families_mesh", case=case, card=card, arch=cfg.name, mesh=FM_TRAIN_MESH,
+             setup="4 processes sharing one H100 over gloo; not multi-chip numbers",
+             n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+             batch=FM_TRAIN["batch"], seq=TFM_SEQ if case == "ef" else FM_TRAIN["seq"],
+             frames=FM_TRAIN["frames"] if cfg.family == "encdec" else None,
+             steps=FM_TRAIN["steps"], losses=crecs[0]["losses"],
+             reference_losses=refs[case]["losses"], loss_tolerance=LOSS_TOL,
+             loss1=[r["loss1"] for r in crecs], reference_loss1=refs[case]["loss1"],
+             worst_grad_err_over_scale=max(e["f32"] / e["scale"] for r in crecs
+                                           for e in r["grad_errs"].values()),
+             worst_f64_grad_err_over_scale=(None if case == "ef" else max(
+                 e["f64"] / e["scale64"] for r in crecs for e in r["grad_errs"].values())),
+             past_tolerance_f32={f"rank{j}:{k}": e for j, r in enumerate(crecs)
+                                 for k, e in r["grad_errs"].items()
+                                 if e["f32"] > TOL * e["scale"]},
+             loss1_f64=[r.get("loss1_f64") for r in crecs],
+             tolerance=TOL if case == "ef" else FM_F64_TOL, reference=refs[case],
+             launches_per_step=want if case == "ef" else None,
+             local_config=({k: getattr(lcfg, k) for k in ("n_heads", "n_kv_heads", "d_ff",
+                                                         "vocab")} if case == "ef" else None),
+             deq_flips=crecs[0].get("deq_flips"),
+             ranks=[{"rank": j, "run_s": r["run_s"], "build": r["build"],
+                     "step_ms": [st["ms"] for st in r["steps"]], "step_s": r["step_s"],
+                     "collectives": [st["collectives"] for st in r["steps"]],
+                     "launch_peak_memory_bytes": r["launch_peak_memory_bytes"],
+                     "peak_memory_bytes": r["peak_memory_bytes"]}
+                    for j, r in enumerate(crecs)])
+
+    recs = out["serve"][0]
+    for i, arch in enumerate(FAMILY_ARCHS):
+        case = f"serve:{arch}"
+        crecs, ref = [r[i] for r in recs], refs[case]
+        rank0 = crecs[0]
+        gate = max(TOL, SPREAD_GATE * ref["f64_spread"])
+        if arch.startswith("zamba2"):
+            gate = max(gate, SPREAD_GATE * families[arch]["no_cache_spread_over_scale"])
+        worst = max(rank0["logits_err_over_scale"])
+        worst64 = max(rank0["f64_logits_err_over_scale"])
+        for r in crecs:
+            check(r["streams"] == ref["streams"],
+                  f"families_mesh {case}: streams {r['streams']} != one device {ref['streams']}")
+        check(worst64 <= FM_F64_TOL,
+              f"families_mesh {case}: f64 logits {worst64} of scale > {FM_F64_TOL}")
+        check(worst <= gate, f"families_mesh {case}: logits {worst} of scale > {gate}")
+        cfg = fm_config(case)
+        emit(phase="families_mesh", case=case, card=card, arch=arch, mesh=FM_SERVE_MESH,
+             setup="2 processes sharing one H100 over gloo; not multi-chip numbers",
+             n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+             prompt=[FM_SERVE["rows"], FM_SERVE["prompt"]], decodes=FM_SERVE["decodes"],
+             tolerance=gate, worst_logits_err_over_scale=worst,
+             logits_err_over_scale=rank0["logits_err_over_scale"],
+             f64_tolerance=FM_F64_TOL, worst_f64_logits_err_over_scale=worst64,
+             f64_logits_err_over_scale=rank0["f64_logits_err_over_scale"], reference=ref,
+             prefill_ms=[r["call_ms"][0] for r in crecs],
+             decode_ms=[statistics.median(r["call_ms"][1:]) for r in crecs],
+             reference_prefill_ms=ref["call_ms"][0],
+             reference_decode_ms=statistics.median(ref["call_ms"][1:]),
+             ranks=[{k: r[k] for k in ("draw_s", "param_bytes", "call_ms", "call_collectives",
+                                       "peak_memory_bytes")} for r in crecs])
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="families_mesh", reference_seconds=ref_s, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
@@ -5144,6 +5714,8 @@ def main() -> int:
         return tokens_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if sys.argv[1:2] == ["--moe-rank"]:  # one rank of phase moe_mesh
         return moe_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--families-rank"]:  # one rank of phase families_mesh
+        return fm_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -5250,7 +5822,11 @@ def main() -> int:
         for name in ("matmul", "flash_attention"):
             check(results[name]["launches_by_path"][dense_path] > 0,
                   f"{name}: no launch on the {dense_path} path")
-    phase_families(torch, card)
+    families = phase_families(torch, card)
+    phase_families_mesh(torch, kernels, results, card, families)
+    for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
+        check(results[name]["launches_by_path"]["families_mesh"] > 0,
+              f"{name}: no launch on the families_mesh path")
     phase_paper(torch, kernels, results, card)
     for name in ("conv2d", "matmul"):
         check(results[name]["launches_by_path"]["paper"] > 0,

@@ -28,6 +28,8 @@ heartbeats, a straggler watchdog and resume.
         --mesh 2x2 --dist-backend gloo --planned-kernels --batch 4 --seq 2048 --steps 3
     PYTHONPATH=src python -m repro_torch.launch.train --family moe \
         --mesh 2x2 --device cpu --dist-backend gloo --steps 3 --batch 4 --seq 32
+    PYTHONPATH=src python -m repro_torch.launch.train --family zamba2 \
+        --mesh 1x2 --device cpu --dist-backend gloo --steps 3 --batch 4 --seq 32
 
 ``--planned-kernels`` runs the family's planned kernels forward and
 backward, every Schedule from ``plan_training`` (the cnn: the fused conv +
@@ -61,10 +63,15 @@ the model axis replicates the step.  The token families train FSDP-style,
 as the JAX launcher shards them: each rank holds its shard of the
 parameters and of AdamW's moments under ``launch.specs.fsdp_specs``, the
 step gathers them over the data axes and reduce-scatters the gradients;
-the dense family runs its heads, d_ff and vocab tensor-parallel over the
-model axis, and the MoE its experts too (expert-parallel, or each expert's
-d_ff split: ``models/moe.py``); the recurrent and encoder-decoder families
-on a model axis above 1 raise (ROADMAP queue 1 #5c).  A checkpoint of a
+every token family runs tensor-parallel over the model axis: the dense
+family its heads, d_ff and vocab, the MoE its experts too (expert-parallel,
+or each expert's d_ff split: ``models/moe.py``), RWKV-6 and Mamba-2/Zamba2
+their heads (``models/rwkv6.py``, ``models/mamba2.py``).
+``--grad-compression int8_ef`` compresses each rank's gradient shards at
+their whole tensors' scales, its error buffers sharded like the
+parameters.  The dense family's planned path with query heads that do not
+split over the model axis raises (ROADMAP queue 1 #5c, planned
+sequence-parallel flash).  A checkpoint of a
 sharded state is gathered whole and written by rank 0; a restore reads
 each rank's piece onto whatever mesh the run has now.  The process group
 comes from the environment
@@ -266,11 +273,8 @@ def main(argv=None) -> list[dict]:
     # The token families hold an FSDP-sharded state on a mesh; the cnn a
     # replicated one.
     fsdp = not hasattr(fam, "batch_shard_specs")
-    if dims[-1] > 1 and cfg.family not in tr.MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"--mesh {args.mesh}: the {cfg.family!r} family over a model axis above 1 "
-            "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
-            "queue 1 #5c")
+    if args.planned_kernels and hasattr(fam, "check_planned_heads"):
+        fam.check_planned_heads(cfg, dims[-1])  # before any rank starts
     if world > 1 and not dist.is_initialized():
         if "RANK" not in os.environ:  # start the ranks here
             return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],
@@ -366,7 +370,8 @@ def main(argv=None) -> list[dict]:
         if ctx is not None and fsdp:
             pspecs = fsdp_specs(param_specs(defs), abstract_params(defs, pdt), ctx)
             specs = tr.TrainState(params=pspecs,
-                                  opt=adamw.AdamWState(step=P(), m=pspecs, v=pspecs))
+                                  opt=adamw.AdamWState(step=P(), m=pspecs, v=pspecs),
+                                  err=pspecs if tcfg.grad_compression == "int8_ef" else None)
         if ctx is None:
             step_fn = tr.make_train_step(cfg, tcfg)
         else:
@@ -403,7 +408,9 @@ def main(argv=None) -> list[dict]:
                 restored, last = ckpt.restore_latest(args.ckpt, state, device=device)
             else:
                 aparams = abstract_params(defs, pdt)
-                template = tr.TrainState(params=aparams, opt=adamw.abstract_state(aparams))
+                template = tr.TrainState(
+                    params=aparams, opt=adamw.abstract_state(aparams),
+                    err=aparams if tcfg.grad_compression == "int8_ef" else None)
                 restored, last = ckpt.restore_latest(args.ckpt, template, device=device,
                                                      specs=specs, mesh=ctx.mesh)
             if restored is not None:

@@ -28,6 +28,12 @@ import torch
 NEG = -1e30
 
 
+def at_least_f32(x: torch.Tensor) -> torch.Tensor:
+    """``x`` in float32, or as it is where it is float64 (an f64 run, such
+    as an accuracy reference, stays f64 where the f32 path upcasts)."""
+    return x if x.dtype == torch.float64 else x.float()
+
+
 def _mask(q_pos, k_pos, causal, window):
     """Boolean visibility mask from positions: [Sq, Skv] for q_pos [Sq],
     [B, Sq, Skv] for q_pos [B, Sq]."""
@@ -49,7 +55,7 @@ def _bias(q_pos, k_pos, causal, window):
 
 
 def _direct(q, k, v, q_pos, k_pos, scale, causal, window):
-    s = torch.einsum("bhqd,bhkd->bhqk", q.float(), k.float())
+    s = torch.einsum("bhqd,bhkd->bhqk", at_least_f32(q), at_least_f32(k))
     s = s * scale + _bias(q_pos, k_pos, causal, window)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
@@ -63,21 +69,22 @@ def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv):
         raise ValueError(f"blockwise attention: ({Sq}, {Skv}) are not multiples "
                          f"of the chunks ({cq}, {ckv})")
     outs = []
+    wide = torch.promote_types(q.dtype, torch.float32)
     for q0 in range(0, Sq, cq):
         qc, qpc = q[:, :, q0:q0 + cq], q_pos[..., q0:q0 + cq]
-        acc = torch.zeros((B, H, cq, D), dtype=torch.float32, device=q.device)
-        m = torch.full((B, H, cq), NEG, dtype=torch.float32, device=q.device)
-        l = torch.zeros((B, H, cq), dtype=torch.float32, device=q.device)
+        acc = torch.zeros((B, H, cq, D), dtype=wide, device=q.device)
+        m = torch.full((B, H, cq), NEG, dtype=wide, device=q.device)
+        l = torch.zeros((B, H, cq), dtype=wide, device=q.device)
         for k0 in range(0, Skv, ckv):
             kc, vc = k[:, :, k0:k0 + ckv], v[:, :, k0:k0 + ckv]
-            s = torch.einsum("bhqd,bhkd->bhqk", qc.float(), kc.float())
+            s = torch.einsum("bhqd,bhkd->bhqk", at_least_f32(qc), at_least_f32(kc))
             s = s * scale + _bias(qpc, k_pos[k0:k0 + ckv], causal, window)
             m_new = torch.maximum(m, s.amax(-1))
             p = torch.exp(s - m_new[..., None])
             alpha = torch.exp(m - m_new)
             l = l * alpha + p.sum(-1)
-            acc = acc * alpha[..., None] + torch.einsum(
-                "bhqk,bhkd->bhqd", p.to(vc.dtype), vc).float()
+            acc = acc * alpha[..., None] + at_least_f32(torch.einsum(
+                "bhqk,bhkd->bhqd", p.to(vc.dtype), vc))
             m = m_new
         l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully-masked rows stay finite
         outs.append((acc / l[..., None]).to(q.dtype))

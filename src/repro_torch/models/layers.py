@@ -28,7 +28,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.attention import attention, seq_parallel
+from repro_torch.models.attention import at_least_f32, attention, seq_parallel
 from repro_torch.models.module import ParamDef
 from repro_torch.runtime import parallel as par
 
@@ -53,17 +53,17 @@ def ff_spec(d_ff: int, tp: int = 16):
 
 
 def rms_norm(x, w, eps=1e-6):
-    xf = x.float()
+    xf = at_least_f32(x)
     xf = xf * torch.rsqrt(torch.mean(xf * xf, -1, keepdim=True) + eps)
-    return (xf * (1.0 + w.float())).to(x.dtype)
+    return (xf * (1.0 + at_least_f32(w))).to(x.dtype)
 
 
 def layer_norm(x, w, b, eps=1e-6):
-    xf = x.float()
+    xf = at_least_f32(x)
     mu = xf.mean(-1, keepdim=True)
     var = ((xf - mu) ** 2).mean(-1, keepdim=True)
     xf = (xf - mu) * torch.rsqrt(var + eps)
-    return (xf * w.float() + b.float()).to(x.dtype)
+    return (xf * at_least_f32(w) + at_least_f32(b)).to(x.dtype)
 
 
 # --- RoPE ------------------------------------------------------------------
@@ -74,12 +74,16 @@ def rope(x, pos, theta):
     per row); theta: the base."""
     D = x.shape[-1]
     half = D // 2
+    # The angles stay f32 in an f64 run (x goes f64), as the JAX package
+    # defines them: with f64 angles, seamless-m4t-medium's f32 run over 4096
+    # frame positions lies 0.28 of the logits' scale from the f64 one; with
+    # f32 angles, 0.018 (H100).
     log_theta = torch.log(torch.tensor(float(theta), dtype=torch.float32))
     freq = torch.exp(-log_theta * torch.arange(half, dtype=torch.float32) / half)
     ang = pos.float()[..., None] * freq.to(pos.device)  # [(B,) S, half]
     cos = torch.cos(ang)[..., None, :]
     sin = torch.sin(ang)[..., None, :]
-    x1, x2 = x[..., :half].float(), x[..., half:].float()
+    x1, x2 = at_least_f32(x[..., :half]), at_least_f32(x[..., half:])
     return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], -1).to(x.dtype)
 
 
@@ -122,9 +126,18 @@ def attention_split(cfg: ModelConfig, seq: int, parallel, cached: bool = False) 
         return "whole"
     Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
     if Hq % tp == 0:
-        hl, g = Hq // tp, Hq // Hkv
-        return "heads" if hl % g == 0 or g % hl == 0 else "whole"
+        return "heads" if heads_split(cfg, tp) else "whole"
     return "seq" if not cached and seq_parallel(seq, Hq, Hkv, tp) else "whole"
+
+
+def heads_split(cfg: ModelConfig, tp: int) -> bool:
+    """Whether the query heads, with the KV heads they read, split over a
+    model axis of ``tp``."""
+    Hq, Hkv = cfg.n_heads, cfg.n_kv_heads
+    if Hq % tp:
+        return False
+    hl, g = Hq // tp, Hq // Hkv
+    return hl % g == 0 or g % hl == 0
 
 
 def kv_heads_of(cfg: ModelConfig, parallel) -> tuple[int, int]:
@@ -330,13 +343,12 @@ def embed_defs(cfg: ModelConfig, tp: int = 16) -> dict:
     return defs
 
 
-def _whole_over_model(w: torch.Tensor, dim: int, n: int, parallel) -> torch.Tensor:
-    """``w`` with its ``dim`` put back whole where the model axis splits it."""
-    from repro_torch.runtime import collectives as coll
-
-    if w.shape[dim] == n:
-        return w
-    return coll.all_gather(w, parallel.mesh, parallel.tp_axis, dim)
+def embed_whole_over_model(specs: dict) -> tuple:
+    """The embedding leaves whose ``specs`` split d_model over the model
+    axis: every model rank gathers them whole over it
+    (:func:`embed_tokens`, :func:`head_of`)."""
+    d_dim = {"embed": 1, "w_out": 0}
+    return tuple(k for k, i in d_dim.items() if k in specs and specs[k][i] == MODEL_AXIS)
 
 
 def vocab_split(cfg: ModelConfig, parallel) -> bool:
@@ -353,7 +365,7 @@ def embed_tokens(p: dict, tokens: torch.Tensor, cfg: ModelConfig, dtype,
     e = p["embed"]
     ids = tokens.long()
     if par.tp_size(parallel) > 1:
-        e = _whole_over_model(e, 1, cfg.d_model, parallel)
+        e = par.tp_whole(e, 1, cfg.d_model, parallel)
     if vocab_split(cfg, parallel):
         e = par.tp_local(e, 0, cfg.vocab, parallel)
         rows = e.shape[0]
@@ -386,7 +398,7 @@ def head_of(p: dict, cfg: ModelConfig, parallel=None) -> torch.Tensor:
     if par.tp_size(parallel) == 1:
         return w
     d_dim, v_dim = (1, 0) if cfg.tie_embeddings else (0, 1)
-    w = _whole_over_model(w, d_dim, cfg.d_model, parallel)
+    w = par.tp_whole(w, d_dim, cfg.d_model, parallel)
     return par.tp_local(w, v_dim, cfg.vocab, parallel) if vocab_split(cfg, parallel) else w
 
 

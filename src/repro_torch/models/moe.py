@@ -204,8 +204,8 @@ def layer_meta(cfg: ModelConfig) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,
-               device=None) -> dict:
-    return tf.init_cache(cfg, batch, max_seq, dtype, device=device)
+               device=None, parallel=None) -> dict:
+    return tf.init_cache(cfg, batch, max_seq, dtype, device=device, parallel=parallel)
 
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,

@@ -51,11 +51,12 @@ def batch_shard_specs(cfg, dp) -> dict:
     """The family's batch sharding specs over the data axes ``dp`` (an axis
     name or tuple): its ``batch_shard_specs(dp)`` hook (the cnn's images
     shard their batch dim, matching the sharded ConvPlanner's "batch"
-    partition), else the token families' default."""
+    partition), else the token families' default (the encoder-decoder's
+    ``frames`` [B, T_enc, d] by rows too)."""
     hook = getattr(FAMILIES.get(cfg.family), "batch_shard_specs", None)
     if hook is not None:
         return hook(dp)
-    return {k: P(dp, None) for k in ("tokens", "labels")}
+    return {"tokens": P(dp, None), "labels": P(dp, None), "frames": P(dp, None, None)}
 
 
 def make_data_source(cfg, batch: int, seq: int, shard, seed: int = 0):

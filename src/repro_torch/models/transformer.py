@@ -45,9 +45,10 @@ shapes :func:`local_config` describes, which is also what the planned
 path plans its kernels at (:func:`make_loss_fn`).  Query heads that do not
 split over the model axis run sequence-parallel attention on the plain
 path and raise on the planned one (the flash kernel takes no query
-offset; ROADMAP queue 1 #5c).  The plain path also serves on a mesh: with
-a KV cache each rank holds and attends over its piece of it
-(``layers.cache_heads``; the serving step builders place it).
+offset; ROADMAP queue 1 #5c, planned sequence-parallel flash).  The plain
+path also serves on a mesh: with a KV cache each rank holds and attends
+over its piece of it (``layers.cache_heads``; the serving step builders
+place it).
 """
 
 from __future__ import annotations
@@ -96,10 +97,12 @@ def layer_meta(cfg: ModelConfig) -> dict:
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,
-               device=None) -> dict:
+               device=None, parallel=None) -> dict:
     """KV cache [L, B, Smax, Hkv, Dh] per tensor, zeros, on ``device``
-    (default: the card)."""
-    shape = (cfg.n_layers, batch, max_seq, cfg.n_kv_heads, cfg.resolved_head_dim)
+    (default: the card); with ``parallel`` (a model axis above 1), the KV
+    heads this model rank holds (``layers.cache_heads``)."""
+    hkv = ll.cache_heads(cfg, parallel)[1] if par.tp_size(parallel) > 1 else cfg.n_kv_heads
+    shape = (cfg.n_layers, batch, max_seq, hkv, cfg.resolved_head_dim)
     device = torch.device("cuda" if device is None else device)
     return {n: torch.zeros(shape, dtype=dtype, device=device) for n in ("k", "v")}
 
@@ -240,6 +243,18 @@ def _attn_bwd(q, k, v, g, causal, window, schedule, *, needs):
 _attn_vjp = with_reference_vjp(_attn_kernel, bwd_fn=_attn_bwd, nondiff_argnums=(3, 4, 5))
 
 
+def check_planned_heads(cfg: ModelConfig, tp: int) -> None:
+    """The planned forward runs its attention head-parallel over a model
+    axis of ``tp``: raise where the query heads (with the KV heads they
+    read) do not split so."""
+    if tp > 1 and not ll.heads_split(cfg, tp):
+        raise NotImplementedError(
+            f"the planned forward over a model axis of {tp}: {cfg.n_heads} query heads "
+            "do not split, and sequence-parallel flash attention (a query-position "
+            "offset the flash kernel does not take) waits for ROADMAP queue 1 #5c "
+            "(planned sequence-parallel flash)")
+
+
 def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                      compute_dtype, schedules: dict | None,
                      remat: str = "none", parallel=None) -> torch.Tensor:
@@ -262,11 +277,7 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     sched = schedules or {}
     cd = compute_dtype
     tp = par.tp_size(parallel)
-    if tp > 1 and ll.attention_split(cfg, tokens.shape[1], parallel) != "heads":
-        raise NotImplementedError(
-            f"the planned forward over a model axis of {tp}: {cfg.n_heads} query heads "
-            "do not split, and sequence-parallel flash attention (a query-position "
-            "offset the flash kernel does not take) waits for ROADMAP queue 1 #5c")
+    check_planned_heads(cfg, tp)
     x = ll.embed_tokens(params, tokens, cfg, cd, parallel)
     B, S, d = x.shape
     lc = local_config(cfg, parallel)

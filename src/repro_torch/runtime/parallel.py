@@ -26,8 +26,13 @@ model run its heads and d_ff split over the model axis:
   a replicated activation enters a column-parallel region;
 * :func:`tp_exit` — psum over ``model`` forward, identity backward: where
   a row-parallel region's partial sums leave it;
-* :func:`tp_slice` — a slice of a tensor every model rank holds whole,
-  whose gradient is put back in place and summed over ``model``.
+* :func:`tp_slice` / :func:`tp_take` — a slice (or ranges) of a tensor
+  every model rank holds whole, whose gradient is put back in place and
+  summed over ``model``;
+* :func:`tp_reduce` — psum over ``model`` both ways: where each rank uses
+  a sum of partials in its own way (a norm over a split dimension);
+* :func:`tp_whole` — a tensor the model axis splits, gathered whole for
+  every rank to use alike.
 """
 
 from __future__ import annotations
@@ -200,20 +205,33 @@ def tp_exit(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
     return x if tp_size(ctx) == 1 else coll.psum(x, ctx.mesh, ctx.tp_axis)
 
 
-class _Slice(torch.autograd.Function):
+class _Take(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, dim, start, length, pctx):
-        ctx.meta = (x.shape, dim, start, length, pctx)
-        return x.narrow(dim, start, length)
+    def forward(ctx, x, dim, ranges, pctx):
+        ctx.meta = (x.shape, dim, ranges, pctx)
+        parts = [x.narrow(dim, start, length) for start, length in ranges]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
     @staticmethod
     def backward(ctx, g):
         from repro_torch.runtime import collectives as coll
 
-        shape, dim, start, length, p = ctx.meta
+        shape, dim, ranges, p = ctx.meta
         full = g.new_zeros(shape)
-        full.narrow(dim, start, length).copy_(g)
-        return coll._all_reduce(full, p.mesh, p.tp_axis, "sum"), None, None, None, None
+        off = 0
+        for start, length in ranges:
+            full.narrow(dim, start, length).add_(g.narrow(dim, off, length))
+            off += length
+        return coll._all_reduce(full, p.mesh, p.tp_axis, "sum"), None, None, None
+
+
+def tp_take(x: torch.Tensor, dim: int, ranges, ctx: ParallelCtx) -> torch.Tensor:
+    """The ``(start, length)`` ranges of ``dim`` of a tensor every model rank
+    holds whole, concatenated in order; each rank's gradient is put back in
+    place and summed over the model axis, so every rank gets the whole
+    tensor's gradient (what a rank takes that others take too, such as
+    Mamba-2's one B/C group, sums their parts)."""
+    return _Take.apply(x, dim % x.ndim, tuple((int(s), int(n)) for s, n in ranges), ctx)
 
 
 def tp_slice(x: torch.Tensor, dim: int, start: int, length: int,
@@ -225,7 +243,25 @@ def tp_slice(x: torch.Tensor, dim: int, start: int, length: int,
     :func:`tp_enter`)."""
     if start == 0 and length == x.shape[dim]:
         return tp_enter(x, ctx)
-    return _Slice.apply(x, dim, start, length, ctx)
+    return tp_take(x, dim, [(start, length)], ctx)
+
+
+def tp_reduce(x: torch.Tensor, ctx: ParallelCtx) -> torch.Tensor:
+    """The psum over the model axis of each rank's partial ``x`` where each
+    rank then uses the sum in its own way (a norm over a dimension the
+    model axis splits): the cotangent is summed over the model axis too."""
+    return tp_enter(tp_exit(x, ctx), ctx)
+
+
+def tp_whole(x: torch.Tensor, dim: int, n: int, ctx: ParallelCtx) -> torch.Tensor:
+    """``x`` with its ``dim`` of global size ``n`` put back whole where the
+    model axis splits it (every rank then uses it alike: the gradient of
+    this rank's piece is its slice of the whole one)."""
+    from repro_torch.runtime import collectives as coll
+
+    if x.shape[dim] == n:
+        return x
+    return coll.all_gather(x, ctx.mesh, ctx.tp_axis, dim)
 
 
 def tp_local(x: torch.Tensor, dim: int, n: int, ctx: ParallelCtx) -> torch.Tensor:

@@ -37,19 +37,22 @@ may round differently, so two paths can part at a near-tie.)
 On a mesh (``parallel=``, a ParallelCtx, as the JAX package's builders
 take it) every rank gets the same global tokens and takes its shard of the
 rows over the data axes (``ParallelCtx.batch_axes``); over a model axis
-above 1 the dense family and the MoE run tensor-parallel (the MoE's
-experts expert-parallel or TP-within-expert).  The cache a builder makes
-or takes is this rank's piece: its rows, and where the heads split its KV
-heads (``layers.cache_heads``) — the placement ``parallel.kv_cache_spec``
-gives, except that KV heads the model axis cannot split stay whole on each
-rank where the spec would split the head dim; a spec that splits the
-sequence (too few rows for the data axes) raises.  The logits come back
-whole: gathered over the vocab shards and the rows.
+above 1 every token family runs tensor-parallel (the MoE's experts
+expert-parallel or TP-within-expert; RWKV-6's and Mamba-2's heads).  The
+cache a builder makes or takes is this rank's piece (the family's
+``init_cache(parallel=)``): its rows; where the heads split, the KV heads
+its query heads read (``layers.cache_heads``) — the placement
+``parallel.kv_cache_spec`` gives, except that KV heads the model axis
+cannot split stay whole on each rank where the spec would split the head
+dim; and a recurrent state's heads (RWKV-6's ``wkv``, Mamba-2's ``ssd``,
+the ``x`` channels of its ``conv`` with ``B``/``C`` whole; the token-shift
+states whole), whatever ``cache_specs``' shape heuristic says of them.  A
+KV cache whose spec splits the sequence (too few rows for the data axes)
+raises.  The logits come back whole: gathered over the vocab shards and
+the rows.
 """
 
 from __future__ import annotations
-
-import dataclasses
 
 import numpy as np
 import torch
@@ -58,8 +61,33 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.models.registry import get_family
 from repro_torch.runtime import parallel as par
 
-# The families that serve over a model axis above 1.
-MODEL_AXIS_FAMILIES = ("dense", "transformer", "moe")
+# The cache leaves that are KV caches ([L, B, S, Hkv, Dh]; the
+# encoder-decoder's cross K/V too); any other leaf is a recurrent state.
+KV_LEAVES = ("k", "v", "xk", "xv")
+
+
+def serving_param_specs(cfg: ModelConfig) -> dict:
+    """The specs a serving rank places its weights by: the family's
+    ``param_specs``, but with the model axis taken out of the leaves every
+    model rank uses whole (the family's ``WHOLE_OVER_MODEL``: RWKV-6's
+    channel-mix ``wr``, Mamba-2's ``w_in`` and conv; an embedding split
+    over d_model, ``layers.embed_whole_over_model``).  Placed by
+    ``param_specs``, such a leaf is gathered over the model axis at every
+    step; the training step keeps the JAX package's layout and gathers it
+    once a step."""
+    from repro_torch.models.layers import MODEL_AXIS, embed_whole_over_model
+    from repro_torch.models.module import param_specs
+    from repro_torch.plan.sharded import P
+
+    fam = get_family(cfg.family)
+    specs = param_specs(fam.param_defs(cfg))
+    whole = set(getattr(fam, "WHOLE_OVER_MODEL", ())) | set(embed_whole_over_model(specs))
+
+    def drop(entry):
+        rest = tuple(a for a in par.spec_axes(entry) if a != MODEL_AXIS)
+        return rest if len(rest) > 1 else (rest[0] if rest else None)
+
+    return {k: P(*(drop(e) for e in s)) if k in whole else s for k, s in specs.items()}
 
 
 def _check_schedules(schedules, machine) -> None:
@@ -92,15 +120,6 @@ def _on(params: dict, x) -> torch.Tensor:
     return torch.as_tensor(x, device=params_device(params))
 
 
-def _leaves(tree, specs):
-    """(leaf, spec) of a cache tree and the tree of its specs."""
-    if not isinstance(tree, dict):
-        yield tree, specs
-        return
-    for k in tree:
-        yield from _leaves(tree[k], specs[k])
-
-
 class _Mesh:
     """What a builder does on ``parallel``'s mesh (nothing without one):
     the forward's mesh keywords, this rank's rows of a global batch, its
@@ -108,13 +127,7 @@ class _Mesh:
 
     def __init__(self, cfg: ModelConfig, parallel):
         self.cfg, self.parallel = cfg, parallel
-        tp = par.tp_size(parallel)
-        if tp > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
-            raise NotImplementedError(
-                f"serving the {cfg.family!r} family over a model axis of {tp} "
-                "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
-                "queue 1 #5c")
-        self.kw = {"parallel": parallel} if tp > 1 else {}
+        self.kw = {"parallel": parallel} if par.tp_size(parallel) > 1 else {}
 
     def _entry(self, batch: int):
         axes = self.parallel.batch_axes(batch)
@@ -133,19 +146,15 @@ class _Mesh:
         if ctx is None:
             return fam.init_cache(cfg, batch, max_seq, dtype, device=device)
         whole = fam.init_cache(cfg, batch, max_seq, dtype, device="meta")
-        for leaf, spec in _leaves(whole, par.cache_specs(ctx, whole)):
-            if leaf.ndim == 5 and leaf.shape[2] >= leaf.shape[3] and spec[2] is not None:
+        specs = par.cache_specs(ctx, whole)
+        for name in KV_LEAVES:
+            if name in whole and specs[name][2] is not None:
                 raise NotImplementedError(
                     f"a KV cache of {batch} rows on mesh {dict(ctx.mesh.shape)} would "
-                    f"split its sequence ({spec}); the sequence-split cache waits for "
-                    "ROADMAP queue 1 #5c")
-        local = cfg
-        if self.kw:
-            from repro_torch.models.layers import cache_heads
-
-            local = dataclasses.replace(cfg, n_kv_heads=cache_heads(cfg, ctx)[1])
+                    f"split its sequence ({specs[name]}); the sequence-split cache waits "
+                    "for ROADMAP queue 1 #5c (the sequence-split KV cache)")
         n = ctx.mesh.axis_size(par.spec_axes(self._entry(batch)))
-        return fam.init_cache(local, batch // n, max_seq, dtype, device=device)
+        return fam.init_cache(cfg, batch // n, max_seq, dtype, device=device, **self.kw)
 
     def logits(self, fam, params, h, batch: int) -> torch.Tensor:
         """The logits of this rank's rows, put back whole: every vocab

@@ -11,9 +11,10 @@ of the batch over the data axes, in one of two ways:
 * FSDP (``grad_specs``, the token families, as the JAX package's launcher
   shards them): each rank holds its shard of the parameters and of AdamW's
   moments under the specs; the step gathers each parameter over the data
-  axes only, runs the loss (the dense family and the MoE tensor-parallel
-  over the model axis), reduce-scatters the gradients back to the specs and runs
-  AdamW on the shards.
+  axes only, runs the loss (every token family tensor-parallel over the
+  model axis), reduce-scatters the gradients back to the specs and runs
+  AdamW on the shards; ``int8_ef`` compresses each rank's shards with the
+  whole tensor's scale (:func:`~repro_torch.optim.compression.compress_sharded_tree`).
 
 Both are the same function of the global batch as one device.
 ``run_elastic`` drives the steps through failures, the JAX package's
@@ -31,19 +32,15 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig, TrainConfig
-from repro_torch.models.layers import ce_chunks
+from repro_torch.models.layers import at_least_f32, ce_chunks
 from repro_torch.models import registry
 from repro_torch.models.registry import get_family
 from repro_torch.optim import adamw
-from repro_torch.optim.compression import compress_tree, init_error_buffers
+from repro_torch.optim.compression import (
+    compress_sharded_tree, compress_tree, init_error_buffers,
+)
 from repro_torch.runtime import collectives as coll
 from repro_torch.runtime import parallel as par
-
-
-# The families that run over a model axis above 1: the dense family
-# tensor-parallel, the MoE expert-parallel or TP-within-expert, the cnn
-# replicating its step over it.
-MODEL_AXIS_FAMILIES = ("dense", "transformer", "moe", "cnn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,8 +60,11 @@ def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
     (its [d, vocab] weight, made once per step) when given.  Under a vocab
     split over ``parallel``'s model axis (``layers.vocab_split``) each rank
     computes its vocab columns of the logits: a pmax and two psums over the
-    model axis give the log-sum-exp and the target logit."""
-    from repro_torch.models.layers import vocab_split
+    model axis give the log-sum-exp and the target logit; the plain head is
+    put in its rank-local layout once (``layers.head_of``: an embedding
+    stored split over d_model is gathered whole, then split by vocab), not
+    once a chunk."""
+    from repro_torch.models.layers import head_of, vocab_split
 
     B, S, d = hidden.shape
     n = ce_chunks(S, n_chunks)
@@ -74,9 +74,12 @@ def chunked_ce(cfg: ModelConfig, fam, params, hidden, labels, n_chunks: int,
     split = vocab_split(cfg, parallel)
     if par.tp_size(parallel) > 1:
         lkw["parallel"] = parallel
+        if split and not schedules:
+            name = "embed" if cfg.tie_embeddings else "w_out"
+            params = dict(params, **{name: head_of(params, cfg, parallel)})
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
     for h, lab in zip(hs, ls):
-        logits = fam.logits(cfg, params, h, **lkw).float()
+        logits = at_least_f32(fam.logits(cfg, params, h, **lkw))
         if split:
             lse, tgt = _vocab_parallel_terms(logits, lab, parallel)
         else:
@@ -144,9 +147,10 @@ def is_accumulated(batch: dict) -> bool:
 
 
 def loss_and_grads(loss_fn, params: dict, batch: dict):
-    """(loss, {name: f32 gradient}) of ``loss_fn`` at ``params``.  A batch
-    with a leading accumulation dim runs one autograd pass per micro-batch,
-    in order, summing the gradients in f32 from zeros; gradients and loss
+    """(loss, {name: f32 gradient}) of ``loss_fn`` at ``params`` (f64
+    gradients of f64 params).  A batch with a leading accumulation dim runs
+    one autograd pass per micro-batch, in order, summing the gradients in
+    f32 (f64) from zeros; gradients and loss
     are then divided by the number of micro-batches."""
     names = list(params)
 
@@ -157,14 +161,15 @@ def loss_and_grads(loss_fn, params: dict, batch: dict):
 
     if not is_accumulated(batch):
         loss, grads = one(batch)
-        return loss, {k: g.float() for k, g in zip(names, grads)}
+        return loss, {k: at_least_f32(g) for k, g in zip(names, grads)}
     n = next(iter(batch.values())).shape[0]
-    gsum = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    gsum = {k: torch.zeros(p.shape, dtype=torch.promote_types(p.dtype, torch.float32),
+                           device=p.device)
             for k, p in params.items()}
     lsum = torch.zeros((), dtype=torch.float32, device=next(iter(params.values())).device)
     for i in range(n):
         loss, grads = one({k: v[i] for k, v in batch.items()})
-        gsum = {k: gsum[k] + g.float() for k, g in zip(names, grads)}
+        gsum = {k: gsum[k] + at_least_f32(g) for k, g in zip(names, grads)}
         lsum = lsum + loss
     return lsum / n, {k: g / n for k, g in gsum.items()}
 
@@ -252,18 +257,10 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None,
     With ``grad_specs`` (``{name: P}``, the JAX package's ``fsdp_specs``)
     the state's parameters and moments are this rank's shards under them:
     the FSDP step (:func:`fsdp_loss_and_grads`), then AdamW on the shards
-    with the whole tree's clip.  Either way the same function of the
-    global batch.  Over a model axis above 1 the dense family and the MoE
-    run (:data:`MODEL_AXIS_FAMILIES`); the recurrent and encoder-decoder
-    families, and ``int8_ef`` on shards, wait for ROADMAP queue 1 #5c."""
-    if par.tp_size(parallel) > 1 and cfg.family not in MODEL_AXIS_FAMILIES:
-        raise NotImplementedError(
-            f"the {cfg.family!r} family over a model axis of {parallel.tp_size} "
-            "(tensor-parallel recurrent and encoder-decoder blocks) waits for ROADMAP "
-            "queue 1 #5c")
-    if grad_specs is not None and tcfg.grad_compression == "int8_ef":
-        raise NotImplementedError("int8_ef compression of sharded gradients waits for "
-                                  "ROADMAP queue 1 #5c")
+    with the whole tree's clip, ``int8_ef`` compressing each shard at its
+    whole tensor's scale.  Either way the same function of the global
+    batch.  Over a model axis above 1 the token families run
+    tensor-parallel and the cnn replicates its step."""
     loss_fn = make_loss_fn(cfg, tcfg, parallel)
 
     def train_step(state: TrainState, batch: dict):
@@ -280,7 +277,8 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig, parallel=None,
             upd = dict(specs=grad_specs, mesh=parallel.mesh)
         err = state.err
         if tcfg.grad_compression == "int8_ef" and err is not None:
-            grads, err = compress_tree(grads, err)
+            grads, err = (compress_tree(grads, err) if grad_specs is None
+                          else compress_sharded_tree(grads, err, grad_specs, parallel.mesh))
         params, opt, metrics = adamw.apply_updates(
             {k: p.detach() for k, p in state.params.items()}, grads, state.opt, tcfg, **upd)
         return TrainState(params, opt, err), dict(metrics, loss=loss)

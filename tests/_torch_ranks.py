@@ -1,5 +1,6 @@
 """Rank processes for the port's multi-process tests (``test_torch_sharded.py``,
-``test_torch_elastic.py``, ``test_torch_token_mesh*.py``).
+``test_torch_elastic.py``, ``test_torch_token_mesh*.py``, ``test_torch_moe_mesh.py``,
+``test_torch_families_mesh.py``).
 
 Run as ``python tests/_torch_ranks.py CASE RANK WORLD OUT ARGS_JSON``: the
 process joins a ``gloo`` group through a ``file://`` store under ``OUT``
@@ -453,14 +454,14 @@ TOKEN_ARGV = ["--device", "cpu", "--dist-backend", "gloo", "--steps", "3", "--ba
               "--seq", "32", "--log-every", "1"]
 
 
-def _carry_init(launch, out: Path) -> None:
+def _carry_init(launch, out: Path, name: str = "init.npz") -> None:
     """The launcher's ``init_params`` replaced by the JAX package's seeded
-    weights (``init.npz`` under ``out``)."""
+    weights (``name`` under ``out``)."""
     import numpy as np
 
     from repro_torch.convert import params_from_repro
 
-    init = dict(np.load(out / "init.npz"))
+    init = dict(np.load(out / name))
     launch.init_params = lambda defs, seed, *, device=None, dtype=None: (
         params_from_repro(init, device=device))
 
@@ -710,19 +711,20 @@ def serve_inputs(cfg) -> dict:
     return make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)(0)
 
 
-def serve_builders(sv, cfg, params, toks, parallel, lift=lambda x: x) -> dict:
+def serve_builders(sv, cfg, params, toks, parallel, lift=lambda x: x,
+                   whole=lambda cache: cache) -> dict:
     """The four step builders on ``toks`` [4, 17+]: prefill of 16 tokens,
     a decode at 16, a bucket prefill of SERVE_LENGTHS, a slot decode at
-    those lengths; each one's logits and cache, copied to numpy as it
-    came back (the port writes a cache in place; ``lift`` puts an input
-    where the builders take it)."""
+    those lengths; each one's logits and cache (as ``whole`` gives it),
+    copied to numpy as it came back (the port writes a cache in place;
+    ``lift`` puts an input where the builders take it)."""
     import numpy as np
 
     out = {}
 
     def keep(tag, cache, logits):
         out[f"{tag}.logits"] = np.array(logits)
-        out.update({f"{tag}.cache.{k}": np.array(v) for k, v in cache.items()})
+        out.update({f"{tag}.cache.{k}": np.array(v) for k, v in whole(cache).items()})
         return cache
 
     cache = keep("prefill", *sv.make_prefill_step(
@@ -786,6 +788,171 @@ def case_moe_mesh(rank: int, world: int, out: Path, args: dict) -> None:
     np.savez(out / f"moe_rank{rank}.npz", **res)
 
 
+# -- the recurrent and encoder-decoder families on a mesh ----------------------------
+
+ENCDEC_STEPS = 3
+
+
+def frames_batch(cfg, step: int):
+    """The encoder-decoder's training batch of ``step``: the seeded
+    source's tokens and labels, and seeded frames [4, T_enc, d]."""
+    import numpy as np
+
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.registry import make_data_source
+
+    batch = make_data_source(cfg, 4, 32, ShardInfo(0, 1), seed=0)(step)
+    rng = np.random.default_rng(100 + step)
+    batch["frames"] = rng.standard_normal((4, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return batch
+
+
+def frames_tcfg(config_cls):
+    """The encoder-decoder's train config: the launcher's at 3 steps."""
+    return config_cls(param_dtype="float32", compute_dtype="float32", learning_rate=3e-4,
+                      warmup_steps=min(100, ENCDEC_STEPS // 10 + 1),
+                      total_steps=ENCDEC_STEPS, loss_chunks=4, seed=0, remat="none")
+
+
+def family_serve(sv, cfg, params, toks, frames, parallel, lift=lambda x: x,
+                 whole=lambda cache: cache) -> dict:
+    """:func:`serve_builders` for the encoder-decoder, whose prefill takes
+    ``frames`` and which has no bucket prefill (no frames there, in either
+    package): prefill of 16 tokens, a decode at 16, then a slot decode of
+    token 16 at 16 on the decoded cache."""
+    import numpy as np
+
+    out = {}
+
+    def keep(tag, cache, logits):
+        out[f"{tag}.logits"] = np.array(logits)
+        out.update({f"{tag}.cache.{k}": np.array(v) for k, v in whole(cache).items()})
+        return cache
+
+    cache = keep("prefill", *sv.make_prefill_step(
+        cfg, SERVE_MAX_SEQ, "float32", "float32", parallel=parallel)(
+        params, {"tokens": lift(toks[:, :16]), "frames": lift(frames)}))
+    cache = keep("decode", *sv.make_decode_step(cfg, "float32", parallel=parallel)(
+        params, cache, lift(toks[:, 16:17]), 16))
+    keep("slot", *sv.make_slot_decode_step(cfg, parallel=parallel)(
+        params, cache, lift(toks[:, 16]), lift(np.full(4, 16, np.int32))))
+    return out
+
+
+def whole_cache(cfg, cache: dict, ctx) -> dict:
+    """A rank's serving cache put together whole: its rows gathered over
+    the data axes; over the model axis its heads of RWKV-6's ``wkv`` and
+    Mamba-2's ``ssd``, its ``x`` channels of ``conv`` (B/C whole on every
+    rank), and its KV heads where the heads split (MHA only, as the smoke
+    configs)."""
+    import torch
+
+    from repro_torch.models import layers as ll
+    from repro_torch.models import mamba2
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime.serve import KV_LEAVES
+
+    mesh, tp = ctx.mesh, ctx.tp_size
+    out = {}
+    for name, t in cache.items():
+        t = t.detach()
+        if tp > 1:
+            if name in ("wkv", "mamba/ssd"):
+                t = coll._all_gather(t.contiguous(), mesh, ctx.tp_axis, 2)
+            elif name == "mamba/conv":
+                n = mamba2.local_dims(cfg, ctx)[0]
+                x = coll._all_gather(t[..., :n].contiguous(), mesh, ctx.tp_axis, 3)
+                t = torch.cat([x, t[..., n:]], -1)
+            elif name in KV_LEAVES and ll.attention_split(cfg, 1, ctx, cached=True) == "heads":
+                assert cfg.n_heads == cfg.n_kv_heads, "whole_cache gathers MHA KV heads only"
+                t = coll._all_gather(t.contiguous(), mesh, ctx.tp_axis, 3)
+        rows = ctx.batch_axes(4)
+        if rows:
+            t = coll._all_gather(t.contiguous(), mesh, rows, 1)
+        out[name] = t
+    return out
+
+
+def case_families_mesh(rank: int, world: int, out: Path, args: dict) -> None:
+    """The recurrent and encoder-decoder families on ``args["mesh"]`` from
+    the carried weights (``init_{tag}.npz``), each ``args["parts"]``
+    entry ``[tag, arch, changes, what]``: "launcher" (3 losses),
+    "grads" (the FSDP step-1 loss and every gradient, gathered whole),
+    "frames" (3 steps of the FSDP train step on frames batches), "serve"
+    (the step builders on parameters placed by the model axis of
+    ``serve.serving_param_specs`` where ``args["serving_specs"]``, else of
+    their specs, each cache gathered whole), "int8_ef" (the launcher under
+    ``--grad-compression int8_ef``).  Rank 0 writes
+    ``families_{mesh}.npz``."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import serve as sv
+    from repro_torch.runtime import train as tr
+
+    mesh = args["mesh"]
+    ctx = _mesh_ctx(mesh)
+    real = launch.smoke_config
+    res = {}
+    for tag, arch, changes, what in args["parts"]:
+        cfg = dataclasses.replace(smoke_config(arch), **changes)
+        init = f"init_{tag}.npz"
+        params = params_from_repro(dict(np.load(out / init)), device="cpu")
+        if what in ("launcher", "int8_ef"):
+            _carry_init(launch, out, init)
+            launch.smoke_config = lambda a, changes=changes: dataclasses.replace(real(a),
+                                                                                 **changes)
+            argv = ["--arch", arch, "--smoke", "--mesh", mesh, *TOKEN_ARGV]
+            if what == "int8_ef":
+                argv += ["--grad-compression", "int8_ef"]
+            res[f"{tag}.{what}.losses"] = np.array([h["loss"] for h in launch.main(argv)])
+            launch.smoke_config = real
+        elif what == "grads":
+            tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                               remat="none")
+            batch = frames_batch(cfg, 0) if cfg.family == "encdec" else serve_inputs(cfg)
+            loss, grads = _step1(cfg, tcfg, ctx, params, tr.batch_to(batch, "cpu"))
+            res[f"{tag}.loss1"] = np.array(loss)
+            res.update({f"{tag}.grad.{k}": g for k, g in grads.items()})
+        elif what == "frames":
+            tcfg = frames_tcfg(TrainConfig)
+            defs = get_family(cfg.family).param_defs(cfg)
+            specs = fsdp_specs(param_specs(defs), abstract_params(defs), ctx)
+            state = tr.init_state(cfg, tcfg, {k: par.shard_tensor(v, specs[k], ctx.mesh)
+                                              for k, v in params.items()})
+            step = tr.make_train_step(cfg, tcfg, parallel=ctx, grad_specs=specs)
+            losses = []
+            for i in range(ENCDEC_STEPS):
+                state, metrics = step(state, tr.batch_to(frames_batch(cfg, i), "cpu"))
+                losses.append(float(metrics["loss"]))
+            res[f"{tag}.frames.losses"] = np.array(losses)
+        else:  # serve
+            specs = (sv.serving_param_specs(cfg) if args.get("serving_specs")
+                     else param_specs(get_family(cfg.family).param_defs(cfg)))
+            placed = {k: par.shard_tensor(v, specs[k], ctx.mesh, axes=(ctx.tp_axis,))
+                      for k, v in params.items()}
+            toks = torch.from_numpy(serve_inputs(cfg)["tokens"])
+            whole = functools.partial(whole_cache, cfg, ctx=ctx)
+            if cfg.family == "encdec":
+                frames = torch.from_numpy(frames_batch(cfg, 0)["frames"])
+                got = family_serve(sv, cfg, placed, toks, frames, ctx, whole=whole)
+            else:
+                got = serve_builders(sv, cfg, placed, toks, ctx, whole=whole)
+            res.update({f"{tag}.{k}": v for k, v in got.items()})
+    if rank == 0:
+        np.savez(out / f"families_{mesh}.npz", **res)
+
+
 def case_tune_agree(rank: int, world: int, out: Path, args: dict) -> None:
     """``autotune.tune`` of multi-device matmul cells on a ("model",) mesh
     with stopwatches that disagree (rank 0's times fall candidate by
@@ -845,7 +1012,7 @@ CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": cas
          "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts,
          "tokens": case_tokens, "seqp": case_seqp, "token_ckpt": case_token_ckpt,
          "token_elastic": case_token_elastic, "moe_mesh": case_moe_mesh,
-         "tune_agree": case_tune_agree}
+         "tune_agree": case_tune_agree, "families_mesh": case_families_mesh}
 
 
 def main() -> int:

@@ -274,12 +274,12 @@ def test_parse_mesh_equals_repro(spec):
 
 
 def test_launcher_mesh_for_a_token_family_raises():
-    """The token families train on a mesh now; a recurrent family over a
-    model axis above 1 still raises, before any rank starts (the dense
-    family and the MoE run there)."""
+    """Every token family trains over a model axis above 1 now; the dense
+    family's planned path with query heads that do not split (the smoke
+    config's 4 over 8) still raises, before any rank starts."""
     with pytest.raises(NotImplementedError, match="5c"):
-        tlaunch.main(["--family", "rwkv6", "--device", "cpu", "--steps", "1",
-                      "--mesh", "1x2"])
+        tlaunch.main(["--family", "transformer", "--device", "cpu", "--steps", "1",
+                      "--planned-kernels", "--mesh", "1x8"])
 
 
 def test_op_plan_sharded_keys_autotune_by_strategy(tmp_path):

@@ -280,11 +280,23 @@ def test_a_cache_split_over_the_sequence_raises_5c():
 
 
 def test_recurrent_families_over_a_model_axis_raise_5c_in_the_builders():
+    """The recurrent families served over a model axis above 1 raised until
+    #5c's recurrent part: building the slot decode raises nothing now, and
+    a rank's state holds half the heads
+    (``tests/test_torch_families_mesh.py`` runs the builders and holds them
+    against ``repro``)."""
+    import torch
+
     from repro_torch.configs import smoke_config
+    from repro_torch.models.registry import get_family
     from repro_torch.runtime import serve as sv
     from repro_torch.runtime.parallel import ParallelCtx
 
-    ctx = ParallelCtx(mesh=_Stub({"data": 0, "model": 0}, data=1, model=2))
-    for arch in ("rwkv6-1.6b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="5c"):
-            sv.make_slot_decode_step(smoke_config(arch), parallel=ctx)
+    ctx = ParallelCtx(mesh=_Stub({"data": 0, "model": 1}, data=1, model=2))
+    for arch, leaf in (("rwkv6-1.6b", "wkv"), ("zamba2-1.2b", "mamba/ssd")):
+        cfg = smoke_config(arch)
+        sv.make_slot_decode_step(cfg, parallel=ctx)
+        cache = sv._Mesh(cfg, ctx).init_cache(get_family(cfg.family), 4, 64, torch.float32,
+                                              "cpu")
+        whole = get_family(cfg.family).init_cache(cfg, 4, 64, torch.float32, device="cpu")
+        assert cache[leaf].shape[2] * 2 == whole[leaf].shape[2]

@@ -10,9 +10,10 @@ against the JAX package, on CPU ranks (as ``test_torch_token_mesh.py``).
   ``repro``'s launcher on 2 devices (capacity couples the tokens of one
   dispatch, so the MoE's reference is ``repro`` on the same mesh), and
   RWKV-6's step-1 gradients against ``jax.grad``.
-* The recurrent and encoder-decoder families over a model axis of 2, and
-  the planned forward with query heads that do not split, raise and name
-  ROADMAP queue 1 #5c (the MoE over a model axis is
+* The recurrent and encoder-decoder families over a model axis of 2 build
+  their step (``tests/test_torch_families_mesh.py`` holds them against
+  ``repro``); the planned forward with query heads that do not split
+  raises and names ROADMAP queue 1 #5c (the MoE over a model axis is
   ``tests/test_torch_moe_mesh.py``).
 """
 
@@ -160,12 +161,18 @@ def _ctx(data: int, model: int):
 
 @pytest.mark.parametrize("family", ["rwkv6", "zamba2", "encdec"])
 def test_other_families_over_a_model_axis_raise_5c(family):
+    """These families raised over a model axis above 1 until #5c's
+    recurrent and encoder-decoder part: building the step raises nothing
+    now, with ``int8_ef`` on the shards too
+    (``tests/test_torch_families_mesh.py`` runs the steps and holds them
+    against ``repro``)."""
     from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, smoke_config
     from repro_torch.runtime import train as tr
 
     cfg = dataclasses.replace(smoke_config(FAMILY_DEFAULT_ARCH[family]), family=family)
-    with pytest.raises(NotImplementedError, match="5c"):
-        tr.make_train_step(cfg, TrainConfig(), parallel=_ctx(1, 2), grad_specs={})
+    for knob in ("none", "int8_ef"):
+        tr.make_train_step(cfg, TrainConfig(grad_compression=knob), parallel=_ctx(1, 2),
+                           grad_specs={})
 
 
 def test_planned_forward_with_undividable_heads_raises_5c():
