@@ -59,7 +59,13 @@ Phases, each printing one JSON line; any failure raises and exits nonzero:
              lengths (1000) and a case whose late rows see no key (q_len
              1000, kv_len 500, window 256): those rows must be exactly 0 in
              both.  Phase-2 tolerance.  The transformer's call is launched
-             twice and must give the same bits.
+             twice and must give the same bits.  Then the query offset
+             (``q_off``, the planned sequence-parallel attention): slices
+             of 512 query rows at offsets 512, 1536, 200 and 1000 of a
+             causal 2048 (GQA 8/4 at D = 64 and 128, with and without a
+             window) against their plain version at the phase-2 tolerance
+             and bit for bit against the whole call's rows; each timed
+             beside the same slice at q_off = 0.
 7. transformer — the main path of the third slice: the launcher
              (``--arch qwen1.5-0.5b --batch 4 --seq 2048 --steps 3
              --planned-kernels``, full width and depth, f32) with its launch
@@ -367,7 +373,7 @@ The sixteenth slice (after ``moe_serve``):
                tokens and 8 decodes against the one-device run.  (c)
                ``--arch qwen3-moe-235b-a22b --mesh 2x2`` through the
                launcher, 1 layer and 16 experts (reduced from 94 and 128),
-               4 x 512, 3 AdamW steps: the losses within 1e-4 relative of a
+               4 x 256, 3 AdamW steps: the losses within 1e-4 relative of a
                one-device run whose step averages each data shard's
                gradients, the FSDP step's step-1 loss within 1e-5 relative
                and every gradient shard within 1e-4 x max(1, max|g|).  Per
@@ -384,16 +390,17 @@ The seventeenth slice (after ``families``):
                --families-rank``): 4 ranks on 2x2 run the training cases in
                turn, then 2 ranks on 1x2 the serving cases.  (a) rwkv6-1.6b
                at full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab
-               65536), its depth of 24 cut to 4 for training: the launcher at
-               4 x 512, 3 AdamW steps; served at full depth, a prefill of
+               65536), its depth of 24 cut to 2 for training: the launcher at
+               4 x 256, 3 AdamW steps; served at full depth, a prefill of
                2 x 256 and 16 decodes.  (b) zamba2-1.2b likewise, its depth
                of 38 cut to 7 for training (the shared block runs once); its
                SSD state [L, B, 64, 64, 64] is what ``cache_specs`` takes for
                a KV cache, and each rank holds its heads.  (c)
-               seamless-m4t-medium at full width and depth: the FSDP train
-               step on seeded frames batches (4 x 512 tokens, 4 x 512 x 1024
+               seamless-m4t-medium at full width, its decoder's 12 layers cut
+               to 4 for training: the FSDP train
+               step on seeded frames batches (4 x 256 tokens, 4 x 256 x 1024
                frames; its launcher has no frames), served with 2 x 4096 x
-               1024 frames.  (d) qwen1.5-0.5b cut to 4 layers through the
+               1024 frames.  (d) qwen1.5-0.5b cut to 2 layers through the
                launcher with ``--planned-kernels --grad-compression int8_ef``
                at 4 x 2048.  Checks: the 3 losses within LOSS_TOL relative
                of the one-device run; the FSDP step-1 loss within 1e-5
@@ -410,6 +417,31 @@ The seventeenth slice (after ``families``):
                also phase families' spread), and the same steps in f64 on
                the mesh within FM_F64_TOL of scale of one device's f64
                logits.  Per rank: step, prefill and decode ms, collectives
+               by kind, peak memory.
+
+The eighteenth slice (after ``families_mesh``):
+
+24. long_mesh — attention over a piece of the sequence on a mesh (path
+               ``long_mesh``).  Each case's one-device reference first in
+               this process (f32, TF32 off, weights drawn on the card; the
+               serving cases' whole cache written to disk for the ranks),
+               then rank processes sharing cuda:0 over gloo
+               (``chip_smoke.py --long-rank``).  (a) gemma3-4b and (b)
+               zamba2-1.2b at full width and depth served at batch 1 on
+               2x2, so every KV cache splits its sequence over the idle
+               data axis: a prefill past the ranks' boundary at max_seq /
+               2 (LM_SERVE) and 16 greedy decodes; the streams equal, every
+               step's logits within TOL of scale and each rank's cache
+               piece (KV leaves by its positions and KV heads, states
+               whole) within TOL of scale of the one-device run.  (c)
+               qwen1.5-0.5b at full width cut to 4 layers, planned, through
+               the launcher on 1x3 (16 query heads do not split: each rank
+               attends 512 of 1536 query rows on the flash kernel at q_off
+               0, 512, 1024), 3 AdamW steps at 2 x 1536: each rank's
+               launches a step those of its local plan (flash 4) at its
+               offset, the step-1 loss and 3 losses within 1e-5 relative
+               and every gradient shard within TOL x max(1, max|g|) of one
+               device.  Per rank: prefill, decode and step ms, collectives
                by kind, peak memory.
 
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
@@ -557,20 +589,48 @@ MOE_MESH_LADDER = [(4, 256), (8, 512)]  # (a): tuned on the mesh; the prefill ru
 MOE_MESH_DECODES = 16
 MOE_TPE_ARCH, MOE_TPE_MESH, MOE_TPE_LAYERS = "grok-1-314b", "1x2", 1  # (b)
 MOE_TPE_PROMPT, MOE_TPE_DECODES = (2, 128), 8  # (b): rows x prompt tokens, decodes
-MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=512, steps=3)  # (c)
+# (c); seq 512 -> 256 for the script's time limit (the phase long_mesh joined)
+MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=256, steps=3)
 MOE_MESH_TIMEOUT = 900  # seconds a rank process may take
 # Phase families_mesh: RWKV-6, Zamba2, the encoder-decoder and int8_ef on FSDP
 # shards, on meshes of ranks sharing the card.
 FM_TRAIN_MESH, FM_SERVE_MESH = "2x2", "1x2"
-FM_TRAIN = dict(batch=4, seq=512, steps=3, frames=512)  # frames: T_enc of a training batch
-FM_TRAIN_LAYERS = {"rwkv6-1.6b": 4, "zamba2-1.2b": 7}  # depth cuts (seamless: full depth)
+# The training cases cut for the script's time limit when phase long_mesh
+# joined (seq and frames 512 -> 256, rwkv6 and (d) 4 layers -> 2, seamless's
+# decoder 12 -> 4).
+FM_TRAIN = dict(batch=4, seq=256, steps=3, frames=256)  # frames: T_enc of a training batch
+FM_TRAIN_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 7,  # depth cuts (seamless: the decoder)
+                   "seamless-m4t-medium": 4}
 FM_SERVE = dict(rows=2, prompt=256, decodes=16)  # full width and depth
-FM_EF_LAYERS = 4  # (d): qwen1.5-0.5b, 24 layers -> 4, 4 x 2048, planned, int8_ef
+FM_EF_LAYERS = 2  # (d): qwen1.5-0.5b, 24 layers -> 2, 4 x 2048, planned, int8_ef
 FM_TRAIN_CASES = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium", "ef")
 FM_TIMEOUT = 900  # seconds a rank process may take
 # Of scale: a mesh's f64 step-1 gradients and served logits against one
 # device's f64 ones ((a)-(c); the same sums in another order).
 FM_F64_TOL = 1e-9
+# Phase long_mesh: attention over a piece of the sequence on meshes of ranks
+# sharing the card.  (a), (b): batch 1 served on 2x2 (the data axis idle:
+# every KV cache split over the sequence); max_seq cut from long_500k's
+# 524288 for four ranks on one card and the script's time limit (at 65536
+# gemma3's four ranks took 17.3 GiB each and the card ran out; at 32768 the
+# phase took 189 s, 59 s of it gemma3's prefill a rank, 34 s of that gloo's
+# psums of its [16896, 2560] activations; at 16384 the whole script took
+# 1278 s); each prompt a multiple of 512 (the blockwise attention's query
+# chunk) past the ranks' boundary at max_seq / 2.
+LM_SERVE_MESH = "2x2"
+LM_SERVE = {"gemma3-4b": dict(max_seq=8192, prompt=4608),
+            "zamba2-1.2b": dict(max_seq=8192, prompt=4608)}
+LM_DECODES = 16
+# (c): the planned step on 1x3, where 16 query heads do not split: 512
+# query rows a rank at offsets 0, 512 and 1024.
+LM_TRAIN_MESH = "1x3"
+LM_TRAIN = dict(arch="qwen1.5-0.5b", layers=4, batch=2, seq=1536, steps=3)
+LM_LOSS_TOL = 1e-5  # relative: (c)'s step-1 loss and its 3 losses
+LM_TIMEOUT = 900  # seconds a rank process may take
+# Phase flash's offset cases: (D, window) at S = 2048 with GQA 8/4; a slice
+# of 512 query rows at each offset (multiples of block_q and not).
+FLASH_OFFSET_CASES = [(64, None), (64, 512), (128, None), (128, 1024)]
+FLASH_OFFSETS = (512, 1536, 200, 1000)
 
 
 def tfm_chunks() -> int:
@@ -1559,6 +1619,63 @@ def check_flash_case(torch, case, results, phase: str) -> None:
          rows_without_key=n_zero)
 
 
+def flash_offset_checks(torch, results) -> None:
+    """The kernel on a slice of the query rows at an offset (``q_off``, the
+    planned sequence-parallel attention): for each FLASH_OFFSET_CASES case,
+    the whole causal call and slices of 512 rows at FLASH_OFFSETS, each
+    against its plain version at the phase-2 tolerance and bit for bit
+    against the whole call's rows (a row's scores meet the same key blocks
+    in the same order wherever its q block starts); each slice's time
+    beside the same slice's at q_off = 0 (whose blocks the mask leaves
+    fewer) and beside the bound of the pairs it attends."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+    from repro_torch.plan import AttentionPlanner
+
+    S, hq, hkv, n = 2048, 8, 4, 512
+    for d, window in FLASH_OFFSET_CASES:
+        g = torch.Generator(device="cuda").manual_seed(SEED + 6)
+        plan = AttentionPlanner().plan(seq_q=n, seq_kv=S, head_dim=d, n_q_heads=hq,
+                                       n_kv_heads=hkv, batch=1, in_bytes=4, causal=True,
+                                       window=window)
+        kw = dict(block_q=plan.block("block_q"), block_kv=plan.block("block_kv"),
+                  scale=d ** -0.5, causal=True, window=window, kv_len=S)
+        q = torch.randn(hq, S, d, device="cuda", generator=g)
+        k = torch.randn(hkv, S, d, device="cuda", generator=g)
+        v = torch.randn(hkv, S, d, device="cuda", generator=g)
+        whole = flash_attention_kernel(q, k, v, q_len=S, **kw)
+        at0 = q[:, :n].contiguous()
+        ms0 = median_ms(lambda: flash_attention_kernel(at0, k, v, q_len=n, **kw))
+        for off in FLASH_OFFSETS:
+            qs = q[:, off:off + n].contiguous()
+            got = flash_attention_kernel(qs, k, v, q_len=n, q_off=off, **kw)
+            want = flash_attention_kernel.plain(qs, k, v, q_len=n, q_off=off, **kw)
+            torch.cuda.synchronize()
+            err = max_err(got, want)
+            label = f"offset-d{d}-w{window}-q{off}"
+            check(err <= TOL * scale(want), f"flash_attention {label}: err {err}")
+            same = bool(torch.equal(got, whole[:, off:off + n]))
+            check(same, f"flash_attention {label}: rows differ from the whole call's")
+            results["flash_attention"]["max_abs_err"] = max(
+                results["flash_attention"]["max_abs_err"], err)
+            ms = median_ms(lambda: flash_attention_kernel(qs, k, v, q_len=n, q_off=off, **kw))
+            plain_ms = median_ms(lambda: flash_attention_kernel.plain(qs, k, v, q_len=n,
+                                                                      q_off=off, **kw))
+            pairs = sum(visible_row(off + r, S, window) for r in range(n))
+            bound, by = bound_ms(4.0 * hq * pairs * d, 4.0 * d * (2 * hq * n + 2 * hkv * S))
+            emit(phase="flash", kernel="flash_attention", case=label, q_off=off, rows=n,
+                 kv_len=S, heads=[hq, hkv], head_dim=d, window=window,
+                 blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
+                 multiple_of_block_q=off % kw["block_q"] == 0, max_abs_err=err,
+                 max_abs_plain=float(want.abs().max()), bits_equal_whole_call=same, ms=ms,
+                 q_off0_ms=ms0, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
+
+
+def visible_row(pos: int, kv_len: int, window) -> int:
+    """The keys a causal row at ``pos`` sees, with ``window`` if given."""
+    lo = 0 if window is None else max(0, pos - window + 1)
+    return max(0, min(pos, kv_len - 1) - lo + 1)
+
+
 def phase_flash(torch, s_attn, results):
     from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
 
@@ -1568,6 +1685,7 @@ def phase_flash(torch, s_attn, results):
         if label == "main":
             check_bit_identical(torch, "flash_attention", "attn",
                                 lambda: flash_attention_kernel(q, k, v, **kw))
+    flash_offset_checks(torch, results)
 
 
 def tfm_calls(tf, cfg, plans, batch: int = TFM_BATCH, seq: int = TFM_SEQ) -> dict:
@@ -5213,7 +5331,7 @@ def fm_tcfg(case: str):
 
 def fm_batch(torch, cfg, step: int) -> dict:
     """A training case's batch of ``step`` on the card: the launcher's
-    seeded source (4 x 512; (d) 4 x 2048), and for the encoder-decoder
+    seeded source (4 x 256; (d) 4 x 2048), and for the encoder-decoder
     seeded frames [4, FM_TRAIN["frames"], d] (its launcher has none)."""
     import numpy as np
 
@@ -5704,6 +5822,449 @@ def phase_families_mesh(torch, kernels, results, card, families) -> None:
     emit(phase="families_mesh", reference_seconds=ref_s, seconds=time.perf_counter() - t_phase)
 
 
+def lm_config(case: str):
+    """A case's configuration: (a), (b) at full width and depth; (c)
+    "planned": qwen1.5-0.5b cut to LM_TRAIN's layers."""
+    from repro_torch.configs import get_config
+
+    if case == "planned":
+        return dataclasses.replace(get_config(LM_TRAIN["arch"]), n_layers=LM_TRAIN["layers"])
+    return get_config(case)
+
+
+def lm_prompt(cfg, case: str):
+    """A serving case's seeded prompt [1, LM_SERVE[case]["prompt"]]."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 40)
+    return rng.integers(0, cfg.vocab, (1, LM_SERVE[case]["prompt"])).astype(np.int32)
+
+
+def lm_serve(torch, cfg, params, tokens, max_seq: int, parallel=None):
+    """The whole-batch prefill of ``tokens`` at ``max_seq`` (f32 cache) and
+    LM_DECODES greedy decodes: (tokens [1, LM_DECODES + 1], every step's
+    logits on the host [steps, V], event ms of each call, the collectives
+    of each call, the cache)."""
+    from repro_torch.runtime import collectives as coll
+    from repro_torch.runtime import serve as sv
+
+    prefill = sv.make_prefill_step(cfg, max_seq, "float32", "float32", parallel=parallel)
+    decode = sv.make_decode_step(cfg, "float32", parallel=parallel)
+    ms, colls, logits = [], [], []
+
+    def timed(fn):
+        before = coll.STATS.as_dict()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn()
+        end.record()
+        end.synchronize()
+        ms.append(start.elapsed_time(end))
+        colls.append(stats_since(before))
+        return out
+
+    cache, lg = timed(lambda: prefill(params, {"tokens": torch.from_numpy(tokens).cuda()}))
+    out = []
+    for i in range(LM_DECODES + 1):
+        logits.append(lg[0, -1].cpu())
+        out.append(torch.argmax(lg[:, -1], -1).to(torch.int32))
+        if i == LM_DECODES:
+            break
+        cache, lg = timed(lambda: decode(params, cache, out[-1][:, None],
+                                         tokens.shape[1] + i))
+    return torch.stack(out, 1).cpu(), torch.stack(logits), ms, colls, cache
+
+
+def lm_reference(torch, work: Path, case: str) -> dict:
+    """A case's one-device reference in this process, saved under
+    ``work``: serving, the streams and every step's logits, and the cache
+    whole (``ref_cache.pt``, on the host's disk: the ranks read their
+    pieces); (c), the planned step-1 loss and gradients and 3 steps'
+    losses.  Weights drawn on the card from the seed (serving: with the
+    serving phases' noise)."""
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import train as tr
+
+    cfg = lm_config(case)
+    defs = get_family(cfg.family).param_defs(cfg)
+    work.mkdir(parents=True)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t_case = t0 = time.perf_counter()
+    params = device_params(torch, defs, SEED, noise=case != "planned")
+    rec = {"case": case, "draw_s": time.perf_counter() - t0,
+           "params": sum(v.numel() for v in params.values())}
+    if case != "planned":
+        streams, logits, ms, _, cache = lm_serve(torch, cfg, params, lm_prompt(cfg, case),
+                                                 LM_SERVE[case]["max_seq"])
+        rec["peak_memory_bytes"] = torch.cuda.max_memory_allocated()
+        del params
+        t1 = time.perf_counter()
+        scales = {k: float(v.abs().max()) for k, v in cache.items()}
+        torch.save({k: v.cpu() for k, v in cache.items()}, work / "ref_cache.pt")
+        del cache
+        torch.save({"streams": streams, "logits": logits}, work / "ref.pt")
+        rec.update(streams=streams.tolist(), call_ms=ms, cache_scales=scales,
+                   cache_save_s=time.perf_counter() - t1)
+    else:
+        tcfg = launcher_tcfg(LM_TRAIN["steps"], remat="none", planned_kernels=True)
+        batch = lm_batch(torch, cfg, 0)
+        loss, grads = tr.loss_and_grads(tr.make_loss_fn(cfg, tcfg), params, batch)
+        torch.save({k: g.cpu() for k, g in grads.items()}, work / "ref_grads.pt")
+        (work / "ref_scales.json").write_text(json.dumps(
+            {k: float(g.abs().max()) for k, g in grads.items()}))
+        del grads
+        step = tr.make_train_step(cfg, tcfg)
+        state, losses = tr.init_state(cfg, tcfg, params), []
+        for i in range(LM_TRAIN["steps"]):
+            state, metrics = step(state, lm_batch(torch, cfg, i))
+            losses.append(float(metrics["loss"]))
+        del state, params
+        rec.update(loss1=float(loss), losses=losses,
+                   peak_memory_bytes=torch.cuda.max_memory_allocated())
+    torch.cuda.empty_cache()
+    rec["seconds"] = time.perf_counter() - t_case
+    return rec
+
+
+def lm_batch(torch, cfg, step: int) -> dict:
+    """(c)'s batch of ``step``: the launcher's seeded source, on the card."""
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    return tr.batch_to(make_data_source(cfg, LM_TRAIN["batch"], LM_TRAIN["seq"],
+                                        ShardInfo(0, 1), seed=SEED)(step), "cuda")
+
+
+def lm_whole_state(torch, cfg, name: str, t, ctx):
+    """A recurrent state leaf of a rank's cache put whole over the model
+    axis (Mamba-2's ``ssd`` heads, its ``conv`` x channels; B/C whole)."""
+    from repro_torch.models import mamba2
+    from repro_torch.runtime import collectives as coll
+
+    if ctx.tp_size == 1:
+        return t
+    if name == "mamba/ssd":
+        return coll._all_gather(t.contiguous(), ctx.mesh, ctx.tp_axis, 2)
+    n = mamba2.local_dims(cfg, ctx)[0]
+    x = coll._all_gather(t[..., :n].contiguous(), ctx.mesh, ctx.tp_axis, 3)
+    return torch.cat([x, t[..., n:]], -1)
+
+
+def lm_cache_errs(torch, cfg, ctx, cache: dict, ref: dict) -> dict:
+    """Each leaf of this rank's cache against the one-device cache: a KV
+    leaf's piece (its run of positions over the idle data axes, its KV
+    heads) against the same slice of the whole one, layer by layer; a
+    recurrent state put whole.  {leaf: [max err, the piece's first
+    position, positions, first KV head, KV heads]}."""
+    from repro_torch.models import layers as ll
+    from repro_torch.runtime.serve import KV_LEAVES
+
+    spare = ctx.spare_dp_axes(1)
+    out = {}
+    for name, t in cache.items():
+        if name not in KV_LEAVES:
+            whole = lm_whole_state(torch, cfg, name, t, ctx)
+            out[name] = [max_err(whole, ref[name].cuda()), 0, 0, 0, 0]
+            continue
+        piece = t.shape[2]
+        s0 = ctx.mesh.axis_index(spare) * piece
+        h0, hn = ll.cache_heads(cfg, ctx) if ctx.tp_size > 1 else (0, cfg.n_kv_heads)
+        err = 0.0
+        for layer in range(t.shape[0]):
+            want = ref[name][layer, :, s0:s0 + piece, h0:h0 + hn].cuda()
+            err = max(err, max_err(t[layer], want))
+            del want
+        out[name] = [err, s0, piece, h0, hn]
+    return out
+
+
+def lm_serve_rank(torch, case: str, ctx, work: Path) -> dict:
+    """One rank of (a) or (b) on LM_SERVE_MESH at batch 1: weights placed by
+    ``serving_param_specs``' model axis (drawn in turn), the prefill and
+    LM_DECODES greedy decodes timed, then its cache piece against the
+    one-device cache and (rank 0) every step's logits against the
+    reference's."""
+    import torch.distributed as dist
+
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import serve as sv
+
+    cfg = lm_config(case)
+    defs = get_family(cfg.family).param_defs(cfg)
+    specs = sv.serving_param_specs(cfg)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = staggered(torch, lambda: device_params(
+        torch, defs, SEED, place=lambda path, w: par.shard_tensor(
+            w, specs[path], ctx.mesh, axes=(ctx.tp_axis,))))
+    rec = {"case": case, "draw_s": time.perf_counter() - t0,
+           "param_bytes": sum(t.numel() * t.element_size() for t in params.values()),
+           "allocated_after_draw_bytes": torch.cuda.memory_allocated()}
+    streams, logits, ms, colls, cache = lm_serve(torch, cfg, params, lm_prompt(cfg, case),
+                                                 LM_SERVE[case]["max_seq"], parallel=ctx)
+    rec.update(streams=streams.tolist(), call_ms=ms, call_collectives=colls,
+               peak_memory_bytes=torch.cuda.max_memory_allocated(),
+               cache_bytes=sum(t.numel() * t.element_size() for t in cache.values()))
+    del params
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    rec["cache_errs"] = lm_cache_errs(torch, cfg, ctx, cache,
+                                      torch.load(work / "ref_cache.pt", mmap=True))
+    rec["cache_check_s"] = time.perf_counter() - t1
+    del cache
+    if dist.get_rank() == 0:
+        ref = torch.load(work / "ref.pt")
+        rec.update(logits_err_over_scale=[max_err(g, w) / scale(w)
+                                          for g, w in zip(logits, ref["logits"])],
+                   ref_streams=ref["streams"].tolist())
+    torch.cuda.empty_cache()
+    dist.barrier()
+    return rec
+
+
+def lm_train_rank(torch, kernels, ctx, work: Path) -> dict:
+    """One rank of (c) on LM_TRAIN_MESH: the launcher (planned, the config
+    cut to LM_TRAIN's layers) for 3 AdamW steps, each step's launches and
+    the query offsets its flash launches took; then the FSDP step's
+    step-1 loss and each gradient shard against the reference's."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import train as launch
+    from repro_torch.launch.specs import fsdp_specs
+    from repro_torch.models.module import abstract_params, param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import train as tr
+
+    cfg = lm_config("planned")
+    tcfg = launcher_tcfg(LM_TRAIN["steps"], remat="none", planned_kernels=True)
+    defs = get_family(cfg.family).param_defs(cfg)
+    aparams = abstract_params(defs)
+    specs = {k: par.fit_spec(s, aparams[k].shape, ctx.mesh)  # the launcher's placement
+             for k, s in fsdp_specs(param_specs(defs), aparams, ctx).items()}
+    flash = kernels["flash_attention"]
+    offsets, real_launch = [], flash.launch
+
+    def launch_seen(kernel, *tensors, **params):
+        offsets.append(params.get("q_off", 0))
+        return real_launch(kernel, *tensors, **params)
+
+    zero_counts(kernels)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    launch.get_config = lambda arch: cfg
+    launch.init_params = lambda defs, seed, *, device=None, dtype=None: device_params(
+        torch, defs, seed, noise=False)
+    argv = ["--arch", cfg.name, "--mesh", LM_TRAIN_MESH, "--dist-backend", "gloo",
+            "--planned-kernels", "--batch", str(LM_TRAIN["batch"]), "--seq",
+            str(LM_TRAIN["seq"]), "--steps", str(LM_TRAIN["steps"]), "--seed", str(SEED),
+            "--log-every", "1"]
+    incarnations, saves = [], []
+    t0 = time.perf_counter()
+    flash.launch = launch_seen
+    try:
+        with elastic_spy(torch, kernels, incarnations, saves):
+            history = launch.main(argv)
+    finally:
+        flash.launch = real_launch
+    rec = {"case": "planned", "run_s": time.perf_counter() - t0,
+           "losses": [h["loss"] for h in history], "steps": incarnations[0]["steps"],
+           "q_offsets": sorted(set(offsets)), "flash_calls": len(offsets),
+           "launch_peak_memory_bytes": torch.cuda.max_memory_allocated(),
+           "launches": {n: k.launches for n, k in kernels.items()}}
+    torch.cuda.empty_cache()
+    shards = staggered(torch, lambda: device_params(
+        torch, defs, SEED, noise=False,
+        place=lambda path, w: par.shard_tensor(w, specs[path], ctx.mesh)))
+    loss, grads = tr.fsdp_loss_and_grads(tr.make_loss_fn(cfg, tcfg, ctx), ctx, specs, shards,
+                                         tr.shard_batch(cfg, ctx, lm_batch(torch, cfg, 0)))
+    del shards
+    ref = torch.load(work / "ref_grads.pt", mmap=True)
+    scales = json.loads((work / "ref_scales.json").read_text())
+    errs = {}
+    for k, g in grads.items():
+        want = par.shard_tensor(ref[k], specs[k], ctx.mesh).cuda()
+        errs[k] = {"f32": max_err(g, want), "scale": max(1.0, scales[k])}
+        del want
+    del grads
+    rec.update(loss1=float(loss), grad_errs=errs,
+               peak_memory_bytes=torch.cuda.max_memory_allocated())
+    dist.barrier()
+    return rec
+
+
+def lm_rank(rank: int, world: int, work: Path, group: str) -> int:
+    """The entry of one rank process (``chip_smoke.py --long-rank``): the
+    serving cases (a), (b) in turn ("serve") or (c) ("train")."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, str(ROOT / "src"))
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    torch.cuda.set_device(0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dist.init_process_group("gloo", init_method=f"file://{work / 'store'}", rank=rank,
+                            world_size=world, timeout=datetime.timedelta(seconds=LM_TIMEOUT))
+    recs = []
+    try:
+        if group == "train":
+            recs.append(lm_train_rank(torch, tfm_kernels(), moe_mesh_ctx(LM_TRAIN_MESH),
+                                      work / "planned"))
+        else:
+            ctx = moe_mesh_ctx(LM_SERVE_MESH)
+            for case in LM_SERVE:
+                recs.append(lm_serve_rank(torch, case, ctx, work / case))
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    (work / f"rank{rank}.json").write_text(json.dumps(recs))
+    return 0
+
+
+def lm_planned_launches(tf, kernels) -> tuple[dict, int]:
+    """(c)'s launches a rank makes a step by its local plan (``plan_training``
+    of ``local_config``, the attention cell at ``attn_rows``), and those
+    rows."""
+    from repro_torch.launch.train import parse_mesh
+    from repro_torch.runtime.parallel import ParallelCtx
+
+    dims, axes = parse_mesh(LM_TRAIN_MESH)
+
+    class Shape:  # the mesh's shape: what local_config and attn_rows read
+        shape = dict(zip(axes, dims))
+        axis_names = axes
+
+        def axis_index(self, names):
+            return 0
+
+    ctx = ParallelCtx(mesh=Shape(), dp_axes=axes[:-1])
+    cfg = lm_config("planned")
+    lcfg = tf.local_config(cfg, ctx)
+    rows = tf.attn_rows(cfg, LM_TRAIN["seq"], ctx)
+    plans = tf.plan_training(lcfg, LM_TRAIN["batch"], LM_TRAIN["seq"],
+                             loss_chunks=tfm_chunks(), seq_q=rows)
+    calls = tfm_calls(tf, lcfg, plans, batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"])
+    return per_kernel(calls, kernels), rows
+
+
+def phase_long_mesh(torch, kernels, results, card) -> None:
+    """Cases (a)-(c) (see the module docstring)."""
+    from repro_torch.models import transformer as tf
+
+    t_phase = time.perf_counter()
+    base = SCRATCH / "long_mesh"
+    shutil.rmtree(base, ignore_errors=True)
+    for name in kernels:
+        results[name]["launches_by_path"].setdefault("long_mesh", 0)
+    refs = {}
+    t0 = time.perf_counter()
+    for case in (*LM_SERVE, "planned"):
+        group = "train" if case == "planned" else "serve"
+        refs[case] = lm_reference(torch, base / group / case, case)
+    ref_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    emit(phase="long_mesh", part="references", seconds=ref_s,
+         references={c: {k: r.get(k) for k in ("draw_s", "params", "peak_memory_bytes",
+                                               "cache_save_s", "call_ms", "seconds")}
+                     for c, r in refs.items()},
+         parent_allocated_bytes=torch.cuda.memory_allocated(),
+         parent_reserved_bytes=torch.cuda.memory_reserved())
+    out = {}
+    for group, mesh in (("serve", LM_SERVE_MESH), ("train", LM_TRAIN_MESH)):
+        world = math.prod(int(x) for x in mesh.split("x"))
+        work = base / group
+        t0 = time.perf_counter()
+        bad = run_rank_processes("--long-rank", world, work, extra=(group,),
+                                 timeout=LM_TIMEOUT)
+        recs = [json.loads((work / f"rank{r}.json").read_text())
+                for r in range(world) if (work / f"rank{r}.json").exists()]
+        if bad:
+            emit(phase="long_mesh", group=group, failed=True, ranks_records=recs)
+        check(not bad, f"long_mesh {group} ranks failed (or outlived {LM_TIMEOUT} s): {bad}")
+        check(len(recs) == world, f"long_mesh {group}: {len(recs)} rank records")
+        out[group] = (recs, time.perf_counter() - t0)
+        emit(phase="long_mesh", part=group, ranks_seconds=out[group][1])
+
+    recs = out["serve"][0]
+    for i, case in enumerate(LM_SERVE):
+        crecs, ref = [r[i] for r in recs], refs[case]
+        cfg = lm_config(case)
+        worst = max(crecs[0]["logits_err_over_scale"])
+        for r in crecs:
+            check(r["streams"] == ref["streams"],
+                  f"long_mesh {case}: streams {r['streams']} != one device {ref['streams']}")
+            for name, (err, *_) in r["cache_errs"].items():
+                sc = max(1e-30, ref["cache_scales"][name])
+                check(err <= TOL * sc, f"long_mesh {case}: cache {name} {err} > {TOL} x {sc}")
+        check(worst <= TOL, f"long_mesh {case}: logits {worst} of scale > {TOL}")
+        emit(phase="long_mesh", case=case, card=card, arch=cfg.name, mesh=LM_SERVE_MESH,
+             setup="4 processes sharing one H100 over gloo; not multi-chip numbers",
+             n_layers=cfg.n_layers, d_model=cfg.d_model, batch=1,
+             max_seq=LM_SERVE[case]["max_seq"], prompt=LM_SERVE[case]["prompt"],
+             decodes=LM_DECODES, tolerance=TOL, worst_logits_err_over_scale=worst,
+             logits_err_over_scale=crecs[0]["logits_err_over_scale"],
+             cache_err_over_scale={name: max(r["cache_errs"][name][0] for r in crecs)
+                                   / max(1e-30, ref["cache_scales"][name])
+                                   for name in crecs[0]["cache_errs"]},
+             pieces={f"rank{j}": {n: e[1:] for n, e in r["cache_errs"].items()}
+                     for j, r in enumerate(crecs)},
+             streams=crecs[0]["streams"], reference=ref,
+             prefill_ms=[r["call_ms"][0] for r in crecs],
+             decode_ms=[statistics.median(r["call_ms"][1:]) for r in crecs],
+             reference_prefill_ms=ref["call_ms"][0],
+             reference_decode_ms=statistics.median(ref["call_ms"][1:]),
+             prefill_collectives=crecs[0]["call_collectives"][0],
+             decode_collectives=crecs[0]["call_collectives"][1],
+             ranks=[{k: r[k] for k in ("draw_s", "param_bytes", "allocated_after_draw_bytes",
+                                       "cache_bytes", "call_ms", "peak_memory_bytes",
+                                       "cache_check_s")}
+                    for r in crecs])
+
+    want, rows = lm_planned_launches(tf, tfm_kernels())
+    crecs, ref = [r[0] for r in out["train"][0]], refs["planned"]
+    for j, r in enumerate(crecs):
+        check(abs(r["loss1"] - ref["loss1"]) <= LM_LOSS_TOL * abs(ref["loss1"]),
+              f"long_mesh planned: step-1 loss {r['loss1']} vs {ref['loss1']}")
+        for k, e in r["grad_errs"].items():
+            check(e["f32"] <= TOL * e["scale"],
+                  f"long_mesh planned: grad {k} {e['f32']} > {TOL} x {e['scale']}")
+        check(len(r["losses"]) == LM_TRAIN["steps"] and all(
+            abs(a - b) <= LM_LOSS_TOL * abs(b) for a, b in zip(r["losses"], ref["losses"])),
+            f"long_mesh planned: losses {r['losses']} vs one device {ref['losses']}")
+        for st in r["steps"]:
+            check(st["launches"] == want,
+                  f"long_mesh planned: rank {j} step launches {st['launches']} != plan {want}")
+        check(r["q_offsets"] == [j * rows],
+              f"long_mesh planned: rank {j} flash offsets {r['q_offsets']} != {[j * rows]}")
+        for name in kernels:
+            results[name]["launches_by_path"]["long_mesh"] += r["launches"].get(name, 0)
+    cfg = lm_config("planned")
+    emit(phase="long_mesh", case="planned", card=card, arch=cfg.name, mesh=LM_TRAIN_MESH,
+         setup="3 processes sharing one H100 over gloo; not multi-chip numbers",
+         n_layers=cfg.n_layers, batch=LM_TRAIN["batch"], seq=LM_TRAIN["seq"],
+         query_rows_a_rank=rows, steps=LM_TRAIN["steps"], losses=crecs[0]["losses"],
+         reference_losses=ref["losses"], loss_tolerance=LM_LOSS_TOL,
+         loss1=[r["loss1"] for r in crecs], reference_loss1=ref["loss1"],
+         worst_grad_err_over_scale=max(e["f32"] / e["scale"] for r in crecs
+                                       for e in r["grad_errs"].values()),
+         tolerance=TOL, launches_per_step=want, q_offsets=[r["q_offsets"] for r in crecs],
+         ranks=[{"rank": j, "run_s": r["run_s"], "step_ms": [st["ms"] for st in r["steps"]],
+                 "collectives": [st["collectives"] for st in r["steps"]],
+                 "launches": [st["launches"] for st in r["steps"]],
+                 "launch_peak_memory_bytes": r["launch_peak_memory_bytes"],
+                 "peak_memory_bytes": r["peak_memory_bytes"]} for j, r in enumerate(crecs)],
+         reference=ref)
+    shutil.rmtree(base, ignore_errors=True)
+    emit(phase="long_mesh", reference_seconds=ref_s, seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
@@ -5716,6 +6277,8 @@ def main() -> int:
         return moe_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if sys.argv[1:2] == ["--families-rank"]:  # one rank of phase families_mesh
         return fm_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
+    if sys.argv[1:2] == ["--long-rank"]:  # one rank of phase long_mesh
+        return lm_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]), sys.argv[5])
     if not (ROOT / "src" / "repro_torch").is_dir():
         print("chip_smoke.py: run it from a checkout of the repository "
               "(src/repro_torch is missing)", file=sys.stderr)
@@ -5827,6 +6390,10 @@ def main() -> int:
     for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
         check(results[name]["launches_by_path"]["families_mesh"] > 0,
               f"{name}: no launch on the families_mesh path")
+    phase_long_mesh(torch, kernels, results, card)
+    for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
+        check(results[name]["launches_by_path"]["long_mesh"] > 0,
+              f"{name}: no launch on the long_mesh path")
     phase_paper(torch, kernels, results, card)
     for name in ("conv2d", "matmul"):
         check(results[name]["launches_by_path"]["paper"] > 0,

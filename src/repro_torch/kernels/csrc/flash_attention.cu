@@ -14,6 +14,13 @@
 // what keeps it below 67 TFLOP/s is shared-memory traffic per FMA and
 // barriers that stall all eight warps.
 //
+// Query positions: row r of q sits at position q_off + r (a rank's slice of
+// a sequence-parallel query sequence; 0 for a whole one), key j at j.  The
+// causal and window tile bounds, the whole-tile test and the element masks
+// all read q_off + row, so an offset that is not a multiple of the q block
+// skips exactly the tiles its masks empty; at q_off = 0 every bound and
+// every masked score is the one the kernel had without the offset.
+//
 // Grid and loop: one thread block per (b*Hq + h, q block) — the Pallas
 // kernel's two parallel grid axes.  Its sequential kv grid axis becomes a
 // loop inside the block over exactly the KV blocks that the kernel's `run`
@@ -126,7 +133,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     fa_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                   const float* __restrict__ V, float* __restrict__ O, int group,
                   int sq, int skv, int bq_arg, int bkv_arg, int q_len, int kv_len,
-                  int causal, int window, float scale_log2) {
+                  int causal, int window, int q_off, float scale_log2) {
   constexpr int CL = 32 / RG;                   // column lanes of a row group
   constexpr int RI = BQ / 8 / RG;               // rows a lane holds
   constexpr int CJ = BKV / CL;                  // score columns a lane holds
@@ -150,7 +157,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   const int bh = blockIdx.x;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest q blocks first
-  const int q_start = qb * bq;
+  const int q_start = qb * bq;    // the block's first row
+  const int q_pos = q_off + q_start;  // and its position
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int g = lane / CL, cl = lane % CL;
   const int wrows = bq / 8, wr0 = warp * wrows;
@@ -159,9 +167,9 @@ __global__ void __launch_bounds__(kThreads, 1)
   // The KV blocks the TPU kernel's `run` predicate admits.
   const int n_kvb = skv / bkv;
   int hi = n_kvb - 1, lo = 0;
-  if (causal) hi = min(hi, (q_start + bq - 1) / bkv);
+  if (causal) hi = min(hi, (q_pos + bq - 1) / bkv);
   if (window >= 0) {
-    const int x = q_start - window + 2 - bkv;
+    const int x = q_pos - window + 2 - bkv;
     lo = x > 0 ? (x + bkv - 1) / bkv : 0;
   }
   const int n_run = hi - lo + 1;
@@ -267,11 +275,11 @@ __global__ void __launch_bounds__(kThreads, 1)
     // s becomes P.
     const int col_lim = min(bkv, kv_len - k_start);
     const bool open = col_lim == BKV && row_lim == bq &&
-                      (!causal || k_start + bkv - 1 <= q_start) &&
-                      (window < 0 || q_start + bq - 1 - k_start < window);
+                      (!causal || k_start + bkv - 1 <= q_pos) &&
+                      (window < 0 || q_pos + bq - 1 - k_start < window);
 #pragma unroll
     for (int i = 0; i < RI; ++i) {
-      const int qid = q_start + wr0 + g + RG * i;
+      const int qid = q_pos + wr0 + g + RG * i;
       float mx = kNeg;
       if (open) {
 #pragma unroll
@@ -383,7 +391,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 template <int D, int BQ, int BKV, int RG, bool FULL>
 int launch_as(const float* q, const float* k, const float* v, float* o, int bhq,
               int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-              int causal, int window, float scale_log2, size_t smem,
+              int causal, int window, int q_off, float scale_log2, size_t smem,
               cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, BQ, BKV, RG, FULL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -391,7 +399,7 @@ int launch_as(const float* q, const float* k, const float* v, float* o, int bhq,
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bhq, sq / bq);
   fa_fwd_kernel<D, BQ, BKV, RG, FULL><<<grid, kThreads, smem, stream>>>(
-      q, k, v, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window,
+      q, k, v, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window, q_off,
       scale_log2);
   return (int)cudaGetLastError();
 }
@@ -399,17 +407,19 @@ int launch_as(const float* q, const float* k, const float* v, float* o, int bhq,
 template <int D, int BQ, int BKV, int RG>
 int launch(const float* q, const float* k, const float* v, float* o, int bhq,
            int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-           int causal, int window, float scale_log2, cudaStream_t stream) {
+           int causal, int window, int q_off, float scale_log2, cudaStream_t stream) {
   if (bq < 8 || bq > BQ || bq % 8 || bkv < 8 || bkv > BKV || bkv % 8 || sq % bq ||
-      skv % bkv || bhkv <= 0 || bhq % bhkv)
+      skv % bkv || bhkv <= 0 || bhq % bhkv || q_off < 0)
     return (int)cudaErrorInvalidValue;
   const size_t smem =
       sizeof(float) * (3 * (size_t)bq * D + 4 * (size_t)bkv * D + 2 * (size_t)bq);
   if (bq == BQ && bkv == BKV)
     return launch_as<D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                           kv_len, causal, window, scale_log2, smem, stream);
+                                           kv_len, causal, window, q_off, scale_log2, smem,
+                                           stream);
   return launch_as<D, BQ, BKV, RG, false>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                          kv_len, causal, window, scale_log2, smem, stream);
+                                          kv_len, causal, window, q_off, scale_log2, smem,
+                                          stream);
 }
 
 }  // namespace
@@ -422,26 +432,27 @@ const char* repro_error_string(int err) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  sq/skv are
 // the padded lengths, q_len/kv_len the real ones; window < 0 means none;
-// `scale` is the softmax scale (the kernel folds log2(e) into it).
+// q_off is the position of q's first row; `scale` is the softmax scale (the
+// kernel folds log2(e) into it).
 int repro_flash_attention_f32(const float* q, const float* k, const float* v,
                               float* o, int bhq, int bhkv, int sq, int skv, int d,
                               int bq, int bkv, int q_len, int kv_len, int causal,
-                              int window, float scale, void* stream) {
+                              int window, int q_off, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;  // log2(e)
   switch (d) {
     case 32:
       return launch<32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                  kv_len, causal, window, sl2, s);
+                                  kv_len, causal, window, q_off, sl2, s);
     case 64:
       return launch<64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                  kv_len, causal, window, sl2, s);
+                                  kv_len, causal, window, q_off, sl2, s);
     case 128:
       return launch<128, 64, 64, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                 kv_len, causal, window, sl2, s);
+                                 kv_len, causal, window, q_off, sl2, s);
     case 256:
       return launch<256, 32, 32, 1>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                 kv_len, causal, window, sl2, s);
+                                 kv_len, causal, window, q_off, sl2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -9,6 +9,9 @@ accumulator, GQA by ``kv head = head // group``,
 ``q_len``/``kv_len`` padding masks, and rows with no visible key written as
 0.  Operands are ``[B*H, S, D]`` with the heads flattened into the batch and
 the sequences padded to the blocks (``ops.flash_attention`` does both).
+``q_off`` is the position of the first query row (a rank's slice of a
+sequence-parallel query sequence): row ``i`` sits at ``q_off + i`` for the
+causal and window masks and for the block skips.
 """
 
 from __future__ import annotations
@@ -46,7 +49,7 @@ def supported_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
             and smem_bytes(block_q, block_kv, head_dim) <= H100.local_mem_bytes)
 
 
-def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len):
+def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len, q_off=0):
     """The function's contract: flattened heads, whole blocks, lengths
     within the padded sequences.  (The head dims and block maxima the
     kernel is built for are checked at launch.)"""
@@ -65,24 +68,28 @@ def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len):
                          f"the padded sequences ({sq}, {skv})")
     if window is not None and window < 0:
         raise ValueError(f"flash_attention: window must be >= 0, got {window}")
+    if q_off < 0:
+        raise ValueError(f"flash_attention: q_off must be >= 0, got {q_off}")
     return bhq, bhkv, sq, skv, d
 
 
 def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
-                          causal: bool, window: int | None, q_len: int, kv_len: int):
+                          causal: bool, window: int | None, q_len: int, kv_len: int,
+                          q_off: int = 0):
     """The kernel's function in plain PyTorch (same contract, same checks):
-    dense f32 attention with the padding, causal and window masks; a row
-    with no visible key is 0.  On the card it needs TF32 off to be an f32
-    reference."""
+    dense f32 attention with the padding, causal and window masks, query
+    row ``i`` at position ``q_off + i``; a row with no visible key is 0.
+    On the card it needs TF32 off to be an f32 reference."""
     bhq, bhkv, sq, skv, _ = _check(q, k, v, block_q=block_q, block_kv=block_kv,
-                                   window=window, q_len=q_len, kv_len=kv_len)
+                                   window=window, q_len=q_len, kv_len=kv_len, q_off=q_off)
     group = bhq // bhkv
     kk = k.float().repeat_interleave(group, dim=0)
     vv = v.float().repeat_interleave(group, dim=0)
     s = torch.matmul(q.float(), kk.transpose(1, 2)) * scale
-    q_ids = torch.arange(sq, device=q.device)[:, None]
+    rows = torch.arange(sq, device=q.device)[:, None]
+    q_ids = rows + q_off
     k_ids = torch.arange(skv, device=q.device)[None, :]
-    mask = (q_ids < q_len) & (k_ids < kv_len)
+    mask = (rows < q_len) & (k_ids < kv_len)
     if causal:
         mask &= k_ids <= q_ids
     if window is not None:
@@ -94,9 +101,9 @@ def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
 
 
 def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: float,
-            causal: bool, window: int | None, q_len: int, kv_len: int):
+            causal: bool, window: int | None, q_len: int, kv_len: int, q_off: int = 0):
     bhq, bhkv, sq, skv, d = _check(q, k, v, block_q=block_q, block_kv=block_kv,
-                                   window=window, q_len=q_len, kv_len=kv_len)
+                                   window=window, q_len=q_len, kv_len=kv_len, q_off=q_off)
     if d not in MAX_BLOCKS:
         raise ValueError(f"flash_attention kernel takes head_dim in "
                          f"{sorted(MAX_BLOCKS)}, got {d}")
@@ -115,13 +122,13 @@ def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: 
     kernel.run(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                bhq, bhkv, sq, skv, d, block_q, block_kv, q_len, kv_len, int(causal),
-               -1 if window is None else window, ctypes.c_float(scale))
+               -1 if window is None else window, int(q_off), ctypes.c_float(scale))
     return out
 
 
 flash_attention_kernel = CudaKernel(
     "flash_attention", source="flash_attention", symbol="repro_flash_attention_f32",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 11 + [ctypes.c_float,
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float,
                                                             ctypes.c_void_p],
     launch=_launch, plain=flash_attention_plain,
 )

@@ -18,8 +18,9 @@ from repro_torch.plan import AttentionPlanner, Schedule, cuda_op, pad_dim, round
 
 
 def _shape_args(q, k, v, *, causal=True, window=None, scale=None,
-                block_q=None, block_kv=None):
-    del v, scale  # never change blocking or traffic
+                block_q=None, block_kv=None, q_off=0):
+    # The planner models a causal slice without its offset (ROADMAP queue 3).
+    del v, scale, q_off  # never change blocking
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
     return dict(seq_q=Sq, seq_kv=Skv, head_dim=D, n_q_heads=Hq, n_kv_heads=Hkv,
@@ -28,7 +29,7 @@ def _shape_args(q, k, v, *, causal=True, window=None, scale=None,
 
 
 def _impl(q, k, v, *, schedule, causal=True, window=None, scale=None,
-          block_q=None, block_kv=None):
+          block_q=None, block_kv=None, q_off=0):
     del block_q, block_kv  # consumed by the planner
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -40,7 +41,8 @@ def _impl(q, k, v, *, schedule, causal=True, window=None, scale=None,
     kp = pad_dim(k, 2, skvp).reshape(B * Hkv, skvp, D).contiguous()
     vp = pad_dim(v, 2, skvp).reshape(B * Hkv, skvp, D).contiguous()
     out = flash_attention_kernel(qp, kp, vp, block_q=bq, block_kv=bkv, scale=scale,
-                                 causal=causal, window=window, q_len=Sq, kv_len=Skv)
+                                 causal=causal, window=window, q_len=Sq, kv_len=Skv,
+                                 q_off=q_off)
     return out.reshape(B, Hq, sqp, D)[:, :, :Sq]
 
 
@@ -54,9 +56,11 @@ def flash_attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = True,
     window: int | None = None, scale: float | None = None,
     schedule: Schedule | None = None, block_q: int | None = None,
-    block_kv: int | None = None, machine: MachineModel = H100,
+    block_kv: int | None = None, machine: MachineModel = H100, q_off: int = 0,
 ) -> torch.Tensor:
-    """Blockwise attention. q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D].
+    """Blockwise attention. q: [B, Hq, Sq, D]; k/v: [B, Hkv, Skv, D]; query
+    row ``i`` sits at position ``q_off + i`` (a slice of a longer query
+    sequence), key ``j`` at ``j``.
 
     Pads sequences to block multiples; GQA via Hkv | Hq head grouping.
     Blocking: ``schedule`` > ``block_q``/``block_kv`` pins > planner.  CPU
@@ -64,4 +68,4 @@ def flash_attention(
     """
     return attention_op(q, k, v, schedule=schedule, machine=machine, causal=causal,
                         window=window, scale=scale, block_q=block_q,
-                        block_kv=block_kv)
+                        block_kv=block_kv, q_off=q_off)

@@ -14,10 +14,12 @@ def mask_logits(s, q_ids, k_ids, *, causal: bool, window: int | None):
     return s.masked_fill(~mask, -1e30)
 
 
-def attention_ref(q, k, v, *, causal=True, window=None, scale=None, out_dtype=None):
+def attention_ref(q, k, v, *, causal=True, window=None, scale=None, out_dtype=None,
+                  q_off: int = 0):
     """Dense softmax attention.
 
-    ``q``: [B, Hq, Sq, D]; ``k``/``v``: [B, Hkv, Skv, D] with Hkv | Hq (GQA).
+    ``q``: [B, Hq, Sq, D]; ``k``/``v``: [B, Hkv, Skv, D] with Hkv | Hq (GQA);
+    query row ``i`` sits at position ``q_off + i``.
     A row whose mask admits no key spreads uniform weight (the kernel
     writes 0 there instead).
     """
@@ -29,7 +31,7 @@ def attention_ref(q, k, v, *, causal=True, window=None, scale=None, out_dtype=No
     k = k.repeat_interleave(group, dim=1)
     v = v.repeat_interleave(group, dim=1)
     s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
-    q_ids = torch.arange(Sq, device=q.device)
+    q_ids = torch.arange(Sq, device=q.device) + q_off
     k_ids = torch.arange(Skv, device=q.device)
     s = mask_logits(s, q_ids, k_ids, causal=causal, window=window)
     p = torch.softmax(s, dim=-1)  # exp(s - max) / sum, as the JAX oracle writes it

@@ -70,8 +70,9 @@ their heads (``models/rwkv6.py``, ``models/mamba2.py``).
 ``--grad-compression int8_ef`` compresses each rank's gradient shards at
 their whole tensors' scales, its error buffers sharded like the
 parameters.  The dense family's planned path with query heads that do not
-split over the model axis raises (ROADMAP queue 1 #5c, planned
-sequence-parallel flash).  A checkpoint of a
+split over the model axis runs its attention sequence-parallel, each rank
+its slice of the queries on the flash kernel at the slice's offset.  A
+checkpoint of a
 sharded state is gathered whole and written by rank 0; a restore reads
 each rank's piece onto whatever mesh the run has now.  The process group
 comes from the environment
@@ -139,7 +140,7 @@ from repro_torch.runtime.collectives import BACKENDS, Mesh
 from repro_torch.runtime.fault_tolerance import (
     Heartbeat, Monitor, StragglerWatchdog, shrink_mesh_shape,
 )
-from repro_torch.runtime.parallel import ParallelCtx, data_axis, shard_tensor
+from repro_torch.runtime.parallel import ParallelCtx, data_axis, fit_spec, shard_tensor
 
 # Chunks per sequence of the token families' chunked cross-entropy.
 LOSS_CHUNKS = 4
@@ -274,7 +275,7 @@ def main(argv=None) -> list[dict]:
     # replicated one.
     fsdp = not hasattr(fam, "batch_shard_specs")
     if args.planned_kernels and hasattr(fam, "check_planned_heads"):
-        fam.check_planned_heads(cfg, dims[-1])  # before any rank starts
+        fam.check_planned_heads(cfg, dims[-1], args.seq)  # before any rank starts
     if world > 1 and not dist.is_initialized():
         if "RANK" not in os.environ:  # start the ranks here
             return _spawn_ranks(list(argv) if argv is not None else sys.argv[1:],
@@ -368,7 +369,9 @@ def main(argv=None) -> list[dict]:
         pdt = getattr(torch, tcfg.param_dtype)
         specs = None  # the state's specs, where it is sharded
         if ctx is not None and fsdp:
-            pspecs = fsdp_specs(param_specs(defs), abstract_params(defs, pdt), ctx)
+            aparams = abstract_params(defs, pdt)
+            pspecs = {k: fit_spec(s, aparams[k].shape, ctx.mesh)
+                      for k, s in fsdp_specs(param_specs(defs), aparams, ctx).items()}
             specs = tr.TrainState(params=pspecs,
                                   opt=adamw.AdamWState(step=P(), m=pspecs, v=pspecs),
                                   err=pspecs if tcfg.grad_compression == "int8_ef" else None)

@@ -19,6 +19,17 @@ Two execution paths, one math:
 Positions are one vector ``[S]`` shared by every row, or ``[B, S]``, one
 per row (the serving engine's slots decode at positions of their own; the
 JAX package gets the same by ``vmap``-ing a batch-1 forward over them).
+
+Over a KV cache whose sequence is split over idle data axes
+(``kv_split=``, a :class:`~repro_torch.runtime.parallel.SeqSplit`) each
+rank attends every query to its piece of the keys and keeps its softmax's
+row max and row sum; the pieces merge in log-sum-exp form: a ``pmax`` of
+the maxima, then one ``psum`` of the rescaled sums and outputs.  That is
+the function GSPMD computes for the JAX package over the same placement,
+up to f32 rounding.  Masked keys carry the additive ``NEG`` (never
+``-inf``), so a rank whose keys are all masked adds exactly zero weight,
+and a row with no visible key on any rank gets the uniform average over
+every key, as the JAX package's softmax gives it.
 """
 
 from __future__ import annotations
@@ -54,14 +65,20 @@ def _bias(q_pos, k_pos, causal, window):
     return bias[:, None] if q_pos.dim() == 2 else bias
 
 
-def _direct(q, k, v, q_pos, k_pos, scale, causal, window):
+def _direct(q, k, v, q_pos, k_pos, scale, causal, window, partial=False):
     s = torch.einsum("bhqd,bhkd->bhqk", at_least_f32(q), at_least_f32(k))
     s = s * scale + _bias(q_pos, k_pos, causal, window)
+    if partial:
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        acc = at_least_f32(torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v))
+        return acc, m, p.sum(-1)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhqk,bhkd->bhqd", p.to(v.dtype), v)
 
 
-def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv):
+def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv,
+               partial=False):
     B, H, Sq, D = q.shape
     Skv = k.shape[2]
     cq, ckv = min(chunk_q, Sq), min(chunk_kv, Skv)
@@ -86,13 +103,22 @@ def _blockwise(q, k, v, q_pos, k_pos, scale, causal, window, chunk_q, chunk_kv):
             acc = acc * alpha[..., None] + at_least_f32(torch.einsum(
                 "bhqk,bhkd->bhqd", p.to(vc.dtype), vc))
             m = m_new
+        if partial:
+            outs.append((acc, m, l))
+            continue
         l = torch.where(l == 0.0, torch.ones_like(l), l)  # fully-masked rows stay finite
         outs.append((acc / l[..., None]).to(q.dtype))
+    if partial:
+        return tuple(torch.cat(parts, dim=2) for parts in zip(*outs))
     return torch.cat(outs, dim=2)
 
 
-def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk_kv):
-    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D]."""
+def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk_kv,
+                    partial=False):
+    """q: [B, Sq, Hq, D]; k/v: [B, Skv, Hkv, D] -> [B, Sq, Hq, D].  With
+    ``partial`` it returns the softmax's pieces over these keys instead:
+    the unnormalized output (at least f32) [B, Sq, Hq, D], the row max and
+    the row sum [B, Sq, Hq]."""
     B, Sq, Hq, D = q.shape
     Hkv, Skv = k.shape[2], k.shape[1]
     if Hq % Hkv:
@@ -107,12 +133,38 @@ def _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk
     big = ((g * Sq) * Skv > 4 * 1024 * 1024 and (g * Sq) % chunk_q == 0
            and Skv % chunk_kv == 0)
     if Sq == 1 or not big:
-        out = _direct(qh, kh, vh, qpos_g, k_pos, scale, causal, window)
+        out = _direct(qh, kh, vh, qpos_g, k_pos, scale, causal, window, partial)
     else:
         out = _blockwise(qh, kh, vh, qpos_g, k_pos, scale, causal, window,
-                         chunk_q, chunk_kv)
+                         chunk_q, chunk_kv, partial)
+    if partial:
+        acc, m, l = out
+        acc = acc.reshape(B, Hkv, g, Sq, D).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+        m, l = (t.reshape(B, Hkv, g, Sq).permute(0, 3, 1, 2).reshape(B, Sq, Hq)
+                for t in (m, l))
+        return acc, m, l
     out = out.reshape(B, Hkv, g, Sq, D).permute(0, 3, 1, 2, 4)
     return out.reshape(B, Sq, Hq, D).to(q.dtype)
+
+
+def _split_kv_attention(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q, chunk_kv,
+                        split):
+    """Attention of every query over a KV sequence split over ``split``'s
+    axes, ``k``/``v``/``k_pos`` this rank's piece: the pieces' softmaxes
+    merged by log-sum-exp (one ``pmax``, one ``psum``)."""
+    from repro_torch.runtime import collectives as coll
+
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise NotImplementedError(
+            "attention over a sequence-split KV cache is not differentiated (its "
+            "merge's pmax has no gradient); it serves under torch.no_grad()")
+    acc, m, l = _attention_core(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q,
+                                chunk_kv, partial=True)
+    m_all = coll.pmax(m, split.mesh, split.axes)
+    w = torch.exp(m - m_all)
+    both = coll.psum(torch.cat([acc * w[..., None], (l * w)[..., None]], -1), split.mesh,
+                     split.axes)
+    return (both[..., :-1] / both[..., -1:]).to(q.dtype)
 
 
 def seq_parallel(seq: int, n_heads: int, n_kv_heads: int, tp: int) -> bool:
@@ -125,17 +177,23 @@ def seq_parallel(seq: int, n_heads: int, n_kv_heads: int, tp: int) -> bool:
 
 def attention(q, k, v, *, q_pos, k_pos, causal: bool = True, window=None,
               scale: float | None = None, chunk_q: int = 512,
-              chunk_kv: int = 1024, parallel=None) -> torch.Tensor:
+              chunk_kv: int = 1024, parallel=None, kv_split=None) -> torch.Tensor:
     """GQA attention; q: [B, Sq, Hq, D], k/v: [B, Skv, Hkv, D] with
     positions q_pos [Sq] (or [B, Sq], one vector per row) and k_pos [Skv];
     returns [B, Sq, Hq, D].  With ``parallel`` (a ParallelCtx, every model
     rank holding the same q/k/v) and :func:`seq_parallel`, each model rank
     attends its query slice to the whole K/V and the slices are gathered:
-    the same value, and the same gradients, on every rank."""
+    the same value, and the same gradients, on every rank.  With
+    ``kv_split`` (a SeqSplit) k/v/k_pos are this rank's piece of a KV
+    sequence split over its axes, and the pieces merge (module
+    docstring)."""
     from repro_torch.runtime import collectives as coll
     from repro_torch.runtime import parallel as par
 
     scale = scale if scale is not None else q.shape[-1] ** -0.5
+    if kv_split is not None:
+        return _split_kv_attention(q, k, v, q_pos, k_pos, causal, window, scale, chunk_q,
+                                   chunk_kv, kv_split)
     B, Sq, Hq, _ = q.shape
     tp = par.tp_size(parallel)
     if not (tp > 1 and q_pos.dim() == 1 and seq_parallel(Sq, Hq, k.shape[2], tp)):

@@ -21,7 +21,11 @@ the logits head take the vocab split (seamless-m4t-medium's 256206 rows
 are stored split over d_model, 256206 not dividing by 16; at tp = 2 the
 vocab splits: the rows are gathered whole over d_model, then split).  A
 cache is this rank's piece: its rows and the KV heads
-``layers.cache_heads`` gives, for ``k``/``v`` and ``xk``/``xv`` alike.
+``layers.cache_heads`` gives, for ``k``/``v`` and ``xk``/``xv`` alike; with
+``kv_split`` (a SeqSplit: too few rows for the data axes) also its run of
+the self-attention positions and of the encoder's frames, over which the
+decoder's self- and cross-attention merge their pieces
+(``models/attention.py``).
 """
 
 from __future__ import annotations
@@ -98,12 +102,12 @@ def _cross_kv(lp_cross: dict, memory: torch.Tensor):
     return k, v
 
 
-def _dec_block(x, lp, xk, xv, *, cfg, pos0, self_cache, parallel=None):
+def _dec_block(x, lp, xk, xv, *, cfg, pos0, self_cache, parallel=None, kv_split=None):
     cd = x.dtype
     B, S, _ = x.shape
     h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
     h, _ = ll.apply_attention(lp["attn"], h, cfg, pos0=pos0, cache=self_cache,
-                              parallel=parallel)
+                              parallel=parallel, kv_split=kv_split)
     x = x + h
     # Cross-attention over the encoder's output (no RoPE, not causal).
     h = ll.rms_norm(x, lp["ln_x"], cfg.norm_eps)
@@ -113,9 +117,11 @@ def _dec_block(x, lp, xk, xv, *, cfg, pos0, self_cache, parallel=None):
         cross, h = ll.local_attn_params(cross, cfg, parallel), par.tp_enter(h, parallel)
     q = torch.einsum("bsd,dhk->bshk", h, cross["wq"].to(cd))
     T = xk.shape[1]
-    out = attention(q, xk, xv, q_pos=ll.positions(pos0, B, S, x.device),
-                    k_pos=torch.arange(T, dtype=torch.int32, device=x.device),
-                    causal=False, scale=cfg.resolved_head_dim ** -0.5)
+    k_pos = torch.arange(T, dtype=torch.int32, device=x.device)
+    if kv_split is not None:
+        k_pos = k_pos + kv_split.start(T)
+    out = attention(q, xk, xv, q_pos=ll.positions(pos0, B, S, x.device), k_pos=k_pos,
+                    causal=False, scale=cfg.resolved_head_dim ** -0.5, kv_split=kv_split)
     out = torch.einsum("bshk,hkd->bsd", out, cross["wo"].to(cd))
     x = x + (par.tp_exit(out, parallel) if split else out)
     h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
@@ -139,13 +145,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, frames=None, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32, remat: str = "none",
-            parallel=None):
+            parallel=None, kv_split=None):
     """Returns (hidden [B, S, d], cache).  Train: frames and tokens, no
     cache.  Prefill: frames and a cache.  Decode: a cache alone (its cross
     K/V already written); neither frames nor a cache raises, as the JAX
     package's forward asserts.  With ``parallel`` the tokens and frames
     are this rank's data shard, the blocks run over the model axis and a
-    cache is this rank's piece (:func:`init_cache`)."""
+    cache is this rank's piece (:func:`init_cache`); with ``kv_split`` its
+    piece of the sequence and of the frames (the prefill keeps its run of
+    the cross K/V)."""
     _check_remat(remat)
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
     layers = unstack(params, "dec", cfg.n_layers)
@@ -159,6 +167,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, frames=None
             crosses = [lp["cross"] for lp in layers]
         kvs = [_cross_kv(c, memory) for c in crosses]
         xk, xv = torch.stack([k for k, _ in kvs]), torch.stack([v for _, v in kvs])
+        if kv_split is not None:
+            T = xk.shape[2] // kv_split.n
+            xk, xv = (t.narrow(2, kv_split.start(T), T) for t in (xk, xv))
     elif cache is None:
         raise ValueError("decode needs cached cross K/V: pass frames= or a cache")
     else:
@@ -168,7 +179,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, frames=None
                    else [None] * cfg.n_layers)
     for lp, xk_l, xv_l, kv in zip(layers, xk.unbind(0), xv.unbind(0), self_caches):
         block = functools.partial(_dec_block, cfg=cfg, pos0=pos0, self_cache=kv,
-                                  parallel=parallel)
+                                  parallel=parallel, kv_split=kv_split)
         x = _layer(block, remat)(x, lp, xk_l.to(x.dtype), xv_l.to(x.dtype))
     if cache is not None and frames is not None:
         cache["xk"].copy_(xk)

@@ -203,23 +203,34 @@ def positions(pos0, batch: int, seq: int, device) -> torch.Tensor:
     return start[:, None] + offs
 
 
-def write_cache(cache: tuple, k: torch.Tensor, v: torch.Tensor, pos0) -> None:
+def write_cache(cache: tuple, k: torch.Tensor, v: torch.Tensor, pos0, kv_split=None) -> None:
     """Write the block's K/V [B, S, Hkv, Dh] into the cache tensors (k, v)
     [B, Smax, Hkv, Dh] in place from ``pos0`` on (an int or 0-d tensor for
     every row, or a tensor with one start per row): the JAX package's
-    ``dynamic_update_slice``, whose start is clamped to ``[0, Smax - S]``."""
+    ``dynamic_update_slice``, whose start is clamped to ``[0, Smax - S]``.
+    With ``kv_split`` the tensors are this rank's piece of a sequence of
+    ``n * Smax`` split over its axes: the start is clamped for the whole
+    sequence, then only the positions this piece holds are written."""
     B, S = k.shape[:2]
-    smax = cache[0].shape[1]
+    piece = cache[0].shape[1]
+    n = 1 if kv_split is None else kv_split.n
+    s0 = 0 if kv_split is None else kv_split.start(piece)
     start = torch.as_tensor(pos0, device=k.device).to(torch.int64).reshape(-1).expand(B)
     rows = torch.arange(B, device=k.device)[:, None]
-    cols = start.clamp(0, smax - S)[:, None] + torch.arange(S, device=k.device)
+    cols = start.clamp(0, n * piece - S)[:, None] + torch.arange(S, device=k.device) - s0
+    if kv_split is None:
+        for c, new in zip(cache, (k, v)):
+            c[rows, cols] = new.to(c.dtype)
+        return
+    mine = (cols >= 0) & (cols < piece)
+    rows, cols = rows.expand(B, S)[mine], cols[mine]
     for c, new in zip(cache, (k, v)):
-        c[rows, cols] = new.to(c.dtype)
+        c[rows, cols] = new[mine].to(c.dtype)
 
 
 def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
                    theta=None, causal: bool = True, cache: tuple | None = None,
-                   parallel=None) -> torch.Tensor:
+                   parallel=None, kv_split=None) -> torch.Tensor:
     """Everything between the projections: biases, qk-norm, RoPE and
     attention; returns [B, S, Hq, Dh].
 
@@ -229,6 +240,9 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     :func:`write_cache`) and the block attends over the whole cache with
     key positions ``arange(Smax)``: the causal mask hides what lies past
     each row's position; the cache holds the KV heads of ``k``/``v``.
+    With ``kv_split`` (a SeqSplit) the cache is this rank's piece of the
+    sequence: the block writes the positions it holds and attends over its
+    keys, and the pieces merge (``models/attention.py``).
     ``parallel`` (no cache) runs the attention sequence-parallel where the
     JAX package does."""
     B, S = q.shape[:2]
@@ -251,30 +265,33 @@ def attention_core(p: dict, q, k, v, cfg: ModelConfig, *, pos0=0, window=None,
     if cache[0].shape[2] != k.shape[2]:
         raise ValueError(f"a cache of {cache[0].shape[2]} KV heads for a block of "
                          f"{k.shape[2]} (a model rank's cache holds layers.cache_heads)")
-    write_cache(cache, k, v, pos0)
+    write_cache(cache, k, v, pos0, kv_split)
     ck, cv = cache
     k_pos = torch.arange(ck.shape[1], dtype=torch.int32, device=q.device)
+    if kv_split is not None:
+        k_pos = k_pos + kv_split.start(ck.shape[1])
     return attention(q, ck.to(cd), cv.to(cd), q_pos=q_pos, k_pos=k_pos, causal=causal,
-                     window=window, scale=Dh**-0.5)
+                     window=window, scale=Dh**-0.5, kv_split=kv_split)
 
 
 def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0=0, window=None,
                     theta=None, cache: tuple | None = None, causal: bool = True,
-                    parallel=None):
+                    parallel=None, kv_split=None):
     """The attention block: x [B, S, d] -> (out [B, S, d], cache).  The
     projections, :func:`attention_core` and the output projection; with
     ``cache`` = (k, v) [B, Smax, Hkv, Dh] the block's K/V are written into
     it in place and the same tuple comes back (``None`` without one).
     With ``parallel`` the block runs over the model axis as
     :func:`attention_split` says; a cache is then this rank's
-    (:func:`cache_heads`)."""
+    (:func:`cache_heads`), and with ``kv_split`` its piece of the sequence
+    (:func:`attention_core`)."""
     mode = attention_split(cfg, x.shape[1], parallel, cached=cache is not None)
     if mode == "heads":
         p, x = local_attn_params(p, cfg, parallel), par.tp_enter(x, parallel)
     q, k, v = project_qkv(p, x)
     o = attention_core(p, q, k, v, cfg, pos0=pos0, window=window, theta=theta,
                        causal=causal, cache=cache,
-                       parallel=parallel if mode == "seq" else None)
+                       parallel=parallel if mode == "seq" else None, kv_split=kv_split)
     out = project_out(p, o)
     return (par.tp_exit(out, parallel) if mode == "heads" else out), cache
 

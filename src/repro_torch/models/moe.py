@@ -210,15 +210,15 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32, remat: str = "none",
-            per_row_dispatch: bool = False, parallel=None):
+            per_row_dispatch: bool = False, parallel=None, kv_split=None):
     """Returns (hidden [B, S, d], cache).  ``pos0`` and ``cache`` as the
     dense transformer's (the cache written in place); ``remat="block"``
     recomputes each layer in the backward pass (the JAX package
     checkpoints its scan body under "block" alone); ``per_row_dispatch``
     as the module docstring says.  With ``parallel`` the tokens are this
     rank's data shard, the parameters this rank's (or whole), a cache this
-    rank's piece (``layers.cache_heads``), and every block runs over the
-    model axis."""
+    rank's piece (``layers.cache_heads``; with ``kv_split``, its piece of
+    the sequence), and every block runs over the model axis."""
     tf._check_remat(remat)
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
     meta = layer_meta(cfg)
@@ -228,7 +228,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     def block(x, lp, window, theta, kv):
         h = ll.rms_norm(x, lp["ln1"], cfg.norm_eps)
         h, _ = ll.apply_attention(lp["attn"], h, cfg, pos0=pos0, window=window, theta=theta,
-                                  cache=kv, parallel=parallel)
+                                  cache=kv, parallel=parallel, kv_split=kv_split)
         x = x + h
         h = ll.rms_norm(x, lp["ln2"], cfg.norm_eps)
         return x + apply_moe_ffn(lp["moe"], h, cfg, per_row_dispatch=per_row_dispatch,

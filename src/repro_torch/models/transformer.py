@@ -43,12 +43,14 @@ paths run tensor-parallel over the model axis (``models/layers.py``):
 each rank its share of the heads, of d_ff and of the vocab, at the local
 shapes :func:`local_config` describes, which is also what the planned
 path plans its kernels at (:func:`make_loss_fn`).  Query heads that do not
-split over the model axis run sequence-parallel attention on the plain
-path and raise on the planned one (the flash kernel takes no query
-offset; ROADMAP queue 1 #5c, planned sequence-parallel flash).  The plain
-path also serves on a mesh: with a KV cache each rank holds and attends
-over its piece of it (``layers.cache_heads``; the serving step builders
-place it).
+split over the model axis run sequence-parallel attention on both paths
+(``layers.attention_split`` says ``"seq"``): each rank attends its slice
+of the queries to every key, the planned path on the flash kernel with
+the slice's query offset (``q_off``), and the slices are gathered.  The
+plain path also serves on a mesh: with a KV cache each rank holds and
+attends over its piece of it (``layers.cache_heads``, and its piece of
+the sequence where the batch leaves data axes idle; the serving step
+builders place it).
 """
 
 from __future__ import annotations
@@ -64,6 +66,7 @@ from repro_torch.core.fc_layer import fc_layer
 from repro_torch.kernels.flash_attention.ops import flash_attention
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.models import layers as ll
+from repro_torch.models.attention import seq_parallel
 from repro_torch.models.module import ParamDef, unstack
 from repro_torch.plan import local_schedule, with_reference_vjp
 from repro_torch.runtime import parallel as par
@@ -134,7 +137,7 @@ def _layer(fn, remat: str):
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32,
             use_kernels: bool = False, schedules: dict | None = None,
-            remat: str = "none", parallel=None):
+            remat: str = "none", parallel=None, kv_split=None):
     """Returns (hidden [B, S, d], new_cache).
 
     ``pos0`` is the absolute position of ``tokens[:, 0]``: an int, or
@@ -156,7 +159,9 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
     a cache it wraps the same segments, as the JAX package checkpoints its
     cached scan body.  ``parallel`` runs the layers
     tensor-parallel over its model axis on this rank's parameters (with a
-    cache, this rank's piece of it: ``layers.cache_heads``)."""
+    cache, this rank's piece of it: ``layers.cache_heads``); ``kv_split``
+    (a SeqSplit) says the cache holds this rank's piece of the sequence
+    (``layers.attention_core``)."""
     _check_remat(remat)
     if use_kernels and cache is None:
         return _forward_planned(cfg, params, tokens, compute_dtype, schedules,
@@ -169,12 +174,12 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
                                      meta["window"].tolist(), meta["theta"].tolist(), caches):
         x = _layer(lambda x, lp=lp, w=window, t=theta, kv=kv:
                    _block(x, lp, cfg, w, t, remat, pos0=pos0, cache=kv,
-                          parallel=parallel), remat)(x)
+                          parallel=parallel, kv_split=kv_split), remat)(x)
     return x, cache
 
 
 def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None,
-           parallel=None):
+           parallel=None, kv_split=None):
     """One plain layer, in segments between its GEMM calls; ``cache`` is
     the layer's (k, v) cache views, written in place.  With ``parallel``
     the attention and the MLP run over the model axis as
@@ -189,7 +194,7 @@ def _block(x, lp, cfg, window, theta, remat="none", *, pos0=0, cache=None,
     seqp = parallel if mode == "seq" else None
     o = seg(lambda q, k, v: ll.attention_core(ap, q, k, v, cfg, pos0=pos0, window=window,
                                               theta=theta, cache=cache,
-                                              parallel=seqp))(q, k, v)
+                                              parallel=seqp, kv_split=kv_split))(q, k, v)
     a = ll.project_out(ap, o)
     if mode == "heads":
         a = par.tp_exit(a, parallel)
@@ -217,42 +222,60 @@ def _bwd_for(sched: dict, cell: str) -> dict | None:
     return out or None
 
 
-def _attn_kernel(q, k, v, causal, window, schedule):
-    return flash_attention(q, k, v, causal=causal, window=window, schedule=schedule)
+def _attn_kernel(q, k, v, causal, window, schedule, q_off=0):
+    return flash_attention(q, k, v, causal=causal, window=window, schedule=schedule,
+                           q_off=q_off)
 
 
-def _attn_ref(q, k, v, causal, window, schedule):
+def _attn_ref(q, k, v, causal, window, schedule, q_off=0):
     del schedule  # blocking never changes numerics
-    return attention_ref(q, k, v, causal=causal, window=window)
+    return attention_ref(q, k, v, causal=causal, window=window, q_off=q_off)
 
 
-def _attn_bwd(q, k, v, g, causal, window, schedule, *, needs):
-    """The attention cell's backward: autograd of :func:`_attn_ref`,
-    recomputed here in plain PyTorch, as the JAX package leaves it to XLA
-    (the flash kernel has no backward kernel)."""
+def _attn_bwd(q, k, v, g, causal, window, schedule, q_off=0, *, needs):
+    """The attention cell's backward: autograd of :func:`_attn_ref` (at the
+    same query offset), recomputed here in plain PyTorch, as the JAX
+    package leaves it to XLA (the flash kernel has no backward kernel)."""
     with torch.enable_grad():
         leaves = [t.detach().requires_grad_(n) for t, n in zip((q, k, v), needs)]
-        out = _attn_ref(*leaves, causal, window, schedule)
+        out = _attn_ref(*leaves, causal, window, schedule, q_off)
         wanted = [t for t, n in zip(leaves, needs) if n]
         got = iter(torch.autograd.grad(out, wanted, g))
     return tuple(next(got) if n else None for n in needs)
 
 
 # The planned attention cell: forward is the flash-attention kernel under
-# its AttentionPlanner schedule, backward differentiates the reference.
-_attn_vjp = with_reference_vjp(_attn_kernel, bwd_fn=_attn_bwd, nondiff_argnums=(3, 4, 5))
+# its AttentionPlanner schedule, backward differentiates the reference;
+# (causal, window, schedule, q_off) ride as plain values.
+_attn_cell = with_reference_vjp(_attn_kernel, bwd_fn=_attn_bwd, nondiff_argnums=(3, 4, 5, 6))
 
 
-def check_planned_heads(cfg: ModelConfig, tp: int) -> None:
-    """The planned forward runs its attention head-parallel over a model
-    axis of ``tp``: raise where the query heads (with the KV heads they
-    read) do not split so."""
-    if tp > 1 and not ll.heads_split(cfg, tp):
-        raise NotImplementedError(
-            f"the planned forward over a model axis of {tp}: {cfg.n_heads} query heads "
-            "do not split, and sequence-parallel flash attention (a query-position "
-            "offset the flash kernel does not take) waits for ROADMAP queue 1 #5c "
-            "(planned sequence-parallel flash)")
+def _attn_vjp(q, k, v, causal, window, schedule, q_off=0):
+    return _attn_cell(q, k, v, causal, window, schedule, q_off)
+
+
+def attn_rows(cfg: ModelConfig, seq: int, parallel=None) -> int:
+    """The query rows one rank's planned attention cell takes: ``seq / tp``
+    under sequence-parallel attention (``layers.attention_split`` says
+    ``"seq"``), else ``seq``."""
+    if ll.attention_split(cfg, seq, parallel) == "seq":
+        return seq // par.tp_size(parallel)
+    return seq
+
+
+def check_planned_heads(cfg: ModelConfig, tp: int, seq: int) -> None:
+    """The planned forward runs its attention over a model axis of ``tp``
+    head-parallel, or sequence-parallel where the query heads do not split:
+    raise where neither holds (heads that split without the KV heads they
+    read, or a sequence that does not split for sequence-parallel
+    attention)."""
+    if tp == 1 or ll.heads_split(cfg, tp) or seq_parallel(seq, cfg.n_heads,
+                                                          cfg.n_kv_heads, tp):
+        return
+    raise NotImplementedError(
+        f"the planned forward over a model axis of {tp}: {cfg.n_heads} query heads "
+        f"({cfg.n_kv_heads} KV heads) split neither by head nor, at seq {seq}, by "
+        "sequence (ROADMAP queue 3 #22)")
 
 
 def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
@@ -267,7 +290,9 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     flash kernel takes.  Per-layer windows (``global_every``) would need a
     schedule per layer and are refused.  With ``parallel`` every cell runs
     at this rank's share of the heads and d_ff (the schedules planned at
-    :func:`local_config`'s shapes), the attention head-parallel only.
+    :func:`local_config`'s shapes), the attention head-parallel, or
+    sequence-parallel where the query heads do not split
+    (:func:`_seq_parallel_attend`, planned at :func:`attn_rows`).
     """
     if cfg.global_every:
         raise ValueError(
@@ -277,9 +302,10 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     sched = schedules or {}
     cd = compute_dtype
     tp = par.tp_size(parallel)
-    check_planned_heads(cfg, tp)
+    check_planned_heads(cfg, tp, tokens.shape[1])
     x = ll.embed_tokens(params, tokens, cfg, cd, parallel)
     B, S, d = x.shape
+    heads = tp > 1 and ll.heads_split(cfg, tp)  # else sequence-parallel attention
     lc = local_config(cfg, parallel)
     Hq, Hkv, Dh = lc.n_heads, lc.n_kv_heads, cfg.resolved_head_dim
     split = ll.mlp_split(cfg.d_ff, parallel)
@@ -290,12 +316,13 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
 
     def layer(x, lp):
         ap, mp = lp["attn"], lp["mlp"]
-        if tp > 1:
+        if heads:
             ap = ll.local_attn_params(ap, cfg, parallel)
         if split:
             mp = ll.local_mlp_params(mp, cfg.d_ff, parallel)
         h = seg(lambda x: ll.rms_norm(x, lp["ln1"], cfg.norm_eps).reshape(B * S, d))(x)
-        h = par.tp_enter(h, parallel)
+        if heads:
+            h = par.tp_enter(h, parallel)
         w_qkv = torch.cat([ap["wq"].reshape(d, Hq * Dh), ap["wk"].reshape(d, Hkv * Dh),
                            ap["wv"].reshape(d, Hkv * Dh)], dim=1).to(cd)
         qkv = fc_layer(h, w_qkv, sched.get("qkv"), _bwd_for(sched, "qkv"))
@@ -314,13 +341,18 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
                 k = ll.rms_norm(k, ap["k_norm"], cfg.norm_eps)
             q = ll.rope(q, pos, cfg.rope_theta)
             k = ll.rope(k, pos, cfg.rope_theta)
-            o = _attn_vjp(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                          True, window, s_attn)
-            return o.transpose(1, 2).reshape(B * S, Hq * Dh)
+            if tp == 1 or heads:
+                o = _attn_vjp(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              True, window, s_attn)
+                return o.transpose(1, 2).reshape(B * S, Hq * Dh)
+            return _seq_parallel_attend(q, k, v, window, s_attn, parallel).reshape(
+                B * S, Hq * Dh)
 
         o = seg(attend)(qkv)
         wo = ap["wo"].reshape(Hq * Dh, d).to(cd)
-        a = par.tp_exit(fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo")), parallel)
+        a = fc_layer(o, wo, sched.get("wo"), _bwd_for(sched, "wo"))
+        if heads:
+            a = par.tp_exit(a, parallel)
 
         def residual_norm(x, a):
             x = x + a.reshape(B, S, d)
@@ -345,6 +377,24 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     for lp in unstack(params, "layers", cfg.n_layers):
         x = _layer(functools.partial(layer, lp=lp), remat)(x)
     return x
+
+
+def _seq_parallel_attend(q, k, v, window, s_attn, parallel) -> torch.Tensor:
+    """The planned attention cell sequence-parallel over the model axis:
+    q/k/v [B, S, H, Dh] whole on every model rank; this rank's S / tp
+    query rows (from ``q_off = rank * S / tp``) attend every key on the
+    flash kernel, and the slices are gathered back to [B, S, Hq, Dh] —
+    ``models/attention.py``'s sequence-parallel attention on the kernel."""
+    from repro_torch.runtime import collectives as coll
+
+    mesh, axis = parallel.mesh, parallel.tp_axis
+    n = q.shape[1] // par.tp_size(parallel)
+    q_l = coll.shard(q, (None, axis, None, None), mesh, axis)
+    # Each rank's queries read all of K/V: their gradients are summed.
+    k, v = par.tp_enter(k, parallel), par.tp_enter(v, parallel)
+    o = _attn_vjp(q_l.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), True, window,
+                  s_attn, par.tp_rank(parallel) * n)
+    return coll.all_gather(o.transpose(1, 2), mesh, axis, dim=1)
 
 
 def head_weight(cfg: ModelConfig, params: dict, parallel=None) -> torch.Tensor:
@@ -386,8 +436,10 @@ def _chunk_m(batch: int, seq: int, loss_chunks: int) -> int:
 def local_config(cfg: ModelConfig, parallel=None) -> ModelConfig:
     """The config whose shapes one model rank computes under ``parallel``:
     its share of the query heads and the KV heads they read (head-parallel
-    attention), of d_ff (a split MLP) and of the vocab (``vocab % tp``);
-    the head dim stays the launched one.  The config itself on one device."""
+    attention; query heads that do not split stay whole, the rank's
+    attention cell then taking :func:`attn_rows` of the queries), of d_ff
+    (a split MLP) and of the vocab (``vocab % tp``); the head dim stays the
+    launched one.  The config itself on one device."""
     import dataclasses
 
     tp = par.tp_size(parallel)
@@ -406,7 +458,7 @@ def local_config(cfg: ModelConfig, parallel=None) -> ModelConfig:
 
 def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
                  in_bytes: int = 4, machine=None, mesh=None, shard_axis: str = "data",
-                 autotune=None) -> dict:
+                 autotune=None, seq_q: int | None = None) -> dict:
     """Plan every kernel launch of the planned :func:`forward` plus the
     :func:`logits` head, without running them: {cell: Schedule} keyed
     qkv/attn/wo/mlp_up/mlp_down/logits, each cell resolved through the
@@ -417,7 +469,9 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
     cell is planned at the chunk M that ``runtime.train.chunked_ce`` calls
     (``loss_chunks``).  With ``mesh=`` (a MeshSpec) every cell comes back
     as a ShardedSchedule over ``shard_axis``, the JAX package's
-    ``plan_forward(mesh=)``."""
+    ``plan_forward(mesh=)``.  ``seq_q`` (default ``seq``) is the attention
+    cell's query rows, a rank's :func:`attn_rows` under sequence-parallel
+    attention."""
     from repro_torch.core.machine import H100
     from repro_torch.plan import autotune as at
     from repro_torch.plan.planners import TransformerBlockPlanner
@@ -426,7 +480,7 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
     cells = TransformerBlockPlanner(machine).cell_planners(
         batch=batch, seq=seq, d_model=cfg.d_model, n_heads=cfg.n_heads,
         d_ff=cfg.d_ff, n_kv_heads=cfg.n_kv_heads, in_bytes=in_bytes, causal=True,
-        head_dim=cfg.resolved_head_dim)
+        head_dim=cfg.resolved_head_dim, seq_q=seq_q)
     out = {name: at.resolve(planner.op, kw, machine=machine, mesh=mesh, axis=shard_axis,
                             policy=autotune)
            for name, (planner, kw) in cells.items()}
@@ -439,7 +493,7 @@ def plan_forward(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1
 
 def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 1,
                   in_bytes: int = 4, machine=None, mesh=None, shard_axis: str = "data",
-                  autotune=None) -> dict:
+                  autotune=None, seq_q: int | None = None) -> dict:
     """:func:`plan_forward` plus every planned backward kernel autograd runs:
     "<cell>.dx"/"<cell>.dw" for each GEMM cell (the fused dX/dW kernel
     where it fits; the attention cell differentiates its reference and has
@@ -448,7 +502,7 @@ def plan_training(cfg: ModelConfig, batch: int, seq: int, *, loss_chunks: int = 
 
     out = plan_forward(cfg, batch, seq, loss_chunks=loss_chunks, in_bytes=in_bytes,
                        machine=machine, mesh=mesh, shard_axis=shard_axis,
-                       autotune=autotune)
+                       autotune=autotune, seq_q=seq_q)
     d, ff = cfg.d_model, cfg.d_ff
     Hq = cfg.n_heads
     Hkv = cfg.n_kv_heads or Hq
@@ -480,7 +534,7 @@ def make_loss_fn(cfg: ModelConfig, tcfg, parallel=None):
     batch is this rank's shard and the layers run tensor-parallel over the
     model axis; the plan is the data axis's "batch" partition at this
     rank's shapes: :func:`plan_training` of :func:`local_config` at the
-    local batch."""
+    local batch, its attention cell at :func:`attn_rows`."""
     from repro_torch.runtime.train import chunked_ce
 
     dt = getattr(torch, tcfg.compute_dtype)
@@ -494,7 +548,8 @@ def make_loss_fn(cfg: ModelConfig, tcfg, parallel=None):
             key = tuple(tokens.shape)
             if key not in plans:
                 plans[key] = plan_training(lcfg, *key, loss_chunks=tcfg.loss_chunks,
-                                           in_bytes=dt.itemsize)
+                                           in_bytes=dt.itemsize,
+                                           seq_q=attn_rows(cfg, key[1], parallel))
             h, _ = forward(cfg, params, tokens, compute_dtype=dt, use_kernels=True,
                            schedules=plans[key], remat=tcfg.remat, parallel=parallel)
             return chunked_ce(cfg, fam, params, h, batch["labels"], tcfg.loss_chunks,

@@ -74,9 +74,10 @@ def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16,
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def _shared_block(p, x, cfg, pos0, kv, parallel=None):
+def _shared_block(p, x, cfg, pos0, kv, parallel=None, kv_split=None):
     h = ll.rms_norm(x, p["ln1"], cfg.norm_eps)
-    h, _ = ll.apply_attention(p["attn"], h, cfg, pos0=pos0, cache=kv, parallel=parallel)
+    h, _ = ll.apply_attention(p["attn"], h, cfg, pos0=pos0, cache=kv, parallel=parallel,
+                              kv_split=kv_split)
     x = x + h
     h = ll.rms_norm(x, p["ln2"], cfg.norm_eps)
     return x + ll.apply_mlp(p["mlp"], h, cfg.act, parallel, d_ff=cfg.d_ff)
@@ -84,12 +85,13 @@ def _shared_block(p, x, cfg, pos0, kv, parallel=None):
 
 def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
             cache: dict | None = None, compute_dtype=torch.float32, remat: str = "none",
-            parallel=None):
+            parallel=None, kv_split=None):
     """Returns (hidden [B, S, d], cache).  ``remat="block"`` recomputes each
     Mamba layer in the backward pass (the JAX package checkpoints its
     Mamba scan body alone).  With ``parallel`` the tokens are this rank's
     data shard, the blocks run over the model axis and a cache is this
-    rank's piece (:func:`init_cache`)."""
+    rank's piece (:func:`init_cache`; with ``kv_split`` the shared block's
+    ``k``/``v`` hold its piece of the sequence)."""
     _check_remat(remat)
     B, _ = tokens.shape
     x = ll.embed_tokens(params, tokens, cfg, compute_dtype, parallel)
@@ -118,7 +120,7 @@ def forward(cfg: ModelConfig, params: dict, tokens: torch.Tensor, *, pos0=0,
         off += seg
         if seg == every:
             kv = (cache["k"][app], cache["v"][app]) if cache is not None else None
-            x = _shared_block(shared, x, cfg, pos0, kv, parallel)
+            x = _shared_block(shared, x, cfg, pos0, kv, parallel, kv_split)
             app += 1
     return x, cache
 

@@ -1375,6 +1375,12 @@ class TransformerBlockPlanner(ShardablePlanner):
     ``models.transformer.plan_forward`` passes the config's
     ``resolved_head_dim``; a call that names no head dim equals the JAX
     package's field for field.
+
+    ``seq_q`` (default ``seq``) is the attention cell's query length where
+    a rank attends a slice of the queries to every key (the planned
+    sequence-parallel attention: ``seq / tp`` rows against ``seq``).  The
+    attention cell's modeled words then cost a causal slice as if it began
+    at row 0, not at its offset (ROADMAP queue 3).
     """
 
     op: ClassVar[str] = "transformer_block"
@@ -1383,8 +1389,8 @@ class TransformerBlockPlanner(ShardablePlanner):
                       n_heads: int, d_ff: int, n_kv_heads: int | None = None,
                       vocab: int = 0, n_experts: int = 0, top_k: int = 2,
                       capacity_factor: float = 1.0, in_bytes: int = 4,
-                      causal: bool = True, head_dim: int | None = None
-                      ) -> dict[str, tuple]:
+                      causal: bool = True, head_dim: int | None = None,
+                      seq_q: int | None = None) -> dict[str, tuple]:
         """(planner, shape-kwargs) per cell — the delegation table."""
         hq = n_heads
         hkv = n_kv_heads or n_heads
@@ -1397,7 +1403,7 @@ class TransformerBlockPlanner(ShardablePlanner):
             "qkv": (mm, dict(m=m, n=(hq + 2 * hkv) * dh, k=d_model,
                              in_bytes=in_bytes)),
             "attn": (AttentionPlanner(**bind),
-                     dict(seq_q=seq, seq_kv=seq, head_dim=dh,
+                     dict(seq_q=seq_q or seq, seq_kv=seq, head_dim=dh,
                           n_q_heads=hq, n_kv_heads=hkv, batch=batch,
                           in_bytes=in_bytes, causal=causal)),
             "wo": (mm, dict(m=m, n=d_model, k=hq * dh, in_bytes=in_bytes)),

@@ -152,6 +152,17 @@ def gather_tensor(x: torch.Tensor, spec, mesh, axes=None, *,
     return x
 
 
+def fit_spec(spec, shape, mesh):
+    """``spec`` for a ``shape`` leaf on ``mesh``: an entry whose axes do not
+    divide its dimension is dropped, and the leaf is held whole over them
+    (the specs are chosen at the production model axis of 16; on a model
+    axis of 3 a vocab of 151936 does not split, and the layers then take
+    such a leaf whole, ``models/layers.py``)."""
+    entries = _entries(spec, len(shape))
+    return P(*(e if not spec_axes(e) or n % mesh.axis_size(spec_axes(e)) == 0 else None
+               for e, n in zip(entries, shape)))
+
+
 def replication(spec, mesh) -> int:
     """How many ranks hold each piece of a tensor under ``spec``: the
     extent of the mesh axes the spec does not name."""
@@ -344,6 +355,29 @@ def cache_specs(ctx: ParallelCtx, cache_tree) -> dict:
         return one(tree)
 
     return walk(cache_tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class SeqSplit:
+    """A KV cache whose sequence is spread over ``axes`` of ``mesh`` (the
+    data axes a small batch leaves idle, :func:`kv_cache_spec`'s "Idle dp
+    axes" branch): each rank holds a contiguous run of the positions, the
+    ranks in row-major order along ``axes``."""
+
+    mesh: object
+    axes: tuple[str, ...]
+
+    @property
+    def n(self) -> int:
+        return self.mesh.axis_size(self.axes)
+
+    @property
+    def index(self) -> int:
+        return self.mesh.axis_index(self.axes)
+
+    def start(self, length: int) -> int:
+        """This rank's first position, for a piece of ``length`` positions."""
+        return self.index * length
 
 
 def batch_spec(ctx: ParallelCtx, batch: int, ndim: int = 2) -> P:

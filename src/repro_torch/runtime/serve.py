@@ -46,9 +46,15 @@ its query heads read (``layers.cache_heads``) — the placement
 cannot split stay whole on each rank where the spec would split the head
 dim; and a recurrent state's heads (RWKV-6's ``wkv``, Mamba-2's ``ssd``,
 the ``x`` channels of its ``conv`` with ``B``/``C`` whole; the token-shift
-states whole), whatever ``cache_specs``' shape heuristic says of them.  A
-KV cache whose spec splits the sequence (too few rows for the data axes)
-raises.  The logits come back whole: gathered over the vocab shards and
+states whole), whatever ``cache_specs``' shape heuristic says of them.
+Where the batch leaves data axes idle (batch 1 on a mesh: the
+``long_500k`` decode), each KV leaf's sequence spreads over them as
+``kv_cache_spec`` places it: a rank holds a contiguous run of ``Smax / n``
+positions (the encoder-decoder's cross K/V a run of its frames), the rows
+are replicated over those axes, and the attention merges the ranks'
+pieces (``models/attention.py``); recurrent states stay whole there.  A
+KV cache whose spec gives the sequence to the model axis raises (ROADMAP
+queue 3).  The logits come back whole: gathered over the vocab shards and
 the rows.
 """
 
@@ -127,7 +133,25 @@ class _Mesh:
 
     def __init__(self, cfg: ModelConfig, parallel):
         self.cfg, self.parallel = cfg, parallel
-        self.kw = {"parallel": parallel} if par.tp_size(parallel) > 1 else {}
+        self.tp_kw = {"parallel": parallel} if par.tp_size(parallel) > 1 else {}
+
+    def kv_split(self, fam, batch: int):
+        """The SeqSplit of a ``batch``-row KV cache: the data axes the
+        batch leaves idle, where the family caches K/V (``None`` where no
+        axis idles)."""
+        ctx = self.parallel
+        spare = () if ctx is None else ctx.spare_dp_axes(batch)
+        if not spare or ctx.mesh.axis_size(spare) == 1:
+            return None
+        whole = fam.init_cache(self.cfg, 1, 1, torch.float32, device="meta")
+        if not any(name in whole for name in KV_LEAVES):
+            return None
+        return par.SeqSplit(ctx.mesh, spare)
+
+    def kw(self, fam, batch: int) -> dict:
+        """The forward's mesh keywords for a ``batch``-row step."""
+        split = self.kv_split(fam, batch)
+        return {**self.tp_kw, **({"kv_split": split} if split is not None else {})}
 
     def _entry(self, batch: int):
         axes = self.parallel.batch_axes(batch)
@@ -145,21 +169,39 @@ class _Mesh:
         cfg, ctx = self.cfg, self.parallel
         if ctx is None:
             return fam.init_cache(cfg, batch, max_seq, dtype, device=device)
+        n = ctx.mesh.axis_size(par.spec_axes(self._entry(batch)))
         whole = fam.init_cache(cfg, batch, max_seq, dtype, device="meta")
         specs = par.cache_specs(ctx, whole)
+        split = self.kv_split(fam, batch)
         for name in KV_LEAVES:
-            if name in whole and specs[name][2] is not None:
+            if name not in whole:
+                continue
+            if ctx.tp_axis in par.spec_axes(specs[name][2]):
                 raise NotImplementedError(
                     f"a KV cache of {batch} rows on mesh {dict(ctx.mesh.shape)} would "
-                    f"split its sequence ({specs[name]}); the sequence-split cache waits "
-                    "for ROADMAP queue 1 #5c (the sequence-split KV cache)")
-        n = ctx.mesh.axis_size(par.spec_axes(self._entry(batch)))
-        return fam.init_cache(cfg, batch // n, max_seq, dtype, device=device, **self.kw)
+                    f"split its sequence over the model axis ({specs[name]}), which the "
+                    "port does not (ROADMAP queue 3 #22)")
+            if split is not None and whole[name].shape[2] % split.n:
+                raise NotImplementedError(
+                    f"cache leaf {name!r} of {whole[name].shape[2]} positions does not "
+                    f"split over the {split.n} ranks of the idle data axes {split.axes}, "
+                    "where the JAX package keeps it whole (ROADMAP queue 3 #22)")
+        if split is None:
+            return fam.init_cache(cfg, batch // n, max_seq, dtype, device=device,
+                                  **self.tp_kw)
+        cache = fam.init_cache(cfg, batch // n, max_seq // split.n, dtype, device=device,
+                               **self.tp_kw)
+        for name in KV_LEAVES:
+            if name in cache and cache[name].shape[2] != whole[name].shape[2] // split.n:
+                shape = list(cache[name].shape)
+                shape[2] = whole[name].shape[2] // split.n
+                cache[name] = torch.zeros(shape, dtype=dtype, device=device)
+        return cache
 
     def logits(self, fam, params, h, batch: int) -> torch.Tensor:
         """The logits of this rank's rows, put back whole: every vocab
         column and every row of the global batch."""
-        out = fam.logits(self.cfg, params, h, **self.kw)
+        out = fam.logits(self.cfg, params, h, **self.tp_kw)
         if self.parallel is None:
             return out
         from repro_torch.models.layers import vocab_split
@@ -185,7 +227,7 @@ def make_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="bfloat16",
         extra = ({"frames": mesh.rows(_on(params, batch["frames"]).to(dt))}
                  if "frames" in batch else {})
         h, cache = fam.forward(cfg, params, mesh.rows(tokens), pos0=0, cache=cache,
-                               compute_dtype=dt, **extra, **mesh.kw)
+                               compute_dtype=dt, **extra, **mesh.kw(fam, B))
         return cache, mesh.logits(fam, params, h[:, -1:, :], B)
 
     return prefill
@@ -201,7 +243,7 @@ def make_decode_step(cfg: ModelConfig, compute_dtype="bfloat16", parallel=None):
     def decode(params, cache, tokens, pos):
         tokens = _on(params, tokens)
         h, cache = fam.forward(cfg, params, mesh.rows(tokens), pos0=pos, cache=cache,
-                               compute_dtype=dt, **mesh.kw)
+                               compute_dtype=dt, **mesh.kw(fam, tokens.shape[0]))
         return cache, mesh.logits(fam, params, h, tokens.shape[0])
 
     return decode
@@ -230,7 +272,7 @@ def make_bucket_prefill_step(cfg: ModelConfig, max_seq: int, compute_dtype="floa
         cache = mesh.init_cache(fam, B, max_seq, cdt, tokens.device)
         tokens, lengths = mesh.rows(tokens), mesh.rows(lengths)
         h, cache = fam.forward(cfg, params, tokens, pos0=0, cache=cache, compute_dtype=dt,
-                               **mesh.kw)
+                               **mesh.kw(fam, B))
         last = (lengths.long() - 1).clamp(0, S - 1)
         h_last = h[torch.arange(h.shape[0], device=h.device), last]  # [B_loc, d]
         return cache, mesh.logits(fam, params, h_last[:, None, :], B)[:, 0]
@@ -265,7 +307,7 @@ def make_slot_decode_step(cfg: ModelConfig, compute_dtype="float32", parallel=No
         B = tokens.shape[0]
         pos = mesh.rows(_on(params, pos).to(torch.int32))
         h, cache = fam.forward(cfg, params, mesh.rows(tokens)[:, None], pos0=pos, cache=cache,
-                               compute_dtype=dt, **per_slot, **mesh.kw)
+                               compute_dtype=dt, **per_slot, **mesh.kw(fam, B))
         return cache, mesh.logits(fam, params, h, B)[:, 0]
 
     return decode

@@ -1,6 +1,6 @@
 """Rank processes for the port's multi-process tests (``test_torch_sharded.py``,
 ``test_torch_elastic.py``, ``test_torch_token_mesh*.py``, ``test_torch_moe_mesh.py``,
-``test_torch_families_mesh.py``).
+``test_torch_families_mesh.py``, ``test_torch_long_mesh.py``).
 
 Run as ``python tests/_torch_ranks.py CASE RANK WORLD OUT ARGS_JSON``: the
 process joins a ``gloo`` group through a ``file://`` store under ``OUT``
@@ -839,12 +839,14 @@ def family_serve(sv, cfg, params, toks, frames, parallel, lift=lambda x: x,
     return out
 
 
-def whole_cache(cfg, cache: dict, ctx) -> dict:
-    """A rank's serving cache put together whole: its rows gathered over
-    the data axes; over the model axis its heads of RWKV-6's ``wkv`` and
-    Mamba-2's ``ssd``, its ``x`` channels of ``conv`` (B/C whole on every
-    rank), and its KV heads where the heads split (MHA only, as the smoke
-    configs)."""
+def whole_cache(cfg, cache: dict, ctx, batch: int = 4) -> dict:
+    """A rank's serving cache of ``batch`` rows put together whole: its rows
+    gathered over the data axes, and a KV leaf's positions over the data
+    axes the batch leaves idle (the sequence-split cache); over the model
+    axis its heads of RWKV-6's ``wkv`` and Mamba-2's ``ssd``, its ``x``
+    channels of ``conv`` (B/C whole on every rank), and its KV heads where
+    the heads split (each rank then holds an even share of them, or every
+    KV head)."""
     import torch
 
     from repro_torch.models import layers as ll
@@ -853,6 +855,7 @@ def whole_cache(cfg, cache: dict, ctx) -> dict:
     from repro_torch.runtime.serve import KV_LEAVES
 
     mesh, tp = ctx.mesh, ctx.tp_size
+    spare = ctx.spare_dp_axes(batch)
     out = {}
     for name, t in cache.items():
         t = t.detach()
@@ -864,9 +867,13 @@ def whole_cache(cfg, cache: dict, ctx) -> dict:
                 x = coll._all_gather(t[..., :n].contiguous(), mesh, ctx.tp_axis, 3)
                 t = torch.cat([x, t[..., n:]], -1)
             elif name in KV_LEAVES and ll.attention_split(cfg, 1, ctx, cached=True) == "heads":
-                assert cfg.n_heads == cfg.n_kv_heads, "whole_cache gathers MHA KV heads only"
-                t = coll._all_gather(t.contiguous(), mesh, ctx.tp_axis, 3)
-        rows = ctx.batch_axes(4)
+                if t.shape[3] * tp == cfg.n_kv_heads:
+                    t = coll._all_gather(t.contiguous(), mesh, ctx.tp_axis, 3)
+                else:
+                    assert t.shape[3] == cfg.n_kv_heads, "KV heads shared unevenly"
+        if name in KV_LEAVES and spare:
+            t = coll._all_gather(t.contiguous(), mesh, spare, 2)
+        rows = ctx.batch_axes(batch)
         if rows:
             t = coll._all_gather(t.contiguous(), mesh, rows, 1)
         out[name] = t
@@ -953,6 +960,157 @@ def case_families_mesh(rank: int, world: int, out: Path, args: dict) -> None:
         np.savez(out / f"families_{mesh}.npz", **res)
 
 
+# -- the batch-1 decode over a sequence-split KV cache -------------------------------
+
+LONG_MAX_SEQ = 32  # the ranks' boundary at 16 on a data axis of 2
+LONG_PROMPT = 20  # crosses the boundary
+LONG_DECODES = 4  # greedy, at 20..23
+LONG_CLAMP = 35  # a decode past max_seq: the write's start clamps to 31
+LONG_BUCKET = 24  # the bucket prefill pads the prompt to this
+
+
+def long_inputs(cfg) -> dict:
+    """Batch-1 inputs: seeded tokens [1, LONG_BUCKET] and (the
+    encoder-decoder's) frames [1, T_enc, d]."""
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    out = {"tokens": rng.integers(0, cfg.vocab, (1, LONG_BUCKET)).astype(np.int32)}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal((1, cfg.enc_seq, cfg.d_model)).astype(np.float32)
+    return out
+
+
+def long_builders(sv, cfg, params, inputs: dict, parallel, lift=lambda x: x,
+                  whole=lambda cache: cache, steps: str = "greedy") -> dict:
+    """Batch 1 through the step builders.  ``steps="greedy"``: a prefill of
+    LONG_PROMPT tokens at max_seq LONG_MAX_SEQ, LONG_DECODES greedy decodes
+    from its argmax, then one decode at LONG_CLAMP (past max_seq: the
+    write's start clamps); each one's logits, the cache (as ``whole``
+    gives it) after the prefill and after the clamped decode, and the
+    greedy tokens.  ``steps="slots"``: the bucket prefill of the prompt
+    padded to LONG_BUCKET (the encoder-decoder, which has none, the
+    prefill) and a slot decode at LONG_PROMPT."""
+    import numpy as np
+
+    out = {}
+
+    def keep(tag, cache, logits):
+        out[f"{tag}.logits"] = np.array(logits)
+        out.update({f"{tag}.cache.{k}": np.array(v) for k, v in whole(cache).items()})
+        return cache
+
+    toks = inputs["tokens"]
+    prompt = {"tokens": lift(toks[:, :LONG_PROMPT])}
+    if "frames" in inputs:
+        prompt["frames"] = lift(inputs["frames"])
+    if steps == "slots":
+        if cfg.family == "encdec":
+            cache, _ = sv.make_prefill_step(cfg, LONG_MAX_SEQ, "float32", "float32",
+                                            parallel=parallel)(params, prompt)
+        else:
+            cache = keep("bucket", *sv.make_bucket_prefill_step(
+                cfg, LONG_MAX_SEQ, parallel=parallel)(
+                params, lift(toks), lift(np.array([LONG_PROMPT], np.int32))))
+        keep("slot", *sv.make_slot_decode_step(cfg, parallel=parallel)(
+            params, cache, lift(toks[:, LONG_PROMPT]),
+            lift(np.array([LONG_PROMPT], np.int32))))
+        return out
+    cache, logits = sv.make_prefill_step(cfg, LONG_MAX_SEQ, "float32", "float32",
+                                         parallel=parallel)(params, prompt)
+    keep("prefill", cache, logits)
+    decode = sv.make_decode_step(cfg, "float32", parallel=parallel)
+    greedy, steps_logits = [], []
+    for i in range(LONG_DECODES + 1):
+        nxt = np.asarray(logits)[:, -1].argmax(-1).astype(np.int32)
+        greedy.append(nxt)
+        pos = LONG_PROMPT + i if i < LONG_DECODES else LONG_CLAMP
+        cache, logits = decode(params, cache, lift(nxt[:, None]), pos)
+        steps_logits.append(np.array(logits))
+    out["greedy"] = np.stack(greedy, 1)
+    out["decode.logits"] = np.stack(steps_logits[:-1])
+    keep("clamp", cache, steps_logits[-1])
+    return out
+
+
+def case_long_mesh(rank: int, world: int, out: Path, args: dict) -> None:
+    """Batch 1 on ``args["mesh"]`` (the data axes idle: each KV cache split
+    over the sequence), each ``args["parts"]`` entry ``[tag, arch,
+    changes]`` from the carried weights (``init_{tag}.npz``), placed by
+    the model axis of their specs: :func:`long_builders`' greedy steps
+    (every cache gathered whole), and its slot steps on the mesh and on
+    this rank alone (one device, the whole weights).  Rank 0 writes
+    ``long_{mesh}.npz``."""
+    import dataclasses
+    import functools
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.models.module import param_specs
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import parallel as par
+    from repro_torch.runtime import serve as sv
+
+    mesh = args["mesh"]
+    ctx = _mesh_ctx(mesh)
+    res = {}
+    for tag, arch, changes in args["parts"]:
+        cfg = dataclasses.replace(smoke_config(arch), **changes)
+        params = params_from_repro(dict(np.load(out / f"init_{tag}.npz")), device="cpu")
+        specs = param_specs(get_family(cfg.family).param_defs(cfg))
+        placed = {k: par.shard_tensor(v, specs[k], ctx.mesh, axes=(ctx.tp_axis,))
+                  for k, v in params.items()}
+        inputs = long_inputs(cfg)
+        lift = torch.as_tensor
+        whole = functools.partial(whole_cache, cfg, ctx=ctx, batch=1)
+        got = long_builders(sv, cfg, placed, inputs, ctx, lift=lift, whole=whole)
+        got.update(long_builders(sv, cfg, placed, inputs, ctx, lift=lift, whole=whole,
+                                 steps="slots"))
+        alone = long_builders(sv, cfg, params, inputs, None, lift=lift, steps="slots")
+        res.update({f"{tag}.{k}": v for k, v in got.items()})
+        res.update({f"{tag}.alone.{k}": v for k, v in alone.items()})
+    if rank == 0:
+        np.savez(out / f"long_{mesh}.npz", **res)
+
+
+def case_long_planned(rank: int, world: int, out: Path, args: dict) -> None:
+    """The planned forward of a config whose query heads do not split over
+    the model axis of ``args["mesh"]``: the FSDP step's step-1 loss and
+    every gradient (the attention cell sequence-parallel on the flash
+    kernel's plain version at each rank's query offset), and the flash
+    launches' offsets.  Each rank writes ``planned_rank{rank}.npz``."""
+    import dataclasses
+
+    import numpy as np
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.convert import params_from_repro
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+    from repro_torch.runtime import train as tr
+
+    cfg = dataclasses.replace(smoke_config(args["arch"]), **args["heads"])
+    tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32", loss_chunks=4,
+                       remat="none", planned_kernels=True)
+    offsets = []
+    real = flash_attention_kernel.plain
+
+    def plain(*tensors, **kw):
+        offsets.append(kw.get("q_off", 0))
+        return real(*tensors, **kw)
+
+    flash_attention_kernel.plain = plain
+    params = params_from_repro(dict(np.load(out / "init.npz")), device="cpu")
+    loss, grads = _step1(cfg, tcfg, _mesh_ctx(args["mesh"]), params,
+                         tr.batch_to(serve_inputs(cfg), "cpu"))
+    res = {"loss1": np.array(loss), "offsets": np.array(sorted(set(offsets))),
+           "flash_calls": np.array(len(offsets))}
+    res.update({f"grad.{k}": g for k, g in grads.items()})
+    np.savez(out / f"planned_rank{rank}.npz", **res)
+
+
 def case_tune_agree(rank: int, world: int, out: Path, args: dict) -> None:
     """``autotune.tune`` of multi-device matmul cells on a ("model",) mesh
     with stopwatches that disagree (rank 0's times fall candidate by
@@ -1012,7 +1170,8 @@ CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": cas
          "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts,
          "tokens": case_tokens, "seqp": case_seqp, "token_ckpt": case_token_ckpt,
          "token_elastic": case_token_elastic, "moe_mesh": case_moe_mesh,
-         "tune_agree": case_tune_agree, "families_mesh": case_families_mesh}
+         "tune_agree": case_tune_agree, "families_mesh": case_families_mesh,
+         "long_mesh": case_long_mesh, "long_planned": case_long_planned}
 
 
 def main() -> int:

@@ -474,6 +474,29 @@ def test_flash_kernel_matches_plain_on_card(cuda, case):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("d,window", [(64, None), (128, 40), (256, None), (32, 96)])
+@pytest.mark.parametrize("q_off", [64, 100])
+def test_flash_kernel_at_a_query_offset_matches_plain_and_the_whole_call(cuda, d, window,
+                                                                         q_off):
+    """A slice of 96 query rows at ``q_off`` (a multiple of block_q, and
+    not) against its plain version, and bit for bit against the same rows
+    of the whole causal call."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
+
+    rng = np.random.default_rng(13)
+    q, k, v = _rand(rng, 1, 4, 256, d), _rand(rng, 1, 2, 256, d), _rand(rng, 1, 2, 256, d)
+    q, k, v = q.to(cuda), k.to(cuda), v.to(cuda)
+    whole = flash_attention(q, k, v, causal=True, window=window, block_q=32, block_kv=32)
+    qs = q[:, :, q_off:q_off + 96]
+    got = _launched(flash_attention_kernel, lambda: flash_attention(
+        qs, k, v, causal=True, window=window, q_off=q_off, block_q=32, block_kv=32))
+    want = flash_attention(qs.cpu(), k.cpu(), v.cpu(), causal=True, window=window,
+                           q_off=q_off)
+    assert_close(got, want)
+    assert torch.equal(got, whole[:, :, q_off:q_off + 96])
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("d", [32, 64, 128, 256])
 def test_flash_kernel_repeats_bit_for_bit(cuda, d):
     """Two launches on the same inputs give the same bits, at each head dim's

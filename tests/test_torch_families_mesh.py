@@ -337,8 +337,10 @@ def test_ssd_state_keeps_its_heads_whatever_the_shape_heuristic(arch, changes):
 
 def test_sequence_split_cache_raises_with_its_roadmap_item():
     """A batch-1 Zamba2 cache on 2x2 spreads its KV sequence over the idle
-    data axis: the builders raise and name the sequence-split KV cache
-    (ROADMAP queue 1 #5c); its recurrent states alone would not."""
+    data axis (a rank holds 32 of 64 positions; ``tests/test_torch_long_mesh.py``
+    serves on it); a sequence that does not split evenly over that axis
+    raises and names ROADMAP queue 3 #22; the recurrent states alone never
+    split."""
     import torch
 
     from repro_torch.configs import smoke_config
@@ -346,9 +348,11 @@ def test_sequence_split_cache_raises_with_its_roadmap_item():
     from repro_torch.runtime import serve as sv
 
     ctx = _stub_ctx(2, 2)
-    with pytest.raises(NotImplementedError, match="sequence-split KV cache"):
-        sv._Mesh(smoke_config("zamba2-1.2b"), ctx).init_cache(zamba2, 1, 64, torch.float32,
-                                                              "meta")
+    mesh = sv._Mesh(smoke_config("zamba2-1.2b"), ctx)
+    cache = mesh.init_cache(zamba2, 1, 64, torch.float32, "meta")
+    assert cache["k"].shape[2] == 32 and cache["mamba/ssd"].shape[1] == 1
+    with pytest.raises(NotImplementedError, match="queue 3 #22"):
+        mesh.init_cache(zamba2, 1, 63, torch.float32, "meta")
     cache = sv._Mesh(smoke_config("rwkv6-1.6b"), ctx).init_cache(rwkv6, 1, 64, torch.float32,
                                                                  "meta")
     assert tuple(cache["wkv"].shape[1:3]) == (1, 2)

@@ -274,12 +274,14 @@ def test_parse_mesh_equals_repro(spec):
 
 
 def test_launcher_mesh_for_a_token_family_raises():
-    """Every token family trains over a model axis above 1 now; the dense
-    family's planned path with query heads that do not split (the smoke
-    config's 4 over 8) still raises, before any rank starts."""
-    with pytest.raises(NotImplementedError, match="5c"):
+    """Every token family trains over a model axis above 1 now, and the
+    dense family's planned path with query heads that do not split (the
+    smoke config's 4 over 8) runs its attention sequence-parallel; where
+    the sequence does not split either (250 over 8) it still raises,
+    before any rank starts."""
+    with pytest.raises(NotImplementedError, match="queue 3"):
         tlaunch.main(["--family", "transformer", "--device", "cpu", "--steps", "1",
-                      "--planned-kernels", "--mesh", "1x8"])
+                      "--planned-kernels", "--mesh", "1x8", "--seq", "250"])
 
 
 def test_op_plan_sharded_keys_autotune_by_strategy(tmp_path):

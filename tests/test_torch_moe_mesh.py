@@ -256,30 +256,41 @@ def test_full_configs_cache_their_kv_heads_split_over_model(arch, want):
     assert tuple(spec) == (None, "data", None, "model", None)
 
 
-def test_a_cache_split_over_the_sequence_raises_5c():
-    """A batch-1 cache on 2x2 would spread its sequence over the idle data
-    axis (``kv_cache_spec``): the builders raise and name ROADMAP #5c; 4
-    rows split over ``data`` instead."""
+def test_a_batch_1_cache_splits_its_sequence_over_the_idle_data_axis():
+    """A batch-1 cache on 2x2 spreads its sequence over the idle data axis
+    (``kv_cache_spec``): the rank at data 1 holds positions 32..63 of 64
+    (``tests/test_torch_long_mesh.py`` serves on it against ``repro``);
+    4 rows split over ``data`` instead.  A cache whose spec gives the
+    sequence to the model axis (one KV head, a head dim of 32 and 63
+    positions on a model axis of 3) raises and names ROADMAP queue 3."""
+    import dataclasses
+
     import torch
 
     from repro_torch.configs import smoke_config
+    from repro_torch.models import moe
     from repro_torch.runtime import serve as sv
     from repro_torch.runtime.parallel import ParallelCtx
 
     cfg = smoke_config("qwen3-moe-235b-a22b")
     ctx = ParallelCtx(mesh=_Stub({"data": 1, "model": 0}, data=2, model=2))
-    prefill = sv.make_bucket_prefill_step(cfg, 64, parallel=ctx)
-    with pytest.raises(NotImplementedError, match="5c"):
-        prefill({"embed": torch.zeros(1)}, torch.zeros((1, 8), dtype=torch.int32),
-                torch.ones(1, dtype=torch.int32))
-    from repro_torch.models import moe
-
-    cache = sv._Mesh(cfg, ctx).init_cache(moe, 4, 64, torch.float32, "cpu")
+    mesh = sv._Mesh(cfg, ctx)
+    split = mesh.kv_split(moe, 1)
+    assert split.axes == ("data",) and (split.n, split.start(32)) == (2, 32)
+    cache = mesh.init_cache(moe, 1, 64, torch.float32, "cpu")
+    assert {k: tuple(v.shape) for k, v in cache.items()} == {
+        k: (cfg.n_layers, 1, 32, 1, 32) for k in ("k", "v")}
+    assert mesh.kv_split(moe, 4) is None
+    cache = mesh.init_cache(moe, 4, 64, torch.float32, "cpu")
     assert {k: tuple(v.shape) for k, v in cache.items()} == {
         k: (cfg.n_layers, 2, 64, 1, 32) for k in ("k", "v")}
+    ctx3 = ParallelCtx(mesh=_Stub({"data": 0, "model": 0}, data=1, model=3))
+    with pytest.raises(NotImplementedError, match="queue 3"):
+        sv._Mesh(dataclasses.replace(cfg, n_heads=3), ctx3).init_cache(
+            moe, 1, 63, torch.float32, "cpu")
 
 
-def test_recurrent_families_over_a_model_axis_raise_5c_in_the_builders():
+def test_recurrent_families_build_their_slot_decode_over_a_model_axis():
     """The recurrent families served over a model axis above 1 raised until
     #5c's recurrent part: building the slot decode raises nothing now, and
     a rank's state holds half the heads

@@ -11,9 +11,10 @@ against the JAX package, on CPU ranks (as ``test_torch_token_mesh.py``).
   dispatch, so the MoE's reference is ``repro`` on the same mesh), and
   RWKV-6's step-1 gradients against ``jax.grad``.
 * The recurrent and encoder-decoder families over a model axis of 2 build
-  their step (``tests/test_torch_families_mesh.py`` holds them against
-  ``repro``); the planned forward with query heads that do not split
-  raises and names ROADMAP queue 1 #5c (the MoE over a model axis is
+  their step and run it on a stub mesh (``tests/test_torch_families_mesh.py``
+  holds them against ``repro``); the planned forward with query heads that
+  do not split takes the sequence-parallel attention where the sequence
+  splits, and raises where it does not (the MoE over a model axis is
   ``tests/test_torch_moe_mesh.py``).
 """
 
@@ -25,7 +26,6 @@ from pathlib import Path
 
 import numpy as np
 import pytest
-import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))
 from _torch_ranks import run_ranks  # noqa: E402
@@ -148,9 +148,26 @@ def test_rwkv6_step1_grads_on_2x1_equal_jax_grad(results):
 
 
 class _Stub:
+    """A mesh's shape seen from its first rank, with no process group: each
+    collective over an axis of it returns this rank's tensor as it is (a
+    psum of one term), so a step runs through every code path of the model
+    axis without other ranks (the numbers are not the mesh's)."""
+
     def __init__(self, shape):
         self.shape = dict(shape)
         self.axis_names = tuple(shape)
+
+    def axes(self, names):
+        return (names,) if isinstance(names, str) else tuple(names)
+
+    def axis_size(self, names):
+        return int(np.prod([self.shape[a] for a in self.axes(names)]))
+
+    def axis_index(self, names):
+        return 0
+
+    def group(self, names):
+        return None
 
 
 def _ctx(data: int, model: int):
@@ -160,28 +177,48 @@ def _ctx(data: int, model: int):
 
 
 @pytest.mark.parametrize("family", ["rwkv6", "zamba2", "encdec"])
-def test_other_families_over_a_model_axis_raise_5c(family):
-    """These families raised over a model axis above 1 until #5c's
-    recurrent and encoder-decoder part: building the step raises nothing
-    now, with ``int8_ef`` on the shards too
-    (``tests/test_torch_families_mesh.py`` runs the steps and holds them
-    against ``repro``)."""
+def test_other_families_build_and_run_a_step_over_a_model_axis(family):
+    """The recurrent and encoder-decoder families over a model axis of 2:
+    the step builds and one AdamW step runs on the stub mesh to a finite
+    loss, with ``int8_ef`` on the shards too
+    (``tests/test_torch_families_mesh.py`` runs the steps on ranks and
+    holds them against ``repro``)."""
+    import torch
+
     from repro_torch.configs import FAMILY_DEFAULT_ARCH, TrainConfig, smoke_config
+    from repro_torch.models.module import init_params
+    from repro_torch.models.registry import get_family
+    from repro_torch.plan.sharded import P
     from repro_torch.runtime import train as tr
 
     cfg = dataclasses.replace(smoke_config(FAMILY_DEFAULT_ARCH[family]), family=family)
+    params = init_params(get_family(family).param_defs(cfg), 0, device="cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(0, cfg.vocab, (2, 9)))
+    batch = {"tokens": tokens[:, :8], "labels": tokens[:, 1:]}
+    if family == "encdec":
+        batch["frames"] = torch.zeros((2, 16, cfg.d_model))
+    whole = {k: P() for k in params}
     for knob in ("none", "int8_ef"):
-        tr.make_train_step(cfg, TrainConfig(grad_compression=knob), parallel=_ctx(1, 2),
-                           grad_specs={})
+        tcfg = TrainConfig(param_dtype="float32", compute_dtype="float32",
+                           grad_compression=knob, loss_chunks=4)
+        step = tr.make_train_step(cfg, tcfg, parallel=_ctx(1, 2), grad_specs=whole)
+        _, metrics = step(tr.init_state(cfg, tcfg, params), batch)
+        assert np.isfinite(float(metrics["loss"]))
 
 
-def test_planned_forward_with_undividable_heads_raises_5c():
+def test_planned_forward_with_undividable_heads_splits_the_sequence():
+    """3 query heads on a model axis of 2 run the planned attention
+    sequence-parallel where the sequence splits (16 rows a rank, a GQA
+    block of 48 rows); a sequence that splits neither way raises and names
+    ROADMAP queue 3 (``tests/test_torch_long_mesh.py`` runs the
+    sequence-parallel step on ranks against ``repro``)."""
     from repro_torch.configs import smoke_config
+    from repro_torch.models import layers as ll
     from repro_torch.models import transformer as tf
-    from repro_torch.models.module import init_params
 
     cfg = dataclasses.replace(smoke_config(ARCH), **SEQP)
-    params = init_params(tf.param_defs(cfg), 0, device="cpu")
-    tokens = torch.zeros((2, 16), dtype=torch.int32)
-    with pytest.raises(NotImplementedError, match="5c"):
-        tf.forward(cfg, params, tokens, use_kernels=True, parallel=_ctx(1, 2))
+    assert ll.attention_split(cfg, 32, _ctx(1, 2)) == "seq"
+    assert tf.attn_rows(cfg, 32, _ctx(1, 2)) == 16
+    tf.check_planned_heads(cfg, 2, 32)
+    with pytest.raises(NotImplementedError, match="queue 3"):
+        tf.check_planned_heads(cfg, 2, 15)
