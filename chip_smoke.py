@@ -154,7 +154,7 @@ The serving slice (after ``remat``, before ``times``):
                under policy tune (the bucket cells timed on the matmul and
                flash-attention kernels: path ``serve_warmup``), boot 2
                under cache-only with the autotuner's timing path rigged to
-               raise; each serves the same 24 seeded requests (prompts
+               raise; each serves the same 16 seeded requests (prompts
                16-1000 tokens, 8-64 new tokens), all DONE, boot 2's streams
                equal to boot 1's, every tuned cell replayed, and no kernel
                launched at request time (serving runs plain PyTorch, as the
@@ -180,12 +180,12 @@ what it held):
 15. moe_serve — qwen3-moe-235b-a22b at full width (d_model 4096, 64/4
                heads of 128 with qk-norm, 128 experts top-8 of d_ff 1536,
                capacity factor 1.25, vocab 151936, untied head), its depth
-               cut from 94 layers to 4 (44.78 GB of f32 weights, drawn on
+               cut from 94 layers to MOE_LAYERS (f32 weights, drawn on
                the card from the seed and perturbed as phase serve's are),
                served through the engine exactly as phase serve serves
                qwen1.5-0.5b: boot 1 tunes (path ``moe_serve_warmup``),
                boot 2 replays cache-only with the timing path rigged to
-               raise, 24 requests each, equal streams, no launch at request
+               raise, 16 requests each, equal streams, no launch at request
                time; every tuned winner against its kernel's plain version
                (GQA 64/4 flash at D = 128, the qkv n 9216 and expert
                d_ff 1536 matmul cells), each distinct cell timed beside
@@ -345,7 +345,7 @@ free of its state):
                it beside its plain version, one library call and its
                bound).  Per rank: step ms (events), collective calls,
                bytes and host seconds by kind, peak memory.  (b) The same
-               at full width cut to 4 layers, ``--chaos kill@3`` over 6
+               at full width cut to 2 layers, ``--chaos kill@3`` over 5
                steps with a checkpoint every 2: the survivors shrink to
                1x2, restore step 2 onto it, and their tail and final
                checkpoint equal bit for bit a clean 1x2 run restored from
@@ -359,7 +359,7 @@ The sixteenth slice (after ``moe_serve``):
                this process, then rank processes sharing cuda:0 over gloo
                (``chip_smoke.py --moe-rank``), each drawing its share of the
                weights on the card in turn.  (a) qwen3-moe-235b-a22b at full
-               width cut to 2 layers on 2x2 (expert-parallel: a rank holds
+               width cut to 1 layer on 2x2 (expert-parallel: a rank holds
                64 experts, 32 query heads and half the vocab): the ladder
                (4, 256), (8, 512) tuned on the mesh (policy tune, every
                multi-device candidate's ``op.sharded`` on the live mesh;
@@ -373,7 +373,7 @@ The sixteenth slice (after ``moe_serve``):
                tokens and 8 decodes against the one-device run.  (c)
                ``--arch qwen3-moe-235b-a22b --mesh 2x2`` through the
                launcher, 1 layer and 16 experts (reduced from 94 and 128),
-               4 x 256, 3 AdamW steps: the losses within 1e-4 relative of a
+               4 x 256, 2 AdamW steps: the losses within 1e-4 relative of a
                one-device run whose step averages each data shard's
                gradients, the FSDP step's step-1 loss within 1e-5 relative
                and every gradient shard within 1e-4 x max(1, max|g|).  Per
@@ -391,18 +391,18 @@ The seventeenth slice (after ``families``):
                turn, then 2 ranks on 1x2 the serving cases.  (a) rwkv6-1.6b
                at full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab
                65536), its depth of 24 cut to 2 for training: the launcher at
-               4 x 256, 3 AdamW steps; served at full depth, a prefill of
-               2 x 256 and 16 decodes.  (b) zamba2-1.2b likewise, its depth
+               4 x 256 (two of Mamba-2's SSD chunks), 2 AdamW steps; served
+               at full depth, a prefill of 2 x 256 and 16 decodes.  (b) zamba2-1.2b likewise, its depth
                of 38 cut to 7 for training (the shared block runs once); its
                SSD state [L, B, 64, 64, 64] is what ``cache_specs`` takes for
                a KV cache, and each rank holds its heads.  (c)
-               seamless-m4t-medium at full width, its decoder's 12 layers cut
-               to 4 for training: the FSDP train
+               seamless-m4t-medium at full width, its decoder's and its
+               encoder's 12 layers each cut to 4 for training: the FSDP train
                step on seeded frames batches (4 x 256 tokens, 4 x 256 x 1024
                frames; its launcher has no frames), served with 2 x 4096 x
                1024 frames.  (d) qwen1.5-0.5b cut to 2 layers through the
                launcher with ``--planned-kernels --grad-compression int8_ef``
-               at 4 x 2048.  Checks: the 3 losses within LOSS_TOL relative
+               at 4 x 2048.  Checks: the 2 losses within LOSS_TOL relative
                of the one-device run; the FSDP step-1 loss within 1e-5
                relative; (d) every f32 gradient shard within TOL x max(1,
                max|g|), the shards int8_ef compresses them to at most 0.1 %
@@ -437,12 +437,35 @@ The eighteenth slice (after ``families_mesh``):
                qwen1.5-0.5b at full width cut to 4 layers, planned, through
                the launcher on 1x3 (16 query heads do not split: each rank
                attends 512 of 1536 query rows on the flash kernel at q_off
-               0, 512, 1024), 3 AdamW steps at 2 x 1536: each rank's
+               0, 512, 1024), 2 AdamW steps at 2 x 1536: each rank's
                launches a step those of its local plan (flash 4) at its
-               offset, the step-1 loss and 3 losses within 1e-5 relative
+               offset, the step-1 loss and 2 losses within 1e-5 relative
                and every gradient shard within TOL x max(1, max|g|) of one
                device.  Per rank: prefill, decode and step ms, collectives
                by kind, peak memory.
+
+The nineteenth slice (last, after ``paper``):
+
+25. tools    — the dry-run tools on the card's main paths (paths
+               ``tools_qwen1.5-0.5b`` and ``tools_cnn-vgg11``).  (a) The
+               launcher's planned qwen1.5-0.5b step at TFM_BATCH x TFM_SEQ
+               (full width and depth, remat none) and the cnn-vgg11 step at
+               BATCH, each traced once on ``meta`` tensors and run once on
+               the card under ``analysis/hlo_cost.py``'s recorder: every
+               kernel's calls on ``meta``, under the card's recorder and by
+               the delta of ``CudaKernel.launches`` equal, and the FLOPs,
+               bytes, per-op attribution and collectives equal exactly;
+               then the step's event median (TOOLS_STEP_REPS) and profiled
+               device time beside its H100 roofline terms
+               (``roofline.from_compiled``) and the share of the bound.
+               (b) ``python -m repro_torch.launch.dryrun`` for each cell of
+               TOOLS_DRYRUN (rank 0 of a fake group of 256 on the CPU),
+               started right after the build and joined here: each record
+               ``ok``; its modeled terms printed.  (c) conv dX at padding F
+               and 2F - 1 (F = 1 and 3, strides 1 and 2; batch 4, 32 x 32,
+               64 -> 64 channels) through the conv layer: one conv launch
+               for dX, dX and dW within TOL x max(1, max|g|) of the plain
+               dgrad and wgrad.
 
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
@@ -506,9 +529,9 @@ SCRATCH = ROOT / "build" / "chip_smoke"  # checkpoints and the winner caches
 SERVE_LADDER = [(4, 256), (8, 512), (8, 1024)]
 SERVE_MAX_SEQ = 2048
 SERVE_SLOTS = 8
-SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 24, (16, 1000), (8, 64)  # a boot's requests
+SERVE_REQUESTS, SERVE_PROMPT, SERVE_NEW = 16, (16, 1000), (8, 64)  # a boot's requests (was 24)
 SERVE_CACHE_CHECK = (960, 32)  # prompt tokens, new tokens
-SERVE_LOAD = dict(qps=50.0, n_requests=32, prompt_len=(16, 1000), new_tokens=(8, 64),
+SERVE_LOAD = dict(qps=50.0, n_requests=16, prompt_len=(16, 1000), new_tokens=(8, 64),  # was 32
                   seed=SEED)
 # The served weights: the seed's plus seeded numpy noise, as the CPU
 # serving tests perturb theirs (greedy decoding on the seed's alone repeats
@@ -520,11 +543,11 @@ SERVE_LOAD = dict(qps=50.0, n_requests=32, prompt_len=(16, 1000), new_tokens=(8,
 # that spread beside its error).
 SERVE_PERTURB, SERVE_PERTURB_ZEROS = 1.75, 0.3
 # The tenth slice.  Phase moe_serve: qwen3-moe-235b-a22b at full width, its
-# depth cut from 94 layers to MOE_LAYERS (44.78 GB of f32 weights), served
+# depth cut from 94 layers to MOE_LAYERS (4 before the phase tools joined), served
 # as phase serve serves qwen1.5-0.5b; its cache check: a prompt padded to
 # the lowest rung, then decodes.  Phase families: rwkv6-1.6b, zamba2-1.2b and
 # seamless-m4t-medium at full width and depth.
-MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 4
+MOE_ARCH, MOE_LAYERS = "qwen3-moe-235b-a22b", 2
 MOE_CACHE_CHECK = (240, 16)  # prompt tokens, new tokens
 FAMILY_ARCHS = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium")
 FAMILY_BATCH, FAMILY_PROMPT, FAMILY_DECODE = 2, 256, 16
@@ -578,29 +601,34 @@ ELASTIC_NAN = ("corrupt@3,nan@4x2", 2, 6)  # chaos, non-finite patience, steps
 # Phase tokens_mesh: the dense family on a 2x2 mesh of ranks sharing the card.
 TOKENS_MESH, TOKENS_RANKS, TOKENS_SHRUNK = "2x2", 4, "1x2"
 TOKENS_TIMEOUT = 900  # seconds a rank process may take (init, builds, 3 steps)
-# (b): full width cut to 4 layers, kill@3 over 6 steps, a checkpoint every 2.
-TOKENS_ELASTIC_LAYERS, TOKENS_ELASTIC_STEPS = 4, 6
+# (b): full width cut to 2 layers, kill@3 over 5 steps, a checkpoint every 2
+# (4 layers and 6 steps before the phase tools joined, for the time limit).
+TOKENS_ELASTIC_LAYERS, TOKENS_ELASTIC_STEPS = 2, 5
 TOKENS_ELASTIC_KILL, TOKENS_ELASTIC_EVERY = 3, 2
 RUNS: dict = {}  # what a later phase compares with (phase transformer's losses)
 # Phase moe_mesh: the MoE family served and trained on meshes of ranks sharing the card.
 MOE_MESH, MOE_MESH_RANKS = "2x2", 4  # (a) and (c)
-MOE_MESH_LAYERS = 2  # (a): qwen3-moe-235b-a22b at full width, depth 94 -> 2
+MOE_MESH_LAYERS = 1  # (a): qwen3-moe-235b-a22b at full width, depth 94 -> 1 (2 before tools)
 MOE_MESH_LADDER = [(4, 256), (8, 512)]  # (a): tuned on the mesh; the prefill runs the last
 MOE_MESH_DECODES = 16
 MOE_TPE_ARCH, MOE_TPE_MESH, MOE_TPE_LAYERS = "grok-1-314b", "1x2", 1  # (b)
 MOE_TPE_PROMPT, MOE_TPE_DECODES = (2, 128), 8  # (b): rows x prompt tokens, decodes
-# (c); seq 512 -> 256 for the script's time limit (the phase long_mesh joined)
-MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=256, steps=3)
+# (c); seq 512 -> 256 for the script's time limit when the phase long_mesh
+# joined; 3 steps -> 2 when the phase tools joined
+MOE_TRAIN = dict(layers=1, experts=16, batch=4, seq=256, steps=2)
 MOE_MESH_TIMEOUT = 900  # seconds a rank process may take
 # Phase families_mesh: RWKV-6, Zamba2, the encoder-decoder and int8_ef on FSDP
 # shards, on meshes of ranks sharing the card.
 FM_TRAIN_MESH, FM_SERVE_MESH = "2x2", "1x2"
 # The training cases cut for the script's time limit when phase long_mesh
 # joined (seq and frames 512 -> 256, rwkv6 and (d) 4 layers -> 2, seamless's
-# decoder 12 -> 4).
-FM_TRAIN = dict(batch=4, seq=256, steps=3, frames=256)  # frames: T_enc of a training batch
+# decoder 12 -> 4) and again when phase tools joined (3 steps -> 2, seamless's
+# encoder 12 -> 4).  The sequence stays two of Mamba-2's SSD chunks, so
+# Zamba2 trains the state carried from one chunk to the next.
+FM_TRAIN = dict(batch=4, seq=256, steps=2, frames=256)  # frames: T_enc of a training batch
 FM_TRAIN_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 7,  # depth cuts (seamless: the decoder)
                    "seamless-m4t-medium": 4}
+FM_TRAIN_ENC_LAYERS = {"seamless-m4t-medium": 4}  # its encoder's 12
 FM_SERVE = dict(rows=2, prompt=256, decodes=16)  # full width and depth
 FM_EF_LAYERS = 2  # (d): qwen1.5-0.5b, 24 layers -> 2, 4 x 2048, planned, int8_ef
 FM_TRAIN_CASES = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium", "ef")
@@ -624,8 +652,9 @@ LM_DECODES = 16
 # (c): the planned step on 1x3, where 16 query heads do not split: 512
 # query rows a rank at offsets 0, 512 and 1024.
 LM_TRAIN_MESH = "1x3"
-LM_TRAIN = dict(arch="qwen1.5-0.5b", layers=4, batch=2, seq=1536, steps=3)
-LM_LOSS_TOL = 1e-5  # relative: (c)'s step-1 loss and its 3 losses
+# (c): 3 steps -> 2 when the phase tools joined (the script's time limit)
+LM_TRAIN = dict(arch="qwen1.5-0.5b", layers=4, batch=2, seq=1536, steps=2)
+LM_LOSS_TOL = 1e-5  # relative: (c)'s step-1 loss and its losses
 LM_TIMEOUT = 900  # seconds a rank process may take
 # Phase flash's offset cases: (D, window) at S = 2048 with GQA 8/4; a slice
 # of 512 query rows at each offset (multiples of block_q and not).
@@ -663,7 +692,7 @@ def scale(want) -> float:
     return max(1.0, float(want.abs().max()))
 
 
-def median_ms(fn, reps: int = 20, warmup: int = 3) -> float:
+def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
     import torch
 
     for _ in range(warmup):
@@ -838,12 +867,12 @@ def per_kernel(calls: dict, kernels) -> dict:
     return {k: sum(n for (kk, _), n in calls.items() if kk == k) for k in kernels}
 
 
-def bwd_cases(torch, cnn, cfg):
+def bwd_cases(torch, cnn, cfg, kernels):
     """(kernel, label, args, kwargs, meta) of every backward call of the
     planned training step at batch 256 — the fused dX/dW kernel at batch
     128 — with the training plan's blocks, plus a ragged case per kernel.
-    ``meta`` holds the call's operations and bytes (unpadded) and its
-    library yardstick (None where no one PyTorch call computes it)."""
+    ``meta`` holds the call's operations and bytes (the kernel's ``cost``
+    of the unpadded operands) and its library yardstick (None where no one PyTorch call computes it)."""
     from repro_torch.kernels.conv2d.bwd import dgrad_operands, wgrad_operands
     from repro_torch.plan import pad_dim, round_up
 
@@ -869,16 +898,14 @@ def bwd_cases(torch, cnn, cfg):
                 co = w_shape[3]
                 x, dy = rand(*x_shape), rand(B, H, H, co)
                 f = rand(*w_shape, s=(9 * co) ** -0.5)
-                flops = 2.0 * B * H * H * 9 * ci * co
                 s_wg = plans[f"{name}.wgrad"]
                 b = s_wg.block_dict()
                 xp, gp, geo = wgrad_operands(x, dy, F=3, stride=1, padding=1,
                                              block_h=b["block_h"])
                 x_n, dy_n = nchw(x), nchw(dy)
-                out.append(("conv2d_wgrad", f"{name}.wgrad", (xp, gp),
-                            dict(geo, block_do=b["block_do"], block_di=b["block_di"]),
-                            dict(flops=flops,
-                                 nbytes=4.0 * (x.numel() + dy.numel() + f.numel()),
+                kw = dict(geo, block_do=b["block_do"], block_di=b["block_di"])
+                out.append(("conv2d_wgrad", f"{name}.wgrad", (xp, gp), kw,
+                            dict(**cost_record(kernels["conv2d_wgrad"], x, dy, **kw),
                                  lib=lambda x_n=x_n, dy_n=dy_n, w=(co, ci, 3, 3):
                                  torch.nn.grad.conv2d_weight(x_n, w, dy_n, padding=1),
                                  schedule_words={"algorithm": s_wg.algorithm,
@@ -889,17 +916,15 @@ def bwd_cases(torch, cnn, cfg):
                     xq, ft, bias, geo = dgrad_operands(dy, f, stride=1, padding=1,
                                                        out_hw=(H, H), block_h=b["block_h"])
                     f_n = f.permute(3, 2, 0, 1).contiguous()
-                    out.append(("conv2d", f"{name}.dgrad", (xq, ft, bias),
-                                dict(geo, block_do=b["block_do"], block_di=b["block_di"]),
-                                dict(flops=flops,
-                                     nbytes=4.0 * (x.numel() + dy.numel() + f.numel()),
+                    kw = dict(geo, block_do=b["block_do"], block_di=b["block_di"])
+                    out.append(("conv2d", f"{name}.dgrad", (xq, ft, bias), kw,
+                                dict(**cost_record(kernels["conv2d"], dy, ft, bias, **kw),
                                      lib=lambda dy_n=dy_n, f_n=f_n, xs=(B, ci, H, H):
                                      torch.nn.grad.conv2d_input(xs, f_n, dy_n, padding=1))))
             elif name.startswith("fc"):
                 m, k = x_shape
                 n = w_shape[1]
                 x, w, gr = rand(m, k), rand(k, n, s=k ** -0.5), rand(m, n)
-                flops, nbytes = 2.0 * m * n * k, 4.0 * (m * n + k * n + m * k)
                 bx, bw = plans[f"{name}.dx"].block_dict(), plans[f"{name}.dw"].block_dict()
                 if batch == FUSED_BATCH:
                     bm, bn, bk = bx["block_m"], bx["block_n"], bx["block_k"]
@@ -907,7 +932,8 @@ def bwd_cases(torch, cnn, cfg):
                     out.append(("matmul_dx_dw", f"{name}.dxdw",
                                 (padded(gr, mp, np_), padded(w, kp, np_), padded(x, mp, kp)),
                                 dict(block_m=bm, block_n=bn, block_k=bk),
-                                dict(flops=2 * flops, nbytes=nbytes + 4.0 * (m * k + k * n),
+                                dict(**cost_record(kernels["matmul_dx_dw"], gr, w, x, block_m=bm,
+                                                   block_n=bn, block_k=bk),
                                      lib=None, pairs=fused_pairs(torch, x, w, gr, bw, padded))))
                     continue
                 for kernel, b in (("matmul_nt", bx), ("matmul_tn", bw)):
@@ -918,9 +944,10 @@ def bwd_cases(torch, cnn, cfg):
                             else (padded(x, mp, kp), padded(gr, mp, np_)))
                     lib = ((lambda gr=gr, w=w: torch.matmul(gr, w.t())) if nt
                            else (lambda x=x, gr=gr: torch.matmul(x.t(), gr)))
-                    out.append((kernel, f"{name}.{'dx' if nt else 'dw'}", args,
-                                dict(block_m=bm, block_n=bn, block_k=bk),
-                                dict(flops=flops, nbytes=nbytes, lib=lib)))
+                    blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+                    out.append((kernel, f"{name}.{'dx' if nt else 'dw'}", args, blocks,
+                                dict(**cost_record(kernels[kernel], *((gr, w) if nt else (x, gr)),
+                                                   **blocks), lib=lib)))
     # ragged: odd channels (5 -> 13), stride 2, an odd 9x9 gradient plane,
     # strips of 4 rows (the last one past the plane)
     x, dy, f = rand(3, 17, 17, 5), rand(3, 9, 9, 13), rand(3, 3, 5, 13)
@@ -1153,7 +1180,7 @@ def check_bit_identical(torch, kernel, label, fn, card=None) -> None:
 
 
 def phase_bwd(torch, cnn, cfg, kernels, results):
-    for kernel, label, args, kw, meta in bwd_cases(torch, cnn, cfg):
+    for kernel, label, args, kw, meta in bwd_cases(torch, cnn, cfg, kernels):
         k = kernels[kernel]
         got, want = k(*args, **kw), k.plain(*args, **kw)
         torch.cuda.synchronize()
@@ -1373,6 +1400,15 @@ def bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def cost_record(kernel, *args, **kw) -> dict:
+    """``{"flops", "nbytes"}`` of one call of ``kernel`` on operands of the
+    shapes of ``args`` (the function's own, unpadded; ``meta`` tensors will
+    do) by the kernel's ``cost``: the definition of the bound column,
+    shared with the dry run's cost analysis."""
+    flops, nbytes = kernel.cost(*args, **kw)
+    return {"flops": flops, "nbytes": nbytes}
+
+
 def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, train):
     import torch.nn.functional as F
 
@@ -1414,23 +1450,20 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
         d_out, H_O = f.shape[3], kw["H_O"]
         x_nchw = x[:, 1:H_O + 1, 1:H_O + 1].permute(0, 3, 1, 2).contiguous()
         w_oihw = f.permute(3, 2, 0, 1).contiguous()
-        flops = 2.0 * B * H_O * H_O * 9 * d_in * d_out
-        out_elems = B * (H_O // 2) ** 2 * d_out
-        nbytes = 4.0 * (x.numel() + f.numel() + bias.numel() + out_elems)
+        cost = cost_record(kernels["conv2d"], x, f, bias, **kw)
         record("conv2d", label, lambda: conv2d_kernel(x, f, bias, **kw),
                lambda: conv2d_fused_plain(x, f, bias, **kw),
                lambda: F.max_pool2d(F.relu(F.conv2d(x_nchw, w_oihw, bias, padding=1)), 2),
-               flops, nbytes, template_record("conv2d", (x, f, bias), kw))
+               cost["flops"], cost["nbytes"], template_record("conv2d", (x, f, bias), kw))
     for label, (a, w), kw in matmul_cases(torch, plans, cnn, cfg):
         if label == "ragged":
             continue
-        m, k = a.shape
-        n = w.shape[1]
+        cost = cost_record(kernels["matmul"], a, w, **kw)
         record("matmul", label, lambda: matmul_kernel(a, w, **kw),
                lambda: matmul_plain(a, w, **kw), lambda: torch.matmul(a, w),
-               2.0 * m * n * k, 4.0 * (m * k + k * n + m * n),
+               cost["flops"], cost["nbytes"],
                template_record("matmul", (a, w), kw))
-    for name, label, args, kw, meta in bwd_cases(torch, cnn, cfg):
+    for name, label, args, kw, meta in bwd_cases(torch, cnn, cfg, kernels):
         if label.startswith("ragged"):
             continue
         k = kernels[name]
@@ -1541,12 +1574,6 @@ def no_key_rows(torch, q_len, kv_len, causal, window):
     return hi < lo
 
 
-def visible_pairs(q_len: int, kv_len: int, window) -> int:
-    """The (q, k) pairs a causal mask admits, with ``window`` if given."""
-    reach = kv_len if window is None else window
-    return sum(max(0, min(q, kv_len - 1) - max(0, q - reach + 1) + 1) for q in range(q_len))
-
-
 def flash_cases(torch, s_attn):
     """(label, (q, k, v), kwargs, meta): the transformer's attention call with
     the planner's blocks, then GQA at D = 128, D = 32 and D = 256 (gemma3-4b's
@@ -1567,6 +1594,7 @@ def flash_cases(torch, s_attn):
 def flash_case(torch, g, spec, s=None):
     """(label, (q, k, v), kwargs, meta) of one flash spec (label, B, Hq, Hkv,
     q_len, kv_len, D, window) at the blocks of ``s``, else AttentionPlanner's."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
     from repro_torch.plan import AttentionPlanner, round_up
 
     label, b, hq, hkv, ql, kl, d, window = spec
@@ -1585,10 +1613,9 @@ def flash_case(torch, g, spec, s=None):
               q_len=ql, kv_len=kl)
     # FLOP the call needs: QK^T and PV over the (q, k) pairs the causal
     # and window masks admit, each operand read once and the output
-    # written once.
-    flops = 4.0 * b * hq * visible_pairs(ql, kl, window) * d
-    nbytes = 4.0 * d * (2 * b * hq * ql + 2 * b * hkv * kl)
-    return label, (q, k, v), kw, dict(flops=flops, nbytes=nbytes, b=b, hq=hq, hkv=hkv)
+    # written once (the kernel's cost).
+    return label, (q, k, v), kw, dict(cost_record(flash_attention_kernel, q, k, v, **kw), b=b,
+                                      hq=hq, hkv=hkv)
 
 
 def check_flash_case(torch, case, results, phase: str) -> None:
@@ -1660,20 +1687,14 @@ def flash_offset_checks(torch, results) -> None:
             ms = median_ms(lambda: flash_attention_kernel(qs, k, v, q_len=n, q_off=off, **kw))
             plain_ms = median_ms(lambda: flash_attention_kernel.plain(qs, k, v, q_len=n,
                                                                       q_off=off, **kw))
-            pairs = sum(visible_row(off + r, S, window) for r in range(n))
-            bound, by = bound_ms(4.0 * hq * pairs * d, 4.0 * d * (2 * hq * n + 2 * hkv * S))
+            cost = cost_record(flash_attention_kernel, qs, k, v, q_len=n, q_off=off, **kw)
+            bound, by = bound_ms(cost["flops"], cost["nbytes"])
             emit(phase="flash", kernel="flash_attention", case=label, q_off=off, rows=n,
                  kv_len=S, heads=[hq, hkv], head_dim=d, window=window,
                  blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
                  multiple_of_block_q=off % kw["block_q"] == 0, max_abs_err=err,
                  max_abs_plain=float(want.abs().max()), bits_equal_whole_call=same, ms=ms,
                  q_off0_ms=ms0, plain_ms=plain_ms, bound_ms=bound, bound_by=by)
-
-
-def visible_row(pos: int, kv_len: int, window) -> int:
-    """The keys a causal row at ``pos`` sees, with ``window`` if given."""
-    lo = 0 if window is None else max(0, pos - window + 1)
-    return max(0, min(pos, kv_len - 1) - lo + 1)
 
 
 def phase_flash(torch, s_attn, results):
@@ -1950,7 +1971,6 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
         x = torch.randn(m, k, device="cuda", generator=g)
         w = torch.randn(k, n, device="cuda", generator=g) * k ** -0.5
         dy = torch.randn(m, n, device="cuda", generator=g)
-        flops, nbytes = 2.0 * m * n * k, 4.0 * (m * k + k * n + m * n)
         s_dx = plans[f"{cell}.dx"]
         runs = [("matmul", cell, plans[cell], lambda: torch.matmul(x, w))]
         if s_dx.algorithm == "fused_dxdw":
@@ -1970,9 +1990,12 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
             if (name, label) in DETERMINISM:
                 check_bit_identical(torch, name, label,
                                     lambda kern=kern, args=args, b=b: kern(*args, **b), card)
+            cost = cost_record(kernels[name], *{"matmul": (x, w), "matmul_nt": (dy, w),
+                                       "matmul_tn": (x, dy), "matmul_dx_dw": (dy, w, x)}[name],
+                               **b)
             record(name, label, lambda kern=kern, args=args, b=b: kern(*args, **b),
                    lambda kern=kern, args=args, b=b: kern.plain(*args, **b), lib,
-                   2 * flops if name == "matmul_dx_dw" else flops, nbytes,
+                   cost["flops"], cost["nbytes"],
                    reps=3 if cell == "logits" else 5,
                    template=(template_record(name, args, b)
                              if name in ("matmul", "matmul_tn", "matmul_dx_dw") else None))
@@ -2900,6 +2923,7 @@ def cell_times(torch, kernels, cfg, ladder, cells) -> dict:
     attention's 4 D FLOP per (q, k) pair its causal mask admits."""
     import torch.nn.functional as F
 
+    from repro_torch.kernels.flash_attention.flash_attention import admitted_pairs
     from repro_torch.plan import autotune as at
     from repro_torch.plan import get_op, local_schedule
     from repro_torch.serve.bucket import bucket_cells
@@ -2929,8 +2953,8 @@ def cell_times(torch, kernels, cfg, ladder, cells) -> dict:
             k4, v4 = k.repeat_interleave(g, 1), v.repeat_interleave(g, 1)
             lib = lambda: F.scaled_dot_product_attention(  # noqa: E731
                 q, k4, v4, is_causal=kw["causal"])
-            pairs = (visible_pairs(shape["seq_q"], shape["seq_kv"], kw["window"])
-                     if kw["causal"] else shape["seq_q"] * shape["seq_kv"])
+            pairs = admitted_pairs(shape["seq_q"], shape["seq_kv"], kw["causal"],
+                                   kw["window"])
             flops = 4.0 * q.shape[0] * q.shape[1] * pairs * q.shape[-1]
             nbytes = 4.0 * (2 * q.numel() + k.numel() + v.numel())
         reps = 3 if max(t.numel() for t in arrays) > (1 << 28) else 10
@@ -3551,11 +3575,11 @@ def dense_call_times(torch, kernels, calls: dict, hq: int, hkv: int) -> list:
     for c in calls.values():
         name, args, kw = c["kernel"], c.pop("args"), c["kw"]
         kern, lib = kernels[name], None
+        cost = cost_record(kernels[name], *args, **kw)
+        flops, nbytes = cost["flops"], cost["nbytes"]
         if name == "flash_attention":
             q, k, v = args
-            b, d = q.shape[0] // hq, q.shape[-1]
-            flops = 4.0 * b * hq * visible_pairs(kw["q_len"], kw["kv_len"], kw["window"]) * d
-            nbytes = 4.0 * d * (2 * b * hq * kw["q_len"] + 2 * b * hkv * kw["kv_len"])
+            b = q.shape[0] // hq
             if kw["window"] is None and (kw["q_len"], kw["kv_len"]) == (q.shape[1], k.shape[1]):
                 q4 = q.reshape(b, hq, *q.shape[1:])
                 k4, v4 = (t.reshape(b, hkv, *t.shape[1:]).repeat_interleave(hq // hkv, 1)
@@ -3564,13 +3588,6 @@ def dense_call_times(torch, kernels, calls: dict, hq: int, hkv: int) -> list:
                     q4, k4, v4, is_causal=kw["causal"])
         else:
             a, bb = args[0], args[1]
-            m, k_, n = {"matmul": (a.shape[0], a.shape[1], bb.shape[1]),
-                        "matmul_nt": (a.shape[0], bb.shape[0], a.shape[1]),
-                        "matmul_tn": (a.shape[0], a.shape[1], bb.shape[1]),
-                        "matmul_dx_dw": (a.shape[0], bb.shape[0], a.shape[1])}[name]
-            flops = 2.0 * m * n * k_ * (2 if name == "matmul_dx_dw" else 1)
-            words = m * k_ + k_ * n + m * n + (m * k_ + k_ * n if name == "matmul_dx_dw" else 0)
-            nbytes = 4.0 * words
             lib = {"matmul": lambda a=a, bb=bb: torch.matmul(a, bb),
                    "matmul_nt": lambda a=a, bb=bb: torch.matmul(a, bb.t()),
                    "matmul_tn": lambda a=a, bb=bb: torch.matmul(a.t(), bb),
@@ -4939,7 +4956,7 @@ def moe_reference(torch, work: Path, case: str) -> dict:
     (a shard dispatches alone), then slot decodes of every row (each slot
     dispatches alone); (b) the whole-batch prefill and decodes (one data
     shard); (c) the mean over the data shards of the plain step on each
-    shard's rows: the step-1 loss and gradients, and 3 AdamW steps."""
+    shard's rows: the step-1 loss and gradients, and MOE_TRAIN's AdamW steps."""
     from repro_torch.models import moe
 
     cfg = moe_mesh_config(case)
@@ -5320,7 +5337,8 @@ def fm_config(case: str):
     if case.startswith("serve:"):
         return get_config(case[len("serve:"):])
     cfg = get_config(case)
-    return dataclasses.replace(cfg, n_layers=FM_TRAIN_LAYERS.get(case, cfg.n_layers))
+    return dataclasses.replace(cfg, n_layers=FM_TRAIN_LAYERS.get(case, cfg.n_layers),
+                               n_enc_layers=FM_TRAIN_ENC_LAYERS.get(case, cfg.n_enc_layers))
 
 
 def fm_tcfg(case: str):
@@ -5368,7 +5386,7 @@ def fm_reference(torch, work: Path, case: str) -> dict:
     same steps' logits in f64 (fed the f32 streams); training, the step-1
     loss and gradients (each leaf's scale beside them; (a)-(c) also the
     step-1 gradients in f64, (d) the gradients int8_ef compresses them to)
-    and the 3 steps' losses, all from device_params without noise."""
+    and the FM_TRAIN steps' losses, all from device_params without noise."""
     from repro_torch.models.registry import get_family
     from repro_torch.optim.compression import compress_tree, init_error_buffers
     from repro_torch.runtime import train as tr
@@ -5458,7 +5476,7 @@ def fm_f64_logits(torch, cfg, wide, tokens, frames, streams, parallel=None):
 
 
 def fm_train_rank(torch, case: str, kernels, ctx, work: Path) -> dict:
-    """One rank of a training case on FM_TRAIN_MESH: 3 AdamW steps (the
+    """One rank of a training case on FM_TRAIN_MESH: FM_TRAIN's AdamW steps (the
     launcher for RWKV-6, Zamba2 and (d); the FSDP train step on frames
     batches for the encoder-decoder, whose launcher has no frames), then
     the FSDP step's step-1 loss and each gradient shard against the
@@ -5710,8 +5728,12 @@ def fm_check_train(case: str, ref: dict, recs: list, want_launches: dict | None)
 def phase_families_mesh(torch, kernels, results, card, families) -> None:
     """Cases (a)-(d) (see the module docstring); ``families`` is phase
     families' records (Zamba2's spread gates its logits)."""
+    from repro_torch.models import mamba2
     from repro_torch.models import transformer as tf
 
+    # Zamba2 trains the SSD state carried between chunks only over two or more.
+    check(FM_TRAIN["seq"] >= 2 * mamba2.CHUNK,
+          f"families_mesh: seq {FM_TRAIN['seq']} is under two SSD chunks of {mamba2.CHUNK}")
     t_phase = time.perf_counter()
     base = SCRATCH / "families_mesh"
     shutil.rmtree(base, ignore_errors=True)
@@ -5879,7 +5901,7 @@ def lm_reference(torch, work: Path, case: str) -> dict:
     """A case's one-device reference in this process, saved under
     ``work``: serving, the streams and every step's logits, and the cache
     whole (``ref_cache.pt``, on the host's disk: the ranks read their
-    pieces); (c), the planned step-1 loss and gradients and 3 steps'
+    pieces); (c), the planned step-1 loss and gradients and LM_TRAIN's steps'
     losses.  Weights drawn on the card from the seed (serving: with the
     serving phases' noise)."""
     from repro_torch.models.registry import get_family
@@ -6028,7 +6050,7 @@ def lm_serve_rank(torch, case: str, ctx, work: Path) -> dict:
 
 def lm_train_rank(torch, kernels, ctx, work: Path) -> dict:
     """One rank of (c) on LM_TRAIN_MESH: the launcher (planned, the config
-    cut to LM_TRAIN's layers) for 3 AdamW steps, each step's launches and
+    cut to LM_TRAIN's layers) for LM_TRAIN's AdamW steps, each step's launches and
     the query offsets its flash launches took; then the FSDP step's
     step-1 loss and each gradient shard against the reference's."""
     import torch.distributed as dist
@@ -6265,6 +6287,187 @@ def phase_long_mesh(torch, kernels, results, card) -> None:
     emit(phase="long_mesh", reference_seconds=ref_s, seconds=time.perf_counter() - t_phase)
 
 
+# -- phase tools: the dry-run tools on the card's main paths -------------------------
+
+# (b): cells of the dry run, traced in subprocesses on the CPU beside the
+# card's phases (rank 0 of a fake group of 256 ranks on meta tensors).
+TOOLS_DRYRUN = (("qwen1.5-0.5b", "train_4k"), ("gemma3-4b", "long_500k"))
+TOOLS_DRYRUN_TIMEOUT = 900  # seconds past the phase's start a dry run may still take
+TOOLS_STEP_REPS = 3  # event-timed steps a case (after one warm-up)
+# (c): conv dX at padding > F - 1 (F, P, S), at batch 4, 32 x 32, 64 -> 64 channels
+TOOLS_WIDE_PAD = [(Fk, P, S) for Fk, P in ((1, 1), (3, 3), (3, 5)) for S in (1, 2)]
+DRYRUN_PROCS: list = []  # (cell, process, out file), started by start_dryrun
+
+
+def start_dryrun() -> None:
+    """Phase tools (b), started right after the build: one ``python -m
+    repro_torch.launch.dryrun`` a cell, on the CPU, while the card runs
+    the other phases; :func:`phase_tools` joins them."""
+    base = SCRATCH / "dryrun"
+    shutil.rmtree(base, ignore_errors=True)
+    base.mkdir(parents=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), OMP_NUM_THREADS="1",
+               CUDA_VISIBLE_DEVICES="")
+    for arch, shape in TOOLS_DRYRUN:
+        out = base / f"{arch}.json"
+        log = open(base / f"{arch}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+             shape, "--out", str(out)], cwd=str(ROOT), env=env, stdout=log,
+            stderr=subprocess.STDOUT)
+        DRYRUN_PROCS.append(((arch, shape), proc, out, log))
+
+
+def join_dryrun(t0: float) -> dict:
+    """The dry runs' records, each ``ok`` (a run still going
+    TOOLS_DRYRUN_TIMEOUT seconds after ``t0`` is killed and fails)."""
+    out = {}
+    for (arch, shape), proc, path, log in DRYRUN_PROCS:
+        try:
+            rc = proc.wait(timeout=max(1.0, TOOLS_DRYRUN_TIMEOUT - (time.perf_counter() - t0)))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+            rc = "timeout"
+        log.close()
+        text = (path.parent / f"{arch}.log").read_text()
+        check(rc == 0, f"dry run {arch}|{shape}: exit {rc}\n{text[-3000:]}")
+        rec = json.loads(path.read_text())[f"{arch}|{shape}|16x16"]
+        check(rec["ok"], f"dry run {arch}|{shape}: {rec.get('error')}")
+        out[f"{arch}|{shape}"] = rec
+    return out
+
+
+def tools_cases(torch):
+    """(name, config, step, {device: (state, batch)}, tokens) of phase tools (a):
+    the launcher's planned step of qwen1.5-0.5b at TFM_BATCH x TFM_SEQ
+    (full width and depth) and of cnn-vgg11 at batch BATCH, each on ``meta``
+    and on the card from the same seed."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.module import abstract_params, init_params
+    from repro_torch.models.registry import get_family, make_data_source
+    from repro_torch.runtime import train as tr
+
+    cases = []
+    for arch, batch, seq in ((TFM_ARCH, TFM_BATCH, TFM_SEQ), ("cnn-vgg11", BATCH, None)):
+        cfg = get_config(arch)
+        tcfg = launcher_tcfg(STEPS, planned_kernels=True, remat="none")  # the launcher's
+        defs = get_family(cfg.family).param_defs(cfg)
+        src = make_data_source(cfg, batch, seq or 0, ShardInfo(0, 1), seed=SEED)
+        card_batch = tr.batch_to(src(0), "cuda")
+        meta_batch = {k: torch.empty(v.shape, dtype=v.dtype, device="meta")
+                      for k, v in card_batch.items()}
+        runs = {"meta": (tr.init_state(cfg, tcfg, abstract_params(defs)), meta_batch),
+                "cuda": (tr.init_state(cfg, tcfg, init_params(defs, SEED, device="cuda")),
+                         card_batch)}
+        tokens = batch * (seq or 1)
+        cases.append((arch, cfg, tr.make_train_step(cfg, tcfg), runs, tokens))
+    return cases
+
+
+def phase_tools(torch, kernels, results, card):
+    """(a) Each case's step traced on ``meta`` and run on the card under the
+    same cost recorder: every kernel's calls, the FLOPs, the bytes and the
+    per-op attribution must agree exactly between the two, and the calls
+    with the delta of ``CudaKernel.launches``; then the step's time (CUDA
+    events and profiled device time) beside its H100 roofline bound.  (b)
+    The dry runs started after the build.  (c) conv dX at padding > F - 1
+    on the conv kernel against the plain dgrad and wgrad."""
+    from repro_torch.analysis import hlo_cost
+    from repro_torch.analysis import roofline as rl
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.kernels.conv2d.bwd import conv2d_dgrad_ref, conv2d_wgrad_ref
+    from repro_torch.launch.specs import param_counts
+    from repro_torch.models.registry import get_family
+    from repro_torch.plan import autotune
+
+    t_phase = time.perf_counter()
+    autotune.set_policy("off")  # the launcher's default: the modeled argmin
+    for arch, cfg, step, runs, tokens in tools_cases(torch):
+        t0 = time.perf_counter()
+        _, meta = hlo_cost.trace(step, *runs["meta"])
+        meta_s = time.perf_counter() - t0
+        zero_counts(kernels)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, rec = hlo_cost.trace(step, *runs["cuda"])
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        launched = {n: k.launches for n, k in kernels.items() if k.launches}
+        path = f"tools_{arch}"
+        for name in kernels:
+            results[name]["launches_by_path"][path] = kernels[name].launches
+        del out
+        check(meta.kernel_calls == rec.kernel_calls == launched,
+              f"tools {arch}: kernel calls meta {meta.kernel_calls} card {rec.kernel_calls} "
+              f"launches {launched}")
+        check((meta.cost.flops, meta.cost.bytes) == (rec.cost.flops, rec.cost.bytes),
+              f"tools {arch}: meta ({meta.cost.flops}, {meta.cost.bytes}) card "
+              f"({rec.cost.flops}, {rec.cost.bytes})")
+        check(meta.cost.by_op == rec.cost.by_op and meta.cost.coll == rec.cost.coll,
+              f"tools {arch}: by_op differs: " + json.dumps(
+                  {k: (meta.cost.by_op.get(k), rec.cost.by_op.get(k))
+                   for k in set(meta.cost.by_op) | set(rec.cost.by_op)
+                   if meta.cost.by_op.get(k) != rec.cost.by_op.get(k)}))
+        state, batch = runs["cuda"]
+        ms = median_ms(lambda: step(state, batch), reps=TOOLS_STEP_REPS, warmup=1)
+        dev_ms = device_time_ms(torch, lambda: step(state, batch), reps=2)
+        mem = rec.memory
+        roof = rl.from_compiled(rec.cost, "train",
+                                param_counts(cfg, get_family(cfg.family).param_defs(cfg))[
+                                    "active"], tokens, 1,
+                                io_bytes=mem["argument_size_in_bytes"]
+                                + mem["output_size_in_bytes"])
+        del runs
+        torch.cuda.empty_cache()
+        emit(phase="tools", check="meta vs card", arch=arch, card=card,
+             kernel_calls_per_step=rec.kernel_calls, flops=rec.cost.flops,
+             bytes=rec.cost.bytes, by_op={k: v for k, v in sorted(
+                 rec.cost.by_op.items(), key=lambda kv: -kv[1][1])[:12]},
+             memory=mem, meta_trace_seconds=meta_s, card_traced_step_seconds=card_s,
+             roofline={k: v for k, v in roof.as_dict().items()
+                       if k in ("t_compute", "t_memory", "t_collective", "bottleneck",
+                                "model_flops", "useful_ratio")},
+             bound_ms=roof.t_bound * 1e3, step_ms=ms, step_device_ms=dev_ms,
+             bound_share=roof.t_bound * 1e3 / ms, device_bound_share=roof.t_bound * 1e3 / dev_ms)
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 31)
+    conv = kernels["conv2d"]
+    for Fk, P, S in TOOLS_WIDE_PAD:
+        H = 32
+        x = torch.randn(4, H, H, 64, device="cuda", generator=g)
+        f = torch.randn(Fk, Fk, 64, 64, device="cuda", generator=g) / (Fk * 8)
+        H_O = (H + 2 * P - Fk) // S + 1
+        dy = torch.randn(4, H_O, H_O, 64, device="cuda", generator=g)
+        xr, fr = x.clone().requires_grad_(True), f.clone().requires_grad_(True)
+        y = cl.conv_layer(xr, fr, S, P, "strip")
+        before = conv.launches
+        dx, dw = torch.autograd.grad(y, [xr, fr], dy)  # dX: one conv launch
+        torch.cuda.synchronize()
+        launched = conv.launches - before
+        want_dx = conv2d_dgrad_ref(dy, f, stride=S, padding=P, out_hw=(H, H))
+        want_dw = conv2d_wgrad_ref(x, dy, F=Fk, stride=S, padding=P)
+        err = {"dx": max_err(dx, want_dx), "dw": max_err(dw, want_dw)}
+        sc = {"dx": scale(want_dx), "dw": scale(want_dw)}
+        results["conv2d"]["max_abs_err"] = max(results["conv2d"]["max_abs_err"], err["dx"])
+        emit(phase="tools", check="conv dX at padding > F - 1", F=Fk, padding=P, stride=S,
+             batch=4, hw=H, channels=64, conv2d_launches=launched, max_abs_err=err,
+             scale=sc, tolerance=TOL)
+        check(launched == 1, f"wide padding F{Fk} P{P} S{S}: {launched} dX conv launches, not 1")
+        for k in err:
+            check(err[k] <= TOL * sc[k], f"wide padding F{Fk} P{P} S{S} {k}: {err[k]}")
+
+    dry = join_dryrun(t_phase)
+    for key, r in dry.items():
+        emit(phase="tools", check="dry run", cell=key, mesh=r["mesh"], chips=r["chips"],
+             trace_seconds=r["compile_seconds"], kernel_calls=r["kernel_calls"],
+             collectives=r["collectives"], memory=r["memory"], roofline=r["roofline"],
+             label="modeled, H100 peaks (67 TFLOP/s f32, 3.35 TB/s, 450 GB/s)")
+    shutil.rmtree(SCRATCH / "dryrun", ignore_errors=True)
+    emit(phase="tools", seconds=time.perf_counter() - t_phase)
+
+
 def main() -> int:
     t_script = time.perf_counter()
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
@@ -6310,6 +6513,7 @@ def main() -> int:
 
     phase_build()
     print(card, flush=True)
+    start_dryrun()
 
     cfg = get_config("cnn-vgg11")
     plans = {alg: cnn.plan_forward(cfg, BATCH, conv_algorithm=None if alg == "default" else alg)
@@ -6398,6 +6602,13 @@ def main() -> int:
     for name in ("conv2d", "matmul"):
         check(results[name]["launches_by_path"]["paper"] > 0,
               f"{name}: no launch on the paper path")
+    phase_tools(torch, kernels, results, card)
+    for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
+        check(results[name]["launches_by_path"][f"tools_{TFM_ARCH}"] > 0,
+              f"{name}: no launch on the tools_{TFM_ARCH} path")
+    for name in ("conv2d", "conv2d_wgrad", "matmul", "matmul_nt", "matmul_tn"):
+        check(results[name]["launches_by_path"]["tools_cnn-vgg11"] > 0,
+              f"{name}: no launch on the tools_cnn-vgg11 path")
 
     def step_sums(calls):
         total = {key: sum(c[key] * c["per_step"] for c in calls)

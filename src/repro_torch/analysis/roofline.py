@@ -11,9 +11,12 @@ gives the JAX package's 197 TFLOP/s, 819 GB/s and 50 GB/s, so its terms equal
 ``repro``'s there.  ``model_flops`` (6·N·D to train, 2·N·D to serve, N the
 active parameters) over ``flops`` exposes recompute and dispatch overhead.
 
-The terms read from a compiled XLA program (``repro``'s ``from_compiled``
-and ``collective_bytes``, over its HLO cost analysis) have no counterpart
-yet: a PyTorch program has no HLO to read.
+The terms of a whole step come from its traced cost
+(``analysis/hlo_cost.py``: per-device FLOPs, bytes and collective result
+bytes counted as the step runs, on ``meta`` tensors in a dry run):
+:func:`from_compiled` takes that ``Cost`` where ``repro``'s takes the
+compiled program, and :func:`collective_bytes` reads its collectives where
+``repro``'s parses the HLO text.
 """
 
 from __future__ import annotations
@@ -83,3 +86,25 @@ def model_flops(kind: str, n_active_params: int, tokens: int) -> float:
     if kind == "train":
         return 6.0 * n_active_params * tokens
     return 2.0 * n_active_params * tokens  # prefill / decode forward
+
+
+def collective_bytes(cost) -> dict[str, float]:
+    """Per-category result bytes of the collectives a traced step issued
+    (a :class:`~repro_torch.analysis.hlo_cost.Cost`), per device."""
+    from repro_torch.analysis.hlo_cost import COLLECTIVES
+
+    return {k: cost.coll[k] for k in COLLECTIVES}
+
+
+def from_compiled(cost, kind: str, n_active: int, tokens: int, chips: int, *,
+                  io_bytes: float = 0.0, machine: MachineModel = H100) -> Roofline:
+    """All three terms from a step's per-device traced ``cost``, scaled
+    back to all-device totals (x chips) so the Roofline terms divide
+    consistently; ``io_bytes`` (the step's argument and output bytes, per
+    device) stream main memory once."""
+    coll = sum(cost.coll.values())
+    return Roofline(
+        flops=cost.flops * chips, bytes_hbm=(cost.bytes + io_bytes) * chips,
+        bytes_coll=coll * chips, chips=chips,
+        model_flops=model_flops(kind, n_active, tokens), machine=machine,
+    )

@@ -38,7 +38,9 @@ import torch
 
 from repro_torch.core import ccr
 from repro_torch.core.machine import H100, MANTICORE, machine_named
-from repro_torch.kernels.conv2d.bwd import conv2d_dgrad, conv2d_wgrad, epilogue_scatter
+from repro_torch.kernels.conv2d.bwd import (
+    conv2d_dgrad, conv2d_wgrad, dilate_crop, epilogue_scatter,
+)
 from repro_torch.kernels.conv2d.ops import (
     _fused_pool, _zero_bias, conv2d, conv2d_with_mask, conv_out_extent,
 )
@@ -105,28 +107,35 @@ def _planned_conv_backward(x, f, dy, stride, padding, sd, *, needs_dx=True,
     ``dy`` is the pooled cotangent: the schedules are planned as the
     fused-epilogue variants and the scatter runs once, shared by both
     kernels and the bias gradient (in ``repro`` XLA's CSE merges the
-    copies)."""
+    copies).  At padding > F - 1 (``repro`` takes XLA's reference VJP
+    there) dX is the same kernel's stride-1 dgrad of the dilated dY
+    cropped by P - (F - 1) in front (:func:`dilate_crop`), planned by
+    ``ConvDgradPlanner`` at that geometry."""
     F = f.shape[0]
-    if needs_dx and padding > F - 1:
-        raise NotImplementedError(
-            f"conv dgrad needs padding <= F - 1 (padding {padding}, F {F})")
+    crop = padding - (F - 1)
     out_hw = (x.shape[-3], x.shape[-2])
     s_dg = local_schedule(sd.get("dgrad"))
-    if needs_dx and s_dg is None:
+    if needs_dx and s_dg is None and crop <= 0:
         s_dg = get_op("conv2d_dgrad").plan(
             dy, f, stride=stride, padding=padding, out_hw=out_hw, mask=mask, pool=pool)
     s_wg = local_schedule(sd.get("wgrad"))
     if s_wg is None:
         s_wg = get_op("conv2d_wgrad").plan(
             x, dy, F=F, stride=stride, padding=padding, mask=mask, pool=pool)
+    if mask is not None:
+        dy = epilogue_scatter(dy, mask, pool)
+    dg, dg_stride, dg_padding = dy, stride, padding
+    if needs_dx and crop > 0:
+        dg, dg_stride, dg_padding = dilate_crop(dy, stride, crop, out_hw, F), 1, F - 1
+        if s_dg is None:
+            s_dg = get_op("conv2d_dgrad").plan(dg, f, stride=1, padding=F - 1,
+                                               out_hw=out_hw)
     for role, s in (("dgrad", s_dg if needs_dx else None), ("wgrad", s_wg)):
         if s is not None:
             admit_schedule(role, s, x.is_cuda)
-    if mask is not None:
-        dy = epilogue_scatter(dy, mask, pool)
     dx = None
     if needs_dx:
-        dx = conv2d_dgrad(dy, f, stride=stride, padding=padding, out_hw=out_hw,
+        dx = conv2d_dgrad(dg, f, stride=dg_stride, padding=dg_padding, out_hw=out_hw,
                           schedule=s_dg).to(x.dtype)
     dw = conv2d_wgrad(x, dy, F=F, stride=stride, padding=padding,
                       schedule=s_wg).to(f.dtype)

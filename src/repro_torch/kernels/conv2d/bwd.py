@@ -64,7 +64,10 @@ def epilogue_scatter(g: torch.Tensor, mask: torch.Tensor, pool: int) -> torch.Te
     if pool == 1:
         return torch.where(m == 0, g, torch.zeros_like(g))
     p2 = pool * pool
-    oh = nnf.one_hot(m, p2 + 1)[..., :p2].to(g.dtype)  # dead index p2 -> zero row
+    # the one-hot rows of the window positions (the dead index p2 gives a
+    # zero row), made by one compare: the same ops on every device, so a
+    # dry run on meta counts what the card runs
+    oh = (m[..., None] == torch.arange(p2, device=m.device)).to(g.dtype)
     d = g[..., None] * oh
     *lead, hp, wp, c, _ = d.shape
     d = d.reshape(*lead, hp, wp, c, pool, pool)
@@ -99,6 +102,24 @@ def conv2d_dgrad_ref(dy, f, *, stride: int = 1, padding: int = 0, out_hw=None):
     with torch.enable_grad():
         y = conv2d_ref(x0, f.detach().float(), stride=stride, padding=padding)
         return torch.autograd.grad(y, x0, dy.detach().float())[0]
+
+
+def dilate_crop(dy: torch.Tensor, stride: int, crop: int, out_hw, F: int) -> torch.Tensor:
+    """dY [B, H_O, W_O, D_O] S-dilated and cut by ``crop`` rows and
+    columns in front, to the H_I + F - 1 rows (W_I + F - 1 columns) that
+    dX's ``out_hw`` = (H_I, W_I) reads: the operand of dX at padding
+    P > F - 1, ``crop`` = P - (F - 1), where the transposed padding is
+    negative.  An exact-cover input loses ``crop`` at each end; a ragged
+    one keeps the tail row its last input rows read.  dX is then the
+    stride-1 dgrad of this operand at padding F - 1 (transposed padding
+    0), so the forward kernel runs it unchanged (plain PyTorch around the
+    kernel, as the dilation is)."""
+    B, H_O, W_O, d = dy.shape
+    rows, cols = out_hw[0] + F - 1, out_hw[1] + F - 1
+    H_dil, W_dil = (H_O - 1) * stride + 1, (W_O - 1) * stride + 1
+    dil = dy.new_zeros((B, max(H_dil, crop + rows), max(W_dil, crop + cols), d))
+    dil[:, :H_dil:stride, :W_dil:stride] = dy
+    return dil[:, crop:crop + rows, crop:crop + cols].contiguous()
 
 
 def _dgrad_shape_args(dy, f, *, stride=1, padding=0, out_hw=None, mask=None,
@@ -294,6 +315,18 @@ def conv2d_wgrad_plain(x_pad, dy, *, F: int, stride: int, block_h: int,
     return torch.stack(taps).reshape(F, F, x_pad.shape[-1], dy.shape[-1])
 
 
+def conv2d_wgrad_cost(x_pad, dy, *, F: int, stride: int, block_h: int,
+                      block_do: int, block_di: int, H_O: int,
+                      W_O: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: 2 FLOP a tap and channel pair at every
+    output pixel; x and dY read once, dW written once."""
+    del stride, block_h, block_do, block_di
+    B, d_in, d_out = x_pad.shape[0], x_pad.shape[-1], dy.shape[-1]
+    nbytes = (x_pad.numel() * x_pad.element_size() + dy.numel() * dy.element_size()
+              + 4 * F * F * d_in * d_out)
+    return 2.0 * B * H_O * W_O * F * F * d_in * d_out, float(nbytes)
+
+
 def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
                   block_h: int, block_do: int, block_di: int, H_O: int, W_O: int):
     B, n_h = _check_wgrad(x_pad, dy, F=F, stride=stride, block_h=block_h,
@@ -330,7 +363,7 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
 conv2d_wgrad_kernel = CudaKernel(
     "conv2d_wgrad", source="conv2d_wgrad", symbol="repro_conv2d_wgrad_f32",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
-    launch=_launch_wgrad, plain=conv2d_wgrad_plain,
+    launch=_launch_wgrad, plain=conv2d_wgrad_plain, cost=conv2d_wgrad_cost,
 )
 
 

@@ -120,6 +120,21 @@ def conv2d_fused_plain(x_pad, f, bias, *, stride: int, block_h: int,
     return out.contiguous(), mask
 
 
+def conv2d_cost(x_pad, f, bias, *, stride: int, block_h: int, block_do: int,
+                block_di: int, H_O: int, W_O: int, relu: bool = False, pool: int = 1,
+                emit_mask: bool = False) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: 2 FLOP a tap and channel pair at every
+    output pixel; the operands read once, the (pooled) output and the int8
+    mask written once."""
+    del stride, block_h, block_do, block_di, relu
+    B, d_in = x_pad.shape[0], x_pad.shape[-1]
+    Fk, d_out = f.shape[0], f.shape[-1]
+    out = B * (H_O // pool) * (W_O // pool) * d_out
+    nbytes = (x_pad.numel() * x_pad.element_size() + f.numel() * f.element_size()
+              + bias.numel() * bias.element_size() + 4 * out + (out if emit_mask else 0))
+    return 2.0 * B * H_O * W_O * Fk * Fk * d_in * d_out, float(nbytes)
+
+
 def _launch(kernel: CudaKernel, x_pad, f, bias, *, stride: int, block_h: int,
             block_do: int, block_di: int, H_O: int, W_O: int, relu: bool = False,
             pool: int = 1, emit_mask: bool = False):
@@ -150,5 +165,5 @@ def _launch(kernel: CudaKernel, x_pad, f, bias, *, stride: int, block_h: int,
 conv2d_kernel = CudaKernel(
     "conv2d", source="conv2d", symbol="repro_conv2d_fused_f32",
     argtypes=[ctypes.c_void_p] * 5 + [ctypes.c_int] * 15 + [ctypes.c_void_p],
-    launch=_launch, plain=conv2d_fused_plain,
+    launch=_launch, plain=conv2d_fused_plain, cost=conv2d_cost,
 )

@@ -18,6 +18,7 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from repro_torch.core.machine import H100
@@ -100,6 +101,30 @@ def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
     return torch.matmul(p, vv) / torch.where(l == 0, torch.ones_like(l), l)
 
 
+def admitted_pairs(q_len: int, kv_len: int, causal: bool, window: int | None,
+                   q_off: int = 0) -> int:
+    """The (query, key) pairs of one head the masks admit: query row ``i``
+    at position ``q_off + i`` sees keys ``j < kv_len`` with ``j <= q_off +
+    i`` (causal) and ``q_off + i - j < window``."""
+    pos = np.arange(q_len, dtype=np.int64) + q_off
+    hi = np.minimum(pos, kv_len - 1) if causal else np.full(q_len, kv_len - 1)
+    lo = np.maximum(pos - window + 1, 0) if window is not None else np.zeros(q_len, np.int64)
+    return int(np.maximum(hi - lo + 1, 0).sum())
+
+
+def flash_attention_cost(q, k, v, *, block_q: int, block_kv: int, scale: float,
+                         causal: bool, window: int | None, q_len: int, kv_len: int,
+                         q_off: int = 0) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: 4·D FLOP (QKᵀ and PV) per admitted (q, k)
+    pair of every query head; the valid rows of Q, K and V read once, the
+    output's written once."""
+    del block_q, block_kv, scale, v
+    bhq, d, bhkv = q.shape[0], q.shape[2], k.shape[0]
+    pairs = admitted_pairs(q_len, kv_len, causal, window, q_off)
+    return (4.0 * bhq * pairs * d,
+            float(q.element_size() * d * (2 * bhq * q_len + 2 * bhkv * kv_len)))
+
+
 def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: float,
             causal: bool, window: int | None, q_len: int, kv_len: int, q_off: int = 0):
     bhq, bhkv, sq, skv, d = _check(q, k, v, block_q=block_q, block_kv=block_kv,
@@ -130,5 +155,5 @@ flash_attention_kernel = CudaKernel(
     "flash_attention", source="flash_attention", symbol="repro_flash_attention_f32",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float,
                                                             ctypes.c_void_p],
-    launch=_launch, plain=flash_attention_plain,
+    launch=_launch, plain=flash_attention_plain, cost=flash_attention_cost,
 )

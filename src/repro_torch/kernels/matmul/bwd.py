@@ -233,6 +233,35 @@ def matmul_dxdw_plain(g, w, x, *, block_m: int, block_n: int, block_k: int):
     return torch.matmul(g, w.t()), torch.matmul(x.t(), g)
 
 
+# -- costs: each input read once, each output written once ------------------------
+
+
+def _bytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def matmul_nt_cost(g, w, *, block_m: int, block_n: int, block_k: int):
+    """(FLOPs, bytes) of dX = dY·Wᵀ: 2·M·N·K; dY and W read, dX written."""
+    del block_m, block_n, block_k
+    (m, n), k = g.shape, w.shape[0]
+    return 2.0 * m * n * k, float(_bytes(g, w) + 4 * m * k)
+
+
+def matmul_tn_cost(x, g, *, block_m: int, block_n: int, block_k: int):
+    """(FLOPs, bytes) of dW = Xᵀ·dY: 2·M·N·K; X and dY read, dW written."""
+    del block_m, block_n, block_k
+    (m, k), n = x.shape, g.shape[1]
+    return 2.0 * m * n * k, float(_bytes(x, g) + 4 * k * n)
+
+
+def matmul_dxdw_cost(g, w, x, *, block_m: int, block_n: int, block_k: int):
+    """(FLOPs, bytes) of dX and dW in one pass: 4·M·N·K; dY, W and X read
+    once, dX and dW written once."""
+    del block_m, block_n, block_k
+    (m, n), k = g.shape, w.shape[0]
+    return 4.0 * m * n * k, float(_bytes(g, w, x) + 4 * (m * k + k * n))
+
+
 # -- launch wrappers -------------------------------------------------------------
 
 
@@ -286,17 +315,17 @@ def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
 matmul_nt_kernel = CudaKernel(
     "matmul_nt", source="matmul_bwd", symbol="repro_matmul_nt_f32",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    launch=_launch_nt, plain=matmul_nt_plain,
+    launch=_launch_nt, plain=matmul_nt_plain, cost=matmul_nt_cost,
 )
 matmul_tn_kernel = CudaKernel(
     "matmul_tn", source="matmul_bwd", symbol="repro_matmul_tn_f32",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    launch=_launch_tn, plain=matmul_tn_plain,
+    launch=_launch_tn, plain=matmul_tn_plain, cost=matmul_tn_cost,
 )
 matmul_dxdw_kernel = CudaKernel(
     "matmul_dx_dw", source="matmul_bwd", symbol="repro_matmul_dxdw_f32",
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    launch=_launch_dxdw, plain=matmul_dxdw_plain,
+    launch=_launch_dxdw, plain=matmul_dxdw_plain, cost=matmul_dxdw_cost,
 )
 
 

@@ -79,6 +79,15 @@ def matmul_plain(x, w, *, block_m: int, block_n: int, block_k: int):
     return torch.matmul(x, w)
 
 
+def matmul_cost(x, w, *, block_m: int, block_n: int, block_k: int) -> tuple[float, float]:
+    """(FLOPs, bytes) of one call: 2·M·N·K; X and W read once, Y written
+    once."""
+    del block_m, block_n, block_k
+    (m, k), n = x.shape, w.shape[1]
+    return 2.0 * m * n * k, float(x.element_size() * m * k + w.element_size() * k * n
+                                  + 4 * m * n)
+
+
 def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: int):
     m, n, k = _check(x, w, block_m, block_n, block_k)
     for name, t in (("x", x), ("w", w)):
@@ -104,5 +113,5 @@ def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: in
 matmul_kernel = CudaKernel(
     "matmul", source="matmul", symbol="repro_matmul_f32",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
-    launch=_launch, plain=matmul_plain,
+    launch=_launch, plain=matmul_plain, cost=matmul_cost,
 )

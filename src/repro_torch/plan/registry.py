@@ -6,9 +6,11 @@ Two objects:
 
 * :class:`CudaKernel` — one kernel as the device sees it: its launch
   wrapper (CUDA tensors only), its plain PyTorch version (the same function,
-  for CPU tensors) and a launch count.  It dispatches by device and nothing
-  else: CPU tensors go to the plain version, CUDA tensors to the kernel,
-  which raises on anything it does not take.  There is no fallback.
+  for CPU tensors), its cost and a launch count.  It dispatches by device
+  and nothing else: CPU tensors go to the plain version, CUDA tensors to
+  the kernel, which raises on anything it does not take, and ``meta``
+  tensors to the launch's checks and allocations with nothing launched
+  (a dry run).  There is no fallback.
 * :class:`CudaOp` — one op: planner + ``shape_args`` + the schedule-driven
   layout code around the kernel (``impl``: padding, strips, slicing), with
   plans cached per (planner, shapes); and, where the op has one, the
@@ -24,10 +26,12 @@ module load.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import importlib
+import threading
 from typing import Any, Callable
 
 import torch
@@ -56,40 +60,64 @@ def pad_dim(x: torch.Tensor, axis: int, size: int) -> torch.Tensor:
 
 
 class CudaKernel:
-    """One hand-written kernel: launch wrapper, plain version, launch count.
+    """One hand-written kernel: launch wrapper, plain version, cost, launch
+    count.
 
     ``launch(kernel, *tensors, **params)`` checks its operands, allocates
     the outputs and calls :meth:`run` with the C arguments; ``plain`` takes
-    the same arguments and computes the same function in plain PyTorch.
+    the same arguments and computes the same function in plain PyTorch;
+    ``cost(*tensors, **params)`` gives the call's (FLOPs, bytes): each
+    input read once, each output written once (the definition of
+    ``PERF.md``'s bound column, which reads the same functions).
     ``launches`` counts the kernel's launches (bumped only in :meth:`run`).
+
+    A call dispatches by device: CPU tensors run the plain version, CUDA
+    tensors the launch, and ``meta`` tensors the launch with nothing
+    launched: the same checks, outputs of the launch's shapes and dtypes,
+    no count — the route of a dry run.  Every call reports itself, once,
+    to the cost recorder in force (``analysis/hlo_cost.py``).
     """
 
     def __init__(self, name: str, *, source: str, symbol: str,
-                 argtypes: list, launch: Callable, plain: Callable):
+                 argtypes: list, launch: Callable, plain: Callable,
+                 cost: Callable):
         self.name = name
         self.source = source  # file stem under kernels/csrc/
         self.symbol = symbol
         self.argtypes = argtypes
         self.launch = launch
         self.plain = plain
+        self.cost = cost
         self.launches = 0
 
     def __call__(self, *tensors: torch.Tensor, **params):
         device = tensors[0].device
         if any(t.device != device for t in tensors if t is not None):
             raise ValueError(f"{self.name}: operands on more than one device")
-        if device.type == "cpu":
-            return self.plain(*tensors, **params)
-        if device.type != "cuda":
+        if device.type not in ("cpu", "cuda", "meta"):
             raise ValueError(f"{self.name}: no kernel for device {device}")
-        if torch.is_grad_enabled() and any(
+        if device.type != "cpu" and torch.is_grad_enabled() and any(
                 t is not None and t.requires_grad for t in tensors):
             raise NotImplementedError(f"{self.name}: {NOT_DIFFERENTIABLE}")
-        return self.launch(self, *tensors, **params)
+        rec = RECORDERS[-1] if RECORDERS else None
+        with (rec.kernel(self.name, *self.cost(*tensors, **params)) if rec is not None
+              else contextlib.nullcontext()):
+            if device.type == "cpu":
+                return self.plain(*tensors, **params)
+            if device.type == "cuda":
+                return self.launch(self, *tensors, **params)
+            _DRY.depth = getattr(_DRY, "depth", 0) + 1
+            try:
+                return self.launch(self, *tensors, **params)
+            finally:
+                _DRY.depth -= 1
 
     def run(self, *c_args) -> None:
         """Launch the compiled kernel on the current stream; raise on the
-        error code its C entry point returns (``cudaGetLastError``)."""
+        error code its C entry point returns (``cudaGetLastError``).  On the
+        ``meta`` route it returns at once: nothing is built or launched."""
+        if getattr(_DRY, "depth", 0):
+            return
         from repro_torch.kernels import _build
 
         lib = _build.load(self.source)
@@ -101,6 +129,12 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: CUDA error {err} ({_build.error_string(lib, err)})")
         self.launches += 1
+
+
+_DRY = threading.local()  # > 0 inside a kernel call on meta tensors
+# The cost recorders in force, innermost last: ``analysis/hlo_cost.py``'s
+# ``record`` pushes one here, and every kernel call reports to the last.
+RECORDERS: list = []
 
 
 @dataclasses.dataclass(frozen=True)

@@ -78,6 +78,15 @@ class Stats:
 
 STATS = Stats()
 
+# The cost recorders in force, innermost last: ``analysis/hlo_cost.py``'s
+# ``record`` pushes one here, and every collective reports its result to
+# the last.
+RECORDERS: list = []
+
+
+def _recorder():
+    return RECORDERS[-1] if RECORDERS else None
+
 
 class Mesh:
     """Named axes over the ranks of the default process group.
@@ -187,14 +196,24 @@ def _add_seconds(kind: str, seconds: float) -> None:
     STATS.seconds_by[kind] = STATS.seconds_by.get(kind, 0.0) + seconds
 
 
+def _quiet(rec):
+    """The cost recorder's quiet block around a collective's own copies
+    (its payload is charged once, as the collective's result)."""
+    return rec.quiet() if rec is not None else contextlib.nullcontext()
+
+
 @contextlib.contextmanager
 def _timed(kind: str, t: torch.Tensor):
+    """Counts and times one collective; yields the cost recorder in force
+    (``analysis/hlo_cost.py``), which the caller tells the result."""
     STATS.calls[kind] = STATS.calls.get(kind, 0) + 1
     if STATS.sync and t.is_cuda:
         torch.cuda.synchronize(t.device)
     t0 = time.perf_counter()
+    rec = _recorder()
     try:
-        yield
+        with _quiet(rec):
+            yield rec
     finally:
         if STATS.sync and t.is_cuda:
             torch.cuda.synchronize(t.device)
@@ -205,9 +224,11 @@ def _all_reduce(x: torch.Tensor, mesh: Mesh, axis, op) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
         return x.clone()
-    with _timed(f"all_reduce_{op}", x):
+    with _timed(f"all_reduce_{op}", x) as rec:
         buf = _to_wire(x, f"all_reduce_{op}").clone()
         dist.all_reduce(buf, op=getattr(dist.ReduceOp, op.upper()), group=group)
+        if rec is not None:
+            rec.collective(f"all_reduce_{op}", buf)
         return buf
 
 
@@ -215,11 +236,14 @@ def _all_gather(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
     group = mesh.group(axis)
     if group is None:
         return x.clone()
-    with _timed("all_gather", x):
+    with _timed("all_gather", x) as rec:
         wire = _to_wire(x, "all_gather")
         parts = [torch.empty_like(wire) for _ in range(mesh.axis_size(axis))]
         dist.all_gather(parts, wire, group=group)
-        return torch.cat(parts, dim=dim)
+        out = torch.cat(parts, dim=dim)
+        if rec is not None:
+            rec.collective("all_gather", out)
+        return out
 
 
 def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor:
@@ -235,7 +259,7 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor
     if x.shape[dim] % n:
         raise ValueError(f"dimension {dim} of {tuple(x.shape)} does not split over "
                          f"{n} ranks of {axis!r}")
-    with _timed("reduce_scatter", x):
+    with _timed("reduce_scatter", x) as rec:
         moved = x.movedim(dim, 0)
         piece = (moved.shape[0] // n,) + tuple(moved.shape[1:])
         wire = _to_wire(moved.reshape(n, -1), "reduce_scatter")
@@ -244,7 +268,10 @@ def _reduce_scatter(x: torch.Tensor, mesh: Mesh, axis, dim: int) -> torch.Tensor
         out = got[0].clone()
         for j in range(1, n):
             out += got[j]
-        return out.reshape(piece).movedim(0, dim)
+        out = out.reshape(piece).movedim(0, dim)
+        if rec is not None:
+            rec.collective("reduce_scatter", out)
+        return out
 
 
 class Pending:
@@ -280,16 +307,21 @@ def ppermute_start(x: torch.Tensor, mesh: Mesh, axis, perm) -> Pending:
     if STATS.sync and x.is_cuda:
         torch.cuda.synchronize(x.device)
     t0 = time.perf_counter()
-    wire = _to_wire(x, "ppermute").reshape(-1)
-    numel = wire.numel()
-    send = [numel if j in dst else 0 for j in range(n)]
-    recv = [numel if j in src else 0 for j in range(n)]
-    out = torch.zeros(sum(recv), dtype=wire.dtype, device=wire.device)
-    work = dist.all_to_all_single(out, wire if dst else wire[:0], recv, send,
-                                  group=mesh.group(axis), async_op=True)
-    if not src:
-        out = torch.zeros_like(wire)
-    return Pending(work, out.reshape(x.shape), t0)
+    rec = _recorder()
+    with _quiet(rec):
+        wire = _to_wire(x, "ppermute").reshape(-1)
+        numel = wire.numel()
+        send = [numel if j in dst else 0 for j in range(n)]
+        recv = [numel if j in src else 0 for j in range(n)]
+        out = torch.zeros(sum(recv), dtype=wire.dtype, device=wire.device)
+        work = dist.all_to_all_single(out, wire if dst else wire[:0], recv, send,
+                                      group=mesh.group(axis), async_op=True)
+        if not src:
+            out = torch.zeros_like(wire)
+        out = out.reshape(x.shape)
+    if rec is not None:
+        rec.collective("ppermute", out)
+    return Pending(work, out, t0)
 
 
 def _ppermute(x, mesh, axis, perm):

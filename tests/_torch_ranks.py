@@ -1166,11 +1166,35 @@ def case_tune_agree(rank: int, world: int, out: Path, args: dict) -> None:
     (out / f"tune_rank{rank}.json").write_text(json.dumps(rec))
 
 
+def case_collective_bytes(rank: int, world: int, out: Path, args: dict) -> None:
+    """psum, pmax, all-gather, reduce-scatter and ppermute of a [6, 4] f32
+    under the cost recorder: each category's result bytes."""
+    import torch
+
+    from repro_torch.analysis import hlo_cost, roofline
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.runtime import collectives as coll
+
+    mesh = make_test_mesh((world,), ("data",))
+    x = torch.arange(24, dtype=torch.float32).reshape(6, 4) + rank
+    with hlo_cost.record() as rec:
+        coll.psum(x, mesh, "data")
+        coll.pmax(x, mesh, "data")
+        coll.all_gather(x, mesh, "data", 0)
+        coll.reduce_scatter(x, mesh, "data", 0)
+        coll.ppermute(x, mesh, "data", [(i, (i + 1) % world) for i in range(world)])
+    (out / f"coll{rank}.json").write_text(json.dumps({
+        "collectives": roofline.collective_bytes(rec.cost),
+        "calls": [[c, list(shape)] for c, shape, _, _ in rec.collective_calls],
+        "flops": rec.cost.flops}))
+
+
 CASES = {"fc": case_fc, "dp": case_dp, "launcher": case_launcher, "elastic": case_elastic,
          "launcher_elastic": case_launcher_elastic, "verdicts": case_verdicts,
          "tokens": case_tokens, "seqp": case_seqp, "token_ckpt": case_token_ckpt,
          "token_elastic": case_token_elastic, "moe_mesh": case_moe_mesh,
-         "tune_agree": case_tune_agree, "families_mesh": case_families_mesh,
+         "tune_agree": case_tune_agree,
+         "collective_bytes": case_collective_bytes, "families_mesh": case_families_mesh,
          "long_mesh": case_long_mesh, "long_planned": case_long_planned}
 
 

@@ -784,16 +784,57 @@ def test_with_reference_vjp_passes_needs_to_bwd_fn():
     assert seen == [(True, True), (False, True)]
 
 
-def test_conv_dgrad_outside_its_contract_raises():
-    """padding > F - 1 has no dgrad kernel: a backward that needs dX
-    raises; one that needs only dW (a model's images) runs the wgrad."""
+def test_conv_dgrad_beyond_f_minus_1_runs_both_grads():
+    """padding > F - 1, where ``repro`` takes XLA's reference VJP: a
+    backward that needs dX runs the cropped dgrad and no longer raises;
+    one that needs only dW (a model's images) runs the wgrad alone."""
     rng = np.random.default_rng(26)
     x, f = _np(rng, 2, 6, 6, 3), _np(rng, 1, 1, 3, 4)
     out, vjp = jax.vjp(lambda x, f: jconv_ref(x, f, stride=1, padding=1),
                        jnp.asarray(x), jnp.asarray(f))
     g = _np(rng, *out.shape)
-    with pytest.raises(NotImplementedError, match="padding <= F - 1"):
-        _grads(lambda x, f: cl.conv_layer(x, f, 1, 1, "strip"), (x, f), g)
+    want = vjp(jnp.asarray(g))
+    got = _grads(lambda x, f: cl.conv_layer(x, f, 1, 1, "strip"), (x, f), g)
+    assert_close(got[0], want[0], tol=1e-5)
+    assert_close(got[1], want[1], tol=1e-5)
     ft = _t(f).requires_grad_(True)
     (dw,) = torch.autograd.grad(cl.conv_layer(_t(x), ft, 1, 1, "strip"), [ft], _t(g))
-    assert_close(dw, vjp(jnp.asarray(g))[1])
+    assert_close(dw, want[1])
+
+
+# (F, P, S): padding F and 2F - 1 at F = 1 and 3, strides 1 and 2
+WIDE_PAD_CASES = [(Fk, P, S) for Fk, P in ((1, 1), (3, 3), (3, 5)) for S in (1, 2)]
+
+
+@pytest.mark.parametrize("case", WIDE_PAD_CASES, ids=lambda c: "F%d-P%d-S%d" % c)
+def test_conv_grads_beyond_f_minus_1_match_repro(case):
+    """dX and dW at padding > F - 1 against ``repro``'s XLA oracles and
+    ``jax.grad`` of the XLA conv (batch 2; at stride 2 a ragged input),
+    within 1e-5 of scale, through the conv layer and the conv block."""
+    Fk, P, S = case
+    rng = np.random.default_rng(27 + 7 * Fk + P + S)
+    H = 8
+    x, f, b = _np(rng, 2, H, H, 3), _np(rng, Fk, Fk, 3, 5), _np(rng, 5)
+    out, vjp = jax.vjp(lambda x, f: jconv_ref(x, f, stride=S, padding=P),
+                       jnp.asarray(x), jnp.asarray(f))
+    g = _np(rng, *out.shape)
+    want = vjp(jnp.asarray(g))
+    dg = cb.conv2d_dgrad(cb.dilate_crop(_t(g), S, P - Fk + 1, (H, H), Fk), _t(f), stride=1,
+                         padding=Fk - 1, out_hw=(H, H))
+    assert_close(dg, jcb.conv2d_dgrad_ref(jnp.asarray(g), jnp.asarray(f), stride=S,
+                                          padding=P, out_hw=(H, H)), tol=1e-5)
+    assert_close(want[1], jcb.conv2d_wgrad_ref(jnp.asarray(x), jnp.asarray(g), F=Fk,
+                                               stride=S, padding=P), tol=1e-5)
+    got = _grads(lambda x, f: cl.conv_layer(x, f, S, P, "strip"), (x, f), g)
+    assert_close(got[0], want[0], tol=1e-5)
+    assert_close(got[1], want[1], tol=1e-5)
+
+    def block(x, f, b):
+        return jnp.maximum(jconv_ref(x, f, stride=S, padding=P) + b, 0.0)
+
+    out, vjp = jax.vjp(block, jnp.asarray(x), jnp.asarray(f), jnp.asarray(b))
+    g = _np(rng, *out.shape)
+    want = vjp(jnp.asarray(g))
+    got = _grads(lambda x, f, b: cl.conv_block(x, f, b, S, P, 1), (x, f, b), g)
+    for gi, wi in zip(got, want):
+        assert_close(gi, wi, tol=1e-5)

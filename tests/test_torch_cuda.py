@@ -337,6 +337,35 @@ def test_dgrad_matches_plain_on_card(cuda, case):
     assert_close(got, want)
 
 
+# (F, P, S): padding F and 2F - 1 at F = 1 and 3, strides 1 and 2
+WIDE_PAD_CASES = [(Fk, P, S) for Fk, P in ((1, 1), (3, 3), (3, 5)) for S in (1, 2)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", WIDE_PAD_CASES, ids=lambda c: "F%d-P%d-S%d" % c)
+def test_conv_grads_beyond_f_minus_1_on_card(cuda, case):
+    """dX at padding > F - 1 runs the conv kernel on the cropped dilated dY
+    (batch 2, 16 x 16 at 24 -> 16 channels; at stride 2 a ragged input):
+    dX and dW through the conv layer against the plain dgrad/wgrad on the
+    CPU."""
+    from repro_torch.kernels.conv2d.bwd import conv2d_dgrad_ref, conv2d_wgrad_ref
+
+    Fk, P, S = case
+    rng = np.random.default_rng(40 + 7 * Fk + P + S)
+    H = 16
+    x, f = _rand(rng, 2, H, H, 24), _rand(rng, Fk, Fk, 24, 16, scale=1 / Fk)
+    H_O = (H + 2 * P - Fk) // S + 1
+    g = _rand(rng, 2, H_O, H_O, 16)
+    xc, fc = x.to(cuda).requires_grad_(True), f.to(cuda).requires_grad_(True)
+    y = conv_layer(xc, fc, S, P, "strip")
+    before = conv2d_kernel.launches
+    dx, dw = torch.autograd.grad(y, [xc, fc], g.to(cuda))
+    torch.cuda.synchronize()
+    assert conv2d_kernel.launches == before + 1  # dX
+    assert_close(dx, conv2d_dgrad_ref(g, f, stride=S, padding=P, out_hw=(H, H)))
+    assert_close(dw, conv2d_wgrad_ref(x, g, F=Fk, stride=S, padding=P))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("m,k,n", [(37, 90, 70), (256, 4096, 1000), (256, 2048, 4096)])
 def test_matmul_bwd_kernels_match_plain_on_card(cuda, m, k, n):

@@ -235,12 +235,19 @@ def test_cpu_tensors_run_the_plain_version_and_count_no_launch():
 
 
 def test_kernel_refuses_other_devices_and_mixed_operands():
+    """CPU tensors run the plain version, ``meta`` tensors the launch's
+    checks and allocations with nothing launched (the dry run's route);
+    any other device and mixed operands raise; nothing counts a launch."""
+    import types
+
     k = CudaKernel("probe", source="matmul", symbol="none", argtypes=[],
-                   launch=lambda *a, **kw: pytest.fail("launched"),
-                   plain=lambda *a, **kw: "plain")
+                   launch=lambda kernel, *a, **kw: (kernel.run(), "launch")[1],
+                   plain=lambda *a, **kw: "plain", cost=lambda *a, **kw: (0.0, 0.0))
     assert k(torch.zeros(1)) == "plain"
+    assert k(torch.zeros(1, device="meta")) == "launch"
+    other = types.SimpleNamespace(device=torch.device("xpu"), requires_grad=False)
     with pytest.raises(ValueError, match="no kernel for device"):
-        k(torch.zeros(1, device="meta"))
+        k(other)
     with pytest.raises(ValueError, match="more than one device"):
         k(torch.zeros(1), torch.zeros(1, device="meta"))
     assert k.launches == 0
