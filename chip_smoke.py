@@ -219,9 +219,10 @@ The twelfth slice (after ``moe_serve``, once it has freed its weights):
                three planned training runs, each with its launches against
                plan_training's (remat included) and the attention cell
                planned and launched at the config's head dim of 128:
-               qwen3-1.7b through the launcher at full width and depth
-               (28 layers, 4 x 2048, 3 steps, cut to --remat block: at
-               none the activations do not fit), and qwen3-32b and
+               qwen3-1.7b through the launcher at full width, its depth
+               cut from 28 to DENSE_LAYERS = 8 (4 x 2048, 3 steps, --remat
+               block, which full depth needs: at none its activations do
+               not fit), and qwen3-32b and
                chameleon-34b at full width with the depth cut to 2 layers
                (1 x 2048, 2 steps through runtime.train.make_train_step,
                weights drawn on the card as phase moe_serve's, without
@@ -233,8 +234,8 @@ The twelfth slice (after ``moe_serve``, once it has freed its weights):
                every gradient against the independent plain step (its
                layers checkpointed under remat) within LOSS_TOL and TOL x
                scale, leaf by leaf; one planned step's event and device
-               ms; peak memory.  Then gemma3-4b at full width and depth
-               (34 layers, 5 local layers of window 1024 to 1 global, D =
+               ms; peak memory.  Then gemma3-4b at full width, its depth
+               cut from 34 to 6 layers (5 local layers of window 1024 to 1 global, D =
                256, vocab 262144; weights drawn on the card as phase
                moe_serve's), served as phase serve serves qwen1.5-0.5b on
                the ladder (4, 256), (2, 1024), (1, 2048) with max_seq 2048
@@ -392,12 +393,13 @@ The seventeenth slice (after ``families``):
                at full width (d_model 2048, 32 heads of 64, d_ff 7168, vocab
                65536), its depth of 24 cut to 2 for training: the launcher at
                4 x 256 (two of Mamba-2's SSD chunks), 2 AdamW steps; served
-               at full depth, a prefill of 2 x 256 and 16 decodes.  (b) zamba2-1.2b likewise, its depth
-               of 38 cut to 7 for training (the shared block runs once); its
+               cut to 4, a prefill of 2 x 256 and 16 decodes.  (b)
+               zamba2-1.2b likewise, its depth of 38 cut to 7 for training
+               and serving (the shared block runs once); its
                SSD state [L, B, 64, 64, 64] is what ``cache_specs`` takes for
                a KV cache, and each rank holds its heads.  (c)
                seamless-m4t-medium at full width, its decoder's and its
-               encoder's 12 layers each cut to 4 for training: the FSDP train
+               encoder's 12 layers each cut to 4: the FSDP train
                step on seeded frames batches (4 x 256 tokens, 4 x 256 x 1024
                frames; its launcher has no frames), served with 2 x 4096 x
                1024 frames.  (d) qwen1.5-0.5b cut to 2 layers through the
@@ -427,7 +429,8 @@ The eighteenth slice (after ``families_mesh``):
                serving cases' whole cache written to disk for the ranks),
                then rank processes sharing cuda:0 over gloo
                (``chip_smoke.py --long-rank``).  (a) gemma3-4b and (b)
-               zamba2-1.2b at full width and depth served at batch 1 on
+               zamba2-1.2b at full width, cut to 6 and 7 layers (one
+               global layer, one shared attention block), served at batch 1 on
                2x2, so every KV cache splits its sequence over the idle
                data axis: a prefill past the ranks' boundary at max_seq /
                2 (LM_SERVE) and 16 greedy decodes; the streams equal, every
@@ -467,12 +470,55 @@ The nineteenth slice (last, after ``paper``):
                for dX, dX and dW within TOL x max(1, max|g|) of the plain
                dgrad and wgrad.
 
+The twentieth slice (after ``times``' transformer timings, where a
+profile of a lone kernel still holds its events; late in the process
+profiles lose them, as ``paper``'s records say):
+
+26. bf16     — the planned dense path at compute_dtype bf16 (path
+               ``bf16``).  (a) Each GEMM kernel's and flash's bf16 route
+               alone on bf16 operands, at every shape of the planned
+               qwen1.5-0.5b step at TFM_BATCH x TFM_SEQ (matmul, NT and TN
+               at qkv / wo / mlp_up / mlp_down / logits; flash at the
+               attention call) and the fused dX/dW kernel at BF16_FUSED
+               (cnn-vgg11's fc1 at batch 256, where the H100 planner picks
+               it at in_bytes=2), each against its plain version on the same
+               operands (TF32 off): bf16 outputs within one bf16 ulp of
+               max(|plain|, BF16_ULP_FLOOR x max|plain|), f32 outputs
+               (dX, dW) within BF16_F32_TOL x max(1, max|plain|), that
+               times sqrt(K / BF16_F32_TOL_K) for a contraction K past
+               BF16_F32_TOL_K (the logits' dX sums 151,936 terms); two
+               launches give the same bits.  Each record: event and device
+               ms (torch.profiler, or where a late profile holds no call,
+               CUDA events over BF16_BURST calls in a row), the plain
+               version's ms, one library call's (bf16
+               ``torch.matmul``, bf16 SDPA; none for the fused kernel) and
+               the bound max(FLOP / 989 TFLOP/s, bytes / 3.35 TB/s).  (b)
+               The planned bf16 step at full width and depth through
+               ``runtime/train.py::make_loss_fn`` (remat none): launches per
+               kernel those of ``plan_training(in_bytes=2)`` (matmul, NT and
+               TN 100, flash 24), the step-1 loss within BF16_LOSS_RTOL of
+               the plain bf16 step's, and each gradient's distance from the
+               plain f32 step (||a - b|| / ||b||) at most BF16_GRAD_RATIO
+               times the plain bf16 step's own; peak memory of each; then
+               the bf16 train step's event median (2 steps) and device
+               time (1 step) beside ``times``' f32 planned step.
+
+Rank processes: each runs ``chip_smoke.py --<phase>-rank R WORLD WORK``'s
+path of :func:`main`, forked from a fork server that imported torch and the
+port while the kernels built (importing torch takes 8-9 s a process on the
+card's host).  A mesh phase starts its first ranks before its one-device
+references, and each next group once the ranks before it are past their
+start-up; a rank takes the card, then waits for WORK/go, so its start-up
+overlaps the references or the group before it.  At exit the script stops
+every rank process and dry run it started.
+
 The last line is the device record ``{"ok": true, "device": {...}}``.  With
 no card, or outside a checkout, it prints no result and exits nonzero.
 """
 
 from __future__ import annotations
 
+import atexit
 import contextlib
 import dataclasses
 import functools
@@ -493,6 +539,8 @@ SEED = 0
 TOL = 1e-4
 NEAR_TIE = 1e-5
 PEAK_F32 = 67e12  # H100 SXM, f32 on the CUDA cores (the kernels' FMAs)
+PEAK_BF16 = 989e12  # H100 SXM, dense bf16 on the tensor cores
+PEAKS_BF16 = "bf16 tensor cores 989 TFLOP/s, HBM3 3.35 TB/s (H100 SXM data sheet, 700 W)"
 HBM_BW = 3.35e12  # H100 SXM, bytes/s
 PEAKS = "f32 CUDA cores 67 TFLOP/s, HBM3 3.35 TB/s (H100 SXM data sheet, 700 W)"
 FUSED_BATCH = 128  # fc1/fc2 run the fused dX/dW kernel at batch <= 192
@@ -576,11 +624,13 @@ PAPER_REPS = 10
 # max_seq cut from 524288 to DENSE_SERVE_MAX_SEQ, with prompts past its
 # 1024-token window.
 DENSE_ARCH, DENSE_REMAT = "qwen3-1.7b", "block"
+DENSE_LAYERS = 8  # qwen3-1.7b's 28, cut for the script's time limit when phase bf16 joined
 DENSE_CUT = ("qwen3-32b", "chameleon-34b")
 DENSE_CUT_LAYERS, DENSE_CUT_BATCH, DENSE_CUT_STEPS = 2, 1, 2
 DENSE_FLASH = [("gqa64/8-d128", 1, 64, 8, 2048, 2048, 128, None),
                ("gemma3-local", 1, 8, 4, 2048, 2048, 256, 1024)]
 DENSE_SERVE_ARCH = "gemma3-4b"
+DENSE_SERVE_LAYERS = 6  # of 34: 5 local and 1 global (cut when phase bf16 joined)
 DENSE_SERVE_LADDER = [(4, 256), (2, 1024), (1, 2048)]
 DENSE_SERVE_MAX_SEQ = 2048
 DENSE_SERVE_PROMPT = (16, 1400)
@@ -629,7 +679,12 @@ FM_TRAIN = dict(batch=4, seq=256, steps=2, frames=256)  # frames: T_enc of a tra
 FM_TRAIN_LAYERS = {"rwkv6-1.6b": 2, "zamba2-1.2b": 7,  # depth cuts (seamless: the decoder)
                    "seamless-m4t-medium": 4}
 FM_TRAIN_ENC_LAYERS = {"seamless-m4t-medium": 4}  # its encoder's 12
-FM_SERVE = dict(rows=2, prompt=256, decodes=16)  # full width and depth
+FM_SERVE = dict(rows=2, prompt=256, decodes=16)  # full width
+# The serving cases' depth, cut from the full 24, 38 and 12 + 12 layers for
+# the script's time limit when phase bf16 joined (Zamba2's shared block runs
+# once, as in training).
+FM_SERVE_LAYERS = {"rwkv6-1.6b": 4, "zamba2-1.2b": 7, "seamless-m4t-medium": 4}
+FM_SERVE_ENC_LAYERS = {"seamless-m4t-medium": 4}
 FM_EF_LAYERS = 2  # (d): qwen1.5-0.5b, 24 layers -> 2, 4 x 2048, planned, int8_ef
 FM_TRAIN_CASES = ("rwkv6-1.6b", "zamba2-1.2b", "seamless-m4t-medium", "ef")
 FM_TIMEOUT = 900  # seconds a rank process may take
@@ -646,8 +701,11 @@ FM_F64_TOL = 1e-9
 # 1278 s); each prompt a multiple of 512 (the blockwise attention's query
 # chunk) past the ranks' boundary at max_seq / 2.
 LM_SERVE_MESH = "2x2"
-LM_SERVE = {"gemma3-4b": dict(max_seq=8192, prompt=4608),
-            "zamba2-1.2b": dict(max_seq=8192, prompt=4608)}
+# The depth cut from 34 and 38 layers for the script's time limit when phase
+# bf16 joined: gemma3's 5 local layers and 1 global, Zamba2's 6 Mamba-2
+# layers, its shared attention block and one more.
+LM_SERVE = {"gemma3-4b": dict(max_seq=8192, prompt=4608, layers=6),
+            "zamba2-1.2b": dict(max_seq=8192, prompt=4608, layers=7)}
 LM_DECODES = 16
 # (c): the planned step on 1x3, where 16 query heads do not split: 512
 # query rows a rank at offsets 0, 512 and 1024.
@@ -658,6 +716,20 @@ LM_LOSS_TOL = 1e-5  # relative: (c)'s step-1 loss and its losses
 LM_TIMEOUT = 900  # seconds a rank process may take
 # Phase flash's offset cases: (D, window) at S = 2048 with GQA 8/4; a slice
 # of 512 query rows at each offset (multiples of block_q and not).
+# Phase bf16: the planned dense path at compute_dtype bf16.
+BF16_FUSED = (256, 2048, 4096)  # m, k, n: cnn-vgg11's fc1, the planner's fused bf16 pick
+BF16_ULP_FLOOR = 2.0 ** -8  # of max|plain|: below it two f32 sums' roundings may differ more
+BF16_F32_TOL = 1e-5  # dX and dW (f32 outputs of bf16 operands), of max(1, max|plain|) ...
+BF16_F32_TOL_K = 8192  # ... up to this contraction; past it x sqrt(K / this) (f32 rounding's walk)
+BF16_LOSS_RTOL = 1e-3  # the planned bf16 step's loss against the plain bf16 step's
+BF16_GRAD_RATIO = 2.0  # a leaf's distance from plain f32: planned bf16 over plain bf16
+BF16_BURST = 5  # calls in a row, timed between two events where a profile holds none
+# Each kernel's own launch in a profile (its split's slab sum is a kernel of its own).
+BF16_MARKERS = {"matmul": ("mm_reg_kernel", "mm_simple_kernel"),
+                "matmul_nt": ("mm_nt_reg_kernel", "mm_nt_kernel"),
+                "matmul_tn": ("mm_tn_reg_kernel", "mm_tn_kernel"),
+                "matmul_dx_dw": ("mm_dxdw_reg_kernel", "mm_dxdw_kernel"),
+                "flash_attention": ("fa_fwd_kernel",)}
 FLASH_OFFSET_CASES = [(64, None), (64, 512), (128, None), (128, 1024)]
 FLASH_OFFSETS = (512, 1536, 200, 1000)
 
@@ -690,6 +762,271 @@ def max_err(got, want) -> float:
 
 def scale(want) -> float:
     return max(1.0, float(want.abs().max()))
+
+
+# -- the twentieth slice: bf16 compute on the planned dense path ----------------
+
+
+def bf16_ulp(torch, x):
+    """The spacing of bf16 numbers (8 significant bits) at |x|, elementwise."""
+    a = x.detach().abs().float().clamp(min=2.0 ** -126)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+
+
+def ulp_check(torch, got, want) -> dict:
+    """bf16 ``got`` against bf16 ``want``: the largest distance in ulps of
+    max(|want|, BF16_ULP_FLOOR * max|want|) (at most 1 passes) and the
+    count of elements that differ at all."""
+    check(got.dtype == want.dtype == torch.bfloat16, f"bf16 outputs: {got.dtype} {want.dtype}")
+    g, w = got.float(), want.float()
+    floor = BF16_ULP_FLOOR * float(w.abs().max())
+    ulps = float(((g - w).abs() / bf16_ulp(torch, w.abs().clamp(min=floor))).max())
+    return {"max_ulps": ulps, "differ": int((g != w).sum()), "elements": g.numel(),
+            "max_abs_err": max_err(got, want)}
+
+
+def bf16_bound_ms(flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time of a call at the card's bf16 peaks: dense bf16 tensor
+    cores (989 TFLOP/s) or HBM3 (3.35 TB/s)."""
+    t_ops, t_bytes = flops / PEAK_BF16, nbytes / HBM_BW
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_kernel_cases(torch, cfg, plans):
+    """(kernel, label, args, kw, library fn or None, per-step launches) of
+    phase bf16 (a): every GEMM of the planned qwen1.5-0.5b step at its
+    shape (bf16 operands, padded to the planner's blocks as the ops pad
+    them), the fused dX/dW kernel at the CNN's fc1 at batch 256 (the H100
+    planner's bf16 pick there), and the step's flash call."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import fc_layer as fl
+    from repro_torch.models import transformer as tf
+    from repro_torch.plan import pad_dim, round_up
+
+    def padded(t, *sizes):
+        for axis, size in enumerate(sizes):
+            t = pad_dim(t, axis, size)
+        return t.contiguous()
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 41)
+    bf = torch.bfloat16
+    calls = tfm_calls(tf, cfg, plans)
+    M = TFM_BATCH * TFM_SEQ
+    d, ff, vocab = cfg.d_model, cfg.d_ff, cfg.vocab
+    Hq, Hkv, Dh = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    shapes = {"qkv": (M, d, (Hq + 2 * Hkv) * Dh), "wo": (M, Hq * Dh, d),
+              "mlp_up": (M, d, 2 * ff), "mlp_down": (M, ff, d),
+              "logits": (tf._chunk_m(TFM_BATCH, TFM_SEQ, tfm_chunks()), d, vocab)}
+    for cell, (m, k, n) in shapes.items():
+        x = torch.randn(m, k, device="cuda", generator=g).to(bf)
+        w = (torch.randn(k, n, device="cuda", generator=g) * k ** -0.5).to(bf)
+        dy = torch.randn(m, n, device="cuda", generator=g).to(bf)
+        runs = [("matmul", cell, plans[cell])]
+        if plans[f"{cell}.dx"].algorithm == "fused_dxdw":
+            runs.append(("matmul_dx_dw", f"{cell}.dxdw", plans[f"{cell}.dx"]))
+        else:
+            runs += [("matmul_nt", f"{cell}.dx", plans[f"{cell}.dx"]),
+                     ("matmul_tn", f"{cell}.dw", plans[f"{cell}.dw"])]
+        for name, label, sched in runs:
+            b = {key: sched.block(key) for key in ("block_m", "block_n", "block_k")}
+            mp, np_, kp = (round_up(m, b["block_m"]), round_up(n, b["block_n"]),
+                           round_up(k, b["block_k"]))
+            args, lib, unpadded = {
+                "matmul": ((padded(x, mp, kp), padded(w, kp, np_)),
+                           lambda x=x, w=w: torch.matmul(x, w), (x, w)),
+                "matmul_nt": ((padded(dy, mp, np_), padded(w, kp, np_)),
+                              lambda dy=dy, w=w: torch.matmul(dy, w.t()), (dy, w)),
+                "matmul_tn": ((padded(x, mp, kp), padded(dy, mp, np_)),
+                              lambda x=x, dy=dy: torch.matmul(x.t(), dy), (x, dy)),
+                "matmul_dx_dw": ((padded(dy, mp, np_), padded(w, kp, np_), padded(x, mp, kp)),
+                                 None, (dy, w, x))}[name]
+            yield name, label, args, b, lib, calls.get((name, label), 0), unpadded
+        del x, w, dy
+    m, k, n = BF16_FUSED
+    s_dx = fl.plan_bwd((m, k), (k, n), in_bytes=2)["dx"]
+    check(s_dx.algorithm == "fused_dxdw", f"bf16 fused at {BF16_FUSED}: {s_dx.algorithm}")
+    b = {key: s_dx.block(key) for key in ("block_m", "block_n", "block_k")}
+    x = torch.randn(m, k, device="cuda", generator=g).to(bf)
+    w = (torch.randn(k, n, device="cuda", generator=g) * k ** -0.5).to(bf)
+    dy = torch.randn(m, n, device="cuda", generator=g).to(bf)
+    yield ("matmul_dx_dw", "fc1.dxdw", (dy, w, x), b, None, 0, (dy, w, x))
+    del x, w, dy
+    s = plans["attn"]
+    q = torch.randn(TFM_BATCH * Hq, TFM_SEQ, Dh, device="cuda", generator=g).to(bf)
+    kk = torch.randn(TFM_BATCH * Hkv, TFM_SEQ, Dh, device="cuda", generator=g).to(bf)
+    v = torch.randn(TFM_BATCH * Hkv, TFM_SEQ, Dh, device="cuda", generator=g).to(bf)
+    kw = dict(block_q=s.block("block_q"), block_kv=s.block("block_kv"), scale=Dh ** -0.5,
+              causal=True, window=None, q_len=TFM_SEQ, kv_len=TFM_SEQ)
+    q4 = q.reshape(TFM_BATCH, Hq, TFM_SEQ, Dh)
+    k4 = kk.reshape(TFM_BATCH, Hkv, TFM_SEQ, Dh).repeat_interleave(Hq // Hkv, 1)
+    v4 = v.reshape(TFM_BATCH, Hkv, TFM_SEQ, Dh).repeat_interleave(Hq // Hkv, 1)
+    yield ("flash_attention", "attn", (q, kk, v), kw,
+           lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+           calls[("flash_attention", "attn")], (q, kk, v))
+
+
+def grad_distance(a, b) -> float:
+    """||a - b|| / ||b|| over one leaf (the Frobenius norm in f32)."""
+    return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
+
+
+def phase_bf16(torch, kernels, results, card):
+    """(a) Each GEMM kernel's and flash's bf16 route alone at the planned
+    qwen1.5-0.5b step's shapes (the fused dX/dW kernel at the CNN's fc1,
+    where the H100 planner picks it at bf16), against its plain version on
+    the same bf16 operands: bf16 outputs within one ulp, f32 outputs within
+    BF16_F32_TOL of scale; event and device ms, the plain version's and one
+    library call's ms, and the bound at the bf16 peaks.  (b) The planned
+    step at compute_dtype bf16 through runtime/train.py::make_loss_fn at
+    full width and depth: launches per kernel equal to the plan, the loss
+    within BF16_LOSS_RTOL of the plain bf16 step's, every gradient's
+    distance from the plain f32 step at most BF16_GRAD_RATIO times the
+    plain bf16 step's own; then the bf16 train step's ms by events and on
+    the device beside phase times' f32 planned step, and its peak memory."""
+    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import init_params
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    t_phase = time.perf_counter()
+    cfg = get_config(TFM_ARCH)
+    plans = tf.plan_training(cfg, TFM_BATCH, TFM_SEQ, loss_chunks=tfm_chunks(), in_bytes=2)
+    step_batch = f"{TFM_BATCH}x{TFM_SEQ}"
+    for name, label, args, kw, lib, per_step, unpadded in bf16_kernel_cases(torch, cfg, plans):
+        kern = kernels[name]
+        before = kern.launches
+        outs = kern(*args, **kw)
+        again = kern(*args, **kw)
+        refs = kern.plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(kern.launches == before + 2, f"bf16 {name} {label}: no launch")
+        outs, again, refs = ((t if isinstance(t, tuple) else (t,)) for t in (outs, again, refs))
+        same = all(bool(torch.equal(o, a)) for o, a in zip(outs, again))
+        check(same, f"bf16 {name} {label}: two launches differ")
+        if name in ("matmul", "flash_attention"):
+            gate = ulp_check(torch, outs[0], refs[0])
+            check(gate["max_ulps"] <= 1.0, f"bf16 {name} {label}: {gate}")
+            err, tol = gate["max_abs_err"], None
+        else:
+            check(all(o.dtype == torch.float32 for o in outs), f"bf16 {name}: f32 outputs")
+            err = max(max_err(o, r) for o, r in zip(outs, refs))
+            contraction = {"matmul_nt": args[0].shape[1], "matmul_tn": args[0].shape[0],
+                           "matmul_dx_dw": max(args[0].shape)}[name]
+            tol = (BF16_F32_TOL * max(1.0, math.sqrt(contraction / BF16_F32_TOL_K))
+                   * max(scale(r) for r in refs))
+            check(err <= tol, f"bf16 {name} {label}: err {err} > {tol}")
+            gate = {"max_abs_err": err, "tolerance": tol, "contraction": contraction}
+        results[name]["bf16_max_abs_err"] = max(results[name].get("bf16_max_abs_err", 0.0), err)
+        del outs, again, refs
+        fn = functools.partial(kern, *args, **kw)
+        plain_fn = functools.partial(kern.plain, *args, **kw)
+        reps = 2 if label.startswith("logits") else 3
+        ms, plain_ms = median_ms(fn, reps=reps, warmup=1), median_ms(plain_fn, reps=reps,
+                                                                      warmup=1)
+        dev_ms, dev_calls = paper_device_ms(torch, fn, 1, reps=2, markers=BF16_MARKERS[name])
+        dev_by = "torch.profiler"
+        if not dev_calls:  # a long process's profile may hold no call (PERF.md section 7)
+            dev_ms, dev_by = burst_ms(fn, BF16_BURST), f"events over {BF16_BURST} calls in a row"
+        lib_ms = median_ms(lib, reps=reps, warmup=1) if lib is not None else None
+        cost = cost_record(kern, *unpadded, **kw)
+        b_ms, b_by = bf16_bound_ms(cost["flops"], cost["nbytes"])
+        call = dict(case=label, per_step=per_step, step_batch=step_batch, dtype="bfloat16",
+                    **gate, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
+                    device_calls_profiled=dev_calls, plain_ms=plain_ms, library_ms=lib_ms,
+                    bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
+                    library_over_port=(lib_ms / ms if lib_ms else None),
+                    **(template_record(name, args, kw)
+                       if name in ("matmul", "matmul_tn", "matmul_dx_dw") else {}),
+                    flops=cost["flops"], bytes=cost["nbytes"], peaks=PEAKS_BF16)
+        results[name].setdefault("bf16_calls", []).append(call)
+        emit(phase="bf16", kernel=name, card=card, **call)
+        del args, unpadded, fn, plain_fn, lib
+        torch.cuda.empty_cache()
+
+    # (b) the planned bf16 step at full width and depth.
+    kw = dict(param_dtype="float32", learning_rate=3e-4, warmup_steps=1, total_steps=STEPS,
+              loss_chunks=tfm_chunks(), seed=SEED, remat="none")
+    tcfgs = {"planned bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=True),
+             "plain bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=False),
+             "plain f32": TrainConfig(**kw, compute_dtype="float32", planned_kernels=False)}
+    params0 = init_params(tf.param_defs(cfg), SEED, device="cuda")
+    src = make_data_source(cfg, TFM_BATCH, TFM_SEQ, ShardInfo(0, 1), seed=SEED)
+    batch = tr.batch_to(src(0), "cuda")
+    per_step = per_kernel(tfm_calls(tf, cfg, plans), tfm_kernels())
+    zero_counts(kernels)
+    loss, grads, peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["planned bf16"]), params0,
+                              batch)
+    launched = {n: k.launches for n, k in tfm_kernels().items()}
+    for name in kernels:
+        results[name]["launches_by_path"]["bf16"] = kernels[name].launches
+    check(launched == per_step, f"bf16 step: launches {launched} != plan {per_step}")
+    check(math.isfinite(loss), f"bf16 step: loss {loss}")
+    for k, gr in grads.items():
+        check(gr.dtype == torch.float32 and bool(torch.isfinite(gr).all()),
+              f"bf16 step grad {k}: {gr.dtype}, non-finite")
+    losses, peaks = {"planned bf16": loss}, {"planned bf16": peak}
+    f32_loss, f32_grads, peaks["plain f32"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain f32"]), params0, batch)
+    dist = {k: {"planned bf16": grad_distance(gr, f32_grads[k])} for k, gr in grads.items()}
+    del grads
+    torch.cuda.empty_cache()
+    losses["plain bf16"], plain_grads, peaks["plain bf16"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain bf16"]), params0, batch)
+    for k, gr in plain_grads.items():
+        dist[k]["plain bf16"] = grad_distance(gr, f32_grads[k])
+    losses["plain f32"] = f32_loss
+    del plain_grads, f32_grads
+    torch.cuda.empty_cache()
+    ratios = {k: v["planned bf16"] / max(v["plain bf16"], 1e-30) for k, v in dist.items()}
+    emit(phase="bf16", check="planned bf16 step", arch=TFM_ARCH, batch=TFM_BATCH,
+         seq=TFM_SEQ, n_layers=cfg.n_layers, launches=launched, launches_per_step=per_step,
+         losses=losses, loss_rtol=BF16_LOSS_RTOL,
+         loss_rel_diff=abs(loss - losses["plain bf16"]) / abs(losses["plain bf16"]),
+         grad_distance_from_plain_f32=dist, grad_ratio=ratios,
+         grad_ratio_limit=BF16_GRAD_RATIO, peak_memory_bytes=peaks,
+         schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
+                        "smem_bytes": s.vmem_bytes} for n, s in plans.items()})
+    check(abs(loss - losses["plain bf16"]) <= BF16_LOSS_RTOL * abs(losses["plain bf16"]),
+          f"bf16 step-1 loss {loss} vs plain bf16 {losses['plain bf16']}")
+    for k, r in ratios.items():
+        check(r <= BF16_GRAD_RATIO, f"bf16 step grad {k}: distance ratio {r} ({dist[k]})")
+
+    tcfg = tcfgs["planned bf16"]
+    state = tr.init_state(cfg, tcfg, params0)
+    del params0
+    step = tr.make_train_step(cfg, tcfg)
+    run = functools.partial(step, state, batch)
+    ms = median_ms(run, reps=2, warmup=1)
+    dev_ms = device_time_ms(torch, run, reps=1)
+    f32 = RUNS.get("tfm_planned_step", {})
+    tokens = TFM_BATCH * TFM_SEQ
+    emit(phase="bf16", check="step time", arch=TFM_ARCH, card=card,
+         step_ms={"planned bf16": ms, "planned f32 (phase times)": f32.get("ms")},
+         step_device_ms={"planned bf16": dev_ms,
+                         "planned f32 (phase times)": f32.get("device_ms")},
+         tokens_per_s=tokens / (ms / 1e3), step_peak_memory_bytes=peak)
+    del state, run, step
+    torch.cuda.empty_cache()
+    emit(phase="bf16", seconds=time.perf_counter() - t_phase)
+
+
+def burst_ms(fn, n: int) -> float:
+    """ms a call of ``fn`` over ``n`` calls launched back to back between
+    two CUDA events: the device's time for the calls without the host's
+    gaps between them, where each call outlasts its launch."""
+    import torch
+
+    fn()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
 
 
 def median_ms(fn, reps: int = 10, warmup: int = 2) -> float:
@@ -2011,8 +2348,9 @@ def phase_times_transformer(torch, card, results, kernels, tfm):
     emit(phase="times", arch=TFM_ARCH, train_step_ms=step_ms,
          train_tokens_per_s={k: tokens / (t / 1e3) for k, t in step_ms.items()},
          batch=TFM_BATCH, seq=TFM_SEQ, card=card)
-    profile(torch, "transformer_train_step", run["planned"], card, grad=True, reps=2,
-            batch=step_batch)
+    RUNS["tfm_planned_step"] = {"ms": step_ms["planned"], "device_ms": profile(
+        torch, "transformer_train_step", run["planned"], card, grad=True, reps=2,
+        batch=step_batch)}
 
 
 # -- the eighth slice: accumulation, int8 error feedback, checkpoints, remat, autotune -
@@ -3354,7 +3692,7 @@ LAUNCH_MARKERS = ("conv_reg_kernel", "conv_simple_kernel", "mm_reg_kernel",
                   "mm_simple_kernel")
 
 
-def paper_device_ms(torch, fn, launches: int, reps: int = 5):
+def paper_device_ms(torch, fn, launches: int, reps: int = 5, markers=LAUNCH_MARKERS):
     """(device ms per call, calls the profile captured) of ``fn``, which
     makes ``launches`` kernel launches a call: the device time of every
     kernel in the profile over the calls whose launches it holds.  A long
@@ -3371,7 +3709,7 @@ def paper_device_ms(torch, fn, launches: int, reps: int = 5):
             fn()
         torch.cuda.synchronize()
     rows = device_kernels(torch, prof)
-    calls = sum(c for _, k, c in rows if any(m in k for m in LAUNCH_MARKERS)) / launches
+    calls = sum(c for _, k, c in rows if any(m in k for m in markers)) / launches
     if not calls:
         return None, 0
     return sum(ms for ms, _, _ in rows) / calls, calls
@@ -3703,9 +4041,14 @@ def dense_train(torch, kernels, results, card, arch: str, *, layers, batch: int,
     t0 = time.perf_counter()
     if launcher:
         zero_counts(kernels)
-        history = launch.main(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
-                               "--steps", str(steps), "--planned-kernels", "--seed", str(SEED),
-                               "--log-every", "1", "--remat", remat])
+        real = launch.get_config
+        launch.get_config = lambda name: cfg if name == arch else real(name)
+        try:
+            history = launch.main(["--arch", arch, "--batch", str(batch), "--seq", str(seq),
+                                   "--steps", str(steps), "--planned-kernels", "--seed",
+                                   str(SEED), "--log-every", "1", "--remat", remat])
+        finally:
+            launch.get_config = real
         torch.cuda.synchronize()
         got = {k: kk.launches for k, kk in kernels.items()}
         train_peak = torch.cuda.max_memory_allocated()
@@ -3793,7 +4136,8 @@ def phase_dense_serve(torch, kernels, results, card) -> None:
     t_phase = time.perf_counter()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    cfg = dataclasses.replace(get_config(DENSE_SERVE_ARCH), max_seq=DENSE_SERVE_MAX_SEQ)
+    cfg = dataclasses.replace(get_config(DENSE_SERVE_ARCH), max_seq=DENSE_SERVE_MAX_SEQ,
+                              n_layers=DENSE_SERVE_LAYERS)
     defs = tf.param_defs(cfg)
     t0 = time.perf_counter()
     params = device_params(torch, defs, SEED)
@@ -3829,7 +4173,8 @@ def phase_dense_serve(torch, kernels, results, card) -> None:
     streams2 = [list(r.tokens) for r in reqs2]
     lens = [len(r.prompt) for r in reqs1]
     emit(phase="dense", path="serve_" + DENSE_SERVE_ARCH, arch=cfg.name,
-         n_layers=cfg.n_layers, d_model=cfg.d_model,
+         n_layers=cfg.n_layers, of_layers=get_config(DENSE_SERVE_ARCH).n_layers,
+         d_model=cfg.d_model,
          heads=[cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim],
          window=[cfg.local_window, cfg.global_every], vocab=cfg.vocab,
          params=count_params(defs), weight_draw_seconds=draw_s, ladder=DENSE_SERVE_LADDER,
@@ -3933,7 +4278,7 @@ def phase_dense(torch, kernels, results, card) -> None:
              bound_share=b_ms / ms, flops=meta["flops"], bytes=meta["nbytes"], peaks=PEAKS)
         del case, q, k, v, lib
     torch.cuda.empty_cache()
-    dense_train(torch, kernels, results, card, DENSE_ARCH, layers=None, batch=TFM_BATCH,
+    dense_train(torch, kernels, results, card, DENSE_ARCH, layers=DENSE_LAYERS, batch=TFM_BATCH,
                 seq=TFM_SEQ, steps=STEPS, remat=DENSE_REMAT, launcher=True)
     for arch in DENSE_CUT:
         dense_train(torch, kernels, results, card, arch, layers=DENSE_CUT_LAYERS,
@@ -4238,33 +4583,123 @@ def mesh_rank(rank: int, world: int, work: Path) -> int:
     return 0
 
 
-def run_rank_processes(flag: str, world: int, work: Path, extra: tuple = (),
-                       timeout: float = MESH_TIMEOUT) -> list:
+RANK_PROCS: list = []  # every rank process started; stop_rank_processes ends them
+# Modules a rank process needs, imported once by the fork server each rank is
+# forked from: importing torch alone took 7.8-9.2 s a process on the card's
+# host, against 1.7-2.2 s for the rest of a start (scripts/startup_probe.py).
+RANK_PRELOAD = ["numpy", "torch", "torch.distributed", "repro_torch.launch.train",
+                "repro_torch.runtime.serve"]
+
+
+def start_rank_server():
+    """The multiprocessing context whose fork server (started now, while
+    the kernels build) has RANK_PRELOAD imported; no CUDA is touched
+    there, so each rank forked from it takes the card itself."""
+    import multiprocessing
+    from multiprocessing import forkserver
+
+    ctx = multiprocessing.get_context("forkserver")
+    ctx.set_forkserver_preload(RANK_PRELOAD)
+    forkserver.ensure_running()
+    return ctx
+
+
+def rank_process(argv: list, log: Path) -> int:
+    """A rank process's body (forked from the fork server): its output to
+    ``log``, then ``chip_smoke.py ARGV`` as :func:`main` runs it."""
+    fd = os.open(log, os.O_WRONLY | os.O_CREAT | os.O_TRUNC, 0o644)
+    os.dup2(fd, 1)
+    os.dup2(fd, 2)
+    os.close(fd)
+    sys.argv = [str(ROOT / "chip_smoke.py"), *argv]
+    sys.exit(main())
+
+
+def start_rank_processes(flag: str, world: int, work: Path, extra: tuple = ()) -> tuple:
     """Start ``chip_smoke.py FLAG R WORLD WORK [EXTRA]`` for every rank
-    (logs under WORK), stop them all at the first failure or at
-    ``timeout``, and return (rank, exit code, log tail) of each that
-    failed."""
-    logs = [open(work / f"rank{r}.log", "w") for r in range(world)]
-    procs = [subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), flag, str(r),
-                               str(world), str(work), *extra], stdout=logs[r],
-                              stderr=subprocess.STDOUT)
-             for r in range(world)]
+    (logs under WORK), each forked from the fork server.  Each sets itself
+    up (:func:`rank_startup`) and then waits for WORK/go, which
+    :func:`join_rank_processes` writes, so a phase starts its first ranks
+    before its one-device references, and the next group while a group
+    runs: their start-up overlaps that work."""
+    work.mkdir(parents=True, exist_ok=True)
+    # Daemons: a group still waiting when the script stops ends with it.
+    procs = [RANK_SERVER[0].Process(
+        target=rank_process, args=([flag, str(r), str(world), str(work), *extra],
+                                   work / f"rank{r}.log"), daemon=True) for r in range(world)]
+    for p in procs:
+        p.start()
+    RANK_PROCS.extend(procs)
+    return work, procs
+
+
+RANK_SERVER: list = []  # [the fork-server context], set by main
+
+
+def stop_rank_processes() -> None:
+    """End every rank process and dry run still going (at exit)."""
+    for p in RANK_PROCS:
+        if p.exitcode is None:
+            p.kill()
+            p.join()
+    for _, proc, _, _ in DRYRUN_PROCS:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+def rank_startup(flag: str, rank: str, work: Path) -> None:
+    """A rank process's start-up: torch, the port's modules (both already
+    imported where the fork server preloaded them) and the card, then
+    WORK/ready<RANK> and wait for WORK/go; leave if the process that
+    started it is gone."""
+    parent = os.getppid()
+    if flag in ("--moe-rank", "--families-rank", "--long-rank"):
+        # Four ranks share the card: blocks a rank frees must be reusable by
+        # any size it asks for next (set before its first allocation).
+        os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    import torch
+
+    sys.path.insert(0, str(ROOT / "src"))
+    import repro_torch.launch.train  # noqa: F401
+    import repro_torch.runtime.serve  # noqa: F401
+
+    torch.cuda.set_device(0)
+    torch.empty(1, device="cuda")  # the card's context
+    (work / f"ready{rank}").touch()
+    while not (work / "go").exists():
+        if os.getppid() != parent:
+            sys.exit(3)
+        time.sleep(0.05)
+
+
+def join_rank_processes(started: tuple, timeout: float = MESH_TIMEOUT, then=None) -> list:
+    """Let the ranks ``started`` work (WORK/go), call ``then`` (which starts
+    the next group) once every rank is past its start-up, stop them all at
+    the first failure or at ``timeout``, and return (rank, exit code, log
+    tail) of each that failed."""
+    work, procs = started
+    (work / "go").touch()
     deadline = time.monotonic() + timeout
     try:
         # A rank that fails leaves the others waiting in a collective.
-        while any(p.poll() is None for p in procs) and time.monotonic() < deadline:
-            if any(p.poll() not in (None, 0) for p in procs):
+        while any(p.exitcode is None for p in procs) and time.monotonic() < deadline:
+            if any(p.exitcode not in (None, 0) for p in procs):
                 break
+            if then is not None and all((work / f"ready{r}").exists()
+                                        for r in range(len(procs))):
+                then()
+                then = None
             time.sleep(0.2)
+        if then is not None:
+            then()
     finally:
         for p in procs:
-            if p.poll() is None:
+            if p.exitcode is None:
                 p.kill()
-            p.wait()
-        for f in logs:
-            f.close()
-    return [(r, p.returncode, (work / f"rank{r}.log").read_text()[-3000:])
-            for r, p in enumerate(procs) if p.returncode]
+            p.join()
+    return [(r, p.exitcode, (work / f"rank{r}.log").read_text()[-3000:])
+            for r, p in enumerate(procs) if p.exitcode]
 
 
 def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
@@ -4277,16 +4712,23 @@ def phase_mesh(torch, cnn, cfg, kernels, results, card) -> set:
     base = SCRATCH / "mesh"
     shutil.rmtree(base, ignore_errors=True)
     base.mkdir(parents=True)
+    started = {}
+
+    def start(world):
+        started[world] = start_rank_processes("--mesh-rank", world, base / f"r{world}")
+
+    start(MESH_RANKS[0])
     torch.save(mesh_reference(torch, cnn, cfg), base / "ref.pt")
     zero_counts(kernels)
     for name in kernels:
         results[name]["launches_by_path"].setdefault("mesh", 0)
         results[name]["launches_by_path"].setdefault("mesh_cases", 0)
-    for world in MESH_RANKS:
+    for i, world in enumerate(MESH_RANKS):
         work = base / f"r{world}"
-        work.mkdir()
         t_ranks = time.perf_counter()
-        bad = run_rank_processes("--mesh-rank", world, work)
+        nxt = MESH_RANKS[i + 1:]
+        bad = join_rank_processes(started[world],
+                                  then=functools.partial(start, nxt[0]) if nxt else None)
         recs = [json.loads((work / f"rank{r}.json").read_text())
                 for r in range(world) if (work / f"rank{r}.json").exists()]
         if bad:
@@ -4517,7 +4959,7 @@ def phase_elastic(torch, cnn, cfg, kernels, results, card) -> None:
     work = base / "kill"
     work.mkdir(parents=True)
     t0 = time.perf_counter()
-    bad = run_rank_processes("--elastic-rank", ELASTIC_RANKS, work)
+    bad = join_rank_processes(start_rank_processes("--elastic-rank", ELASTIC_RANKS, work))
     recs = [json.loads((work / f"rank{r}.json").read_text())
             for r in range(ELASTIC_RANKS) if (work / f"rank{r}.json").exists()]
     if bad:
@@ -4728,12 +5170,12 @@ def tokens_rank(rank: int, world: int, work: Path, case: str) -> int:
     return 0
 
 
-def tokens_ranks(work: Path, case: str) -> list:
-    """Run the ranks of one case and return their records; a failure fails
-    the phase (with the records that were written)."""
-    work.mkdir(parents=True)
-    bad = run_rank_processes("--tokens-rank", TOKENS_RANKS, work, extra=(case,),
-                             timeout=TOKENS_TIMEOUT)
+def tokens_ranks(started: tuple, case: str, then=None) -> list:
+    """Run the ranks of one case (started by start_rank_processes; ``then``
+    as join_rank_processes takes it) and return their records; a failure
+    fails the phase (with the records that were written)."""
+    work = started[0]
+    bad = join_rank_processes(started, timeout=TOKENS_TIMEOUT, then=then)
     recs = [json.loads((work / f"rank{r}.json").read_text())
             for r in range(TOKENS_RANKS) if (work / f"rank{r}.json").exists()]
     if bad:
@@ -4751,12 +5193,19 @@ def phase_tokens_mesh(torch, kernels, results, card) -> None:
     shutil.rmtree(base, ignore_errors=True)
     for name in kernels:
         results[name]["launches_by_path"].setdefault("tokens_mesh", 0)
+    started = {}
+
+    def start(case):
+        started[case] = start_rank_processes("--tokens-rank", TOKENS_RANKS, base / case,
+                                             extra=(case,))
+
+    start("main")
     step_kernels = tfm_kernels()
     want, lcfg = tokens_local_launches(tf, step_kernels, TOKENS_MESH)
 
     # (a) the full model on 2x2.
     t0 = time.perf_counter()
-    recs = tokens_ranks(base / "main", "main")
+    recs = tokens_ranks(started["main"], "main", then=functools.partial(start, "elastic"))
     ranks_s = time.perf_counter() - t0
     check(len(recs) == TOKENS_RANKS, f"tokens_mesh: {len(recs)} rank records")
     one = RUNS["transformer_losses"]
@@ -4797,7 +5246,7 @@ def phase_tokens_mesh(torch, kernels, results, card) -> None:
     # (b) the elastic shrink at 4 layers.
     t0 = time.perf_counter()
     work = base / "elastic"
-    recs = tokens_ranks(work, "elastic")
+    recs = tokens_ranks(started["elastic"], "elastic")
     ranks_s = time.perf_counter() - t0
     check([r["left"] for r in recs] == [False, False, True, True],
           f"tokens_mesh elastic: left {[r['left'] for r in recs]}")
@@ -5189,10 +5638,12 @@ def moe_rank(rank: int, world: int, work: Path, case: str) -> int:
     return 0
 
 
-def moe_ranks(work: Path, case: str, world: int) -> list:
-    """Run the ranks of one case and return their records; a failure fails
-    the phase."""
-    bad = run_rank_processes("--moe-rank", world, work, extra=(case,), timeout=MOE_MESH_TIMEOUT)
+def moe_ranks(started: tuple, case: str, world: int, then=None) -> list:
+    """Run the ranks of one case (started by start_rank_processes; ``then``
+    as join_rank_processes takes it) and return their records; a failure
+    fails the phase."""
+    work = started[0]
+    bad = join_rank_processes(started, timeout=MOE_MESH_TIMEOUT, then=then)
     recs = [json.loads((work / f"rank{r}.json").read_text())
             for r in range(world) if (work / f"rank{r}.json").exists()]
     if bad:
@@ -5218,9 +5669,16 @@ def phase_moe_mesh(torch, kernels, results, card) -> None:
     for name in kernels:
         results[name]["launches_by_path"].setdefault("moe_mesh", 0)
     out = {}
-    for case, world in (("serve", MOE_MESH_RANKS), ("tpe", 2), ("train", MOE_MESH_RANKS)):
+    cases = (("serve", MOE_MESH_RANKS), ("tpe", 2), ("train", MOE_MESH_RANKS))
+    started = {}
+
+    def start(i):
+        case, world = cases[i]
+        started[case] = start_rank_processes("--moe-rank", world, base / case, extra=(case,))
+
+    start(0)
+    for i, (case, world) in enumerate(cases):
         work = base / case
-        work.mkdir(parents=True)
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
@@ -5229,7 +5687,8 @@ def phase_moe_mesh(torch, kernels, results, card) -> None:
         torch.cuda.empty_cache()  # the ranks need the card
         ref["parent_reserved_bytes"] = torch.cuda.memory_reserved()
         t0 = time.perf_counter()
-        recs = moe_ranks(work, case, world)
+        recs = moe_ranks(started[case], case, world,
+                         then=functools.partial(start, i + 1) if i + 1 < len(cases) else None)
         ranks_s = time.perf_counter() - t0
         check(len(recs) == world, f"moe_mesh {case}: {len(recs)} rank records")
         for r in recs:
@@ -5328,17 +5787,19 @@ def phase_moe_mesh(torch, kernels, results, card) -> None:
 
 def fm_config(case: str):
     """A case's configuration: (a)-(c) at full width, the training cases
-    cut in depth as FM_TRAIN_LAYERS says ("<arch>" trains, "serve:<arch>"
-    serves at full depth); (d) "ef" qwen1.5-0.5b cut to FM_EF_LAYERS."""
+    cut in depth as FM_TRAIN_LAYERS says ("<arch>" trains) and as
+    FM_SERVE_LAYERS says ("serve:<arch>" serves); (d) "ef" qwen1.5-0.5b cut
+    to FM_EF_LAYERS."""
     from repro_torch.configs import get_config
 
     if case == "ef":
         return dataclasses.replace(get_config(TFM_ARCH), n_layers=FM_EF_LAYERS)
+    layers, enc_layers = FM_TRAIN_LAYERS, FM_TRAIN_ENC_LAYERS
     if case.startswith("serve:"):
-        return get_config(case[len("serve:"):])
+        case, layers, enc_layers = case[len("serve:"):], FM_SERVE_LAYERS, FM_SERVE_ENC_LAYERS
     cfg = get_config(case)
-    return dataclasses.replace(cfg, n_layers=FM_TRAIN_LAYERS.get(case, cfg.n_layers),
-                               n_enc_layers=FM_TRAIN_ENC_LAYERS.get(case, cfg.n_enc_layers))
+    return dataclasses.replace(cfg, n_layers=layers.get(case, cfg.n_layers),
+                               n_enc_layers=enc_layers.get(case, cfg.n_enc_layers))
 
 
 def fm_tcfg(case: str):
@@ -5728,6 +6189,7 @@ def fm_check_train(case: str, ref: dict, recs: list, want_launches: dict | None)
 def phase_families_mesh(torch, kernels, results, card, families) -> None:
     """Cases (a)-(d) (see the module docstring); ``families`` is phase
     families' records (Zamba2's spread gates its logits)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import mamba2
     from repro_torch.models import transformer as tf
 
@@ -5739,6 +6201,10 @@ def phase_families_mesh(torch, kernels, results, card, families) -> None:
     shutil.rmtree(base, ignore_errors=True)
     for name in kernels:
         results[name]["launches_by_path"].setdefault("families_mesh", 0)
+    meshes = (("train", FM_TRAIN_MESH), ("serve", FM_SERVE_MESH))
+    started = {group: start_rank_processes(
+        "--families-rank", math.prod(int(x) for x in mesh.split("x")), base / group,
+        extra=(group,)) for group, mesh in meshes}
     refs = {}
     t0 = time.perf_counter()
     for group, cases in (("train", FM_TRAIN_CASES),
@@ -5751,12 +6217,11 @@ def phase_families_mesh(torch, kernels, results, card, families) -> None:
                      for c, r in refs.items()})
     torch.cuda.empty_cache()
     out = {}
-    for group, mesh in (("train", FM_TRAIN_MESH), ("serve", FM_SERVE_MESH)):
+    for group, mesh in meshes:
         world = math.prod(int(x) for x in mesh.split("x"))
         work = base / group
         t0 = time.perf_counter()
-        bad = run_rank_processes("--families-rank", world, work, extra=(group,),
-                                 timeout=FM_TIMEOUT)
+        bad = join_rank_processes(started[group], timeout=FM_TIMEOUT)
         recs = [json.loads((work / f"rank{r}.json").read_text())
                 for r in range(world) if (work / f"rank{r}.json").exists()]
         if bad:
@@ -5828,7 +6293,8 @@ def phase_families_mesh(torch, kernels, results, card, families) -> None:
         cfg = fm_config(case)
         emit(phase="families_mesh", case=case, card=card, arch=arch, mesh=FM_SERVE_MESH,
              setup="2 processes sharing one H100 over gloo; not multi-chip numbers",
-             n_layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+             n_layers=cfg.n_layers, of_layers=get_config(arch).n_layers,
+             n_enc_layers=cfg.n_enc_layers, d_model=cfg.d_model, vocab=cfg.vocab,
              prompt=[FM_SERVE["rows"], FM_SERVE["prompt"]], decodes=FM_SERVE["decodes"],
              tolerance=gate, worst_logits_err_over_scale=worst,
              logits_err_over_scale=rank0["logits_err_over_scale"],
@@ -5845,13 +6311,13 @@ def phase_families_mesh(torch, kernels, results, card, families) -> None:
 
 
 def lm_config(case: str):
-    """A case's configuration: (a), (b) at full width and depth; (c)
-    "planned": qwen1.5-0.5b cut to LM_TRAIN's layers."""
+    """A case's configuration: (a), (b) at full width cut to LM_SERVE's
+    layers; (c) "planned": qwen1.5-0.5b cut to LM_TRAIN's layers."""
     from repro_torch.configs import get_config
 
     if case == "planned":
         return dataclasses.replace(get_config(LM_TRAIN["arch"]), n_layers=LM_TRAIN["layers"])
-    return get_config(case)
+    return dataclasses.replace(get_config(case), n_layers=LM_SERVE[case]["layers"])
 
 
 def lm_prompt(cfg, case: str):
@@ -6178,6 +6644,7 @@ def lm_planned_launches(tf, kernels) -> tuple[dict, int]:
 
 def phase_long_mesh(torch, kernels, results, card) -> None:
     """Cases (a)-(c) (see the module docstring)."""
+    from repro_torch.configs import get_config
     from repro_torch.models import transformer as tf
 
     t_phase = time.perf_counter()
@@ -6185,6 +6652,16 @@ def phase_long_mesh(torch, kernels, results, card) -> None:
     shutil.rmtree(base, ignore_errors=True)
     for name in kernels:
         results[name]["launches_by_path"].setdefault("long_mesh", 0)
+    meshes = (("serve", LM_SERVE_MESH), ("train", LM_TRAIN_MESH))
+    started = {}
+
+    def start(i):
+        group, mesh = meshes[i]
+        started[group] = start_rank_processes(
+            "--long-rank", math.prod(int(x) for x in mesh.split("x")), base / group,
+            extra=(group,))
+
+    start(0)
     refs = {}
     t0 = time.perf_counter()
     for case in (*LM_SERVE, "planned"):
@@ -6199,12 +6676,13 @@ def phase_long_mesh(torch, kernels, results, card) -> None:
          parent_allocated_bytes=torch.cuda.memory_allocated(),
          parent_reserved_bytes=torch.cuda.memory_reserved())
     out = {}
-    for group, mesh in (("serve", LM_SERVE_MESH), ("train", LM_TRAIN_MESH)):
+    for i, (group, mesh) in enumerate(meshes):
         world = math.prod(int(x) for x in mesh.split("x"))
         work = base / group
         t0 = time.perf_counter()
-        bad = run_rank_processes("--long-rank", world, work, extra=(group,),
-                                 timeout=LM_TIMEOUT)
+        bad = join_rank_processes(
+            started[group], timeout=LM_TIMEOUT,
+            then=functools.partial(start, i + 1) if i + 1 < len(meshes) else None)
         recs = [json.loads((work / f"rank{r}.json").read_text())
                 for r in range(world) if (work / f"rank{r}.json").exists()]
         if bad:
@@ -6228,7 +6706,8 @@ def phase_long_mesh(torch, kernels, results, card) -> None:
         check(worst <= TOL, f"long_mesh {case}: logits {worst} of scale > {TOL}")
         emit(phase="long_mesh", case=case, card=card, arch=cfg.name, mesh=LM_SERVE_MESH,
              setup="4 processes sharing one H100 over gloo; not multi-chip numbers",
-             n_layers=cfg.n_layers, d_model=cfg.d_model, batch=1,
+             n_layers=cfg.n_layers, of_layers=get_config(case).n_layers,
+             d_model=cfg.d_model, batch=1,
              max_seq=LM_SERVE[case]["max_seq"], prompt=LM_SERVE[case]["prompt"],
              decodes=LM_DECODES, tolerance=TOL, worst_logits_err_over_scale=worst,
              logits_err_over_scale=crecs[0]["logits_err_over_scale"],
@@ -6470,6 +6949,8 @@ def phase_tools(torch, kernels, results, card):
 
 def main() -> int:
     t_script = time.perf_counter()
+    if sys.argv[1:2] and sys.argv[1].endswith("-rank"):
+        rank_startup(sys.argv[1], sys.argv[2], Path(sys.argv[4]))
     if sys.argv[1:2] == ["--mesh-rank"]:  # one rank of phase mesh
         return mesh_rank(int(sys.argv[2]), int(sys.argv[3]), Path(sys.argv[4]))
     if sys.argv[1:2] == ["--elastic-rank"]:  # one rank of phase elastic
@@ -6488,11 +6969,13 @@ def main() -> int:
         return 2
     import torch
 
+    atexit.register(stop_rank_processes)
     if not torch.cuda.is_available():
         print("chip_smoke.py: no CUDA device; the port's kernels run only on the card",
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    RANK_SERVER.append(start_rank_server())  # importing while the kernels build
     import numpy as np
 
     from repro_torch.configs import get_config
@@ -6570,6 +7053,10 @@ def main() -> int:
     phase_times_transformer(torch, card, results, kernels, tfm)
     del tfm
     torch.cuda.empty_cache()
+    phase_bf16(torch, kernels, results, card)
+    for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
+        check(results[name]["launches_by_path"]["bf16"] > 0,
+              f"{name}: no launch on the bf16 path")
     phase_tokens_mesh(torch, kernels, results, card)
     for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
         check(results[name]["launches_by_path"]["tokens_mesh"] > 0,
@@ -6619,7 +7106,7 @@ def main() -> int:
         total["bound_by"] = max(calls, key=lambda c: c["bound_ms"])["bound_by"]
         for key in ("device_ms", "pair_library_ms", "pair_library_device_ms", "pair_port_ms",
                     "pair_port_device_ms"):
-            if all(key in c for c in calls):
+            if all(isinstance(c.get(key), (int, float)) for c in calls):
                 total[key] = sum(c[key] * c["per_step"] for c in calls)
         return total
 
@@ -6641,6 +7128,15 @@ def main() -> int:
         if cnn_calls and tfm_step:
             entry[f"{TFM_ARCH}_step"] = dict(step_sums(tfm_step),
                                              per_step_batch=tfm_step[0]["step_batch"])
+        bf16 = r.get("bf16_calls", [])
+        if bf16:
+            # The bf16 route: the planned bf16 step's calls (or, for a kernel
+            # that step does not run, phase bf16's one call).
+            step = [c for c in bf16 if c["per_step"]] or [dict(c, per_step=1) for c in bf16]
+            entry["bf16"] = dict(step_sums(step), max_abs_err=r["bf16_max_abs_err"],
+                                 max_ulps=max(c.get("max_ulps", 0.0) for c in bf16),
+                                 per_step_of=TFM_ARCH if bf16[0]["per_step"] else bf16[0]["case"],
+                                 peaks=PEAKS_BF16)
         entries.append(entry)
     emit(script_seconds=time.perf_counter() - t_script)
     emit(kernels=entries)

@@ -46,7 +46,8 @@ def _fc_kernel(x, w, schedule, bwd_schedules):
 def _fc_bwd(x, w, g, schedule, bwd_schedules, *, needs):
     del schedule
     sd = dict(bwd_schedules or ())
-    g = g.float()
+    # dY keeps its dtype (bf16 on the bf16 route, planned at two bytes an
+    # element); the kernels write f32 dX and dW, cast to x's and w's dtypes.
     s_dx = local_schedule(sd.get("dx")) or get_op("matmul_dx").plan(g, w)
     s_dw = local_schedule(sd.get("dw")) or get_op("matmul_dw").plan(x, g)
     admit_schedule("dx", s_dx, x.is_cuda)

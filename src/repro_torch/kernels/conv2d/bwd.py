@@ -332,6 +332,9 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
     B, n_h = _check_wgrad(x_pad, dy, F=F, stride=stride, block_h=block_h,
                           block_do=block_do, block_di=block_di, H_O=H_O, W_O=W_O)
     for name, t in (("x", x_pad), ("dy", dy)):
+        if t.dtype == torch.bfloat16:
+            raise ValueError(f"conv2d_wgrad kernel: no bf16 route yet for {name} (the CNN's "
+                             "bf16 route through the conv kernels is ROADMAP queue 1 #11)")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"conv2d_wgrad kernel takes contiguous float32 {name}, "
                              f"got {t.dtype} (contiguous={t.is_contiguous()})")

@@ -143,6 +143,9 @@ def _launch(kernel: CudaKernel, x_pad, f, bias, *, stride: int, block_h: int,
         block_di=block_di, H_O=H_O, W_O=W_O, relu=relu, pool=pool,
         emit_mask=emit_mask)
     for name, t in (("x", x_pad), ("f", f), ("bias", bias)):
+        if t.dtype == torch.bfloat16:
+            raise ValueError(f"conv2d kernel: no bf16 route yet for {name} (the CNN's "
+                             "bf16 route through the conv kernels is ROADMAP queue 1 #11)")
         if t.dtype != torch.float32 or not t.is_contiguous():
             raise ValueError(f"conv2d kernel takes contiguous float32 {name}, got "
                              f"{t.dtype} (contiguous={t.is_contiguous()})")

@@ -1,5 +1,6 @@
-// Flash-attention forward, f32, for the H100 (sm_90a): causal and sliding-
-// window masks, GQA, padding masks, online softmax.
+// Flash-attention forward for the H100 (sm_90a), f32 or bf16 q/k/v, f32
+// scores, softmax and accumulator, the output in q's type: causal and
+// sliding-window masks, GQA, padding masks, online softmax.
 //
 // Replaces: src/repro/kernels/flash_attention/flash_attention.py::_fa_kernel
 // (flash_attention_pallas), the attention cell of the planned transformer
@@ -75,23 +76,46 @@
 // (229,632 B); each twice, for exactly those blocks (FULL: every bound a
 // constant) and for any smaller multiples of 8.
 //
-// Contract (checked by the Python wrapper): D in {32, 64, 128, 256}; bq,
-// bkv multiples of 8 up to the instantiation's maxima; sequences padded to
-// the blocks; q [BHq, Sq, D], k/v [BHkv, Skv, D] contiguous and 16-byte
-// aligned; BHkv divides BHq.
+// bf16 (repro_flash_attention_bf16): the kernel is a template on the
+// operand type T. Every 16-byte chunk above (four floats) is four bf16 of
+// 8 bytes, so every lane layout, swizzle (in chunks) and loop is the f32
+// kernel's; Q, K and V sit in shared memory as bf16 and are converted to
+// f32 (__bfloat162float) as they are read, P stays f32, and the output is
+// rounded once (__float2bfloat16_rn). Shared memory is the planner's H100
+// term at two bytes an element, 2*2*(bq*D + 2*bkv*D) + 4*bq*D + 8*bq: the
+// P slices take PS = min(BKV, D) columns a row in the 6*bq*D bytes left
+// after Q, K and V. Built for D = 64 at the planner's 128/128 (132,096 B),
+// twice as at f32.
+//
+// Contract (checked by the Python wrapper): D in {32, 64, 128, 256} (64
+// for bf16); bq, bkv multiples of 8 up to the instantiation's maxima;
+// sequences padded to the blocks; q [BHq, Sq, D], k/v [BHkv, Skv, D] of one
+// type, contiguous and 16-byte aligned; BHkv divides BHq.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <math.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr float kNeg = -1e30f;
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// Four consecutive elements: a float4, or four bf16 in 8 bytes.
+struct __align__(8) bf16x4 {
+  bf16 v[4];
+};
+
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async_quad(bf16* dst, const bf16* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -107,40 +131,64 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-// rows x D floats from contiguous global rows into a [rows][D] tile whose
-// row r keeps its 16-byte chunk c at c ^ (r % SW).
-template <int D, int SW>
-__device__ __forceinline__ void load_tile(float* dst, const float* __restrict__ src,
-                                          int rows) {
+// rows x D elements from contiguous global rows into a [rows][D] tile whose
+// row r keeps its four-element chunk c at c ^ (r % SW).
+template <class T, int D, int SW>
+__device__ __forceinline__ void load_tile(T* dst, const T* __restrict__ src, int rows) {
   constexpr int nq = D / 4;
   for (int e = threadIdx.x; e < rows * nq; e += kThreads) {
     const int r = e / nq, c = e % nq;
-    cp_async16(dst + r * D + ((c ^ (r & (SW - 1))) << 2), src + (size_t)r * D + c * 4);
+    cp_async_quad(dst + r * D + ((c ^ (r & (SW - 1))) << 2), src + (size_t)r * D + c * 4);
   }
 }
 
-// A float4 at byte offset `off` of shared memory.
-__device__ __forceinline__ float4 lds4(const char* base, unsigned off) {
+// Four elements at byte offset `off` of shared memory, as floats.
+template <class T>
+__device__ __forceinline__ float4 lds4(const char* base, unsigned off);
+template <>
+__device__ __forceinline__ float4 lds4<float>(const char* base, unsigned off) {
   return *reinterpret_cast<const float4*>(base + off);
+}
+template <>
+__device__ __forceinline__ float4 lds4<bf16>(const char* base, unsigned off) {
+  const bf16x4 q = *reinterpret_cast<const bf16x4*>(base + off);
+  return make_float4(__bfloat162float(q.v[0]), __bfloat162float(q.v[1]),
+                     __bfloat162float(q.v[2]), __bfloat162float(q.v[3]));
+}
+
+// Four floats stored as four elements of the output type.
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  bf16x4 q;
+  q.v[0] = __float2bfloat16_rn(v.x);
+  q.v[1] = __float2bfloat16_rn(v.y);
+  q.v[2] = __float2bfloat16_rn(v.z);
+  q.v[3] = __float2bfloat16_rn(v.w);
+  *reinterpret_cast<bf16x4*>(p) = q;
 }
 
 // FULL: the launch's blocks are the instantiation's (bq == BQ, bkv == BKV,
 // the planner's pick), so every bound below is a constant and every shared
 // address a per-lane base plus an immediate; otherwise a lane's rows past
 // the warp's and score columns past bkv read a valid row and are masked.
-template <int D, int BQ, int BKV, int RG, bool FULL>
+template <class T, int D, int BQ, int BKV, int RG, bool FULL>
 __global__ void __launch_bounds__(kThreads, 1)
-    fa_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                  const float* __restrict__ V, float* __restrict__ O, int group,
+    fa_fwd_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                  const T* __restrict__ V, T* __restrict__ O, int group,
                   int sq, int skv, int bq_arg, int bkv_arg, int q_len, int kv_len,
                   int causal, int window, int q_off, float scale_log2) {
+  constexpr unsigned E = sizeof(T);             // bytes of an operand element
+  constexpr unsigned CB = 4 * E;                // bytes of a four-element chunk
   constexpr int CL = 32 / RG;                   // column lanes of a row group
   constexpr int RI = BQ / 8 / RG;               // rows a lane holds
   constexpr int CJ = BKV / CL;                  // score columns a lane holds
-  constexpr int PS = BKV < 2 * D ? BKV : 2 * D;  // P slice row (one column chunk)
+  constexpr int PW = E == 4 ? 2 * D : D;        // P slice row room (f32 columns)
+  constexpr int PS = BKV < PW ? BKV : PW;       // P slice row (one column chunk)
   constexpr int JC = PS / CL;                   // a lane's score columns per chunk
   constexpr int NCH = BKV / PS;                 // column chunks at bkv == BKV
-  constexpr int OC = D / 4 / CL;                // output float4 chunks a lane holds
+  constexpr int OC = D / 4 / CL;                // output chunks a lane holds
   constexpr int NC = D / 4;                     // chunks of one row
   static_assert(RI >= 1 && OC >= 1 && JC >= 1 && CL % 8 == 0 && NC % 8 == 0 &&
                     BKV % PS == 0 && PS % 32 == 0,
@@ -148,12 +196,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   const int bq = FULL ? BQ : bq_arg;
   const int bkv = FULL ? BKV : bkv_arg;
 
-  extern __shared__ __align__(16) float smem[];
-  const char* sb = reinterpret_cast<const char*>(smem);
-  float* qs = smem;                    // [bq][D]
-  float* ks = qs + bq * D;             // [2][bkv][D]
-  float* vs = ks + 2 * bkv * D;        // [2][bkv][D]
-  float* ps = vs + 2 * bkv * D;        // 8 warp slices of [bq/8][PS] in 2*bq*D floats
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const char* sb = reinterpret_cast<const char*>(smem_raw);
+  T* qs = reinterpret_cast<T*>(smem_raw);  // [bq][D]
+  T* ks = qs + bq * D;                     // [2][bkv][D]
+  T* vs = ks + 2 * bkv * D;                // [2][bkv][D]
+  const unsigned p0 = E * (unsigned)(bq * D + 4 * bkv * D);  // byte offset of P
+  float* ps = reinterpret_cast<float*>(smem_raw + p0);  // 8 warp slices of [bq/8][PS]
 
   const int bh = blockIdx.x;
   const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest q blocks first
@@ -174,12 +223,12 @@ __global__ void __launch_bounds__(kThreads, 1)
   }
   const int n_run = hi - lo + 1;
 
-  const float* qg = Q + ((size_t)bh * sq + q_start) * D;
+  const T* qg = Q + ((size_t)bh * sq + q_start) * D;
   const size_t kv_row = (size_t)(bh / group) * skv;
-  load_tile<D, RG>(qs, qg, bq);
+  load_tile<T, D, RG>(qs, qg, bq);
   if (n_run > 0) {
-    load_tile<D, 8>(ks, K + (kv_row + (size_t)lo * bkv) * D, bkv);
-    load_tile<D, 8>(vs, V + (kv_row + (size_t)lo * bkv) * D, bkv);
+    load_tile<T, D, 8>(ks, K + (kv_row + (size_t)lo * bkv) * D, bkv);
+    load_tile<T, D, 8>(vs, V + (kv_row + (size_t)lo * bkv) * D, bkv);
   }
   cp_async_commit();
 
@@ -192,13 +241,13 @@ __global__ void __launch_bounds__(kThreads, 1)
   unsigned q_at[8], k_at[8];            // chunk c8 of the lane's first Q row / K row
 #pragma unroll
   for (int c8 = 0; c8 < 8; ++c8) {
-    q_at[c8] = 4u * ((wr0 + g) * D + ((c8 ^ gq) << 2));
-    k_at[c8] = 4u * (cl * D + ((c8 ^ cl7) << 2));
+    q_at[c8] = E * (wr0 + g) * D + CB * (c8 ^ gq);
+    k_at[c8] = E * cl * D + CB * (c8 ^ cl7);
   }
   unsigned v_at[8];  // V row c + u (c a multiple of 8), the lane's chunk cl
 #pragma unroll
-  for (int u = 0; u < 8; ++u) v_at[u] = 4u * (u * D + ((cl ^ u) << 2));
-  const unsigned p_at = 4u * (unsigned)(pw - smem + g * PS);
+  for (int u = 0; u < 8; ++u) v_at[u] = E * u * D + CB * (cl ^ u);
+  const unsigned p_at = p0 + 4u * (unsigned)(wr0 * PS + g * PS);
   // A row of the lane past the warp's reads (and never writes) the warp's
   // first row; a score column past bkv is masked (its K row is bkv's first
   // row in a partly valid column block, and a wholly invalid one is skipped).
@@ -208,7 +257,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   for (int i = 0; i < RI; ++i) {
     const int lr = g + RG * i;
     const bool in = FULL || lr < wrows;
-    q_row[i] = in ? 4u * RG * i * D : 4u * (unsigned)(-g * D);
+    q_row[i] = in ? E * RG * i * D : E * (unsigned)(-g * D);
     p_row[i] = in ? 4u * RG * i * PS : 4u * (unsigned)(-g * PS);
     row_ok[i] = in && wr0 + lr < row_lim;
   }
@@ -234,12 +283,12 @@ __global__ void __launch_bounds__(kThreads, 1)
     __syncthreads();
     if (t + 1 < n_run) {
       const size_t nxt = (kv_row + (size_t)(k_start + bkv)) * D;
-      load_tile<D, 8>(ks + (st ^ 1) * bkv * D, K + nxt, bkv);
-      load_tile<D, 8>(vs + (st ^ 1) * bkv * D, V + nxt, bkv);
+      load_tile<T, D, 8>(ks + (st ^ 1) * bkv * D, K + nxt, bkv);
+      load_tile<T, D, 8>(vs + (st ^ 1) * bkv * D, V + nxt, bkv);
       cp_async_commit();
     }
-    const unsigned kt = 4u * (unsigned)(ks - smem + st * bkv * D);
-    const unsigned vt = 4u * (unsigned)(vs - smem + st * bkv * D);
+    const unsigned kt = E * (unsigned)(bq * D + st * bkv * D);
+    const unsigned vt = E * (unsigned)(bq * D + 2 * bkv * D + st * bkv * D);
     const int cj_run = FULL ? CJ : (bkv + CL - 1) / CL;  // column blocks with a valid column
 
     // S = Q K^T for this lane's RI x CJ scores, eight chunks of D a step.
@@ -252,14 +301,14 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int m = 0; m < NC / 8; ++m) {
 #pragma unroll
       for (int c8 = 0; c8 < 8; ++c8) {
-        const unsigned qa = q_at[c8] + 128u * m, ka = kt + k_at[c8] + 128u * m;
+        const unsigned qa = q_at[c8] + 8 * CB * m, ka = kt + k_at[c8] + 8 * CB * m;
         float4 a[RI];
 #pragma unroll
-        for (int i = 0; i < RI; ++i) a[i] = lds4(sb, qa + q_row[i]);
+        for (int i = 0; i < RI; ++i) a[i] = lds4<T>(sb, qa + q_row[i]);
 #pragma unroll
         for (int j = 0; j < CJ; ++j) {
           if (!FULL && j >= cj_run) break;
-          const float4 b = lds4(sb, ka + 4u * CL * j * D);
+          const float4 b = lds4<T>(sb, ka + E * CL * j * D);
 #pragma unroll
           for (int i = 0; i < RI; ++i) {
             s[i][j] = fmaf(a[i].x, b.x, s[i][j]);
@@ -339,17 +388,17 @@ __global__ void __launch_bounds__(kThreads, 1)
 #pragma unroll 1
       for (int c = 0; c < n_rows; c += 8) {
         const unsigned pa = p_at + 4u * (c ^ sp);  // columns c.. of P sit at (c ^ sp)..
-        const unsigned vb = vt + 4u * (ch * PS + c) * D;
+        const unsigned vb = vt + E * (ch * PS + c) * D;
 #pragma unroll
         for (int half = 0; half < 2; ++half) {
           float4 p[RI];
 #pragma unroll
-          for (int i = 0; i < RI; ++i) p[i] = lds4(sb, pa + p_row[i] + 16u * half);
+          for (int i = 0; i < RI; ++i) p[i] = lds4<float>(sb, pa + p_row[i] + 16u * half);
 #pragma unroll
           for (int u = 0; u < 4; ++u) {
             float4 v[OC];
 #pragma unroll
-            for (int h = 0; h < OC; ++h) v[h] = lds4(sb, vb + v_at[4 * half + u] + 16u * CL * h);
+            for (int h = 0; h < OC; ++h) v[h] = lds4<T>(sb, vb + v_at[4 * half + u] + CB * CL * h);
 #pragma unroll
             for (int i = 0; i < RI; ++i) {
               const float pu = u == 0 ? p[i].x : u == 1 ? p[i].y : u == 2 ? p[i].z : p[i].w;
@@ -370,7 +419,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Flush: every lane of a row group holds its rows' l; l == 0 (no visible
   // key, or a padding row) writes 0.
-  float* og = O + ((size_t)bh * sq + q_start + wr0) * D;
+  T* og = O + ((size_t)bh * sq + q_start + wr0) * D;
 #pragma unroll
   for (int i = 0; i < RI; ++i) {
     const int lr = g + RG * i;
@@ -383,43 +432,44 @@ __global__ void __launch_bounds__(kThreads, 1)
       out.y = acc[i][h][1] * inv;
       out.z = acc[i][h][2] * inv;
       out.w = acc[i][h][3] * inv;
-      *reinterpret_cast<float4*>(og + (size_t)lr * D + (cl + CL * h) * 4) = out;
+      st4(og + (size_t)lr * D + (cl + CL * h) * 4, out);
     }
   }
 }
 
-template <int D, int BQ, int BKV, int RG, bool FULL>
-int launch_as(const float* q, const float* k, const float* v, float* o, int bhq,
-              int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-              int causal, int window, int q_off, float scale_log2, size_t smem,
-              cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<D, BQ, BKV, RG, FULL>,
+template <class T, int D, int BQ, int BKV, int RG, bool FULL>
+int launch_as(const T* q, const T* k, const T* v, T* o, int bhq, int bhkv, int sq, int skv,
+              int bq, int bkv, int q_len, int kv_len, int causal, int window, int q_off,
+              float scale_log2, size_t smem, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(fa_fwd_kernel<T, D, BQ, BKV, RG, FULL>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(bhq, sq / bq);
-  fa_fwd_kernel<D, BQ, BKV, RG, FULL><<<grid, kThreads, smem, stream>>>(
+  fa_fwd_kernel<T, D, BQ, BKV, RG, FULL><<<grid, kThreads, smem, stream>>>(
       q, k, v, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window, q_off,
       scale_log2);
   return (int)cudaGetLastError();
 }
 
-template <int D, int BQ, int BKV, int RG>
-int launch(const float* q, const float* k, const float* v, float* o, int bhq,
-           int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
-           int causal, int window, int q_off, float scale_log2, cudaStream_t stream) {
+template <class T, int D, int BQ, int BKV, int RG>
+int launch(const T* q, const T* k, const T* v, T* o, int bhq, int bhkv, int sq, int skv,
+           int bq, int bkv, int q_len, int kv_len, int causal, int window, int q_off,
+           float scale_log2, cudaStream_t stream) {
   if (bq < 8 || bq > BQ || bq % 8 || bkv < 8 || bkv > BKV || bkv % 8 || sq % bq ||
       skv % bkv || bhkv <= 0 || bhq % bhkv || q_off < 0)
     return (int)cudaErrorInvalidValue;
-  const size_t smem =
-      sizeof(float) * (3 * (size_t)bq * D + 4 * (size_t)bkv * D + 2 * (size_t)bq);
+  // The planner's H100 term: Q and two stages of K and V in T, the f32 P room
+  // and (m, l).
+  const size_t smem = 2 * sizeof(T) * ((size_t)bq * D + 2 * (size_t)bkv * D) +
+                      sizeof(float) * ((size_t)bq * D + 2 * (size_t)bq);
   if (bq == BQ && bkv == BKV)
-    return launch_as<D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                           kv_len, causal, window, q_off, scale_log2, smem,
-                                           stream);
-  return launch_as<D, BQ, BKV, RG, false>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                          kv_len, causal, window, q_off, scale_log2, smem,
-                                          stream);
+    return launch_as<T, D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv,
+                                              q_len, kv_len, causal, window, q_off,
+                                              scale_log2, smem, stream);
+  return launch_as<T, D, BQ, BKV, RG, false>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                             kv_len, causal, window, q_off, scale_log2,
+                                             smem, stream);
 }
 
 }  // namespace
@@ -442,17 +492,33 @@ int repro_flash_attention_f32(const float* q, const float* k, const float* v,
   const float sl2 = scale * 1.4426950408889634f;  // log2(e)
   switch (d) {
     case 32:
-      return launch<32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                  kv_len, causal, window, q_off, sl2, s);
+      return launch<float, 32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                            kv_len, causal, window, q_off, sl2, s);
     case 64:
-      return launch<64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                  kv_len, causal, window, q_off, sl2, s);
+      return launch<float, 64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                            kv_len, causal, window, q_off, sl2, s);
     case 128:
-      return launch<128, 64, 64, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                 kv_len, causal, window, q_off, sl2, s);
+      return launch<float, 128, 64, 64, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, q_off, sl2, s);
     case 256:
-      return launch<256, 32, 32, 1>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
-                                 kv_len, causal, window, q_off, sl2, s);
+      return launch<float, 256, 32, 32, 1>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, q_off, sl2, s);
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The same for bf16 q, k, v and o (f32 inside); built for D = 64.
+int repro_flash_attention_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
+                               int bhq, int bhkv, int sq, int skv, int d, int bq, int bkv,
+                               int q_len, int kv_len, int causal, int window, int q_off,
+                               float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float sl2 = scale * 1.4426950408889634f;  // log2(e)
+  switch (d) {
+    case 64:
+      return launch<bf16, 64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, q_off, sl2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

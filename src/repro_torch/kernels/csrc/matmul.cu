@@ -1,4 +1,5 @@
-// Blocked f32 matmul O[M,N] = X[M,K] . W[K,N] for the H100 (sm_90a).
+// Blocked matmul O[M,N] = X[M,K] . W[K,N] for the H100 (sm_90a), f32 or
+// bf16 operands, f32 accumulator, the output in the operands' type.
 //
 // Replaces: src/repro/kernels/matmul/matmul.py::_mm_kernel (matmul_pallas),
 // the FC forward of the CNN, the GEMM core of the im2col conv and every
@@ -44,20 +45,106 @@
 // deep. Shared memory per block is exactly the planner's H100 budget term:
 // 4 * (bm*bn + 2*(bm*bk + bk*bn)).
 //
+//
+// bf16 (repro_matmul_bf16): both kernels are templates on the operand type
+// T. Every four-element unit of the f32 kernels (a float4, a 16-byte
+// cp.async) is four bf16 of 8 bytes (an 8-byte cp.async, a uint2 load), so
+// every thread mapping, tile and loop above is the f32 kernel's; shared
+// memory holds the operand tiles as bf16, converted to f32
+// (__bfloat162float) as they are read for the FMAs, and the f32 register
+// tile is rounded once (__float2bfloat16_rn) as it is stored. Shared memory
+// per block is the planner's H100 term at the operands' size:
+// 4*bm*bn + 2*sizeof(T)*(bm*bk + bk*bn). Split partial slabs stay f32 and
+// the ordered sum rounds once. This is the simple route: the FMAs are f32
+// on the CUDA cores, as at f32 (tensor cores are later work).
+//
 // Contract (checked by the Python wrapper): M, N, K multiples of bm, bn, bk;
-// bm, bn, bk multiples of 8; 16-byte aligned, contiguous row-major operands.
+// bm, bn, bk multiples of 8; 16-byte aligned, contiguous row-major operands
+// of one type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kTM = 4;  // rows of one thread item
 constexpr int kTN = 8;  // columns of one thread item: two runs of 4, bn/2 apart
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// Four consecutive operand elements: a float4, or four bf16 in 8 bytes.
+struct __align__(8) bf16x4 {
+  bf16 v[4];
+};
+template <class T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+};
+template <>
+struct Quad<bf16> {
+  using type = bf16x4;
+};
+template <class T>
+using quad_t = typename Quad<T>::type;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float elem(const float4& q, int j) {
+  return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+}
+__device__ __forceinline__ bf16 elem(const bf16x4& q, int j) { return q.v[j]; }
+
+// Four elements of shared memory, as floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const bf16x4 q = *reinterpret_cast<const bf16x4*>(p);
+  return make_float4(__bfloat162float(q.v[0]), __bfloat162float(q.v[1]),
+                     __bfloat162float(q.v[2]), __bfloat162float(q.v[3]));
+}
+// Four elements of device memory through the read-only path.
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ bf16x4 ldg4(const bf16* p) {
+  union {
+    uint2 u;
+    bf16x4 q;
+  } r;
+  r.u = __ldg(reinterpret_cast<const uint2*>(p));
+  return r.q;
+}
+// Four floats stored as four elements of the output type.
+__device__ __forceinline__ void st4(float* p, float4 v) {
+  *reinterpret_cast<float4*>(p) = v;
+}
+__device__ __forceinline__ void st4(bf16* p, float4 v) {
+  bf16x4 q;
+  q.v[0] = __float2bfloat16_rn(v.x);
+  q.v[1] = __float2bfloat16_rn(v.y);
+  q.v[2] = __float2bfloat16_rn(v.z);
+  q.v[3] = __float2bfloat16_rn(v.w);
+  *reinterpret_cast<bf16x4*>(p) = q;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+// Four elements from device to shared memory.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void cp_async_quad(bf16* dst, const bf16* src) {
+  cp_async8(dst, src);
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -82,10 +169,30 @@ constexpr int kXs = kBK * kBM, kWs = kBK * kBN, kStage = kXs + kWs;
 
 __device__ __forceinline__ int k_swz(int k) { return ((k >> 2) & 7) << 2; }
 
+// The output tile from the f32 staging tile acc[bm][ld]: to this part's f32
+// slab of P where the K loop is split, else rounded once to O's type.
+// Coalesced four-element stores.
+template <class TO>
+__device__ __forceinline__ void store_tile(TO* __restrict__ O, float* __restrict__ P,
+                                           const float* acc, int ld, int M, int N, int m0,
+                                           int n0, int bm, int bn, int split) {
+  for (int e = threadIdx.x; e < bm * bn / 4; e += kThreads) {
+    const int row = e / (bn / 4), c4 = e % (bn / 4);
+    const float4 v = ld4(acc + row * ld + c4 * 4);
+    const size_t at = (size_t)(m0 + row) * N + n0 + c4 * 4;
+    if (split > 1)
+      st4(P + (size_t)blockIdx.z * M * N + at, v);
+    else
+      st4(O + at, v);
+  }
+}
+
+template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    mm_reg_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                  float* __restrict__ O, int M, int N, int K, int split) {
-  extern __shared__ __align__(16) float smem[];
+    mm_reg_kernel(const T* __restrict__ X, const T* __restrict__ W, T* __restrict__ O,
+                  float* __restrict__ P, int M, int N, int K, int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   // Stage s: xs[bk][bm] (swizzled) at smem + s*kStage, ws[bk][bn] after it.
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -95,34 +202,31 @@ __global__ void __launch_bounds__(kThreads, 2)
   split_share(K / kBK, split, &t0, &t1);
   const int n_t = t1 - t0;
 
-  // X loader roles: rows lr and lr+32 of the tile, float4 column lc.
+  // X loader roles: rows lr and lr+32 of the tile, four-element column lc.
   const int lr = tid >> 3, lc = tid & 7;
-  const float* xsrc = X + (size_t)(m0 + lr) * K + lc * 4;
-  float4 rx[2];
+  const T* xsrc = X + (size_t)(m0 + lr) * K + lc * 4;
+  quad_t<T> rx[2];
   auto load_x = [&](int t) {
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      rx[i] = __ldg(reinterpret_cast<const float4*>(xsrc + (size_t)i * 32 * K + t * kBK));
+    for (int i = 0; i < 2; ++i) rx[i] = ldg4(xsrc + (size_t)i * 32 * K + t * kBK);
   };
   auto store_x = [&](int s) {
-    float* xs = smem + s * kStage;
+    T* xs = smem + s * kStage;
     const int sw = lc << 2;  // k_swz(k) for k = lc*4 + j
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
       const int c = (lr + 32 * i) ^ sw;
-      xs[(lc * 4 + 0) * kBM + c] = rx[i].x;
-      xs[(lc * 4 + 1) * kBM + c] = rx[i].y;
-      xs[(lc * 4 + 2) * kBM + c] = rx[i].z;
-      xs[(lc * 4 + 3) * kBM + c] = rx[i].w;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) xs[(lc * 4 + j) * kBM + c] = elem(rx[i], j);
     }
   };
   auto stage_w = [&](int t, int s) {
-    float* ws = smem + s * kStage + kXs;
-    const float* src = W + (size_t)t * kBK * N + n0;
+    T* ws = smem + s * kStage + kXs;
+    const T* src = W + (size_t)t * kBK * N + n0;
 #pragma unroll
     for (int i = 0; i < kWs / 4 / kThreads; ++i) {
       const int e = tid + i * kThreads, r = e >> 5, c4 = e & 31;
-      cp_async16(ws + r * kBN + c4 * 4, src + (size_t)r * N + c4 * 4);
+      cp_async_quad(ws + r * kBN + c4 * 4, src + (size_t)r * N + c4 * 4);
     }
   };
 
@@ -148,14 +252,14 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (i + 2 < n_t) stage_w(t0 + i + 2, s2);
     cp_async_commit();
     if (i + 1 < n_t) load_x(t0 + i + 1);  // in flight during this step's FMAs
-    const float* xs = smem + s * kStage;
-    const float* ws = xs + kXs;
+    const T* xs = smem + s * kStage;
+    const T* ws = xs + kXs;
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       const int sw = k_swz(kk);
-      const float4 a = *reinterpret_cast<const float4*>(xs + kk * kBM + ((mi * 4) ^ sw));
-      const float4 b0 = *reinterpret_cast<const float4*>(ws + kk * kBN + kj * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(ws + kk * kBN + 64 + kj * 4);
+      const float4 a = ld4(xs + kk * kBM + ((mi * 4) ^ sw));
+      const float4 b0 = ld4(ws + kk * kBN + kj * 4);
+      const float4 b1 = ld4(ws + kk * kBN + 64 + kj * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -170,9 +274,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
   cp_async_wait<0>();
 
-  // Registers -> the first bm*bn floats -> 16-byte stores of the O tile (or
-  // of this part's slab).
-  float* acc = smem;
+  // Registers -> the first bm*bn floats -> the O tile (or this part's slab).
+  float* acc = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int i = 0; i < kTM; ++i) {
     float* row = acc + (mi * kTM + i) * kBN;
@@ -181,12 +284,7 @@ __global__ void __launch_bounds__(kThreads, 2)
         make_float4(r[i][4], r[i][5], r[i][6], r[i][7]);
   }
   __syncthreads();
-  float* out = O + (size_t)blockIdx.z * M * N;
-  for (int e = tid; e < kBM * kBN / 4; e += kThreads) {
-    const int row = e / (kBN / 4), c4 = e % (kBN / 4);
-    *reinterpret_cast<float4*>(out + (size_t)(m0 + row) * N + n0 + c4 * 4) =
-        *reinterpret_cast<const float4*>(acc + row * kBN + c4 * 4);
-  }
+  store_tile(O, P, acc, kBN, M, N, m0, n0, kBM, kBN, split);
 }
 
 // ---------------------------------------------------------------------------
@@ -194,32 +292,32 @@ __global__ void __launch_bounds__(kThreads, 2)
 // ---------------------------------------------------------------------------
 
 // Stage one K step: X[m0:m0+bm, k0:k0+bk] -> xs[bm][bk] and
-// W[k0:k0+bk, n0:n0+bn] -> ws[bk][bn], 16 bytes per copy.
-__device__ __forceinline__ void load_step(const float* __restrict__ X,
-                                          const float* __restrict__ W,
-                                          float* xs, float* ws, int K, int N,
-                                          int m0, int n0, int k0, int bm,
-                                          int bn, int bk) {
+// W[k0:k0+bk, n0:n0+bn] -> ws[bk][bn], four elements per copy.
+template <class T>
+__device__ __forceinline__ void load_step(const T* __restrict__ X, const T* __restrict__ W,
+                                          T* xs, T* ws, int K, int N, int m0, int n0,
+                                          int k0, int bm, int bn, int bk) {
   const int xq = bk / 4;
   for (int e = threadIdx.x; e < bm * xq; e += kThreads) {
     const int r = e / xq, c = (e % xq) * 4;
-    cp_async16(xs + r * bk + c, X + (size_t)(m0 + r) * K + k0 + c);
+    cp_async_quad(xs + r * bk + c, X + (size_t)(m0 + r) * K + k0 + c);
   }
   const int wq = bn / 4;
   for (int e = threadIdx.x; e < bk * wq; e += kThreads) {
     const int r = e / wq, c = (e % wq) * 4;
-    cp_async16(ws + r * bn + c, W + (size_t)(k0 + r) * N + n0 + c);
+    cp_async_quad(ws + r * bn + c, W + (size_t)(k0 + r) * N + n0 + c);
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    mm_simple_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                     float* __restrict__ O, int M, int N, int K, int bm, int bn,
-                     int bk, int split) {
-  extern __shared__ __align__(16) float smem[];
-  float* acc = smem;               // [bm][bn] f32 accumulator
-  float* xs = acc + bm * bn;       // 2 stages of [bm][bk]
-  float* ws = xs + 2 * bm * bk;    // 2 stages of [bk][bn]
+    mm_simple_kernel(const T* __restrict__ X, const T* __restrict__ W, T* __restrict__ O,
+                     float* __restrict__ P, int M, int N, int K, int bm, int bn, int bk,
+                     int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [bm][bn] f32 accumulator
+  T* xs = reinterpret_cast<T*>(acc + bm * bn);       // 2 stages of [bm][bk]
+  T* ws = xs + 2 * bm * bk;                          // 2 stages of [bk][bn]
   const int m0 = blockIdx.y * bm, n0 = blockIdx.x * bn;
   const int half = bn / 2, groups = bn / kTN, items = (bm / kTM) * groups;
   int t0, t1;
@@ -232,20 +330,20 @@ __global__ void __launch_bounds__(kThreads)
   for (int t = t0; t < t1; ++t) {
     const int s = (t - t0) & 1;
     if (t + 1 < t1) {
-      load_step(X, W, xs + (s ^ 1) * bm * bk, ws + (s ^ 1) * bk * bn, K, N,
-                m0, n0, (t + 1) * bk, bm, bn, bk);
+      load_step(X, W, xs + (s ^ 1) * bm * bk, ws + (s ^ 1) * bk * bn, K, N, m0, n0,
+                (t + 1) * bk, bm, bn, bk);
       cp_async_commit();
       cp_async_wait<1>();
     } else {
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* xt = xs + s * bm * bk;
-    const float* wt = ws + s * bk * bn;
+    const T* xt = xs + s * bm * bk;
+    const T* wt = ws + s * bk * bn;
     for (int it = threadIdx.x; it < items; it += kThreads) {
       const int mi = it / groups, nj = it % groups;
-      const float* xr = xt + mi * kTM * bk;
-      const float* wc = wt + nj * 4;
+      const T* xr = xt + mi * kTM * bk;
+      const T* wc = wt + nj * 4;
       float r[kTM][kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
@@ -253,11 +351,11 @@ __global__ void __launch_bounds__(kThreads)
         for (int j = 0; j < kTN; ++j) r[i][j] = 0.f;
 #pragma unroll 4
       for (int kk = 0; kk < bk; ++kk) {
-        const float4 b0 = *reinterpret_cast<const float4*>(wc + kk * bn);
-        const float4 b1 = *reinterpret_cast<const float4*>(wc + kk * bn + half);
+        const float4 b0 = ld4(wc + kk * bn);
+        const float4 b1 = ld4(wc + kk * bn + half);
 #pragma unroll
         for (int i = 0; i < kTM; ++i) {
-          const float a = xr[i * bk + kk];
+          const float a = to_f32(xr[i * bk + kk]);
           r[i][0] = fmaf(a, b0.x, r[i][0]);
           r[i][1] = fmaf(a, b0.y, r[i][1]);
           r[i][2] = fmaf(a, b0.z, r[i][2]);
@@ -282,17 +380,15 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
   }
 
-  float* out = O + (size_t)blockIdx.z * M * N;
-  for (int e = threadIdx.x; e < bm * bn; e += kThreads) {
-    const int r = e / bn, c = e % bn;
-    out[(size_t)(m0 + r) * N + n0 + c] = acc[e];
-  }
+  store_tile(O, P, acc, bn, M, N, m0, n0, bm, bn, split);
 }
 
-// out[i] = sum over s of part[s][i], s in order, four floats a thread.
+// out[i] = sum over s of part[s][i], s in order, four floats a thread, the
+// sum rounded once to the output type.
+template <class TO>
 __global__ void __launch_bounds__(kThreads)
-    reduce_slabs_kernel(const float4* __restrict__ part, float4* __restrict__ out,
-                        size_t n4, int split) {
+    reduce_slabs_kernel(const float4* __restrict__ part, TO* __restrict__ out, size_t n4,
+                        int split) {
   for (size_t i = (size_t)blockIdx.x * kThreads + threadIdx.x; i < n4;
        i += (size_t)gridDim.x * kThreads) {
     float4 v = part[i];
@@ -300,13 +396,44 @@ __global__ void __launch_bounds__(kThreads)
       const float4 p = part[(size_t)s * n4 + i];
       v.x += p.x; v.y += p.y; v.z += p.z; v.w += p.w;
     }
-    out[i] = v;
+    st4(out + 4 * i, v);
   }
 }
 
 cudaError_t set_smem(const void* fn, size_t bytes) {
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)bytes);
+}
+
+template <class T>
+int launch(const T* X, const T* W, T* O, float* part, int M, int N, int K, int bm, int bn,
+           int bk, int split, int reg, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)bm * bn +
+                      2 * sizeof(T) * ((size_t)bm * bk + (size_t)bk * bn);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid(N / bn, M / bm, split);
+  cudaError_t err;
+  if (reg) {
+    if (bm != kBM || bn != kBN || bk != kBK) return (int)cudaErrorInvalidValue;
+    static_assert(kStages * kStage * sizeof(T) <=
+                      sizeof(float) * kBM * kBN + 2 * kStage * sizeof(T),
+                  "the ring must fit the charged allocation");
+    err = set_smem((const void*)mm_reg_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_reg_kernel<T><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, split);
+  } else {
+    err = set_smem((const void*)mm_simple_kernel<T>, smem);
+    if (err != cudaSuccess) return (int)err;
+    mm_simple_kernel<T><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, bm, bn, bk,
+                                                      split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t n4 = (size_t)M * N / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<T><<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(part), O, n4, split);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -325,31 +452,13 @@ const char* repro_error_string(int err) {
 int repro_matmul_f32(const float* X, const float* W, float* O, float* part, int M,
                      int N, int K, int bm, int bn, int bk, int split, int reg,
                      void* stream) {
-  const size_t smem =
-      sizeof(float) * ((size_t)bm * bn + 2 * ((size_t)bm * bk + (size_t)bk * bn));
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid(N / bn, M / bm, split);
-  float* dst = split > 1 ? part : O;
-  cudaError_t err;
-  if (reg) {
-    if (bm != kBM || bn != kBN || bk != kBK) return (int)cudaErrorInvalidValue;
-    static_assert(kStages * kStage <= kBM * kBN + 2 * kStage,
-                  "the ring must fit the charged allocation");
-    err = set_smem((const void*)mm_reg_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    mm_reg_kernel<<<grid, kThreads, smem, st>>>(X, W, dst, M, N, K, split);
-  } else {
-    err = set_smem((const void*)mm_simple_kernel, smem);
-    if (err != cudaSuccess) return (int)err;
-    mm_simple_kernel<<<grid, kThreads, smem, st>>>(X, W, dst, M, N, K, bm, bn, bk, split);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const size_t n4 = (size_t)M * N / 4;
-  const size_t want = (n4 + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(O), n4, split);
-  return (int)cudaGetLastError();
+  return launch<float>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+
+// The same for bf16 X, W and O (f32 accumulator and slabs).
+int repro_matmul_bf16(const bf16* X, const bf16* W, bf16* O, float* part, int M, int N,
+                      int K, int bm, int bn, int bk, int split, int reg, void* stream) {
+  return launch<bf16>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
 }
 
 }  // extern "C"

@@ -1,7 +1,8 @@
-// The FC layer's backward matmuls for the H100 (sm_90a), f32:
-//   NT     dX[M,K] = dY[M,N] . W[K,N]^T             (repro_matmul_nt_f32)
-//   TN     dW[K,N] = X[M,K]^T . dY[M,N]             (repro_matmul_tn_f32)
-//   fused  both from one read of each dY tile       (repro_matmul_dxdw_f32)
+// The FC layer's backward matmuls for the H100 (sm_90a), f32 or bf16
+// operands, f32 accumulators and f32 outputs:
+//   NT     dX[M,K] = dY[M,N] . W[K,N]^T             (repro_matmul_nt_f32/_bf16)
+//   TN     dW[K,N] = X[M,K]^T . dY[M,N]             (repro_matmul_tn_f32/_bf16)
+//   fused  both from one read of each dY tile       (repro_matmul_dxdw_f32/_bf16)
 //
 // Replaces: src/repro/kernels/matmul/bwd.py::_mm_nt_kernel
 // (matmul_nt_pallas), ::_mm_tn_kernel (matmul_tn_pallas) and
@@ -101,29 +102,104 @@
 //     tile to both contractions.  The whole-M dX strip [M][bk] and the dW
 //     tile [bk][bn] stay in shared memory: the dW tile flushes after each
 //     n-block, the dX strip (or slab) once at the end.
-// Shared memory per block is exactly what the planners charge:
-//   NT 4*(bm*bk + 2*(bm*bn + bn*bk)), TN 4*(bk*bn + 2*(bm*bk + bm*bn)),
-//   fused 4*(2*(bm*bn + bk*bn + bm*bk) + M*bk + bk*bn).
+// Shared memory per block is exactly what the planners charge, with the
+// operand tiles at e = sizeof(T) bytes an element and the accumulators f32:
+//   NT 4*bm*bk + 2*e*(bm*bn + bn*bk), TN 4*bk*bn + 2*e*(bm*bk + bm*bn),
+//   fused 2*e*(bm*bn + bk*bn + bm*bk) + 4*(M*bk + bk*bn).
+// bf16: every kernel is a template on the operand type T. Each
+// four-element unit of the f32 kernels (a float4, a 16-byte cp.async) is
+// four bf16 of 8 bytes, so every thread mapping, swizzle, tile and loop is
+// the f32 kernel's; the operand tiles sit in shared memory as bf16 and are
+// converted to f32 (__bfloat162float) as they are read for the FMAs. The
+// simple kernels' transposed W tile is staged by plain 2-byte copies
+// (cp.async moves 4 bytes at least). The fused register kernel keeps the
+// bf16 X strip in the front half of the f32 dX strip's charged room, which
+// its epilogue fills. dX and dW come out f32, as repro's FC backward asks
+// (out_dtype=f32); the caller casts them. The FMAs stay f32 on the CUDA
+// cores (tensor cores are later work).
 // Contract (checked by the Python wrappers): M, N, K multiples of the
 // blocks; blocks multiples of 8; 16-byte aligned, contiguous row-major
-// operands.
+// operands of one type.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
+
+using bf16 = __nv_bfloat16;
 
 constexpr int kThreads = 256;
 constexpr int kTM = 4;  // rows of one thread item
 constexpr int kTN = 8;  // columns of one thread item: two runs of 4, cols/2 apart
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+// Four consecutive operand elements: a float4, or four bf16 in 8 bytes.
+struct __align__(8) bf16x4 {
+  bf16 v[4];
+};
+template <class T>
+struct Quad;
+template <>
+struct Quad<float> {
+  using type = float4;
+};
+template <>
+struct Quad<bf16> {
+  using type = bf16x4;
+};
+template <class T>
+using quad_t = typename Quad<T>::type;
+
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+__device__ __forceinline__ float elem(const float4& q, int j) {
+  return j == 0 ? q.x : j == 1 ? q.y : j == 2 ? q.z : q.w;
+}
+__device__ __forceinline__ bf16 elem(const bf16x4& q, int j) { return q.v[j]; }
+
+// Four elements of shared memory, as floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const bf16x4 q = *reinterpret_cast<const bf16x4*>(p);
+  return make_float4(__bfloat162float(q.v[0]), __bfloat162float(q.v[1]),
+                     __bfloat162float(q.v[2]), __bfloat162float(q.v[3]));
+}
+// Four elements of device memory through the read-only path.
+__device__ __forceinline__ float4 ldg4(const float* p) {
+  return __ldg(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ bf16x4 ldg4(const bf16* p) {
+  union {
+    uint2 u;
+    bf16x4 q;
+  } r;
+  r.u = __ldg(reinterpret_cast<const uint2*>(p));
+  return r.q;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
+// Four elements from device to shared memory.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void cp_async_quad(bf16* dst, const bf16* src) {
+  cp_async8(dst, src);
+}
+// One element from device to shared memory (a plain copy for bf16).
+__device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) { *dst = *src; }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -132,37 +208,47 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// The operand region of a kernel's shared memory after `f32_floats` floats
+// of f32 accumulators.
+template <class T>
+__device__ __forceinline__ T* after_f32(unsigned char* smem, size_t f32_floats) {
+  return reinterpret_cast<T*>(smem + sizeof(float) * f32_floats);
+}
+
 // src[r0:r0+rows, c0:c0+cols] of a row-major matrix with row length ld
-// -> dst[rows][cols], 16 bytes per copy.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int ld, int r0, int c0, int rows, int cols) {
+// -> dst[rows][cols], four elements per copy.
+template <class T>
+__device__ __forceinline__ void stage(T* dst, const T* __restrict__ src, int ld, int r0,
+                                      int c0, int rows, int cols) {
   const int q = cols / 4;
   for (int e = threadIdx.x; e < rows * q; e += kThreads) {
     const int r = e / q, c = (e % q) * 4;
-    cp_async16(dst + r * cols + c, src + (size_t)(r0 + r) * ld + c0 + c);
+    cp_async_quad(dst + r * cols + c, src + (size_t)(r0 + r) * ld + c0 + c);
   }
 }
 
 // W[k0:k0+bk, n0:n0+bn] (row length N) -> dst[bn][bk], transposed.  Eight
-// neighbouring threads read one 32-byte run of a W row.
-__device__ __forceinline__ void stage_t(float* dst, const float* __restrict__ W,
-                                        int N, int k0, int n0, int bk, int bn) {
+// neighbouring threads read one run of eight elements of a W row.
+template <class T>
+__device__ __forceinline__ void stage_t(T* dst, const T* __restrict__ W, int N, int k0,
+                                        int n0, int bk, int bn) {
   for (int e = threadIdx.x; e < bk * bn; e += kThreads) {
     const int c = (e / (8 * bk)) * 8 + e % 8, r = (e / 8) % bk;
-    cp_async4(dst + c * bk + r, W + (size_t)(k0 + r) * N + n0 + c);
+    copy1(dst + c * bk + r, W + (size_t)(k0 + r) * N + n0 + c);
   }
 }
 
 // acc[rows][ldc] += A . B with A(i, kk) = a[i*a_rs + kk*a_ks] and
 // B(kk, j) = b[kk*ldb + j]; rows a multiple of 4, cols of 8.
-__device__ __forceinline__ void mma_tile(float* acc, int ldc, const float* a,
-                                         int a_rs, int a_ks, const float* b,
-                                         int ldb, int rows, int cols, int depth) {
+template <class T>
+__device__ __forceinline__ void mma_tile(float* acc, int ldc, const T* a, int a_rs,
+                                         int a_ks, const T* b, int ldb, int rows, int cols,
+                                         int depth) {
   const int half = cols / 2, groups = cols / kTN, items = (rows / kTM) * groups;
   for (int it = threadIdx.x; it < items; it += kThreads) {
     const int mi = it / groups, nj = it % groups;
-    const float* ar = a + mi * kTM * a_rs;
-    const float* bc = b + nj * 4;
+    const T* ar = a + mi * kTM * a_rs;
+    const T* bc = b + nj * 4;
     float r[kTM][kTN];
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
@@ -170,11 +256,11 @@ __device__ __forceinline__ void mma_tile(float* acc, int ldc, const float* a,
       for (int j = 0; j < kTN; ++j) r[i][j] = 0.f;
 #pragma unroll 4
     for (int kk = 0; kk < depth; ++kk) {
-      const float4 b0 = *reinterpret_cast<const float4*>(bc + kk * ldb);
-      const float4 b1 = *reinterpret_cast<const float4*>(bc + kk * ldb + half);
+      const float4 b0 = ld4(bc + kk * ldb);
+      const float4 b1 = ld4(bc + kk * ldb + half);
 #pragma unroll
       for (int i = 0; i < kTM; ++i) {
-        const float av = ar[i * a_rs + kk * a_ks];
+        const float av = to_f32(ar[i * a_rs + kk * a_ks]);
         r[i][0] = fmaf(av, b0.x, r[i][0]);
         r[i][1] = fmaf(av, b0.y, r[i][1]);
         r[i][2] = fmaf(av, b0.z, r[i][2]);
@@ -217,14 +303,14 @@ __device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int
   *t1 = (int)((long long)(blockIdx.z + 1) * n_steps / split);
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    mm_nt_kernel(const float* __restrict__ G, const float* __restrict__ W,
-                 float* __restrict__ DX, int M, int N, int K, int bm, int bn, int bk,
-                 int split) {
-  extern __shared__ __align__(16) float smem[];
-  float* acc = smem;             // [bm][bk]
-  float* gs = acc + bm * bk;     // 2 stages of [bm][bn]
-  float* ws = gs + 2 * bm * bn;  // 2 stages of [bn][bk] (W tile transposed)
+    mm_nt_kernel(const T* __restrict__ G, const T* __restrict__ W, float* __restrict__ DX,
+                 int M, int N, int K, int bm, int bn, int bk, int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [bm][bk]
+  T* gs = after_f32<T>(smem_raw, (size_t)bm * bk);  // 2 stages of [bm][bn]
+  T* ws = gs + 2 * bm * bn;                         // 2 stages of [bn][bk] (W transposed)
   const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
   int t0, t1;
   split_share(N / bn, split, &t0, &t1);
@@ -257,34 +343,32 @@ constexpr int kNtBM = 64, kNtBN = 32, kNtBK = 128;
 
 __device__ __forceinline__ int nt_swz(int n) { return ((n >> 2) & 7) << 2; }
 
-// Loader rows lr, lr+32, ... (R of them) of a tile, float4 column lc (n =
-// lc*4..+3), transposed into dst[n][row ^ nt_swz(n)] (row length ld): the
-// 32 scalar stores of a warp land in 32 distinct banks.
-template <int R>
-__device__ __forceinline__ void store_swz(float* dst, int ld, const float4 (&v)[R], int lr,
-                                          int lc) {
+// Loader rows lr, lr+32, ... (R of them) of a tile, four-element column lc
+// (n = lc*4..+3), transposed into dst[n][row ^ nt_swz(n)] (row length ld):
+// the 32 scalar stores of a warp land in 32 distinct banks (at f32).
+template <int R, class T, class Q>
+__device__ __forceinline__ void store_swz(T* dst, int ld, const Q (&v)[R], int lr, int lc) {
   const int sw = lc << 2;  // nt_swz(n) for n = lc*4 + j
 #pragma unroll
   for (int i = 0; i < R; ++i) {
     const int c = (lr + 32 * i) ^ sw;
-    dst[(lc * 4 + 0) * ld + c] = v[i].x;
-    dst[(lc * 4 + 1) * ld + c] = v[i].y;
-    dst[(lc * 4 + 2) * ld + c] = v[i].z;
-    dst[(lc * 4 + 3) * ld + c] = v[i].w;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) dst[(lc * 4 + j) * ld + c] = elem(v[i], j);
   }
 }
 
 // r += dY tile . W tile^T over one bn step, for the 4 x 8 dX item (rows
 // mi*4..+3, cols kj*4.., 64+kj*4..): g the swizzled [bn][bm] dY tile, w the
 // swizzled [bn][bk] W tile.
-__device__ __forceinline__ void nt_tile_fma(float (&r)[4][8], const float* g, const float* w,
-                                            int mi, int kj) {
+template <class T>
+__device__ __forceinline__ void nt_tile_fma(float (&r)[4][8], const T* g, const T* w, int mi,
+                                            int kj) {
 #pragma unroll
   for (int kk = 0; kk < kNtBN; ++kk) {
     const int sw = nt_swz(kk);
-    const float4 a = *reinterpret_cast<const float4*>(g + kk * kNtBM + ((mi * 4) ^ sw));
-    const float4 b0 = *reinterpret_cast<const float4*>(w + kk * kNtBK + ((kj * 4) ^ sw));
-    const float4 b1 = *reinterpret_cast<const float4*>(w + kk * kNtBK + 64 + ((kj * 4) ^ sw));
+    const float4 a = ld4(g + kk * kNtBM + ((mi * 4) ^ sw));
+    const float4 b0 = ld4(w + kk * kNtBK + ((kj * 4) ^ sw));
+    const float4 b1 = ld4(w + kk * kNtBK + 64 + ((kj * 4) ^ sw));
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -317,13 +401,14 @@ __device__ __forceinline__ void nt_rows_out(float* __restrict__ out, int K, int 
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    mm_nt_reg_kernel(const float* __restrict__ G, const float* __restrict__ W,
+    mm_nt_reg_kernel(const T* __restrict__ G, const T* __restrict__ W,
                      float* __restrict__ DX, int M, int N, int K, int split) {
-  extern __shared__ __align__(16) float smem[];
-  float* acc_s = smem;                       // [bm][bk], the epilogue's
-  float* gs = acc_s + kNtBM * kNtBK;         // 2 stages of [bn][bm], swizzled
-  float* ws = gs + 2 * kNtBN * kNtBM;        // 2 stages of [bn][bk], swizzled
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc_s = reinterpret_cast<float*>(smem_raw);      // [bm][bk], the epilogue's
+  T* gs = after_f32<T>(smem_raw, (size_t)kNtBM * kNtBK);  // 2 stages of [bn][bm], swizzled
+  T* ws = gs + 2 * kNtBN * kNtBM;                         // 2 stages of [bn][bk], swizzled
   const int k0 = blockIdx.x * kNtBK, m0 = blockIdx.y * kNtBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: rows mi*4..+3
@@ -331,19 +416,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   int t0, t1;
   split_share(N / kNtBN, split, &t0, &t1);
 
-  // Loader roles: row tid/8 (+32 per round) of a tile, float4 column tid%8.
+  // Loader roles: row tid/8 (+32 per round) of a tile, four-element column tid%8.
   const int lr = tid >> 3, lc = tid & 7;
-  const float* gsrc = G + (size_t)(m0 + lr) * N + lc * 4;
-  const float* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
-  float4 rg[2], rw[4];
+  const T* gsrc = G + (size_t)(m0 + lr) * N + lc * 4;
+  const T* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  quad_t<T> rg[2], rw[4];
   auto load = [&](int t) {
     const int n0 = t * kNtBN;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      rg[i] = __ldg(reinterpret_cast<const float4*>(gsrc + (size_t)i * 32 * N + n0));
+    for (int i = 0; i < 2; ++i) rg[i] = ldg4(gsrc + (size_t)i * 32 * N + n0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      rw[i] = __ldg(reinterpret_cast<const float4*>(wsrc + (size_t)i * 32 * N + n0));
+    for (int i = 0; i < 4; ++i) rw[i] = ldg4(wsrc + (size_t)i * 32 * N + n0);
   };
   auto store = [&](int s) {
     store_swz(gs + s * kNtBN * kNtBM, kNtBM, rg, lr, lc);
@@ -391,14 +474,14 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    mm_tn_kernel(const float* __restrict__ X, const float* __restrict__ G,
-                 float* __restrict__ DW, int M, int N, int K, int bm, int bn,
-                 int bk, int split) {
-  extern __shared__ __align__(16) float smem[];
-  float* acc = smem;             // [bk][bn]
-  float* xs = acc + bk * bn;     // 2 stages of [bm][bk]
-  float* gs = xs + 2 * bm * bk;  // 2 stages of [bm][bn]
+    mm_tn_kernel(const T* __restrict__ X, const T* __restrict__ G, float* __restrict__ DW,
+                 int M, int N, int K, int bm, int bn, int bk, int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* acc = reinterpret_cast<float*>(smem_raw);  // [bk][bn]
+  T* xs = after_f32<T>(smem_raw, (size_t)bk * bn);  // 2 stages of [bm][bk]
+  T* gs = xs + 2 * bm * bk;                         // 2 stages of [bm][bn]
   const int n0 = blockIdx.x * bn, k0 = blockIdx.y * bk;
   int t0, t1;
   split_share(M / bm, split, &t0, &t1);
@@ -430,10 +513,12 @@ __global__ void __launch_bounds__(kThreads)
 constexpr int kTnBM = 32, kTnBK = 64, kTnBN = 128, kTnStages = 3;
 constexpr int kTnXs = kTnBM * kTnBK, kTnStage = kTnXs + kTnBM * kTnBN;
 
+template <class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    mm_tn_reg_kernel(const float* __restrict__ X, const float* __restrict__ G,
+    mm_tn_reg_kernel(const T* __restrict__ X, const T* __restrict__ G,
                      float* __restrict__ DW, int M, int N, int K, int split) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   // Stage s: xs[bm][bk] at smem + s*kTnStage, gs[bm][bn] after it.
   const int n0 = blockIdx.x * kTnBN, k0 = blockIdx.y * kTnBK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -444,18 +529,18 @@ __global__ void __launch_bounds__(kThreads, 2)
   const int n_t = t1 - t0;
 
   auto stage_tn = [&](int t, int s) {
-    float* xs = smem + s * kTnStage;
-    float* gs = xs + kTnXs;
+    T* xs = smem + s * kTnStage;
+    T* gs = xs + kTnXs;
     const size_t m0 = (size_t)t * kTnBM;
 #pragma unroll
     for (int i = 0; i < kTnXs / 4 / kThreads; ++i) {
       const int e = tid + i * kThreads, r = e >> 4, c4 = e & 15;
-      cp_async16(xs + r * kTnBK + c4 * 4, X + (m0 + r) * K + k0 + c4 * 4);
+      cp_async_quad(xs + r * kTnBK + c4 * 4, X + (m0 + r) * K + k0 + c4 * 4);
     }
 #pragma unroll
     for (int i = 0; i < kTnBM * kTnBN / 4 / kThreads; ++i) {
       const int e = tid + i * kThreads, r = e >> 5, c4 = e & 31;
-      cp_async16(gs + r * kTnBN + c4 * 4, G + (m0 + r) * N + n0 + c4 * 4);
+      cp_async_quad(gs + r * kTnBN + c4 * 4, G + (m0 + r) * N + n0 + c4 * 4);
     }
   };
 
@@ -476,13 +561,13 @@ __global__ void __launch_bounds__(kThreads, 2)
     const int s1 = s + 1 == kTnStages ? 0 : s + 1, s2 = s1 + 1 == kTnStages ? 0 : s1 + 1;
     if (i + 2 < n_t) stage_tn(t0 + i + 2, s2);
     cp_async_commit();
-    const float* xs = smem + s * kTnStage;
-    const float* gs = xs + kTnXs;
+    const T* xs = smem + s * kTnStage;
+    const T* gs = xs + kTnXs;
 #pragma unroll
     for (int mm = 0; mm < kTnBM; ++mm) {
-      const float4 a = *reinterpret_cast<const float4*>(xs + mm * kTnBK + mi * 4);
-      const float4 b0 = *reinterpret_cast<const float4*>(gs + mm * kTnBN + kj * 4);
-      const float4 b1 = *reinterpret_cast<const float4*>(gs + mm * kTnBN + 64 + kj * 4);
+      const float4 a = ld4(xs + mm * kTnBK + mi * 4);
+      const float4 b0 = ld4(gs + mm * kTnBN + kj * 4);
+      const float4 b1 = ld4(gs + mm * kTnBN + 64 + kj * 4);
       const float av[4] = {a.x, a.y, a.z, a.w};
       const float bv[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
 #pragma unroll
@@ -498,7 +583,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // Registers -> the first bk*bn floats -> 16-byte stores of the dW tile
   // (or of this part's slab).
-  float* acc = smem;
+  float* acc = reinterpret_cast<float*>(smem_raw);
 #pragma unroll
   for (int i = 0; i < 4; ++i) {
     float* row = acc + (mi * 4 + i) * kTnBN;
@@ -515,17 +600,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    mm_dxdw_kernel(const float* __restrict__ G, const float* __restrict__ W,
-                   const float* __restrict__ X, float* __restrict__ DX,
-                   float* __restrict__ DW, int M, int N, int K, int bm, int bn,
-                   int bk, int split) {
-  extern __shared__ __align__(16) float smem[];
-  float* dxs = smem;                     // [M][bk] whole-M dX strip
-  float* dws = dxs + M * bk;             // [bk][bn] dW tile
-  float* gs = dws + bk * bn;             // 2 stages of [bm][bn]
-  float* ws = gs + 2 * bm * bn;          // 2 stages of [bn][bk] (W transposed)
-  float* xs = ws + 2 * bn * bk;          // 2 stages of [bm][bk]
+    mm_dxdw_kernel(const T* __restrict__ G, const T* __restrict__ W, const T* __restrict__ X,
+                   float* __restrict__ DX, float* __restrict__ DW, int M, int N, int K,
+                   int bm, int bn, int bk, int split) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* dxs = reinterpret_cast<float*>(smem_raw);           // [M][bk] whole-M dX strip
+  float* dws = dxs + M * bk;                                 // [bk][bn] dW tile
+  T* gs = after_f32<T>(smem_raw, (size_t)M * bk + bk * bn);  // 2 stages of [bm][bn]
+  T* ws = gs + 2 * bm * bn;                                  // 2 stages of [bn][bk] (W^T)
+  T* xs = ws + 2 * bn * bk;                                  // 2 stages of [bm][bk]
   const int k0 = blockIdx.x * bk, n_m = M / bm;
   int t0, t1;  // this part's n-blocks; its steps run [t0*n_m, t1*n_m)
   split_share(N / bn, split, &t0, &t1);
@@ -552,7 +637,7 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* gt = gs + s * bm * bn;
+    const T* gt = gs + s * bm * bn;
     // dX rows of this m-block += dY tile . W tile^T (contract N) ...
     mma_tile(dxs + mb * bm * bk, bk, gt, bn, 1, ws + s * bn * bk, bk, bm, bk, bn);
     // ... and dW tile += X tile^T . the same dY tile (contract M).
@@ -572,12 +657,13 @@ __global__ void __launch_bounds__(kThreads)
 
 // r += the X strip's m-block x[bm][bk]^T . the dY tile g[bm][bn] for the
 // 4 x 4 dW item (rows ki*4..+3, cols nj*4..+3).
-__device__ __forceinline__ void tn_tile_fma(float (&r)[4][4], const float* x, const float* g,
-                                            int ki, int nj) {
+template <class T>
+__device__ __forceinline__ void tn_tile_fma(float (&r)[4][4], const T* x, const T* g, int ki,
+                                            int nj) {
 #pragma unroll
   for (int mm = 0; mm < kNtBM; ++mm) {
-    const float4 a = *reinterpret_cast<const float4*>(x + mm * kNtBK + ki * 4);
-    const float4 b = *reinterpret_cast<const float4*>(g + mm * kNtBN + nj * 4);
+    const float4 a = ld4(x + mm * kNtBK + ki * 4);
+    const float4 b = ld4(g + mm * kNtBN + nj * 4);
     const float av[4] = {a.x, a.y, a.z, a.w};
     const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
@@ -589,18 +675,21 @@ __device__ __forceinline__ void tn_tile_fma(float (&r)[4][4], const float* x, co
 
 // The fused kernel at the planner's tile (NT's) with NM m-blocks: see the
 // header.
-template <int NM>
+template <int NM, class T>
 __global__ void __launch_bounds__(kThreads, 1)
-    mm_dxdw_reg_kernel(const float* __restrict__ G, const float* __restrict__ W,
-                       const float* __restrict__ X, float* __restrict__ DX,
+    mm_dxdw_reg_kernel(const T* __restrict__ G, const T* __restrict__ W,
+                       const T* __restrict__ X, float* __restrict__ DX,
                        float* __restrict__ DW, int N, int K, int split) {
   constexpr int M = NM * kNtBM;
-  constexpr int kG = kNtBM * kNtBN, kW = kNtBN * kNtBK;  // floats of a dY, W tile
-  extern __shared__ __align__(16) float smem[];
-  float* xs = smem;                 // [M][bk]: the X strip, then the dX epilogue
-  float* gts = xs + M * kNtBK;      // 2 stages of [bn][bm], swizzled (for dX)
-  float* gs = gts + 2 * kG;         // 2 stages of [bm][bn] as it lies (for dW)
-  float* ws = gs + 2 * kG;          // 2 stages of [bn][bk], swizzled
+  constexpr int kG = kNtBM * kNtBN, kW = kNtBN * kNtBK;  // elements of a dY, W tile
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  // The charged f32 dX strip's room [M][bk]: the X strip (in T) until the
+  // last step, then the dX epilogue (f32).
+  T* xs = reinterpret_cast<T*>(smem_raw);
+  float* dx_out = reinterpret_cast<float*>(smem_raw);
+  T* gts = after_f32<T>(smem_raw, (size_t)M * kNtBK);  // 2 stages of [bn][bm], swizzled (dX)
+  T* gs = gts + 2 * kG;                                // 2 stages of [bm][bn] as it lies (dW)
+  T* ws = gs + 2 * kG;                                 // 2 stages of [bn][bk], swizzled
   const int k0 = blockIdx.x * kNtBK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = (warp >> 1) * 4 + (lane >> 3);  // dX rows mi*4..+3 of each m-block
@@ -612,31 +701,29 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   for (int e = tid; e < M * kNtBK / 4; e += kThreads) {
     const int r = e / (kNtBK / 4), c4 = e % (kNtBK / 4);
-    cp_async16(xs + r * kNtBK + c4 * 4, X + (size_t)r * K + k0 + c4 * 4);
+    cp_async_quad(xs + r * kNtBK + c4 * 4, X + (size_t)r * K + k0 + c4 * 4);
   }
   cp_async_commit();
 
-  // Loader roles: row tid/8 (+32 per round) of a tile, float4 column tid%8.
+  // Loader roles: row tid/8 (+32 per round) of a tile, four-element column tid%8.
   const int lr = tid >> 3, lc = tid & 7;
-  const float* gsrc = G + (size_t)lr * N + lc * 4;
-  const float* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
-  float4 rg[2], rw[4];
+  const T* gsrc = G + (size_t)lr * N + lc * 4;
+  const T* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  quad_t<T> rg[2], rw[4];
   auto load_g = [&](int nb, int mb) {
-    const float* p = gsrc + (size_t)mb * kNtBM * N + nb * kNtBN;
+    const T* p = gsrc + (size_t)mb * kNtBM * N + nb * kNtBN;
 #pragma unroll
-    for (int i = 0; i < 2; ++i)
-      rg[i] = __ldg(reinterpret_cast<const float4*>(p + (size_t)i * 32 * N));
+    for (int i = 0; i < 2; ++i) rg[i] = ldg4(p + (size_t)i * 32 * N);
   };
   auto load_w = [&](int nb) {
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
-      rw[i] = __ldg(reinterpret_cast<const float4*>(wsrc + (size_t)i * 32 * N + nb * kNtBN));
+    for (int i = 0; i < 4; ++i) rw[i] = ldg4(wsrc + (size_t)i * 32 * N + nb * kNtBN);
   };
   auto store_g = [&](int s) {  // the dY tile both ways
     store_swz(gts + s * kG, kNtBM, rg, lr, lc);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<float4*>(gs + s * kG + (lr + 32 * i) * kNtBN + lc * 4) = rg[i];
+      *reinterpret_cast<quad_t<T>*>(gs + s * kG + (lr + 32 * i) * kNtBN + lc * 4) = rg[i];
   };
 
   float acc[NM][4][8];
@@ -656,7 +743,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
   __syncthreads();
   for (int nb = t0; nb < t1; ++nb) {
-    const float* w = ws + ((nb - t0) & 1) * kW;
+    const T* w = ws + ((nb - t0) & 1) * kW;
     float dw[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -681,13 +768,13 @@ __global__ void __launch_bounds__(kThreads, 1)
           make_float4(dw[i][0], dw[i][1], dw[i][2], dw[i][3]);
   }
 
-  // Registers -> the X strip's region -> 16-byte stores of the dX strip
-  // (or of this part's slab).  The last step's barrier ended every read of
-  // the X strip.
+  // Registers -> the X strip's room -> 16-byte stores of the dX strip (or
+  // of this part's slab).  The last step's barrier ended every read of the
+  // X strip.
 #pragma unroll
-  for (int b = 0; b < NM; ++b) nt_item_out(xs + b * kNtBM * kNtBK, acc[b], mi, kj);
+  for (int b = 0; b < NM; ++b) nt_item_out(dx_out + b * kNtBM * kNtBK, acc[b], mi, kj);
   __syncthreads();
-  nt_rows_out(DX + (size_t)blockIdx.z * M * K, K, 0, k0, xs, M);
+  nt_rows_out(DX + (size_t)blockIdx.z * M * K, K, 0, k0, dx_out, M);
 }
 
 
@@ -706,44 +793,35 @@ cudaError_t reduce_slabs(const float* part, float* out, size_t n, int split,
   return cudaGetLastError();
 }
 
-template <int NM>
-cudaError_t launch_dxdw_reg(dim3 grid, size_t smem, cudaStream_t st, const float* G,
-                            const float* W, const float* X, float* DX, float* DW, int N,
-                            int K, int split) {
-  cudaError_t err = set_smem((const void*)mm_dxdw_reg_kernel<NM>, smem);
+template <int NM, class T>
+cudaError_t launch_dxdw_reg(dim3 grid, size_t smem, cudaStream_t st, const T* G,
+                            const T* W, const T* X, float* DX, float* DW, int N, int K,
+                            int split) {
+  cudaError_t err = set_smem((const void*)mm_dxdw_reg_kernel<NM, T>, smem);
   if (err != cudaSuccess) return err;
-  mm_dxdw_reg_kernel<NM><<<grid, kThreads, smem, st>>>(G, W, X, DX, DW, N, K, split);
+  mm_dxdw_reg_kernel<NM, T><<<grid, kThreads, smem, st>>>(G, W, X, DX, DW, N, K, split);
   return cudaGetLastError();
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* repro_error_string(int err) {
-  return cudaGetErrorString(static_cast<cudaError_t>(err));
-}
-
-// Each entry point launches on `stream` and returns cudaGetLastError()
-// (0 on success).
-
 // NT: grid (K/bk, M/bm, split); with split > 1 `part` holds split slabs of
 // M*K floats and a second kernel sums them into DX in order.
-int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, int M,
-                        int N, int K, int bm, int bn, int bk, int split, void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)bm * bk + 2 * ((size_t)bm * bn + (size_t)bn * bk));
+template <class T>
+int launch_nt(const T* G, const T* W, float* DX, float* part, int M, int N, int K, int bm,
+              int bn, int bk, int split, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)bm * bk +
+                      2 * sizeof(T) * ((size_t)bm * bn + (size_t)bn * bk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(K / bk, M / bm, split);
   float* dst = split > 1 ? part : DX;
   cudaError_t err;
   if (bm == kNtBM && bn == kNtBN && bk == kNtBK) {
-    err = set_smem((const void*)mm_nt_reg_kernel, smem);
+    err = set_smem((const void*)mm_nt_reg_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_nt_reg_kernel<<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
+    mm_nt_reg_kernel<T><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
   } else {
-    err = set_smem((const void*)mm_nt_kernel, smem);
+    err = set_smem((const void*)mm_nt_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_nt_kernel<<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, bm, bn, bk, split);
+    mm_nt_kernel<T><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, bm, bn, bk, split);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
@@ -754,25 +832,27 @@ int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, 
 // K*N floats and a second kernel sums them into DW in order.  `reg` (from
 // bwd.py::tn_template) selects mm_tn_reg_kernel, which takes only its own
 // tile, 0 the simple kernel.
-int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, int M,
-                        int N, int K, int bm, int bn, int bk, int split, int reg,
-                        void* stream) {
-  const size_t smem = sizeof(float) * ((size_t)bk * bn + 2 * ((size_t)bm * bk + (size_t)bm * bn));
+template <class T>
+int launch_tn(const T* X, const T* G, float* DW, float* part, int M, int N, int K, int bm,
+              int bn, int bk, int split, int reg, void* stream) {
+  const size_t smem = sizeof(float) * (size_t)bk * bn +
+                      2 * sizeof(T) * ((size_t)bm * bk + (size_t)bm * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(N / bn, K / bk, split);
   float* dst = split > 1 ? part : DW;
   cudaError_t err;
   if (reg) {
     if (bm != kTnBM || bn != kTnBN || bk != kTnBK) return (int)cudaErrorInvalidValue;
-    static_assert(kTnStages * kTnStage <= kTnBK * kTnBN + 2 * kTnStage,
+    static_assert(kTnStages * kTnStage * sizeof(T) <=
+                      sizeof(float) * kTnBK * kTnBN + 2 * kTnStage * sizeof(T),
                   "the ring must fit the charged allocation");
-    err = set_smem((const void*)mm_tn_reg_kernel, smem);
+    err = set_smem((const void*)mm_tn_reg_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_tn_reg_kernel<<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, split);
+    mm_tn_reg_kernel<T><<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, split);
   } else {
-    err = set_smem((const void*)mm_tn_kernel, smem);
+    err = set_smem((const void*)mm_tn_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_tn_kernel<<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, bm, bn, bk, split);
+    mm_tn_kernel<T><<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, bm, bn, bk, split);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
@@ -784,34 +864,80 @@ int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, 
 // slabs of M*K floats), which a second kernel sums into DX in order.
 // `reg` (from bwd.py::dxdw_template) selects mm_dxdw_reg_kernel, which
 // takes only its own tile and one to three m-blocks, 0 the simple kernel.
-int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,
-                          float* DW, float* part, int M, int N, int K, int bm, int bn,
-                          int bk, int split, int reg, void* stream) {
-  const size_t smem = sizeof(float) * (2 * ((size_t)bm * bn + (size_t)bk * bn + (size_t)bm * bk) +
-                                       (size_t)M * bk + (size_t)bk * bn);
+template <class T>
+int launch_dxdw(const T* G, const T* W, const T* X, float* DX, float* DW, float* part,
+                int M, int N, int K, int bm, int bn, int bk, int split, int reg,
+                void* stream) {
+  const size_t smem =
+      2 * sizeof(T) * ((size_t)bm * bn + (size_t)bk * bn + (size_t)bm * bk) +
+      sizeof(float) * ((size_t)M * bk + (size_t)bk * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(K / bk, 1, split);
   float* dst = split > 1 ? part : DX;
   cudaError_t err;
   if (reg) {
     if (bm != kNtBM || bn != kNtBN || bk != kNtBK || M % kNtBM) return (int)cudaErrorInvalidValue;
-    static_assert(4 * kNtBM * kNtBN + 2 * kNtBN * kNtBK <=
-                      2 * (kNtBM * kNtBN + kNtBK * kNtBN + kNtBM * kNtBK) + kNtBK * kNtBN,
+    static_assert((4 * kNtBM * kNtBN + 2 * kNtBN * kNtBK) * sizeof(T) <=
+                      2 * sizeof(T) * (kNtBM * kNtBN + kNtBK * kNtBN + kNtBM * kNtBK) +
+                          sizeof(float) * kNtBK * kNtBN,
                   "the dY and W stages must fit the charged allocation beside the X strip");
     switch (M / kNtBM) {
-      case 1: err = launch_dxdw_reg<1>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
-      case 2: err = launch_dxdw_reg<2>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
-      case 3: err = launch_dxdw_reg<3>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      case 1: err = launch_dxdw_reg<1, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      case 2: err = launch_dxdw_reg<2, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
+      case 3: err = launch_dxdw_reg<3, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
       default: return (int)cudaErrorInvalidValue;
     }
   } else {
-    err = set_smem((const void*)mm_dxdw_kernel, smem);
+    err = set_smem((const void*)mm_dxdw_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_dxdw_kernel<<<grid, kThreads, smem, st>>>(G, W, X, dst, DW, M, N, K, bm, bn, bk, split);
+    mm_dxdw_kernel<T><<<grid, kThreads, smem, st>>>(G, W, X, dst, DW, M, N, K, bm, bn, bk,
+                                                    split);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess || split == 1) return (int)err;
   return (int)reduce_slabs(part, DX, (size_t)M * K, split, st);
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* repro_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+// Each entry point launches on `stream` and returns cudaGetLastError()
+// (0 on success); the _bf16 ones take bf16 operands and write f32 outputs.
+
+int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, int M,
+                        int N, int K, int bm, int bn, int bk, int split, void* stream) {
+  return launch_nt<float>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
+}
+int repro_matmul_nt_bf16(const bf16* G, const bf16* W, float* DX, float* part, int M,
+                         int N, int K, int bm, int bn, int bk, int split, void* stream) {
+  return launch_nt<bf16>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
+}
+
+int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, int M,
+                        int N, int K, int bm, int bn, int bk, int split, int reg,
+                        void* stream) {
+  return launch_tn<float>(X, G, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+int repro_matmul_tn_bf16(const bf16* X, const bf16* G, float* DW, float* part, int M,
+                         int N, int K, int bm, int bn, int bk, int split, int reg,
+                         void* stream) {
+  return launch_tn<bf16>(X, G, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+
+int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,
+                          float* DW, float* part, int M, int N, int K, int bm, int bn,
+                          int bk, int split, int reg, void* stream) {
+  return launch_dxdw<float>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+int repro_matmul_dxdw_bf16(const bf16* G, const bf16* W, const bf16* X, float* DX,
+                           float* DW, float* part, int M, int N, int K, int bm, int bn,
+                           int bk, int split, int reg, void* stream) {
+  return launch_dxdw<bf16>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
 }
 
 }  // extern "C"

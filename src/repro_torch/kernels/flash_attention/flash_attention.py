@@ -12,6 +12,13 @@ the sequences padded to the blocks (``ops.flash_attention`` does both).
 ``q_off`` is the position of the first query row (a rank's slice of a
 sequence-parallel query sequence): row ``i`` sits at ``q_off + i`` for the
 causal and window masks and for the block skips.
+
+q, k and v are all f32 or all bf16 (``repro_flash_attention_f32`` /
+``_bf16``): the scores, softmax statistics, probabilities and accumulator
+are f32 and the output takes q's dtype, as ``_fa_kernel`` upcasts q/k/v
+and writes ``q.dtype``.  The bf16 route is built for the head dims of
+:data:`MAX_BLOCKS_BF16`, at the blocks ``AttentionPlanner`` picks on the
+H100 at two bytes an element.
 """
 
 from __future__ import annotations
@@ -22,32 +29,44 @@ import numpy as np
 import torch
 
 from repro_torch.core.machine import H100
-from repro_torch.plan.registry import CudaKernel
+from repro_torch.plan.registry import CudaKernel, one_dtype
 
 # Head dims the kernel is built for, and each one's largest (block_q, block_kv):
 # the blocks AttentionPlanner picks on the H100 at each.
 MAX_BLOCKS = {32: (128, 128), 64: (128, 128), 128: (64, 64), 256: (32, 32)}
+# The same for bf16 operands (the planner's picks at in_bytes=2).
+MAX_BLOCKS_BF16 = {64: (128, 128)}
 MAX_GRID_Y = 65535  # Sq / block_q rides the grid's y axis
 _NEG = -1e30
 
 
-def smem_bytes(block_q: int, block_kv: int, head_dim: int) -> int:
-    """Shared memory one block allocates: the q tile, two stages of the K
-    and V tiles, the probability tile in 2*block_q*D floats and each row's
-    (m, l) (== AttentionPlanner's H100 budget term for f32)."""
-    return 4 * (3 * block_q * head_dim + 4 * block_kv * head_dim + 2 * block_q)
+def smem_bytes(block_q: int, block_kv: int, head_dim: int, in_bytes: int = 4) -> int:
+    """Shared memory one block allocates (== AttentionPlanner's H100 budget
+    term at ``in_bytes``): the q tile and two stages of the K and V tiles
+    at ``in_bytes`` an element, the f32 probability tile in the room of
+    the planner's second q stage and f32 accumulator, each row's (m, l)."""
+    return (2 * in_bytes * (block_q * head_dim + 2 * block_kv * head_dim)
+            + 4 * block_q * head_dim + 8 * block_q)
 
 
-def supported_blocks(block_q: int, block_kv: int, head_dim: int) -> bool:
-    """The blocks the kernel takes: D in :data:`MAX_BLOCKS`, blocks
-    multiples of 8 up to the instantiation's maxima, within one block's
-    shared memory."""
-    if head_dim not in MAX_BLOCKS:
+def max_blocks(dtype: torch.dtype) -> dict:
+    """Head dim -> the largest (block_q, block_kv) built for ``dtype``."""
+    return MAX_BLOCKS_BF16 if dtype == torch.bfloat16 else MAX_BLOCKS
+
+
+def supported_blocks(block_q: int, block_kv: int, head_dim: int,
+                     dtype: torch.dtype = torch.float32) -> bool:
+    """The blocks the kernel takes for ``dtype`` operands: D in
+    :func:`max_blocks`, blocks multiples of 8 up to the instantiation's
+    maxima, within one block's shared memory."""
+    built = max_blocks(dtype)
+    if head_dim not in built:
         return False
-    mq, mkv = MAX_BLOCKS[head_dim]
+    mq, mkv = built[head_dim]
+    in_bytes = 2 if dtype == torch.bfloat16 else 4
     return (8 <= block_q <= mq and block_q % 8 == 0
             and 8 <= block_kv <= mkv and block_kv % 8 == 0
-            and smem_bytes(block_q, block_kv, head_dim) <= H100.local_mem_bytes)
+            and smem_bytes(block_q, block_kv, head_dim, in_bytes) <= H100.local_mem_bytes)
 
 
 def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len, q_off=0):
@@ -57,6 +76,7 @@ def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len, q_off=0):
     if q.ndim != 3 or k.ndim != 3 or v.shape != k.shape or q.shape[2] != k.shape[2]:
         raise ValueError(f"flash_attention shapes q={tuple(q.shape)} "
                          f"k={tuple(k.shape)} v={tuple(v.shape)}")
+    one_dtype("flash_attention", q=q, k=k, v=v)
     bhq, sq, d = q.shape
     bhkv, skv, _ = k.shape
     if bhq % bhkv:
@@ -79,8 +99,9 @@ def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
                           q_off: int = 0):
     """The kernel's function in plain PyTorch (same contract, same checks):
     dense f32 attention with the padding, causal and window masks, query
-    row ``i`` at position ``q_off + i``; a row with no visible key is 0.
-    On the card it needs TF32 off to be an f32 reference."""
+    row ``i`` at position ``q_off + i``; a row with no visible key is 0;
+    the result rounded once to q's dtype.  On the card it needs TF32 off
+    to be an f32 reference."""
     bhq, bhkv, sq, skv, _ = _check(q, k, v, block_q=block_q, block_kv=block_kv,
                                    window=window, q_len=q_len, kv_len=kv_len, q_off=q_off)
     group = bhq // bhkv
@@ -98,7 +119,8 @@ def flash_attention_plain(q, k, v, *, block_q: int, block_kv: int, scale: float,
     s = s.masked_fill(~mask, _NEG)
     p = torch.exp(s - s.amax(-1, keepdim=True)) * mask
     l = p.sum(-1, keepdim=True)
-    return torch.matmul(p, vv) / torch.where(l == 0, torch.ones_like(l), l)
+    out = torch.matmul(p, vv) / torch.where(l == 0, torch.ones_like(l), l)
+    return out.to(q.dtype)
 
 
 def admitted_pairs(q_len: int, kv_len: int, causal: bool, window: int | None,
@@ -116,43 +138,42 @@ def flash_attention_cost(q, k, v, *, block_q: int, block_kv: int, scale: float,
                          causal: bool, window: int | None, q_len: int, kv_len: int,
                          q_off: int = 0) -> tuple[float, float]:
     """(FLOPs, bytes) of one call: 4·D FLOP (QKᵀ and PV) per admitted (q, k)
-    pair of every query head; the valid rows of Q, K and V read once, the
-    output's written once."""
-    del block_q, block_kv, scale, v
+    pair of every query head; the valid rows of Q, K and V read once and
+    the output's (in q's dtype) written once, each at its element size."""
+    del block_q, block_kv, scale
     bhq, d, bhkv = q.shape[0], q.shape[2], k.shape[0]
     pairs = admitted_pairs(q_len, kv_len, causal, window, q_off)
     return (4.0 * bhq * pairs * d,
-            float(q.element_size() * d * (2 * bhq * q_len + 2 * bhkv * kv_len)))
+            float(d * (2 * q.element_size() * bhq * q_len
+                       + (k.element_size() + v.element_size()) * bhkv * kv_len)))
 
 
 def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: float,
             causal: bool, window: int | None, q_len: int, kv_len: int, q_off: int = 0):
     bhq, bhkv, sq, skv, d = _check(q, k, v, block_q=block_q, block_kv=block_kv,
                                    window=window, q_len=q_len, kv_len=kv_len, q_off=q_off)
-    if d not in MAX_BLOCKS:
+    dtype = kernel.operand_dtype(q=q, k=k, v=v)
+    built = max_blocks(dtype)
+    if d not in built:
         raise ValueError(f"flash_attention kernel takes head_dim in "
-                         f"{sorted(MAX_BLOCKS)}, got {d}")
-    if not supported_blocks(block_q, block_kv, d):
+                         f"{sorted(built)} for {dtype} operands, got {d}")
+    if not supported_blocks(block_q, block_kv, d, dtype):
         raise ValueError(f"flash_attention kernel does not take blocks "
-                         f"(q={block_q}, kv={block_kv}) at head_dim {d}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"flash_attention kernel takes contiguous float32 {name}, "
-                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
-        if t.data_ptr() % 16:
-            raise ValueError(f"flash_attention kernel needs a 16-byte aligned {name}")
+                         f"(q={block_q}, kv={block_kv}) at head_dim {d} ({dtype})")
     if sq // block_q > MAX_GRID_Y:
         raise ValueError(f"flash_attention Sq/block_q = {sq // block_q} exceeds the grid")
     out = torch.empty_like(q)
     kernel.run(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                bhq, bhkv, sq, skv, d, block_q, block_kv, q_len, kv_len, int(causal),
-               -1 if window is None else window, int(q_off), ctypes.c_float(scale))
+               -1 if window is None else window, int(q_off), ctypes.c_float(scale),
+               dtype=dtype)
     return out
 
 
 flash_attention_kernel = CudaKernel(
     "flash_attention", source="flash_attention", symbol="repro_flash_attention_f32",
+    bf16_symbol="repro_flash_attention_bf16",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float,
                                                             ctypes.c_void_p],
     launch=_launch, plain=flash_attention_plain, cost=flash_attention_cost,

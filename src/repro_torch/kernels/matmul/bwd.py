@@ -22,6 +22,11 @@ wrapper and plain PyTorch version:
   tile written by one block and the partial dX strips summed in a fixed
   order.  Replaces ``::_mm_dxdw_kernel``.
 
+Operands are both f32 or both bf16 (a ``_f32`` and a ``_bf16`` C entry
+point per kernel); the accumulators are f32 and dX and dW come out f32,
+as ``repro``'s FC backward asks of its kernels (``out_dtype=f32``, then a
+cast to x's and w's dtypes in ``core/fc_layer.py``).
+
 Two ops sit on the plan layer: ``matmul_dx`` (:class:`MatmulDxPlanner`)
 and ``matmul_dw`` (:class:`MatmulDwPlanner`).  :func:`matmul_dx_dw` is not
 an op of its own: the FC layer dispatches to it off the dX schedule's
@@ -38,15 +43,18 @@ import ctypes
 import torch
 
 from repro_torch.core.machine import H100, MachineModel, h100_split
+from repro_torch.kernels.matmul.matmul import plain_matmul, stage_bytes
 from repro_torch.plan import (
     CudaKernel, MatmulDwPlanner, MatmulDxPlanner, Schedule, cuda_op, pad_dim, round_up,
 )
+from repro_torch.plan.registry import one_dtype
 
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
 TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
 DXDW_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of mm_dxdw_reg_kernel
 DXDW_REGISTER_M_BLOCKS = 3  # the most m-blocks of dX its threads hold
+OUT_DTYPE = torch.float32  # dX and dW, whatever the operands' dtype
 
 
 # -- oracles ---------------------------------------------------------------------
@@ -66,26 +74,29 @@ def matmul_dw_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # -- shared memory and the blocks the kernels take ---------------------------------
 
 
-def smem_bytes_nt(block_m: int, block_n: int, block_k: int) -> int:
-    """dX tile [bm][bk] + two stages of the dY tile [bm][bn] and the
-    transposed W tile [bn][bk] (== MatmulDxPlanner's H100 budget term)."""
-    return 4 * (block_m * block_k + 2 * (block_m * block_n + block_n * block_k))
+def smem_bytes_nt(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> int:
+    """The f32 dX tile [bm][bk] + two stages of the dY tile [bm][bn] and
+    the transposed W tile [bn][bk] at ``in_bytes`` an element (==
+    MatmulDxPlanner's H100 budget term)."""
+    return 4 * block_m * block_k + 2 * in_bytes * (block_m * block_n + block_n * block_k)
 
 
-def smem_bytes_tn(block_m: int, block_n: int, block_k: int) -> int:
-    """dW tile [bk][bn] + two stages of the X tile [bm][bk] and the dY tile
-    [bm][bn] (== MatmulDwPlanner's H100 budget term)."""
-    return 4 * (block_k * block_n + 2 * (block_m * block_k + block_m * block_n))
+def smem_bytes_tn(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> int:
+    """The f32 dW tile [bk][bn] + two stages of the X tile [bm][bk] and the
+    dY tile [bm][bn] at ``in_bytes`` an element (== MatmulDwPlanner's H100
+    budget term)."""
+    return 4 * block_k * block_n + 2 * in_bytes * (block_m * block_k + block_m * block_n)
 
 
-def smem_bytes_dxdw(m: int, block_m: int, block_n: int, block_k: int) -> int:
-    """Two stages of the dY, W and X tiles + the whole-M dX strip [m][bk]
-    + the dW tile [bk][bn] (== the fused_dxdw schedule's H100 budget).
-    Both kernels take exactly this; the register kernel keeps the X strip
-    in the strip's room and the dY tile (both ways) and the W tile in the
-    rest."""
-    return 4 * (2 * (block_m * block_n + block_k * block_n + block_m * block_k)
-                + m * block_k + block_k * block_n)
+def smem_bytes_dxdw(m: int, block_m: int, block_n: int, block_k: int,
+                    in_bytes: int = 4) -> int:
+    """Two stages of the dY, W and X tiles at ``in_bytes`` an element + the
+    whole-M f32 dX strip [m][bk] + the f32 dW tile [bk][bn] (== the
+    fused_dxdw schedule's H100 budget).  Both kernels take exactly this;
+    the register kernel keeps the X strip in the strip's room and the dY
+    tile (both ways) and the W tile in the rest."""
+    return (2 * in_bytes * (block_m * block_n + block_k * block_n + block_m * block_k)
+            + 4 * (m * block_k + block_k * block_n))
 
 
 def _lane_blocks(*blocks: int) -> bool:
@@ -93,23 +104,25 @@ def _lane_blocks(*blocks: int) -> bool:
 
 
 def supported_blocks(kernel: str, *, block_m: int, block_n: int, block_k: int,
-                     m: int = 0) -> bool:
+                     m: int = 0, in_bytes: int = 4) -> bool:
     """The blocks ``kernel`` ("matmul_nt" / "matmul_tn" / "matmul_dx_dw")
-    takes: multiples of 8 whose tiles (for the fused kernel: with the
-    [m, block_k] dX strip of an m-row batch) fit one block's shared
-    memory."""
-    smem = {"matmul_nt": lambda: smem_bytes_nt(block_m, block_n, block_k),
-            "matmul_tn": lambda: smem_bytes_tn(block_m, block_n, block_k),
-            "matmul_dx_dw": lambda: smem_bytes_dxdw(m, block_m, block_n, block_k)}
+    takes: multiples of 8 whose tiles (operands at ``in_bytes`` an
+    element; for the fused kernel with the [m, block_k] dX strip of an
+    m-row batch) fit one block's shared memory."""
+    smem = {"matmul_nt": lambda: smem_bytes_nt(block_m, block_n, block_k, in_bytes),
+            "matmul_tn": lambda: smem_bytes_tn(block_m, block_n, block_k, in_bytes),
+            "matmul_dx_dw": lambda: smem_bytes_dxdw(m, block_m, block_n, block_k,
+                                                    in_bytes)}
     return (_lane_blocks(block_m, block_n, block_k)
             and smem[kernel]() <= H100.local_mem_bytes)
 
 
-def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+             in_bytes: int = 4) -> int:
     """Thread blocks that share each dX tile's N loop over the (k, m) grid
     (:func:`repro_torch.core.machine.h100_split`)."""
     return h100_split(grid=(m // block_m) * (k // block_k), steps=n // block_n,
-                      smem_bytes=smem_bytes_nt(block_m, block_n, block_k))
+                      smem_bytes=smem_bytes_nt(block_m, block_n, block_k, in_bytes))
 
 
 def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
@@ -125,11 +138,12 @@ def tn_template(block_m: int, block_n: int, block_k: int) -> str:
     return "register" if (block_m, block_n, block_k) == TN_REGISTER_TILE else "simple"
 
 
-def tn_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+def tn_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+             in_bytes: int = 4) -> int:
     """Thread blocks that share each dW tile's M loop over the (n, k) grid
     (:func:`repro_torch.core.machine.h100_split`)."""
     return h100_split(grid=(n // block_n) * (k // block_k), steps=m // block_m,
-                      smem_bytes=smem_bytes_tn(block_m, block_n, block_k))
+                      smem_bytes=smem_bytes_tn(block_m, block_n, block_k, in_bytes))
 
 
 def tn_partial_bytes(*, k: int, n: int, split: int) -> int:
@@ -148,11 +162,12 @@ def dxdw_template(block_m: int, block_n: int, block_k: int, m: int) -> str:
             else "simple")
 
 
-def dxdw_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+def dxdw_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+               in_bytes: int = 4) -> int:
     """Thread blocks that share each k-block's n-blocks in the fused kernel
     (:func:`repro_torch.core.machine.h100_split` over the K/block_k grid)."""
     return h100_split(grid=k // block_k, steps=n // block_n,
-                      smem_bytes=smem_bytes_dxdw(m, block_m, block_n, block_k))
+                      smem_bytes=smem_bytes_dxdw(m, block_m, block_n, block_k, in_bytes))
 
 
 def _check_multiple(name, dims, blocks):
@@ -161,8 +176,9 @@ def _check_multiple(name, dims, blocks):
 
 
 def _check_nt(g, w, *, block_m, block_n, block_k):
+    in_bytes = stage_bytes(one_dtype("matmul_nt", g=g, w=w))
     if not supported_blocks("matmul_nt", block_m=block_m, block_n=block_n,
-                            block_k=block_k):
+                            block_k=block_k, in_bytes=in_bytes):
         raise ValueError(f"matmul_nt kernel does not take blocks "
                          f"(m={block_m}, n={block_n}, k={block_k})")
     if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1]:
@@ -173,8 +189,9 @@ def _check_nt(g, w, *, block_m, block_n, block_k):
 
 
 def _check_tn(x, g, *, block_m, block_n, block_k):
+    in_bytes = stage_bytes(one_dtype("matmul_tn", x=x, g=g))
     if not supported_blocks("matmul_tn", block_m=block_m, block_n=block_n,
-                            block_k=block_k):
+                            block_k=block_k, in_bytes=in_bytes):
         raise ValueError(f"matmul_tn kernel does not take blocks "
                          f"(m={block_m}, n={block_n}, k={block_k})")
     if x.ndim != 2 or g.ndim != 2 or x.shape[0] != g.shape[0]:
@@ -190,21 +207,13 @@ def _check_dxdw(g, w, x, *, block_m, block_n, block_k):
         raise ValueError(f"matmul_dx_dw shapes g={tuple(g.shape)} w={tuple(w.shape)} "
                          f"x={tuple(x.shape)}")
     (m, n), k = g.shape, w.shape[0]
+    in_bytes = stage_bytes(one_dtype("matmul_dx_dw", g=g, w=w, x=x))
     if not supported_blocks("matmul_dx_dw", block_m=block_m, block_n=block_n,
-                            block_k=block_k, m=m):
+                            block_k=block_k, m=m, in_bytes=in_bytes):
         raise ValueError(f"matmul_dx_dw kernel does not take blocks (m={block_m}, "
                          f"n={block_n}, k={block_k}) with a {m}-row dX strip")
     _check_multiple("matmul_dx_dw", (m, n, k), (block_m, block_n, block_k))
     return m, n, k
-
-
-def _check_operands(name, **tensors):
-    for tname, t in tensors.items():
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"{name} kernel takes contiguous float32 {tname}, got "
-                             f"{t.dtype} (contiguous={t.is_contiguous()})")
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name} kernel needs a 16-byte aligned {tname}")
 
 
 def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
@@ -215,22 +224,23 @@ def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 
 def matmul_nt_plain(g, w, *, block_m: int, block_n: int, block_k: int):
-    """The NT kernel's function in plain PyTorch (same contract and checks);
-    on the card it needs TF32 off to be an f32 reference."""
+    """The NT kernel's function in plain PyTorch (same contract and checks):
+    the f32 product of bf16 operands; on the card it needs TF32 off to be
+    an f32 reference."""
     _check_nt(g, w, block_m=block_m, block_n=block_n, block_k=block_k)
-    return torch.matmul(g, w.t())
+    return plain_matmul(g, w.t())
 
 
 def matmul_tn_plain(x, g, *, block_m: int, block_n: int, block_k: int):
     """The TN kernel's function in plain PyTorch (same contract and checks)."""
     _check_tn(x, g, block_m=block_m, block_n=block_n, block_k=block_k)
-    return torch.matmul(x.t(), g)
+    return plain_matmul(x.t(), g)
 
 
 def matmul_dxdw_plain(g, w, x, *, block_m: int, block_n: int, block_k: int):
     """The fused kernel's function in plain PyTorch: (dY @ W^T, X^T @ dY)."""
     _check_dxdw(g, w, x, block_m=block_m, block_n=block_n, block_k=block_k)
-    return torch.matmul(g, w.t()), torch.matmul(x.t(), g)
+    return plain_matmul(g, w.t()), plain_matmul(x.t(), g)
 
 
 # -- costs: each input read once, each output written once ------------------------
@@ -240,26 +250,31 @@ def _bytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+_OUT_BYTES = torch.empty((), dtype=OUT_DTYPE).element_size()
+
+
 def matmul_nt_cost(g, w, *, block_m: int, block_n: int, block_k: int):
-    """(FLOPs, bytes) of dX = dY·Wᵀ: 2·M·N·K; dY and W read, dX written."""
+    """(FLOPs, bytes) of dX = dY·Wᵀ: 2·M·N·K; dY and W read at their
+    element size, the f32 dX written."""
     del block_m, block_n, block_k
     (m, n), k = g.shape, w.shape[0]
-    return 2.0 * m * n * k, float(_bytes(g, w) + 4 * m * k)
+    return 2.0 * m * n * k, float(_bytes(g, w) + _OUT_BYTES * m * k)
 
 
 def matmul_tn_cost(x, g, *, block_m: int, block_n: int, block_k: int):
-    """(FLOPs, bytes) of dW = Xᵀ·dY: 2·M·N·K; X and dY read, dW written."""
+    """(FLOPs, bytes) of dW = Xᵀ·dY: 2·M·N·K; X and dY read at their
+    element size, the f32 dW written."""
     del block_m, block_n, block_k
     (m, k), n = x.shape, g.shape[1]
-    return 2.0 * m * n * k, float(_bytes(x, g) + 4 * k * n)
+    return 2.0 * m * n * k, float(_bytes(x, g) + _OUT_BYTES * k * n)
 
 
 def matmul_dxdw_cost(g, w, x, *, block_m: int, block_n: int, block_k: int):
     """(FLOPs, bytes) of dX and dW in one pass: 4·M·N·K; dY, W and X read
-    once, dX and dW written once."""
+    once at their element size, the f32 dX and dW written once."""
     del block_m, block_n, block_k
     (m, n), k = g.shape, w.shape[0]
-    return 4.0 * m * n * k, float(_bytes(g, w, x) + 4 * (m * k + k * n))
+    return 4.0 * m * n * k, float(_bytes(g, w, x) + _OUT_BYTES * (m * k + k * n))
 
 
 # -- launch wrappers -------------------------------------------------------------
@@ -267,63 +282,69 @@ def matmul_dxdw_cost(g, w, x, *, block_m: int, block_n: int, block_k: int):
 
 def _launch_nt(kernel: CudaKernel, g, w, *, block_m: int, block_n: int, block_k: int):
     m, n, k = _check_nt(g, w, block_m=block_m, block_n=block_n, block_k=block_k)
-    _check_operands("matmul_nt", g=g, w=w)
+    dtype = kernel.operand_dtype(g=g, w=w)
     if m // block_m > MAX_GRID_Y:
         raise ValueError(f"matmul_nt M/block_m = {m // block_m} exceeds the grid")
-    split = nt_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
-    out = torch.empty((m, k), dtype=torch.float32, device=g.device)
+    split = nt_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
+                     in_bytes=g.element_size())
+    out = torch.empty((m, k), dtype=OUT_DTYPE, device=g.device)
     part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
             if split > 1 else None)
     kernel.run(_ptr(g), _ptr(w), _ptr(out),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
-               m, n, k, block_m, block_n, block_k, split)
+               m, n, k, block_m, block_n, block_k, split, dtype=dtype)
     return out
 
 
 def _launch_tn(kernel: CudaKernel, x, g, *, block_m: int, block_n: int, block_k: int):
     m, n, k = _check_tn(x, g, block_m=block_m, block_n=block_n, block_k=block_k)
-    _check_operands("matmul_tn", x=x, g=g)
+    dtype = kernel.operand_dtype(x=x, g=g)
     if k // block_k > MAX_GRID_Y:
         raise ValueError(f"matmul_tn K/block_k = {k // block_k} exceeds the grid")
-    split = tn_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
-    out = torch.empty((k, n), dtype=torch.float32, device=x.device)
+    split = tn_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
+                     in_bytes=x.element_size())
+    out = torch.empty((k, n), dtype=OUT_DTYPE, device=x.device)
     part = (torch.empty((split, k, n), dtype=torch.float32, device=x.device)
             if split > 1 else None)
     kernel.run(_ptr(x), _ptr(g), _ptr(out),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(tn_template(block_m, block_n, block_k) == "register"))
+               int(tn_template(block_m, block_n, block_k) == "register"), dtype=dtype)
     return out
 
 
 def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
                  block_k: int):
     m, n, k = _check_dxdw(g, w, x, block_m=block_m, block_n=block_n, block_k=block_k)
-    _check_operands("matmul_dx_dw", g=g, w=w, x=x)
-    split = dxdw_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
-    dx = torch.empty((m, k), dtype=torch.float32, device=g.device)
-    dw = torch.empty((k, n), dtype=torch.float32, device=g.device)
+    dtype = kernel.operand_dtype(g=g, w=w, x=x)
+    split = dxdw_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
+                       in_bytes=g.element_size())
+    dx = torch.empty((m, k), dtype=OUT_DTYPE, device=g.device)
+    dw = torch.empty((k, n), dtype=OUT_DTYPE, device=g.device)
     part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
             if split > 1 else None)
     kernel.run(_ptr(g), _ptr(w), _ptr(x), _ptr(dx), _ptr(dw),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(dxdw_template(block_m, block_n, block_k, m) == "register"))
+               int(dxdw_template(block_m, block_n, block_k, m) == "register"), dtype=dtype)
     return dx, dw
 
 
 matmul_nt_kernel = CudaKernel(
     "matmul_nt", source="matmul_bwd", symbol="repro_matmul_nt_f32",
+    bf16_symbol="repro_matmul_nt_bf16",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     launch=_launch_nt, plain=matmul_nt_plain, cost=matmul_nt_cost,
 )
 matmul_tn_kernel = CudaKernel(
     "matmul_tn", source="matmul_bwd", symbol="repro_matmul_tn_f32",
+    bf16_symbol="repro_matmul_tn_bf16",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch_tn, plain=matmul_tn_plain, cost=matmul_tn_cost,
 )
 matmul_dxdw_kernel = CudaKernel(
     "matmul_dx_dw", source="matmul_bwd", symbol="repro_matmul_dxdw_f32",
+    bf16_symbol="repro_matmul_dxdw_bf16",
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch_dxdw, plain=matmul_dxdw_plain, cost=matmul_dxdw_cost,
 )

@@ -1,4 +1,4 @@
-"""The blocked f32 matmul kernel (``csrc/matmul.cu``): launch wrapper and
+"""The blocked matmul kernel (``csrc/matmul.cu``): launch wrapper and
 plain version.
 
 Replaces ``repro/kernels/matmul/matmul.py::_mm_kernel``: one thread block
@@ -10,6 +10,12 @@ under one wave of SMs the K loop is split over a number of blocks fixed by
 the shapes (:func:`mm_split`) and the partial slabs are summed in a fixed
 order.  Operands must already be multiples of the blocks
 (``ops.fc_matmul`` pads and slices).
+
+Operands are both f32 or both bf16 (``repro_matmul_f32`` /
+``repro_matmul_bf16``); the accumulator is f32 and the output takes the
+operands' dtype, as ``_mm_kernel``'s ``preferred_element_type=f32`` and
+``astype(o_ref.dtype)`` do.  Shared memory holds the operands in their own
+type.
 """
 
 from __future__ import annotations
@@ -19,17 +25,26 @@ import ctypes
 import torch
 
 from repro_torch.core.machine import H100, h100_split
-from repro_torch.plan.registry import CudaKernel
+from repro_torch.plan.registry import CudaKernel, one_dtype
 
 LANE = 8  # the kernel's column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis
 REGISTER_TILE = (64, 128, 32)  # (block_m, block_n, block_k) of mm_reg_kernel
 
 
-def smem_bytes(block_m: int, block_n: int, block_k: int) -> int:
+def smem_bytes(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> int:
     """Shared memory one block allocates: the f32 accumulator tile and two
-    stages of the X and W tiles (== MatmulPlanner's H100 budget term)."""
-    return 4 * (block_m * block_n + 2 * (block_m * block_k + block_k * block_n))
+    stages of the X and W tiles at ``in_bytes`` an element (==
+    MatmulPlanner's H100 budget term)."""
+    return 4 * block_m * block_n + 2 * in_bytes * (block_m * block_k + block_k * block_n)
+
+
+def plain_matmul(a, b):
+    """a @ b as the kernels compute it: a bf16 pair multiplied in f32 (the
+    f32 product, for the caller to round once); other dtypes as they are."""
+    if a.dtype == torch.bfloat16:
+        return torch.matmul(a.float(), b.float())
+    return torch.matmul(a, b)
 
 
 def template(block_m: int, block_n: int, block_k: int) -> str:
@@ -39,11 +54,12 @@ def template(block_m: int, block_n: int, block_k: int) -> str:
     return "register" if (block_m, block_n, block_k) == REGISTER_TILE else "simple"
 
 
-def mm_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int) -> int:
+def mm_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
+             in_bytes: int = 4) -> int:
     """Thread blocks that share each output tile's K loop over the (n, m)
     grid (:func:`repro_torch.core.machine.h100_split`)."""
     return h100_split(grid=(m // block_m) * (n // block_n), steps=k // block_k,
-                      smem_bytes=smem_bytes(block_m, block_n, block_k))
+                      smem_bytes=smem_bytes(block_m, block_n, block_k, in_bytes))
 
 
 def mm_partial_bytes(*, m: int, n: int, split: int) -> int:
@@ -51,15 +67,23 @@ def mm_partial_bytes(*, m: int, n: int, split: int) -> int:
     return 4 * split * m * n if split > 1 else 0
 
 
-def supported_blocks(block_m: int, block_n: int, block_k: int) -> bool:
-    """The blocks the kernel takes: multiples of 8 whose tiles fit one
-    block's shared memory."""
+def supported_blocks(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> bool:
+    """The blocks the kernel takes: multiples of 8 whose tiles (operands
+    at ``in_bytes`` an element) fit one block's shared memory."""
     return (all(b > 0 and b % LANE == 0 for b in (block_m, block_n, block_k))
-            and smem_bytes(block_m, block_n, block_k) <= H100.local_mem_bytes)
+            and smem_bytes(block_m, block_n, block_k, in_bytes) <= H100.local_mem_bytes)
+
+
+def stage_bytes(dtype: torch.dtype) -> int:
+    """Bytes a staged operand element takes in shared memory: 2 for bf16,
+    else 4 (a plain version at f64 is checked against the f32 kernel's
+    blocks)."""
+    return 2 if dtype == torch.bfloat16 else 4
 
 
 def _check(x, w, block_m, block_n, block_k):
-    if not supported_blocks(block_m, block_n, block_k):
+    in_bytes = stage_bytes(one_dtype("matmul", x=x, w=w))
+    if not supported_blocks(block_m, block_n, block_k, in_bytes):
         raise ValueError(f"matmul kernel does not take blocks "
                          f"(m={block_m}, n={block_n}, k={block_k})")
     if x.ndim != 2 or w.ndim != 2 or x.shape[1] != w.shape[0]:
@@ -73,45 +97,42 @@ def _check(x, w, block_m, block_n, block_k):
 
 
 def matmul_plain(x, w, *, block_m: int, block_n: int, block_k: int):
-    """The kernel's function in plain PyTorch (same contract, same checks);
-    on the card it needs TF32 off to be an f32 reference."""
+    """The kernel's function in plain PyTorch (same contract, same checks):
+    the f32 product rounded once to the operands' dtype.  On the card it
+    needs TF32 off to be an f32 reference."""
     _check(x, w, block_m, block_n, block_k)
-    return torch.matmul(x, w)
+    return plain_matmul(x, w).to(x.dtype)
 
 
 def matmul_cost(x, w, *, block_m: int, block_n: int, block_k: int) -> tuple[float, float]:
-    """(FLOPs, bytes) of one call: 2·M·N·K; X and W read once, Y written
-    once."""
+    """(FLOPs, bytes) of one call: 2·M·N·K; X and W read once, Y (in the
+    operands' dtype) written once."""
     del block_m, block_n, block_k
     (m, k), n = x.shape, w.shape[1]
     return 2.0 * m * n * k, float(x.element_size() * m * k + w.element_size() * k * n
-                                  + 4 * m * n)
+                                  + x.element_size() * m * n)
 
 
 def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: int):
     m, n, k = _check(x, w, block_m, block_n, block_k)
-    for name, t in (("x", x), ("w", w)):
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"matmul kernel takes contiguous float32 {name}, got "
-                             f"{t.dtype} (contiguous={t.is_contiguous()})")
-        if t.data_ptr() % 16:
-            raise ValueError(f"matmul kernel needs a 16-byte aligned {name}")
+    dtype = kernel.operand_dtype(x=x, w=w)
     if m // block_m > MAX_GRID_Y:
         raise ValueError(f"matmul M/block_m = {m // block_m} exceeds the grid")
-    split = mm_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k)
-    out = torch.empty((m, n), dtype=torch.float32, device=x.device)
+    split = mm_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
+                     in_bytes=x.element_size())
+    out = torch.empty((m, n), dtype=dtype, device=x.device)
     part = (torch.empty((split, m, n), dtype=torch.float32, device=x.device)
             if split > 1 else None)
     kernel.run(ctypes.c_void_p(x.data_ptr()), ctypes.c_void_p(w.data_ptr()),
                ctypes.c_void_p(out.data_ptr()),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(template(block_m, block_n, block_k) == "register"))
+               int(template(block_m, block_n, block_k) == "register"), dtype=dtype)
     return out
 
 
 matmul_kernel = CudaKernel(
-    "matmul", source="matmul", symbol="repro_matmul_f32",
+    "matmul", source="matmul", symbol="repro_matmul_f32", bf16_symbol="repro_matmul_bf16",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch, plain=matmul_plain, cost=matmul_cost,
 )

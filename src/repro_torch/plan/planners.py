@@ -1240,13 +1240,17 @@ class AttentionPlanner(ShardablePlanner):
                     seen.add(s.blocks)
         if self.machine.name != H100.name:
             return out
+        import torch
+
         from repro_torch.kernels.flash_attention.flash_attention import supported_blocks
 
         D = shape["head_dim"]
-        out = [s for s in out if supported_blocks(s.block("block_q"), s.block("block_kv"), D)]
+        dtype = torch.bfloat16 if shape.get("in_bytes") == 2 else torch.float32
+        out = [s for s in out
+               if supported_blocks(s.block("block_q"), s.block("block_kv"), D, dtype)]
         if not out:
             raise PlanRejected(f"the flash kernel is not built for head_dim {D} "
-                               "(or not at the pinned blocks)")
+                               f"({dtype}, or not at the pinned blocks)")
         return out
 
 

@@ -70,6 +70,10 @@ class CudaKernel:
     input read once, each output written once (the definition of
     ``PERF.md``'s bound column, which reads the same functions).
     ``launches`` counts the kernel's launches (bumped only in :meth:`run`).
+    ``symbol`` is the C entry point of f32 operands and ``bf16_symbol``,
+    where the source has one, that of bf16 operands (:attr:`symbols`);
+    the launch checks its operands with :meth:`operand_dtype` and passes
+    the dtype to :meth:`run`.
 
     A call dispatches by device: CPU tensors run the plain version, CUDA
     tensors the launch, and ``meta`` tensors the launch with nothing
@@ -80,10 +84,12 @@ class CudaKernel:
 
     def __init__(self, name: str, *, source: str, symbol: str,
                  argtypes: list, launch: Callable, plain: Callable,
-                 cost: Callable):
+                 cost: Callable, bf16_symbol: str | None = None):
         self.name = name
         self.source = source  # file stem under kernels/csrc/
-        self.symbol = symbol
+        self.symbols = {torch.float32: symbol}  # operand dtype -> C entry point
+        if bf16_symbol is not None:
+            self.symbols[torch.bfloat16] = bf16_symbol
         self.argtypes = argtypes
         self.launch = launch
         self.plain = plain
@@ -112,16 +118,31 @@ class CudaKernel:
             finally:
                 _DRY.depth -= 1
 
-    def run(self, *c_args) -> None:
-        """Launch the compiled kernel on the current stream; raise on the
-        error code its C entry point returns (``cudaGetLastError``).  On the
-        ``meta`` route it returns at once: nothing is built or launched."""
+    def operand_dtype(self, **tensors: torch.Tensor) -> torch.dtype:
+        """The one dtype of a launch's operands: raise unless they share
+        one that the kernel has an entry point for (:attr:`symbols`) and
+        each is contiguous and 16-byte aligned."""
+        takes = " or ".join(str(d).removeprefix("torch.") for d in self.symbols)
+        dtype = one_dtype(f"{self.name} kernel", **tensors)
+        for tname, t in tensors.items():
+            if t.dtype not in self.symbols or not t.is_contiguous():
+                raise ValueError(f"{self.name} kernel takes contiguous {takes} {tname}, "
+                                 f"got {t.dtype} (contiguous={t.is_contiguous()})")
+            if t.data_ptr() % 16:
+                raise ValueError(f"{self.name} kernel needs a 16-byte aligned {tname}")
+        return dtype
+
+    def run(self, *c_args, dtype: torch.dtype = torch.float32) -> None:
+        """Launch the compiled kernel of ``dtype`` operands on the current
+        stream; raise on the error code its C entry point returns
+        (``cudaGetLastError``).  On the ``meta`` route it returns at once:
+        nothing is built or launched."""
         if getattr(_DRY, "depth", 0):
             return
         from repro_torch.kernels import _build
 
         lib = _build.load(self.source)
-        fn = getattr(lib, self.symbol)
+        fn = getattr(lib, self.symbols[dtype])
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         err = fn(*c_args, ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
@@ -129,6 +150,16 @@ class CudaKernel:
             raise RuntimeError(
                 f"{self.name}: CUDA error {err} ({_build.error_string(lib, err)})")
         self.launches += 1
+
+
+def one_dtype(name: str, **tensors: torch.Tensor) -> torch.dtype:
+    """The dtype ``tensors`` share; raise naming ``name`` when they do not
+    (a kernel's and its plain version's operands are of one dtype)."""
+    dtypes = {t.dtype for t in tensors.values()}
+    if len(dtypes) > 1:
+        raise ValueError(f"{name} takes {', '.join(tensors)} of one dtype, got "
+                         + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items()))
+    return dtypes.pop()
 
 
 _DRY = threading.local()  # > 0 inside a kernel call on meta tensors

@@ -871,3 +871,215 @@ def test_data_parallel_cnn_step_on_card_ranks_sharing_one_device(cuda, tmp_path)
                     assert int(off.sum()) <= max(2, int(1e-3 * v.numel())), k
                 else:
                     assert_close(got, v)
+
+
+# -- the bf16 route --------------------------------------------------------------
+#
+# Tolerances (bf16 operands, f32 accumulators):
+# * bf16 outputs (the forward matmul, flash): within one bf16 ulp of the
+#   plain version (the f32 product rounded once), elementwise, the ulp taken
+#   at max(|plain|, 2^-8 max|plain|) — two f32 sums of up to a few thousand
+#   terms in another order differ by about 2^-18 max|plain|, so two correct
+#   roundings of them can lie more than one ulp apart only below that floor;
+# * f32 outputs (dX, dW): 1e-5 * max(1, max |plain|), as the f32 gates'
+#   sums in another order.
+
+BF16_TOL = 1e-5
+
+
+def bf16_ulp(x: torch.Tensor) -> torch.Tensor:
+    """The spacing of bf16 numbers at |x| (8 significant bits), elementwise."""
+    a = x.detach().abs().float().clamp(min=2.0 ** -126)
+    return torch.ldexp(torch.ones_like(a), torch.frexp(a).exponent - 8)
+
+
+def assert_within_ulp(got, want):
+    assert got.dtype == want.dtype == torch.bfloat16
+    got, want = got.detach().float().cpu(), want.detach().float().cpu()
+    floor = 2.0 ** -8 * float(want.abs().max())
+    err = (got - want).abs()
+    assert bool((err <= bf16_ulp(want.abs().clamp(min=floor))).all()), float(err.max())
+
+
+def _bf16(rng, *shape, scale=1.0):
+    return _rand(rng, *shape, scale=scale).to(torch.bfloat16)
+
+
+# (kernel, operand shapes, blocks): each route at its register tile (the
+# planner's H100 pick at in_bytes=2, with a split where the grid is under a
+# wave) and at a small tile of the simple kernel.
+BF16_GEMMS = [
+    ("matmul", ((512, 1024), (1024, 3072)), (64, 128, 32)),
+    ("matmul", ((256, 4096), (4096, 1024)), (64, 128, 32)),
+    ("matmul", ((40, 96), (96, 80)), (8, 16, 16)),
+    ("matmul_nt", ((768, 96), (1408, 96)), (64, 32, 128)),
+    ("matmul_nt", ((40, 80), (96, 80)), (8, 16, 16)),
+    ("matmul_tn", ((256, 128), (256, 256)), (32, 128, 64)),
+    ("matmul_tn", ((40, 96), (40, 80)), (8, 16, 16)),
+    ("matmul_dx_dw", ((128, 4096), (2048, 4096), (128, 2048)), (64, 32, 128)),
+    ("matmul_dx_dw", ((40, 80), (96, 80), (40, 96)), (8, 16, 16)),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name,shapes,blocks", BF16_GEMMS,
+                         ids=[f"{c[0]}-{c[2][0]}" for c in BF16_GEMMS])
+def test_bf16_gemm_kernels_match_plain_on_card(cuda, name, shapes, blocks):
+    """Each GEMM kernel's bf16 route against its plain version on the same
+    bf16 operands: the forward matmul's bf16 output within one ulp, dX and
+    dW in f32 within 1e-5 of scale; two launches give the same bits."""
+    kernels = {"matmul": matmul_kernel, "matmul_nt": matmul_nt_kernel,
+               "matmul_tn": matmul_tn_kernel, "matmul_dx_dw": matmul_dxdw_kernel}
+    kernel = kernels[name]
+    rng = np.random.default_rng(21)
+    args = [_bf16(rng, *s, scale=s[-1] ** -0.5).to(cuda) for s in shapes]
+    bm, bn, bk = blocks
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    got = _launched(kernel, lambda: kernel(*args, **kw))
+    again = kernel(*args, **kw)
+    want = kernel.plain(*args, **kw)
+    outs = got if isinstance(got, tuple) else (got,)
+    wants = want if isinstance(want, tuple) else (want,)
+    agains = again if isinstance(again, tuple) else (again,)
+    for o, w, a in zip(outs, wants, agains):
+        assert torch.equal(o, a)
+        if name == "matmul":
+            assert_within_ulp(o, w)
+        else:
+            assert o.dtype == w.dtype == torch.float32
+            assert_close(o, w, BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", [
+    (2, 4, 4, 256, 256, True, None),
+    (1, 4, 2, 300, 150, True, 32),  # rows 181.. see no key
+    (2, 2, 1, 100, 180, False, None),
+    (2, 4, 2, 64, 512, True, None),
+])
+def test_bf16_flash_matches_plain_on_card(cuda, case):
+    """Flash's bf16 route (D = 64, the planner's blocks at two bytes an
+    element) against its plain version on the same bf16 operands: within
+    one bf16 ulp; two launches give the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_kernel
+
+    B, Hq, Hkv, Sq, Skv, causal, window = case
+    rng = np.random.default_rng(22)
+    q, k, v = (_bf16(rng, B, Hq, Sq, 64).to(cuda), _bf16(rng, B, Hkv, Skv, 64).to(cuda),
+               _bf16(rng, B, Hkv, Skv, 64).to(cuda))
+    got = _launched(flash_attention_kernel, lambda: flash_attention(
+        q, k, v, causal=causal, window=window))
+    assert torch.equal(got, flash_attention(q, k, v, causal=causal, window=window))
+    want = flash_attention(q.cpu(), k.cpu(), v.cpu(), causal=causal, window=window)
+    assert_within_ulp(got, want.to(cuda))
+    if window == 32:
+        assert torch.all(got[:, :, 181:].cpu() == 0)
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_other_dtypes_on_card(cuda):
+    """Operands of two dtypes, float16 and float64 raise at every GEMM and
+    flash kernel; a bf16 tensor at the conv kernels raises and names the
+    queue item of the CNN's bf16 route.  Nothing launches."""
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+
+    mm = dict(block_m=64, block_n=128, block_k=32)
+    f32 = torch.zeros(64, 64, device=cuda)
+    before = {k: k.launches for k in (matmul_kernel, matmul_nt_kernel, matmul_tn_kernel,
+                                      matmul_dxdw_kernel, flash_attention_kernel,
+                                      conv2d_kernel, conv2d_wgrad_kernel)}
+    with pytest.raises(ValueError, match="of one dtype"):
+        matmul_kernel(f32.bfloat16(), torch.zeros(64, 128, device=cuda), **mm)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            matmul_kernel(f32.to(dt), torch.zeros(64, 128, device=cuda, dtype=dt), **mm)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            matmul_nt_kernel(f32.to(dt), f32.to(dt), block_m=64, block_n=32, block_k=64)
+        with pytest.raises(ValueError, match="float32 or bfloat16"):
+            matmul_tn_kernel(f32.to(dt), f32.to(dt), block_m=32, block_n=64, block_k=64)
+    with pytest.raises(ValueError, match="of one dtype"):
+        matmul_dxdw_kernel(f32, f32.bfloat16(), f32, block_m=64, block_n=32, block_k=64)
+    q = torch.zeros(8, 128, 64, device=cuda)
+    with pytest.raises(ValueError, match="of one dtype"):
+        flash_attention_kernel(q.bfloat16(), q, q, block_q=64, block_kv=64, scale=0.125,
+                               causal=True, window=None, q_len=128, kv_len=128)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        flash_attention_kernel(q.half(), q.half(), q.half(), block_q=64, block_kv=64,
+                               scale=0.125, causal=True, window=None, q_len=128,
+                               kv_len=128)
+    with pytest.raises(ValueError, match="head_dim"):  # bf16 is built for D = 64
+        q2 = torch.zeros(8, 128, 128, device=cuda, dtype=torch.bfloat16)
+        flash_attention_kernel(q2, q2, q2, block_q=64, block_kv=64, scale=0.125,
+                               causal=True, window=None, q_len=128, kv_len=128)
+    x = torch.zeros(2, 10, 10, 8, device=cuda, dtype=torch.bfloat16)
+    f = torch.zeros(3, 3, 8, 16, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="queue 1 #11"):
+        conv2d(x, f, bias=torch.zeros(16, device=cuda, dtype=torch.bfloat16), padding=1)
+    with pytest.raises(ValueError, match="queue 1 #11"):
+        conv2d_wgrad(x, torch.zeros(2, 8, 8, 16, device=cuda, dtype=torch.bfloat16), F=3)
+    assert all(k.launches == n for k, n in before.items())
+
+
+@pytest.mark.cuda
+def test_bf16_autotune_cell_tunes_and_replays_on_card(cuda, tmp_path, monkeypatch):
+    """A bf16 matmul cell (in_bytes=2) tuned on the card times the bf16
+    route; the cache-only replay returns the winner without timing, and it
+    runs."""
+    from repro_torch.plan import autotune as at
+
+    monkeypatch.setattr(at, "_POLICY", "off")
+    cache = at.AutotuneCache(str(tmp_path / "autotune.json"))
+    shape = dict(m=128, n=256, k=128, in_bytes=2)
+    before = matmul_kernel.launches
+    rep = at.tune("matmul", cache=cache, topk=3, device=cuda, **shape)
+    assert not rep.cached and all(t > 0 for _, t, _ in rep.measurements)
+    assert matmul_kernel.launches > before
+    monkeypatch.setattr(at, "_measure", lambda *a, **kw: pytest.fail("timed a replay"))
+    replay = at.tuned_schedule("matmul", shape, policy="cache-only", cache=cache,
+                               device=cuda)
+    assert replay is not None and replay.blocks == rep.schedule.blocks
+    rng = np.random.default_rng(23)
+    xs, ws = _bf16(rng, 128, 128).to(cuda), _bf16(rng, 128, 256).to(cuda)
+    got = fc_matmul(xs, ws, schedule=replay)
+    assert_within_ulp(got, (xs.float() @ ws.float()).bfloat16())
+
+
+@pytest.mark.cuda
+def test_planned_bf16_transformer_step_on_card(cuda):
+    """The planned smoke transformer at compute_dtype bf16 on the card (the
+    bf16 routes of matmul, the fused dX/dW kernel and flash; head_dim 64)
+    against the same
+    step on the CPU (the plain versions): loss within 1e-3 relative, every
+    gradient within 3e-2 * max(1, max |ref|) (bf16 rounding of activations
+    at different points, as test_torch_bf16.py's gates against repro)."""
+    import dataclasses
+
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.kernels.flash_attention import flash_attention_kernel
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    cfg = dataclasses.replace(smoke_config("qwen1.5-0.5b"), n_layers=2, n_heads=2,
+                              n_kv_heads=2, head_dim=64)
+    params = init_params(tf.param_defs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(8)
+    batch = {k: torch.from_numpy(rng.integers(0, cfg.vocab, (2, 128)).astype(np.int32))
+             for k in ("tokens", "labels")}
+    loss_fn = tr.make_loss_fn(cfg, TrainConfig(planned_kernels=True, loss_chunks=4,
+                                               compute_dtype="bfloat16"))
+    out = []
+    # at M = 256 the planner picks the fused dX/dW kernel for every GEMM
+    kernels = (matmul_kernel, matmul_dxdw_kernel, flash_attention_kernel)
+    for dev in (cuda, torch.device("cpu")):
+        before = [k.launches for k in kernels]
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, {k: v.to(dev) for k, v in batch.items()})
+        out.append((loss, torch.autograd.grad(loss, list(leaves.values()))))
+        if dev.type == "cuda":
+            assert all(k.launches > n for k, n in zip(kernels, before))
+    (loss_c, grads_c), (loss_p, grads_p) = out
+    assert abs(float(loss_c) - float(loss_p)) <= 1e-3 * abs(float(loss_p))
+    for got, want in zip(grads_c, grads_p):
+        assert got.dtype == want.dtype == torch.float32
+        assert_close(got, want, 3e-2)

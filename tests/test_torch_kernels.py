@@ -364,10 +364,11 @@ class _ArgSink:
     passes to ``run`` (the stream is appended by ``run`` itself)."""
 
     def __init__(self, kernel):
-        self.argtypes, self.args = kernel.argtypes, None
+        self.argtypes, self.args, self.dtype = kernel.argtypes, None, None
+        self.operand_dtype = kernel.operand_dtype
 
-    def run(self, *args):
-        self.args = args
+    def run(self, *args, dtype=torch.float32):
+        self.args, self.dtype = args, dtype
 
 
 @pytest.mark.parametrize("m,k,n,blocks,split,reg", [

@@ -309,15 +309,31 @@ def test_meta_route_checks_allocates_and_counts_no_launch(case):
 
 def test_meta_route_refuses_what_the_launch_refuses():
     """The launch's own checks run on ``meta``: blocks the kernel does
-    not take, a dtype or layout it does not take, a head dim it is not
-    built for, gradients."""
+    not take, operands of two dtypes, a dtype (float16, float64) or layout
+    it does not take, a head dim it is not built for, gradients; a bf16
+    pair passes them with outputs of the launch's dtypes."""
     kw = dict(block_m=64, block_n=128, block_k=32)
     with pytest.raises(ValueError, match="not a multiple of the blocks"):
         matmul_kernel(_m(100, 64), _m(64, 256), **kw)
-    with pytest.raises(ValueError, match="contiguous float32"):
+    with pytest.raises(ValueError, match="of one dtype"):
         matmul_kernel(_m(128, 64, dtype=torch.bfloat16), _m(64, 256), **kw)
+    for dt in (torch.float16, torch.float64):
+        with pytest.raises(ValueError, match="contiguous float32 or bfloat16"):
+            matmul_kernel(_m(128, 64, dtype=dt), _m(64, 256, dtype=dt), **kw)
+        with pytest.raises(ValueError, match="contiguous float32 or bfloat16"):
+            flash_attention_kernel(*(_m(8, 128, 64, dtype=dt),) * 3, block_q=64,
+                                   block_kv=64, scale=1.0, causal=True, window=None,
+                                   q_len=128, kv_len=128)
     with pytest.raises(ValueError, match="contiguous float32"):
         matmul_kernel(_m(64, 128).t(), _m(64, 256), **kw)
+    bf = torch.bfloat16
+    assert matmul_kernel(_m(128, 64, dtype=bf), _m(64, 256, dtype=bf), **kw).dtype == bf
+    dx, dw = matmul_dxdw_kernel(_m(64, 256, dtype=bf), _m(128, 256, dtype=bf),
+                                _m(64, 128, dtype=bf), block_m=64, block_n=64, block_k=32)
+    assert (dx.dtype, dw.dtype) == (torch.float32, torch.float32)
+    assert flash_attention_kernel(*(_m(8, 128, 64, dtype=bf),) * 3, block_q=64,
+                                  block_kv=64, scale=1.0, causal=True, window=None,
+                                  q_len=128, kv_len=128).dtype == bf
     with pytest.raises(ValueError, match="head_dim"):
         flash_attention_kernel(_m(8, 128, 48), _m(8, 128, 48), _m(8, 128, 48), block_q=64,
                                block_kv=64, scale=1.0, causal=True, window=None, q_len=128,
