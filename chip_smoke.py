@@ -729,7 +729,9 @@ BF16_MARKERS = {"matmul": ("mm_reg_kernel", "mm_simple_kernel"),
                 "matmul_nt": ("mm_nt_reg_kernel", "mm_nt_kernel"),
                 "matmul_tn": ("mm_tn_reg_kernel", "mm_tn_kernel"),
                 "matmul_dx_dw": ("mm_dxdw_reg_kernel", "mm_dxdw_kernel"),
-                "flash_attention": ("fa_fwd_kernel",)}
+                "flash_attention": ("fa_fwd_kernel",),
+                "conv2d": ("conv_reg_kernel", "conv_simple_kernel"),
+                "conv2d_wgrad": ("wgrad_reg_kernel", "wgrad_simple_kernel")}
 FLASH_OFFSET_CASES = [(64, None), (64, 512), (128, None), (128, 1024)]
 FLASH_OFFSETS = (512, 1536, 200, 1000)
 
@@ -866,6 +868,23 @@ def bf16_kernel_cases(torch, cfg, plans):
            calls[("flash_attention", "attn")], (q, kk, v))
 
 
+def route_times(torch, name, kern, args, kw, lib, reps: int) -> dict:
+    """Event ms of a call of ``kern`` and of its plain version (medians of
+    ``reps`` after one warm-up), its device ms (torch.profiler, or CUDA
+    events over BF16_BURST calls in a row where a long process's profile
+    holds none: PERF.md section 7) and one library call's ms."""
+    fn = functools.partial(kern, *args, **kw)
+    ms = median_ms(fn, reps=reps, warmup=1)
+    dev_ms, dev_calls = paper_device_ms(torch, fn, 1, reps=2, markers=BF16_MARKERS[name])
+    dev_by = "torch.profiler"
+    if not dev_calls:
+        dev_ms, dev_by = burst_ms(fn, BF16_BURST), f"events over {BF16_BURST} calls in a row"
+    return dict(ms=ms, device_ms=dev_ms, device_ms_by=dev_by, device_calls_profiled=dev_calls,
+                plain_ms=median_ms(functools.partial(kern.plain, *args, **kw), reps=reps,
+                                   warmup=1),
+                library_ms=median_ms(lib, reps=reps, warmup=1) if lib is not None else None)
+
+
 def grad_distance(a, b) -> float:
     """||a - b|| / ||b|| over one leaf (the Frobenius norm in f32)."""
     return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
@@ -921,29 +940,19 @@ def phase_bf16(torch, kernels, results, card):
             gate = {"max_abs_err": err, "tolerance": tol, "contraction": contraction}
         results[name]["bf16_max_abs_err"] = max(results[name].get("bf16_max_abs_err", 0.0), err)
         del outs, again, refs
-        fn = functools.partial(kern, *args, **kw)
-        plain_fn = functools.partial(kern.plain, *args, **kw)
-        reps = 2 if label.startswith("logits") else 3
-        ms, plain_ms = median_ms(fn, reps=reps, warmup=1), median_ms(plain_fn, reps=reps,
-                                                                      warmup=1)
-        dev_ms, dev_calls = paper_device_ms(torch, fn, 1, reps=2, markers=BF16_MARKERS[name])
-        dev_by = "torch.profiler"
-        if not dev_calls:  # a long process's profile may hold no call (PERF.md section 7)
-            dev_ms, dev_by = burst_ms(fn, BF16_BURST), f"events over {BF16_BURST} calls in a row"
-        lib_ms = median_ms(lib, reps=reps, warmup=1) if lib is not None else None
+        t = route_times(torch, name, kern, args, kw, lib,
+                        reps=2 if label.startswith("logits") else 3)
         cost = cost_record(kern, *unpadded, **kw)
         b_ms, b_by = bf16_bound_ms(cost["flops"], cost["nbytes"])
         call = dict(case=label, per_step=per_step, step_batch=step_batch, dtype="bfloat16",
-                    **gate, ms=ms, device_ms=dev_ms, device_ms_by=dev_by,
-                    device_calls_profiled=dev_calls, plain_ms=plain_ms, library_ms=lib_ms,
-                    bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / ms,
-                    library_over_port=(lib_ms / ms if lib_ms else None),
+                    **gate, **t, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["ms"],
+                    library_over_port=(t["library_ms"] / t["ms"] if t["library_ms"] else None),
                     **(template_record(name, args, kw)
                        if name in ("matmul", "matmul_tn", "matmul_dx_dw") else {}),
                     flops=cost["flops"], bytes=cost["nbytes"], peaks=PEAKS_BF16)
         results[name].setdefault("bf16_calls", []).append(call)
         emit(phase="bf16", kernel=name, card=card, **call)
-        del args, unpadded, fn, plain_fn, lib
+        del args, unpadded, lib
         torch.cuda.empty_cache()
 
     # (b) the planned bf16 step at full width and depth.
@@ -1011,6 +1020,314 @@ def phase_bf16(torch, kernels, results, card):
     del state, run, step
     torch.cuda.empty_cache()
     emit(phase="bf16", seconds=time.perf_counter() - t_phase)
+
+
+# -- the twenty-first slice: the cnn-vgg11 training step at compute_dtype bf16 -----
+
+
+def bf16_cnn_cases(torch, cnn, cfg):
+    """(kernel, label, args, kw, library fn or None, per-step launches,
+    unpadded cost args) of phase bf16_cnn (a): every call of a new route
+    (bf16 activations against f32 filters and weights) in the planned
+    cnn-vgg11 step at compute_dtype bf16 and batch 256, with that plan's
+    blocks (``plan_training(..., in_bytes=2)``), and the fused dX/dW kernel
+    at fc1 at batch 128 (its register kernel; fc1's call at 256 runs the
+    simple one).  Library yardsticks: cuDNN or cuBLAS at f32 on the upcast
+    operands (the upcast made before the timing), bf16 ``conv2d_weight``
+    for wgrad; none for the fused kernel."""
+    import torch.nn.functional as F
+
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.kernels.conv2d.bwd import dgrad_operands, wgrad_operands
+    from repro_torch.kernels.conv2d.im2col import strip_patches
+    from repro_torch.plan import pad_dim, round_up
+
+    g = torch.Generator(device="cuda").manual_seed(SEED + 51)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rand(*shape, s=1.0, dtype=bf):
+        return (torch.randn(shape, device="cuda", generator=g) * s).to(dtype)
+
+    def padded(t, *sizes):
+        for axis, size in enumerate(sizes):
+            t = pad_dim(t, axis, size)
+        return t.contiguous()
+
+    def nchw(t):
+        return t.permute(0, 3, 1, 2).float().contiguous()
+
+    plans = cnn.plan_training(cfg, BATCH, in_bytes=2)
+    calls = train_calls(cnn, cl, cfg, plans, BATCH, in_bytes=2)
+    for i, (name, x_shape, w_shape) in enumerate(cnn._stage_geometry(cfg, BATCH)):
+        if name.startswith("conv"):
+            B, H, _, ci = x_shape
+            co = w_shape[3]
+            x, dy = rand(*x_shape), rand(B, H, H, co)
+            f = rand(*w_shape, s=(9 * ci) ** -0.5, dtype=f32)
+            bias = rand(co, s=0.1, dtype=f32)
+            x_n, f_n = nchw(x), f.permute(3, 2, 0, 1).contiguous()
+            s = plans[name]
+            if s.algorithm == "im2col":
+                b = s.block_dict()
+                xp = F.pad(x, (0, 0, 1, 1, 1, 1))
+                a = strip_patches(xp, 0, min(b["block_h"], H), F=3, S=1, W_O=H)
+                wm = f.reshape(9 * ci, co)
+                bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+                a32 = a.float()
+                yield ("matmul", f"{name}.strip",
+                       (padded(a, round_up(a.shape[0], bm), round_up(9 * ci, bk)),
+                        padded(wm, round_up(9 * ci, bk), round_up(co, bn))),
+                       dict(block_m=bm, block_n=bn, block_k=bk, out_dtype=f32),
+                       lambda a32=a32, wm=wm: torch.matmul(a32, wm),
+                       calls.get(("matmul", f"{name}.strip"), 0), (a, wm))
+            else:
+                b = s.block_dict()
+                n_h = -(-H // b["block_h"])
+                pad_b = 1 + max(0, (n_h * b["block_h"] - 1) + 3 - (H + 2))
+                xp = F.pad(x, (0, 0, 1, 1, 1, pad_b)).contiguous()
+                kw = dict(stride=1, block_h=b["block_h"], block_do=b["block_do"],
+                          block_di=b["block_di"], H_O=H, W_O=H, relu=True, pool=2,
+                          emit_mask=True)
+                yield ("conv2d", name, (xp, f, bias), kw,
+                       lambda x_n=x_n, f_n=f_n, bias=bias: F.max_pool2d(
+                           F.relu(F.conv2d(x_n, f_n, bias, padding=1)), 2),
+                       calls.get(("conv2d", name), 0), (xp, f, bias))
+            b = plans[f"{name}.wgrad"].block_dict()
+            xq, gq, geo = wgrad_operands(x, dy, F=3, stride=1, padding=1,
+                                         block_h=b["block_h"])
+            x_b, dy_b = x.permute(0, 3, 1, 2).contiguous(), dy.permute(0, 3, 1, 2).contiguous()
+            kw = dict(geo, block_do=b["block_do"], block_di=b["block_di"])
+            yield ("conv2d_wgrad", f"{name}.wgrad", (xq, gq), kw,
+                   lambda x_b=x_b, dy_b=dy_b, w=(co, ci, 3, 3):
+                   torch.nn.grad.conv2d_weight(x_b, w, dy_b, padding=1),
+                   calls.get(("conv2d_wgrad", f"{name}.wgrad"), 0), (x, dy))
+            if i > 0:
+                b = plans[f"{name}.dgrad"].block_dict()
+                xq, ft, zb, geo = dgrad_operands(dy, f, stride=1, padding=1, out_hw=(H, H),
+                                                 block_h=b["block_h"])
+                dy_n = nchw(dy)
+                kw = dict(geo, block_do=b["block_do"], block_di=b["block_di"],
+                          out_dtype=f32)
+                yield ("conv2d", f"{name}.dgrad", (xq, ft, zb), kw,
+                       lambda dy_n=dy_n, f_n=f_n, xs=(B, ci, H, H):
+                       torch.nn.grad.conv2d_input(xs, f_n, dy_n, padding=1),
+                       calls.get(("conv2d", f"{name}.dgrad"), 0), (dy, ft, zb))
+            if s.algorithm == "im2col":  # the recompute conv of the backward, f32 out
+                r = cl.plan(x_shape, w_shape, stride=1, padding=1, pool=1, in_bytes=2)
+                if r.algorithm != "im2col":
+                    b = r.block_dict()
+                    n_h = -(-H // b["block_h"])
+                    pad_b = 1 + max(0, (n_h * b["block_h"] - 1) + 3 - (H + 2))
+                    xp = F.pad(x, (0, 0, 1, 1, 1, pad_b)).contiguous()
+                    kw = dict(stride=1, block_h=b["block_h"], block_do=b["block_do"],
+                              block_di=b["block_di"], H_O=H, W_O=H, relu=False, pool=1,
+                              out_dtype=f32)
+                    yield ("conv2d", f"{name}.recompute", (xp, f, bias), kw,
+                           lambda x_n=x_n, f_n=f_n, bias=bias: F.conv2d(x_n, f_n, bias,
+                                                                        padding=1),
+                           calls.get(("conv2d", f"{name}.recompute"), 0), (xp, f, bias))
+        elif name == "fc1":
+            m, k = x_shape
+            n = w_shape[1]
+            x, w, dy = rand(m, k), rand(k, n, s=k ** -0.5, dtype=f32), rand(m, n)
+            x32, dy32 = x.float(), dy.float()
+            b = plans[name].block_dict()
+            bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+            yield ("matmul", name, (padded(x, round_up(m, bm), round_up(k, bk)),
+                                    padded(w, round_up(k, bk), round_up(n, bn))),
+                   dict(block_m=bm, block_n=bn, block_k=bk),
+                   lambda x32=x32, w=w: torch.matmul(x32, w),
+                   calls.get(("matmul", name), 0), (x, w))
+            for batch in (BATCH, FUSED_BATCH):
+                s_dx = cnn.plan_training(cfg, batch, in_bytes=2)[f"{name}.dx"]
+                check(s_dx.algorithm == "fused_dxdw", f"bf16 {name} at {batch}: {s_dx}")
+                b = s_dx.block_dict()
+                bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+                xb, gb = x[:batch], dy[:batch]
+                yield ("matmul_dx_dw", f"{name}.dxdw.b{batch}",
+                       (padded(gb, round_up(batch, bm), round_up(n, bn)),
+                        padded(w, round_up(k, bk), round_up(n, bn)),
+                        padded(xb, round_up(batch, bm), round_up(k, bk))),
+                       dict(block_m=bm, block_n=bn, block_k=bk), None,
+                       calls.get(("matmul_dx_dw", f"{name}.dxdw"), 0) if batch == BATCH
+                       else 0, (gb, w, xb))
+
+
+def bf16_cnn_bound_ms(name: str, flops: float, nbytes: float) -> tuple[float, str]:
+    """The least time of a call of a CNN bf16 route: its operations at the
+    card's peak for their operands' types (a bf16 x bf16 product, wgrad's
+    and the fused kernel's dW half, at the bf16 tensor cores' 989 TFLOP/s;
+    a bf16 x f32 product at f32's 67 TFLOP/s) or its bytes at each
+    operand's own size over HBM3's 3.35 TB/s."""
+    bf16_share = {"conv2d_wgrad": 1.0, "matmul_dx_dw": 0.5}.get(name, 0.0)
+    t_ops = flops * (bf16_share / PEAK_BF16 + (1 - bf16_share) / PEAK_F32)
+    t_bytes = nbytes / HBM_BW
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_cnn_step(torch, cnn, cfg, kernels, results, card, batch: int) -> dict:
+    """(b)/(c): the planned cnn-vgg11 step at compute_dtype bf16 through
+    runtime/train.py::make_loss_fn at ``batch``, its launches read with the
+    counts zeroed just before; gated against the plain bf16 step on the
+    planned forward's decisions and the plain f32 step; timed."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import conv_layer as cl
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    plans = cnn.plan_training(cfg, batch, in_bytes=2)
+    per_step = per_kernel(train_calls(cnn, cl, cfg, plans, batch, in_bytes=2), kernels)
+    kw = dict(param_dtype="float32", learning_rate=3e-4, warmup_steps=1, total_steps=STEPS,
+              seed=SEED)
+    tcfgs = {"planned bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=True),
+             "plain bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=False),
+             "plain f32": TrainConfig(**kw, compute_dtype="float32", planned_kernels=False)}
+    params0 = init_params(cnn.param_defs(cfg), SEED, device="cuda")
+    batch0 = tr.batch_to(cnn.data_source(cfg, batch, ShardInfo(0, 1), seed=SEED)(0), "cuda")
+    zero_counts(kernels)
+    loss, grads, peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["planned bf16"]), params0,
+                              batch0)
+    launched = {n: k.launches for n, k in kernels.items()}
+    check(launched == per_step, f"bf16 cnn step {batch}: launches {launched} != {per_step}")
+    check(math.isfinite(loss), f"bf16 cnn step {batch}: loss {loss}")
+    for k, gr in grads.items():
+        check(gr.dtype == torch.float32 and bool(torch.isfinite(gr).all()),
+              f"bf16 cnn step {batch} grad {k}: {gr.dtype}, non-finite")
+    decisions = planned_decisions(torch, cfg, params0, batch0["images"].to(torch.bfloat16),
+                                  plans)
+    losses, peaks = {"planned bf16": loss}, {"planned bf16": peak}
+    losses["decided plain bf16"], decided_grads, _ = step1(
+        torch, lambda p, b: decided_plain_loss(torch, cfg, p, b, decisions,
+                                               dtype=torch.bfloat16), params0, batch0)
+    losses["plain f32"], f32_grads, peaks["plain f32"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain f32"]), params0, batch0)
+    losses["plain bf16"], plain_grads, peaks["plain bf16"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain bf16"]), params0, batch0)
+    # The gate's yardstick is the plain bf16 step that rounds where the
+    # planned route rounds (fc1's product included, which repro's plain
+    # route keeps in f32); the plain route's distance is reported beside it.
+    dist = {k: {"planned bf16": grad_distance(gr, f32_grads[k]),
+                "decided plain bf16": grad_distance(decided_grads[k], f32_grads[k]),
+                "plain bf16": grad_distance(plain_grads[k], f32_grads[k])}
+            for k, gr in grads.items()}
+    ratios = {k: v["planned bf16"] / max(v["decided plain bf16"], 1e-30)
+              for k, v in dist.items()}
+    rel = abs(loss - losses["decided plain bf16"]) / abs(losses["decided plain bf16"])
+    emit(phase="bf16_cnn", check="planned bf16 step", arch=cfg.name, batch=batch,
+         launches=launched, launches_per_step=per_step, losses=losses,
+         loss_rtol=BF16_LOSS_RTOL, loss_rel_diff=rel, grad_distance_from_plain_f32=dist,
+         grad_ratio=ratios, grad_ratio_limit=BF16_GRAD_RATIO, peak_memory_bytes=peaks,
+         schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
+                        "smem_bytes": s.vmem_bytes} for n, s in plans.items()})
+    check(rel <= BF16_LOSS_RTOL, f"bf16 cnn step {batch} loss {loss} vs {losses}")
+    for k, r in ratios.items():
+        check(r <= BF16_GRAD_RATIO, f"bf16 cnn step {batch} grad {k}: ratio {r} ({dist[k]})")
+    del grads, f32_grads, plain_grads, decided_grads
+    step_ms, step_dev = {}, {}
+    for name in ("planned bf16", "plain bf16"):
+        tcfg = tcfgs[name]
+        run = functools.partial(tr.make_train_step(cfg, tcfg),
+                                tr.init_state(cfg, tcfg, params0), batch0)
+        step_ms[name] = median_ms(run, reps=5, warmup=2)
+        step_dev[name] = device_time_ms(torch, run, reps=2)
+        del run
+    f32 = RUNS.get(f"cnn_planned_step_b{batch}", {})
+    step_ms["planned f32 (phase times)"] = f32.get("ms")
+    step_dev["planned f32 (phase times)"] = f32.get("device_ms")
+    emit(phase="bf16_cnn", check="step time", arch=cfg.name, batch=batch, card=card,
+         step_ms=step_ms, step_device_ms=step_dev,
+         images_per_s={k: batch / (t / 1e3) for k, t in step_ms.items() if t},
+         step_peak_memory_bytes=peak)
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_bf16_cnn(torch, cnn, cfg, kernels, results, card):
+    """The CNN's bf16 route.  (a) Each new route alone (bf16 activations
+    against f32 filters and weights) at every cnn-vgg11 shape of the
+    batch-256 bf16 step, against its plain version on the same operands
+    (TF32 off): bf16 outputs within one ulp at BF16_ULP_FLOOR, f32 outputs
+    within BF16_F32_TOL of scale, masks equal but for counted near-ties,
+    two launches the same bits; event and device ms, the plain version's
+    and one library call's ms, the bound.  (b) The planned bf16 step at
+    batch 256 through make_loss_fn: launches equal the plan (fc2 planned at
+    its f32 operands' 4 bytes), the loss within BF16_LOSS_RTOL of the plain
+    bf16 step on the planned forward's decisions (``decided_plain_loss``,
+    rounding where the planned route rounds), each gradient's distance from
+    the plain f32 step at most BF16_GRAD_RATIO times that plain bf16
+    step's (the plain route's, which keeps fc1's product in f32, reported
+    beside it); step ms beside phase times' f32 planned step.  (c) The same at
+    batch 128, where the fused dX/dW kernel serves fc1 (bf16) and fc2
+    (f32)."""
+    from repro_torch.kernels.conv2d.conv2d import conv2d_fused_plain
+
+    t_phase = time.perf_counter()
+    for name, label, args, kw, lib, per_step, unpadded in bf16_cnn_cases(torch, cnn, cfg):
+        kern = kernels[name]
+        before = kern.launches
+        outs, again = kern(*args, **kw), kern(*args, **kw)
+        refs = kern.plain(*args, **kw)
+        torch.cuda.synchronize()
+        check(kern.launches == before + 2, f"bf16_cnn {name} {label}: no launch")
+        outs, again, refs = ((t if isinstance(t, tuple) else (t,)) for t in (outs, again, refs))
+        check(all(bool(torch.equal(o, a)) for o, a in zip(outs, again)),
+              f"bf16_cnn {name} {label}: two launches differ")
+        gate = {}
+        if kw.get("emit_mask"):
+            (k_mask, p_mask), outs, refs = (outs[1], refs[1]), outs[:1], refs[:1]
+            gate["mask_differs"], gate["near_ties"] = mask_disagreements(
+                torch, lambda *a, **k: conv2d_fused_plain(*a, **k, out_dtype=torch.float32),
+                args, kw, k_mask, p_mask)
+        errs = []
+        for o, r in zip(outs, refs):
+            check(o.dtype == r.dtype, f"bf16_cnn {name} {label}: {o.dtype} {r.dtype}")
+            if o.dtype == torch.bfloat16:
+                u = ulp_check(torch, o, r)
+                check(u["max_ulps"] <= 1.0, f"bf16_cnn {name} {label}: {u}")
+                gate["max_ulps"] = max(gate.get("max_ulps", 0.0), u["max_ulps"])
+                errs.append(u["max_abs_err"])
+            else:
+                contraction = {"matmul": args[0].shape[1], "matmul_dx_dw": max(args[0].shape),
+                               "conv2d": 9 * args[0].shape[-1],
+                               "conv2d_wgrad": args[0].shape[0] * kw.get("H_O", 1) ** 2
+                               }[name]
+                tol = (BF16_F32_TOL * max(1.0, math.sqrt(contraction / BF16_F32_TOL_K))
+                       * scale(r))
+                err = max_err(o, r)
+                check(err <= tol, f"bf16_cnn {name} {label}: err {err} > {tol}")
+                gate.update(tolerance=tol, contraction=contraction)
+                errs.append(err)
+        err = max(errs)
+        results[name]["bf16_cnn_max_abs_err"] = max(
+            results[name].get("bf16_cnn_max_abs_err", 0.0), err)
+        del outs, again, refs
+        t = route_times(torch, name, kern, args, kw, lib, reps=3)
+        cost = cost_record(kern, *unpadded, **kw)
+        b_ms, b_by = bf16_cnn_bound_ms(name, cost["flops"], cost["nbytes"])
+        call = dict(case=label, per_step=per_step, step_batch=BATCH, dtypes=[
+            str(a.dtype).removeprefix("torch.") for a in args], max_abs_err=err, **gate,
+            **t, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["ms"],
+            library_over_port=(t["library_ms"] / t["ms"] if t["library_ms"] else None),
+            **(template_record(name, args, kw)
+               if name in ("conv2d", "matmul", "matmul_dx_dw") else
+               split_record(name, args, kw)),
+            flops=cost["flops"], bytes=cost["nbytes"],
+            peaks="bf16 x f32 products at f32's 67 TFLOP/s, bf16 x bf16 (wgrad) at 989; "
+                  "HBM3 3.35 TB/s (H100 SXM data sheet, 700 W)")
+        if per_step and "template" in call:
+            check(call["template"] == "register" or name == "matmul_dx_dw",
+                  f"bf16_cnn {name} {label}: a main-path call on the simple kernel")
+        results[name].setdefault("bf16_cnn_calls", []).append(call)
+        emit(phase="bf16_cnn", kernel=name, card=card, **call)
+        del args, unpadded, lib
+        torch.cuda.empty_cache()
+    for batch in (BATCH, FUSED_BATCH):
+        launched = bf16_cnn_step(torch, cnn, cfg, kernels, results, card, batch)
+        path = "bf16_cnn" if batch == BATCH else f"bf16_cnn_b{batch}"
+        for name in kernels:
+            results[name]["launches_by_path"][path] = launched[name]
+    emit(phase="bf16_cnn", seconds=time.perf_counter() - t_phase)
 
 
 def burst_ms(fn, n: int) -> float:
@@ -1164,12 +1481,12 @@ def mask_disagreements(torch, plain_fn, args, kw, k_mask, p_mask):
 # -- the backward cases: every backward shape of the cnn-vgg11 training step -------
 
 
-def train_calls(cnn, cl, cfg, plans, batch) -> dict:
+def train_calls(cnn, cl, cfg, plans, batch, in_bytes: int = 4) -> dict:
     """Launches of each kernel that one planned training step makes, by
     call: {(kernel, label): count}.  conv0's dgrad never runs (the images
     need no gradient); a stage whose forward runs im2col saves no mask and
     recomputes its pre-epilogue activation with the planner's pool-free
-    conv."""
+    conv (planned at the activations' ``in_bytes``)."""
     calls = {}
 
     def add(kernel, label, n=1):
@@ -1180,8 +1497,8 @@ def train_calls(cnn, cl, cfg, plans, batch) -> dict:
         if name.startswith("conv"):
             convs = [(s, name)]
             if s.algorithm == "im2col":
-                convs.append((cl.plan(x_shape, w_shape, stride=1, padding=1, pool=1),
-                              f"{name}.recompute"))
+                convs.append((cl.plan(x_shape, w_shape, stride=1, padding=1, pool=1,
+                                      in_bytes=in_bytes), f"{name}.recompute"))
             for c, label in convs:
                 if c.algorithm == "im2col":
                     add("matmul", f"{name}.strip", c.grid[0])  # one GEMM per strip
@@ -1430,31 +1747,33 @@ def split_record(kernel, args, kw) -> dict:
     from repro_torch.kernels.matmul import bwd as mb
     from repro_torch.kernels.matmul.matmul import mm_partial_bytes, mm_split
 
+    # each operand's staged size: the activations' (first) and the weights'
+    sizes = dict(in_bytes=args[0].element_size(), w_bytes=args[1].element_size())
     if kernel == "matmul":
         (m, k), n = args[0].shape, args[1].shape[1]
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
-        split = mm_split(m=m, n=n, k=k, **blocks)
+        split = mm_split(m=m, n=n, k=k, **blocks, **sizes)
         return {"split": split, "partial_bytes": mm_partial_bytes(m=m, n=n, split=split)}
     if kernel == "matmul_nt":
         (m, n), k = args[0].shape, args[1].shape[0]
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
-        split = mb.nt_split(m=m, n=n, k=k, **blocks)
+        split = mb.nt_split(m=m, n=n, k=k, **blocks, **sizes)
         return {"split": split, "partial_bytes": mb.nt_partial_bytes(m=m, k=k, split=split)}
     if kernel == "matmul_tn":
         (m, k), n = args[0].shape, args[1].shape[1]
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
-        split = mb.tn_split(m=m, n=n, k=k, **blocks)
+        split = mb.tn_split(m=m, n=n, k=k, **blocks, in_bytes=sizes["in_bytes"])
         return {"split": split, "partial_bytes": mb.tn_partial_bytes(k=k, n=n, split=split)}
     if kernel == "matmul_dx_dw":
         (m, n), k = args[0].shape, args[1].shape[0]
         blocks = {b: kw[b] for b in ("block_m", "block_n", "block_k")}
-        split = mb.dxdw_split(m=m, n=n, k=k, **blocks)
+        split = mb.dxdw_split(m=m, n=n, k=k, **blocks, **sizes)
         return {"split": split, "partial_bytes": mb.nt_partial_bytes(m=m, k=k, split=split)}
     B = args[0].shape[0]
     d_in, d_out = (cb.wgrad_channels(t.shape[-1]) for t in args)
     smem = cb.wgrad_smem_bytes(block_h=kw["block_h"], block_do=kw["block_do"],
                                block_di=kw["block_di"], W_O=kw["W_O"], F=kw["F"],
-                               S=kw["stride"])
+                               S=kw["stride"], in_bytes=sizes["in_bytes"])
     split = cb.wgrad_split(d_in=d_in, d_out=d_out, block_di=kw["block_di"],
                            block_do=kw["block_do"], batch=B,
                            n_h=args[1].shape[1] // kw["block_h"], smem_bytes=smem)
@@ -1477,7 +1796,8 @@ def template_record(kernel, args, kw) -> dict:
 
     if kernel == "matmul_dx_dw":
         return dict(template=dxdw_template(kw["block_m"], kw["block_n"], kw["block_k"],
-                                           args[0].shape[0]),
+                                           args[0].shape[0],
+                                           mixed=args[1].dtype != args[0].dtype),
                     **split_record(kernel, args, kw))
     if kernel in ("matmul", "matmul_tn"):
         pick = template if kernel == "matmul" else tn_template
@@ -1595,7 +1915,8 @@ def planned_decisions(torch, cfg, params, images, plans) -> dict:
                                        schedule=plans[f"conv{i}"])
             if mask is None:
                 y0 = conv2d(x, f, bias=b, stride=1, padding=1, relu=False, pool=1,
-                            schedule=plans.get(f"conv{i}.recompute"))
+                            schedule=plans.get(f"conv{i}.recompute"),
+                            out_dtype=torch.float32)
                 mask = pool_windows(torch, y0).argmax(-1)
             out[f"conv{i}"], x = mask.long(), y
         h = fc_layer(x.reshape(x.shape[0], -1), params["fc1"], plans["fc1"])
@@ -1603,21 +1924,27 @@ def planned_decisions(torch, cfg, params, images, plans) -> dict:
     return out
 
 
-def decided_plain_loss(torch, cfg, params, batch, decisions):
+def decided_plain_loss(torch, cfg, params, batch, decisions, dtype=None):
     """The plain step's loss — cuDNN convolutions, cuBLAS matmuls, torch
     autograd — with every ReLU/max-pool decision taken from ``decisions``
     instead of its own forward, so its gradients differ from the planned
-    step's only by the order of their sums."""
+    step's only by the order of their sums.  With ``dtype`` bf16 it rounds
+    where the planned bf16 step rounds: the images, each conv stage's
+    pooled output and fc1's product (f32 convolutions and products of the
+    bf16 values against the f32 parameters, as the kernels compute them)."""
     import torch.nn.functional as F
 
-    x = batch["images"]
+    def rounded(t):
+        return t if dtype is None else t.to(dtype).float()
+
+    x = rounded(batch["images"])
     for i in range(cfg.n_layers):
         f, b = params[f"conv{i}"], params[f"bias{i}"]
         y = F.conv2d(x.permute(0, 3, 1, 2), f.permute(3, 2, 0, 1), b, padding=1)
         win = pool_windows(torch, y.permute(0, 2, 3, 1))
-        x = win.gather(-1, decisions[f"conv{i}"][..., None])[..., 0]
+        x = rounded(win.gather(-1, decisions[f"conv{i}"][..., None])[..., 0])
     x = x.reshape(x.shape[0], -1)
-    h = (x @ params["fc1"] + params["fc1_b"]) * decisions["fc1"]
+    h = (rounded(x @ params["fc1"]) + params["fc1_b"]) * decisions["fc1"]
     return F.cross_entropy(h @ params["fc2"] + params["fc2_b"], batch["labels"].long())
 
 
@@ -1826,10 +2153,12 @@ def phase_times(torch, plans, cnn, cfg, params, images, card, results, kernels, 
                                    tr.init_state(cfg, tc, params0), batches[0])
            for name, tc in tcfgs.items()}
     step_ms = {name: median_ms(fn, reps=10) for name, fn in run.items()}
+    RUNS[f"cnn_planned_step_b{BATCH}"] = {"ms": step_ms["planned"]}
     emit(phase="times", train_step_ms=step_ms,
          train_images_per_s={k: BATCH / (t / 1e3) for k, t in step_ms.items()},
          batch=BATCH, card=card)
-    profile(torch, "train_step", run["planned"], card, grad=True)
+    RUNS[f"cnn_planned_step_b{BATCH}"]["device_ms"] = profile(
+        torch, "train_step", run["planned"], card, grad=True)
 
 
 def device_kernels(torch, prof, reps: int = 1):
@@ -7057,6 +7386,12 @@ def main() -> int:
     for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
         check(results[name]["launches_by_path"]["bf16"] > 0,
               f"{name}: no launch on the bf16 path")
+    phase_bf16_cnn(torch, cnn, cfg, kernels, results, card)
+    for name in ("conv2d", "conv2d_wgrad", "matmul", "matmul_nt", "matmul_tn"):
+        check(results[name]["launches_by_path"]["bf16_cnn"] > 0,
+              f"{name}: no launch on the bf16_cnn path")
+    check(results["matmul_dx_dw"]["launches_by_path"][f"bf16_cnn_b{FUSED_BATCH}"] == 2,
+          "matmul_dx_dw: not fc1's and fc2's launch on the bf16_cnn batch-128 path")
     phase_tokens_mesh(torch, kernels, results, card)
     for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
         check(results[name]["launches_by_path"]["tokens_mesh"] > 0,
@@ -7137,6 +7472,16 @@ def main() -> int:
                                  max_ulps=max(c.get("max_ulps", 0.0) for c in bf16),
                                  per_step_of=TFM_ARCH if bf16[0]["per_step"] else bf16[0]["case"],
                                  peaks=PEAKS_BF16)
+        cnn_bf16 = r.get("bf16_cnn_calls", [])
+        if cnn_bf16:
+            # The CNN's bf16 route: the batch-256 bf16 step's calls (the fused
+            # kernel, which that step runs once, over its calls at 256 and 128).
+            step = [c for c in cnn_bf16 if c["per_step"]] or [dict(c, per_step=1)
+                                                              for c in cnn_bf16]
+            entry["bf16_cnn"] = dict(step_sums(step),
+                                     max_abs_err=r["bf16_cnn_max_abs_err"],
+                                     per_step_of=f"{cfg.name} bf16 at {BATCH}",
+                                     cases=[c["case"] for c in step])
         entries.append(entry)
     emit(script_seconds=time.perf_counter() - t_script)
     emit(kernels=entries)

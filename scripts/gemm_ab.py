@@ -68,14 +68,18 @@ print(json.dumps({"times_ms": times}))
 """
 
 
-def main(trees: list[str]) -> int:
-    work = Path(tempfile.mkdtemp(prefix="gemm_ab_"))
+def main(trees: list[str], cases=CASES, run: str = RUN, prefix: str = "gemm_ab_") -> int:
+    """Run ``run`` (which reads CASES and writes OUT) in each tree in turn,
+    print each tree's times, then whether every tree gave the same bits;
+    1 when they differ.  ``scripts/conv_ab.py`` runs the conv kernels
+    through it."""
+    work = Path(tempfile.mkdtemp(prefix=prefix))
     runs = []
     for i, tree in enumerate(trees):
         root = Path(tree).resolve()
         out = work / f"run{i}.pt"
         env = dict(os.environ, PYTHONPATH=str(root / "src"))
-        script = f"CASES = {CASES!r}\nOUT = {str(out)!r}\n" + RUN
+        script = f"CASES = {cases!r}\nOUT = {str(out)!r}\n" + run
         proc = subprocess.run([sys.executable, "-c", script], env=env, cwd=root,
                               capture_output=True, text=True)
         if proc.returncode:
@@ -90,7 +94,7 @@ def main(trees: list[str]) -> int:
     outs = [torch.load(p) for p in runs]
     same = {label: all(all(torch.equal(a, b) for a, b in zip(o[label], outs[0][label]))
                        for o in outs[1:])
-            for label, *_ in CASES}
+            for label in outs[0]}
     print(json.dumps({"bit_identical": same, "trees": trees}), flush=True)
     return 0 if all(same.values()) else 1
 

@@ -23,8 +23,11 @@ kernel for dF, each scheduled by its own planner — pin them with
 :func:`plan_bwd`).  :func:`conv_block` saves the forward kernel's int8
 epilogue mask and scatters dY through it (no recompute conv); where the
 forward cannot emit one (im2col schedules, ragged pool tails) the backward
-recomputes the pre-epilogue activation.  dX is skipped when the input
-needs no gradient (a model's images).  :func:`traffic` gives the paper's
+recomputes the pre-epilogue activation (in f32).  dY keeps its dtype
+into the kernels (bf16 on the CNN's bf16 route, as ``repro``'s kernels
+receive it), which write f32 dX and dW, cast to x's and f's dtypes; the
+bias gradient is dY's sum in f32.  dX is skipped when the input needs no
+gradient (a model's images).  :func:`traffic` gives the paper's
 closed-form traffic of each strategy on a machine (Manticore by default).  A backward schedule that does not
 fit its machine raises on the card; on CPU tensors it warns once and runs
 the kernels' plain versions with its blocks.
@@ -45,6 +48,7 @@ from repro_torch.kernels.conv2d.ops import (
     _fused_pool, _zero_bias, conv2d, conv2d_with_mask, conv_out_extent,
 )
 from repro_torch.kernels.conv2d.ref import maxpool_ref
+from repro_torch.kernels.matmul.matmul import unrounded_dtype
 from repro_torch.plan import Schedule, ShardedSchedule, get_op, local_schedule
 from repro_torch.plan.planners import PlanRejected
 from repro_torch.plan.registry import with_reference_vjp
@@ -155,7 +159,7 @@ def _conv_layer_kernel(x, f, stride, padding, strategy, schedule, bwd_schedules)
 def _conv_layer_bwd(x, f, g, stride, padding, strategy, schedule, bwd_schedules,
                     *, needs):
     del strategy, schedule
-    dx, dw, _ = _planned_conv_backward(x, f, g.float(), stride, padding,
+    dx, dw, _ = _planned_conv_backward(x, f, g, stride, padding,
                                        dict(bwd_schedules or ()), needs_dx=needs[0])
     return dx, dw
 
@@ -204,14 +208,18 @@ def _conv_block_fwd(x, f, b, stride, padding, pool, strategy, schedule,
 
 
 def _bias_grad(dy, b):
-    return dy.sum(tuple(range(dy.ndim - 1))).to(b.dtype)
+    """db: dY summed over every axis but the channels, in f32 where dY is
+    bf16 (``repro`` sums the f32 upcast of its cotangent), cast to b's
+    dtype."""
+    dims = tuple(range(dy.ndim - 1))
+    db = dy.sum(dims, dtype=torch.float32) if dy.dtype == torch.bfloat16 else dy.sum(dims)
+    return db.to(b.dtype)
 
 
 def _conv_block_bwd(x, f, b, aux, g, stride, padding, pool, strategy, schedule,
                     bwd_schedules, *, needs):
     del strategy, schedule
     sd = dict(bwd_schedules or ())
-    g = g.float()
     needs_dx = needs[0]
     if aux is not None:
         # Fused-epilogue backward: dY scatters through the saved mask; no
@@ -219,10 +227,11 @@ def _conv_block_bwd(x, f, b, aux, g, stride, padding, pool, strategy, schedule,
         dx, dw, dy = _planned_conv_backward(x, f, g, stride, padding, sd,
                                             needs_dx=needs_dx, mask=aux, pool=pool)
     else:
-        # No mask: rematerialize the pre-epilogue activation with the planned
-        # forward kernel, backprop ReLU/pool in plain PyTorch, then run the
-        # planned transposed kernels on dY.  An unfit pinned recompute
-        # schedule is dropped (loudly, once) for the planner's own.
+        # No mask: rematerialize the pre-epilogue activation (in f32, as
+        # repro's out_dtype=f32) with the planned forward kernel, backprop
+        # ReLU/pool in plain PyTorch, then run the planned transposed kernels
+        # on dY.  An unfit pinned recompute schedule is dropped (loudly,
+        # once) for the planner's own.
         recompute = local_schedule(sd.get("recompute"))
         if recompute is not None:
             m = machine_named(recompute.machine, _BWD_MACHINE)
@@ -230,20 +239,22 @@ def _conv_block_bwd(x, f, b, aux, g, stride, padding, pool, strategy, schedule,
                 warn_unfit_schedule("recompute", recompute, m)
                 recompute = None
         y0 = conv2d(x, f, bias=b, stride=stride, padding=padding, relu=False,
-                    pool=1, schedule=recompute)
+                    pool=1, schedule=recompute, out_dtype=unrounded_dtype(x.dtype))
         dx, dw, dy = _planned_conv_backward(x, f, _epilogue_vjp(y0, g, pool), stride,
                                             padding, sd, needs_dx=needs_dx)
     return dx, dw, _bias_grad(dy, b)
 
 
 def _epilogue_vjp(y0, g, pool):
-    """dY of the ReLU (+ pool) epilogue at the pre-epilogue activation."""
+    """dY of the ReLU (+ pool) epilogue at the pre-epilogue activation, in
+    g's dtype: the decisions are taken on ``y0`` (f32), the VJP routes g's
+    values (a tie splits them evenly, exact at a 2- or 4-way tie)."""
     with torch.enable_grad():
         y = y0.detach().requires_grad_(True)
         out = torch.relu(y)
         if pool > 1:
             out = maxpool_ref(out, pool)
-        return torch.autograd.grad(out, y, g)[0]
+        return torch.autograd.grad(out, y, g.to(y0.dtype))[0].to(g.dtype)
 
 
 _conv_block_vjp = with_reference_vjp(

@@ -19,7 +19,13 @@
   the shapes (:func:`wgrad_split`) so the grid fills the card's resident
   block slots; partial f32 slabs are summed in a fixed order.  The
   launch pads both channel axes to multiples of 4
-  (:func:`wgrad_channels`) for the kernel's 16-byte copies.
+  (:func:`wgrad_channels`) for the kernel's four-element copies.
+
+On the CNN's bf16 route dY stays bf16 (as ``repro``'s backward keeps
+``dy.dtype``): dgrad runs the conv kernel's bf16-input route against the
+f32 filters and writes f32, wgrad takes bf16 X and dY and writes f32; the
+caller casts dX to x's dtype and dW to f's.  A bf16 dY is exactly its f32
+upcast, so both equal ``repro``'s f32 sums of the same products.
 
 Both ops take an optional ``mask``/``pool`` pair — the int8
 pool-argmax/ReLU mask the forward kernel emitted.  Then ``dy`` is the
@@ -40,7 +46,8 @@ from repro_torch.kernels.conv2d.ref import conv2d_ref
 from repro_torch.plan import (
     ConvDgradPlanner, ConvWgradPlanner, Schedule, cuda_op, pad_dim,
 )
-from repro_torch.plan.registry import CudaKernel
+from repro_torch.kernels.matmul.matmul import plain_matmul, stage_bytes, unrounded_dtype
+from repro_torch.plan.registry import CudaKernel, activation_dtype
 
 LANE = 8  # output channels of one thread item
 MAX_GRID_YZ = 65535
@@ -56,11 +63,11 @@ def epilogue_scatter(g: torch.Tensor, mask: torch.Tensor, pool: int) -> torch.Te
     ``g`` [..., Hp, Wp, C] to the argmax position of each pool window (zero
     elsewhere; the int8 mask holds the index in [0, pool^2), or pool^2 for
     a dead all-ReLU-clamped window), returning the full-rate dY
-    [..., Hp*pool, Wp*pool, C] in f32.  With ``pool == 1`` the mask is the
-    ReLU liveness bit (0 alive, 1 dead).  Winner-take-all on exact
-    pool-window ties, as in ``repro``."""
+    [..., Hp*pool, Wp*pool, C] in ``g``'s dtype (a routing of its values:
+    nothing rounds).  With ``pool == 1`` the mask is the ReLU liveness bit
+    (0 alive, 1 dead).  Winner-take-all on exact pool-window ties, as in
+    ``repro``."""
     m = mask.long()
-    g = g.float()
     if pool == 1:
         return torch.where(m == 0, g, torch.zeros_like(g))
     p2 = pool * pool
@@ -179,7 +186,8 @@ def _dgrad_impl(dy, f, *, schedule, stride=1, padding=0, out_hw=None, mask=None,
     xp, ft, bias, geo = dgrad_operands(dy, f, stride=stride, padding=padding,
                                        out_hw=out_hw, block_h=schedule.block("block_h"))
     out = conv2d_kernel(xp, ft, bias, block_do=schedule.block("block_do"),
-                        block_di=schedule.block("block_di"), **geo)
+                        block_di=schedule.block("block_di"),
+                        out_dtype=unrounded_dtype(xp.dtype), **geo)
     dx = out[:, :geo["H_O"]]
     return dx if batched else dx[0]
 
@@ -226,22 +234,23 @@ def conv2d_wgrad_ref(x, dy, *, F: int, stride: int = 1, padding: int = 0):
 
 
 def wgrad_smem_bytes(*, block_h: int, block_do: int, block_di: int, W_O: int,
-                     F: int, S: int) -> int:
+                     F: int, S: int, in_bytes: int = 4) -> int:
     """Shared memory one wgrad block allocates: the F*F*bdi*bdo f32
-    accumulator and two stages of the halo'd X strip and the dY strip
-    (== ConvWgradPlanner's H100 budget term)."""
+    accumulator and two stages of the halo'd X strip and the dY strip at
+    ``in_bytes`` an element (== ConvWgradPlanner's H100 budget term)."""
     h_halo, w_str = (block_h - 1) * S + F, (W_O - 1) * S + F
-    return 4 * (F * F * block_di * block_do
-                + 2 * (h_halo * w_str * block_di + block_h * W_O * block_do))
+    return (4 * F * F * block_di * block_do
+            + 2 * in_bytes * (h_halo * w_str * block_di + block_h * W_O * block_do))
 
 
 def wgrad_supported_blocks(*, block_h: int, block_do: int, block_di: int,
-                           W_O: int, F: int, S: int) -> bool:
+                           W_O: int, F: int, S: int, in_bytes: int = 4) -> bool:
     """The blocks the wgrad kernel takes: a multiple-of-8 gradient stack
-    and tiles that fit one block's shared memory."""
+    and tiles (X and dY at ``in_bytes`` an element) that fit one block's
+    shared memory."""
     return (block_do > 0 and block_do % LANE == 0 and block_di > 0 and block_h > 0
             and wgrad_smem_bytes(block_h=block_h, block_do=block_do,
-                                 block_di=block_di, W_O=W_O, F=F, S=S)
+                                 block_di=block_di, W_O=W_O, F=F, S=S, in_bytes=in_bytes)
             <= H100.local_mem_bytes)
 
 
@@ -284,8 +293,10 @@ def _check_wgrad(x_pad, dy, *, F, stride, block_h, block_do, block_di, H_O, W_O)
                          f"dy={tuple(dy.shape)}")
     B, H_in, W_in, _ = x_pad.shape
     _, H_g, W_g, _ = dy.shape
+    in_bytes = stage_bytes(activation_dtype("conv2d_wgrad", x=x_pad, dy=dy))
     if not wgrad_supported_blocks(block_h=block_h, block_do=block_do,
-                                  block_di=block_di, W_O=W_O, F=F, S=stride):
+                                  block_di=block_di, W_O=W_O, F=F, S=stride,
+                                  in_bytes=in_bytes):
         raise ValueError(f"conv2d_wgrad kernel does not take blocks (h={block_h}, "
                          f"do={block_do}, di={block_di}) at W_O={W_O}, F={F}, "
                          f"S={stride}")
@@ -303,14 +314,15 @@ def conv2d_wgrad_plain(x_pad, dy, *, F: int, stride: int, block_h: int,
                        block_do: int, block_di: int, H_O: int, W_O: int):
     """The wgrad kernel's function in plain PyTorch (same contract, same
     checks): dW[ky, kx] = window(ky, kx)^T @ dY over every (image, strip)
-    row, one matmul per filter tap.  On the card it needs TF32 off to be
-    an f32 reference."""
+    row, one matmul per filter tap; bf16 operands multiplied in f32 (dW is
+    f32).  On the card it needs TF32 off to be an f32 reference."""
     B, n_h = _check_wgrad(x_pad, dy, F=F, stride=stride, block_h=block_h,
                           block_do=block_do, block_di=block_di, H_O=H_O, W_O=W_O)
     rows, S = n_h * block_h, stride
     g = dy.reshape(-1, dy.shape[-1])
-    taps = [x_pad[:, ky: ky + (rows - 1) * S + 1: S, kx: kx + (W_O - 1) * S + 1: S]
-            .reshape(-1, x_pad.shape[-1]).t() @ g
+    taps = [plain_matmul(x_pad[:, ky: ky + (rows - 1) * S + 1: S,
+                               kx: kx + (W_O - 1) * S + 1: S]
+                         .reshape(-1, x_pad.shape[-1]).t(), g)
             for ky in range(F) for kx in range(F)]
     return torch.stack(taps).reshape(F, F, x_pad.shape[-1], dy.shape[-1])
 
@@ -331,25 +343,19 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
                   block_h: int, block_do: int, block_di: int, H_O: int, W_O: int):
     B, n_h = _check_wgrad(x_pad, dy, F=F, stride=stride, block_h=block_h,
                           block_do=block_do, block_di=block_di, H_O=H_O, W_O=W_O)
-    for name, t in (("x", x_pad), ("dy", dy)):
-        if t.dtype == torch.bfloat16:
-            raise ValueError(f"conv2d_wgrad kernel: no bf16 route yet for {name} (the CNN's "
-                             "bf16 route through the conv kernels is ROADMAP queue 1 #11)")
-        if t.dtype != torch.float32 or not t.is_contiguous():
-            raise ValueError(f"conv2d_wgrad kernel takes contiguous float32 {name}, "
-                             f"got {t.dtype} (contiguous={t.is_contiguous()})")
     d_in, d_out = x_pad.shape[-1], dy.shape[-1]
     if -(-d_out // block_do) > MAX_GRID_YZ:
         raise ValueError(f"conv2d_wgrad: {d_out} channels over stacks of {block_do} "
                          "exceed the grid")
     xk, gk = wgrad_pad_channels(x_pad, dy)
+    route = kernel.operand_dtype(x=xk, dy=gk)
     _, H_in, W_in, d_ik = xk.shape
     d_ok = gk.shape[-1]
     split = wgrad_split(d_in=d_ik, d_out=d_ok, block_di=block_di, block_do=block_do,
                         batch=B, n_h=n_h,
                         smem_bytes=wgrad_smem_bytes(block_h=block_h, block_do=block_do,
                                                     block_di=block_di, W_O=W_O, F=F,
-                                                    S=stride))
+                                                    S=stride, in_bytes=xk.element_size()))
     out = torch.empty((F, F, d_ik, d_ok), dtype=torch.float32, device=x_pad.device)
     part = (torch.empty((split, F, F, d_ik, d_ok), dtype=torch.float32,
                         device=x_pad.device) if split > 1 else None)
@@ -357,7 +363,7 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
                ctypes.c_void_p(out.data_ptr()),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                B, H_in, W_in, d_ik, d_ok, F, stride, W_O, n_h, block_h,
-               block_di, block_do, split)
+               block_di, block_do, split, dtype=route)
     if (d_ik, d_ok) != (d_in, d_out):
         out = out[:, :, :d_in, :d_out].contiguous()
     return out
@@ -365,6 +371,7 @@ def _launch_wgrad(kernel: CudaKernel, x_pad, dy, *, F: int, stride: int,
 
 conv2d_wgrad_kernel = CudaKernel(
     "conv2d_wgrad", source="conv2d_wgrad", symbol="repro_conv2d_wgrad_f32",
+    bf16_symbol="repro_conv2d_wgrad_bf16",
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
     launch=_launch_wgrad, plain=conv2d_wgrad_plain, cost=conv2d_wgrad_cost,
 )
@@ -395,7 +402,7 @@ def wgrad_operands(x, dy, *, F: int, stride: int, padding: int, block_h: int):
     n_h = -(-H_O // hb)
     pad_bottom = P + max(0, (n_h * hb - 1) * S + F - (H + 2 * P))
     xp = nnf.pad(x, (0, 0, P, P, P, pad_bottom)).contiguous()
-    gp = nnf.pad(dy.float(), (0, 0, 0, 0, 0, n_h * hb - H_O)).contiguous()
+    gp = nnf.pad(dy, (0, 0, 0, 0, 0, n_h * hb - H_O)).contiguous()
     return xp, gp, dict(F=F, stride=S, block_h=hb, H_O=H_O, W_O=W_O)
 
 

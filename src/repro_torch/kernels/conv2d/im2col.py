@@ -6,8 +6,11 @@ slicing — strip at a time, like the XLA code of
 ``repro/kernels/conv2d/im2col.py`` — and multiplies it by the reshaped
 ``[F*F*d_in, d_out]`` filter matrix on the blocked matmul kernel, whose
 blocking :class:`repro_torch.plan.Im2colConvPlanner` delegates to
-``MatmulPlanner``.  Bias, ReLU and pool stay unfused, as in the reference.  On a mesh the op's ``sharded_impl`` runs
-the "batch" and "stack" partitions, each rank its shard's GEMMs.
+``MatmulPlanner``.  The GEMM writes f32 (bf16 patches against the f32
+filter matrix on the bf16 route); bias, ReLU and pool run unfused on it and
+the result is rounded once to x's dtype, as in the reference.  On a mesh
+the op's ``sharded_impl`` runs the "batch" and "stack" partitions, each
+rank its shard's GEMMs.
 """
 
 from __future__ import annotations
@@ -18,14 +21,14 @@ import torch.nn.functional as F
 from repro_torch.core.machine import H100, MachineModel
 from repro_torch.kernels.conv2d.ops import _fused_pool, _zero_bias, conv_out_extent
 from repro_torch.kernels.conv2d.ref import maxpool_ref
-from repro_torch.kernels.matmul.matmul import matmul_kernel
+from repro_torch.kernels.matmul.matmul import matmul_kernel, unrounded_dtype
 from repro_torch.plan import Im2colConvPlanner, Schedule, cuda_op, pad_dim, round_up
 from repro_torch.plan.sharded import partition_specs
 from repro_torch.runtime import collectives as coll
 
 
 def _shape_args(x, f, bias=None, *, stride=1, padding=0, relu=False, pool=1,
-                block_h=None, block_m=None, block_n=None, block_k=None):
+                block_h=None, block_m=None, block_n=None, block_k=None, out_dtype=None):
     """Planner shapes from concrete operands (the op registry contract)."""
     B = x.shape[0] if x.ndim == 4 else 1
     H, W, d_in = x.shape[-3], x.shape[-2], x.shape[-1]
@@ -51,7 +54,8 @@ def strip_patches(xp: torch.Tensor, h0: int, rows: int, *, F: int, S: int,
     return torch.stack(cols, dim=3).reshape(B * rows * W_O, F * F * d_in)
 
 
-def _conv2d_im2col_impl(x, f, bias, *, stride, padding, relu, pool, schedule):
+def _conv2d_im2col_impl(x, f, bias, *, stride, padding, relu, pool, schedule,
+                        out_dtype=None):
     batched = x.ndim == 4
     if not batched:
         x = x[None]
@@ -82,25 +86,29 @@ def _conv2d_im2col_impl(x, f, bias, *, stride, padding, relu, pool, schedule):
         a = strip_patches(xp, h0, rows, F=Fk, S=S, W_O=W_O)
         m = a.shape[0]
         ap = pad_dim(pad_dim(a, 0, round_up(m, bm)), 1, kp).contiguous()
-        o = matmul_kernel(ap, wmat, block_m=bm, block_n=bn, block_k=bk)
+        o = matmul_kernel(ap, wmat, block_m=bm, block_n=bn, block_k=bk,
+                          out_dtype=unrounded_dtype(ap.dtype))
         strips.append(o[:m, :d_out].reshape(B, rows, W_O, d_out))
     out = torch.cat(strips, dim=1) + bias.float()
     if relu:
         out = torch.relu(out)
     if pool > 1:  # unfused epilogue (the direct kernel fuses this)
         out = maxpool_ref(out, pool)
+    out = out.to(out_dtype or x.dtype)
     return out if batched else out[0]
 
 
 def _impl(x, f, bias, *, schedule, stride=1, padding=0, relu=False, pool=1,
-          block_h=None, block_m=None, block_n=None, block_k=None):
+          block_h=None, block_m=None, block_n=None, block_k=None, out_dtype=None):
     del block_h, block_m, block_n, block_k  # consumed by the planner
     return _conv2d_im2col_impl(x, f, bias, stride=stride, padding=padding,
-                               relu=relu, pool=int(pool), schedule=schedule)
+                               relu=relu, pool=int(pool), schedule=schedule,
+                               out_dtype=out_dtype)
 
 
 def _sharded_impl(x, f, bias, *, schedule, mesh, stride=1, padding=0, relu=False,
-                  pool=1, block_h=None, block_m=None, block_n=None, block_k=None):
+                  pool=1, block_h=None, block_m=None, block_n=None, block_k=None,
+                  out_dtype=None):
     """Data-parallel im2col conv from a ShardedSchedule: the same
     "batch"/"stack" partitions as the direct op (each rank runs the
     planned per-shard GEMM schedule on its shard), specs from
@@ -116,7 +124,8 @@ def _sharded_impl(x, f, bias, *, schedule, mesh, stride=1, padding=0, relu=False
 
     def fn(xl, fl, bl):
         return _conv2d_im2col_impl(xl, fl, bl, stride=stride, padding=padding, relu=relu,
-                                   pool=int(pool), schedule=schedule.schedule)
+                                   pool=int(pool), schedule=schedule.schedule,
+                                   out_dtype=out_dtype)
 
     out = coll.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
                          axis=schedule.axis)(x, f, bias)
@@ -135,6 +144,7 @@ def conv2d_im2col(
     schedule: Schedule | None = None, block_h: int | None = None,
     block_m: int | None = None, block_n: int | None = None,
     block_k: int | None = None, machine: MachineModel = H100,
+    out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """im2col-GEMM convolutional forward for arbitrary shapes: the contract
     of :func:`repro_torch.kernels.conv2d.ops.conv2d` (fused bias/ReLU,
@@ -145,4 +155,5 @@ def conv2d_im2col(
         x, f, bias, schedule=schedule, machine=machine,
         stride=stride, padding=padding, relu=relu, pool=int(pool or 1),
         block_h=block_h, block_m=block_m, block_n=block_n, block_k=block_k,
+        out_dtype=out_dtype,
     )

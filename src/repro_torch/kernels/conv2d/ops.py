@@ -38,7 +38,7 @@ def _fused_pool(H_O: int, W_O: int, pool: int) -> int:
 def _shape_args(
     x, f, bias=None, *, stride=1, padding=0, relu=False, pool=1,
     block_do=None, block_di=None, block_h=None,
-    algorithm=None, block_m=None, block_n=None, block_k=None,
+    algorithm=None, block_m=None, block_n=None, block_k=None, out_dtype=None,
 ):
     """Planner shapes from concrete operands (the op registry contract)."""
     B = x.shape[0] if x.ndim == 4 else 1
@@ -58,7 +58,7 @@ def _shape_args(
 
 
 def _conv2d_impl(x, f, bias, *, stride, padding, relu, pool, schedule,
-                 emit_mask=False):
+                 emit_mask=False, out_dtype=None):
     batched = x.ndim == 4
     if not batched:
         x = x[None]
@@ -85,7 +85,7 @@ def _conv2d_impl(x, f, bias, *, stride, padding, relu, pool, schedule,
     out = conv2d_kernel(
         xp, f.contiguous(), bias.float().contiguous(),
         stride=S, block_h=hb, block_do=bdo, block_di=bdi, H_O=H_O, W_O=W_O,
-        relu=relu, pool=fused_pool, emit_mask=emit_mask,
+        relu=relu, pool=fused_pool, emit_mask=emit_mask, out_dtype=out_dtype,
     )
     if emit_mask:
         out, mask = out
@@ -111,17 +111,17 @@ def _local_impl(x, f, bias, *, schedule, **kw):
 def _impl(
     x, f, bias, *, schedule, stride=1, padding=0, relu=False, pool=1,
     block_do=None, block_di=None, block_h=None,  # consumed by the planner
-    algorithm=None, block_m=None, block_n=None, block_k=None,
+    algorithm=None, block_m=None, block_n=None, block_k=None, out_dtype=None,
 ):
     del block_do, block_di, block_h, algorithm, block_m, block_n, block_k
     return _local_impl(x, f, bias, stride=stride, padding=padding, relu=relu,
-                       pool=int(pool), schedule=schedule)
+                       pool=int(pool), schedule=schedule, out_dtype=out_dtype)
 
 
 def _sharded_impl(
     x, f, bias, *, schedule, mesh, stride=1, padding=0, relu=False, pool=1,
     block_do=None, block_di=None, block_h=None,
-    algorithm=None, block_m=None, block_n=None, block_k=None,
+    algorithm=None, block_m=None, block_n=None, block_k=None, out_dtype=None,
 ):
     """Data-parallel conv from a ShardedSchedule: "batch" shards images,
     "stack" shards output channels, each rank running the planned local
@@ -139,7 +139,7 @@ def _sharded_impl(
 
     def fn(xl, fl, bl):
         return _local_impl(xl, fl, bl, stride=stride, padding=padding, relu=relu,
-                           pool=int(pool), schedule=schedule.schedule)
+                           pool=int(pool), schedule=schedule.schedule, out_dtype=out_dtype)
 
     out = coll.shard_map(fn, mesh=mesh, in_specs=in_specs, out_specs=out_spec,
                          axis=schedule.axis)(x, f, bias)
@@ -163,7 +163,7 @@ def conv2d(
     block_di: int | None = None, block_h: int | None = None,
     algorithm: str | None = None, block_m: int | None = None,
     block_n: int | None = None, block_k: int | None = None,
-    machine: MachineModel = H100,
+    machine: MachineModel = H100, out_dtype: torch.dtype | None = None,
 ) -> torch.Tensor:
     """Convolutional layer forward (paper Algs 1/2) for arbitrary shapes.
 
@@ -172,7 +172,9 @@ def conv2d(
     ``bias`` ([D_O]), ``relu`` and ``pool`` (2 = fused 2x2 max-pool) run in
     the kernel's flush.  Blocking: ``schedule`` > ``block_*`` pins >
     planner.  When the im2col family wins (or ``algorithm="im2col"`` pins
-    it) the call runs the patch-matrix GEMM instead.
+    it) the call runs the patch-matrix GEMM instead.  The output is x's
+    dtype, or ``out_dtype`` (f32 from bf16 x: the epilogue's sums unrounded,
+    as ``repro``'s ``out_dtype=``).
     """
     if bias is None:
         bias = _zero_bias(f)
@@ -181,6 +183,7 @@ def conv2d(
         stride=stride, padding=padding, relu=relu, pool=int(pool or 1),
         block_do=block_do, block_di=block_di, block_h=block_h,
         algorithm=algorithm, block_m=block_m, block_n=block_n, block_k=block_k,
+        out_dtype=out_dtype,
     )
 
 

@@ -1,5 +1,6 @@
 // Batched, strip-tiled direct conv with fused bias + ReLU + max-pool (and
-// the int8 pool-argmax / ReLU-liveness mask) for the H100 (sm_90a), f32.
+// the int8 pool-argmax / ReLU-liveness mask) for the H100 (sm_90a), f32, or
+// bf16 input against f32 filters and bias (the CNN's bf16 route).
 //
 // Replaces: src/repro/kernels/conv2d/conv2d.py::_conv_kernel
 // (conv2d_fused_pallas), the paper's Algs 1/2 with strip tiling, and, run
@@ -61,24 +62,57 @@
 // Ragged channel counts need no padding: the last d_in step and the last
 // output stack run over the channels that exist. Strip rows past H_O are
 // computed from the caller's zero rows; the caller slices them off.
+//
+// bf16 input (repro_conv2d_fused_bf16xf32_bf16: the forward, writing bf16;
+// ..._f32: dgrad of a bf16 dY and the recompute conv, writing f32): both
+// kernels are templates on the input type TX and the output type TO. The
+// filters and bias stay f32, staged as above. The input strip is staged in
+// shared memory as bf16 (its four-element chunks 8-byte cp.async copies,
+// at conv0's 3 channels plain 2-byte copies) and converted to f32 as it is
+// read for the FMAs; the flush takes bias, ReLU, pool and mask on the f32
+// sums and rounds the pooled value once (__float2bfloat16_rn) where TO is
+// bf16. Shared memory is then 4*(hb*W_O*bdo + 2*F*F*bdi*bdo) +
+// 2*sizeof(TX)*((hb-1)*S+F)*W_str*bdi.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr int kCG = 8;  // output channels of one thread item
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
 }
+// Four input elements (one swizzle chunk) from device to shared memory.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void cp_async_quad(bf16* dst, const bf16* src) {
+  cp_async8(dst, src);
+}
+// One input element (a plain copy for bf16: cp.async moves 4 bytes at least).
+__device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) { *dst = *src; }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+// An f32 value stored as the output type, rounded once.
+__device__ __forceinline__ void store_out(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_out(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
@@ -92,10 +126,12 @@ struct Geometry {
 };
 
 // Flush one block's tile: value(pixel p, channel co) = acc[p*ps + co*cs].
-// Bias, ReLU, pool x pool max-pool and the mask; one pooled word a thread.
+// Bias, ReLU, pool x pool max-pool and the mask on the f32 values; one
+// pooled word a thread, rounded once to the output type.
+template <class TO>
 __device__ __forceinline__ void flush(const float* acc, int ps, int cs,
                                       const float* __restrict__ bias,
-                                      float* __restrict__ out, int8_t* __restrict__ mask,
+                                      TO* __restrict__ out, int8_t* __restrict__ mask,
                                       const Geometry& g, int do0, int nco) {
   const int hp = g.hb / g.pool, wp = g.W_O / g.pool, pp_n = hp * wp;
   const int rows_out = gridDim.y * hp, strip = blockIdx.y, b = blockIdx.z;
@@ -117,7 +153,7 @@ __device__ __forceinline__ void flush(const float* acc, int ps, int cs,
     }
     const size_t o =
         (((size_t)b * rows_out + strip * hp + py) * wp + px) * g.D_O + do0 + co;
-    out[o] = best;
+    store_out(out + o, best);
     if (mask != nullptr) {
       if (g.pool > 1)
         mask[o] = static_cast<int8_t>(best > 0.f ? arg : g.pool * g.pool);
@@ -139,10 +175,10 @@ __device__ __forceinline__ int chunk_at(int q, int r, int c, int rpr, int smask)
 
 // Stage d_in step [d0, d0+nci): the halo'd strip -> xs[r][c][ci] (pixel
 // stride bdi, chunks swizzled) and the filter block -> fs[ky*3+kx][ci][co]
-// (zeros past the stack's last channel). `vec`: 16-byte copies.
-template <int RUN>
-__device__ __forceinline__ void load_step_reg(const float* __restrict__ xb,
-                                              const float* __restrict__ f, float* xs,
+// (zeros past the stack's last channel). `vec`: four-element copies.
+template <int RUN, class TX>
+__device__ __forceinline__ void load_step_reg(const TX* __restrict__ xb,
+                                              const float* __restrict__ f, TX* xs,
                                               float* fs, const Geometry& g, int row0,
                                               int d0, int nci, int do0, int nco, int rpr,
                                               int smask, bool vec) {
@@ -151,8 +187,8 @@ __device__ __forceinline__ void load_step_reg(const float* __restrict__ xb,
     const unsigned qn = nci / 4;
     for (unsigned e = threadIdx.x; e < n_pix * qn; e += kThreads) {
       const unsigned q = e % qn, pix = e / qn, r = pix / w_str, c = pix % w_str;
-      cp_async16(xs + pix * bdi + 4 * chunk_at<RUN>(q, r, c, rpr, smask),
-                 xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + 4 * q);
+      cp_async_quad(xs + pix * bdi + 4 * chunk_at<RUN>(q, r, c, rpr, smask),
+                    xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + 4 * q);
     }
     // Filter rows: each thread keeps one float4 column q and walks rows, so
     // the loop divides nothing (at conv3 a step's FMAs are few and a
@@ -176,8 +212,8 @@ __device__ __forceinline__ void load_step_reg(const float* __restrict__ xb,
   } else {
     for (int e = threadIdx.x; e < n_pix * nci; e += kThreads) {
       const int ci = e % nci, pix = e / nci, r = pix / w_str, c = pix % w_str;
-      cp_async4(xs + pix * bdi + 4 * chunk_at<RUN>(ci >> 2, r, c, rpr, smask) + (ci & 3),
-                xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + ci);
+      copy1(xs + pix * bdi + 4 * chunk_at<RUN>(ci >> 2, r, c, rpr, smask) + (ci & 3),
+            xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + ci);
     }
     for (int e = threadIdx.x; e < 9 * nci * bdo; e += kThreads) {
       const int co = e % bdo, row = e / bdo, ci = row % nci, kk = row / nci;
@@ -190,18 +226,18 @@ __device__ __forceinline__ void load_step_reg(const float* __restrict__ xb,
   }
 }
 
-template <int RUN>
+template <int RUN, class TX, class TO>
 __global__ void __launch_bounds__(kThreads, RUN >= 8 ? 1 : 2)
-    conv_reg_kernel(const float* __restrict__ x, const float* __restrict__ f,
-                    const float* __restrict__ bias, float* __restrict__ out,
+    conv_reg_kernel(const TX* __restrict__ x, const float* __restrict__ f,
+                    const float* __restrict__ bias, TO* __restrict__ out,
                     int8_t* __restrict__ mask, Geometry g, int vec) {
   extern __shared__ __align__(16) float smem[];
   const int W_O = g.W_O, bdi = g.bdi, bdo = g.bdo, npix = g.hb * W_O;
   const int w_str = W_O + 2, x_stage = (g.hb + 2) * w_str * bdi, f_stage = 9 * bdi * bdo;
-  // Every offset below is a multiple of 4 floats (bdo is of 8, bdi of 4).
-  float* acc = smem;               // [npix][bdo]: the groups' sum, the flush
-  float* fs = acc + npix * bdo;    // 2 stages of [9][bdi][bdo]
-  float* xs = fs + 2 * f_stage;    // 2 stages of [hb+2][W_O+2][bdi]
+  // Every offset below is a multiple of 4 elements (bdo is of 8, bdi of 4).
+  float* acc = smem;                                // [npix][bdo]: the groups' sum, the flush
+  float* fs = acc + npix * bdo;                     // 2 stages of [9][bdi][bdo]
+  TX* xs = reinterpret_cast<TX*>(fs + 2 * f_stage);  // 2 stages of [hb+2][W_O+2][bdi]
 
   const int do0 = blockIdx.x * bdo, b = blockIdx.z;
   const int nco = min(bdo, g.D_O - do0);
@@ -211,7 +247,7 @@ __global__ void __launch_bounds__(kThreads, RUN >= 8 ? 1 : 2)
   const bool active = grp < groups;
   const int cg = it % ncg, run = it / ncg, oy = run / rpr, xr = run % rpr;
   const int row0 = blockIdx.y * g.hb;
-  const float* xb = x + (size_t)b * g.H_in * g.W_in * g.D_I;
+  const TX* xb = x + (size_t)b * g.H_in * g.W_in * g.D_I;
   const int n_di = (g.D_I + bdi - 1) / bdi;
 
   float a[RUN][kCG];
@@ -238,7 +274,7 @@ __global__ void __launch_bounds__(kThreads, RUN >= 8 ? 1 : 2)
       // This group's slice of the step's channels.
       const int per = (nci + groups - 1) / groups;
       const int c0 = grp * per, c1 = min(c0 + per, nci);
-      const float* xt = xs + s * x_stage + xr * RUN * bdi;
+      const TX* xt = xs + s * x_stage + xr * RUN * bdi;
       const float* ft = fs + s * f_stage + cg * 4;
       for (int ci = c0; ci < c1; ++ci) {
         const int q = ci >> 2, cl = ci & 3;
@@ -249,10 +285,11 @@ __global__ void __launch_bounds__(kThreads, RUN >= 8 ? 1 : 2)
           // two columns past it (the next run's swizzle).
           const int o0 = 4 * (q ^ ((xr + rpr * r) & smask)) + cl;
           const int o1 = 4 * (q ^ ((xr + 1 + rpr * r) & smask)) + cl;
-          const float* xrow = xt + r * w_str * bdi;
+          const TX* xrow = xt + r * w_str * bdi;
           float xv[RUN + 2];
 #pragma unroll
-          for (int j = 0; j < RUN + 2; ++j) xv[j] = xrow[j * bdi + (j < RUN ? o0 : o1)];
+          for (int j = 0; j < RUN + 2; ++j)
+            xv[j] = to_f32(xrow[j * bdi + (j < RUN ? o0 : o1)]);
 #pragma unroll
           for (int kx = 0; kx < 3; ++kx) {
             const float* fr = ft + ((ky * 3 + kx) * bdi + ci) * bdo;
@@ -300,17 +337,18 @@ __global__ void __launch_bounds__(kThreads, RUN >= 8 ? 1 : 2)
 
 // Stage d_in step [d0, d0+nci): the halo'd strip -> xs[ci][r][c] and the
 // filter block -> fs[ky*F+kx][ci][co] (zeros past the stack's last channel).
-__device__ __forceinline__ void load_step(const float* __restrict__ xb,
+template <class TX>
+__device__ __forceinline__ void load_step(const TX* __restrict__ xb,
                                           const float* __restrict__ f,
-                                          float* xs, float* fs,
+                                          TX* xs, float* fs,
                                           const Geometry& g, int row0, int d0,
                                           int nci, int do0, int nco) {
   const int h_halo = (g.hb - 1) * g.S + g.F, w_str = (g.W_O - 1) * g.S + g.F;
   const int n_x = h_halo * w_str * nci;
   for (int e = threadIdx.x; e < n_x; e += kThreads) {
     const int ci = e % nci, rc = e / nci, c = rc % w_str, r = rc / w_str;
-    cp_async4(xs + (ci * h_halo + r) * w_str + c,
-              xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + ci);
+    copy1(xs + (ci * h_halo + r) * w_str + c,
+          xb + ((size_t)(row0 + r) * g.W_in + c) * g.D_I + d0 + ci);
   }
   const int n_f = g.F * g.F * nci * g.bdo;
   for (int e = threadIdx.x; e < n_f; e += kThreads) {
@@ -323,9 +361,10 @@ __device__ __forceinline__ void load_step(const float* __restrict__ xb,
   }
 }
 
+template <class TX, class TO>
 __global__ void __launch_bounds__(kThreads)
-    conv_simple_kernel(const float* __restrict__ x, const float* __restrict__ f,
-                       const float* __restrict__ bias, float* __restrict__ out,
+    conv_simple_kernel(const TX* __restrict__ x, const float* __restrict__ f,
+                       const float* __restrict__ bias, TO* __restrict__ out,
                        int8_t* __restrict__ mask, Geometry g) {
   extern __shared__ __align__(16) float smem[];
   const int npix = g.hb * g.W_O;
@@ -333,15 +372,15 @@ __global__ void __launch_bounds__(kThreads)
   const int x_stage = g.bdi * h_halo * w_str, f_stage = g.F * g.F * g.bdi * g.bdo;
   // Every offset below is a multiple of 8 floats (bdo is), so the
   // filter's float4 reads stay 16-byte aligned.
-  float* acc = smem;                 // [bdo][npix]
-  float* fs = acc + g.bdo * npix;    // 2 stages of [F*F][bdi][bdo]
-  float* xs = fs + 2 * f_stage;      // 2 stages of [bdi][h_halo][w_str]
+  float* acc = smem;                                // [bdo][npix]
+  float* fs = acc + g.bdo * npix;                   // 2 stages of [F*F][bdi][bdo]
+  TX* xs = reinterpret_cast<TX*>(fs + 2 * f_stage);  // 2 stages of [bdi][h_halo][w_str]
 
   const int do0 = blockIdx.x * g.bdo, strip = blockIdx.y, b = blockIdx.z;
   const int nco = min(g.bdo, g.D_O - do0);
   const int ncg = (nco + kCG - 1) / kCG;
   const int row0 = strip * g.hb * g.S;
-  const float* xb = x + (size_t)b * g.H_in * g.W_in * g.D_I;
+  const TX* xb = x + (size_t)b * g.H_in * g.W_in * g.D_I;
   const int n_di = (g.D_I + g.bdi - 1) / g.bdi;
   const int plane = h_halo * w_str;
 
@@ -362,23 +401,23 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* xt = xs + s * x_stage;
+    const TX* xt = xs + s * x_stage;
     const float* ft = fs + s * f_stage;
     for (int it = threadIdx.x; it < ncg * npix; it += kThreads) {
       const int cg = it / npix, p = it % npix;
       const int oy = p / g.W_O, ox = p % g.W_O;
-      const float* xp = xt + oy * g.S * w_str + ox * g.S;
+      const TX* xp = xt + oy * g.S * w_str + ox * g.S;
       const float* fp = ft + cg * kCG;
       float r[kCG];
 #pragma unroll
       for (int j = 0; j < kCG; ++j) r[j] = 0.f;
       for (int ky = 0; ky < g.F; ++ky) {
         for (int kx = 0; kx < g.F; ++kx) {
-          const float* xq = xp + ky * w_str + kx;
+          const TX* xq = xp + ky * w_str + kx;
           const float* fq = fp + (ky * g.F + kx) * g.bdi * g.bdo;
 #pragma unroll 4
           for (int ci = 0; ci < nci; ++ci) {
-            const float a = xq[ci * plane];
+            const float a = to_f32(xq[ci * plane]);
             const float4 w0 = *reinterpret_cast<const float4*>(fq + ci * g.bdo);
             const float4 w1 = *reinterpret_cast<const float4*>(fq + ci * g.bdo + 4);
             r[0] = fmaf(a, w0.x, r[0]);
@@ -401,15 +440,40 @@ __global__ void __launch_bounds__(kThreads)
   flush(acc, 1, npix, bias, out, mask, g, do0, nco);
 }
 
-template <int RUN>
-cudaError_t launch_reg(dim3 grid, size_t smem, cudaStream_t st, const float* x,
-                       const float* f, const float* bias, float* out, int8_t* mask,
+template <int RUN, class TX, class TO>
+cudaError_t launch_reg(dim3 grid, size_t smem, cudaStream_t st, const TX* x,
+                       const float* f, const float* bias, TO* out, int8_t* mask,
                        const Geometry& g, int vec) {
   cudaError_t err = cudaFuncSetAttribute(
-      conv_reg_kernel<RUN>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      conv_reg_kernel<RUN, TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  conv_reg_kernel<RUN><<<grid, kThreads, smem, st>>>(x, f, bias, out, mask, g, vec);
+  conv_reg_kernel<RUN, TX, TO><<<grid, kThreads, smem, st>>>(x, f, bias, out, mask, g, vec);
   return cudaGetLastError();
+}
+
+template <class TX, class TO>
+int launch(const TX* x, const float* f, const float* bias, TO* out, int8_t* mask, int B,
+           int H_in, int W_in, int D_I, int D_O, int F, int S, int W_O, int n_h, int hb,
+           int bdi, int bdo, int relu, int pool, int run, void* stream) {
+  const Geometry g{H_in, W_in, D_I, D_O, F, S, hb, W_O, bdi, bdo, pool, relu};
+  const size_t h_halo = (size_t)(hb - 1) * S + F, w_str = (size_t)(W_O - 1) * S + F;
+  const size_t smem = sizeof(float) * ((size_t)hb * W_O * bdo + 2 * (size_t)F * F * bdi * bdo) +
+                      2 * sizeof(TX) * h_halo * w_str * bdi;
+  const dim3 grid((D_O + bdo - 1) / bdo, n_h, B);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int vec = D_I % 4 == 0 && D_O % 4 == 0 && (uintptr_t)x % 16 == 0 &&
+                  (uintptr_t)f % 16 == 0;
+  switch (run) {
+    case 4: return (int)launch_reg<4>(grid, smem, st, x, f, bias, out, mask, g, vec);
+    case 8: return (int)launch_reg<8>(grid, smem, st, x, f, bias, out, mask, g, vec);
+    case 16: return (int)launch_reg<16>(grid, smem, st, x, f, bias, out, mask, g, vec);
+    default: break;
+  }
+  cudaError_t err = cudaFuncSetAttribute(
+      conv_simple_kernel<TX, TO>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  conv_simple_kernel<TX, TO><<<grid, kThreads, smem, st>>>(x, f, bias, out, mask, g);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -429,25 +493,28 @@ int repro_conv2d_fused_f32(const float* x, const float* f, const float* bias,
                            int D_I, int D_O, int F, int S, int W_O, int n_h,
                            int hb, int bdi, int bdo, int relu, int pool, int run,
                            void* stream) {
-  const Geometry g{H_in, W_in, D_I, D_O, F, S, hb, W_O, bdi, bdo, pool, relu};
-  const size_t h_halo = (size_t)(hb - 1) * S + F, w_str = (size_t)(W_O - 1) * S + F;
-  const size_t smem = sizeof(float) * ((size_t)hb * W_O * bdo +
-                                       2 * (h_halo * w_str * bdi + (size_t)F * F * bdi * bdo));
-  const dim3 grid((D_O + bdo - 1) / bdo, n_h, B);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int vec = D_I % 4 == 0 && D_O % 4 == 0 && (uintptr_t)x % 16 == 0 &&
-                  (uintptr_t)f % 16 == 0;
-  switch (run) {
-    case 4: return (int)launch_reg<4>(grid, smem, st, x, f, bias, out, mask, g, vec);
-    case 8: return (int)launch_reg<8>(grid, smem, st, x, f, bias, out, mask, g, vec);
-    case 16: return (int)launch_reg<16>(grid, smem, st, x, f, bias, out, mask, g, vec);
-    default: break;
-  }
-  cudaError_t err = cudaFuncSetAttribute(
-      conv_simple_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  conv_simple_kernel<<<grid, kThreads, smem, st>>>(x, f, bias, out, mask, g);
-  return (int)cudaGetLastError();
+  return launch<float, float>(x, f, bias, out, mask, B, H_in, W_in, D_I, D_O, F, S, W_O,
+                              n_h, hb, bdi, bdo, relu, pool, run, stream);
+}
+
+// bf16 x against f32 filters and bias, writing bf16 (the forward).
+int repro_conv2d_fused_bf16xf32_bf16(const bf16* x, const float* f, const float* bias,
+                                     bf16* out, int8_t* mask, int B, int H_in, int W_in,
+                                     int D_I, int D_O, int F, int S, int W_O, int n_h,
+                                     int hb, int bdi, int bdo, int relu, int pool, int run,
+                                     void* stream) {
+  return launch<bf16, bf16>(x, f, bias, out, mask, B, H_in, W_in, D_I, D_O, F, S, W_O, n_h,
+                            hb, bdi, bdo, relu, pool, run, stream);
+}
+
+// bf16 x against f32 filters and bias, writing f32 (dgrad, the recompute conv).
+int repro_conv2d_fused_bf16xf32_f32(const bf16* x, const float* f, const float* bias,
+                                    float* out, int8_t* mask, int B, int H_in, int W_in,
+                                    int D_I, int D_O, int F, int S, int W_O, int n_h,
+                                    int hb, int bdi, int bdo, int relu, int pool, int run,
+                                    void* stream) {
+  return launch<bf16, float>(x, f, bias, out, mask, B, H_in, W_in, D_I, D_O, F, S, W_O,
+                             n_h, hb, bdi, bdo, relu, pool, run, stream);
 }
 
 }  // extern "C"

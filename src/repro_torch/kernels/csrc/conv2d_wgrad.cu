@@ -1,5 +1,5 @@
 // Conv filter gradient dW[F,F,D_I,D_O] = sum over (image, strip) of
-// Xwin^T . dY for the H100 (sm_90a), f32.
+// Xwin^T . dY for the H100 (sm_90a), f32 or bf16 X and dY, f32 dW.
 //
 // Replaces: src/repro/kernels/conv2d/bwd.py::_wgrad_dma_kernel
 // (_wgrad_dma_pallas, the default "pipelined" schedule) and
@@ -46,21 +46,67 @@
 // second kernel sums the slabs in a fixed order, so two launches on the
 // same inputs give the same bits. dY rows past H_O are the caller's zero
 // rows and add nothing.
+//
+// bf16 (repro_conv2d_wgrad_bf16: the CNN's bf16 route, X and dY both bf16,
+// as repro's backward hands them to its wgrad kernel): both kernels are
+// templates on the operand type T. Each four-element unit of the f32
+// kernels (a 16-byte cp.async, a float4 read) is four bf16 (an 8-byte
+// cp.async, an 8-byte read), the 4-byte copies of the simple kernel plain
+// 2-byte copies, so every thread mapping, stage and loop is the f32
+// kernel's; the operands sit in shared memory as bf16 and are converted to
+// f32 as they are read for the FMAs. The accumulators, the partial slabs
+// and dW stay f32. Shared memory: 4*F*F*bdi*bdo + 2*sizeof(T)*(X strip +
+// dY strip), the planner's H100 term at two bytes an element.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 namespace {
 
+using bf16 = __nv_bfloat16;
+
 constexpr int kThreads = 256;
 constexpr int kCG = 8;  // output channels of one thread item
 
-__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s), "l"(src));
 }
-__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+__device__ __forceinline__ void cp_async8(void* dst, const void* src) {
+  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 8;\n" ::"r"(s), "l"(src));
+}
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
   unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(src));
+}
+// Four elements from device to shared memory.
+__device__ __forceinline__ void cp_async_quad(float* dst, const float* src) {
+  cp_async16(dst, src);
+}
+__device__ __forceinline__ void cp_async_quad(bf16* dst, const bf16* src) {
+  cp_async8(dst, src);
+}
+// One element from device to shared memory (a plain copy for bf16).
+__device__ __forceinline__ void copy1(float* dst, const float* src) { cp_async4(dst, src); }
+__device__ __forceinline__ void copy1(bf16* dst, const bf16* src) { *dst = *src; }
+__device__ __forceinline__ float to_f32(float x) { return x; }
+__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
+template <class T>
+__device__ __forceinline__ T zero_of();
+template <>
+__device__ __forceinline__ float zero_of<float>() { return 0.f; }
+template <>
+__device__ __forceinline__ bf16 zero_of<bf16>() { return __float2bfloat16_rn(0.f); }
+// Four elements of shared memory, as floats.
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+__device__ __forceinline__ float4 ld4(const bf16* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&u.x);
+  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&u.y);
+  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi), __high2float(hi));
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
@@ -84,38 +130,41 @@ __device__ __forceinline__ void sweep_share(int steps, int split, int* t0, int* 
 // The register kernel
 // ---------------------------------------------------------------------------
 
-// Stage sweep step t = (image b, strip h) with 16-byte copies: the halo'd
-// X strip of channels [di0, di0+nci) -> xs[r][c][ci] (row of bdi floats)
-// and the dY strip of channels [do0, do0+nco) -> ds[p][co] (row of bdo).
-__device__ __forceinline__ void load_step16(const float* __restrict__ x,
-                                            const float* __restrict__ dy, float* xs,
-                                            float* ds, const Geometry& g, int t,
+// Stage sweep step t = (image b, strip h) with four-element copies: the
+// halo'd X strip of channels [di0, di0+nci) -> xs[r][c][ci] (row of bdi
+// elements) and the dY strip of channels [do0, do0+nco) -> ds[p][co] (row
+// of bdo).
+template <class T>
+__device__ __forceinline__ void load_step16(const T* __restrict__ x,
+                                            const T* __restrict__ dy, T* xs,
+                                            T* ds, const Geometry& g, int t,
                                             int di0, int nci, int do0, int nco) {
   // Unsigned index arithmetic: a division by a runtime value is half the
   // instructions of the signed one.
   const unsigned b = (unsigned)t / g.n_h, h = (unsigned)t % g.n_h;
   const unsigned h_halo = (g.hb - 1) * g.S + g.F, w_str = (g.W_O - 1) * g.S + g.F;
-  const float* xb = x + ((size_t)b * g.H_in + (size_t)h * g.hb * g.S) * g.W_in * g.D_I + di0;
+  const T* xb = x + ((size_t)b * g.H_in + (size_t)h * g.hb * g.S) * g.W_in * g.D_I + di0;
   const unsigned qx = nci / 4, n_x = h_halo * w_str * qx;
   for (unsigned e = threadIdx.x; e < n_x; e += kThreads) {
     const unsigned q = e % qx, rc = e / qx, c = rc % w_str, r = rc / w_str;
-    cp_async16(xs + (r * w_str + c) * g.bdi + 4 * q,
-               xb + ((size_t)r * g.W_in + c) * g.D_I + 4 * q);
+    cp_async_quad(xs + (r * w_str + c) * g.bdi + 4 * q,
+                  xb + ((size_t)r * g.W_in + c) * g.D_I + 4 * q);
   }
   const unsigned npix = g.hb * g.W_O, qd = nco / 4;
-  const float* db = dy + ((size_t)b * g.n_h + h) * npix * g.D_O + do0;
+  const T* db = dy + ((size_t)b * g.n_h + h) * npix * g.D_O + do0;
   for (unsigned e = threadIdx.x; e < npix * qd; e += kThreads) {
     const unsigned q = e % qd, p = e / qd;
-    cp_async16(ds + p * g.bdo + 4 * q, db + (size_t)p * g.D_O + 4 * q);
+    cp_async_quad(ds + p * g.bdo + 4 * q, db + (size_t)p * g.D_O + 4 * q);
   }
 }
 
-template <int F>
+template <int F, class T>
 __global__ void __launch_bounds__(kThreads, 2)
-    wgrad_reg_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+    wgrad_reg_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                      float* __restrict__ out, Geometry g, int steps, int split,
                      int group_steps) {
-  extern __shared__ __align__(16) float smem[];
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* smem = reinterpret_cast<T*>(smem_raw);
   const int S = g.S, W_O = g.W_O, bdi = g.bdi, bdo = g.bdo;
   const int h_halo = (g.hb - 1) * S + F, w_str = (W_O - 1) * S + F;
   const int x_step = h_halo * w_str * bdi, step_f = x_step + g.hb * W_O * bdo;
@@ -133,8 +182,8 @@ __global__ void __launch_bounds__(kThreads, 2)
   // dY columns past the stack's last channel stay zero in every stage.
   if (nco < ncg * kCG)
     for (int e = threadIdx.x; e < 2 * G * g.hb * W_O; e += kThreads) {
-      float* row = smem + (e / (g.hb * W_O)) * step_f + x_step + (e % (g.hb * W_O)) * bdo;
-      for (int co = nco; co < ncg * kCG; ++co) row[co] = 0.f;
+      T* row = smem + (e / (g.hb * W_O)) * step_f + x_step + (e % (g.hb * W_O)) * bdo;
+      for (int co = nco; co < ncg * kCG; ++co) row[co] = zero_of<T>();
     }
 
   float acc[F][F][kCG];
@@ -149,7 +198,7 @@ __global__ void __launch_bounds__(kThreads, 2)
   sweep_share(steps, split, &t0, &t1);
   const int n_chunks = (t1 - t0 + G - 1) / G;
   auto stage_chunk = [&](int chunk) {
-    float* st = smem + (chunk & 1) * G * step_f;
+    T* st = smem + (chunk & 1) * G * step_f;
     const int first = t0 + chunk * G, cnt = min(G, t1 - first);
     for (int j = 0; j < cnt; ++j)
       load_step16(x, dy, st + j * step_f, st + j * step_f + x_step, g, first + j, di0,
@@ -157,7 +206,7 @@ __global__ void __launch_bounds__(kThreads, 2)
     cp_async_commit();
   };
   if (n_chunks > 0) stage_chunk(0);
-  const int row_x = w_str * bdi;  // floats between X rows
+  const int row_x = w_str * bdi;  // elements between X rows
   for (int chunk = 0; chunk < n_chunks; ++chunk) {
     if (chunk + 1 < n_chunks) {
       stage_chunk(chunk + 1);
@@ -166,26 +215,27 @@ __global__ void __launch_bounds__(kThreads, 2)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* st = smem + (chunk & 1) * G * step_f;
+    const T* st = smem + (chunk & 1) * G * step_f;
     const int rows = min(G, t1 - t0 - chunk * G) * g.hb;
     if (active) {
       for (int rr = grp; rr < rows; rr += groups) {
         const int j = rr / g.hb, oy = rr % g.hb;
-        const float* xr = st + j * step_f + oy * S * row_x + ci;
-        const float* dr = st + j * step_f + x_step + oy * W_O * bdo + cg * kCG;
+        const T* xr = st + j * step_f + oy * S * row_x + ci;
+        const T* dr = st + j * step_f + x_step + oy * W_O * bdo + cg * kCG;
         if (S == 1) {
           // A window of F x F X words slides along the row in registers.
           float w[F][F];
 #pragma unroll
           for (int ky = 0; ky < F; ++ky)
 #pragma unroll
-            for (int kx = 0; kx < F - 1; ++kx) w[ky][kx] = xr[ky * row_x + kx * bdi];
+            for (int kx = 0; kx < F - 1; ++kx) w[ky][kx] = to_f32(xr[ky * row_x + kx * bdi]);
 #pragma unroll 2
           for (int ox = 0; ox < W_O; ++ox) {
 #pragma unroll
-            for (int ky = 0; ky < F; ++ky) w[ky][F - 1] = xr[ky * row_x + (ox + F - 1) * bdi];
-            const float4 d0 = *reinterpret_cast<const float4*>(dr + ox * bdo);
-            const float4 d1 = *reinterpret_cast<const float4*>(dr + ox * bdo + 4);
+            for (int ky = 0; ky < F; ++ky)
+              w[ky][F - 1] = to_f32(xr[ky * row_x + (ox + F - 1) * bdi]);
+            const float4 d0 = ld4(dr + ox * bdo);
+            const float4 d1 = ld4(dr + ox * bdo + 4);
             const float d[kCG] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
 #pragma unroll
             for (int ky = 0; ky < F; ++ky)
@@ -201,15 +251,15 @@ __global__ void __launch_bounds__(kThreads, 2)
           }
         } else {
           for (int ox = 0; ox < W_O; ++ox) {
-            const float4 d0 = *reinterpret_cast<const float4*>(dr + ox * bdo);
-            const float4 d1 = *reinterpret_cast<const float4*>(dr + ox * bdo + 4);
+            const float4 d0 = ld4(dr + ox * bdo);
+            const float4 d1 = ld4(dr + ox * bdo + 4);
             const float d[kCG] = {d0.x, d0.y, d0.z, d0.w, d1.x, d1.y, d1.z, d1.w};
-            const float* xc = xr + ox * S * bdi;
+            const T* xc = xr + ox * S * bdi;
 #pragma unroll
             for (int ky = 0; ky < F; ++ky)
 #pragma unroll
               for (int kx = 0; kx < F; ++kx) {
-                const float a = xc[ky * row_x + kx * bdi];
+                const float a = to_f32(xc[ky * row_x + kx * bdi]);
 #pragma unroll
                 for (int c = 0; c < kCG; ++c) acc[ky][kx][c] = fmaf(a, d[c], acc[ky][kx][c]);
               }
@@ -222,7 +272,7 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // The groups' tiles, summed in group order into the accumulator region
   // red[F*F][bdi][bdo] (the stages are no longer read).
-  float* red = smem;
+  float* red = reinterpret_cast<float*>(smem_raw);
   for (int q = 0; q < groups; ++q) {
     if (active && grp == q) {
 #pragma unroll
@@ -262,44 +312,46 @@ __global__ void __launch_bounds__(kThreads, 2)
 // The simple kernel: any F, S and blocks (shared-memory accumulator)
 // ---------------------------------------------------------------------------
 
-// Stage sweep step t with 4-byte copies: X -> xs[ci][r][c], dY -> ds[p][co]
-// (zeros past the stack's last channel).
-__device__ __forceinline__ void load_step4(const float* __restrict__ x,
-                                           const float* __restrict__ dy, float* xs,
-                                           float* ds, const Geometry& g, int t, int di0,
+// Stage sweep step t with one-element copies: X -> xs[ci][r][c], dY ->
+// ds[p][co] (zeros past the stack's last channel).
+template <class T>
+__device__ __forceinline__ void load_step4(const T* __restrict__ x,
+                                           const T* __restrict__ dy, T* xs,
+                                           T* ds, const Geometry& g, int t, int di0,
                                            int nci, int do0, int nco) {
   const int b = t / g.n_h, h = t % g.n_h;
   const int h_halo = (g.hb - 1) * g.S + g.F, w_str = (g.W_O - 1) * g.S + g.F;
-  const float* xb = x + ((size_t)b * g.H_in + (size_t)h * g.hb * g.S) * g.W_in * g.D_I;
+  const T* xb = x + ((size_t)b * g.H_in + (size_t)h * g.hb * g.S) * g.W_in * g.D_I;
   const int n_x = h_halo * w_str * nci;
   for (int e = threadIdx.x; e < n_x; e += kThreads) {
     const int ci = e % nci, rc = e / nci, c = rc % w_str, r = rc / w_str;
-    cp_async4(xs + (ci * h_halo + r) * w_str + c,
-              xb + ((size_t)r * g.W_in + c) * g.D_I + di0 + ci);
+    copy1(xs + (ci * h_halo + r) * w_str + c,
+          xb + ((size_t)r * g.W_in + c) * g.D_I + di0 + ci);
   }
   const int npix = g.hb * g.W_O;
-  const float* db = dy + ((size_t)b * g.n_h + h) * npix * g.D_O;
+  const T* db = dy + ((size_t)b * g.n_h + h) * npix * g.D_O;
   for (int e = threadIdx.x; e < npix * g.bdo; e += kThreads) {
     const int co = e % g.bdo, p = e / g.bdo;
-    float* dst = ds + p * g.bdo + co;
+    T* dst = ds + p * g.bdo + co;
     if (co < nco)
-      cp_async4(dst, db + (size_t)p * g.D_O + do0 + co);
+      copy1(dst, db + (size_t)p * g.D_O + do0 + co);
     else
-      *dst = 0.f;
+      *dst = zero_of<T>();
   }
 }
 
+template <class T>
 __global__ void __launch_bounds__(kThreads)
-    wgrad_simple_kernel(const float* __restrict__ x, const float* __restrict__ dy,
+    wgrad_simple_kernel(const T* __restrict__ x, const T* __restrict__ dy,
                         float* __restrict__ out, Geometry g, int steps, int split) {
   extern __shared__ __align__(16) float smem[];
   const int npix = g.hb * g.W_O, FF = g.F * g.F;
   const int h_halo = (g.hb - 1) * g.S + g.F, w_str = (g.W_O - 1) * g.S + g.F;
   const int plane = h_halo * w_str;
   const int d_stage = npix * g.bdo, x_stage = g.bdi * plane;
-  float* acc = smem;                    // [F*F][bdi][bdo]
-  float* ds = acc + FF * g.bdi * g.bdo;  // 2 stages of [npix][bdo]
-  float* xs = ds + 2 * d_stage;          // 2 stages of [bdi][h_halo][w_str]
+  float* acc = smem;                                          // [F*F][bdi][bdo]
+  T* ds = reinterpret_cast<T*>(acc + FF * g.bdi * g.bdo);     // 2 stages of [npix][bdo]
+  T* xs = ds + 2 * d_stage;                                   // 2 stages of [bdi][h_halo][w_str]
 
   const int di0 = blockIdx.x * g.bdi, do0 = blockIdx.y * g.bdo;
   const int nci = min(g.bdi, g.D_I - di0), nco = min(g.bdo, g.D_O - do0);
@@ -322,24 +374,24 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const float* xt = xs + s * x_stage;
-    const float* dt = ds + s * d_stage;
+    const T* xt = xs + s * x_stage;
+    const T* dt = ds + s * d_stage;
     for (int it = threadIdx.x; it < items; it += kThreads) {
       const int cg = it % ncg, q = it / ncg, ci = q % nci, kk = q / nci;
       const int ky = kk / g.F, kx = kk % g.F;
-      const float* xq = xt + ci * plane + ky * w_str + kx;
-      const float* dq = dt + cg * kCG;
+      const T* xq = xt + ci * plane + ky * w_str + kx;
+      const T* dq = dt + cg * kCG;
       float r[kCG];
 #pragma unroll
       for (int j = 0; j < kCG; ++j) r[j] = 0.f;
       int p = 0;
       for (int oy = 0; oy < g.hb; ++oy) {
-        const float* xr = xq + oy * g.S * w_str;
+        const T* xr = xq + oy * g.S * w_str;
 #pragma unroll 4
         for (int ox = 0; ox < g.W_O; ++ox, ++p) {
-          const float a = xr[ox * g.S];
-          const float4 d0 = *reinterpret_cast<const float4*>(dq + p * g.bdo);
-          const float4 d1 = *reinterpret_cast<const float4*>(dq + p * g.bdo + 4);
+          const float a = to_f32(xr[ox * g.S]);
+          const float4 d0 = ld4(dq + p * g.bdo);
+          const float4 d1 = ld4(dq + p * g.bdo + 4);
           r[0] = fmaf(a, d0.x, r[0]);
           r[1] = fmaf(a, d0.y, r[1]);
           r[2] = fmaf(a, d0.z, r[2]);
@@ -380,6 +432,41 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
+template <class T>
+int launch(const T* x, const T* dy, float* out, float* part, int B, int H_in, int W_in,
+           int D_I, int D_O, int F, int S, int W_O, int n_h, int hb, int bdi, int bdo,
+           int split, void* stream) {
+  const Geometry g{H_in, W_in, D_I, D_O, F, S, hb, W_O, n_h, bdi, bdo};
+  const size_t h_halo = (size_t)(hb - 1) * S + F, w_str = (size_t)(W_O - 1) * S + F;
+  const size_t step_e = h_halo * w_str * bdi + (size_t)hb * W_O * bdo;  // elements
+  const size_t smem = sizeof(float) * (size_t)F * F * bdi * bdo + 2 * sizeof(T) * step_e;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const dim3 grid((D_I + bdi - 1) / bdi, (D_O + bdo - 1) / bdo, split);
+  float* dst = split > 1 ? part : out;
+  const bool reg = F == 3 && bdi % 4 == 0 && bdi * ((bdo + kCG - 1) / kCG) <= kThreads;
+  cudaError_t err;
+  if (reg) {
+    const int group_steps = (int)(smem / (2 * sizeof(T) * step_e));
+    err = cudaFuncSetAttribute(wgrad_reg_kernel<3, T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wgrad_reg_kernel<3, T><<<grid, kThreads, smem, st>>>(x, dy, dst, g, B * n_h, split,
+                                                         group_steps);
+  } else {
+    err = cudaFuncSetAttribute(wgrad_simple_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    wgrad_simple_kernel<T><<<grid, kThreads, smem, st>>>(x, dy, dst, g, B * n_h, split);
+  }
+  err = cudaGetLastError();
+  if (err != cudaSuccess || split == 1) return (int)err;
+  const size_t n4 = (size_t)F * F * D_I * D_O / 4;
+  const size_t want = (n4 + kThreads - 1) / kThreads;
+  reduce_slabs_kernel<<<(int)(want < 1024 ? want : 1024), kThreads, 0, st>>>(
+      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), n4, split);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -396,36 +483,16 @@ int repro_conv2d_wgrad_f32(const float* x, const float* dy, float* out, float* p
                            int B, int H_in, int W_in, int D_I, int D_O, int F, int S,
                            int W_O, int n_h, int hb, int bdi, int bdo, int split,
                            void* stream) {
-  const Geometry g{H_in, W_in, D_I, D_O, F, S, hb, W_O, n_h, bdi, bdo};
-  const size_t h_halo = (size_t)(hb - 1) * S + F, w_str = (size_t)(W_O - 1) * S + F;
-  const size_t step_f = h_halo * w_str * bdi + (size_t)hb * W_O * bdo;
-  const size_t total_f = (size_t)F * F * bdi * bdo + 2 * step_f;
-  const size_t smem = sizeof(float) * total_f;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const dim3 grid((D_I + bdi - 1) / bdi, (D_O + bdo - 1) / bdo, split);
-  float* dst = split > 1 ? part : out;
-  const bool reg = F == 3 && bdi % 4 == 0 && bdi * ((bdo + kCG - 1) / kCG) <= kThreads;
-  cudaError_t err;
-  if (reg) {
-    const int group_steps = (int)(total_f / (2 * step_f));
-    err = cudaFuncSetAttribute(wgrad_reg_kernel<3>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    wgrad_reg_kernel<3><<<grid, kThreads, smem, st>>>(x, dy, dst, g, B * n_h, split,
-                                                      group_steps);
-  } else {
-    err = cudaFuncSetAttribute(wgrad_simple_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    wgrad_simple_kernel<<<grid, kThreads, smem, st>>>(x, dy, dst, g, B * n_h, split);
-  }
-  err = cudaGetLastError();
-  if (err != cudaSuccess || split == 1) return (int)err;
-  const size_t n4 = (size_t)F * F * D_I * D_O / 4;
-  const size_t want = (n4 + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<<<(int)(want < 1024 ? want : 1024), kThreads, 0, st>>>(
-      reinterpret_cast<const float4*>(part), reinterpret_cast<float4*>(out), n4, split);
-  return (int)cudaGetLastError();
+  return launch<float>(x, dy, out, part, B, H_in, W_in, D_I, D_O, F, S, W_O, n_h, hb, bdi,
+                       bdo, split, stream);
+}
+
+// The same for bf16 X and dY (f32 accumulators, slabs and dW).
+int repro_conv2d_wgrad_bf16(const bf16* x, const bf16* dy, float* out, float* part, int B,
+                            int H_in, int W_in, int D_I, int D_O, int F, int S, int W_O,
+                            int n_h, int hb, int bdi, int bdo, int split, void* stream) {
+  return launch<bf16>(x, dy, out, part, B, H_in, W_in, D_I, D_O, F, S, W_O, n_h, hb, bdi,
+                      bdo, split, stream);
 }
 
 }  // extern "C"

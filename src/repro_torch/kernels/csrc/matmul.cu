@@ -58,9 +58,19 @@
 // the ordered sum rounds once. This is the simple route: the FMAs are f32
 // on the CUDA cores, as at f32 (tensor cores are later work).
 //
+// bf16 X against f32 W (repro_matmul_bf16xf32_bf16 / _f32: the CNN's fc1
+// and its im2col patch GEMM at compute_dtype bf16, where repro's type
+// promotion keeps the weights f32): the kernels are templates on X's, W's
+// and O's types. Each operand is read from device memory and staged in
+// shared memory in its own type (X in 8-byte quads, W in 16-byte float4s,
+// each as its one-type kernel stages it), converted to f32 as it leaves
+// shared memory; the output is O's type (bf16 for fc1, f32 for the patch
+// GEMM, whose bias, ReLU and pool run on the f32 sums). Shared memory is
+// 4*bm*bn + 2*(sizeof(TX)*bm*bk + sizeof(TW)*bk*bn).
+//
 // Contract (checked by the Python wrapper): M, N, K multiples of bm, bn, bk;
 // bm, bn, bk multiples of 8; 16-byte aligned, contiguous row-major operands
-// of one type.
+// of one type, or bf16 X against f32 W.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -165,7 +175,12 @@ __device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int
 // ---------------------------------------------------------------------------
 
 constexpr int kBM = 64, kBN = 128, kBK = 32, kStages = 3;
-constexpr int kXs = kBK * kBM, kWs = kBK * kBN, kStage = kXs + kWs;
+constexpr int kXs = kBK * kBM, kWs = kBK * kBN;  // elements of a stage's X, W tile
+// Bytes of one stage of the ring: the X tile, then the W tile.
+template <class TX, class TW>
+__host__ __device__ constexpr size_t stage_bytes() {
+  return sizeof(TX) * kXs + sizeof(TW) * kWs;
+}
 
 __device__ __forceinline__ int k_swz(int k) { return ((k >> 2) & 7) << 2; }
 
@@ -187,13 +202,17 @@ __device__ __forceinline__ void store_tile(TO* __restrict__ O, float* __restrict
   }
 }
 
-template <class T>
+template <class TX, class TW, class TO>
 __global__ void __launch_bounds__(kThreads, 2)
-    mm_reg_kernel(const T* __restrict__ X, const T* __restrict__ W, T* __restrict__ O,
+    mm_reg_kernel(const TX* __restrict__ X, const TW* __restrict__ W, TO* __restrict__ O,
                   float* __restrict__ P, int M, int N, int K, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  // Stage s: xs[bk][bm] (swizzled) at smem + s*kStage, ws[bk][bn] after it.
+  constexpr size_t kStageB = stage_bytes<TX, TW>();
+  // Stage s: xs[bk][bm] (swizzled) at byte s*kStageB, ws[bk][bn] after it.
+  auto xs_at = [&](int s) { return reinterpret_cast<TX*>(smem_raw + s * kStageB); };
+  auto ws_at = [&](int s) {
+    return reinterpret_cast<TW*>(smem_raw + s * kStageB + sizeof(TX) * kXs);
+  };
   const int n0 = blockIdx.x * kBN, m0 = blockIdx.y * kBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: rows mi*4..+3
@@ -204,14 +223,14 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // X loader roles: rows lr and lr+32 of the tile, four-element column lc.
   const int lr = tid >> 3, lc = tid & 7;
-  const T* xsrc = X + (size_t)(m0 + lr) * K + lc * 4;
-  quad_t<T> rx[2];
+  const TX* xsrc = X + (size_t)(m0 + lr) * K + lc * 4;
+  quad_t<TX> rx[2];
   auto load_x = [&](int t) {
 #pragma unroll
     for (int i = 0; i < 2; ++i) rx[i] = ldg4(xsrc + (size_t)i * 32 * K + t * kBK);
   };
   auto store_x = [&](int s) {
-    T* xs = smem + s * kStage;
+    TX* xs = xs_at(s);
     const int sw = lc << 2;  // k_swz(k) for k = lc*4 + j
 #pragma unroll
     for (int i = 0; i < 2; ++i) {
@@ -221,8 +240,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     }
   };
   auto stage_w = [&](int t, int s) {
-    T* ws = smem + s * kStage + kXs;
-    const T* src = W + (size_t)t * kBK * N + n0;
+    TW* ws = ws_at(s);
+    const TW* src = W + (size_t)t * kBK * N + n0;
 #pragma unroll
     for (int i = 0; i < kWs / 4 / kThreads; ++i) {
       const int e = tid + i * kThreads, r = e >> 5, c4 = e & 31;
@@ -252,8 +271,8 @@ __global__ void __launch_bounds__(kThreads, 2)
     if (i + 2 < n_t) stage_w(t0 + i + 2, s2);
     cp_async_commit();
     if (i + 1 < n_t) load_x(t0 + i + 1);  // in flight during this step's FMAs
-    const T* xs = smem + s * kStage;
-    const T* ws = xs + kXs;
+    const TX* xs = xs_at(s);
+    const TW* ws = ws_at(s);
 #pragma unroll
     for (int kk = 0; kk < kBK; ++kk) {
       const int sw = k_swz(kk);
@@ -293,9 +312,9 @@ __global__ void __launch_bounds__(kThreads, 2)
 
 // Stage one K step: X[m0:m0+bm, k0:k0+bk] -> xs[bm][bk] and
 // W[k0:k0+bk, n0:n0+bn] -> ws[bk][bn], four elements per copy.
-template <class T>
-__device__ __forceinline__ void load_step(const T* __restrict__ X, const T* __restrict__ W,
-                                          T* xs, T* ws, int K, int N, int m0, int n0,
+template <class TX, class TW>
+__device__ __forceinline__ void load_step(const TX* __restrict__ X, const TW* __restrict__ W,
+                                          TX* xs, TW* ws, int K, int N, int m0, int n0,
                                           int k0, int bm, int bn, int bk) {
   const int xq = bk / 4;
   for (int e = threadIdx.x; e < bm * xq; e += kThreads) {
@@ -309,15 +328,15 @@ __device__ __forceinline__ void load_step(const T* __restrict__ X, const T* __re
   }
 }
 
-template <class T>
+template <class TX, class TW, class TO>
 __global__ void __launch_bounds__(kThreads)
-    mm_simple_kernel(const T* __restrict__ X, const T* __restrict__ W, T* __restrict__ O,
+    mm_simple_kernel(const TX* __restrict__ X, const TW* __restrict__ W, TO* __restrict__ O,
                      float* __restrict__ P, int M, int N, int K, int bm, int bn, int bk,
                      int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [bm][bn] f32 accumulator
-  T* xs = reinterpret_cast<T*>(acc + bm * bn);       // 2 stages of [bm][bk]
-  T* ws = xs + 2 * bm * bk;                          // 2 stages of [bk][bn]
+  float* acc = reinterpret_cast<float*>(smem_raw);   // [bm][bn] f32 accumulator
+  TX* xs = reinterpret_cast<TX*>(acc + bm * bn);      // 2 stages of [bm][bk]
+  TW* ws = reinterpret_cast<TW*>(xs + 2 * bm * bk);   // 2 stages of [bk][bn]
   const int m0 = blockIdx.y * bm, n0 = blockIdx.x * bn;
   const int half = bn / 2, groups = bn / kTN, items = (bm / kTM) * groups;
   int t0, t1;
@@ -338,12 +357,12 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* xt = xs + s * bm * bk;
-    const T* wt = ws + s * bk * bn;
+    const TX* xt = xs + s * bm * bk;
+    const TW* wt = ws + s * bk * bn;
     for (int it = threadIdx.x; it < items; it += kThreads) {
       const int mi = it / groups, nj = it % groups;
-      const T* xr = xt + mi * kTM * bk;
-      const T* wc = wt + nj * 4;
+      const TX* xr = xt + mi * kTM * bk;
+      const TW* wc = wt + nj * 4;
       float r[kTM][kTN];
 #pragma unroll
       for (int i = 0; i < kTM; ++i)
@@ -405,33 +424,33 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
-template <class T>
-int launch(const T* X, const T* W, T* O, float* part, int M, int N, int K, int bm, int bn,
-           int bk, int split, int reg, void* stream) {
+template <class TX, class TW, class TO>
+int launch(const TX* X, const TW* W, TO* O, float* part, int M, int N, int K, int bm,
+           int bn, int bk, int split, int reg, void* stream) {
   const size_t smem = sizeof(float) * (size_t)bm * bn +
-                      2 * sizeof(T) * ((size_t)bm * bk + (size_t)bk * bn);
+                      2 * (sizeof(TX) * (size_t)bm * bk + sizeof(TW) * (size_t)bk * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(N / bn, M / bm, split);
   cudaError_t err;
   if (reg) {
     if (bm != kBM || bn != kBN || bk != kBK) return (int)cudaErrorInvalidValue;
-    static_assert(kStages * kStage * sizeof(T) <=
-                      sizeof(float) * kBM * kBN + 2 * kStage * sizeof(T),
+    static_assert(kStages * stage_bytes<TX, TW>() <=
+                      sizeof(float) * kBM * kBN + 2 * stage_bytes<TX, TW>(),
                   "the ring must fit the charged allocation");
-    err = set_smem((const void*)mm_reg_kernel<T>, smem);
+    err = set_smem((const void*)mm_reg_kernel<TX, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_reg_kernel<T><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, split);
+    mm_reg_kernel<TX, TW, TO><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, split);
   } else {
-    err = set_smem((const void*)mm_simple_kernel<T>, smem);
+    err = set_smem((const void*)mm_simple_kernel<TX, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_simple_kernel<T><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, bm, bn, bk,
-                                                      split);
+    mm_simple_kernel<TX, TW, TO><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, bm,
+                                                               bn, bk, split);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
   const size_t n4 = (size_t)M * N / 4;
   const size_t want = (n4 + kThreads - 1) / kThreads;
-  reduce_slabs_kernel<T><<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
+  reduce_slabs_kernel<TO><<<(int)(want < 2048 ? want : 2048), kThreads, 0, st>>>(
       reinterpret_cast<const float4*>(part), O, n4, split);
   return (int)cudaGetLastError();
 }
@@ -452,13 +471,29 @@ const char* repro_error_string(int err) {
 int repro_matmul_f32(const float* X, const float* W, float* O, float* part, int M,
                      int N, int K, int bm, int bn, int bk, int split, int reg,
                      void* stream) {
-  return launch<float>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch<float, float, float>(X, W, O, part, M, N, K, bm, bn, bk, split, reg,
+                                     stream);
 }
 
 // The same for bf16 X, W and O (f32 accumulator and slabs).
 int repro_matmul_bf16(const bf16* X, const bf16* W, bf16* O, float* part, int M, int N,
                       int K, int bm, int bn, int bk, int split, int reg, void* stream) {
-  return launch<bf16>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch<bf16, bf16, bf16>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+
+// bf16 X against f32 W, writing bf16 O (fc1 on the CNN's bf16 route).
+int repro_matmul_bf16xf32_bf16(const bf16* X, const float* W, bf16* O, float* part, int M,
+                               int N, int K, int bm, int bn, int bk, int split, int reg,
+                               void* stream) {
+  return launch<bf16, float, bf16>(X, W, O, part, M, N, K, bm, bn, bk, split, reg, stream);
+}
+
+// bf16 X against f32 W, writing f32 O (the im2col patch GEMM on that route).
+int repro_matmul_bf16xf32_f32(const bf16* X, const float* W, float* O, float* part, int M,
+                              int N, int K, int bm, int bn, int bk, int split, int reg,
+                              void* stream) {
+  return launch<bf16, float, float>(X, W, O, part, M, N, K, bm, bn, bk, split, reg,
+                                    stream);
 }
 
 }  // extern "C"

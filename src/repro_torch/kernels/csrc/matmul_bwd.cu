@@ -117,12 +117,28 @@
 // its epilogue fills. dX and dW come out f32, as repro's FC backward asks
 // (out_dtype=f32); the caller casts them. The FMAs stay f32 on the CUDA
 // cores (tensor cores are later work).
+// bf16 dY and X against f32 W (repro_matmul_nt_bf16xf32,
+// repro_matmul_dxdw_bf16xf32: fc1's backward on the CNN's bf16 route, where
+// repro's type promotion keeps the weights f32): NT and the fused kernels
+// are templates on the activations' type TA (dY, X) and W's type TW. Each
+// operand is read from device memory and staged in its own type, W as its
+// f32 kernel stages it and dY and X as their bf16 kernel does, and
+// converted to f32 as it leaves shared memory; the accumulators and
+// outputs stay f32. Shared memory counts each operand at its own size:
+//   NT 4*bm*bk + 2*(sizeof(TA)*bm*bn + sizeof(TW)*bn*bk),
+//   fused 2*(sizeof(TA)*(bm*bn + bm*bk) + sizeof(TW)*bk*bn) + 4*(M*bk + bk*bn).
+// The fused register kernel of that route is built for two m-blocks (the
+// CNN's batch 128) alone: each further instantiation adds seconds to a build
+// that the card's first call waits on; other batches take the simple kernel.
+// TN takes X and dY, both bf16 on that route: its bf16 kernel serves it.
 // Contract (checked by the Python wrappers): M, N, K multiples of the
 // blocks; blocks multiples of 8; 16-byte aligned, contiguous row-major
-// operands of one type.
+// operands of one type, or the mixed routes above.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -240,15 +256,15 @@ __device__ __forceinline__ void stage_t(T* dst, const T* __restrict__ W, int N, 
 
 // acc[rows][ldc] += A . B with A(i, kk) = a[i*a_rs + kk*a_ks] and
 // B(kk, j) = b[kk*ldb + j]; rows a multiple of 4, cols of 8.
-template <class T>
-__device__ __forceinline__ void mma_tile(float* acc, int ldc, const T* a, int a_rs,
-                                         int a_ks, const T* b, int ldb, int rows, int cols,
+template <class TA, class TB>
+__device__ __forceinline__ void mma_tile(float* acc, int ldc, const TA* a, int a_rs,
+                                         int a_ks, const TB* b, int ldb, int rows, int cols,
                                          int depth) {
   const int half = cols / 2, groups = cols / kTN, items = (rows / kTM) * groups;
   for (int it = threadIdx.x; it < items; it += kThreads) {
     const int mi = it / groups, nj = it % groups;
-    const T* ar = a + mi * kTM * a_rs;
-    const T* bc = b + nj * 4;
+    const TA* ar = a + mi * kTM * a_rs;
+    const TB* bc = b + nj * 4;
     float r[kTM][kTN];
 #pragma unroll
     for (int i = 0; i < kTM; ++i)
@@ -303,14 +319,14 @@ __device__ __forceinline__ void split_share(int n_steps, int split, int* t0, int
   *t1 = (int)((long long)(blockIdx.z + 1) * n_steps / split);
 }
 
-template <class T>
+template <class TA, class TW>
 __global__ void __launch_bounds__(kThreads)
-    mm_nt_kernel(const T* __restrict__ G, const T* __restrict__ W, float* __restrict__ DX,
+    mm_nt_kernel(const TA* __restrict__ G, const TW* __restrict__ W, float* __restrict__ DX,
                  int M, int N, int K, int bm, int bn, int bk, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc = reinterpret_cast<float*>(smem_raw);  // [bm][bk]
-  T* gs = after_f32<T>(smem_raw, (size_t)bm * bk);  // 2 stages of [bm][bn]
-  T* ws = gs + 2 * bm * bn;                         // 2 stages of [bn][bk] (W transposed)
+  float* acc = reinterpret_cast<float*>(smem_raw);     // [bm][bk]
+  TA* gs = after_f32<TA>(smem_raw, (size_t)bm * bk);   // 2 stages of [bm][bn]
+  TW* ws = reinterpret_cast<TW*>(gs + 2 * bm * bn);    // 2 stages of [bn][bk] (W^T)
   const int k0 = blockIdx.x * bk, m0 = blockIdx.y * bm;
   int t0, t1;
   split_share(N / bn, split, &t0, &t1);
@@ -360,9 +376,9 @@ __device__ __forceinline__ void store_swz(T* dst, int ld, const Q (&v)[R], int l
 // r += dY tile . W tile^T over one bn step, for the 4 x 8 dX item (rows
 // mi*4..+3, cols kj*4.., 64+kj*4..): g the swizzled [bn][bm] dY tile, w the
 // swizzled [bn][bk] W tile.
-template <class T>
-__device__ __forceinline__ void nt_tile_fma(float (&r)[4][8], const T* g, const T* w, int mi,
-                                            int kj) {
+template <class TA, class TW>
+__device__ __forceinline__ void nt_tile_fma(float (&r)[4][8], const TA* g, const TW* w,
+                                            int mi, int kj) {
 #pragma unroll
   for (int kk = 0; kk < kNtBN; ++kk) {
     const int sw = nt_swz(kk);
@@ -401,14 +417,14 @@ __device__ __forceinline__ void nt_rows_out(float* __restrict__ out, int K, int 
   }
 }
 
-template <class T>
+template <class TA, class TW>
 __global__ void __launch_bounds__(kThreads, 2)
-    mm_nt_reg_kernel(const T* __restrict__ G, const T* __restrict__ W,
+    mm_nt_reg_kernel(const TA* __restrict__ G, const TW* __restrict__ W,
                      float* __restrict__ DX, int M, int N, int K, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* acc_s = reinterpret_cast<float*>(smem_raw);      // [bm][bk], the epilogue's
-  T* gs = after_f32<T>(smem_raw, (size_t)kNtBM * kNtBK);  // 2 stages of [bn][bm], swizzled
-  T* ws = gs + 2 * kNtBN * kNtBM;                         // 2 stages of [bn][bk], swizzled
+  float* acc_s = reinterpret_cast<float*>(smem_raw);        // [bm][bk], the epilogue's
+  TA* gs = after_f32<TA>(smem_raw, (size_t)kNtBM * kNtBK);  // 2 stages of [bn][bm], swizzled
+  TW* ws = reinterpret_cast<TW*>(gs + 2 * kNtBN * kNtBM);   // 2 stages of [bn][bk], swizzled
   const int k0 = blockIdx.x * kNtBK, m0 = blockIdx.y * kNtBM;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = (warp >> 1) * 4 + (lane >> 3);  // 0..15: rows mi*4..+3
@@ -418,9 +434,10 @@ __global__ void __launch_bounds__(kThreads, 2)
 
   // Loader roles: row tid/8 (+32 per round) of a tile, four-element column tid%8.
   const int lr = tid >> 3, lc = tid & 7;
-  const T* gsrc = G + (size_t)(m0 + lr) * N + lc * 4;
-  const T* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
-  quad_t<T> rg[2], rw[4];
+  const TA* gsrc = G + (size_t)(m0 + lr) * N + lc * 4;
+  const TW* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  quad_t<TA> rg[2];
+  quad_t<TW> rw[4];
   auto load = [&](int t) {
     const int n0 = t * kNtBN;
 #pragma unroll
@@ -600,17 +617,17 @@ __global__ void __launch_bounds__(kThreads, 2)
   }
 }
 
-template <class T>
+template <class TA, class TW>
 __global__ void __launch_bounds__(kThreads)
-    mm_dxdw_kernel(const T* __restrict__ G, const T* __restrict__ W, const T* __restrict__ X,
-                   float* __restrict__ DX, float* __restrict__ DW, int M, int N, int K,
-                   int bm, int bn, int bk, int split) {
+    mm_dxdw_kernel(const TA* __restrict__ G, const TW* __restrict__ W,
+                   const TA* __restrict__ X, float* __restrict__ DX, float* __restrict__ DW,
+                   int M, int N, int K, int bm, int bn, int bk, int split) {
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  float* dxs = reinterpret_cast<float*>(smem_raw);           // [M][bk] whole-M dX strip
-  float* dws = dxs + M * bk;                                 // [bk][bn] dW tile
-  T* gs = after_f32<T>(smem_raw, (size_t)M * bk + bk * bn);  // 2 stages of [bm][bn]
-  T* ws = gs + 2 * bm * bn;                                  // 2 stages of [bn][bk] (W^T)
-  T* xs = ws + 2 * bn * bk;                                  // 2 stages of [bm][bk]
+  float* dxs = reinterpret_cast<float*>(smem_raw);             // [M][bk] whole-M dX strip
+  float* dws = dxs + M * bk;                                   // [bk][bn] dW tile
+  TA* gs = after_f32<TA>(smem_raw, (size_t)M * bk + bk * bn);  // 2 stages of [bm][bn]
+  TW* ws = reinterpret_cast<TW*>(gs + 2 * bm * bn);            // 2 stages of [bn][bk] (W^T)
+  TA* xs = reinterpret_cast<TA*>(ws + 2 * bn * bk);            // 2 stages of [bm][bk]
   const int k0 = blockIdx.x * bk, n_m = M / bm;
   int t0, t1;  // this part's n-blocks; its steps run [t0*n_m, t1*n_m)
   split_share(N / bn, split, &t0, &t1);
@@ -637,7 +654,7 @@ __global__ void __launch_bounds__(kThreads)
       cp_async_wait<0>();
     }
     __syncthreads();
-    const T* gt = gs + s * bm * bn;
+    const TA* gt = gs + s * bm * bn;
     // dX rows of this m-block += dY tile . W tile^T (contract N) ...
     mma_tile(dxs + mb * bm * bk, bk, gt, bn, 1, ws + s * bn * bk, bk, bm, bk, bn);
     // ... and dW tile += X tile^T . the same dY tile (contract M).
@@ -675,21 +692,21 @@ __device__ __forceinline__ void tn_tile_fma(float (&r)[4][4], const T* x, const 
 
 // The fused kernel at the planner's tile (NT's) with NM m-blocks: see the
 // header.
-template <int NM, class T>
+template <int NM, class TA, class TW>
 __global__ void __launch_bounds__(kThreads, 1)
-    mm_dxdw_reg_kernel(const T* __restrict__ G, const T* __restrict__ W,
-                       const T* __restrict__ X, float* __restrict__ DX,
+    mm_dxdw_reg_kernel(const TA* __restrict__ G, const TW* __restrict__ W,
+                       const TA* __restrict__ X, float* __restrict__ DX,
                        float* __restrict__ DW, int N, int K, int split) {
   constexpr int M = NM * kNtBM;
   constexpr int kG = kNtBM * kNtBN, kW = kNtBN * kNtBK;  // elements of a dY, W tile
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  // The charged f32 dX strip's room [M][bk]: the X strip (in T) until the
+  // The charged f32 dX strip's room [M][bk]: the X strip (in TA) until the
   // last step, then the dX epilogue (f32).
-  T* xs = reinterpret_cast<T*>(smem_raw);
+  TA* xs = reinterpret_cast<TA*>(smem_raw);
   float* dx_out = reinterpret_cast<float*>(smem_raw);
-  T* gts = after_f32<T>(smem_raw, (size_t)M * kNtBK);  // 2 stages of [bn][bm], swizzled (dX)
-  T* gs = gts + 2 * kG;                                // 2 stages of [bm][bn] as it lies (dW)
-  T* ws = gs + 2 * kG;                                 // 2 stages of [bn][bk], swizzled
+  TA* gts = after_f32<TA>(smem_raw, (size_t)M * kNtBK);  // 2 stages of [bn][bm], swizzled (dX)
+  TA* gs = gts + 2 * kG;                                 // 2 stages of [bm][bn] as it lies (dW)
+  TW* ws = reinterpret_cast<TW*>(gs + 2 * kG);           // 2 stages of [bn][bk], swizzled
   const int k0 = blockIdx.x * kNtBK;
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int mi = (warp >> 1) * 4 + (lane >> 3);  // dX rows mi*4..+3 of each m-block
@@ -707,11 +724,12 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   // Loader roles: row tid/8 (+32 per round) of a tile, four-element column tid%8.
   const int lr = tid >> 3, lc = tid & 7;
-  const T* gsrc = G + (size_t)lr * N + lc * 4;
-  const T* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
-  quad_t<T> rg[2], rw[4];
+  const TA* gsrc = G + (size_t)lr * N + lc * 4;
+  const TW* wsrc = W + (size_t)(k0 + lr) * N + lc * 4;
+  quad_t<TA> rg[2];
+  quad_t<TW> rw[4];
   auto load_g = [&](int nb, int mb) {
-    const T* p = gsrc + (size_t)mb * kNtBM * N + nb * kNtBN;
+    const TA* p = gsrc + (size_t)mb * kNtBM * N + nb * kNtBN;
 #pragma unroll
     for (int i = 0; i < 2; ++i) rg[i] = ldg4(p + (size_t)i * 32 * N);
   };
@@ -723,7 +741,7 @@ __global__ void __launch_bounds__(kThreads, 1)
     store_swz(gts + s * kG, kNtBM, rg, lr, lc);
 #pragma unroll
     for (int i = 0; i < 2; ++i)
-      *reinterpret_cast<quad_t<T>*>(gs + s * kG + (lr + 32 * i) * kNtBN + lc * 4) = rg[i];
+      *reinterpret_cast<quad_t<TA>*>(gs + s * kG + (lr + 32 * i) * kNtBN + lc * 4) = rg[i];
   };
 
   float acc[NM][4][8];
@@ -743,7 +761,7 @@ __global__ void __launch_bounds__(kThreads, 1)
   cp_async_wait<0>();
   __syncthreads();
   for (int nb = t0; nb < t1; ++nb) {
-    const T* w = ws + ((nb - t0) & 1) * kW;
+    const TW* w = ws + ((nb - t0) & 1) * kW;
     float dw[4][4];
 #pragma unroll
     for (int i = 0; i < 4; ++i)
@@ -793,35 +811,37 @@ cudaError_t reduce_slabs(const float* part, float* out, size_t n, int split,
   return cudaGetLastError();
 }
 
-template <int NM, class T>
-cudaError_t launch_dxdw_reg(dim3 grid, size_t smem, cudaStream_t st, const T* G,
-                            const T* W, const T* X, float* DX, float* DW, int N, int K,
+template <int NM, class TA, class TW>
+cudaError_t launch_dxdw_reg(dim3 grid, size_t smem, cudaStream_t st, const TA* G,
+                            const TW* W, const TA* X, float* DX, float* DW, int N, int K,
                             int split) {
-  cudaError_t err = set_smem((const void*)mm_dxdw_reg_kernel<NM, T>, smem);
+  cudaError_t err = set_smem((const void*)mm_dxdw_reg_kernel<NM, TA, TW>, smem);
   if (err != cudaSuccess) return err;
-  mm_dxdw_reg_kernel<NM, T><<<grid, kThreads, smem, st>>>(G, W, X, DX, DW, N, K, split);
+  mm_dxdw_reg_kernel<NM, TA, TW><<<grid, kThreads, smem, st>>>(G, W, X, DX, DW, N, K,
+                                                                split);
   return cudaGetLastError();
 }
 
 // NT: grid (K/bk, M/bm, split); with split > 1 `part` holds split slabs of
 // M*K floats and a second kernel sums them into DX in order.
-template <class T>
-int launch_nt(const T* G, const T* W, float* DX, float* part, int M, int N, int K, int bm,
-              int bn, int bk, int split, void* stream) {
+template <class TA, class TW>
+int launch_nt(const TA* G, const TW* W, float* DX, float* part, int M, int N, int K,
+              int bm, int bn, int bk, int split, void* stream) {
   const size_t smem = sizeof(float) * (size_t)bm * bk +
-                      2 * sizeof(T) * ((size_t)bm * bn + (size_t)bn * bk);
+                      2 * (sizeof(TA) * (size_t)bm * bn + sizeof(TW) * (size_t)bn * bk);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(K / bk, M / bm, split);
   float* dst = split > 1 ? part : DX;
   cudaError_t err;
   if (bm == kNtBM && bn == kNtBN && bk == kNtBK) {
-    err = set_smem((const void*)mm_nt_reg_kernel<T>, smem);
+    err = set_smem((const void*)mm_nt_reg_kernel<TA, TW>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_nt_reg_kernel<T><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
+    mm_nt_reg_kernel<TA, TW><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
   } else {
-    err = set_smem((const void*)mm_nt_kernel<T>, smem);
+    err = set_smem((const void*)mm_nt_kernel<TA, TW>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_nt_kernel<T><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, bm, bn, bk, split);
+    mm_nt_kernel<TA, TW><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, bm, bn, bk,
+                                                       split);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
@@ -864,12 +884,12 @@ int launch_tn(const T* X, const T* G, float* DW, float* part, int M, int N, int 
 // slabs of M*K floats), which a second kernel sums into DX in order.
 // `reg` (from bwd.py::dxdw_template) selects mm_dxdw_reg_kernel, which
 // takes only its own tile and one to three m-blocks, 0 the simple kernel.
-template <class T>
-int launch_dxdw(const T* G, const T* W, const T* X, float* DX, float* DW, float* part,
+template <class TA, class TW>
+int launch_dxdw(const TA* G, const TW* W, const TA* X, float* DX, float* DW, float* part,
                 int M, int N, int K, int bm, int bn, int bk, int split, int reg,
                 void* stream) {
   const size_t smem =
-      2 * sizeof(T) * ((size_t)bm * bn + (size_t)bk * bn + (size_t)bm * bk) +
+      2 * (sizeof(TA) * ((size_t)bm * bn + (size_t)bm * bk) + sizeof(TW) * (size_t)bk * bn) +
       sizeof(float) * ((size_t)M * bk + (size_t)bk * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(K / bk, 1, split);
@@ -877,21 +897,31 @@ int launch_dxdw(const T* G, const T* W, const T* X, float* DX, float* DW, float*
   cudaError_t err;
   if (reg) {
     if (bm != kNtBM || bn != kNtBN || bk != kNtBK || M % kNtBM) return (int)cudaErrorInvalidValue;
-    static_assert((4 * kNtBM * kNtBN + 2 * kNtBN * kNtBK) * sizeof(T) <=
-                      2 * sizeof(T) * (kNtBM * kNtBN + kNtBK * kNtBN + kNtBM * kNtBK) +
+    static_assert(4 * kNtBM * kNtBN * sizeof(TA) + 2 * kNtBN * kNtBK * sizeof(TW) <=
+                      2 * (sizeof(TA) * (kNtBM * kNtBN + kNtBM * kNtBK) +
+                           sizeof(TW) * kNtBK * kNtBN) +
                           sizeof(float) * kNtBK * kNtBN,
                   "the dY and W stages must fit the charged allocation beside the X strip");
-    switch (M / kNtBM) {
-      case 1: err = launch_dxdw_reg<1, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
-      case 2: err = launch_dxdw_reg<2, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
-      case 3: err = launch_dxdw_reg<3, T>(grid, smem, st, G, W, X, dst, DW, N, K, split); break;
-      default: return (int)cudaErrorInvalidValue;
+    const int nm = M / kNtBM;
+    if (nm == 2) {
+      err = launch_dxdw_reg<2, TA, TW>(grid, smem, st, G, W, X, dst, DW, N, K, split);
+    } else if constexpr (std::is_same<TA, TW>::value) {
+      if (nm == 1)
+        err = launch_dxdw_reg<1, TA, TW>(grid, smem, st, G, W, X, dst, DW, N, K, split);
+      else if (nm == 3)
+        err = launch_dxdw_reg<3, TA, TW>(grid, smem, st, G, W, X, dst, DW, N, K, split);
+      else
+        return (int)cudaErrorInvalidValue;
+    } else {
+      // The mixed route's register kernel is built for two m-blocks alone
+      // (the CNN's fc1 at batch 128; bwd.py::dxdw_template): build time.
+      return (int)cudaErrorInvalidValue;
     }
   } else {
-    err = set_smem((const void*)mm_dxdw_kernel<T>, smem);
+    err = set_smem((const void*)mm_dxdw_kernel<TA, TW>, smem);
     if (err != cudaSuccess) return (int)err;
-    mm_dxdw_kernel<T><<<grid, kThreads, smem, st>>>(G, W, X, dst, DW, M, N, K, bm, bn, bk,
-                                                    split);
+    mm_dxdw_kernel<TA, TW><<<grid, kThreads, smem, st>>>(G, W, X, dst, DW, M, N, K, bm, bn,
+                                                         bk, split);
     err = cudaGetLastError();
   }
   if (err != cudaSuccess || split == 1) return (int)err;
@@ -911,11 +941,17 @@ const char* repro_error_string(int err) {
 
 int repro_matmul_nt_f32(const float* G, const float* W, float* DX, float* part, int M,
                         int N, int K, int bm, int bn, int bk, int split, void* stream) {
-  return launch_nt<float>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
+  return launch_nt<float, float>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
 }
 int repro_matmul_nt_bf16(const bf16* G, const bf16* W, float* DX, float* part, int M,
                          int N, int K, int bm, int bn, int bk, int split, void* stream) {
-  return launch_nt<bf16>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
+  return launch_nt<bf16, bf16>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
+}
+// bf16 dY against f32 W.
+int repro_matmul_nt_bf16xf32(const bf16* G, const float* W, float* DX, float* part, int M,
+                             int N, int K, int bm, int bn, int bk, int split,
+                             void* stream) {
+  return launch_nt<bf16, float>(G, W, DX, part, M, N, K, bm, bn, bk, split, stream);
 }
 
 int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, int M,
@@ -932,12 +968,21 @@ int repro_matmul_tn_bf16(const bf16* X, const bf16* G, float* DW, float* part, i
 int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,
                           float* DW, float* part, int M, int N, int K, int bm, int bn,
                           int bk, int split, int reg, void* stream) {
-  return launch_dxdw<float>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch_dxdw<float, float>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg,
+                                   stream);
 }
 int repro_matmul_dxdw_bf16(const bf16* G, const bf16* W, const bf16* X, float* DX,
                            float* DW, float* part, int M, int N, int K, int bm, int bn,
                            int bk, int split, int reg, void* stream) {
-  return launch_dxdw<bf16>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch_dxdw<bf16, bf16>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg,
+                                 stream);
+}
+// bf16 dY and X against f32 W.
+int repro_matmul_dxdw_bf16xf32(const bf16* G, const float* W, const bf16* X, float* DX,
+                               float* DW, float* part, int M, int N, int K, int bm, int bn,
+                               int bk, int split, int reg, void* stream) {
+  return launch_dxdw<bf16, float>(G, W, X, DX, DW, part, M, N, K, bm, bn, bk, split, reg,
+                                  stream);
 }
 
 }  // extern "C"

@@ -23,9 +23,12 @@ wrapper and plain PyTorch version:
   order.  Replaces ``::_mm_dxdw_kernel``.
 
 Operands are both f32 or both bf16 (a ``_f32`` and a ``_bf16`` C entry
-point per kernel); the accumulators are f32 and dX and dW come out f32,
-as ``repro``'s FC backward asks of its kernels (``out_dtype=f32``, then a
-cast to x's and w's dtypes in ``core/fc_layer.py``).
+point per kernel), or, for NT and the fused kernel, the CNN's bf16 dY and X
+against f32 W (``_bf16xf32``: fc1 at compute_dtype bf16, where ``repro``'s
+type promotion keeps the weights f32; TN's operands are X and dY, both
+bf16 there).  The accumulators are f32 and dX and dW come out f32, as
+``repro``'s FC backward asks of its kernels (``out_dtype=f32``, then a cast
+to x's and w's dtypes in ``core/fc_layer.py``).
 
 Two ops sit on the plan layer: ``matmul_dx`` (:class:`MatmulDxPlanner`)
 and ``matmul_dw`` (:class:`MatmulDwPlanner`).  :func:`matmul_dx_dw` is not
@@ -47,13 +50,14 @@ from repro_torch.kernels.matmul.matmul import plain_matmul, stage_bytes
 from repro_torch.plan import (
     CudaKernel, MatmulDwPlanner, MatmulDxPlanner, Schedule, cuda_op, pad_dim, round_up,
 )
-from repro_torch.plan.registry import one_dtype
+from repro_torch.plan.registry import activation_dtype
 
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
 TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
 DXDW_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of mm_dxdw_reg_kernel
 DXDW_REGISTER_M_BLOCKS = 3  # the most m-blocks of dX its threads hold
+DXDW_MIXED_M_BLOCKS = 2  # the m-blocks its bf16 x f32 route is built for (the CNN at 128)
 OUT_DTYPE = torch.float32  # dX and dW, whatever the operands' dtype
 
 
@@ -74,11 +78,15 @@ def matmul_dw_ref(x: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
 # -- shared memory and the blocks the kernels take ---------------------------------
 
 
-def smem_bytes_nt(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> int:
-    """The f32 dX tile [bm][bk] + two stages of the dY tile [bm][bn] and
-    the transposed W tile [bn][bk] at ``in_bytes`` an element (==
-    MatmulDxPlanner's H100 budget term)."""
-    return 4 * block_m * block_k + 2 * in_bytes * (block_m * block_n + block_n * block_k)
+def smem_bytes_nt(block_m: int, block_n: int, block_k: int, in_bytes: int = 4,
+                  w_bytes: int | None = None) -> int:
+    """The f32 dX tile [bm][bk] + two stages of the dY tile [bm][bn] at
+    ``in_bytes`` an element and the transposed W tile [bn][bk] at
+    ``w_bytes`` (default ``in_bytes``; == MatmulDxPlanner's H100 budget
+    term where the two are equal)."""
+    w_bytes = in_bytes if w_bytes is None else w_bytes
+    return 4 * block_m * block_k + 2 * (in_bytes * block_m * block_n
+                                        + w_bytes * block_n * block_k)
 
 
 def smem_bytes_tn(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -> int:
@@ -89,13 +97,16 @@ def smem_bytes_tn(block_m: int, block_n: int, block_k: int, in_bytes: int = 4) -
 
 
 def smem_bytes_dxdw(m: int, block_m: int, block_n: int, block_k: int,
-                    in_bytes: int = 4) -> int:
-    """Two stages of the dY, W and X tiles at ``in_bytes`` an element + the
-    whole-M f32 dX strip [m][bk] + the f32 dW tile [bk][bn] (== the
-    fused_dxdw schedule's H100 budget).  Both kernels take exactly this;
-    the register kernel keeps the X strip in the strip's room and the dY
-    tile (both ways) and the W tile in the rest."""
-    return (2 * in_bytes * (block_m * block_n + block_k * block_n + block_m * block_k)
+                    in_bytes: int = 4, w_bytes: int | None = None) -> int:
+    """Two stages of the dY and X tiles at ``in_bytes`` an element and of
+    the W tile at ``w_bytes`` (default ``in_bytes``) + the whole-M f32 dX
+    strip [m][bk] + the f32 dW tile [bk][bn] (== the fused_dxdw schedule's
+    H100 budget where the two sizes are equal).  Both kernels take exactly
+    this; the register kernel keeps the X strip in the strip's room and
+    the dY tile (both ways) and the W tile in the rest."""
+    w_bytes = in_bytes if w_bytes is None else w_bytes
+    return (2 * (in_bytes * (block_m * block_n + block_m * block_k)
+                 + w_bytes * block_k * block_n)
             + 4 * (m * block_k + block_k * block_n))
 
 
@@ -104,25 +115,27 @@ def _lane_blocks(*blocks: int) -> bool:
 
 
 def supported_blocks(kernel: str, *, block_m: int, block_n: int, block_k: int,
-                     m: int = 0, in_bytes: int = 4) -> bool:
+                     m: int = 0, in_bytes: int = 4, w_bytes: int | None = None) -> bool:
     """The blocks ``kernel`` ("matmul_nt" / "matmul_tn" / "matmul_dx_dw")
-    takes: multiples of 8 whose tiles (operands at ``in_bytes`` an
-    element; for the fused kernel with the [m, block_k] dX strip of an
-    m-row batch) fit one block's shared memory."""
-    smem = {"matmul_nt": lambda: smem_bytes_nt(block_m, block_n, block_k, in_bytes),
+    takes: multiples of 8 whose tiles (activations at ``in_bytes`` an
+    element, W at ``w_bytes``; for the fused kernel with the [m, block_k]
+    dX strip of an m-row batch) fit one block's shared memory."""
+    smem = {"matmul_nt": lambda: smem_bytes_nt(block_m, block_n, block_k, in_bytes,
+                                               w_bytes),
             "matmul_tn": lambda: smem_bytes_tn(block_m, block_n, block_k, in_bytes),
             "matmul_dx_dw": lambda: smem_bytes_dxdw(m, block_m, block_n, block_k,
-                                                    in_bytes)}
+                                                    in_bytes, w_bytes)}
     return (_lane_blocks(block_m, block_n, block_k)
             and smem[kernel]() <= H100.local_mem_bytes)
 
 
 def nt_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
-             in_bytes: int = 4) -> int:
+             in_bytes: int = 4, w_bytes: int | None = None) -> int:
     """Thread blocks that share each dX tile's N loop over the (k, m) grid
     (:func:`repro_torch.core.machine.h100_split`)."""
     return h100_split(grid=(m // block_m) * (k // block_k), steps=n // block_n,
-                      smem_bytes=smem_bytes_nt(block_m, block_n, block_k, in_bytes))
+                      smem_bytes=smem_bytes_nt(block_m, block_n, block_k, in_bytes,
+                                               w_bytes))
 
 
 def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
@@ -151,23 +164,27 @@ def tn_partial_bytes(*, k: int, n: int, split: int) -> int:
     return 4 * split * k * n if split > 1 else 0
 
 
-def dxdw_template(block_m: int, block_n: int, block_k: int, m: int) -> str:
+def dxdw_template(block_m: int, block_n: int, block_k: int, m: int,
+                  mixed: bool = False) -> str:
     """Which kernel a fused launch with these blocks and ``m`` rows runs:
     "register" at :data:`DXDW_REGISTER_TILE` with one to
-    :data:`DXDW_REGISTER_M_BLOCKS` whole m-blocks, else "simple".  The
-    launch passes this choice to the C entry point, which dispatches on
-    it."""
-    fits = m % block_m == 0 and 1 <= m // block_m <= DXDW_REGISTER_M_BLOCKS
+    :data:`DXDW_REGISTER_M_BLOCKS` whole m-blocks — on the ``mixed`` route
+    (bf16 dY and X against f32 W) with :data:`DXDW_MIXED_M_BLOCKS` alone,
+    the only count built for it — else "simple".  The launch passes this
+    choice to the C entry point, which dispatches on it."""
+    n_m = m // block_m if m % block_m == 0 else 0
+    fits = n_m == DXDW_MIXED_M_BLOCKS if mixed else 1 <= n_m <= DXDW_REGISTER_M_BLOCKS
     return ("register" if (block_m, block_n, block_k) == DXDW_REGISTER_TILE and fits
             else "simple")
 
 
 def dxdw_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
-               in_bytes: int = 4) -> int:
+               in_bytes: int = 4, w_bytes: int | None = None) -> int:
     """Thread blocks that share each k-block's n-blocks in the fused kernel
     (:func:`repro_torch.core.machine.h100_split` over the K/block_k grid)."""
     return h100_split(grid=k // block_k, steps=n // block_n,
-                      smem_bytes=smem_bytes_dxdw(m, block_m, block_n, block_k, in_bytes))
+                      smem_bytes=smem_bytes_dxdw(m, block_m, block_n, block_k, in_bytes,
+                                                 w_bytes))
 
 
 def _check_multiple(name, dims, blocks):
@@ -176,9 +193,10 @@ def _check_multiple(name, dims, blocks):
 
 
 def _check_nt(g, w, *, block_m, block_n, block_k):
-    in_bytes = stage_bytes(one_dtype("matmul_nt", g=g, w=w))
+    in_bytes = stage_bytes(activation_dtype("matmul_nt", ("w",), g=g, w=w))
     if not supported_blocks("matmul_nt", block_m=block_m, block_n=block_n,
-                            block_k=block_k, in_bytes=in_bytes):
+                            block_k=block_k, in_bytes=in_bytes,
+                            w_bytes=stage_bytes(w.dtype)):
         raise ValueError(f"matmul_nt kernel does not take blocks "
                          f"(m={block_m}, n={block_n}, k={block_k})")
     if g.ndim != 2 or w.ndim != 2 or g.shape[1] != w.shape[1]:
@@ -189,7 +207,7 @@ def _check_nt(g, w, *, block_m, block_n, block_k):
 
 
 def _check_tn(x, g, *, block_m, block_n, block_k):
-    in_bytes = stage_bytes(one_dtype("matmul_tn", x=x, g=g))
+    in_bytes = stage_bytes(activation_dtype("matmul_tn", x=x, g=g))
     if not supported_blocks("matmul_tn", block_m=block_m, block_n=block_n,
                             block_k=block_k, in_bytes=in_bytes):
         raise ValueError(f"matmul_tn kernel does not take blocks "
@@ -207,9 +225,10 @@ def _check_dxdw(g, w, x, *, block_m, block_n, block_k):
         raise ValueError(f"matmul_dx_dw shapes g={tuple(g.shape)} w={tuple(w.shape)} "
                          f"x={tuple(x.shape)}")
     (m, n), k = g.shape, w.shape[0]
-    in_bytes = stage_bytes(one_dtype("matmul_dx_dw", g=g, w=w, x=x))
+    in_bytes = stage_bytes(activation_dtype("matmul_dx_dw", ("w",), g=g, w=w, x=x))
     if not supported_blocks("matmul_dx_dw", block_m=block_m, block_n=block_n,
-                            block_k=block_k, m=m, in_bytes=in_bytes):
+                            block_k=block_k, m=m, in_bytes=in_bytes,
+                            w_bytes=stage_bytes(w.dtype)):
         raise ValueError(f"matmul_dx_dw kernel does not take blocks (m={block_m}, "
                          f"n={block_n}, k={block_k}) with a {m}-row dX strip")
     _check_multiple("matmul_dx_dw", (m, n, k), (block_m, block_n, block_k))
@@ -286,7 +305,7 @@ def _launch_nt(kernel: CudaKernel, g, w, *, block_m: int, block_n: int, block_k:
     if m // block_m > MAX_GRID_Y:
         raise ValueError(f"matmul_nt M/block_m = {m // block_m} exceeds the grid")
     split = nt_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
-                     in_bytes=g.element_size())
+                     in_bytes=g.element_size(), w_bytes=w.element_size())
     out = torch.empty((m, k), dtype=OUT_DTYPE, device=g.device)
     part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
             if split > 1 else None)
@@ -318,7 +337,7 @@ def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
     m, n, k = _check_dxdw(g, w, x, block_m=block_m, block_n=block_n, block_k=block_k)
     dtype = kernel.operand_dtype(g=g, w=w, x=x)
     split = dxdw_split(m=m, n=n, k=k, block_m=block_m, block_n=block_n, block_k=block_k,
-                       in_bytes=g.element_size())
+                       in_bytes=g.element_size(), w_bytes=w.element_size())
     dx = torch.empty((m, k), dtype=OUT_DTYPE, device=g.device)
     dw = torch.empty((k, n), dtype=OUT_DTYPE, device=g.device)
     part = (torch.empty((split, m, k), dtype=torch.float32, device=g.device)
@@ -326,13 +345,15 @@ def _launch_dxdw(kernel: CudaKernel, g, w, x, *, block_m: int, block_n: int,
     kernel.run(_ptr(g), _ptr(w), _ptr(x), _ptr(dx), _ptr(dw),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(dxdw_template(block_m, block_n, block_k, m) == "register"), dtype=dtype)
+               int(dxdw_template(block_m, block_n, block_k, m, mixed=w.dtype != g.dtype)
+                   == "register"), dtype=dtype)
     return dx, dw
 
 
+BF, F32 = torch.bfloat16, torch.float32
 matmul_nt_kernel = CudaKernel(
     "matmul_nt", source="matmul_bwd", symbol="repro_matmul_nt_f32",
-    bf16_symbol="repro_matmul_nt_bf16",
+    bf16_symbol="repro_matmul_nt_bf16", routes={(BF, F32): "repro_matmul_nt_bf16xf32"},
     argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
     launch=_launch_nt, plain=matmul_nt_plain, cost=matmul_nt_cost,
 )
@@ -345,6 +366,7 @@ matmul_tn_kernel = CudaKernel(
 matmul_dxdw_kernel = CudaKernel(
     "matmul_dx_dw", source="matmul_bwd", symbol="repro_matmul_dxdw_f32",
     bf16_symbol="repro_matmul_dxdw_bf16",
+    routes={(BF, F32, BF): "repro_matmul_dxdw_bf16xf32"},
     argtypes=[ctypes.c_void_p] * 6 + [ctypes.c_int] * 8 + [ctypes.c_void_p],
     launch=_launch_dxdw, plain=matmul_dxdw_plain, cost=matmul_dxdw_cost,
 )

@@ -12,6 +12,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core.machine import H100
 from repro_torch.core.conv_layer import conv_block
 from repro_torch.core.fc_layer import fc_layer
 from repro_torch.kernels.conv2d.ref import conv2d_fused_ref
@@ -157,8 +158,26 @@ def forward(cfg: ModelConfig, params: dict, images: torch.Tensor, *,
                                 _bwd_for(sched, "fc1")) + params["fc1_b"])
         return fc_layer(x, params["fc2"], sched.get("fc2"),
                         _bwd_for(sched, "fc2")) + params["fc2_b"]
-    x = torch.relu(x @ params["fc1"] + params["fc1_b"])
-    return x @ params["fc2"] + params["fc2_b"]
+    x = torch.relu(_promoted_matmul(x, params["fc1"]) + params["fc1_b"])
+    return _promoted_matmul(x, params["fc2"]) + params["fc2_b"]
+
+
+def _promoted_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w at the promoted dtype, as JAX's ``@`` computes a bf16
+    activation against f32 weights: the f32 product, unrounded."""
+    dt = torch.promote_types(x.dtype, w.dtype)
+    return x.to(dt) @ w.to(dt)
+
+
+def _stage_bytes(name: str, in_bytes: int, machine) -> int:
+    """The element size a stage is planned at: ``in_bytes``, but fc2 on the
+    H100 at its operands' 4 bytes on every route (fc1's f32 bias promotes
+    its input): ``repro`` charges it at ``in_bytes``, which at 2 picks a
+    fused dX/dW tile that one block's shared memory cannot hold at f32
+    (ROADMAP queue 3)."""
+    if name == "fc2" and (machine or H100).name == H100.name:
+        return max(in_bytes, 4)
+    return in_bytes
 
 
 def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
@@ -187,8 +206,9 @@ def plan_forward(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
                                 shard_axis=shard_axis, shard_strategy=shard_strategy,
                                 algorithm=conv_algorithm, autotune=autotune)
         else:
-            out[name] = fl.plan(x_shape, w_shape, in_bytes=in_bytes, machine=machine,
-                                mesh=mesh, shard_axis=shard_axis,
+            out[name] = fl.plan(x_shape, w_shape,
+                                in_bytes=_stage_bytes(name, in_bytes, machine),
+                                machine=machine, mesh=mesh, shard_axis=shard_axis,
                                 strategy=shard_strategy, autotune=autotune)
     return out
 
@@ -219,8 +239,10 @@ def plan_training(cfg: ModelConfig, batch: int, *, in_bytes: int = 4,
                               in_bytes=in_bytes, machine=machine, mesh=mesh,
                               shard_axis=shard_axis, autotune=autotune)
         else:
-            bwd = fl.plan_bwd(x_shape, w_shape, in_bytes=in_bytes, machine=machine,
-                              mesh=mesh, shard_axis=shard_axis, autotune=autotune)
+            bwd = fl.plan_bwd(x_shape, w_shape,
+                              in_bytes=_stage_bytes(name, in_bytes, machine),
+                              machine=machine, mesh=mesh, shard_axis=shard_axis,
+                              autotune=autotune)
         for k, s in bwd.items():
             out[f"{name}.{k}"] = s
     return out

@@ -71,9 +71,12 @@ class CudaKernel:
     ``PERF.md``'s bound column, which reads the same functions).
     ``launches`` counts the kernel's launches (bumped only in :meth:`run`).
     ``symbol`` is the C entry point of f32 operands and ``bf16_symbol``,
-    where the source has one, that of bf16 operands (:attr:`symbols`);
-    the launch checks its operands with :meth:`operand_dtype` and passes
-    the dtype to :meth:`run`.
+    where the source has one, that of bf16 operands; ``routes`` maps a
+    mixed route (the tuple of the operands' dtypes, in the launch's order,
+    then the output's where the launch has a choice: the CNN's bf16
+    activations against f32 weights) to its entry point.  All are in
+    :attr:`symbols`.  The launch checks its operands with
+    :meth:`operand_dtype` and passes the route to :meth:`run`.
 
     A call dispatches by device: CPU tensors run the plain version, CUDA
     tensors the launch, and ``meta`` tensors the launch with nothing
@@ -84,12 +87,15 @@ class CudaKernel:
 
     def __init__(self, name: str, *, source: str, symbol: str,
                  argtypes: list, launch: Callable, plain: Callable,
-                 cost: Callable, bf16_symbol: str | None = None):
+                 cost: Callable, bf16_symbol: str | None = None,
+                 routes: dict[tuple, str] | None = None):
         self.name = name
         self.source = source  # file stem under kernels/csrc/
-        self.symbols = {torch.float32: symbol}  # operand dtype -> C entry point
+        # one operand dtype, or a mixed route's tuple -> C entry point
+        self.symbols: dict = {torch.float32: symbol}
         if bf16_symbol is not None:
             self.symbols[torch.bfloat16] = bf16_symbol
+        self.symbols.update(routes or {})
         self.argtypes = argtypes
         self.launch = launch
         self.plain = plain
@@ -118,25 +124,39 @@ class CudaKernel:
             finally:
                 _DRY.depth -= 1
 
-    def operand_dtype(self, **tensors: torch.Tensor) -> torch.dtype:
-        """The one dtype of a launch's operands: raise unless they share
-        one that the kernel has an entry point for (:attr:`symbols`) and
-        each is contiguous and 16-byte aligned."""
-        takes = " or ".join(str(d).removeprefix("torch.") for d in self.symbols)
-        dtype = one_dtype(f"{self.name} kernel", **tensors)
+    def operand_dtype(self, *, out: torch.dtype | None = None,
+                      **tensors: torch.Tensor) -> torch.dtype | tuple:
+        """The route of a launch's operands (a key of :attr:`symbols`):
+        their one dtype where they share one (and ``out``, where the launch
+        names it, is that dtype too), else the tuple of their dtypes and
+        ``out``'s.  Raise unless the kernel has an entry point for it and
+        each operand is contiguous and 16-byte aligned."""
+        one = [d for d in self.symbols if not isinstance(d, tuple)]
+        known = set(one).union(*(d for d in self.symbols if isinstance(d, tuple)))
+        takes = " or ".join(str(d).removeprefix("torch.") for d in one)
         for tname, t in tensors.items():
-            if t.dtype not in self.symbols or not t.is_contiguous():
+            if t.dtype not in known or not t.is_contiguous():
                 raise ValueError(f"{self.name} kernel takes contiguous {takes} {tname}, "
                                  f"got {t.dtype} (contiguous={t.is_contiguous()})")
             if t.data_ptr() % 16:
                 raise ValueError(f"{self.name} kernel needs a 16-byte aligned {tname}")
-        return dtype
+        dtypes = tuple(t.dtype for t in tensors.values())
+        route = (dtypes[0] if len(set(dtypes)) == 1 and out in (None, dtypes[0])
+                 else dtypes + ((out,) if out is not None else ()))
+        if route not in self.symbols:
+            mixed = "; ".join("/".join(_dtype_name(d) for d in key)
+                              for key in self.symbols if isinstance(key, tuple))
+            raise ValueError(
+                f"{self.name} kernel takes {', '.join(tensors)} of one dtype"
+                + (f" or a mixed route ({mixed})" if mixed else "") + ", got "
+                + "/".join(_dtype_name(d) for d in dtypes + ((out,) if out else ())))
+        return route
 
-    def run(self, *c_args, dtype: torch.dtype = torch.float32) -> None:
-        """Launch the compiled kernel of ``dtype`` operands on the current
-        stream; raise on the error code its C entry point returns
-        (``cudaGetLastError``).  On the ``meta`` route it returns at once:
-        nothing is built or launched."""
+    def run(self, *c_args, dtype: torch.dtype | tuple = torch.float32) -> None:
+        """Launch the compiled kernel of route ``dtype`` (from
+        :meth:`operand_dtype`) on the current stream; raise on the error
+        code its C entry point returns (``cudaGetLastError``).  On the
+        ``meta`` route it returns at once: nothing is built or launched."""
         if getattr(_DRY, "depth", 0):
             return
         from repro_torch.kernels import _build
@@ -160,6 +180,27 @@ def one_dtype(name: str, **tensors: torch.Tensor) -> torch.dtype:
         raise ValueError(f"{name} takes {', '.join(tensors)} of one dtype, got "
                          + ", ".join(f"{n} {t.dtype}" for n, t in tensors.items()))
     return dtypes.pop()
+
+
+def activation_dtype(name: str, weights: tuple = (), **tensors: torch.Tensor) -> torch.dtype:
+    """The dtype of a kernel's activations (every operand not named in
+    ``weights``): raise naming ``name`` unless they share one and each
+    weight is of it too, or f32 against bf16 activations (the CNN's bf16
+    route, where ``repro``'s type promotion meets bf16 activations with the
+    f32 parameters)."""
+    dtype = one_dtype(name, **{n: t for n, t in tensors.items() if n not in weights})
+    for n in weights:
+        w = tensors[n].dtype
+        if w != dtype and not (dtype == torch.bfloat16 and w == torch.float32):
+            raise ValueError(
+                f"{name} takes its activations of one dtype and {n} of it or float32 "
+                "against bfloat16, got " + ", ".join(f"{k} {t.dtype}"
+                                                     for k, t in tensors.items()))
+    return dtype
+
+
+def _dtype_name(d: torch.dtype) -> str:
+    return str(d).removeprefix("torch.")
 
 
 _DRY = threading.local()  # > 0 inside a kernel call on meta tensors

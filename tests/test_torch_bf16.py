@@ -139,16 +139,18 @@ def test_fc_backward_keeps_dy_dtype(monkeypatch):
 def test_plain_versions_round_the_f32_product_once(kernel):
     """Each GEMM's plain version at bf16 is the f32 product of its operands
     rounded once to the output dtype: bf16 for the forward matmul, f32 for
-    dX and dW; two dtypes raise."""
+    dX and dW; two activation dtypes, or bf16 weights against f32
+    activations, raise (f32 weights against bf16 activations are the CNN's
+    mixed route, tests/test_torch_cnn_bf16.py)."""
     rng = np.random.default_rng(2)
     a, b, c = _bf16(rng, 32, 48)[0], _bf16(rng, 40, 48)[0], _bf16(rng, 32, 40)[0]
     kw = dict(block_m=8, block_n=8, block_k=8)
     if kernel == "matmul":
         got, want = matmul_plain(c, b, **kw), (c.float() @ b.float()).to(BF)
-        bad = (c, b.float())
+        bad = (c.float(), b)
     elif kernel == "matmul_nt":
         got, want = mb.matmul_nt_plain(a, b, **kw), a.float() @ b.float().t()
-        bad = (a, b.float())
+        bad = (a.float(), b)
     elif kernel == "matmul_tn":
         got, want = mb.matmul_tn_plain(c, a, **kw), c.float().t() @ a.float()
         bad = (c.float(), a)

@@ -978,9 +978,10 @@ def test_bf16_flash_matches_plain_on_card(cuda, case):
 
 @pytest.mark.cuda
 def test_kernels_refuse_other_dtypes_on_card(cuda):
-    """Operands of two dtypes, float16 and float64 raise at every GEMM and
-    flash kernel; a bf16 tensor at the conv kernels raises and names the
-    queue item of the CNN's bf16 route.  Nothing launches."""
+    """Operands of two dtypes (other than the CNN's bf16 activations against
+    f32 weights), float16 and float64 raise at every GEMM and flash kernel;
+    bf16 filters, a bf16 bias and bf16 x against f32 dY raise at the conv
+    kernels.  Nothing launches."""
     from repro_torch.kernels.flash_attention import flash_attention_kernel
 
     mm = dict(block_m=64, block_n=128, block_k=32)
@@ -989,7 +990,7 @@ def test_kernels_refuse_other_dtypes_on_card(cuda):
                                       matmul_dxdw_kernel, flash_attention_kernel,
                                       conv2d_kernel, conv2d_wgrad_kernel)}
     with pytest.raises(ValueError, match="of one dtype"):
-        matmul_kernel(f32.bfloat16(), torch.zeros(64, 128, device=cuda), **mm)
+        matmul_kernel(f32, torch.zeros(64, 128, device=cuda).bfloat16(), **mm)
     for dt in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="float32 or bfloat16"):
             matmul_kernel(f32.to(dt), torch.zeros(64, 128, device=cuda, dtype=dt), **mm)
@@ -999,6 +1000,8 @@ def test_kernels_refuse_other_dtypes_on_card(cuda):
             matmul_tn_kernel(f32.to(dt), f32.to(dt), block_m=32, block_n=64, block_k=64)
     with pytest.raises(ValueError, match="of one dtype"):
         matmul_dxdw_kernel(f32, f32.bfloat16(), f32, block_m=64, block_n=32, block_k=64)
+    with pytest.raises(ValueError, match="of one dtype"):
+        matmul_nt_kernel(f32, f32.bfloat16(), block_m=64, block_n=32, block_k=64)
     q = torch.zeros(8, 128, 64, device=cuda)
     with pytest.raises(ValueError, match="of one dtype"):
         flash_attention_kernel(q.bfloat16(), q, q, block_q=64, block_kv=64, scale=0.125,
@@ -1013,10 +1016,14 @@ def test_kernels_refuse_other_dtypes_on_card(cuda):
                                causal=True, window=None, q_len=128, kv_len=128)
     x = torch.zeros(2, 10, 10, 8, device=cuda, dtype=torch.bfloat16)
     f = torch.zeros(3, 3, 8, 16, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="queue 1 #11"):
-        conv2d(x, f, bias=torch.zeros(16, device=cuda, dtype=torch.bfloat16), padding=1)
-    with pytest.raises(ValueError, match="queue 1 #11"):
-        conv2d_wgrad(x, torch.zeros(2, 8, 8, 16, device=cuda, dtype=torch.bfloat16), F=3)
+    with pytest.raises(ValueError, match="bfloat16 x against float32 f"):
+        conv2d(x, f, bias=torch.zeros(16, device=cuda), padding=1)
+    with pytest.raises(ValueError, match="bias, got torch.float16"):
+        conv2d_kernel(torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1)).contiguous(),
+                      f.float(), torch.zeros(16, device=cuda, dtype=torch.float16),
+                      stride=1, block_h=4, block_do=16, block_di=8, H_O=8, W_O=8)
+    with pytest.raises(ValueError, match="of one dtype"):
+        conv2d_wgrad(x, torch.zeros(2, 8, 8, 16, device=cuda), F=3)
     assert all(k.launches == n for k, n in before.items())
 
 
@@ -1071,6 +1078,237 @@ def test_planned_bf16_transformer_step_on_card(cuda):
     out = []
     # at M = 256 the planner picks the fused dX/dW kernel for every GEMM
     kernels = (matmul_kernel, matmul_dxdw_kernel, flash_attention_kernel)
+    for dev in (cuda, torch.device("cpu")):
+        before = [k.launches for k in kernels]
+        leaves = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}
+        loss = loss_fn(leaves, {k: v.to(dev) for k, v in batch.items()})
+        out.append((loss, torch.autograd.grad(loss, list(leaves.values()))))
+        if dev.type == "cuda":
+            assert all(k.launches > n for k, n in zip(kernels, before))
+    (loss_c, grads_c), (loss_p, grads_p) = out
+    assert abs(float(loss_c) - float(loss_p)) <= 1e-3 * abs(float(loss_p))
+    for got, want in zip(grads_c, grads_p):
+        assert got.dtype == want.dtype == torch.float32
+        assert_close(got, want, 3e-2)
+
+
+# -- the CNN's bf16 route: bf16 activations against f32 filters and weights ------------
+#
+# Gates as the bf16 route's above: bf16 outputs within one bf16 ulp of the
+# plain version (the f32 sums rounded once), f32 outputs within BF16_TOL of
+# scale, two launches the same bits.  The operand dtypes are the contract of
+# the CNN's route: conv forward bf16 x / f32 f and bias to bf16 and the mask,
+# dgrad bf16 dY / f32 f to f32, wgrad bf16 x and dY to f32, the forward
+# matmul bf16 x / f32 W to bf16 (fc1) or f32 (the im2col strip), NT and the
+# fused kernel bf16 dY (and X) against f32 W to f32.
+
+
+def cnn_bf16_cases(batch):
+    """(kernel, label, args, kwargs) of every new route at the planned
+    cnn-vgg11 bf16 step's shapes at ``batch`` (``plan_training(...,
+    in_bytes=2)``'s blocks, operands padded as the ops pad them)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.conv2d.bwd import dgrad_operands, wgrad_operands
+    from repro_torch.kernels.conv2d.im2col import strip_patches
+    from repro_torch.models import cnn
+    from repro_torch.plan import pad_dim, round_up
+
+    cfg = get_config("cnn-vgg11")
+    plans = cnn.plan_training(cfg, batch, in_bytes=2)
+    g = torch.Generator(device="cuda").manual_seed(31)
+    bf = torch.bfloat16
+
+    def rand(*shape, s=1.0, dtype=bf):
+        return (torch.randn(shape, device="cuda", generator=g) * s).to(dtype)
+
+    def padded(t, *sizes):
+        for axis, size in enumerate(sizes):
+            t = pad_dim(t, axis, size)
+        return t.contiguous()
+
+    out = []
+    for i, (name, x_shape, w_shape) in enumerate(cnn._stage_geometry(cfg, batch)):
+        if name.startswith("conv"):
+            B, H, _, ci = x_shape
+            co = w_shape[3]
+            x, dy = rand(*x_shape), rand(B, H, H, co)
+            f = rand(*w_shape, s=(9 * ci) ** -0.5, dtype=torch.float32)
+            bias = rand(co, s=0.1, dtype=torch.float32)
+            s = plans[name]
+            if s.algorithm == "im2col":
+                b = s.block_dict()
+                xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+                a = strip_patches(xp, 0, min(b["block_h"], H), F=3, S=1, W_O=H)
+                wm = f.reshape(9 * ci, co)
+                bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+                out.append(("matmul", f"{name}.strip",
+                            (padded(a, round_up(a.shape[0], bm), round_up(9 * ci, bk)),
+                             padded(wm, round_up(9 * ci, bk), round_up(co, bn))),
+                            dict(block_m=bm, block_n=bn, block_k=bk,
+                                 out_dtype=torch.float32)))
+            else:
+                b = s.block_dict()
+                n_h = -(-H // b["block_h"])
+                pad_b = 1 + max(0, (n_h * b["block_h"] - 1) + 3 - (H + 2))
+                xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, pad_b)).contiguous()
+                out.append(("conv2d", name, (xp, f, bias),
+                            dict(stride=1, block_h=b["block_h"], block_do=b["block_do"],
+                                 block_di=b["block_di"], H_O=H, W_O=H, relu=True, pool=2,
+                                 emit_mask=True)))
+            b = plans[f"{name}.wgrad"].block_dict()
+            xq, gq, geo = wgrad_operands(x, dy, F=3, stride=1, padding=1,
+                                         block_h=b["block_h"])
+            out.append(("conv2d_wgrad", f"{name}.wgrad", (xq, gq),
+                        dict(geo, block_do=b["block_do"], block_di=b["block_di"])))
+            if i > 0:
+                b = plans[f"{name}.dgrad"].block_dict()
+                xq, ft, zb, geo = dgrad_operands(dy, f, stride=1, padding=1, out_hw=(H, H),
+                                                 block_h=b["block_h"])
+                out.append(("conv2d", f"{name}.dgrad", (xq, ft, zb),
+                            dict(geo, block_do=b["block_do"], block_di=b["block_di"],
+                                 out_dtype=torch.float32)))
+        elif name == "fc1":
+            m, k = x_shape
+            n = w_shape[1]
+            x, w, dy = rand(m, k), rand(k, n, s=k ** -0.5, dtype=torch.float32), rand(m, n)
+            b = plans[name].block_dict()
+            bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+            out.append(("matmul", name, (padded(x, round_up(m, bm), round_up(k, bk)),
+                                         padded(w, round_up(k, bk), round_up(n, bn))),
+                        dict(block_m=bm, block_n=bn, block_k=bk)))
+            b = plans[f"{name}.dx"].block_dict()
+            bm, bn, bk = b["block_m"], b["block_n"], b["block_k"]
+            assert plans[f"{name}.dx"].algorithm == "fused_dxdw"
+            blocks = dict(block_m=bm, block_n=bn, block_k=bk)
+            out.append(("matmul_dx_dw", f"{name}.dxdw",
+                        (padded(dy, round_up(m, bm), round_up(n, bn)),
+                         padded(w, round_up(k, bk), round_up(n, bn)),
+                         padded(x, round_up(m, bm), round_up(k, bk))), blocks))
+            # NT at its planned tile, where a larger batch plans it
+            out.append(("matmul_nt", f"{name}.dx", (dy, w),
+                        dict(block_m=64, block_n=32, block_k=128)))
+    return out
+
+
+CNN_BF16_RAGGED = ["conv-s2", "dgrad-s2", "wgrad-s2", "mm-8-16-16", "nt-8-16-16",
+                   "dxdw-8-16-16", "dxdw-one-m-block"]
+
+
+def cnn_bf16_ragged(label):
+    """The routes at odd shapes on the simple kernels: 5 -> 13 channels,
+    stride 2, a 9x9 plane, strips of 4 rows; 37 x 90 x 70 GEMMs padded to
+    8/16/16 blocks."""
+    from repro_torch.kernels.conv2d.bwd import dgrad_operands, wgrad_operands
+
+    g = torch.Generator(device="cuda").manual_seed(32)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, device="cuda", generator=g).to(dtype)
+
+    x, dy, f = rand(3, 17, 17, 5), rand(3, 9, 9, 13), rand(3, 3, 5, 13, dtype=torch.float32)
+    if label == "conv-s2":
+        xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 7)).contiguous()
+        return "conv2d", (xp, f, rand(13, dtype=torch.float32)), dict(
+            stride=2, block_h=4, block_do=16, block_di=8, H_O=9, W_O=9, relu=True, pool=1,
+            emit_mask=True)
+    if label == "dgrad-s2":
+        xq, ft, zb, geo = dgrad_operands(dy, f, stride=2, padding=1, out_hw=(17, 17),
+                                         block_h=4)
+        return "conv2d", (xq, ft, zb), dict(geo, block_do=8, block_di=8,
+                                            out_dtype=torch.float32)
+    if label == "wgrad-s2":
+        xq, gq, geo = wgrad_operands(x, dy, F=3, stride=2, padding=1, block_h=4)
+        return "conv2d_wgrad", (xq, gq), dict(geo, block_do=16, block_di=8)
+    if label == "dxdw-one-m-block":  # the register tile, one m-block: the simple kernel
+        return "matmul_dx_dw", (rand(64, 64), rand(256, 64, dtype=torch.float32),
+                                rand(64, 256)), dict(block_m=64, block_n=32, block_k=128)
+    a, w, gr = rand(40, 96), rand(96, 80, dtype=torch.float32), rand(40, 80)
+    a[37:], a[:, 90:], w[90:], w[:, 70:], gr[37:], gr[:, 70:] = 0, 0, 0, 0, 0, 0
+    blocks = dict(block_m=8, block_n=16, block_k=16)
+    return {"mm-8-16-16": ("matmul", (a, w), blocks),
+            "nt-8-16-16": ("matmul_nt", (gr, w), blocks),
+            "dxdw-8-16-16": ("matmul_dx_dw", (gr, w, a), blocks)}[label]
+
+
+def _check_cnn_bf16_route(name, args, kw):
+    """One launch of a new route against its plain version on the same
+    operands, and a second launch's bits."""
+    kernel = {"conv2d": conv2d_kernel, "conv2d_wgrad": conv2d_wgrad_kernel,
+              "matmul": matmul_kernel, "matmul_nt": matmul_nt_kernel,
+              "matmul_dx_dw": matmul_dxdw_kernel}[name]
+    got = _launched(kernel, lambda: kernel(*args, **kw))
+    again = kernel(*args, **kw)
+    want = kernel.plain(*args, **kw)
+    outs, agains, wants = ((t if isinstance(t, tuple) else (t,)) for t in (got, again, want))
+    for o, a, w in zip(outs, agains, wants):
+        assert o.dtype == w.dtype and torch.equal(o, a)
+        if o.dtype == torch.bfloat16:
+            assert_within_ulp(o, w)
+        elif o.dtype == torch.float32:
+            assert_close(o, w, BF16_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [256, 128])
+def test_cnn_bf16_routes_match_plain_on_card(cuda, batch):
+    """Every new route at the cnn-vgg11 bf16 step's shapes (the fused
+    kernel's simple tile at 256, its register kernel at 128)."""
+    for name, label, args, kw in cnn_bf16_cases(batch):
+        assert args[0].dtype == torch.bfloat16, label
+        _check_cnn_bf16_route(name, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", CNN_BF16_RAGGED)
+def test_cnn_bf16_routes_ragged_on_card(cuda, label):
+    name, args, kw = cnn_bf16_ragged(label)
+    _check_cnn_bf16_route(name, args, kw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pool", [1, 2])
+def test_bf16_mask_matches_plain_on_card(cuda, pool):
+    """Integer bf16 inputs and filters sum exactly in f32, so ties and dead
+    windows are real: the bf16 route's mask and output equal the plain
+    version's everywhere."""
+    rng = np.random.default_rng(8)
+    x = torch.from_numpy(rng.integers(-2, 3, (2, 10, 10, 8)).astype(np.float32))
+    f = torch.from_numpy(rng.integers(-1, 2, (3, 3, 8, 16)).astype(np.float32))
+    b = torch.from_numpy(rng.integers(-1, 2, (16,)).astype(np.float32))
+    xb = x.to(torch.bfloat16)
+    out, mask = conv2d_with_mask(xb.to(cuda), f.to(cuda), bias=b.to(cuda), padding=1,
+                                 pool=pool)
+    want_out, want_mask = conv2d_with_mask(xb, f, bias=b, padding=1, pool=pool)
+    assert out.dtype == torch.bfloat16
+    assert torch.equal(out.cpu(), want_out)
+    assert torch.equal(mask.cpu(), want_mask)
+
+
+@pytest.mark.cuda
+def test_planned_bf16_cnn_step_on_card(cuda):
+    """The planned smoke cnn-vgg11 step at compute_dtype bf16 on the card
+    (every new route: direct conv and its mask, dgrad, wgrad, fc1 bf16 x
+    f32, the fused dX/dW kernel) against the same step on the CPU (the
+    plain versions): loss within 1e-3 relative, every gradient f32 within
+    3e-2 * max(1, max |ref|) (bf16 activations rounded at other points of
+    the two sums' orders, as test_torch_cnn_bf16.py's gates against
+    repro)."""
+    from repro_torch.configs import TrainConfig, smoke_config
+    from repro_torch.models import cnn
+    from repro_torch.models.module import init_params
+    from repro_torch.runtime import train as tr
+
+    cfg = smoke_config("cnn-vgg11")
+    params = init_params(cnn.param_defs(cfg), 0, device="cpu")
+    rng = np.random.default_rng(9)
+    batch = {"images": torch.from_numpy(rng.standard_normal((16, 32, 32, 3),
+                                                            dtype=np.float32)),
+             "labels": torch.from_numpy(rng.integers(0, cfg.vocab, 16).astype(np.int32))}
+    loss_fn = tr.make_loss_fn(cfg, TrainConfig(planned_kernels=True,
+                                               compute_dtype="bfloat16"))
+    kernels = (conv2d_kernel, conv2d_wgrad_kernel, matmul_kernel, matmul_dxdw_kernel)
+    out = []
     for dev in (cuda, torch.device("cpu")):
         before = [k.launches for k in kernels]
         leaves = {k: v.to(dev).requires_grad_(True) for k, v in params.items()}

@@ -309,14 +309,15 @@ def test_meta_route_checks_allocates_and_counts_no_launch(case):
 
 def test_meta_route_refuses_what_the_launch_refuses():
     """The launch's own checks run on ``meta``: blocks the kernel does
-    not take, operands of two dtypes, a dtype (float16, float64) or layout
-    it does not take, a head dim it is not built for, gradients; a bf16
-    pair passes them with outputs of the launch's dtypes."""
+    not take, operands of two dtypes (other than the CNN's bf16 x against
+    f32 W), a dtype (float16, float64) or layout it does not take, a head
+    dim it is not built for, gradients; a bf16 pair passes them with
+    outputs of the launch's dtypes."""
     kw = dict(block_m=64, block_n=128, block_k=32)
     with pytest.raises(ValueError, match="not a multiple of the blocks"):
         matmul_kernel(_m(100, 64), _m(64, 256), **kw)
     with pytest.raises(ValueError, match="of one dtype"):
-        matmul_kernel(_m(128, 64, dtype=torch.bfloat16), _m(64, 256), **kw)
+        matmul_kernel(_m(128, 64), _m(64, 256, dtype=torch.bfloat16), **kw)
     for dt in (torch.float16, torch.float64):
         with pytest.raises(ValueError, match="contiguous float32 or bfloat16"):
             matmul_kernel(_m(128, 64, dtype=dt), _m(64, 256, dtype=dt), **kw)
