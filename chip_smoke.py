@@ -734,6 +734,28 @@ BF16_MARKERS = {"matmul": ("mm_reg_kernel", "mm_simple_kernel"),
                 "conv2d_wgrad": ("wgrad_reg_kernel", "wgrad_simple_kernel")}
 FLASH_OFFSET_CASES = [(64, None), (64, 512), (128, None), (128, 1024)]
 FLASH_OFFSETS = (512, 1536, 200, 1000)
+# Phase bf16_dense: flash's bf16 route at every head dim, qwen3-1.7b and
+# gemma3-4b planned in bf16, one bf16 step of each non-dense family.
+# (a): label, B, Hq, Hkv, Sq, Skv, D, window, q_len, q_off (causal; kv_len
+# = Skv, but the ragged case's q_len): qwen3-1.7b's cell, phase dense's
+# GQA 64/8 cell, gemma3-4b's local and global cells at (c)'s batch, a
+# smoke-size D = 32 cell, a ragged length and a query slice at an offset.
+BF16_FLASH = [("qwen3-1.7b-d128", 4, 16, 8, 2048, 2048, 128, None, 2048, 0),
+              ("gqa64/8-d128", 1, 64, 8, 2048, 2048, 128, None, 2048, 0),
+              ("gemma3-4b-local-d256-w1024", 2, 8, 4, 2048, 2048, 256, 1024, 2048, 0),
+              ("gemma3-4b-global-d256", 2, 8, 4, 2048, 2048, 256, None, 2048, 0),
+              ("smoke-d32", 2, 4, 2, 256, 256, 32, None, 256, 0),
+              ("ragged1900-d128", 1, 16, 8, 1920, 1920, 128, None, 1900, 0),
+              ("offset1000-d256-w1024", 1, 8, 4, 512, 2048, 256, 1024, 512, 1000)]
+# (b), (c): arch -> (layers, batch, seq) of the planned bf16 step at full width.
+BF16_DENSE = {"qwen3-1.7b": (DENSE_LAYERS, TFM_BATCH, TFM_SEQ),
+              "gemma3-4b": (DENSE_SERVE_LAYERS, 2, 2048)}
+# (d): the bf16 step's loss against the f32 step's on the same batch, relative
+# (3.9e-5 RWKV-6, 7.5e-5 Zamba2, 2.6e-4 seamless on an H100 at these depths).
+BF16_FAMILY_LOSS_RTOL = 2e-3
+# (d): bf16 GEMMs at the families' shapes, cuBLAS against the f32 product
+# rounded once, with reduced-precision reduction on and off: m, k, n.
+BF16_RPR_SHAPES = [(1024, 2048, 2048), (1024, 8192, 2048), (64, 16384, 256)]
 
 
 def tfm_chunks() -> int:
@@ -890,6 +912,72 @@ def grad_distance(a, b) -> float:
     return float((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30))
 
 
+def bf16_tcfgs():
+    """The steps phase bf16's gates compare (the planned bf16 step, the
+    plain bf16 step, the plain f32 step) and the planned f32 step phase
+    bf16_dense times beside them: AdamW as the launcher's, f32 weights, no
+    remat."""
+    from repro_torch.configs import TrainConfig
+
+    kw = dict(param_dtype="float32", learning_rate=3e-4, warmup_steps=1, total_steps=STEPS,
+              loss_chunks=tfm_chunks(), seed=SEED, remat="none")
+    return {"planned bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=True),
+            "plain bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=False),
+            "plain f32": TrainConfig(**kw, compute_dtype="float32", planned_kernels=False),
+            "planned f32": TrainConfig(**kw, compute_dtype="float32", planned_kernels=True)}
+
+
+def bf16_step_gates(torch, kernels, cfg, plans, params0, batch, b: int, seq: int) -> dict:
+    """Phase bf16's gates on one dense config's planned bf16 step from
+    ``params0`` on ``batch`` (b x seq): step-1 launches of each kernel
+    equal to the plan, a finite loss and f32 gradients, the loss within
+    BF16_LOSS_RTOL of the plain bf16 step's, each gradient's distance from
+    the plain f32 step at most BF16_GRAD_RATIO times the plain bf16 step's
+    own.  Returns the record (launches, losses, distances, peaks, plans)."""
+    from repro_torch.models import transformer as tf
+    from repro_torch.runtime import train as tr
+
+    tcfgs = bf16_tcfgs()
+    per_step = per_kernel(tfm_calls(tf, cfg, plans, b, seq), tfm_kernels())
+    zero_counts(kernels)
+    loss, grads, peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["planned bf16"]), params0,
+                              batch)
+    launched = {n: k.launches for n, k in kernels.items()}
+    check(launched == {n: per_step.get(n, 0) for n in kernels},
+          f"{cfg.name} bf16 step: launches {launched} != plan {per_step}")
+    check(math.isfinite(loss), f"{cfg.name} bf16 step: loss {loss}")
+    for k, gr in grads.items():
+        check(gr.dtype == torch.float32 and bool(torch.isfinite(gr).all()),
+              f"{cfg.name} bf16 step grad {k}: {gr.dtype}, non-finite")
+    losses, peaks = {"planned bf16": loss}, {"planned bf16": peak}
+    f32_loss, f32_grads, peaks["plain f32"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain f32"]), params0, batch)
+    dist = {k: {"planned bf16": grad_distance(gr, f32_grads[k])} for k, gr in grads.items()}
+    del grads
+    torch.cuda.empty_cache()
+    losses["plain bf16"], plain_grads, peaks["plain bf16"] = step1(
+        torch, tr.make_loss_fn(cfg, tcfgs["plain bf16"]), params0, batch)
+    for k, gr in plain_grads.items():
+        dist[k]["plain bf16"] = grad_distance(gr, f32_grads[k])
+    losses["plain f32"] = f32_loss
+    del plain_grads, f32_grads
+    torch.cuda.empty_cache()
+    ratios = {k: v["planned bf16"] / max(v["plain bf16"], 1e-30) for k, v in dist.items()}
+    rec = dict(batch=b, seq=seq, n_layers=cfg.n_layers, launches=launched,
+               launches_per_step=per_step, losses=losses, loss_rtol=BF16_LOSS_RTOL,
+               loss_rel_diff=abs(loss - losses["plain bf16"]) / abs(losses["plain bf16"]),
+               grad_distance_from_plain_f32=dist, grad_ratio=ratios,
+               grad_ratio_limit=BF16_GRAD_RATIO, peak_memory_bytes=peaks,
+               schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
+                              "smem_bytes": s.vmem_bytes} for n, s in plans.items()})
+    check(abs(loss - losses["plain bf16"]) <= BF16_LOSS_RTOL * abs(losses["plain bf16"]),
+          f"{cfg.name} bf16 step-1 loss {loss} vs plain bf16 {losses['plain bf16']}")
+    for k, r in ratios.items():
+        check(r <= BF16_GRAD_RATIO, f"{cfg.name} bf16 step grad {k}: distance ratio {r} "
+                                    f"({dist[k]})")
+    return rec
+
+
 def phase_bf16(torch, kernels, results, card):
     """(a) Each GEMM kernel's and flash's bf16 route alone at the planned
     qwen1.5-0.5b step's shapes (the fused dX/dW kernel at the CNN's fc1,
@@ -903,7 +991,7 @@ def phase_bf16(torch, kernels, results, card):
     distance from the plain f32 step at most BF16_GRAD_RATIO times the
     plain bf16 step's own; then the bf16 train step's ms by events and on
     the device beside phase times' f32 planned step, and its peak memory."""
-    from repro_torch.configs import TrainConfig, get_config
+    from repro_torch.configs import get_config
     from repro_torch.data.pipeline import ShardInfo
     from repro_torch.models import transformer as tf
     from repro_torch.models.module import init_params
@@ -956,54 +1044,16 @@ def phase_bf16(torch, kernels, results, card):
         torch.cuda.empty_cache()
 
     # (b) the planned bf16 step at full width and depth.
-    kw = dict(param_dtype="float32", learning_rate=3e-4, warmup_steps=1, total_steps=STEPS,
-              loss_chunks=tfm_chunks(), seed=SEED, remat="none")
-    tcfgs = {"planned bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=True),
-             "plain bf16": TrainConfig(**kw, compute_dtype="bfloat16", planned_kernels=False),
-             "plain f32": TrainConfig(**kw, compute_dtype="float32", planned_kernels=False)}
     params0 = init_params(tf.param_defs(cfg), SEED, device="cuda")
     src = make_data_source(cfg, TFM_BATCH, TFM_SEQ, ShardInfo(0, 1), seed=SEED)
     batch = tr.batch_to(src(0), "cuda")
-    per_step = per_kernel(tfm_calls(tf, cfg, plans), tfm_kernels())
-    zero_counts(kernels)
-    loss, grads, peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["planned bf16"]), params0,
-                              batch)
-    launched = {n: k.launches for n, k in tfm_kernels().items()}
+    gates = bf16_step_gates(torch, kernels, cfg, plans, params0, batch, TFM_BATCH, TFM_SEQ)
     for name in kernels:
-        results[name]["launches_by_path"]["bf16"] = kernels[name].launches
-    check(launched == per_step, f"bf16 step: launches {launched} != plan {per_step}")
-    check(math.isfinite(loss), f"bf16 step: loss {loss}")
-    for k, gr in grads.items():
-        check(gr.dtype == torch.float32 and bool(torch.isfinite(gr).all()),
-              f"bf16 step grad {k}: {gr.dtype}, non-finite")
-    losses, peaks = {"planned bf16": loss}, {"planned bf16": peak}
-    f32_loss, f32_grads, peaks["plain f32"] = step1(
-        torch, tr.make_loss_fn(cfg, tcfgs["plain f32"]), params0, batch)
-    dist = {k: {"planned bf16": grad_distance(gr, f32_grads[k])} for k, gr in grads.items()}
-    del grads
-    torch.cuda.empty_cache()
-    losses["plain bf16"], plain_grads, peaks["plain bf16"] = step1(
-        torch, tr.make_loss_fn(cfg, tcfgs["plain bf16"]), params0, batch)
-    for k, gr in plain_grads.items():
-        dist[k]["plain bf16"] = grad_distance(gr, f32_grads[k])
-    losses["plain f32"] = f32_loss
-    del plain_grads, f32_grads
-    torch.cuda.empty_cache()
-    ratios = {k: v["planned bf16"] / max(v["plain bf16"], 1e-30) for k, v in dist.items()}
-    emit(phase="bf16", check="planned bf16 step", arch=TFM_ARCH, batch=TFM_BATCH,
-         seq=TFM_SEQ, n_layers=cfg.n_layers, launches=launched, launches_per_step=per_step,
-         losses=losses, loss_rtol=BF16_LOSS_RTOL,
-         loss_rel_diff=abs(loss - losses["plain bf16"]) / abs(losses["plain bf16"]),
-         grad_distance_from_plain_f32=dist, grad_ratio=ratios,
-         grad_ratio_limit=BF16_GRAD_RATIO, peak_memory_bytes=peaks,
-         schedules={n: {"algorithm": s.algorithm, "blocks": s.block_dict(),
-                        "smem_bytes": s.vmem_bytes} for n, s in plans.items()})
-    check(abs(loss - losses["plain bf16"]) <= BF16_LOSS_RTOL * abs(losses["plain bf16"]),
-          f"bf16 step-1 loss {loss} vs plain bf16 {losses['plain bf16']}")
-    for k, r in ratios.items():
-        check(r <= BF16_GRAD_RATIO, f"bf16 step grad {k}: distance ratio {r} ({dist[k]})")
+        results[name]["launches_by_path"]["bf16"] = gates["launches"][name]
+    peak = gates["peak_memory_bytes"]["planned bf16"]
+    emit(phase="bf16", check="planned bf16 step", arch=TFM_ARCH, **gates)
 
-    tcfg = tcfgs["planned bf16"]
+    tcfg = bf16_tcfgs()["planned bf16"]
     state = tr.init_state(cfg, tcfg, params0)
     del params0
     step = tr.make_train_step(cfg, tcfg)
@@ -1328,6 +1378,255 @@ def phase_bf16_cnn(torch, cnn, cfg, kernels, results, card):
         for name in kernels:
             results[name]["launches_by_path"][path] = launched[name]
     emit(phase="bf16_cnn", seconds=time.perf_counter() - t_phase)
+
+
+# -- the twenty-second slice: flash's bf16 route at every head dim, dense and families --
+
+
+def bf16_flash_case(torch, g, spec):
+    """(label, (q, k, v), kwargs, library fn) of one BF16_FLASH spec at the
+    blocks AttentionPlanner picks at two bytes an element; rows past the
+    lengths are zero, as the op pads them.  The library call is
+    scaled_dot_product_attention on the KV heads repeated (a boolean mask
+    where a window or an offset reaches; the real rows alone where the
+    lengths are ragged)."""
+    import torch.nn.functional as F
+
+    from repro_torch.plan import AttentionPlanner
+
+    label, b, hq, hkv, sq, skv, d, window, ql, off = spec
+    kl = ql if ql < sq else skv
+    s = AttentionPlanner().plan(seq_q=ql, seq_kv=kl, head_dim=d, n_q_heads=hq, n_kv_heads=hkv,
+                                batch=b, in_bytes=2, causal=True, window=window)
+    bf = torch.bfloat16
+    q = torch.zeros(b * hq, sq, d, device="cuda", dtype=bf)
+    k = torch.zeros(b * hkv, skv, d, device="cuda", dtype=bf)
+    v = torch.zeros(b * hkv, skv, d, device="cuda", dtype=bf)
+    q[:, :ql] = torch.randn(b * hq, ql, d, device="cuda", generator=g).to(bf)
+    k[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g).to(bf)
+    v[:, :kl] = torch.randn(b * hkv, kl, d, device="cuda", generator=g).to(bf)
+    kw = dict(block_q=s.block("block_q"), block_kv=s.block("block_kv"), scale=d ** -0.5,
+              causal=True, window=window, q_len=ql, kv_len=kl, q_off=off)
+    q4 = q[:, :ql].reshape(b, hq, ql, d)
+    k4, v4 = (t[:, :kl].reshape(b, hkv, kl, d).repeat_interleave(hq // hkv, 1)
+              for t in (k, v))
+    mask = None
+    if window is not None or off:
+        pos = torch.arange(ql, device="cuda")[:, None] + off
+        key = torch.arange(kl, device="cuda")[None, :]
+        mask = (key <= pos) & ((pos - key < window) if window is not None else True)
+    lib = functools.partial(F.scaled_dot_product_attention, q4, k4, v4, attn_mask=mask,
+                            is_causal=mask is None)
+    return label, (q, k, v), kw, lib
+
+
+def bf16_dense_flash(torch, kernels, results, card, per_step: dict) -> list:
+    """(a) Flash's bf16 route alone at each BF16_FLASH case against its
+    plain version on the same bf16 operands: within one bf16 ulp at
+    BF16_ULP_FLOOR, two launches the same bits; the call's event ms beside
+    the plain version's, SDPA's at bf16 (a yardstick the port never
+    calls) and the bound at the bf16 peaks."""
+    from repro_torch.kernels.flash_attention.flash_attention import MAX_BLOCKS_BF16
+
+    kern = kernels["flash_attention"]
+    g = torch.Generator(device="cuda").manual_seed(SEED + 42)
+    recs = []
+    for spec in BF16_FLASH:
+        label, (q, k, v), kw, lib = bf16_flash_case(torch, g, spec)
+        d = q.shape[-1]
+        check((kw["block_q"], kw["block_kv"]) == MAX_BLOCKS_BF16[d],
+              f"bf16_dense flash {label}: planned {kw} off the built maxima")
+        before = kern.launches
+        got, again = kern(q, k, v, **kw), kern(q, k, v, **kw)
+        want = kern.plain(q, k, v, **kw)
+        torch.cuda.synchronize()
+        check(kern.launches == before + 2, f"bf16_dense flash {label}: no launch")
+        check(bool(torch.equal(got, again)), f"bf16_dense flash {label}: two launches differ")
+        gate = ulp_check(torch, got[:, :kw["q_len"]], want[:, :kw["q_len"]])
+        check(gate["max_ulps"] <= 1.0, f"bf16_dense flash {label}: {gate}")
+        results["flash_attention"]["bf16_max_abs_err"] = max(
+            results["flash_attention"].get("bf16_max_abs_err", 0.0), gate["max_abs_err"])
+        del got, again, want
+        fn = functools.partial(kern, q, k, v, **kw)
+        ms = median_ms(fn, reps=5, warmup=1)
+        plain_ms = median_ms(functools.partial(kern.plain, q, k, v, **kw), reps=3, warmup=1)
+        lib_ms = median_ms(lib, reps=5, warmup=1)
+        cost = cost_record(kern, q, k, v, **kw)
+        b_ms, b_by = bf16_bound_ms(cost["flops"], cost["nbytes"])
+        rec = dict(case=label, head_dim=d, shape=[list(t.shape) for t in (q, k, v)],
+                   blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
+                   window=kw["window"], q_len=kw["q_len"], kv_len=kw["kv_len"],
+                   q_off=kw["q_off"], per_step=per_step.get(label, 0), **gate, ms=ms,
+                   plain_ms=plain_ms, sdpa_bf16_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                   bound_share=b_ms / ms, flops=cost["flops"], bytes=cost["nbytes"],
+                   peaks=PEAKS_BF16)
+        emit(phase="bf16_dense", kernel="flash_attention", card=card, **rec)
+        recs.append(rec)
+        del q, k, v, lib, fn
+    torch.cuda.empty_cache()
+    return recs
+
+
+def bf16_dense_step(torch, kernels, results, card, arch: str) -> dict:
+    """(b), (c) One dense config's planned bf16 step at full width, cut to
+    BF16_DENSE's depth, from weights drawn on the card: flash launched at
+    its head dim on the planner's bf16 blocks, then phase bf16's gates
+    (bf16_step_gates), then the bf16 and f32 planned train steps' event ms
+    and the bf16 step's device ms."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import ShardInfo
+    from repro_torch.kernels.flash_attention.flash_attention import MAX_BLOCKS_BF16
+    from repro_torch.models import transformer as tf
+    from repro_torch.models.registry import make_data_source
+    from repro_torch.runtime import train as tr
+
+    t0 = time.perf_counter()
+    layers, b, seq = BF16_DENSE[arch]
+    full = get_config(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    plans = tf.plan_training(cfg, b, seq, loss_chunks=tfm_chunks(), in_bytes=2)
+    Dh = cfg.resolved_head_dim
+    s_attn = plans["attn"]
+    check((s_attn.block("block_q"), s_attn.block("block_kv")) == MAX_BLOCKS_BF16[Dh],
+          f"{arch}: attention planned at {s_attn.block_dict()} for bf16 at D = {Dh}")
+    params0 = device_params(torch, tf.param_defs(cfg), SEED, noise=False)
+    batch = tr.batch_to(make_data_source(cfg, b, seq, ShardInfo(0, 1), seed=SEED)(0), "cuda")
+    seen: list = []
+    with on_launch(kernels, lambda name, args, kw, out: seen.append(
+            (tuple(args[0].shape), kw["block_q"], kw["block_kv"], kw["window"], args[0].dtype))
+            if name == "flash_attention" else None):
+        gates = bf16_step_gates(torch, kernels, cfg, plans, params0, batch, b, seq)
+    check(bool(seen) and all(sh[-1] == Dh and (bq, bkv) == MAX_BLOCKS_BF16[Dh]
+                             and dt == torch.bfloat16 for sh, bq, bkv, _, dt in seen),
+          f"{arch}: flash launched off its bf16 plan: {sorted(set(seen), key=str)}")
+    windows = sorted({str(w) for *_, w, _ in seen})
+    times, peaks = {}, {}
+    for name in ("planned bf16", "planned f32"):
+        tcfg = bf16_tcfgs()[name]
+        state = tr.init_state(cfg, tcfg, params0)
+        step = tr.make_train_step(cfg, tcfg)
+        run = functools.partial(step, state, batch)
+        torch.cuda.reset_peak_memory_stats()
+        times[name] = median_ms(run, reps=2, warmup=1)
+        peaks[name] = torch.cuda.max_memory_allocated()
+        if name == "planned bf16":
+            times["planned bf16 device"] = device_time_ms(torch, run, reps=1)
+        del state, step, run
+        torch.cuda.empty_cache()
+    del params0, batch
+    torch.cuda.empty_cache()
+    rec = dict(phase="bf16_dense", check="planned bf16 step", arch=arch, card=card,
+               of_layers=full.n_layers, d_model=cfg.d_model,
+               heads=[cfg.n_heads, cfg.n_kv_heads, Dh], flash_windows=windows,
+               flash_blocks=s_attn.block_dict(), **gates, step_ms=times,
+               train_step_peak_memory_bytes=peaks,
+               tokens_per_s={k: b * seq / (v / 1e3) for k, v in times.items()
+                             if "device" not in k},
+               seconds=time.perf_counter() - t0)
+    emit(**rec)
+    return rec
+
+
+def bf16_rpr_probe(torch) -> dict:
+    """cuBLAS bf16 GEMMs at BF16_RPR_SHAPES with reduced-precision
+    reduction on and off, each against the f32 product of the same bf16
+    operands rounded once (TF32 off): the elements more than one bf16 ulp
+    apart (at BF16_ULP_FLOOR)."""
+    g = torch.Generator(device="cuda").manual_seed(SEED + 43)
+    flag = torch.backends.cuda.matmul
+    saved = flag.allow_bf16_reduced_precision_reduction
+    out = {"default": saved}
+    try:
+        for m, k, n in BF16_RPR_SHAPES:
+            a = torch.randn(m, k, device="cuda", generator=g).to(torch.bfloat16)
+            w = (torch.randn(k, n, device="cuda", generator=g) * k ** -0.5).to(torch.bfloat16)
+            want = (a.float() @ w.float()).to(torch.bfloat16).float()
+            floor = BF16_ULP_FLOOR * float(want.abs().max())
+            ulp = bf16_ulp(torch, want.abs().clamp(min=floor))
+            for on in (True, False):
+                flag.allow_bf16_reduced_precision_reduction = on
+                got = (a @ w).float()
+                out[f"{m}x{k}x{n} {'on' if on else 'off'}"] = int(
+                    ((got - want).abs() > ulp).sum())
+    finally:
+        flag.allow_bf16_reduced_precision_reduction = saved
+    return out
+
+
+def bf16_family_step(torch, card, arch: str) -> dict:
+    """(d) One non-dense family's bf16 step through the generic loss
+    (runtime/train.py::make_loss_fn, plain PyTorch: repro's families reach
+    no Pallas kernel) at full width, cut to families_mesh's training depth,
+    on fm_batch's first batch: a finite loss and gradients, the loss within
+    BF16_FAMILY_LOSS_RTOL of the f32 step's on the same batch, each
+    gradient's distance from the f32 step's; then one bf16 train step,
+    timed."""
+    from repro_torch.models.registry import get_family
+    from repro_torch.runtime import train as tr
+
+    t0 = time.perf_counter()
+    cfg = fm_config(arch)
+    params0 = device_params(torch, get_family(cfg.family).param_defs(cfg), SEED, noise=False)
+    batch = fm_batch(torch, cfg, 0)
+    tcfgs = bf16_tcfgs()
+    loss, grads, peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["plain bf16"]), params0, batch)
+    check(math.isfinite(loss), f"bf16_dense {arch}: loss {loss}")
+    for k, gr in grads.items():
+        check(bool(torch.isfinite(gr).all()), f"bf16_dense {arch}: grad {k} is not finite")
+    f32_loss, f32_grads, f32_peak = step1(torch, tr.make_loss_fn(cfg, tcfgs["plain f32"]),
+                                          params0, batch)
+    dist = {k: grad_distance(gr, f32_grads[k]) for k, gr in grads.items()}
+    del grads, f32_grads
+    torch.cuda.empty_cache()
+    state = tr.init_state(cfg, tcfgs["plain bf16"], params0)
+    step = tr.make_train_step(cfg, tcfgs["plain bf16"])
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    state, metrics = step(state, batch)
+    end.record()
+    end.synchronize()
+    check(math.isfinite(float(metrics["loss"])), f"bf16_dense {arch}: step loss")
+    del state, step, params0, batch
+    torch.cuda.empty_cache()
+    rel = abs(loss - f32_loss) / abs(f32_loss)
+    rec = dict(phase="bf16_dense", check="family bf16 step", arch=arch, card=card,
+               n_layers=cfg.n_layers, n_enc_layers=cfg.n_enc_layers, batch=FM_TRAIN["batch"],
+               seq=FM_TRAIN["seq"], losses={"bf16": loss, "f32": f32_loss}, loss_rel_diff=rel,
+               loss_rtol=BF16_FAMILY_LOSS_RTOL, worst_grad_distance_from_f32=max(dist.values()),
+               grad_distance_from_f32=dist, step_ms=start.elapsed_time(end),
+               peak_memory_bytes={"bf16": peak, "f32": f32_peak},
+               seconds=time.perf_counter() - t0)
+    emit(**rec)
+    check(rel <= BF16_FAMILY_LOSS_RTOL, f"bf16_dense {arch}: loss {loss} vs f32 {f32_loss}")
+    return rec
+
+
+def phase_bf16_dense(torch, kernels, results, card):
+    """Flash's bf16 route at every head dim the configs use and the dense
+    and non-dense families' bf16 routes at full width.  (a) bf16_dense_flash;
+    (b) qwen3-1.7b's planned bf16 step (D = 128) and (c) gemma3-4b's (D =
+    256, 5 local and 1 global layer), each through bf16_dense_step; (d)
+    the cuBLAS reduced-precision-reduction probe and one bf16 step of each
+    non-dense family (bf16_family_step)."""
+    from repro_torch.configs import get_config
+
+    t_phase = time.perf_counter()
+    qwen, gemma = BF16_DENSE["qwen3-1.7b"][0], BF16_DENSE["gemma3-4b"][0]
+    n_global = gemma // get_config("gemma3-4b").global_every
+    per_step = {"qwen3-1.7b-d128": qwen, "gemma3-4b-local-d256-w1024": gemma - n_global,
+                "gemma3-4b-global-d256": n_global}
+    calls = bf16_dense_flash(torch, kernels, results, card, per_step)
+    results["flash_attention"].setdefault("bf16_calls", []).extend(
+        dict(c, per_step=0) for c in calls)
+    for arch in BF16_DENSE:
+        rec = bf16_dense_step(torch, kernels, results, card, arch)
+        for name in kernels:
+            results[name]["launches_by_path"][f"bf16_dense_{arch}"] = rec["launches"][name]
+    emit(phase="bf16_dense", check="bf16 reduced-precision reduction",
+         elements_past_one_ulp=bf16_rpr_probe(torch), card=card)
+    for arch in FAMILY_ARCHS:
+        bf16_family_step(torch, card, arch)
+    emit(phase="bf16_dense", seconds=time.perf_counter() - t_phase)
 
 
 def burst_ms(fn, n: int) -> float:
@@ -7392,6 +7691,11 @@ def main() -> int:
               f"{name}: no launch on the bf16_cnn path")
     check(results["matmul_dx_dw"]["launches_by_path"][f"bf16_cnn_b{FUSED_BATCH}"] == 2,
           "matmul_dx_dw: not fc1's and fc2's launch on the bf16_cnn batch-128 path")
+    phase_bf16_dense(torch, kernels, results, card)
+    for arch in BF16_DENSE:
+        for name in ("matmul", "flash_attention"):
+            check(results[name]["launches_by_path"][f"bf16_dense_{arch}"] > 0,
+                  f"{name}: no launch on the bf16_dense_{arch} path")
     phase_tokens_mesh(torch, kernels, results, card)
     for name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
         check(results[name]["launches_by_path"]["tokens_mesh"] > 0,

@@ -25,13 +25,17 @@ import sys
 import tempfile
 from pathlib import Path
 
-# label, B, Hq, Hkv, S, D, window: the transformer's call and the other
-# head dims of phase ``flash`` of chip_smoke.py, causal, at the blocks
-# AttentionPlanner picks on the H100.
-CASES = [("main-d64", 4, 16, 16, 2048, 64, None), ("gqa16/8-d128", 4, 16, 8, 2048, 128, None),
-         ("gqa16/8-d32", 4, 16, 8, 2048, 32, None), ("gqa8/4-d256", 4, 8, 4, 2048, 256, None),
-         ("window512-d64", 4, 16, 16, 2048, 64, 512),
-         ("gemma3-d256-w1024", 1, 8, 4, 2048, 256, 1024)]
+# label, B, Hq, Hkv, S, D, window, dtype: the transformer's call and the
+# other head dims of phase ``flash`` of chip_smoke.py in f32, and the bf16
+# route at D = 64 (phase ``bf16``'s call), causal, at the blocks
+# AttentionPlanner picks on the H100 at the operands' element size.
+CASES = [("main-d64", 4, 16, 16, 2048, 64, None, "float32"),
+         ("gqa16/8-d128", 4, 16, 8, 2048, 128, None, "float32"),
+         ("gqa16/8-d32", 4, 16, 8, 2048, 32, None, "float32"),
+         ("gqa8/4-d256", 4, 8, 4, 2048, 256, None, "float32"),
+         ("window512-d64", 4, 16, 16, 2048, 64, 512, "float32"),
+         ("gemma3-d256-w1024", 1, 8, 4, 2048, 256, 1024, "float32"),
+         ("bf16-main-d64", 4, 16, 16, 2048, 64, None, "bfloat16")]
 
 RUN = r"""
 import json, sys, torch
@@ -39,14 +43,15 @@ torch.backends.cuda.matmul.allow_tf32 = False
 from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
 from repro_torch.plan import AttentionPlanner
 out, times = {}, {}
-for label, b, hq, hkv, s, d, window in CASES:
+for label, b, hq, hkv, s, d, window, dtype in CASES:
     g = torch.Generator(device="cuda").manual_seed(11)
+    dt = getattr(torch, dtype)
     plan = AttentionPlanner().plan(seq_q=s, seq_kv=s, head_dim=d, n_q_heads=hq,
-                                   n_kv_heads=hkv, batch=b, in_bytes=4, causal=True,
-                                   window=window)
-    q = torch.randn(b * hq, s, d, device="cuda", generator=g)
-    k = torch.randn(b * hkv, s, d, device="cuda", generator=g)
-    v = torch.randn(b * hkv, s, d, device="cuda", generator=g)
+                                   n_kv_heads=hkv, batch=b, in_bytes=dt.itemsize,
+                                   causal=True, window=window)
+    q = torch.randn(b * hq, s, d, device="cuda", generator=g).to(dt)
+    k = torch.randn(b * hkv, s, d, device="cuda", generator=g).to(dt)
+    v = torch.randn(b * hkv, s, d, device="cuda", generator=g).to(dt)
     kw = dict(block_q=plan.block("block_q"), block_kv=plan.block("block_kv"),
               scale=d ** -0.5, causal=True, window=window, q_len=s, kv_len=s)
     fn = lambda: flash_attention_kernel(q, k, v, **kw)

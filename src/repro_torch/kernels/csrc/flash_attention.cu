@@ -52,7 +52,8 @@
 // speed is FMAs per load: 4*RI*CJ per RI + CJ loads in S, 16*RI*OC per
 // RI + 4*OC loads per 4 kv rows in P.V, at a register count that leaves
 // the compiler room to run loads ahead.  RG is the fastest of 1, 2 and 4
-// timed on the H100: 4 at D = 32 and 64, 2 at D = 128, 1 at D = 256.
+// timed on the H100: at f32 4 at D = 32 and 64, 2 at D = 128, 1 at D = 256
+// (bf16 below).
 //   * S = Q K^T: per 16-byte chunk of D, RI Q reads (quarters uniform, row
 //     groups on distinct bank quads) and CJ K reads (rows cl + CL*j at
 //     chunk c ^ (cl & 7): a quarter's eight rows on eight bank quads).
@@ -84,11 +85,14 @@
 // rounded once (__float2bfloat16_rn). Shared memory is the planner's H100
 // term at two bytes an element, 2*2*(bq*D + 2*bkv*D) + 4*bq*D + 8*bq: the
 // P slices take PS = min(BKV, D) columns a row in the 6*bq*D bytes left
-// after Q, K and V. Built for D = 64 at the planner's 128/128 (132,096 B),
-// twice as at f32.
+// after Q, K and V. At two bytes an element the planner's blocks are D = 32
+// at 128/128 (66,560 B), 64 at 128/128 (132,096 B), 128 at 128/64
+// (197,632 B) and 256 at 64/32 (197,120 B), each built twice as at f32.
+// RG is the fastest admitted count timed on the H100 (scripts/flash_rg.py):
+// 4 at D = 32 and 64 (the only one at 32), 2 at D = 128 and 256.
 //
-// Contract (checked by the Python wrapper): D in {32, 64, 128, 256} (64
-// for bf16); bq, bkv multiples of 8 up to the instantiation's maxima;
+// Contract (checked by the Python wrapper): D in {32, 64, 128, 256}; bq,
+// bkv multiples of 8 up to the instantiation's maxima;
 // sequences padded to the blocks; q [BHq, Sq, D], k/v [BHkv, Skv, D] of one
 // type, contiguous and 16-byte aligned; BHkv divides BHq.
 
@@ -508,7 +512,7 @@ int repro_flash_attention_f32(const float* q, const float* k, const float* v,
   }
 }
 
-// The same for bf16 q, k, v and o (f32 inside); built for D = 64.
+// The same for bf16 q, k, v and o (f32 inside).
 int repro_flash_attention_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                                int bhq, int bhkv, int sq, int skv, int d, int bq, int bkv,
                                int q_len, int kv_len, int causal, int window, int q_off,
@@ -516,9 +520,18 @@ int repro_flash_attention_bf16(const bf16* q, const bf16* k, const bf16* v, bf16
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;  // log2(e)
   switch (d) {
+    case 32:
+      return launch<bf16, 32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, q_off, sl2, s);
     case 64:
       return launch<bf16, 64, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
                                            kv_len, causal, window, q_off, sl2, s);
+    case 128:
+      return launch<bf16, 128, 128, 64, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                           kv_len, causal, window, q_off, sl2, s);
+    case 256:
+      return launch<bf16, 256, 64, 32, 2>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                          kv_len, causal, window, q_off, sl2, s);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -16,9 +16,10 @@ causal and window masks and for the block skips.
 q, k and v are all f32 or all bf16 (``repro_flash_attention_f32`` /
 ``_bf16``): the scores, softmax statistics, probabilities and accumulator
 are f32 and the output takes q's dtype, as ``_fa_kernel`` upcasts q/k/v
-and writes ``q.dtype``.  The bf16 route is built for the head dims of
-:data:`MAX_BLOCKS_BF16`, at the blocks ``AttentionPlanner`` picks on the
-H100 at two bytes an element.
+and writes ``q.dtype``.  Both routes are built for head dims 32, 64, 128
+and 256, each at the blocks ``AttentionPlanner`` picks on the H100 at the
+operands' element size (:data:`MAX_BLOCKS`, :data:`MAX_BLOCKS_BF16`): at
+two bytes an element the q block doubles at D = 128 and 256.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ from repro_torch.plan.registry import CudaKernel, one_dtype
 # the blocks AttentionPlanner picks on the H100 at each.
 MAX_BLOCKS = {32: (128, 128), 64: (128, 128), 128: (64, 64), 256: (32, 32)}
 # The same for bf16 operands (the planner's picks at in_bytes=2).
-MAX_BLOCKS_BF16 = {64: (128, 128)}
+MAX_BLOCKS_BF16 = {32: (128, 128), 64: (128, 128), 128: (128, 64), 256: (64, 32)}
 MAX_GRID_Y = 65535  # Sq / block_q rides the grid's y axis
 _NEG = -1e30
 

@@ -296,10 +296,62 @@ def apply_attention(p: dict, x: torch.Tensor, cfg: ModelConfig, *, pos0=0, windo
     return (par.tp_exit(out, parallel) if mode == "heads" else out), cache
 
 
+# --- activations ------------------------------------------------------------
+#
+# Below f32 the JAX package's activations round at every primitive of their
+# jaxprs, and XLA computes ``logistic`` as 1 / (1 + exp(-x)), each op
+# rounded to x's dtype.  The port takes the same steps there, so a bf16
+# forward rounds where ``repro``'s does; f32 and f64 keep PyTorch's fused
+# functions (and their bits).
+
+
+def _below_f32(x: torch.Tensor) -> bool:
+    return x.dtype in (torch.bfloat16, torch.float16)
+
+
+class _Logistic(torch.autograd.Function):
+    """XLA's ``logistic`` below f32: 1 / (1 + exp(-x)) rounded op by op;
+    the gradient is ``jax.nn.sigmoid``'s rule g * (y * (1 - y)) (autograd
+    through the formula would give NaN where exp(-x) overflows)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        y = torch.reciprocal(1 + torch.exp(-x))
+        ctx.save_for_backward(y)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        (y,) = ctx.saved_tensors
+        return g * (y * (1 - y))
+
+
+def sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.sigmoid``: :class:`_Logistic` below f32, else torch.sigmoid."""
+    return _Logistic.apply(x) if _below_f32(x) else torch.sigmoid(x)
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu``: x * sigmoid(x), the sigmoid rounded to x's dtype
+    before the product below f32 (its jaxpr: ``logistic``, then ``mul``)."""
+    return x * sigmoid(x) if _below_f32(x) else F.silu(x)
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu`` (tanh approximation).  Below f32 its jaxpr's steps,
+    each rounded to x's dtype, its constants too (0.044715 and
+    sqrt(2 / pi) become 0.044677734375 and 0.796875 in bf16)."""
+    if not _below_f32(x):
+        return F.gelu(x, approximate="tanh")
+    c1, c2 = (torch.full((), c, dtype=x.dtype, device=x.device)
+              for c in (0.044715, math.sqrt(2.0 / math.pi)))
+    inner = (x + c1 * (x * x * x)) * c2
+    return x * (0.5 * (1 + torch.tanh(inner)))
+
+
 # --- MLP -------------------------------------------------------------------
 
-_ACT = {"silu": F.silu, "gelu": lambda x: F.gelu(x, approximate="tanh"),
-        "relu": F.relu}
+_ACT = {"silu": silu, "gelu": gelu, "relu": F.relu}
 
 
 def mlp_defs(cfg: ModelConfig, L: int, d_ff: int | None = None) -> dict:

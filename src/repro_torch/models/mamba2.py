@@ -32,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import layers as ll
 from repro_torch.models.attention import at_least_f32
 from repro_torch.models.module import ParamDef
 from repro_torch.runtime import parallel as par
@@ -76,7 +77,7 @@ def _depthwise_conv(x, w, b, state):
     xp = torch.cat([state.to(x.dtype), x], dim=1)  # [B, S+W-1, C]
     y = sum(xp[:, i:i + x.shape[1], :] * w[i] for i in range(W))
     new_state = xp[:, -(W - 1):, :] if W > 1 else state
-    return F.silu(y + b), new_state
+    return ll.silu(y + b), new_state
 
 
 def _segsum(a):
@@ -194,7 +195,7 @@ def apply_block(p, x, cfg: ModelConfig, state, parallel=None):
     y, ssd_state = ssd_chunked(xc.reshape(Bb, S, H, hd), dt, p["A_log"], Bc, Cc, p["D"],
                                state["ssd"])
     y = y.reshape(Bb, S, d_loc).to(cd)
-    y = y * F.silu(z)
+    y = y * ll.silu(z)
     # Gated RMS norm (f32, or f64 in an f64 run), over all of d_inner.
     yf = at_least_f32(y)
     if split:

@@ -149,7 +149,7 @@ def _time_mix(p, x, H, hd, last_x, wkv_state, parallel=None):
     r = (mix("maa_r") @ p["wr"].to(cd)).reshape(B, S, H, hd)
     k = (mix("maa_k") @ p["wk"].to(cd)).reshape(B, S, H, hd)
     v = (mix("maa_v") @ p["wv"].to(cd)).reshape(B, S, H, hd)
-    g = F.silu(mix("maa_g") @ p["wg"].to(cd))
+    g = ll.silu(mix("maa_g") @ p["wg"].to(cd))
     # The data-dependent decay (the Finch feature): w in (0, 1).
     f32 = ll.at_least_f32
     xw = f32(mix("maa_w"))
@@ -182,7 +182,7 @@ def _channel_mix(p, x, last_x, d_ff: int, parallel=None):
     kv = k @ wv.to(cd)
     if split:
         kv = par.tp_exit(kv, parallel)
-    return torch.sigmoid(xr @ wr.to(cd)) * kv, x[:, -1, :]
+    return ll.sigmoid(xr @ wr.to(cd)) * kv, x[:, -1, :]
 
 
 def init_cache(cfg: ModelConfig, batch: int, max_seq: int, dtype=torch.bfloat16, *,

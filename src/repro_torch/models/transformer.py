@@ -287,18 +287,17 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     q/k/v fold into ONE ``[B*S, d] @ [d, (Hq+2*Hkv)*Dh]`` GEMM (one x
     stream for the three projections), gate+up into one ``[B*S, d] @
     [d, 2*ff]`` GEMM, and attention runs on the [B, H, S, D] layout the
-    flash kernel takes.  Per-layer windows (``global_every``) would need a
-    schedule per layer and are refused.  With ``parallel`` every cell runs
-    at this rank's share of the heads and d_ff (the schedules planned at
-    :func:`local_config`'s shapes), the attention head-parallel, or
+    flash kernel takes.  Each layer attends at its own window and RoPE
+    theta (:func:`layer_meta`: gemma3's local and global layers), one
+    attention schedule serving both (its blocks do not depend on the
+    window); the JAX package's planned forward refuses ``global_every``,
+    whose windows its scanned block would carry traced.  With ``parallel``
+    every cell runs at this rank's share of the heads and d_ff (the
+    schedules planned at :func:`local_config`'s shapes), the attention
+    head-parallel, or
     sequence-parallel where the query heads do not split
     (:func:`_seq_parallel_attend`, planned at :func:`attn_rows`).
     """
-    if cfg.global_every:
-        raise ValueError(
-            "planned transformer forward needs one static attention window; "
-            f"global_every={cfg.global_every} mixes per-layer windows (use the "
-            "plain path)")
     sched = schedules or {}
     cd = compute_dtype
     tp = par.tp_size(parallel)
@@ -310,11 +309,10 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
     Hq, Hkv, Dh = lc.n_heads, lc.n_kv_heads, cfg.resolved_head_dim
     split = ll.mlp_split(cfg.d_ff, parallel)
     pos = torch.arange(S, dtype=torch.int32, device=x.device)
-    window = cfg.local_window or None
     s_attn = local_schedule(sched.get("attn"))
     seg = functools.partial(_segment, remat=remat)
 
-    def layer(x, lp):
+    def layer(x, lp, window, theta):
         ap, mp = lp["attn"], lp["mlp"]
         if heads:
             ap = ll.local_attn_params(ap, cfg, parallel)
@@ -339,8 +337,8 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             if cfg.qk_norm:
                 q = ll.rms_norm(q, ap["q_norm"], cfg.norm_eps)
                 k = ll.rms_norm(k, ap["k_norm"], cfg.norm_eps)
-            q = ll.rope(q, pos, cfg.rope_theta)
-            k = ll.rope(k, pos, cfg.rope_theta)
+            q = ll.rope(q, pos, theta)
+            k = ll.rope(k, pos, theta)
             if tp == 1 or heads:
                 o = _attn_vjp(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                               True, window, s_attn)
@@ -374,8 +372,11 @@ def _forward_planned(cfg: ModelConfig, params: dict, tokens: torch.Tensor,
             down = par.tp_exit(down, parallel)
         return x + down.reshape(B, S, d)
 
-    for lp in unstack(params, "layers", cfg.n_layers):
-        x = _layer(functools.partial(layer, lp=lp), remat)(x)
+    meta = layer_meta(cfg)
+    for lp, window, theta in zip(unstack(params, "layers", cfg.n_layers),
+                                 meta["window"].tolist(), meta["theta"].tolist()):
+        x = _layer(functools.partial(layer, lp=lp, window=window if window >= 0 else None,
+                                     theta=theta), remat)(x)
     return x
 
 

@@ -211,6 +211,36 @@ def test_kv_blocks_run_matches_repro(q0, window, causal, bq, bkv):
     assert tp.AttentionPlanner.kv_blocks_run(*args) == jp.AttentionPlanner.kv_blocks_run(*args)
 
 
+# (D, the H100 planner's blocks at two bytes an element, shared memory): the
+# bf16 route's instantiations; at D = 128 and 256 the q block doubles.
+FLASH_HEAD_DIMS_BF16 = [(32, (128, 128), 66_560), (64, (128, 128), 132_096),
+                        (128, (128, 64), 197_632), (256, (64, 32), 197_120)]
+
+
+@pytest.mark.parametrize("d,blocks,smem", FLASH_HEAD_DIMS_BF16)
+@pytest.mark.parametrize("window", [None, 1024])
+def test_flash_bf16_takes_the_planners_blocks_at_its_head_dims(d, blocks, smem, window):
+    """AttentionPlanner(H100) at in_bytes=2 picks, at every head dim the
+    kernel is built for, blocks within MAX_BLOCKS_BF16 (its maxima, at
+    the kernel's shared memory), and every candidate it hands the
+    autotuner is one the bf16 route takes; a head dim it is not built for
+    has none."""
+    bq, bkv = blocks
+    shape = dict(seq_q=2048, seq_kv=2048, head_dim=d, n_q_heads=16, n_kv_heads=8, batch=4,
+                 in_bytes=2, causal=True, window=window)
+    planner = tp.AttentionPlanner(tm.H100)
+    s = planner.plan(**shape)
+    assert (s.block("block_q"), s.block("block_kv")) == blocks == fa_mod.MAX_BLOCKS_BF16[d]
+    assert s.vmem_bytes == smem_bytes(bq, bkv, d, 2) == smem <= tm.H100.local_mem_bytes
+    cands = planner.local_candidates(**shape)
+    assert cands and all(supported_blocks(c.block("block_q"), c.block("block_kv"), d,
+                                          torch.bfloat16) for c in cands)
+    assert not supported_blocks(bq + 8, bkv, d, torch.bfloat16)
+    assert not supported_blocks(bq, bkv + 8, d, torch.bfloat16)
+    with pytest.raises(tp.PlanRejected, match="head_dim 96"):
+        planner.local_candidates(**dict(shape, head_dim=96))
+
+
 @pytest.mark.parametrize("shape,blocks", [
     (ATTN_SHAPES[0], (128, 128)), (ATTN_SHAPES[1], (64, 64)), (ATTN_SHAPES[2], (128, 128)),
 ])

@@ -976,6 +976,41 @@ def test_bf16_flash_matches_plain_on_card(cuda, case):
         assert torch.all(got[:, :, 181:].cpu() == 0)
 
 
+# Flash's bf16 route at the other head dims: (D, block_q, block_kv) at the
+# planner's bf16 blocks (the FULL instantiation) and at a smaller multiple
+# of 8; then (B, Hq, Hkv, Sq, Skv, q_len, kv_len, window, q_off) cases.
+BF16_FLASH_BLOCKS = [(32, 128, 128), (32, 64, 40), (128, 128, 64), (128, 64, 32),
+                     (256, 64, 32), (256, 32, 16)]
+BF16_FLASH_CASES = [(2, 4, 2, 256, 256, 256, 256, None, 0),
+                    (1, 4, 4, 384, 384, 300, 300, 64, 0),  # ragged, windowed
+                    (1, 4, 2, 128, 512, 128, 512, 96, 200)]  # a query slice at 200
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,bkv", BF16_FLASH_BLOCKS)
+@pytest.mark.parametrize("case", BF16_FLASH_CASES)
+def test_bf16_flash_head_dims_match_plain_on_card(cuda, d, bq, bkv, case):
+    """Flash's bf16 route at D = 32, 128 and 256, at the planner's bf16
+    blocks and at smaller ones, against its plain version on the same bf16
+    operands: within one bf16 ulp; two launches give the same bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    B, Hq, Hkv, Sq, Skv, q_len, kv_len, window, q_off = case
+    rng = np.random.default_rng(34)
+    q = _bf16(rng, B * Hq, Sq, d).to(cuda)
+    k, v = (_bf16(rng, B * Hkv, Skv, d).to(cuda) for _ in range(2))
+    sq, skv = -(-Sq // bq) * bq, -(-Skv // bkv) * bkv
+    q, k, v = (torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[1])).contiguous()
+               for t, n in ((q, sq), (k, skv), (v, skv)))
+    kw = dict(block_q=bq, block_kv=bkv, scale=d ** -0.5, causal=True, window=window,
+              q_len=q_len, kv_len=kv_len, q_off=q_off)
+    got = _launched(flash_attention_kernel, lambda: flash_attention_kernel(q, k, v, **kw))
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, flash_attention_kernel(q, k, v, **kw))
+    want = flash_attention_kernel.plain(q, k, v, **kw)
+    assert_within_ulp(got[:, :q_len], want[:, :q_len])
+
+
 @pytest.mark.cuda
 def test_kernels_refuse_other_dtypes_on_card(cuda):
     """Operands of two dtypes (other than the CNN's bf16 activations against
@@ -1010,8 +1045,8 @@ def test_kernels_refuse_other_dtypes_on_card(cuda):
         flash_attention_kernel(q.half(), q.half(), q.half(), block_q=64, block_kv=64,
                                scale=0.125, causal=True, window=None, q_len=128,
                                kv_len=128)
-    with pytest.raises(ValueError, match="head_dim"):  # bf16 is built for D = 64
-        q2 = torch.zeros(8, 128, 128, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim"):  # neither route is built for D = 96
+        q2 = torch.zeros(8, 128, 96, device=cuda, dtype=torch.bfloat16)
         flash_attention_kernel(q2, q2, q2, block_q=64, block_kv=64, scale=0.125,
                                causal=True, window=None, q_len=128, kv_len=128)
     x = torch.zeros(2, 10, 10, 8, device=cuda, dtype=torch.bfloat16)

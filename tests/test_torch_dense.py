@@ -165,13 +165,14 @@ def test_smoke_logits_match_repro(arch):
     assert_close(tf.logits(cfg, params, h), jtf.logits(jcfg, tree, jh))
 
 
-def _loss_and_grads(jcfg, cfg, planned):
+def _loss_and_grads(jcfg, cfg, planned, jax_planned=None):
     tree = _weights(jcfg)
     batch = _batch(cfg.vocab)
     kw = dict(param_dtype="float32", compute_dtype="float32", planned_kernels=planned,
               loss_chunks=4)
+    jkw = dict(kw, planned_kernels=planned if jax_planned is None else jax_planned)
     jloss, jgrads = jax.value_and_grad(jtr.make_loss_fn(jcfg, JaxTrainConfig(
-        **kw, remat="none")))(tree, {k: jnp.asarray(v) for k, v in batch.items()})
+        **jkw, remat="none")))(tree, {k: jnp.asarray(v) for k, v in batch.items()})
     params = {k: v.requires_grad_(True)
               for k, v in params_from_repro(tree, device="cpu").items()}
     loss = tr.make_loss_fn(cfg, TrainConfig(**kw))(params, tr.batch_to(batch, "cpu"))
@@ -198,12 +199,16 @@ def test_gemma3_mixed_windows_loss_and_grads_match_repro():
 
 
 def test_planned_gemma3_raises_in_both_packages():
-    jcfg, cfg = _cfgs("gemma3-4b", n_layers=2)
+    """repro's planned forward refuses gemma3's mixed windows (its scanned
+    block would carry them traced); the port's, which once refused them
+    too, runs each layer at its own window and RoPE base: its planned loss
+    and every gradient against jax.value_and_grad of repro's plain loss."""
+    jcfg, _ = _cfgs("gemma3-4b", n_layers=2)
     tok = np.zeros((1, 4), np.int32)
     with pytest.raises(ValueError, match="global_every"):
         jtf.forward(jcfg, {}, jnp.asarray(tok), use_kernels=True)
-    with pytest.raises(ValueError, match="global_every"):
-        tf.forward(cfg, {}, torch.from_numpy(tok), use_kernels=True)
+    _loss_and_grads(*_cfgs("gemma3-4b", local_window=WINDOW, global_every=GLOBAL_EVERY),
+                    True, jax_planned=False)
 
 
 # ---------------------------------------------------------------------------

@@ -300,10 +300,19 @@ def test_planned_shapes_are_the_launched_shapes(monkeypatch):
 
 
 def test_planned_forward_refuses_mixed_windows():
-    _, cfg = _cfgs()
-    cfg = dataclasses.replace(cfg, local_window=16, global_every=2)
-    with pytest.raises(ValueError, match="global_every"):
-        tf.forward(cfg, {}, torch.zeros(1, 4, dtype=torch.int32), use_kernels=True)
+    """The planned forward once refused per-layer windows (``global_every``),
+    as repro's still does; it now runs each layer at its own window and
+    RoPE base: with a window shorter than the sequence and a second RoPE
+    base on the global layers, its hidden states equal the plain
+    forward's within TOL (the kernels' plain versions here)."""
+    jcfg, cfg = _cfgs()
+    cfg = dataclasses.replace(cfg, local_window=16, global_every=2, rope_theta_global=1e6)
+    params = params_from_repro(_weights(jcfg), device="cpu")
+    tok = torch.from_numpy(_batch(cfg)["tokens"])
+    want, _ = tf.forward(cfg, params, tok)
+    got, _ = tf.forward(cfg, params, tok, use_kernels=True,
+                        schedules=tf.plan_forward(cfg, B, S))
+    assert_close(got, want, TOL)
 
 
 @pytest.mark.parametrize("planned", [True, False])
