@@ -487,7 +487,9 @@ profiles lose them, as ``paper``'s records say):
                (dX, dW) within BF16_F32_TOL x max(1, max|plain|), that
                times sqrt(K / BF16_F32_TOL_K) for a contraction K past
                BF16_F32_TOL_K (the logits' dX sums 151,936 terms); two
-               launches give the same bits.  Each record: event and device
+               launches give the same bits; every main-path forward and NT
+               call runs the "wgmma" template (the tensor cores).  Each
+               record: event and device
                ms (torch.profiler, or where a late profile holds no call,
                CUDA events over BF16_BURST calls in a row), the plain
                version's ms, one library call's (bf16
@@ -725,8 +727,8 @@ BF16_LOSS_RTOL = 1e-3  # the planned bf16 step's loss against the plain bf16 ste
 BF16_GRAD_RATIO = 2.0  # a leaf's distance from plain f32: planned bf16 over plain bf16
 BF16_BURST = 5  # calls in a row, timed between two events where a profile holds none
 # Each kernel's own launch in a profile (its split's slab sum is a kernel of its own).
-BF16_MARKERS = {"matmul": ("mm_reg_kernel", "mm_simple_kernel"),
-                "matmul_nt": ("mm_nt_reg_kernel", "mm_nt_kernel"),
+BF16_MARKERS = {"matmul": ("mm_wgmma_kernel", "mm_reg_kernel", "mm_simple_kernel"),
+                "matmul_nt": ("mm_wgmma_kernel", "mm_nt_reg_kernel", "mm_nt_kernel"),
                 "matmul_tn": ("mm_tn_reg_kernel", "mm_tn_kernel"),
                 "matmul_dx_dw": ("mm_dxdw_reg_kernel", "mm_dxdw_kernel"),
                 "flash_attention": ("fa_fwd_kernel",),
@@ -1036,8 +1038,11 @@ def phase_bf16(torch, kernels, results, card):
                     **gate, **t, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["ms"],
                     library_over_port=(t["library_ms"] / t["ms"] if t["library_ms"] else None),
                     **(template_record(name, args, kw)
-                       if name in ("matmul", "matmul_tn", "matmul_dx_dw") else {}),
+                       if name in ("matmul", "matmul_nt", "matmul_tn", "matmul_dx_dw") else {}),
                     flops=cost["flops"], bytes=cost["nbytes"], peaks=PEAKS_BF16)
+        if per_step and name in ("matmul", "matmul_nt"):
+            check(call["template"] == "wgmma",
+                  f"bf16 {name} {label}: a main-path call runs the {call['template']} kernel")
         results[name].setdefault("bf16_calls", []).append(call)
         emit(phase="bf16", kernel=name, card=card, **call)
         del args, unpadded, lib
@@ -2083,14 +2088,15 @@ def split_record(kernel, args, kw) -> dict:
 
 
 def template_record(kernel, args, kw) -> dict:
-    """Which kernel template a conv2d, matmul, TN or fused dX/dW launch
+    """Which kernel template a conv2d, matmul, NT, TN or fused dX/dW launch
     takes: the conv's register kernel with its pixel run and channel
-    groups, or the simple kernel; the matmul's, TN's and the fused kernel's
-    register or simple kernel and their K, M or N split.  All are the
+    groups, or the simple kernel; the matmul's and NT's wgmma (bf16
+    operands), register or simple kernel, TN's and the fused kernel's
+    register or simple kernel, and their K, N, M or N split.  All are the
     choices the wrappers pass to the C entry points, which dispatch on
     them."""
     from repro_torch.kernels.conv2d.conv2d import register_layout
-    from repro_torch.kernels.matmul.bwd import dxdw_template, tn_template
+    from repro_torch.kernels.matmul.bwd import dxdw_template, nt_template, tn_template
     from repro_torch.kernels.matmul.matmul import template
 
     if kernel == "matmul_dx_dw":
@@ -2098,10 +2104,12 @@ def template_record(kernel, args, kw) -> dict:
                                            args[0].shape[0],
                                            mixed=args[1].dtype != args[0].dtype),
                     **split_record(kernel, args, kw))
-    if kernel in ("matmul", "matmul_tn"):
-        pick = template if kernel == "matmul" else tn_template
-        return dict(template=pick(kw["block_m"], kw["block_n"], kw["block_k"]),
-                    **split_record(kernel, args, kw))
+    if kernel in ("matmul", "matmul_nt", "matmul_tn"):
+        blocks = (kw["block_m"], kw["block_n"], kw["block_k"])
+        pick = {"matmul": template(*blocks, (args[0].dtype, args[1].dtype)),
+                "matmul_nt": nt_template(*blocks, (args[0].dtype, args[1].dtype)),
+                "matmul_tn": tn_template(*blocks)}[kernel]
+        return dict(template=pick, **split_record(kernel, args, kw))
     layout = register_layout(block_h=kw["block_h"], block_do=kw["block_do"],
                                 block_di=kw["block_di"], W_O=kw["W_O"],
                                 F=args[1].shape[0], S=kw["stride"])
@@ -3340,7 +3348,7 @@ def cell_template(op: str, s, shape: dict) -> str:
     """The kernel template one cell's schedule launches (as the wrappers
     choose it)."""
     from repro_torch.kernels.conv2d.conv2d import register_layout
-    from repro_torch.kernels.matmul.bwd import dxdw_template, tn_template
+    from repro_torch.kernels.matmul.bwd import dxdw_template, nt_template, tn_template
     from repro_torch.kernels.matmul.matmul import template
 
     b = s.block_dict()
@@ -3364,7 +3372,7 @@ def cell_template(op: str, s, shape: dict) -> str:
         return tn_template(*mnk)
     if s.algorithm == "fused_dxdw":
         return "fused/" + dxdw_template(*mnk, shape["m"])
-    return "register" if mnk == (64, 32, 128) else "simple"  # NT's register tile
+    return nt_template(*mnk)
 
 
 def launched_blocks(cnn, cfg, plans, batch) -> set:

@@ -3,10 +3,10 @@
 Each source compiles with ``nvcc`` into a shared library with a plain C
 interface, loaded with ``ctypes`` — no PyTorch headers, so a build takes
 seconds.  Libraries go to ``kernels/_build/`` (ignored by git), named by a
-hash of the source and the flags, so an edited source rebuilds and an
-unchanged one is reused.  :func:`build_all` starts one ``nvcc`` per source,
-all at once.  Nothing builds at import: the first launch builds what it
-needs.
+hash of the source, the headers it includes and the flags, so an edited
+source rebuilds and an unchanged one is reused.  :func:`build_all` starts
+one ``nvcc`` per source, all at once.  Nothing builds at import: the
+first launch builds what it needs.
 """
 
 from __future__ import annotations
@@ -14,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -40,8 +41,12 @@ def nvcc() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = CSRC / f"{name}.cu"
-    digest = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    """The library of ``csrc/<name>.cu``, named by a hash of the source, the
+    ``csrc`` headers it includes and the flags."""
+    text = (CSRC / f"{name}.cu").read_bytes()
+    headers = b"".join((CSRC / h.decode()).read_bytes()
+                       for h in re.findall(rb'#include "([^"]+)"', text))
+    digest = hashlib.sha256(text + headers + " ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}.so"
 
 

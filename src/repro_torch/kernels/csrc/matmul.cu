@@ -5,7 +5,7 @@
 // the FC forward of the CNN, the GEMM core of the im2col conv and every
 // forward GEMM of the transformer step.
 //
-// What bounds it here: at the main path's shapes (fc1 256x2048x4096, fc2
+// What bounds the f32 route here: at the main path's shapes (fc1 256x2048x4096, fc2
 // 256x4096x1000, im2col strips with K = 9*d_in, the transformer's M = 8192
 // and logits 2048x1024x151936) the arithmetic intensity is well above the
 // card's f32 balance point (67 TFLOP/s over 3.35 TB/s, about 20 flop/B),
@@ -14,7 +14,7 @@
 // and grids under one wave of SMs.
 //
 // At the planner's tile (bm 64, bn 128, bk 32; every forward GEMM of both
-// training steps), mm_reg_kernel:
+// training steps), f32 and the mixed routes run mm_reg_kernel:
 //   * Registers. 256 threads, each a 4 x 8 tile of O (rows mi*4..+3,
 //     columns kj*4..+3 and 64+kj*4..+3) in registers for the block's whole
 //     K loop. Per contraction index it reads three float4s from shared
@@ -46,17 +46,23 @@
 // 4 * (bm*bn + 2*(bm*bk + bk*bn)).
 //
 //
-// bf16 (repro_matmul_bf16): both kernels are templates on the operand type
-// T. Every four-element unit of the f32 kernels (a float4, a 16-byte
-// cp.async) is four bf16 of 8 bytes (an 8-byte cp.async, a uint2 load), so
-// every thread mapping, tile and loop above is the f32 kernel's; shared
-// memory holds the operand tiles as bf16, converted to f32
-// (__bfloat162float) as they are read for the FMAs, and the f32 register
-// tile is rounded once (__float2bfloat16_rn) as it is stored. Shared memory
-// per block is the planner's H100 term at the operands' size:
-// 4*bm*bn + 2*sizeof(T)*(bm*bk + bk*bn). Split partial slabs stay f32 and
-// the ordered sum rounds once. This is the simple route: the FMAs are f32
-// on the CUDA cores, as at f32 (tensor cores are later work).
+// bf16 (repro_matmul_bf16) at the planner's tile: mm_wgmma_kernel
+// (gemm_sm90.cuh), on the tensor cores. It replaces _mm_kernel on the path
+// repro trains in bf16; its bound is the tensor cores' 989 TFLOP/s (every
+// call on the path is far above bf16's 295 flop/B balance point). X is a
+// K-major A tile and W an MN-major B tile (two 64-column halves with the
+// 128-byte swizzle) of wgmma m64n128k16, copied by TMA into a four-stage
+// ring in the planner's 57,344 B; the f32 tile lives in registers, the
+// CUDA cores add it into a second register tile every few steps, and it is
+// rounded once (__float2bfloat16_rn) as it is stored. The wrapper names it
+// (matmul.py::template "wgmma", `reg` 2); nothing else takes bf16 at that
+// tile. ptxas (nvcc 12.9): 136 registers, no spills.
+// Other tiles run mm_simple_kernel on bf16: every four-element unit of the
+// f32 kernel (a float4, a 16-byte cp.async) is four bf16 of 8 bytes, the
+// operand tiles sit in shared memory as bf16 and are converted to f32 as
+// they are read for the FMAs. Shared memory per block is the planner's
+// H100 term at the operands' size: 4*bm*bn + 2*sizeof(T)*(bm*bk + bk*bn).
+// Split partial slabs stay f32 and the ordered sum rounds once.
 //
 // bf16 X against f32 W (repro_matmul_bf16xf32_bf16 / _f32: the CNN's fc1
 // and its im2col patch GEMM at compute_dtype bf16, where repro's type
@@ -74,6 +80,10 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -424,29 +434,42 @@ cudaError_t set_smem(const void* fn, size_t bytes) {
                               (int)bytes);
 }
 
+// The kernel a launch's `reg` names (matmul.py::template).
+enum Template { kSimple = 0, kRegister = 1, kWgmma = 2 };
+
 template <class TX, class TW, class TO>
 int launch(const TX* X, const TW* W, TO* O, float* part, int M, int N, int K, int bm,
            int bn, int bk, int split, int reg, void* stream) {
+  constexpr bool kBf16 = std::is_same<TX, bf16>::value && std::is_same<TW, bf16>::value;
   const size_t smem = sizeof(float) * (size_t)bm * bn +
                       2 * (sizeof(TX) * (size_t)bm * bk + sizeof(TW) * (size_t)bk * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(N / bn, M / bm, split);
   cudaError_t err;
-  if (reg) {
-    if (bm != kBM || bn != kBN || bk != kBK) return (int)cudaErrorInvalidValue;
-    static_assert(kStages * stage_bytes<TX, TW>() <=
-                      sizeof(float) * kBM * kBN + 2 * stage_bytes<TX, TW>(),
-                  "the ring must fit the charged allocation");
-    err = set_smem((const void*)mm_reg_kernel<TX, TW, TO>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mm_reg_kernel<TX, TW, TO><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, split);
+  if (reg != kSimple) {
+    if (bm != kBM || bn != kBN || bk != kBK || reg != (kBf16 ? kWgmma : kRegister))
+      return (int)cudaErrorInvalidValue;
+    if constexpr (kBf16) {
+      static_assert(sm90::kBM == kBM && sm90::kBN == kBN && sm90::kBK == kBK &&
+                        sm90::kSmemNeeded <= 4 * kBM * kBN + 2 * 2 * (kBM * kBK + kBK * kBN),
+                    "the wgmma ring must fit the charged allocation");
+      err = sm90::launch_wgmma<false, TO>(X, W, O, part, M, N, K, split, smem, st);
+    } else {
+      static_assert(kStages * stage_bytes<TX, TW>() <=
+                        sizeof(float) * kBM * kBN + 2 * stage_bytes<TX, TW>(),
+                    "the ring must fit the charged allocation");
+      err = set_smem((const void*)mm_reg_kernel<TX, TW, TO>, smem);
+      if (err != cudaSuccess) return (int)err;
+      mm_reg_kernel<TX, TW, TO><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, split);
+      err = cudaGetLastError();
+    }
   } else {
     err = set_smem((const void*)mm_simple_kernel<TX, TW, TO>, smem);
     if (err != cudaSuccess) return (int)err;
     mm_simple_kernel<TX, TW, TO><<<grid, kThreads, smem, st>>>(X, W, O, part, M, N, K, bm,
                                                                bn, bk, split);
+    err = cudaGetLastError();
   }
-  err = cudaGetLastError();
   if (err != cudaSuccess || split == 1) return (int)err;
   const size_t n4 = (size_t)M * N / 4;
   const size_t want = (n4 + kThreads - 1) / kThreads;
@@ -465,9 +488,10 @@ const char* repro_error_string(int err) {
 
 // Launch on `stream` over a grid of (N/bn, M/bm, split); with split > 1
 // `part` holds split slabs of M*N floats and a second kernel sums them into
-// O in order. `reg` (from matmul.py::template) selects mm_reg_kernel, which
-// takes only its own tile, 0 the simple kernel. Returns cudaGetLastError()
-// (0 on success).
+// O in order. `reg` (from matmul.py::template) selects the kernel at the
+// planner's tile, which takes only that tile: 1 mm_reg_kernel (f32 and the
+// mixed routes), 2 mm_wgmma_kernel (bf16); 0 the simple kernel. Returns
+// cudaGetLastError() (0 on success).
 int repro_matmul_f32(const float* X, const float* W, float* O, float* part, int M,
                      int N, int K, int bm, int bn, int bk, int split, int reg,
                      void* stream) {

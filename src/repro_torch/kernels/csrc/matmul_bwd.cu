@@ -8,7 +8,7 @@
 // (matmul_nt_pallas), ::_mm_tn_kernel (matmul_tn_pallas) and
 // ::_mm_dxdw_kernel (matmul_dx_dw_pallas).
 //
-// What bounds them here: at the CNN's FC shapes (fc1 256x2048x4096, fc2
+// What bounds the f32 routes here: at the CNN's FC shapes (fc1 256x2048x4096, fc2
 // 256x4096x1000; the fused kernel's at 128 rows) and the transformer's
 // (M = 8192 or 2048, K and N from 1024 to 151936) the arithmetic intensity
 // is far above the card's f32 balance point (about 20 flop/B), so the
@@ -17,7 +17,7 @@
 // conflicts, and grids under one wave.
 //
 // NT at the planner's tile (bm 64, bk 128, bn 32; every shape of both
-// steps), mm_nt_reg_kernel:
+// steps), f32 and the mixed route run mm_nt_reg_kernel:
 //   * Registers. 256 threads, each a 4 x 8 tile of dX (rows mi*4..+3,
 //     columns kj*4..+3 and 64+kj*4..+3) in registers for the block's
 //     whole N loop. Per contraction index it reads three float4s from
@@ -106,7 +106,20 @@
 // operand tiles at e = sizeof(T) bytes an element and the accumulators f32:
 //   NT 4*bm*bk + 2*e*(bm*bn + bn*bk), TN 4*bk*bn + 2*e*(bm*bk + bm*bn),
 //   fused 2*e*(bm*bn + bk*bn + bm*bk) + 4*(M*bk + bk*bn).
-// bf16: every kernel is a template on the operand type T. Each
+// bf16 NT (repro_matmul_nt_bf16) at the planner's tile: mm_wgmma_kernel
+// (gemm_sm90.cuh), on the tensor cores. It replaces _mm_nt_kernel on the
+// path repro trains in bf16; its bound is the tensor cores' 989 TFLOP/s
+// (every call on the path is far above bf16's 295 flop/B balance point).
+// dY is a K-major A tile and W, read as W^T, a K-major B tile (both with the
+// 64-byte swizzle: N, the contraction, lies along their rows, which is
+// wgmma's own layout) of wgmma m64n128k16, copied by TMA into a four-stage
+// ring in the planner's 57,344 B; the f32 dX tile lives in registers, the
+// CUDA cores add it into a second register tile every few steps (the
+// logits' dX sums 151,936 terms), and it leaves as f32 (or as this split
+// part's slab). NT picks it on its tile and bf16 operands (as
+// bwd.py::nt_template names it, "wgmma"); nothing else takes bf16 at that
+// tile. ptxas (nvcc 12.9): 136 registers, no spills.
+// bf16 elsewhere: every kernel is a template on the operand type T. Each
 // four-element unit of the f32 kernels (a float4, a 16-byte cp.async) is
 // four bf16 of 8 bytes, so every thread mapping, swizzle, tile and loop is
 // the f32 kernel's; the operand tiles sit in shared memory as bf16 and are
@@ -115,8 +128,8 @@
 // (cp.async moves 4 bytes at least). The fused register kernel keeps the
 // bf16 X strip in the front half of the f32 dX strip's charged room, which
 // its epilogue fills. dX and dW come out f32, as repro's FC backward asks
-// (out_dtype=f32); the caller casts them. The FMAs stay f32 on the CUDA
-// cores (tensor cores are later work).
+// (out_dtype=f32); the caller casts them. The FMAs of TN and the fused
+// kernel stay f32 on the CUDA cores (tensor cores are later work).
 // bf16 dY and X against f32 W (repro_matmul_nt_bf16xf32,
 // repro_matmul_dxdw_bf16xf32: fc1's backward on the CNN's bf16 route, where
 // repro's type promotion keeps the weights f32): NT and the fused kernels
@@ -139,6 +152,8 @@
 #include <cuda_runtime.h>
 
 #include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -834,9 +849,20 @@ int launch_nt(const TA* G, const TW* W, float* DX, float* part, int M, int N, in
   float* dst = split > 1 ? part : DX;
   cudaError_t err;
   if (bm == kNtBM && bn == kNtBN && bk == kNtBK) {
-    err = set_smem((const void*)mm_nt_reg_kernel<TA, TW>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mm_nt_reg_kernel<TA, TW><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
+    if constexpr (std::is_same<TA, bf16>::value && std::is_same<TW, bf16>::value) {
+      // dX[M, K] = dY[M, N] . (W[K, N] read as [K][N], K-major): the wgmma kernel.
+      static_assert(sm90::kBM == kNtBM && sm90::kBN == kNtBK && sm90::kBK == kNtBN &&
+                        sm90::kSmemNeeded <= 4 * kNtBM * kNtBK + 2 * 2 * (kNtBM * kNtBN +
+                                                                          kNtBN * kNtBK),
+                    "the wgmma ring must fit the charged allocation");
+      err = sm90::launch_wgmma<true, float>(G, W, DX, part, M, K, N, split, smem, st);
+      if (err != cudaSuccess || split == 1) return (int)err;
+      return (int)reduce_slabs(part, DX, (size_t)M * K, split, st);
+    } else {
+      err = set_smem((const void*)mm_nt_reg_kernel<TA, TW>, smem);
+      if (err != cudaSuccess) return (int)err;
+      mm_nt_reg_kernel<TA, TW><<<grid, kThreads, smem, st>>>(G, W, dst, M, N, K, split);
+    }
   } else {
     err = set_smem((const void*)mm_nt_kernel<TA, TW>, smem);
     if (err != cudaSuccess) return (int)err;

@@ -3,9 +3,12 @@
 Three hand-written kernels in ``csrc/matmul_bwd.cu``, each with its launch
 wrapper and plain PyTorch version:
 
-* ``matmul_nt`` — dX[M, K] = dY[M, N] @ W[K, N]^T; both tiles are staged
-  contraction-major (transposed on the way in), so no W^T ever exists in
-  device memory, and the dX tile stays in registers.  Where the grid is
+* ``matmul_nt`` — dX[M, K] = dY[M, N] @ W[K, N]^T; no W^T ever exists in
+  device memory, and at the planner's tile (:data:`NT_REGISTER_TILE`,
+  :func:`nt_template`) the dX tile stays in registers: on the tensor cores
+  for bf16 operands (``wgmma`` reads both tiles as they lie, N along their
+  rows), on the CUDA cores for f32 and the bf16 x f32 route (both tiles
+  staged contraction-major, transposed on the way in).  Where the grid is
   under one wave of SMs the N loop is split over a number of blocks fixed
   by the shapes (:func:`nt_split`) and the partial slabs are summed in a
   fixed order.  Replaces ``repro/kernels/matmul/bwd.py::_mm_nt_kernel``.
@@ -54,6 +57,7 @@ from repro_torch.plan.registry import activation_dtype
 
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
+NT_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of NT's register and wgmma kernels
 TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
 DXDW_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of mm_dxdw_reg_kernel
 DXDW_REGISTER_M_BLOCKS = 3  # the most m-blocks of dX its threads hold
@@ -142,6 +146,18 @@ def nt_partial_bytes(*, m: int, k: int, split: int) -> int:
     """Device memory of NT's (or the fused kernel's) partial f32 dX slabs
     (0 without a split)."""
     return 4 * split * m * k if split > 1 else 0
+
+
+def nt_template(block_m: int, block_n: int, block_k: int,
+                dtypes: tuple = (torch.float32,)) -> str:
+    """Which kernel an NT launch with these blocks and operand ``dtypes``
+    runs: at :data:`NT_REGISTER_TILE` "wgmma" (the tensor cores) where
+    every operand is bf16, else "register" (f32 and the bf16 x f32 route);
+    "simple" at other tiles.  The C entry point makes the same choice from
+    the tile and its operands' type."""
+    if (block_m, block_n, block_k) != NT_REGISTER_TILE:
+        return "simple"
+    return "wgmma" if set(dtypes) == {torch.bfloat16} else "register"
 
 
 def tn_template(block_m: int, block_n: int, block_k: int) -> str:

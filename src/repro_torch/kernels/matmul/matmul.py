@@ -5,10 +5,11 @@ Replaces ``repro/kernels/matmul/matmul.py::_mm_kernel``: one thread block
 per ``block_m x block_n`` output tile, the K grid axis as a loop inside
 the block over ``block_k`` steps staged in shared memory, the output tile
 written once.  At the planner's tile (:data:`REGISTER_TILE`) the tile lives
-in registers; other tiles run the simple kernel.  Where the (n, m) grid is
-under one wave of SMs the K loop is split over a number of blocks fixed by
-the shapes (:func:`mm_split`) and the partial slabs are summed in a fixed
-order.  Operands must already be multiples of the blocks
+in registers: on the tensor cores (``wgmma``, TMA copies) for bf16
+operands, on the CUDA cores for f32 and the bf16 x f32 routes; other tiles
+run the simple kernel.  Where the (n, m) grid is under one wave of SMs the
+K loop is split over a number of blocks fixed by the shapes
+(:func:`mm_split`) and the partial slabs are summed in a fixed order.  Operands must already be multiples of the blocks
 (``ops.fc_matmul`` pads and slices).
 
 Operands are both f32 or both bf16 (``repro_matmul_f32`` /
@@ -32,7 +33,8 @@ from repro_torch.plan.registry import CudaKernel, activation_dtype
 
 LANE = 8  # the kernel's column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535  # M / block_m rides the grid's y axis
-REGISTER_TILE = (64, 128, 32)  # (block_m, block_n, block_k) of mm_reg_kernel
+REGISTER_TILE = (64, 128, 32)  # (block_m, block_n, block_k) of mm_reg_kernel, mm_wgmma_kernel
+TEMPLATES = ("simple", "register", "wgmma")  # the C entry point's `reg` codes
 
 
 def smem_bytes(block_m: int, block_n: int, block_k: int, in_bytes: int = 4,
@@ -40,7 +42,8 @@ def smem_bytes(block_m: int, block_n: int, block_k: int, in_bytes: int = 4,
     """Shared memory one block allocates: the f32 accumulator tile and two
     stages of the X tile at ``in_bytes`` an element and the W tile at
     ``w_bytes`` (default ``in_bytes``; == MatmulPlanner's H100 budget term
-    where the two are equal)."""
+    where the two are equal).  The register kernels hold the tile in
+    registers and spend these bytes on a deeper ring of operand stages."""
     w_bytes = in_bytes if w_bytes is None else w_bytes
     return 4 * block_m * block_n + 2 * (in_bytes * block_m * block_k
                                         + w_bytes * block_k * block_n)
@@ -55,11 +58,16 @@ def plain_matmul(a, b):
     return torch.matmul(a, b)
 
 
-def template(block_m: int, block_n: int, block_k: int) -> str:
-    """Which kernel a launch with these blocks runs: "register" at
-    :data:`REGISTER_TILE`, else "simple".  The launch passes this choice
-    to the C entry point, which dispatches on it."""
-    return "register" if (block_m, block_n, block_k) == REGISTER_TILE else "simple"
+def template(block_m: int, block_n: int, block_k: int,
+             dtypes: tuple = (torch.float32,)) -> str:
+    """Which kernel a launch with these blocks and operand ``dtypes`` runs:
+    at :data:`REGISTER_TILE` "wgmma" (the tensor cores) where every operand
+    is bf16, else "register" (f32 and the bf16 x f32 routes); "simple" at
+    other tiles.  The launch passes this choice to the C entry point
+    (:data:`TEMPLATES`' index), which dispatches on it."""
+    if (block_m, block_n, block_k) != REGISTER_TILE:
+        return "simple"
+    return "wgmma" if set(dtypes) == {torch.bfloat16} else "register"
 
 
 def mm_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
@@ -154,7 +162,8 @@ def _launch(kernel: CudaKernel, x, w, *, block_m: int, block_n: int, block_k: in
                ctypes.c_void_p(out.data_ptr()),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(template(block_m, block_n, block_k) == "register"), dtype=route)
+               TEMPLATES.index(template(block_m, block_n, block_k, (x.dtype, w.dtype))),
+               dtype=route)
     return out
 
 

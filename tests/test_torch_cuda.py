@@ -1356,3 +1356,132 @@ def test_planned_bf16_cnn_step_on_card(cuda):
     for got, want in zip(grads_c, grads_p):
         assert got.dtype == want.dtype == torch.float32
         assert_close(got, want, 3e-2)
+
+
+# -- the bf16 forward matmul and NT on the tensor cores (wgmma) ------------------
+#
+# Tolerances as the bf16 route's above: the forward's bf16 output within one
+# ulp of plain; NT's f32 dX within 1e-5 * max(1, max |plain|), times
+# sqrt(N / 8192) for a contraction N past 8192 (the random walk of f32
+# roundings over the longer sum; the logits' dX sums 151,936 terms), as
+# chip_smoke.py's phase bf16 gates them.
+
+# (label, K, N) of every GEMM of the planned qwen1.5-0.5b and qwen3-1.7b
+# steps (the forward X[M, K] . W[K, N]; NT dY[M, N] . W[K, N]^T), M cut to 256.
+WGMMA_SHAPES = [("qwen1.5-qkv", 1024, 3072), ("qwen1.5-wo", 1024, 1024),
+                ("qwen1.5-mlp_up", 1024, 5632), ("qwen1.5-mlp_down", 2816, 1024),
+                ("qwen1.5-logits", 1024, 151936), ("qwen3-qkv", 2048, 4096),
+                ("qwen3-wo", 2048, 2048), ("qwen3-mlp_up", 2048, 12288),
+                ("qwen3-mlp_down", 6144, 2048), ("qwen3-logits", 2048, 151936)]
+WGMMA_M = 256
+FWD_TILE, NT_TILE = (64, 128, 32), (64, 32, 128)
+
+
+def _nt_tol(want, n):
+    return BF16_TOL * max(1.0, (n / 8192) ** 0.5)
+
+
+def _wgmma_pair(kind, x, w):
+    """(kernel launch, plain) of the forward (x @ w) or NT (x @ w^T) at the
+    planner's tile, after checking that the wrappers name the wgmma kernel."""
+    from repro_torch.kernels.matmul.bwd import nt_template
+    from repro_torch.kernels.matmul.matmul import template
+
+    if kind == "fwd":
+        kw = dict(zip(("block_m", "block_n", "block_k"), FWD_TILE))
+        assert template(*FWD_TILE, (x.dtype, w.dtype)) == "wgmma"
+        return (lambda: matmul_kernel(x, w, **kw)), (lambda: matmul_kernel.plain(x, w, **kw))
+    kw = dict(zip(("block_m", "block_n", "block_k"), NT_TILE))
+    assert nt_template(*NT_TILE, (x.dtype, w.dtype)) == "wgmma"
+    return (lambda: matmul_nt_kernel(x, w, **kw)), (lambda: matmul_nt_kernel.plain(x, w, **kw))
+
+
+def _check_wgmma(kind, x, w, n_contract):
+    kernel = matmul_kernel if kind == "fwd" else matmul_nt_kernel
+    run, plain = _wgmma_pair(kind, x, w)
+    got = _launched(kernel, run)
+    assert torch.equal(got, run())
+    want = plain()
+    if kind == "fwd":
+        assert got.dtype == torch.bfloat16
+        assert_within_ulp(got, want)
+    else:
+        assert got.dtype == torch.float32
+        assert_close(got, want, _nt_tol(want, n_contract))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,k,n", WGMMA_SHAPES, ids=[s[0] for s in WGMMA_SHAPES])
+@pytest.mark.parametrize("kind", ["fwd", "nt"])
+def test_wgmma_routes_match_plain_at_the_planned_shapes(cuda, kind, label, k, n):
+    """The forward matmul and NT at bf16 on the tensor cores, at every GEMM
+    shape of the planned qwen1.5-0.5b and qwen3-1.7b steps (M cut to 256;
+    NT's grid there is under a wave, so its contraction splits), against
+    their plain versions; two launches give the same bits."""
+    rng = np.random.default_rng(35)
+    w = _bf16(rng, k, n, scale=k ** -0.5).to(cuda)
+    a = _bf16(rng, WGMMA_M, k if kind == "fwd" else n).to(cuda)
+    _check_wgmma(kind, a, w, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,m,k,n", [
+    ("fwd", 256, 4096, 1024),  # a 4 x 8 grid: K split 8
+    ("nt", 256, 1024, 4096),   # a 4 x 8 grid: N split 8
+    ("nt", 128, 1024, 151936),  # the logits' contraction at a small M: N split 16
+    ("fwd", 64, 32, 128),       # one block, one step
+])
+def test_wgmma_routes_split_and_match_plain(cuda, kind, m, k, n):
+    """Split grids (partial f32 slabs summed in order) and the smallest
+    grid against the plain versions; the same bits twice."""
+    rng = np.random.default_rng(36)
+    w = _bf16(rng, k, n, scale=k ** -0.5).to(cuda)
+    _check_wgmma(kind, _bf16(rng, m, k if kind == "fwd" else n).to(cuda), w, n)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["fwd", "nt"])
+def test_wgmma_rows_and_columns_land_where_plain_puts_them(cuda, kind):
+    """Small integers over 8 (exact in bf16, and every product and partial
+    sum exact in f32) that differ in every row, column and contraction
+    index: a swizzle, descriptor or fragment mapping that moves any element
+    changes the result, which must equal plain bit for bit."""
+    m, k, n = 192, 256, 384
+
+    def pattern(rows, cols, a, b):
+        i = torch.arange(rows).unsqueeze(1)
+        j = torch.arange(cols).unsqueeze(0)
+        return (((i * a + j * b) % 17 - 8) / 8).to(torch.bfloat16).to(cuda)
+
+    w = pattern(k, n, 5, 3)
+    x = pattern(m, k, 7, 11) if kind == "fwd" else pattern(m, n, 7, 11)
+    run, plain = _wgmma_pair(kind, x, w)
+    got = _launched(matmul_kernel if kind == "fwd" else matmul_nt_kernel, run)
+    assert torch.equal(got, plain())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind,blocks", [("fwd", (32, 64, 32)), ("fwd", (8, 16, 16)),
+                                         ("nt", (8, 16, 16)), ("nt", (64, 32, 64))])
+def test_bf16_off_the_planner_tile_stays_on_the_simple_kernel(cuda, kind, blocks):
+    """bf16 at a tile other than the planner's takes the simple kernel
+    (the wrappers say so) and still matches plain."""
+    from repro_torch.kernels.matmul.bwd import nt_template
+    from repro_torch.kernels.matmul.matmul import template
+
+    bm, bn, bk = blocks
+    kw = dict(block_m=bm, block_n=bn, block_k=bk)
+    m, k, n = 128, 192, 256
+    rng = np.random.default_rng(37)
+    w = _bf16(rng, k, n, scale=k ** -0.5).to(cuda)
+    bf = (torch.bfloat16, torch.bfloat16)
+    if kind == "fwd":
+        assert template(*blocks, bf) == "simple"
+        x = _bf16(rng, m, k).to(cuda)
+        got = _launched(matmul_kernel, lambda: matmul_kernel(x, w, **kw))
+        assert_within_ulp(got, matmul_kernel.plain(x, w, **kw))
+    else:
+        assert nt_template(*blocks, bf) == "simple"
+        g = _bf16(rng, m, n).to(cuda)
+        got = _launched(matmul_nt_kernel, lambda: matmul_nt_kernel(g, w, **kw))
+        assert_close(got, matmul_nt_kernel.plain(g, w, **kw), BF16_TOL)
