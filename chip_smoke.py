@@ -487,8 +487,9 @@ profiles lose them, as ``paper``'s records say):
                (dX, dW) within BF16_F32_TOL x max(1, max|plain|), that
                times sqrt(K / BF16_F32_TOL_K) for a contraction K past
                BF16_F32_TOL_K (the logits' dX sums 151,936 terms); two
-               launches give the same bits; every main-path forward and NT
-               call runs the "wgmma" template (the tensor cores).  Each
+               launches give the same bits; every main-path forward, NT
+               and TN call and the flash call run the "wgmma" template (the
+               tensor cores).  Each
                record: event and device
                ms (torch.profiler, or where a late profile holds no call,
                CUDA events over BF16_BURST calls in a row), the plain
@@ -729,9 +730,9 @@ BF16_BURST = 5  # calls in a row, timed between two events where a profile holds
 # Each kernel's own launch in a profile (its split's slab sum is a kernel of its own).
 BF16_MARKERS = {"matmul": ("mm_wgmma_kernel", "mm_reg_kernel", "mm_simple_kernel"),
                 "matmul_nt": ("mm_wgmma_kernel", "mm_nt_reg_kernel", "mm_nt_kernel"),
-                "matmul_tn": ("mm_tn_reg_kernel", "mm_tn_kernel"),
+                "matmul_tn": ("mm_wgmma_kernel", "mm_tn_reg_kernel", "mm_tn_kernel"),
                 "matmul_dx_dw": ("mm_dxdw_reg_kernel", "mm_dxdw_kernel"),
-                "flash_attention": ("fa_fwd_kernel",),
+                "flash_attention": ("fa_wgmma_kernel", "fa_fwd_kernel"),
                 "conv2d": ("conv_reg_kernel", "conv_simple_kernel"),
                 "conv2d_wgrad": ("wgrad_reg_kernel", "wgrad_simple_kernel")}
 FLASH_OFFSET_CASES = [(64, None), (64, 512), (128, None), (128, 1024)]
@@ -1037,10 +1038,9 @@ def phase_bf16(torch, kernels, results, card):
         call = dict(case=label, per_step=per_step, step_batch=step_batch, dtype="bfloat16",
                     **gate, **t, bound_ms=b_ms, bound_by=b_by, bound_share=b_ms / t["ms"],
                     library_over_port=(t["library_ms"] / t["ms"] if t["library_ms"] else None),
-                    **(template_record(name, args, kw)
-                       if name in ("matmul", "matmul_nt", "matmul_tn", "matmul_dx_dw") else {}),
+                    **template_record(name, args, kw),
                     flops=cost["flops"], bytes=cost["nbytes"], peaks=PEAKS_BF16)
-        if per_step and name in ("matmul", "matmul_nt"):
+        if per_step and name in ("matmul", "matmul_nt", "matmul_tn", "flash_attention"):
             check(call["template"] == "wgmma",
                   f"bf16 {name} {label}: a main-path call runs the {call['template']} kernel")
         results[name].setdefault("bf16_calls", []).append(call)
@@ -1427,7 +1427,8 @@ def bf16_flash_case(torch, g, spec):
 
 def bf16_dense_flash(torch, kernels, results, card, per_step: dict) -> list:
     """(a) Flash's bf16 route alone at each BF16_FLASH case against its
-    plain version on the same bf16 operands: within one bf16 ulp at
+    plain version on the same bf16 operands: the planned blocks run the
+    "wgmma" kernel (the tensor cores), within one bf16 ulp at
     BF16_ULP_FLOOR, two launches the same bits; the call's event ms beside
     the plain version's, SDPA's at bf16 (a yardstick the port never
     calls) and the bound at the bf16 peaks."""
@@ -1441,6 +1442,9 @@ def bf16_dense_flash(torch, kernels, results, card, per_step: dict) -> list:
         d = q.shape[-1]
         check((kw["block_q"], kw["block_kv"]) == MAX_BLOCKS_BF16[d],
               f"bf16_dense flash {label}: planned {kw} off the built maxima")
+        tmpl = template_record("flash_attention", (q, k, v), kw)
+        check(tmpl["template"] == "wgmma",
+              f"bf16_dense flash {label}: a planned-block call runs the {tmpl} kernel")
         before = kern.launches
         got, again = kern(q, k, v, **kw), kern(q, k, v, **kw)
         want = kern.plain(q, k, v, **kw)
@@ -1461,7 +1465,7 @@ def bf16_dense_flash(torch, kernels, results, card, per_step: dict) -> list:
         rec = dict(case=label, head_dim=d, shape=[list(t.shape) for t in (q, k, v)],
                    blocks={"block_q": kw["block_q"], "block_kv": kw["block_kv"]},
                    window=kw["window"], q_len=kw["q_len"], kv_len=kw["kv_len"],
-                   q_off=kw["q_off"], per_step=per_step.get(label, 0), **gate, ms=ms,
+                   q_off=kw["q_off"], per_step=per_step.get(label, 0), **tmpl, **gate, ms=ms,
                    plain_ms=plain_ms, sdpa_bf16_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                    bound_share=b_ms / ms, flops=cost["flops"], bytes=cost["nbytes"],
                    peaks=PEAKS_BF16)
@@ -2088,17 +2092,21 @@ def split_record(kernel, args, kw) -> dict:
 
 
 def template_record(kernel, args, kw) -> dict:
-    """Which kernel template a conv2d, matmul, NT, TN or fused dX/dW launch
-    takes: the conv's register kernel with its pixel run and channel
-    groups, or the simple kernel; the matmul's and NT's wgmma (bf16
-    operands), register or simple kernel, TN's and the fused kernel's
-    register or simple kernel, and their K, N, M or N split.  All are the
-    choices the wrappers pass to the C entry points, which dispatch on
-    them."""
+    """Which kernel template a conv2d, matmul, NT, TN, fused dX/dW or flash
+    launch takes: the conv's register kernel with its pixel run and channel
+    groups, or the simple kernel; the matmul's, NT's and TN's wgmma (bf16
+    operands), register or simple kernel, the fused kernel's register or
+    simple kernel, and their K, N, M or N split; flash's wgmma (bf16 at
+    the blocks it takes) or fma kernel.  All are the choices the wrappers
+    pass to the C entry points, which dispatch on them."""
     from repro_torch.kernels.conv2d.conv2d import register_layout
+    from repro_torch.kernels.flash_attention.flash_attention import flash_template
     from repro_torch.kernels.matmul.bwd import dxdw_template, nt_template, tn_template
     from repro_torch.kernels.matmul.matmul import template
 
+    if kernel == "flash_attention":
+        return dict(template=flash_template(kw["block_q"], kw["block_kv"], args[0].shape[-1],
+                                            args[0].dtype))
     if kernel == "matmul_dx_dw":
         return dict(template=dxdw_template(kw["block_m"], kw["block_n"], kw["block_k"],
                                            args[0].shape[0],
@@ -2108,7 +2116,7 @@ def template_record(kernel, args, kw) -> dict:
         blocks = (kw["block_m"], kw["block_n"], kw["block_k"])
         pick = {"matmul": template(*blocks, (args[0].dtype, args[1].dtype)),
                 "matmul_nt": nt_template(*blocks, (args[0].dtype, args[1].dtype)),
-                "matmul_tn": tn_template(*blocks)}[kernel]
+                "matmul_tn": tn_template(*blocks, (args[0].dtype, args[1].dtype))}[kernel]
         return dict(template=pick, **split_record(kernel, args, kw))
     layout = register_layout(block_h=kw["block_h"], block_do=kw["block_do"],
                                 block_di=kw["block_di"], W_O=kw["W_O"],
@@ -3346,12 +3354,18 @@ def phase_remat(torch, kernels, results, tfm, card):
 
 def cell_template(op: str, s, shape: dict) -> str:
     """The kernel template one cell's schedule launches (as the wrappers
-    choose it)."""
+    choose it; TN's and flash's operands are all of the cell's in_bytes)."""
+    import torch
+
     from repro_torch.kernels.conv2d.conv2d import register_layout
+    from repro_torch.kernels.flash_attention.flash_attention import flash_template
     from repro_torch.kernels.matmul.bwd import dxdw_template, nt_template, tn_template
     from repro_torch.kernels.matmul.matmul import template
 
     b = s.block_dict()
+    dtype = torch.bfloat16 if shape.get("in_bytes", 4) == 2 else torch.float32
+    if op == "flash_attention":
+        return flash_template(b["block_q"], b["block_kv"], shape["head_dim"], dtype)
     if s.algorithm == "im2col":
         return "im2col/" + template(b["block_m"], b["block_n"], b["block_k"])
     if op in ("conv2d", "conv2d_dgrad"):
@@ -3369,7 +3383,7 @@ def cell_template(op: str, s, shape: dict) -> str:
     if op == "matmul":
         return template(*mnk)
     if op == "matmul_dw":
-        return tn_template(*mnk)
+        return tn_template(*mnk, (dtype,))
     if s.algorithm == "fused_dxdw":
         return "fused/" + dxdw_template(*mnk, shape["m"])
     return nt_template(*mnk)

@@ -1,5 +1,8 @@
-"""Time the flash-attention kernel's bf16 route at each row-group count
-(``RG``) its template admits, on the card, to pick the one
+"""Time the flash-attention kernel's bf16 route on the CUDA cores (the
+"fma" kernel, which serves the bf16 blocks the wgmma kernel does not take;
+at the planner's blocks, which the wgmma kernel takes, it runs its
+instantiation for blocks below its maxima) at each row-group count (``RG``)
+its template admits, on the card, to pick the one
 ``csrc/flash_attention.cu`` instantiates.
 
     python3 scripts/flash_rg.py
@@ -69,7 +72,7 @@ def build(work: Path) -> dict:
             raise RuntimeError(f"nvcc failed for D {d} RG {rg}:\n{log}")
         lib = ctypes.CDLL(str(so))
         fn = lib.repro_flash_attention_bf16
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float,
+        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_float,
                                                                      ctypes.c_void_p]
         libs[d, rg] = (fn, ptxas_report(log, d))
     return libs
@@ -90,7 +93,7 @@ def main() -> int:
     import torch
 
     from repro_torch.kernels.flash_attention.flash_attention import (
-        MAX_BLOCKS_BF16, flash_attention_plain,
+        FLASH_TEMPLATES, MAX_BLOCKS_BF16, flash_attention_plain,
     )
     from repro_torch.plan import AttentionPlanner
 
@@ -127,7 +130,8 @@ def main() -> int:
             def call():
                 err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), b * hq,
                          b * hkv, s, s, d, bq, bkv, s, s, 1, -1 if window is None else window,
-                         0, ctypes.c_float(d ** -0.5), ctypes.c_void_p(stream))
+                         0, FLASH_TEMPLATES.index("fma"), ctypes.c_float(d ** -0.5),
+                         ctypes.c_void_p(stream))
                 if err:
                     raise RuntimeError(f"{label} RG {rg}: launch error {err}")
 

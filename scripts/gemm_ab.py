@@ -11,16 +11,17 @@ two trees as A B B A so that a drift of the card's clocks shows.  Two kinds
 of case:
 
 * "bits": f32 operands (the qwen1.5-0.5b step's register tiles with and
-  without a split, the fused kernel at the CNN's fc1 at batch 128, each
-  simple kernel at a small tile) and the CNN's bf16 x f32 routes (the
-  forward to bf16 and to f32, NT; the planner's tiles, split and not):
-  every tree must give the same bits;
-* "plain": bf16 x bf16 forward and NT at the qwen1.5-0.5b step's qkv and
-  logits shapes, on the tensor cores in a tree that has them: each tree's
-  output is held against its plain version (the forward's bf16 output
-  within one bf16 ulp at max(|plain|, 2^-8 max|plain|), NT's f32 dX within
-  1e-5 of scale, times sqrt(N / 8192) past a contraction of 8192), since
-  the trees' kernels sum in other orders.
+  without a split, TN's among them, the fused kernel at the CNN's fc1 at
+  batch 128, each simple kernel at a small tile), the CNN's bf16 x f32
+  routes (the forward to bf16 and to f32, NT; the planner's tiles, split
+  and not; TN has none: it takes X and dY, of one dtype) and bf16 TN off
+  its tile (the simple kernel): every tree must give the same bits;
+* "plain": bf16 x bf16 forward, NT and TN at the qwen1.5-0.5b step's qkv
+  and logits shapes, on the tensor cores in a tree that has them: each
+  tree's output is held against its plain version (the forward's bf16
+  output within one bf16 ulp at max(|plain|, 2^-8 max|plain|), NT's f32 dX
+  and TN's f32 dW within 1e-5 of scale, times sqrt(K / 8192) past a
+  contraction K of 8192), since the trees' kernels sum in other orders.
 
 Prints one JSON line per tree (each case's median ms over 10 calls after 2
 warm-ups, by CUDA events, and each "plain" case's check) and a last line
@@ -50,7 +51,10 @@ CASES = [
     ("nt-simple", "matmul_nt", ((40, 80), (96, 80)), (8, 16, 16), (F, F), None, "bits"),
     ("tn-wo-split", "matmul_tn", ((8192, 1024), (8192, 1024)), (32, 128, 64), (F, F), None,
      "bits"),
+    ("tn-qkv", "matmul_tn", ((8192, 1024), (8192, 3072)), (32, 128, 64), (F, F), None,
+     "bits"),
     ("tn-simple", "matmul_tn", ((40, 96), (40, 80)), (8, 16, 16), (F, F), None, "bits"),
+    ("bf16-tn-simple", "matmul_tn", ((40, 96), (40, 80)), (8, 16, 16), (B, B), None, "bits"),
     ("dxdw-fc1", "matmul_dx_dw", ((128, 4096), (2048, 4096), (128, 2048)), (64, 32, 128),
      (F, F, F), None, "bits"),
     ("dxdw-simple", "matmul_dx_dw", ((40, 80), (96, 80), (40, 96)), (8, 16, 16), (F, F, F),
@@ -72,6 +76,10 @@ CASES = [
     ("bf16-nt-qkv", "matmul_nt", ((8192, 3072), (1024, 3072)), (64, 32, 128), (B, B), None,
      "plain"),
     ("bf16-nt-logits", "matmul_nt", ((2048, 151936), (1024, 151936)), (64, 32, 128), (B, B),
+     None, "plain"),
+    ("bf16-tn-qkv", "matmul_tn", ((8192, 1024), (8192, 3072)), (32, 128, 64), (B, B), None,
+     "plain"),
+    ("bf16-tn-logits", "matmul_tn", ((2048, 1024), (2048, 151936)), (32, 128, 64), (B, B),
      None, "plain"),
 ]
 
@@ -119,7 +127,8 @@ for label, name, shapes, (bm, bn, bk), dtypes, out_dtype, kind in CASES:
     if kind == "bits":
         out[label] = [t.cpu() for t in (o if isinstance(o, tuple) else (o,))]
     else:
-        checks[label] = plain_check(name, o, KERNELS[name].plain(*args, **kw), shapes[0][1])
+        contraction = shapes[0][0] if name == "matmul_tn" else shapes[0][1]
+        checks[label] = plain_check(name, o, KERNELS[name].plain(*args, **kw), contraction)
     del args, o
     torch.cuda.empty_cache()
 torch.save(out, OUT)

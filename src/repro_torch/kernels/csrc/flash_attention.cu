@@ -87,12 +87,58 @@
 // P slices take PS = min(BKV, D) columns a row in the 6*bq*D bytes left
 // after Q, K and V. At two bytes an element the planner's blocks are D = 32
 // at 128/128 (66,560 B), 64 at 128/128 (132,096 B), 128 at 128/64
-// (197,632 B) and 256 at 64/32 (197,120 B), each built twice as at f32.
-// RG is the fastest admitted count timed on the H100 (scripts/flash_rg.py):
-// 4 at D = 32 and 64 (the only one at 32), 2 at D = 128 and 256.
+// (197,632 B) and 256 at 64/32 (197,120 B); the wgmma kernel below takes
+// those, so the bf16 FMA kernel is built for smaller blocks alone (FULL is
+// f32's). RG is the fastest admitted count timed on the H100
+// (scripts/flash_rg.py): 4 at D = 32 and 64 (the only one at 32), 2 at
+// D = 128 and 256.
+//
+// bf16 on the tensor cores (fa_wgmma_kernel; flash_attention.py::
+// flash_template names it "wgmma" and passes the choice): at block_q 64 or
+// 128 and block_kv a multiple of 16 up to the planner's bf16 maxima, the
+// FMA kernel above serving every other bf16 block. It computes
+// _fa_kernel's function, whose scores, P and accumulator are f32, on
+// wgmma. What bounds it: at the main path's shape the tensor cores (bf16's
+// balance point is about 295 flop/B; a causal 2048 at D = 64 does about
+// 2*S*D = 262k flop per 4*D bytes of K/V it streams a q block).
+//   * Warpgroups. One warpgroup (128 threads) per 64 query rows: two at
+//     block_q 128, one at 64. Thread 0 issues TMA: Q once, and K and V into
+//     two stages, one mbarrier a stage (and one for Q); the tensor maps run
+//     over [BH*S, D]. Tiles are laid out for wgmma: D = 32 as 64-byte rows
+//     at the 64-byte swizzle, D >= 64 as 64-column panels of 128-byte rows at
+//     the 128-byte swizzle (TcTile).
+//   * S = Q K^T: wgmma m64n{block_kv}k16, Q (A) and K (B) both K-major from
+//     shared memory, D/16 steps, f32 in registers (at a block_kv below the
+//     instantiation's, in 16-key chunks of m64n16k16).
+//   * Masks and the online softmax on the S fragment: a thread holds rows
+//     lane/4 and lane/4 + 8 of its warp's 16; row max and row sum take two
+//     xor shuffles over the row's four lanes. Base 2, masked scores -inf,
+//     the running max from -1e30, l from the f32 P, as the FMA kernel.
+//   * O += P V: P is wgmma's A operand from registers (the S fragment's
+//     layout is the A fragment's once packed into bf16 pairs), V (B) is
+//     MN-major through the transpose bit (D contiguous, the keys down the
+//     rows, as the forward matmul's W). repro multiplies an f32 P, so P goes
+//     in as two bf16 terms, P_hi = bf16(P) and P_lo = bf16(P - P_hi), two
+//     wgmmas into the same O (kPTerms; scripts/wgmma_probe.py p-one-term
+//     times one).
+//   * Promotion. The CUDA cores rescale O by alpha once a KV block: at most
+//     block_kv/16 <= 8 wgmma steps (each two terms) between them, as the
+//     GEMMs' kPromote.
+//   * Output. O / l rounded once to bf16, staged in shared memory (rows
+//     padded) and written with 16-byte stores; a row with no visible key
+//     keeps l == 0 and is written as 0.
+//   * Shared memory. The block allocates exactly the planner's bf16 term,
+//     smem_bytes(bq, bkv, D, 2): Q, two stages of K and V, the barriers and
+//     a 1024-byte alignment; the P and f32 accumulator room it charges stays
+//     unused, both living in registers.
+//   * Instantiations: D = 32 and 64 at BKV 128, 128 at 64, 256 at 32, each
+//     for block_kv == BKV and for smaller ones (FULL). ptxas (nvcc 12.9,
+//     sm_90a), FULL / not: 195 / 196, 206 / 219, 168 / 168 and 186 / 192
+//     registers, no spills.
 //
 // Contract (checked by the Python wrapper): D in {32, 64, 128, 256}; bq,
-// bkv multiples of 8 up to the instantiation's maxima;
+// bkv multiples of 8 up to the instantiation's maxima (the wgmma kernel:
+// bq of 64 or 128, bkv of 16, up to the bf16 maxima);
 // sequences padded to the blocks; q [BHq, Sq, D], k/v [BHkv, Skv, D] of one
 // type, contiguous and 16-byte aligned; BHkv divides BHq.
 
@@ -100,6 +146,10 @@
 #include <cuda_runtime.h>
 
 #include <math.h>
+
+#include <type_traits>
+
+#include "gemm_sm90.cuh"
 
 namespace {
 
@@ -456,6 +506,14 @@ int launch_as(const T* q, const T* k, const T* v, T* o, int bhq, int bhkv, int s
   return (int)cudaGetLastError();
 }
 
+// The planner's H100 term at sizeof(T) an element: Q and two stages of K and
+// V in T, the f32 P room and (m, l).
+template <class T>
+size_t smem_bytes(int d, int bq, int bkv) {
+  return 2 * sizeof(T) * ((size_t)bq * d + 2 * (size_t)bkv * d) +
+         sizeof(float) * ((size_t)bq * d + 2 * (size_t)bq);
+}
+
 template <class T, int D, int BQ, int BKV, int RG>
 int launch(const T* q, const T* k, const T* v, T* o, int bhq, int bhkv, int sq, int skv,
            int bq, int bkv, int q_len, int kv_len, int causal, int window, int q_off,
@@ -463,17 +521,316 @@ int launch(const T* q, const T* k, const T* v, T* o, int bhq, int bhkv, int sq, 
   if (bq < 8 || bq > BQ || bq % 8 || bkv < 8 || bkv > BKV || bkv % 8 || sq % bq ||
       skv % bkv || bhkv <= 0 || bhq % bhkv || q_off < 0)
     return (int)cudaErrorInvalidValue;
-  // The planner's H100 term: Q and two stages of K and V in T, the f32 P room
-  // and (m, l).
-  const size_t smem = 2 * sizeof(T) * ((size_t)bq * D + 2 * (size_t)bkv * D) +
-                      sizeof(float) * ((size_t)bq * D + 2 * (size_t)bq);
-  if (bq == BQ && bkv == BKV)
-    return launch_as<T, D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv,
-                                              q_len, kv_len, causal, window, q_off,
-                                              scale_log2, smem, stream);
+  const size_t smem = smem_bytes<T>(D, bq, bkv);
+  if constexpr (std::is_same<T, float>::value) {
+    if (bq == BQ && bkv == BKV)
+      return launch_as<T, D, BQ, BKV, RG, true>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv,
+                                                q_len, kv_len, causal, window, q_off,
+                                                scale_log2, smem, stream);
+  }
   return launch_as<T, D, BQ, BKV, RG, false>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
                                              kv_len, causal, window, q_off, scale_log2,
                                              smem, stream);
+}
+
+// -- bf16 on the tensor cores (see the header) -----------------------------------
+
+constexpr int kFma = 0, kWgmma = 1;  // the entry points' `tmpl` (FLASH_TEMPLATES' index)
+constexpr int kWgThreads = 128;       // one warpgroup: 64 query rows
+constexpr int kPTerms = 2;            // P as P_hi + P_lo (1: P rounded to bf16)
+
+// A [rows][D] bf16 tile as wgmma reads it: D = 32 as 64-byte rows at the
+// 64-byte swizzle; D >= 64 as D/64 panels [rows][64] of 128-byte rows at the
+// 128-byte swizzle, panel p at p * rows * 128 B.
+template <int D>
+struct TcTile {
+  static constexpr int kCols = D < 64 ? D : 64;  // a panel's columns (one TMA box)
+  static constexpr int kRowBytes = 2 * kCols;
+  static constexpr int kPanels = D / kCols;
+  static constexpr int kSteps = kCols / 16;  // k16 steps along a panel's row
+  static constexpr int kGroup = 8 * kRowBytes;  // 8-row groups apart (the descriptors' SBO)
+  static constexpr uint64_t kSwizzle = D < 64 ? sm90::kSwizzle64 : sm90::kSwizzle128;
+  static constexpr CUtensorMapSwizzle kMapSwizzle =
+      D < 64 ? CU_TENSOR_MAP_SWIZZLE_64B : CU_TENSOR_MAP_SWIZZLE_128B;
+};
+
+// (a, b) as two bf16 pairs hi + lo: hi = bf16(a, b), lo = bf16 of what hi
+// leaves; each a b32 of wgmma's A fragment (the lower column in the low half).
+__device__ __forceinline__ void split_pair(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 hf = __bfloat1622float2(h);
+  const __nv_bfloat162 l = __floats2bfloat162_rn(a - hf.x, b - hf.y);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = *reinterpret_cast<const uint32_t*>(&l);
+}
+
+// o[0..D/2) += P . V for one k16 step of keys: P's fragment `a`, V's 16 rows
+// at `vb` (panels `panel` bytes apart), MN-major; D = 256 as two n128 halves.
+template <int D>
+__device__ __forceinline__ void pv_step(float* o, const uint32_t (&a)[4], uint32_t vb,
+                                        uint32_t panel) {
+  using L = TcTile<D>;
+  constexpr int N = D < 128 ? D : 128;
+#pragma unroll
+  for (int h = 0; h < D / N; ++h)
+    sm90::Wgmma<N>::template rs<1>(
+        o + N / 2 * h, a,
+        sm90::descriptor(vb + h * (N / L::kCols) * panel, panel, L::kGroup, L::kSwizzle), 1);
+}
+
+// One block per (b*Hq + h, q block), heaviest q blocks first, bq/64
+// warpgroups; the KV blocks the TPU kernel's `run` predicate admits, as
+// fa_fwd_kernel. BKV is the instantiation's block_kv, FULL that the launch
+// takes it (S in one m64n{BKV}k16 a step); otherwise S goes in 16-key
+// chunks. Two instantiations, not a branch: with both S paths in one kernel
+// ptxas serialized every wgmma (its note C7511).
+template <int D, int BKV, bool FULL>
+__global__ void __launch_bounds__(2 * kWgThreads, 1)
+    fa_wgmma_kernel(const __grid_constant__ CUtensorMap map_q,
+                    const __grid_constant__ CUtensorMap map_k,
+                    const __grid_constant__ CUtensorMap map_v, bf16* __restrict__ O,
+                    int group, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
+                    int causal, int window, int q_off, float scale_log2) {
+  using L = TcTile<D>;
+  constexpr int NS = BKV / 2, NO = D / 2;  // S and O floats a thread
+  constexpr int NK = BKV / 16;              // k16 steps of P . V at bkv == BKV
+  extern __shared__ __align__(1024) unsigned char fa_smem[];
+  const uint32_t raw = sm90::smem_addr(fa_smem);
+  const uint32_t pad = (1024 - (raw & 1023)) & 1023;
+  const uint32_t tile = (uint32_t)bkv * L::kRowBytes * L::kPanels;  // one K or V tile
+  // Q, then K's two stages, V's two, then the barriers (Q's, each stage's).
+  const uint32_t q_at = raw + pad, k_at = q_at + (uint32_t)bq * 2 * D;
+  const uint32_t v_at = k_at + 2 * tile, bars = v_at + 2 * tile;
+  const uint32_t q_panel = (uint32_t)bq * L::kRowBytes;  // panels of Q, of a K or V tile
+  const uint32_t kv_panel = (uint32_t)bkv * L::kRowBytes;
+
+  const int tid = threadIdx.x, wg = tid >> 7, warp = (tid >> 5) & 3, lane = tid & 31;
+  const int bh = blockIdx.x;
+  const int qb = gridDim.y - 1 - blockIdx.y;  // heaviest q blocks first
+  const int q_start = qb * bq, q_pos = q_off + q_start;
+  const int n_kvb = skv / bkv;
+  int hi = n_kvb - 1, lo = 0;
+  if (causal) hi = min(hi, (q_pos + bq - 1) / bkv);
+  if (window >= 0) {
+    const int x = q_pos - window + 2 - bkv;
+    lo = x > 0 ? (x + bkv - 1) / bkv : 0;
+  }
+  const int n_run = hi - lo + 1;
+  const int q_row = bh * sq + q_start, kv_row = (bh / group) * skv;
+  const CUtensorMap *pq = &map_q, *pk = &map_k, *pv = &map_v;
+
+  // Thread 0: KV block t into stage t & 1.
+  auto issue_kv = [&](int t) {
+    const int s = t & 1, row = kv_row + (lo + t) * bkv;
+    const uint32_t bar = bars + 8 + 8 * s;
+    sm90::mbar_expect_tx(bar, 2 * tile);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p) {
+      sm90::tma_load(k_at + s * tile + p * kv_panel, pk, bar, p * L::kCols, row);
+      sm90::tma_load(v_at + s * tile + p * kv_panel, pv, bar, p * L::kCols, row);
+    }
+  };
+  if (tid == 0) {
+    for (int i = 0; i < 3; ++i) sm90::mbar_init(bars + 8 * i, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (tid == 0 && n_run > 0) {
+    sm90::mbar_expect_tx(bars, (uint32_t)bq * 2 * D);
+#pragma unroll
+    for (int p = 0; p < L::kPanels; ++p)
+      sm90::tma_load(q_at + p * q_panel, pq, bars, p * L::kCols, q_row);
+    for (int t = 0; t < 2 && t < n_run; ++t) issue_kv(t);
+  }
+
+  // This thread's rows r0 and r0 + 8 of the q block and columns c0, c0 + 1
+  // of each 8 (the wgmma layout).
+  const int r0 = wg * 64 + warp * 16 + (lane >> 2), c0 = (lane & 3) * 2;
+  const int row_lim = min(bq, q_len - q_start);
+  const int n16 = FULL ? NK : bkv / 16;
+  const uint32_t qa = q_at + wg * 64 * L::kRowBytes;  // this warpgroup's rows of Q
+  float s[NS], o[NO], m_run[2] = {kNeg, kNeg}, l_run[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < NS; ++i) s[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < NO; ++i) o[i] = 0.f;
+  if (n_run > 0) sm90::mbar_wait(bars, 0);
+
+  for (int t = 0; t < n_run; ++t) {
+    const int st = t & 1, k_start = (lo + t) * bkv;
+    sm90::mbar_wait(bars + 8 + 8 * st, (t >> 1) & 1);
+    const uint32_t kt = k_at + st * tile, vt = v_at + st * tile;
+
+    // S = Q K^T, D/16 steps; panel kk / kSteps, 32 B a step along its rows.
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t at = (kk / L::kSteps) * q_panel + (kk % L::kSteps) * 32;
+      const uint32_t bt = kt + (kk / L::kSteps) * kv_panel + (kk % L::kSteps) * 32;
+      const uint64_t da = sm90::descriptor(qa + at, 16, L::kGroup, L::kSwizzle);
+      if constexpr (FULL) {
+        sm90::Wgmma<BKV>::template ss<0, 0>(
+            s, da, sm90::descriptor(bt, 16, L::kGroup, L::kSwizzle), kk > 0);
+      } else {
+#pragma unroll
+        for (int c = 0; c < BKV / 16; ++c)
+          if (c < n16)
+            sm90::Wgmma<16>::template ss<0, 0>(
+                s + 8 * c, da,
+                sm90::descriptor(bt + c * 16 * L::kRowBytes, 16, L::kGroup, L::kSwizzle),
+                kk > 0);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(s);
+
+    // Masks (where one reaches this block; always below BKV, whose columns
+    // past bkv were never computed) and the online softmax in base 2, row
+    // r0 + 8h from s[4j + 2h], s[4j + 2h + 1]; s becomes P.
+    const int col_lim = min(bkv, kv_len - k_start);
+    const bool open = FULL && col_lim == bkv && row_lim == bq &&
+                      (!causal || k_start + bkv - 1 <= q_pos) &&
+                      (window < 0 || q_pos + bq - 1 - k_start < window);
+    float alpha[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int lr = r0 + 8 * h, qid = q_pos + lr;
+      float mx = kNeg;
+      if (open) {
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            s[4 * j + 2 * h + e] *= scale_log2;
+            mx = fmaxf(mx, s[4 * j + 2 * h + e]);
+          }
+      } else {
+#pragma unroll
+        for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int c = 8 * j + c0 + e, kid = k_start + c;
+            bool ok = lr < row_lim && c < col_lim;
+            if (causal) ok = ok && kid <= qid;
+            if (window >= 0) ok = ok && qid - kid < window;
+            float& x = s[4 * j + 2 * h + e];
+            x = ok ? x * scale_log2 : -INFINITY;
+            mx = fmaxf(mx, x);
+          }
+      }
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m_run[h], mx);
+      alpha[h] = exp2_approx(m_run[h] - m_new);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < BKV / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          float& x = s[4 * j + 2 * h + e];
+          x = exp2_approx(x - m_new);  // exactly 0 where masked
+          sum += x;
+        }
+      sum += __shfl_xor_sync(0xffffffffu, sum, 1);
+      sum += __shfl_xor_sync(0xffffffffu, sum, 2);
+      l_run[h] = l_run[h] * alpha[h] + sum;
+      m_run[h] = m_new;
+    }
+
+    // O = alpha O + P V: the CUDA cores rescale, the tensor cores add P_hi V
+    // and P_lo V, key step kk's fragment from s[8kk .. 8kk + 7].
+    uint32_t p_hi[NK][4], p_lo[NK][4];
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk)
+#pragma unroll
+      for (int r = 0; r < 4; ++r)
+        split_pair(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1], p_hi[kk][r], p_lo[kk][r]);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      o[4 * j] *= alpha[0];
+      o[4 * j + 1] *= alpha[0];
+      o[4 * j + 2] *= alpha[1];
+      o[4 * j + 3] *= alpha[1];
+    }
+    sm90::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < NK; ++kk) {
+      if (kk < n16) {
+        const uint32_t vb = vt + kk * 16 * L::kRowBytes;
+        pv_step<D>(o, p_hi[kk], vb, kv_panel);
+        if (kPTerms == 2) pv_step<D>(o, p_lo[kk], vb, kv_panel);
+      }
+    }
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(o);
+    // Every warpgroup is done with stage st: thread 0 refills it.
+    __syncthreads();
+    if (tid == 0 && t + 2 < n_run) issue_kv(t + 2);
+  }
+
+  // Flush through the tiles' room, rows padded: O / l rounded once to bf16
+  // (l == 0 -- no visible key, or a padding row -- writes 0), 16-byte stores.
+  constexpr int kPitch = D + 8;
+  bf16* stage = reinterpret_cast<bf16*>(fa_smem + pad);
+  __syncthreads();
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const float inv = l_run[h] == 0.f ? 0.f : 1.f / l_run[h];
+    bf16* row = stage + (r0 + 8 * h) * kPitch + c0;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(row + 8 * j) =
+          __floats2bfloat162_rn(o[4 * j + 2 * h] * inv, o[4 * j + 2 * h + 1] * inv);
+  }
+  __syncthreads();
+  constexpr int kChunks = D / 8;  // 16-byte chunks of a row
+  bf16* og = O + (size_t)q_row * D;
+  for (int e = tid; e < bq * kChunks; e += blockDim.x) {
+    const int r = e / kChunks, c = e % kChunks;
+    *reinterpret_cast<uint4*>(og + (size_t)r * D + c * 8) =
+        *reinterpret_cast<const uint4*>(stage + r * kPitch + c * 8);
+  }
+}
+
+template <int D, int BKV, bool FULL>
+int launch_tc_as(const CUtensorMap& mq, const CUtensorMap& mk, const CUtensorMap& mv, bf16* o,
+                 int bhq, int bhkv, int sq, int skv, int bq, int bkv, int q_len, int kv_len,
+                 int causal, int window, int q_off, float scale_log2, cudaStream_t stream) {
+  const size_t smem = smem_bytes<bf16>(D, bq, bkv);
+  cudaError_t err = cudaFuncSetAttribute(
+      fa_wgmma_kernel<D, BKV, FULL>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(bhq, sq / bq);
+  fa_wgmma_kernel<D, BKV, FULL><<<grid, bq / 64 * kWgThreads, smem, stream>>>(
+      mq, mk, mv, o, bhq / bhkv, sq, skv, bq, bkv, q_len, kv_len, causal, window, q_off,
+      scale_log2);
+  return (int)cudaGetLastError();
+}
+
+// The wgmma kernel at its instantiation's (BQ, BKV) maxima, for bq a
+// multiple of 64 and bkv of 16 up to them; the planner's bf16 bytes.
+template <int D, int BQ, int BKV>
+int launch_tc(const bf16* q, const bf16* k, const bf16* v, bf16* o, int bhq, int bhkv,
+              int sq, int skv, int bq, int bkv, int q_len, int kv_len, int causal, int window,
+              int q_off, float scale_log2, cudaStream_t stream) {
+  using L = TcTile<D>;
+  if (bq < 64 || bq > BQ || bq % 64 || bkv < 16 || bkv > BKV || bkv % 16 || sq % bq ||
+      skv % bkv || bhkv <= 0 || bhq % bhkv || q_off < 0)
+    return (int)cudaErrorInvalidValue;
+  CUtensorMap mq, mk, mv;
+  cudaError_t err = sm90::tensor_map(&mq, q, bhq * sq, D, bq, L::kCols, L::kMapSwizzle);
+  if (err == cudaSuccess)
+    err = sm90::tensor_map(&mk, k, bhkv * skv, D, bkv, L::kCols, L::kMapSwizzle);
+  if (err == cudaSuccess)
+    err = sm90::tensor_map(&mv, v, bhkv * skv, D, bkv, L::kCols, L::kMapSwizzle);
+  if (err != cudaSuccess) return (int)err;
+  if (bkv == BKV)
+    return launch_tc_as<D, BKV, true>(mq, mk, mv, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                      kv_len, causal, window, q_off, scale_log2, stream);
+  return launch_tc_as<D, BKV, false>(mq, mk, mv, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                     kv_len, causal, window, q_off, scale_log2, stream);
 }
 
 }  // namespace
@@ -486,14 +843,16 @@ const char* repro_error_string(int err) {
 
 // Launch on `stream`; returns cudaGetLastError() (0 on success).  sq/skv are
 // the padded lengths, q_len/kv_len the real ones; window < 0 means none;
-// q_off is the position of q's first row; `scale` is the softmax scale (the
-// kernel folds log2(e) into it).
+// q_off is the position of q's first row; `tmpl` the kernel
+// (flash_attention.py::FLASH_TEMPLATES' index: kFma, or kWgmma for bf16);
+// `scale` is the softmax scale (the kernel folds log2(e) into it).
 int repro_flash_attention_f32(const float* q, const float* k, const float* v,
                               float* o, int bhq, int bhkv, int sq, int skv, int d,
                               int bq, int bkv, int q_len, int kv_len, int causal,
-                              int window, int q_off, float scale, void* stream) {
+                              int window, int q_off, int tmpl, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;  // log2(e)
+  if (tmpl != kFma) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:
       return launch<float, 32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
@@ -512,13 +871,33 @@ int repro_flash_attention_f32(const float* q, const float* k, const float* v,
   }
 }
 
-// The same for bf16 q, k, v and o (f32 inside).
+// The same for bf16 q, k, v and o (f32 inside): the wgmma kernel at
+// tmpl == kWgmma, else the FMA kernel.
 int repro_flash_attention_bf16(const bf16* q, const bf16* k, const bf16* v, bf16* o,
                                int bhq, int bhkv, int sq, int skv, int d, int bq, int bkv,
                                int q_len, int kv_len, int causal, int window, int q_off,
-                               float scale, void* stream) {
+                               int tmpl, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float sl2 = scale * 1.4426950408889634f;  // log2(e)
+  if (tmpl == kWgmma) {
+    switch (d) {
+      case 32:
+        return launch_tc<32, 128, 128>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                       kv_len, causal, window, q_off, sl2, s);
+      case 64:
+        return launch_tc<64, 128, 128>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                       kv_len, causal, window, q_off, sl2, s);
+      case 128:
+        return launch_tc<128, 128, 64>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                       kv_len, causal, window, q_off, sl2, s);
+      case 256:
+        return launch_tc<256, 64, 32>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,
+                                      kv_len, causal, window, q_off, sl2, s);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  }
+  if (tmpl != kFma) return (int)cudaErrorInvalidValue;
   switch (d) {
     case 32:
       return launch<bf16, 32, 128, 128, 4>(q, k, v, o, bhq, bhkv, sq, skv, bq, bkv, q_len,

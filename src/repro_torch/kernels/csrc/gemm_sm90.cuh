@@ -1,14 +1,17 @@
 // The bf16 x bf16 GEMM on Hopper's tensor cores (sm_90a), shared by the
-// forward matmul (matmul.cu, repro_matmul_bf16) and NT (matmul_bwd.cu,
-// repro_matmul_nt_bf16) at the tile the H100 planner picks for both:
+// forward matmul (matmul.cu, repro_matmul_bf16), NT and TN (matmul_bwd.cu,
+// repro_matmul_nt_bf16 / repro_matmul_tn_bf16) at the tiles the H100
+// planner picks for them:
 //
-//   C[M, Nc] = A[M, Kc] . B,  a 64 x 128 tile of C a block, 32 of Kc a step,
+//   C[M, Nc] = A . B,  a 64 x 128 tile of C a block, 32 of Kc a step,
 //
-// A row-major (Kc contiguous: X of the forward, dY of NT), B either
-// [Kc][Nc] row-major (the forward's W: Nc contiguous, "MN-major") or
-// [Nc][Kc] row-major (NT's W read as W^T: Kc contiguous, "K-major"), C f32
-// or bf16. bf16 operands, f32 sums, as repro's _mm_kernel and _mm_nt_kernel
-// take them (preferred_element_type=f32).
+// B either [Kc][Nc] row-major (the forward's W, TN's dY: Nc contiguous,
+// "MN-major") or [Nc][Kc] row-major (NT's W read as W^T: Kc contiguous,
+// "K-major"); A either [M][Kc] row-major (X of the forward, dY of NT:
+// K-major) or [Kc][M] row-major (TN's X read as X^T: MN-major); C f32 or
+// bf16. bf16 operands, f32 sums, as repro's _mm_kernel, _mm_nt_kernel and
+// _mm_tn_kernel take them (preferred_element_type=f32). The wgmma wrappers
+// below also serve flash attention's bf16 kernel (flash_attention.cu).
 //
 // What bounds it: every call on the path is far above bf16's balance point
 // on an H100 (989 TFLOP/s over 3.35 TB/s, about 295 flop/B), so the bound is
@@ -18,12 +21,13 @@
 //     warpgroup (the block's 128 threads) holds the 64 x 128 f32 tile in
 //     registers, 64 a thread.
 //   * Copies. TMA (cp.async.bulk.tensor.2d) into a ring of kStages stages,
-//     one mbarrier a stage, thread 0 issuing: the A tile [64][32] (64 B a
-//     row) with the 64-byte swizzle; B either as two [32][64] halves (128 B a
-//     row) with the 128-byte swizzle, read by wgmma as MN-major through the
-//     descriptor's transpose bit, or as one [128][32] tile with the 64-byte
-//     swizzle, K-major like A. The tensor maps are encoded on the host
-//     (cuTensorMapEncodeTiled, looked up through the CUDA runtime, so
+//     one mbarrier a stage, thread 0 issuing: a K-major A tile [64][32] (64
+//     B a row) with the 64-byte swizzle, or an MN-major one as one [32][64]
+//     box (128 B a row) with the 128-byte swizzle, read through the
+//     descriptor's transpose bit; B either as two [32][64] halves with the
+//     128-byte swizzle, MN-major as that A, or as one [128][32] tile with the
+//     64-byte swizzle, K-major like A. The tensor maps are encoded on the
+//     host (cuTensorMapEncodeTiled, looked up through the CUDA runtime, so
 //     nothing links libcuda) for each launch's pointers.
 //   * Overlap. A step's two wgmmas are one commit group; waiting for all but
 //     the newest group frees the stage of the step before, which thread 0
@@ -34,20 +38,23 @@
 //     chip_smoke.py's gate (scripts/wgmma_probe.py promote-none). So every
 //     kPromote steps the CUDA cores add the tensor cores' tile into a second
 //     f32 register tile (rounded to nearest) and the next wgmma starts its
-//     tile anew (scale-d 0): 7.8e-5 there, 0.03 of the gate.
+//     tile anew (scale-d 0): 7.8e-5 there, 0.03 of the gate. TN's dW sums
+//     the batch's 8,192 rows (256 steps) the same way.
 //   * Order. The forward walks M fastest, so that the blocks in flight share
 //     each W column strip (the logits' forward 3.6 -> 1.7 ms on an H100); NT
 //     walks its output columns fastest (scripts/wgmma_probe.py
-//     order-swapped).
+//     order-swapped); TN as kRowsFastest says (tn-order-swapped).
 //   * Shared memory. The block allocates exactly the planner's H100 term
-//     (57,344 B at bf16): the ring of four 12,288 B stages (each tile at a
-//     1024-byte boundary, as the swizzles want) and the barriers. The f32
-//     tile the planner charges lives in registers. The epilogue stages the
-//     output tile in the ring (rows padded against bank conflicts) and
-//     writes it with coalesced 16-byte stores, rounded once to C's type, or
-//     as f32 to this split part's slab (the caller sums the slabs in order).
+//     (57,344 B at bf16, each GEMM's): the ring of four 12,288 B stages (each
+//     tile at a 1024-byte boundary, as the swizzles want) and the barriers.
+//     The f32 tile the planner charges lives in registers. The epilogue
+//     stages the output tile in the ring (rows padded against bank
+//     conflicts) and writes it with coalesced 16-byte stores, rounded once
+//     to C's type, or as f32 to this split part's slab (the caller sums the
+//     slabs in order).
 // Deterministic: a fixed order of wgmmas, promotions and slabs.
-// ptxas (nvcc 12.9, sm_90a): 136 registers, no spills, for both instantiations.
+// ptxas (nvcc 12.9, sm_90a): 136 registers, no spills, for the forward's,
+// NT's and TN's instantiations.
 
 #pragma once
 
@@ -72,6 +79,11 @@ constexpr int kAlign = 1024;                   // the swizzle patterns' repeat
 constexpr int kSmemNeeded = kAlign + kRingBytes + 8 * kStages;
 constexpr int kPromote = 8;                    // wgmma steps between promotions
 constexpr int kPitch = kBN + 8;                // staged output row, in elements
+
+// The GEMMs that run mm_wgmma_kernel: their operands' layouts (above) and
+// whether the grid walks C's rows (blockIdx.x) or its columns fastest.
+enum Form { kForward = 0, kNT = 1, kTN = 2 };
+constexpr bool kRowsFastest[3] = {true, false, true};  // forward, NT, TN
 
 // -- host: tensor maps ----------------------------------------------------------
 
@@ -177,46 +189,141 @@ template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
 }
-// Keeps the compiler from moving reads or writes of the tile across the
-// asynchronous wgmmas.
-__device__ __forceinline__ void fence_tile(float (&d)[64]) {
+// Keeps the compiler from moving reads or writes of a register tile across
+// the asynchronous wgmmas.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
-// d (+)= A . B for one m64n128k16 step; `accumulate` 0 overwrites d.
-// kTransB 1: B is MN-major.
-template <int kTransB>
-__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
-                                                 uint64_t desc_b, int accumulate) {
-  asm volatile(
-      "{\n"
-      ".reg .pred p;\n"
-      "setp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7, "
-      "%8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, "
-      "%24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, "
-      "%40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, "
-      "%56, %57, %58, %59, %60, %61, %62, %63},"
-      " %64, %65, p, 1, 1, 0, %67;\n"
-      "}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
-        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
-        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
-        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
-        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
-        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
-        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
-        "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(desc_a), "l"(desc_b), "r"(accumulate), "n"(kTransB));
-}
+// The accumulator operands d[0..N/2) of an m64nNk16 wgmma.
+#define SM90_D8(i)                                                                        \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
+      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define SM90_D16(i) SM90_D8(i), SM90_D8(i + 8)
+#define SM90_D32(i) SM90_D16(i), SM90_D16(i + 16)
+#define SM90_D64(i) SM90_D32(i), SM90_D32(i + 32)
+
+// d (+)= A . B for one m64nNk16 step into the f32 tile d[0..N/2) (the wgmma
+// layout: warp w holds rows w*16.., a thread rows lane/4 and lane/4 + 8,
+// columns j*8 + (lane%4)*2 and +1 for j < N/8); `acc` 0 overwrites d.
+// ss: A and B from shared memory through descriptors, kTransA / kTransB 1
+// where that operand is MN-major. rs: A from registers (four b32 of bf16
+// pairs, the fragment of rows lane/4 and lane/4 + 8, columns (lane%4)*2 and
+// +8), B from shared memory.
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<16> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7"
+        "}, %8, %9, p, 1, 1, %11, %12;\n}\n"
+        : SM90_D8(0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTransA), "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<32> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, %16, %17, p, 1, 1, %19, %20;\n}\n"
+        : SM90_D16(0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTransA), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15"
+        "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+        : SM90_D16(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<64> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, %32, %33, p, 1, 1, %35, %36;\n}\n"
+        : SM90_D32(0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTransA), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31"
+        "}, {%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
+        : SM90_D32(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  template <int kTransA, int kTransB>
+  static __device__ __forceinline__ void ss(float* d, uint64_t da, uint64_t db, int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, %64, %65, p, 1, 1, %67, %68;\n}\n"
+        : SM90_D64(0)
+        : "l"(da), "l"(db), "r"(acc), "n"(kTransA), "n"(kTransB));
+  }
+  template <int kTransB>
+  static __device__ __forceinline__ void rs(float* d, const uint32_t (&a)[4], uint64_t db,
+                                            int acc) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+        "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+        "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+        "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+        "%60, %61, %62, %63"
+        "}, {%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
+        : SM90_D64(0)
+        : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc), "n"(kTransB));
+  }
+};
+
+#undef SM90_D64
+#undef SM90_D32
+#undef SM90_D16
+#undef SM90_D8
 
 __device__ __forceinline__ void store16(float* dst, const float* src) {
   *reinterpret_cast<float4*>(dst) = *reinterpret_cast<const float4*>(src);
@@ -256,13 +363,15 @@ __device__ __forceinline__ void store_tile(T* __restrict__ dst, int ld, int m0, 
 }
 
 // C (or this split part's f32 slab of P) = A . B over the contraction
-// steps [t0, t1) of part blockIdx.z; the grid is (Nc/kBN, M/kBM, split)
-// for NT and (M/kBM, Nc/kBN, split) for the forward.
-template <bool kBKMajor, class TC>
+// steps [t0, t1) of part blockIdx.z; the grid is (M/kBM, Nc/kBN, split)
+// where kRowsFastest[kForm], else (Nc/kBN, M/kBM, split).
+template <int kForm, class TC>
 __global__ void __launch_bounds__(kThreads)
     mm_wgmma_kernel(const __grid_constant__ CUtensorMap map_a,
                     const __grid_constant__ CUtensorMap map_b, TC* __restrict__ C,
                     float* __restrict__ P, int M, int Nc, int Kc, int split) {
+  constexpr bool kAMNMajor = kForm == kTN, kBKMajor = kForm == kNT;
+  constexpr bool kRows = kRowsFastest[kForm];
   extern __shared__ __align__(kAlign) unsigned char sm90_smem[];
   const uint32_t raw = smem_addr(sm90_smem);
   const uint32_t pad = (kAlign - (raw & (kAlign - 1))) & (kAlign - 1);
@@ -271,8 +380,8 @@ __global__ void __launch_bounds__(kThreads)
   const uint32_t ring_at = raw + pad, bars = ring_at + kRingBytes;
   const int tid = threadIdx.x;
   // The grid's order: see "Order" above.
-  const int n0 = (kBKMajor ? blockIdx.x : blockIdx.y) * kBN;
-  const int m0 = (kBKMajor ? blockIdx.y : blockIdx.x) * kBM;
+  const int m0 = (kRows ? blockIdx.x : blockIdx.y) * kBM;
+  const int n0 = (kRows ? blockIdx.y : blockIdx.x) * kBN;
   const int n_steps = Kc / kBK;
   const int t0 = (int)((long long)blockIdx.z * n_steps / split);
   const int n_t = (int)((long long)(blockIdx.z + 1) * n_steps / split) - t0;
@@ -288,7 +397,10 @@ __global__ void __launch_bounds__(kThreads)
       tma_load(at, pb, bar, n0, k);
       tma_load(at + kBTile / 2, pb, bar, n0 + kBN / 2, k);
     }
-    tma_load(at + kBTile, pa, bar, k, m0);
+    if (kAMNMajor)
+      tma_load(at + kBTile, pa, bar, m0, k);
+    else
+      tma_load(at + kBTile, pa, bar, k, m0);
   };
 
   if (tid == 0) {
@@ -314,13 +426,17 @@ __global__ void __launch_bounds__(kThreads)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < kBK / 16; ++kk) {
-        // A: 8-row groups 512 B apart, 16 of the contraction 32 B along a row.
-        const uint64_t da = descriptor(a + kk * 32, 16, 512, kSwizzle64);
+        // A K-major: 8-row groups 512 B apart, 16 of the contraction 32 B
+        // along a row; MN-major: one 64-column box, 8-row groups of the
+        // contraction 1024 B apart.
+        const uint64_t da = kAMNMajor ? descriptor(a + kk * 2048, kATile, 1024, kSwizzle128)
+                                      : descriptor(a + kk * 32, 16, 512, kSwizzle64);
         // B K-major as A; MN-major: 64-column halves 4096 B apart, 8-row
         // groups of the contraction 1024 B apart.
-        const uint64_t db = kBKMajor ? descriptor(b + kk * 32, 16, 512, kSwizzle64)
-                                     : descriptor(b + kk * 2048, kBTile / 2, 1024, kSwizzle128);
-        wgmma_m64n128k16<kBKMajor ? 0 : 1>(acc, da, db, kk > 0 || i > i0);
+        const uint64_t db = kBKMajor
+                                ? descriptor(b + kk * 32, 16, 512, kSwizzle64)
+                                : descriptor(b + kk * 2048, kBTile / 2, 1024, kSwizzle128);
+        Wgmma<kBN>::ss<kAMNMajor ? 1 : 0, kBKMajor ? 0 : 1>(acc, da, db, kk > 0 || i > i0);
       }
       wgmma_commit();
       wgmma_wait<1>();
@@ -330,7 +446,7 @@ __global__ void __launch_bounds__(kThreads)
       if (tid == 0 && i >= 1 && i - 1 + kStages < n_t) issue(i - 1 + kStages);
     }
     wgmma_wait<0>();
-    fence_tile(acc);
+    fence_regs(acc);
 #pragma unroll
     for (int j = 0; j < 64; ++j) sum[j] += acc[j];
   }
@@ -341,26 +457,31 @@ __global__ void __launch_bounds__(kThreads)
     store_tile(C, Nc, m0, n0, sum, ring);
 }
 
-// C[M, Nc] (or `split` f32 slabs of it in `part`) = A[M, Kc] . B with B
-// [Nc][Kc] (kBKMajor) or [Kc][Nc]; `smem` is the planner's bytes.
-template <bool kBKMajor, class TC>
+// C[M, Nc] (or `split` f32 slabs of it in `part`) = A . B, the operands laid
+// out as kForm's (above): A [M][Kc] or (TN) [Kc][M], B [Nc][Kc] (NT) or
+// [Kc][Nc]; `smem` is the planner's bytes.
+template <int kForm, class TC>
 cudaError_t launch_wgmma(const bf16* A, const bf16* B, TC* C, float* part, int M, int Nc,
                          int Kc, int split, size_t smem, cudaStream_t st) {
+  constexpr bool kRows = kRowsFastest[kForm];
   if (M % kBM || Nc % kBN || Kc % kBK || smem < (size_t)kSmemNeeded ||
-      (kBKMajor ? M / kBM : Nc / kBN) > 65535)
+      (kRows ? Nc / kBN : M / kBM) > 65535)
     return cudaErrorInvalidValue;
+  constexpr CUtensorMapSwizzle k64 = CU_TENSOR_MAP_SWIZZLE_64B;
+  constexpr CUtensorMapSwizzle k128 = CU_TENSOR_MAP_SWIZZLE_128B;
   CUtensorMap map_a, map_b;
-  cudaError_t err = tensor_map(&map_a, A, M, Kc, kBM, kBK, CU_TENSOR_MAP_SWIZZLE_64B);
+  cudaError_t err = kForm == kTN ? tensor_map(&map_a, A, Kc, M, kBK, kBM, k128)
+                                 : tensor_map(&map_a, A, M, Kc, kBM, kBK, k64);
   if (err == cudaSuccess)
-    err = kBKMajor ? tensor_map(&map_b, B, Nc, Kc, kBN, kBK, CU_TENSOR_MAP_SWIZZLE_64B)
-                   : tensor_map(&map_b, B, Kc, Nc, kBK, kBN / 2, CU_TENSOR_MAP_SWIZZLE_128B);
+    err = kForm == kNT ? tensor_map(&map_b, B, Nc, Kc, kBN, kBK, k64)
+                       : tensor_map(&map_b, B, Kc, Nc, kBK, kBN / 2, k128);
   if (err != cudaSuccess) return err;
-  err = cudaFuncSetAttribute((const void*)mm_wgmma_kernel<kBKMajor, TC>,
+  err = cudaFuncSetAttribute((const void*)mm_wgmma_kernel<kForm, TC>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid = kBKMajor ? dim3(Nc / kBN, M / kBM, split) : dim3(M / kBM, Nc / kBN, split);
-  mm_wgmma_kernel<kBKMajor, TC><<<grid, kThreads, smem, st>>>(map_a, map_b, C, part, M, Nc,
-                                                               Kc, split);
+  const dim3 grid = kRows ? dim3(M / kBM, Nc / kBN, split) : dim3(Nc / kBN, M / kBM, split);
+  mm_wgmma_kernel<kForm, TC><<<grid, kThreads, smem, st>>>(map_a, map_b, C, part, M, Nc, Kc,
+                                                            split);
   return cudaGetLastError();
 }
 

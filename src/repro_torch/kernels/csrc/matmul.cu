@@ -453,7 +453,7 @@ int launch(const TX* X, const TW* W, TO* O, float* part, int M, int N, int K, in
       static_assert(sm90::kBM == kBM && sm90::kBN == kBN && sm90::kBK == kBK &&
                         sm90::kSmemNeeded <= 4 * kBM * kBN + 2 * 2 * (kBM * kBK + kBK * kBN),
                     "the wgmma ring must fit the charged allocation");
-      err = sm90::launch_wgmma<false, TO>(X, W, O, part, M, N, K, split, smem, st);
+      err = sm90::launch_wgmma<sm90::kForward, TO>(X, W, O, part, M, N, K, split, smem, st);
     } else {
       static_assert(kStages * stage_bytes<TX, TW>() <=
                         sizeof(float) * kBM * kBN + 2 * stage_bytes<TX, TW>(),

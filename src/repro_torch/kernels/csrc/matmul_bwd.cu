@@ -119,6 +119,16 @@
 // part's slab). NT picks it on its tile and bf16 operands (as
 // bwd.py::nt_template names it, "wgmma"); nothing else takes bf16 at that
 // tile. ptxas (nvcc 12.9): 136 registers, no spills.
+// bf16 TN (repro_matmul_tn_bf16) at the planner's tile: the same kernel, on
+// the tensor cores. It replaces _mm_tn_kernel on the path repro trains in
+// bf16, bound by the tensor cores as NT is. dW = X^T . dY is a 64 x 128 dW
+// tile a block over 32 rows of the batch a step: X, read as X^T, is an
+// MN-major A tile (one [32][64] TMA box at the 128-byte swizzle, the
+// descriptor's transpose bit) and dY an MN-major B tile laid out as the
+// forward's W. 57,344 B, the f32 tile in registers with a promotion every 8
+// steps (the batch's 8,192 rows are 256 steps), split and summed as the FMA
+// kernel's; bwd.py::tn_template names it "wgmma" and passes the choice.
+// ptxas (nvcc 12.9): 136 registers, no spills.
 // bf16 elsewhere: every kernel is a template on the operand type T. Each
 // four-element unit of the f32 kernels (a float4, a 16-byte cp.async) is
 // four bf16 of 8 bytes, so every thread mapping, swizzle, tile and loop is
@@ -128,8 +138,8 @@
 // (cp.async moves 4 bytes at least). The fused register kernel keeps the
 // bf16 X strip in the front half of the f32 dX strip's charged room, which
 // its epilogue fills. dX and dW come out f32, as repro's FC backward asks
-// (out_dtype=f32); the caller casts them. The FMAs of TN and the fused
-// kernel stay f32 on the CUDA cores (tensor cores are later work).
+// (out_dtype=f32); the caller casts them. The FMAs of the fused kernel stay
+// f32 on the CUDA cores (tensor cores are later work).
 // bf16 dY and X against f32 W (repro_matmul_nt_bf16xf32,
 // repro_matmul_dxdw_bf16xf32: fc1's backward on the CNN's bf16 route, where
 // repro's type promotion keeps the weights f32): NT and the fused kernels
@@ -855,7 +865,7 @@ int launch_nt(const TA* G, const TW* W, float* DX, float* part, int M, int N, in
                         sm90::kSmemNeeded <= 4 * kNtBM * kNtBK + 2 * 2 * (kNtBM * kNtBN +
                                                                           kNtBN * kNtBK),
                     "the wgmma ring must fit the charged allocation");
-      err = sm90::launch_wgmma<true, float>(G, W, DX, part, M, K, N, split, smem, st);
+      err = sm90::launch_wgmma<sm90::kNT, float>(G, W, DX, part, M, K, N, split, smem, st);
       if (err != cudaSuccess || split == 1) return (int)err;
       return (int)reduce_slabs(part, DX, (size_t)M * K, split, st);
     } else {
@@ -875,26 +885,44 @@ int launch_nt(const TA* G, const TW* W, float* DX, float* part, int M, int N, in
 }
 
 // TN: grid (N/bn, K/bk, split); with split > 1 `part` holds split slabs of
-// K*N floats and a second kernel sums them into DW in order.  `reg` (from
-// bwd.py::tn_template) selects mm_tn_reg_kernel, which takes only its own
-// tile, 0 the simple kernel.
+// K*N floats and a second kernel sums them into DW in order.  `tmpl` (from
+// bwd.py::tn_template, its TN_TEMPLATES index) selects the kernel: kTnWgmma
+// (bf16 at the planner's tile) mm_wgmma_kernel, kTnRegister (f32 there)
+// mm_tn_reg_kernel, each taking only its own tile and route, kTnSimple the
+// simple kernel.
+constexpr int kTnSimple = 0, kTnRegister = 1, kTnWgmma = 2;
 template <class T>
 int launch_tn(const T* X, const T* G, float* DW, float* part, int M, int N, int K, int bm,
-              int bn, int bk, int split, int reg, void* stream) {
+              int bn, int bk, int split, int tmpl, void* stream) {
+  constexpr bool kBf16 = std::is_same<T, bf16>::value;
   const size_t smem = sizeof(float) * (size_t)bk * bn +
                       2 * sizeof(T) * ((size_t)bm * bk + (size_t)bm * bn);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const dim3 grid(N / bn, K / bk, split);
   float* dst = split > 1 ? part : DW;
   cudaError_t err;
-  if (reg) {
-    if (bm != kTnBM || bn != kTnBN || bk != kTnBK) return (int)cudaErrorInvalidValue;
-    static_assert(kTnStages * kTnStage * sizeof(T) <=
-                      sizeof(float) * kTnBK * kTnBN + 2 * kTnStage * sizeof(T),
-                  "the ring must fit the charged allocation");
-    err = set_smem((const void*)mm_tn_reg_kernel<T>, smem);
-    if (err != cudaSuccess) return (int)err;
-    mm_tn_reg_kernel<T><<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, split);
+  if (tmpl != kTnSimple) {
+    if (bm != kTnBM || bn != kTnBN || bk != kTnBK ||
+        tmpl != (kBf16 ? kTnWgmma : kTnRegister))
+      return (int)cudaErrorInvalidValue;
+    if constexpr (kBf16) {
+      // dW[K, N] = (X[M, K] read as X^T: MN-major) . dY[M, N] (MN-major, as the
+      // forward's W): the wgmma kernel with the contraction M.
+      static_assert(sm90::kBM == kTnBK && sm90::kBN == kTnBN && sm90::kBK == kTnBM &&
+                        sm90::kSmemNeeded <= 4 * kTnBK * kTnBN + 2 * 2 * (kTnBM * kTnBK +
+                                                                          kTnBM * kTnBN),
+                    "the wgmma ring must fit the charged allocation");
+      err = sm90::launch_wgmma<sm90::kTN, float>(X, G, DW, part, K, N, M, split, smem, st);
+      if (err != cudaSuccess || split == 1) return (int)err;
+      return (int)reduce_slabs(part, DW, (size_t)K * N, split, st);
+    } else {
+      static_assert(kTnStages * kTnStage * sizeof(T) <=
+                        sizeof(float) * kTnBK * kTnBN + 2 * kTnStage * sizeof(T),
+                    "the ring must fit the charged allocation");
+      err = set_smem((const void*)mm_tn_reg_kernel<T>, smem);
+      if (err != cudaSuccess) return (int)err;
+      mm_tn_reg_kernel<T><<<grid, kThreads, smem, st>>>(X, G, dst, M, N, K, split);
+    }
   } else {
     err = set_smem((const void*)mm_tn_kernel<T>, smem);
     if (err != cudaSuccess) return (int)err;
@@ -981,14 +1009,14 @@ int repro_matmul_nt_bf16xf32(const bf16* G, const float* W, float* DX, float* pa
 }
 
 int repro_matmul_tn_f32(const float* X, const float* G, float* DW, float* part, int M,
-                        int N, int K, int bm, int bn, int bk, int split, int reg,
+                        int N, int K, int bm, int bn, int bk, int split, int tmpl,
                         void* stream) {
-  return launch_tn<float>(X, G, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch_tn<float>(X, G, DW, part, M, N, K, bm, bn, bk, split, tmpl, stream);
 }
 int repro_matmul_tn_bf16(const bf16* X, const bf16* G, float* DW, float* part, int M,
-                         int N, int K, int bm, int bn, int bk, int split, int reg,
+                         int N, int K, int bm, int bn, int bk, int split, int tmpl,
                          void* stream) {
-  return launch_tn<bf16>(X, G, DW, part, M, N, K, bm, bn, bk, split, reg, stream);
+  return launch_tn<bf16>(X, G, DW, part, M, N, K, bm, bn, bk, split, tmpl, stream);
 }
 
 int repro_matmul_dxdw_f32(const float* G, const float* W, const float* X, float* DX,

@@ -20,6 +20,13 @@ and writes ``q.dtype``.  Both routes are built for head dims 32, 64, 128
 and 256, each at the blocks ``AttentionPlanner`` picks on the H100 at the
 operands' element size (:data:`MAX_BLOCKS`, :data:`MAX_BLOCKS_BF16`): at
 two bytes an element the q block doubles at D = 128 and 256.
+
+Two kernels (:func:`flash_template`): f32 runs on the CUDA cores ("fma");
+bf16 runs on the tensor cores ("wgmma": S = Q·Kᵀ and P·V as ``wgmma``, K
+and V fed by TMA, P as two bf16 terms so that it stays f32-accurate) at
+block_q 64 or 128 and block_kv a multiple of 16 up to the bf16 maxima,
+every planned bf16 block among them, and on the CUDA cores at any other
+bf16 block.  The launch passes the choice to the C entry point.
 """
 
 from __future__ import annotations
@@ -38,6 +45,8 @@ MAX_BLOCKS = {32: (128, 128), 64: (128, 128), 128: (64, 64), 256: (32, 32)}
 # The same for bf16 operands (the planner's picks at in_bytes=2).
 MAX_BLOCKS_BF16 = {32: (128, 128), 64: (128, 128), 128: (128, 64), 256: (64, 32)}
 MAX_GRID_Y = 65535  # Sq / block_q rides the grid's y axis
+FLASH_TEMPLATES = ("fma", "wgmma")  # the C entry points' `tmpl` codes
+WGMMA_ROWS, WGMMA_KEYS = 64, 16  # the wgmma kernel's block_q and block_kv multiples
 _NEG = -1e30
 
 
@@ -68,6 +77,23 @@ def supported_blocks(block_q: int, block_kv: int, head_dim: int,
     return (8 <= block_q <= mq and block_q % 8 == 0
             and 8 <= block_kv <= mkv and block_kv % 8 == 0
             and smem_bytes(block_q, block_kv, head_dim, in_bytes) <= H100.local_mem_bytes)
+
+
+def flash_template(block_q: int, block_kv: int, head_dim: int,
+                   dtype: torch.dtype = torch.float32) -> str:
+    """Which kernel a launch with these blocks, head dim and operand
+    ``dtype`` runs: "wgmma" (the tensor cores) for bf16 at a block_q that
+    is a multiple of :data:`WGMMA_ROWS` (one warpgroup each) and a
+    block_kv a multiple of :data:`WGMMA_KEYS`, up to
+    :data:`MAX_BLOCKS_BF16`; else "fma" (the CUDA cores).  The launch
+    passes this choice to the C entry point (:data:`FLASH_TEMPLATES`'
+    index), which dispatches on it."""
+    if dtype != torch.bfloat16 or head_dim not in MAX_BLOCKS_BF16:
+        return "fma"
+    mq, mkv = MAX_BLOCKS_BF16[head_dim]
+    tc = (0 < block_q <= mq and block_q % WGMMA_ROWS == 0
+          and 0 < block_kv <= mkv and block_kv % WGMMA_KEYS == 0)
+    return "wgmma" if tc else "fma"
 
 
 def _check(q, k, v, *, block_q, block_kv, window, q_len, kv_len, q_off=0):
@@ -167,15 +193,16 @@ def _launch(kernel: CudaKernel, q, k, v, *, block_q: int, block_kv: int, scale: 
     kernel.run(ctypes.c_void_p(q.data_ptr()), ctypes.c_void_p(k.data_ptr()),
                ctypes.c_void_p(v.data_ptr()), ctypes.c_void_p(out.data_ptr()),
                bhq, bhkv, sq, skv, d, block_q, block_kv, q_len, kv_len, int(causal),
-               -1 if window is None else window, int(q_off), ctypes.c_float(scale),
-               dtype=dtype)
+               -1 if window is None else window, int(q_off),
+               FLASH_TEMPLATES.index(flash_template(block_q, block_kv, d, dtype)),
+               ctypes.c_float(scale), dtype=dtype)
     return out
 
 
 flash_attention_kernel = CudaKernel(
     "flash_attention", source="flash_attention", symbol="repro_flash_attention_f32",
     bf16_symbol="repro_flash_attention_bf16",
-    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 12 + [ctypes.c_float,
+    argtypes=[ctypes.c_void_p] * 4 + [ctypes.c_int] * 13 + [ctypes.c_float,
                                                             ctypes.c_void_p],
     launch=_launch, plain=flash_attention_plain, cost=flash_attention_cost,
 )

@@ -15,7 +15,9 @@ wrapper and plain PyTorch version:
 * ``matmul_tn`` — dW[K, N] = X[M, K]^T @ dY[M, N]; M streams as the
   contraction, both tiles staged as they lie.  At the planner's tile
   (:data:`TN_REGISTER_TILE`, :func:`tn_template`) the dW tile stays in
-  registers; small grids split the M loop (:func:`tn_split`) as NT's
+  registers: on the tensor cores for bf16 operands (``wgmma`` reads X
+  as Xᵀ, M along its rows, through the transpose bit), on the CUDA cores
+  for f32; small grids split the M loop (:func:`tn_split`) as NT's
   does.  Replaces ``::_mm_tn_kernel``.
 * ``matmul_dx_dw`` — both from one read of each dY tile.  At the
   planner's tile (:data:`DXDW_REGISTER_TILE`) and one to three m-blocks
@@ -58,7 +60,8 @@ from repro_torch.plan.registry import activation_dtype
 LANE = 8  # the kernels' column group (two float4 runs per thread item)
 MAX_GRID_Y = 65535
 NT_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of NT's register and wgmma kernels
-TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of mm_tn_reg_kernel
+TN_REGISTER_TILE = (32, 128, 64)  # (block_m, block_n, block_k) of TN's register and wgmma kernels
+TN_TEMPLATES = ("simple", "register", "wgmma")  # TN's C entry point's `tmpl` codes
 DXDW_REGISTER_TILE = (64, 32, 128)  # (block_m, block_n, block_k) of mm_dxdw_reg_kernel
 DXDW_REGISTER_M_BLOCKS = 3  # the most m-blocks of dX its threads hold
 DXDW_MIXED_M_BLOCKS = 2  # the m-blocks its bf16 x f32 route is built for (the CNN at 128)
@@ -160,11 +163,16 @@ def nt_template(block_m: int, block_n: int, block_k: int,
     return "wgmma" if set(dtypes) == {torch.bfloat16} else "register"
 
 
-def tn_template(block_m: int, block_n: int, block_k: int) -> str:
-    """Which kernel a TN launch with these blocks runs: "register" at
-    :data:`TN_REGISTER_TILE`, else "simple".  The launch passes this
-    choice to the C entry point, which dispatches on it."""
-    return "register" if (block_m, block_n, block_k) == TN_REGISTER_TILE else "simple"
+def tn_template(block_m: int, block_n: int, block_k: int,
+                dtypes: tuple = (torch.float32,)) -> str:
+    """Which kernel a TN launch with these blocks and operand ``dtypes``
+    runs: at :data:`TN_REGISTER_TILE` "wgmma" (the tensor cores) where every
+    operand is bf16, else "register"; "simple" at other tiles.  The launch
+    passes this choice to the C entry point (:data:`TN_TEMPLATES`' index),
+    which dispatches on it."""
+    if (block_m, block_n, block_k) != TN_REGISTER_TILE:
+        return "simple"
+    return "wgmma" if set(dtypes) == {torch.bfloat16} else "register"
 
 
 def tn_split(*, m: int, n: int, k: int, block_m: int, block_n: int, block_k: int,
@@ -344,7 +352,8 @@ def _launch_tn(kernel: CudaKernel, x, g, *, block_m: int, block_n: int, block_k:
     kernel.run(_ptr(x), _ptr(g), _ptr(out),
                ctypes.c_void_p(part.data_ptr() if part is not None else None),
                m, n, k, block_m, block_n, block_k, split,
-               int(tn_template(block_m, block_n, block_k) == "register"), dtype=dtype)
+               TN_TEMPLATES.index(tn_template(block_m, block_n, block_k, (x.dtype, g.dtype))),
+               dtype=dtype)
     return out
 
 

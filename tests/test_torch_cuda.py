@@ -1485,3 +1485,152 @@ def test_bf16_off_the_planner_tile_stays_on_the_simple_kernel(cuda, kind, blocks
         g = _bf16(rng, m, n).to(cuda)
         got = _launched(matmul_nt_kernel, lambda: matmul_nt_kernel(g, w, **kw))
         assert_close(got, matmul_nt_kernel.plain(g, w, **kw), BF16_TOL)
+
+
+# -- TN and flash attention on the tensor cores -------------------------------------
+
+TN_TILE = (32, 128, 64)
+
+
+def _check_tn_wgmma(x, g):
+    """TN at its tile on bf16 operands: the wrapper names the wgmma kernel,
+    two launches give the same bits, f32 dW within BF16_TOL of scale (times
+    sqrt(M / 8192) past a contraction of 8192)."""
+    from repro_torch.kernels.matmul.bwd import tn_template
+
+    kw = dict(zip(("block_m", "block_n", "block_k"), TN_TILE))
+    assert tn_template(*TN_TILE, (x.dtype, g.dtype)) == "wgmma"
+    got = _launched(matmul_tn_kernel, lambda: matmul_tn_kernel(x, g, **kw))
+    assert got.dtype == torch.float32
+    assert torch.equal(got, matmul_tn_kernel(x, g, **kw))
+    want = matmul_tn_kernel.plain(x, g, **kw)
+    assert_close(got, want, _nt_tol(want, x.shape[0]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label,k,n", WGMMA_SHAPES, ids=[s[0] for s in WGMMA_SHAPES])
+def test_wgmma_tn_matches_plain_at_the_planned_shapes(cuda, label, k, n):
+    """TN at bf16 on the tensor cores at every dW shape of the planned
+    qwen1.5-0.5b and qwen3-1.7b steps (X[M, K]^T . dY[M, N], M cut to
+    256), against its plain version; two launches give the same bits."""
+    rng = np.random.default_rng(38)
+    x = _bf16(rng, WGMMA_M, k).to(cuda)
+    g = _bf16(rng, WGMMA_M, n, scale=WGMMA_M ** -0.5).to(cuda)
+    _check_tn_wgmma(x, g)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [
+    (8192, 1024, 1024),  # wo's dW at the full batch: M split 2
+    (2048, 256, 512),    # a 4 x 4 grid: M split 16
+    (4096, 256, 256),    # M split 33: unequal shares
+    (32, 64, 128),       # one block, one step
+])
+def test_wgmma_tn_splits_and_matches_plain(cuda, m, k, n):
+    """Split grids (partial f32 slabs summed in order) and the smallest
+    grid against plain; the same bits twice."""
+    rng = np.random.default_rng(39)
+    _check_tn_wgmma(_bf16(rng, m, k).to(cuda), _bf16(rng, m, n, scale=m ** -0.5).to(cuda))
+
+
+@pytest.mark.cuda
+def test_wgmma_tn_rows_and_columns_land_where_plain_puts_them(cuda):
+    """Small integers over 8 (exact in bf16, every product and partial sum
+    exact in f32) that differ in every row of X and dY (the contraction),
+    every column of X (dW's rows, X's MN-major axis) and of dY: a swizzle,
+    descriptor or fragment mapping that moves any element changes dW, which
+    must equal plain bit for bit."""
+    m, k, n = 256, 192, 384
+
+    def pattern(rows, cols, a, b):
+        i = torch.arange(rows).unsqueeze(1)
+        j = torch.arange(cols).unsqueeze(0)
+        return (((i * a + j * b) % 17 - 8) / 8).to(torch.bfloat16).to(cuda)
+
+    x, g = pattern(m, k, 7, 11), pattern(m, n, 5, 3)
+    kw = dict(zip(("block_m", "block_n", "block_k"), TN_TILE))
+    got = _launched(matmul_tn_kernel, lambda: matmul_tn_kernel(x, g, **kw))
+    assert torch.equal(got, matmul_tn_kernel.plain(x, g, **kw))
+
+
+# Flash's wgmma kernel: (D, block_q, block_kv) at the planner's bf16 blocks and
+# at smaller ones it takes (block_q 64, block_kv a multiple of 16 below the
+# maxima); (B, Hq, Hkv, S, q_len, window) causal cases: plain, windowed, GQA
+# 16/8 and 64/8, a ragged 1900 padded to 1920.
+FLASH_TC_BLOCKS = [(32, 128, 128), (64, 128, 128), (128, 128, 64), (256, 64, 32),
+                   (64, 64, 32), (128, 64, 16), (32, 128, 48)]
+FLASH_TC_CASES = [(1, 4, 4, 512, 512, None), (1, 4, 2, 512, 512, 100),
+                  (1, 16, 8, 512, 512, None), (1, 64, 8, 256, 256, None),
+                  (1, 4, 2, 1920, 1900, None)]
+
+
+def _flash_tc(cuda, d, bq, bkv, B, Hq, Hkv, S, q_len, kv_len, window, q_off=0, seed=40):
+    """(q, k, v, kwargs) at [B*H, S, d] (rows past the lengths zero), S
+    padded to the blocks, after checking the wrapper names the wgmma
+    kernel."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_template
+
+    assert flash_template(bq, bkv, d, torch.bfloat16) == "wgmma"
+    rng = np.random.default_rng(seed)
+    sq, skv = -(-S // bq) * bq, -(-kv_len // bkv) * bkv
+    q = torch.zeros(B * Hq, sq, d, dtype=torch.bfloat16)
+    k = torch.zeros(B * Hkv, skv, d, dtype=torch.bfloat16)
+    v = torch.zeros(B * Hkv, skv, d, dtype=torch.bfloat16)
+    q[:, :q_len] = _bf16(rng, B * Hq, q_len, d)
+    k[:, :kv_len], v[:, :kv_len] = _bf16(rng, B * Hkv, kv_len, d), _bf16(rng, B * Hkv, kv_len, d)
+    kw = dict(block_q=bq, block_kv=bkv, scale=d ** -0.5, causal=True, window=window,
+              q_len=q_len, kv_len=kv_len, q_off=q_off)
+    return q.to(cuda), k.to(cuda), v.to(cuda), kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,bkv", FLASH_TC_BLOCKS)
+@pytest.mark.parametrize("case", FLASH_TC_CASES,
+                         ids=["causal", "window100", "gqa16/8", "gqa64/8", "ragged1900"])
+def test_flash_wgmma_matches_plain_on_card(cuda, d, bq, bkv, case):
+    """Flash's bf16 route on the tensor cores against its plain version on
+    the same bf16 operands: within one bf16 ulp (at 2^-8 of the largest);
+    the padding rows 0; two launches give the same bits."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    B, Hq, Hkv, S, q_len, window = case
+    q, k, v, kw = _flash_tc(cuda, d, bq, bkv, B, Hq, Hkv, S, q_len, q_len, window)
+    got = _launched(flash_attention_kernel, lambda: flash_attention_kernel(q, k, v, **kw))
+    assert torch.equal(got, flash_attention_kernel(q, k, v, **kw))
+    want = flash_attention_kernel.plain(q, k, v, **kw)
+    assert_within_ulp(got[:, :q_len], want[:, :q_len])
+    assert bool((got[:, q_len:] == 0).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,bkv", FLASH_TC_BLOCKS[:4])
+@pytest.mark.parametrize("q_off,window", [(200, None), (512, 1024), (1000, None),
+                                          (1536, 300)])
+def test_flash_wgmma_at_a_query_offset_matches_the_whole_call(cuda, d, bq, bkv, q_off, window):
+    """A 512-row slice of a causal 2048 (GQA 4/2) at ``q_off`` (a multiple
+    of block_q, and not): within one ulp of its plain version, and bit for
+    bit the same rows of the whole call (a key block a row cannot see adds
+    exact zeros)."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    q, k, v, kw = _flash_tc(cuda, d, bq, bkv, 1, 4, 2, 2048, 2048, 2048, window)
+    whole = flash_attention_kernel(q, k, v, **kw)
+    qs = q[:, q_off:q_off + 512].contiguous()
+    kws = dict(kw, q_len=512, q_off=q_off)
+    got = _launched(flash_attention_kernel, lambda: flash_attention_kernel(qs, k, v, **kws))
+    assert_within_ulp(got, flash_attention_kernel.plain(qs, k, v, **kws))
+    assert torch.equal(got, whole[:, q_off:q_off + 512])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,bq,bkv", FLASH_TC_BLOCKS)
+def test_flash_wgmma_rows_with_no_visible_key_are_zero(cuda, d, bq, bkv):
+    """A window of 16 over 128 keys and 256 query rows: rows 143.. see no
+    key and are written 0; the rest within one ulp of plain."""
+    from repro_torch.kernels.flash_attention.flash_attention import flash_attention_kernel
+
+    q, k, v, kw = _flash_tc(cuda, d, bq, bkv, 1, 4, 2, 256, 256, 128, 16)
+    got = _launched(flash_attention_kernel, lambda: flash_attention_kernel(q, k, v, **kw))
+    assert bool((got[:, 143:] == 0).all()) and bool((got[:, :128] != 0).any())
+    assert torch.equal(got, flash_attention_kernel(q, k, v, **kw))
+    assert_within_ulp(got, flash_attention_kernel.plain(q, k, v, **kw))
